@@ -5,21 +5,31 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. device — the card's name, power limit and compute capability;
-2. build — both CUDA kernels from the checkout's sources, one nvcc each,
+2. build — every CUDA kernel from the checkout's sources, one nvcc each,
    in parallel (xotorch_support_jetson_tpu_torch/ops/kernels.py);
-3. kernels — K1 (flash prefill) and K2 (flash decode) against their plain
-   PyTorch versions at llama-3.2-1b's attention shapes (Hq 32, Hkv 8, hd 64,
-   bf16, cache 4096): error, kernel / plain / SDPA time and the card's bound;
-4. serving — a seeded random-weight bf16 checkpoint with llama-3.2-1b's
-   published shapes is written with the port's safetensors writer, and the
-   port's daemon path (main → node → API) serves blocking and streaming
-   chat completions on it, greedy and sampled, then again with
-   XOT_TPU_FLASH_DECODE=1 XOT_TPU_FLASH_DECODE_MIN=4096. The launch counters
-   are zeroed just before these requests and read just after: both kernels
-   must have run. Blocking and streaming greedy token ids must be equal, and
-   the served model's prefill and decode logits must agree with the plain
-   attention path on the same weights. Last, ``torch.profiler`` splits one
-   prefill and eight decode steps into host and device time.
+3. kernels — K1 (flash prefill), K2 (flash decode) and K3 (paged decode,
+   bf16 / int8 / int4 pages) against their plain PyTorch versions at
+   llama-3.2-1b's attention shapes (Hq 32, Hkv 8, hd 64, bf16, cache 4096;
+   page size 64, 64 pages per row for K3): error, kernel / plain / SDPA
+   time and the card's bound;
+4. solo serving — a seeded random-weight bf16 checkpoint with
+   llama-3.2-1b's published shapes is written with the port's safetensors
+   writer, and the port's daemon path (main → node → API) serves blocking
+   and streaming chat completions on it, greedy and sampled, then again
+   with XOT_TPU_FLASH_DECODE=1 XOT_TPU_FLASH_DECODE_MIN=4096. The launch
+   counters are zeroed just before these requests and read just after: K1
+   and K2 must have run. Blocking and streaming greedy token ids must be
+   equal, and the served model's prefill and decode logits must agree with
+   the plain attention path on the same weights. ``torch.profiler`` splits
+   one prefill and eight decode steps into host and device time;
+5. batched serving — the same checkpoint through the daemon with
+   XOT_TPU_BATCHED=1 (8 slots, 64-token pages, cache 4096): 16 concurrent
+   streaming greedy requests sharing a 128-token system prefix, once per KV
+   pool type (bf16, int8, int4). The counters are zeroed just before each
+   pass and read just after: K1 (bf16 and int8 prefill) and K3 must have
+   run, and prefix pages must have been shared. One batched decode step's
+   logits through K3 must agree with the gather path on the same pool, and
+   ``torch.profiler`` splits a decode chunk into host and device time.
 
 The last two lines are the card as ``nvidia-smi`` reports it and
 ``{"ok": true, "device": {...}}``; the line before them is the kernels' JSON
@@ -47,6 +57,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, same source
 K1_ATOL = 3e-2  # bf16 output + bf16-rounded probabilities in the P·V product
 K2_ATOL = 1e-2  # bf16 output; f32 math inside
+# K3 elementwise: |got - ref| <= K3_ATOL + K3_RTOL * |ref|. f32 math inside
+# and a bf16 output, so the two may differ by one bf16 rounding step
+# (<= 2^-7 of the value); the absolute part is twice the largest reading on
+# the card (1.2e-4). Outputs at a 4k context are ~0.02, so a split-K merge
+# off by a few percent fails.
+K3_ATOL = 2.5e-4
+K3_RTOL = 2.0**-7
 # llama-3.2-1b: meta-llama/Llama-3.2-1B config.json (published values).
 LLAMA_3_2_1B = {
   "architectures": ["LlamaForCausalLM"], "model_type": "llama", "vocab_size": 128256, "hidden_size": 2048,
@@ -57,6 +74,9 @@ LLAMA_3_2_1B = {
 }
 CACHE = 4096  # the serving cap (XOT_TPU_MAX_SEQ default)
 MAX_TOKENS = 64
+PAGE = 64  # XOT_TPU_PAGE_SIZE default
+BATCH_SLOTS = 8
+KV_MODES = {"bf16": "", "int8": "int8", "int4": "int4"}
 
 
 def log(msg: str) -> None:
@@ -89,7 +109,7 @@ def phase_build():
   for name, lib in libs.items():
     regs = [ln.split("info    : ")[-1] for ln in lib.with_suffix(".log").read_text().splitlines() if "registers" in ln or "spill" in ln]
     log(f"[build] {name}: {lib.name}; ptxas: {' | '.join(sorted(set(regs)))[:400]}")
-  log(f"[build] both kernels built in {dt:.2f} s (parallel nvcc)")
+  log(f"[build] {len(libs)} kernels built in {dt:.2f} s (parallel nvcc)")
   return dt
 
 
@@ -199,7 +219,97 @@ def phase_kernels(torch):
     )
     results["flash_decode"].append(row)
     log(f"[kernels] flash_decode B={B} positions={positions} cache={CACHE}: max|err| {err:.3e} (tol {K2_ATOL}) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | sdpa {row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+  results["paged_decode"] = paged_kernel_rows(torch, gen, Hq, Hkv, hd)
+  results["int4_matmul_bound"] = int4_matmul_bound()
   return results
+
+
+def int4_matmul_bound():
+  """K4 (``int4_matmul``, not ported yet): the bytes one llama-3.2-1b decode
+  step would stream through it — every layer projection and the tied LM
+  head packed two codes per byte, plus one f32 scale per output channel —
+  and the resulting bound at 3.35 TB/s. Computed from the config, no card
+  work."""
+  c = LLAMA_3_2_1B
+  D, F_, V, L = c["hidden_size"], c["intermediate_size"], c["vocab_size"], c["num_hidden_layers"]
+  qd, kd = c["num_attention_heads"] * c["head_dim"], c["num_key_value_heads"] * c["head_dim"]
+  shapes = [(D, qd), (D, kd), (D, kd), (qd, D), (D, F_), (D, F_), (F_, D)] * L + [(D, V)]  # [in, out]
+  per_call = [d_in * d_out // 2 + d_out * 4 for d_in, d_out in shapes]
+  step = sum(per_call)
+  res = dict(calls_per_step=len(shapes), bytes_per_step=step, bound_ms_per_step=step / HBM_BYTES_PER_S * 1e3, head_bytes=per_call[-1], head_bound_ms=per_call[-1] / HBM_BYTES_PER_S * 1e3, mlp_bytes=per_call[4], mlp_bound_ms=per_call[4] / HBM_BYTES_PER_S * 1e3)
+  log(f"[kernels] int4_matmul (K4, to port) at llama-3.2-1b decode: {res['calls_per_step']} calls per step, {step / 1e6:.2f} MB packed weights + scales -> bound {res['bound_ms_per_step']:.5f} ms per step; LM head {res['head_bytes'] / 1e6:.2f} MB -> {res['head_bound_ms']:.5f} ms; one MLP projection {res['mlp_bytes'] / 1e6:.2f} MB -> {res['mlp_bound_ms']:.5f} ms")
+  return res
+
+
+def paged_kernel_rows(torch, gen, Hq, Hkv, hd):
+  """K3 against its plain version at the batched path's pool geometry
+  (page size 64, 64 pages per row = the 4096 cache), per pool type. Each
+  row's pages are shuffled, non-contiguous ids; table entries past a row's
+  last page hold junk the kernel must never read."""
+  import torch.nn.functional as F
+
+  from xotorch_support_jetson_tpu_torch.models.quantize import quantize_kv, quantize_kv_int4
+  from xotorch_support_jetson_tpu_torch.ops import paged
+
+  mp = CACHE // PAGE
+  rows = []
+  for lengths in ([1], [64], [65], [4096], [1, 64, 65, 777, 1500, 2048, 3333, 4096]):
+    B = len(lengths)
+    P = B * mp + 1
+    q = _rand(torch, (B, Hq, hd), gen, torch.bfloat16)
+    k_f = _rand(torch, (P, Hkv, PAGE, hd), gen, torch.bfloat16)
+    v_f = _rand(torch, (P, Hkv, PAGE, hd), gen, torch.bfloat16)
+    ids = torch.randperm(P - 1, generator=gen, device="cuda").to(torch.int32).add_(1).reshape(B, mp)
+    valid = torch.arange(mp, device="cuda")[None, :] < torch.tensor([-(-n // PAGE) for n in lengths], device="cuda")[:, None]
+    bt = torch.where(valid, ids, torch.full_like(ids, 1 << 30))  # junk past each row's pages
+    bt_clean = torch.where(valid, ids, torch.zeros_like(ids))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    for kv in KV_MODES:
+      k, v, scales = k_f, v_f, {}
+      if kv != "bf16":
+        quant = quantize_kv_int4 if kv == "int4" else quantize_kv
+        (k, ks), (v, vs) = quant(k_f), quant(v_f)
+        scales = dict(k_scale_pool_l=ks, v_scale_pool_l=vs)
+      got = paged.paged_decode_attention(q, k, v, bt, lens, PAGE, **scales)
+      want = paged.paged_decode_attention_ref(q, k, v, bt_clean, lens, PAGE, **scales)
+      torch.cuda.synchronize()
+      diff = (got.float() - want.float()).abs()
+      err = diff.max().item()
+      # Share of the allowed error used by the worst element (<= 1 passes).
+      used = (diff / (K3_ATOL + K3_RTOL * want.float().abs())).max().item()
+      if not torch.isfinite(got).all() or not used <= 1.0:
+        raise SystemExit(f"chip_smoke: paged_decode disagrees with its plain version (lengths={lengths} kv={kv}): max|err| {err}, {used:.2f}x the bound atol {K3_ATOL} + rtol {K3_RTOL}·|ref|")
+      live = sum(lengths)
+      elem = {"bf16": 2.0, "int8": 1.0, "int4": 0.5}[kv]
+      kv_bytes = 2 * live * Hkv * (hd * elem + (4 if kv != "bf16" else 0))  # K and V codes (+ scales) of the live slots
+      nbytes = kv_bytes + 2 * B * Hq * hd * 2 + sum(-(-n // PAGE) for n in lengths) * 4 + B * 4
+      flops = 4 * hd * Hq * live
+      bound_flops, bound_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+      # Yardstick (the port never calls it): SDPA over the window gathered
+      # and dequantized to bf16 beforehand, with a position mask; the gather
+      # is outside the timing.
+      kd = paged.gather_pages(k, bt_clean)
+      vd = paged.gather_pages(v, bt_clean)
+      if kv != "bf16":
+        from xotorch_support_jetson_tpu_torch.models.quantize import unpack_int4_kv
+
+        if kv == "int4":
+          kd, vd = unpack_int4_kv(kd), unpack_int4_kv(vd)
+        kd = (kd.float() * paged.gather_pages(scales["k_scale_pool_l"], bt_clean)).to(torch.bfloat16)
+        vd = (vd.float() * paged.gather_pages(scales["v_scale_pool_l"], bt_clean)).to(torch.bfloat16)
+      qt, kt, vt = q[:, :, None, :], kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+      mask = (torch.arange(mp * PAGE, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+      row = dict(
+        B=B, lengths=lengths, kv=kv, max_abs_err=err, tol=dict(atol=K3_ATOL, rtol=K3_RTOL), tol_used=used,
+        ms=_cuda_ms(torch, lambda: paged.paged_decode_attention(q, k, v, bt, lens, PAGE, **scales)),
+        plain_ms=_cuda_ms(torch, lambda: paged.paged_decode_attention_ref(q, k, v, bt_clean, lens, PAGE, **scales), iters=10),
+        library_ms=_cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+        library="sdpa over the pre-gathered bf16 window, position mask (gather and dequant not timed)",
+        bound_ms=max(bound_flops, bound_bytes), bound_by="operations" if bound_flops >= bound_bytes else "bytes",
+      )
+      rows.append(row)
+      log(f"[kernels] paged_decode B={B} lengths={lengths if B == 1 else 'mixed 1..4096'} kv={kv} page={PAGE} mp={mp}: max|err| {err:.3e} ({used:.3f} of the bound atol {K3_ATOL} + rtol 2^-7·|ref|) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | sdpa (pre-gathered window) {row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']}, {nbytes / 1e6:.2f} MB)")
+  return rows
 
 
 # ---------------------------------------------------------------- 4. serving
@@ -254,7 +364,8 @@ def write_checkpoint(torch, path: Path) -> float:
 
 
 def _post(port: int, body: dict):
-  """One chat completion; returns (text, finish_reason, ttft_s, total_s, n_events)."""
+  """One chat completion; returns (text, finish_reason, ttft_s, total_s,
+  n_events, request_id)."""
   req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/chat/completions", data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
   t0 = time.perf_counter()
   with urllib.request.urlopen(req, timeout=600) as resp:
@@ -263,8 +374,8 @@ def _post(port: int, body: dict):
     if not body.get("stream"):
       data = json.loads(resp.read())
       dt = time.perf_counter() - t0
-      return data["choices"][0]["message"]["content"], data["choices"][0]["finish_reason"], None, dt, 1
-    text, finish, ttft, n = "", None, None, 0
+      return data["choices"][0]["message"]["content"], data["choices"][0]["finish_reason"], None, dt, 1, data["id"].removeprefix("chatcmpl-")
+    text, finish, ttft, n, rid = "", None, None, 0, None
     for raw in resp:
       line = raw.decode().strip()
       if not line.startswith("data: ") or line == "data: [DONE]":
@@ -273,12 +384,13 @@ def _post(port: int, body: dict):
       if "error" in ev:
         raise SystemExit(f"chip_smoke: streaming error {ev['error']}")
       ttft = ttft if ttft is not None else time.perf_counter() - t0
+      rid = rid or ev["id"].removeprefix("chatcmpl-")
       choice = ev["choices"][0]
       if choice["delta"].get("content"):
         text += choice["delta"]["content"]
         n += 1
       finish = choice["finish_reason"] or finish
-    return text, finish, ttft, time.perf_counter() - t0, n
+    return text, finish, ttft, time.perf_counter() - t0, n, rid
 
 
 async def _serve_requests(torch, node, engine, port, plan):
@@ -289,7 +401,7 @@ async def _serve_requests(torch, node, engine, port, plan):
   out = []
   for label, body in plan:
     before = set(ids)
-    text, finish, ttft, total, n_events = await asyncio.to_thread(_post, port, body)
+    text, finish, ttft, total, n_events, _ = await asyncio.to_thread(_post, port, body)
     new = [rid for rid in ids if rid not in before]
     if len(new) != 1:
       raise SystemExit(f"chip_smoke: expected one request's tokens for {label}, saw {len(new)}")
@@ -406,24 +518,27 @@ def profile_serving(torch, engine, steps=8):
   return out
 
 
-def phase_serving(torch):
+SERVING_KNOBS = ("XOT_TPU_FLASH_DECODE", "XOT_TPU_FLASH_DECODE_MIN", "XOT_TPU_NO_FLASH", "XOT_TPU_KV_QUANT", "XOT_TPU_PLATFORM", "XOT_TPU_BATCHED", "XOT_TPU_PAGED_KERNEL")
+
+
+def _daemon_args(tmain, ckpt: Path):
+  from xotorch_support_jetson_tpu_torch.utils.helpers import find_available_port
+
+  os.environ["XOT_TPU_MODEL_DIR"] = str(ckpt)
+  for knob in SERVING_KNOBS:
+    os.environ.pop(knob, None)
+  port = find_available_port("127.0.0.1")
+  args = tmain.build_parser().parse_args(["--discovery-module", "none", "--chatgpt-api-port", str(port), "--default-model", "llama-3.2-1b", "--max-generate-tokens", str(MAX_TOKENS), "--node-id", "chip-smoke"])
+  return args, port
+
+
+def phase_serving(torch, ckpt: Path):
   from xotorch_support_jetson_tpu_torch import main as tmain
   from xotorch_support_jetson_tpu_torch.inference.shard import Shard
   from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa
-  from xotorch_support_jetson_tpu_torch.utils.helpers import find_available_port
 
-  ckpt = ROOT / "build" / "smoke_ckpt"
-  try:
-    write_s = write_checkpoint(torch, ckpt)
-    log(f"[serving] wrote a random bf16 llama-3.2-1b checkpoint ({sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9:.2f} GB) in {write_s:.1f} s")
-    os.environ["XOT_TPU_MODEL_DIR"] = str(ckpt)
-    for knob in ("XOT_TPU_FLASH_DECODE", "XOT_TPU_FLASH_DECODE_MIN", "XOT_TPU_NO_FLASH", "XOT_TPU_KV_QUANT", "XOT_TPU_PLATFORM"):
-      os.environ.pop(knob, None)
-    port = find_available_port("127.0.0.1")
-    args = tmain.build_parser().parse_args(["--discovery-module", "none", "--chatgpt-api-port", str(port), "--default-model", "llama-3.2-1b", "--max-generate-tokens", str(MAX_TOKENS), "--node-id", "chip-smoke"])
-    return asyncio.run(_serve(torch, tmain, Shard, fa, args, port))
-  finally:
-    shutil.rmtree(ckpt, ignore_errors=True)
+  args, port = _daemon_args(tmain, ckpt)
+  return asyncio.run(_serve(torch, tmain, Shard, fa, args, port))
 
 
 async def _serve(torch, tmain, Shard, fa, args, port):
@@ -486,6 +601,171 @@ async def _serve(torch, tmain, Shard, fa, args, port):
     engine.executor.shutdown(wait=True)
 
 
+# ------------------------------------------------------------- 5. batched
+
+
+SYSTEM_PREFIX = "You are a careful assistant. Answer in plain words, keep every answer short, and say when you do not know an answer."
+
+
+def batched_bodies(n=16):
+  """16 greedy streaming chat requests. The byte-level chat template puts
+  BOS + "<|system|>" + the 116-byte system prompt + newline first: the
+  same 128 tokens (two full 64-token pages) in every prompt. The user
+  suffixes are distinct, 16 to 400 bytes."""
+  if len(ByteTokenizer().encode(f"<|system|>{SYSTEM_PREFIX}\n")) != 2 * PAGE:
+    raise SystemExit("chip_smoke: the shared system prefix must be exactly two pages")
+  words = "the quick brown fox jumps over a lazy dog while seven tired owls count the stars above an old mill".split()
+  bodies = []
+  for i in range(n):
+    size = 16 + (384 * i) // (n - 1)
+    text = f"request {i}: " + " ".join(words[(i + j) % len(words)] for j in range(size))
+    msgs = [{"role": "system", "content": SYSTEM_PREFIX}, {"role": "user", "content": text[:size]}]
+    bodies.append({"model": "llama-3.2-1b", "messages": msgs, "stream": True, "temperature": 0, "max_tokens": MAX_TOKENS})
+  return bodies
+
+
+def _pctl(xs, q):
+  xs = sorted(xs)
+  return xs[min(len(xs) - 1, max(0, math.ceil(q * len(xs)) - 1))]  # nearest rank
+
+
+def phase_batched(torch, ckpt: Path):
+  from xotorch_support_jetson_tpu_torch import main as tmain
+
+  args, port = _daemon_args(tmain, ckpt)
+  os.environ.update(XOT_TPU_BATCHED="1", XOT_TPU_BATCH_SLOTS=str(BATCH_SLOTS), XOT_TPU_PAGE_SIZE=str(PAGE))
+  try:
+    return asyncio.run(_serve_batched(torch, tmain, args, port))
+  finally:
+    for knob in ("XOT_TPU_BATCHED", "XOT_TPU_BATCH_SLOTS", "XOT_TPU_PAGE_SIZE", "XOT_TPU_KV_QUANT"):
+      os.environ.pop(knob, None)
+
+
+async def _serve_batched(torch, tmain, args, port):
+  from concurrent.futures import ThreadPoolExecutor
+
+  from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, paged
+
+  node, api, engine, _ = tmain.build_components(args, tokenizer=ByteTokenizer())
+  server = await api.run(host="127.0.0.1", port=port)
+  clients = ThreadPoolExecutor(max_workers=16)  # one client thread per concurrent request
+  loop = asyncio.get_running_loop()
+  try:
+    await engine.ensure_shard(Shard("llama-3.2-1b", 0, 15, 16))
+    ids: dict[str, list[int]] = {}
+    node.on_token.register("chip_smoke").on_next(lambda rid, toks, fin: ids.setdefault(rid, []).extend(toks))
+    bodies = batched_bodies()
+    passes = {}
+    for kv, quant in KV_MODES.items():
+      engine._drop_batched_server()  # a fresh pool of this type
+      os.environ["XOT_TPU_KV_QUANT"] = quant
+      warm = {"model": "llama-3.2-1b", "messages": [{"role": "user", "content": "warm up"}], "stream": True, "temperature": 0, "max_tokens": 9}
+      await loop.run_in_executor(clients, _post, port, warm)  # first cuBLAS/kernel work off the clock
+      bserver = engine.get_batched_server()
+      hits0 = bserver.prefix_hit_pages
+      fa.reset_launch_counts()  # ---- the batched main path, counted
+      paged.reset_launch_counts()
+      t0 = time.perf_counter()
+      replies = await asyncio.gather(*(loop.run_in_executor(clients, _post, port, b) for b in bodies))
+      wall = time.perf_counter() - t0
+      launches = {"flash_prefill": fa.LAUNCHES["flash_prefill"], "flash_decode": fa.LAUNCHES["flash_decode"], "paged_decode": paged.LAUNCHES["paged_decode"]}  # ---- read just after
+      hits = bserver.prefix_hit_pages - hits0
+      reqs = []
+      for (text, finish, ttft, total, n_events, rid), b in zip(replies, bodies):
+        toks = ids.get(rid, [])
+        if not toks or len(toks) > MAX_TOKENS or finish not in ("stop", "length"):
+          raise SystemExit(f"chip_smoke: batched {kv}: request {rid} gave {len(toks)} tokens, finish {finish}")
+        reqs.append(dict(rid=rid, tokens=len(toks), ttft_s=ttft, total_s=total, decode_tok_s=(len(toks) - 1) / max(total - ttft, 1e-9), user_bytes=len(b["messages"][1]["content"])))
+      n_tok = sum(r["tokens"] for r in reqs)
+      res = dict(
+        kv=kv, requests=len(reqs), wall_s=wall, tokens=n_tok, aggregate_tok_s=n_tok / wall,
+        ttft_p50_s=_pctl([r["ttft_s"] for r in reqs], 0.5), ttft_p95_s=_pctl([r["ttft_s"] for r in reqs], 0.95),
+        decode_tok_s_p50=_pctl([r["decode_tok_s"] for r in reqs], 0.5), decode_tok_s_min=min(r["decode_tok_s"] for r in reqs),
+        launches=launches, prefix_hit_pages=hits, pool_pages=bserver.allocator.n_pages, per_request=reqs,
+      )
+      need_k1 = kv != "int4"  # int4 pages prefill through the plain attention, as the reference gates K1
+      if launches["paged_decode"] == 0 or (need_k1 and launches["flash_prefill"] == 0) or hits == 0 or launches["flash_decode"] != 0:
+        raise SystemExit(f"chip_smoke: batched {kv}: launches {launches}, shared-page hits {hits}")
+      if bserver.busy() or bserver.allocator.audit()["referenced"]:
+        raise SystemExit(f"chip_smoke: batched {kv}: the server did not drain: {bserver.allocator.audit()}")
+      passes[kv] = res
+      log(f"[batched] kv={kv}: {len(reqs)} streaming requests, {n_tok} tokens in {wall:.3f} s: aggregate {res['aggregate_tok_s']:.1f} tok/s | TTFT p50 {res['ttft_p50_s']:.4f} s p95 {res['ttft_p95_s']:.4f} s | per-request decode p50 {res['decode_tok_s_p50']:.2f} tok/s (min {res['decode_tok_s_min']:.2f}) | launches {launches} | shared prefix pages {hits} | pool {res['pool_pages']} pages")
+    os.environ.pop("XOT_TPU_KV_QUANT", None)
+    node.on_token.deregister("chip_smoke")
+    out = dict(passes=passes, check=check_batched_against_plain(torch, engine))
+    log(f"[batched] one decode step through K3 vs the gather path on the same pool (rel L2 of logits): {out['check']}")
+    out["profile"] = profile_batched(torch, engine)
+    return out
+  finally:
+    clients.shutdown(wait=True)
+    server.close()
+    await server.wait_closed()
+    engine.executor.shutdown(wait=True)
+
+
+def _batched_rows(torch, engine, B=BATCH_SLOTS, mp=16, quant=""):
+  """A pool holding B prefilled rows (prompt lengths 150..600, shuffled
+  pages): (pool, block tables, next tokens, positions)."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import prefill_into_pages_many
+  from xotorch_support_jetson_tpu_torch.ops.paged import init_paged_pool
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+  pool = init_paged_pool(cfg, cfg.n_layers, B * mp + 1, PAGE, quant=quant, device="cuda")
+  bt = (torch.randperm(B * mp, generator=gen, device="cuda").to(torch.int32) + 1).reshape(B, mp)
+  lens = torch.linspace(150, 600, B, device="cuda").to(torch.int32)
+  toks = torch.randint(0, 256, (B, 640), generator=gen, device="cuda", dtype=torch.int32)
+  zeros = torch.zeros(B, dtype=torch.int32, device="cuda")
+  last, pool = prefill_into_pages_many(params, cfg, shard, toks, pool, bt, zeros, lens, PAGE)
+  return pool, bt, last.argmax(-1).to(torch.int32)[:, None], lens
+
+
+def check_batched_against_plain(torch, engine):
+  """One batched decode step (B=8) through K3 and through the gather path
+  (paged_gqa_attention_ref) on copies of the same pool, per pool type."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import paged_decode_forward
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  res = {}
+  for kv, quant in KV_MODES.items():
+    pool, bt, tok, lens = _batched_rows(torch, engine, quant=quant)
+    out = {}
+    for use_kernel in (True, False):
+      copy = {k: v.clone() for k, v in pool.items()}
+      out[use_kernel], _ = paged_decode_forward(params, cfg, shard, tok, lens[:, None], copy, bt, PAGE, use_kernel)
+    got, want = out[True], out[False]
+    if tuple(got.shape) != (BATCH_SLOTS, 1, cfg.vocab_size) or not torch.isfinite(got).all():
+      raise SystemExit(f"chip_smoke: batched step logits: shape {tuple(got.shape)} or non-finite values")
+    res[kv] = dict(rel_err=_rel_err(got, want), argmax_agree=float((got.argmax(-1) == want.argmax(-1)).float().mean()))
+    # Same criterion as the solo check: bf16 over 16 layers, 5e-2 relative.
+    if not res[kv]["rel_err"] < 5e-2:
+      raise SystemExit(f"chip_smoke: batched decode step through K3 disagrees with the gather path ({kv}): {res[kv]}")
+  return res
+
+
+def profile_batched(torch, engine, steps=8):
+  """One batched decode chunk (B=8, bf16 pool, prompts 150..600) through
+  the engine's batch ops: with K3, and with the gather path
+  (XOT_TPU_PAGED_KERNEL=0)."""
+  pool, bt, tok, lens = _batched_rows(torch, engine)
+  ops = engine.batch_ops
+  active = torch.ones(BATCH_SLOTS, dtype=torch.bool, device="cuda")
+  temps = torch.zeros(BATCH_SLOTS, dtype=torch.float32, device="cuda")
+  top_ks = torch.full((BATCH_SLOTS,), 35, dtype=torch.int32, device="cuda")
+
+  def chunk():
+    ops.paged_batch_decode(tok, pool, bt, lens, active, temps, top_ks, steps, k_max=64, page_size=PAGE, key=SEED)
+
+  out = {"decode_k3": _profile(torch, f"batched decode chunk with K3, B={BATCH_SLOTS}, {steps} steps", chunk, 3)}
+  os.environ["XOT_TPU_PAGED_KERNEL"] = "0"
+  try:
+    out["decode_gather"] = _profile(torch, f"batched decode chunk with the gather path, B={BATCH_SLOTS}, {steps} steps", chunk, 3)
+  finally:
+    os.environ.pop("XOT_TPU_PAGED_KERNEL")
+  return out
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -500,21 +780,37 @@ def main() -> int:
   smi = phase_device(torch)
   build_s = phase_build()
   kern = phase_kernels(torch)
-  serving = phase_serving(torch)
+  ckpt = ROOT / "build" / "smoke_ckpt"
+  try:
+    write_s = write_checkpoint(torch, ckpt)
+    log(f"[serving] wrote a random bf16 llama-3.2-1b checkpoint ({sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9:.2f} GB) in {write_s:.1f} s")
+    serving = phase_serving(torch, ckpt)
+    batched = phase_batched(torch, ckpt)
+  finally:
+    shutil.rmtree(ckpt, ignore_errors=True)
+  # Launches per kernel on each main path: the solo daemon run (K1, K2) and
+  # the batched daemon runs (K1, K3; summed over the three pool types).
+  by_path = {
+    name: {"solo": serving["launches"].get(name, 0), "batched": sum(p["launches"][name] for p in batched["passes"].values())}
+    for name in ("flash_prefill", "flash_decode", "paged_decode")
+  }
 
   def entry(name, source, replaces, rows, head):
     r = rows[head]
     return {
-      "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": serving["launches"][name],
+      "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sum(by_path[name].values()),
+      "launches_by_path": by_path[name],
       "max_abs_err": max(x["max_abs_err"] for x in rows), "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-      "bound_by": r["bound_by"], "library_ms": r["library_ms"], "at": {k: r[k] for k in r if k in ("Sq", "q_offset", "kv", "B", "positions")},
+      "bound_by": r["bound_by"], "library_ms": r["library_ms"], "at": {k: r[k] for k in r if k in ("Sq", "q_offset", "kv", "B", "positions", "lengths")},
     }
 
   kernels_line = {"kernels": [
     entry("flash_prefill", "xotorch_support_jetson_tpu_torch/csrc/flash_prefill.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:32", kern["flash_prefill"], 0),
     entry("flash_decode", "xotorch_support_jetson_tpu_torch/csrc/flash_decode.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:190", kern["flash_decode"], 0),
+    # Head row: B=8 at mixed lengths, bf16 pages (the batched path's geometry).
+    entry("paged_decode", "xotorch_support_jetson_tpu_torch/csrc/paged_decode.cu", "xotorch_support_jetson_tpu/ops/paged.py:236", kern["paged_decode"], 12),
   ]}
-  record = dict(card=smi, build_s=build_s, kernels=kern, serving=serving, summary=kernels_line)
+  record = dict(card=smi, build_s=build_s, kernels=kern, serving=serving, batched=batched, summary=kernels_line)
   out = ROOT / "chiprun_out"
   out.mkdir(exist_ok=True)
   (out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=float))

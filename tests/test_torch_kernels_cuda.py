@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (K1 flash prefill, K2 flash decode) against their
-plain PyTorch versions, on the card, at llama-3.2-1b's attention shapes
-(Hq 32, Hkv 8, hd 64, bf16, cache 4096) plus the other head dims.
+"""The port's CUDA kernels (K1 flash prefill, K2 flash decode, K3 paged
+decode) against their plain PyTorch versions, on the card, at
+llama-3.2-1b's attention shapes (Hq 32, Hkv 8, hd 64, bf16, cache 4096;
+page size 64 for K3) plus the other head dims and page sizes.
 
 Needs an NVIDIA GPU and nvcc; every test here is marked ``cuda`` and skips
 without a card. This file imports no JAX, so it runs on a machine with only
@@ -9,17 +10,23 @@ PyTorch: ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.p
 Tolerances: outputs are bf16 (ulp 2^-8 relative) and K1 rounds the softmax
 probabilities to bf16 for its tensor-core P·V product, so kernel and plain
 version agree to about 1e-2 on unit-scale values; 3e-2 is the stated bound.
+K2 keeps f32 inside and rounds only its bf16 output: 1e-2. K3 does the same
+and is held elementwise to ``atol 2.5e-4 + 2^-7·|ref|`` (``K3_TOL``): one bf16
+rounding step of the value, plus twice the largest absolute reading on an
+H100 (1.2e-4), so a split-K merge off by a few percent at a 4k context
+(outputs ~0.02) fails.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from xotorch_support_jetson_tpu_torch.models.quantize import quantize_kv
-from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa
+from xotorch_support_jetson_tpu_torch.models.quantize import quantize_kv, quantize_kv_int4
+from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, paged
 
 pytestmark = pytest.mark.cuda
 ATOL = 3e-2
+K3_TOL = dict(atol=2.5e-4, rtol=2.0**-7)
 
 
 @pytest.fixture
@@ -90,3 +97,62 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     fa.flash_attention_prefill(q, k, k, k_scale=torch.ones(1, 256, 8, 1, device=dev))
   with pytest.raises(ValueError, match="unsupported geometry"):
     fa.flash_decode_attention(q, k, k, torch.zeros(1, 128, dtype=torch.int32, device=dev))
+
+
+def _paged_case(dev, lengths, kv, hd=64, Hq=32, Hkv=8, ps=64, mp=64, seed=11):
+  """q, pools and block tables for K3: each row's pages are distinct,
+  shuffled, non-contiguous ids; table entries past a row's last page hold
+  junk that must never be read (the plain version gets them zeroed)."""
+  rng = np.random.default_rng(seed)
+  B = len(lengths)
+  P = B * mp + 1
+  q = _rand((B, Hq, hd), seed, dev)
+  k = _rand((P, Hkv, ps, hd), seed + 1, dev)
+  v = _rand((P, Hkv, ps, hd), seed + 2, dev)
+  ids = rng.permutation(np.arange(1, P)).reshape(B, mp).astype(np.int32)
+  junk = ids.copy()
+  for b, n in enumerate(lengths):
+    junk[b, -(-n // ps) :] = 1 << 30
+  scales = {}
+  if kv != "bf16":
+    quant = quantize_kv_int4 if kv == "int4" else quantize_kv
+    (k, ks), (v, vs) = quant(k), quant(v)
+    scales = dict(k_scale_pool_l=ks, v_scale_pool_l=vs)
+  lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+  return q, k, v, torch.from_numpy(junk).to(dev), torch.from_numpy(np.where(junk == 1 << 30, 0, junk)).to(dev), lens, scales
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("lengths", [[1], [64], [65], [4096], [1, 64, 65, 700, 2048, 3001, 4000, 4096]])
+def test_paged_decode_matches_plain(dev, kv, lengths):
+  q, k, v, bt, bt_clean, lens, scales = _paged_case(dev, lengths, kv)
+  before = paged.LAUNCHES["paged_decode"]
+  got = paged.paged_decode_attention(q, k, v, bt, lens, 64, **scales)
+  torch.cuda.synchronize()
+  assert paged.LAUNCHES["paged_decode"] == before + 1
+  want = paged.paged_decode_attention_ref(q, k, v, bt_clean, lens, 64, **scales)
+  assert torch.isfinite(got).all()
+  torch.testing.assert_close(got.float(), want.float(), **K3_TOL)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("hd,Hq,Hkv,ps,mp,lengths", [(128, 16, 2, 16, 40, [1, 17, 640]), (256, 8, 8, 32, 12, [33, 384]), (64, 12, 4, 128, 5, [129, 640, 1])])
+def test_paged_decode_geometries(dev, kv, hd, Hq, Hkv, ps, mp, lengths):
+  q, k, v, bt, bt_clean, lens, scales = _paged_case(dev, lengths, kv, hd=hd, Hq=Hq, Hkv=Hkv, ps=ps, mp=mp)
+  got = paged.paged_decode_attention(q, k, v, bt, lens, ps, **scales)
+  want = paged.paged_decode_attention_ref(q, k, v, bt_clean, lens, ps, **scales)
+  torch.testing.assert_close(got.float(), want.float(), **K3_TOL)
+
+
+def test_paged_wrapper_rejects_what_the_kernel_does_not_take(dev):
+  q, k, v, bt, _, lens, _ = _paged_case(dev, [65], "bf16", mp=4)
+  with pytest.raises(ValueError, match="expected torch.bfloat16"):
+    paged.paged_decode_attention(q.float(), k, v, bt, lens, 64)
+  with pytest.raises(ValueError, match="expected torch.int32"):
+    paged.paged_decode_attention(q, k, v, bt.long(), lens, 64)
+  with pytest.raises(ValueError, match="unsupported geometry"):
+    paged.paged_decode_attention(q, k, v, bt, lens, 32)
+  with pytest.raises(ValueError, match="contiguous"):
+    paged.paged_decode_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, bt, lens, 64)
+  with pytest.raises(ValueError, match="passed together"):
+    paged.paged_decode_attention(q, k, v, bt, lens, 64, k_scale_pool_l=torch.ones(1, device=dev))

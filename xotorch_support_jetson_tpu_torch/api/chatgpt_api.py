@@ -18,10 +18,10 @@ import uuid
 from pathlib import Path
 
 from .. import registry
-from ..inference.engine import PromptTooLongError
+from ..inference.engine import PromptTooLongError, ServerOverloadedError
 from ..utils.helpers import DEBUG
 
-_REASONS = {200: "OK", 204: "No Content", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed", 408: "Request Timeout", 413: "Payload Too Large", 500: "Internal Server Error"}
+_REASONS = {200: "OK", 204: "No Content", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed", 408: "Request Timeout", 413: "Payload Too Large", 429: "Too Many Requests", 500: "Internal Server Error"}
 MAX_BODY_BYTES = 16 << 20
 
 
@@ -320,6 +320,9 @@ class ChatGPTAPI:
       return json_response({"detail": "Response generation timed out"}, 408)
     except PromptTooLongError as e:
       return json_response({"error": {"message": str(e), "type": "invalid_request_error", "code": "context_length_exceeded"}}, 400)
+    except ServerOverloadedError as e:
+      # The batched server's queue (or page pool) is full: a retryable 429.
+      return json_response({"error": {"message": str(e), "type": "overloaded"}}, 429)
     except Exception as e:  # noqa: BLE001 — the API boundary reports every failure as a 500
       if DEBUG >= 1:
         import traceback

@@ -1,0 +1,100 @@
+"""Device operations of the continuous-batching scheduler, behind one small
+interface (counterpart of the reference's ``inference/batch_ops.py``
+``DecoderBatchOps``; the pp/sp mesh backends, speculation, mixed ticks,
+LoRA and page copies are not ported yet).
+
+The scheduler hands host operands as numpy arrays. They reach the card as
+non-blocking copies out of pinned host memory, so a dispatch never waits
+for the device work queued before it — the lookahead pipeline depends on
+that. A ``key`` is an integer seed drawn from the engine
+(``TorchShardedInferenceEngine.split_key``); each dispatch samples from its
+own generator seeded with it. The decode contract is the reference's:
+``(tokens [B, chunk], next_token [B, 1], positions [B], pool)`` with
+``next_token`` left on the device as the next chunk's input.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def to_device(x, device) -> torch.Tensor:
+  """A numpy array (copied now, so the caller may reuse it) or a tensor, on
+  ``device``, without blocking the host on a CUDA stream."""
+  if isinstance(x, torch.Tensor):
+    return x.to(device, non_blocking=True)
+  t = torch.from_numpy(np.array(x, copy=True))
+  if torch.device(device).type == "cuda":
+    return t.pin_memory().to(device, non_blocking=True)
+  return t
+
+
+def to_host_async(t: torch.Tensor):
+  """Start copying ``t`` to the host. Returns (host tensor, event): the
+  host tensor is valid once ``event.synchronize()`` returns (event None:
+  already valid)."""
+  if t.device.type != "cuda":
+    return t, None
+  host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+  host.copy_(t, non_blocking=True)
+  event = torch.cuda.Event()
+  event.record(torch.cuda.current_stream(t.device))
+  return host, event
+
+
+class DecoderBatchOps:
+  """Single-device batched serving ops over the page pool
+  (models/decoder.py batched programs)."""
+
+  def __init__(self, engine):
+    self.engine = engine
+
+  def round_slots(self, n: int) -> int:
+    return n
+
+  def fused_sampling_supported(self) -> bool:
+    """Prefill and first-token sampling run as one call
+    (``prefill_into_pages_many_sampled``), which the scheduler always uses."""
+    return True
+
+  def _dev(self, x):
+    return to_device(x, self.engine.device)
+
+  def _generator(self, key: int) -> torch.Generator:
+    return torch.Generator(device=self.engine.device).manual_seed(int(key))
+
+  def init_pool(self, n_pages: int, page_size: int):
+    from ..ops.paged import init_paged_pool
+
+    eng = self.engine
+    return init_paged_pool(eng.cfg, eng._effective_shard.n_shard_layers, n_pages, page_size, device=eng.device)
+
+  def prefill_into_pages_many(self, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size: int):
+    from ..models.decoder import prefill_into_pages_many
+
+    eng = self.engine
+    return prefill_into_pages_many(
+      eng.params, eng.cfg, eng._effective_shard, self._dev(tokens), pool, self._dev(bt_rows),
+      self._dev(prefix_lens), self._dev(prompt_lens), int(page_size),
+    )
+
+  def prefill_into_pages_many_sampled(self, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size: int, temps, top_ks, k_max: int, key):
+    from ..models.decoder import prefill_into_pages_many_sampled
+
+    eng = self.engine
+    return prefill_into_pages_many_sampled(
+      eng.params, eng.cfg, eng._effective_shard, self._dev(tokens), pool, self._dev(bt_rows),
+      self._dev(prefix_lens), self._dev(prompt_lens), int(page_size),
+      self._dev(temps), self._dev(top_ks), self._generator(key), int(k_max),
+    )
+
+  def paged_batch_decode(self, token, pool, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, key):
+    from ..models.decoder import fused_paged_batch_decode
+
+    eng = self.engine
+    return fused_paged_batch_decode(
+      eng.params, eng.cfg, eng._effective_shard, self._dev(token), pool, self._dev(block_tables), self._dev(positions),
+      self._dev(active), self._dev(temps), n_steps, top_k=self._dev(top_ks), k_max=k_max, page_size=page_size,
+      generator=self._generator(key),
+    )

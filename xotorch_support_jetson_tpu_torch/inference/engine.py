@@ -1,5 +1,5 @@
 """Inference engine contract + factory (own copy of the reference's
-``inference/engine.py``, reduced to the solo serving surface)."""
+``inference/engine.py``, reduced to the serving surface the port runs)."""
 
 from __future__ import annotations
 
@@ -13,6 +13,11 @@ from .state import InferenceState
 
 class PromptTooLongError(ValueError):
   """Prompt exceeds the serving context window; the API answers 400."""
+
+
+class ServerOverloadedError(RuntimeError):
+  """Request admission queue is full (or the page pool cannot hold the
+  prompt); the API answers 429."""
 
 
 class InferenceEngine(ABC):

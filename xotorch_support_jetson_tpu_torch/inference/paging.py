@@ -1,0 +1,147 @@
+"""Host-side page bookkeeping for the paged KV pool: the page allocator with
+its content-keyed prefix cache, and the block math the scheduler sizes the
+pool with. Own copy of the part of the reference's ``inference/paging.py``
+the batched serving slice uses (``PageAllocator``, ``pages_to_cover``,
+``kv_cache_bytes``). The reference's decode-path and page-tile tables are
+TPU measurements and are not carried over: on a CUDA tensor the port's
+paged decode always takes its kernel (ops/paged.py).
+"""
+
+from __future__ import annotations
+
+import hashlib
+from collections import OrderedDict
+
+import numpy as np
+
+
+def kv_cache_bytes(cfg, n_layers: int, n_tokens: int, quant: str = "") -> int:
+  """Device bytes of ``n_tokens`` cached positions under ``quant``: int4
+  packs two code nibbles per byte, and both quantized modes pay one f32
+  scale per (token, head) per side."""
+  heads = cfg.n_kv_heads
+  per_side = 2 * cfg.head_dim  # k and v
+  if quant == "int4":
+    per_token = heads * (per_side // 2 + 2 * 4)
+  elif quant:
+    per_token = heads * (per_side + 2 * 4)
+  else:
+    per_token = heads * per_side * cfg.dtype.itemsize
+  return int(n_layers) * int(n_tokens) * int(per_token)
+
+
+def pages_to_cover(end_pos: int, page_size: int) -> int:
+  """Pages a row needs so every position in ``[0, end_pos)`` maps to an
+  allocated block-table entry. The scheduler's growth check runs this
+  against the row's DISPATCH-time position, which under the lookahead
+  pipeline already includes the in-flight chunk's advance, so a row always
+  holds one extra chunk of page headroom."""
+  return max((int(end_pos) + page_size - 1) // page_size, 0)
+
+
+class PageAllocator:
+  """Free-list + refcounted prefix cache over a fixed page pool. Page 0 is
+  the trash page and is never handed out."""
+
+  def __init__(self, n_pages: int, page_size: int):
+    self.n_pages = n_pages
+    self.page_size = page_size
+    self._free: list[int] = list(range(n_pages - 1, 0, -1))  # pop() -> low ids first
+    self._refs: dict[int, int] = {}  # page -> active readers (cached pages only)
+    self._by_key: dict[bytes, int] = {}  # chain key -> cached page
+    self._key_of: dict[int, bytes] = {}  # cached page -> chain key
+    self._lru: OrderedDict[int, None] = OrderedDict()  # refcount-0 cached pages
+
+  # ------------------------------------------------------------- allocation
+
+  @property
+  def n_available(self) -> int:
+    """Free pages plus idle cached pages (evicted on demand)."""
+    return len(self._free) + len(self._lru)
+
+  def alloc(self, n: int) -> list[int] | None:
+    """n fresh private pages, evicting idle cached pages (oldest first) if
+    needed; None if even eviction can't cover it (caller backpressures)."""
+    if n > self.n_available:
+      return None
+    if len(self._free) < n:
+      self._evict(n - len(self._free))
+    return [self._free.pop() for _ in range(n)]
+
+  def free(self, pages: list[int]) -> None:
+    """Return PRIVATE (never-cached) pages to the free list."""
+    for p in pages:
+      assert p not in self._key_of, f"page {p} is cached; use release()"
+      self._free.append(p)
+
+  def _evict(self, n: int) -> None:
+    for _ in range(n):
+      page, _ = self._lru.popitem(last=False)
+      key = self._key_of.pop(page)
+      del self._by_key[key]
+      self._refs.pop(page, None)
+      self._free.append(page)
+
+  # ----------------------------------------------------------- prefix cache
+
+  @staticmethod
+  def chain_keys(tokens, page_size: int) -> list[bytes]:
+    """Cumulative content keys for each FULL page of ``tokens``: key i
+    hashes key i-1 with page i's token ids (int64 bytes)."""
+    arr = np.asarray(tokens, dtype=np.int64)  # normalize dtype: same ids -> same bytes
+    keys: list[bytes] = []
+    prev = b""
+    for i in range(len(arr) // page_size):
+      prev = hashlib.blake2b(prev + arr[i * page_size : (i + 1) * page_size].tobytes(), digest_size=16).digest()
+      keys.append(prev)
+    return keys
+
+  def lookup_prefix(self, keys: list[bytes]) -> list[int]:
+    """Longest cached prefix; bumps each hit's refcount (caller must
+    ``release`` every returned page exactly once)."""
+    pages: list[int] = []
+    for key in keys:
+      page = self._by_key.get(key)
+      if page is None:
+        break
+      self._refs[page] = self._refs.get(page, 0) + 1
+      self._lru.pop(page, None)
+      pages.append(page)
+    return pages
+
+  def release(self, page: int) -> None:
+    """Drop one reader of a cached page; idle pages become evictable."""
+    self._refs[page] -= 1
+    if self._refs[page] <= 0:
+      self._refs.pop(page)
+      self._lru[page] = None
+
+  def insert_cached(self, key: bytes, page: int) -> bool:
+    """Donate a private page to the cache (refcount 0, evictable). Returns
+    False (page NOT adopted — caller should ``free`` it) when the chain is
+    already cached."""
+    if key in self._by_key:
+      return False
+    self._by_key[key] = page
+    self._key_of[page] = key
+    self._lru[page] = None
+    return True
+
+  def audit(self) -> dict:
+    """Internal-consistency check: every pool page is in exactly one of
+    {free, cached-idle (LRU), cached-referenced, caller-held private}; the
+    first three are visible here, so ``free + cached == n_pages - 1 -
+    in_use`` must hold for the caller's private count."""
+    free = set(self._free)
+    assert len(free) == len(self._free), "double-freed page on the free list"
+    cached = set(self._key_of)
+    assert not (free & cached), f"pages both free and cached: {sorted(free & cached)}"
+    lru = set(self._lru)
+    reffed = set(self._refs)
+    assert lru <= cached and reffed <= cached, "ref/LRU entry for a non-cached page"
+    assert not (lru & reffed), "cached page both idle and referenced"
+    assert lru | reffed == cached, "cached page neither idle nor referenced"
+    assert all(n > 0 for n in self._refs.values()), "non-positive refcount survived release"
+    assert len(self._by_key) == len(self._key_of), "key<->page maps diverged"
+    assert 0 not in free | cached, "trash page 0 escaped into the pool"
+    return {"free": len(free), "cached": len(cached), "lru": len(lru), "referenced": len(reffed)}

@@ -1,12 +1,14 @@
-"""The PyTorch/CUDA inference engine — solo serving surface.
+"""The PyTorch/CUDA inference engine.
 
 Counterpart of the reference's ``inference/jax_engine.py`` for one node
 serving one full model: encode/decode/sample, prompt prefill into a dense
 slot-indexed KV cache (padded to a 128 bucket, per-request ``_Session``),
 chunked decode (``dispatch_chunk``/``read_chunk``) for streaming, one-shot
-decode (``generate_oneshot``) for blocking requests, and ``end_request``.
-All device work runs on one executor thread off the asyncio loop. The cache
-is updated in place by the decoder.
+decode (``generate_oneshot``) for blocking requests, and ``end_request``;
+and the continuous-batching server over the paged pool
+(``get_batched_server``, inference/batch_scheduler.py). All device work
+runs on one executor thread off the asyncio loop. Caches and pools are
+updated in place by the decoder.
 
 It runs on ``cuda`` unless the caller asks for the CPU (``device="cpu"`` or
 ``XOT_TPU_PLATFORM=cpu``); with no card visible it raises.
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import asyncio
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -64,7 +67,19 @@ class TorchShardedInferenceEngine(InferenceEngine):
     self.executor = ThreadPoolExecutor(max_workers=1)
     self._seed = seed
     self.generator = torch.Generator(device=self.device).manual_seed(seed)
+    # Seeds for the batched server's dispatches, drawn on the event-loop
+    # thread (split_key): a host generator, so a draw never waits on the card.
+    self._key_gen = torch.Generator().manual_seed(seed)
+    self._key_lock = threading.Lock()
     self._shard_lock = asyncio.Lock()
+    self._batched_server = None
+    self._batch_ops = None
+
+  def split_key(self) -> int:
+    """A fresh seed for one batched dispatch's sampling generator
+    (thread-safe: the counterpart of the reference's locked key split)."""
+    with self._key_lock:
+      return int(torch.randint(0, 2**62, (1,), generator=self._key_gen)[0])
 
   # ---------------------------------------------------------------- loading
 
@@ -103,6 +118,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
       start = round(shard.start_layer * cfg.n_layers / shard.n_layers)
       end = round((shard.end_layer + 1) * cfg.n_layers / shard.n_layers) - 1
       eff = Shard(shard.model_id, start, max(start, end), cfg.n_layers)
+    self._drop_batched_server()  # its page pool belongs to the old model
     self.params = None  # free the old model's device memory before loading
     self.params = load_shard_weights(model_dir, cfg, eff, device=self.device)
     self.cfg = cfg
@@ -110,6 +126,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
     self._effective_shard = eff
     self.sessions.clear()
     self.generator.manual_seed(self._seed)
+    self._key_gen.manual_seed(self._seed)
     if DEBUG >= 1:
       print(f"[torch_engine] loaded {shard} from {model_dir} on {self.device}")
 
@@ -125,6 +142,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
 
   def load_test_model(self, shard: Shard, cfg, params, tokenizer=None) -> None:
     """Directly inject a model (tests)."""
+    self._drop_batched_server()
     self.shard = shard
     self._effective_shard = shard
     self.cfg = cfg
@@ -132,6 +150,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
     self.tokenizer = tokenizer
     self.sessions.clear()
     self.generator.manual_seed(self._seed)
+    self._key_gen.manual_seed(self._seed)
 
   # ---------------------------------------------------------------- contract
 
@@ -306,3 +325,37 @@ class TorchShardedInferenceEngine(InferenceEngine):
 
   def end_request(self, request_id: str) -> None:
     self.sessions.pop(request_id, None)
+
+  # ---------------------------------------------------------------- batching
+
+  def supports_batched(self) -> bool:
+    """Whether the batched server can serve the loaded shard: every batched
+    program embeds tokens and runs the head, so only a full-model shard."""
+    eff = self._effective_shard
+    return eff is None or (eff.is_first_layer and eff.is_last_layer)
+
+  @property
+  def batch_ops(self):
+    """Device-op backend of the batched server (inference/batch_ops.py)."""
+    if self._batch_ops is None:
+      from .batch_ops import DecoderBatchOps
+
+      self._batch_ops = DecoderBatchOps(self)
+    return self._batch_ops
+
+  def get_batched_server(self):
+    """The continuous-batching server (inference/batch_scheduler.py), built
+    at first use; one per loaded model, since its page pool is
+    model-specific."""
+    if self._batched_server is None:
+      from .batch_scheduler import BatchedServer
+
+      self._batched_server = BatchedServer(self)
+    return self._batched_server
+
+  def _drop_batched_server(self) -> None:
+    """Stop the old server's loop so its page pool frees (model swap)."""
+    if self._batched_server is not None:
+      self._batched_server.shutdown()
+    self._batched_server = None
+    self._batch_ops = None

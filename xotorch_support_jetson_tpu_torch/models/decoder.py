@@ -7,8 +7,10 @@ leaves stacked on a leading [L] axis (``layers/wq`` [L, D, Hq·hd], used as
 ``x @ w``), ``embed`` [V, D], ``final_norm`` [D], ``lm_head`` [D, V]
 (absent when tied to ``embed``). The reference's ``lax.scan`` over layers
 and steps becomes a Python loop. The KV cache is a dict of
-[L, B, max_seq, Hkv, hd] buffers (+ ``k_scale``/``v_scale`` [.., 1] for int8)
-that the forward UPDATES IN PLACE — slot j holds absolute position j.
+[L, B, max_seq, Hkv, hd] buffers (hd/2 for packed int4 codes, +
+``k_scale``/``v_scale`` [.., 1] for int8 and int4) that the forward UPDATES
+IN PLACE — slot j holds absolute position j. The batched programs at the
+end run against a page pool (ops/paged.py) instead, also updated in place.
 """
 
 from __future__ import annotations
@@ -36,18 +38,34 @@ EOS_CHECK_EVERY = 16
 
 def kv_quant_mode(quant: str | None = None) -> str:
   """KV-cache quantization: explicit arg wins, else ``XOT_TPU_KV_QUANT``
-  ("" or "int8"; the reference's "int4" waits for a later slice)."""
+  ("", "int8", or "int4": two code nibbles per byte along the head dim)."""
   mode = os.getenv("XOT_TPU_KV_QUANT", "") if quant is None else quant
-  if mode not in ("", "int8"):
-    raise ValueError(f"XOT_TPU_KV_QUANT supports '' or 'int8' in the PyTorch port; got {mode!r}")
+  if mode not in ("", "int8", "int4"):
+    raise ValueError(f"XOT_TPU_KV_QUANT supports '', 'int8' or 'int4'; got {mode!r}")
   return mode
+
+
+def pool_kv_quant(pool: Params, cfg: ModelConfig) -> str:
+  """The KV quant mode a cache or page-pool dict holds ("", "int8",
+  "int4"): int4 code leaves carry a halved trailing axis."""
+  if "k_scale" not in pool:
+    return ""
+  return "int4" if pool["k"].shape[-1] * 2 == cfg.head_dim else "int8"
 
 
 def init_kv_cache(cfg: ModelConfig, n_shard_layers: int, batch: int, max_seq: int, dtype=None, quant: str | None = None, device=None) -> Params:
   """Slot-indexed KV cache: slot j holds the KV of absolute position j;
-  ``quant="int8"`` stores int8 codes plus per-(token, head) f32 scales."""
-  shape = (n_shard_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-  if kv_quant_mode(quant):
+  ``quant="int8"`` stores int8 codes plus per-(token, head) f32 scales,
+  ``quant="int4"`` packed int4 codes (halved last axis) with the same
+  scales."""
+  mode = kv_quant_mode(quant)
+  hd = cfg.head_dim
+  if mode == "int4":
+    if hd % 2:
+      raise ValueError(f"int4 KV needs an even head dim; got {hd}")
+    hd //= 2
+  shape = (n_shard_layers, batch, max_seq, cfg.n_kv_heads, hd)
+  if mode:
     scale_shape = shape[:-1] + (1,)
     return {
       "k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -146,23 +164,27 @@ def _mlp_block(h, p, cfg: ModelConfig):
 def _attention(q, k, v, kv, positions, kv_positions, cfg: ModelConfig):
   """Write this layer's k/v into its cache slice ``kv`` (in place) and
   attend. The dispatch mirrors the reference: K1 for prefill (and int8-KV
-  prefill), K2 for an opted-in long-cache decode step, else the plain
-  ``gqa_attention``."""
+  prefill; int4 codes take the plain path), K2 for an opted-in long-cache
+  decode step, else the plain ``gqa_attention``."""
   from ..ops.flash_attention import flash_attention_prefill, flash_decode_attention, flash_decode_supported, flash_supported
 
   S = q.shape[1]
   start = positions[:, 0]
-  if "k_scale" in kv:  # int8 KV (models/quantize.py quantize_kv)
-    from .quantize import quantize_kv
+  if "k_scale" in kv:  # int8 / int4 KV (models/quantize.py)
+    from .quantize import quantize_kv, quantize_kv_int4, unpack_int4_kv
 
-    kq, ks = quantize_kv(k)
-    vq, vs = quantize_kv(v)
+    packed = kv["k"].shape[-1] * 2 == k.shape[-1]  # int4: halved code axis
+    quant_fn = quantize_kv_int4 if packed else quantize_kv
+    kq, ks = quant_fn(k)
+    vq, vs = quant_fn(v)
     for name, new in (("k", kq), ("k_scale", ks), ("v", vq), ("v_scale", vs)):
       _write_cache(kv[name], new, start)
-    if cfg.plain_attention and S > 1 and flash_supported(q.shape, kv["k"].shape[1], q.device, q.dtype):
+    if cfg.plain_attention and S > 1 and not packed and flash_supported(q.shape, kv["k"].shape[1], q.device, q.dtype):
       # Prefill: codes + scales stream straight through K1 (in-kernel dequant).
       return flash_attention_prefill(q, kv["k"], kv["v"], q_offset=start, k_scale=kv["k_scale"], v_scale=kv["v_scale"])
-    return gqa_attention(q, kv["k"], kv["v"], positions, kv_positions, k_scale=kv["k_scale"], v_scale=kv["v_scale"])
+    k_codes = unpack_int4_kv(kv["k"]) if packed else kv["k"]
+    v_codes = unpack_int4_kv(kv["v"]) if packed else kv["v"]
+    return gqa_attention(q, k_codes, v_codes, positions, kv_positions, k_scale=kv["k_scale"], v_scale=kv["v_scale"])
   _write_cache(kv["k"], k, start)
   _write_cache(kv["v"], v, start)
   k_cache, v_cache = kv["k"].to(q.dtype), kv["v"].to(q.dtype)
@@ -310,3 +332,165 @@ def fused_generate(
       if n % EOS_CHECK_EVERY == 0 and bool(done.all()):
         break
   return buf, n, cache
+
+
+# ------------------------------------------------------- paged serving
+# (ops/paged.py + inference/batch_scheduler.py): rows map logical positions
+# onto fixed-size pages of one shared pool through block tables [B, mp]. The
+# pool is updated IN PLACE. Rows without a request keep their table zeroed,
+# so their writes land in the reserved trash page 0. Dense models only: the
+# port loads no MLA, MoE or gemma2 checkpoint and has no LoRA yet.
+
+_DENSE_TOP_KEYS = frozenset({"layers", "embed", "final_norm", "lm_head"})
+
+
+def _dense_full_model(params: Params, shard: Shard, what: str) -> None:
+  _full_model(shard, what)
+  extra = set(params) - _DENSE_TOP_KEYS
+  if extra:
+    raise NotImplementedError(f"{what} runs dense models only in the PyTorch port; got parameter groups {sorted(extra)}")
+
+
+def prefill_into_pages_many(params, cfg: ModelConfig, shard: Shard, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size: int):
+  """Prefill K requests into the page pool in one forward.
+
+  tokens [K, S_pad] int32 — each row's prompt SUFFIX from its own
+  ``prefix_lens[k]`` on; bt_rows [K, mp] int32 (padding rows all-zero: their
+  writes land in the trash page); the caller keeps ``prefix_lens[k] + S_pad
+  <= mp·page_size``. The rows' page windows are gathered, run through
+  ``shard_forward`` (K1 with per-row ``q_offset = prefix_lens`` on the card),
+  and the touched pages scattered back. Returns (last-token logits [K, V],
+  pool updated in place)."""
+  from ..ops.paged import gather_row_pages, scatter_row_pages, touched_page_targets
+
+  _dense_full_model(params, shard, "prefill_into_pages_many")
+  K, S = tokens.shape
+  temp = {key: gather_row_pages(val, bt_rows) for key, val in pool.items()}
+  positions = prefix_lens[:, None] + torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :]
+  logits, temp = shard_forward(params, cfg, shard, tokens, positions, temp, head_pos=(prompt_lens - prefix_lens - 1).long())
+  target = touched_page_targets(bt_rows, prefix_lens, prompt_lens, page_size)
+  for key in pool:
+    scatter_row_pages(pool[key], temp[key], target)
+  return logits[:, 0, :], pool
+
+
+def _next_token_batched(rows, generator, temps, top_ks, k_max: int):
+  """Per-row sampling: temp ≤ 0 rows greedy, others top-k at their own
+  temperature and top_k (ops/sampling.py sample_logits_per_row)."""
+  from ..ops.sampling import sample_logits_per_row
+
+  greedy_rows = torch.argmax(rows, dim=-1).to(torch.int32)
+  safe_temp = torch.where(temps > 0, temps, torch.ones_like(temps))
+  sampled = sample_logits_per_row(rows, generator, safe_temp, top_ks, k_max=k_max)
+  return torch.where(temps > 0, sampled, greedy_rows)
+
+
+def sample_rows(logits, generator, temps, top_ks, k_max: int):
+  """First-token sampling for a batched admission: per-row temp/top_k over
+  [K, V] logits. The unfused epilogue; ``prefill_into_pages_many_sampled``
+  runs the same math on the same generator in one call."""
+  return _next_token_batched(logits, generator, temps, top_ks, k_max)
+
+
+def prefill_into_pages_many_sampled(params, cfg: ModelConfig, shard: Shard, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size: int, temps, top_ks, generator, k_max: int):
+  """``prefill_into_pages_many`` with the sampling epilogue: returns
+  (first_tokens [K] int32, pool)."""
+  last, pool = prefill_into_pages_many(params, cfg, shard, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size)
+  return _next_token_batched(last, generator, temps, top_ks, k_max), pool
+
+
+def _paged_layer_step(h, p, pool_l, block_tables, positions, inv_freq, cfg: ModelConfig, page_size: int, use_kernel: bool):
+  """One decoder layer against the page pool — decode only (S == 1).
+
+  ``pool_l`` is this layer's page dict: {"k", "v"} [P, Hkv, ps, kd]
+  (+ "k_scale"/"v_scale" [P, Hkv, ps, 1] for int8/int4), written in place;
+  positions [B, 1]."""
+  from ..ops.paged import paged_decode_attention, paged_gqa_attention_ref, write_token_kv
+
+  B, S, D = h.shape
+  x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
+  pos = positions[:, 0]
+  lengths = pos + 1  # valid KV slots incl. the token written below
+  q, k, v = _dense_qkv(x, p, cfg, positions, inv_freq)
+  scales = {}
+  if "k_scale" in pool_l:  # int8/int4 KV pages (models/quantize.py)
+    from .quantize import quantize_kv, quantize_kv_int4
+
+    packed = pool_l["k"].shape[-1] * 2 == k.shape[-1]  # int4: halved code axis
+    quant_fn = quantize_kv_int4 if packed else quantize_kv
+    kq, ks = quant_fn(k[:, 0])
+    vq, vs = quant_fn(v[:, 0])
+    for name, new in (("k", kq), ("k_scale", ks), ("v", vq), ("v_scale", vs)):
+      write_token_kv(pool_l[name], new, block_tables, pos, page_size)
+    scales = dict(k_scale_pool_l=pool_l["k_scale"], v_scale_pool_l=pool_l["v_scale"])
+  else:
+    write_token_kv(pool_l["k"], k[:, 0], block_tables, pos, page_size)
+    write_token_kv(pool_l["v"], v[:, 0], block_tables, pos, page_size)
+  if use_kernel:
+    # K3 on the card: codes and scales straight off the pool.
+    attn = paged_decode_attention(q[:, 0].contiguous(), pool_l["k"], pool_l["v"], block_tables, lengths, page_size, **scales)[:, None]
+  else:
+    attn = paged_gqa_attention_ref(q, pool_l["k"], pool_l["v"], block_tables, lengths, page_size, **scales)
+  h = h + attn.reshape(B, S, -1) @ p["wo"]
+  return _mlp_block(h, p, cfg)
+
+
+def paged_decode_forward(params, cfg: ModelConfig, shard: Shard, tokens, positions, pool, block_tables, page_size: int, use_kernel: bool):
+  """One decode step for all rows against the page pool: tokens [B, 1]
+  int32 → (logits [B, 1, V], pool updated in place)."""
+  h = embed_tokens(params, cfg, tokens)
+  inv_freq = rope_inv_freq(cfg, device=h.device)
+  layers = params["layers"]
+  for i in range(layers["wq"].shape[0]):
+    lp = {key: val[i] for key, val in layers.items()}
+    pool_l = {key: val[i] for key, val in pool.items()}
+    h = _paged_layer_step(h, lp, pool_l, block_tables, positions, inv_freq, cfg, page_size, use_kernel)
+  return head_logits(params, cfg, h), pool
+
+
+def _paged_decode_scan(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, use_kernel: bool, generator):
+  """The chunked paged decode loop: ``n_steps`` steps, each step's token
+  feeding the next on the device (no host sync)."""
+  # Inactive rows would write into whatever page their table names; pin
+  # their table to the trash page so held-token rewrites can't land on a
+  # page another row now owns.
+  bt = torch.where(active[:, None], block_tables, torch.zeros_like(block_tables))
+  tok, pos = token, positions
+  out = []
+  for _ in range(int(n_steps)):
+    logits, pool = paged_decode_forward(params, cfg, shard, tok, pos[:, None], pool, bt, page_size, use_kernel)
+    nxt = _next_token_batched(logits[:, 0, :], generator, temps, top_ks, k_max)
+    nxt = torch.where(active, nxt, tok[:, 0])  # inactive rows hold their token
+    pos = torch.where(active, pos + 1, pos)  # ...and their position
+    out.append(nxt)
+    tok = nxt[:, None]
+  return torch.stack(out, dim=1), tok, pos, pool
+
+
+def fused_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, temps, n_steps: int, top_k=35, k_max: int = 64, page_size: int = 64, use_kernel: bool | None = None, generator=None):
+  """One decode chunk over every row of the page pool.
+
+  token [B, 1] int32 (each row's last token), block_tables [B, mp] int32
+  (the host must have allocated pages covering [pos, pos + n_steps) for
+  every active row), positions [B] int32, active [B] bool, temps [B] f32
+  (≤ 0: greedy), top_k an int or [B] per-row (capped at ``k_max``).
+  Returns (tokens [B, n_steps], next_token [B, 1], positions [B], pool):
+  ``next_token`` stays on the device and is the next chunk's input.
+  Inactive rows do not advance. ``use_kernel=None`` resolves through
+  ``ops/paged.py paged_kernel_supported``: K3 on the card."""
+  from ..ops.paged import check_paged_kernel, paged_kernel_supported
+
+  _dense_full_model(params, shard, "fused_paged_batch_decode")
+  dev = token.device
+  if use_kernel is None:
+    check_paged_kernel(cfg, dev)
+    use_kernel = paged_kernel_supported(cfg)
+  if generator is None:
+    generator = torch.Generator(device=dev).manual_seed(0)
+  B = token.shape[0]
+  # A Python int is filled on the device: a host copy would block on the stream.
+  top_ks = torch.full((B,), top_k, dtype=torch.int32, device=dev) if isinstance(top_k, int) else top_k.to(device=dev, dtype=torch.int32).expand(B)
+  return _paged_decode_scan(
+    params, cfg, shard, token.to(torch.int32), pool, block_tables.to(torch.int32).contiguous(), positions.to(torch.int32), active.to(torch.bool),
+    temps.to(torch.float32), top_ks, int(n_steps), int(k_max), int(page_size), bool(use_kernel), generator,
+  )

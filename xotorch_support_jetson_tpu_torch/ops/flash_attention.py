@@ -18,6 +18,7 @@ import torch
 
 from ..utils.helpers import env_flag
 from .attention import gqa_attention
+from .kernels import check_cuda as _check_cuda, load, stream_ptr as _stream_ptr
 
 HEAD_DIMS = (64, 128, 256)
 DECODE_CHUNK = 256  # kv slots per split-K block of the decode kernel
@@ -29,10 +30,6 @@ LAUNCHES = {"flash_prefill": 0, "flash_decode": 0}
 def reset_launch_counts() -> None:
   for name in LAUNCHES:
     LAUNCHES[name] = 0
-
-
-def _stream_ptr(device) -> int:
-  return torch.cuda.current_stream(device).cuda_stream
 
 
 def _offsets(q_offset, B: int, device) -> torch.Tensor:
@@ -55,17 +52,6 @@ def flash_attention_prefill_ref(q, k, v, q_offset=0, k_scale=None, v_scale=None)
   q_pos = _offsets(q_offset, B, q.device)[:, None] + torch.arange(Sq, dtype=torch.int32, device=q.device)[None, :]
   kv_pos = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
   return gqa_attention(q, k, v, q_pos, kv_pos, k_scale=k_scale, v_scale=v_scale)
-
-
-def _check_cuda(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-  if t.device != device:
-    raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
-  if t.dtype != dtype:
-    raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-  if tuple(t.shape) != tuple(shape):
-    raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-  if not t.is_contiguous():
-    raise ValueError(f"{name}: expected a contiguous tensor")
 
 
 def flash_attention_prefill(q, k, v, q_offset=0, k_scale=None, v_scale=None):
@@ -100,8 +86,6 @@ def flash_attention_prefill(q, k, v, q_offset=0, k_scale=None, v_scale=None):
     _check_cuda("v_scale", v_scale, torch.float32, (B, Skv, Hkv, 1), q.device)
   offsets = _offsets(q_offset, B, q.device)
   out = torch.empty_like(q)
-  from .kernels import load
-
   fn = load("flash_prefill")
   rc = fn(
     q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -155,8 +139,6 @@ def flash_decode_attention(q, k, v, q_positions):
   part_l = torch.empty_like(part_m)
   part_acc = torch.empty((B, Hq, n_chunks, hd), dtype=torch.float32, device=q.device)
   out = torch.empty_like(q)
-  from .kernels import load
-
   fn = load("flash_decode")
   rc = fn(
     q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),

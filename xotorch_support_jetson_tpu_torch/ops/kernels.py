@@ -31,6 +31,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
   "flash_prefill": ("xot_flash_prefill", [_P] * 7 + [_I] * 7 + [_P]),
   "flash_decode": ("xot_flash_decode", [_P] * 8 + [_I] * 6 + [_P]),
+  "paged_decode": ("xot_paged_decode", [_P] * 11 + [_I] * 8 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -75,6 +76,25 @@ def build_all(names=None) -> dict[str, Path]:
   names = list(names or SIGNATURES)
   with ThreadPoolExecutor(max_workers=len(names)) as pool:
     return dict(zip(names, pool.map(build, names)))
+
+
+def stream_ptr(device) -> int:
+  """The current CUDA stream of ``device`` as the int a C entry point takes."""
+  import torch
+
+  return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_cuda(name: str, t, dtype, shape, device) -> None:
+  """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on ``device``."""
+  if t.device != device:
+    raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+  if t.dtype != dtype:
+    raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+  if tuple(t.shape) != tuple(shape):
+    raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+  if not t.is_contiguous():
+    raise ValueError(f"{name}: expected a contiguous tensor")
 
 
 def load(name: str):

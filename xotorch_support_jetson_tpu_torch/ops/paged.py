@@ -1,0 +1,217 @@
+"""Paged KV cache: a shared page pool addressed through per-row block
+tables, and the paged decode attention (K3). Counterpart of the
+reference's ``ops/paged.py`` (dense GQA models).
+
+Pool layout: ``[L, P, Hkv, ps, kd]`` per leaf — one logical page id
+addresses the same page in every layer, and each (page, head) ``[ps, kd]``
+tile is contiguous. ``kd`` is ``hd`` for bf16 and int8 codes and ``hd/2``
+for packed int4 codes; quantized pools carry ``k_scale``/``v_scale``
+``[L, P, Hkv, ps, 1]`` f32 leaves. Page 0 is a trash page: unallocated
+block-table entries point there, and writes of padding or inactive rows
+land there, so no write needs a condition.
+
+The reference's pool ops return new pools; here they UPDATE THE POOL IN
+PLACE (``write_token_kv``, ``scatter_row_pages``) and return it.
+
+``paged_decode_attention`` takes the plain version
+(``paged_decode_attention_ref``) for a tensor on the CPU and launches the
+hand-written kernel ``csrc/paged_decode.cu`` for a CUDA tensor — or raises
+on what the kernel does not take. There is no fallback from a CUDA tensor
+to the plain version. ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils.helpers import env_flag
+from .attention import gqa_attention
+from .kernels import check_cuda, load, stream_ptr
+
+HEAD_DIMS = (64, 128, 256)
+DECODE_CHUNK = 256  # logical slots per split-K block of the paged decode kernel
+
+LAUNCHES = {"paged_decode": 0}
+
+
+def reset_launch_counts() -> None:
+  for name in LAUNCHES:
+    LAUNCHES[name] = 0
+
+
+def init_paged_pool(cfg, n_shard_layers: int, n_pages: int, page_size: int, dtype=None, quant: str | None = None, device=None) -> dict:
+  """Page pool for a shard. ``n_pages`` INCLUDES the reserved trash page 0.
+  ``quant`` ("", "int8", "int4"; default ``XOT_TPU_KV_QUANT``) as in
+  ``models/decoder.py init_kv_cache``: int8 adds per-(slot, head) scale
+  leaves, int4 halves the code axis and keeps the same scales."""
+  from ..models.decoder import kv_quant_mode
+
+  mode = kv_quant_mode(quant)
+  hd = cfg.head_dim
+  if mode == "int4":
+    if hd % 2:
+      raise ValueError(f"int4 KV pages need an even head dim; got {hd}")
+    hd //= 2
+  shape = (n_shard_layers, n_pages, cfg.n_kv_heads, page_size, hd)
+  if mode:
+    scale_shape = shape[:-1] + (1,)
+    return {
+      "k": torch.zeros(shape, dtype=torch.int8, device=device),
+      "v": torch.zeros(shape, dtype=torch.int8, device=device),
+      "k_scale": torch.ones(scale_shape, dtype=torch.float32, device=device),
+      "v_scale": torch.ones(scale_shape, dtype=torch.float32, device=device),
+    }
+  dtype = dtype or cfg.dtype
+  return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def write_token_kv(pool_l: torch.Tensor, new: torch.Tensor, block_tables: torch.Tensor, pos: torch.Tensor, page_size: int) -> torch.Tensor:
+  """Write one decode step's KV into one layer's pool, in place.
+
+  pool_l [P, Hkv, ps, kd]; new [B, Hkv, kd]; block_tables [B, mp]; pos [B]
+  (the logical position being written). Rows own disjoint pages, so only
+  rows pinned to the trash page can collide."""
+  pos = pos.long()
+  page = torch.gather(block_tables, 1, (pos // page_size)[:, None]).long()[:, 0]
+  pool_l[page, :, pos % page_size] = new.to(pool_l.dtype)
+  return pool_l
+
+
+def gather_pages(pool_l: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+  """[P, Hkv, ps, kd] × [B, mp] → position-ordered [B, mp·ps, Hkv, kd]."""
+  B, mp = block_tables.shape
+  _, H, ps, kd = pool_l.shape
+  g = pool_l.index_select(0, block_tables.reshape(-1).long()).view(B, mp, H, ps, kd)
+  return g.transpose(2, 3).reshape(B, mp * ps, H, kd)
+
+
+def gather_row_pages(pool_part: torch.Tensor, bt_rows: torch.Tensor) -> torch.Tensor:
+  """All-layer per-row gather: [L, P, H, ps, kd] × [K, mp] → position-ordered
+  [L, K, mp·ps, H, kd] (a fresh tensor)."""
+  K, mp = bt_rows.shape
+  L, _, H, ps, kd = pool_part.shape
+  g = pool_part.index_select(1, bt_rows.reshape(-1).long()).view(L, K, mp, H, ps, kd)
+  return g.transpose(3, 4).reshape(L, K, mp * ps, H, kd)
+
+
+def touched_page_targets(bt_rows: torch.Tensor, prefix_lens: torch.Tensor, prompt_lens: torch.Tensor, page_size: int) -> torch.Tensor:
+  """Per-row scatter targets for a prefill: each row's pages from its reused
+  prefix boundary up to its prompt end keep their page ids; everything else
+  (shared prefix pages, unallocated entries, padding rows) targets the trash
+  page 0."""
+  mp = bt_rows.shape[1]
+  page_ids = torch.arange(mp, dtype=torch.int32, device=bt_rows.device)[None, :]
+  touched = (page_ids >= (prefix_lens[:, None] // page_size)) & (page_ids * page_size < prompt_lens[:, None])
+  return torch.where(touched, bt_rows, torch.zeros_like(bt_rows))
+
+
+def scatter_row_pages(pool_part: torch.Tensor, t: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+  """Inverse of ``gather_row_pages`` restricted to ``target`` pages, in
+  place: t [L, K, mp·ps, H, kd] → pool [L, P, H, ps, kd]."""
+  L, K, N, H, kd = t.shape
+  mp = target.shape[1]
+  ps = pool_part.shape[3]
+  pages = t.view(L, K, mp, ps, H, kd).transpose(3, 4).reshape(L, K * mp, H, ps, kd)
+  pool_part[:, target.reshape(-1).long()] = pages.to(pool_part.dtype)
+  return pool_part
+
+
+def paged_gqa_attention_ref(q, k_pool_l, v_pool_l, block_tables, lengths, page_size: int, k_scale_pool_l=None, v_scale_pool_l=None, q_positions=None) -> torch.Tensor:
+  """Paged attention by gather (q [B, Sq, Hq, hd]; Sq is 1 on the decode
+  path). With scale pools the gathered codes stay the einsum operand (int4
+  codes unpack after the gather) and the scales gather alongside.
+  ``q_positions`` [B, Sq] overrides the single-query default (each row's
+  ``lengths - 1``)."""
+  k = gather_pages(k_pool_l, block_tables)
+  v = gather_pages(v_pool_l, block_tables)
+  kv_positions = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
+  if q_positions is None:
+    q_positions = (lengths - 1)[:, None]
+  scales = {}
+  if k_scale_pool_l is not None:
+    if k.shape[-1] * 2 == q.shape[-1]:  # packed int4 codes
+      from ..models.quantize import unpack_int4_kv
+
+      k, v = unpack_int4_kv(k), unpack_int4_kv(v)
+    scales = dict(k_scale=gather_pages(k_scale_pool_l, block_tables), v_scale=gather_pages(v_scale_pool_l, block_tables))
+  return gqa_attention(q, k, v, q_positions, kv_positions, **scales)
+
+
+def paged_decode_attention_ref(q, k_pool_l, v_pool_l, block_tables, lengths, page_size: int, k_scale_pool_l=None, v_scale_pool_l=None) -> torch.Tensor:
+  """Plain version of K3, same signature as ``paged_decode_attention``:
+  q [B, Hq, hd] → [B, Hq, hd] through the gather reference."""
+  return paged_gqa_attention_ref(q[:, None], k_pool_l, v_pool_l, block_tables, lengths, page_size, k_scale_pool_l, v_scale_pool_l)[:, 0]
+
+
+def paged_decode_attention(q, k_pool_l, v_pool_l, block_tables, lengths, page_size: int, k_scale_pool_l=None, v_scale_pool_l=None) -> torch.Tensor:
+  """Decode attention straight off the page pool (dense GQA models).
+
+  q [B, Hq, hd] (one new token per row); k/v pool [P, Hkv, ps, kd];
+  block_tables [B, mp] int32 (entries past a row's last valid page may hold
+  anything: they are never read); lengths [B] int32 = valid KV slots
+  INCLUDING the token just written (≥ 1). With ``k_scale_pool_l`` /
+  ``v_scale_pool_l`` [P, Hkv, ps, 1] f32 the pools hold int8 codes, or
+  packed int4 codes when their last axis is hd/2. Returns [B, Hq, hd] in
+  q's dtype. On CUDA: bf16 q (and pools unless quantized), hd ∈ {64, 128,
+  256}, Hq a multiple of Hkv, int32 tables and lengths, all contiguous."""
+  if (k_scale_pool_l is None) != (v_scale_pool_l is None):
+    raise ValueError("paged_decode_attention: k_scale_pool_l and v_scale_pool_l must be passed together")
+  if q.device.type == "cpu":
+    return paged_decode_attention_ref(q, k_pool_l, v_pool_l, block_tables, lengths, page_size, k_scale_pool_l, v_scale_pool_l)
+  if q.device.type != "cuda":
+    raise ValueError(f"paged_decode_attention: no kernel for device {q.device}")
+  B, Hq, hd = q.shape
+  P, Hkv, ps, kd = k_pool_l.shape
+  mp = block_tables.shape[1]
+  quantized = k_scale_pool_l is not None
+  kind = 0 if not quantized else (2 if kd * 2 == hd else 1)
+  if hd not in HEAD_DIMS or Hq % Hkv or ps != page_size or kd != (hd // 2 if kind == 2 else hd):
+    raise ValueError(f"paged_decode_attention: unsupported geometry Hq={Hq} Hkv={Hkv} hd={hd} page={ps} (page_size {page_size}) code axis {kd}")
+  dev = q.device
+  pool_dtype = torch.int8 if quantized else torch.bfloat16
+  check_cuda("q", q, torch.bfloat16, (B, Hq, hd), dev)
+  check_cuda("k_pool", k_pool_l, pool_dtype, (P, Hkv, ps, kd), dev)
+  check_cuda("v_pool", v_pool_l, pool_dtype, (P, Hkv, ps, kd), dev)
+  if quantized:
+    check_cuda("k_scale_pool", k_scale_pool_l, torch.float32, (P, Hkv, ps, 1), dev)
+    check_cuda("v_scale_pool", v_scale_pool_l, torch.float32, (P, Hkv, ps, 1), dev)
+  check_cuda("block_tables", block_tables, torch.int32, (B, mp), dev)
+  check_cuda("lengths", lengths, torch.int32, (B,), dev)
+  for name, t in (("k_pool", k_pool_l), ("v_pool", v_pool_l)):
+    if t.data_ptr() % 16:
+      raise ValueError(f"paged_decode_attention: {name} must be 16-byte aligned")
+  n_chunks = -(-(mp * ps) // DECODE_CHUNK)
+  part_m = torch.empty((B, Hq, n_chunks), dtype=torch.float32, device=dev)
+  part_l = torch.empty_like(part_m)
+  part_acc = torch.empty((B, Hq, n_chunks, hd), dtype=torch.float32, device=dev)
+  out = torch.empty_like(q)
+  fn = load("paged_decode")
+  rc = fn(
+    q.data_ptr(), k_pool_l.data_ptr(), v_pool_l.data_ptr(),
+    k_scale_pool_l.data_ptr() if quantized else None, v_scale_pool_l.data_ptr() if quantized else None,
+    block_tables.data_ptr(), lengths.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+    B, Hq, Hkv, hd, ps, mp, kind, DECODE_CHUNK, stream_ptr(dev),
+  )
+  if rc != 0:
+    raise RuntimeError(f"paged_decode kernel launch failed: cudaError {rc}")
+  LAUNCHES["paged_decode"] += 1
+  return out
+
+
+def paged_kernel_supported(cfg) -> bool:
+  """Whether paged decode attention goes through ``paged_decode_attention``
+  (K3 on a CUDA tensor, its plain version on the CPU) rather than the
+  gather reference. Only an explicit ``XOT_TPU_PAGED_KERNEL=0`` asks for
+  the gather path. The reference's TPU dispatch table
+  (``inference/paging.py select_decode_path``) is not carried over."""
+  return cfg.plain_attention and env_flag("XOT_TPU_PAGED_KERNEL", default=True)
+
+
+def check_paged_kernel(cfg, device) -> None:
+  """Refuse batched decode on a CUDA ``device`` for a head dim K3 has no
+  variant for, instead of serving it through the gather path."""
+  if torch.device(device).type == "cuda" and paged_kernel_supported(cfg) and cfg.head_dim not in HEAD_DIMS:
+    raise NotImplementedError(
+      f"paged decode kernel has no variant for head dim {cfg.head_dim} (has {HEAD_DIMS}); "
+      "set XOT_TPU_PAGED_KERNEL=0 for the gather path"
+    )

@@ -1,7 +1,8 @@
-"""Token sampling: temperature + top-k + top-p, and greedy. Counterpart of
-the reference's ``ops/sampling.py``; the random stream comes from an
-explicit ``torch.Generator`` (Philox on the card), so sampled streams match
-the reference's support set, not its bits."""
+"""Token sampling: temperature + top-k + top-p, per-row temperature and
+top-k for batched serving, and greedy. Counterpart of the reference's
+``ops/sampling.py``; the random stream comes from an explicit
+``torch.Generator`` (Philox on the card), so sampled streams match the
+reference's support set, not its bits."""
 
 from __future__ import annotations
 
@@ -47,3 +48,27 @@ def _apply_top_p_full(logits: torch.Tensor, top_p: float) -> torch.Tensor:
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
   return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def sample_logits_per_row(
+  logits: torch.Tensor,  # [B, V]
+  generator: torch.Generator | None,
+  temps: torch.Tensor,  # [B] f32, caller guarantees > 0
+  top_ks: torch.Tensor,  # [B] int, clipped to [1, k_max]
+  k_max: int = 64,
+) -> torch.Tensor:
+  """Per-row temperature AND top-k over a batch of heterogeneous requests.
+  The static ``k_max`` caps the candidate set; each row's ``top_ks`` masks
+  ranks beyond its own k. The draw is Gumbel-max over the kept candidates
+  (what ``jax.random.categorical`` computes), so nothing here syncs with
+  the host."""
+  x = logits.float() / torch.clamp(temps.float(), min=1e-6)[:, None]
+  k_cap = min(int(k_max), x.shape[-1])
+  vals, idxs = torch.topk(x, k_cap, dim=-1)  # [B, k_cap] descending
+  rank = torch.arange(k_cap, device=x.device)[None, :]
+  keep = rank < torch.clamp(top_ks.to(torch.int64), 1, k_cap)[:, None]
+  vals = torch.where(keep, vals, torch.full_like(vals, NEG_INF))
+  u = torch.rand(vals.shape, generator=generator, device=vals.device, dtype=torch.float32)
+  gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-20, max=1.0 - 1e-7)))
+  choice = torch.argmax(vals + gumbel, dim=-1, keepdim=True)
+  return torch.gather(idxs, -1, choice)[:, 0].to(torch.int32)

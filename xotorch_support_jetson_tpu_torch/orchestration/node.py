@@ -1,12 +1,13 @@
-"""The serving node — single-node solo flow.
+"""The serving node — single-node flow.
 
 Counterpart of the reference's ``orchestration/node.py`` for one node that
-owns the whole model: ``process_prompt`` → engine prefill → first token
-sampled here → ``_fast_decode_loop`` (one device loop for a blocking
+owns the whole model. Solo: ``process_prompt`` → engine prefill → first
+token sampled here → ``_fast_decode_loop`` (one device loop for a blocking
 request, pipelined chunks for a streaming one) → ``_finish_request`` →
-``engine.end_request``. Tokens reach listeners (the API) through
-``on_token``. There is no ring, gRPC, discovery, QoS or SLO layer in the
-port yet.
+``engine.end_request``. With ``XOT_TPU_BATCHED=1`` every prompt goes to
+the engine's continuous-batching server instead (``_batched_serve``).
+Tokens reach listeners (the API) through ``on_token``. There is no ring,
+gRPC, discovery, QoS or SLO layer in the port yet.
 """
 
 from __future__ import annotations
@@ -93,6 +94,10 @@ class Node:
     if request_id is None:
       request_id = str(uuid.uuid4())
     shard = self.get_current_shard(base_shard)
+    if os.getenv("XOT_TPU_BATCHED", "0") == "1" and getattr(self.inference_engine, "supports_batched", lambda: False)():
+      # Continuous batching (inference/batch_scheduler.py): concurrent
+      # requests share fused decode chunks over the paged pool.
+      return await self._batched_serve(base_shard, shard, prompt, request_id)
     self.outstanding_requests[request_id] = "processing"
     try:
       output, state = await self.inference_engine.infer_prompt(request_id, shard, prompt, inference_state)
@@ -184,10 +189,35 @@ class Node:
       self.buffered_token_output[request_id] = (tokens, True)
       self.trigger_on_token_callbacks(request_id, [], True)
 
+  async def _batched_serve(self, base_shard: Shard, shard: Shard, prompt: str, request_id: str) -> None:
+    """Serve one prompt through the engine's batched server; tokens stream
+    to listeners as its chunks settle."""
+    engine = self.inference_engine
+    self.outstanding_requests[request_id] = "processing"
+    try:
+      tokens = await engine.encode(shard, prompt)
+      max_tokens, temp, top_k = self._request_limits(request_id)
+      eos_ids = self._eos_token_ids(base_shard)
+      self.buffered_token_output[request_id] = ([], False)
+
+      def emit(rid: str, new_tokens: list, finished: bool) -> None:
+        buffered, _ = self.buffered_token_output.get(rid, ([], False))
+        buffered.extend(new_tokens)
+        self.buffered_token_output[rid] = (buffered, finished)
+        self.trigger_on_token_callbacks(rid, list(new_tokens), finished)
+
+      await engine.get_batched_server().submit(request_id, tokens, max_tokens=max_tokens, temp=temp, top_k=top_k, eos_ids=eos_ids, emit=emit)
+    finally:
+      self._finish_request(request_id)
+
   def cancel_request(self, request_id: str) -> None:
-    """Stop generating for a request at the next chunk boundary."""
+    """Stop generating for a request at the next chunk boundary (the
+    batched server frees its row there)."""
     if request_id in self.outstanding_requests:
       self.cancelled_requests.add(request_id)
+      server = getattr(self.inference_engine, "_batched_server", None)
+      if server is not None:
+        server.cancel(request_id)
 
   def _finish_request(self, request_id: str) -> None:
     self.outstanding_requests.pop(request_id, None)
