@@ -7,11 +7,12 @@ Phases (any failure exits non-zero and prints no result):
 1. device — the card's name, power limit and compute capability;
 2. build — every CUDA kernel from the checkout's sources, one nvcc each,
    in parallel (xotorch_support_jetson_tpu_torch/ops/kernels.py);
-3. kernels — K1 (flash prefill), K2 (flash decode) and K3 (paged decode,
-   bf16 / int8 / int4 pages) against their plain PyTorch versions at
-   llama-3.2-1b's attention shapes (Hq 32, Hkv 8, hd 64, bf16, cache 4096;
-   page size 64, 64 pages per row for K3): error, kernel / plain / SDPA
-   time and the card's bound;
+3. kernels — K1 (flash prefill), K2 (flash decode), K3 (paged decode,
+   bf16 / int8 / int4 pages) and K4 (packed-int4 weight matmul) against
+   their plain PyTorch versions at llama-3.2-1b's shapes (attention: Hq 32,
+   Hkv 8, hd 64, bf16, cache 4096, page size 64 and 64 pages per row for
+   K3; K4: the five projection shapes at T = 1, 8, 128): error, kernel /
+   plain / library time and the card's bound; K4's per-decode-step sums;
 4. solo serving — a seeded random-weight bf16 checkpoint with
    llama-3.2-1b's published shapes is written with the port's safetensors
    writer, and the port's daemon path (main → node → API) serves blocking
@@ -22,14 +23,24 @@ Phases (any failure exits non-zero and prints no result):
    equal, and the served model's prefill and decode logits must agree with
    the plain attention path on the same weights. ``torch.profiler`` splits
    one prefill and eight decode steps into host and device time;
-5. batched serving — the same checkpoint through the daemon with
+5. quantized solo serving — the same checkpoint through the daemon once
+   per weight mode: XOT_TPU_QUANT=int4, int8, and int8 with
+   XOT_TPU_QUANT_COMPUTE=w8a8 (the engine quantizes on the card at load).
+   Greedy blocking and streaming ids must be equal; in the int4 pass K1
+   and K4 must have run, and its prefill and decode logits through K4 must
+   agree with XOT_TPU_INT4_KERNEL=0 on the same weights. Each mode's
+   logits against the bf16 model are reported; the profiler splits one
+   decode step under int4 (K4, and XOT_TPU_INT4_KERNEL=0) and int8 w8a16;
+6. batched serving — the same checkpoint through the daemon with
    XOT_TPU_BATCHED=1 (8 slots, 64-token pages, cache 4096): 16 concurrent
    streaming greedy requests sharing a 128-token system prefix, once per KV
-   pool type (bf16, int8, int4). The counters are zeroed just before each
-   pass and read just after: K1 (bf16 and int8 prefill) and K3 must have
-   run, and prefix pages must have been shared. One batched decode step's
-   logits through K3 must agree with the gather path on the same pool, and
-   ``torch.profiler`` splits a decode chunk into host and device time.
+   pool type (bf16, int8, int4), then once more with XOT_TPU_QUANT=int4
+   weights and bf16 pages. The counters are zeroed just before each pass
+   and read just after: K1 (bf16 and int8 pages) and K3 must have run, K4
+   in the int4-weights pass, and prefix pages must have been shared. One
+   batched decode step's logits through K3 must agree with the gather path
+   on the same pool, and ``torch.profiler`` splits a decode chunk into host
+   and device time.
 
 The last two lines are the card as ``nvidia-smi`` reports it and
 ``{"ok": true, "device": {...}}``; the line before them is the kernels' JSON
@@ -39,6 +50,7 @@ summary. A full record goes to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import math
 import os
@@ -64,6 +76,15 @@ K2_ATOL = 1e-2  # bf16 output; f32 math inside
 # off by a few percent fails.
 K3_ATOL = 2.5e-4
 K3_RTOL = 2.0**-7
+# K4 elementwise: |got - ref| <= K4_ATOL + K4_RTOL * |ref|. Kernel and plain
+# version both sum in f32 and round once to bf16, so they may differ by one
+# bf16 rounding step (<= 2^-7 of the value); the absolute part covers the
+# f32 summation-order difference near zero, whose largest reading on an
+# H100 was 6.3e-8 (15 shapes, T = 1 / 8 / 128). Outputs are ~N(0, 1) (unit
+# x, weights scaled 1/sqrt(in)), so 1e-4 is a ten-thousandth of a typical
+# value: a merge that drops one of 16 in-splits is off by ~0.25.
+K4_ATOL = 1e-4
+K4_RTOL = 2.0**-7
 # llama-3.2-1b: meta-llama/Llama-3.2-1B config.json (published values).
 LLAMA_3_2_1B = {
   "architectures": ["LlamaForCausalLM"], "model_type": "llama", "vocab_size": 128256, "hidden_size": 2048,
@@ -77,6 +98,12 @@ MAX_TOKENS = 64
 PAGE = 64  # XOT_TPU_PAGE_SIZE default
 BATCH_SLOTS = 8
 KV_MODES = {"bf16": "", "int8": "int8", "int4": "int4"}
+# llama-3.2-1b's weight products, (in, out), and how many one decode step
+# makes: 16 layers and the tied LM head.
+LLAMA_1B_MATMULS = {"wq/wo": (2048, 2048), "wk/wv": (2048, 512), "w_gate/w_up": (2048, 8192), "w_down": (8192, 2048), "lm_head": (2048, 128256)}
+CALLS_PER_STEP = {"wq/wo": 32, "wk/wv": 32, "w_gate/w_up": 32, "w_down": 16, "lm_head": 1}
+# Weight-quantized solo passes: the environment each daemon starts with.
+QUANT_MODES = {"int4": {"XOT_TPU_QUANT": "int4"}, "int8": {"XOT_TPU_QUANT": "int8"}, "int8_w8a8": {"XOT_TPU_QUANT": "int8", "XOT_TPU_QUANT_COMPUTE": "w8a8"}}
 
 
 def log(msg: str) -> None:
@@ -220,24 +247,65 @@ def phase_kernels(torch):
     results["flash_decode"].append(row)
     log(f"[kernels] flash_decode B={B} positions={positions} cache={CACHE}: max|err| {err:.3e} (tol {K2_ATOL}) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | sdpa {row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
   results["paged_decode"] = paged_kernel_rows(torch, gen, Hq, Hkv, hd)
-  results["int4_matmul_bound"] = int4_matmul_bound()
+  results["int4_matmul"] = int4_kernel_rows(torch, gen)
+  results["int4_matmul_bound"] = int4_matmul_bound(results["int4_matmul"])
   return results
 
 
-def int4_matmul_bound():
-  """K4 (``int4_matmul``, not ported yet): the bytes one llama-3.2-1b decode
-  step would stream through it — every layer projection and the tied LM
-  head packed two codes per byte, plus one f32 scale per output channel —
-  and the resulting bound at 3.35 TB/s. Computed from the config, no card
-  work."""
-  c = LLAMA_3_2_1B
-  D, F_, V, L = c["hidden_size"], c["intermediate_size"], c["vocab_size"], c["num_hidden_layers"]
-  qd, kd = c["num_attention_heads"] * c["head_dim"], c["num_key_value_heads"] * c["head_dim"]
-  shapes = [(D, qd), (D, kd), (D, kd), (qd, D), (D, F_), (D, F_), (F_, D)] * L + [(D, V)]  # [in, out]
-  per_call = [d_in * d_out // 2 + d_out * 4 for d_in, d_out in shapes]
-  step = sum(per_call)
-  res = dict(calls_per_step=len(shapes), bytes_per_step=step, bound_ms_per_step=step / HBM_BYTES_PER_S * 1e3, head_bytes=per_call[-1], head_bound_ms=per_call[-1] / HBM_BYTES_PER_S * 1e3, mlp_bytes=per_call[4], mlp_bound_ms=per_call[4] / HBM_BYTES_PER_S * 1e3)
-  log(f"[kernels] int4_matmul (K4, to port) at llama-3.2-1b decode: {res['calls_per_step']} calls per step, {step / 1e6:.2f} MB packed weights + scales -> bound {res['bound_ms_per_step']:.5f} ms per step; LM head {res['head_bytes'] / 1e6:.2f} MB -> {res['head_bound_ms']:.5f} ms; one MLP projection {res['mlp_bytes'] / 1e6:.2f} MB -> {res['mlp_bound_ms']:.5f} ms")
+def int4_kernel_rows(torch, gen):
+  """K4 against its plain version at llama-3.2-1b's five weight shapes, T =
+  1 (solo decode), 8 (batched decode, 8 slots) and 128 (the prefill
+  bucket). The yardstick is torch.matmul of the same bf16 x with the weight
+  dequantized to bf16 beforehand — the product int4 mode replaces; the
+  dequant is not timed."""
+  from xotorch_support_jetson_tpu_torch.models.quantize import dequantize_leaf, quantize_weight_int4
+  from xotorch_support_jetson_tpu_torch.ops import int4_matmul as k4
+
+  rows = []
+  for name, (d_in, d_out) in LLAMA_1B_MATMULS.items():
+    packed, scale = quantize_weight_int4(torch.randn((d_in, d_out), generator=gen, device="cuda") * d_in**-0.5)
+    w_bf16 = dequantize_leaf(packed, scale, d_in, torch.bfloat16)
+    for T in (1, 8, 128):
+      x = _rand(torch, (T, d_in), gen, torch.bfloat16)
+      got = k4.int4_matmul(x, packed, scale)
+      want = k4.int4_matmul_ref(x, packed, scale)
+      torch.cuda.synchronize()
+      diff = (got.float() - want.float()).abs()
+      rel = K4_RTOL * want.float().abs()
+      err = diff.max().item()
+      used = (diff / (K4_ATOL + rel)).max().item()  # share of the allowed error used by the worst element
+      slack = (diff - rel).max().item()  # what the relative part leaves to the absolute one
+      if not torch.isfinite(got).all() or not used <= 1.0:
+        raise SystemExit(f"chip_smoke: int4_matmul disagrees with its plain version ({name} in={d_in} out={d_out} T={T}): max|err| {err}, {used:.2f}x the bound atol {K4_ATOL} + rtol {K4_RTOL}·|ref|")
+      nbytes = d_in // 2 * d_out + d_out * 4 + T * d_in * 2 + T * d_out * 2  # packed codes, scales, x, y
+      flops = 2 * T * d_in * d_out
+      bound_flops, bound_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+      row = dict(
+        weight=name, T=T, d_in=d_in, d_out=d_out, n_split=k4.plan(T, d_in, d_out)[1], max_abs_err=err, abs_slack=slack,
+        tol=dict(atol=K4_ATOL, rtol=K4_RTOL), tol_used=used,
+        ms=_cuda_ms(torch, lambda: k4.int4_matmul(x, packed, scale)),
+        plain_ms=_cuda_ms(torch, lambda: k4.int4_matmul_ref(x, packed, scale), iters=10),
+        library_ms=_cuda_ms(torch, lambda: torch.matmul(x, w_bf16)),
+        library="torch.matmul of bf16 x with the weight dequantized to bf16 beforehand (dequant not timed)",
+        bound_ms=max(bound_flops, bound_bytes), bound_by="operations" if bound_flops >= bound_bytes else "bytes",
+      )
+      rows.append(row)
+      log(f"[kernels] int4_matmul {name} in={d_in} out={d_out} T={T} ({row['n_split']} in-splits): max|err| {err:.3e} ({used:.3f} of the bound atol {K4_ATOL} + rtol 2^-7·|ref|; beyond the relative part {slack:.2e}) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | bf16 matmul {row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']}, {nbytes / 1e6:.2f} MB)")
+    del packed, scale, w_bf16
+  return rows
+
+
+def int4_matmul_bound(rows):
+  """K4 per llama-3.2-1b decode step: the 113 weight products of one step
+  (16 layers and the tied head), summed from the measured rows at T = 1
+  (solo) and T = 8 (batched, 8 slots)."""
+  res = {}
+  for T in (1, 8):
+    at = {r["weight"]: r for r in rows if r["T"] == T}
+    step = {key: sum(n * at[w][key] for w, n in CALLS_PER_STEP.items()) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    step.update(calls=sum(CALLS_PER_STEP.values()), packed_bytes=sum(n * (at[w]["d_in"] // 2 * at[w]["d_out"] + at[w]["d_out"] * 4) for w, n in CALLS_PER_STEP.items()))
+    res[f"T{T}"] = step
+    log(f"[kernels] int4_matmul per decode step at T={T} ({step['calls']} calls, {step['packed_bytes'] / 1e6:.2f} MB packed weights + scales): kernel {step['ms']:.4f} ms | plain {step['plain_ms']:.4f} ms | bf16 matmul {step['library_ms']:.4f} ms | bound {step['bound_ms']:.5f} ms")
   return res
 
 
@@ -422,29 +490,42 @@ def _rel_err(a, b) -> float:
   return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def check_against_plain(torch, engine):
-  """The served weights through the kernel path vs the plain attention path
-  (XOT_TPU_NO_FLASH): prefill logits and one K2 decode step, full width."""
+CHECK_PROMPT = "<|user|>The quick brown fox jumps over the lazy dog.\n<|assistant|>"
+
+
+def _forward_pair(torch, engine):
+  """The served weights' prefill logits on ``CHECK_PROMPT`` (full width)
+  and one decode step's logits after it, on a fresh cache, through the
+  paths the current environment selects."""
   from xotorch_support_jetson_tpu_torch.models.decoder import init_kv_cache, shard_forward
 
   cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
-  toks = torch.tensor([ByteTokenizer().encode("<|user|>The quick brown fox jumps over the lazy dog.\n<|assistant|>")], dtype=torch.int32, device="cuda")
+  toks = torch.tensor([ByteTokenizer().encode(CHECK_PROMPT)], dtype=torch.int32, device="cuda")
   S = toks.shape[1]
-  pos = torch.arange(S, dtype=torch.int32, device="cuda")[None]
+  cache = init_kv_cache(cfg, cfg.n_layers, 1, CACHE, device="cuda")
+  pre, cache = shard_forward(params, cfg, shard, toks, torch.arange(S, dtype=torch.int32, device="cuda")[None], cache)
+  step, _ = shard_forward(params, cfg, shard, toks[:, -1:], torch.tensor([[S]], dtype=torch.int32, device="cuda"), cache)
+  if tuple(pre.shape) != (1, S, cfg.vocab_size) or not (torch.isfinite(pre).all() and torch.isfinite(step).all()):
+    raise SystemExit(f"chip_smoke: bad logits shape {tuple(pre.shape)} or non-finite values")
+  return pre, step
+
+
+def _pair_err(a, b):
+  """Relative L2 of prefill and decode-step logits pairs, and greedy agreement."""
+  return dict(prefill_rel_err=_rel_err(a[0], b[0]), decode_rel_err=_rel_err(a[1], b[1]), prefill_argmax_agree=float((a[0].argmax(-1) == b[0].argmax(-1)).float().mean()))
+
+
+def check_against_plain(torch, engine):
+  """The served weights through the kernel path vs the plain attention path
+  (XOT_TPU_NO_FLASH): prefill logits and one K2 decode step, full width."""
   out = {}
   for mode in ("kernel", "plain"):
     # kernel: K1 for the prefill and K2 for the decode step; plain: neither.
     os.environ.update({"XOT_TPU_NO_FLASH": "1"} if mode == "plain" else {"XOT_TPU_FLASH_DECODE": "1", "XOT_TPU_FLASH_DECODE_MIN": str(CACHE)})
-    cache = init_kv_cache(cfg, cfg.n_layers, 1, CACHE, device="cuda")
-    pre, cache = shard_forward(params, cfg, shard, toks, pos, cache)
-    step, _ = shard_forward(params, cfg, shard, toks[:, -1:], torch.tensor([[S]], dtype=torch.int32, device="cuda"), cache)
-    out[mode] = (pre, step)
+    out[mode] = _forward_pair(torch, engine)
     for knob in ("XOT_TPU_NO_FLASH", "XOT_TPU_FLASH_DECODE", "XOT_TPU_FLASH_DECODE_MIN"):
       os.environ.pop(knob, None)
-  (pk, sk), (pp, sp) = out["kernel"], out["plain"]
-  if tuple(pk.shape) != (1, S, cfg.vocab_size) or not (torch.isfinite(pk).all() and torch.isfinite(sk).all()):
-    raise SystemExit(f"chip_smoke: bad logits shape {tuple(pk.shape)} or non-finite values")
-  res = dict(prefill_rel_err=_rel_err(pk, pp), decode_rel_err=_rel_err(sk, sp), prefill_argmax_agree=float((pk.argmax(-1) == pp.argmax(-1)).float().mean()))
+  res = _pair_err(out["kernel"], out["plain"])
   # bf16 through 16 layers: the two paths round differently (bf16
   # probabilities in K1's P·V product, other accumulation orders), and the
   # difference compounds layer by layer; 5e-2 relative bounds that drift
@@ -518,7 +599,15 @@ def profile_serving(torch, engine, steps=8):
   return out
 
 
-SERVING_KNOBS = ("XOT_TPU_FLASH_DECODE", "XOT_TPU_FLASH_DECODE_MIN", "XOT_TPU_NO_FLASH", "XOT_TPU_KV_QUANT", "XOT_TPU_PLATFORM", "XOT_TPU_BATCHED", "XOT_TPU_PAGED_KERNEL")
+SERVING_KNOBS = (
+  "XOT_TPU_FLASH_DECODE", "XOT_TPU_FLASH_DECODE_MIN", "XOT_TPU_NO_FLASH", "XOT_TPU_KV_QUANT", "XOT_TPU_PLATFORM", "XOT_TPU_BATCHED", "XOT_TPU_PAGED_KERNEL",
+  "XOT_TPU_QUANT", "XOT_TPU_QUANT_COMPUTE", "XOT_TPU_INT4_KERNEL",
+)
+CHAT = [{"role": "user", "content": "Write a short poem about a fox who learns to fly."}]
+
+
+def _chat_body(stream, temp):
+  return {"model": "llama-3.2-1b", "messages": CHAT, "stream": stream, "temperature": temp, "max_tokens": MAX_TOKENS}
 
 
 def _daemon_args(tmain, ckpt: Path):
@@ -552,11 +641,7 @@ async def _serve(torch, tmain, Shard, fa, args, port):
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     log(f"[serving] daemon up on 127.0.0.1:{port}; weights loaded to the card in {load_s:.1f} s")
-    msg = [{"role": "user", "content": "Write a short poem about a fox who learns to fly."}]
-
-    def body(stream, temp):
-      return {"model": "llama-3.2-1b", "messages": msg, "stream": stream, "temperature": temp, "max_tokens": MAX_TOKENS}
-
+    body = _chat_body
     await _serve_requests(torch, node, engine, port, [("warmup", body(False, 0))])  # first CUDA/cuBLAS work off the clock
     fa.reset_launch_counts()  # ---- the main path, counted
     run_a = await _serve_requests(torch, node, engine, port, [
@@ -594,6 +679,7 @@ async def _serve(torch, tmain, Shard, fa, args, port):
     summary["check"] = check_against_plain(torch, engine)
     log(f"[serving] kernel path vs plain path on the served weights: {summary['check']}")
     summary["profile"] = profile_serving(torch, engine)
+    summary["_bf16_logits"] = _forward_pair(torch, engine)  # what the quantized passes report against
     return summary
   finally:
     server.close()
@@ -601,7 +687,106 @@ async def _serve(torch, tmain, Shard, fa, args, port):
     engine.executor.shutdown(wait=True)
 
 
-# ------------------------------------------------------------- 5. batched
+# --------------------------------------------------- 5. quantized solo serving
+
+
+def phase_quant_serving(torch, ckpt: Path, bf16_logits):
+  """One daemon pass per weight mode of ``QUANT_MODES``."""
+  from xotorch_support_jetson_tpu_torch import main as tmain
+
+  out = {}
+  for mode, env in QUANT_MODES.items():
+    args, port = _daemon_args(tmain, ckpt)
+    os.environ.update(env)
+    try:
+      out[mode] = asyncio.run(_serve_quant(torch, tmain, args, port, mode, env, bf16_logits))
+    finally:
+      for knob in env:
+        os.environ.pop(knob, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+  return out
+
+
+async def _serve_quant(torch, tmain, args, port, mode, env, bf16_logits):
+  from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, int4_matmul as k4
+
+  node, api, engine, _ = tmain.build_components(args, tokenizer=ByteTokenizer())
+  server = await api.run(host="127.0.0.1", port=port)
+  try:
+    t0 = time.perf_counter()
+    await engine.ensure_shard(Shard("llama-3.2-1b", 0, 15, 16))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    compute = env.get("XOT_TPU_QUANT_COMPUTE", "w8a16")
+    if engine.quant != env["XOT_TPU_QUANT"] or engine.cfg.quant_compute != compute or engine.params["layers"]["wq"].dtype != torch.int8 or "lm_head_scale" not in engine.params:
+      raise SystemExit(f"chip_smoke: {mode}: the engine did not load quantized weights ({engine.quant}, {engine.cfg.quant_compute})")
+    weight_bytes = sum(t.numel() * t.element_size() for t in [*engine.params["layers"].values(), *(v for k, v in engine.params.items() if k != "layers")])
+    log(f"[quant] {mode}: daemon up; weights loaded and quantized on the card in {load_s:.1f} s ({weight_bytes / 1e9:.2f} GB of parameters, the bf16 embedding table included)")
+    await _serve_requests(torch, node, engine, port, [("warmup", _chat_body(False, 0))])
+    fa.reset_launch_counts()  # ---- this pass's main path, counted
+    k4.reset_launch_counts()
+    run = await _serve_requests(torch, node, engine, port, [("greedy blocking", _chat_body(False, 0)), ("greedy streaming", _chat_body(True, 0))])
+    launches = {"flash_prefill": fa.LAUNCHES["flash_prefill"], "flash_decode": fa.LAUNCHES["flash_decode"], "int4_matmul": k4.LAUNCHES["int4_matmul"]}  # ---- read just after
+    blocking, streaming = run
+    if blocking["tokens"] != streaming["tokens"] or blocking["text"] != streaming["text"]:
+      raise SystemExit(f"chip_smoke: {mode}: greedy blocking and streaming differ:\n{blocking['tokens']}\n{streaming['tokens']}")
+    int4 = env["XOT_TPU_QUANT"] == "int4"
+    if launches["flash_prefill"] == 0 or (launches["int4_matmul"] == 0) == int4:
+      raise SystemExit(f"chip_smoke: {mode}: unexpected launches {launches}")
+    res = dict(
+      mode=mode, env=env, load_s=load_s, weight_bytes=weight_bytes, launches=launches, greedy_tokens=blocking["tokens"],
+      ttft_s=streaming["ttft_s"], decode_tok_s=_decode_rate(streaming), blocking_s=blocking["total_s"], blocking_tokens=len(blocking["tokens"]),
+      requests=[{k: v for k, v in r.items() if k != "text"} for r in run],
+    )
+    log(f"[quant] {mode}: greedy blocking == streaming ({len(blocking['tokens'])} tokens); streaming TTFT {res['ttft_s']:.4f} s, decode {res['decode_tok_s']:.1f} tok/s; launches on the main path {launches}")
+    logits = _forward_pair(torch, engine)
+    res["vs_bf16"] = _pair_err(logits, bf16_logits)
+    log(f"[quant] {mode}: logits against the bf16 model (reported, not gated): {res['vs_bf16']}")
+    if int4:
+      os.environ["XOT_TPU_INT4_KERNEL"] = "0"
+      try:
+        res["k4_vs_two_dot"] = _pair_err(logits, _forward_pair(torch, engine))
+      finally:
+        os.environ.pop("XOT_TPU_INT4_KERNEL")
+      log(f"[quant] {mode}: logits through K4 vs XOT_TPU_INT4_KERNEL=0 on the same weights: {res['k4_vs_two_dot']}")
+      # Same criterion as the kernel-vs-plain checks: bf16 over 16 layers.
+      if not (res["k4_vs_two_dot"]["prefill_rel_err"] < 5e-2 and res["k4_vs_two_dot"]["decode_rel_err"] < 5e-2):
+        raise SystemExit(f"chip_smoke: {mode}: K4 path disagrees with the two-dot path: {res['k4_vs_two_dot']}")
+    if mode in ("int4", "int8"):
+      res["profile"] = profile_decode_step(torch, engine, f"{mode} weights")
+    return res
+  finally:
+    server.close()
+    await server.wait_closed()
+    engine.executor.shutdown(wait=True)
+
+
+def profile_decode_step(torch, engine, what, reps=8):
+  """One solo decode step (B=1, position 100) on the served weights; for
+  int4 weights also with XOT_TPU_INT4_KERNEL=0."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import fused_decode, init_kv_cache
+
+  cfg, shard = engine.cfg, engine._effective_shard
+  cache = init_kv_cache(cfg, cfg.n_layers, 1, CACHE, device="cuda")
+  tok = torch.full((1, 1), 65, dtype=torch.int32, device="cuda")
+  start = torch.tensor([100], dtype=torch.int32, device="cuda")
+
+  def step():
+    fused_decode(engine.params, cfg, shard, tok, cache, start, 1)
+
+  out = {"decode_step": _profile(torch, f"decode step, {what}", step, reps)}
+  if engine.quant == "int4":
+    os.environ["XOT_TPU_INT4_KERNEL"] = "0"
+    try:
+      out["decode_step_two_dot"] = _profile(torch, f"decode step, {what}, XOT_TPU_INT4_KERNEL=0", step, reps)
+    finally:
+      os.environ.pop("XOT_TPU_INT4_KERNEL")
+  return out
+
+
+# ------------------------------------------------------------- 6. batched
 
 
 SYSTEM_PREFIX = "You are a careful assistant. Answer in plain words, keep every answer short, and say when you do not know an answer."
@@ -629,23 +814,29 @@ def _pctl(xs, q):
   return xs[min(len(xs) - 1, max(0, math.ceil(q * len(xs)) - 1))]  # nearest rank
 
 
-def phase_batched(torch, ckpt: Path):
+def phase_batched(torch, ckpt: Path, weights: str = "bf16"):
+  """The batched daemon: one pass per KV pool type on the bf16 weights, or
+  (``weights="int4"``) one pass with XOT_TPU_QUANT=int4 and bf16 pages."""
   from xotorch_support_jetson_tpu_torch import main as tmain
 
   args, port = _daemon_args(tmain, ckpt)
   os.environ.update(XOT_TPU_BATCHED="1", XOT_TPU_BATCH_SLOTS=str(BATCH_SLOTS), XOT_TPU_PAGE_SIZE=str(PAGE))
+  if weights != "bf16":
+    os.environ["XOT_TPU_QUANT"] = weights
   try:
-    return asyncio.run(_serve_batched(torch, tmain, args, port))
+    return asyncio.run(_serve_batched(torch, tmain, args, port, weights))
   finally:
-    for knob in ("XOT_TPU_BATCHED", "XOT_TPU_BATCH_SLOTS", "XOT_TPU_PAGE_SIZE", "XOT_TPU_KV_QUANT"):
+    for knob in ("XOT_TPU_BATCHED", "XOT_TPU_BATCH_SLOTS", "XOT_TPU_PAGE_SIZE", "XOT_TPU_KV_QUANT", "XOT_TPU_QUANT"):
       os.environ.pop(knob, None)
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
-async def _serve_batched(torch, tmain, args, port):
+async def _serve_batched(torch, tmain, args, port, weights):
   from concurrent.futures import ThreadPoolExecutor
 
   from xotorch_support_jetson_tpu_torch.inference.shard import Shard
-  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, paged
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, int4_matmul as k4, paged
 
   node, api, engine, _ = tmain.build_components(args, tokenizer=ByteTokenizer())
   server = await api.run(host="127.0.0.1", port=port)
@@ -657,7 +848,8 @@ async def _serve_batched(torch, tmain, args, port):
     node.on_token.register("chip_smoke").on_next(lambda rid, toks, fin: ids.setdefault(rid, []).extend(toks))
     bodies = batched_bodies()
     passes = {}
-    for kv, quant in KV_MODES.items():
+    kv_modes = KV_MODES if weights == "bf16" else {"bf16": ""}
+    for kv, quant in kv_modes.items():
       engine._drop_batched_server()  # a fresh pool of this type
       os.environ["XOT_TPU_KV_QUANT"] = quant
       warm = {"model": "llama-3.2-1b", "messages": [{"role": "user", "content": "warm up"}], "stream": True, "temperature": 0, "max_tokens": 9}
@@ -666,10 +858,11 @@ async def _serve_batched(torch, tmain, args, port):
       hits0 = bserver.prefix_hit_pages
       fa.reset_launch_counts()  # ---- the batched main path, counted
       paged.reset_launch_counts()
+      k4.reset_launch_counts()
       t0 = time.perf_counter()
       replies = await asyncio.gather(*(loop.run_in_executor(clients, _post, port, b) for b in bodies))
       wall = time.perf_counter() - t0
-      launches = {"flash_prefill": fa.LAUNCHES["flash_prefill"], "flash_decode": fa.LAUNCHES["flash_decode"], "paged_decode": paged.LAUNCHES["paged_decode"]}  # ---- read just after
+      launches = {"flash_prefill": fa.LAUNCHES["flash_prefill"], "flash_decode": fa.LAUNCHES["flash_decode"], "paged_decode": paged.LAUNCHES["paged_decode"], "int4_matmul": k4.LAUNCHES["int4_matmul"]}  # ---- read just after
       hits = bserver.prefix_hit_pages - hits0
       reqs = []
       for (text, finish, ttft, total, n_events, rid), b in zip(replies, bodies):
@@ -679,23 +872,26 @@ async def _serve_batched(torch, tmain, args, port):
         reqs.append(dict(rid=rid, tokens=len(toks), ttft_s=ttft, total_s=total, decode_tok_s=(len(toks) - 1) / max(total - ttft, 1e-9), user_bytes=len(b["messages"][1]["content"])))
       n_tok = sum(r["tokens"] for r in reqs)
       res = dict(
-        kv=kv, requests=len(reqs), wall_s=wall, tokens=n_tok, aggregate_tok_s=n_tok / wall,
+        weights=weights, kv=kv, requests=len(reqs), wall_s=wall, tokens=n_tok, aggregate_tok_s=n_tok / wall,
         ttft_p50_s=_pctl([r["ttft_s"] for r in reqs], 0.5), ttft_p95_s=_pctl([r["ttft_s"] for r in reqs], 0.95),
         decode_tok_s_p50=_pctl([r["decode_tok_s"] for r in reqs], 0.5), decode_tok_s_min=min(r["decode_tok_s"] for r in reqs),
         launches=launches, prefix_hit_pages=hits, pool_pages=bserver.allocator.n_pages, per_request=reqs,
       )
       need_k1 = kv != "int4"  # int4 pages prefill through the plain attention, as the reference gates K1
-      if launches["paged_decode"] == 0 or (need_k1 and launches["flash_prefill"] == 0) or hits == 0 or launches["flash_decode"] != 0:
-        raise SystemExit(f"chip_smoke: batched {kv}: launches {launches}, shared-page hits {hits}")
+      need_k4 = weights == "int4"
+      if launches["paged_decode"] == 0 or (need_k1 and launches["flash_prefill"] == 0) or hits == 0 or launches["flash_decode"] != 0 or (launches["int4_matmul"] == 0) == need_k4:
+        raise SystemExit(f"chip_smoke: batched {weights} weights, {kv} pages: launches {launches}, shared-page hits {hits}")
       if bserver.busy() or bserver.allocator.audit()["referenced"]:
         raise SystemExit(f"chip_smoke: batched {kv}: the server did not drain: {bserver.allocator.audit()}")
       passes[kv] = res
-      log(f"[batched] kv={kv}: {len(reqs)} streaming requests, {n_tok} tokens in {wall:.3f} s: aggregate {res['aggregate_tok_s']:.1f} tok/s | TTFT p50 {res['ttft_p50_s']:.4f} s p95 {res['ttft_p95_s']:.4f} s | per-request decode p50 {res['decode_tok_s_p50']:.2f} tok/s (min {res['decode_tok_s_min']:.2f}) | launches {launches} | shared prefix pages {hits} | pool {res['pool_pages']} pages")
+      log(f"[batched] weights={weights} kv={kv}: {len(reqs)} streaming requests, {n_tok} tokens in {wall:.3f} s: aggregate {res['aggregate_tok_s']:.1f} tok/s | TTFT p50 {res['ttft_p50_s']:.4f} s p95 {res['ttft_p95_s']:.4f} s | per-request decode p50 {res['decode_tok_s_p50']:.2f} tok/s (min {res['decode_tok_s_min']:.2f}) | launches {launches} | shared prefix pages {hits} | pool {res['pool_pages']} pages")
     os.environ.pop("XOT_TPU_KV_QUANT", None)
     node.on_token.deregister("chip_smoke")
-    out = dict(passes=passes, check=check_batched_against_plain(torch, engine))
-    log(f"[batched] one decode step through K3 vs the gather path on the same pool (rel L2 of logits): {out['check']}")
-    out["profile"] = profile_batched(torch, engine)
+    out = dict(passes=passes)
+    if weights == "bf16":
+      out["check"] = check_batched_against_plain(torch, engine)
+      log(f"[batched] one decode step through K3 vs the gather path on the same pool (rel L2 of logits): {out['check']}")
+      out["profile"] = profile_batched(torch, engine)
     return out
   finally:
     clients.shutdown(wait=True)
@@ -785,15 +981,20 @@ def main() -> int:
     write_s = write_checkpoint(torch, ckpt)
     log(f"[serving] wrote a random bf16 llama-3.2-1b checkpoint ({sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9:.2f} GB) in {write_s:.1f} s")
     serving = phase_serving(torch, ckpt)
+    quant = phase_quant_serving(torch, ckpt, serving.pop("_bf16_logits"))
     batched = phase_batched(torch, ckpt)
+    batched_int4 = phase_batched(torch, ckpt, weights="int4")
   finally:
     shutil.rmtree(ckpt, ignore_errors=True)
-  # Launches per kernel on each main path: the solo daemon run (K1, K2) and
-  # the batched daemon runs (K1, K3; summed over the three pool types).
-  by_path = {
-    name: {"solo": serving["launches"].get(name, 0), "batched": sum(p["launches"][name] for p in batched["passes"].values())}
-    for name in ("flash_prefill", "flash_decode", "paged_decode")
+  # Launches per kernel on each main path: the solo bf16 daemon run (K1,
+  # K2), the solo quantized runs (K1; K4 under int4 weights), the batched
+  # runs on bf16 weights (K1, K3; summed over the three pool types) and the
+  # batched run on int4 weights (K1, K3, K4).
+  paths = {
+    "solo": [serving["launches"]], "solo_quant": [q["launches"] for q in quant.values()],
+    "batched": [p["launches"] for p in batched["passes"].values()], "batched_int4_weights": [p["launches"] for p in batched_int4["passes"].values()],
   }
+  by_path = {name: {path: sum(x.get(name, 0) for x in runs) for path, runs in paths.items()} for name in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
 
   def entry(name, source, replaces, rows, head):
     r = rows[head]
@@ -801,16 +1002,20 @@ def main() -> int:
       "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sum(by_path[name].values()),
       "launches_by_path": by_path[name],
       "max_abs_err": max(x["max_abs_err"] for x in rows), "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-      "bound_by": r["bound_by"], "library_ms": r["library_ms"], "at": {k: r[k] for k in r if k in ("Sq", "q_offset", "kv", "B", "positions", "lengths")},
+      "bound_by": r["bound_by"], "library_ms": r["library_ms"], "at": {k: r[k] for k in r if k in ("Sq", "q_offset", "kv", "B", "positions", "lengths", "weight", "T", "d_in", "d_out")},
     }
 
+  k4_head = next(i for i, r in enumerate(kern["int4_matmul"]) if r["weight"] == "w_gate/w_up" and r["T"] == 1)
   kernels_line = {"kernels": [
     entry("flash_prefill", "xotorch_support_jetson_tpu_torch/csrc/flash_prefill.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:32", kern["flash_prefill"], 0),
     entry("flash_decode", "xotorch_support_jetson_tpu_torch/csrc/flash_decode.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:190", kern["flash_decode"], 0),
     # Head row: B=8 at mixed lengths, bf16 pages (the batched path's geometry).
     entry("paged_decode", "xotorch_support_jetson_tpu_torch/csrc/paged_decode.cu", "xotorch_support_jetson_tpu/ops/paged.py:236", kern["paged_decode"], 12),
+    # Head row: one MLP projection (in 2048, out 8192) at T=1, solo decode;
+    # the per-step sums are in chip_smoke.json's int4_matmul_bound.
+    entry("int4_matmul", "xotorch_support_jetson_tpu_torch/csrc/int4_matmul.cu", "xotorch_support_jetson_tpu/ops/pallas_int4.py:36", kern["int4_matmul"], k4_head),
   ]}
-  record = dict(card=smi, build_s=build_s, kernels=kern, serving=serving, batched=batched, summary=kernels_line)
+  record = dict(card=smi, build_s=build_s, kernels=kern, serving=serving, quant=quant, batched=batched, batched_int4_weights=batched_int4, summary=kernels_line)
   out = ROOT / "chiprun_out"
   out.mkdir(exist_ok=True)
   (out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=float))

@@ -252,6 +252,36 @@ def tiny_dir(tmp_path_factory):
   return make_tiny_llama(tmp_path_factory.mktemp("tiny_llama_batched"))
 
 
+def test_batched_server_int4_weights_match_solo(tiny_dir, knobs):
+  """``XOT_TPU_QUANT=int4``: the engine quantizes the checkpoint at load,
+  and its batched server serves those weights with the solo engine's greedy
+  tokens (page pool, prefix sharing and chunked prefill included)."""
+  from test_torch_engine import DirDownloader
+
+  knobs.setenv("XOT_TPU_QUANT", "int4")
+  engine = TorchShardedInferenceEngine(DirDownloader(tiny_dir), device="cpu")
+  shard = Shard("llama-3.2-1b", 0, 15, 16)
+  rng = np.random.default_rng(12)
+  prefix = rng.integers(3, 512, 2 * PS).tolist()
+  prompts = [prefix + rng.integers(3, 512, int(n)).tolist() for n in (3, 9, 30)] + [rng.integers(3, 512, 5).tolist()]
+  max_tokens = [7, 5, 6, 8]
+
+  async def run():
+    await engine.ensure_shard(shard)
+    got = await _serve(BatchedServer(engine, n_slots=2, chunk=3), prompts, max_tokens, [()] * len(prompts))
+    solo = []
+    for i, (p, m) in enumerate(zip(prompts, max_tokens)):
+      logits, _ = await engine.infer_tensor(f"solo{i}", shard, np.asarray([p], np.int32))
+      first = int(np.argmax(logits[0]))
+      solo.append([first] + await engine.generate_oneshot(f"solo{i}", shard, first, m - 1, temp=0.0))
+      engine.end_request(f"solo{i}")
+    return got, solo
+
+  got, solo = asyncio.run(run())
+  assert engine.params["layers"]["w_up"].shape[-2] * 2 == engine.cfg.dim and "lm_head_scale" in engine.params
+  assert got == solo
+
+
 def _post(port, body):
   req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/chat/completions", data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
   try:

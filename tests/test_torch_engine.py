@@ -2,13 +2,16 @@
 built locally with ``transformers`` (the recipe of tests/test_hf_golden.py
 and the verify skill), loaded from disk by both: prefill logits within
 rtol = atol = 2e-4, and greedy ``generate_oneshot`` and chunked
-``dispatch_chunk``/``read_chunk`` tokens identical."""
+``dispatch_chunk``/``read_chunk`` tokens identical — in bf16-layout weights
+and under ``XOT_TPU_QUANT=int8`` (w8a16 and w8a8) and ``int4``."""
 
 import asyncio
+import dataclasses
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from xotorch_support_jetson_tpu.inference.jax_engine import JaxShardedInferenceEngine
 from xotorch_support_jetson_tpu.inference.shard import Shard as JShard
@@ -95,6 +98,55 @@ def test_engine_parity_with_jax(tiny_dir):
     assert te.cfg.n_layers == 2 and te._effective_shard == Shard("llama-3.2-1b", 0, 1, 2)  # registry depth remapped to the checkpoint's
 
   asyncio.run(run())
+
+
+@pytest.mark.parametrize("mode", ["int8", "w8a8", "int4"])
+def test_engine_quantized_parity_with_jax(tiny_dir, monkeypatch, mode):
+  quant, compute = {"int8": ("int8", "w8a16"), "w8a8": ("int8", "w8a8"), "int4": ("int4", "w8a16")}[mode]
+  monkeypatch.setenv("XOT_TPU_QUANT", quant)
+  monkeypatch.setenv("XOT_TPU_QUANT_COMPUTE", compute)
+
+  async def run():
+    je, te = jax_engine(tiny_dir), torch_engine(tiny_dir)
+    js, ts = JShard("llama-3.2-1b", 0, 15, 16), Shard("llama-3.2-1b", 0, 15, 16)
+    await je.ensure_shard(js)
+    # The JAX package reads XOT_TPU_QUANT_COMPUTE once, at import; its config
+    # selects the mode per trace.
+    je.cfg = dataclasses.replace(je.cfg, quant_compute=compute)
+    jl, jone = await _prefill_and_generate(je, js, "a", 16, None)
+    tl, tone = await _prefill_and_generate(te, ts, "a", 16, None)
+    assert je.quant == te.quant == quant and te.cfg.quant_compute == compute
+    assert te.params["layers"]["wq"].dtype == torch.int8 and te.params["lm_head"].dtype == torch.int8
+    if quant == "int4":
+      assert te.params["layers"]["wq"].shape[-2] * 2 == te.cfg.dim  # packed along the in-axis
+    np.testing.assert_allclose(tl, jl, rtol=2e-4, atol=2e-4)
+    assert tone == jone
+    _, tch = await _prefill_and_generate(te, ts, "b", 0, [8, 8])
+    assert tch == tone
+
+  asyncio.run(run())
+
+
+def test_engine_validates_the_quantization_knobs(monkeypatch):
+  monkeypatch.setenv("XOT_TPU_QUANT", "fp8")
+  with pytest.raises(ValueError, match="unsupported quantization mode 'fp8'"):
+    TorchShardedInferenceEngine(device="cpu")
+  assert TorchShardedInferenceEngine(device="cpu", quant="").quant is None  # the argument wins over the environment
+  monkeypatch.setenv("XOT_TPU_QUANT", "int8")
+  monkeypatch.setenv("XOT_TPU_QUANT_COMPUTE", "w4a4")
+  with pytest.raises(ValueError, match="XOT_TPU_QUANT_COMPUTE"):
+    TorchShardedInferenceEngine(device="cpu")
+
+
+def test_engine_refuses_speculative_decoding(monkeypatch):
+  """The reference speculates under any XOT_TPU_SPEC_DECODE; the port has no
+  speculation yet, so it refuses to start instead of decoding plainly."""
+  monkeypatch.setenv("XOT_TPU_SPEC_DECODE", "ngram")
+  with pytest.raises(NotImplementedError, match="XOT_TPU_SPEC_DECODE"):
+    TorchShardedInferenceEngine(device="cpu")
+  monkeypatch.setenv("XOT_TPU_SPEC_DECODE", "")
+  monkeypatch.delenv("XOT_TPU_QUANT", raising=False)
+  assert TorchShardedInferenceEngine(device="cpu").quant is None
 
 
 def test_engine_prompt_too_long(tiny_dir):

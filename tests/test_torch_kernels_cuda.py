@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 flash prefill, K2 flash decode, K3 paged
-decode) against their plain PyTorch versions, on the card, at
-llama-3.2-1b's attention shapes (Hq 32, Hkv 8, hd 64, bf16, cache 4096;
-page size 64 for K3) plus the other head dims and page sizes.
+decode, K4 int4 matmul) against their plain PyTorch versions, on the card,
+at llama-3.2-1b's shapes (attention: Hq 32, Hkv 8, hd 64, bf16, cache 4096,
+page size 64 for K3; K4: its five projection shapes, T = 1 … 256) plus other
+head dims, page sizes and ragged matmul widths.
 
 Needs an NVIDIA GPU and nvcc; every test here is marked ``cuda`` and skips
 without a card. This file imports no JAX, so it runs on a machine with only
@@ -14,19 +15,25 @@ K2 keeps f32 inside and rounds only its bf16 output: 1e-2. K3 does the same
 and is held elementwise to ``atol 2.5e-4 + 2^-7·|ref|`` (``K3_TOL``): one bf16
 rounding step of the value, plus twice the largest absolute reading on an
 H100 (1.2e-4), so a split-K merge off by a few percent at a 4k context
-(outputs ~0.02) fails.
+(outputs ~0.02) fails. K4 sums in f32 and rounds only its bf16 output, as
+its plain version does: ``K4_TOL`` is one bf16 rounding step of the value
+plus 1e-4 absolute for the f32 summation-order difference near zero (largest
+reading on an H100 6.3e-8; outputs are ~N(0, 1), see ``chip_smoke.py``
+``K4_ATOL``).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from xotorch_support_jetson_tpu_torch.models.quantize import quantize_kv, quantize_kv_int4
-from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, paged
+from xotorch_support_jetson_tpu_torch.models.quantize import quantize_kv, quantize_kv_int4, quantize_weight_int4
+from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, int4_matmul as k4, paged
 
 pytestmark = pytest.mark.cuda
 ATOL = 3e-2
 K3_TOL = dict(atol=2.5e-4, rtol=2.0**-7)
+K4_TOL = dict(atol=1e-4, rtol=2.0**-7)
+LLAMA_1B_MATMULS = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048), (2048, 128256)]  # (in, out): wq/wo, wk/wv, gate/up, down, head
 
 
 @pytest.fixture
@@ -156,3 +163,38 @@ def test_paged_wrapper_rejects_what_the_kernel_does_not_take(dev):
     paged.paged_decode_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, bt, lens, 64)
   with pytest.raises(ValueError, match="passed together"):
     paged.paged_decode_attention(q, k, v, bt, lens, 64, k_scale_pool_l=torch.ones(1, device=dev))
+
+
+def _int4_case(dev, T, d_in, d_out, seed=21):
+  x = _rand((T, d_in), seed, dev)
+  packed, scale = quantize_weight_int4(_rand((d_in, d_out), seed + 1, dev, torch.float32) * d_in**-0.5)
+  return x, packed, scale
+
+
+@pytest.mark.parametrize("d_in,d_out", [*LLAMA_1B_MATMULS, (2048, 1000), (1536, 512)])
+@pytest.mark.parametrize("T", [1, 3, 8, 17, 128, 256])
+def test_int4_matmul_matches_plain(dev, T, d_in, d_out):
+  x, packed, scale = _int4_case(dev, T, d_in, d_out)
+  before = k4.LAUNCHES["int4_matmul"]
+  got = k4.int4_matmul(x, packed, scale)
+  torch.cuda.synchronize()
+  assert k4.LAUNCHES["int4_matmul"] == before + 1
+  want = k4.int4_matmul_ref(x, packed, scale)
+  assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+  torch.testing.assert_close(got.float(), want.float(), **K4_TOL)
+
+
+def test_int4_wrapper_rejects_what_the_kernel_does_not_take(dev):
+  x, packed, scale = _int4_case(dev, 4, 256, 64)
+  with pytest.raises(ValueError, match="expected torch.bfloat16"):
+    k4.int4_matmul(x.float(), packed, scale)
+  with pytest.raises(ValueError, match="expected torch.float32"):
+    k4.int4_matmul(x, packed, scale.to(torch.bfloat16))
+  with pytest.raises(ValueError, match="expected a tensor on cuda"):
+    k4.int4_matmul(x, packed.cpu(), scale)
+  with pytest.raises(ValueError, match="contiguous"):
+    k4.int4_matmul(x, packed.t().contiguous().t(), scale)
+  with pytest.raises(ValueError, match="unsupported geometry"):
+    k4.int4_matmul(_rand((257, 256), 1, dev), packed, scale)
+  with pytest.raises(ValueError, match="unsupported geometry"):
+    k4.int4_matmul(_rand((4, 128), 1, dev), packed, scale)

@@ -12,6 +12,12 @@ updated in place by the decoder.
 
 It runs on ``cuda`` unless the caller asks for the CPU (``device="cpu"`` or
 ``XOT_TPU_PLATFORM=cpu``); with no card visible it raises.
+
+``XOT_TPU_QUANT=int8|int4`` (or ``quant=``) loads any model weight-quantized,
+on the device, right after its weights (models/quantize.py); int8 products
+run as ``XOT_TPU_QUANT_COMPUTE`` says (``w8a16``, the default, or ``w8a8``).
+``XOT_TPU_SPEC_DECODE`` (speculative decoding) is not ported: the engine
+refuses to start when it is set rather than serve plain decode.
 """
 
 from __future__ import annotations
@@ -50,7 +56,15 @@ class _Session:
 
 
 class TorchShardedInferenceEngine(InferenceEngine):
-  def __init__(self, shard_downloader=None, max_seq_len: int | None = None, seed: int = 0, device=None, tokenizer=None):
+  def __init__(self, shard_downloader=None, max_seq_len: int | None = None, seed: int = 0, device=None, tokenizer=None, quant: str | None = None):
+    if os.getenv("XOT_TPU_SPEC_DECODE"):
+      raise NotImplementedError("the PyTorch port's engine does not have speculative decoding (XOT_TPU_SPEC_DECODE) yet; unset it")
+    self.quant = (quant if quant is not None else os.getenv("XOT_TPU_QUANT", "")) or None
+    if self.quant not in (None, "int8", "int4"):
+      raise ValueError(f"unsupported quantization mode {self.quant!r}")
+    self.quant_compute = os.getenv("XOT_TPU_QUANT_COMPUTE", "w8a16")
+    if self.quant and self.quant_compute not in ("w8a16", "w8a8"):
+      raise ValueError(f"XOT_TPU_QUANT_COMPUTE supports 'w8a16' or 'w8a8'; got {self.quant_compute!r}")
     self.shard_downloader = shard_downloader
     self.device = resolve_device(device)
     self.shard: Shard | None = None
@@ -120,7 +134,13 @@ class TorchShardedInferenceEngine(InferenceEngine):
       eff = Shard(shard.model_id, start, max(start, end), cfg.n_layers)
     self._drop_batched_server()  # its page pool belongs to the old model
     self.params = None  # free the old model's device memory before loading
-    self.params = load_shard_weights(model_dir, cfg, eff, device=self.device)
+    params = load_shard_weights(model_dir, cfg, eff, device=self.device)
+    if self.quant:
+      from ..models.quantize import quantize_params
+
+      params = quantize_params(params, self.quant)
+      cfg = replace(cfg, quant_compute=self.quant_compute)
+    self.params = params
     self.cfg = cfg
     self.shard = shard
     self._effective_shard = eff

@@ -76,6 +76,7 @@ class ModelConfig:
   family: str = "llama"
   dtype: Any = torch.bfloat16
   eos_token_ids: tuple[int, ...] = ()
+  quant_compute: str = ""  # int8 weight matmul mode ("w8a16" | "w8a8"); "" → XOT_TPU_QUANT_COMPUTE
 
   def __post_init__(self):
     if self.head_dim == 0:

@@ -3,7 +3,9 @@
 ``params_from_jax`` takes the reference decoder's params as numpy arrays
 (stacked ``[L, ...]`` layer leaves, ``x @ w`` orientation — the two layouts
 already agree) and returns torch tensors in ``cfg.dtype`` on ``device``, so
-the tests run both packages on identical weights. The input is plain numpy
+the tests run both packages on identical weights. A weight-quantized tree
+(``quantize_params``) carries across as it is: int8 codes (packed int4
+too) stay int8 and the ``<name>_scale`` leaves stay f32. The input is plain numpy
 (bf16 arrives as an ``ml_dtypes`` array and is reinterpreted bit for bit),
 so this module never imports JAX.
 """
@@ -18,8 +20,17 @@ from .config import ModelConfig
 from .decoder import Params
 from .loader import check_shard_params
 
-_LAYER_KEYS = {"attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down", "bq", "bk", "bv", "q_norm", "k_norm"}
-_TOP_KEYS = {"embed", "final_norm", "lm_head"}
+_QUANT_LAYER_KEYS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
+_LAYER_KEYS = {"attn_norm", "mlp_norm", "bq", "bk", "bv", "q_norm", "k_norm", *_QUANT_LAYER_KEYS, *(f"{k}_scale" for k in _QUANT_LAYER_KEYS)}
+_TOP_KEYS = {"embed", "final_norm", "lm_head", "lm_head_scale"}
+
+
+def _leaf(key: str, arr, cfg: ModelConfig, device) -> torch.Tensor:
+  """Quantization codes stay int8 and scales f32; every other leaf goes to
+  ``cfg.dtype``."""
+  if np.asarray(arr).dtype == np.int8:
+    return _tensor(arr, torch.int8, device)
+  return _tensor(arr, torch.float32 if key.endswith("_scale") else cfg.dtype, device)
 
 
 def _tensor(arr, dtype, device) -> torch.Tensor:
@@ -35,8 +46,8 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, shard: Shard, device=None
   unknown = (set(np_params) - _TOP_KEYS - {"layers"}) | (set(np_params.get("layers", {})) - _LAYER_KEYS)
   if unknown:
     raise NotImplementedError(f"the PyTorch port has no counterpart for these parameter leaves yet: {sorted(unknown)}")
-  params: Params = {"layers": {k: _tensor(v, cfg.dtype, device) for k, v in np_params["layers"].items()}}
+  params: Params = {"layers": {k: _leaf(k, v, cfg, device) for k, v in np_params["layers"].items()}}
   for key in _TOP_KEYS & set(np_params):
-    params[key] = _tensor(np_params[key], cfg.dtype, device)
+    params[key] = _leaf(key, np_params[key], cfg, device)
   check_shard_params(params, cfg, shard)
   return params

@@ -5,8 +5,11 @@ path only).
 Parameters are a plain dict of tensors in the reference's layout: layer
 leaves stacked on a leading [L] axis (``layers/wq`` [L, D, Hq·hd], used as
 ``x @ w``), ``embed`` [V, D], ``final_norm`` [D], ``lm_head`` [D, V]
-(absent when tied to ``embed``). The reference's ``lax.scan`` over layers
-and steps becomes a Python loop. The KV cache is a dict of
+(absent when tied to ``embed``). Weight-quantized params
+(models/quantize.py) carry int8 or packed-int4 codes beside
+``<name>_scale`` leaves; every weight product goes through ``_mm`` /
+``qdot``. The reference's ``lax.scan`` over layers and steps becomes a
+Python loop. The KV cache is a dict of
 [L, B, max_seq, Hkv, hd] buffers (hd/2 for packed int4 codes, +
 ``k_scale``/``v_scale`` [.., 1] for int8 and int4) that the forward UPDATES
 IN PLACE — slot j holds absolute position j. The batched programs at the
@@ -24,13 +27,27 @@ from ..ops.attention import gqa_attention
 from ..ops.norm import rms_norm
 from ..ops.rope import apply_rope, rope_attention_factor, rope_inv_freq
 from .config import ModelConfig
+from .quantize import qdot
 
 Params = dict
+
+# Quantized weight matmul mode (models/quantize.py qdot) when the config
+# names none: "w8a16" upcasts int8 codes next to the product; "w8a8" also
+# quantizes the activations per row for an int8×int8 product.
+QUANT_COMPUTE = os.getenv("XOT_TPU_QUANT_COMPUTE", "w8a16")
 
 # fused_generate checks for all-rows-EOS every this many steps: each check is
 # a host sync, so checking every step would stall the host on the device.
 # Steps past an EOS write only slots beyond the kept tokens (masked later).
 EOS_CHECK_EVERY = 16
+
+
+def _mm(x: torch.Tensor, p: Params, name: str, compute: str = "") -> torch.Tensor:
+  """x @ p[name], through ``qdot`` when the leaf is quantized (it has a
+  sibling ``<name>_scale``); ``compute`` is normally ``cfg.quant_compute``."""
+  if f"{name}_scale" in p:
+    return qdot(x, p[name], p[f"{name}_scale"], compute or QUANT_COMPUTE)
+  return x @ p[name]
 
 
 # ---------------------------------------------------------------- KV cache
@@ -137,9 +154,9 @@ def init_shard_params(cfg: ModelConfig, shard: Shard, generator: torch.Generator
 def _dense_qkv(x, p, cfg: ModelConfig, positions, inv_freq):
   """x [B,S,D] → q [B,S,Hq,hd], k/v [B,S,Hkv,hd] (qkv bias, qk norm, rope)."""
   B, S, _ = x.shape
-  q = x @ p["wq"]
-  k = x @ p["wk"]
-  v = x @ p["wv"]
+  q = _mm(x, p, "wq", cfg.quant_compute)
+  k = _mm(x, p, "wk", cfg.quant_compute)
+  v = _mm(x, p, "wv", cfg.quant_compute)
   if "bq" in p:
     q = q + p["bq"]
     k = k + p["bk"]
@@ -157,8 +174,8 @@ def _dense_qkv(x, p, cfg: ModelConfig, positions, inv_freq):
 def _mlp_block(h, p, cfg: ModelConfig):
   """Post-attention norm + SwiGLU FFN (dense branch)."""
   x = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
-  gated = torch.nn.functional.silu((x @ p["w_gate"]).float()).to(h.dtype) * (x @ p["w_up"])
-  return h + gated @ p["w_down"]
+  gated = torch.nn.functional.silu(_mm(x, p, "w_gate", cfg.quant_compute).float()).to(h.dtype) * _mm(x, p, "w_up", cfg.quant_compute)
+  return h + _mm(gated, p, "w_down", cfg.quant_compute)
 
 
 def _attention(q, k, v, kv, positions, kv_positions, cfg: ModelConfig):
@@ -207,7 +224,7 @@ def _layer_step(h, p, kv, positions, kv_positions, inv_freq, cfg: ModelConfig):
     attn = _attention(q, k, v, kv, positions, kv_positions, cfg)
   else:
     attn = gqa_attention(q, k, v, positions, positions[0])
-  h = h + attn.reshape(B, S, -1) @ p["wo"]
+  h = h + _mm(attn.reshape(B, S, -1), p, "wo", cfg.quant_compute)
   return _mlp_block(h, p, cfg)
 
 
@@ -219,8 +236,11 @@ def embed_tokens(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Ten
 def head_logits(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
   """Final norm + LM head: hidden [B,S,D] → fp32 logits [B,S,V]. The head
   product runs in model dtype (a fp32 copy of the [D,V] head would double
-  its bytes on every decode step)."""
+  its bytes on every decode step), or through ``qdot`` for a quantized
+  head."""
   h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+  if "lm_head_scale" in params:
+    return qdot(h, params["lm_head"], params["lm_head_scale"], cfg.quant_compute or QUANT_COMPUTE).float()
   w_out = params.get("lm_head")
   if w_out is None:
     w_out = params["embed"].T  # tied embeddings, single-params case
@@ -341,7 +361,7 @@ def fused_generate(
 # so their writes land in the reserved trash page 0. Dense models only: the
 # port loads no MLA, MoE or gemma2 checkpoint and has no LoRA yet.
 
-_DENSE_TOP_KEYS = frozenset({"layers", "embed", "final_norm", "lm_head"})
+_DENSE_TOP_KEYS = frozenset({"layers", "embed", "final_norm", "lm_head", "lm_head_scale"})
 
 
 def _dense_full_model(params: Params, shard: Shard, what: str) -> None:
@@ -431,7 +451,7 @@ def _paged_layer_step(h, p, pool_l, block_tables, positions, inv_freq, cfg: Mode
     attn = paged_decode_attention(q[:, 0].contiguous(), pool_l["k"], pool_l["v"], block_tables, lengths, page_size, **scales)[:, None]
   else:
     attn = paged_gqa_attention_ref(q, pool_l["k"], pool_l["v"], block_tables, lengths, page_size, **scales)
-  h = h + attn.reshape(B, S, -1) @ p["wo"]
+  h = h + _mm(attn.reshape(B, S, -1), p, "wo", cfg.quant_compute)
   return _mlp_block(h, p, cfg)
 
 

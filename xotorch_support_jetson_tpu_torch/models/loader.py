@@ -205,9 +205,26 @@ def check_shard_params(params: Params, cfg: ModelConfig, shard: Shard) -> None:
   for key, shape in expect.items():
     if key not in layers:
       raise ValueError(f"layers/{key}: missing")
-    if tuple(layers[key].shape) != shape:
-      raise ValueError(f"layers/{key}: expected {shape}, got {tuple(layers[key].shape)}")
+    _check_leaf(f"layers/{key}", layers, key, shape)
   if shard.is_first_layer and tuple(params["embed"].shape) != (cfg.vocab_size, cfg.dim):
     raise ValueError(f"embed: expected {(cfg.vocab_size, cfg.dim)}, got {tuple(params['embed'].shape)}")
-  if shard.is_last_layer and "lm_head" in params and tuple(params["lm_head"].shape) != (cfg.dim, cfg.vocab_size):
-    raise ValueError(f"lm_head: expected {(cfg.dim, cfg.vocab_size)}, got {tuple(params['lm_head'].shape)}")
+  if shard.is_last_layer and "lm_head" in params:
+    _check_leaf("lm_head", params, "lm_head", (cfg.dim, cfg.vocab_size))
+
+
+def _check_leaf(path: str, group: dict, key: str, shape: tuple) -> None:
+  """One weight leaf of ``shape`` [.., in, out]; quantized
+  (models/quantize.py) when ``<key>_scale`` [.., out] f32 sits beside it:
+  int8 codes of ``shape``, or packed int4 with a halved in-axis."""
+  got = tuple(group[key].shape)
+  scale = group.get(f"{key}_scale")
+  if scale is None:
+    if got != shape:
+      raise ValueError(f"{path}: expected {shape}, got {got}")
+    return
+  packed = shape[:-2] + (shape[-2] // 2, shape[-1])
+  if group[key].dtype != torch.int8 or got not in (shape, packed):
+    raise ValueError(f"{path}: expected int8 codes {shape} or packed int4 {packed}, got {group[key].dtype} {got}")
+  want = shape[:-2] + shape[-1:]
+  if scale.dtype != torch.float32 or tuple(scale.shape) != want:
+    raise ValueError(f"{path}_scale: expected float32 {want}, got {scale.dtype} {tuple(scale.shape)}")

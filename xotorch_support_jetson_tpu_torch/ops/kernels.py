@@ -32,10 +32,11 @@ SIGNATURES = {
   "flash_prefill": ("xot_flash_prefill", [_P] * 7 + [_I] * 7 + [_P]),
   "flash_decode": ("xot_flash_decode", [_P] * 8 + [_I] * 6 + [_P]),
   "paged_decode": ("xot_paged_decode", [_P] * 11 + [_I] * 8 + [_P]),
+  "int4_matmul": ("xot_int4_matmul", [_P] * 5 + [_I] * 6 + [_P]),
 }
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[str, object] = {}  # kernel name → its bound C entry point
 
 
 def _nvcc() -> str:
@@ -98,13 +99,15 @@ def check_cuda(name: str, t, dtype, shape, device) -> None:
 
 
 def load(name: str):
-  """The bound C entry point of kernel ``name`` (built on first use)."""
+  """The bound C entry point of kernel ``name`` (built and bound on first use)."""
+  fn = _loaded.get(name)
+  if fn is not None:
+    return fn
   with _lock:
-    lib = _loaded.get(name)
-    if lib is None:
-      lib = _loaded[name] = ctypes.CDLL(str(build(name)))
-  symbol, argtypes = SIGNATURES[name]
-  fn = getattr(lib, symbol)
-  fn.argtypes = argtypes
-  fn.restype = ctypes.c_int
-  return fn
+    if name not in _loaded:
+      symbol, argtypes = SIGNATURES[name]
+      fn = getattr(ctypes.CDLL(str(build(name))), symbol)
+      fn.argtypes = argtypes
+      fn.restype = ctypes.c_int
+      _loaded[name] = fn
+    return _loaded[name]
