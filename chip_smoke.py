@@ -11,8 +11,10 @@ Phases (any failure exits non-zero and prints no result):
    bf16 / int8 / int4 pages) and K4 (packed-int4 weight matmul) against
    their plain PyTorch versions at llama-3.2-1b's shapes (attention: Hq 32,
    Hkv 8, hd 64, bf16, cache 4096, page size 64 and 64 pages per row for
-   K3; K4: the five projection shapes at T = 1, 8, 128): error, kernel /
-   plain / library time and the card's bound; K4's per-decode-step sums;
+   K3; K4: the five projection shapes at T = 1, 8, 128, 512, and one row
+   with f32 x): error, kernel / plain / library time and the card's bound;
+   K4's per-decode-step sums, and torch.profiler's count of device kernels
+   in one K4 call at T = 1 and 8, which must be 1;
 4. solo serving — a seeded random-weight bf16 checkpoint with
    llama-3.2-1b's published shapes is written with the port's safetensors
    writer, and the port's daemon path (main → node → API) serves blocking
@@ -27,17 +29,20 @@ Phases (any failure exits non-zero and prints no result):
    per weight mode: XOT_TPU_QUANT=int4, int8, and int8 with
    XOT_TPU_QUANT_COMPUTE=w8a8 (the engine quantizes on the card at load).
    Greedy blocking and streaming ids must be equal; in the int4 pass K1
-   and K4 must have run, and its prefill and decode logits through K4 must
+   and K4 must have run and the non-kernel product (int4_two_dot) must not
+   have been called, and its prefill and decode logits through K4 must
    agree with XOT_TPU_INT4_KERNEL=0 on the same weights. Each mode's
    logits against the bf16 model are reported; the profiler splits one
-   decode step under int4 (K4, and XOT_TPU_INT4_KERNEL=0) and int8 w8a16;
+   decode step under int4 (K4, and XOT_TPU_INT4_KERNEL=0) and int8 w8a16,
+   and the int4 prefill (K4, and XOT_TPU_INT4_KERNEL=0);
 6. batched serving — the same checkpoint through the daemon with
    XOT_TPU_BATCHED=1 (8 slots, 64-token pages, cache 4096): 16 concurrent
    streaming greedy requests sharing a 128-token system prefix, once per KV
    pool type (bf16, int8, int4), then once more with XOT_TPU_QUANT=int4
    weights and bf16 pages. The counters are zeroed just before each pass
    and read just after: K1 (bf16 and int8 pages) and K3 must have run, K4
-   in the int4-weights pass, and prefix pages must have been shared. One
+   in the int4-weights pass (every prefill chunk too, whatever its rows: no
+   int4_two_dot call), and prefix pages must have been shared. One
    batched decode step's logits through K3 must agree with the gather path
    on the same pool, and ``torch.profiler`` splits a decode chunk into host
    and device time.
@@ -85,6 +90,11 @@ K3_RTOL = 2.0**-7
 # value: a merge that drops one of 16 in-splits is off by ~0.25.
 K4_ATOL = 1e-4
 K4_RTOL = 2.0**-7
+# K4 with f32 x (rounded to bf16 inside, as the TPU kernel does): f32 y with
+# no final rounding, so the relative part is the f32 summation order over up
+# to 8192 terms, not a bf16 step; the absolute part is K4's.
+K4_F32_ATOL = 1e-4
+K4_F32_RTOL = 1e-5
 # llama-3.2-1b: meta-llama/Llama-3.2-1B config.json (published values).
 LLAMA_3_2_1B = {
   "architectures": ["LlamaForCausalLM"], "model_type": "llama", "vocab_size": 128256, "hidden_size": 2048,
@@ -254,10 +264,12 @@ def phase_kernels(torch):
 
 def int4_kernel_rows(torch, gen):
   """K4 against its plain version at llama-3.2-1b's five weight shapes, T =
-  1 (solo decode), 8 (batched decode, 8 slots) and 128 (the prefill
-  bucket). The yardstick is torch.matmul of the same bf16 x with the weight
-  dequantized to bf16 beforehand — the product int4 mode replaces; the
-  dequant is not timed."""
+  1 (solo decode), 8 (batched decode, 8 slots), 128 (the prefill bucket)
+  and 512 (a batched prefill call), plus one row with f32 x. The yardstick
+  is torch.matmul of the same x with the weight dequantized beforehand (bf16,
+  or f32 for f32 x) — the product int4 mode replaces; the dequant is not
+  timed. ``torch.profiler`` counts the device kernels of one call at T = 1
+  and 8, which must be 1."""
   from xotorch_support_jetson_tpu_torch.models.quantize import dequantize_leaf, quantize_weight_int4
   from xotorch_support_jetson_tpu_torch.ops import int4_matmul as k4
 
@@ -265,34 +277,80 @@ def int4_kernel_rows(torch, gen):
   for name, (d_in, d_out) in LLAMA_1B_MATMULS.items():
     packed, scale = quantize_weight_int4(torch.randn((d_in, d_out), generator=gen, device="cuda") * d_in**-0.5)
     w_bf16 = dequantize_leaf(packed, scale, d_in, torch.bfloat16)
-    for T in (1, 8, 128):
-      x = _rand(torch, (T, d_in), gen, torch.bfloat16)
+    cases = [(T, torch.bfloat16) for T in (1, 8, 128, 512)] + ([(128, torch.float32)] if name == "w_gate/w_up" else [])
+    for T, dtype in cases:
+      x = _rand(torch, (T, d_in), gen, dtype)
+      f32 = dtype == torch.float32
       got = k4.int4_matmul(x, packed, scale)
-      want = k4.int4_matmul_ref(x, packed, scale)
+      # f32 x: the kernel rounds x to bf16 for the tensor cores, as the TPU
+      # kernel does, and writes f32 y; held to the plain version on that x.
+      want = k4.int4_matmul_ref(x.to(torch.bfloat16).float() if f32 else x, packed, scale)
       torch.cuda.synchronize()
+      atol, rtol = (K4_F32_ATOL, K4_F32_RTOL) if f32 else (K4_ATOL, K4_RTOL)
       diff = (got.float() - want.float()).abs()
-      rel = K4_RTOL * want.float().abs()
+      rel = rtol * want.float().abs()
       err = diff.max().item()
-      used = (diff / (K4_ATOL + rel)).max().item()  # share of the allowed error used by the worst element
+      used = (diff / (atol + rel)).max().item()  # share of the allowed error used by the worst element
       slack = (diff - rel).max().item()  # what the relative part leaves to the absolute one
-      if not torch.isfinite(got).all() or not used <= 1.0:
-        raise SystemExit(f"chip_smoke: int4_matmul disagrees with its plain version ({name} in={d_in} out={d_out} T={T}): max|err| {err}, {used:.2f}x the bound atol {K4_ATOL} + rtol {K4_RTOL}·|ref|")
-      nbytes = d_in // 2 * d_out + d_out * 4 + T * d_in * 2 + T * d_out * 2  # packed codes, scales, x, y
+      if got.dtype != dtype or not torch.isfinite(got).all() or not used <= 1.0:
+        raise SystemExit(f"chip_smoke: int4_matmul disagrees with its plain version ({name} in={d_in} out={d_out} T={T} x {dtype}): max|err| {err}, {used:.2f}x the bound atol {atol} + rtol {rtol}·|ref|")
+      xs = 4 if f32 else 2
+      nbytes = d_in // 2 * d_out + d_out * 4 + T * d_in * xs + T * d_out * xs  # packed codes, scales, x, y
       flops = 2 * T * d_in * d_out
       bound_flops, bound_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+      w_lib = w_bf16.float() if f32 else w_bf16
+      cfg, split = k4.plan(T, d_in, d_out, k4.sm_count(x.device.index), k4.wide_ok(x, packed))  # the wrapper's launch geometry
       row = dict(
-        weight=name, T=T, d_in=d_in, d_out=d_out, n_split=k4.plan(T, d_in, d_out)[1], max_abs_err=err, abs_slack=slack,
-        tol=dict(atol=K4_ATOL, rtol=K4_RTOL), tol_used=used,
+        weight=name, T=T, d_in=d_in, d_out=d_out, x_dtype=str(dtype).removeprefix("torch."), tile_t=k4.TILE_T[cfg], split=split,
+        mma="wgmma" if cfg == 2 else "mma.sync",
+        max_abs_err=err, abs_slack=slack, tol=dict(atol=atol, rtol=rtol), tol_used=used,
         ms=_cuda_ms(torch, lambda: k4.int4_matmul(x, packed, scale)),
         plain_ms=_cuda_ms(torch, lambda: k4.int4_matmul_ref(x, packed, scale), iters=10),
-        library_ms=_cuda_ms(torch, lambda: torch.matmul(x, w_bf16)),
-        library="torch.matmul of bf16 x with the weight dequantized to bf16 beforehand (dequant not timed)",
+        library_ms=_cuda_ms(torch, lambda: torch.matmul(x, w_lib)),
+        library=f"torch.matmul of {'f32' if f32 else 'bf16'} x with the weight dequantized to {'f32' if f32 else 'bf16'} beforehand (dequant not timed)",
         bound_ms=max(bound_flops, bound_bytes), bound_by="operations" if bound_flops >= bound_bytes else "bytes",
       )
+      del w_lib
+      if T <= 8:
+        row["device_kernels_per_call"], row["profiler_sessions"] = _kernels_per_call(torch, lambda: k4.int4_matmul(x, packed, scale))
+        if row["device_kernels_per_call"] != 1:
+          raise SystemExit(f"chip_smoke: int4_matmul {name} T={T}: {row['device_kernels_per_call']} device kernels per call, expected 1")
       rows.append(row)
-      log(f"[kernels] int4_matmul {name} in={d_in} out={d_out} T={T} ({row['n_split']} in-splits): max|err| {err:.3e} ({used:.3f} of the bound atol {K4_ATOL} + rtol 2^-7·|ref|; beyond the relative part {slack:.2e}) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | bf16 matmul {row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']}, {nbytes / 1e6:.2f} MB)")
+      kern = f" | {row['device_kernels_per_call']} device kernel per call (profiler sessions taken: {row['profiler_sessions']})" if T <= 8 else ""
+      log(f"[kernels] int4_matmul {name} in={d_in} out={d_out} T={T} x {row['x_dtype']} ({row['tile_t']}-token tiles, {row['mma']}, cluster of {split}): max|err| {err:.3e} ({used:.3f} of the bound atol {atol} + rtol {rtol:.3g}·|ref|; beyond the relative part {slack:.2e}) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | {'f32' if f32 else 'bf16'} matmul {row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']}, {nbytes / 1e6:.2f} MB){kern}")
     del packed, scale, w_bf16
   return rows
+
+
+def _kernels_per_call(torch, fn, reps=4, sessions=4):
+  """Device kernels ``torch.profiler`` records per call of ``fn`` (warm),
+  from one session of ``reps`` calls between two spin kernels of
+  ``torch.cuda._sleep``. The profiler can hand back a session with none or
+  only part of its device events (seen on the H100: a session with no
+  device event at all). A session is read only when it holds both spin
+  kernels and a whole multiple of ``reps`` other kernels — what any ``fn``
+  with a fixed launch count gives — and is redone otherwise, at most
+  ``sessions`` times. Returns (kernels per call, sessions taken); a call
+  that launches no kernel, or two, still reads as 0 or 2."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+
+  fn()
+  torch.cuda.synchronize()
+  seen = []
+  for attempt in range(1, sessions + 1):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+      torch.cuda._sleep(1000)
+      for _ in range(reps):
+        fn()
+      torch.cuda._sleep(1000)
+      torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spins = sum("spin_kernel" in n for n in names)
+    seen.append((spins, len(names) - spins))
+    if spins == 2 and (len(names) - spins) % reps == 0:
+      return (len(names) - spins) // reps, attempt
+  raise SystemExit(f"chip_smoke: torch.profiler gave no whole session in {sessions} tries (spin kernels, other kernels per session for {reps} calls: {seen})")
 
 
 def int4_matmul_bound(rows):
@@ -301,7 +359,7 @@ def int4_matmul_bound(rows):
   (solo) and T = 8 (batched, 8 slots)."""
   res = {}
   for T in (1, 8):
-    at = {r["weight"]: r for r in rows if r["T"] == T}
+    at = {r["weight"]: r for r in rows if r["T"] == T and r["x_dtype"] == "bfloat16"}
     step = {key: sum(n * at[w][key] for w, n in CALLS_PER_STEP.items()) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     step.update(calls=sum(CALLS_PER_STEP.values()), packed_bytes=sum(n * (at[w]["d_in"] // 2 * at[w]["d_out"] + at[w]["d_out"] * 4) for w, n in CALLS_PER_STEP.items()))
     res[f"T{T}"] = step
@@ -559,7 +617,7 @@ def _profile(torch, label, fn, reps):
   device_ms = sum(e.self_device_time_total for e in device) / 1e3 / reps
   res = dict(
     label=label, reps=reps, wall_ms=wall_ms, device_ms=device_ms, device_busy_share=device_ms / wall_ms,
-    launches=sum(e.count for e in host if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")) / reps,
+    launches=sum(e.count for e in host if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")) / reps,
     top_host_ops=[(e.key, round(e.count / reps, 1), round(e.self_cpu_time_total / 1e3 / reps, 4)) for e in host[:10]],
     top_device_ops=[(e.key[:70], round(e.count / reps, 1), round(e.self_device_time_total / 1e3 / reps, 4)) for e in device[:10]],
   )
@@ -729,14 +787,15 @@ async def _serve_quant(torch, tmain, args, port, mode, env, bf16_logits):
     k4.reset_launch_counts()
     run = await _serve_requests(torch, node, engine, port, [("greedy blocking", _chat_body(False, 0)), ("greedy streaming", _chat_body(True, 0))])
     launches = {"flash_prefill": fa.LAUNCHES["flash_prefill"], "flash_decode": fa.LAUNCHES["flash_decode"], "int4_matmul": k4.LAUNCHES["int4_matmul"]}  # ---- read just after
+    two_dot = k4.CALLS["int4_two_dot"]
     blocking, streaming = run
     if blocking["tokens"] != streaming["tokens"] or blocking["text"] != streaming["text"]:
       raise SystemExit(f"chip_smoke: {mode}: greedy blocking and streaming differ:\n{blocking['tokens']}\n{streaming['tokens']}")
     int4 = env["XOT_TPU_QUANT"] == "int4"
-    if launches["flash_prefill"] == 0 or (launches["int4_matmul"] == 0) == int4:
-      raise SystemExit(f"chip_smoke: {mode}: unexpected launches {launches}")
+    if launches["flash_prefill"] == 0 or (launches["int4_matmul"] == 0) == int4 or two_dot:
+      raise SystemExit(f"chip_smoke: {mode}: unexpected launches {launches}, {two_dot} int4_two_dot calls")
     res = dict(
-      mode=mode, env=env, load_s=load_s, weight_bytes=weight_bytes, launches=launches, greedy_tokens=blocking["tokens"],
+      mode=mode, env=env, load_s=load_s, weight_bytes=weight_bytes, launches=launches, int4_two_dot_calls=two_dot, greedy_tokens=blocking["tokens"],
       ttft_s=streaming["ttft_s"], decode_tok_s=_decode_rate(streaming), blocking_s=blocking["total_s"], blocking_tokens=len(blocking["tokens"]),
       requests=[{k: v for k, v in r.items() if k != "text"} for r in run],
     )
@@ -765,22 +824,30 @@ async def _serve_quant(torch, tmain, args, port, mode, env, bf16_logits):
 
 def profile_decode_step(torch, engine, what, reps=8):
   """One solo decode step (B=1, position 100) on the served weights; for
-  int4 weights also with XOT_TPU_INT4_KERNEL=0."""
+  int4 weights also the served prefill (the 128-token bucket), and both
+  again with XOT_TPU_INT4_KERNEL=0."""
   from xotorch_support_jetson_tpu_torch.models.decoder import fused_decode, init_kv_cache
 
   cfg, shard = engine.cfg, engine._effective_shard
   cache = init_kv_cache(cfg, cfg.n_layers, 1, CACHE, device="cuda")
   tok = torch.full((1, 1), 65, dtype=torch.int32, device="cuda")
   start = torch.tensor([100], dtype=torch.int32, device="cuda")
+  prompt = np.asarray([ByteTokenizer().encode("<|user|>Write a short poem about a fox who learns to fly.\n<|assistant|>")], dtype=np.int32)
 
   def step():
     fused_decode(engine.params, cfg, shard, tok, cache, start, 1)
 
+  def prefill():
+    engine._infer_tensor_sync("profile", prompt, None)
+    engine.end_request("profile")
+
   out = {"decode_step": _profile(torch, f"decode step, {what}", step, reps)}
   if engine.quant == "int4":
+    out["prefill"] = _profile(torch, f"prefill (128-token bucket), {what}", prefill, 5)
     os.environ["XOT_TPU_INT4_KERNEL"] = "0"
     try:
       out["decode_step_two_dot"] = _profile(torch, f"decode step, {what}, XOT_TPU_INT4_KERNEL=0", step, reps)
+      out["prefill_two_dot"] = _profile(torch, f"prefill (128-token bucket), {what}, XOT_TPU_INT4_KERNEL=0", prefill, 5)
     finally:
       os.environ.pop("XOT_TPU_INT4_KERNEL")
   return out
@@ -863,6 +930,7 @@ async def _serve_batched(torch, tmain, args, port, weights):
       replies = await asyncio.gather(*(loop.run_in_executor(clients, _post, port, b) for b in bodies))
       wall = time.perf_counter() - t0
       launches = {"flash_prefill": fa.LAUNCHES["flash_prefill"], "flash_decode": fa.LAUNCHES["flash_decode"], "paged_decode": paged.LAUNCHES["paged_decode"], "int4_matmul": k4.LAUNCHES["int4_matmul"]}  # ---- read just after
+      two_dot = k4.CALLS["int4_two_dot"]
       hits = bserver.prefix_hit_pages - hits0
       reqs = []
       for (text, finish, ttft, total, n_events, rid), b in zip(replies, bodies):
@@ -875,12 +943,12 @@ async def _serve_batched(torch, tmain, args, port, weights):
         weights=weights, kv=kv, requests=len(reqs), wall_s=wall, tokens=n_tok, aggregate_tok_s=n_tok / wall,
         ttft_p50_s=_pctl([r["ttft_s"] for r in reqs], 0.5), ttft_p95_s=_pctl([r["ttft_s"] for r in reqs], 0.95),
         decode_tok_s_p50=_pctl([r["decode_tok_s"] for r in reqs], 0.5), decode_tok_s_min=min(r["decode_tok_s"] for r in reqs),
-        launches=launches, prefix_hit_pages=hits, pool_pages=bserver.allocator.n_pages, per_request=reqs,
+        launches=launches, int4_two_dot_calls=two_dot, prefix_hit_pages=hits, pool_pages=bserver.allocator.n_pages, per_request=reqs,
       )
       need_k1 = kv != "int4"  # int4 pages prefill through the plain attention, as the reference gates K1
       need_k4 = weights == "int4"
-      if launches["paged_decode"] == 0 or (need_k1 and launches["flash_prefill"] == 0) or hits == 0 or launches["flash_decode"] != 0 or (launches["int4_matmul"] == 0) == need_k4:
-        raise SystemExit(f"chip_smoke: batched {weights} weights, {kv} pages: launches {launches}, shared-page hits {hits}")
+      if launches["paged_decode"] == 0 or (need_k1 and launches["flash_prefill"] == 0) or hits == 0 or launches["flash_decode"] != 0 or (launches["int4_matmul"] == 0) == need_k4 or two_dot:
+        raise SystemExit(f"chip_smoke: batched {weights} weights, {kv} pages: launches {launches}, shared-page hits {hits}, {two_dot} int4_two_dot calls")
       if bserver.busy() or bserver.allocator.audit()["referenced"]:
         raise SystemExit(f"chip_smoke: batched {kv}: the server did not drain: {bserver.allocator.audit()}")
       passes[kv] = res

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 flash prefill, K2 flash decode, K3 paged
 decode, K4 int4 matmul) against their plain PyTorch versions, on the card,
 at llama-3.2-1b's shapes (attention: Hq 32, Hkv 8, hd 64, bf16, cache 4096,
-page size 64 for K3; K4: its five projection shapes, T = 1 … 256) plus other
+page size 64 for K3; K4: its five projection shapes, T = 1 … 512, and f32
+x) plus other
 head dims, page sizes and ragged matmul widths.
 
 Needs an NVIDIA GPU and nvcc; every test here is marked ``cuda`` and skips
@@ -19,7 +20,9 @@ H100 (1.2e-4), so a split-K merge off by a few percent at a 4k context
 its plain version does: ``K4_TOL`` is one bf16 rounding step of the value
 plus 1e-4 absolute for the f32 summation-order difference near zero (largest
 reading on an H100 6.3e-8; outputs are ~N(0, 1), see ``chip_smoke.py``
-``K4_ATOL``).
+``K4_ATOL``). With f32 x the kernel writes f32 y with no final rounding:
+``K4_F32_TOL`` keeps the same absolute part for the summation order and a
+relative part of 1e-5 (f32 sums of up to 8192 terms in another order).
 """
 
 import numpy as np
@@ -33,6 +36,7 @@ pytestmark = pytest.mark.cuda
 ATOL = 3e-2
 K3_TOL = dict(atol=2.5e-4, rtol=2.0**-7)
 K4_TOL = dict(atol=1e-4, rtol=2.0**-7)
+K4_F32_TOL = dict(atol=1e-4, rtol=1e-5)
 LLAMA_1B_MATMULS = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048), (2048, 128256)]  # (in, out): wq/wo, wk/wv, gate/up, down, head
 
 
@@ -172,7 +176,7 @@ def _int4_case(dev, T, d_in, d_out, seed=21):
 
 
 @pytest.mark.parametrize("d_in,d_out", [*LLAMA_1B_MATMULS, (2048, 1000), (1536, 512)])
-@pytest.mark.parametrize("T", [1, 3, 8, 17, 128, 256])
+@pytest.mark.parametrize("T", [1, 3, 8, 17, 64, 128, 256, 300, 512])
 def test_int4_matmul_matches_plain(dev, T, d_in, d_out):
   x, packed, scale = _int4_case(dev, T, d_in, d_out)
   before = k4.LAUNCHES["int4_matmul"]
@@ -184,17 +188,54 @@ def test_int4_matmul_matches_plain(dev, T, d_in, d_out):
   torch.testing.assert_close(got.float(), want.float(), **K4_TOL)
 
 
+@pytest.mark.parametrize("T,d_in,d_out", [(1024, 2048, 1000), (300, 8192, 1000)])
+def test_int4_matmul_wide_tile_with_ragged_out(dev, T, d_in, d_out):
+  """Products long enough for the 128 x 128 wgmma tile, but with out % 16
+  != 0: wgmma does not take them, so they run the 32-token mma.sync tile
+  with the weight staged element by element (wgmma takes the aligned bf16
+  case, covered above)."""
+  x, packed, _ = _int4_case(dev, T, d_in, d_out)
+  assert not k4.wide_ok(x, packed) and k4.plan(T, d_in, d_out, k4.sm_count(x.device.index), True)[0] == 2
+  assert k4.plan(T, d_in, d_out, k4.sm_count(x.device.index), False)[0] == 1
+  test_int4_matmul_matches_plain(dev, T, d_in, d_out)
+
+
+@pytest.mark.parametrize("d_in,d_out", [(1000, 512), (1000, 2048), (1002, 2048)])
+@pytest.mark.parametrize("T", [1, 8, 128, 600])
+def test_int4_matmul_partial_last_stage(dev, T, d_in, d_out):
+  """An in-axis that is not a whole number of pipeline stages: in 1000 is
+  500 packed rows, not a multiple of the 64- or 32-row stage, so the copies
+  past it are zero filled (T=600 on (1000, 2048) takes the wgmma tile); in
+  1002 also breaks the 16-byte alignment of x rows, so x is staged element
+  by element."""
+  if (T, d_in, d_out) == (600, 1000, 2048):
+    assert k4.plan(T, d_in, d_out, k4.sm_count(dev.index or 0), True)[0] == 2
+  test_int4_matmul_matches_plain(dev, T, d_in, d_out)
+
+
+@pytest.mark.parametrize("T,d_in,d_out", [(1, 2048, 512), (8, 2048, 2048), (17, 1536, 1000), (128, 2048, 8192), (257, 8192, 2048)])
+def test_int4_matmul_takes_f32_x(dev, T, d_in, d_out):
+  """f32 x (an f32 checkpoint served with XOT_TPU_QUANT=int4): the kernel
+  rounds x to bf16 for the tensor cores, as the TPU kernel does, and writes
+  f32 y. Held to the plain version on x rounded to bf16, in f32."""
+  x, packed, scale = _int4_case(dev, T, d_in, d_out)
+  x = x.float() + _rand((T, d_in), 5, dev, torch.float32) * 2.0**-10  # off the bf16 grid
+  got = k4.int4_matmul(x, packed, scale)
+  torch.cuda.synchronize()
+  want = k4.int4_matmul_ref(x.to(torch.bfloat16).float(), packed, scale)
+  assert got.dtype == torch.float32 and torch.isfinite(got).all()
+  torch.testing.assert_close(got, want, **K4_F32_TOL)
+
+
 def test_int4_wrapper_rejects_what_the_kernel_does_not_take(dev):
   x, packed, scale = _int4_case(dev, 4, 256, 64)
-  with pytest.raises(ValueError, match="expected torch.bfloat16"):
-    k4.int4_matmul(x.float(), packed, scale)
+  with pytest.raises(ValueError, match="torch.bfloat16 or torch.float32"):
+    k4.int4_matmul(x.half(), packed, scale)
   with pytest.raises(ValueError, match="expected torch.float32"):
     k4.int4_matmul(x, packed, scale.to(torch.bfloat16))
   with pytest.raises(ValueError, match="expected a tensor on cuda"):
     k4.int4_matmul(x, packed.cpu(), scale)
   with pytest.raises(ValueError, match="contiguous"):
     k4.int4_matmul(x, packed.t().contiguous().t(), scale)
-  with pytest.raises(ValueError, match="unsupported geometry"):
-    k4.int4_matmul(_rand((257, 256), 1, dev), packed, scale)
   with pytest.raises(ValueError, match="unsupported geometry"):
     k4.int4_matmul(_rand((4, 128), 1, dev), packed, scale)

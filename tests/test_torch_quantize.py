@@ -136,6 +136,28 @@ def test_int4_plain_version_matches_the_pallas_kernel():
   np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int4_plain_version_matches_the_pallas_kernel_past_256_rows(dtype):
+  """The kernel gate no longer caps rows at 256: the plain version against
+  the JAX kernel in interpret mode at T=300 (in 1024, out 512), x drawn from
+  bf16-representable values. In f32 both sum exact products in f32 (1e-5
+  relative); in bf16 both round the f32 sum once to bf16, so they may differ
+  by one rounding step (2^-7 of the value) where the two summation orders
+  straddle a rounding boundary."""
+  from xotorch_support_jetson_tpu.ops.pallas_int4 import int4_matmul as jax_int4_matmul
+
+  x = _bf16_exact((300, 1024), 10)
+  packed, scale = jq.quantize_weight_int4(jnp.asarray(_f32((1024, 512), 11, 0.05)))
+  want = jax_int4_matmul(jnp.asarray(x, dtype=getattr(jnp, dtype)), packed, scale, interpret=True)
+  got = k4.int4_matmul_ref(torch.from_numpy(x).to(getattr(torch, dtype)), torch.from_numpy(np.array(packed)), torch.from_numpy(np.array(scale)))
+  assert got.shape == (300, 512) and got.dtype == getattr(torch, dtype)
+  want = np.asarray(want.astype(jnp.float32))
+  if dtype == "float32":
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+  else:
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0**-7, atol=1e-5 * np.abs(want).max())
+
+
 def test_int4_matmul_on_the_cpu_takes_the_plain_version():
   x = torch.from_numpy(_bf16_exact((3, 64), 6)).to(torch.bfloat16)
   packed, scale = tq.quantize_weight_int4(torch.from_numpy(_f32((64, 24), 7)))
@@ -151,21 +173,38 @@ def test_int4_kernel_gate(monkeypatch):
   monkeypatch.delenv("XOT_TPU_INT4_KERNEL", raising=False)
   assert k4.int4_kernel_supported((1, 2048), (1024, 128256))
   assert k4.int4_kernel_supported((256, 1536), (768, 1000))  # no tile constraints: ragged edges are masked
-  assert not k4.int4_kernel_supported((257, 2048), (1024, 512))  # prefill past 256 rows: two-dot product
+  assert k4.int4_kernel_supported((257, 2048), (1024, 512))  # no row cap: batched prefills past 256 rows run the kernel
+  assert k4.int4_kernel_supported((4000, 2048), (1024, 8192))
   assert not k4.int4_kernel_supported((4, 2048), (2048, 512))  # int8 layout
   assert not k4.int4_kernel_supported((2, 4, 2048), (1024, 512))
   monkeypatch.setenv("XOT_TPU_INT4_KERNEL", "0")
   assert not k4.int4_kernel_supported((1, 2048), (1024, 128256))
 
 
-@pytest.mark.parametrize("T", [1, 2, 3, 8, 17, 128, 256])
+@pytest.mark.parametrize("T", [1, 2, 3, 8, 17, 128, 256, 300, 1000])
 @pytest.mark.parametrize("d_in,d_out", [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048), (2048, 128256), (2048, 1000), (1536, 512), (64, 24)])
 def test_int4_launch_plan_covers_the_in_axis(T, d_in, d_out):
-  tt, n_split, rows = k4.plan(T, d_in, d_out)
+  """The kernel's launch geometry: the cluster's blocks cover every packed
+  row once, the cluster stays within its limit, and the token and channel
+  tiles cover T and out — on an H100 SXM (132 SMs) with and without the
+  wgmma tile (f32 or unaligned x), and on a card with 114 SMs."""
   K = d_in // 2
-  assert tt in (1, 2, 4, 8) and (tt >= min(T, 8))
-  assert rows % k4.CHUNK == 0 and (n_split - 1) * rows < K <= n_split * rows  # no empty split, nothing left out
-  assert n_split == 1 or rows >= k4.MIN_SPLIT_ROWS
+  for sms, wide in ((132, True), (132, False), (114, True)):
+    cfg, split = k4.plan(T, d_in, d_out, sms, wide)
+    assert cfg in (0, 1, 2) and 1 <= split <= k4.MAX_SPLIT and split & (split - 1) == 0
+    ranges = k4.k_ranges(K, cfg, split)
+    assert len(ranges) == split and ranges[0][0] == 0 and ranges[-1][1] == K
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(split - 1))  # each packed row once
+    assert all(b > a for a, b in ranges)  # no block of the cluster idles
+    tile_t = k4.TILE_T[cfg]
+    assert tile_t >= min(T, k4.TILE_T[1]) and (cfg == 0 or T > k4.TILE_T[0])  # a tile that holds T, or 32 rows and more
+    assert (cfg == 2) == (wide and T > k4.TILE_T[1] and T * d_in * d_out >= k4.WIDE_MACS)  # the wgmma tile for long products it takes
+    block_out = k4.BLOCK_OUT[cfg]
+    assert -(-T // tile_t) * tile_t >= T and -(-d_out // block_out) * block_out >= d_out
+    blocks = -(-T // tile_t) * -(-d_out // block_out) * split
+    full = blocks >= sms or (cfg == 2 and 2 * blocks > sms)  # the grid covers the card (the wide tile: one block per SM)
+    assert full or split == k4.MAX_SPLIT or 2 * split > -(-K // k4.STAGE_ROWS[cfg])
+    assert split == 1 or blocks <= 8 * sms  # a split never makes more than a few blocks per SM
 
 
 @pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])

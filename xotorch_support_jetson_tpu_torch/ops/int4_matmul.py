@@ -10,7 +10,8 @@ nibble and 2r+1 in the high, a per-output-channel f32 scale [out];
 on the CPU and launches the hand-written kernel ``csrc/int4_matmul.cu`` for
 a CUDA tensor — or raises on what the kernel does not take. There is no
 fallback from a CUDA tensor to the plain version. ``LAUNCHES`` counts
-kernel launches.
+kernel launches; ``CALLS`` counts calls of the two-dot product, so a run can
+show that none took it.
 
 Unlike the reference, the kernel is the default for every product
 ``int4_kernel_supported`` admits; ``XOT_TPU_INT4_KERNEL=0`` is the one way
@@ -19,92 +20,129 @@ to the non-kernel two-dot product (``int4_two_dot``) on a card.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..utils.helpers import env_flag
 from .kernels import check_cuda, load, stream_ptr
 
-MAX_T = 256  # rows of x the kernel takes: decode (B ≤ slots) and short prefill
-BLOCK_N = 256  # output channels per block of the kernel
-CHUNK = 32  # packed rows per staged x chunk; a split covers a multiple of it
-MIN_SPLIT_ROWS = 64  # fewest packed rows per in-split (bounds the partial-sum traffic)
-TARGET_BLOCKS = 132 * 8  # blocks that fill the H100's 132 SMs several times over
+# Launch geometry, as csrc/int4_matmul.cu defines it: config c takes
+# BLOCK_OUT[c] output channels and TILE_T[c] tokens per block and
+# STAGE_ROWS[c] packed rows per pipeline stage. Config 2 (wgmma) takes bf16
+# x with 16-byte-aligned rows only.
+BLOCK_OUT = (64, 64, 128)
+TILE_T = (8, 32, 128)
+STAGE_ROWS = (64, 64, 32)
+MAX_SPLIT = 16  # blocks of a cluster that share the in-axis (16 is a non-portable cluster size the H100 runs)
+WIDE_MACS = 1 << 30  # multiply-adds from which the wide tile wins
 
 LAUNCHES = {"int4_matmul": 0}
+CALLS = {"int4_two_dot": 0}  # calls of the non-kernel product (not a kernel launch)
 
 
 def reset_launch_counts() -> None:
-  for name in LAUNCHES:
-    LAUNCHES[name] = 0
+  for counts in (LAUNCHES, CALLS):
+    for name in counts:
+      counts[name] = 0
 
 
-def int4_two_dot(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-  """The reference's non-kernel product (``models/quantize.py`` qdot's
-  two-dot formulation): x [..., in] with operands in x's dtype, each half
-  summed in f32, then the scale → [..., out] in x's dtype."""
+def _two_dot(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
   lo = ((w_packed << 4) >> 4).to(x.dtype)  # arithmetic shifts sign-extend the low nibble
   hi = (w_packed >> 4).to(x.dtype)
   acc = (x[..., 0::2] @ lo).float() + (x[..., 1::2] @ hi).float()
   return (acc * scale.float()).to(x.dtype)
 
 
+def int4_two_dot(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+  """The reference's non-kernel product (``models/quantize.py`` qdot's
+  two-dot formulation): x [..., in] with operands in x's dtype, each half
+  summed in f32, then the scale → [..., out] in x's dtype. Counted in
+  ``CALLS``; the plain version of K4 shares its arithmetic uncounted."""
+  CALLS["int4_two_dot"] += 1
+  return _two_dot(x, w_packed, scale)
+
+
 def int4_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
   """Plain version of K4, same signature as ``int4_matmul``: the two-dot
   formulation in f32, returned in x's dtype."""
-  return int4_two_dot(x.float(), w_packed, scale).to(x.dtype)
+  return _two_dot(x.float(), w_packed, scale).to(x.dtype)
 
 
 def int4_kernel_supported(x_shape, w_shape) -> bool:
   """Whether qdot sends a packed-int4 product through ``int4_matmul``: 2-D
-  operands, at most ``MAX_T`` rows, the halved in-axis, and no explicit
-  ``XOT_TPU_INT4_KERNEL=0``. None of the TPU kernel's tile constraints
-  apply: the kernel masks ragged edges."""
+  operands, the halved in-axis, and no explicit ``XOT_TPU_INT4_KERNEL=0``.
+  Any number of rows: the kernel tiles over them. None of the TPU kernel's
+  tile constraints apply: the kernel masks ragged edges."""
   if len(x_shape) != 2 or len(w_shape) != 2 or not env_flag("XOT_TPU_INT4_KERNEL", default=True):
     return False
-  T, d_in = x_shape
-  return T <= MAX_T and w_shape[-2] * 2 == d_in
+  return w_shape[-2] * 2 == x_shape[-1]
 
 
-def plan(T: int, d_in: int, d_out: int) -> tuple[int, int, int]:
-  """(rows of x per block, in-splits, packed rows per split) for a launch:
-  enough blocks to fill the card at decode shapes, each split a whole
-  number of staged chunks and at least ``MIN_SPLIT_ROWS`` rows long."""
-  tt = 1 if T <= 1 else 2 if T == 2 else 4 if T <= 4 else 8
-  K = d_in // 2
-  blocks = -(-d_out // BLOCK_N) * -(-T // tt)
-  n_split = max(1, min(-(-TARGET_BLOCKS // blocks), K // MIN_SPLIT_ROWS))
-  rows = -(-K // n_split)
-  rows = -(-rows // CHUNK) * CHUNK
-  return tt, -(-K // rows), rows
+@functools.cache
+def sm_count(device_index: int) -> int:
+  """Streaming multiprocessors of a CUDA device (132 on an H100 SXM)."""
+  return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def wide_ok(x: torch.Tensor, w_packed: torch.Tensor) -> bool:
+  """Whether the wgmma tile (config 2) takes these operands: bf16 x, and
+  16-byte-aligned rows and bases of x and w for its cp.async copies."""
+  return x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0 and w_packed.shape[-1] % 16 == 0 and x.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0
+
+
+def plan(T: int, d_in: int, d_out: int, sms: int, wide: bool) -> tuple[int, int]:
+  """(config, split) for a launch on a device with ``sms`` SMs, chosen from
+  ``scripts/k4_sweep.py`` on an H100. The token tile: 8 rows up to T = 8;
+  past that 32 rows, or, where ``wide`` (``wide_ok``), the 128 x 128 wgmma
+  tile for a product of at least 2^30 multiply-adds, long enough to pay for
+  its one block per SM. The split: a cluster of ``split`` blocks shares the
+  in-axis (a power of two, at least one stage of packed rows per block)
+  until the grid covers the SMs — for the wide tile, whose blocks hold 90 KB
+  of shared memory and 256 threads, until one more doubling would pass one
+  block per SM."""
+  cfg = 0 if T <= TILE_T[0] else 2 if wide and T > TILE_T[1] and T * d_in * d_out >= WIDE_MACS else 1
+  tiles = -(-d_out // BLOCK_OUT[cfg]) * -(-T // TILE_T[cfg])
+  stages = -(-(d_in // 2) // STAGE_ROWS[cfg])
+  split = 1
+  while split < MAX_SPLIT and 2 * split <= stages and (2 * tiles * split <= sms if cfg == 2 else tiles * split < sms):
+    split *= 2
+  return cfg, split
+
+
+def k_ranges(K: int, cfg: int, split: int) -> list[tuple[int, int]]:
+  """Packed rows [begin, end) that each block of a cluster sums: the
+  kernel's split of the ceil(K / STAGE_ROWS) stages, clipped to K."""
+  n = -(-K // STAGE_ROWS[cfg])
+  return [(min(K, r * n // split * STAGE_ROWS[cfg]), min(K, (r + 1) * n // split * STAGE_ROWS[cfg])) for r in range(split)]
 
 
 def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
   """x [T, in] @ packed int4 w [in/2, out] → [T, out] in x's dtype.
 
-  On CUDA: bf16 x, int8 w, f32 scale [out], all contiguous, T ≤ ``MAX_T``."""
+  On CUDA: bf16 or f32 x (f32 is rounded to bf16 for the tensor cores, as
+  the TPU kernel does, and y is f32), int8 w, f32 scale [out], all
+  contiguous; any T. ``plan`` picks the launch geometry."""
   if x.device.type == "cpu":
     return int4_matmul_ref(x, w_packed, scale)
   if x.device.type != "cuda":
     raise ValueError(f"int4_matmul: no kernel for device {x.device}")
-  if x.dim() != 2 or w_packed.dim() != 2 or x.shape[0] > MAX_T or w_packed.shape[0] * 2 != x.shape[1]:
-    raise ValueError(f"int4_matmul: unsupported geometry x {tuple(x.shape)}, packed w {tuple(w_packed.shape)} (T ≤ {MAX_T}, w [in/2, out])")
+  if x.dim() != 2 or w_packed.dim() != 2 or w_packed.shape[0] * 2 != x.shape[1]:
+    raise ValueError(f"int4_matmul: unsupported geometry x {tuple(x.shape)}, packed w {tuple(w_packed.shape)} (x [T, in], w [in/2, out])")
+  if x.dtype not in (torch.bfloat16, torch.float32):
+    raise ValueError(f"int4_matmul: x must be torch.bfloat16 or torch.float32, got {x.dtype}")
   T, d_in = x.shape
   K, N = w_packed.shape
   dev = x.device
-  check_cuda("x", x, torch.bfloat16, (T, d_in), dev)
+  check_cuda("x", x, x.dtype, (T, d_in), dev)
   check_cuda("w_packed", w_packed, torch.int8, (K, N), dev)
   check_cuda("scale", scale, torch.float32, (N,), dev)
-  if x.data_ptr() % 4:
-    raise ValueError("int4_matmul: x must be 4-byte aligned")
-  y = torch.empty((T, N), dtype=torch.bfloat16, device=dev)
+  y = torch.empty((T, N), dtype=x.dtype, device=dev)
   if T == 0:
     return y
-  tt, n_split, rows = plan(T, d_in, N)
-  partial = torch.empty((n_split, T, N), dtype=torch.float32, device=dev) if n_split > 1 else None
-  fn = load("int4_matmul")
-  rc = fn(
-    x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), partial.data_ptr() if partial is not None else None, y.data_ptr(),
-    T, K, N, tt, n_split, rows, stream_ptr(dev),
+  cfg, split = plan(T, d_in, N, sm_count(dev.index), wide_ok(x, w_packed))
+  rc = load("int4_matmul")(
+    x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), y.data_ptr(), T, K, N, int(x.dtype == torch.float32), cfg, split, stream_ptr(dev)
   )
   if rc != 0:
     raise RuntimeError(f"int4_matmul kernel launch failed: cudaError {rc}")

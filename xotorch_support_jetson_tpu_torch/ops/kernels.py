@@ -32,7 +32,7 @@ SIGNATURES = {
   "flash_prefill": ("xot_flash_prefill", [_P] * 7 + [_I] * 7 + [_P]),
   "flash_decode": ("xot_flash_decode", [_P] * 8 + [_I] * 6 + [_P]),
   "paged_decode": ("xot_paged_decode", [_P] * 11 + [_I] * 8 + [_P]),
-  "int4_matmul": ("xot_int4_matmul", [_P] * 5 + [_I] * 6 + [_P]),
+  "int4_matmul": ("xot_int4_matmul", [_P] * 4 + [_I] * 6 + [_P]),
 }
 
 _lock = threading.Lock()
