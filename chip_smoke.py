@@ -10,11 +10,12 @@ Phases (any failure exits non-zero and prints no result):
 3. kernels — K1 (flash prefill), K2 (flash decode), K3 (paged decode,
    bf16 / int8 / int4 pages) and K4 (packed-int4 weight matmul) against
    their plain PyTorch versions at llama-3.2-1b's shapes (attention: Hq 32,
-   Hkv 8, hd 64, bf16, cache 4096, page size 64 and 64 pages per row for
-   K3; K4: the five projection shapes at T = 1, 8, 128, 512, and one row
-   with f32 x): error, kernel / plain / library time and the card's bound;
-   K4's per-decode-step sums, and torch.profiler's count of device kernels
-   in one K4 call at T = 1 and 8, which must be 1;
+   Hkv 8, hd 64, bf16, cache 4096 — and 16384 for one K2 row — page size
+   64 and 64 pages per row for K3; K4: the five projection shapes at T = 1,
+   8, 128, 512, and one row with f32 x): error, kernel / plain / library
+   time and the card's bound; K4's per-decode-step sums, and
+   torch.profiler's count of device kernels in one call of every K2 and K3
+   row and of K4 at T = 1 and 8, which must be 1;
 4. solo serving — a seeded random-weight bf16 checkpoint with
    llama-3.2-1b's published shapes is written with the port's safetensors
    writer, and the port's daemon path (main → node → API) serves blocking
@@ -73,14 +74,18 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, same source
 K1_ATOL = 3e-2  # bf16 output + bf16-rounded probabilities in the P·V product
-K2_ATOL = 1e-2  # bf16 output; f32 math inside
 # K3 elementwise: |got - ref| <= K3_ATOL + K3_RTOL * |ref|. f32 math inside
 # and a bf16 output, so the two may differ by one bf16 rounding step
 # (<= 2^-7 of the value); the absolute part is twice the largest reading on
-# the card (1.2e-4). Outputs at a 4k context are ~0.02, so a split-K merge
-# off by a few percent fails.
+# the card (1.2e-4). Outputs at a 4k context are ~0.02 (~0.013 at 16k), so a
+# split-K merge off by a few percent fails.
 K3_ATOL = 2.5e-4
 K3_RTOL = 2.0**-7
+# K2 runs K3's device core (csrc/decode_attention.cuh) on a dense slot
+# cache: the same arithmetic, so the same elementwise bound. A flat 1e-2
+# would pass errors near a typical output at a 16k context.
+K2_ATOL = K3_ATOL
+K2_RTOL = K3_RTOL
 # K4 elementwise: |got - ref| <= K4_ATOL + K4_RTOL * |ref|. Kernel and plain
 # version both sum in f32 and round once to bf16, so they may differ by one
 # bf16 rounding step (<= 2^-7 of the value); the absolute part covers the
@@ -188,7 +193,7 @@ def phase_kernels(torch):
 
   gen = torch.Generator(device="cuda").manual_seed(SEED)
   Hq, Hkv, hd = 32, 8, 64
-  results = {"flash_prefill": [], "flash_decode": []}
+  results = {"flash_prefill": []}
 
   for Sq, off, quant in [(128, 0, False), (512, 0, False), (128, 128, False), (512, 128, False), (128, 0, True), (512, 0, True), (128, 128, True), (512, 128, True)]:
     q = _rand(torch, (1, Sq, Hq, hd), gen, torch.bfloat16)
@@ -229,37 +234,58 @@ def phase_kernels(torch):
     results["flash_prefill"].append(row)
     log(f"[kernels] flash_prefill B=1 Sq={Sq} q_offset={off} kv={row['kv']} cache={CACHE}: max|err| {err:.3e} (tol {K1_ATOL}) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | sdpa {lib_ms if lib_ms is None else round(lib_ms, 4)} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
 
-  for positions in ([4095], [127], [0], [0, 1000, 2047, 4095]):
+  results["flash_decode"] = flash_decode_rows(torch, gen, Hq, Hkv, hd)
+  results["paged_decode"] = paged_kernel_rows(torch, gen, Hq, Hkv, hd)
+  results["int4_matmul"] = int4_kernel_rows(torch, gen)
+  results["int4_matmul_bound"] = int4_matmul_bound(results["int4_matmul"])
+  return results
+
+
+def flash_decode_rows(torch, gen, Hq, Hkv, hd):
+  """K2 against its plain version at the solo path's cache (4096) at
+  positions 4095 / 127 / 0 / mixed, and at cache 16384, position 16383.
+  ``torch.profiler`` counts the device kernels of one call of each row,
+  which must be 1."""
+  import torch.nn.functional as F
+
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa
+
+  rows = []
+  for positions, cache in (([4095], CACHE), ([127], CACHE), ([0], CACHE), ([0, 1000, 2047, 4095], CACHE), ([16383], 16384)):
     B = len(positions)
     q = _rand(torch, (B, 1, Hq, hd), gen, torch.bfloat16)
-    k = _rand(torch, (B, CACHE, Hkv, hd), gen, torch.bfloat16)
-    v = _rand(torch, (B, CACHE, Hkv, hd), gen, torch.bfloat16)
+    k = _rand(torch, (B, cache, Hkv, hd), gen, torch.bfloat16)
+    v = _rand(torch, (B, cache, Hkv, hd), gen, torch.bfloat16)
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")[:, None]
     got = fa.flash_decode_attention(q, k, v, pos)
     want = fa.flash_decode_attention_ref(q, k, v, pos)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    if not torch.isfinite(got).all() or not err <= K2_ATOL:
-      raise SystemExit(f"chip_smoke: flash_decode disagrees with its plain version (positions={positions}): max|err| {err} > {K2_ATOL}")
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    # Share of the allowed error used by the worst element (<= 1 passes).
+    used = (diff / (K2_ATOL + K2_RTOL * want.float().abs())).max().item()
+    if not torch.isfinite(got).all() or not used <= 1.0:
+      raise SystemExit(f"chip_smoke: flash_decode disagrees with its plain version (positions={positions} cache={cache}): max|err| {err}, {used:.2f}x the bound atol {K2_ATOL} + rtol {K2_RTOL}·|ref|")
     live = sum(p + 1 for p in positions)
     nbytes = 2 * live * Hkv * hd * 2 + 2 * B * Hq * hd * 2
     flops = 4 * hd * Hq * live
     bound_flops, bound_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    mask = (torch.arange(CACHE, device="cuda")[None, :] <= pos)[:, None, None, :]
+    mask = (torch.arange(cache, device="cuda")[None, :] <= pos)[:, None, None, :]
     row = dict(
-      B=B, positions=positions, max_abs_err=err, tol=K2_ATOL,
+      B=B, positions=positions, cache=cache, max_abs_err=err, tol=dict(atol=K2_ATOL, rtol=K2_RTOL), tol_used=used,
       ms=_cuda_ms(torch, lambda: fa.flash_decode_attention(q, k, v, pos)),
       plain_ms=_cuda_ms(torch, lambda: fa.flash_decode_attention_ref(q, k, v, pos)),
       library_ms=_cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)),
       bound_ms=max(bound_flops, bound_bytes), bound_by="operations" if bound_flops >= bound_bytes else "bytes",
     )
-    results["flash_decode"].append(row)
-    log(f"[kernels] flash_decode B={B} positions={positions} cache={CACHE}: max|err| {err:.3e} (tol {K2_ATOL}) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | sdpa {row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
-  results["paged_decode"] = paged_kernel_rows(torch, gen, Hq, Hkv, hd)
-  results["int4_matmul"] = int4_kernel_rows(torch, gen)
-  results["int4_matmul_bound"] = int4_matmul_bound(results["int4_matmul"])
-  return results
+    row["device_kernels_per_call"], row["profiler_sessions"] = _kernels_per_call(torch, lambda: fa.flash_decode_attention(q, k, v, pos))
+    if row["device_kernels_per_call"] != 1:
+      raise SystemExit(f"chip_smoke: flash_decode positions={positions} cache={cache}: {row['device_kernels_per_call']} device kernels per call, expected 1")
+    rows.append(row)
+    log(f"[kernels] flash_decode B={B} positions={positions} cache={cache}: max|err| {err:.3e} ({used:.3f} of the bound atol {K2_ATOL} + rtol 2^-7·|ref|) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | sdpa {row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']}, {nbytes / 1e6:.2f} MB) | {row['device_kernels_per_call']} device kernel per call")
+    del q, k, v
+  return rows
 
 
 def int4_kernel_rows(torch, gen):
@@ -433,8 +459,11 @@ def paged_kernel_rows(torch, gen, Hq, Hkv, hd):
         library="sdpa over the pre-gathered bf16 window, position mask (gather and dequant not timed)",
         bound_ms=max(bound_flops, bound_bytes), bound_by="operations" if bound_flops >= bound_bytes else "bytes",
       )
+      row["device_kernels_per_call"], row["profiler_sessions"] = _kernels_per_call(torch, lambda: paged.paged_decode_attention(q, k, v, bt, lens, PAGE, **scales))
+      if row["device_kernels_per_call"] != 1:
+        raise SystemExit(f"chip_smoke: paged_decode lengths={lengths} kv={kv}: {row['device_kernels_per_call']} device kernels per call, expected 1")
       rows.append(row)
-      log(f"[kernels] paged_decode B={B} lengths={lengths if B == 1 else 'mixed 1..4096'} kv={kv} page={PAGE} mp={mp}: max|err| {err:.3e} ({used:.3f} of the bound atol {K3_ATOL} + rtol 2^-7·|ref|) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | sdpa (pre-gathered window) {row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']}, {nbytes / 1e6:.2f} MB)")
+      log(f"[kernels] paged_decode B={B} lengths={lengths if B == 1 else 'mixed 1..4096'} kv={kv} page={PAGE} mp={mp}: max|err| {err:.3e} ({used:.3f} of the bound atol {K3_ATOL} + rtol 2^-7·|ref|) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | sdpa (pre-gathered window) {row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']}, {nbytes / 1e6:.2f} MB) | {row['device_kernels_per_call']} device kernel per call")
   return rows
 
 
@@ -1070,7 +1099,7 @@ def main() -> int:
       "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sum(by_path[name].values()),
       "launches_by_path": by_path[name],
       "max_abs_err": max(x["max_abs_err"] for x in rows), "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-      "bound_by": r["bound_by"], "library_ms": r["library_ms"], "at": {k: r[k] for k in r if k in ("Sq", "q_offset", "kv", "B", "positions", "lengths", "weight", "T", "d_in", "d_out")},
+      "bound_by": r["bound_by"], "library_ms": r["library_ms"], "at": {k: r[k] for k in r if k in ("Sq", "q_offset", "kv", "B", "positions", "cache", "lengths", "weight", "T", "d_in", "d_out")},
     }
 
   k4_head = next(i for i, r in enumerate(kern["int4_matmul"]) if r["weight"] == "w_gate/w_up" and r["T"] == 1)

@@ -89,6 +89,22 @@ def test_decode_plain_matches_jax_flash_decode(positions):
   np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize("Hq,Hkv,hd", [(8, 8, 64), (16, 2, 64), (8, 4, 128), (8, 8, 128), (16, 2, 128)])
+@pytest.mark.parametrize("positions", [[37, 12], [127, 0]])
+def test_decode_plain_matches_jax_flash_decode_groups(Hq, Hkv, hd, positions):
+  """GQA groups 1, 2 and 8 and head dim 128 (the kernel serves a whole group
+  of up to 8 q heads per kv head from one read of K/V)."""
+  rng = np.random.default_rng(11)
+  B, Skv = 2, 128
+  q = rng.standard_normal((B, 1, Hq, hd)).astype(np.float32)
+  k = rng.standard_normal((B, Skv, Hkv, hd)).astype(np.float32)
+  v = rng.standard_normal((B, Skv, Hkv, hd)).astype(np.float32)
+  pos = np.asarray(positions, np.int32)[:, None]
+  want = np.asarray(jpa.flash_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos), interpret=True))
+  got = fa.flash_decode_attention(*_t(q, k, v), torch.from_numpy(pos)).numpy()
+  np.testing.assert_allclose(got, want, **TOL)
+
+
 def test_cpu_wrappers_take_the_plain_version_and_count_no_launch():
   fa.reset_launch_counts()
   q, k, v = _t(*_qkv(Sq=16, Skv=32))

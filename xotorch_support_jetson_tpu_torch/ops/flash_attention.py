@@ -18,10 +18,9 @@ import torch
 
 from ..utils.helpers import env_flag
 from .attention import gqa_attention
-from .kernels import check_cuda as _check_cuda, load, stream_ptr as _stream_ptr
+from .kernels import check_cuda as _check_cuda, decode_plan, decode_rows, load, sm_count, stream_ptr as _stream_ptr
 
 HEAD_DIMS = (64, 128, 256)
-DECODE_CHUNK = 256  # kv slots per split-K block of the decode kernel
 MAX_GROUP = 64  # q heads per kv head the prefill kernel's 64-row block can hold
 
 LAUNCHES = {"flash_prefill": 0, "flash_decode": 0}
@@ -121,7 +120,7 @@ def flash_decode_attention_ref(q, k, v, q_positions):
 def flash_decode_attention(q, k, v, q_positions):
   """One-token decode attention: q [B,1,Hq,hd], k/v [B,Skv,Hkv,hd] (slot-
   indexed cache), q_positions [B,1] → [B,1,Hq,hd]. Work follows each row's
-  live context; chunks past its position are skipped."""
+  live context: slots past its position are never read."""
   if q.device.type == "cpu":
     return flash_decode_attention_ref(q, k, v, q_positions)
   if q.device.type != "cuda":
@@ -133,19 +132,17 @@ def flash_decode_attention(q, k, v, q_positions):
   _check_cuda("q", q, torch.bfloat16, (B, 1, Hq, hd), q.device)
   _check_cuda("k", k, torch.bfloat16, (B, Skv, Hkv, hd), q.device)
   _check_cuda("v", v, torch.bfloat16, (B, Skv, Hkv, hd), q.device)
+  for name, t in (("k", k), ("v", v)):
+    if t.data_ptr() % 16:
+      raise ValueError(f"flash_decode_attention: {name} must be 16-byte aligned")
   pos = q_positions.reshape(B).to(device=q.device, dtype=torch.int32).contiguous()
-  n_chunks = -(-Skv // DECODE_CHUNK)
-  part_m = torch.empty((B, Hq, n_chunks), dtype=torch.float32, device=q.device)
-  part_l = torch.empty_like(part_m)
-  part_acc = torch.empty((B, Hq, n_chunks, hd), dtype=torch.float32, device=q.device)
+  cluster, range_ = decode_plan(Skv, decode_rows(B, Hq, Hkv), sm_count(q.device.index))
   out = torch.empty_like(q)
-  fn = load("flash_decode")
-  rc = fn(
-    q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-    out.data_ptr(), B, Skv, Hq, Hkv, hd, DECODE_CHUNK, _stream_ptr(q.device),
+  rc = load("flash_decode")(
+    q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(), B, Skv, Hq, Hkv, hd, cluster, range_, _stream_ptr(q.device)
   )
   if rc != 0:
-    raise RuntimeError(f"flash_decode kernel launch failed: cudaError {rc}")
+    raise RuntimeError(f"flash_decode kernel launch failed (cluster of {cluster}, {range_} slots per block): cudaError {rc}")
   LAUNCHES["flash_decode"] += 1
   return out
 

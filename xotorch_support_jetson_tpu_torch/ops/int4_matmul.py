@@ -20,12 +20,10 @@ to the non-kernel two-dot product (``int4_two_dot``) on a card.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from ..utils.helpers import env_flag
-from .kernels import check_cuda, load, stream_ptr
+from .kernels import check_cuda, load, sm_count, stream_ptr
 
 # Launch geometry, as csrc/int4_matmul.cu defines it: config c takes
 # BLOCK_OUT[c] output channels and TILE_T[c] tokens per block and
@@ -77,12 +75,6 @@ def int4_kernel_supported(x_shape, w_shape) -> bool:
   if len(x_shape) != 2 or len(w_shape) != 2 or not env_flag("XOT_TPU_INT4_KERNEL", default=True):
     return False
   return w_shape[-2] * 2 == x_shape[-1]
-
-
-@functools.cache
-def sm_count(device_index: int) -> int:
-  """Streaming multiprocessors of a CUDA device (132 on an H100 SXM)."""
-  return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def wide_ok(x: torch.Tensor, w_packed: torch.Tensor) -> bool:

@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes`` — seconds per file,
 since no source includes PyTorch's headers. Builds happen at first use, from
 the checkout's own sources, into ``build/kernels/`` beside the package (a
-git-ignored directory). The library name carries a hash of the source and
-flags, so an edited source is rebuilt and a stale one is never loaded.
+git-ignored directory). The library name carries a hash of the source, the
+local headers it includes (``#include "…"``, recursively) and the flags, so
+an edited source or header is rebuilt and a stale one is never loaded.
 ``ptxas -v`` output (registers, shared memory, spills) is kept next to each
 library as ``<name>-<hash>.log``.
 """
@@ -13,8 +14,10 @@ library as ``<name>-<hash>.log``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,8 +33,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # c_void_p, every int as c_int; each returns the launch's cudaError_t).
 SIGNATURES = {
   "flash_prefill": ("xot_flash_prefill", [_P] * 7 + [_I] * 7 + [_P]),
-  "flash_decode": ("xot_flash_decode", [_P] * 8 + [_I] * 6 + [_P]),
-  "paged_decode": ("xot_paged_decode", [_P] * 11 + [_I] * 8 + [_P]),
+  "flash_decode": ("xot_flash_decode", [_P] * 5 + [_I] * 7 + [_P]),
+  "paged_decode": ("xot_paged_decode", [_P] * 8 + [_I] * 9 + [_P]),
   "int4_matmul": ("xot_int4_matmul", [_P] * 4 + [_I] * 6 + [_P]),
 }
 
@@ -49,9 +52,23 @@ def _nvcc() -> str:
   raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[Path]:
+  """``csrc/<name>.cu`` and every local header it includes, recursively."""
+  todo, seen = [CSRC / f"{name}.cu"], []
+  while todo:
+    path = todo.pop()
+    if path in seen:
+      continue
+    seen.append(path)
+    todo += [path.parent / inc.decode() for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+  return seen
+
+
 def library_path(name: str) -> Path:
-  src = CSRC / f"{name}.cu"
-  digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+  digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources(name)) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
   return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -84,6 +101,40 @@ def stream_ptr(device) -> int:
   import torch
 
   return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+  """Streaming multiprocessors of a CUDA device (132 on an H100 SXM)."""
+  import torch
+
+  return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+# The launch plan of K2 and K3 (``csrc/decode_attention.cuh``, their shared core).
+MAX_CLUSTER = 8  # largest cluster the plan picks (the kernel takes 16, which measured slower: scripts/attn_sweep.py)
+MIN_RANGE = 64  # fewest window slots a decode cluster splits down to per block
+
+
+def decode_plan(window: int, rows: int, sms: int) -> tuple[int, int]:
+  """(cluster, range) for K2 and K3 on a device with ``sms`` SMs: the
+  ``rows`` (batch row, kv head, group of up to 8 q heads) triples each take
+  a cluster of ``cluster`` blocks, and block r reads window slots
+  [r·range, (r+1)·range). A block holds one SM's registers (16 warps at hd
+  64), so the cluster doubles, up to ``MAX_CLUSTER``, while the grid stays
+  within one block per SM and a block keeps more than ``MIN_RANGE`` slots
+  (``scripts/attn_sweep.py``). From the host's shapes only: never from the
+  lengths or positions, which live on the device."""
+  cluster = 1
+  while cluster < MAX_CLUSTER and 2 * rows * cluster <= sms and window > cluster * MIN_RANGE:
+    cluster *= 2
+  return cluster, max(1, -(-window // cluster))
+
+
+def decode_rows(B: int, Hq: int, Hkv: int) -> int:
+  """Clusters of one K2/K3 launch: one per (batch row, kv head, group of up
+  to 8 q heads)."""
+  return B * Hkv * -(-(Hq // Hkv) // 8)
 
 
 def check_cuda(name: str, t, dtype, shape, device) -> None:

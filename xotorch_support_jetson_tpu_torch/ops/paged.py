@@ -26,10 +26,9 @@ import torch
 
 from ..utils.helpers import env_flag
 from .attention import gqa_attention
-from .kernels import check_cuda, load, stream_ptr
+from .kernels import check_cuda, decode_plan, decode_rows, load, sm_count, stream_ptr
 
 HEAD_DIMS = (64, 128, 256)
-DECODE_CHUNK = 256  # logical slots per split-K block of the paged decode kernel
 
 LAUNCHES = {"paged_decode": 0}
 
@@ -180,20 +179,15 @@ def paged_decode_attention(q, k_pool_l, v_pool_l, block_tables, lengths, page_si
   for name, t in (("k_pool", k_pool_l), ("v_pool", v_pool_l)):
     if t.data_ptr() % 16:
       raise ValueError(f"paged_decode_attention: {name} must be 16-byte aligned")
-  n_chunks = -(-(mp * ps) // DECODE_CHUNK)
-  part_m = torch.empty((B, Hq, n_chunks), dtype=torch.float32, device=dev)
-  part_l = torch.empty_like(part_m)
-  part_acc = torch.empty((B, Hq, n_chunks, hd), dtype=torch.float32, device=dev)
+  cluster, range_ = decode_plan(mp * ps, decode_rows(B, Hq, Hkv), sm_count(dev.index))
   out = torch.empty_like(q)
-  fn = load("paged_decode")
-  rc = fn(
+  rc = load("paged_decode")(
     q.data_ptr(), k_pool_l.data_ptr(), v_pool_l.data_ptr(),
     k_scale_pool_l.data_ptr() if quantized else None, v_scale_pool_l.data_ptr() if quantized else None,
-    block_tables.data_ptr(), lengths.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-    B, Hq, Hkv, hd, ps, mp, kind, DECODE_CHUNK, stream_ptr(dev),
+    block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, hd, ps, mp, kind, cluster, range_, stream_ptr(dev),
   )
   if rc != 0:
-    raise RuntimeError(f"paged_decode kernel launch failed: cudaError {rc}")
+    raise RuntimeError(f"paged_decode kernel launch failed (cluster of {cluster}, {range_} slots per block): cudaError {rc}")
   LAUNCHES["paged_decode"] += 1
   return out
 
