@@ -11,11 +11,14 @@ Phases (any failure exits non-zero and prints no result):
    bf16 / int8 / int4 pages) and K4 (packed-int4 weight matmul) against
    their plain PyTorch versions at llama-3.2-1b's shapes (attention: Hq 32,
    Hkv 8, hd 64, bf16, cache 4096 — and 16384 for one K2 row — page size
-   64 and 64 pages per row for K3; K4: the five projection shapes at T = 1,
-   8, 128, 512, and one row with f32 x): error, kernel / plain / library
-   time and the card's bound; K4's per-decode-step sums, and
-   torch.profiler's count of device kernels in one call of every K2 and K3
-   row and of K4 at T = 1 and 8, which must be 1;
+   64 and 64 pages per row for K3; K1 also at prompts up to 4096 tokens,
+   int8 K/V, four batched rows behind a shared prefix and hd 128; K4: the
+   five projection shapes at T = 1, 8, 128, 512, and one row with f32 x):
+   error, kernel / plain / library time and the card's bound (K1's library
+   call is SDPA on the live slots with causal masking, the fastest backend
+   that runs); K4's per-decode-step sums, and torch.profiler's count of
+   device kernels in one call of every K1, K2 and K3 row and of K4 at T = 1
+   and 8, which must be 1;
 4. solo serving — a seeded random-weight bf16 checkpoint with
    llama-3.2-1b's published shapes is written with the port's safetensors
    writer, and the port's daemon path (main → node → API) serves blocking
@@ -25,7 +28,11 @@ Phases (any failure exits non-zero and prints no result):
    and K2 must have run. Blocking and streaming greedy token ids must be
    equal, and the served model's prefill and decode logits must agree with
    the plain attention path on the same weights. ``torch.profiler`` splits
-   one prefill and eight decode steps into host and device time;
+   one prefill and eight decode steps into host and device time. Then one
+   ~3,000-token prompt (prefill bucket 3072), blocking and streaming, with
+   the counters zeroed just before and read just after: greedy ids equal,
+   K1 once per layer per prefill, and the served prefill's host and device
+   time with K1's share of the device time;
 5. quantized solo serving — the same checkpoint through the daemon once
    per weight mode: XOT_TPU_QUANT=int4, int8, and int8 with
    XOT_TPU_QUANT_COMPUTE=w8a8 (the engine quantizes on the card at load).
@@ -73,7 +80,15 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, same source
-K1_ATOL = 3e-2  # bf16 output + bf16-rounded probabilities in the P·V product
+K1_ATOL = 3e-2  # bf16 output + bf16-rounded probabilities in the P·V product: K1's absolute cap
+# K1 elementwise as well: |got - ref| <= K1_EW_ATOL + K1_RTOL * |ref|. Both
+# sides round once to bf16 (2^-7 of the value covers the two roundings); the
+# kernel also rounds p to bf16 for the tensor-core P·V product (2^-9 of each
+# p, at most ~2^-9·max|v| on a row), which the absolute part covers: it is
+# 2.4 times the largest reading beyond the relative part on an H100 (4.2e-3,
+# int8 K/V at Sq 128). A wrong mask or a dropped tile is off by 0.1 or more.
+K1_EW_ATOL = 1e-2
+K1_RTOL = 2.0**-7
 # K3 elementwise: |got - ref| <= K3_ATOL + K3_RTOL * |ref|. f32 math inside
 # and a bf16 output, so the two may differ by one bf16 rounding step
 # (<= 2^-7 of the value); the absolute part is twice the largest reading on
@@ -186,59 +201,162 @@ def _rand(torch, shape, gen, dtype):
 
 
 def phase_kernels(torch):
-  import torch.nn.functional as F
-
-  from xotorch_support_jetson_tpu_torch.models.quantize import quantize_kv
-  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa
-
   gen = torch.Generator(device="cuda").manual_seed(SEED)
   Hq, Hkv, hd = 32, 8, 64
-  results = {"flash_prefill": []}
-
-  for Sq, off, quant in [(128, 0, False), (512, 0, False), (128, 128, False), (512, 128, False), (128, 0, True), (512, 0, True), (128, 128, True), (512, 128, True)]:
-    q = _rand(torch, (1, Sq, Hq, hd), gen, torch.bfloat16)
-    k = _rand(torch, (1, CACHE, Hkv, hd), gen, torch.bfloat16)
-    v = _rand(torch, (1, CACHE, Hkv, hd), gen, torch.bfloat16)
-    k[:, off + Sq :] = 1e4  # stale slots past the prompt: masked by position
-    v[:, off + Sq :] = 1e4
-    # The offset is a device tensor, as the decoder passes it.
-    kw = {"q_offset": torch.full((1,), off, dtype=torch.int32, device="cuda")}
-    if quant:
-      kq, ks = quantize_kv(k)
-      vq, vs = quantize_kv(v)
-      k, v = kq, vq
-      kw.update(k_scale=ks, v_scale=vs)
-    got = fa.flash_attention_prefill(q, k, v, **kw)
-    want = fa.flash_attention_prefill_ref(q, k, v, **kw)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    if not torch.isfinite(got).all() or not err <= K1_ATOL:
-      raise SystemExit(f"chip_smoke: flash_prefill disagrees with its plain version (Sq={Sq} offset={off} int8={quant}): max|err| {err} > {K1_ATOL}")
-    live = off + Sq  # kv slots any query reads
-    pairs = sum(off + i + 1 for i in range(Sq))  # causal (query, key) pairs per q head
-    flops = 4 * hd * Hq * pairs
-    kv_bytes = 2 * live * Hkv * hd * (1 if quant else 2) + (2 * live * Hkv * 4 if quant else 0)
-    nbytes = 2 * (Sq * Hq * hd * 2) + kv_bytes
-    bound_flops, bound_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    lib_ms = None
-    if not quant:
-      qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-      mask = (torch.arange(CACHE, device="cuda")[None, :] <= off + torch.arange(Sq, device="cuda")[:, None])[None, None]
-      lib_ms = _cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True))
-    row = dict(
-      Sq=Sq, q_offset=off, kv="int8" if quant else "bf16", max_abs_err=err, tol=K1_ATOL,
-      ms=_cuda_ms(torch, lambda: fa.flash_attention_prefill(q, k, v, **kw)),
-      plain_ms=_cuda_ms(torch, lambda: fa.flash_attention_prefill_ref(q, k, v, **kw), iters=10),
-      library_ms=lib_ms, bound_ms=max(bound_flops, bound_bytes), bound_by="operations" if bound_flops >= bound_bytes else "bytes",
-    )
-    results["flash_prefill"].append(row)
-    log(f"[kernels] flash_prefill B=1 Sq={Sq} q_offset={off} kv={row['kv']} cache={CACHE}: max|err| {err:.3e} (tol {K1_ATOL}) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | sdpa {lib_ms if lib_ms is None else round(lib_ms, 4)} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
-
+  results = {"flash_prefill": flash_prefill_rows(torch, gen)}
   results["flash_decode"] = flash_decode_rows(torch, gen, Hq, Hkv, hd)
   results["paged_decode"] = paged_kernel_rows(torch, gen, Hq, Hkv, hd)
   results["int4_matmul"] = int4_kernel_rows(torch, gen)
   results["int4_matmul_bound"] = int4_matmul_bound(results["int4_matmul"])
   return results
+
+
+# K1 rows: (Sq, per-row q offsets, KV type, head dim), Hq 32 / Hkv 8 (hd 64,
+# as llama-3.2-1b; hd 128 keeps the heads: K1_HEADS), cache 4096. The first eight are
+# the short rows, the head row first (the solo path's 128-token bucket). Then
+# long prompts (a solo prompt is padded to a multiple of 128), the second
+# 2048-token chunk of a 4096-token batched prefill (XOT_TPU_PREFILL_CHUNK),
+# a ragged length, four batched rows behind a shared prefix, and hd 128.
+K1_HEADS = (32, 8)  # (Hq, Hkv) of every K1 row
+K1_ROWS = [
+  (128, [0], "bf16", 64), (512, [0], "bf16", 64), (128, [128], "bf16", 64), (512, [128], "bf16", 64),
+  (128, [0], "int8", 64), (512, [0], "int8", 64), (128, [128], "int8", 64), (512, [128], "int8", 64),
+  (1024, [0], "bf16", 64), (2048, [0], "bf16", 64), (3072, [0], "bf16", 64), (4096, [0], "bf16", 64), (4096, [0], "int8", 64),
+  (2048, [2048], "bf16", 64), (3000, [0], "bf16", 64), (512, [0, 128, 128, 1536], "bf16", 64), (2048, [0], "bf16", 128),
+]
+
+
+def k1_case(torch, gen, Sq, offsets, kv, hd):
+  """One K1 row's inputs: q, k, v (int8 codes when ``kv`` is "int8") and
+  the wrapper's keywords. Every slot past a row's last position holds junk
+  (1e4) that must stay masked; the offsets are a device tensor, as the
+  decoder passes them."""
+  from xotorch_support_jetson_tpu_torch.models.quantize import quantize_kv
+
+  B, (Hq, Hkv) = len(offsets), K1_HEADS
+  q = _rand(torch, (B, Sq, Hq, hd), gen, torch.bfloat16)
+  k = _rand(torch, (B, CACHE, Hkv, hd), gen, torch.bfloat16)
+  v = _rand(torch, (B, CACHE, Hkv, hd), gen, torch.bfloat16)
+  for b, off in enumerate(offsets):
+    k[b, off + Sq :] = 1e4
+    v[b, off + Sq :] = 1e4
+  kw = {"q_offset": torch.tensor(offsets, dtype=torch.int32, device="cuda")}
+  if kv == "int8":
+    (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+    kw.update(k_scale=ks, v_scale=vs)
+  return q, k, v, kw
+
+
+def k1_bound(Sq, offsets, kv, hd):
+  """The least time the card could take for a K1 call: the larger of its
+  operations (4·hd·Hq per causal (query, key) pair) over the bf16 peak and
+  its bytes (q and out, and the live K/V — codes and scales for int8 —
+  each once) over the HBM rate. Returns (ms, what bounds it, flops, bytes)."""
+  B, (Hq, Hkv) = len(offsets), K1_HEADS
+  pairs = sum(off * Sq + Sq * (Sq + 1) // 2 for off in offsets)  # sum over rows of (position + 1)
+  flops = 4 * hd * Hq * pairs
+  live = sum(off + Sq for off in offsets)
+  kv_bytes = 2 * live * Hkv * (hd + 4 if kv == "int8" else 2 * hd)
+  nbytes = 2 * B * Sq * Hq * hd * 2 + kv_bytes
+  by_flops, by_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+  return max(by_flops, by_bytes), "operations" if by_flops >= by_bytes else "bytes", flops, nbytes
+
+
+def k1_library(torch, q, k, v, offsets):
+  """The fair PyTorch yardstick for a bf16 K1 row (the port never calls
+  it): scaled_dot_product_attention over the live slots only, with causal
+  masking the library's causal kernels take — ``is_causal=True`` at offset
+  0, ``causal_lower_right(Sq, off + Sq)`` otherwise. Each SDPA backend is
+  tried alone and the fastest that runs is kept; kv heads are expanded
+  outside the timing where a backend refuses ``enable_gqa``. A row with
+  mixed per-row offsets has no single call: (None, reason)."""
+  import torch.nn.functional as F
+  from torch.nn.attention import SDPBackend, sdpa_kernel
+  from torch.nn.attention.bias import causal_lower_right
+
+  if len(set(offsets)) != 1:
+    return None, "no single SDPA call: per-row offsets differ"
+  Sq, live = q.shape[1], offsets[0] + q.shape[1]
+  qt = q.transpose(1, 2).contiguous()
+  kt, vt = k[:, :live].transpose(1, 2).contiguous(), v[:, :live].transpose(1, 2).contiguous()
+  group = q.shape[2] // k.shape[2]
+  ke, ve = kt.repeat_interleave(group, dim=1), vt.repeat_interleave(group, dim=1)  # outside the timing
+  mask = None if offsets[0] == 0 else causal_lower_right(Sq, live)
+  best = None
+  for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION):
+    for gqa, kk, vv in (("enable_gqa", kt, vt), ("expanded", ke, ve)):
+      kwargs = {"is_causal": True} if mask is None else {"attn_mask": mask}
+      if gqa == "enable_gqa":
+        kwargs["enable_gqa"] = True
+
+      def call(kk=kk, vv=vv, kwargs=kwargs, backend=backend):
+        with sdpa_kernel([backend]):
+          return F.scaled_dot_product_attention(qt, kk, vv, **kwargs)
+
+      try:
+        call()
+        torch.cuda.synchronize()
+      except RuntimeError:
+        continue
+      ms = _cuda_ms(torch, call)
+      if best is None or ms < best[0]:
+        best = (ms, f"{backend.name.lower()} ({gqa}, {'is_causal' if mask is None else 'causal_lower_right'})", call)
+      break
+  if best is None:
+    return None, "no SDPA backend took the call"
+  return best[0], f"{best[1]}; device kernels: {', '.join(_kernel_names(torch, best[2]))}"
+
+
+def _kernel_names(torch, fn):
+  """Names of the device kernels of one call of ``fn`` (torch.profiler)."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  return sorted({e.name[:80] for e in prof.events() if e.device_type == DeviceType.CUDA})
+
+
+def flash_prefill_rows(torch, gen):
+  """K1 against its plain version at ``K1_ROWS``: max |err| (held to
+  ``K1_ATOL`` and elementwise to ``K1_EW_ATOL + K1_RTOL·|ref|``), kernel /
+  plain / fair-library time, the card's bound, and ``torch.profiler``'s
+  count of device kernels in one call, which must be 1."""
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa
+
+  out = []
+  for Sq, offsets, kv, hd in K1_ROWS:
+    q, k, v, kw = k1_case(torch, gen, Sq, offsets, kv, hd)
+    got = fa.flash_attention_prefill(q, k, v, **kw)
+    want = fa.flash_attention_prefill_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    beyond_rel = (diff - K1_RTOL * want.float().abs()).max().item()  # what the relative part leaves to the absolute one
+    used = (diff / (K1_EW_ATOL + K1_RTOL * want.float().abs())).max().item()  # share of the elementwise bound the worst element uses
+    label = f"B={len(offsets)} Sq={Sq} q_offset={offsets if len(offsets) > 1 else offsets[0]} kv={kv} hd={hd}"
+    if not torch.isfinite(got).all() or not err <= K1_ATOL or not used <= 1.0:
+      raise SystemExit(f"chip_smoke: flash_prefill disagrees with its plain version ({label}): max|err| {err} (cap {K1_ATOL}), {used:.2f}x the bound atol {K1_EW_ATOL} + rtol 2^-7·|ref|")
+    del diff, want
+    bound_ms, bound_by, flops, nbytes = k1_bound(Sq, offsets, kv, hd)
+    lib_ms, library = k1_library(torch, q, k, v, offsets) if kv == "bf16" else (None, "no PyTorch call takes int8 codes with scales")
+    row = dict(
+      Sq=Sq, q_offset=offsets[0] if len(offsets) == 1 else offsets, B=len(offsets), kv=kv, hd=hd, max_abs_err=err, abs_beyond_rel=beyond_rel,
+      tol=dict(cap=K1_ATOL, atol=K1_EW_ATOL, rtol=K1_RTOL), tol_used=used,
+      ms=_cuda_ms(torch, lambda: fa.flash_attention_prefill(q, k, v, **kw)),
+      plain_ms=_cuda_ms(torch, lambda: fa.flash_attention_prefill_ref(q, k, v, **kw), iters=10 if Sq <= 1024 else 3, warmup=1),
+      library_ms=lib_ms, library=library, bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
+    )
+    row["bound_share"] = bound_ms / row["ms"]
+    row["device_kernels_per_call"], row["profiler_sessions"] = _kernels_per_call(torch, lambda: fa.flash_attention_prefill(q, k, v, **kw))
+    if row["device_kernels_per_call"] != 1:
+      raise SystemExit(f"chip_smoke: flash_prefill {label}: {row['device_kernels_per_call']} device kernels per call, expected 1")
+    out.append(row)
+    lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+    log(f"[kernels] flash_prefill {label} cache={CACHE}: max|err| {err:.3e} (cap {K1_ATOL}; {used:.3f} of the bound atol {K1_EW_ATOL} + rtol 2^-7·|ref|; beyond the relative part {beyond_rel:.2e}) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | sdpa {lib} ({library}) | bound {bound_ms:.5f} ms ({bound_by}; {row['bound_share']:.3f} of it reached) | {row['device_kernels_per_call']} device kernel per call")
+    del q, k, v, kw, got
+  return out
 
 
 def flash_decode_rows(torch, gen, Hq, Hkv, hd):
@@ -350,14 +468,18 @@ def int4_kernel_rows(torch, gen):
 
 def _kernels_per_call(torch, fn, reps=4, sessions=4):
   """Device kernels ``torch.profiler`` records per call of ``fn`` (warm),
-  from one session of ``reps`` calls between two spin kernels of
-  ``torch.cuda._sleep``. The profiler can hand back a session with none or
-  only part of its device events (seen on the H100: a session with no
-  device event at all). A session is read only when it holds both spin
-  kernels and a whole multiple of ``reps`` other kernels — what any ``fn``
-  with a fixed launch count gives — and is redone otherwise, at most
-  ``sessions`` times. Returns (kernels per call, sessions taken); a call
-  that launches no kernel, or two, still reads as 0 or 2."""
+  from one session of ``reps`` calls between spin kernels of
+  ``torch.cuda._sleep``: two before, one after. The profiler can hand back
+  a session with none or only part of its device events: on the H100 a
+  session with no device event at all, and, late in a long process (the
+  card tests' file), sessions whose first one or two device events were
+  missing though their launches were recorded. A session is read only when
+  its device events, in start order, begin with at least one of the
+  opening spins, end with the closing one, and hold a whole multiple of
+  ``reps`` other kernels between — what any ``fn`` with a fixed launch
+  count gives; it is redone otherwise, at most ``sessions`` times. Returns
+  (kernels per call, sessions taken); a call that launches no kernel, or
+  two, still reads as 0 or 2."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
 
@@ -367,15 +489,18 @@ def _kernels_per_call(torch, fn, reps=4, sessions=4):
   for attempt in range(1, sessions + 1):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
       torch.cuda._sleep(1000)
+      torch.cuda._sleep(1000)
       for _ in range(reps):
         fn()
       torch.cuda._sleep(1000)
       torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spins = sum("spin_kernel" in n for n in names)
-    seen.append((spins, len(names) - spins))
-    if spins == 2 and (len(names) - spins) % reps == 0:
-      return (len(names) - spins) // reps, attempt
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start)
+    spin = ["spin_kernel" in e.name for e in events]
+    opening = next((i for i, x in enumerate(spin) if not x), len(spin))  # spins before the first other kernel
+    others = len(spin) - sum(spin)
+    seen.append((sum(spin), others))
+    if 1 <= opening <= 2 and spin[-1] and sum(spin) == opening + 1 and others % reps == 0:
+      return others // reps, attempt
   raise SystemExit(f"chip_smoke: torch.profiler gave no whole session in {sessions} tries (spin kernels, other kernels per session for {reps} calls: {seen})")
 
 
@@ -644,7 +769,9 @@ def _profile(torch, label, fn, reps):
   device = sorted((e for e in events if e.device_type == DeviceType.CUDA), key=lambda e: e.self_device_time_total, reverse=True)
   host = sorted((e for e in events if e.device_type == DeviceType.CPU), key=lambda e: e.self_cpu_time_total, reverse=True)
   device_ms = sum(e.self_device_time_total for e in device) / 1e3 / reps
+  k1_ms = sum(e.self_device_time_total for e in device if "flash_prefill_kernel" in e.key) / 1e3 / reps
   res = dict(
+    k1_device_ms=k1_ms, k1_device_share=k1_ms / device_ms if device_ms else None,
     label=label, reps=reps, wall_ms=wall_ms, device_ms=device_ms, device_busy_share=device_ms / wall_ms,
     launches=sum(e.count for e in host if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")) / reps,
     top_host_ops=[(e.key, round(e.count / reps, 1), round(e.self_cpu_time_total / 1e3 / reps, 4)) for e in host[:10]],
@@ -766,12 +893,58 @@ async def _serve(torch, tmain, Shard, fa, args, port):
     summary["check"] = check_against_plain(torch, engine)
     log(f"[serving] kernel path vs plain path on the served weights: {summary['check']}")
     summary["profile"] = profile_serving(torch, engine)
+    summary["long"] = await _serve_long_prompt(torch, node, engine, port, fa)
     summary["_bf16_logits"] = _forward_pair(torch, engine)  # what the quantized passes report against
     return summary
   finally:
     server.close()
     await server.wait_closed()
     engine.executor.shutdown(wait=True)
+
+
+LONG_PROMPT_TOKENS = 3000  # BOS + chat template + text: the 3072 prefill bucket, 64 answer tokens within the 4096 cache
+
+
+def long_prompt_body(stream):
+  """A greedy chat request whose prompt is ``LONG_PROMPT_TOKENS`` tokens
+  under the byte-level tokenizer (one token per byte, BOS, the template's
+  role tags)."""
+  overhead = len(ByteTokenizer().encode(ByteTokenizer().apply_chat_template([{"role": "user", "content": ""}])))
+  words = "the quick brown fox jumps over a lazy dog while seven tired owls count the stars above an old mill".split()
+  text = " ".join(words[i % len(words)] for i in range(LONG_PROMPT_TOKENS))[: LONG_PROMPT_TOKENS - overhead]
+  return {"model": "llama-3.2-1b", "messages": [{"role": "user", "content": text}], "stream": stream, "temperature": 0, "max_tokens": MAX_TOKENS}
+
+
+async def _serve_long_prompt(torch, node, engine, port, fa):
+  """The solo daemon on one ~3,000-token prompt (prefill bucket 3072),
+  blocking and streaming, greedy: the ids must be equal, K1 must run once
+  per layer per prefill, and ``torch.profiler`` splits the served prefill
+  into host and device time with K1's share of the device time."""
+  prompt = ByteTokenizer().encode(ByteTokenizer().apply_chat_template(long_prompt_body(False)["messages"]))
+  if len(prompt) != LONG_PROMPT_TOKENS:
+    raise SystemExit(f"chip_smoke: the long prompt is {len(prompt)} tokens, expected {LONG_PROMPT_TOKENS}")
+  fa.reset_launch_counts()  # ---- the long-prompt path, counted
+  blocking, streaming = await _serve_requests(torch, node, engine, port, [("long greedy blocking", long_prompt_body(False)), ("long greedy streaming", long_prompt_body(True))])
+  launches = dict(fa.LAUNCHES)  # ---- read just after
+  if blocking["tokens"] != streaming["tokens"] or blocking["text"] != streaming["text"]:
+    raise SystemExit(f"chip_smoke: long prompt: greedy blocking and streaming differ:\n{blocking['tokens']}\n{streaming['tokens']}")
+  if launches["flash_prefill"] != 2 * engine.cfg.n_layers or launches["flash_decode"] != 0:
+    raise SystemExit(f"chip_smoke: long prompt: unexpected launches {launches}")
+  ids = np.asarray([prompt], dtype=np.int32)
+
+  def prefill():
+    engine._infer_tensor_sync("profile-long", ids, None)
+    engine.end_request("profile-long")
+
+  prof = _profile(torch, f"prefill ({LONG_PROMPT_TOKENS}-token prompt, 3072 bucket)", prefill, 3)
+  res = dict(
+    prompt_tokens=len(prompt), launches=launches, greedy_tokens=blocking["tokens"], ttft_s=streaming["ttft_s"], decode_tok_s=_decode_rate(streaming),
+    blocking_s=blocking["total_s"], prefill_wall_ms=prof["wall_ms"], prefill_device_ms=prof["device_ms"], k1_device_ms=prof["k1_device_ms"],
+    k1_device_share=prof["k1_device_share"], profile=prof,
+  )
+  share = "not measured (no device events)" if res["k1_device_share"] is None else f"{res['k1_device_share']:.3f}"
+  log(f"[long] {len(prompt)}-token prompt: greedy blocking == streaming ({len(blocking['tokens'])} tokens); streaming TTFT {res['ttft_s']:.4f} s, decode {res['decode_tok_s']:.1f} tok/s; prefill wall {res['prefill_wall_ms']:.3f} ms, device {res['prefill_device_ms']:.3f} ms, K1 {res['k1_device_ms']:.3f} ms of it ({share}); launches {launches}")
+  return res
 
 
 # --------------------------------------------------- 5. quantized solo serving
@@ -1088,7 +1261,7 @@ def main() -> int:
   # runs on bf16 weights (K1, K3; summed over the three pool types) and the
   # batched run on int4 weights (K1, K3, K4).
   paths = {
-    "solo": [serving["launches"]], "solo_quant": [q["launches"] for q in quant.values()],
+    "solo": [serving["launches"]], "solo_long_prompt": [serving["long"]["launches"]], "solo_quant": [q["launches"] for q in quant.values()],
     "batched": [p["launches"] for p in batched["passes"].values()], "batched_int4_weights": [p["launches"] for p in batched_int4["passes"].values()],
   }
   by_path = {name: {path: sum(x.get(name, 0) for x in runs) for path, runs in paths.items()} for name in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}

@@ -104,3 +104,45 @@ def _post_expect_error(port, body):
     return _post(port, body)
   except urllib.error.HTTPError as e:
     return e.code, e.read().decode()
+
+
+TOOLS_TEMPLATE = (
+  "{% if tools %}[tools:{% for t in tools %} {{ t['function']['name'] }}{% endfor %}]\n{% endif %}"
+  "{% for m in messages %}<{{ m['role'] }}>{{ m['content'] }}"
+  "{% if m['tools'] %} [own tools:{% for t in m['tools'] %} {{ t['function']['name'] }}{% endfor %}]{% endif %}\n{% endfor %}"
+  "{% if add_generation_prompt %}<assistant>{% endif %}"
+)
+
+
+def _tool(name):
+  return {"type": "function", "function": {"name": name, "description": f"{name} tool", "parameters": {"type": "object", "properties": {}}}}
+
+
+def test_tools_reach_the_prompt_as_in_the_reference():
+  """Request-level ``tools`` and per-message ``tools`` are rendered by the
+  chat template exactly as the JAX package renders them (they were dropped
+  before): the port's prompt equals the reference's, and names the tools."""
+  from tokenizers import Tokenizer, models
+  from transformers import PreTrainedTokenizerFast
+
+  from xotorch_support_jetson_tpu.api import chatgpt_api as ref_api
+  from xotorch_support_jetson_tpu_torch.api import chatgpt_api as port_api
+
+  tok = PreTrainedTokenizerFast(tokenizer_object=Tokenizer(models.WordLevel({"<unk>": 0}, unk_token="<unk>")), unk_token="<unk>")
+  tok.chat_template = TOOLS_TEMPLATE
+  data = {
+    "model": "llama-3.2-1b",
+    "tools": [_tool("get_weather"), _tool("search")],
+    "messages": [
+      {"role": "system", "content": "Use the tools.", "tools": [_tool("calendar")]},
+      {"role": "user", "content": [{"type": "text", "text": "Weather in"}, {"type": "text", "text": "Paris?"}]},
+    ],
+  }
+  ref_req = ref_api.parse_chat_request(data, "llama-3.2-1b")
+  want, _ = ref_api.build_prompt(tok, ref_req.messages, ref_req.tools)
+  port_req = port_api.parse_chat_request(data, "llama-3.2-1b")
+  got = port_api.build_prompt(tok, port_req.messages, port_req.tools)
+  assert got == want
+  assert "[tools: get_weather search]" in got and "[own tools: calendar]" in got and "Weather in Paris?" in got
+  plain = port_api.build_prompt(tok, port_api.parse_chat_request({"messages": data["messages"][1:]}, "llama-3.2-1b").messages)
+  assert "tools" not in plain and plain == ref_api.build_prompt(tok, ref_api.parse_chat_request({"messages": data["messages"][1:]}, "llama-3.2-1b").messages)[0]

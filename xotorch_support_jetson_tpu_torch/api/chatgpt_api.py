@@ -26,22 +26,27 @@ MAX_BODY_BYTES = 16 << 20
 
 
 class Message:
-  def __init__(self, role: str, content):
+  def __init__(self, role: str, content, tools=None):
     self.role = role
     self.content = content
+    self.tools = tools  # per-message tool definitions, rendered by the chat template
 
   def to_dict(self) -> dict:
-    return {"role": self.role, "content": self.content}
+    data = {"role": self.role, "content": _flatten(self.content)}
+    if self.tools:
+      data["tools"] = self.tools
+    return data
 
 
 class ChatCompletionRequest:
-  def __init__(self, model: str, messages: list[Message], temperature: float | None = None, max_tokens=None, stream=False, stop=()):
+  def __init__(self, model: str, messages: list[Message], temperature: float | None = None, max_tokens=None, stream=False, stop=(), tools=None):
     self.model = model
     self.messages = messages
     self.temperature = temperature
     self.max_tokens = max_tokens
     self.stream = stream
     self.stop = tuple(stop)
+    self.tools = tools  # request-level tool definitions (the chat template's ``tools``)
 
 
 def find_stop(text: str, stops: tuple) -> tuple[int | None, int]:
@@ -72,9 +77,11 @@ def _flatten(content) -> str:
   return content
 
 
-def build_prompt(tokenizer, messages: list[Message]) -> str:
-  conversation = [{"role": m.role, "content": _flatten(m.content)} for m in messages]
-  return tokenizer.apply_chat_template(conversation, tokenize=False, add_generation_prompt=True)
+def build_prompt(tokenizer, messages: list[Message], tools=None) -> str:
+  """The chat template over ``messages`` (with their own ``tools``) and the
+  request's ``tools``, as the reference renders them."""
+  kwargs = {"tools": tools} if tools else {}
+  return tokenizer.apply_chat_template([m.to_dict() for m in messages], tokenize=False, add_generation_prompt=True, **kwargs)
 
 
 def parse_chat_request(data: dict, default_model: str) -> ChatCompletionRequest:
@@ -84,7 +91,7 @@ def parse_chat_request(data: dict, default_model: str) -> ChatCompletionRequest:
   for m in data["messages"]:
     if not isinstance(m, dict) or "role" not in m or "content" not in m:
       raise ValueError(f"Invalid message: {m}. Must have 'role' and 'content'")
-    messages.append(Message(m["role"], m["content"]))
+    messages.append(Message(m["role"], m["content"], m.get("tools")))
   max_tokens = data.get("max_tokens")
   if max_tokens is not None and (not isinstance(max_tokens, int) or isinstance(max_tokens, bool) or max_tokens < 1):
     raise ValueError("'max_tokens' must be a positive integer")
@@ -105,7 +112,7 @@ def parse_chat_request(data: dict, default_model: str) -> ChatCompletionRequest:
   model = data.get("model", default_model)
   if not model or model.startswith("gpt-") or model not in registry.model_cards:  # alias client defaults
     model = default_model
-  return ChatCompletionRequest(model, messages, temperature, max_tokens, bool(data.get("stream", False)), stop)
+  return ChatCompletionRequest(model, messages, temperature, max_tokens, bool(data.get("stream", False)), stop, data.get("tools"))
 
 
 def completion_chunk(request_id: str, model: str, created: int, content: str | None, finish_reason: str | None) -> dict:
@@ -308,7 +315,7 @@ class ChatGPTAPI:
     gen_task = None
     try:
       tokenizer = await self._tokenizer_for(shard)
-      prompt = build_prompt(tokenizer, chat_request.messages)
+      prompt = build_prompt(tokenizer, chat_request.messages, chat_request.tools)
       self.node.set_request_options(request_id, stream=chat_request.stream, max_tokens=chat_request.max_tokens, temperature=chat_request.temperature)
       gen_task = asyncio.create_task(self.node.process_prompt(shard, prompt, request_id))
       if chat_request.stream:

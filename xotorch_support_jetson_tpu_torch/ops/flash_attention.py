@@ -18,10 +18,10 @@ import torch
 
 from ..utils.helpers import env_flag
 from .attention import gqa_attention
-from .kernels import check_cuda as _check_cuda, decode_plan, decode_rows, load, sm_count, stream_ptr as _stream_ptr
+from .kernels import PREFILL_ROWS, check_cuda as _check_cuda, decode_plan, decode_rows, load, prefill_plan, sm_count, stream_ptr as _stream_ptr
 
 HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 64  # q heads per kv head the prefill kernel's 64-row block can hold
+MAX_GROUP = PREFILL_ROWS  # q heads per kv head one 64-row consumer warpgroup of K1 can hold
 
 LAUNCHES = {"flash_prefill": 0, "flash_decode": 0}
 
@@ -61,7 +61,8 @@ def flash_attention_prefill(q, k, v, q_offset=0, k_scale=None, v_scale=None):
   (models/quantize.py quantize_kv). Any Sq and Skv: ragged edges are masked
   in the kernel, and slots past a row's position are masked by position
   (they may hold finite junk). On CUDA: bf16 q (and k/v unless int8),
-  hd ∈ {64, 128, 256}, Hq a multiple of Hkv with Hq/Hkv ≤ 64.
+  hd ∈ {64, 128, 256}, Hq a multiple of Hkv with Hq/Hkv ≤ 64, q/k/v
+  16-byte aligned (the kernel's TMA reads them).
   """
   if (k_scale is None) != (v_scale is None):
     # A half-specified quant call would silently ignore v_scale (or read int8
@@ -83,16 +84,20 @@ def flash_attention_prefill(q, k, v, q_offset=0, k_scale=None, v_scale=None):
   if quantized:
     _check_cuda("k_scale", k_scale, torch.float32, (B, Skv, Hkv, 1), q.device)
     _check_cuda("v_scale", v_scale, torch.float32, (B, Skv, Hkv, 1), q.device)
+  for name, t in (("q", q), ("k", k), ("v", v)):
+    if t.data_ptr() % 16:  # the TMA reads q, k and v
+      raise ValueError(f"flash_attention_prefill: {name} must be 16-byte aligned")
   offsets = _offsets(q_offset, B, q.device)
   out = torch.empty_like(q)
-  fn = load("flash_prefill")
-  rc = fn(
+  plan = prefill_plan(hd, quantized, B, Sq, Hq, Hkv, sm_count(q.device.index))
+  rc = load("flash_prefill")(
     q.data_ptr(), k.data_ptr(), v.data_ptr(),
     k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
-    offsets.data_ptr(), out.data_ptr(), B, Sq, Skv, Hq, Hkv, hd, int(quantized), _stream_ptr(q.device),
+    offsets.data_ptr(), out.data_ptr(), B, Sq, Skv, Hq, Hkv, hd, int(quantized),
+    plan["consumers"], plan["block_k"], plan["stages"], plan["smem"], _stream_ptr(q.device),
   )
   if rc != 0:
-    raise RuntimeError(f"flash_prefill kernel launch failed: cudaError {rc}")
+    raise RuntimeError(f"flash_prefill kernel launch failed (plan {plan}): cudaError {rc}")
   LAUNCHES["flash_prefill"] += 1
   return out
 

@@ -32,7 +32,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures of the kernels' entry points (every pointer and the stream as
 # c_void_p, every int as c_int; each returns the launch's cudaError_t).
 SIGNATURES = {
-  "flash_prefill": ("xot_flash_prefill", [_P] * 7 + [_I] * 7 + [_P]),
+  "flash_prefill": ("xot_flash_prefill", [_P] * 7 + [_I] * 11 + [_P]),
   "flash_decode": ("xot_flash_decode", [_P] * 5 + [_I] * 7 + [_P]),
   "paged_decode": ("xot_paged_decode", [_P] * 8 + [_I] * 9 + [_P]),
   "int4_matmul": ("xot_int4_matmul", [_P] * 4 + [_I] * 6 + [_P]),
@@ -135,6 +135,53 @@ def decode_rows(B: int, Hq: int, Hkv: int) -> int:
   """Clusters of one K2/K3 launch: one per (batch row, kv head, group of up
   to 8 q heads)."""
   return B * Hkv * -(-(Hq // Hkv) // 8)
+
+
+# The launch plan of K1 (``csrc/flash_prefill.cu``, whose ``Cfg`` it mirrors:
+# the C entry refuses a plan that disagrees with the build).
+PREFILL_ROWS = 64  # query rows per consumer warpgroup
+SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block can opt into
+
+
+def prefill_plan(hd: int, quantized: bool, B: int, Sq: int, Hq: int, Hkv: int, sms: int) -> dict:
+  """K1's geometry for a launch at head dim ``hd`` with bf16 (or int8) K/V
+  over ``B`` rows of ``Sq`` queries, ``Hq``/``Hkv`` heads, on ``sms`` SMs:
+  one producer warpgroup and ``consumers`` consumer warpgroups per block —
+  three at hd 64 (so that 192 query rows share each K/V tile) once a grid of
+  such blocks covers the card more than once, else two (a short prompt is
+  bound by fixed cost, and smaller blocks spread it over more SMs);
+  ``block_k`` kv slots per tile; ``stages`` bf16 K/V tiles in the TMA ring
+  (``raw_stages`` int8 tiles before widening); the grid (``bq`` positions
+  per consumer, ``n_qt`` q tiles per (row, kv head), ``blocks``); and the
+  shared-memory bytes a block takes: Q for every consumer, the ring, the
+  raw ring and its scales, 256 bytes of barriers and 1024 of alignment
+  slack for the 128-byte-swizzled tiles."""
+  bq = PREFILL_ROWS // (Hq // Hkv)
+  consumers = 2
+  if hd == 64 and -(-Sq // (3 * bq)) * Hkv * B > sms:
+    consumers = 3
+  n_qt = -(-Sq // (consumers * bq))
+  block_k = 64 if hd == 256 else 128
+  stages = 2 if hd == 256 else (2 if quantized else 3) if hd == 128 else (3 if quantized else 4)
+  raw_stages = (2 if hd == 64 else 1) if quantized else 0
+  pieces = hd // 64
+  q_bytes = consumers * pieces * PREFILL_ROWS * 128
+  stage_bytes = 2 * pieces * block_k * 128
+  raw_bytes = 2 * block_k * hd
+  scale_bytes = 2 * block_k * 4 if quantized else 0
+  smem = 1024 + q_bytes + stages * (stage_bytes + scale_bytes) + raw_stages * raw_bytes + 256
+  return dict(
+    consumers=consumers, threads=128 * (consumers + 1), block_k=block_k, stages=stages, raw_stages=raw_stages, smem=smem,
+    bq=bq, n_qt=n_qt, blocks=n_qt * Hkv * B,
+  )
+
+
+def prefill_item(block: int, B: int, Hkv: int, n_qt: int) -> tuple[int, int, int]:
+  """(q tile, batch row, kv head) of K1's block ``block``: the kernel's own
+  decode of ``blockIdx.x``. Blocks go out in index order, so the last q
+  tiles — the longest causal ranges — come first."""
+  per_qt = Hkv * B
+  return n_qt - 1 - block // per_qt, block % per_qt // Hkv, block % Hkv
 
 
 def check_cuda(name: str, t, dtype, shape, device) -> None:
