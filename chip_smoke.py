@@ -13,7 +13,9 @@ Phases (any failure exits non-zero and prints no result):
    Hkv 8, hd 64, bf16, cache 4096 — and 16384 for one K2 row — page size
    64 and 64 pages per row for K3; K1 also at prompts up to 4096 tokens,
    int8 K/V, four batched rows behind a shared prefix and hd 128; K4: the
-   five projection shapes at T = 1, 8, 128, 512, and one row with f32 x):
+   five projection shapes at T = 1, 8, 128, 512, and one row with f32 x;
+   K1 also at the mixed-tick slice shapes, B=1, Sq 16 / 256 / 1024 at
+   offsets 2048 / 3072 / 1024):
    error, kernel / plain / library time and the card's bound (K1's library
    call is SDPA on the live slots with causal masking, the fastest backend
    that runs); K4's per-decode-step sums, and torch.profiler's count of
@@ -44,15 +46,38 @@ Phases (any failure exits non-zero and prints no result):
    decode step under int4 (K4, and XOT_TPU_INT4_KERNEL=0) and int8 w8a16,
    and the int4 prefill (K4, and XOT_TPU_INT4_KERNEL=0);
 6. batched serving — the same checkpoint through the daemon with
-   XOT_TPU_BATCHED=1 (8 slots, 64-token pages, cache 4096): 16 concurrent
-   streaming greedy requests sharing a 128-token system prefix, once per KV
-   pool type (bf16, int8, int4), then once more with XOT_TPU_QUANT=int4
-   weights and bf16 pages. The counters are zeroed just before each pass
-   and read just after: K1 (bf16 and int8 pages) and K3 must have run, K4
-   in the int4-weights pass (every prefill chunk too, whatever its rows: no
-   int4_two_dot call), and prefix pages must have been shared. One
-   batched decode step's logits through K3 must agree with the gather path
-   on the same pool, and ``torch.profiler`` splits a decode chunk into host
+   XOT_TPU_BATCHED=1 (8 slots, 64-token pages, cache 4096) at the batched
+   server's defaults, QoS admission and mixed prefill+decode ticks on,
+   first with XOT_TPU_QUANT=int4 weights and bf16 pages, then on bf16
+   weights: 16
+   streaming greedy requests sharing a 128-token system prefix (prompts
+   166–550 tokens, answers 29–64 tokens) in two waves, the second eight
+   sent once the first eight stream, once per KV pool type (bf16, int8,
+   int4); then bf16 again with XOT_TPU_MIXED_TICK=0, and with QoS and the
+   SLO engine off as well (the FIFO scheduler); then a priority pass
+   (12 ``batch`` requests, then 4 ``interactive`` ones once 8 batch rows
+   stream), last because the process's SLO engine keeps the burn its
+   interactive requests leave.
+   The counters are zeroed just before each pass and read just after: K1
+   (bf16 and int8 pages) and K3 must have run, K4 in the int4-weights pass
+   (every prefill chunk too, whatever its rows: no int4_two_dot call), and
+   prefix pages must have been shared. Each pass logs its mixed
+   dispatches (with the K1 / K3 launches inside them) and its
+   preemptions: the default bf16 pass fails without a mixed dispatch, a
+   XOT_TPU_MIXED_TICK=0 pass with one, any pass with a mixed dispatch
+   that did not launch K1 once per layer (none on int4 pages) and K3, the
+   priority pass without a preemption, and every request must end with
+   all its tokens. The node is started as the daemon's main starts it, so
+   the SLO engine ticks and its slo_burn_rate gauge sets the mixed budget:
+   a pass with the SLO engine on fails if the gauge was not there when it
+   began. Each pass reports, from deltas of the metrics registry, the mean
+   decode-chunk, mixed-tick and host-gap times; the default bf16 pass also
+   reads GET /metrics and GET /v1/slo mid-pass. One batched decode step's
+   logits through K3 must agree with the gather path on the same pool; one mixed call at full
+   width (``fused_mixed_paged_batch_decode``: 8 decode rows, a 200-token
+   slice at offset 1024) must agree with the alternating equivalent
+   within 5e-2 relative L2 and launch K1 and K3 once per layer;
+   ``torch.profiler`` splits a decode chunk, and a mixed chunk, into host
    and device time.
 
 The last two lines are the card as ``nvidia-smi`` reports it and
@@ -216,13 +241,16 @@ def phase_kernels(torch):
 # the short rows, the head row first (the solo path's 128-token bucket). Then
 # long prompts (a solo prompt is padded to a multiple of 128), the second
 # 2048-token chunk of a 4096-token batched prefill (XOT_TPU_PREFILL_CHUNK),
-# a ragged length, four batched rows behind a shared prefix, and hd 128.
+# a ragged length, four batched rows behind a shared prefix, and hd 128. Last,
+# mixed-tick slices (B=1, a power-of-two Sq at a large offset, over the
+# 4096-slot gathered window): Sq 16 at 2048, 256 at 3072, 1024 at 1024.
 K1_HEADS = (32, 8)  # (Hq, Hkv) of every K1 row
 K1_ROWS = [
   (128, [0], "bf16", 64), (512, [0], "bf16", 64), (128, [128], "bf16", 64), (512, [128], "bf16", 64),
   (128, [0], "int8", 64), (512, [0], "int8", 64), (128, [128], "int8", 64), (512, [128], "int8", 64),
   (1024, [0], "bf16", 64), (2048, [0], "bf16", 64), (3072, [0], "bf16", 64), (4096, [0], "bf16", 64), (4096, [0], "int8", 64),
   (2048, [2048], "bf16", 64), (3000, [0], "bf16", 64), (512, [0, 128, 128, 1536], "bf16", 64), (2048, [0], "bf16", 128),
+  (16, [2048], "bf16", 64), (256, [3072], "bf16", 64), (1024, [1024], "bf16", 64),
 ]
 
 
@@ -1061,11 +1089,15 @@ def profile_decode_step(torch, engine, what, reps=8):
 SYSTEM_PREFIX = "You are a careful assistant. Answer in plain words, keep every answer short, and say when you do not know an answer."
 
 
-def batched_bodies(n=16):
+def batched_bodies(n=16, priority=None):
   """16 greedy streaming chat requests. The byte-level chat template puts
   BOS + "<|system|>" + the 116-byte system prompt + newline first: the
   same 128 tokens (two full 64-token pages) in every prompt. The user
-  suffixes are distinct, 16 to 400 bytes."""
+  suffixes are distinct, 16 to 400 bytes, longest last. Answers are 29 to
+  64 tokens, so rows free one at a time and requests sent after the first
+  eight admit while the others stream — the admissions mixed ticks slice.
+  With a ``priority`` every answer is 64 tokens: no row frees early, so a
+  later request of a higher class finds no free slot and preempts."""
   if len(ByteTokenizer().encode(f"<|system|>{SYSTEM_PREFIX}\n")) != 2 * PAGE:
     raise SystemExit("chip_smoke: the shared system prefix must be exactly two pages")
   words = "the quick brown fox jumps over a lazy dog while seven tired owls count the stars above an old mill".split()
@@ -1074,7 +1106,10 @@ def batched_bodies(n=16):
     size = 16 + (384 * i) // (n - 1)
     text = f"request {i}: " + " ".join(words[(i + j) % len(words)] for j in range(size))
     msgs = [{"role": "system", "content": SYSTEM_PREFIX}, {"role": "user", "content": text[:size]}]
-    bodies.append({"model": "llama-3.2-1b", "messages": msgs, "stream": True, "temperature": 0, "max_tokens": MAX_TOKENS})
+    body = {"model": "llama-3.2-1b", "messages": msgs, "stream": True, "temperature": 0, "max_tokens": MAX_TOKENS - 5 * (i % 8)}
+    if priority:
+      body.update(priority=priority, max_tokens=MAX_TOKENS)
+    bodies.append(body)
   return bodies
 
 
@@ -1083,9 +1118,22 @@ def _pctl(xs, q):
   return xs[min(len(xs) - 1, max(0, math.ceil(q * len(xs)) - 1))]  # nearest rank
 
 
+# Batched daemon passes: (name, KV pool type, environment). On bf16 weights:
+# the defaults (QoS and mixed ticks on) per pool type, the same bf16 pass
+# with XOT_TPU_MIXED_TICK=0 (the alternating schedule it replaces), with QoS
+# and the SLO engine off as well (the FIFO scheduler of earlier slices), and
+# the priority pass (12 batch requests, then 4 interactive ones).
+BATCHED_PASSES = [
+  ("bf16", "", {}), ("int8", "int8", {}), ("int4", "int4", {}), ("bf16_alternating", "", {"XOT_TPU_MIXED_TICK": "0"}),
+  ("bf16_fifo", "", {"XOT_TPU_MIXED_TICK": "0", "XOT_TPU_QOS": "0", "XOT_TPU_SLO": "0"}), ("bf16_priority", "", {}),
+]
+PASS_KNOBS = ("XOT_TPU_MIXED_TICK", "XOT_TPU_QOS", "XOT_TPU_SLO")
+
+
 def phase_batched(torch, ckpt: Path, weights: str = "bf16"):
-  """The batched daemon: one pass per KV pool type on the bf16 weights, or
-  (``weights="int4"``) one pass with XOT_TPU_QUANT=int4 and bf16 pages."""
+  """The batched daemon: the passes of ``BATCHED_PASSES`` on the bf16
+  weights, or (``weights="int4"``) one default pass with XOT_TPU_QUANT=int4
+  and bf16 pages."""
   from xotorch_support_jetson_tpu_torch import main as tmain
 
   args, port = _daemon_args(tmain, ckpt)
@@ -1095,10 +1143,29 @@ def phase_batched(torch, ckpt: Path, weights: str = "bf16"):
   try:
     return asyncio.run(_serve_batched(torch, tmain, args, port, weights))
   finally:
-    for knob in ("XOT_TPU_BATCHED", "XOT_TPU_BATCH_SLOTS", "XOT_TPU_PAGE_SIZE", "XOT_TPU_KV_QUANT", "XOT_TPU_QUANT"):
+    for knob in ("XOT_TPU_BATCHED", "XOT_TPU_BATCH_SLOTS", "XOT_TPU_PAGE_SIZE", "XOT_TPU_KV_QUANT", "XOT_TPU_QUANT", *PASS_KNOBS):
       os.environ.pop(knob, None)
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _spy_mixed(engine, fa, paged, slices):
+  """Record each mixed dispatch's slice (pad, offset, length) and the K1 /
+  K3 launches made inside it (the dispatch enqueues its kernels on the
+  host, so the counters move during the call) until the returned function
+  removes the spy."""
+  ops = engine.batch_ops
+  orig = ops.mixed_paged_batch_decode
+
+  def spy(*args, **kw):
+    k1, k3 = fa.LAUNCHES["flash_prefill"], paged.LAUNCHES["paged_decode"]
+    out = orig(*args, **kw)
+    start, end = int(kw["pf_prefix"][0]), int(kw["pf_end"][0])
+    slices.append(dict(pad=int(kw["pf_tokens"].shape[1]), offset=start, tokens=end - start, k1=fa.LAUNCHES["flash_prefill"] - k1, k3=paged.LAUNCHES["paged_decode"] - k3))
+    return out
+
+  ops.mixed_paged_batch_decode = spy
+  return lambda: delattr(ops, "mixed_paged_batch_decode")
 
 
 async def _serve_batched(torch, tmain, args, port, weights):
@@ -1106,8 +1173,11 @@ async def _serve_batched(torch, tmain, args, port, weights):
 
   from xotorch_support_jetson_tpu_torch.inference.shard import Shard
   from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, int4_matmul as k4, paged
+  from xotorch_support_jetson_tpu_torch.orchestration import slo
+  from xotorch_support_jetson_tpu_torch.utils.metrics import metrics, snapshot_delta
 
   node, api, engine, _ = tmain.build_components(args, tokenizer=ByteTokenizer())
+  await node.start()  # as main.async_main: the SLO engine's tick task, whose slo_burn_rate gauge sets the mixed budget
   server = await api.run(host="127.0.0.1", port=port)
   clients = ThreadPoolExecutor(max_workers=16)  # one client thread per concurrent request
   loop = asyncio.get_running_loop()
@@ -1115,70 +1185,157 @@ async def _serve_batched(torch, tmain, args, port, weights):
     await engine.ensure_shard(Shard("llama-3.2-1b", 0, 15, 16))
     ids: dict[str, list[int]] = {}
     node.on_token.register("chip_smoke").on_next(lambda rid, toks, fin: ids.setdefault(rid, []).extend(toks))
-    bodies = batched_bodies()
     passes = {}
-    kv_modes = KV_MODES if weights == "bf16" else {"bf16": ""}
-    for kv, quant in kv_modes.items():
-      engine._drop_batched_server()  # a fresh pool of this type
+    plan = BATCHED_PASSES if weights == "bf16" else [("bf16", "", {})]
+    for name, quant, env in plan:
+      engine._drop_batched_server()  # a fresh pool (and QoS / mixed-tick verdict) for this pass
       os.environ["XOT_TPU_KV_QUANT"] = quant
+      for knob in PASS_KNOBS:
+        os.environ.pop(knob, None)
+      os.environ.update(env)
       warm = {"model": "llama-3.2-1b", "messages": [{"role": "user", "content": "warm up"}], "stream": True, "temperature": 0, "max_tokens": 9}
       await loop.run_in_executor(clients, _post, port, warm)  # first cuBLAS/kernel work off the clock
       bserver = engine.get_batched_server()
+      slices: list[dict] = []
+      unspy = _spy_mixed(engine, fa, paged, slices)
       hits0 = bserver.prefix_hit_pages
-      fa.reset_launch_counts()  # ---- the batched main path, counted
+      snap0, burn0 = metrics.snapshot(), _interactive_burn(metrics, slo)
+      priority = name == "bf16_priority"
+      # Two waves: the second is sent once every slot streams, so it admits
+      # as rows free — while the others keep decoding.
+      waves = (batched_bodies(12, "batch"), batched_bodies(4, "interactive")) if priority else (batched_bodies()[:8], batched_bodies()[8:])
+      bodies = waves[0] + waves[1]
+      fa.reset_launch_counts()  # ---- this pass's main path, counted
       paged.reset_launch_counts()
       k4.reset_launch_counts()
       t0 = time.perf_counter()
-      replies = await asyncio.gather(*(loop.run_in_executor(clients, _post, port, b) for b in bodies))
+      before = set(ids)
+      first = [loop.run_in_executor(clients, _post, port, b) for b in waves[0]]
+      while sum(1 for rid, t in ids.items() if t and rid not in before) < BATCH_SLOTS:
+        if time.perf_counter() - t0 > 120 or any(f.done() for f in first):
+          raise SystemExit(f"chip_smoke: batched {name}: the first wave's rows did not all stream")
+        await asyncio.sleep(0.005)
+      second = [loop.run_in_executor(clients, _post, port, b) for b in waves[1]]
+      endpoints = await asyncio.to_thread(_read_endpoints, port) if name == "bf16" else None  # its own thread: the 16 client threads are busy
+      replies = await asyncio.gather(*first, *second)
       wall = time.perf_counter() - t0
+      unspy()
       launches = {"flash_prefill": fa.LAUNCHES["flash_prefill"], "flash_decode": fa.LAUNCHES["flash_decode"], "paged_decode": paged.LAUNCHES["paged_decode"], "int4_matmul": k4.LAUNCHES["int4_matmul"]}  # ---- read just after
       two_dot = k4.CALLS["int4_two_dot"]
+      delta, burn1 = snapshot_delta(snap0, metrics.snapshot()), _interactive_burn(metrics, slo)
+      sched = {h: _hist_mean_ms(delta, h) for h in ("decode_chunk_seconds", "mixed_tick_seconds", "sched_host_gap_seconds")}
+      preemptions = int(delta["counters"].get("qos_preemptions_total", 0))
+      mixed = sched["mixed_tick_seconds"]["count"]
+      slo_on = env.get("XOT_TPU_SLO") != "0"
+      budget_from = "XOT_TPU_SLO=0 (no burn signal)" if not slo_on else "slo_burn_rate gauge" if burn0 is not None else "fallback (interactive ITL median) until the first tick" if burn1 is not None else "fallback (interactive ITL median): no tick"
       hits = bserver.prefix_hit_pages - hits0
       reqs = []
       for (text, finish, ttft, total, n_events, rid), b in zip(replies, bodies):
         toks = ids.get(rid, [])
-        if not toks or len(toks) > MAX_TOKENS or finish not in ("stop", "length"):
-          raise SystemExit(f"chip_smoke: batched {kv}: request {rid} gave {len(toks)} tokens, finish {finish}")
-        reqs.append(dict(rid=rid, tokens=len(toks), ttft_s=ttft, total_s=total, decode_tok_s=(len(toks) - 1) / max(total - ttft, 1e-9), user_bytes=len(b["messages"][1]["content"])))
+        if not toks or len(toks) > b["max_tokens"] or finish not in ("stop", "length") or (finish == "length" and len(toks) != b["max_tokens"]):
+          raise SystemExit(f"chip_smoke: batched {name}: request {rid} gave {len(toks)} of {b['max_tokens']} tokens, finish {finish}")
+        reqs.append(dict(rid=rid, priority=b.get("priority", "standard"), tokens=len(toks), ttft_s=ttft, total_s=total, decode_tok_s=(len(toks) - 1) / max(total - ttft, 1e-9), user_bytes=len(b["messages"][1]["content"])))
       n_tok = sum(r["tokens"] for r in reqs)
       res = dict(
-        weights=weights, kv=kv, requests=len(reqs), wall_s=wall, tokens=n_tok, aggregate_tok_s=n_tok / wall,
+        weights=weights, kv=quant or "bf16", env=env, requests=len(reqs), wall_s=wall, tokens=n_tok, aggregate_tok_s=n_tok / wall,
         ttft_p50_s=_pctl([r["ttft_s"] for r in reqs], 0.5), ttft_p95_s=_pctl([r["ttft_s"] for r in reqs], 0.95),
         decode_tok_s_p50=_pctl([r["decode_tok_s"] for r in reqs], 0.5), decode_tok_s_min=min(r["decode_tok_s"] for r in reqs),
-        launches=launches, int4_two_dot_calls=two_dot, prefix_hit_pages=hits, pool_pages=bserver.allocator.n_pages, per_request=reqs,
+        launches=launches, int4_two_dot_calls=two_dot, prefix_hit_pages=hits, pool_pages=bserver.allocator.n_pages,
+        mixed_dispatches=mixed, preemptions=preemptions, qos=bserver.qos is not None, mixed_ticks=bserver._mixed_active(), scheduler_ms=sched,
+        budget_from=budget_from, interactive_burn=dict(start=burn0, end=burn1), endpoints=endpoints,
+        mixed_slices=slices, mixed_launches={"flash_prefill": sum(x["k1"] for x in slices), "paged_decode": sum(x["k3"] for x in slices)},
+        ttft_p50_by_class={c: _pctl([r["ttft_s"] for r in reqs if r["priority"] == c], 0.5) for c in sorted({r["priority"] for r in reqs})},
+        per_request=reqs,
       )
-      need_k1 = kv != "int4"  # int4 pages prefill through the plain attention, as the reference gates K1
+      need_k1 = quant != "int4"  # int4 pages prefill through the plain attention, as the reference gates K1
       need_k4 = weights == "int4"
       if launches["paged_decode"] == 0 or (need_k1 and launches["flash_prefill"] == 0) or hits == 0 or launches["flash_decode"] != 0 or (launches["int4_matmul"] == 0) == need_k4 or two_dot:
-        raise SystemExit(f"chip_smoke: batched {weights} weights, {kv} pages: launches {launches}, shared-page hits {hits}, {two_dot} int4_two_dot calls")
+        raise SystemExit(f"chip_smoke: batched {weights} weights, pass {name}: launches {launches}, shared-page hits {hits}, {two_dot} int4_two_dot calls")
+      if res["qos"] == (env.get("XOT_TPU_QOS") == "0") or res["mixed_ticks"] == (env.get("XOT_TPU_MIXED_TICK") == "0"):
+        raise SystemExit(f"chip_smoke: batched {name}: QoS {res['qos']}, mixed ticks {res['mixed_ticks']} (expected the defaults unless the pass sets them)")
+      if name == "bf16" and (mixed == 0 or len(slices) != mixed):
+        raise SystemExit(f"chip_smoke: batched {weights} weights, default bf16 pass: {mixed} mixed dispatches settled, {len(slices)} dispatched")
+      off_k1 = [x for x in slices if x["k3"] == 0 or x["k1"] != (engine.cfg.n_layers if quant != "int4" else 0)]
+      if off_k1:  # every slice prefills through K1 once per layer (int4 pages: the plain path) and decodes through K3
+        raise SystemExit(f"chip_smoke: batched {name}: mixed dispatches off their kernels: {off_k1[:4]}")
+      if slo_on and burn0 is None:
+        raise SystemExit(f"chip_smoke: batched {name}: no slo_burn_rate gauge when the pass began (the node's SLO tick task did not run)")
+      if env.get("XOT_TPU_MIXED_TICK") == "0" and (mixed or slices):
+        raise SystemExit(f"chip_smoke: batched {name}: {mixed} mixed dispatches with XOT_TPU_MIXED_TICK=0")
+      if priority and preemptions < 1:
+        raise SystemExit(f"chip_smoke: batched {name}: no preemption (interactive requests arrived while {BATCH_SLOTS} batch rows streamed)")
       if bserver.busy() or bserver.allocator.audit()["referenced"]:
-        raise SystemExit(f"chip_smoke: batched {kv}: the server did not drain: {bserver.allocator.audit()}")
-      passes[kv] = res
-      log(f"[batched] weights={weights} kv={kv}: {len(reqs)} streaming requests, {n_tok} tokens in {wall:.3f} s: aggregate {res['aggregate_tok_s']:.1f} tok/s | TTFT p50 {res['ttft_p50_s']:.4f} s p95 {res['ttft_p95_s']:.4f} s | per-request decode p50 {res['decode_tok_s_p50']:.2f} tok/s (min {res['decode_tok_s_min']:.2f}) | launches {launches} | shared prefix pages {hits} | pool {res['pool_pages']} pages")
-    os.environ.pop("XOT_TPU_KV_QUANT", None)
+        raise SystemExit(f"chip_smoke: batched {name}: the server did not drain: {bserver.allocator.audit()}")
+      passes[name] = res
+      pads = sorted({x["pad"] for x in slices})
+      log(f"[batched] weights={weights} pass={name} kv={res['kv']}{' ' + str(env) if env else ''}: {len(reqs)} streaming requests, {n_tok} tokens in {wall:.3f} s: aggregate {res['aggregate_tok_s']:.1f} tok/s | TTFT p50 {res['ttft_p50_s']:.4f} s p95 {res['ttft_p95_s']:.4f} s | per-request decode p50 {res['decode_tok_s_p50']:.2f} tok/s (min {res['decode_tok_s_min']:.2f}) | launches {launches} | mixed dispatches {mixed} (slice pads {pads}, offsets {min((x['offset'] for x in slices), default=None)}..{max((x['offset'] for x in slices), default=None)}; launches inside them {res['mixed_launches']}) | preemptions {preemptions} | mixed budget from {budget_from} (interactive burn {burn0} -> {burn1}) | scheduler ms (registry, mean over the pass): {', '.join(f'{h} {v['mean_ms']} x{v['count']}' for h, v in sched.items())} | shared prefix pages {hits} | pool {res['pool_pages']} pages")
+      if endpoints is not None:
+        log(f"[batched] pass={name}: GET /metrics and /v1/slo mid-pass: {endpoints}")
+      if priority:
+        log(f"[batched] pass={name}: TTFT p50 by class {res['ttft_p50_by_class']}")
+    for knob in ("XOT_TPU_KV_QUANT", *PASS_KNOBS):
+      os.environ.pop(knob, None)
     node.on_token.deregister("chip_smoke")
     out = dict(passes=passes)
+    if weights == "bf16":  # what one SLO tick costs (on the node's worker thread) over the registry these passes filled
+      t = time.perf_counter()
+      slo.slo_engine.tick()
+      out["slo_tick_ms"] = (time.perf_counter() - t) * 1e3
+      log(f"[batched] one SLO engine tick (registry snapshot, every window, the gauges) after the passes: {out['slo_tick_ms']:.3f} ms of host time")
     if weights == "bf16":
       out["check"] = check_batched_against_plain(torch, engine)
       log(f"[batched] one decode step through K3 vs the gather path on the same pool (rel L2 of logits): {out['check']}")
+      out["mixed_check"] = check_mixed_against_alternating(torch, engine)
       out["profile"] = profile_batched(torch, engine)
     return out
   finally:
+    await node.stop()
     clients.shutdown(wait=True)
     server.close()
     await server.wait_closed()
     engine.executor.shutdown(wait=True)
 
 
-def _batched_rows(torch, engine, B=BATCH_SLOTS, mp=16, quant=""):
+def _interactive_burn(metrics, slo):
+  """The SLO engine's interactive fast-window burn gauge, which the
+  scheduler's mixed budget reads (None before the engine's first tick)."""
+  return metrics.gauge_value("slo_burn_rate", labels={"class": "interactive", "window": f"{int(min(slo.slo_windows_s()))}s"})
+
+
+def _hist_mean_ms(delta, name):
+  """Count and mean (ms) of one unlabelled histogram in a registry delta."""
+  h = delta["histograms"].get(name)
+  n = sum(h["counts"]) if h else 0
+  return dict(count=n, mean_ms=h["sum"] * 1e3 / n if n else None)
+
+
+def _read_endpoints(port):
+  """GET /metrics and /v1/slo on the daemon: both answer 200, the text
+  carries the scheduler's and the SLO engine's series, the report is the
+  local one with every class."""
+  with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=60) as resp:
+    text = resp.read().decode()
+  with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/slo", timeout=60) as resp:
+    report = json.loads(resp.read())
+  series = ("xot_tpu_qos_ttft_seconds_bucket", "xot_tpu_decode_chunk_seconds_count", "xot_tpu_slo_burn_rate", "xot_tpu_scheduler_batch_occupancy")
+  missing = [x for x in series if x not in text]
+  if missing or report.get("scope") != "local" or not report.get("enabled") or set(report.get("classes", {})) != {"interactive", "standard", "batch"}:
+    raise SystemExit(f"chip_smoke: /metrics lacks {missing} or /v1/slo gave {str(report)[:300]}")
+  std = report["classes"]["standard"]["windows"]
+  fast = min(std, key=int)
+  return dict(metrics_lines=len(text.splitlines()), slo_windows=sorted(std, key=int), standard_fast_window=dict(ttft=std[fast]["ttft"], itl=std[fast]["itl"], availability=std[fast]["availability"]))
+
+
+def _batched_rows(torch, engine, B=BATCH_SLOTS, mp=16, quant="", extra_pages=0):
   """A pool holding B prefilled rows (prompt lengths 150..600, shuffled
-  pages): (pool, block tables, next tokens, positions)."""
+  pages; ``extra_pages`` more after them): (pool, block tables, next
+  tokens, positions)."""
   from xotorch_support_jetson_tpu_torch.models.decoder import prefill_into_pages_many
   from xotorch_support_jetson_tpu_torch.ops.paged import init_paged_pool
 
   cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
   gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-  pool = init_paged_pool(cfg, cfg.n_layers, B * mp + 1, PAGE, quant=quant, device="cuda")
+  pool = init_paged_pool(cfg, cfg.n_layers, B * mp + 1 + extra_pages, PAGE, quant=quant, device="cuda")
   bt = (torch.randperm(B * mp, generator=gen, device="cuda").to(torch.int32) + 1).reshape(B, mp)
   lens = torch.linspace(150, 600, B, device="cuda").to(torch.int32)
   toks = torch.randint(0, 256, (B, 640), generator=gen, device="cuda", dtype=torch.int32)
@@ -1210,10 +1367,90 @@ def check_batched_against_plain(torch, engine):
   return res
 
 
+MIXED_PREFIX, MIXED_SLICE, MIXED_PAD = 1024, 200, 256  # the full-width mixed slice: tokens [1024, 1224), padded to 256
+
+
+def _mixed_rows(torch, engine, quant=""):
+  """``_batched_rows`` (B=8 decode rows) plus one admission whose first
+  1024 prompt tokens are prefilled into 32 more pages, and the operands of
+  its next mixed slice: (pool, bt, tok, lens, slice operands, prompt,
+  admission pages)."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import prefill_into_pages_many
+
+  B, mp = BATCH_SLOTS, 16
+  pool, bt, tok, lens = _batched_rows(torch, engine, quant=quant, extra_pages=32)
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+  prompt = torch.randint(0, 256, (1, MIXED_PREFIX + MIXED_SLICE + 64), generator=gen, device="cuda", dtype=torch.int32)
+  adm = (torch.arange(32, device="cuda", dtype=torch.int32) + B * mp + 1)[None]
+  one = lambda v: torch.tensor([v], dtype=torch.int32, device="cuda")  # noqa: E731
+  prefill_into_pages_many(params, cfg, shard, prompt[:, :MIXED_PREFIX], pool, adm[:, :16], one(0), one(MIXED_PREFIX), PAGE)
+  pf_tokens = torch.zeros((1, MIXED_PAD), dtype=torch.int32, device="cuda")
+  pf_tokens[:, :MIXED_SLICE] = prompt[:, MIXED_PREFIX : MIXED_PREFIX + MIXED_SLICE]
+  window = 1 << math.ceil(math.log2(-(-(MIXED_PREFIX + MIXED_PAD) // PAGE)))  # the scheduler's pow2 page window
+  pf = dict(pf_tokens=pf_tokens, pf_bt=adm[:, :window].contiguous(), pf_prefix=one(MIXED_PREFIX), pf_end=one(MIXED_PREFIX + MIXED_SLICE))
+  return pool, bt, tok, lens, pf, prompt, adm
+
+
+def check_mixed_against_alternating(torch, engine):
+  """One ``fused_mixed_paged_batch_decode`` call at full width (8 decode
+  rows at lengths 150..600, one step; the admission's slice of 200 tokens
+  at offset 1024, pad 256) against the alternating equivalent on a copy of
+  the same pool: ``prefill_into_pages_many`` on the slice, then
+  ``fused_paged_batch_decode``. The decode logits, and the logits of the
+  admission's final 64 tokens prefilled over each pool, must agree within
+  5e-2 relative L2; the launch counters, zeroed just before the fused call
+  and read just after, must show K1 (the slice) and K3 (the decode half)."""
+  from xotorch_support_jetson_tpu_torch.models import decoder
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, paged
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  pool, bt, tok, lens, pf, prompt, adm = _mixed_rows(torch, engine)
+  active = torch.ones(BATCH_SLOTS, dtype=torch.bool, device="cuda")
+  temps = torch.zeros(BATCH_SLOTS, dtype=torch.float32, device="cuda")
+  seen = []
+  plain_next = decoder._next_token_batched
+
+  def capture(rows, *a, **kw):
+    seen.append(rows.float().clone())
+    return plain_next(rows, *a, **kw)
+
+  one = lambda v: torch.tensor([v], dtype=torch.int32, device="cuda")  # noqa: E731
+  end = MIXED_PREFIX + MIXED_SLICE
+  final = prompt[:, end:]
+  res = {}
+  decoder._next_token_batched = capture
+  try:
+    pools = {"mixed": {k: v.clone() for k, v in pool.items()}, "alternating": {k: v.clone() for k, v in pool.items()}}
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    paged.reset_launch_counts()
+    t_mixed = decoder.fused_mixed_paged_batch_decode(params, cfg, shard, tok, pools["mixed"], bt, lens, active, temps, n_steps=1, page_size=PAGE, **pf)[0]
+    torch.cuda.synchronize()
+    res["launches"] = {"flash_prefill": fa.LAUNCHES["flash_prefill"], "paged_decode": paged.LAUNCHES["paged_decode"]}
+    decoder.prefill_into_pages_many(params, cfg, shard, pf["pf_tokens"], pools["alternating"], pf["pf_bt"], pf["pf_prefix"], pf["pf_end"], PAGE)
+    t_alt = decoder.fused_paged_batch_decode(params, cfg, shard, tok, pools["alternating"], bt, lens, active, temps, 1, page_size=PAGE)[0]
+  finally:
+    decoder._next_token_batched = plain_next
+  got, want = seen[0], seen[-1]
+  finals = [decoder.prefill_into_pages_many(params, cfg, shard, final, pools[k], adm, one(end), one(prompt.shape[1]), PAGE)[0] for k in ("mixed", "alternating")]
+  res.update(
+    decode_rel_err=_rel_err(got, want), decode_argmax_agree=float((t_mixed == t_alt).float().mean()),
+    final_prefill_rel_err=_rel_err(finals[0], finals[1]), shapes=dict(B=BATCH_SLOTS, slice=MIXED_SLICE, pad=MIXED_PAD, offset=MIXED_PREFIX, window=int(pf["pf_bt"].shape[1]) * PAGE),
+  )
+  n_layers = cfg.n_layers
+  log(f"[batched] mixed call vs alternating at full width (B={BATCH_SLOTS}, slice {MIXED_SLICE} tokens at offset {MIXED_PREFIX}, pad {MIXED_PAD}): decode logits rel L2 {res['decode_rel_err']:.3e}, greedy agree {res['decode_argmax_agree']:.3f}, final-prefill logits rel L2 {res['final_prefill_rel_err']:.3e} | launches in the mixed call {res['launches']}")
+  if not (res["decode_rel_err"] < 5e-2 and res["final_prefill_rel_err"] < 5e-2) or not torch.isfinite(got).all():
+    raise SystemExit(f"chip_smoke: the mixed call disagrees with the alternating one: {res}")
+  if res["launches"] != {"flash_prefill": n_layers, "paged_decode": n_layers}:
+    raise SystemExit(f"chip_smoke: the mixed call did not run K1 and K3 once per layer: {res['launches']}")
+  return res
+
+
 def profile_batched(torch, engine, steps=8):
   """One batched decode chunk (B=8, bf16 pool, prompts 150..600) through
-  the engine's batch ops: with K3, and with the gather path
-  (XOT_TPU_PAGED_KERNEL=0)."""
+  the engine's batch ops: with K3, with a mixed slice fused in (K1 + K3),
+  and with the gather path (XOT_TPU_PAGED_KERNEL=0)."""
   pool, bt, tok, lens = _batched_rows(torch, engine)
   ops = engine.batch_ops
   active = torch.ones(BATCH_SLOTS, dtype=torch.bool, device="cuda")
@@ -1224,6 +1461,12 @@ def profile_batched(torch, engine, steps=8):
     ops.paged_batch_decode(tok, pool, bt, lens, active, temps, top_ks, steps, k_max=64, page_size=PAGE, key=SEED)
 
   out = {"decode_k3": _profile(torch, f"batched decode chunk with K3, B={BATCH_SLOTS}, {steps} steps", chunk, 3)}
+  mpool, mbt, mtok, mlens, pf, _, _ = _mixed_rows(torch, engine)
+  out["mixed_k1_k3"] = _profile(
+    torch, f"mixed chunk (K1 slice {MIXED_SLICE} tokens at {MIXED_PREFIX}, pad {MIXED_PAD}; K3 decode), B={BATCH_SLOTS}, {steps} steps",
+    lambda: ops.mixed_paged_batch_decode(mtok, mpool, mbt, mlens, active, temps, top_ks, steps, k_max=64, page_size=PAGE, key=SEED, **pf), 3,
+  )
+  del mpool
   os.environ["XOT_TPU_PAGED_KERNEL"] = "0"
   try:
     out["decode_gather"] = _profile(torch, f"batched decode chunk with the gather path, B={BATCH_SLOTS}, {steps} steps", chunk, 3)
@@ -1252,24 +1495,33 @@ def main() -> int:
     log(f"[serving] wrote a random bf16 llama-3.2-1b checkpoint ({sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9:.2f} GB) in {write_s:.1f} s")
     serving = phase_serving(torch, ckpt)
     quant = phase_quant_serving(torch, ckpt, serving.pop("_bf16_logits"))
-    batched = phase_batched(torch, ckpt)
+    # The int4-weights daemon first: the metrics registry and the SLO
+    # engine are the process's, so a daemon started after the priority
+    # pass would inherit its interactive burn (and the smallest budget).
     batched_int4 = phase_batched(torch, ckpt, weights="int4")
+    batched = phase_batched(torch, ckpt)
   finally:
     shutil.rmtree(ckpt, ignore_errors=True)
   # Launches per kernel on each main path: the solo bf16 daemon run (K1,
   # K2), the solo quantized runs (K1; K4 under int4 weights), the batched
-  # runs on bf16 weights (K1, K3; summed over the three pool types) and the
-  # batched run on int4 weights (K1, K3, K4).
+  # runs on bf16 weights at the defaults (K1, K3; summed over the three pool
+  # types), the same with XOT_TPU_MIXED_TICK=0, the priority pass, and the
+  # batched run on int4 weights (K1, K3, K4). Of the batched default runs'
+  # launches, those inside mixed dispatches are listed apart as well.
+  bp = batched["passes"]
   paths = {
     "solo": [serving["launches"]], "solo_long_prompt": [serving["long"]["launches"]], "solo_quant": [q["launches"] for q in quant.values()],
-    "batched": [p["launches"] for p in batched["passes"].values()], "batched_int4_weights": [p["launches"] for p in batched_int4["passes"].values()],
+    "batched": [bp[k]["launches"] for k in ("bf16", "int8", "int4")], "batched_alternating": [bp["bf16_alternating"]["launches"]], "batched_fifo": [bp["bf16_fifo"]["launches"]],
+    "batched_priority": [bp["bf16_priority"]["launches"]], "batched_int4_weights": [p["launches"] for p in batched_int4["passes"].values()],
   }
   by_path = {name: {path: sum(x.get(name, 0) for x in runs) for path, runs in paths.items()} for name in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
+  for name in ("flash_prefill", "paged_decode"):
+    by_path[name]["of_batched_inside_mixed_dispatches"] = sum(bp[k]["mixed_launches"][name] for k in ("bf16", "int8", "int4"))
 
   def entry(name, source, replaces, rows, head):
     r = rows[head]
     return {
-      "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sum(by_path[name].values()),
+      "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sum(v for k, v in by_path[name].items() if not k.startswith("of_")),
       "launches_by_path": by_path[name],
       "max_abs_err": max(x["max_abs_err"] for x in rows), "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
       "bound_by": r["bound_by"], "library_ms": r["library_ms"], "at": {k: r[k] for k in r if k in ("Sq", "q_offset", "kv", "B", "positions", "cache", "lengths", "weight", "T", "d_in", "d_out")},

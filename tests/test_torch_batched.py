@@ -4,7 +4,9 @@ on identical weights (JAX ``init_shard_params`` → numpy →
 rtol = atol = 2e-4, greedy tokens identical, for bf16-layout, int8 and int4
 KV), the ``BatchedServer`` (greedy tokens identical to the JAX
 ``BatchedServer`` run with ``XOT_TPU_QOS=0 XOT_TPU_KV_TIER=0
-XOT_TPU_SPEC_BATCH=0 XOT_TPU_MIXED_TICK=0``, and to the port's solo path),
+XOT_TPU_SPEC_BATCH=0 XOT_TPU_MIXED_TICK=0``, and to the port's solo path;
+the defaults, QoS and mixed ticks on, are held in test_torch_mixed_tick.py
+and test_torch_qos.py),
 and the daemon with ``XOT_TPU_BATCHED=1`` over HTTP. Sizes are small: 2
 layers, width 64, 8-token pages."""
 
@@ -36,8 +38,8 @@ from xotorch_support_jetson_tpu_torch.utils.helpers import find_available_port
 TOL = dict(rtol=2e-4, atol=2e-4)
 PS = 8
 QUANTS = ["", "int8", "int4"]
-# The reference's batched server with every feature the port has not got
-# turned off: what the port's server must reproduce.
+# The reference's batched server with QoS, mixed ticks and the features the
+# port has not got turned off: the FIFO, alternating-tick parity case.
 REFERENCE_KNOBS = {"XOT_TPU_QOS": "0", "XOT_TPU_KV_TIER": "0", "XOT_TPU_SPEC_BATCH": "0", "XOT_TPU_MIXED_TICK": "0"}
 
 
@@ -237,7 +239,7 @@ def test_batched_server_backpressure_and_oversized_prompts(model, knobs):
   asyncio.run(run())
 
 
-@pytest.mark.parametrize("knob,value", [("XOT_TPU_PAGED", "0"), ("XOT_TPU_PAGED", "auto"), ("XOT_TPU_SPEC_BATCH", "1"), ("XOT_TPU_KV_TIER", "1"), ("XOT_TPU_MIXED_TICK", "1"), ("XOT_TPU_QOS", "1")])
+@pytest.mark.parametrize("knob,value", [("XOT_TPU_PAGED", "0"), ("XOT_TPU_PAGED", "auto"), ("XOT_TPU_SPEC_BATCH", "1"), ("XOT_TPU_KV_TIER", "1"), ("XOT_TPU_KV_TIER", "true"), ("XOT_TPU_SPEC_BATCH", "on")])
 def test_unported_batched_features_refuse_at_build(model, knobs, knob, value):
   knobs.setenv(knob, value)
   with pytest.raises(NotImplementedError, match=knob):

@@ -1,17 +1,23 @@
-"""OpenAI-compatible HTTP API: ``/healthcheck``, ``/v1/models`` and
-``/v1/chat/completions`` (blocking, and SSE with ``"stream": true``).
+"""OpenAI-compatible HTTP API: ``/healthcheck``, ``/v1/models``,
+``/v1/chat/completions`` (blocking, and SSE with ``"stream": true``),
+``/metrics`` (Prometheus text) and ``/v1/slo`` (the local SLO report).
 
 Counterpart of those routes of the reference's ``api/chatgpt_api.py``, with
-the same request and response shapes. The server is a small HTTP/1.1 server
-on ``asyncio`` streams from the standard library (one request per
-connection, ``Connection: close``), so the serving path depends on no web
-framework.
+the same request and response shapes: a chat request may carry a QoS
+identity (``priority``/``deadline_ms``/``tenant`` body fields or
+``x-priority``/``x-deadline-ms``/``x-tenant-id`` headers; a bad value is a
+400), and an overload refusal is a structured 429 with ``Retry-After``.
+The server is a small HTTP/1.1 server on ``asyncio`` streams from the
+standard library (one request per connection, ``Connection: close``), so
+the serving path depends on no web framework.
 """
 
 from __future__ import annotations
 
 import asyncio
+import hashlib
 import json
+import math
 import os
 import time
 import uuid
@@ -19,7 +25,10 @@ from pathlib import Path
 
 from .. import registry
 from ..inference.engine import PromptTooLongError, ServerOverloadedError
+from ..inference.qos import PRIORITY_CLASSES
+from ..orchestration import slo
 from ..utils.helpers import DEBUG
+from ..utils.metrics import metrics
 
 _REASONS = {200: "OK", 204: "No Content", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed", 408: "Request Timeout", 413: "Payload Too Large", 429: "Too Many Requests", 500: "Internal Server Error"}
 MAX_BODY_BYTES = 16 << 20
@@ -115,6 +124,50 @@ def parse_chat_request(data: dict, default_model: str) -> ChatCompletionRequest:
   return ChatCompletionRequest(model, messages, temperature, max_tokens, bool(data.get("stream", False)), stop, data.get("tools"))
 
 
+def parse_qos_fields(data: dict, headers) -> tuple[str | None, str | None, float | None]:
+  """(priority, tenant, deadline_ms) from the body fields ``priority``,
+  ``deadline_ms`` and ``tenant``, or the headers ``x-priority``,
+  ``x-deadline-ms`` and ``x-tenant-id`` (lower-case keys). A client that
+  sets neither gets all-None (the node's defaults apply). The tenant falls
+  back to a hash of the Authorization header (per-API-key buckets, the key
+  itself never kept). Raises ``ValueError`` on a malformed value: a typo is
+  a 400, not a silently dropped QoS hint.
+
+  Trust: the API authenticates nobody, so every tenant key is
+  client-asserted; per-tenant limits mean something only behind a gateway
+  that pins ``x-tenant-id``. Tenant state is LRU-bounded (inference/qos.py
+  ``MAX_TENANTS``)."""
+  priority = data.get("priority")
+  if priority is None:
+    priority = headers.get("x-priority")
+  if priority is not None:
+    priority = str(priority).lower()
+    if priority not in PRIORITY_CLASSES:
+      raise ValueError(f"'priority' must be one of {list(PRIORITY_CLASSES)}")
+  deadline = data.get("deadline_ms")
+  if deadline is None:
+    deadline = headers.get("x-deadline-ms")
+  if deadline is not None:
+    if isinstance(deadline, bool):
+      raise ValueError("'deadline_ms' must be a positive number")
+    try:
+      deadline = float(deadline)
+    except (TypeError, ValueError):
+      raise ValueError("'deadline_ms' must be a positive number") from None
+    if not deadline > 0:
+      raise ValueError("'deadline_ms' must be a positive number")
+  tenant = data.get("tenant")
+  if tenant is None:
+    tenant = headers.get("x-tenant-id")
+  if tenant is None:
+    auth = headers.get("authorization")
+    if auth:
+      tenant = "key-" + hashlib.sha256(auth.encode()).hexdigest()[:12]
+  if tenant is not None:
+    tenant = str(tenant)[:64] or None
+  return priority, tenant, deadline
+
+
 def completion_chunk(request_id: str, model: str, created: int, content: str | None, finish_reason: str | None) -> dict:
   delta = {} if content is None else {"role": "assistant", "content": content}
   return {
@@ -133,14 +186,29 @@ class _Request:
 
 
 class _Response:
-  """A complete (non-streaming) HTTP response."""
+  """A complete (non-streaming) HTTP response: a JSON body, or ``text`` with
+  its content type."""
 
-  def __init__(self, body: dict, status: int = 200) -> None:
-    self.body, self.status = body, status
+  def __init__(self, body: dict | None, status: int = 200, headers: dict | None = None, text: str | None = None, content_type: str = "application/json") -> None:
+    self.body, self.status, self.headers, self.text, self.content_type = body, status, headers or {}, text, content_type
 
 
-def json_response(body: dict, status: int = 200) -> _Response:
-  return _Response(body, status)
+def json_response(body: dict, status: int = 200, headers: dict | None = None) -> _Response:
+  return _Response(body, status, headers)
+
+
+def overloaded_response(e: Exception) -> _Response:
+  """ServerOverloadedError (and its QoS subclasses) → a structured 429:
+  ``{"error": {"type", "message", "retry_after_ms"}}`` plus a standard
+  ``Retry-After`` header (whole seconds, at least 1) when the refusal
+  carries a backoff hint."""
+  retry_ms = getattr(e, "retry_after_ms", None)
+  body = {"error": {"message": str(e), "type": getattr(e, "error_type", "overloaded")}}
+  headers = {}
+  if retry_ms is not None:
+    body["error"]["retry_after_ms"] = round(float(retry_ms), 1)
+    headers["Retry-After"] = str(max(1, math.ceil(float(retry_ms) / 1e3)))
+  return json_response(body, 429, headers)
 
 
 async def _read_request(reader: asyncio.StreamReader) -> _Request | None:
@@ -171,8 +239,8 @@ _CORS = {"Access-Control-Allow-Origin": "*", "Access-Control-Allow-Methods": "GE
 
 
 async def _send_json(writer: asyncio.StreamWriter, resp: _Response) -> None:
-  data = json.dumps(resp.body).encode()
-  await _write_head(writer, resp.status, {"Content-Type": "application/json", "Content-Length": str(len(data)), "Connection": "close", **_CORS})
+  data = (resp.text if resp.text is not None else json.dumps(resp.body)).encode()
+  await _write_head(writer, resp.status, {"Content-Type": resp.content_type, "Content-Length": str(len(data)), "Connection": "close", **resp.headers, **_CORS})
   writer.write(data)
   await writer.drain()
 
@@ -211,6 +279,8 @@ class ChatGPTAPI:
       ("GET", "/models"): self.handle_get_models,
       ("POST", "/v1/chat/completions"): self.handle_post_chat_completions,
       ("POST", "/chat/completions"): self.handle_post_chat_completions,
+      ("GET", "/metrics"): self.handle_metrics,
+      ("GET", "/v1/slo"): self.handle_slo,
     }
 
   # ------------------------------------------------------------- server
@@ -259,9 +329,32 @@ class ChatGPTAPI:
     ]
     return json_response({"object": "list", "data": models})
 
+  async def handle_metrics(self, request, writer):
+    """GET /metrics — the registry in Prometheus text format (local scope)."""
+    return _Response(None, text=metrics.render_prometheus(), content_type="text/plain; version=0.0.4")
+
+  async def handle_slo(self, request, writer):
+    """GET /v1/slo — the SLO engine's local report: per-class objectives,
+    burn rates over each window, availability and goodput, each rate with
+    its raw counts. ``{"enabled": false}`` when ``XOT_TPU_SLO=0``."""
+    if not slo.slo_enabled():
+      return json_response({"enabled": False, "detail": "SLO engine disabled (XOT_TPU_SLO=0)"})
+
+    def local_report():
+      slo.slo_engine.maybe_tick()
+      return slo.slo_engine.report(node_id=getattr(self.node, "id", None))
+
+    # The tick and the report copy the registry: off the event loop.
+    return json_response(await asyncio.get_running_loop().run_in_executor(None, local_report))
+
   def handle_tokens(self, request_id: str, tokens: list[int], is_finished: bool) -> None:
     queue = self.token_queues.get(request_id)
     if queue is not None:
+      if is_finished:
+        # Availability's good event, once per client request, at the layer
+        # every serving path streams through (refusals never finish here:
+        # they are counted bad where they are refused).
+        slo.note_good(self.node.request_options.get(request_id, {}).get("priority") or "standard")
       queue.put_nowait((list(tokens), is_finished))
 
   async def _tokenizer_for(self, shard):
@@ -301,6 +394,7 @@ class ChatGPTAPI:
       return json_response({"error": "invalid JSON body"}, 400)
     try:
       chat_request = parse_chat_request(data, self.default_model)
+      priority, tenant, deadline_ms = parse_qos_fields(data, request.headers)
     except ValueError as e:
       return json_response({"error": str(e)}, 400)
     shard = registry.build_base_shard(chat_request.model, self.inference_engine_classname)
@@ -316,7 +410,10 @@ class ChatGPTAPI:
     try:
       tokenizer = await self._tokenizer_for(shard)
       prompt = build_prompt(tokenizer, chat_request.messages, chat_request.tools)
-      self.node.set_request_options(request_id, stream=chat_request.stream, max_tokens=chat_request.max_tokens, temperature=chat_request.temperature)
+      self.node.set_request_options(
+        request_id, stream=chat_request.stream, max_tokens=chat_request.max_tokens, temperature=chat_request.temperature,
+        priority=priority, tenant=tenant, deadline_ms=deadline_ms,
+      )
       gen_task = asyncio.create_task(self.node.process_prompt(shard, prompt, request_id))
       if chat_request.stream:
         return await self._stream_response(writer, chat_request, request_id, tokenizer, created, gen_task)
@@ -328,8 +425,9 @@ class ChatGPTAPI:
     except PromptTooLongError as e:
       return json_response({"error": {"message": str(e), "type": "invalid_request_error", "code": "context_length_exceeded"}}, 400)
     except ServerOverloadedError as e:
-      # The batched server's queue (or page pool) is full: a retryable 429.
-      return json_response({"error": {"message": str(e), "type": "overloaded"}}, 429)
+      # A full queue or page pool, a rate limit or a deadline shed: a
+      # retryable 429, with Retry-After where the refusal has a backoff hint.
+      return overloaded_response(e)
     except Exception as e:  # noqa: BLE001 — the API boundary reports every failure as a 500
       if DEBUG >= 1:
         import traceback

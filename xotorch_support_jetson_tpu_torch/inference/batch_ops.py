@@ -1,7 +1,7 @@
 """Device operations of the continuous-batching scheduler, behind one small
 interface (counterpart of the reference's ``inference/batch_ops.py``
-``DecoderBatchOps``; the pp/sp mesh backends, speculation, mixed ticks,
-LoRA and page copies are not ported yet).
+``DecoderBatchOps``; the pp/sp mesh backends, speculation, LoRA and page
+copies are not ported yet).
 
 The scheduler hands host operands as numpy arrays. They reach the card as
 non-blocking copies out of pinned host memory, so a dispatch never waits
@@ -97,4 +97,22 @@ class DecoderBatchOps:
       eng.params, eng.cfg, eng._effective_shard, self._dev(token), pool, self._dev(block_tables), self._dev(positions),
       self._dev(active), self._dev(temps), n_steps, top_k=self._dev(top_ks), k_max=k_max, page_size=page_size,
       generator=self._generator(key),
+    )
+
+  def mixed_tick_supported(self) -> bool:
+    """The mixed prefill+decode program runs on this backend (every model
+    the port loads is a dense decoder)."""
+    return True
+
+  def mixed_paged_batch_decode(self, token, pool, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, key, pf_tokens, pf_bt, pf_prefix, pf_end):
+    """``paged_batch_decode`` with one admission's prefill slice fused in
+    (``pf_tokens`` [1, pad], ``pf_bt`` [1, mp], ``pf_prefix``/``pf_end`` [1]),
+    its host operands on the same non-blocking pinned path."""
+    from ..models.decoder import fused_mixed_paged_batch_decode
+
+    eng = self.engine
+    return fused_mixed_paged_batch_decode(
+      eng.params, eng.cfg, eng._effective_shard, self._dev(token), pool, self._dev(block_tables), self._dev(positions),
+      self._dev(active), self._dev(temps), self._dev(pf_tokens), self._dev(pf_bt), self._dev(pf_prefix), self._dev(pf_end), n_steps,
+      top_k=self._dev(top_ks), k_max=k_max, page_size=page_size, generator=self._generator(key),
     )

@@ -2,8 +2,8 @@
 fixed set of batch rows ("slots"), each holding one in-flight request.
 
 Counterpart of the reference's ``inference/batch_scheduler.py`` as it
-behaves with ``XOT_TPU_QOS=0 XOT_TPU_KV_TIER=0 XOT_TPU_SPEC_BATCH=0
-XOT_TPU_MIXED_TICK=0`` and the paged layout:
+behaves with ``XOT_TPU_KV_TIER=0 XOT_TPU_SPEC_BATCH=0`` and the paged
+layout:
 
 - one page pool ``[L, P, Hkv, ps, kd]`` (ops/paged.py) with per-row block
   tables; page-aligned prompt prefixes are shared between requests through
@@ -26,14 +26,33 @@ XOT_TPU_MIXED_TICK=0`` and the paged layout:
   extra chunk never overflows a block table. Membership changes happen
   only at dispatch boundaries, and the pipeline drains whenever a waiting
   request could admit. Greedy streams are identical to the synchronous
-  loop's.
+  loop's;
+- admission runs through the QoS layer (inference/qos.py, ``XOT_TPU_QOS``,
+  default on): priority classes with aging, weighted-fair tenants,
+  per-tenant rate limits, deadline shedding, and an overload policy that
+  sheds or preempts ``batch`` work before rejecting ``interactive``
+  requests. A preempted row re-enqueues and resumes token-identically (its
+  prompt absorbs the tokens generated so far and its KV is recomputed);
+  ``XOT_TPU_QOS=0`` is the plain FIFO queue;
+- while decode rows are resident, a chunked prefill advances by a
+  token-budgeted slice fused into the decode dispatch
+  (``fused_mixed_paged_batch_decode``: K1 for the slice, K3 for the decode
+  half) instead of stalling every resident row for a whole prefill chunk
+  (``XOT_TPU_MIXED_TICK``, default on). The budget follows the interactive
+  class's ITL burn rate (inference/paging.py ``select_mixed_budget``;
+  ``XOT_TPU_MIXED_BUDGET`` pins it); the final, sampling slice dispatches
+  through the ordinary admission path. ``XOT_TPU_MIXED_TICK=0`` restores
+  the strictly alternating schedule;
+- every latency it sees goes to utils/metrics.py (TTFT, inter-token
+  latency, queue wait, chunk times) and, per QoS class, to the SLO engine
+  (orchestration/slo.py, ``XOT_TPU_SLO``).
 
 All device work runs on the engine's single executor thread. Random draws
 for sampling come from one generator per dispatch, seeded on the event-loop
 thread by ``engine.split_key()``.
 
-QoS, the KV tier, batched speculation, mixed ticks, LoRA, disaggregation,
-drain and the dense batched layout are not ported yet; asking for one
+The KV tier, batched speculation, LoRA, disaggregation, drain and the dense
+batched layout are not ported yet; asking for one
 explicitly raises ``NotImplementedError`` when the server is built, as does
 a CUDA engine whose head dim K3 has no variant for (unless
 ``XOT_TPU_PAGED_KERNEL=0`` asks for the gather path).
@@ -49,20 +68,30 @@ from __future__ import annotations
 
 import asyncio
 import os
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..ops.paged import check_paged_kernel
+from ..ops.paged import check_paged_kernel, paged_kernel_supported
+from ..orchestration import slo
 from ..utils.helpers import DEBUG, env_flag
+from ..utils.metrics import metrics
 from .batch_ops import to_host_async
 from .engine import PromptTooLongError, ServerOverloadedError
-from .paging import PageAllocator, kv_cache_bytes, pages_to_cover
+from .paging import PageAllocator, kv_cache_bytes, mixed_tick_enabled, pages_to_cover, select_mixed_budget
+from .qos import DeadlineUnmeetableError
 from .sched_admission import AdmissionControl, _Request
 
 __all__ = ["BatchedServer", "_Request", "check_unported_knobs"]
 
 PREFILL_BUCKET = 128
+# Smallest pad of a mixed slice's prefill. K1 takes two or more query rows
+# (one is a decode step), so a slice of 1 to 15 tokens (the last one before
+# the final cap) pads to 16 where the window has room: every slice
+# prefills through K1, at the shapes the card checks (16 to 2048). The pad
+# rows are junk that ``touched_page_targets`` keeps out of the pool.
+MIXED_MIN_PAD = 16
 
 
 def _round_up(n: int, multiple: int) -> int:
@@ -77,9 +106,8 @@ def check_unported_knobs() -> None:
     asked.append("XOT_TPU_PAGED=%s (the dense batched layout)" % os.getenv("XOT_TPU_PAGED"))
   if os.getenv("XOT_TPU_SPEC_BATCH", "auto").strip().lower() not in ("auto", "", "0", "false", "no", "off"):
     asked.append("XOT_TPU_SPEC_BATCH (batched speculation)")
-  for knob, what in (("XOT_TPU_KV_TIER", "the host KV tier"), ("XOT_TPU_MIXED_TICK", "mixed prefill+decode ticks"), ("XOT_TPU_QOS", "QoS admission")):
-    if env_flag(knob):
-      asked.append(f"{knob} ({what})")
+  if env_flag("XOT_TPU_KV_TIER"):
+    asked.append("XOT_TPU_KV_TIER (the host KV tier)")
   if asked:
     raise NotImplementedError(f"the PyTorch port's batched server does not have {', '.join(asked)} yet; unset these knobs or set them to 0")
 
@@ -88,7 +116,7 @@ def check_unported_knobs() -> None:
 class _Ready:
   """A host-prepared admission awaiting its batched prefill dispatch (or,
   mid-chunked-prefill, its NEXT chunk dispatch — ``prefix_len`` advances to
-  the end of each completed chunk)."""
+  the end of each completed chunk or mixed slice)."""
 
   req: _Request
   row: int
@@ -115,6 +143,7 @@ class _Slot:
   shared_pages: list = field(default_factory=list)
   pages: list = field(default_factory=list)
   chain_keys: list = field(default_factory=list)
+  t_first: float = 0.0  # perf_counter at the first emitted token (goodput's realized ITL)
 
 
 @dataclass
@@ -128,6 +157,7 @@ class _Plan:
   starved: set  # rows resident but skipped this chunk (page-starved)
   positions: np.ndarray  # [B] int32 dispatch positions
   deadlocked: bool = False  # every resident row starved, nothing finishing
+  mixed: tuple | None = None  # (ready, start, end): a prefill slice fused into this dispatch
 
 
 @dataclass
@@ -143,12 +173,20 @@ class _Chunk:
   active: np.ndarray  # [B] bool — rows that stepped in this chunk
   starved: frozenset
   chained: bool  # dispatched on top of an in-flight chunk
+  t_dispatch: float = 0.0
+  # The admission whose prefill slice rode this dispatch: its prefix_len
+  # advances to mixed_end at the settle, never before, so a cancel or a
+  # teardown while the chunk flies releases pages against the confirmed
+  # prefix, and the slice's pages stay allocated until then.
+  mixed_ready: object = None  # _Ready | None
+  mixed_start: int = 0
+  mixed_end: int = 0
 
 
 class BatchedServer:
   """Owns the slot pool and the decode loop for one engine."""
 
-  def __init__(self, engine, n_slots: int | None = None, chunk: int | None = None, top_k: int | None = None, max_queue: int | None = None, lookahead: bool | None = None):
+  def __init__(self, engine, n_slots: int | None = None, chunk: int | None = None, top_k: int | None = None, max_queue: int | None = None, lookahead: bool | None = None, qos=None):
     check_unported_knobs()
     if engine.cfg is not None:
       check_paged_kernel(engine.cfg, engine.device)
@@ -158,15 +196,25 @@ class BatchedServer:
     self.chunk = chunk or int(os.getenv("XOT_TPU_BATCH_CHUNK", "8"))
     # Per-request top_k is honoured per row; ``k_max`` caps the candidates.
     self.k_max = top_k or int(os.getenv("XOT_TPU_BATCH_TOP_K_MAX", "64"))
-    self.admission = AdmissionControl(max_queue=max_queue if max_queue is not None else int(os.getenv("XOT_TPU_BATCH_MAX_QUEUE", "64")))
+    # ``qos``: None resolves from XOT_TPU_QOS (default on), False is the
+    # FIFO queue, True or a QosPolicy instance turns it on.
+    self.admission = AdmissionControl(
+      n_slots=self.n_slots, max_queue=max_queue if max_queue is not None else int(os.getenv("XOT_TPU_BATCH_MAX_QUEUE", "64")), qos=qos,
+    )
     self.page_size = int(os.getenv("XOT_TPU_PAGE_SIZE", "64"))
     # Chunked prefill: a prompt longer than this many tokens prefills in
-    # chunks with decode chunks between them. 0 disables.
+    # chunks with decode chunks between them (or, under mixed ticks, in
+    # budgeted slices fused into them). 0 disables.
     self.prefill_chunk = int(os.getenv("XOT_TPU_PREFILL_CHUNK", "2048"))
+    self.mixed = mixed_tick_enabled()
+    # Boundary-pass counter: groups one _admit_pending pass's admissions into
+    # one observation of the deadline estimator's measured drain.
+    self._admit_pass = 0
     self._prefilling: list[_Ready] = []  # admissions mid-chunked-prefill (rows reserved)
     self.allocator: PageAllocator | None = None
     self.block_tables: np.ndarray | None = None
     self.cache = None
+    self.decode_path = "kernel"  # decode_chunks_total's path label, resolved with the pool
     self.pages_per_row = 0
     self.max_seq = 0
     self.prefix_hit_pages = 0  # prompt pages served from the prefix cache
@@ -187,8 +235,15 @@ class BatchedServer:
     # Page availability as of the last admission pass: the lookahead drain
     # gate retries parked requests only when this grows.
     self._parked_avail_seen: int = -1
+    # When the last chunk's tokens reached the host (None until the first
+    # settle / after idle): decode_chunk_seconds and sched_host_gap_seconds.
+    self._t_last_ready: float | None = None
 
   # --------------------------------------------- admission-layer views
+
+  @property
+  def qos(self):
+    return self.admission.qos
 
   @property
   def queue(self):
@@ -212,20 +267,78 @@ class BatchedServer:
 
   # ------------------------------------------------------------- public API
 
-  async def submit(self, request_id: str, tokens: np.ndarray, *, max_tokens: int, temp: float, top_k: int, eos_ids, emit) -> list:
+  async def submit(self, request_id: str, tokens: np.ndarray, *, max_tokens: int, temp: float, top_k: int, eos_ids, emit, priority: str = "standard", tenant: str = "default", deadline_ms: float | None = None) -> list:
     """Enqueue a request; resolves with its tokens when it finishes. Tokens
     stream out via ``emit(request_id, new_tokens, finished)`` as chunks
-    complete. Raises ``ServerOverloadedError`` when the queue is full."""
+    complete. ``priority`` / ``tenant`` / ``deadline_ms`` feed the QoS layer
+    (ignored with QoS off). Raises ``ServerOverloadedError`` (or a QoS
+    subclass carrying ``retry_after_ms``) when the request is refused."""
     tokens = np.asarray(tokens, dtype=np.int32).reshape(-1)
-    self.admission.admit()
+    ticket = self.admission.admit(request_id, int(tokens.shape[0]), int(max_tokens), priority, tenant, deadline_ms)
     req = _Request(
       request_id=request_id, tokens=tokens, max_tokens=int(max_tokens), temp=float(temp), top_k=int(top_k),
       eos_ids=tuple(int(e) for e in eos_ids), emit=emit, future=asyncio.get_running_loop().create_future(),
+      t_submit=time.perf_counter(), qos=ticket,
     )
     await self.admission.enqueue(req)
+    self._update_gauges()
     if self._loop_task is None or self._loop_task.done():
       self._loop_task = asyncio.create_task(self._run())
     return await req.future
+
+  def _preempt_victim_for(self, req) -> int | None:
+    """Row of the resident slot a waiting ``req`` may preempt: the
+    lowest-priority resident strictly below the waiter's class, ties broken
+    by most generated. None when preemption is off or nothing outranked is
+    resident."""
+    if self.qos is None or not self.qos.cfg.preempt or req is None:
+      return None
+    ticket = getattr(req, "qos", None)
+    if ticket is None:
+      return None
+    best = None
+    for i, s in enumerate(self.slots):
+      if s is None or s.finished or s.cancelled:
+        continue
+      if s.pos + 1 >= self.max_seq:
+        # At the context window: it finishes imminently (freeing the slot
+        # anyway), and its resume prompt could not re-admit.
+        continue
+      st = s.req.qos
+      srank = st.rank if st is not None else 1
+      if srank <= ticket.rank:
+        continue
+      key = (srank, s.generated)
+      if best is None or key > best[0]:
+        best = (key, i)
+    return best[1] if best is not None else None
+
+  def _extract_row(self, row: int) -> _Request:
+    """Pull a resident row out of the pool for a carry_tokens resume: its
+    pages release now, its prompt absorbs the tokens generated so far, and
+    ``carry_tokens`` carries the emitted span (the resume recomputes the KV:
+    there is no host KV tier). Runs only at a dispatch boundary with the
+    pipeline drained, so no in-flight chunk references the row."""
+    s = self.slots[row]
+    req = s.req
+    self._release_pages(s)
+    self.slots[row] = None
+    self._clear_row(row)
+    new_toks = s.out_tokens[len(req.carry_tokens):]
+    if new_toks:
+      req.tokens = np.concatenate([req.tokens, np.asarray(new_toks, np.int32)])
+    req.carry_tokens = list(s.out_tokens)
+    req.max_tokens -= s.generated
+    req.t_submit = 0.0  # queue wait and TTFT were observed at the first admission
+    return req
+
+  def _preempt_resume(self, row: int) -> None:
+    """Preempt a resident row for higher-priority work and re-enqueue it at
+    the front of its lane (not a failure): the resumed prefill continues the
+    stream token-identically (greedy: the same logits from the recomputed
+    cache)."""
+    metrics.inc("qos_preemptions_total")
+    self.admission.requeue_resumed(self._extract_row(row))
 
   def cancel(self, request_id: str) -> None:
     """Stop a request (client gone): a resident row frees at the next chunk
@@ -285,10 +398,31 @@ class BatchedServer:
     self.allocator = PageAllocator(n_pages, ps)
     self.block_tables = np.zeros((self.n_slots, self.pages_per_row), dtype=np.int32)
     self.cache = self.ops.init_pool(n_pages, ps)
+    self.decode_path = "kernel" if paged_kernel_supported(eng.cfg) else "gather"
+    metrics.set_gauge("page_pool_pages_total", n_pages - 1)  # page 0 is the trash page
+    metrics.set_gauge("kv_quant_bits", {"": 16, "int8": 8, "int4": 4}[kv_quant])
+    self._update_gauges()
+
+  def _update_gauges(self) -> None:
+    """Scheduler health gauges, refreshed at every loop boundary."""
+    metrics.set_gauge("scheduler_batch_occupancy", sum(1 for s in self.slots if s is not None))
+    metrics.set_gauge("scheduler_queue_depth", self.admission.waiting())
+    metrics.set_gauge("scheduler_parked", len(self._parked))
+    metrics.set_gauge("scheduler_prefilling", len(self._prefilling))
+    metrics.set_gauge("scheduler_slots_total", self.n_slots)
+    if self.allocator is not None:
+      total = max(self.allocator.n_pages - 1, 1)
+      metrics.set_gauge("page_pool_pages_free", self.allocator.n_free)
+      metrics.set_gauge("page_pool_pages_cached", self.allocator.n_available - self.allocator.n_free)
+      metrics.set_gauge("page_pool_utilization", round(1.0 - self.allocator.n_available / total, 6))
+    if self.qos is not None:
+      for cls, depth in self.queue.class_depths().items():
+        metrics.set_gauge("qos_queue_depth", depth, labels={"class": cls})
 
   def _page_window(self, end_pos: int) -> int:
     """Block-table width for a prefill covering ``[0, end_pos)``: pages
-    needed, rounded up to a power of two and clamped to the row maximum."""
+    needed, rounded up to a power of two and clamped to the row maximum.
+    The one bucketing the admission dispatch and the mixed slice share."""
     need = pages_to_cover(end_pos, self.page_size)
     mp_used = 1
     while mp_used < need:
@@ -308,10 +442,11 @@ class BatchedServer:
 
     Returns ``("ready", _Ready)`` when the request awaits the batched
     prefill; ``("done", None)`` when it settled here (its future resolved:
-    cancelled while queued, or failed validation); ``("park", None)`` when
-    pages are scarce while other requests hold them (``req.page_demand``
-    set; re-registered in ``_queued`` so a cancel still finds it).
-    ``reserve`` pages are kept back for earlier parked requests."""
+    cancelled while queued, deadline expired, or failed validation);
+    ``("park", None)`` when pages are scarce while other requests hold them
+    (``req.page_demand`` set; re-registered in ``_queued`` so a cancel
+    still finds it). ``reserve`` pages are kept back for earlier parked
+    requests."""
     self._queued.pop(req.request_id, None)
     shared_pages: list = []
     new_pages: list | None = None
@@ -321,8 +456,26 @@ class BatchedServer:
         if not req.future.done():
           req.future.set_result([])
         return "done", None
+      if self.qos is not None and req.qos is not None and not req.carry_tokens and self.qos.deadline_expired(req.qos):
+        # The deadline lapsed while the request waited: shed it instead of
+        # spending a prefill on a response its client has given up on. A
+        # resumed request (carry tokens) is mid-stream and exempt.
+        self.qos.refund(req.qos.tenant, int(req.tokens.shape[0]))  # never ran
+        metrics.inc("qos_shed_total", labels={"reason": "deadline"})
+        slo.note_bad(req.qos.priority, "shed")
+        raise DeadlineUnmeetableError(
+          f"deadline {req.qos.deadline_ms:.0f} ms expired while queued",
+          retry_after_ms=self.qos.retry_after_ms(self.admission.waiting(), self.n_slots),
+        )
       S = int(req.tokens.shape[0])
       if S + 1 >= self.max_seq:
+        if req.carry_tokens:
+          # A resumed row whose absorbed stream reached the context window
+          # finishes with what it already streamed (a "length" finish).
+          req.emit(req.request_id, [], True)
+          if not req.future.done():
+            req.future.set_result(list(req.carry_tokens))
+          return "done", None
         raise PromptTooLongError(f"prompt of {S} tokens exceeds the {self.max_seq}-token context window")
       ps = self.page_size
       chain_keys = self.allocator.chain_keys(req.tokens, ps)
@@ -341,9 +494,15 @@ class BatchedServer:
           # chunk boundary, keeping arrival order.
           req.page_demand = need
           self._queued[req.request_id] = req
+          if not req.t_parked:
+            req.t_parked = time.perf_counter()
+          metrics.inc("scheduler_parked_total")
           return "park", None
         raise ServerOverloadedError(f"prompt of {S} tokens cannot fit the page pool even when idle")
       self.prefix_hit_pages += len(shared_pages)
+      if shared_pages:
+        metrics.inc("prefix_cache_hit_pages_total", len(shared_pages))
+      self._note_admitted(req)
       return "ready", _Ready(req=req, row=row, pad_to=0, prefix_len=prefix_len, shared_pages=shared_pages, new_pages=list(new_pages), chain_keys=chain_keys)
     except Exception as e:  # noqa: BLE001 — a failed request never blocks the pool
       for p in shared_pages:
@@ -352,8 +511,21 @@ class BatchedServer:
         self.allocator.free(new_pages)
       if not req.future.done():
         req.future.set_exception(e)
+      if not isinstance(e, DeadlineUnmeetableError):
+        metrics.inc("scheduler_admission_failures_total")  # deadline sheds are counted in qos_shed_total
       self._cancelled_ids.discard(req.request_id)
       return "done", None
+
+  def _note_admitted(self, req: _Request) -> None:
+    metrics.inc("scheduler_admissions_total")
+    if self.qos is not None:
+      # The deadline estimator's measured admission cadence: only gaps taken
+      # while work was still waiting count; the pass id groups this
+      # boundary's batch into one observation.
+      self.qos.note_admission(waiting=self.admission.waiting(), pass_id=self._admit_pass)
+    if req.t_submit:
+      metrics.observe_hist("queue_wait_seconds", time.perf_counter() - req.t_submit)
+    req.t_parked = 0.0
 
   async def _admit_pending(self, woken: _Request | None = None) -> None:
     """Collect every admissible request — chunked-prefill continuations,
@@ -361,7 +533,11 @@ class BatchedServer:
     prefill them in one batched dispatch. ``woken`` is a request the idle
     wait already popped from the queue. Every still-unmet parked demand
     accumulates into ``reserve``: younger requests may only admit out of
-    the surplus beyond it."""
+    the surplus beyond it. Under QoS, a waiting request that outranks a
+    resident row preempts it (one victim per boundary); under mixed ticks,
+    admissions whose remaining prompt exceeds one final slice stage into
+    ``_prefilling`` for the decode dispatches to slice."""
+    self._admit_pass += 1
     ready: list[_Ready] = []
     taken: set[int] = set()
     reserve = 0
@@ -395,6 +571,13 @@ class BatchedServer:
       if r is not None:
         ready.append(r)
         taken.add(row)
+    if self.qos is not None and not self.queue.empty() and self._free_slot(taken) is None:
+      # Overload policy: a waiting request that outranks a resident row
+      # preempts it (the row re-enqueues and resumes token-identically)
+      # instead of queueing behind it.
+      victim = self._preempt_victim_for(self.queue.peek())
+      if victim is not None:
+        self._preempt_resume(victim)
     while (row := self._free_slot(taken)) is not None and not self.queue.empty():
       req = self.queue.get_nowait()
       status, r = self._prepare(req, row, reserve=reserve, others_active=bool(ready))
@@ -405,6 +588,17 @@ class BatchedServer:
         ready.append(r)
         taken.add(row)
     self._parked_avail_seen = self.allocator.n_available
+    if ready and self._mixed_active() and any(s is not None for s in self.slots):
+      # The budget sees the pass's full depth, or the first deferral would
+      # be sized for a backlog of one.
+      budget = self._mixed_budget(backlog=max(len(ready), 1))
+      still: list[_Ready] = []
+      for r in ready:
+        if self._mixed_defer(r, budget):
+          self._prefilling.append(r)
+        else:
+          still.append(r)
+      ready = still
     if ready:
       await self._dispatch(ready)
 
@@ -500,6 +694,7 @@ class BatchedServer:
       firsts, self.cache = self.ops.prefill_into_pages_many_sampled(tok, self.cache, bts, prefix_lens, prompt_lens, self.page_size, temps, top_ks, self.k_max, key)
       return firsts.cpu().numpy()
 
+    t_dispatch = time.perf_counter()
     try:
       firsts = await asyncio.get_running_loop().run_in_executor(eng.executor, run)
     except Exception as e:  # noqa: BLE001
@@ -510,8 +705,12 @@ class BatchedServer:
         self._cancelled_ids.discard(r.req.request_id)
       return
     finally:
+      # The device idles from here until the next dispatch (failure path too).
+      self._t_last_ready = time.perf_counter()
       for r in group:
         self._admitting.discard(r.req.request_id)
+    metrics.observe_hist("prefill_chunk_seconds", self._t_last_ready - t_dispatch)
+    metrics.inc("prefill_chunks_total")
     for i, r in enumerate(group):
       if r.chunk_end:  # intermediate chunk: advance and re-queue; no sample
         r.prefix_len = r.chunk_end
@@ -525,14 +724,27 @@ class BatchedServer:
       req=req, pos=int(req.tokens.shape[0]), generated=1, last_token=first,
       shared_pages=r.shared_pages, pages=list(r.new_pages), chain_keys=r.chain_keys,
     )
+    if req.carry_tokens:
+      # Resumed after a preemption: the finish paths report carry + new
+      # (``generated``/``max_tokens`` already net out the carried span).
+      slot.out_tokens.extend(req.carry_tokens)
     slot.out_tokens.append(first)
+    slot.t_first = time.perf_counter()
+    if req.t_submit:
+      ttft = slot.t_first - req.t_submit
+      metrics.observe_hist("ttft_seconds", ttft)
+      req.slo_ttft_s = ttft
+      slo.observe_ttft(self._slo_class(req), ttft)
     cancelled = req.request_id in self._cancelled_ids  # raced during prefill
     finished = cancelled or first in req.eos_ids or slot.generated >= req.max_tokens
     slot.finished = finished
     req.emit(req.request_id, [] if cancelled else [first], finished)
+    if not cancelled:
+      slo.note_tokens(self._slo_class(req), self._slo_tenant(req), 1)
     if finished:
       self._cancelled_ids.discard(req.request_id)
       self._release_pages(slot)
+      self._slo_note_complete(slot)
       if not req.future.done():
         req.future.set_result(slot.out_tokens)
       return
@@ -547,6 +759,32 @@ class BatchedServer:
     self.block_tables[r.row, :] = 0
     n = len(slot.shared_pages) + len(slot.pages)
     self.block_tables[r.row, :n] = slot.shared_pages + slot.pages
+
+  # ------------------------------------------------------------------- SLO
+
+  @staticmethod
+  def _slo_class(req: _Request) -> str:
+    return req.qos.priority if req.qos is not None else "standard"
+
+  @staticmethod
+  def _slo_tenant(req: _Request) -> str:
+    return req.qos.tenant if req.qos is not None else "default"
+
+  def _slo_note_complete(self, slot: _Slot) -> None:
+    """Goodput at the completion points: a finished request's tokens count
+    as goodput only when both its realized latencies met the class
+    objectives. The realized ITL is over this incarnation's tokens only
+    (a resumed request's t_first is the resumed incarnation's)."""
+    if not slo.slo_enabled():
+      return
+    req = slot.req
+    n = len(slot.out_tokens)
+    n_new = n - len(req.carry_tokens)
+    itl_s = None
+    if slot.t_first and n_new > 1:
+      itl_s = max(time.perf_counter() - slot.t_first, 0.0) / (n_new - 1)
+    if slo.within_slo(self._slo_class(req), req.slo_ttft_s, itl_s):
+      slo.note_good_tokens(self._slo_class(req), self._slo_tenant(req), n)
 
   # ----------------------------------------------------------- page lifecycle
 
@@ -564,6 +802,8 @@ class BatchedServer:
         continue
       to_free.append(p)
     self.allocator.free(to_free)
+    if slot.shared_pages or slot.pages:
+      metrics.inc("page_release_events_total")
     slot.shared_pages, slot.pages = [], []
 
   def _clear_row(self, row: int) -> None:
@@ -588,6 +828,8 @@ class BatchedServer:
     got = self.allocator.alloc(needed - have)
     if got is None:
       return False
+    metrics.inc("page_grow_events_total")
+    metrics.inc("page_grow_pages_total", len(got))
     self.block_tables[row, have : have + len(got)] = got
     slot.pages.extend(got)
     return True
@@ -602,6 +844,104 @@ class BatchedServer:
     if avail > self._parked_avail_seen:
       return True
     self._parked_avail_seen = avail
+    return False
+
+  # ----------------------------------------------------------- mixed ticks
+
+  def _mixed_active(self) -> bool:
+    """Mixed prefill+decode ticks apply: knob on, chunking on, and a backend
+    with the fused mixed program."""
+    return self.mixed and self.prefill_chunk > 0 and self.ops.mixed_tick_supported()
+
+  def _itl_burn(self) -> float | None:
+    """Interactive-class fast-window ITL burn — the budget policy's input.
+    The SLO tick's gauge when it has run; before the first tick, the live
+    ``qos_itl_seconds{class=interactive}`` median against the class
+    objective. None = no ITL signal at all."""
+    if not slo.slo_enabled():
+      return None
+    fast = int(min(slo.slo_windows_s()))
+    b = metrics.gauge_value("slo_burn_rate", labels={"class": "interactive", "window": f"{fast}s"})
+    if b is not None:
+      return float(b)
+    itl = metrics.quantile("qos_itl_seconds", 0.5, labels={"class": "interactive"})
+    if itl is None:
+      return None
+    return (itl * 1e3) / max(slo.objectives("interactive")["itl_p99_ms"], 1e-9)
+
+  def _mixed_budget(self, backlog: int | None = None) -> int:
+    residents = sum(1 for s in self.slots if s is not None)
+    budget = select_mixed_budget(self.prefill_chunk, self._itl_burn(), residents, backlog=backlog if backlog is not None else max(len(self._prefilling), 1))
+    metrics.set_gauge("mixed_budget_tokens", budget)
+    return budget
+
+  @staticmethod
+  def _mixed_final_cap(budget: int) -> int:
+    """Largest remaining suffix the final (sampling) dispatch may cover: it
+    runs alone at a boundary, a pure prefill stall, so one pad bucket — or
+    the budget, when that is smaller."""
+    return min(budget, PREFILL_BUCKET)
+
+  def _mixed_defer(self, r: _Ready, budget: int) -> bool:
+    """Should this admission's next prefill advance ride mixed ticks? Yes
+    while decode rows are resident and the remaining suffix exceeds the
+    final cap."""
+    if not self._mixed_active() or r.req.request_id in self._cancelled_ids:
+      return False
+    if not any(s is not None for s in self.slots):
+      return False  # nothing to mix with: the alternating dispatch stalls no one
+    return int(r.req.tokens.shape[0]) - r.prefix_len > self._mixed_final_cap(budget)
+
+  def _mixed_intent(self, inflight: _Chunk | None, budget: int | None = None) -> tuple | None:
+    """(ready, start, end) of the slice the next decode dispatch fuses in,
+    or None for a plain tick. One admission per tick (the head of
+    ``_prefilling``, arrival order); a chained dispatch continues from the
+    in-flight slice's end. ``budget`` is the loop iteration's one verdict."""
+    if not self._mixed_active() or not self._prefilling:
+      return None
+    if not any(s is not None for s in self.slots):
+      return None
+    r = self._prefilling[0]
+    if r.req.request_id in self._cancelled_ids:
+      return None  # force a boundary: the admission sweep settles the cancel
+    start = r.prefix_len
+    if inflight is not None and inflight.mixed_ready is r:
+      start = inflight.mixed_end  # the in-flight slice has not settled yet
+    if budget is None:
+      budget = self._mixed_budget()
+    final_cap = self._mixed_final_cap(budget)
+    remaining = int(r.req.tokens.shape[0]) - start
+    if remaining <= final_cap:
+      return None  # final slice: the boundary dispatch prefills and samples it
+    # The last slice shrinks so the sampling dispatch stays one bucket wide.
+    slice_len = min(budget, remaining - final_cap)
+    # A power-of-two pad inside the window (prefix + pad <= max_seq): near
+    # the window end the slice shrinks rather than the pad clamping.
+    pad = 1
+    while pad < slice_len:
+      pad *= 2
+    while pad > self.max_seq - start and pad > 1:
+      pad //= 2
+    slice_len = max(min(slice_len, pad), 1)
+    return (r, start, start + slice_len)
+
+  def _prefill_boundary_needed(self, budget: int | None = None) -> bool:
+    """Does a mid-flight chunked prefill need a synchronous boundary (settle
+    and an admission dispatch)? Always under the alternating schedule; under
+    mixed ticks only when an entry is final-slice-ready, cancelled, or no
+    decode row is resident to mix with."""
+    if not self._prefilling:
+      return False
+    if not self._mixed_active() or not any(s is not None for s in self.slots):
+      return True
+    if budget is None:
+      budget = self._mixed_budget()
+    final_cap = self._mixed_final_cap(budget)
+    for r in self._prefilling:
+      if r.req.request_id in self._cancelled_ids:
+        return True
+      if int(r.req.tokens.shape[0]) - r.prefix_len <= final_cap:
+        return True
     return False
 
   # ----------------------------------------------------------------- decode
@@ -643,6 +983,7 @@ class BatchedServer:
     about to free pages): fail the youngest so the others make progress."""
     victim = min(plan.starved, key=lambda i: self.slots[i].generated)
     s = self.slots[victim]
+    metrics.inc("scheduler_preemptions_total")
     self._release_pages(s)
     self.slots[victim] = None
     self._clear_row(victim)
@@ -650,33 +991,66 @@ class BatchedServer:
       s.req.future.set_exception(ServerOverloadedError("page pool exhausted with no runnable rows"))
 
   async def _dispatch_decode(self, plan: _Plan, inflight: _Chunk | None) -> _Chunk:
-    """Enqueue one decode chunk and return its in-flight record without
-    waiting for the device: the executor call only queues the chunk and
-    the copy of its tokens into pinned host memory."""
+    """Enqueue one decode chunk (with the plan's prefill slice fused in, if
+    any) and return its in-flight record without waiting for the device:
+    the executor call only queues the work and the copy of its tokens into
+    pinned host memory."""
     eng = self.engine
     # Chained dispatch: the input token is the in-flight chunk's
     # device-resident next token; a synchronous one uses the host arrays.
     tokens = inflight.next_tok if inflight is not None else self._h_tokens
+    mixed_r, m_start, m_end = plan.mixed if plan.mixed is not None else (None, 0, 0)
+    if mixed_r is not None:
+      # The slice pads to a power of two of at least MIXED_MIN_PAD inside
+      # the window (the planner kept the slice's own power of two there),
+      # and its page window buckets like an admission dispatch's.
+      s_slice = m_end - m_start
+      pad = MIXED_MIN_PAD
+      while pad < s_slice:
+        pad *= 2
+      while pad > self.max_seq - m_start and pad // 2 >= s_slice:
+        pad //= 2
+      pf_tokens = np.zeros((1, pad), dtype=np.int32)
+      pf_tokens[0, :s_slice] = mixed_r.req.tokens[m_start:m_end]
+      mp_used = self._page_window(m_start + pad)
+      pf_bt = np.zeros((1, mp_used), dtype=np.int32)
+      row_pages = (mixed_r.shared_pages + mixed_r.new_pages)[:mp_used]
+      pf_bt[0, : len(row_pages)] = row_pages
+      pf_bounds = (np.asarray([m_start], dtype=np.int32), np.asarray([m_end], dtype=np.int32))
     key = eng.split_key()
+    now = time.perf_counter()
+    if self._t_last_ready is not None:
+      # The device-idle window this dispatch waited for host work (0 when
+      # chained: the chunk queues behind its predecessor).
+      metrics.observe_hist("sched_host_gap_seconds", 0.0 if inflight is not None else now - self._t_last_ready)
 
     def run():
-      toks, next_tok, _pos, self.cache = self.ops.paged_batch_decode(
-        tokens, self.cache, self.block_tables, plan.positions, plan.active, self._h_temps, self._h_top_ks,
-        self.chunk, k_max=self.k_max, page_size=self.page_size, key=key,
-      )
+      args = (tokens, self.cache, self.block_tables, plan.positions, plan.active, self._h_temps, self._h_top_ks, self.chunk)
+      kw = dict(k_max=self.k_max, page_size=self.page_size, key=key)
+      if mixed_r is not None:
+        toks, next_tok, _pos, self.cache = self.ops.mixed_paged_batch_decode(*args, **kw, pf_tokens=pf_tokens, pf_bt=pf_bt, pf_prefix=pf_bounds[0], pf_end=pf_bounds[1])
+      else:
+        toks, next_tok, _pos, self.cache = self.ops.paged_batch_decode(*args, **kw)
       host, ready = to_host_async(toks)
       return host, ready, next_tok
 
+    if plan.starved:
+      metrics.inc("scheduler_page_starved_total", len(plan.starved))
+    t_dispatch = time.perf_counter()
     host, ready, next_tok = await asyncio.get_running_loop().run_in_executor(eng.executor, run)
-    return _Chunk(toks=host, ready=ready, next_tok=next_tok, rows=plan.rows, active=plan.active, starved=frozenset(plan.starved), chained=inflight is not None)
+    return _Chunk(
+      toks=host, ready=ready, next_tok=next_tok, rows=plan.rows, active=plan.active, starved=frozenset(plan.starved),
+      chained=inflight is not None, t_dispatch=t_dispatch, mixed_ready=mixed_r, mixed_start=m_start, mixed_end=m_end,
+    )
 
   async def _settle(self, record: _Chunk) -> None:
-    """Read one chunk's tokens and run the host bookkeeping: emit,
-    EOS/max_tokens/cancel finishes, page release. Under lookahead this runs
-    while the next chunk computes. Rows that finished at an earlier settle
-    (while this chunk was in flight) are dropped on read: their tokens
-    here are overrun and never emitted, and their pages can only be
-    re-granted to dispatches that run after this chunk on the one stream."""
+    """Read one chunk's tokens and run the host bookkeeping: the fused
+    slice's prefix advance, emit, EOS/max_tokens/cancel finishes, page
+    release, metrics. Under lookahead this runs while the next chunk
+    computes. Rows that finished at an earlier settle (while this chunk was
+    in flight) are dropped on read: their tokens here are overrun and never
+    emitted, and their pages can only be re-granted to dispatches that run
+    after this chunk on the one stream."""
 
     def fetch():
       if record.ready is not None:
@@ -684,6 +1058,26 @@ class BatchedServer:
       return record.toks.numpy()
 
     rows_host = await asyncio.get_running_loop().run_in_executor(self.engine.executor, fetch)
+    t_ready = time.perf_counter()
+    # While the pipeline is full the device runs chunks back to back, so a
+    # chunk's device time is ready-to-ready; the first chunk after a
+    # boundary times dispatch-to-ready.
+    base = self._t_last_ready if (record.chained and self._t_last_ready is not None) else record.t_dispatch
+    chunk_dt = max(t_ready - base, 1e-9)
+    self._t_last_ready = t_ready
+    if record.mixed_ready is not None:
+      # The fused slice is confirmed: advance the admission's prefix
+      # (max-guarded: a settle never rewinds past a later chained slice).
+      # A fused dispatch has its own latency family, so it skews neither the
+      # prefill nor the decode histogram.
+      r = record.mixed_ready
+      r.prefix_len = max(r.prefix_len, record.mixed_end)
+      metrics.observe_hist("mixed_tick_seconds", chunk_dt)
+      metrics.inc("sched_tick_prefill_tokens_total", record.mixed_end - record.mixed_start)
+    if record.active.any():
+      if record.mixed_ready is None:
+        metrics.observe_hist("decode_chunk_seconds", chunk_dt)
+      metrics.inc("decode_chunks_total", labels={"path": self.decode_path})
     for i, slot in record.rows:
       if slot.finished or self.slots[i] is not slot:
         continue  # drop-on-read: overrun tokens of a row settled earlier
@@ -694,6 +1088,7 @@ class BatchedServer:
         slot.finished = True
         self._cancelled_ids.discard(req.request_id)
         self._release_pages(slot)
+        self._slo_note_complete(slot)
         req.emit(req.request_id, [], True)
         if not req.future.done():
           req.future.set_result(slot.out_tokens)
@@ -715,42 +1110,62 @@ class BatchedServer:
       self._h_positions[i] = slot.pos
       self._h_generated[i] = slot.generated
       self._h_tokens[i, 0] = slot.last_token
+      if emit:
+        metrics.inc("decode_tokens_total", len(emit), labels={"path": self.decode_path})
+        # The chunk's wall-clock over its tokens: one weighted observation.
+        metrics.observe_hist("itl_seconds", chunk_dt / len(emit), n=len(emit))
+        slo.observe_itl(self._slo_class(req), chunk_dt / len(emit), n=len(emit))
+        slo.note_tokens(self._slo_class(req), self._slo_tenant(req), len(emit))
       req.emit(req.request_id, emit, done)
       if done:
         slot.finished = True
         self._cancelled_ids.discard(req.request_id)
         self._release_pages(slot)
+        self._slo_note_complete(slot)
         if not req.future.done():
           req.future.set_result(slot.out_tokens)
         self.slots[i] = None
         self._clear_row(i)
+    self._update_gauges()
 
   async def _run(self) -> None:
     self._ensure_cache()
     inflight: _Chunk | None = None
     try:
       while True:
+        # One mixed-budget verdict per loop iteration: the boundary gate,
+        # the tick planner and the admission sweep agree within a tick.
+        mixed_budget = self._mixed_budget() if (self._prefilling and self._mixed_active()) else None
         if inflight is not None:
-          # Drain the pipeline whenever a waiting request could admit, a
-          # chunked prefill needs its next chunk, or lookahead is off. A
-          # backlog with no free slot cannot admit, so the pipeline keeps
-          # chaining at saturation.
+          # Drain the pipeline whenever a waiting request could admit (or,
+          # under QoS, preempt a resident row it outranks), a chunked
+          # prefill needs a boundary, or lookahead is off. A backlog with no
+          # free slot and nothing to preempt cannot admit, so the pipeline
+          # keeps chaining at saturation.
           admissible = self._free_slot() is not None and (not self.queue.empty() or self._parked_admissible())
-          if not self.lookahead or self._prefilling or admissible:
+          if not admissible and self.qos is not None and self._free_slot() is None and not self.queue.empty() and self._preempt_victim_for(self.queue.peek()) is not None:
+            admissible = True
+          if not self.lookahead or self._prefill_boundary_needed(mixed_budget) or admissible:
             await self._settle(inflight)
             inflight = None
             continue
         else:
           await self._admit_pending()
+          self._update_gauges()
           if all(s is None for s in self.slots):
             if self._prefilling or self._parked:
               # A chunked prefill is mid-flight, or parked requests can now
               # retry with every slot free (each pass resolves at least one).
               continue
+            self._t_last_ready = None  # idle by design is not a host gap
             req = await self.queue.get()  # idle: block on the queue
             await self._admit_pending(woken=req)
             continue
+        if mixed_budget is None and self._prefilling and self._mixed_active():
+          mixed_budget = self._mixed_budget()  # the admission pass just staged a prefill
+        mixed = self._mixed_intent(inflight, mixed_budget)
         plan = self._plan_chunk(inflight)
+        plan.mixed = mixed
         if inflight is not None and (not plan.rows or not plan.active.any()):
           # Nothing would step: settle instead of spending a dead chunk.
           await self._settle(inflight)
@@ -780,6 +1195,7 @@ class BatchedServer:
       self.slots[i] = None
       if self.block_tables is not None:
         self._clear_row(i)
+    self._t_last_ready = None
     while self._prefilling:
       r = self._prefilling.pop()
       if not r.req.future.done():

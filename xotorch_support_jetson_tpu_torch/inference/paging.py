@@ -2,7 +2,8 @@
 its content-keyed prefix cache, and the block math the scheduler sizes the
 pool with. Own copy of the part of the reference's ``inference/paging.py``
 the batched serving slice uses (``PageAllocator``, ``pages_to_cover``,
-``kv_cache_bytes``). The reference's decode-path and page-tile tables are
+``kv_cache_bytes``, and the mixed-tick budget policy
+``select_mixed_budget``). The reference's decode-path and page-tile tables are
 TPU measurements and are not carried over: on a CUDA tensor the port's
 paged decode always takes its kernel (ops/paged.py).
 """
@@ -10,6 +11,7 @@ paged decode always takes its kernel (ops/paged.py).
 from __future__ import annotations
 
 import hashlib
+import os
 from collections import OrderedDict
 
 import numpy as np
@@ -53,6 +55,11 @@ class PageAllocator:
     self._lru: OrderedDict[int, None] = OrderedDict()  # refcount-0 cached pages
 
   # ------------------------------------------------------------- allocation
+
+  @property
+  def n_free(self) -> int:
+    """Pages on the free list (never-cached or evicted)."""
+    return len(self._free)
 
   @property
   def n_available(self) -> int:
@@ -145,3 +152,57 @@ class PageAllocator:
     assert len(self._by_key) == len(self._key_of), "key<->page maps diverged"
     assert 0 not in free | cached, "trash page 0 escaped into the pool"
     return {"free": len(free), "cached": len(cached), "lru": len(lru), "referenced": len(reffed)}
+
+
+# Mixed prefill+decode ticks (inference/batch_scheduler.py): a chunked
+# prefill advances by a token-budgeted slice fused into the batched decode
+# dispatch (models/decoder.py ``fused_mixed_paged_batch_decode``), so
+# resident decode rows never stall for a whole prefill chunk. Every slice
+# token delays every resident row's next token, while smaller slices stretch
+# the prefilling request's TTFT over more ticks, so the budget follows the
+# interactive class's fast-window ITL burn rate (orchestration/slo.py).
+# Rows are (min_burn, fraction-of-cap); the first row whose bound covers the
+# burn wins. ``burn=None`` (no ITL signal) with resident rows takes the
+# half-cap hedge; with no residents the slice is the whole
+# ``XOT_TPU_PREFILL_CHUNK``.
+_MIXED_BUDGET_TABLE = (
+  (4.0, 1 / 16),  # ITL budget burning >= 4x: minimum forward progress only
+  (2.0, 1 / 8),
+  (1.0, 1 / 4),  # burning at exactly budget: quarter-chunk slices
+  (0.0, 1 / 2),  # healthy (or unmeasured) with residents: half-chunk hedge
+)
+
+
+def mixed_tick_enabled() -> bool:
+  """``XOT_TPU_MIXED_TICK`` (default on): fuse chunked prefill into the
+  batched decode dispatch. ``0`` restores the strictly alternating
+  prefill-tick / decode-tick schedule."""
+  return os.getenv("XOT_TPU_MIXED_TICK", "1") not in ("0", "false")
+
+
+def select_mixed_budget(cap: int, burn: float | None, residents: int = 1, backlog: int = 1, floor: int = 16) -> int:
+  """Prefill-token budget for one mixed tick. ``cap`` is
+  ``XOT_TPU_PREFILL_CHUNK`` (the ceiling, and the idle verdict); ``burn``
+  the interactive fast-window ITL burn rate (None = no signal);
+  ``residents`` how many decode rows the slice delays; ``backlog`` how many
+  admissions are mid-prefill. While ITL is not burning (burn < 1) a deeper
+  backlog grows the slice toward the cap: smaller slices never reduce the
+  total stall the backlog imposes, they only smooth it, while the queued
+  prompts' TTFT grows with the tick count. ``XOT_TPU_MIXED_BUDGET``
+  (tokens) pins the verdict, clamped to [1, cap]."""
+  cap = max(int(cap), 1)
+  forced = int(os.getenv("XOT_TPU_MIXED_BUDGET", "0") or 0)
+  if forced > 0:
+    return max(min(forced, cap), 1)
+  if residents <= 0:
+    return cap  # idle: nothing to protect, prefill at full chunk
+  frac = _MIXED_BUDGET_TABLE[-1][1]
+  if burn is not None:
+    for bound, f in _MIXED_BUDGET_TABLE:
+      if burn >= bound:
+        frac = f
+        break
+  budget = int(cap * frac)
+  if (burn is None or burn < 1.0) and backlog > 1:
+    budget = min(budget * int(backlog), cap)
+  return max(min(budget, cap), min(floor, cap))

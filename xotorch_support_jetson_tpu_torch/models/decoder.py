@@ -514,3 +514,66 @@ def fused_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token, pool
     params, cfg, shard, token.to(torch.int32), pool, block_tables.to(torch.int32).contiguous(), positions.to(torch.int32), active.to(torch.bool),
     temps.to(torch.float32), top_ks, int(n_steps), int(k_max), int(page_size), bool(use_kernel), generator,
   )
+
+
+# --------------------------------------------------- mixed prefill+decode tick
+# (inference/batch_scheduler.py, XOT_TPU_MIXED_TICK): one call per tick
+# advances every resident row by its decode chunk AND pushes one admission's
+# prefill forward by a token-budgeted slice, so resident rows never idle for
+# a whole prefill chunk. Correct by page disjointness: the prefilling row's
+# private pages are in no decode row's block table (pages stay private until
+# donated at release), and shared prefix pages are read-only for both
+# halves, so the decode half reads exactly what the plain program would.
+
+
+def _fused_mixed_paged_batch_decode_impl(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, temps, top_ks, pf_tokens, pf_bt, pf_prefix, pf_end, n_steps: int, k_max: int, page_size: int, use_kernel: bool, generator):
+  from ..ops.paged import gather_row_pages, scatter_row_pages, touched_page_targets
+
+  # Prefill half: prefill_into_pages_many's gather → shard_forward (K1 on
+  # the card, q_offset = pf_prefix) → scatter, with no sampling: an
+  # intermediate slice emits no token (the final slice samples through the
+  # ordinary admission dispatch). Pad rows past pf_end write junk into the
+  # gathered window only; touched_page_targets keeps it out of pages below
+  # the slice and past its end, and the next slice overwrites the rest of
+  # the last page before anything reads it.
+  S = pf_tokens.shape[1]
+  temp = {key: gather_row_pages(val, pf_bt) for key, val in pool.items()}
+  ppos = pf_prefix[:, None] + torch.arange(S, dtype=torch.int32, device=pf_tokens.device)[None, :]
+  _, temp = shard_forward(params, cfg, shard, pf_tokens, ppos, temp, head_pos=(pf_end - pf_prefix - 1).long())
+  target = touched_page_targets(pf_bt, pf_prefix, pf_end, page_size)
+  for key in pool:
+    scatter_row_pages(pool[key], temp[key], target)
+  # Decode half: the plain chunk's loop, unchanged (K3 on the card).
+  return _paged_decode_scan(params, cfg, shard, token, pool, block_tables, positions, active, temps, top_ks, n_steps, k_max, page_size, use_kernel, generator)
+
+
+def fused_mixed_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, temps, pf_tokens, pf_bt, pf_prefix, pf_end, n_steps: int, top_k=35, k_max: int = 64, page_size: int = 64, use_kernel: bool | None = None, generator=None):
+  """``fused_paged_batch_decode`` with one admission's prefill slice fused in.
+
+  Decode operands as in ``fused_paged_batch_decode``; the slice is
+  ``pf_tokens`` [1, S_pad] (the prompt's tokens from ``pf_prefix`` on,
+  zero-padded), ``pf_bt`` [1, mp] (the admission's block-table row; the
+  caller has allocated pages covering ``pf_end``) and [1] int32
+  ``pf_prefix``/``pf_end`` bounding the slice's absolute positions
+  (``pf_prefix + S_pad <= mp·page_size``). Returns the plain contract
+  (tokens [B, n_steps], next_token [B, 1], positions [B], pool updated in
+  place): the slice emits nothing, its pages advance. A partial shard and
+  any parameter set but the dense decoder's are refused (an MLA
+  checkpoint is refused earlier, at load: models/config.py).
+  ``use_kernel=None`` resolves as in ``fused_paged_batch_decode``."""
+  from ..ops.paged import check_paged_kernel, paged_kernel_supported
+
+  _dense_full_model(params, shard, "fused_mixed_paged_batch_decode")
+  dev = token.device
+  if use_kernel is None:
+    check_paged_kernel(cfg, dev)
+    use_kernel = paged_kernel_supported(cfg)
+  if generator is None:
+    generator = torch.Generator(device=dev).manual_seed(0)
+  B = token.shape[0]
+  top_ks = torch.full((B,), top_k, dtype=torch.int32, device=dev) if isinstance(top_k, int) else top_k.to(device=dev, dtype=torch.int32).expand(B)
+  return _fused_mixed_paged_batch_decode_impl(
+    params, cfg, shard, token.to(torch.int32), pool, block_tables.to(torch.int32).contiguous(), positions.to(torch.int32), active.to(torch.bool),
+    temps.to(torch.float32), top_ks, pf_tokens.to(torch.int32), pf_bt.to(torch.int32), pf_prefix.to(torch.int32), pf_end.to(torch.int32),
+    int(n_steps), int(k_max), int(page_size), bool(use_kernel), generator,
+  )

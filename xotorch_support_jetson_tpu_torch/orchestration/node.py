@@ -5,13 +5,17 @@ owns the whole model. Solo: ``process_prompt`` → engine prefill → first
 token sampled here → ``_fast_decode_loop`` (one device loop for a blocking
 request, pipelined chunks for a streaming one) → ``_finish_request`` →
 ``engine.end_request``. With ``XOT_TPU_BATCHED=1`` every prompt goes to
-the engine's continuous-batching server instead (``_batched_serve``).
-Tokens reach listeners (the API) through ``on_token``. There is no ring,
-gRPC, discovery, QoS or SLO layer in the port yet.
+the engine's continuous-batching server instead (``_batched_serve``), with
+the request's QoS identity (priority, tenant, deadline) from the API.
+Tokens reach listeners (the API) through ``on_token``. While the node runs,
+a background task keeps the SLO engine's windows fresh
+(orchestration/slo.py) off the event loop. There is no ring, gRPC or
+discovery in the port yet.
 """
 
 from __future__ import annotations
 
+import asyncio
 import os
 import uuid
 from typing import Callable
@@ -20,6 +24,9 @@ import numpy as np
 
 from ..inference.shard import Shard
 from ..inference.state import InferenceState
+from .slo import slo_enabled, slo_engine
+
+SLO_POLL_S = 1.0  # how often the node offers the SLO engine a tick (it self-gates to XOT_TPU_SLO_TICK_S)
 
 
 class _Channel:
@@ -60,21 +67,39 @@ class Node:
     self.cancelled_requests: set[str] = set()
     self.outstanding_requests: dict[str, str] = {}
     self.on_token = CallbackRegistry()
+    self._slo_task: asyncio.Task | None = None
 
   async def start(self) -> None:
-    """Nothing to start: a solo node has no peers or discovery."""
+    """Start the SLO tick task (a solo node has no peers or discovery)."""
+    if slo_enabled() and self._slo_task is None:
+      self._slo_task = asyncio.create_task(self._slo_ticks())
 
   async def stop(self) -> None:
-    """Nothing to stop (see ``start``)."""
+    """Stop the SLO tick task."""
+    if self._slo_task is not None:
+      self._slo_task.cancel()
+      self._slo_task = None
+
+  async def _slo_ticks(self) -> None:
+    """Offer the SLO engine a tick every ``SLO_POLL_S``. A tick snapshots
+    the whole metrics registry and computes every window, so it runs on a
+    worker thread: neither the event loop nor the engine's device executor
+    waits for it."""
+    loop = asyncio.get_running_loop()
+    while True:
+      await asyncio.sleep(SLO_POLL_S)
+      await loop.run_in_executor(None, slo_engine.maybe_tick)
 
   # --------------------------------------------------------------- serving
 
-  def set_request_options(self, request_id: str, *, stream: bool | None = None, max_tokens: int | None = None, temperature: float | None = None, top_k: int | None = None) -> None:
+  def set_request_options(self, request_id: str, *, stream: bool | None = None, max_tokens: int | None = None, temperature: float | None = None, top_k: int | None = None, priority: str | None = None, tenant: str | None = None, deadline_ms: float | None = None) -> None:
     """Per-request serving hints set by the API before ``process_prompt``:
     ``stream=False`` lets the decode loop generate the whole response in one
-    device loop; the rest override the node defaults for this request."""
+    device loop; ``priority``/``tenant``/``deadline_ms`` are the request's
+    QoS identity for the batched server; the rest override the node
+    defaults for this request."""
     opts = self.request_options.setdefault(request_id, {})
-    for k, v in (("stream", stream), ("max_tokens", max_tokens), ("temperature", temperature), ("top_k", top_k)):
+    for k, v in (("stream", stream), ("max_tokens", max_tokens), ("temperature", temperature), ("top_k", top_k), ("priority", priority), ("tenant", tenant), ("deadline_ms", deadline_ms)):
       if v is not None:
         opts[k] = v
 
@@ -206,7 +231,11 @@ class Node:
         self.buffered_token_output[rid] = (buffered, finished)
         self.trigger_on_token_callbacks(rid, list(new_tokens), finished)
 
-      await engine.get_batched_server().submit(request_id, tokens, max_tokens=max_tokens, temp=temp, top_k=top_k, eos_ids=eos_ids, emit=emit)
+      opts = self.request_options.get(request_id, {})
+      await engine.get_batched_server().submit(
+        request_id, tokens, max_tokens=max_tokens, temp=temp, top_k=top_k, eos_ids=eos_ids, emit=emit,
+        priority=opts.get("priority", "standard"), tenant=opts.get("tenant", "default"), deadline_ms=opts.get("deadline_ms"),
+      )
     finally:
       self._finish_request(request_id)
 

@@ -1,0 +1,410 @@
+"""Local SLO engine: per-class objectives, multi-window burn rates, and
+goodput accounting. Own copy of the reference's ``orchestration/slo.py``
+without its cluster scope (no ring yet) and without the anomaly watchers.
+
+**Objectives** are env-configurable per QoS class (defaults below):
+``XOT_TPU_SLO_<CLASS>_TTFT_P95_MS`` / ``_ITL_P99_MS`` / ``_AVAILABILITY``.
+Each defines an error budget: TTFT p95 500 ms means "at most 5 % of
+requests may exceed 500 ms"; availability 0.999 means "at most 0.1 % of
+requests may end badly (shed / rate-limited / rejected / errored)".
+
+**Burn rates** over rolling windows (``XOT_TPU_SLO_WINDOWS_S``, default
+``300,3600``): ``burn = observed_bad_fraction(window) / error_budget``. The
+engine snapshots the metrics registry every tick (``XOT_TPU_SLO_TICK_S``,
+default 10 s) into a bounded ring and subtracts snapshots with
+``utils/metrics.py snapshot_delta``. Latency violations come from the
+per-class ``qos_ttft_seconds{class}`` / ``qos_itl_seconds{class}``
+histograms the batched server records next to its unlabelled ones (a
+threshold counts observations above the largest bucket edge <= threshold);
+availability from ``slo_requests_good_total{class}`` (counted once per
+finished request by the API) and ``slo_requests_bad_total{class,reason}``
+(counted where a request is refused).
+
+**Goodput**: ``slo_tokens_total{class,tenant}`` counts every delivered
+token; ``slo_good_tokens_total`` adds a finished request's tokens only when
+it met both latency objectives.
+
+Exported every tick: ``slo_burn_rate{class,window}`` (worst objective; the
+mixed-tick budget reads the interactive fast window), ``slo_attainment
+{class}``, ``goodput_tok_s{class}``. ``GET /v1/slo`` serves the report.
+``XOT_TPU_SLO=0`` disables all of it.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from collections import deque
+
+from ..utils.helpers import env_float
+from ..utils.metrics import DEFAULT_BUCKETS, metrics, snapshot_delta
+
+QOS_CLASSES = ("interactive", "standard", "batch")
+
+# Ladder for the per-class qos_ttft/itl histograms: DEFAULT_BUCKETS plus
+# edges at every DEFAULT OBJECTIVE (1.5/2/15 s TTFT, 0.1/0.25/1 s ITL are
+# edges here). hist_over_threshold rounds a threshold DOWN to a bucket
+# edge, so an objective sitting mid-bucket (2 s against a 1.0→2.5 ladder)
+# would judge comfortably-healthy 1.5 s requests as violations — burn 20x
+# on a healthy fleet. Custom env objectives should likewise sit on an edge.
+SLO_LATENCY_BUCKETS = (
+  0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 1.5, 2.0,
+  2.5, 5.0, 10.0, 15.0, 30.0, 60.0,
+)
+
+DEFAULT_OBJECTIVES: dict[str, dict[str, float]] = {
+  "interactive": {"ttft_p95_ms": 500.0, "itl_p99_ms": 100.0, "availability": 0.999},
+  "standard": {"ttft_p95_ms": 2000.0, "itl_p99_ms": 250.0, "availability": 0.995},
+  "batch": {"ttft_p95_ms": 15000.0, "itl_p99_ms": 1000.0, "availability": 0.99},
+}
+
+# Targets implied by the objective names: 95% of requests under the TTFT
+# threshold, 99% under the ITL threshold. The budgets are the complements.
+TTFT_BUDGET = 0.05
+ITL_BUDGET = 0.01
+
+BAD_REASONS = ("shed", "rejected", "rate_limited", "stalled", "error")
+
+
+def slo_enabled() -> bool:
+  return os.getenv("XOT_TPU_SLO", "1") not in ("0", "false")
+
+
+def objectives(cls: str) -> dict[str, float]:
+  """Effective objectives for ``cls`` (unknown classes get ``standard``'s),
+  env-overridable per class and per objective."""
+  base = DEFAULT_OBJECTIVES.get(cls, DEFAULT_OBJECTIVES["standard"])
+  prefix = f"XOT_TPU_SLO_{cls.upper()}_"
+  out = {
+    "ttft_p95_ms": env_float(prefix + "TTFT_P95_MS", base["ttft_p95_ms"]),
+    "itl_p99_ms": env_float(prefix + "ITL_P99_MS", base["itl_p99_ms"]),
+    "availability": env_float(prefix + "AVAILABILITY", base["availability"]),
+  }
+  out["availability"] = min(max(out["availability"], 0.0), 0.999999)
+  return out
+
+
+def slo_windows_s() -> tuple[float, ...]:
+  spec = os.getenv("XOT_TPU_SLO_WINDOWS_S", "") or "300,3600"
+  out = []
+  for tok in spec.split(","):
+    tok = tok.strip()
+    if not tok:
+      continue
+    try:
+      v = float(tok)
+    except ValueError:
+      continue
+    if v > 0:
+      out.append(v)
+  return tuple(sorted(out)) or (300.0, 3600.0)
+
+
+# ------------------------------------------------------- accounting hooks
+# Called from the scheduler/API choke points; every caller gates on
+# slo_enabled() (or these return immediately), so XOT_TPU_SLO=0 creates no
+# series at all.
+
+
+def observe_ttft(cls: str, seconds: float) -> None:
+  if slo_enabled():
+    metrics.observe_hist("qos_ttft_seconds", seconds, buckets=SLO_LATENCY_BUCKETS, labels={"class": cls})
+
+
+def observe_itl(cls: str, seconds: float, n: int = 1) -> None:
+  if slo_enabled():
+    metrics.observe_hist("qos_itl_seconds", seconds, buckets=SLO_LATENCY_BUCKETS, n=n, labels={"class": cls})
+
+
+def note_good(cls: str) -> None:
+  if slo_enabled():
+    metrics.inc("slo_requests_good_total", labels={"class": cls})
+
+
+def note_bad(cls: str, reason: str) -> None:
+  if slo_enabled():
+    metrics.inc("slo_requests_bad_total", labels={"class": cls, "reason": reason})
+
+
+def note_tokens(cls: str, tenant: str, n: int) -> None:
+  if n > 0 and slo_enabled():
+    metrics.inc("slo_tokens_total", n, labels={"class": cls, "tenant": tenant})
+
+
+def note_good_tokens(cls: str, tenant: str, n: int) -> None:
+  if n > 0 and slo_enabled():
+    metrics.inc("slo_good_tokens_total", n, labels={"class": cls, "tenant": tenant})
+
+
+def within_slo(cls: str, ttft_s: float | None, itl_s: float | None) -> bool:
+  """Did a completed request meet both latency objectives? Unknown values
+  (a resumed incarnation without a fresh TTFT, a one-token response without
+  an ITL) count as met — the goodput number must not punish paths that
+  simply have nothing to measure."""
+  obj = objectives(cls)
+  if ttft_s is not None and ttft_s * 1e3 > obj["ttft_p95_ms"]:
+    return False
+  if itl_s is not None and itl_s * 1e3 > obj["itl_p99_ms"]:
+    return False
+  return True
+
+
+# ------------------------------------------------------------- delta helpers
+
+
+def counter_family(delta: dict, name: str, where: dict | None = None) -> float:
+  """Sum of a counter family's (delta-)values across the unlabeled entry and
+  every labeled series whose labels contain the ``where`` pairs."""
+  want = {(str(k), str(v)) for k, v in (where or {}).items()}
+  total = 0.0
+  if not want:
+    total += float((delta.get("counters") or {}).get(name, 0.0))
+  for key, value in (delta.get("labeled_counters") or {}).get(name, []):
+    if want and not want <= {tuple(kv) for kv in key}:
+      continue
+    total += float(value)
+  return total
+
+
+def hist_family(delta: dict, name: str, where: dict | None = None) -> dict | None:
+  """Bucket-wise sum of a histogram family's (delta-)series matching the
+  ``where`` label subset; None when no series matches. Mixed ladders fold
+  the foreign series' counts into +Inf (sum/count stay exact)."""
+  want = {(str(k), str(v)) for k, v in (where or {}).items()}
+  agg: dict | None = None
+
+  def fold(h: dict) -> None:
+    nonlocal agg
+    counts = [int(c) for c in h.get("counts", [])]
+    if agg is None:
+      agg = {"buckets": list(h.get("buckets", DEFAULT_BUCKETS)), "counts": list(counts), "sum": float(h.get("sum", 0.0))}
+      return
+    if list(h.get("buckets", [])) == agg["buckets"] and len(counts) == len(agg["counts"]):
+      for i, c in enumerate(counts):
+        agg["counts"][i] += c
+    else:
+      agg["counts"][-1] += sum(counts)
+    agg["sum"] += float(h.get("sum", 0.0))
+
+  if not want and name in (delta.get("histograms") or {}):
+    fold(delta["histograms"][name])
+  for key, h in (delta.get("labeled_histograms") or {}).get(name, []):
+    if want and not want <= {tuple(kv) for kv in key}:
+      continue
+    fold(h)
+  return agg
+
+
+def hist_over_threshold(hist: dict, threshold_s: float) -> tuple[int, int]:
+  """(violations, total) for "observations above ``threshold_s``" from a
+  bucketed histogram dict. The threshold rounds DOWN to the largest bucket
+  edge <= threshold (bucket resolution can't split a bucket), which
+  over-counts violations — the conservative direction for alerting."""
+  buckets = [float(b) for b in hist.get("buckets", [])]
+  counts = [int(c) for c in hist.get("counts", [])]
+  total = sum(counts)
+  under = 0
+  for edge, n in zip(buckets, counts):
+    if edge <= threshold_s + 1e-12:
+      under += n
+    else:
+      break
+  return total - under, total
+
+
+# ---------------------------------------------------------------- the engine
+
+
+class SloEngine:
+  """Rolling-window burn-rate evaluator over registry snapshot deltas."""
+
+  def __init__(self, tick_s: float | None = None, windows_s: tuple[float, ...] | None = None) -> None:
+    self._lock = threading.Lock()
+    self._explicit_tick_s = tick_s
+    self._explicit_windows = windows_s
+    # (wall_time, snapshot) ring; capacity covers the longest window at the
+    # tick cadence plus slack for jitter.
+    self._ring: deque[tuple[float, dict]] = deque()
+    self._last_tick = 0.0
+
+  @property
+  def tick_s(self) -> float:
+    return self._explicit_tick_s if self._explicit_tick_s is not None else max(env_float("XOT_TPU_SLO_TICK_S", 10.0), 0.5)
+
+  @property
+  def windows(self) -> tuple[float, ...]:
+    return self._explicit_windows if self._explicit_windows is not None else slo_windows_s()
+
+  def reset(self) -> None:
+    with self._lock:
+      self._ring.clear()
+      self._last_tick = 0.0
+
+  def maybe_tick(self) -> bool:
+    """Tick if a tick interval elapsed since the last one. Cheap when not
+    due (one monotonic read under the lock); every consumer — the node's
+    periodic task and ``/v1/slo`` — calls this, so the ring stays fresh
+    without a dedicated timer."""
+    if not slo_enabled():
+      return False
+    now = time.monotonic()
+    with self._lock:
+      if now - self._last_tick < self.tick_s:
+        return False
+      self._last_tick = now
+    self.tick()
+    return True
+
+  def tick(self) -> None:
+    """Append a snapshot and refresh the exported gauges."""
+    if not slo_enabled():
+      return
+    now = time.time()
+    snap = metrics.snapshot()
+    with self._lock:
+      self._ring.append((now, snap))
+      horizon = max(self.windows) + 2 * self.tick_s
+      while len(self._ring) > 2 and self._ring[0][0] < now - horizon:
+        self._ring.popleft()
+      # Each entry is a FULL registry snapshot; only window-boundary bases
+      # are ever read back, so entries older than the fast window thin to a
+      # coarse cadence — at defaults (10 s tick, 300 s + 3600 s windows)
+      # this holds ~30 fine + ~55 coarse snapshots instead of ~360, with
+      # identical reports (a base moves by < the coarse spacing, well
+      # inside the tick-alignment slack the windows already carry).
+      fine_horizon = min(self.windows) + 2 * self.tick_s
+      coarse_s = max(self.tick_s * 6, 60.0)
+      thinned: list[tuple[float, dict]] = []
+      last_coarse_t: float | None = None
+      for t, s in self._ring:
+        if now - t < fine_horizon:
+          thinned.append((t, s))
+        elif last_coarse_t is None or t - last_coarse_t >= coarse_s:
+          thinned.append((t, s))
+          last_coarse_t = t
+      self._ring.clear()
+      self._ring.extend(thinned)
+    self._export_gauges(self._report_locked_free(now, snap))
+
+  def _window_base(self, now: float, window_s: float) -> tuple[float, dict] | None:
+    """The ring entry closest to ``now - window_s`` from within the window
+    (the newest entry at least ``window_s`` old, else the oldest available
+    — a young engine reports over the history it has)."""
+    with self._lock:
+      entries = list(self._ring)
+    if not entries:
+      return None
+    base = None
+    for t, snap in entries:
+      if now - t >= window_s:
+        base = (t, snap)
+      else:
+        break
+    return base or entries[0]
+
+  # ------------------------------------------------------------- reporting
+
+  def _window_stats(self, now: float, cur: dict, window_s: float) -> dict:
+    base = self._window_base(now, window_s)
+    if base is None or base[1] is cur:
+      delta: dict = {}
+      elapsed = 0.0
+    else:
+      delta = snapshot_delta(base[1], cur)
+      elapsed = max(now - base[0], 1e-9)
+    out: dict = {"elapsed_s": round(elapsed, 3), "classes": {}}
+    for cls in QOS_CLASSES:
+      obj = objectives(cls)
+      entry: dict = {}
+      ttft = hist_family(delta, "qos_ttft_seconds", {"class": cls}) if delta else None
+      bad, total = hist_over_threshold(ttft, obj["ttft_p95_ms"] / 1e3) if ttft else (0, 0)
+      entry["ttft"] = {"violations": bad, "total": total, "burn_rate": (bad / total / TTFT_BUDGET) if total else None}
+      itl = hist_family(delta, "qos_itl_seconds", {"class": cls}) if delta else None
+      bad, total = hist_over_threshold(itl, obj["itl_p99_ms"] / 1e3) if itl else (0, 0)
+      entry["itl"] = {"violations": bad, "total": total, "burn_rate": (bad / total / ITL_BUDGET) if total else None}
+      good = counter_family(delta, "slo_requests_good_total", {"class": cls}) if delta else 0.0
+      badc = counter_family(delta, "slo_requests_bad_total", {"class": cls}) if delta else 0.0
+      n = good + badc
+      budget = 1.0 - obj["availability"]
+      entry["availability"] = {
+        "good": int(good), "bad": int(badc),
+        "burn_rate": (badc / n / budget) if n else None,
+      }
+      tokens = counter_family(delta, "slo_tokens_total", {"class": cls}) if delta else 0.0
+      good_tokens = counter_family(delta, "slo_good_tokens_total", {"class": cls}) if delta else 0.0
+      entry["goodput"] = {
+        "tokens": int(tokens), "good_tokens": int(good_tokens),
+        "good_tok_s": round(good_tokens / elapsed, 3) if elapsed > 0 else None,
+      }
+      out["classes"][cls] = entry
+    return out
+
+  def _report_locked_free(self, now: float, cur: dict) -> dict:
+    windows = {str(int(w)): self._window_stats(now, cur, w) for w in self.windows}
+    classes: dict = {}
+    for cls in QOS_CLASSES:
+      obj = objectives(cls)
+      cls_windows = {wk: w["classes"][cls] for wk, w in windows.items()}
+      for wk, w in windows.items():
+        cls_windows[wk]["elapsed_s"] = w["elapsed_s"]
+      classes[cls] = {
+        "objectives": obj,
+        "windows": cls_windows,
+        # Lifetime goodput from the cumulative counters (the windows carry
+        # the rates; this is the "since boot" ledger).
+        "goodput_cum": {
+          "tokens": int(counter_family(cur, "slo_tokens_total", {"class": cls})),
+          "good_tokens": int(counter_family(cur, "slo_good_tokens_total", {"class": cls})),
+        },
+        "attainment": attainment(cls_windows, longest=str(int(max(self.windows)))),
+      }
+    return {
+      "scope": "local",
+      "enabled": True,
+      "tick_s": self.tick_s,
+      "windows_s": [int(w) for w in self.windows],
+      "classes": classes,
+    }
+
+  def report(self, node_id: str | None = None) -> dict:
+    """The local SLO report: every rate in it is carried with the raw
+    counts it is computed from."""
+    if not slo_enabled():
+      return {"scope": "local", "enabled": False}
+    rep = self._report_locked_free(time.time(), metrics.snapshot())
+    if node_id:
+      rep["node_id"] = node_id
+    return rep
+
+  def _export_gauges(self, report: dict) -> None:
+    fast = str(int(min(self.windows)))
+    for cls, entry in report["classes"].items():
+      for wk, w in entry["windows"].items():
+        burns = [w[o]["burn_rate"] for o in ("ttft", "itl", "availability") if w[o]["burn_rate"] is not None]
+        metrics.set_gauge("slo_burn_rate", round(max(burns), 4) if burns else 0.0, labels={"class": cls, "window": f"{wk}s"})
+      att = entry.get("attainment")
+      metrics.set_gauge("slo_attainment", round(att, 6) if att is not None else 1.0, labels={"class": cls})
+      tok_s = entry["windows"][fast]["goodput"]["good_tok_s"]
+      metrics.set_gauge("goodput_tok_s", tok_s if tok_s is not None else 0.0, labels={"class": cls})
+
+
+def attainment(cls_windows: dict, longest: str) -> float | None:
+  """Worst attained fraction across the three objectives over the longest
+  window: min(frac TTFT-ok, frac ITL-ok, availability). None when the
+  window saw no traffic at all."""
+  w = cls_windows.get(longest)
+  if w is None:
+    return None
+  fracs = []
+  for objective in ("ttft", "itl"):
+    total = w[objective]["total"]
+    if total:
+      fracs.append(1.0 - w[objective]["violations"] / total)
+  n = w["availability"]["good"] + w["availability"]["bad"]
+  if n:
+    fracs.append(w["availability"]["good"] / n)
+  return min(fracs) if fracs else None
+
+
+slo_engine = SloEngine()

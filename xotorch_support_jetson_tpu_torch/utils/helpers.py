@@ -1,4 +1,4 @@
-"""Cross-cutting helpers: debug level, boolean env knobs, node identity,
+"""Cross-cutting helpers: debug level, boolean and float env knobs, node identity,
 free-port probing, and the on-device placement rule of the port's entry
 points. Own copy of the subset of the reference's ``utils/helpers.py`` the
 serving slice uses."""
@@ -23,6 +23,15 @@ def env_flag(name: str, default: bool = False) -> bool:
   if val is None:
     return default
   return val.strip().lower() not in ("", "0", "false", "no", "off")
+
+
+def env_float(name: str, default: float) -> float:
+  """Float env var: unset, empty, or malformed → default (a typo'd knob
+  degrades to the shipped behaviour, never crashes a policy read)."""
+  try:
+    return float(os.getenv(name, "") or default)
+  except ValueError:
+    return default
 
 
 def find_available_port(host: str = "", min_port: int = 49152, max_port: int = 65535) -> int:
