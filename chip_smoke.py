@@ -78,7 +78,38 @@ Phases (any failure exits non-zero and prints no result):
    slice at offset 1024) must agree with the alternating equivalent
    within 5e-2 relative L2 and launch K1 and K3 once per layer;
    ``torch.profiler`` splits a decode chunk, and a mixed chunk, into host
-   and device time.
+   and device time. The batched server runs its host KV tier by default:
+   every pass logs its spilled and restored pages (the 513-page pools of
+   these passes never evict), fails on a spill or restore failure, and
+   the priority pass fails unless every preempted row's resume admits with
+   all the full pages of its absorbed stream (prompt and generated tokens)
+   as a prefix;
+7. tiered batched serving — run before the bf16 batched passes (the
+   priority pass leaves an interactive burn that would slice its long
+   prompts at the smallest budget), the batched daemon at the defaults
+   with XOT_TPU_BATCH_PAGES=257: per KV pool type, 32 pages of a seeded
+   pool at llama-3.2-1b's page geometry spill through the host tier
+   (``KvTierManager`` with the real ``read_pages``) and restore into 32
+   other pages (``write_pages``): every leaf ``torch.equal``, and a K3
+   step per layer on the restored pages bit-identical to the originals';
+   the spill's host enqueue, the device ms of the spill and of the restore
+   against a plain pinned copy of the same bytes, and the device ms of
+   prefilling the 2,048 tokens they hold (``[tiered] round trip`` lines).
+   Then, on the served path, a 1,536-token prompt's 24 pages are evicted
+   and restored at the next admission of it plus 64 tokens: the suffix
+   prefill's logits (K1) bit-identical to the run over never-evicted pages
+   (``[tiered] restore`` line). Then 16 conversations (turn 1: prompts of
+   1,024–1,504 tokens, greedy 32-token answers; turn 2, once all have
+   finished: the history plus a 64-token follow-up) with the tier on and
+   with XOT_TPU_KV_TIER=0, in turns on, off, off, on (``[tiered] pass=``
+   lines: turn-2 TTFT p50/p95,
+   prefix pages against the pages the token ids could match, pages
+   spilled and restored, host MiB, GET /v1/kv/tier read mid-pass); the
+   counters are zeroed just before the first tier-on pass and read just
+   after. A tier-on pass fails unless it spilled and restored with no failure,
+   launched K1 and K3, ended every request with all its tokens and the
+   endpoint answered with host pages; the share of turn-2 greedy tokens
+   the two passes agree on is reported, not gated.
 
 The last two lines are the card as ``nvidia-smi`` reports it and
 ``{"ok": true, "device": {...}}``; the line before them is the kernels' JSON
@@ -1198,6 +1229,8 @@ async def _serve_batched(torch, tmain, args, port, weights):
       bserver = engine.get_batched_server()
       slices: list[dict] = []
       unspy = _spy_mixed(engine, fa, paged, slices)
+      admissions: list[dict] = []
+      unspy_adm = _spy_admissions(bserver, admissions)
       hits0 = bserver.prefix_hit_pages
       snap0, burn0 = metrics.snapshot(), _interactive_burn(metrics, slo)
       priority = name == "bf16_priority"
@@ -1220,6 +1253,7 @@ async def _serve_batched(torch, tmain, args, port, weights):
       replies = await asyncio.gather(*first, *second)
       wall = time.perf_counter() - t0
       unspy()
+      unspy_adm()
       launches = {"flash_prefill": fa.LAUNCHES["flash_prefill"], "flash_decode": fa.LAUNCHES["flash_decode"], "paged_decode": paged.LAUNCHES["paged_decode"], "int4_matmul": k4.LAUNCHES["int4_matmul"]}  # ---- read just after
       two_dot = k4.CALLS["int4_two_dot"]
       delta, burn1 = snapshot_delta(snap0, metrics.snapshot()), _interactive_burn(metrics, slo)
@@ -1229,6 +1263,14 @@ async def _serve_batched(torch, tmain, args, port, weights):
       slo_on = env.get("XOT_TPU_SLO") != "0"
       budget_from = "XOT_TPU_SLO=0 (no burn signal)" if not slo_on else "slo_burn_rate gauge" if burn0 is not None else "fallback (interactive ITL median) until the first tick" if burn1 is not None else "fallback (interactive ITL median): no tick"
       hits = bserver.prefix_hit_pages - hits0
+      tiered = dict(
+        on=bserver.tier is not None, spilled_pages=delta["counters"].get("kv_tier_spilled_pages_total", 0.0), restored_pages=delta["counters"].get("kv_tier_restored_pages_total", 0.0),
+        failures=_tier_failures(metrics), host_pages=bserver.tier.host_pages if bserver.tier is not None else None,
+      )
+      # A preempted row's resume (carried tokens) must admit with every full
+      # page of its absorbed stream as a prefix: its prompt's and the ones
+      # its generated tokens filled (donated under extended chain keys).
+      resumes = [dict(rid=a["rid"], tokens=len(a["tokens"]), carried=a["carry"], prefix=a["prefix"], full=((len(a["tokens"]) - 1) // PAGE) * PAGE) for a in admissions if a["carry"]]
       reqs = []
       for (text, finish, ttft, total, n_events, rid), b in zip(replies, bodies):
         toks = ids.get(rid, [])
@@ -1243,7 +1285,7 @@ async def _serve_batched(torch, tmain, args, port, weights):
         launches=launches, int4_two_dot_calls=two_dot, prefix_hit_pages=hits, pool_pages=bserver.allocator.n_pages,
         mixed_dispatches=mixed, preemptions=preemptions, qos=bserver.qos is not None, mixed_ticks=bserver._mixed_active(), scheduler_ms=sched,
         budget_from=budget_from, interactive_burn=dict(start=burn0, end=burn1), endpoints=endpoints,
-        mixed_slices=slices, mixed_launches={"flash_prefill": sum(x["k1"] for x in slices), "paged_decode": sum(x["k3"] for x in slices)},
+        kv_tier=tiered, resumes=resumes, mixed_slices=slices, mixed_launches={"flash_prefill": sum(x["k1"] for x in slices), "paged_decode": sum(x["k3"] for x in slices)},
         ttft_p50_by_class={c: _pctl([r["ttft_s"] for r in reqs if r["priority"] == c], 0.5) for c in sorted({r["priority"] for r in reqs})},
         per_request=reqs,
       )
@@ -1264,15 +1306,17 @@ async def _serve_batched(torch, tmain, args, port, weights):
         raise SystemExit(f"chip_smoke: batched {name}: {mixed} mixed dispatches with XOT_TPU_MIXED_TICK=0")
       if priority and preemptions < 1:
         raise SystemExit(f"chip_smoke: batched {name}: no preemption (interactive requests arrived while {BATCH_SLOTS} batch rows streamed)")
+      if not tiered["on"] or any(tiered["failures"].values()) or len(resumes) != preemptions or any(r["prefix"] != r["full"] for r in resumes):
+        raise SystemExit(f"chip_smoke: batched {name}: host KV tier {tiered}; {preemptions} preemptions, resumes (prefix against the victim's full pages) {resumes}")
       if bserver.busy() or bserver.allocator.audit()["referenced"]:
         raise SystemExit(f"chip_smoke: batched {name}: the server did not drain: {bserver.allocator.audit()}")
       passes[name] = res
       pads = sorted({x["pad"] for x in slices})
-      log(f"[batched] weights={weights} pass={name} kv={res['kv']}{' ' + str(env) if env else ''}: {len(reqs)} streaming requests, {n_tok} tokens in {wall:.3f} s: aggregate {res['aggregate_tok_s']:.1f} tok/s | TTFT p50 {res['ttft_p50_s']:.4f} s p95 {res['ttft_p95_s']:.4f} s | per-request decode p50 {res['decode_tok_s_p50']:.2f} tok/s (min {res['decode_tok_s_min']:.2f}) | launches {launches} | mixed dispatches {mixed} (slice pads {pads}, offsets {min((x['offset'] for x in slices), default=None)}..{max((x['offset'] for x in slices), default=None)}; launches inside them {res['mixed_launches']}) | preemptions {preemptions} | mixed budget from {budget_from} (interactive burn {burn0} -> {burn1}) | scheduler ms (registry, mean over the pass): {', '.join(f'{h} {v['mean_ms']} x{v['count']}' for h, v in sched.items())} | shared prefix pages {hits} | pool {res['pool_pages']} pages")
+      log(f"[batched] weights={weights} pass={name} kv={res['kv']}{' ' + str(env) if env else ''}: {len(reqs)} streaming requests, {n_tok} tokens in {wall:.3f} s: aggregate {res['aggregate_tok_s']:.1f} tok/s | TTFT p50 {res['ttft_p50_s']:.4f} s p95 {res['ttft_p95_s']:.4f} s | per-request decode p50 {res['decode_tok_s_p50']:.2f} tok/s (min {res['decode_tok_s_min']:.2f}) | launches {launches} | mixed dispatches {mixed} (slice pads {pads}, offsets {min((x['offset'] for x in slices), default=None)}..{max((x['offset'] for x in slices), default=None)}; launches inside them {res['mixed_launches']}) | preemptions {preemptions} | mixed budget from {budget_from} (interactive burn {burn0} -> {burn1}) | scheduler ms (registry, mean over the pass): {', '.join(f'{h} {v['mean_ms']} x{v['count']}' for h, v in sched.items())} | shared prefix pages {hits} | pool {res['pool_pages']} pages | host KV tier: spilled {tiered['spilled_pages']:.0f} restored {tiered['restored_pages']:.0f} pages, failures {tiered['failures']}")
       if endpoints is not None:
         log(f"[batched] pass={name}: GET /metrics and /v1/slo mid-pass: {endpoints}")
       if priority:
-        log(f"[batched] pass={name}: TTFT p50 by class {res['ttft_p50_by_class']}")
+        log(f"[batched] pass={name}: TTFT p50 by class {res['ttft_p50_by_class']} | resumes (tokens, prefix at admission, the victim's full pages): {[(r['tokens'], r['prefix'], r['full']) for r in resumes]}")
     for knob in ("XOT_TPU_KV_QUANT", *PASS_KNOBS):
       os.environ.pop(knob, None)
     node.on_token.deregister("chip_smoke")
@@ -1475,6 +1519,381 @@ def profile_batched(torch, engine, steps=8):
   return out
 
 
+# ------------------------------------------------- 7. tiered batched serving
+
+TIER_PAGES = 32  # pages per round trip: 2,048 tokens at 64-token pages
+TIER_PROMPT, TIER_SUFFIX = 1536, 64  # the model-level restore: a 24-page prefix, then one page more
+TIER_POOL_PAGES = 257  # XOT_TPU_BATCH_PAGES of the multi-turn pass: 256 usable pages (16,384 tokens)
+TIER_CONVERSATIONS, TIER_ANSWER, TIER_FOLLOWUP = 16, 32, 64
+TIER_SPIN_CYCLES = 200_000_000  # ~0.1 s on the card: longer than any copy's host-side staging
+
+
+def _stream_ms(torch, fn, end_stream=None, reps=3):
+  """Median device ms from the compute stream reaching ``fn``'s work to
+  ``end_stream`` (default: the compute stream) finishing it, with CUDA
+  events. A spin kernel ahead of each rep lets the host stage and enqueue
+  everything before the card gets there, so host-side staging (a pinned
+  stack, index uploads) is not counted as device time."""
+  times = []
+  for _ in range(reps):
+    torch.cuda.synchronize()
+    torch.cuda._sleep(TIER_SPIN_CYCLES)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record(end_stream if end_stream is not None else torch.cuda.current_stream())
+    end.synchronize()
+    times.append(start.elapsed_time(end))
+  return sorted(times)[len(times) // 2]
+
+
+def _filled_pool(torch, cfg, n_layers, kv, n_pages, gen):
+  """A page pool at ``cfg``'s geometry filled from ``gen``: bf16 values, or
+  int8 / packed int4 codes with f32 scales."""
+  from xotorch_support_jetson_tpu_torch.ops.paged import init_paged_pool
+
+  pool = init_paged_pool(cfg, n_layers, n_pages, PAGE, dtype=torch.bfloat16, quant=KV_MODES[kv], device="cuda")
+  for name, leaf in pool.items():
+    if name.endswith("_scale"):
+      leaf.uniform_(0.005, 0.05, generator=gen)
+    elif leaf.dtype == torch.int8:
+      leaf.copy_(torch.randint(-128, 128, leaf.shape, generator=gen, device="cuda", dtype=torch.int8))
+    else:
+      leaf.normal_(generator=gen)
+  return pool
+
+
+def tier_round_trip(torch, ops, cfg, n_layers, kv, n=TIER_PAGES, seed=SEED + 3):
+  """The host KV tier's page round trip on the card: ``n`` pages of a
+  seeded pool spill through ``KvTierManager`` with the real
+  ``ops.read_pages`` and restore into ``n`` other pages with the real
+  ``ops.write_pages``. Checks every leaf ``torch.equal`` to the source
+  pages, the host entries pageable (only staging is pinned), and one K3
+  step per layer over block tables on the restored pages bit-identical to
+  the same step on the originals (four rows of n/4 pages). Times the
+  spill's host enqueue, the device ms of the spill (gather + D2H) and of the
+  restore (H2D + scatter), and a plain pinned copy of the same bytes each
+  way (the link's bound)."""
+  from xotorch_support_jetson_tpu_torch.inference.kv_tier import KvTierManager
+  from xotorch_support_jetson_tpu_torch.ops import paged
+
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  pool = _filled_pool(torch, cfg, n_layers, kv, 2 * n + 1, gen)
+  perm = (torch.randperm(2 * n, generator=gen, device="cuda") + 1).tolist()
+  src, dst = perm[:n], perm[n:]
+  tier = KvTierManager(page_size=PAGE, read_pages=lambda p: ops.read_pages(pool, p), write_pages=lambda p, d: ops.write_pages(pool, p, d), budget_bytes=1 << 40)
+  tier.kv_quant = KV_MODES[kv]
+  keys = [f"{kv}-{i}".encode() for i in range(n)]
+  golden = {name: leaf[:, src].clone() for name, leaf in pool.items()}
+  tier.spill([(b"warm-" + k, p) for k, p in zip(keys, src)])  # the first pinned blocks and the copy stream
+  tier.restore_into([b"warm-" + k for k in keys], dst)
+  torch.cuda.synchronize()
+  for leaf in pool.values():
+    leaf[:, dst] = 0
+  t0 = time.perf_counter()
+  tier.spill(list(zip(keys, src)))
+  spill_host_ms = (time.perf_counter() - t0) * 1e3
+  t0 = time.perf_counter()
+  tier.restore_into(keys, dst)  # materializes the pending spill (waits on its copy), stacks, enqueues
+  restore_host_ms = (time.perf_counter() - t0) * 1e3
+  torch.cuda.synchronize()
+  leaves_equal = {name: bool(torch.equal(pool[name][:, dst], golden[name])) for name in pool}
+  entry = tier._entries[keys[0]]["data"]
+  pageable = not any(t.is_pinned() for t in entry.values())
+  entries_equal = all(torch.equal(tier._entries[k]["data"][name].cuda(), golden[name][:, i]) for i, k in enumerate(keys) for name in pool)
+  rows = 4
+  bt_src = torch.tensor(src, dtype=torch.int32, device="cuda").reshape(rows, n // rows)
+  bt_dst = torch.tensor(dst, dtype=torch.int32, device="cuda").reshape(rows, n // rows)
+  lens = torch.full((rows,), (n // rows) * PAGE, dtype=torch.int32, device="cuda")
+  q = torch.randn((rows, cfg.n_heads, cfg.head_dim), generator=gen, device="cuda").to(torch.bfloat16)
+  k3_equal = True
+  for layer in range(n_layers):
+    scales = dict(k_scale_pool_l=pool["k_scale"][layer], v_scale_pool_l=pool["v_scale"][layer]) if "k_scale" in pool else {}
+    a = paged.paged_decode_attention(q, pool["k"][layer], pool["v"][layer], bt_src, lens, PAGE, **scales)
+    b = paged.paged_decode_attention(q, pool["k"][layer], pool["v"][layer], bt_dst, lens, PAGE, **scales)
+    k3_equal = k3_equal and bool(torch.isfinite(a).all()) and bool(torch.equal(a, b))
+  page_bytes = tier.stats()["page_nbytes"]
+  nbytes = n * page_bytes
+  spill_ms = _stream_ms(torch, lambda: ops.read_pages(pool, src), end_stream=ops._copy_stream)
+  restore_ms = _stream_ms(torch, lambda: tier.restore_into(keys, dst))
+  dbuf = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+  hbuf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+  link_d2h_ms = _stream_ms(torch, lambda: hbuf.copy_(dbuf, non_blocking=True))
+  link_h2d_ms = _stream_ms(torch, lambda: dbuf.copy_(hbuf, non_blocking=True))
+  gbs = lambda ms: nbytes / (ms * 1e6)  # noqa: E731
+  res = dict(
+    kv=kv, pages=n, page_bytes=page_bytes, bytes=nbytes, leaves_equal=leaves_equal, host_entries_equal=entries_equal, host_entries_pageable=pageable,
+    k3_bit_identical=k3_equal, k3_rows=rows, k3_window=(n // rows) * PAGE, spill_enqueue_host_ms=spill_host_ms, restore_host_ms=restore_host_ms,
+    spill_device_ms=spill_ms, restore_device_ms=restore_ms, spill_ms_per_page=spill_ms / n, restore_ms_per_page=restore_ms / n,
+    spill_gb_s=gbs(spill_ms), restore_gb_s=gbs(restore_ms), link_d2h_ms=link_d2h_ms, link_h2d_ms=link_h2d_ms, link_d2h_gb_s=gbs(link_d2h_ms), link_h2d_gb_s=gbs(link_h2d_ms),
+  )
+  del pool, dbuf, hbuf
+  tier.clear()
+  return res
+
+
+def tier_prefill_ms(torch, engine, n=TIER_PAGES):
+  """Device ms of prefilling the tokens ``n`` pages hold (one row of
+  ``n * PAGE`` tokens, K1 in every layer): what restoring them saves."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import prefill_into_pages_many
+  from xotorch_support_jetson_tpu_torch.ops.paged import init_paged_pool
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+  pool = init_paged_pool(cfg, cfg.n_layers, n + 1, PAGE, quant="", device="cuda")
+  toks = torch.randint(0, 256, (1, n * PAGE), generator=gen, device="cuda", dtype=torch.int32)
+  bt = torch.arange(1, n + 1, dtype=torch.int32, device="cuda")[None]
+  zero, end = torch.zeros(1, dtype=torch.int32, device="cuda"), torch.full((1,), n * PAGE, dtype=torch.int32, device="cuda")
+  run = lambda: prefill_into_pages_many(params, cfg, shard, toks, pool, bt, zero, end, PAGE)  # noqa: E731
+  run()
+  return _stream_ms(torch, run)
+
+
+async def tier_restore_logits(torch, engine):
+  """The restore on the served path: one 1,536-token prompt prefills into
+  the daemon's pool (its 24 full pages donated to the prefix cache); the
+  prompt plus a 64-token suffix admits over those cached pages (the
+  never-evicted run); an eviction run then forces every cached page out
+  (the spill hook fires); the same prompt plus suffix admits again and
+  restores the 24 pages from the host. The suffix prefill's last logits of
+  the two admissions must be bit-identical (the same K1 prefill over the
+  same bytes), and the second must have restored 24 pages."""
+  from xotorch_support_jetson_tpu_torch.models import decoder
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa
+  from xotorch_support_jetson_tpu_torch.utils.metrics import metrics
+
+  bserver = engine.get_batched_server()
+  rng = np.random.default_rng(SEED + 5)
+  prompt = [ByteTokenizer.bos_token_id] + rng.integers(32, 127, TIER_PROMPT - 1).tolist()
+  longer = prompt + rng.integers(32, 127, TIER_SUFFIX).tolist()
+  seen = []
+  plain_next = decoder._next_token_batched
+
+  def capture(rows, *a, **kw):
+    seen.append(rows.float().clone())
+    return plain_next(rows, *a, **kw)
+
+  async def admit(rid, toks):
+    k1 = fa.LAUNCHES["flash_prefill"]
+    r0 = metrics.counter_value("kv_tier_restored_pages_total")
+    n_seen = len(seen)
+    await bserver.submit(rid, np.asarray(toks, np.int32), max_tokens=1, temp=0.0, top_k=1, eos_ids=(), emit=lambda *a: None)
+    return seen[n_seen], fa.LAUNCHES["flash_prefill"] - k1, metrics.counter_value("kv_tier_restored_pages_total") - r0
+
+  decoder._next_token_batched = capture
+  try:
+    await admit("tier-prompt", prompt)
+    cached, k1_cached, _ = await admit("tier-cached", longer)
+    s0 = metrics.counter_value("kv_tier_spilled_pages_total")
+    alloc = bserver.allocator
+    evicted = alloc.n_available - alloc.n_free
+    alloc.free(alloc.alloc(alloc.n_available))  # an eviction run over every cached page
+    spilled = metrics.counter_value("kv_tier_spilled_pages_total") - s0
+    restored_logits, k1_restored, restored = await admit("tier-restored", longer)
+  finally:
+    decoder._next_token_batched = plain_next
+  res = dict(
+    prompt_tokens=TIER_PROMPT, suffix_tokens=TIER_SUFFIX, evicted_pages=evicted, spilled_pages=spilled, restored_pages=restored,
+    logits_bit_identical=bool(torch.equal(cached, restored_logits)), max_abs_diff=float((cached - restored_logits).abs().max()),
+    k1_launches=dict(cached=k1_cached, restored=k1_restored), host=bserver.tier.stats(),
+  )
+  log(f"[tiered] restore on the served path: a {TIER_PROMPT}-token prompt, then it plus {TIER_SUFFIX} tokens over its cached pages, then an eviction run ({evicted} cached pages, {spilled:.0f} spilled) and the same admission again: {restored:.0f} pages restored, suffix-prefill logits bit-identical {res['logits_bit_identical']} (max |diff| {res['max_abs_diff']:.3e}), K1 launches {res['k1_launches']}")
+  need = TIER_PROMPT // PAGE
+  if not res["logits_bit_identical"] or restored != need or spilled < need or k1_cached != engine.cfg.n_layers or k1_restored != engine.cfg.n_layers:
+    raise SystemExit(f"chip_smoke: the restored prefix did not serve like the cached one: {res}")
+  return res
+
+
+def tier_bodies(turn1_replies=None):
+  """The multi-turn traffic: 16 conversations. Turn 1 is a distinct prompt
+  of 1,024 to 1,504 tokens (byte tokens: BOS, the chat template, and
+  ``conversation i:`` first, so no two share a page) with a greedy
+  32-token answer: about 330 pages of history against the pass's 256. Turn 2 (given turn 1's replies) carries the turn-1
+  message, the answer text and a 64-token follow-up."""
+  words = "a quiet harbour keeps its boats tied while the tide turns and gulls argue over the morning catch".split()
+  bodies = []
+  for i in range(TIER_CONVERSATIONS):
+    size = 1001 + 32 * i  # plus BOS, "<|user|>" and "\n<|assistant|>": 1,024 + 32 i tokens
+    text = f"conversation {i}: " + " ".join(words[(i + j) % len(words)] for j in range(size))
+    msgs = [{"role": "user", "content": text[:size]}]
+    if turn1_replies is not None:
+      follow = f"follow-up {i}: " + " ".join(words[(3 * i + j) % len(words)] for j in range(TIER_FOLLOWUP))
+      msgs += [{"role": "assistant", "content": turn1_replies[i][0]}, {"role": "user", "content": follow[:TIER_FOLLOWUP]}]
+    bodies.append({"model": "llama-3.2-1b", "messages": msgs, "stream": True, "temperature": 0, "max_tokens": TIER_ANSWER})
+  return bodies
+
+
+def _spy_admissions(bserver, records):
+  """Record each admission the scheduler prepares (request id, prompt ids
+  — the absorbed stream of a resumed row —, carried tokens, and the prefix
+  its pages cover: device hits plus host restores) until the returned
+  function removes the spy."""
+  orig = bserver._prepare
+
+  def spy(req, row, **kw):
+    status, r = orig(req, row, **kw)
+    if r is not None:
+      records.append(dict(rid=req.request_id, tokens=[int(t) for t in req.tokens], carry=len(req.carry_tokens), prefix=r.prefix_len))
+    return status, r
+
+  bserver._prepare = spy
+  return lambda: delattr(bserver, "_prepare")
+
+
+def _read_kv_tier(port):
+  with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/kv/tier", timeout=60) as resp:
+    return json.loads(resp.read())
+
+
+def _tier_failures(metrics):
+  return {k: metrics.counter_sum(k) for k in ("kv_tier_spill_failures_total", "kv_tier_restore_failures_total")}
+
+
+def _lcp(a, b):
+  n = 0
+  for x, y in zip(a, b):
+    if x != y:
+      break
+    n += 1
+  return n
+
+
+async def _tier_turns(torch, engine, port, clients, ids, name):
+  """Both turns of the multi-turn traffic through the daemon, the launch
+  counters zeroed just before and read just after. Returns per-turn TTFT,
+  prefix pages per turn-2 admission against the pages its token ids could
+  match, the tier's traffic and the turn-2 token ids."""
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, int4_matmul as k4, paged
+  from xotorch_support_jetson_tpu_torch.utils.metrics import metrics, snapshot_delta
+
+  loop = asyncio.get_running_loop()
+  warm = {"model": "llama-3.2-1b", "messages": [{"role": "user", "content": "warm up"}], "stream": True, "temperature": 0, "max_tokens": 9}
+  await loop.run_in_executor(clients, _post, port, warm)
+  bserver = engine.get_batched_server()
+  records: list[dict] = []
+  unspy = _spy_admissions(bserver, records)
+  snap0 = metrics.snapshot()
+  fa.reset_launch_counts()  # ---- this pass's main path, counted
+  paged.reset_launch_counts()
+  k4.reset_launch_counts()
+  t0 = time.perf_counter()
+  turn1 = await asyncio.gather(*(loop.run_in_executor(clients, _post, port, b) for b in tier_bodies()))
+  t1 = time.perf_counter()
+  second = [loop.run_in_executor(clients, _post, port, b) for b in tier_bodies(turn1)]
+  mid = await asyncio.to_thread(_read_kv_tier, port)
+  turn2 = await asyncio.gather(*second)
+  wall = time.perf_counter() - t0
+  launches = {"flash_prefill": fa.LAUNCHES["flash_prefill"], "flash_decode": fa.LAUNCHES["flash_decode"], "paged_decode": paged.LAUNCHES["paged_decode"], "int4_matmul": k4.LAUNCHES["int4_matmul"]}  # ---- read just after
+  unspy()
+  full_delta = snapshot_delta(snap0, metrics.snapshot())
+  delta = full_delta["counters"]
+  host_ms = {h: _hist_mean_ms(full_delta, h) for h in ("kv_tier_spill_seconds", "kv_tier_restore_seconds", "prefill_chunk_seconds", "mixed_tick_seconds", "decode_chunk_seconds")}
+  by_rid = {r["rid"]: r for r in records}
+  for turn, replies in ((1, turn1), (2, turn2)):
+    for text, finish, ttft, total, n_events, rid in replies:
+      toks = ids.get(rid, [])
+      if not toks or len(toks) > TIER_ANSWER or finish not in ("stop", "length") or (finish == "length" and len(toks) != TIER_ANSWER) or rid not in by_rid:
+        raise SystemExit(f"chip_smoke: tiered {name}, turn {turn}: request {rid} gave {len(toks)} of {TIER_ANSWER} tokens, finish {finish}")
+  matchable = []
+  for r1, r2 in zip(turn1, turn2):
+    a1, a2 = by_rid[r1[5]], by_rid[r2[5]]
+    history = a1["tokens"] + ids[r1[5]]
+    donated = len(history) - 1  # the turn-1 row's written KV: its last token has none
+    matchable.append(min(_lcp(a2["tokens"], history), donated, len(a2["tokens"]) - 1) // PAGE)
+  prefix_pages = [by_rid[r[5]]["prefix"] // PAGE for r in turn2]
+  tier = bserver.tier
+  res = dict(
+    kv_tier=tier is not None, conversations=TIER_CONVERSATIONS, pool_pages=bserver.allocator.n_pages, wall_s=wall, turn1_s=t1 - t0,
+    turn1_prompt_tokens=[len(by_rid[r[5]]["tokens"]) for r in turn1], turn2_prompt_tokens=[len(by_rid[r[5]]["tokens"]) for r in turn2],
+    ttft_turn1_p50_s=_pctl([r[2] for r in turn1], 0.5), ttft_turn2_p50_s=_pctl([r[2] for r in turn2], 0.5), ttft_turn2_p95_s=_pctl([r[2] for r in turn2], 0.95),
+    turn2_prefix_pages=sum(prefix_pages), turn2_matchable_pages=sum(matchable), turn2_prefill_tokens_skipped=sum(p * PAGE for p in prefix_pages),
+    spilled_pages=delta.get("kv_tier_spilled_pages_total", 0.0), restored_pages=delta.get("kv_tier_restored_pages_total", 0.0),
+    host_evictions=delta.get("kv_tier_host_evictions_total", 0.0), failures=_tier_failures(metrics),
+    host_mib=(tier.host_bytes / 2**20) if tier is not None else 0.0, host_pages=tier.host_pages if tier is not None else 0,
+    mid_pass_endpoint=dict(host=mid["host"], spilled_pages_total=mid["spilled_pages_total"], restored_pages_total=mid["restored_pages_total"], enabled=mid["enabled"]),
+    launches=launches, scheduler_ms=host_ms,
+    turn2_ids=[ids[r[5]] for r in turn2],
+  )
+  log(f"[tiered] pass={name}: {2 * TIER_CONVERSATIONS} streaming requests in {wall:.3f} s (turn 1 {res['turn1_s']:.3f} s) | turn-1 TTFT p50 {res['ttft_turn1_p50_s']:.4f} s | turn-2 TTFT p50 {res['ttft_turn2_p50_s']:.4f} s p95 {res['ttft_turn2_p95_s']:.4f} s | turn-2 prefix pages {res['turn2_prefix_pages']} of {res['turn2_matchable_pages']} the token ids could match ({res['turn2_prefill_tokens_skipped']} prefill tokens skipped) | spilled {res['spilled_pages']:.0f} restored {res['restored_pages']:.0f} host evictions {res['host_evictions']:.0f} pages | host store {res['host_pages']} pages, {res['host_mib']:.1f} MiB | failures {res['failures']} | GET /v1/kv/tier mid-pass: {res['mid_pass_endpoint']} | launches {launches} | pool {res['pool_pages']} pages | host ms (registry, mean over the pass): {', '.join(f"{h} {v['mean_ms']} x{v['count']}" for h, v in host_ms.items())}")
+  bad = [k for k, v in res["failures"].items() if v]
+  if res["kv_tier"]:
+    if not (res["spilled_pages"] > 0 and res["restored_pages"] > 0) or bad or launches["flash_prefill"] == 0 or launches["paged_decode"] == 0 or not mid["host"]["host_pages"] > 0:
+      raise SystemExit(f"chip_smoke: tiered {name}: spilled {res['spilled_pages']}, restored {res['restored_pages']}, failures {res['failures']}, launches {launches}, mid-pass host pages {mid['host']}")
+  elif res["spilled_pages"] or res["restored_pages"] or mid["enabled"]:
+    raise SystemExit(f"chip_smoke: tiered {name}: XOT_TPU_KV_TIER=0 moved pages or reads enabled: {res['spilled_pages']}, {res['restored_pages']}, {mid}")
+  if bserver.busy() or bserver.allocator.audit()["referenced"]:
+    raise SystemExit(f"chip_smoke: tiered {name}: the server did not drain: {bserver.allocator.audit()}")
+  return res
+
+
+def phase_tiered(torch, ckpt: Path):
+  """The batched daemon at the defaults (the host KV tier on) with
+  XOT_TPU_BATCH_PAGES=257: the page round trip per pool type, the restore
+  on the served path, then the multi-turn traffic with the tier on and
+  with XOT_TPU_KV_TIER=0."""
+  from xotorch_support_jetson_tpu_torch import main as tmain
+
+  args, port = _daemon_args(tmain, ckpt)
+  os.environ.update(XOT_TPU_BATCHED="1", XOT_TPU_BATCH_SLOTS=str(BATCH_SLOTS), XOT_TPU_PAGE_SIZE=str(PAGE), XOT_TPU_BATCH_PAGES=str(TIER_POOL_PAGES))
+  try:
+    return asyncio.run(_serve_tiered(torch, tmain, args, port))
+  finally:
+    for knob in ("XOT_TPU_BATCHED", "XOT_TPU_BATCH_SLOTS", "XOT_TPU_PAGE_SIZE", "XOT_TPU_BATCH_PAGES", "XOT_TPU_KV_TIER"):
+      os.environ.pop(knob, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+async def _serve_tiered(torch, tmain, args, port):
+  from concurrent.futures import ThreadPoolExecutor
+
+  from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+
+  node, api, engine, _ = tmain.build_components(args, tokenizer=ByteTokenizer())
+  await node.start()
+  server = await api.run(host="127.0.0.1", port=port)
+  clients = ThreadPoolExecutor(max_workers=TIER_CONVERSATIONS)
+  try:
+    await engine.ensure_shard(Shard("llama-3.2-1b", 0, 15, 16))
+    out = {"round_trip": {}}
+    prefill_ms = tier_prefill_ms(torch, engine)
+    for kv in KV_MODES:
+      r = tier_round_trip(torch, engine.batch_ops, engine.cfg, engine.cfg.n_layers, kv)
+      r["prefill_device_ms_same_tokens"] = prefill_ms
+      out["round_trip"][kv] = r
+      log(f"[tiered] round trip {kv}: {r['pages']} pages of {r['page_bytes']} bytes | every leaf equal {r['leaves_equal']}, host entries equal {r['host_entries_equal']} and pageable {r['host_entries_pageable']} | K3 over the restored pages bit-identical {r['k3_bit_identical']} ({r['k3_rows']} rows at {r['k3_window']} tokens, every layer) | spill: host enqueue {r['spill_enqueue_host_ms']:.3f} ms, device {r['spill_device_ms']:.4f} ms ({r['spill_ms_per_page']:.5f} ms/page, {r['spill_gb_s']:.2f} GB/s) | restore: host {r['restore_host_ms']:.3f} ms, device {r['restore_device_ms']:.4f} ms ({r['restore_ms_per_page']:.5f} ms/page, {r['restore_gb_s']:.2f} GB/s) | plain pinned copy of the same bytes: D2H {r['link_d2h_ms']:.4f} ms ({r['link_d2h_gb_s']:.2f} GB/s), H2D {r['link_h2d_ms']:.4f} ms ({r['link_h2d_gb_s']:.2f} GB/s) | prefill of the {r['pages'] * PAGE} tokens they hold: {prefill_ms:.4f} ms of device time")
+      if not (all(r["leaves_equal"].values()) and r["host_entries_equal"] and r["host_entries_pageable"] and r["k3_bit_identical"]):
+        raise SystemExit(f"chip_smoke: the {kv} page round trip through the host tier is not byte-identical: {r}")
+    out["restore"] = await tier_restore_logits(torch, engine)
+    ids: dict[str, list[int]] = {}
+    node.on_token.register("chip_smoke").on_next(lambda rid, toks, fin: ids.setdefault(rid, []).extend(toks))
+    out["passes"] = {}
+    # In turns (on, off, off, on): host-bound TTFT moves between passes, and
+    # when the 16 simultaneous requests reach the first admission pass decides
+    # how the rest are sliced. The first tier-on pass is the counted main path.
+    for name, env in (("tier_on", {}), ("tier_off", {"XOT_TPU_KV_TIER": "0"}), ("tier_off_2", {"XOT_TPU_KV_TIER": "0"}), ("tier_on_2", {})):
+      engine._drop_batched_server()  # a fresh pool and tier for this pass
+      os.environ.pop("XOT_TPU_KV_TIER", None)
+      os.environ.update(env)
+      out["passes"][name] = await _tier_turns(torch, engine, port, clients, ids, name)
+    node.on_token.deregister("chip_smoke")
+    turn2 = {k: p.pop("turn2_ids") for k, p in out["passes"].items()}
+
+    def agree(a, b):
+      return sum(x == y for r, q in zip(turn2[a], turn2[b]) for x, y in zip(r, q)) / sum(max(len(r), len(q)) for r, q in zip(turn2[a], turn2[b]))
+
+    out["turn2_greedy_agreement"] = {"tier_on_vs_off": agree("tier_on", "tier_off"), "tier_on_vs_on": agree("tier_on", "tier_on_2"), "tier_off_vs_off": agree("tier_off", "tier_off_2")}
+    log(f"[tiered] share of turn-2 greedy tokens that agree (not gated: decode-written bf16 KV differs in its last bits from a full prefill's, and slicing varies between passes): {out['turn2_greedy_agreement']}")
+    log(f"[tiered] turn-2 TTFT p50 / p95 s in turns: {[(k, round(p['ttft_turn2_p50_s'], 4), round(p['ttft_turn2_p95_s'], 4)) for k, p in out['passes'].items()]}")
+    return out
+  finally:
+    await node.stop()
+    clients.shutdown(wait=True)
+    server.close()
+    await server.wait_closed()
+    engine.executor.shutdown(wait=True)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1499,10 +1918,14 @@ def main() -> int:
     # engine are the process's, so a daemon started after the priority
     # pass would inherit its interactive burn (and the smallest budget).
     batched_int4 = phase_batched(torch, ckpt, weights="int4")
+    # The tiered pass before the priority pass too: its long prompts are
+    # sliced by the interactive burn's budget.
+    tiered = phase_tiered(torch, ckpt)
     batched = phase_batched(torch, ckpt)
   finally:
     shutil.rmtree(ckpt, ignore_errors=True)
-  # Launches per kernel on each main path: the solo bf16 daemon run (K1,
+  # Launches per kernel on each main path (the tiered multi-turn pass with
+  # the tier on is "batched_tiered": K1, K3): the solo bf16 daemon run (K1,
   # K2), the solo quantized runs (K1; K4 under int4 weights), the batched
   # runs on bf16 weights at the defaults (K1, K3; summed over the three pool
   # types), the same with XOT_TPU_MIXED_TICK=0, the priority pass, and the
@@ -1513,6 +1936,7 @@ def main() -> int:
     "solo": [serving["launches"]], "solo_long_prompt": [serving["long"]["launches"]], "solo_quant": [q["launches"] for q in quant.values()],
     "batched": [bp[k]["launches"] for k in ("bf16", "int8", "int4")], "batched_alternating": [bp["bf16_alternating"]["launches"]], "batched_fifo": [bp["bf16_fifo"]["launches"]],
     "batched_priority": [bp["bf16_priority"]["launches"]], "batched_int4_weights": [p["launches"] for p in batched_int4["passes"].values()],
+    "batched_tiered": [tiered["passes"]["tier_on"]["launches"]],
   }
   by_path = {name: {path: sum(x.get(name, 0) for x in runs) for path, runs in paths.items()} for name in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
   for name in ("flash_prefill", "paged_decode"):
@@ -1537,7 +1961,7 @@ def main() -> int:
     # the per-step sums are in chip_smoke.json's int4_matmul_bound.
     entry("int4_matmul", "xotorch_support_jetson_tpu_torch/csrc/int4_matmul.cu", "xotorch_support_jetson_tpu/ops/pallas_int4.py:36", kern["int4_matmul"], k4_head),
   ]}
-  record = dict(card=smi, build_s=build_s, kernels=kern, serving=serving, quant=quant, batched=batched, batched_int4_weights=batched_int4, summary=kernels_line)
+  record = dict(card=smi, build_s=build_s, kernels=kern, serving=serving, quant=quant, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, summary=kernels_line)
   out = ROOT / "chiprun_out"
   out.mkdir(exist_ok=True)
   (out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=float))

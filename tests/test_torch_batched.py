@@ -5,8 +5,8 @@ rtol = atol = 2e-4, greedy tokens identical, for bf16-layout, int8 and int4
 KV), the ``BatchedServer`` (greedy tokens identical to the JAX
 ``BatchedServer`` run with ``XOT_TPU_QOS=0 XOT_TPU_KV_TIER=0
 XOT_TPU_SPEC_BATCH=0 XOT_TPU_MIXED_TICK=0``, and to the port's solo path;
-the defaults, QoS and mixed ticks on, are held in test_torch_mixed_tick.py
-and test_torch_qos.py),
+the defaults, QoS, mixed ticks and the KV tier on, are held in
+test_torch_mixed_tick.py, test_torch_qos.py and test_torch_kv_tier.py),
 and the daemon with ``XOT_TPU_BATCHED=1`` over HTTP. Sizes are small: 2
 layers, width 64, 8-token pages."""
 
@@ -239,11 +239,22 @@ def test_batched_server_backpressure_and_oversized_prompts(model, knobs):
   asyncio.run(run())
 
 
-@pytest.mark.parametrize("knob,value", [("XOT_TPU_PAGED", "0"), ("XOT_TPU_PAGED", "auto"), ("XOT_TPU_SPEC_BATCH", "1"), ("XOT_TPU_KV_TIER", "1"), ("XOT_TPU_KV_TIER", "true"), ("XOT_TPU_SPEC_BATCH", "on")])
+@pytest.mark.parametrize("knob,value", [("XOT_TPU_PAGED", "0"), ("XOT_TPU_PAGED", "auto"), ("XOT_TPU_SPEC_BATCH", "1"), ("XOT_TPU_SPEC_BATCH", "on")])
 def test_unported_batched_features_refuse_at_build(model, knobs, knob, value):
   knobs.setenv(knob, value)
   with pytest.raises(NotImplementedError, match=knob):
     _port_server(model)
+
+
+@pytest.mark.parametrize("value", ["1", "true"])
+def test_kv_tier_knob_builds_a_tiered_server(model, knobs, value):
+  """``XOT_TPU_KV_TIER`` no longer refuses: set on, the server builds its
+  host KV tier with the pool (tests/test_torch_kv_tier.py holds the tier
+  against the reference)."""
+  knobs.setenv("XOT_TPU_KV_TIER", value)
+  server = _port_server(model)
+  asyncio.run(server.submit("t", np.arange(3, 12, dtype=np.int32), max_tokens=2, temp=0.0, top_k=35, eos_ids=(), emit=lambda *a: None))
+  assert server.tier is not None and server.allocator.spill_hook == server.tier.spill
 
 
 # ------------------------------------------------------------------- HTTP

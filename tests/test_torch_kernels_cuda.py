@@ -5,6 +5,9 @@ page size 64 for K3; K4: its five projection shapes, T = 1 … 512, and f32
 x) plus other
 head dims, page sizes and ragged matmul widths.
 
+The host KV tier's page copies round-trip byte-identically on every pool
+type, and K3 reads restored pages bit-identically.
+
 K2 and K3 are also held at caches past 4096 and at windows that are not a
 whole number of cluster ranges, at GQA groups 1, 2 and 8, and to one device
 kernel and one allocation (the output) per call.
@@ -386,3 +389,25 @@ def test_int4_wrapper_rejects_what_the_kernel_does_not_take(dev):
     k4.int4_matmul(x, packed.t().contiguous().t(), scale)
   with pytest.raises(ValueError, match="unsupported geometry"):
     k4.int4_matmul(_rand((4, 128), 1, dev), packed, scale)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "int4"])
+def test_kv_tier_round_trip_is_byte_identical_and_k3_reads_it_alike(dev, kv):
+  """The host KV tier on the card (chip_smoke.py ``tier_round_trip``):
+  pages of a seeded pool at llama-3.2-1b's page geometry spill through
+  ``KvTierManager`` with the real ``DecoderBatchOps.read_pages`` (gather on
+  the compute stream, pinned copy on a copy stream) and restore into other
+  pages with the real ``write_pages``. Every leaf and every host entry is
+  equal to the source pages, the host entries are pageable, and a K3 step
+  over block tables on the restored pages is bit-identical to the same
+  step on the originals in every layer."""
+  import types
+
+  import chip_smoke
+  from xotorch_support_jetson_tpu_torch.inference.batch_ops import DecoderBatchOps
+
+  cfg = types.SimpleNamespace(head_dim=64, n_heads=32, n_kv_heads=8, dtype=torch.bfloat16)
+  ops = DecoderBatchOps(types.SimpleNamespace(device=dev))
+  res = chip_smoke.tier_round_trip(torch, ops, cfg, 4, kv, n=16)
+  assert all(res["leaves_equal"].values()) and res["host_entries_equal"] and res["host_entries_pageable"]
+  assert res["k3_bit_identical"]

@@ -219,9 +219,9 @@ def model():
 
 @pytest.fixture
 def knobs(monkeypatch):
-  for k in ("XOT_TPU_QOS", "XOT_TPU_MIXED_TICK", "XOT_TPU_MIXED_BUDGET", "XOT_TPU_KV_QUANT", "XOT_TPU_QOS_PREEMPT"):
+  for k in ("XOT_TPU_KV_TIER", "XOT_TPU_QOS", "XOT_TPU_MIXED_TICK", "XOT_TPU_MIXED_BUDGET", "XOT_TPU_KV_QUANT", "XOT_TPU_QOS_PREEMPT"):
     monkeypatch.delenv(k, raising=False)
-  for k, v in {"XOT_TPU_KV_TIER": "0", "XOT_TPU_SPEC_BATCH": "0", "XOT_TPU_PAGE_SIZE": str(PS), "XOT_TPU_PREFILL_CHUNK": "16", "XOT_TPU_MIXED_BUDGET": "8"}.items():
+  for k, v in {"XOT_TPU_SPEC_BATCH": "0", "XOT_TPU_PAGE_SIZE": str(PS), "XOT_TPU_PREFILL_CHUNK": "16", "XOT_TPU_MIXED_BUDGET": "8"}.items():
     monkeypatch.setenv(k, v)
   return monkeypatch
 

@@ -1,6 +1,7 @@
 """OpenAI-compatible HTTP API: ``/healthcheck``, ``/v1/models``,
 ``/v1/chat/completions`` (blocking, and SSE with ``"stream": true``),
-``/metrics`` (Prometheus text) and ``/v1/slo`` (the local SLO report).
+``/metrics`` (Prometheus text), ``/v1/slo`` (the local SLO report) and
+``/v1/kv/tier`` (the host KV tier's state).
 
 Counterpart of those routes of the reference's ``api/chatgpt_api.py``, with
 the same request and response shapes: a chat request may carry a QoS
@@ -281,6 +282,7 @@ class ChatGPTAPI:
       ("POST", "/chat/completions"): self.handle_post_chat_completions,
       ("GET", "/metrics"): self.handle_metrics,
       ("GET", "/v1/slo"): self.handle_slo,
+      ("GET", "/v1/kv/tier"): self.handle_kv_tier,
     }
 
   # ------------------------------------------------------------- server
@@ -346,6 +348,24 @@ class ChatGPTAPI:
 
     # The tick and the report copy the registry: off the event loop.
     return json_response(await asyncio.get_running_loop().run_in_executor(None, local_report))
+
+  async def handle_kv_tier(self, request, writer):
+    """GET /v1/kv/tier — the KV memory hierarchy's state, with the
+    reference's keys: whether the tier is on, host occupancy and budget,
+    spill and restore totals, and the prefix registry's view. The port has
+    no ring yet, so ``?scope=cluster`` answers with this same local view,
+    as the reference does on a node without peers."""
+    from ..inference.kv_tier import kv_tier_enabled, prefix_registry
+
+    tier = getattr(getattr(self.node.inference_engine, "_batched_server", None), "tier", None)
+    return json_response({
+      "enabled": kv_tier_enabled(),
+      # No live batched server (or the tier off): the gauges' view.
+      "host": tier.stats() if tier is not None else {"host_pages": metrics.gauges.get("kv_tier_host_pages", 0), "host_bytes": metrics.gauges.get("kv_tier_host_bytes", 0)},
+      "spilled_pages_total": metrics.counter_value("kv_tier_spilled_pages_total"),
+      "restored_pages_total": metrics.counter_value("kv_tier_restored_pages_total"),
+      "prefix_registry": prefix_registry.snapshot(),
+    })
 
   def handle_tokens(self, request_id: str, tokens: list[int], is_finished: bool) -> None:
     queue = self.token_queues.get(request_id)

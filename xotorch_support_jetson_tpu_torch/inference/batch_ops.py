@@ -1,7 +1,9 @@
 """Device operations of the continuous-batching scheduler, behind one small
 interface (counterpart of the reference's ``inference/batch_ops.py``
-``DecoderBatchOps``; the pp/sp mesh backends, speculation, LoRA and page
-copies are not ported yet).
+``DecoderBatchOps``; the pp/sp mesh backends, speculation and LoRA are not
+ported yet). It also carries the host KV tier's page copies
+(inference/kv_tier.py): ``read_pages`` starts a spill's device-to-host copy
+and ``write_pages`` writes a restore's host pages back into the pool.
 
 The scheduler hands host operands as numpy arrays. They reach the card as
 non-blocking copies out of pinned host memory, so a dispatch never waits
@@ -49,6 +51,7 @@ class DecoderBatchOps:
 
   def __init__(self, engine):
     self.engine = engine
+    self._copy_stream = None  # the KV tier's device-to-host stream, made at the first spill
 
   def round_slots(self, n: int) -> int:
     return n
@@ -116,3 +119,54 @@ class DecoderBatchOps:
       self._dev(active), self._dev(temps), self._dev(pf_tokens), self._dev(pf_bt), self._dev(pf_prefix), self._dev(pf_end), n_steps,
       top_k=self._dev(top_ks), k_max=k_max, page_size=page_size, generator=self._generator(key),
     )
+
+  # ------------------------------------------------- KV tier page copies
+
+  def read_pages(self, pool, pages):
+    """Start copying ``pages`` of every pool leaf to the host (a KV-tier
+    spill). Returns ``(host, ready)``: ``host`` maps each leaf to a host
+    tensor ``[L, len(pages), ...]``, valid once the CUDA event ``ready``
+    has fired (None on the CPU, where the copy is done on return).
+
+    The gather (one ``index_select`` per leaf, into fresh buffers) runs on
+    the current compute stream, so it reads the pages before any later
+    dispatch that reuses them. A copy stream waits for it and copies into
+    pinned host memory without blocking the host; ``record_stream`` keeps
+    the caching allocator from handing the gathered buffers out again
+    before that copy ends."""
+    idx = self._dev(np.asarray(pages, dtype=np.int64))
+    gathered = {name: leaf.index_select(1, idx) for name, leaf in pool.items()}
+    if idx.device.type != "cuda":
+      return gathered, None
+    if self._copy_stream is None:
+      self._copy_stream = torch.cuda.Stream(idx.device)
+    copy = self._copy_stream
+    done_gather = torch.cuda.Event()
+    done_gather.record(torch.cuda.current_stream(idx.device))
+    copy.wait_event(done_gather)
+    host = {}
+    with torch.cuda.stream(copy):
+      for name, g in gathered.items():
+        h = torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
+        h.copy_(g, non_blocking=True)
+        g.record_stream(copy)
+        host[name] = h
+    ready = torch.cuda.Event()
+    ready.record(copy)
+    return host, ready
+
+  def write_pages(self, pool, pages, data):
+    """Write host pages into ``pages`` of every pool leaf, in place (a
+    KV-tier restore); returns the pool. ``data`` maps each leaf to the
+    ``len(pages)`` host page tensors ``[L, ...]`` in ``pages`` order. Each
+    leaf's pages are stacked into one staging tensor (pinned on the card)
+    and copied non-blocking on the compute stream, ahead of the prefill
+    that reads them; ``index_copy_`` writes them along the page axis."""
+    idx = self._dev(np.asarray(pages, dtype=np.int64))
+    pinned = idx.device.type == "cuda"
+    for name, leaf in pool.items():
+      parts = data[name]
+      stage = torch.empty((leaf.shape[0], len(parts), *leaf.shape[2:]), dtype=leaf.dtype, pin_memory=pinned)
+      torch.stack(parts, dim=1, out=stage)
+      leaf.index_copy_(1, idx, stage.to(leaf.device, non_blocking=True))
+    return pool

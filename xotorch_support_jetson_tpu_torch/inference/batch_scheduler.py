@@ -2,8 +2,7 @@
 fixed set of batch rows ("slots"), each holding one in-flight request.
 
 Counterpart of the reference's ``inference/batch_scheduler.py`` as it
-behaves with ``XOT_TPU_KV_TIER=0 XOT_TPU_SPEC_BATCH=0`` and the paged
-layout:
+behaves with ``XOT_TPU_SPEC_BATCH=0`` and the paged layout:
 
 - one page pool ``[L, P, Hkv, ps, kd]`` (ops/paged.py) with per-row block
   tables; page-aligned prompt prefixes are shared between requests through
@@ -32,8 +31,17 @@ layout:
   per-tenant rate limits, deadline shedding, and an overload policy that
   sheds or preempts ``batch`` work before rejecting ``interactive``
   requests. A preempted row re-enqueues and resumes token-identically (its
-  prompt absorbs the tokens generated so far and its KV is recomputed);
+  prompt absorbs the tokens generated so far; its KV comes back through the
+  prefix cache and the host tier, or is recomputed);
   ``XOT_TPU_QOS=0`` is the plain FIFO queue;
+- a host-RAM KV tier sits under the pool (inference/kv_tier.py,
+  ``XOT_TPU_KV_TIER``, default on): pages evicted from the prefix LRU spill
+  to a byte-budgeted host store, admission restores the longest
+  host-resident chain run into fresh pages (copy-on-write), and finished
+  and preempted rows donate their generated full pages too, under chain
+  keys extended over the absorbed stream, so a preempted row resumes and a
+  conversation's next turn starts by transfer instead of recompute.
+  ``XOT_TPU_KV_TIER=0`` is the single-tier pool;
 - while decode rows are resident, a chunked prefill advances by a
   token-budgeted slice fused into the decode dispatch
   (``fused_mixed_paged_batch_decode``: K1 for the slice, K3 for the decode
@@ -51,8 +59,8 @@ All device work runs on the engine's single executor thread. Random draws
 for sampling come from one generator per dispatch, seeded on the event-loop
 thread by ``engine.split_key()``.
 
-The KV tier, batched speculation, LoRA, disaggregation, drain and the dense
-batched layout are not ported yet; asking for one
+Batched speculation, LoRA, disaggregation, drain and the dense batched
+layout are not ported yet; asking for one
 explicitly raises ``NotImplementedError`` when the server is built, as does
 a CUDA engine whose head dim K3 has no variant for (unless
 ``XOT_TPU_PAGED_KERNEL=0`` asks for the gather path).
@@ -79,6 +87,7 @@ from ..utils.helpers import DEBUG, env_flag
 from ..utils.metrics import metrics
 from .batch_ops import to_host_async
 from .engine import PromptTooLongError, ServerOverloadedError
+from .kv_tier import KvTierManager, kv_tier_enabled, prefix_registry
 from .paging import PageAllocator, kv_cache_bytes, mixed_tick_enabled, pages_to_cover, select_mixed_budget
 from .qos import DeadlineUnmeetableError
 from .sched_admission import AdmissionControl, _Request
@@ -106,8 +115,6 @@ def check_unported_knobs() -> None:
     asked.append("XOT_TPU_PAGED=%s (the dense batched layout)" % os.getenv("XOT_TPU_PAGED"))
   if os.getenv("XOT_TPU_SPEC_BATCH", "auto").strip().lower() not in ("auto", "", "0", "false", "no", "off"):
     asked.append("XOT_TPU_SPEC_BATCH (batched speculation)")
-  if env_flag("XOT_TPU_KV_TIER"):
-    asked.append("XOT_TPU_KV_TIER (the host KV tier)")
   if asked:
     raise NotImplementedError(f"the PyTorch port's batched server does not have {', '.join(asked)} yet; unset these knobs or set them to 0")
 
@@ -212,6 +219,7 @@ class BatchedServer:
     self._admit_pass = 0
     self._prefilling: list[_Ready] = []  # admissions mid-chunked-prefill (rows reserved)
     self.allocator: PageAllocator | None = None
+    self.tier: KvTierManager | None = None  # the host KV tier, built with the pool
     self.block_tables: np.ndarray | None = None
     self.cache = None
     self.decode_path = "kernel"  # decode_chunks_total's path label, resolved with the pool
@@ -313,15 +321,16 @@ class BatchedServer:
         best = (key, i)
     return best[1] if best is not None else None
 
-  def _extract_row(self, row: int) -> _Request:
+  def _extract_row(self, row: int, *, keep_kv: bool) -> _Request:
     """Pull a resident row out of the pool for a carry_tokens resume: its
-    pages release now, its prompt absorbs the tokens generated so far, and
-    ``carry_tokens`` carries the emitted span (the resume recomputes the KV:
-    there is no host KV tier). Runs only at a dispatch boundary with the
-    pipeline drained, so no in-flight chunk references the row."""
+    pages release now (donated under extended chain keys when ``keep_kv``,
+    so the resume finds its whole stream as a prefix), its prompt absorbs
+    the tokens generated so far, and ``carry_tokens`` carries the emitted
+    span. Runs only at a dispatch boundary with the pipeline drained, so no
+    in-flight chunk references the row."""
     s = self.slots[row]
     req = s.req
-    self._release_pages(s)
+    self._release_pages(s, extend=keep_kv)
     self.slots[row] = None
     self._clear_row(row)
     new_toks = s.out_tokens[len(req.carry_tokens):]
@@ -335,10 +344,15 @@ class BatchedServer:
   def _preempt_resume(self, row: int) -> None:
     """Preempt a resident row for higher-priority work and re-enqueue it at
     the front of its lane (not a failure): the resumed prefill continues the
-    stream token-identically (greedy: the same logits from the recomputed
-    cache)."""
+    stream token-identically. With the KV tier on (and
+    ``XOT_TPU_QOS_PREEMPT_SPILL``), the victim's prompt AND generated pages
+    are donated under extended chain keys: the resume finds them as a
+    prefix (device-cached, or restored from the host after a spill) and
+    recomputes only the last partial page; ``carry_tokens`` stays the
+    fallback when every copy is gone."""
     metrics.inc("qos_preemptions_total")
-    self.admission.requeue_resumed(self._extract_row(row))
+    keep_kv = self.tier is not None and self.qos.cfg.preempt_spill
+    self.admission.requeue_resumed(self._extract_row(row, keep_kv=keep_kv))
 
   def cancel(self, request_id: str) -> None:
     """Stop a request (client gone): a resident row frees at the next chunk
@@ -371,6 +385,10 @@ class BatchedServer:
     task = self._loop_task
     self._loop_task = None
     self.cache = None
+    if self.tier is not None:
+      # A model swap invalidates the host copies: chain keys hash token ids,
+      # not weights, so the same chain must not restore the old model's KV.
+      self.tier.clear()
     if task is not None and not task.done():
       task.get_loop().call_soon_threadsafe(task.cancel)
 
@@ -398,10 +416,45 @@ class BatchedServer:
     self.allocator = PageAllocator(n_pages, ps)
     self.block_tables = np.zeros((self.n_slots, self.pages_per_row), dtype=np.int32)
     self.cache = self.ops.init_pool(n_pages, ps)
+    if self.tier is None and kv_tier_enabled():
+      self.tier = KvTierManager.from_env(page_size=ps, read_pages=self._tier_read, write_pages=self._tier_write)
+    if self.tier is not None:
+      # Rewired onto every (re)built allocator: device evictions spill their
+      # pages host-side before the free list reuses them.
+      self.allocator.spill_hook = self.tier.spill
+      self.tier.kv_quant = kv_quant
     self.decode_path = "kernel" if paged_kernel_supported(eng.cfg) else "gather"
     metrics.set_gauge("page_pool_pages_total", n_pages - 1)  # page 0 is the trash page
     metrics.set_gauge("kv_quant_bits", {"": 16, "int8": 8, "int4": 4}[kv_quant])
     self._update_gauges()
+
+  def _tier_read(self, pages: list[int]):
+    """The tier's spill-side read: start the pages' copy to the host. (None,
+    None) when the pool is already torn down (a shutdown racing an
+    eviction): the tier degrades to plain eviction."""
+    if self.cache is None:
+      return None, None
+    return self.ops.read_pages(self.cache, pages)
+
+  def _tier_write(self, pages: list[int], data: dict) -> None:
+    """The tier's restore-side write into freshly allocated pages, in place;
+    runs at admission, before the prefill that reads them is enqueued."""
+    if self.cache is None:
+      raise RuntimeError("page pool torn down under a restore")
+    self.cache = self.ops.write_pages(self.cache, pages, data)
+
+  def prefix_hexes(self, limit: int = 512) -> list[str]:
+    """Chain-key hexes this server can serve as a prefix hit: the device
+    prefix cache first (newest donations first), then the host tier's
+    entries. Per server, unlike the process-wide ``prefix_registry``."""
+    keys: list[bytes] = []
+    seen: set[bytes] = set()
+    for source in (self.allocator.cached_keys() if self.allocator is not None else [], self.tier.host_keys() if self.tier is not None else []):
+      for k in source:
+        if k not in seen:
+          seen.add(k)
+          keys.append(k)
+    return [k.hex() for k in keys[:limit]]
 
   def _update_gauges(self) -> None:
     """Scheduler health gauges, refreshed at every loop boundary."""
@@ -499,15 +552,48 @@ class BatchedServer:
           metrics.inc("scheduler_parked_total")
           return "park", None
         raise ServerOverloadedError(f"prompt of {S} tokens cannot fit the page pool even when idle")
+      new_pages = list(new_pages)
+      if self.tier is not None and new_pages:
+        # Host-tier restore: extend the device prefix hit with the longest
+        # host-resident chain run. The leading fresh pages become restore
+        # targets (written, then adopted as cached read-only prefix pages;
+        # the host copies stay) and the prefill skips those tokens too.
+        run = self.tier.host_run(chain_keys, len(shared_pages), (S - 1) // ps)
+        # Pages evict in chain order, so a chain's suffix can outlive its
+        # evicted prefix in the device LRU: stop the run at the first key
+        # still device-cached (adopt_restored needs the key absent); those
+        # tokens recompute and re-link the chain.
+        for j, key in enumerate(run):
+          if self.allocator.is_cached(key):
+            run = run[:j]
+            break
+        if run:
+          dest = new_pages[: len(run)]
+          try:
+            self.tier.restore_into(run, dest)
+          except Exception as e:  # noqa: BLE001 — a failed restore recomputes the prefill, counted
+            metrics.inc("kv_tier_restore_failures_total", labels={"error": type(e).__name__})
+          else:
+            for key, page in zip(run, dest):
+              self.allocator.adopt_restored(key, page)
+            shared_pages = shared_pages + dest
+            del new_pages[: len(run)]
+            prefix_len = len(shared_pages) * ps
+        nxt = len(shared_pages)
+        if nxt < (S - 1) // ps and prefix_registry.locate(chain_keys[nxt]):
+          # Neither tier holds the next link, but a peer advertises it.
+          metrics.inc("kv_prefix_registry_hits_total", labels={"scope": "remote"})
       self.prefix_hit_pages += len(shared_pages)
       if shared_pages:
         metrics.inc("prefix_cache_hit_pages_total", len(shared_pages))
       self._note_admitted(req)
-      return "ready", _Ready(req=req, row=row, pad_to=0, prefix_len=prefix_len, shared_pages=shared_pages, new_pages=list(new_pages), chain_keys=chain_keys)
+      return "ready", _Ready(req=req, row=row, pad_to=0, prefix_len=prefix_len, shared_pages=shared_pages, new_pages=new_pages, chain_keys=chain_keys)
     except Exception as e:  # noqa: BLE001 — a failed request never blocks the pool
       for p in shared_pages:
         self.allocator.release(p)
       if new_pages:
+        # Still-private fresh pages (adopted restore targets moved into
+        # shared_pages and were released above).
         self.allocator.free(new_pages)
       if not req.future.done():
         req.future.set_exception(e)
@@ -788,20 +874,39 @@ class BatchedServer:
 
   # ----------------------------------------------------------- page lifecycle
 
-  def _release_pages(self, slot: _Slot) -> None:
+  def _release_pages(self, slot: _Slot, extend: bool | None = None) -> None:
     """Return a finished slot's pages: shared prefix refs drop; private FULL
     prompt pages are donated to the prefix cache; the rest (the partial
-    prompt tail and generated positions) free at once."""
+    prompt tail and generated positions) free at once.
+
+    Under the KV tier (``extend`` defaults to tier-on) the donation also
+    covers the row's GENERATED full pages: the chain keys extend over the
+    absorbed stream (prompt + new tokens), so a preempted row's resume and
+    a conversation's next turn find the whole history as a prefix, on the
+    device now and on the host once LRU pressure spills it."""
     for p in slot.shared_pages:
       self.allocator.release(p)
     n_shared = len(slot.shared_pages)
+    keys = slot.chain_keys
+    if extend is None:
+      extend = self.tier is not None
+    if extend and slot.pos // self.page_size > len(keys):
+      new_toks = slot.out_tokens[len(slot.req.carry_tokens):]
+      absorbed = np.concatenate([slot.req.tokens, np.asarray(new_toks, np.int64)]) if new_toks else slot.req.tokens
+      # Positions [0, pos) hold exactly the KV of absorbed[:pos]; only FULL
+      # pages are donatable.
+      keys = PageAllocator.chain_keys_extend(keys, absorbed[: (slot.pos // self.page_size) * self.page_size], self.page_size)
     to_free = []
+    donated = []
     for i, p in enumerate(slot.pages):
       logical = n_shared + i
-      if logical < len(slot.chain_keys) and self.allocator.insert_cached(slot.chain_keys[logical], p):
+      if logical < len(keys) and self.allocator.insert_cached(keys[logical], p):
+        donated.append(keys[logical])
         continue
       to_free.append(p)
     self.allocator.free(to_free)
+    if donated and self.tier is not None:
+      prefix_registry.note(donated)  # this node now holds these chains
     if slot.shared_pages or slot.pages:
       metrics.inc("page_release_events_total")
     slot.shared_pages, slot.pages = [], []

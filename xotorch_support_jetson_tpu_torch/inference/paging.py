@@ -3,9 +3,11 @@ its content-keyed prefix cache, and the block math the scheduler sizes the
 pool with. Own copy of the part of the reference's ``inference/paging.py``
 the batched serving slice uses (``PageAllocator``, ``pages_to_cover``,
 ``kv_cache_bytes``, and the mixed-tick budget policy
-``select_mixed_budget``). The reference's decode-path and page-tile tables are
-TPU measurements and are not carried over: on a CUDA tensor the port's
-paged decode always takes its kernel (ops/paged.py).
+``select_mixed_budget``), with the host KV tier's hooks on the allocator
+(``spill_hook``, ``chain_keys_extend``, ``is_cached``, ``adopt_restored``).
+The reference's decode-path and page-tile tables are TPU measurements and
+are not carried over: on a CUDA tensor the port's paged decode always takes
+its kernel (ops/paged.py).
 """
 
 from __future__ import annotations
@@ -53,6 +55,10 @@ class PageAllocator:
     self._by_key: dict[bytes, int] = {}  # chain key -> cached page
     self._key_of: dict[int, bytes] = {}  # cached page -> chain key
     self._lru: OrderedDict[int, None] = OrderedDict()  # refcount-0 cached pages
+    # Host KV tier spill hook (inference/kv_tier.py): called with the whole
+    # batch of (chain_key, page) pairs an eviction run frees, BEFORE the
+    # pages return to the free list, so the tier can copy them out first.
+    self.spill_hook = None
 
   # ------------------------------------------------------------- allocation
 
@@ -66,9 +72,17 @@ class PageAllocator:
     """Free pages plus idle cached pages (evicted on demand)."""
     return len(self._free) + len(self._lru)
 
+  def cached_keys(self) -> list[bytes]:
+    """Chain keys currently device-cached, newest first (insertion order:
+    donations append as requests finish) — the device half of the server's
+    prefix advertisement; the host half lives in the KV tier."""
+    return list(reversed(self._by_key))
+
   def alloc(self, n: int) -> list[int] | None:
     """n fresh private pages, evicting idle cached pages (oldest first) if
-    needed; None if even eviction can't cover it (caller backpressures)."""
+    needed; None if even eviction can't cover it (caller backpressures).
+    Evictions run as one batch, so the spill hook's device gather and host
+    copy are one operation, not one per page."""
     if n > self.n_available:
       return None
     if len(self._free) < n:
@@ -82,12 +96,18 @@ class PageAllocator:
       self._free.append(p)
 
   def _evict(self, n: int) -> None:
+    batch: list[tuple[bytes, int]] = []
     for _ in range(n):
       page, _ = self._lru.popitem(last=False)
       key = self._key_of.pop(page)
       del self._by_key[key]
       self._refs.pop(page, None)
-      self._free.append(page)
+      batch.append((key, page))
+    if self.spill_hook is not None:
+      # The hook's gather is enqueued on the compute stream before any later
+      # dispatch can reuse these pages, so the copy reads the cached bytes.
+      self.spill_hook(batch)
+    self._free.extend(p for _, p in batch)
 
   # ----------------------------------------------------------- prefix cache
 
@@ -95,10 +115,19 @@ class PageAllocator:
   def chain_keys(tokens, page_size: int) -> list[bytes]:
     """Cumulative content keys for each FULL page of ``tokens``: key i
     hashes key i-1 with page i's token ids (int64 bytes)."""
+    return PageAllocator.chain_keys_extend([], tokens, page_size)
+
+  @staticmethod
+  def chain_keys_extend(prev_keys: list[bytes], tokens, page_size: int) -> list[bytes]:
+    """Extend a chain-key list over a LONGER token sequence, carrying the
+    running hash forward from ``prev_keys[-1]`` (O(new tokens)).
+    ``prev_keys`` must be the chain of ``tokens[: len(prev_keys) *
+    page_size]``. The release path uses it to donate a row's generated pages
+    under the keys a later admission of the same stream computes."""
     arr = np.asarray(tokens, dtype=np.int64)  # normalize dtype: same ids -> same bytes
-    keys: list[bytes] = []
-    prev = b""
-    for i in range(len(arr) // page_size):
+    keys = list(prev_keys)
+    prev = keys[-1] if keys else b""
+    for i in range(len(keys), len(arr) // page_size):
       prev = hashlib.blake2b(prev + arr[i * page_size : (i + 1) * page_size].tobytes(), digest_size=16).digest()
       keys.append(prev)
     return keys
@@ -134,11 +163,29 @@ class PageAllocator:
     self._lru[page] = None
     return True
 
+  def is_cached(self, key: bytes) -> bool:
+    """Whether ``key``'s page is device-cached (referenced or idle). A
+    chain's suffix can outlive its evicted prefix in the LRU; the host
+    restore stops its run at the first such key."""
+    return key in self._by_key
+
+  def adopt_restored(self, key: bytes, page: int) -> None:
+    """Register a host-tier restore target as a CACHED page with one reader
+    (the restoring request, which releases it exactly once like any
+    ``lookup_prefix`` hit). The page was allocated private and written with
+    the key's content, so later admissions share it at once."""
+    if key in self._by_key:
+      raise ValueError("restore raced an identical cached chain")
+    self._by_key[key] = page
+    self._key_of[page] = key
+    self._refs[page] = 1
+
   def audit(self) -> dict:
     """Internal-consistency check: every pool page is in exactly one of
-    {free, cached-idle (LRU), cached-referenced, caller-held private}; the
-    first three are visible here, so ``free + cached == n_pages - 1 -
-    in_use`` must hold for the caller's private count."""
+    {free, cached-idle (LRU), cached-referenced (prefix hits and restored
+    pages), caller-held private}; the first three are visible here, so
+    ``free + cached == n_pages - 1 - in_use`` must hold for the caller's
+    private count."""
     free = set(self._free)
     assert len(free) == len(self._free), "double-freed page on the free list"
     cached = set(self._key_of)

@@ -148,6 +148,11 @@ class QosConfig:
   aging_s: float = 30.0  # anti-starvation aging constant (<= 0: strict priority)
   shed_margin: float = 1.0  # shed when estimate * margin > deadline
   preempt: bool = True  # preempt lower-priority resident rows under pressure
+  # With the host KV tier on, a preemption victim's pages (prompt and
+  # generated) are donated under extended chain keys, so its resume
+  # transfers them back instead of recomputing the prefill. Off
+  # (XOT_TPU_QOS_PREEMPT_SPILL=0) forces the recompute resume.
+  preempt_spill: bool = True
   tenants: dict = field(default_factory=dict)  # name -> {rps, tps, weight}
 
   @classmethod
@@ -174,6 +179,7 @@ class QosConfig:
       aging_s=_f("XOT_TPU_QOS_AGING_S", 30.0),
       shed_margin=max(_f("XOT_TPU_QOS_SHED_MARGIN", 1.0), 0.0),
       preempt=os.getenv("XOT_TPU_QOS_PREEMPT", "1") not in ("0", "false"),
+      preempt_spill=os.getenv("XOT_TPU_QOS_PREEMPT_SPILL", "1") not in ("0", "false"),
       tenants=overrides,
     )
 

@@ -374,8 +374,14 @@ class TorchShardedInferenceEngine(InferenceEngine):
     return self._batched_server
 
   def _drop_batched_server(self) -> None:
-    """Stop the old server's loop so its page pool frees (model swap)."""
+    """Stop the old server's loop so its page pool frees (model swap). Its
+    KV tier's host store clears with it (``shutdown``) and the local prefix
+    advertisement is withdrawn: after a swap the same token chains hold
+    another model's KV."""
     if self._batched_server is not None:
       self._batched_server.shutdown()
+      from .kv_tier import prefix_registry
+
+      prefix_registry.clear_local()
     self._batched_server = None
     self._batch_ops = None

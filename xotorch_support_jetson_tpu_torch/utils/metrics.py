@@ -7,6 +7,11 @@ batched server records its latencies here (TTFT, inter-token latency, queue
 wait, chunk times), the QoS deadline estimator and the mixed-tick budget
 read them back (``quantile``, ``gauge_value``), the SLO engine windows them
 with ``snapshot``/``snapshot_delta``, and ``GET /metrics`` renders them.
+The host KV tier (inference/kv_tier.py) records its traffic under the
+reference's names (``kv_tier_spilled_pages_total``, ``_restored_pages_total``,
+``_host_pages`` ...) plus two counters of its own,
+``kv_tier_spill_failures_total`` and ``kv_tier_restore_failures_total``
+(labelled with the exception's class).
 The cluster merge of peer snapshots is not ported (there is no ring yet).
 """
 
@@ -20,6 +25,9 @@ from collections import defaultdict
 DEFAULT_BUCKETS = (
   0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
 )
+
+# Count ladder for size-valued histograms (pages per KV-tier restore).
+SIZE_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0)
 
 # Unit-interval ladder for fraction-valued histograms.
 FRACTION_BUCKETS = (0.05, 0.1, 0.15, 0.2, 0.3, 0.4, 0.5, 0.55, 0.6, 0.7, 0.8, 0.9, 0.95, 1.0)
