@@ -15,7 +15,10 @@ Phases (any failure exits non-zero and prints no result):
    int8 K/V, four batched rows behind a shared prefix and hd 128; K4: the
    five projection shapes at T = 1, 8, 128, 512, and one row with f32 x;
    K1 also at the mixed-tick slice shapes, B=1, Sq 16 / 256 / 1024 at
-   offsets 2048 / 3072 / 1024):
+   offsets 2048 / 3072 / 1024; K3 also on the verify window of batched
+   speculation, B=8 rows × W=9 positions flattened into one launch, rows
+   starting at 150..600 and at 1..4087, with W=1 over the same rows beside
+   it):
    error, kernel / plain / library time and the card's bound (K1's library
    call is SDPA on the live slots with causal masking, the fastest backend
    that runs); K4's per-decode-step sums, and torch.profiler's count of
@@ -47,14 +50,15 @@ Phases (any failure exits non-zero and prints no result):
    and the int4 prefill (K4, and XOT_TPU_INT4_KERNEL=0);
 6. batched serving — the same checkpoint through the daemon with
    XOT_TPU_BATCHED=1 (8 slots, 64-token pages, cache 4096) at the batched
-   server's defaults, QoS admission and mixed prefill+decode ticks on,
-   first with XOT_TPU_QUANT=int4 weights and bf16 pages, then on bf16
-   weights: 16
+   server's defaults, draft-free n-gram speculation, QoS admission and
+   mixed prefill+decode ticks on, first with XOT_TPU_QUANT=int4 weights
+   and bf16 pages, then on bf16 weights: 16
    streaming greedy requests sharing a 128-token system prefix (prompts
    166–550 tokens, answers 29–64 tokens) in two waves, the second eight
    sent once the first eight stream, once per KV pool type (bf16, int8,
-   int4); then bf16 again with XOT_TPU_MIXED_TICK=0, and with QoS and the
-   SLO engine off as well (the FIFO scheduler); then a priority pass
+   int4), and bf16 once more with XOT_TPU_SPEC_BATCH=0; then bf16 again
+   with XOT_TPU_MIXED_TICK=0, and with QoS and the SLO engine off as well
+   (the FIFO scheduler); then a priority pass
    (12 ``batch`` requests, then 4 ``interactive`` ones once 8 batch rows
    stream), last because the process's SLO engine keeps the burn its
    interactive requests leave.
@@ -77,13 +81,25 @@ Phases (any failure exits non-zero and prints no result):
    width (``fused_mixed_paged_batch_decode``: 8 decode rows, a 200-token
    slice at offset 1024) must agree with the alternating equivalent
    within 5e-2 relative L2 and launch K1 and K3 once per layer;
-   ``torch.profiler`` splits a decode chunk, and a mixed chunk, into host
-   and device time. The batched server runs its host KV tier by default:
+   ``torch.profiler`` splits a decode chunk, a mixed chunk and a spec
+   chunk into host and device time. The batched server runs its host KV
+   tier by default:
    every pass logs its spilled and restored pages (the 513-page pools of
    these passes never evict), fails on a spill or restore failure, and
    the priority pass fails unless every preempted row's resume admits with
    all the full pages of its absorbed stream (prompt and generated tokens)
-   as a prefix;
+   as a prefix. Each pass logs its spec dispatches (``[batched] pass=...
+   spec:`` lines: depth caps, the K3 / K4 launches inside them, accepted
+   and proposed tokens by proposer from the registry): the default bf16
+   pass fails without a spec dispatch, the XOT_TPU_SPEC_BATCH=0 pass with
+   one, and any pass whose spec dispatch did not launch K3 once per layer
+   per round (K4 on int4 weights); the two bf16 passes' aggregate tok/s,
+   TTFT, decode rates and the share of greedy tokens they agree on are
+   reported, not gated. The verify window at full width (B=8 at lengths
+   150..600, W=9), per pool type: through K3 against the gather route and
+   against 9 single-token steps within 5e-2 relative L2, K3 once per
+   layer; and one spec chunk fed the plain 72-step greedy streams as its
+   proposals (8 rounds, depth 8) must accept at least 0.9 of them;
 7. tiered batched serving — run before the bf16 batched passes (the
    priority pass leaves an interactive burn that would slice its long
    prompts at the smallest budget), the batched daemon at the defaults
@@ -262,6 +278,7 @@ def phase_kernels(torch):
   results = {"flash_prefill": flash_prefill_rows(torch, gen)}
   results["flash_decode"] = flash_decode_rows(torch, gen, Hq, Hkv, hd)
   results["paged_decode"] = paged_kernel_rows(torch, gen, Hq, Hkv, hd)
+  results["paged_window"] = paged_window_rows(torch, gen, Hq, Hkv, hd)
   results["int4_matmul"] = int4_kernel_rows(torch, gen)
   results["int4_matmul_bound"] = int4_matmul_bound(results["int4_matmul"])
   return results
@@ -648,6 +665,92 @@ def paged_kernel_rows(torch, gen, Hq, Hkv, hd):
         raise SystemExit(f"chip_smoke: paged_decode lengths={lengths} kv={kv}: {row['device_kernels_per_call']} device kernels per call, expected 1")
       rows.append(row)
       log(f"[kernels] paged_decode B={B} lengths={lengths if B == 1 else 'mixed 1..4096'} kv={kv} page={PAGE} mp={mp}: max|err| {err:.3e} ({used:.3f} of the bound atol {K3_ATOL} + rtol 2^-7·|ref|) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | sdpa (pre-gathered window) {row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']}, {nbytes / 1e6:.2f} MB) | {row['device_kernels_per_call']} device kernel per call")
+  return rows
+
+
+VERIFY_W = 9  # the batched speculation's verify window: XOT_TPU_SPEC_NGRAM_MAX (8) + 1
+
+
+def paged_window_rows(torch, gen, Hq, Hkv, hd):
+  """K3 on the verify window of batched speculation, flattened as the spec
+  chunk calls it (``ops/paged.py paged_window_attention``): B=8 rows × W=9
+  window positions = 72 single-query rows in ONE launch, each with its own
+  length (position + 1) over its row's table, per pool type. Rows start at
+  150..600 (the batched traffic) and at 1..4087 (window ends up to the 4096
+  cache). Held elementwise to K3's bound against the gather route
+  (``paged_window_attention_ref``). Beside the time: the bound (each row's
+  live KV read once, though the flattened call reads it W times, mostly
+  from L2), SDPA over the gathered windows with the same per-query masks,
+  and W = 1 (one K3 call over the same rows at their window ends) for the
+  ratio to W single-query launches."""
+  import torch.nn.functional as F
+
+  from xotorch_support_jetson_tpu_torch.models.quantize import quantize_kv, quantize_kv_int4, unpack_int4_kv
+  from xotorch_support_jetson_tpu_torch.ops import paged
+
+  mp, W = CACHE // PAGE, VERIFY_W
+  rows = []
+  for starts in ([int(x) for x in np.linspace(150, 600, BATCH_SLOTS)], [1, 64, 65, 777, 1500, 2048, 3333, CACHE - W]):
+    B = len(starts)
+    ends = [n + W for n in starts]
+    P = B * mp + 1
+    q = _rand(torch, (B, W, Hq, hd), gen, torch.bfloat16)
+    k_f = _rand(torch, (P, Hkv, PAGE, hd), gen, torch.bfloat16)
+    v_f = _rand(torch, (P, Hkv, PAGE, hd), gen, torch.bfloat16)
+    ids = torch.randperm(P - 1, generator=gen, device="cuda").to(torch.int32).add_(1).reshape(B, mp)
+    valid = torch.arange(mp, device="cuda")[None, :] < torch.tensor([-(-n // PAGE) for n in ends], device="cuda")[:, None]
+    bt = torch.where(valid, ids, torch.full_like(ids, 1 << 30))  # junk past each row's pages
+    bt_clean = torch.where(valid, ids, torch.zeros_like(ids))
+    positions = torch.tensor(starts, dtype=torch.int32, device="cuda")[:, None] + torch.arange(W, dtype=torch.int32, device="cuda")[None, :]
+    btw = paged.window_block_tables(bt, W)
+    q_flat, lens_flat = q.reshape(B * W, Hq, hd), (positions + 1).reshape(-1).contiguous()
+    ends_t = torch.tensor(ends, dtype=torch.int32, device="cuda")
+    for kv in KV_MODES:
+      k, v, scales = k_f, v_f, {}
+      if kv != "bf16":
+        quant = quantize_kv_int4 if kv == "int4" else quantize_kv
+        (k, ks), (v, vs) = quant(k_f), quant(v_f)
+        scales = dict(k_scale_pool_l=ks, v_scale_pool_l=vs)
+      before = paged.LAUNCHES["paged_decode"]
+      got = paged.paged_window_attention(q, k, v, btw, positions, PAGE, **scales)
+      torch.cuda.synchronize()
+      launches = paged.LAUNCHES["paged_decode"] - before
+      want = paged.paged_window_attention_ref(q, k, v, bt_clean, positions, PAGE, **scales)
+      diff = (got.float() - want.float()).abs()
+      err = diff.max().item()
+      used = (diff / (K3_ATOL + K3_RTOL * want.float().abs())).max().item()
+      if launches != 1 or not torch.isfinite(got).all() or not used <= 1.0:
+        raise SystemExit(f"chip_smoke: the verify window through K3 (starts={starts} kv={kv}): {launches} launches, max|err| {err}, {used:.2f}x the bound atol {K3_ATOL} + rtol {K3_RTOL}·|ref|")
+      elem = {"bf16": 2.0, "int8": 1.0, "int4": 0.5}[kv]
+      kv_bytes = 2 * sum(ends) * Hkv * (hd * elem + (4 if kv != "bf16" else 0))  # each row's live K and V once
+      nbytes = kv_bytes + 2 * B * W * Hq * hd * 2 + sum(-(-n // PAGE) for n in ends) * 4 + B * W * 4
+      flops = 4 * hd * Hq * int((positions + 1).sum())  # every query over its own length
+      bound_flops, bound_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+      # Yardstick (the port never calls it): SDPA over each row's window
+      # gathered and dequantized to bf16 beforehand, the W queries masked
+      # each at its own position; the gather is outside the timing.
+      kd, vd = paged.gather_pages(k, bt_clean), paged.gather_pages(v, bt_clean)
+      if kv != "bf16":
+        if kv == "int4":
+          kd, vd = unpack_int4_kv(kd), unpack_int4_kv(vd)
+        kd = (kd.float() * paged.gather_pages(scales["k_scale_pool_l"], bt_clean)).to(torch.bfloat16)
+        vd = (vd.float() * paged.gather_pages(scales["v_scale_pool_l"], bt_clean)).to(torch.bfloat16)
+      qt, kt, vt = q.transpose(1, 2).contiguous(), kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+      mask = (torch.arange(mp * PAGE, device="cuda")[None, None, :] <= positions[:, :, None])[:, None]
+      row = dict(
+        B=B, W=W, starts=starts, kv=kv, max_abs_err=err, tol=dict(atol=K3_ATOL, rtol=K3_RTOL), tol_used=used, launches_per_call=launches,
+        ms=_cuda_ms(torch, lambda: paged.paged_decode_attention(q_flat, k, v, btw, lens_flat, PAGE, **scales)),
+        w1_ms=_cuda_ms(torch, lambda: paged.paged_decode_attention(q[:, -1].contiguous(), k, v, bt, ends_t, PAGE, **scales)),
+        plain_ms=_cuda_ms(torch, lambda: paged.paged_window_attention_ref(q, k, v, bt_clean, positions, PAGE, **scales), iters=10),
+        library_ms=_cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+        library="sdpa over the pre-gathered bf16 windows, per-query position masks (gather and dequant not timed)",
+        bound_ms=max(bound_flops, bound_bytes), bound_by="operations" if bound_flops >= bound_bytes else "bytes",
+      )
+      row["device_kernels_per_call"], _ = _kernels_per_call(torch, lambda: paged.paged_decode_attention(q_flat, k, v, btw, lens_flat, PAGE, **scales))
+      if row["device_kernels_per_call"] != 1:
+        raise SystemExit(f"chip_smoke: the flattened verify call (kv={kv}): {row['device_kernels_per_call']} device kernels per call, expected 1")
+      rows.append(row)
+      log(f"[kernels] paged_decode verify window B={B} W={W} starts={'150..600' if starts[0] == 150 else '1..' + str(starts[-1])} kv={kv}: one launch over {B * W} rows | max|err| {err:.3e} ({used:.3f} of the bound) | kernel {row['ms']:.4f} ms (W=1 over the same rows {row['w1_ms']:.4f} ms, ratio {row['ms'] / row['w1_ms']:.2f} against W={W}) | plain {row['plain_ms']:.4f} ms | sdpa (gathered windows, per-query masks) {row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']}, live KV once, {nbytes / 1e6:.2f} MB)")
   return rows
 
 
@@ -1150,15 +1253,16 @@ def _pctl(xs, q):
 
 
 # Batched daemon passes: (name, KV pool type, environment). On bf16 weights:
-# the defaults (QoS and mixed ticks on) per pool type, the same bf16 pass
-# with XOT_TPU_MIXED_TICK=0 (the alternating schedule it replaces), with QoS
-# and the SLO engine off as well (the FIFO scheduler of earlier slices), and
-# the priority pass (12 batch requests, then 4 interactive ones).
+# the defaults (batched n-gram speculation, QoS and mixed ticks on) per pool
+# type, the same bf16 pass with XOT_TPU_SPEC_BATCH=0 (no speculation), with
+# XOT_TPU_MIXED_TICK=0 (the alternating schedule mixed ticks replace), with
+# QoS and the SLO engine off as well (the FIFO scheduler of earlier slices),
+# and the priority pass (12 batch requests, then 4 interactive ones).
 BATCHED_PASSES = [
-  ("bf16", "", {}), ("int8", "int8", {}), ("int4", "int4", {}), ("bf16_alternating", "", {"XOT_TPU_MIXED_TICK": "0"}),
+  ("bf16", "", {}), ("bf16_nospec", "", {"XOT_TPU_SPEC_BATCH": "0"}), ("int8", "int8", {}), ("int4", "int4", {}), ("bf16_alternating", "", {"XOT_TPU_MIXED_TICK": "0"}),
   ("bf16_fifo", "", {"XOT_TPU_MIXED_TICK": "0", "XOT_TPU_QOS": "0", "XOT_TPU_SLO": "0"}), ("bf16_priority", "", {}),
 ]
-PASS_KNOBS = ("XOT_TPU_MIXED_TICK", "XOT_TPU_QOS", "XOT_TPU_SLO")
+PASS_KNOBS = ("XOT_TPU_MIXED_TICK", "XOT_TPU_QOS", "XOT_TPU_SLO", "XOT_TPU_SPEC_BATCH")
 
 
 def phase_batched(torch, ckpt: Path, weights: str = "bf16"):
@@ -1199,6 +1303,29 @@ def _spy_mixed(engine, fa, paged, slices):
   return lambda: delattr(ops, "mixed_paged_batch_decode")
 
 
+def _spy_spec(engine, paged, k4, records):
+  """Record each spec dispatch (its depth cap, the rows that proposed) and
+  the K3 / K4 launches made inside it, until the returned function removes
+  the spy."""
+  ops = engine.batch_ops
+  orig = ops.spec_paged_batch_decode
+
+  def spy(*args, **kw):
+    k3, n4 = paged.LAUNCHES["paged_decode"], k4.LAUNCHES["int4_matmul"]
+    out = orig(*args, **kw)
+    pc = kw.get("prop_counts")
+    records.append(dict(gmax=int(args[10]), rounds=int(args[9]), proposing=0 if pc is None else int((np.asarray(pc) > 0).sum()), k3=paged.LAUNCHES["paged_decode"] - k3, k4=k4.LAUNCHES["int4_matmul"] - n4))
+    return out
+
+  ops.spec_paged_batch_decode = spy
+  return lambda: delattr(ops, "spec_paged_batch_decode")
+
+
+def _by_label(delta, name, label):
+  """A labelled counter's growth in a registry delta, by one label's value."""
+  return {dict(map(tuple, k)).get(label): v for k, v in delta["labeled_counters"].get(name, [])}
+
+
 async def _serve_batched(torch, tmain, args, port, weights):
   from concurrent.futures import ThreadPoolExecutor
 
@@ -1229,6 +1356,8 @@ async def _serve_batched(torch, tmain, args, port, weights):
       bserver = engine.get_batched_server()
       slices: list[dict] = []
       unspy = _spy_mixed(engine, fa, paged, slices)
+      spec_records: list[dict] = []
+      unspy_spec = _spy_spec(engine, paged, k4, spec_records)
       admissions: list[dict] = []
       unspy_adm = _spy_admissions(bserver, admissions)
       hits0 = bserver.prefix_hit_pages
@@ -1253,6 +1382,7 @@ async def _serve_batched(torch, tmain, args, port, weights):
       replies = await asyncio.gather(*first, *second)
       wall = time.perf_counter() - t0
       unspy()
+      unspy_spec()
       unspy_adm()
       launches = {"flash_prefill": fa.LAUNCHES["flash_prefill"], "flash_decode": fa.LAUNCHES["flash_decode"], "paged_decode": paged.LAUNCHES["paged_decode"], "int4_matmul": k4.LAUNCHES["int4_matmul"]}  # ---- read just after
       two_dot = k4.CALLS["int4_two_dot"]
@@ -1271,12 +1401,19 @@ async def _serve_batched(torch, tmain, args, port, weights):
       # page of its absorbed stream as a prefix: its prompt's and the ones
       # its generated tokens filled (donated under extended chain keys).
       resumes = [dict(rid=a["rid"], tokens=len(a["tokens"]), carried=a["carry"], prefix=a["prefix"], full=((len(a["tokens"]) - 1) // PAGE) * PAGE) for a in admissions if a["carry"]]
-      reqs = []
+      spec = dict(
+        on=bserver.spec, proposers=list(bserver.spec_proposers), dispatches=len(spec_records), proposing_rows=sum(x["proposing"] for x in spec_records),
+        gmax=sorted({x["gmax"] for x in spec_records}), launches={"paged_decode": sum(x["k3"] for x in spec_records), "int4_matmul": sum(x["k4"] for x in spec_records)},
+        accepted=_by_label(delta, "spec_accepted_tokens_total", "proposer"), proposed=_by_label(delta, "spec_proposed_tokens_total", "proposer"),
+        chunks_by_path=_by_label(delta, "decode_chunks_total", "path"), tokens_by_path=_by_label(delta, "decode_tokens_total", "path"),
+      )
+      reqs, streams = [], []
       for (text, finish, ttft, total, n_events, rid), b in zip(replies, bodies):
         toks = ids.get(rid, [])
         if not toks or len(toks) > b["max_tokens"] or finish not in ("stop", "length") or (finish == "length" and len(toks) != b["max_tokens"]):
           raise SystemExit(f"chip_smoke: batched {name}: request {rid} gave {len(toks)} of {b['max_tokens']} tokens, finish {finish}")
         reqs.append(dict(rid=rid, priority=b.get("priority", "standard"), tokens=len(toks), ttft_s=ttft, total_s=total, decode_tok_s=(len(toks) - 1) / max(total - ttft, 1e-9), user_bytes=len(b["messages"][1]["content"])))
+        streams.append(list(toks))
       n_tok = sum(r["tokens"] for r in reqs)
       res = dict(
         weights=weights, kv=quant or "bf16", env=env, requests=len(reqs), wall_s=wall, tokens=n_tok, aggregate_tok_s=n_tok / wall,
@@ -1287,7 +1424,7 @@ async def _serve_batched(torch, tmain, args, port, weights):
         budget_from=budget_from, interactive_burn=dict(start=burn0, end=burn1), endpoints=endpoints,
         kv_tier=tiered, resumes=resumes, mixed_slices=slices, mixed_launches={"flash_prefill": sum(x["k1"] for x in slices), "paged_decode": sum(x["k3"] for x in slices)},
         ttft_p50_by_class={c: _pctl([r["ttft_s"] for r in reqs if r["priority"] == c], 0.5) for c in sorted({r["priority"] for r in reqs})},
-        per_request=reqs,
+        spec=spec, per_request=reqs, streams=streams,
       )
       need_k1 = quant != "int4"  # int4 pages prefill through the plain attention, as the reference gates K1
       need_k4 = weights == "int4"
@@ -1304,6 +1441,16 @@ async def _serve_batched(torch, tmain, args, port, weights):
         raise SystemExit(f"chip_smoke: batched {name}: no slo_burn_rate gauge when the pass began (the node's SLO tick task did not run)")
       if env.get("XOT_TPU_MIXED_TICK") == "0" and (mixed or slices):
         raise SystemExit(f"chip_smoke: batched {name}: {mixed} mixed dispatches with XOT_TPU_MIXED_TICK=0")
+      spec_off = env.get("XOT_TPU_SPEC_BATCH") == "0"
+      if spec["on"] == spec_off or (not spec_off and spec["proposers"] != ["ngram"]):
+        raise SystemExit(f"chip_smoke: batched {name}: speculation {spec['on']} with proposers {spec['proposers']} (the default is draft-free n-gram speculation)")
+      if spec_off and spec_records:
+        raise SystemExit(f"chip_smoke: batched {name}: {len(spec_records)} spec dispatches with XOT_TPU_SPEC_BATCH=0")
+      if name == "bf16" and weights == "bf16" and not spec_records:
+        raise SystemExit(f"chip_smoke: batched {weights} weights, default bf16 pass: no spec dispatch")
+      off_k3 = [x for x in spec_records if x["k3"] != engine.cfg.n_layers * x["rounds"] or (x["k4"] == 0) == (weights == "int4")]
+      if off_k3:  # every round's verify window through K3 once per layer (and K4 on int4 weights)
+        raise SystemExit(f"chip_smoke: batched {name}: spec dispatches off their kernels: {off_k3[:4]}")
       if priority and preemptions < 1:
         raise SystemExit(f"chip_smoke: batched {name}: no preemption (interactive requests arrived while {BATCH_SLOTS} batch rows streamed)")
       if not tiered["on"] or any(tiered["failures"].values()) or len(resumes) != preemptions or any(r["prefix"] != r["full"] for r in resumes):
@@ -1312,6 +1459,7 @@ async def _serve_batched(torch, tmain, args, port, weights):
         raise SystemExit(f"chip_smoke: batched {name}: the server did not drain: {bserver.allocator.audit()}")
       passes[name] = res
       pads = sorted({x["pad"] for x in slices})
+      log(f"[batched] pass={name} spec: on {spec['on']} | {spec['dispatches']} spec dispatches (depth caps {spec['gmax']}, {spec['proposing_rows']} proposing rows in all; launches inside them {spec['launches']}) | accepted {spec['accepted']} of proposed {spec['proposed']} tokens by proposer | decode chunks by path {spec['chunks_by_path']}, tokens by path {spec['tokens_by_path']}")
       log(f"[batched] weights={weights} pass={name} kv={res['kv']}{' ' + str(env) if env else ''}: {len(reqs)} streaming requests, {n_tok} tokens in {wall:.3f} s: aggregate {res['aggregate_tok_s']:.1f} tok/s | TTFT p50 {res['ttft_p50_s']:.4f} s p95 {res['ttft_p95_s']:.4f} s | per-request decode p50 {res['decode_tok_s_p50']:.2f} tok/s (min {res['decode_tok_s_min']:.2f}) | launches {launches} | mixed dispatches {mixed} (slice pads {pads}, offsets {min((x['offset'] for x in slices), default=None)}..{max((x['offset'] for x in slices), default=None)}; launches inside them {res['mixed_launches']}) | preemptions {preemptions} | mixed budget from {budget_from} (interactive burn {burn0} -> {burn1}) | scheduler ms (registry, mean over the pass): {', '.join(f'{h} {v['mean_ms']} x{v['count']}' for h, v in sched.items())} | shared prefix pages {hits} | pool {res['pool_pages']} pages | host KV tier: spilled {tiered['spilled_pages']:.0f} restored {tiered['restored_pages']:.0f} pages, failures {tiered['failures']}")
       if endpoints is not None:
         log(f"[batched] pass={name}: GET /metrics and /v1/slo mid-pass: {endpoints}")
@@ -1321,6 +1469,15 @@ async def _serve_batched(torch, tmain, args, port, weights):
       os.environ.pop(knob, None)
     node.on_token.deregister("chip_smoke")
     out = dict(passes=passes)
+    if "bf16_nospec" in passes:
+      # Greedy tokens the speculating default pass and the XOT_TPU_SPEC_BATCH=0
+      # pass agree on, position by position (reported, not gated: bf16 sums
+      # of a 9-token window and of one token may round apart).
+      a, b = passes["bf16"]["streams"], passes["bf16_nospec"]["streams"]
+      same = sum(sum(1 for x, y in zip(s, t) if x == y) for s, t in zip(a, b))
+      out["spec_agreement"] = dict(tokens_agreeing=same, tokens=sum(max(len(s), len(t)) for s, t in zip(a, b)), share=same / max(sum(max(len(s), len(t)) for s, t in zip(a, b)), 1))
+      on, off = passes["bf16"], passes["bf16_nospec"]
+      log(f"[batched] speculation on (defaults) vs XOT_TPU_SPEC_BATCH=0, bf16: aggregate {on['aggregate_tok_s']:.1f} vs {off['aggregate_tok_s']:.1f} tok/s | TTFT p50 {on['ttft_p50_s']:.4f} vs {off['ttft_p50_s']:.4f} s, p95 {on['ttft_p95_s']:.4f} vs {off['ttft_p95_s']:.4f} s | per-request decode p50 {on['decode_tok_s_p50']:.2f} vs {off['decode_tok_s_p50']:.2f} tok/s | greedy tokens agreeing {out['spec_agreement']['share']:.3f}")
     if weights == "bf16":  # what one SLO tick costs (on the node's worker thread) over the registry these passes filled
       t = time.perf_counter()
       slo.slo_engine.tick()
@@ -1329,6 +1486,8 @@ async def _serve_batched(torch, tmain, args, port, weights):
     if weights == "bf16":
       out["check"] = check_batched_against_plain(torch, engine)
       log(f"[batched] one decode step through K3 vs the gather path on the same pool (rel L2 of logits): {out['check']}")
+      out["window_check"] = check_window_against_plain(torch, engine)
+      out["spec_chunk"] = check_spec_chunk_accepts(torch, engine)
       out["mixed_check"] = check_mixed_against_alternating(torch, engine)
       out["profile"] = profile_batched(torch, engine)
     return out
@@ -1408,6 +1567,94 @@ def check_batched_against_plain(torch, engine):
     # Same criterion as the solo check: bf16 over 16 layers, 5e-2 relative.
     if not res[kv]["rel_err"] < 5e-2:
       raise SystemExit(f"chip_smoke: batched decode step through K3 disagrees with the gather path ({kv}): {res[kv]}")
+  return res
+
+
+def check_window_against_plain(torch, engine):
+  """The verify window of batched speculation at full width, per pool type:
+  8 rows at lengths 150..600 (``_batched_rows``) each feed a W = 9 window
+  (its next token and 8 seeded ones). ``paged_window_forward`` through K3
+  must agree with the gather route on a copy of the pool, and with 9
+  successive single-token ``paged_decode_forward`` steps fed the same
+  tokens on another copy, within 5e-2 relative L2 of the logits (the
+  criterion of the batched step check); the launch counters, zeroed just
+  before the K3 window and read just after, must show K3 once per layer."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import paged_decode_forward, paged_window_forward
+  from xotorch_support_jetson_tpu_torch.ops import paged
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+  W = VERIFY_W
+  res = {}
+  for kv, quant in KV_MODES.items():
+    pool, bt, tok, lens = _batched_rows(torch, engine, quant=quant)
+    window = torch.cat([tok, torch.randint(0, 256, (BATCH_SLOTS, W - 1), generator=gen, device="cuda", dtype=torch.int32)], dim=1)
+    positions = lens[:, None] + torch.arange(W, dtype=torch.int32, device="cuda")[None, :]
+    copies = [{k: v.clone() for k, v in pool.items()} for _ in range(3)]
+    torch.cuda.synchronize()
+    paged.reset_launch_counts()
+    got, _ = paged_window_forward(params, cfg, shard, window, positions, copies[0], bt, PAGE, True)
+    torch.cuda.synchronize()
+    launches = paged.LAUNCHES["paged_decode"]
+    gathered, _ = paged_window_forward(params, cfg, shard, window, positions, copies[1], bt, PAGE, False)
+    steps = torch.cat([paged_decode_forward(params, cfg, shard, window[:, j : j + 1], positions[:, j : j + 1], copies[2], bt, PAGE, True)[0] for j in range(W)], dim=1)
+    if tuple(got.shape) != (BATCH_SLOTS, W, cfg.vocab_size) or not torch.isfinite(got).all():
+      raise SystemExit(f"chip_smoke: verify window logits: shape {tuple(got.shape)} or non-finite values")
+    res[kv] = dict(
+      rel_err_gather=_rel_err(got, gathered), rel_err_steps=_rel_err(got, steps), k3_launches=launches,
+      argmax_agree_steps=float((got.argmax(-1) == steps.argmax(-1)).float().mean()),
+    )
+    if not (res[kv]["rel_err_gather"] < 5e-2 and res[kv]["rel_err_steps"] < 5e-2) or launches != cfg.n_layers:
+      raise SystemExit(f"chip_smoke: the verify window through K3 ({kv}, B={BATCH_SLOTS}, W={W}) disagrees or is not one K3 launch per layer: {res[kv]}")
+  log(f"[batched] verify window B={BATCH_SLOTS} W={W} through K3 (rel L2 of logits against the gather route / against {W} single-token steps; K3 launches): {res}")
+  return res
+
+
+SPEC_ROUNDS, SPEC_GAMMA = 8, 8  # one spec chunk at the server's shape: XOT_TPU_BATCH_CHUNK rounds at depth XOT_TPU_SPEC_NGRAM_MAX
+
+
+def check_spec_chunk_accepts(torch, engine):
+  """One spec chunk that should accept (bf16 pool, 8 rows at lengths
+  150..600, 8 rounds at depth 8): a plain 72-step greedy decode on a copy
+  of the pool gives each row's stream, which ``fused_spec_paged_batch_decode``
+  on another copy takes as its proposals. Accepted over proposed must reach
+  0.9, and each row's emitted tokens must equal the plain stream up to the
+  row's first divergence (where a bf16 window sum and a single-token sum
+  round apart, the target's own greedy choice wins); the counters, zeroed
+  just before the chunk and read just after, must show K3 once per layer
+  per round."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import fused_paged_batch_decode, fused_spec_paged_batch_decode
+  from xotorch_support_jetson_tpu_torch.ops import paged
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  pool, bt, tok, lens = _batched_rows(torch, engine)
+  n = SPEC_ROUNDS * (SPEC_GAMMA + 1)
+  active = torch.ones(BATCH_SLOTS, dtype=torch.bool, device="cuda")
+  temps = torch.zeros(BATCH_SLOTS, dtype=torch.float32, device="cuda")
+  plain, _, _, _ = fused_paged_batch_decode(params, cfg, shard, tok, {k: v.clone() for k, v in pool.items()}, bt, lens, active, temps, n, page_size=PAGE)
+  gammas = torch.full((BATCH_SLOTS,), SPEC_GAMMA, dtype=torch.int32, device="cuda")
+  prop_counts = torch.full((BATCH_SLOTS,), n, dtype=torch.int32, device="cuda")
+  copy = {k: v.clone() for k, v in pool.items()}
+  torch.cuda.synchronize()
+  paged.reset_launch_counts()
+  buf, counts, n_prop, _, next_pos, _, _ = fused_spec_paged_batch_decode(
+    params, cfg, shard, None, None, None, tok, copy, None, bt, lens, active, gammas, temps, SPEC_ROUNDS, SPEC_GAMMA, page_size=PAGE, props=plain, prop_counts=prop_counts,
+  )
+  torch.cuda.synchronize()
+  launches = paged.LAUNCHES["paged_decode"]
+  counts_l, buf_h, plain_h = counts.tolist(), buf.cpu().numpy(), plain.cpu().numpy()
+  accepted, proposed = sum(c - SPEC_ROUNDS for c in counts_l), int(n_prop.sum())
+  divergences = []
+  for i, c in enumerate(counts_l):
+    diff = np.nonzero(buf_h[i, :c] != plain_h[i, :c])[0]
+    divergences.append(int(diff[0]) if len(diff) else None)
+  res = dict(accepted=accepted, proposed=proposed, acceptance=accepted / max(proposed, 1), counts=counts_l, first_divergence=divergences, k3_launches=launches, positions_advanced=(next_pos - lens).tolist())
+  log(f"[batched] spec chunk fed the plain greedy streams (B={BATCH_SLOTS}, {SPEC_ROUNDS} rounds, depth {SPEC_GAMMA}): accepted {accepted} of {proposed} proposed ({res['acceptance']:.3f}) | counts {counts_l} | first divergence from the plain stream {divergences} | K3 launches {launches}")
+  # A row leaves the stream at its first divergence and accepts nothing
+  # after it: its accepted tokens all lie before the divergence.
+  off_stream = [i for i, (c, d) in enumerate(zip(counts_l, divergences)) if d is not None and c - SPEC_ROUNDS > d]
+  if not res["acceptance"] >= 0.9 or launches != cfg.n_layers * SPEC_ROUNDS or res["positions_advanced"] != counts_l or off_stream:
+    raise SystemExit(f"chip_smoke: the accepting spec chunk: {res}")
   return res
 
 
@@ -1494,7 +1741,8 @@ def check_mixed_against_alternating(torch, engine):
 def profile_batched(torch, engine, steps=8):
   """One batched decode chunk (B=8, bf16 pool, prompts 150..600) through
   the engine's batch ops: with K3, with a mixed slice fused in (K1 + K3),
-  and with the gather path (XOT_TPU_PAGED_KERNEL=0)."""
+  as a spec chunk (8 rounds at depth 8), and with the gather path
+  (XOT_TPU_PAGED_KERNEL=0)."""
   pool, bt, tok, lens = _batched_rows(torch, engine)
   ops = engine.batch_ops
   active = torch.ones(BATCH_SLOTS, dtype=torch.bool, device="cuda")
@@ -1511,6 +1759,14 @@ def profile_batched(torch, engine, steps=8):
     lambda: ops.mixed_paged_batch_decode(mtok, mpool, mbt, mlens, active, temps, top_ks, steps, k_max=64, page_size=PAGE, key=SEED, **pf), 3,
   )
   del mpool
+  gammas = torch.full((BATCH_SLOTS,), SPEC_GAMMA, dtype=torch.int32, device="cuda")
+  # A spec chunk of the same rows: 8 rounds at depth 8, so each verify
+  # window is 9 tokens a row (the device work does not depend on what is
+  # proposed or accepted; zero proposals here).
+  out["spec_k3"] = _profile(
+    torch, f"spec chunk (K3 over B·W = {BATCH_SLOTS * (SPEC_GAMMA + 1)} window rows a layer), B={BATCH_SLOTS}, {steps} rounds at depth {SPEC_GAMMA}",
+    lambda: ops.spec_paged_batch_decode(tok, pool, None, bt, lens, active, gammas, temps, top_ks, steps, SPEC_GAMMA, k_max=64, page_size=PAGE, key=SEED), 3,
+  )
   os.environ["XOT_TPU_PAGED_KERNEL"] = "0"
   try:
     out["decode_gather"] = _profile(torch, f"batched decode chunk with the gather path, B={BATCH_SLOTS}, {steps} steps", chunk, 3)
@@ -1931,12 +2187,16 @@ def main() -> int:
   # types), the same with XOT_TPU_MIXED_TICK=0, the priority pass, and the
   # batched run on int4 weights (K1, K3, K4). Of the batched default runs'
   # launches, those inside mixed dispatches are listed apart as well.
+  # "batched_spec" is the part of every batched pass's launches made inside
+  # spec dispatches (K3, and K4 on int4 weights): a path of its own within
+  # those passes, so the total does not count it twice.
   bp = batched["passes"]
   paths = {
     "solo": [serving["launches"]], "solo_long_prompt": [serving["long"]["launches"]], "solo_quant": [q["launches"] for q in quant.values()],
-    "batched": [bp[k]["launches"] for k in ("bf16", "int8", "int4")], "batched_alternating": [bp["bf16_alternating"]["launches"]], "batched_fifo": [bp["bf16_fifo"]["launches"]],
-    "batched_priority": [bp["bf16_priority"]["launches"]], "batched_int4_weights": [p["launches"] for p in batched_int4["passes"].values()],
+    "batched": [bp[k]["launches"] for k in ("bf16", "int8", "int4")], "batched_nospec": [bp["bf16_nospec"]["launches"]], "batched_alternating": [bp["bf16_alternating"]["launches"]],
+    "batched_fifo": [bp["bf16_fifo"]["launches"]], "batched_priority": [bp["bf16_priority"]["launches"]], "batched_int4_weights": [p["launches"] for p in batched_int4["passes"].values()],
     "batched_tiered": [tiered["passes"]["tier_on"]["launches"]],
+    "batched_spec": [p["spec"]["launches"] for p in [*bp.values(), *batched_int4["passes"].values()]],
   }
   by_path = {name: {path: sum(x.get(name, 0) for x in runs) for path, runs in paths.items()} for name in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
   for name in ("flash_prefill", "paged_decode"):
@@ -1945,7 +2205,7 @@ def main() -> int:
   def entry(name, source, replaces, rows, head):
     r = rows[head]
     return {
-      "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sum(v for k, v in by_path[name].items() if not k.startswith("of_")),
+      "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sum(v for k, v in by_path[name].items() if not k.startswith("of_") and k != "batched_spec"),
       "launches_by_path": by_path[name],
       "max_abs_err": max(x["max_abs_err"] for x in rows), "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
       "bound_by": r["bound_by"], "library_ms": r["library_ms"], "at": {k: r[k] for k in r if k in ("Sq", "q_offset", "kv", "B", "positions", "cache", "lengths", "weight", "T", "d_in", "d_out")},
@@ -1955,8 +2215,10 @@ def main() -> int:
   kernels_line = {"kernels": [
     entry("flash_prefill", "xotorch_support_jetson_tpu_torch/csrc/flash_prefill.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:32", kern["flash_prefill"], 0),
     entry("flash_decode", "xotorch_support_jetson_tpu_torch/csrc/flash_decode.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:190", kern["flash_decode"], 0),
-    # Head row: B=8 at mixed lengths, bf16 pages (the batched path's geometry).
-    entry("paged_decode", "xotorch_support_jetson_tpu_torch/csrc/paged_decode.cu", "xotorch_support_jetson_tpu/ops/paged.py:236", kern["paged_decode"], 12),
+    # Head row: B=8 at mixed lengths, bf16 pages (the batched path's geometry);
+    # the verify-window rows' errors count too.
+    {**entry("paged_decode", "xotorch_support_jetson_tpu_torch/csrc/paged_decode.cu", "xotorch_support_jetson_tpu/ops/paged.py:236", kern["paged_decode"] + kern["paged_window"], 12),
+     "verify_window": {k: kern["paged_window"][0][k] for k in ("B", "W", "starts", "kv", "ms", "w1_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
     # Head row: one MLP projection (in 2048, out 8192) at T=1, solo decode;
     # the per-step sums are in chip_smoke.json's int4_matmul_bound.
     entry("int4_matmul", "xotorch_support_jetson_tpu_torch/csrc/int4_matmul.cu", "xotorch_support_jetson_tpu/ops/pallas_int4.py:36", kern["int4_matmul"], k4_head),

@@ -66,8 +66,8 @@ def _time_chunks(bs, bserver, rec):
   the wrappers."""
   plain_host, dispatch, settle = bs.to_host_async, bserver._dispatch_decode, bserver._settle
 
-  def host_async(t):
-    host, event = plain_host(t)
+  def host_async(*ts):
+    host, event = plain_host(*ts)
     return host, _TimedEvent(event, rec) if event is not None else None
 
   async def timed_dispatch(plan, inflight):

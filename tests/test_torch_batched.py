@@ -5,8 +5,9 @@ rtol = atol = 2e-4, greedy tokens identical, for bf16-layout, int8 and int4
 KV), the ``BatchedServer`` (greedy tokens identical to the JAX
 ``BatchedServer`` run with ``XOT_TPU_QOS=0 XOT_TPU_KV_TIER=0
 XOT_TPU_SPEC_BATCH=0 XOT_TPU_MIXED_TICK=0``, and to the port's solo path;
-the defaults, QoS, mixed ticks and the KV tier on, are held in
-test_torch_mixed_tick.py, test_torch_qos.py and test_torch_kv_tier.py),
+the defaults, QoS, mixed ticks, the KV tier and speculation on, are held
+in test_torch_mixed_tick.py, test_torch_qos.py, test_torch_kv_tier.py and
+test_torch_spec_batch.py),
 and the daemon with ``XOT_TPU_BATCHED=1`` over HTTP. Sizes are small: 2
 layers, width 64, 8-token pages."""
 
@@ -239,11 +240,24 @@ def test_batched_server_backpressure_and_oversized_prompts(model, knobs):
   asyncio.run(run())
 
 
-@pytest.mark.parametrize("knob,value", [("XOT_TPU_PAGED", "0"), ("XOT_TPU_PAGED", "auto"), ("XOT_TPU_SPEC_BATCH", "1"), ("XOT_TPU_SPEC_BATCH", "on")])
+@pytest.mark.parametrize("knob,value", [("XOT_TPU_PAGED", "0"), ("XOT_TPU_PAGED", "auto")])
 def test_unported_batched_features_refuse_at_build(model, knobs, knob, value):
   knobs.setenv(knob, value)
   with pytest.raises(NotImplementedError, match=knob):
     _port_server(model)
+
+
+@pytest.mark.parametrize("value", ["1", "on"])
+def test_spec_batch_knob_builds_a_speculating_server(model, knobs, value):
+  """``XOT_TPU_SPEC_BATCH`` no longer refuses: set on (with the n-gram
+  family on, its default), the server speculates draft-free with the n-gram
+  proposer (tests/test_torch_spec_batch.py holds it against the
+  reference)."""
+  knobs.setenv("XOT_TPU_SPEC_BATCH", value)
+  knobs.delenv("XOT_TPU_SPEC_NGRAM", raising=False)
+  server = _port_server(model)
+  server._ensure_cache()
+  assert server.spec and server.spec_proposers == ("ngram",)
 
 
 @pytest.mark.parametrize("value", ["1", "true"])

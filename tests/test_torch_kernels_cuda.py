@@ -8,6 +8,9 @@ head dims, page sizes and ragged matmul widths.
 The host KV tier's page copies round-trip byte-identically on every pool
 type, and K3 reads restored pages bit-identically.
 
+K3 also carries the verify window of batched speculation: B=8 rows × W=9
+positions flattened into one launch (``paged_window_attention``).
+
 K2 and K3 are also held at caches past 4096 and at windows that are not a
 whole number of cluster ranges, at GQA groups 1, 2 and 8, and to one device
 kernel and one allocation (the output) per call.
@@ -252,6 +255,25 @@ def test_paged_decode_matches_plain(dev, kv, lengths):
   assert paged.LAUNCHES["paged_decode"] == before + 1
   want = paged.paged_decode_attention_ref(q, k, v, bt_clean, lens, 64, **scales)
   assert torch.isfinite(got).all()
+  torch.testing.assert_close(got.float(), want.float(), **K3_TOL)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("starts", [[150, 214, 278, 342, 407, 471, 535, 600], [1, 64, 65, 777, 1500, 2048, 3333, 4087]])
+def test_paged_window_attention_is_one_k3_launch(dev, kv, starts):
+  """The verify window of batched speculation (B=8 rows × W=9 positions)
+  flattens into ONE K3 launch over 72 rows, each with its own length, and
+  equals its plain version (the gather route with per-query positions)."""
+  W = 9
+  _, k, v, bt, bt_clean, _, scales = _paged_case(dev, [n + W for n in starts], kv)
+  q = _rand((len(starts), W, 32, 64), 5, dev)
+  positions = torch.tensor(starts, dtype=torch.int32, device=dev)[:, None] + torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+  before = paged.LAUNCHES["paged_decode"]
+  got = paged.paged_window_attention(q, k, v, paged.window_block_tables(bt, W), positions, 64, **scales)
+  torch.cuda.synchronize()
+  assert paged.LAUNCHES["paged_decode"] == before + 1
+  want = paged.paged_window_attention_ref(q, k, v, bt_clean, positions, 64, **scales)
+  assert got.shape == (len(starts), W, 32, 64) and torch.isfinite(got).all()
   torch.testing.assert_close(got.float(), want.float(), **K3_TOL)
 
 

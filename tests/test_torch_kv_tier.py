@@ -13,8 +13,9 @@ seeded inputs; every comparison is exact:
   against the reference's ``gather_pages`` / ``scatter_pages``) on bf16,
   int8 and int4 pools: host entries byte-equal (bf16 as ``uint16``) and the
   pools equal after the restore;
-- the ``BatchedServer`` with the tier on (2 layers, width 64, f32 weights
-  from ``params_from_jax``, ``XOT_TPU_SPEC_BATCH=0`` on both sides, a small
+- the ``BatchedServer`` at the defaults with the tier on (2 layers, width
+  64, f32 weights from ``params_from_jax``, speculation on both sides but
+  for the multi-turn sessions, whose pool it would exhaust, a small
   ``XOT_TPU_BATCH_PAGES``): a preempted row resuming through a host
   restore (lookahead on and off, each KV quant), more open multi-turn
   sessions than slots parking through the host tier, a restore run that
@@ -356,9 +357,8 @@ def model():
 
 @pytest.fixture
 def knobs(monkeypatch):
-  for k in ("XOT_TPU_KV_TIER", "XOT_TPU_QOS", "XOT_TPU_MIXED_TICK", "XOT_TPU_MIXED_BUDGET", "XOT_TPU_KV_QUANT", "XOT_TPU_BATCH_PAGES", "XOT_TPU_QOS_PREEMPT_SPILL"):
+  for k in ("XOT_TPU_KV_TIER", "XOT_TPU_QOS", "XOT_TPU_MIXED_TICK", "XOT_TPU_MIXED_BUDGET", "XOT_TPU_KV_QUANT", "XOT_TPU_BATCH_PAGES", "XOT_TPU_QOS_PREEMPT_SPILL", "XOT_TPU_SPEC_BATCH", "XOT_TPU_SPEC_NGRAM"):
     monkeypatch.delenv(k, raising=False)
-  monkeypatch.setenv("XOT_TPU_SPEC_BATCH", "0")
   monkeypatch.setenv("XOT_TPU_PAGE_SIZE", "4")
   return monkeypatch
 
@@ -479,6 +479,10 @@ def _sessions_run(model, pkg: str) -> tuple:
 
 def test_open_sessions_exceed_slots_with_host_parking_like_the_reference(model, knobs):
   knobs.setenv("XOT_TPU_BATCH_PAGES", "13")
+  # Speculation's worst-case page headroom (chunk·(gamma_max+1) tokens a
+  # row) exhausts this 12-page pool in both packages alike, so the pin
+  # stays on both sides here.
+  knobs.setenv("XOT_TPU_SPEC_BATCH", "0")
   got, want = _sessions_run(model, "port"), _sessions_run(model, "jax")
   assert got == want
   results, deltas = got

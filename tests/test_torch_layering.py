@@ -32,6 +32,12 @@ def test_port_imports_nothing_of_jax(path):
   assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_scan_covers_the_own_copies():
+  """The port's own copies of JAX-free reference modules are scanned too."""
+  scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+  assert {"inference/ngram.py", "inference/paging.py", "inference/kv_tier.py", "inference/qos.py"} <= scanned
+
+
 def test_forbidden_matcher():
   assert _forbidden("xotorch_support_jetson_tpu.models.config")
   assert _forbidden("jax.numpy")

@@ -10,9 +10,9 @@ CPU, on identical weights (JAX ``init_shard_params`` → numpy →
   slice untouched, and the logits of a final prefill over the slice's
   pages within 2e-4 of the reference's over the same pages — for
   bf16-layout, int8 and int4 KV;
-- the port's ``BatchedServer`` at the defaults (QoS, mixed ticks and the
-  host KV tier on, a pinned budget) against the JAX ``BatchedServer`` with
-  ``XOT_TPU_SPEC_BATCH=0``: identical greedy tokens and
+- the port's ``BatchedServer`` at the defaults (speculation, QoS, mixed
+  ticks and the host KV tier on, a pinned budget) against the JAX
+  ``BatchedServer`` at the same defaults: identical greedy tokens and
   the identical sequence of slices, lookahead on and off, with the mixed
   program dispatched; mixed-on tokens equal mixed-off tokens; a slice
   shorter than 16 tokens pads to 16 inside the window (K1's shapes on a
@@ -44,9 +44,10 @@ from xotorch_support_jetson_tpu_torch.ops import paged
 TOL = dict(rtol=2e-4, atol=2e-4)
 PS = 8
 QUANTS = ["", "int8", "int4"]
-# The reference's defaults minus the one feature the port has not got.
-DEFAULT_KNOBS = {"XOT_TPU_SPEC_BATCH": "0"}
-UNSET = ("XOT_TPU_KV_TIER", "XOT_TPU_QOS", "XOT_TPU_MIXED_TICK", "XOT_TPU_SLO", "XOT_TPU_MIXED_BUDGET", "XOT_TPU_KV_QUANT")
+# The reference's defaults: speculation, QoS, mixed ticks and the KV tier
+# on (the suite's conftest pins XOT_TPU_SPEC_NGRAM=0, so it is unset here).
+DEFAULT_KNOBS = {}
+UNSET = ("XOT_TPU_KV_TIER", "XOT_TPU_QOS", "XOT_TPU_MIXED_TICK", "XOT_TPU_SLO", "XOT_TPU_MIXED_BUDGET", "XOT_TPU_KV_QUANT", "XOT_TPU_SPEC_BATCH", "XOT_TPU_SPEC_NGRAM")
 
 
 @pytest.fixture(scope="module")

@@ -5,8 +5,8 @@
   tenant fairness, resumed requests at the front), overload sheds, rate
   limit refusals with their ``retry_after_ms``, refunds, the deadline
   estimator (measured drain, completion estimate, shed verdict, expiry);
-- the ``BatchedServer`` with QoS on (2 layers, width 64, f32 weights from
-  ``params_from_jax``): admission order, sheds and rejections under a
+- the ``BatchedServer`` at the defaults with QoS on (speculation included;
+  2 layers, width 64, f32 weights from ``params_from_jax``): admission order, sheds and rejections under a
   saturated queue, deadline sheds at submit and at the slot boundary, and
   priority preemption with a token-identical resume, lookahead on and off,
   each against the JAX ``BatchedServer``;
@@ -219,9 +219,9 @@ def model():
 
 @pytest.fixture
 def knobs(monkeypatch):
-  for k in ("XOT_TPU_KV_TIER", "XOT_TPU_QOS", "XOT_TPU_MIXED_TICK", "XOT_TPU_MIXED_BUDGET", "XOT_TPU_KV_QUANT", "XOT_TPU_QOS_PREEMPT"):
+  for k in ("XOT_TPU_KV_TIER", "XOT_TPU_QOS", "XOT_TPU_MIXED_TICK", "XOT_TPU_MIXED_BUDGET", "XOT_TPU_KV_QUANT", "XOT_TPU_QOS_PREEMPT", "XOT_TPU_SPEC_BATCH", "XOT_TPU_SPEC_NGRAM"):
     monkeypatch.delenv(k, raising=False)
-  for k, v in {"XOT_TPU_SPEC_BATCH": "0", "XOT_TPU_PAGE_SIZE": str(PS), "XOT_TPU_PREFILL_CHUNK": "16", "XOT_TPU_MIXED_BUDGET": "8"}.items():
+  for k, v in {"XOT_TPU_PAGE_SIZE": str(PS), "XOT_TPU_PREFILL_CHUNK": "16", "XOT_TPU_MIXED_BUDGET": "8"}.items():
     monkeypatch.setenv(k, v)
   return monkeypatch
 

@@ -151,9 +151,9 @@ def _get(port, path):
 
 
 def test_daemon_serves_metrics_and_slo(tiny_dir, monkeypatch):
-  for k in ("XOT_TPU_SLO", "XOT_TPU_QOS", "XOT_TPU_MIXED_TICK", "XOT_TPU_KV_TIER"):
+  for k in ("XOT_TPU_SLO", "XOT_TPU_QOS", "XOT_TPU_MIXED_TICK", "XOT_TPU_KV_TIER", "XOT_TPU_SPEC_BATCH", "XOT_TPU_SPEC_NGRAM"):
     monkeypatch.delenv(k, raising=False)
-  for k, v in {"XOT_TPU_MODEL_DIR": str(tiny_dir), "XOT_TPU_PLATFORM": "cpu", "XOT_TPU_BATCHED": "1", "XOT_TPU_SPEC_BATCH": "0"}.items():
+  for k, v in {"XOT_TPU_MODEL_DIR": str(tiny_dir), "XOT_TPU_PLATFORM": "cpu", "XOT_TPU_BATCHED": "1"}.items():
     monkeypatch.setenv(k, v)
   port = find_available_port("127.0.0.1")
   args = tmain.build_parser().parse_args(["--discovery-module", "none", "--chatgpt-api-port", str(port), "--temp", "0.0", "--max-generate-tokens", "6", "--node-id", "test"])

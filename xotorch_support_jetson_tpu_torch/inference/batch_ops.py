@@ -1,7 +1,9 @@
 """Device operations of the continuous-batching scheduler, behind one small
 interface (counterpart of the reference's ``inference/batch_ops.py``
-``DecoderBatchOps``; the pp/sp mesh backends, speculation and LoRA are not
-ported yet). It also carries the host KV tier's page copies
+``DecoderBatchOps``; the pp/sp mesh backends, the draft-model proposer and
+LoRA are not ported yet). It runs the draft-free speculative chunk
+(``spec_paged_batch_decode``: n-gram proposals verified through K3). It
+also carries the host KV tier's page copies
 (inference/kv_tier.py): ``read_pages`` starts a spill's device-to-host copy
 and ``write_pages`` writes a restore's host pages back into the pool.
 
@@ -32,17 +34,21 @@ def to_device(x, device) -> torch.Tensor:
   return t
 
 
-def to_host_async(t: torch.Tensor):
-  """Start copying ``t`` to the host. Returns (host tensor, event): the
-  host tensor is valid once ``event.synchronize()`` returns (event None:
-  already valid)."""
-  if t.device.type != "cuda":
-    return t, None
-  host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-  host.copy_(t, non_blocking=True)
+def to_host_async(*tensors: torch.Tensor):
+  """Start copying ``tensors`` (on one device) into pinned host memory
+  behind one event. Returns (host tensors, event): the host tensors are
+  valid once ``event.synchronize()`` returns (event None: already valid)."""
+  dev = tensors[0].device
+  if dev.type != "cuda":
+    return list(tensors), None
+  hosts = []
+  for t in tensors:
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    hosts.append(host)
   event = torch.cuda.Event()
-  event.record(torch.cuda.current_stream(t.device))
-  return host, event
+  event.record(torch.cuda.current_stream(dev))
+  return hosts, event
 
 
 class DecoderBatchOps:
@@ -100,6 +106,35 @@ class DecoderBatchOps:
       eng.params, eng.cfg, eng._effective_shard, self._dev(token), pool, self._dev(block_tables), self._dev(positions),
       self._dev(active), self._dev(temps), n_steps, top_k=self._dev(top_ks), k_max=k_max, page_size=page_size,
       generator=self._generator(key),
+    )
+
+  # ------------------------------------------------- batched speculation
+
+  def spec_supported(self) -> bool:
+    """A draft model is loaded: never in the port (the draft-model proposer
+    is not ported), so the server offers only the n-gram proposer."""
+    return False
+
+  def spec_ngram_supported(self) -> bool:
+    """The draft-free spec program runs here: it needs a full-model
+    single-device backend, which this class is."""
+    return True
+
+  def spec_paged_batch_decode(self, token, pool, cache_d, block_tables, positions, active, gammas, temps, top_ks, n_rounds: int, gamma_max: int, k_max: int, page_size: int, key, props=None, prop_counts=None, adapter_ids=None):
+    """One speculative chunk (``fused_spec_paged_batch_decode``), the
+    reference's signature. Returns (tokens, counts, n_prop, next_token,
+    positions, pool, cache_d) with every tensor on the device; the
+    scheduler queues the host copies of tokens, counts and n_prop behind
+    one event (``to_host_async``), as it does for a plain chunk's tokens."""
+    from ..models.decoder import fused_spec_paged_batch_decode
+
+    eng = self.engine
+    return fused_spec_paged_batch_decode(
+      eng.params, eng.cfg, eng._effective_shard, None, None, None, self._dev(token), pool, cache_d, self._dev(block_tables),
+      self._dev(positions), self._dev(active), self._dev(gammas), self._dev(temps), n_rounds, gamma_max, top_k=self._dev(top_ks),
+      k_max=k_max, page_size=page_size, generator=self._generator(key),
+      props=None if props is None else self._dev(props), prop_counts=None if prop_counts is None else self._dev(prop_counts),
+      adapter_ids=adapter_ids,
     )
 
   def mixed_tick_supported(self) -> bool:

@@ -1,8 +1,8 @@
 """Continuous batching over the paged KV pool for single-node serving: a
 fixed set of batch rows ("slots"), each holding one in-flight request.
 
-Counterpart of the reference's ``inference/batch_scheduler.py`` as it
-behaves with ``XOT_TPU_SPEC_BATCH=0`` and the paged layout:
+Counterpart of the reference's ``inference/batch_scheduler.py`` at its
+defaults, with the paged layout and no draft model:
 
 - one page pool ``[L, P, Hkv, ps, kd]`` (ops/paged.py) with per-row block
   tables; page-aligned prompt prefixes are shared between requests through
@@ -51,6 +51,19 @@ behaves with ``XOT_TPU_SPEC_BATCH=0`` and the paged layout:
   ``XOT_TPU_MIXED_BUDGET`` pins it); the final, sampling slice dispatches
   through the ordinary admission path. ``XOT_TPU_MIXED_TICK=0`` restores
   the strictly alternating schedule;
+- greedy rows speculate draft-free by default (``XOT_TPU_SPEC_BATCH``,
+  default ``auto``; only ``0`` and ``false`` turn it off, as in the
+  reference): each row drafts from its own prompt+generated history
+  (inference/ngram.py ``NgramIndex``, ``XOT_TPU_SPEC_NGRAM``, ``_NGRAM_N``,
+  ``_NGRAM_MAX``), the target verifies every row's window in one forward
+  per round (``fused_spec_paged_batch_decode``: K3 over the B·W window rows
+  in one launch per layer), and each row advances by its accepted run plus
+  one. Sampled rows run at depth 0. A per-row acceptance EWMA walks each
+  row's depth (inference/paging.py ``spec_adapt_gamma``), so rows that stop
+  paying fall back to plain chunks; once every row is plain, a depth-1
+  probe runs every ``XOT_TPU_SPEC_REPROBE`` plain chunks. Proposals key on
+  settled history, so a chunk with n-gram rows never chains behind an
+  in-flight one; a mixed tick takes precedence over speculation;
 - every latency it sees goes to utils/metrics.py (TTFT, inter-token
   latency, queue wait, chunk times) and, per QoS class, to the SLO engine
   (orchestration/slo.py, ``XOT_TPU_SLO``).
@@ -59,9 +72,8 @@ All device work runs on the engine's single executor thread. Random draws
 for sampling come from one generator per dispatch, seeded on the event-loop
 thread by ``engine.split_key()``.
 
-Batched speculation, LoRA, disaggregation, drain and the dense batched
-layout are not ported yet; asking for one
-explicitly raises ``NotImplementedError`` when the server is built, as does
+The draft-model proposer, LoRA, disaggregation, drain and the dense
+batched layout are not ported yet; asking for one explicitly raises ``NotImplementedError`` when the server is built, as does
 a CUDA engine whose head dim K3 has no variant for (unless
 ``XOT_TPU_PAGED_KERNEL=0`` asks for the gather path).
 
@@ -84,11 +96,15 @@ import numpy as np
 from ..ops.paged import check_paged_kernel, paged_kernel_supported
 from ..orchestration import slo
 from ..utils.helpers import DEBUG, env_flag
-from ..utils.metrics import metrics
+from ..utils.metrics import FRACTION_BUCKETS, metrics
 from .batch_ops import to_host_async
 from .engine import PromptTooLongError, ServerOverloadedError
 from .kv_tier import KvTierManager, kv_tier_enabled, prefix_registry
-from .paging import PageAllocator, kv_cache_bytes, mixed_tick_enabled, pages_to_cover, select_mixed_budget
+from .ngram import NgramIndex, ngram_enabled, ngram_knobs
+from .paging import (
+  PageAllocator, ewma_update, kv_cache_bytes, mixed_tick_enabled, pages_to_cover, select_mixed_budget, spec_adapt_gamma, spec_reprobe_proposer,
+  spec_select_proposer, spec_worst_advance,
+)
 from .qos import DeadlineUnmeetableError
 from .sched_admission import AdmissionControl, _Request
 
@@ -102,6 +118,10 @@ PREFILL_BUCKET = 128
 # rows are junk that ``touched_page_targets`` keeps out of the pool.
 MIXED_MIN_PAD = 16
 
+# spec_proposer{row} gauge encoding: 0 plain decode, 1 n-gram lookup, 2 a
+# model draft (the reference's codes; the port has no model draft yet).
+PROPOSER_CODE = {"plain": 0, "ngram": 1, "model": 2}
+
 
 def _round_up(n: int, multiple: int) -> int:
   return ((n + multiple - 1) // multiple) * multiple
@@ -113,8 +133,6 @@ def check_unported_knobs() -> None:
   asked = []
   if os.getenv("XOT_TPU_PAGED", "1").strip().lower() in ("0", "false", "auto"):
     asked.append("XOT_TPU_PAGED=%s (the dense batched layout)" % os.getenv("XOT_TPU_PAGED"))
-  if os.getenv("XOT_TPU_SPEC_BATCH", "auto").strip().lower() not in ("auto", "", "0", "false", "no", "off"):
-    asked.append("XOT_TPU_SPEC_BATCH (batched speculation)")
   if asked:
     raise NotImplementedError(f"the PyTorch port's batched server does not have {', '.join(asked)} yet; unset these knobs or set them to 0")
 
@@ -151,6 +169,13 @@ class _Slot:
   pages: list = field(default_factory=list)
   chain_keys: list = field(default_factory=list)
   t_first: float = 0.0  # perf_counter at the first emitted token (goodput's realized ITL)
+  # Batched speculation: the row's draft depth, its proposer ("ngram" or
+  # "plain"), its acceptance EWMA per proposer, and its n-gram index over
+  # prompt+generated history (None for sampled rows or with the family off).
+  spec_gamma: int = 0
+  spec_proposer: str = "plain"
+  spec_ewmas: dict = field(default_factory=dict)
+  ngram: object = None
 
 
 @dataclass
@@ -165,6 +190,7 @@ class _Plan:
   positions: np.ndarray  # [B] int32 dispatch positions
   deadlocked: bool = False  # every resident row starved, nothing finishing
   mixed: tuple | None = None  # (ready, start, end): a prefill slice fused into this dispatch
+  gmax: int = 0  # > 0: dispatch the spec program at this depth cap
 
 
 @dataclass
@@ -188,12 +214,26 @@ class _Chunk:
   mixed_ready: object = None  # _Ready | None
   mixed_start: int = 0
   mixed_end: int = 0
+  # Spec chunks advance each row by a variable count. ``worst`` is the
+  # per-row worst case (the chunk size for a plain chunk), which the next
+  # plan assumes while this chunk flies; ``counts`` and ``n_prop`` are host
+  # copies behind ``ready`` (tokens valid per row, tokens proposed per row);
+  # ``pos_dev`` is the device handle of the post-chunk positions that a
+  # chained spec dispatch consumes.
+  spec: bool = False
+  worst: int = 0
+  rounds: int = 0
+  counts: object = None
+  pos_dev: object = None
+  gammas: np.ndarray | None = None  # [B] dispatched depths
+  proposers: list | None = None  # [n_slots] "ngram" | "plain"
+  n_prop: object = None
 
 
 class BatchedServer:
   """Owns the slot pool and the decode loop for one engine."""
 
-  def __init__(self, engine, n_slots: int | None = None, chunk: int | None = None, top_k: int | None = None, max_queue: int | None = None, lookahead: bool | None = None, qos=None):
+  def __init__(self, engine, n_slots: int | None = None, chunk: int | None = None, top_k: int | None = None, max_queue: int | None = None, lookahead: bool | None = None, qos=None, spec_batch: bool | None = None):
     check_unported_knobs()
     if engine.cfg is not None:
       check_paged_kernel(engine.cfg, engine.device)
@@ -214,6 +254,23 @@ class BatchedServer:
     # budgeted slices fused into them). 0 disables.
     self.prefill_chunk = int(os.getenv("XOT_TPU_PREFILL_CHUNK", "2048"))
     self.mixed = mixed_tick_enabled()
+    # Batched speculation: ``spec_batch=None`` resolves from
+    # XOT_TPU_SPEC_BATCH (default auto); the verdict lands in ``self.spec``
+    # with the pool (``_ensure_cache``).
+    self._spec_batch_arg = spec_batch
+    self.spec = False
+    self.spec_proposers: tuple = ()
+    # The model draft's depth cap (the reference's XOT_TPU_SPEC_BATCH_GAMMA);
+    # n-gram rows use ``spec_ngram_max``.
+    self.spec_gamma_max = int(os.getenv("XOT_TPU_SPEC_BATCH_GAMMA", "0") or 0) or int(getattr(engine, "spec_gamma", 4))
+    # Plain chunks between depth-1 re-probes once every row is plain (0: never).
+    self.spec_reprobe = int(os.getenv("XOT_TPU_SPEC_REPROBE", "32"))
+    self._spec_plain_chunks = 0
+    self.spec_ngram_n, self.spec_ngram_max = ngram_knobs()
+    # Host proposals staged by _spec_intent for the next dispatch (row ->
+    # int32 stream), only ever with the pipeline drained.
+    self._spec_props: dict | None = None
+    self._spec_needs_host = False
     # Boundary-pass counter: groups one _admit_pending pass's admissions into
     # one observation of the deadline estimator's measured drain.
     self._admit_pass = 0
@@ -424,6 +481,21 @@ class BatchedServer:
       self.allocator.spill_hook = self.tier.spill
       self.tier.kv_quant = kv_quant
     self.decode_path = "kernel" if paged_kernel_supported(eng.cfg) else "gather"
+    # Batched speculation verdict, the reference's parse: only "0" and
+    # "false" turn it off. The port offers the n-gram proposer only; it
+    # holds no device state, so the draft gauges read 0 and the page budget
+    # stays whole.
+    want = self._spec_batch_arg if self._spec_batch_arg is not None else os.getenv("XOT_TPU_SPEC_BATCH", "auto") not in ("0", "false")
+    proposers = []
+    if self.ops.spec_supported():
+      proposers.append("model")
+    if ngram_enabled() and self.ops.spec_ngram_supported():
+      proposers.append("ngram")
+    self.spec = bool(want) and bool(proposers)
+    self.spec_proposers = tuple(proposers) if self.spec else ()
+    if self.spec:
+      for name in ("kv_draft_bytes", "kv_draft_slots", "kv_draft_pages_equivalent"):
+        metrics.set_gauge(name, 0)
     metrics.set_gauge("page_pool_pages_total", n_pages - 1)  # page 0 is the trash page
     metrics.set_gauge("kv_quant_bits", {"": 16, "int8": 8, "int4": 4}[kv_quant])
     self._update_gauges()
@@ -834,6 +906,18 @@ class BatchedServer:
       if not req.future.done():
         req.future.set_result(slot.out_tokens)
       return
+    if self.spec and req.temp <= 0.0:
+      # Starting depth by QoS class: interactive and standard rows open at
+      # the proposer's full depth, batch rows at half and must earn the
+      # rest. Sampled rows stay at 0. The index covers the (absorbed)
+      # prompt and the first token, so a preempted row resumes with a
+      # fresh index over its whole stream.
+      cls = req.qos.priority if req.qos is not None else "standard"
+      slot.spec_proposer = "ngram"
+      slot.spec_gamma = max(self.spec_ngram_max // 2, 1) if cls == "batch" else self.spec_ngram_max
+      slot.ngram = NgramIndex(self.spec_ngram_n)
+      slot.ngram.extend(req.tokens)
+      slot.ngram.extend([first])
     self.slots[r.row] = slot
     self._h_occupied[r.row] = True
     self._h_tokens[r.row, 0] = first
@@ -914,6 +998,9 @@ class BatchedServer:
   def _clear_row(self, row: int) -> None:
     """Reset a freed row's block table and dispatch arrays."""
     self.block_tables[row, :] = 0
+    if self.spec:
+      metrics.set_gauge("spec_gamma", 0, labels={"row": str(row)})
+      metrics.set_gauge("spec_proposer", 0, labels={"row": str(row)})
     self._h_occupied[row] = False
     self._h_tokens[row, 0] = 0
     self._h_positions[row] = 0
@@ -922,11 +1009,13 @@ class BatchedServer:
     self._h_generated[row] = 0
     self._h_max_tokens[row] = 0
 
-  def _grow_pages(self, row: int, slot: _Slot, pos: int) -> bool:
+  def _grow_pages(self, row: int, slot: _Slot, pos: int, headroom: int | None = None) -> bool:
     """Ensure ``slot`` has pages covering the chunk dispatched at ``pos``
     (the dispatch-time position: under lookahead it includes the in-flight
-    chunk's advance, so growth keeps one chunk of headroom)."""
-    needed = pages_to_cover(pos + self.chunk, self.page_size)
+    chunk's advance, so growth keeps one chunk of headroom). ``headroom``
+    overrides the chunk size for a spec dispatch: its worst-case advance
+    ``spec_worst_advance(chunk, gamma_max)``."""
+    needed = pages_to_cover(pos + (headroom if headroom is not None else self.chunk), self.page_size)
     have = len(slot.shared_pages) + len(slot.pages)
     if needed <= have:
       return True
@@ -1051,19 +1140,27 @@ class BatchedServer:
 
   # ----------------------------------------------------------------- decode
 
-  def _plan_chunk(self, inflight: _Chunk | None) -> _Plan:
+  def _plan_chunk(self, inflight: _Chunk | None, gmax: int = 0) -> _Plan:
     """Snapshot the next chunk's dispatch state: confirmed slot state plus
     the in-flight chunk's advance. Cancelled rows and rows without cache
     room deactivate (they settle as finishes at this chunk's boundary);
     page-starved rows skip the chunk but stay resident. Under lookahead a
     row whose in-flight chunk reaches max_tokens is left out: the in-flight
-    settle resolves it first."""
+    settle resolves it first.
+
+    An in-flight SPEC chunk advances each row by a variable count: the plan
+    assumes its worst case for positions and page growth, and skips the
+    max_tokens exclusion (a worst-case ``generated`` could drop a row that
+    does not finish). ``gmax > 0`` means this dispatch is a spec chunk:
+    growth reserves ``spec_worst_advance(chunk, gmax)`` tokens."""
     spec = inflight.active if inflight is not None else None
+    headroom = spec_worst_advance(self.chunk, gmax) if gmax > 0 else self.chunk
     positions = self._h_positions.copy()
     generated = self._h_generated.copy()
     if spec is not None:
-      positions[spec] += self.chunk
-      generated[spec] += self.chunk
+      positions[spec] += inflight.worst
+      if not inflight.spec:
+        generated[spec] += inflight.worst
     active = self._h_occupied.copy()
     starved: set[int] = set()
     rows: list = []
@@ -1072,16 +1169,87 @@ class BatchedServer:
       if s is None:
         continue
       rows.append((i, s))
-      if spec is not None and spec[i] and generated[i] >= self._h_max_tokens[i]:
+      if spec is not None and not inflight.spec and spec[i] and generated[i] >= self._h_max_tokens[i]:
         active[i] = False  # finishes at the in-flight settle; drop-on-read covers the rest
       elif s.cancelled or int(positions[i]) + self.chunk >= self.max_seq:
         active[i] = False
         finishing += 1
-      elif not self._grow_pages(i, s, int(positions[i])):
+      elif not self._grow_pages(i, s, int(positions[i]), headroom):
         active[i] = False
         starved.add(i)
     deadlocked = inflight is None and bool(starved) and not active.any() and finishing == 0
-    return _Plan(rows=rows, active=active, starved=starved, positions=positions, deadlocked=deadlocked)
+    return _Plan(rows=rows, active=active, starved=starved, positions=positions, deadlocked=deadlocked, gmax=gmax)
+
+  def _note_ngram_miss(self, row: int, slot: _Slot) -> None:
+    """Charge a proposal miss (no suffix match in the row's history) to the
+    n-gram EWMA as a zero-acceptance observation. A miss costs no device
+    work, but a row holding n-gram depth forces synchronous dispatch, so
+    rows whose text never matches must converge back to plain."""
+    ewma = ewma_update(slot.spec_ewmas.get("ngram"), 0.0)
+    slot.spec_ewmas["ngram"] = ewma
+    prio = slot.req.qos.priority if slot.req.qos is not None else "standard"
+    slot.spec_gamma = spec_adapt_gamma(ewma, slot.spec_gamma, self.spec_ngram_max, prio)
+    if slot.spec_gamma == 0:
+      slot.spec_proposer, slot.spec_gamma = spec_select_proposer("ngram", slot.spec_ewmas, self.spec_proposers, prio)
+    metrics.set_gauge("spec_proposer", PROPOSER_CODE[slot.spec_proposer], labels={"row": str(row)})
+
+  def _spec_intent(self, inflight: _Chunk | None) -> int:
+    """gamma_max for the next decode chunk; 0 dispatches the plain program.
+
+    Plain wins when speculation is off, no greedy row holds depth, or any
+    live row sits within the chunk's worst-case advance of the context
+    window (plain chunks carry it to its end). When every depth is 0, a
+    probe chunk runs every ``spec_reprobe`` plain chunks, each row on the
+    proposer the policy ranks best for it (``spec_reprobe_proposer``).
+
+    N-gram proposals key on settled history: when a row holds n-gram depth
+    while a chunk is in flight, this sets ``_spec_needs_host`` and the loop
+    settles first; with the pipeline drained the proposals are computed
+    here (one suffix lookup per row) and staged in ``_spec_props``. A miss
+    contributes no depth and charges the miss policy."""
+    self._spec_props = None
+    self._spec_needs_host = False
+    if not self.spec:
+      return 0
+    live = [(i, s) for i, s in enumerate(self.slots) if s is not None and not s.finished and not s.cancelled]
+    greedy = [(i, s) for i, s in live if s.req.temp <= 0.0]
+    if not greedy:
+      return 0
+    if all(s.spec_gamma <= 0 for _, s in greedy):
+      if self.spec_reprobe <= 0 or self._spec_plain_chunks < self.spec_reprobe:
+        return 0
+      for i, s in greedy:  # probe round: depth 1, the best proposer per row
+        prop = spec_reprobe_proposer(s.spec_ewmas, self.spec_proposers)
+        if prop is None:
+          continue
+        s.spec_proposer, s.spec_gamma = prop, 1
+        metrics.set_gauge("spec_proposer", PROPOSER_CODE[prop], labels={"row": str(i)})
+      self._spec_plain_chunks = 0
+    if inflight is not None and any(s.spec_proposer == "ngram" and s.spec_gamma > 0 and s.ngram is not None for _, s in greedy):
+      self._spec_needs_host = True  # host proposals need settled history: drain first
+      return max(s.spec_gamma for _, s in greedy)
+    gmax = 0
+    props: dict[int, np.ndarray] = {}
+    stream_cap = spec_worst_advance(self.chunk, self.spec_ngram_max)
+    for i, s in greedy:
+      if s.spec_gamma <= 0 or s.spec_proposer != "ngram" or s.ngram is None:
+        continue
+      cand = s.ngram.propose(stream_cap)
+      if len(cand) == 0:
+        self._note_ngram_miss(i, s)
+        continue
+      props[i] = cand
+      gmax = max(gmax, min(s.spec_gamma, len(cand)))
+    if gmax == 0:
+      return 0
+    worst = spec_worst_advance(self.chunk, gmax)
+    adv = inflight.worst if inflight is not None else 0
+    for i, s in live:
+      pos = int(self._h_positions[i]) + (adv if (inflight is not None and inflight.active[i]) else 0)
+      if pos + worst >= self.max_seq:
+        return 0  # near-window band: plain chunks carry the row to its end
+    self._spec_props = props or None
+    return gmax
 
   def _preempt_starved(self, plan: _Plan) -> None:
     """Every resident row is starved (none can run, and no finishing row is
@@ -1099,12 +1267,40 @@ class BatchedServer:
     """Enqueue one decode chunk (with the plan's prefill slice fused in, if
     any) and return its in-flight record without waiting for the device:
     the executor call only queues the work and the copy of its tokens into
-    pinned host memory."""
+    pinned host memory.
+
+    ``plan.gmax > 0`` dispatches the spec program (``chunk`` verify rounds,
+    per-row depths and n-gram streams from the slots, variable advance). A
+    chained spec dispatch takes the in-flight chunk's device positions: the
+    host learns a spec chunk's advance only at its settle."""
     eng = self.engine
+    gmax = plan.gmax
+    spec = gmax > 0
     # Chained dispatch: the input token is the in-flight chunk's
     # device-resident next token; a synchronous one uses the host arrays.
     tokens = inflight.next_tok if inflight is not None else self._h_tokens
-    mixed_r, m_start, m_end = plan.mixed if plan.mixed is not None else (None, 0, 0)
+    positions = inflight.pos_dev if (spec and inflight is not None) else plan.positions
+    gammas = proposers = props_arr = prop_counts = None
+    if spec:
+      props_map, self._spec_props = self._spec_props, None
+      gammas = np.zeros((self.n_slots,), dtype=np.int32)
+      proposers = ["plain"] * self.n_slots
+      if props_map:
+        stream_w = spec_worst_advance(self.chunk, gmax) + gmax
+        props_arr = np.zeros((self.n_slots, stream_w), dtype=np.int32)
+        prop_counts = np.zeros((self.n_slots,), dtype=np.int32)
+      for i, s in plan.rows:
+        if plan.active[i] and s.req.temp <= 0.0 and s.spec_proposer == "ngram" and props_map and i in props_map:
+          stream = props_map[i][:stream_w]
+          props_arr[i, : len(stream)] = stream
+          prop_counts[i] = len(stream)
+          gammas[i] = min(s.spec_gamma, gmax)
+          proposers[i] = "ngram"
+      self._spec_plain_chunks = 0
+    elif self.spec:
+      self._spec_plain_chunks += 1
+    worst = spec_worst_advance(self.chunk, gmax) if spec else self.chunk
+    mixed_r, m_start, m_end = plan.mixed if plan.mixed is not None else (None, 0, 0)  # never with spec: a mixed tick plans gmax 0
     if mixed_r is not None:
       # The slice pads to a power of two of at least MIXED_MIN_PAD inside
       # the window (the planner kept the slice's own power of two there),
@@ -1130,23 +1326,55 @@ class BatchedServer:
       metrics.observe_hist("sched_host_gap_seconds", 0.0 if inflight is not None else now - self._t_last_ready)
 
     def run():
-      args = (tokens, self.cache, self.block_tables, plan.positions, plan.active, self._h_temps, self._h_top_ks, self.chunk)
       kw = dict(k_max=self.k_max, page_size=self.page_size, key=key)
+      if spec:
+        toks, counts, n_prop, next_tok, pos_dev, self.cache, _ = self.ops.spec_paged_batch_decode(
+          tokens, self.cache, None, self.block_tables, positions, plan.active, gammas, self._h_temps, self._h_top_ks, self.chunk, gmax,
+          props=props_arr, prop_counts=prop_counts, **kw,
+        )
+        host, ready = to_host_async(toks, counts, n_prop)
+        return host, ready, next_tok, pos_dev
+      args = (tokens, self.cache, self.block_tables, plan.positions, plan.active, self._h_temps, self._h_top_ks, self.chunk)
       if mixed_r is not None:
         toks, next_tok, _pos, self.cache = self.ops.mixed_paged_batch_decode(*args, **kw, pf_tokens=pf_tokens, pf_bt=pf_bt, pf_prefix=pf_bounds[0], pf_end=pf_bounds[1])
       else:
         toks, next_tok, _pos, self.cache = self.ops.paged_batch_decode(*args, **kw)
       host, ready = to_host_async(toks)
-      return host, ready, next_tok
+      return host, ready, next_tok, None
 
     if plan.starved:
       metrics.inc("scheduler_page_starved_total", len(plan.starved))
     t_dispatch = time.perf_counter()
-    host, ready, next_tok = await asyncio.get_running_loop().run_in_executor(eng.executor, run)
+    host, ready, next_tok, pos_dev = await asyncio.get_running_loop().run_in_executor(eng.executor, run)
     return _Chunk(
-      toks=host, ready=ready, next_tok=next_tok, rows=plan.rows, active=plan.active, starved=frozenset(plan.starved),
+      toks=host[0], ready=ready, next_tok=next_tok, rows=plan.rows, active=plan.active, starved=frozenset(plan.starved),
       chained=inflight is not None, t_dispatch=t_dispatch, mixed_ready=mixed_r, mixed_start=m_start, mixed_end=m_end,
+      spec=spec, worst=worst, rounds=self.chunk if spec else 0, counts=host[1] if spec else None, pos_dev=pos_dev,
+      gammas=gammas, proposers=proposers, n_prop=host[2] if spec else None,
     )
+
+  def _note_spec_settle(self, row: int, slot: _Slot, record: _Chunk, avail: int, proposed: int) -> None:
+    """Per-row spec bookkeeping at the settle: the per-proposer accepted
+    and proposed counters, the EWMA step and the depth policy, the
+    proposer switch at the depth floor, and the row's gauges."""
+    g = int(record.gammas[row])
+    prop = record.proposers[row]
+    accepted = max(avail - record.rounds, 0)
+    metrics.inc("spec_accepted_tokens_total", accepted, labels={"proposer": prop})
+    if g > 0 and proposed > 0:
+      metrics.inc("spec_proposed_tokens_total", proposed, labels={"proposer": prop})
+      ewma = ewma_update(slot.spec_ewmas.get(prop), accepted / float(proposed))
+      slot.spec_ewmas[prop] = ewma
+      prio = slot.req.qos.priority if slot.req.qos is not None else "standard"
+      cap = self.spec_ngram_max if prop == "ngram" else self.spec_gamma_max
+      slot.spec_gamma = spec_adapt_gamma(ewma, g, cap, prio)
+      if slot.spec_gamma == 0:
+        # Depth floor on this proposer: probe the next candidate, or park
+        # the row on plain until a re-probe.
+        slot.spec_proposer, slot.spec_gamma = spec_select_proposer(prop, slot.spec_ewmas, self.spec_proposers, prio)
+      metrics.observe_hist("spec_acceptance_ewma", ewma, buckets=FRACTION_BUCKETS)
+    metrics.set_gauge("spec_gamma", slot.spec_gamma, labels={"row": str(row)})
+    metrics.set_gauge("spec_proposer", PROPOSER_CODE[slot.spec_proposer], labels={"row": str(row)})
 
   async def _settle(self, record: _Chunk) -> None:
     """Read one chunk's tokens and run the host bookkeeping: the fused
@@ -1160,9 +1388,11 @@ class BatchedServer:
     def fetch():
       if record.ready is not None:
         record.ready.synchronize()
-      return record.toks.numpy()
+      if record.spec:
+        return record.toks.numpy(), record.counts.numpy(), record.n_prop.numpy()
+      return record.toks.numpy(), None, None
 
-    rows_host = await asyncio.get_running_loop().run_in_executor(self.engine.executor, fetch)
+    rows_host, counts_host, n_prop_host = await asyncio.get_running_loop().run_in_executor(self.engine.executor, fetch)
     t_ready = time.perf_counter()
     # While the pipeline is full the device runs chunks back to back, so a
     # chunk's device time is ready-to-ready; the first chunk after a
@@ -1182,7 +1412,7 @@ class BatchedServer:
     if record.active.any():
       if record.mixed_ready is None:
         metrics.observe_hist("decode_chunk_seconds", chunk_dt)
-      metrics.inc("decode_chunks_total", labels={"path": self.decode_path})
+      metrics.inc("decode_chunks_total", labels={"path": "spec" if record.spec else self.decode_path})
     for i, slot in record.rows:
       if slot.finished or self.slots[i] is not slot:
         continue  # drop-on-read: overrun tokens of a row settled earlier
@@ -1200,15 +1430,22 @@ class BatchedServer:
         self.slots[i] = None
         self._clear_row(i)
         continue
+      # A spec chunk's counts say how many of the row's slots are real; EOS
+      # and max_tokens cut inside an accepted run as inside a plain chunk.
+      avail = int(counts_host[i]) if record.spec else rows_host.shape[1]
       emit: list[int] = []
       done = False
-      for t in rows_host[i]:
+      for t in rows_host[i][:avail]:
         t = int(t)
         emit.append(t)
         slot.generated += 1
         if t in req.eos_ids or slot.generated >= req.max_tokens:
           done = True
           break
+      if record.spec:
+        self._note_spec_settle(i, slot, record, avail, int(n_prop_host[i]))
+      if slot.ngram is not None and emit:
+        slot.ngram.extend(emit)  # the next proposal keys on this chunk's tokens too
       slot.out_tokens.extend(emit)
       slot.pos += len(emit)
       slot.last_token = emit[-1] if emit else slot.last_token
@@ -1216,7 +1453,7 @@ class BatchedServer:
       self._h_generated[i] = slot.generated
       self._h_tokens[i, 0] = slot.last_token
       if emit:
-        metrics.inc("decode_tokens_total", len(emit), labels={"path": self.decode_path})
+        metrics.inc("decode_tokens_total", len(emit), labels={"path": "spec" if record.spec else self.decode_path})
         # The chunk's wall-clock over its tokens: one weighted observation.
         metrics.observe_hist("itl_seconds", chunk_dt / len(emit), n=len(emit))
         slo.observe_itl(self._slo_class(req), chunk_dt / len(emit), n=len(emit))
@@ -1269,7 +1506,22 @@ class BatchedServer:
         if mixed_budget is None and self._prefilling and self._mixed_active():
           mixed_budget = self._mixed_budget()  # the admission pass just staged a prefill
         mixed = self._mixed_intent(inflight, mixed_budget)
-        plan = self._plan_chunk(inflight)
+        if mixed is not None:
+          # A mixed tick takes precedence: the fused program composes with
+          # the plain decode loop only, so spec rows run plain this tick.
+          self._spec_props = None
+          self._spec_needs_host = False
+          gmax = 0
+        else:
+          gmax = self._spec_intent(inflight)
+        if inflight is not None and (inflight.spec != (gmax > 0) or self._spec_needs_host):
+          # A spec<->plain switch (the two programs chain differently:
+          # device positions against the host plan), or host proposals that
+          # need settled history: settle, then dispatch synchronously.
+          await self._settle(inflight)
+          inflight = None
+          continue
+        plan = self._plan_chunk(inflight, gmax)
         plan.mixed = mixed
         if inflight is not None and (not plan.rows or not plan.active.any()):
           # Nothing would step: settle instead of spending a dead chunk.

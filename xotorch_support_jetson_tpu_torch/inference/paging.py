@@ -2,8 +2,10 @@
 its content-keyed prefix cache, and the block math the scheduler sizes the
 pool with. Own copy of the part of the reference's ``inference/paging.py``
 the batched serving slice uses (``PageAllocator``, ``pages_to_cover``,
-``kv_cache_bytes``, and the mixed-tick budget policy
-``select_mixed_budget``), with the host KV tier's hooks on the allocator
+``kv_cache_bytes``, the mixed-tick budget policy ``select_mixed_budget``,
+and the per-row speculation policy ``spec_adapt_gamma``,
+``spec_select_proposer``, ``spec_reprobe_proposer``, ``spec_worst_advance``
+and ``ewma_update``), with the host KV tier's hooks on the allocator
 (``spill_hook``, ``chain_keys_extend``, ``is_cached``, ``adopt_restored``).
 The reference's decode-path and page-tile tables are TPU measurements and
 are not carried over: on a CUDA tensor the port's paged decode always takes
@@ -253,3 +255,88 @@ def select_mixed_budget(cap: int, burn: float | None, residents: int = 1, backlo
   if (burn is None or burn < 1.0) and backlog > 1:
     budget = min(budget * int(backlog), cap)
   return max(min(budget, cap), min(floor, cap))
+
+
+# Per-row speculation policy (inference/batch_scheduler.py batched
+# speculation): each greedy row carries an acceptance EWMA per proposer, and
+# its draft depth walks this table at every settle, so neither "always
+# speculate" nor "never" is hardwired. The thresholds are the reference's:
+# with a draft about 4x cheaper than the target a round costs about
+# gamma/4 + 1 target steps and yields 1 + acceptance·gamma tokens, so
+# break-even acceptance sits near 0.25-0.35; demote below 0.30, deepen only
+# above 0.55, hold in between. Interactive rows demote later: an accepted
+# run cuts their inter-token latency even where throughput breaks even.
+# Rows are (min_ewma, action); the first row whose bound covers the EWMA
+# wins.
+_SPEC_GAMMA_TABLE = (
+  (0.55, "promote"),  # paying well: deepen by 1 toward gamma_max
+  (0.30, "hold"),  # marginal: keep the depth (hysteresis band)
+  (0.0, "demote"),  # not paying: halve toward the floor
+)
+_SPEC_DEMOTE_FLOOR = {"interactive": 0.15}  # class-specific demote bar
+
+
+def spec_adapt_gamma(ewma: float | None, gamma: int, gamma_max: int, priority: str = "standard") -> int:
+  """Next chunk's speculation depth for one row, from its acceptance EWMA.
+  Depth 0 is plain decode; the policy never raises a depth from 0 (the
+  scheduler's re-probe every ``XOT_TPU_SPEC_REPROBE`` plain chunks does)."""
+  if ewma is None or gamma <= 0:
+    return max(min(gamma, gamma_max), 0)
+  demote_bar = _SPEC_DEMOTE_FLOOR.get(priority, _SPEC_GAMMA_TABLE[1][0])
+  for bound, action in _SPEC_GAMMA_TABLE:
+    if ewma >= bound:
+      if action == "promote":
+        return min(gamma + 1, gamma_max)
+      if action == "hold" or (action == "demote" and ewma >= demote_bar):
+        return min(gamma, gamma_max)
+      return gamma // 2
+  return gamma // 2
+
+
+# Proposer preference for probes and switches: the n-gram proposer costs
+# nothing to try (host dict lookups), so it is probed before a model draft.
+SPEC_PROPOSERS = ("ngram", "model")
+
+
+def spec_select_proposer(current: str, ewmas: dict, available: tuple, priority: str = "standard") -> tuple[str, int]:
+  """Next (proposer, depth) for a row whose depth just reached 0 on
+  ``current``. ``ewmas`` maps proposer -> this row's acceptance EWMA
+  (absent = never measured). An untried alternative is probed at depth 1;
+  a measured one only if its EWMA still clears the row's demote bar; else
+  ``("plain", 0)`` until the scheduler's re-probe."""
+  demote_bar = _SPEC_DEMOTE_FLOOR.get(priority, _SPEC_GAMMA_TABLE[1][0])
+  for cand in SPEC_PROPOSERS:
+    if cand == current or cand not in available:
+      continue
+    e = ewmas.get(cand)
+    if e is None or e >= demote_bar:
+      return cand, 1
+  return "plain", 0
+
+
+def spec_reprobe_proposer(ewmas: dict, available: tuple) -> str | None:
+  """The proposer a re-probe round tries for one row: an unmeasured one
+  first (in ``SPEC_PROPOSERS`` order), else the best measured EWMA; None
+  when nothing is available."""
+  best, best_e = None, -1.0
+  for cand in SPEC_PROPOSERS:
+    if cand not in available:
+      continue
+    e = ewmas.get(cand)
+    if e is None:
+      return cand
+    if e > best_e:
+      best, best_e = cand, e
+  return best
+
+
+def spec_worst_advance(n_rounds: int, gamma_max: int) -> int:
+  """Worst-case tokens one spec chunk advances a row (every round fully
+  accepted). Page growth and the context-window band run against it."""
+  return int(n_rounds) * (int(gamma_max) + 1)
+
+
+def ewma_update(prev: float | None, obs: float, alpha: float = 0.3) -> float:
+  """One acceptance-EWMA step (the first observation seeds the average)."""
+  obs = min(max(float(obs), 0.0), 1.0)
+  return obs if prev is None else (1.0 - alpha) * float(prev) + alpha * obs

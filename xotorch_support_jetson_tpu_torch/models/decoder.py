@@ -13,7 +13,9 @@ Python loop. The KV cache is a dict of
 [L, B, max_seq, Hkv, hd] buffers (hd/2 for packed int4 codes, +
 ``k_scale``/``v_scale`` [.., 1] for int8 and int4) that the forward UPDATES
 IN PLACE — slot j holds absolute position j. The batched programs at the
-end run against a page pool (ops/paged.py) instead, also updated in place.
+end run against a page pool (ops/paged.py) instead, also updated in place:
+the plain and mixed decode chunks, and the draft-free speculative chunk
+(``fused_spec_paged_batch_decode``).
 """
 
 from __future__ import annotations
@@ -577,3 +579,211 @@ def fused_mixed_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token
     temps.to(torch.float32), top_ks, pf_tokens.to(torch.int32), pf_bt.to(torch.int32), pf_prefix.to(torch.int32), pf_end.to(torch.int32),
     int(n_steps), int(k_max), int(page_size), bool(use_kernel), generator,
   )
+
+
+# ------------------------------------------------ batched speculation
+# (inference/batch_scheduler.py, XOT_TPU_SPEC_BATCH): draft-then-verify
+# inside the batched decode chunk. One chunk is ``n_rounds`` rounds; each
+# round every row proposes up to gamma_max tokens, the target scores every
+# row's whole (gamma_max+1)-token window in ONE forward, and each row
+# advances by its own accepted run + 1. The advance varies per row, which
+# the page pool absorbs as the lookahead pipeline's drop-on-read does:
+# rejected tail positions hold garbage KV that the next round's window
+# rewrites before anything reads it.
+#
+# The port is draft-free: proposals are host n-gram streams
+# (inference/ngram.py) handed in as ``props``. Per-row depths ``gammas``
+# are device data, so a row at depth 0 decodes plain inside the same call.
+# Greedy rows emit exactly the target's greedy tokens for ANY proposal;
+# sampled rows run at depth 0 and draw one sample per round from the
+# window's first position, with one draw of the generator per round, as the
+# plain chunk draws one per step.
+
+
+def _paged_window_layer_step(h, p, pool_l, block_tables, bt_window, positions, inv_freq, cfg: ModelConfig, page_size: int, use_kernel: bool):
+  """One decoder layer for a W-token verify window against the page pool.
+
+  positions [B, W] are each row's own window positions. All W tokens' KV
+  go into the pool in one indexed write per leaf; attention runs through K3
+  in one launch over the B·W query rows (``bt_window`` [B·W, mp]) when
+  ``use_kernel``, else through the gather route (the reference's two
+  routes, token-exact)."""
+  from ..ops.paged import paged_window_attention, paged_window_attention_ref, write_window_kv
+
+  B, W, D = h.shape
+  x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
+  q, k, v = _dense_qkv(x, p, cfg, positions, inv_freq)
+  scales = {}
+  if "k_scale" in pool_l:  # int8/int4 KV pages: per-(token, head) scales, as one-token writes make
+    from .quantize import quantize_kv, quantize_kv_int4
+
+    packed = pool_l["k"].shape[-1] * 2 == k.shape[-1]
+    quant_fn = quantize_kv_int4 if packed else quantize_kv
+    kq, ks = quant_fn(k)
+    vq, vs = quant_fn(v)
+    for name, new in (("k", kq), ("k_scale", ks), ("v", vq), ("v_scale", vs)):
+      write_window_kv(pool_l[name], new, block_tables, positions, page_size)
+    scales = dict(k_scale_pool_l=pool_l["k_scale"], v_scale_pool_l=pool_l["v_scale"])
+  else:
+    write_window_kv(pool_l["k"], k, block_tables, positions, page_size)
+    write_window_kv(pool_l["v"], v, block_tables, positions, page_size)
+  if use_kernel:
+    attn = paged_window_attention(q, pool_l["k"], pool_l["v"], bt_window, positions, page_size, **scales)
+  else:
+    attn = paged_window_attention_ref(q, pool_l["k"], pool_l["v"], block_tables, positions, page_size, **scales)
+  h = h + _mm(attn.reshape(B, W, -1), p, "wo", cfg.quant_compute)
+  return _mlp_block(h, p, cfg)
+
+
+def paged_window_forward(params, cfg: ModelConfig, shard: Shard, tokens, positions, pool, block_tables, page_size: int, use_kernel: bool, bt_window=None):
+  """W-token forward for every row against the page pool, the batched
+  verify pass: tokens/positions [B, W] → (logits [B, W, V], pool updated in
+  place). ``bt_window`` is ``window_block_tables(block_tables, W)``, made
+  here when the caller has not made it once for the chunk."""
+  from ..ops.paged import window_block_tables
+
+  if use_kernel and bt_window is None:
+    bt_window = window_block_tables(block_tables, tokens.shape[1])
+  h = embed_tokens(params, cfg, tokens)
+  inv_freq = rope_inv_freq(cfg, device=h.device)
+  layers = params["layers"]
+  for i in range(layers["wq"].shape[0]):
+    lp = {key: val[i] for key, val in layers.items()}
+    pool_l = {key: val[i] for key, val in pool.items()}
+    h = _paged_window_layer_step(h, lp, pool_l, block_tables, bt_window, positions, inv_freq, cfg, page_size, use_kernel)
+  return head_logits(params, cfg, h), pool
+
+
+def _spec_batch_rounds(verify, token, positions, active, gammas, temps, top_ks, n_rounds: int, gamma_max: int, k_max: int, generator, props=None, prop_counts=None):
+  """The draft-free round loop: ``verify(window [B, W], wpos [B, W])``
+  runs the target over each row's window and returns logits [B, W, V].
+  Returns (buf [B, n_rounds·W], counts [B], n_prop [B], next_tok [B, 1],
+  next_pos [B]), all on the device: row i's first counts[i] buffer slots
+  are its emitted tokens; n_prop[i] is the number of tokens proposed for it
+  (the host's acceptance denominator).
+
+  Host-proposed rows: ``props`` [B, L] carries each row's n-gram stream,
+  ``prop_counts`` [B] its valid length (0: no proposal, the row runs at
+  its depth on zeros, as the reference's draft-free program does). A
+  proposed row drafts the next G stream tokens each round for as long as
+  every verified token continued the stream; the first divergence drops it
+  to plain for the rest of the chunk. Nothing here reads a value back to
+  the host."""
+  B = token.shape[0]
+  G = int(gamma_max)
+  W = G + 1
+  dev = token.device
+  widx = torch.arange(W, dtype=torch.int64, device=dev)
+  buf = torch.zeros((B, n_rounds * W), dtype=torch.int32, device=dev)
+  with_props = props is not None and G > 0
+  if with_props:
+    # Padded so each round's window [counts, counts + G) stays in range.
+    props_pad = torch.cat([props.to(torch.int32), torch.zeros((B, n_rounds * W + G - props.shape[1]), dtype=torch.int32, device=dev)], dim=1)
+    is_prop = prop_counts > 0
+    on_stream = is_prop.clone()
+  zeros_b = torch.zeros((B,), dtype=torch.int32, device=dev)
+  tok, pos, counts, n_prop = token, positions, zeros_b, zeros_b
+  for _ in range(int(n_rounds)):
+    d = torch.zeros((B, G), dtype=torch.int32, device=dev)
+    geff = gammas
+    if with_props:
+      d_stream = torch.gather(props_pad, 1, counts.long()[:, None] + widx[None, :G])
+      use_prop = is_prop & on_stream
+      d = torch.where(use_prop[:, None], d_stream, d)
+      remaining = torch.clamp(prop_counts - counts, min=0)
+      geff = torch.where(is_prop, torch.where(use_prop, torch.minimum(remaining, gammas), zeros_b), gammas)
+    window = torch.cat([tok, d], dim=1)
+    wpos = pos[:, None] + widx[None, :].to(torch.int32)
+    logits = verify(window, wpos)
+    t_greedy = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, W]
+    nxt0 = _next_token_batched(logits[:, 0, :], generator, temps, top_ks, k_max)  # one draw per round
+    matches = ((d == t_greedy[:, :G]) & (widx[None, :G] < geff[:, None])).to(torch.int32)
+    n_acc = torch.cumprod(matches, dim=1).sum(dim=1).to(torch.int32)
+    n_acc = torch.where(temps > 0, zeros_b, n_acc)  # sampled rows accept nothing
+    corr = torch.gather(t_greedy, 1, n_acc.long()[:, None])[:, 0]  # the target's own next token
+    corr = torch.where(temps > 0, nxt0, corr)
+    d_pad = torch.cat([d, torch.zeros((B, 1), dtype=torch.int32, device=dev)], dim=1)
+    emitted = torch.where(widx[None, :] < n_acc[:, None], d_pad, corr[:, None])
+    # Each row appends at its own offset; slots past the advance hold the
+    # correction and are overwritten by the next round's append.
+    buf.scatter_(1, counts.long()[:, None] + widx[None, :], emitted)
+    if with_props:
+      # On-stream iff the whole window continued the stream: full
+      # acceptance AND the correction is the stream's next token.
+      nxt_idx = torch.clamp(counts + n_acc, 0, props_pad.shape[1] - 1)
+      cont = torch.gather(props_pad, 1, nxt_idx.long()[:, None])[:, 0]
+      on_stream = use_prop & (n_acc == geff) & (counts + n_acc < prop_counts) & (corr == cont)
+    k_adv = torch.where(active, n_acc + 1, zeros_b)  # inactive rows hold token and position
+    n_prop = n_prop + torch.where(active, geff, zeros_b)
+    tok = torch.where(active, corr, tok[:, 0])[:, None]
+    pos = pos + k_adv
+    counts = counts + k_adv
+  return buf, counts, n_prop, tok, pos
+
+
+def _spec_props_args(props, prop_counts, B: int, n_rounds: int, gamma_max: int, device):
+  """The host-proposal pair: both None (no n-gram rows this dispatch), or
+  an int32 stream buffer [B, ≤ n_rounds·(gamma_max+1) + gamma_max] and [B]
+  valid counts clipped to what the chunk can consume."""
+  if props is None:
+    return None, None
+  cap = n_rounds * (gamma_max + 1) + gamma_max
+  props = props.to(device=device, dtype=torch.int32)[:, :cap]
+  if props.shape[0] != B:
+    raise ValueError(f"props batch {props.shape[0]} != token batch {B}")
+  counts = torch.clamp(prop_counts.to(device=device, dtype=torch.int32), max=props.shape[1])
+  return props, counts
+
+
+def fused_spec_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, params_d, cfg_d, shard_d, token, pool, cache_d, block_tables, positions, active, gammas, temps, n_rounds: int, gamma_max: int, top_k=35, k_max: int = 64, page_size: int = 64, use_kernel: bool | None = None, generator=None, props=None, prop_counts=None, adapter_ids=None):
+  """One speculative decode chunk over every row of the page pool.
+
+  token [B, 1] / positions [B] / active [B] / temps [B] / top_k as in
+  ``fused_paged_batch_decode``; ``gammas`` [B] int32 is each row's depth
+  (0: plain decode for that row), clamped to ``gamma_max``; block_tables
+  [B, mp] must cover every active row's worst-case advance
+  ``n_rounds·(gamma_max+1)`` (inference/paging.py ``spec_worst_advance``).
+  ``props``/``prop_counts`` carry the rows' n-gram streams
+  (``_spec_batch_rounds``). Returns (tokens [B, n_rounds·(gamma_max+1)],
+  counts [B], n_prop [B], next_token [B, 1], next_positions [B], pool,
+  cache_d), every tensor on the device: a chained dispatch takes
+  ``next_token`` and ``next_positions`` as its inputs without a host round
+  trip. ``use_kernel=None`` resolves as in ``fused_paged_batch_decode``:
+  K3 on the card, one launch per layer per round.
+
+  Draft-free only: ``params_d`` must be None (the draft-model proposer and
+  its dense draft cache are not ported; ``cache_d`` passes through), and
+  so must ``adapter_ids`` (no LoRA yet)."""
+  from ..ops.paged import check_paged_kernel, paged_kernel_supported, window_block_tables
+
+  if params_d is not None:
+    raise NotImplementedError("fused_spec_paged_batch_decode: the draft-model proposer is not ported; pass params_d=None (n-gram proposals only)")
+  if adapter_ids is not None:
+    raise NotImplementedError("fused_spec_paged_batch_decode: per-row adapters are not ported")
+  _dense_full_model(params, shard, "fused_spec_paged_batch_decode")
+  dev = token.device
+  if use_kernel is None:
+    check_paged_kernel(cfg, dev)
+    use_kernel = paged_kernel_supported(cfg)
+  if generator is None:
+    generator = torch.Generator(device=dev).manual_seed(0)
+  B = token.shape[0]
+  G = int(gamma_max)
+  top_ks = torch.full((B,), top_k, dtype=torch.int32, device=dev) if isinstance(top_k, int) else top_k.to(device=dev, dtype=torch.int32).expand(B)
+  active = active.to(device=dev, dtype=torch.bool)
+  gammas = torch.clamp(gammas.to(device=dev, dtype=torch.int32), max=G)
+  props, prop_counts = _spec_props_args(props, prop_counts, B, int(n_rounds), G, dev)
+  # Inactive rows' window writes must not land on pages another row may own
+  # now: their tables pin to the trash page, once per chunk.
+  bt = torch.where(active[:, None], block_tables.to(device=dev, dtype=torch.int32), 0).contiguous()
+  bt_window = window_block_tables(bt, G + 1) if use_kernel else None
+
+  def verify(window, wpos):
+    logits, _ = paged_window_forward(params, cfg, shard, window, wpos, pool, bt, int(page_size), bool(use_kernel), bt_window)
+    return logits
+
+  buf, counts, n_prop, next_tok, next_pos = _spec_batch_rounds(
+    verify, token.to(torch.int32), positions.to(device=dev, dtype=torch.int32), active, gammas, temps.to(device=dev, dtype=torch.float32),
+    top_ks, int(n_rounds), G, int(k_max), generator, props, prop_counts,
+  )
+  return buf, counts, n_prop, next_tok, next_pos, pool, cache_d

@@ -11,7 +11,14 @@ block-table entries point there, and writes of padding or inactive rows
 land there, so no write needs a condition.
 
 The reference's pool ops return new pools; here they UPDATE THE POOL IN
-PLACE (``write_token_kv``, ``scatter_row_pages``) and return it.
+PLACE (``write_token_kv``, ``write_window_kv``, ``scatter_row_pages``) and
+return it.
+
+Batched speculation's verify window (W tokens per row) writes its KV with
+one indexed write per leaf (``write_window_kv``) and attends through K3 in
+ONE launch over the B·W window rows, each with its own length
+(``paged_window_attention``; the reference launches K3 once per window
+position). Both clamp where a held row's window runs past its table.
 
 ``paged_decode_attention`` takes the plain version
 (``paged_decode_attention_ref``) for a tensor on the CPU and launches the
@@ -73,6 +80,35 @@ def write_token_kv(pool_l: torch.Tensor, new: torch.Tensor, block_tables: torch.
   pos = pos.long()
   page = torch.gather(block_tables, 1, (pos // page_size)[:, None]).long()[:, 0]
   pool_l[page, :, pos % page_size] = new.to(pool_l.dtype)
+  return pool_l
+
+
+def _window_targets(block_tables: torch.Tensor, positions: torch.Tensor, page_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+  """(page [B, W], slot [B, W]) of each window position. The table column
+  clamps to the row's last one: an inactive row holds its position while
+  its window still writes W tokens, which near the context window reaches
+  past its table; its table is pinned to the trash page, so the clamped
+  write lands there (the reference gets the same from XLA's index clamp)."""
+  pos = positions.long()
+  col = torch.clamp(pos // page_size, max=block_tables.shape[1] - 1)
+  return torch.gather(block_tables, 1, col).long(), pos % page_size
+
+
+def write_window_kv(pool_l: torch.Tensor, new: torch.Tensor, block_tables: torch.Tensor, positions: torch.Tensor, page_size: int) -> torch.Tensor:
+  """Write a verify window's KV into one layer's pool, in place, with one
+  indexed write: pool_l [P, Hkv, ps, kd]; new [B, W, Hkv, kd]; positions
+  [B, W]. Only rows pinned to the trash page can collide."""
+  page, slot = _window_targets(block_tables, positions, page_size)
+  pool_l[page, :, slot] = new.to(pool_l.dtype)
+  return pool_l
+
+
+def write_window_kv_ref(pool_l: torch.Tensor, new: torch.Tensor, block_tables: torch.Tensor, positions: torch.Tensor, page_size: int) -> torch.Tensor:
+  """Plain version of ``write_window_kv``: one ``write_token_kv`` per window
+  position, as the reference writes the window (same clamp)."""
+  page, slot = _window_targets(block_tables, positions, page_size)
+  for j in range(new.shape[1]):
+    pool_l[page[:, j], :, slot[:, j]] = new[:, j].to(pool_l.dtype)
   return pool_l
 
 
@@ -190,6 +226,36 @@ def paged_decode_attention(q, k_pool_l, v_pool_l, block_tables, lengths, page_si
     raise RuntimeError(f"paged_decode kernel launch failed (cluster of {cluster}, {range_} slots per block): cudaError {rc}")
   LAUNCHES["paged_decode"] += 1
   return out
+
+
+def window_block_tables(block_tables: torch.Tensor, window: int) -> torch.Tensor:
+  """[B, mp] → [B·W, mp]: each row's table repeated once per window
+  position, the layout ``paged_window_attention`` takes. Tables are constant
+  over a spec chunk, so this runs once per chunk, not per layer."""
+  return block_tables.repeat_interleave(window, dim=0).contiguous()
+
+
+def paged_window_attention_ref(q, k_pool_l, v_pool_l, block_tables, positions, page_size: int, k_scale_pool_l=None, v_scale_pool_l=None) -> torch.Tensor:
+  """Plain version of ``paged_window_attention`` (the reference's gather
+  route): q [B, W, Hq, hd] at positions [B, W], each query attending to the
+  slots at or below its own position. block_tables [B, mp]."""
+  return paged_gqa_attention_ref(q, k_pool_l, v_pool_l, block_tables, positions[:, -1] + 1, page_size, k_scale_pool_l, v_scale_pool_l, q_positions=positions)
+
+
+def paged_window_attention(q, k_pool_l, v_pool_l, bt_window, positions, page_size: int, k_scale_pool_l=None, v_scale_pool_l=None) -> torch.Tensor:
+  """Verify-window attention through K3 in ONE launch: q [B, W, Hq, hd]
+  flattens to B·W single-query rows, each with its own length
+  ``position + 1`` over its row's table (``bt_window`` [B·W, mp] from
+  ``window_block_tables``). This is exactly what the reference's W
+  one-query launches compute (its kernel route, reference
+  ``models/decoder.py _paged_window_layer_step``). Lengths clamp to the
+  table's reach ``mp·page_size``: an inactive row's window can run past it
+  near the context window, and its output is discarded. On the CPU the
+  rows go through K3's plain version, as ``paged_decode_attention`` does."""
+  B, W, Hq, hd = q.shape
+  lengths = torch.clamp(positions.reshape(B * W) + 1, max=bt_window.shape[1] * page_size).to(torch.int32)
+  out = paged_decode_attention(q.reshape(B * W, Hq, hd).contiguous(), k_pool_l, v_pool_l, bt_window, lengths, page_size, k_scale_pool_l, v_scale_pool_l)
+  return out.view(B, W, Hq, hd)
 
 
 def paged_kernel_supported(cfg) -> bool:

@@ -11,7 +11,14 @@ The host KV tier (inference/kv_tier.py) records its traffic under the
 reference's names (``kv_tier_spilled_pages_total``, ``_restored_pages_total``,
 ``_host_pages`` ...) plus two counters of its own,
 ``kv_tier_spill_failures_total`` and ``kv_tier_restore_failures_total``
-(labelled with the exception's class).
+(labelled with the exception's class). Batched speculation records the
+reference's series: ``spec_accepted_tokens_total{proposer}`` and
+``spec_proposed_tokens_total{proposer}``, the ``spec_acceptance_ewma``
+histogram (``FRACTION_BUCKETS``), the ``spec_gamma{row}`` and
+``spec_proposer{row}`` gauges (0 plain, 1 n-gram, 2 model draft), the
+``kv_draft_bytes`` / ``kv_draft_slots`` / ``kv_draft_pages_equivalent``
+gauges (0 on a draft-free server) and the ``path="spec"`` label of
+``decode_chunks_total`` and ``decode_tokens_total``.
 The cluster merge of peer snapshots is not ported (there is no ring yet).
 """
 
