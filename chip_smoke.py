@@ -48,6 +48,31 @@ Phases (any failure exits non-zero and prints no result):
    logits against the bf16 model are reported; the profiler splits one
    decode step under int4 (K4, and XOT_TPU_INT4_KERNEL=0) and int8 w8a16,
    and the int4 prefill (K4, and XOT_TPU_INT4_KERNEL=0);
+5b. solo speculation — the same checkpoint through the solo daemon with
+   XOT_TPU_SPEC_DECODE=ngram (draft-free n-gram chunks at depth ≤ 8,
+   verify windows of 9), =int8 with XOT_TPU_SPEC_AUTOCAL=0 (the int8
+   self-draft at depth 4, windows of 5), =int8 with the load-time A/B on
+   (its verdict and both tok/s are printed; either verdict passes), and
+   =int8 with XOT_TPU_SPEC_DRAFT naming a seeded 2-layer checkpoint at
+   llama-3.2-1b's widths that the script writes (a cross-model draft),
+   each serving one greedy blocking and one streaming request. The
+   counters are zeroed just before the requests and read just after. Gates:
+   the pass's spec chunks were dispatched; n-gram: K1 once per layer per
+   verify round (16 a round), blocking ids equal to phase 4's plain ids,
+   the streaming ids the plain single-token greedy choice given their own
+   prefix at ≥ 0.9 of the positions (bf16 window and single-token sums
+   may round apart at a near-tie, after which the stream follows its own
+   greedy path: its position-by-position agreement with phase 4's ids is
+   reported, not gated); a draft: K1 once per
+   target layer (verify) and once per draft layer (catch-up) in every
+   round and once per draft layer in each draft prefill, the blocking
+   (``fused_speculative_generate``) and streaming ids equal, and for the
+   cross pass the 2-layer draft loaded. Acceptance, the n-gram depth after
+   each read and the decode rates beside phase 4's are reported, and
+   ``torch.profiler`` splits one n-gram spec chunk (3 rounds at depth 8)
+   and one int8-draft round into host and device time. Phase 3 also holds
+   K1 at the verify windows (B=1, Sq 5 and 9, offsets 72 / 1024 / 4086,
+   bf16 and int8 K/V);
 6. batched serving — the same checkpoint through the daemon with
    XOT_TPU_BATCHED=1 (8 slots, 64-token pages, cache 4096) at the batched
    server's defaults, draft-free n-gram speculation, QoS admission and
@@ -206,6 +231,8 @@ LLAMA_1B_MATMULS = {"wq/wo": (2048, 2048), "wk/wv": (2048, 512), "w_gate/w_up": 
 CALLS_PER_STEP = {"wq/wo": 32, "wk/wv": 32, "w_gate/w_up": 32, "w_down": 16, "lm_head": 1}
 # Weight-quantized solo passes: the environment each daemon starts with.
 QUANT_MODES = {"int4": {"XOT_TPU_QUANT": "int4"}, "int8": {"XOT_TPU_QUANT": "int8"}, "int8_w8a8": {"XOT_TPU_QUANT": "int8", "XOT_TPU_QUANT_COMPUTE": "w8a8"}}
+# Solo speculation knobs: every daemon starts with them unset.
+SPEC_KNOBS = ("XOT_TPU_SPEC_DECODE", "XOT_TPU_SPEC_DRAFT", "XOT_TPU_SPEC_AUTOCAL", "XOT_TPU_SPEC_NGRAM", "XOT_TPU_SPEC_GAMMA", "XOT_TPU_SPEC_NGRAM_MAX", "XOT_TPU_SPEC_REPROBE")
 
 
 def log(msg: str) -> None:
@@ -276,6 +303,7 @@ def phase_kernels(torch):
   gen = torch.Generator(device="cuda").manual_seed(SEED)
   Hq, Hkv, hd = 32, 8, 64
   results = {"flash_prefill": flash_prefill_rows(torch, gen)}
+  results["flash_prefill_verify"] = flash_prefill_rows(torch, gen, K1_VERIFY_ROWS)
   results["flash_decode"] = flash_decode_rows(torch, gen, Hq, Hkv, hd)
   results["paged_decode"] = paged_kernel_rows(torch, gen, Hq, Hkv, hd)
   results["paged_window"] = paged_window_rows(torch, gen, Hq, Hkv, hd)
@@ -300,6 +328,10 @@ K1_ROWS = [
   (2048, [2048], "bf16", 64), (3000, [0], "bf16", 64), (512, [0, 128, 128, 1536], "bf16", 64), (2048, [0], "bf16", 128),
   (16, [2048], "bf16", 64), (256, [3072], "bf16", 64), (1024, [1024], "bf16", 64),
 ]
+# K1 on solo speculation's verify windows (and the draft's catch-up): B=1,
+# Sq = gamma+1 = 5 (int8 draft, depth 4) or 9 (n-gram, depth 8), early, in
+# the middle and at the last window of the 4096-slot cache.
+K1_VERIFY_ROWS = [(Sq, [off], kv, 64) for kv in ("bf16", "int8") for Sq in (5, 9) for off in (72, 1024, 4086)]
 
 
 def k1_case(torch, gen, Sq, offsets, kv, hd):
@@ -394,15 +426,15 @@ def _kernel_names(torch, fn):
   return sorted({e.name[:80] for e in prof.events() if e.device_type == DeviceType.CUDA})
 
 
-def flash_prefill_rows(torch, gen):
-  """K1 against its plain version at ``K1_ROWS``: max |err| (held to
+def flash_prefill_rows(torch, gen, rows=K1_ROWS):
+  """K1 against its plain version at ``rows``: max |err| (held to
   ``K1_ATOL`` and elementwise to ``K1_EW_ATOL + K1_RTOL·|ref|``), kernel /
   plain / fair-library time, the card's bound, and ``torch.profiler``'s
   count of device kernels in one call, which must be 1."""
   from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa
 
   out = []
-  for Sq, offsets, kv, hd in K1_ROWS:
+  for Sq, offsets, kv, hd in rows:
     q, k, v, kw = k1_case(torch, gen, Sq, offsets, kv, hd)
     got = fa.flash_attention_prefill(q, k, v, **kw)
     want = fa.flash_attention_prefill_ref(q, k, v, **kw)
@@ -775,16 +807,17 @@ class ByteTokenizer:
     return text + ("<|assistant|>" if add_generation_prompt else "")
 
 
-def write_checkpoint(torch, path: Path) -> float:
+def write_checkpoint(torch, path: Path, layers: int | None = None, seed: int = SEED) -> float:
   """Seeded random bf16 weights at llama-3.2-1b's shapes, HF names, one
-  .safetensors file (tied embeddings: no lm_head)."""
+  .safetensors file (tied embeddings: no lm_head); ``layers`` cuts the
+  depth (the cross-model draft)."""
   from xotorch_support_jetson_tpu_torch.models.loader import save_safetensors
 
   t0 = time.perf_counter()
-  c = LLAMA_3_2_1B
+  c = dict(LLAMA_3_2_1B, num_hidden_layers=layers or LLAMA_3_2_1B["num_hidden_layers"])
   D, F_, V, L = c["hidden_size"], c["intermediate_size"], c["vocab_size"], c["num_hidden_layers"]
   qd, kd = c["num_attention_heads"] * c["head_dim"], c["num_key_value_heads"] * c["head_dim"]
-  gen = torch.Generator(device="cuda").manual_seed(SEED)
+  gen = torch.Generator(device="cuda").manual_seed(seed)
 
   def w(out_f, in_f, scale=None):
     return (torch.randn((out_f, in_f), generator=gen, device="cuda") * (scale or in_f**-0.5)).to(torch.bfloat16).cpu()
@@ -977,7 +1010,7 @@ def profile_serving(torch, engine, steps=8):
 
 SERVING_KNOBS = (
   "XOT_TPU_FLASH_DECODE", "XOT_TPU_FLASH_DECODE_MIN", "XOT_TPU_NO_FLASH", "XOT_TPU_KV_QUANT", "XOT_TPU_PLATFORM", "XOT_TPU_BATCHED", "XOT_TPU_PAGED_KERNEL",
-  "XOT_TPU_QUANT", "XOT_TPU_QUANT_COMPUTE", "XOT_TPU_INT4_KERNEL",
+  "XOT_TPU_QUANT", "XOT_TPU_QUANT_COMPUTE", "XOT_TPU_INT4_KERNEL", *SPEC_KNOBS,
 )
 CHAT = [{"role": "user", "content": "Write a short poem about a fox who learns to fly."}]
 
@@ -1215,6 +1248,267 @@ def profile_decode_step(torch, engine, what, reps=8):
     finally:
       os.environ.pop("XOT_TPU_INT4_KERNEL")
   return out
+
+
+# ------------------------------------------------ 5b. solo speculative serving
+
+# Solo speculation passes (the solo daemon's XOT_TPU_SPEC_DECODE): the
+# draft-free n-gram chain; the int8 self-draft with the load-time A/B off,
+# then on; a 2-layer cross-model draft at llama-3.2-1b's widths
+# (XOT_TPU_SPEC_DRAFT, its directory filled in by the phase): written from
+# the target's seed, it holds the target's embedding and first two layers
+# (an early-exit draft of the same model).
+SPEC_PASSES = {
+  # 8-token chunks (the reference's advice for a local card): the n-gram
+  # index proposes at chunk boundaries only, and this stream's first
+  # 32-token chunk ends on a token it has not seen before.
+  "ngram": {"XOT_TPU_SPEC_DECODE": "ngram", "XOT_TPU_DECODE_CHUNK": "8"},
+  "int8": {"XOT_TPU_SPEC_DECODE": "int8", "XOT_TPU_SPEC_AUTOCAL": "0"},
+  "int8_autocal": {"XOT_TPU_SPEC_DECODE": "int8"},
+  "cross": {"XOT_TPU_SPEC_DECODE": "int8", "XOT_TPU_SPEC_AUTOCAL": "0", "XOT_TPU_SPEC_DRAFT": ""},
+}
+DRAFT_LAYERS = 2
+
+
+def phase_spec_serving(torch, ckpt: Path, plain):
+  """One solo daemon pass per ``SPEC_PASSES`` entry on the served
+  checkpoint; ``plain`` is phase 4's summary (its greedy ids and decode
+  rate)."""
+  from xotorch_support_jetson_tpu_torch import main as tmain
+
+  draft_dir = ROOT / "build" / "smoke_draft"
+  out = {}
+  try:
+    write_checkpoint(torch, draft_dir, layers=DRAFT_LAYERS)
+    for name, env in SPEC_PASSES.items():
+      args, port = _daemon_args(tmain, ckpt)
+      env = {k: (str(draft_dir) if k == "XOT_TPU_SPEC_DRAFT" else v) for k, v in env.items()}
+      os.environ.update(env)
+      try:
+        out[name] = asyncio.run(_serve_spec(torch, tmain, args, port, name, env, plain))
+      finally:
+        for knob in env:
+          os.environ.pop(knob, None)
+      gc.collect()
+      torch.cuda.empty_cache()
+  finally:
+    shutil.rmtree(draft_dir, ignore_errors=True)
+  a, b = out["int8"], out["cross"]
+  log(f"[spec] int8 self-draft vs {DRAFT_LAYERS}-layer cross draft: acceptance {a['acceptance']:.3f} / {b['acceptance']:.3f}, streaming {a['decode_tok_s']:.1f} / {b['decode_tok_s']:.1f} tok/s, blocking {a['blocking_tok_s']:.1f} / {b['blocking_tok_s']:.1f} tok/s (plain: streaming {plain['decode_tok_s']:.1f}, blocking {plain['blocking_tokens'] / plain['blocking_s']:.1f})")
+  return out
+
+
+def _spy_solo_spec(engine, dec, fa, rec):
+  """Count what the solo spec programs launch, until the returned function
+  removes the spies: each draft round (``_spec_solo_round``: its K1
+  launches, the verify window and the draft's catch-up), each n-gram chunk
+  (``fused_spec_batch_decode``: rounds, depth cap, K1 launches), each
+  draft prefill (K1), each dispatch's kind, each acceptance the draft
+  policy folds in, and each n-gram session's depth after a read."""
+  orig_round, orig_batch = dec._spec_solo_round, dec.fused_spec_batch_decode
+  orig_prefill, orig_dispatch = engine._ensure_draft_cache, engine._dispatch_chunk_sync
+  orig_note, orig_read = engine._note_spec_acceptance, engine._read_chunk_sync
+
+  def counted(fn, key, **extra):
+    def run(*a, **kw):
+      k1 = fa.LAUNCHES["flash_prefill"]
+      res = fn(*a, **kw)
+      rec[key].append(dict(k1=fa.LAUNCHES["flash_prefill"] - k1, **{k: f(a, kw, res) for k, f in extra.items()}))
+      return res
+
+    return run
+
+  dec._spec_solo_round = counted(orig_round, "rounds")
+  dec.fused_spec_batch_decode = counted(orig_batch, "ngram_chunks", rounds=lambda a, kw, r: int(a[13]), gmax=lambda a, kw, r: int(a[14]))
+  engine._ensure_draft_cache = counted(orig_prefill, "draft_prefills")
+  engine._dispatch_chunk_sync = counted(orig_dispatch, "dispatches", kind=lambda a, kw, h: "none" if h is None else (h[0] if isinstance(h, tuple) else "plain"))
+  engine._generate_speculative_sync = counted(engine._generate_speculative_sync, "oneshots")
+
+  def note(emitted, rounds, gamma):
+    rec["acceptance"].append((emitted, rounds, gamma))
+    return orig_note(emitted, rounds, gamma)
+
+  def read(handle):
+    toks = orig_read(handle)
+    if isinstance(handle, tuple) and handle[0] == "ngram":
+      session = engine.sessions.get(handle[1])
+      rec["ngram_depths"].append(None if session is None else session.ngram_gamma)
+    return toks
+
+  engine._note_spec_acceptance, engine._read_chunk_sync = note, read
+
+  def remove():
+    dec._spec_solo_round, dec.fused_spec_batch_decode = orig_round, orig_batch
+    for name in ("_ensure_draft_cache", "_dispatch_chunk_sync", "_generate_speculative_sync", "_note_spec_acceptance", "_read_chunk_sync"):
+      delattr(engine, name)
+
+  return remove
+
+
+def _agreement(a, b) -> float:
+  """Share of ``b``'s positions where ``a`` holds the same token."""
+  return sum(x == y for x, y in zip(a, b)) / max(len(b), 1)
+
+
+async def _serve_spec(torch, tmain, args, port, name, env, plain):
+  from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+  from xotorch_support_jetson_tpu_torch.models import decoder as dec
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa
+  from xotorch_support_jetson_tpu_torch.utils.metrics import metrics, snapshot_delta
+
+  node, api, engine, _ = tmain.build_components(args, tokenizer=ByteTokenizer())
+  server = await api.run(host="127.0.0.1", port=port)
+  try:
+    t0 = time.perf_counter()
+    await engine.ensure_shard(Shard("llama-3.2-1b", 0, 15, 16))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cal = engine.spec_calibration
+    draft = engine._draft_params is not None
+    L_t = engine.cfg.n_layers
+    L_d = (engine._draft_cfg or engine.cfg).n_layers
+    res = dict(env=env, load_s=load_s, calibration=cal, draft_loaded=draft, draft_layers=L_d if draft else None)
+    if name == "int8_autocal":
+      if cal is None:
+        raise SystemExit("chip_smoke: spec int8_autocal: the load-time A/B did not run")
+      log(f"[spec] pass=int8_autocal: load-time A/B verdict {cal['verdict']}: speculative {cal['spec_tok_s']:.1f} tok/s vs plain {cal['plain_tok_s']:.1f} tok/s (64 greedy tokens, 256-slot cache, best of two); load {load_s:.1f} s")
+    elif not draft and name != "ngram":
+      raise SystemExit(f"chip_smoke: spec {name}: the draft did not load")
+    if name == "cross" and L_d != DRAFT_LAYERS:
+      raise SystemExit(f"chip_smoke: spec cross: the draft has {L_d} layers, expected {DRAFT_LAYERS}")
+    # A sampled warm-up: it never speculates, so the draft's depth enters
+    # the counted requests untouched.
+    await _serve_requests(torch, node, engine, port, [("warmup", _chat_body(False, 0.8))])
+    rec = {k: [] for k in ("rounds", "ngram_chunks", "draft_prefills", "dispatches", "acceptance", "ngram_depths", "oneshots")}
+    remove = _spy_solo_spec(engine, dec, fa, rec)
+    before = metrics.snapshot()
+    fa.reset_launch_counts()  # ---- this pass's main path, counted
+    try:
+      # Streaming first: it opens at the full depth, whatever the blocking
+      # request's acceptance then makes of it.
+      run = await _serve_requests(torch, node, engine, port, [("greedy streaming", _chat_body(True, 0)), ("greedy blocking", _chat_body(False, 0))])
+      launches = dict(fa.LAUNCHES)  # ---- read just after
+    finally:
+      remove()
+    delta = snapshot_delta(before, metrics.snapshot())
+    streaming, blocking = run
+    kinds = [d["kind"] for d in rec["dispatches"]]
+    spec_kind = "ngram" if not draft else "spec"
+    res.update(
+      launches=launches, greedy_blocking=blocking["tokens"], greedy_streaming=streaming["tokens"], kinds=kinds,
+      ttft_s=streaming["ttft_s"], decode_tok_s=_decode_rate(streaming), blocking_s=blocking["total_s"], blocking_tok_s=len(blocking["tokens"]) / blocking["total_s"],
+      agreement_streaming_vs_plain=_agreement(streaming["tokens"], plain["greedy_tokens_default"]), agreement_blocking_vs_plain=_agreement(blocking["tokens"], plain["greedy_tokens_default"]),
+      draft_rounds=len(rec["rounds"]), draft_prefills=len(rec["draft_prefills"]), ngram_chunks=rec["ngram_chunks"], ngram_depths=rec["ngram_depths"],
+      speculative_oneshots=len(rec["oneshots"]),
+    )
+    if name == "int8" and not rec["oneshots"]:
+      raise SystemExit("chip_smoke: spec int8: the blocking request did not run fused_speculative_generate")
+    if spec_kind not in kinds and name != "int8_autocal":
+      raise SystemExit(f"chip_smoke: spec {name}: no {spec_kind} chunk was dispatched ({kinds})")
+    if draft:
+      # Every round launches K1 once per target layer (the verify window)
+      # and once per draft layer (the catch-up); every draft prefill once
+      # per draft layer; every request's prefill once per target layer.
+      bad = [r for r in rec["rounds"] if r["k1"] != L_t + L_d] + [p for p in rec["draft_prefills"] if p["k1"] not in (0, L_d)]
+      expect = 2 * L_t + sum(p["k1"] for p in rec["draft_prefills"]) + len(rec["rounds"]) * (L_t + L_d)
+      if bad or not rec["rounds"] or launches["flash_prefill"] != expect:
+        raise SystemExit(f"chip_smoke: spec {name}: K1 launches {launches} against {expect} expected ({len(rec['rounds'])} rounds of {L_t} + {L_d} layers; off: {bad[:4]})")
+      if blocking["tokens"] != streaming["tokens"]:
+        raise SystemExit(f"chip_smoke: spec {name}: greedy blocking and streaming differ:\n{blocking['tokens']}\n{streaming['tokens']}")
+      emitted, rounds = sum(x[0] for x in rec["acceptance"]), sum(x[1] for x in rec["acceptance"])
+      res["acceptance"] = (emitted - rounds) / max(sum(x[1] * x[2] for x in rec["acceptance"]), 1)  # accepted over proposed
+      res["acceptance_calls"] = rec["acceptance"]
+    else:
+      spec_chunks = [c for c in rec["ngram_chunks"] if c["gmax"] > 0]
+      bad = [c for c in rec["ngram_chunks"] if c["k1"] != (L_t * c["rounds"] if c["gmax"] > 0 else 0)]
+      if bad or launches["flash_prefill"] != 2 * L_t + sum(c["k1"] for c in rec["ngram_chunks"]):
+        raise SystemExit(f"chip_smoke: spec {name}: K1 launches {launches} (n-gram chunks {rec['ngram_chunks']})")
+      accepted = _by_label(delta, "spec_accepted_tokens_total", "proposer").get("ngram", 0)
+      proposed = _by_label(delta, "spec_proposed_tokens_total", "proposer").get("ngram", 0)
+      res.update(acceptance=accepted / max(proposed, 1), accepted=accepted, proposed=proposed, verify_rounds=sum(c["rounds"] for c in spec_chunks))
+      if name == "ngram":
+        res["teacher_forced"] = teacher_forced(torch, engine, streaming["tokens"])
+        if not spec_chunks or res["teacher_forced"]["agreement"] < 0.9:
+          raise SystemExit(f"chip_smoke: spec ngram: {len(spec_chunks)} spec chunks; the streaming ids agree with plain single-token greedy on {res['teacher_forced']['agreement']:.3f} of their positions (gate 0.9)")
+      if blocking["tokens"] != plain["greedy_tokens_default"]:
+        raise SystemExit(f"chip_smoke: spec {name}: blocking requests must stay plain, and their ids equal phase 4's")
+    log(f"[spec] pass={name}: {kinds.count(spec_kind)} {spec_kind} chunks of {len(kinds)} dispatches ({kinds}); {len(rec['oneshots'])} speculative blocking requests; acceptance {res['acceptance']:.3f}; K1 launches {launches['flash_prefill']} ({res['draft_rounds']} draft rounds, {len(rec['ngram_chunks'])} n-gram chunks {[(c['rounds'], c['gmax']) for c in rec['ngram_chunks']]}); n-gram depths after each read {rec['ngram_depths']}")
+    log(f"[spec] pass={name}: streaming TTFT {res['ttft_s']:.4f} s, decode {res['decode_tok_s']:.1f} tok/s (plain {plain['decode_tok_s']:.1f}); blocking {res['blocking_tok_s']:.1f} tok/s; ids agree position by position with phase 4's plain greedy ids: streaming {res['agreement_streaming_vs_plain']:.3f}, blocking {res['agreement_blocking_vs_plain']:.3f}; blocking == streaming: {blocking['tokens'] == streaming['tokens']}")
+    if "teacher_forced" in res:
+      tf = res["teacher_forced"]
+      log(f"[spec] pass={name}: the streaming ids are the plain single-token greedy choice, given their own prefix, at {tf['agreement']:.3f} of the positions; mismatches (position, token and logit, plain's token and logit): {[(m['position'], m['token'], round(m['logit'], 5), m['plain'], round(m['plain_logit'], 5)) for m in tf['mismatches']]}")
+    if name == "ngram":
+      res["profile"] = profile_ngram_chunk(torch, engine)
+    elif name == "int8":
+      res["profile"] = profile_draft_round(torch, engine)
+    return res
+  finally:
+    server.close()
+    await server.wait_closed()
+    engine.executor.shutdown(wait=True)
+
+
+def teacher_forced(torch, engine, stream):
+  """The served weights' plain greedy choice at every position of
+  ``stream`` (the streaming greedy answer to ``CHAT``), given the stream's
+  own prefix: one prefill and single-token steps, the plain decode path.
+  Returns the share of positions where the stream holds that choice, and
+  each mismatch with the two logits. Once a stream takes the other side of
+  a near-tie it follows its own greedy trajectory, so its positional
+  agreement with another greedy stream says nothing past that point; this
+  asks, at each position, whether the token is the plain path's greedy
+  token there."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import init_kv_cache, shard_forward
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  prompt = torch.tensor([ByteTokenizer().encode(ByteTokenizer().apply_chat_template(CHAT))], dtype=torch.int32, device="cuda")
+  S = prompt.shape[1]
+  cache = init_kv_cache(cfg, cfg.n_layers, 1, CACHE, device="cuda")
+  logits, _ = shard_forward(params, cfg, shard, prompt, torch.arange(S, dtype=torch.int32, device="cuda")[None], cache)
+  rows = [logits[0, -1].float()]
+  for j, t in enumerate(stream[:-1]):
+    step, _ = shard_forward(params, cfg, shard, torch.tensor([[t]], dtype=torch.int32, device="cuda"), torch.tensor([[S + j]], dtype=torch.int32, device="cuda"), cache)
+    rows.append(step[0, 0].float())
+  logits = torch.stack(rows)
+  best = logits.argmax(dim=-1).tolist()
+  mism = [dict(position=j, token=t, logit=logits[j, t].item(), plain=best[j], plain_logit=logits[j, best[j]].item()) for j, t in enumerate(stream) if best[j] != t]
+  return dict(agreement=1 - len(mism) / len(stream), mismatches=mism)
+
+
+def profile_ngram_chunk(torch, engine):
+  """One n-gram spec chunk as a 32-token streaming dispatch makes it: B=1,
+  3 rounds at depth 8 (W = 9) at position 100 of a 4096-slot cache, a
+  35-token proposal stream (the device work does not depend on it)."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import fused_spec_batch_decode, init_kv_cache
+
+  cfg, shard = engine.cfg, engine._effective_shard
+  cache = init_kv_cache(cfg, cfg.n_layers, 1, CACHE, device="cuda")
+  one = lambda v, dt: torch.full((1,), v, dtype=dt, device="cuda")  # noqa: E731
+  tok = torch.full((1, 1), 65, dtype=torch.int32, device="cuda")
+  props = torch.full((1, 35), 65, dtype=torch.int32, device="cuda")
+
+  def chunk():
+    out = fused_spec_batch_decode(engine.params, cfg, shard, None, cfg, shard, tok, cache, None, one(100, torch.int32), one(True, torch.bool), one(8, torch.int32), one(0.0, torch.float32), 3, 8, top_k=1, k_max=1, props=props, prop_counts=one(35, torch.int32))
+    out[1].cpu()  # the read a chunk ends with
+
+  return _profile(torch, "n-gram spec chunk, B=1, 3 rounds at depth 8 (W=9)", chunk, 3)
+
+
+def profile_draft_round(torch, engine):
+  """One int8-draft round as the draft chain runs it: 4 draft steps, the
+  verify window (W = 5) and the draft's catch-up at position 100 of
+  4096-slot caches, and the read-back that ends a block."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import fused_speculative_generate, init_kv_cache
+
+  cfg, shard = engine.cfg, engine._effective_shard
+  ct = init_kv_cache(cfg, cfg.n_layers, 1, CACHE, device="cuda")
+  cd = init_kv_cache(cfg, cfg.n_layers, 1, CACHE, device="cuda")
+  tok = torch.full((1, 1), 65, dtype=torch.int32, device="cuda")
+
+  def one_round():
+    fused_speculative_generate(engine.params, cfg, shard, engine._draft_params, cfg, shard, tok, ct, cd, 100, 1, gamma=4)
+
+  return _profile(torch, "int8-draft round, depth 4 (4 draft steps, W=5 verify, W=5 catch-up)", one_round, 3)
 
 
 # ------------------------------------------------------------- 6. batched
@@ -2170,6 +2464,7 @@ def main() -> int:
     log(f"[serving] wrote a random bf16 llama-3.2-1b checkpoint ({sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9:.2f} GB) in {write_s:.1f} s")
     serving = phase_serving(torch, ckpt)
     quant = phase_quant_serving(torch, ckpt, serving.pop("_bf16_logits"))
+    spec = phase_spec_serving(torch, ckpt, serving)
     # The int4-weights daemon first: the metrics registry and the SLO
     # engine are the process's, so a daemon started after the priority
     # pass would inherit its interactive burn (and the smallest budget).
@@ -2182,7 +2477,9 @@ def main() -> int:
     shutil.rmtree(ckpt, ignore_errors=True)
   # Launches per kernel on each main path (the tiered multi-turn pass with
   # the tier on is "batched_tiered": K1, K3): the solo bf16 daemon run (K1,
-  # K2), the solo quantized runs (K1; K4 under int4 weights), the batched
+  # K2), the solo quantized runs (K1; K4 under int4 weights), the solo
+  # speculation runs ("solo_spec": K1 in prefills, verify windows and draft
+  # catch-ups), the batched
   # runs on bf16 weights at the defaults (K1, K3; summed over the three pool
   # types), the same with XOT_TPU_MIXED_TICK=0, the priority pass, and the
   # batched run on int4 weights (K1, K3, K4). Of the batched default runs'
@@ -2195,7 +2492,7 @@ def main() -> int:
     "solo": [serving["launches"]], "solo_long_prompt": [serving["long"]["launches"]], "solo_quant": [q["launches"] for q in quant.values()],
     "batched": [bp[k]["launches"] for k in ("bf16", "int8", "int4")], "batched_nospec": [bp["bf16_nospec"]["launches"]], "batched_alternating": [bp["bf16_alternating"]["launches"]],
     "batched_fifo": [bp["bf16_fifo"]["launches"]], "batched_priority": [bp["bf16_priority"]["launches"]], "batched_int4_weights": [p["launches"] for p in batched_int4["passes"].values()],
-    "batched_tiered": [tiered["passes"]["tier_on"]["launches"]],
+    "batched_tiered": [tiered["passes"]["tier_on"]["launches"]], "solo_spec": [p["launches"] for p in spec.values()],
     "batched_spec": [p["spec"]["launches"] for p in [*bp.values(), *batched_int4["passes"].values()]],
   }
   by_path = {name: {path: sum(x.get(name, 0) for x in runs) for path, runs in paths.items()} for name in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
@@ -2213,7 +2510,9 @@ def main() -> int:
 
   k4_head = next(i for i, r in enumerate(kern["int4_matmul"]) if r["weight"] == "w_gate/w_up" and r["T"] == 1)
   kernels_line = {"kernels": [
-    entry("flash_prefill", "xotorch_support_jetson_tpu_torch/csrc/flash_prefill.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:32", kern["flash_prefill"], 0),
+    # Head row: Sq 128 at offset 0; the solo verify-window rows' errors count too.
+    {**entry("flash_prefill", "xotorch_support_jetson_tpu_torch/csrc/flash_prefill.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:32", kern["flash_prefill"] + kern["flash_prefill_verify"], 0),
+     "verify_windows": [{k: r[k] for k in ("Sq", "q_offset", "kv", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_prefill_verify"]]},
     entry("flash_decode", "xotorch_support_jetson_tpu_torch/csrc/flash_decode.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:190", kern["flash_decode"], 0),
     # Head row: B=8 at mixed lengths, bf16 pages (the batched path's geometry);
     # the verify-window rows' errors count too.
@@ -2223,7 +2522,7 @@ def main() -> int:
     # the per-step sums are in chip_smoke.json's int4_matmul_bound.
     entry("int4_matmul", "xotorch_support_jetson_tpu_torch/csrc/int4_matmul.cu", "xotorch_support_jetson_tpu/ops/pallas_int4.py:36", kern["int4_matmul"], k4_head),
   ]}
-  record = dict(card=smi, build_s=build_s, kernels=kern, serving=serving, quant=quant, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, summary=kernels_line)
+  record = dict(card=smi, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, summary=kernels_line)
   out = ROOT / "chiprun_out"
   out.mkdir(exist_ok=True)
   (out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=float))

@@ -139,14 +139,25 @@ def test_engine_validates_the_quantization_knobs(monkeypatch):
 
 
 def test_engine_refuses_speculative_decoding(monkeypatch):
-  """The reference speculates under any XOT_TPU_SPEC_DECODE; the port has no
-  speculation yet, so it refuses to start instead of decoding plainly."""
-  monkeypatch.setenv("XOT_TPU_SPEC_DECODE", "ngram")
+  """The engine speculates under XOT_TPU_SPEC_DECODE as the reference does
+  (tests/test_torch_spec_solo.py holds it against the JAX engine); what the
+  port still refuses is the batched server with a draft loaded, whose
+  model proposer is not ported, rather than serve n-gram only."""
+  from xotorch_support_jetson_tpu_torch.models.config import tiny_test_config
+  from xotorch_support_jetson_tpu_torch.models.decoder import init_shard_params
+
+  for knob in ("XOT_TPU_QUANT", "XOT_TPU_SPEC_DRAFT"):
+    monkeypatch.delenv(knob, raising=False)
+  monkeypatch.setenv("XOT_TPU_SPEC_DECODE", "int8")
+  engine = TorchShardedInferenceEngine(device="cpu")
+  cfg, shard = tiny_test_config(n_layers=2), Shard("m", 0, 1, 2)
+  engine.load_test_model(shard, cfg, init_shard_params(cfg, shard, torch.Generator().manual_seed(0)))
+  assert engine.spec_decode == "int8" and engine._draft_params is not None  # the int8 self-draft
   with pytest.raises(NotImplementedError, match="XOT_TPU_SPEC_DECODE"):
-    TorchShardedInferenceEngine(device="cpu")
+    engine.get_batched_server()
   monkeypatch.setenv("XOT_TPU_SPEC_DECODE", "")
-  monkeypatch.delenv("XOT_TPU_QUANT", raising=False)
-  assert TorchShardedInferenceEngine(device="cpu").quant is None
+  engine = TorchShardedInferenceEngine(device="cpu")
+  assert engine.quant is None and engine.spec_decode is None
 
 
 def test_engine_prompt_too_long(tiny_dir):

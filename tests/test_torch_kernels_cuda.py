@@ -9,7 +9,8 @@ The host KV tier's page copies round-trip byte-identically on every pool
 type, and K3 reads restored pages bit-identically.
 
 K3 also carries the verify window of batched speculation: B=8 rows × W=9
-positions flattened into one launch (``paged_window_attention``).
+positions flattened into one launch (``paged_window_attention``); K1 the
+solo verify windows (B=1, Sq 5 and 9, offsets up to 4086).
 
 K2 and K3 are also held at caches past 4096 and at windows that are not a
 whole number of cluster ranges, at GQA groups 1, 2 and 8, and to one device
@@ -130,6 +131,16 @@ def test_flash_prefill_long_and_ragged_prompts(dev, Sq, offset):
 @pytest.mark.parametrize("Sq,offsets", [(512, [0, 128, 128, 1536]), (65, [0, 1000, 3, 3584]), (777, [3000, 0, 17, 2048])])
 def test_flash_prefill_mixed_row_offsets(dev, Sq, offsets):
   _check_prefill(dev, Sq, offsets)
+
+
+@pytest.mark.parametrize("Sq", [5, 9])
+@pytest.mark.parametrize("offset", [0, 72, 1024, 4086])
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_prefill_verify_windows(dev, Sq, offset, quant):
+  """Solo speculation's verify window (and the draft's catch-up): B=1,
+  Sq = gamma+1 = 5 (int8 draft, depth 4) or 9 (n-gram depth 8), anywhere
+  in the 4096-slot cache up to its last window (4086 + 9 = 4095 slots)."""
+  _check_prefill(dev, Sq, [offset], quant=quant)
 
 
 @pytest.mark.parametrize("Hq,Hkv", [(8, 8), (16, 8), (32, 8), (64, 8), (24, 2), (64, 1)])

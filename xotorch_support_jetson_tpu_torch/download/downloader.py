@@ -1,6 +1,8 @@
 """Checkpoint location: the ``XOT_TPU_MODEL_DIR`` local-directory path of
 the reference's ``download/downloader.py``. There is no hub download in the
-PyTorch port yet: a model is served from a local checkpoint directory.
+PyTorch port yet: a model is served from a local checkpoint directory. A
+speculative draft named by registry id is looked up where the reference
+keeps its downloads (``get_models_dir``).
 """
 
 from __future__ import annotations
@@ -9,6 +11,15 @@ import os
 from pathlib import Path
 
 from ..inference.shard import Shard
+from ..utils.helpers import XOT_HOME
+
+
+def get_models_dir() -> Path:
+  return XOT_HOME / "downloads"
+
+
+def repo_to_dirname(repo_id: str) -> str:
+  return repo_id.replace("/", "--")
 
 
 class LocalShardDownloader:

@@ -111,8 +111,9 @@ class DecoderBatchOps:
   # ------------------------------------------------- batched speculation
 
   def spec_supported(self) -> bool:
-    """A draft model is loaded: never in the port (the draft-model proposer
-    is not ported), so the server offers only the n-gram proposer."""
+    """The model proposer is available: never in the port (it is not
+    ported; the server refuses to build with a draft loaded), so the server
+    offers only the n-gram proposer."""
     return False
 
   def spec_ngram_supported(self) -> bool:

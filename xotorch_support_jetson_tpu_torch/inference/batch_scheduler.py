@@ -235,6 +235,13 @@ class BatchedServer:
 
   def __init__(self, engine, n_slots: int | None = None, chunk: int | None = None, top_k: int | None = None, max_queue: int | None = None, lookahead: bool | None = None, qos=None, spec_batch: bool | None = None):
     check_unported_knobs()
+    if getattr(engine, "_draft_params", None) is not None:
+      # The reference's server drafts with a loaded model (its "model"
+      # proposer); serving n-gram only here would diverge without a word.
+      raise NotImplementedError(
+        "the PyTorch port's batched server does not have the draft-model proposer yet; a draft is loaded "
+        "(XOT_TPU_SPEC_DECODE=int8 / XOT_TPU_SPEC_DRAFT): unset them, or set XOT_TPU_SPEC_DECODE=ngram"
+      )
     if engine.cfg is not None:
       check_paged_kernel(engine.cfg, engine.device)
     self.engine = engine

@@ -16,23 +16,46 @@ It runs on ``cuda`` unless the caller asks for the CPU (``device="cpu"`` or
 ``XOT_TPU_QUANT=int8|int4`` (or ``quant=``) loads any model weight-quantized,
 on the device, right after its weights (models/quantize.py); int8 products
 run as ``XOT_TPU_QUANT_COMPUTE`` says (``w8a16``, the default, or ``w8a8``).
-``XOT_TPU_SPEC_DECODE`` (speculative decoding) is not ported: the engine
-refuses to start when it is set rather than serve plain decode.
+
+Solo speculative decoding (``XOT_TPU_SPEC_DECODE``, or ``spec_decode=``),
+greedy and exact, as the reference reads it:
+
+- ``int8`` loads a draft: the int8 self-draft (none when ``XOT_TPU_QUANT``
+  is set), or the checkpoint ``XOT_TPU_SPEC_DRAFT`` names (a directory, or
+  a registry id already under ``XOT_TPU_HOME/downloads``; refused on a
+  missing checkpoint, another vocab size or differing tokenizer files).
+  Streaming greedy chunks chain ``fused_speculative_chunk`` on the device
+  and blocking greedy requests run ``fused_speculative_generate``; the depth
+  walks an engine-level acceptance EWMA (``XOT_TPU_SPEC_GAMMA``, default 4,
+  down to 0 = plain, a depth-1 probe after ``XOT_TPU_SPEC_REPROBE`` plain
+  dispatches). On the card a load-time A/B drops the draft when speculation
+  is slower than plain (``XOT_TPU_SPEC_AUTOCAL=0`` skips it).
+- Any other value, or a draft that did not load: streaming greedy chunks
+  draft from the session's own prompt+generated history (n-grams,
+  ``XOT_TPU_SPEC_NGRAM``, ``_NGRAM_N``, ``_NGRAM_MAX``) through
+  ``fused_spec_batch_decode`` at B=1, one synchronous chunk at a time, the
+  depth walking a per-session EWMA.
 """
 
 from __future__ import annotations
 
 import asyncio
+import hashlib
 import os
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..models.decoder import fused_decode, fused_generate, init_kv_cache, shard_forward
 from ..utils.helpers import DEBUG, resolve_device
+from ..utils.metrics import FRACTION_BUCKETS, metrics
 from .engine import InferenceEngine, PromptTooLongError
+from .ngram import NgramIndex, ngram_enabled, ngram_knobs
+from .paging import ewma_update, spec_adapt_gamma
 from .shard import Shard
 from .state import InferenceState
 
@@ -44,8 +67,34 @@ def _round_up(n: int, multiple: int) -> int:
   return ((n + multiple - 1) // multiple) * multiple
 
 
+def _tokenizer_fingerprint(d: Path) -> dict[str, str] | None:
+  """Per-artifact digests of a checkpoint's vocabulary files
+  (tokenizer.json, tokenizer.model, vocab.json, merges.txt), so two
+  directories compare only on the files both ship; tokenizer_config.json is
+  left out (chat templates differ within one tokenizer family). None when
+  the directory has none."""
+  digests = {}
+  for name in ("tokenizer.json", "tokenizer.model", "vocab.json", "merges.txt"):
+    f = d / name
+    if f.is_file():
+      digests[name] = hashlib.blake2b(f.read_bytes(), digest_size=16).hexdigest()
+  return digests or None
+
+
+def _tokenizers_differ(fp_a: dict[str, str] | None, fp_b: dict[str, str] | None) -> bool:
+  """True only when some artifact present in both checkpoints differs."""
+  if not fp_a or not fp_b:
+    return False
+  common = fp_a.keys() & fp_b.keys()
+  return bool(common) and any(fp_a[n] != fp_b[n] for n in common)
+
+
 class _Session:
-  __slots__ = ("kv_cache", "curr_pos", "prompt_len", "max_seq", "next_token_dev")
+  __slots__ = (
+    "kv_cache", "curr_pos", "prompt_len", "max_seq", "next_token_dev", "prompt_np", "draft_cache",
+    "spec_seed_dev", "spec_pos_dev", "spec_known_pos", "spec_inflight_slots",
+    "ngram_index", "ngram_unread", "ngram_ewma", "ngram_gamma",
+  )
 
   def __init__(self, kv_cache, max_seq: int) -> None:
     self.kv_cache = kv_cache
@@ -53,12 +102,29 @@ class _Session:
     self.prompt_len = 0
     self.max_seq = max_seq
     self.next_token_dev = None  # [B,1] device tensor chaining decode chunks
+    self.prompt_np = None  # prompt token ids (the draft's prefill, the n-gram index)
+    self.draft_cache = None  # the draft's dense slot cache, built at the first spec dispatch
+    # Draft spec chain: seed token and position stay on the device, so chunk
+    # N+1 dispatches from chunk N's outputs before the host reads chunk N.
+    # The host keeps the confirmed position plus the summed worst-case slots
+    # (steps + gamma + 1) of dispatched, unread chunks for its room checks.
+    self.spec_seed_dev = None
+    self.spec_pos_dev = None
+    self.spec_known_pos = 0
+    self.spec_inflight_slots = 0
+    # Draft-free n-gram chain: the suffix index over prompt+generated
+    # history and whether a chunk is dispatched but unread. The chain is
+    # strictly sequential (the next proposal keys on this chunk's tokens).
+    # Acceptance EWMA and depth are per session: they follow the text, not
+    # the model. -1 depth: not started (the engine cap at chain start).
+    self.ngram_index = None
+    self.ngram_unread = False
+    self.ngram_ewma = None
+    self.ngram_gamma = -1
 
 
 class TorchShardedInferenceEngine(InferenceEngine):
-  def __init__(self, shard_downloader=None, max_seq_len: int | None = None, seed: int = 0, device=None, tokenizer=None, quant: str | None = None):
-    if os.getenv("XOT_TPU_SPEC_DECODE"):
-      raise NotImplementedError("the PyTorch port's engine does not have speculative decoding (XOT_TPU_SPEC_DECODE) yet; unset it")
+  def __init__(self, shard_downloader=None, max_seq_len: int | None = None, seed: int = 0, device=None, tokenizer=None, quant: str | None = None, spec_decode: str | None = None):
     self.quant = (quant if quant is not None else os.getenv("XOT_TPU_QUANT", "")) or None
     if self.quant not in (None, "int8", "int4"):
       raise ValueError(f"unsupported quantization mode {self.quant!r}")
@@ -88,6 +154,25 @@ class TorchShardedInferenceEngine(InferenceEngine):
     self._shard_lock = asyncio.Lock()
     self._batched_server = None
     self._batch_ops = None
+    # Solo speculation (module docstring). The draft chain's acceptance
+    # EWMA and live depth are engine-level (a property of the draft); the
+    # n-gram chain keeps its pair on each session (a property of the text).
+    self.spec_decode = spec_decode if spec_decode is not None else (os.getenv("XOT_TPU_SPEC_DECODE") or None)
+    self.spec_gamma = int(os.getenv("XOT_TPU_SPEC_GAMMA", "4"))
+    self._spec_ewma = None
+    self._spec_gamma_live = self.spec_gamma
+    self._spec_plain_streak = 0
+    self._spec_reprobe = int(os.getenv("XOT_TPU_SPEC_REPROBE", "64"))
+    self._spec_ngram_on = ngram_enabled()
+    self.spec_ngram_n, self.spec_ngram_max = ngram_knobs()
+    self._draft_params = None
+    self._draft_cfg = None  # None: the self-draft runs the target's config and shard
+    self._draft_shard = None
+    self.spec_calibration = None  # the last load-time A/B: tok/s of both and the verdict
+    # The loaded checkpoint's directory, recorded after its draft is built
+    # (as the reference records it): the cross draft's tokenizer check
+    # compares against the previous load's files.
+    self._model_dir = None
 
   def split_key(self) -> int:
     """A fresh seed for one batched dispatch's sampling generator
@@ -133,7 +218,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
       end = round((shard.end_layer + 1) * cfg.n_layers / shard.n_layers) - 1
       eff = Shard(shard.model_id, start, max(start, end), cfg.n_layers)
     self._drop_batched_server()  # its page pool belongs to the old model
-    self.params = None  # free the old model's device memory before loading
+    self.params = self._draft_params = None  # free the old model's device memory before loading
     params = load_shard_weights(model_dir, cfg, eff, device=self.device)
     if self.quant:
       from ..models.quantize import quantize_params
@@ -144,9 +229,11 @@ class TorchShardedInferenceEngine(InferenceEngine):
     self.cfg = cfg
     self.shard = shard
     self._effective_shard = eff
+    self._maybe_build_draft()
     self.sessions.clear()
     self.generator.manual_seed(self._seed)
     self._key_gen.manual_seed(self._seed)
+    self._model_dir = Path(model_dir)
     if DEBUG >= 1:
       print(f"[torch_engine] loaded {shard} from {model_dir} on {self.device}")
 
@@ -168,9 +255,138 @@ class TorchShardedInferenceEngine(InferenceEngine):
     self.cfg = cfg
     self.params = params
     self.tokenizer = tokenizer
+    self._maybe_build_draft(calibrate=False)  # tests exercise the spec path deterministically
     self.sessions.clear()
     self.generator.manual_seed(self._seed)
     self._key_gen.manual_seed(self._seed)
+
+  # ---------------------------------------------------------------- draft
+
+  def _maybe_build_draft(self, calibrate: bool = True) -> None:
+    """The speculative draft, with ``XOT_TPU_SPEC_DECODE=int8`` and a
+    full-model shard: the checkpoint ``XOT_TPU_SPEC_DRAFT`` names, int8 at
+    load, or else the int8 self-draft (none when the target is quantized:
+    it would equal the target). Resets the draft's acceptance state.
+    ``calibrate=False`` (test models) skips the load-time A/B."""
+    self._draft_params = None
+    self._draft_cfg = None
+    self._draft_shard = None
+    self._spec_ewma = None
+    self._spec_gamma_live = self.spec_gamma
+    self._spec_plain_streak = 0
+    eff = self._effective_shard
+    if self.spec_decode != "int8" or eff is None or not (eff.is_first_layer and eff.is_last_layer) or self.params is None:
+      return
+    draft_spec = os.getenv("XOT_TPU_SPEC_DRAFT")
+    if draft_spec:
+      self._build_cross_draft(draft_spec)
+    else:
+      if self.quant:
+        return
+      from ..models.quantize import quantize_params
+
+      self._draft_params = quantize_params(self.params, "int8")
+    if self._draft_params is not None and calibrate:
+      self._maybe_calibrate_spec()
+
+  def _build_cross_draft(self, spec: str) -> None:
+    """Load the draft ``XOT_TPU_SPEC_DRAFT`` names: a local checkpoint
+    directory, or a registry id whose checkpoint is already under
+    ``XOT_TPU_HOME/downloads``. Refused (speculation stays draft-free) when
+    none is found, when its vocab size differs from the target's, or when
+    a tokenizer file both checkpoints ship differs."""
+    from ..download.downloader import get_models_dir, repo_to_dirname
+    from ..models.config import load_model_config
+    from ..models.loader import load_shard_weights
+    from ..models.quantize import quantize_params
+    from ..registry import get_repo
+
+    d = Path(spec)
+    if not (d / "config.json").exists():
+      repo = get_repo(spec, type(self).__name__)
+      if repo:
+        cand = get_models_dir() / repo_to_dirname(repo)
+        if (cand / "config.json").exists():
+          d = cand
+    if not (d / "config.json").exists():
+      print(f"[torch_engine] XOT_TPU_SPEC_DRAFT={spec!r}: no local checkpoint found; speculative draft disabled")
+      return
+    cfg_d = load_model_config(d, dtype=self.cfg.dtype)
+    if cfg_d.vocab_size != self.cfg.vocab_size:
+      print(f"[torch_engine] XOT_TPU_SPEC_DRAFT={spec!r}: draft vocab {cfg_d.vocab_size} != target {self.cfg.vocab_size}; draft disabled")
+      return
+    fp_t = _tokenizer_fingerprint(self._model_dir) if self._model_dir else None
+    if _tokenizers_differ(fp_t, _tokenizer_fingerprint(d)):
+      print(f"[torch_engine] XOT_TPU_SPEC_DRAFT={spec!r}: the draft's tokenizer files differ from the target's; draft disabled")
+      return
+    shard_d = Shard(spec, 0, cfg_d.n_layers - 1, cfg_d.n_layers)
+    self._draft_params = quantize_params(load_shard_weights(d, cfg_d, shard_d, device=self.device), "int8")
+    self._draft_cfg = cfg_d
+    self._draft_shard = shard_d
+    if DEBUG >= 1:
+      print(f"[torch_engine] cross-model speculative draft: {spec} ({cfg_d.n_layers}L dim={cfg_d.dim}, int8) drafting for {self.shard.model_id}")
+
+  def _maybe_calibrate_spec(self) -> None:
+    """Keep the draft only if speculation measures at least 0.95× plain
+    decode's tok/s: 64 greedy tokens each way on a 256-slot cache, timed
+    on the host with the card synchronised, best of two after a warm-up.
+    Skipped on the CPU and with ``XOT_TPU_SPEC_AUTOCAL=0``. Only a failed
+    allocation of its caches ends it early (speculation stays on); a kernel
+    that fails to build or launch raises."""
+    if self.device.type == "cpu" or os.getenv("XOT_TPU_SPEC_AUTOCAL", "1") in ("0", "false"):
+      return
+    from ..models.decoder import fused_speculative_generate
+
+    eff, cfg = self._effective_shard, self.cfg
+    cfg_d, shard_d = self._draft_cfg or cfg, self._draft_shard or eff
+    n = 64
+    max_seq = min(256, self.max_seq_len, cfg.max_seq_len)
+    tok = torch.ones((1, 1), dtype=torch.int32, device=self.device)
+
+    def timed(fn) -> tuple[int, float]:
+      torch.cuda.synchronize(self.device)
+      t0 = time.perf_counter()
+      emitted = fn()
+      torch.cuda.synchronize(self.device)
+      return emitted, time.perf_counter() - t0
+
+    def time_plain() -> float:
+      cache = init_kv_cache(cfg, eff.n_shard_layers, 1, max_seq, device=self.device)
+
+      def run(start):
+        toks, _ = fused_decode(self.params, cfg, eff, tok, cache, torch.full((1,), start, dtype=torch.int32, device=self.device), n)
+        toks.cpu()
+        return n
+
+      run(0)  # warm-up
+      return max(k / dt for k, dt in (timed(lambda s=s: run(s)) for s in (n, 2 * n)))
+
+    def time_spec() -> float:
+      def run():
+        ct = init_kv_cache(cfg, eff.n_shard_layers, 1, max_seq, device=self.device)
+        cd = init_kv_cache(cfg_d, shard_d.n_shard_layers, 1, max_seq, device=self.device)
+        buf, m, _, _, _ = fused_speculative_generate(self.params, cfg, eff, self._draft_params, cfg_d, shard_d, tok, ct, cd, 0, n, gamma=self.spec_gamma, eos_ids=(-1,))
+        buf.cpu()
+        return min(m, n)
+
+      run()  # warm-up
+      return max(k / dt for k, dt in (timed(run), timed(run)))
+
+    try:
+      plain_tok_s, spec_tok_s = time_plain(), time_spec()
+    except torch.cuda.OutOfMemoryError as e:
+      print(f"[torch_engine] spec calibration failed ({e!r}); keeping speculative mode")
+      return
+    kept = spec_tok_s >= 0.95 * plain_tok_s
+    self.spec_calibration = dict(plain_tok_s=plain_tok_s, spec_tok_s=spec_tok_s, verdict="kept" if kept else "DISABLED")
+    if kept:
+      print(f"[torch_engine] speculative decode kept: {spec_tok_s:.1f} vs plain {plain_tok_s:.1f} tok/s")
+    else:
+      print(
+        f"[torch_engine] speculative decode DISABLED for this model: measured {spec_tok_s:.1f} tok/s vs plain "
+        f"{plain_tok_s:.1f} (low draft acceptance); set XOT_TPU_SPEC_AUTOCAL=0 to force it"
+      )
+      self._draft_params = None
 
   # ---------------------------------------------------------------- contract
 
@@ -227,6 +443,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
       if is_tokens:
         state.tokens = x.astype(np.int32)
         state.prompt_len = prompt_len
+        session.prompt_np = x.astype(np.int32)  # the draft's prefill, the n-gram index
         pad_to = min(_round_up(x.shape[1], PREFILL_BUCKET), session.max_seq)
         x_in = np.zeros((B, pad_to), dtype=np.int32)
         x_in[:, : x.shape[1]] = x
@@ -276,7 +493,216 @@ class TorchShardedInferenceEngine(InferenceEngine):
     await self.ensure_shard(shard)
     return await asyncio.get_running_loop().run_in_executor(self.executor, self._dispatch_chunk_sync, request_id, n_steps, temp, top_k, first_token)
 
+  # Draft chain policy: the engine-level depth and its EWMA.
+
+  def _spec_chunk_eligible(self, session, temp, first_token) -> bool:
+    """The draft spec chain: greedy single-stream requests with a draft
+    loaded, entered right after prefill and continued on the device."""
+    if self._draft_params is None or (temp is not None and float(temp) > 0.0):
+      return False
+    if session.spec_seed_dev is not None:
+      return True  # chain active
+    return self._fresh_single_stream(session, first_token)
+
+  @staticmethod
+  def _fresh_single_stream(session, first_token) -> bool:
+    """A chain starts right after a one-row prompt's prefill."""
+    return first_token is not None and session.prompt_np is not None and session.prompt_np.shape[0] == 1 and session.curr_pos == session.prompt_len
+
+  def _spec_gamma_for_dispatch(self) -> int:
+    """The next spec dispatch's depth: the live depth, or a depth-1 probe
+    once the plain streak reaches ``XOT_TPU_SPEC_REPROBE``, else 0 (plain)."""
+    g = self._spec_gamma_live
+    if g > 0:
+      return g
+    if self._spec_reprobe > 0 and self._spec_plain_streak >= self._spec_reprobe:
+      return 1
+    return 0
+
+  def _note_spec_acceptance(self, emitted: int, rounds: int, gamma: int) -> None:
+    """Fold one spec call's acceptance, (emitted / rounds - 1) / gamma, into
+    the engine EWMA and re-run the depth policy (inference/paging.py)."""
+    if rounds <= 0 or gamma <= 0:
+      return
+    self._spec_ewma = ewma_update(self._spec_ewma, (emitted / rounds - 1.0) / gamma)
+    self._spec_gamma_live = spec_adapt_gamma(self._spec_ewma, gamma, self.spec_gamma)
+    self._spec_plain_streak = 0
+    metrics.observe_hist("spec_acceptance_ewma", self._spec_ewma, buckets=FRACTION_BUCKETS)
+
+  # N-gram chain policy: per-session depth and EWMA.
+
+  def _ngram_chunk_eligible(self, session, temp, first_token) -> bool:
+    """The draft-free n-gram chain: greedy single-stream requests with
+    ``XOT_TPU_SPEC_DECODE`` set and no draft loaded, entered right after
+    prefill, continued while the session's index lives."""
+    if self._draft_params is not None or not self.spec_decode or not self._spec_ngram_on:
+      return False
+    if temp is not None and float(temp) > 0.0:
+      return False
+    if session.ngram_index is not None or session.ngram_unread:
+      return True  # chain active
+    return self._fresh_single_stream(session, first_token)
+
+  def _ngram_gamma_for_dispatch(self, session) -> int:
+    """The session's depth for its next chunk; a fresh session opens at the
+    cap (``XOT_TPU_SPEC_NGRAM_MAX``)."""
+    if session.ngram_gamma < 0:
+      session.ngram_gamma = self.spec_ngram_max
+    return session.ngram_gamma
+
+  def _note_ngram_acceptance(self, session, accepted: int, proposed: int) -> None:
+    """Count one n-gram chunk's proposed and accepted tokens (also for a
+    session ended since its dispatch) and fold the acceptance into the
+    session's EWMA and depth."""
+    if proposed <= 0:
+      return
+    metrics.inc("spec_proposed_tokens_total", proposed, labels={"proposer": "ngram"})
+    metrics.inc("spec_accepted_tokens_total", accepted, labels={"proposer": "ngram"})
+    if session is None:
+      return
+    session.ngram_ewma = ewma_update(session.ngram_ewma, accepted / proposed)
+    session.ngram_gamma = spec_adapt_gamma(session.ngram_ewma, max(session.ngram_gamma, 1), self.spec_ngram_max)
+    metrics.observe_hist("spec_acceptance_ewma", session.ngram_ewma, buckets=FRACTION_BUCKETS)
+
+  def _note_ngram_miss(self, session) -> None:
+    """A suffix lookup found nothing: a zero-acceptance observation, so a
+    session over text that never repeats walks back to plain chunks."""
+    session.ngram_ewma = ewma_update(session.ngram_ewma, 0.0)
+    session.ngram_gamma = spec_adapt_gamma(session.ngram_ewma, session.ngram_gamma, self.spec_ngram_max)
+
+  def _dispatch_ngram_chunk_sync(self, request_id, first_token, steps: int, gamma: int):
+    """One draft-free speculative chunk (``fused_spec_batch_decode`` at B=1
+    on the session's dense cache): the host proposes what followed the
+    current suffix earlier in the history, the target verifies each window.
+    Returns the handle, or None to hand this dispatch to the plain path (no
+    proposal at the depth floor, or too close to the cache end)."""
+    from ..models.decoder import fused_spec_batch_decode
+
+    session = self.sessions[request_id]
+    dev = self.device
+    if session.ngram_index is None:
+      idx = NgramIndex(self.spec_ngram_n)
+      idx.extend(session.prompt_np[0])
+      idx.extend([int(first_token)])
+      session.ngram_index = idx
+      token = torch.full((1, 1), int(first_token), dtype=torch.int32, device=dev)
+    else:
+      token = session.next_token_dev
+      if token is None:
+        session.ngram_index = None  # chain broken: plain re-seeds exactly
+        return None
+    G = self.spec_ngram_max
+    rounds = max(steps // (G + 1), 1)
+    stream = session.ngram_index.propose(rounds * (G + 1) + G)
+    if len(stream) == 0:
+      self._note_ngram_miss(session)
+      if session.ngram_gamma <= 0:
+        session.ngram_index = None  # depth floor: plain serves the rest
+        return None
+      # A tracking-only chunk (depth 0, one token a round): the history
+      # stays live so the next repeating stretch can propose again.
+      rounds, G, g_eff = steps, 0, 0
+      props = prop_counts = None
+    else:
+      g_eff = min(gamma, len(stream))
+      props = torch.from_numpy(np.asarray(stream, dtype=np.int32)[None, :]).to(dev)
+      prop_counts = torch.full((1,), len(stream), dtype=torch.int32, device=dev)
+    worst = rounds * (G + 1)
+    if session.curr_pos + worst + 1 > session.max_seq:
+      session.ngram_index = None  # near the cache end: plain trims exactly
+      return None
+    pos = torch.full((1,), session.curr_pos, dtype=torch.int32, device=dev)
+    buf, counts, n_prop, seed, _pos, session.kv_cache, _ = fused_spec_batch_decode(
+      self.params, self.cfg, self._effective_shard, None, self.cfg, self._effective_shard,
+      token, session.kv_cache, None, pos, torch.ones((1,), dtype=torch.bool, device=dev), torch.full((1,), g_eff, dtype=torch.int32, device=dev),
+      torch.zeros((1,), dtype=torch.float32, device=dev), rounds, G, top_k=1, k_max=1,
+      props=props, prop_counts=prop_counts,
+    )
+    session.next_token_dev = seed
+    session.ngram_unread = True
+    return ("ngram", request_id, rounds, torch.cat([counts, n_prop, buf[0]]))
+
+  def _ensure_draft_cache(self, session) -> None:
+    """The draft's prefill over the prompt, padded like the target's."""
+    if session.draft_cache is not None:
+      return
+    cfg_d = self._draft_cfg or self.cfg
+    shard_d = self._draft_shard or self._effective_shard
+    B, S = session.prompt_np.shape
+    cache = init_kv_cache(cfg_d, shard_d.n_shard_layers, B, session.max_seq, device=self.device)
+    pad_to = min(_round_up(S, PREFILL_BUCKET), session.max_seq)
+    x_in = np.zeros((B, pad_to), dtype=np.int32)
+    x_in[:, :S] = session.prompt_np
+    positions = torch.arange(pad_to, dtype=torch.int32, device=self.device).expand(B, pad_to)
+    head_pos = torch.full((B,), S - 1, dtype=torch.int64, device=self.device)
+    _, session.draft_cache = shard_forward(self._draft_params, cfg_d, shard_d, self._to_device(x_in), positions, cache, head_pos=head_pos)
+
+  def _dispatch_spec_chunk_sync(self, request_id, n_steps, first_token, steps: int, gamma: int):
+    """One streaming chunk of the draft chain (``fused_speculative_chunk``):
+    seed token and position ride the device, so the node's dispatch-ahead
+    works without a host read. The node trims at EOS as for plain chunks."""
+    from ..models.decoder import fused_speculative_chunk
+
+    session = self.sessions[request_id]
+    if session.spec_seed_dev is None:
+      self._ensure_draft_cache(session)
+      session.spec_known_pos = session.curr_pos
+      token = torch.full((1, 1), int(first_token), dtype=torch.int32, device=self.device)
+      pos = session.curr_pos
+    else:
+      token, pos = session.spec_seed_dev, session.spec_pos_dev
+    pos_hi = session.spec_known_pos + session.spec_inflight_slots  # the chain's position is at most this
+    worst = steps + gamma + 1
+    packed, seed, new_pos, session.kv_cache, session.draft_cache = fused_speculative_chunk(
+      self.params, self.cfg, self._effective_shard, self._draft_params, token, session.kv_cache, session.draft_cache,
+      pos, steps, gamma=gamma, n_limit=min(n_steps, steps), cfg_d=self._draft_cfg, shard_d=self._draft_shard, pos_hi=pos_hi,
+    )
+    session.spec_seed_dev = seed
+    session.spec_pos_dev = new_pos
+    session.spec_inflight_slots += worst
+    session.next_token_dev = None  # the plain chain is broken while spec runs
+    return ("spec", request_id, worst, gamma, packed)
+
   def _dispatch_chunk_sync(self, request_id, n_steps, temp, top_k, first_token):
+    session = self.sessions[request_id]
+    if self._spec_chunk_eligible(session, temp, first_token):
+      G = self._spec_gamma_for_dispatch()
+      steps = min(1 << (max(n_steps, 1) - 1).bit_length(), 256)  # power-of-two chunk sizes
+      # Room: the confirmed position, every unread chunk's worst case and
+      # this chunk's worst case must fit.
+      base = session.spec_known_pos if session.spec_seed_dev is not None else session.curr_pos
+      if G > 0 and base + session.spec_inflight_slots + (steps + G + 1) + 1 <= session.max_seq:
+        return self._dispatch_spec_chunk_sync(request_id, n_steps, first_token, steps, G)
+      if G == 0:
+        self._spec_plain_streak += 1  # the depth floor: plain, counting toward a probe
+      if session.spec_seed_dev is not None:
+        # Near the cache end: read the chain's exact position once and hand
+        # the stream to the plain path, which trims at max_seq. Unread spec
+        # handles no longer touch the bookkeeping (read_chunk checks
+        # spec_seed_dev): the position read here includes them.
+        session.curr_pos = int(session.spec_pos_dev)
+        session.spec_known_pos = session.curr_pos
+        session.next_token_dev = session.spec_seed_dev
+        session.spec_seed_dev = None
+        session.spec_pos_dev = None
+        session.spec_inflight_slots = 0
+    elif self._ngram_chunk_eligible(session, temp, first_token):
+      # An unread n-gram chunk answers the node's dispatch-ahead with None:
+      # the node re-dispatches after reading it, the synchronous cadence
+      # host proposals need.
+      if session.ngram_unread:
+        return None
+      G = self._ngram_gamma_for_dispatch(session)
+      if G > 0:
+        steps = min(1 << (max(n_steps, 1) - 1).bit_length(), 256)
+        handle = self._dispatch_ngram_chunk_sync(request_id, first_token, steps, G)
+        if handle is not None:
+          return handle
+      else:
+        session.ngram_index = None  # the session is at the depth floor: plain takes over
+    return self._dispatch_plain_chunk_sync(request_id, n_steps, temp, top_k, first_token)
+
+  def _dispatch_plain_chunk_sync(self, request_id, n_steps, temp, top_k, first_token):
     session = self.sessions[request_id]
     n_steps = min(n_steps, session.max_seq - session.curr_pos)
     if n_steps <= 0:
@@ -300,7 +726,39 @@ class TorchShardedInferenceEngine(InferenceEngine):
   async def read_chunk(self, handle) -> list[int]:
     if handle is None:
       return []
-    return await asyncio.get_running_loop().run_in_executor(self.executor, lambda: [int(t) for t in handle[0].cpu().tolist()])
+    return await asyncio.get_running_loop().run_in_executor(self.executor, self._read_chunk_sync, handle)
+
+  def _read_chunk_sync(self, handle) -> list[int]:
+    if isinstance(handle, tuple) and handle[0] == "ngram":
+      # [m, n_prop, tokens...] in one read: confirm the position, extend
+      # the index with the emitted tokens, feed the session's EWMA.
+      _, request_id, rounds, packed = handle
+      row = packed.cpu().numpy()
+      m, n_prop = int(row[0]), int(row[1])
+      session = self.sessions.get(request_id)
+      self._note_ngram_acceptance(session, max(m - rounds, 0), n_prop)
+      toks = [int(t) for t in row[2 : 2 + m]]
+      if session is not None:
+        session.ngram_unread = False
+        session.curr_pos += m
+        if session.ngram_index is not None:
+          session.ngram_index.extend(toks)
+      return toks
+    if isinstance(handle, tuple) and handle[0] == "spec":
+      # [m, rounds, tokens...] in one read. The position is confirmed only
+      # while the chain is active: after the hand-off near the cache end
+      # curr_pos already includes this chunk.
+      _, request_id, worst, gamma, packed = handle
+      row = packed.cpu().numpy()
+      m = int(row[0])
+      self._note_spec_acceptance(m, int(row[1]), gamma)
+      session = self.sessions.get(request_id)
+      if session is not None and session.spec_seed_dev is not None:
+        session.spec_known_pos += m
+        session.spec_inflight_slots = max(session.spec_inflight_slots - worst, 0)
+        session.curr_pos = session.spec_known_pos
+      return [int(t) for t in row[2 : 2 + m]]
+    return [int(t) for t in handle[0].cpu().tolist()]
 
   async def generate_oneshot(
     self,
@@ -313,7 +771,8 @@ class TorchShardedInferenceEngine(InferenceEngine):
     top_k: int = 35,
   ) -> list[int]:
     """Generate a whole response (until EOS) in one device loop; returns
-    the tokens trimmed at the first EOS."""
+    the tokens trimmed at the first EOS. Greedy requests speculate when a
+    draft is loaded."""
     await self.ensure_shard(shard)
     return await asyncio.get_running_loop().run_in_executor(
       self.executor, self._generate_oneshot_sync, request_id, first_token, max_steps, eos_ids, temp, top_k
@@ -324,6 +783,20 @@ class TorchShardedInferenceEngine(InferenceEngine):
     room = session.max_seq - session.curr_pos
     if room <= 0:
       return []
+    spec_gamma = self._spec_gamma_for_dispatch() if self._draft_params is not None else 0
+    if (
+      self._draft_params is not None
+      and (temp is None or float(temp) <= 0.0)
+      and session.prompt_np is not None
+      and session.curr_pos == session.prompt_len  # fresh after prefill: the draft sees the prompt only
+      and session.prompt_np.shape[0] == 1
+      # Rounds need gamma+1 slots of headroom; near the cache end plain
+      # decode emits the last tokens.
+      and max_steps <= room - spec_gamma - 1
+    ):
+      if spec_gamma > 0:
+        return self._generate_speculative_sync(request_id, first_token, max_steps, eos_ids, spec_gamma)
+      self._spec_plain_streak += 1  # the depth floor: plain, counting toward a probe
     limit = max(1, min(max_steps, room))
     B = session.kv_cache["k"].shape[1]
     token = torch.full((B, 1), int(first_token), dtype=torch.int32, device=self.device)
@@ -341,6 +814,33 @@ class TorchShardedInferenceEngine(InferenceEngine):
         n = int(hits[0]) + 1
     session.curr_pos += n
     session.next_token_dev = None  # chain broken: the next chunk must re-seed
+    return [int(t) for t in row[:n]]
+
+  def _generate_speculative_sync(self, request_id, first_token, max_steps, eos_ids, gamma: int):
+    """Greedy speculative oneshot (``fused_speculative_generate``): the
+    plain greedy tokens, at the draft's pace."""
+    from ..models.decoder import fused_speculative_generate
+
+    session = self.sessions[request_id]
+    room = session.max_seq - session.curr_pos
+    limit = min(max_steps, room - gamma - 1)  # the caller guarantees > 0
+    steps = min(1 << (limit - 1).bit_length(), room - gamma - 1)
+    self._ensure_draft_cache(session)
+    token = torch.full((1, 1), int(first_token), dtype=torch.int32, device=self.device)
+    eos = tuple(sorted(int(e) for e in eos_ids))
+    buf, n, rounds, session.kv_cache, session.draft_cache = fused_speculative_generate(
+      self.params, self.cfg, self._effective_shard, self._draft_params, self._draft_cfg or self.cfg, self._draft_shard or self._effective_shard,
+      token, session.kv_cache, session.draft_cache, session.curr_pos, steps, gamma=gamma, eos_ids=eos, n_limit=limit,
+    )
+    row = buf.cpu().numpy()
+    self._note_spec_acceptance(n, rounds, gamma)
+    n = min(n, limit)
+    if eos:
+      hits = np.nonzero(np.isin(row[:n], eos))[0]
+      if hits.size:
+        n = int(hits[0]) + 1
+    session.curr_pos += n
+    session.next_token_dev = None
     return [int(t) for t in row[:n]]
 
   def end_request(self, request_id: str) -> None:

@@ -12,14 +12,18 @@ leaves stacked on a leading [L] axis (``layers/wq`` [L, D, Hq·hd], used as
 Python loop. The KV cache is a dict of
 [L, B, max_seq, Hkv, hd] buffers (hd/2 for packed int4 codes, +
 ``k_scale``/``v_scale`` [.., 1] for int8 and int4) that the forward UPDATES
-IN PLACE — slot j holds absolute position j. The batched programs at the
-end run against a page pool (ops/paged.py) instead, also updated in place:
-the plain and mixed decode chunks, and the draft-free speculative chunk
-(``fused_spec_paged_batch_decode``).
+IN PLACE — slot j holds absolute position j. On it run the solo decode
+loops (``fused_decode``, ``fused_generate``), greedy speculative decoding
+with a draft model (``fused_speculative_generate`` / ``_chunk``) and the
+draft-free speculative chunk (``fused_spec_batch_decode``). The batched
+programs at the end run against a page pool (ops/paged.py) instead, also
+updated in place: the plain and mixed decode chunks, and the draft-free
+speculative chunk (``fused_spec_paged_batch_decode``).
 """
 
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -354,6 +358,163 @@ def fused_generate(
       if n % EOS_CHECK_EVERY == 0 and bool(done.all()):
         break
   return buf, n, cache
+
+
+# ------------------------------------------------ speculative decoding
+# Greedy draft-then-verify for one stream (B=1) on the dense slot cache.
+# Each round the draft proposes G tokens in G single-token steps, the target
+# scores the window [cur, d_1..d_G] at pos..pos+G in ONE forward (K1 at
+# Sq = G+1 on the card), the longest prefix the target agrees with is
+# accepted plus the target's own next token, and the draft catches up on
+# the same window (K1 again) so its cache covers slot pos+G. Every emitted
+# token is the target's greedy choice: the output is plain greedy decoding
+# under the verify forward's numerics, for any draft.
+#
+# The reference runs the rounds in one device while_loop whose condition
+# (not done, n < limit, pos + G + 1 <= max_seq) lives on the device. Here
+# the host runs rounds in blocks and reads (n, pos, done, rounds) back once
+# per block. A round past the stopping point still runs but changes nothing
+# the caller sees (its updates are masked by the condition, evaluated on
+# the device), and its cache writes land in slots at or past the stream's
+# end, which are rewritten before anything reads them. A round advances at
+# most G+1 slots, so from a position of at most ``pos_hi`` the host runs
+# (max_seq - pos_hi) // (G+1) rounds without a write past the cache, and
+# reads the exact position back before any further round.
+
+
+def _spec_block_rounds(limit: int, n_known: int, rounds_known: int, room_rounds: int, W: int) -> int:
+  """Rounds to run before the next read-back: EOS_CHECK_EVERY, or fewer
+  when the rounds so far (W tokens a round before the first read) predict
+  the limit within the block, and never more than the provable room."""
+  rate = W if rounds_known == 0 else n_known / rounds_known
+  return min(EOS_CHECK_EVERY, room_rounds, max(1, math.ceil((limit - n_known) / rate)))
+
+
+def _spec_solo_round(params_t, cfg_t, shard_t, params_d, cfg_d, shard_d, cache_t, cache_d, state, buf, G: int, eos, limit: int):
+  """One draft-then-verify round; ``state`` = (cur [1,1], pos [1], n [1],
+  rounds [1], done [1]) on the device, returned updated (unchanged where
+  the loop's condition was already false)."""
+  cur, pos, n, rounds, done = state
+  dev = cur.device
+  W = G + 1
+  idx = torch.arange(W, dtype=torch.int32, device=dev)
+  live = ~done & (n < limit)
+  # 1) The draft proposes G tokens greedily, one single-token step each.
+  tok, p, d = cur, pos, []
+  for _ in range(G):
+    logits, _ = shard_forward(params_d, cfg_d, shard_d, tok, p[:, None], cache_d)
+    nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
+    d.append(nxt)
+    tok, p = nxt[:, None], p + 1
+  d = torch.cat(d) if d else torch.zeros((0,), dtype=torch.int32, device=dev)
+  # 2) The target verifies [cur, d_1..d_G] at pos..pos+G in one forward.
+  window = torch.cat([cur[0], d])[None, :]
+  positions = (pos + idx)[None, :]
+  logits_t, _ = shard_forward(params_t, cfg_t, shard_t, window, positions, cache_t)
+  t = torch.argmax(logits_t[0], dim=-1).to(torch.int32)  # t[i]: the target's token for position pos+i+1
+  # 3) Longest agreeing prefix, then the target's own next token.
+  n_acc = torch.cumprod((d == t[:G]).to(torch.int32), dim=0).sum().reshape(1).to(torch.int32)
+  corr = torch.gather(t, 0, n_acc.long())
+  emitted = torch.where(idx < n_acc, torch.cat([d, torch.zeros((1,), dtype=torch.int32, device=dev)]), corr)
+  # Slots past n_acc hold the correction too; the next round's append
+  # overwrites them. A masked round writes back what is there.
+  slots = torch.clamp(n + idx, max=buf.numel() - 1).long()
+  buf.scatter_(0, slots, torch.where(live, emitted, buf[slots]))
+  # 4) Draft catch-up over the same window: the sequential proposal never
+  # writes the last proposed token's KV.
+  shard_forward(params_d, cfg_d, shard_d, window, positions, cache_d)
+  k = n_acc + 1
+  if eos is not None:
+    hit = ((emitted[:, None] == eos[None, :]) & (idx[:, None] < k)).any().reshape(1)
+    done = done | (live & hit)
+  return (
+    torch.where(live, corr, cur[0]).reshape(1, 1), torch.where(live, pos + k, pos), torch.where(live, n + k, n),
+    rounds + live.to(torch.int32), done,
+  )
+
+
+def _spec_solo_rounds(params_t, cfg_t, shard_t, params_d, cfg_d, shard_d, cache_t, cache_d, token, pos, pos_hi: int, max_steps: int, G: int, eos_ids: tuple, limit: int):
+  """The round loop of ``fused_speculative_generate``/``_chunk``: rounds
+  while not done, n < limit and pos + G + 1 <= max_seq, each read-back
+  after a block of ``_spec_block_rounds``. ``pos`` [1] is on the device and
+  ``pos_hi`` an upper bound of it the host knows. Returns (buf
+  [max_steps+G+1], n [1], rounds [1], cur [1,1], pos [1]), all on the device."""
+  dev = token.device
+  W = G + 1
+  max_seq = cache_t["k"].shape[2]
+  limit = min(int(limit), int(max_steps))
+  buf = torch.zeros((int(max_steps) + W,), dtype=torch.int32, device=dev)
+  eos = torch.tensor(sorted(eos_ids), dtype=torch.int32, device=dev) if eos_ids else None
+  zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+  state = (token.to(torch.int32).reshape(1, 1), pos, zero, zero, torch.zeros((1,), dtype=torch.bool, device=dev))
+  n_known = rounds_known = 0
+  while n_known < limit:
+    room = (max_seq - pos_hi) // W
+    if room <= 0:
+      break
+    block = _spec_block_rounds(limit, n_known, rounds_known, room, W)
+    for _ in range(block):
+      state = _spec_solo_round(params_t, cfg_t, shard_t, params_d, cfg_d, shard_d, cache_t, cache_d, state, buf, G, eos, limit)
+    _, pos_dev, n, rounds, done = state
+    n_known, pos_hi, rounds_known, stop = torch.cat([n, pos_dev, rounds, done.to(torch.int32)]).tolist()
+    if stop:
+      break
+  cur, pos_dev, n, rounds, _ = state
+  return buf, n, rounds, cur, pos_dev
+
+
+def _spec_shards(shard_t: Shard, shard_d: Shard) -> None:
+  if not (shard_t.is_first_layer and shard_t.is_last_layer and shard_d.is_first_layer and shard_d.is_last_layer):
+    raise ValueError("speculative decoding requires full-model shards")
+
+
+def fused_speculative_generate(params_t, cfg_t: ModelConfig, shard_t: Shard, params_d, cfg_d: ModelConfig, shard_d: Shard, token, cache_t, cache_d, start_pos, max_steps: int, gamma: int = 4, eos_ids: tuple = (), n_limit=None):
+  """Greedy speculative decoding of one stream: token [1,1] int32 seeds
+  it at ``start_pos`` (an int); ``cache_d`` is the draft's own dense slot
+  cache, prefilled to the same position. Both caches update in place.
+
+  Returns (buf [max_steps+gamma+1] int32 on the device, n, n_rounds, cache_t,
+  cache_d): ``buf[:n]`` are the emitted tokens (trim at the first EOS
+  host-side; n may pass ``n_limit`` by up to gamma); acceptance is (n /
+  n_rounds - 1) / gamma. Token-identical to ``fused_generate`` at temp 0
+  under exact arithmetic, for any draft."""
+  _spec_shards(shard_t, shard_d)
+  if token.shape[0] != 1:
+    raise ValueError("speculative decoding is single-stream (B=1)")
+  start = int(start_pos)
+  pos = torch.full((1,), start, dtype=torch.int32, device=token.device)
+  limit = int(max_steps if n_limit is None else n_limit)
+  buf, n, rounds, _, _ = _spec_solo_rounds(params_t, cfg_t, shard_t, params_d, cfg_d, shard_d, cache_t, cache_d, token, pos, start, int(max_steps), int(gamma), tuple(eos_ids), limit)
+  return buf, int(n[0]), int(rounds[0]), cache_t, cache_d
+
+
+def fused_speculative_chunk(params_t, cfg: ModelConfig, shard: Shard, params_d, token, cache_t, cache_d, pos, steps: int, gamma: int = 4, eos_ids: tuple = (), n_limit=None, cfg_d: ModelConfig | None = None, shard_d: Shard | None = None, pos_hi: int | None = None):
+  """One streaming speculative chunk with a device-resident chain: the math
+  of ``fused_speculative_generate`` bounded to ``n_limit`` (default
+  ``steps``) emitted tokens. ``pos`` is an int or the previous chunk's
+  device position; ``pos_hi`` is an upper bound of it the caller knows
+  (needed when ``pos`` is a tensor, else it is read back once).
+
+  Returns (packed [2+steps+gamma+1] int32 = [m, rounds, tokens...], seed
+  [1,1], new_pos [], cache_t, cache_d), every tensor on the device: m =
+  min(n, n_limit), the seed is the last of the m tokens and new_pos = pos +
+  m, so chunk N+1 dispatches from chunk N's outputs before the host reads
+  chunk N. ``cfg_d``/``shard_d`` default to the target's (a self-draft)."""
+  shard_d = shard_d or shard
+  _spec_shards(shard, shard_d)
+  dev = token.device
+  if isinstance(pos, torch.Tensor):
+    pos_dev = pos.to(device=dev, dtype=torch.int32).reshape(1)
+    pos_hi = int(pos_dev[0]) if pos_hi is None else int(pos_hi)
+  else:
+    pos_dev = torch.full((1,), int(pos), dtype=torch.int32, device=dev)
+    pos_hi = int(pos)
+  n_limit = int(steps if n_limit is None else n_limit)
+  buf, n, rounds, _, _ = _spec_solo_rounds(params_t, cfg, shard, params_d, cfg_d or cfg, shard_d, cache_t, cache_d, token, pos_dev, pos_hi, int(steps), int(gamma), tuple(eos_ids), n_limit)
+  m = torch.clamp(n, max=n_limit)
+  packed = torch.cat([m, rounds, buf])
+  seed = torch.where(m > 0, torch.gather(buf, 0, torch.clamp(m - 1, min=0).long()), token.reshape(1).to(torch.int32)).reshape(1, 1)
+  return packed, seed, (pos_dev + m)[0], cache_t, cache_d
 
 
 # ------------------------------------------------------- paged serving
@@ -735,6 +896,22 @@ def _spec_props_args(props, prop_counts, B: int, n_rounds: int, gamma_max: int, 
   return props, counts
 
 
+def _spec_chunk_args(what: str, params, shard: Shard, params_d, adapter_ids, token, active, gammas, top_k, gamma_max: int, generator):
+  """The draft-free spec chunks' refusals and per-row operands: (generator,
+  top_ks [B], active [B] bool, gammas [B] clamped to ``gamma_max``)."""
+  if params_d is not None:
+    raise NotImplementedError(f"{what}: the draft-model proposer is not ported; pass params_d=None (n-gram proposals only)")
+  if adapter_ids is not None:
+    raise NotImplementedError(f"{what}: per-row adapters are not ported")
+  _dense_full_model(params, shard, what)
+  dev = token.device
+  if generator is None:
+    generator = torch.Generator(device=dev).manual_seed(0)
+  B = token.shape[0]
+  top_ks = torch.full((B,), top_k, dtype=torch.int32, device=dev) if isinstance(top_k, int) else top_k.to(device=dev, dtype=torch.int32).expand(B)
+  return generator, top_ks, active.to(device=dev, dtype=torch.bool), torch.clamp(gammas.to(device=dev, dtype=torch.int32), max=int(gamma_max))
+
+
 def fused_spec_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, params_d, cfg_d, shard_d, token, pool, cache_d, block_tables, positions, active, gammas, temps, n_rounds: int, gamma_max: int, top_k=35, k_max: int = 64, page_size: int = 64, use_kernel: bool | None = None, generator=None, props=None, prop_counts=None, adapter_ids=None):
   """One speculative decode chunk over every row of the page pool.
 
@@ -756,22 +933,13 @@ def fused_spec_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, params
   so must ``adapter_ids`` (no LoRA yet)."""
   from ..ops.paged import check_paged_kernel, paged_kernel_supported, window_block_tables
 
-  if params_d is not None:
-    raise NotImplementedError("fused_spec_paged_batch_decode: the draft-model proposer is not ported; pass params_d=None (n-gram proposals only)")
-  if adapter_ids is not None:
-    raise NotImplementedError("fused_spec_paged_batch_decode: per-row adapters are not ported")
-  _dense_full_model(params, shard, "fused_spec_paged_batch_decode")
+  generator, top_ks, active, gammas = _spec_chunk_args("fused_spec_paged_batch_decode", params, shard, params_d, adapter_ids, token, active, gammas, top_k, gamma_max, generator)
   dev = token.device
   if use_kernel is None:
     check_paged_kernel(cfg, dev)
     use_kernel = paged_kernel_supported(cfg)
-  if generator is None:
-    generator = torch.Generator(device=dev).manual_seed(0)
   B = token.shape[0]
   G = int(gamma_max)
-  top_ks = torch.full((B,), top_k, dtype=torch.int32, device=dev) if isinstance(top_k, int) else top_k.to(device=dev, dtype=torch.int32).expand(B)
-  active = active.to(device=dev, dtype=torch.bool)
-  gammas = torch.clamp(gammas.to(device=dev, dtype=torch.int32), max=G)
   props, prop_counts = _spec_props_args(props, prop_counts, B, int(n_rounds), G, dev)
   # Inactive rows' window writes must not land on pages another row may own
   # now: their tables pin to the trash page, once per chunk.
@@ -787,3 +955,31 @@ def fused_spec_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, params
     top_ks, int(n_rounds), G, int(k_max), generator, props, prop_counts,
   )
   return buf, counts, n_prop, next_tok, next_pos, pool, cache_d
+
+
+def fused_spec_batch_decode(params, cfg: ModelConfig, shard: Shard, params_d, cfg_d, shard_d, token, cache, cache_d, positions, active, gammas, temps, n_rounds: int, gamma_max: int, top_k=35, k_max: int = 64, generator=None, props=None, prop_counts=None, adapter_ids=None):
+  """One speculative decode chunk over every row of the dense slot cache:
+  ``fused_spec_paged_batch_decode``'s contract with the verify window run
+  by ``shard_forward`` on ``cache`` (K1 at Sq = gamma_max+1, one launch per
+  layer per round on the card). The caller keeps every row's position plus
+  ``n_rounds·(gamma_max+1)`` within the cache. The solo n-gram chunk calls
+  it at B=1. Returns (tokens [B, n_rounds·(gamma_max+1)], counts [B],
+  n_prop [B], next_token [B, 1], next_positions [B], cache, cache_d),
+  every tensor on the device.
+
+  Draft-free only: ``params_d`` must be None (``cache_d`` passes through),
+  and so must ``adapter_ids``."""
+  generator, top_ks, active, gammas = _spec_chunk_args("fused_spec_batch_decode", params, shard, params_d, adapter_ids, token, active, gammas, top_k, gamma_max, generator)
+  dev = token.device
+  G = int(gamma_max)
+  props, prop_counts = _spec_props_args(props, prop_counts, token.shape[0], int(n_rounds), G, dev)
+
+  def verify(window, wpos):
+    logits, _ = shard_forward(params, cfg, shard, window, wpos, cache)
+    return logits
+
+  buf, counts, n_prop, next_tok, next_pos = _spec_batch_rounds(
+    verify, token.to(torch.int32), positions.to(device=dev, dtype=torch.int32), active, gammas,
+    temps.to(device=dev, dtype=torch.float32), top_ks, int(n_rounds), G, int(k_max), generator, props, prop_counts,
+  )
+  return buf, counts, n_prop, next_tok, next_pos, cache, cache_d
