@@ -21,9 +21,9 @@ Phases (any failure exits non-zero and prints no result):
    it):
    error, kernel / plain / library time and the card's bound (K1's library
    call is SDPA on the live slots with causal masking, the fastest backend
-   that runs); K4's per-decode-step sums, and torch.profiler's count of
-   device kernels in one call of every K1, K2 and K3 row and of K4 at T = 1
-   and 8, which must be 1;
+   that runs); K4's per-decode-step sums, and the count of device kernels
+   in one call of every K1, K2 and K3 row and of K4 at T = 1 and 8 (the
+   kernel nodes of a CUDA graph captured around a call), which must be 1;
 4. solo serving — a seeded random-weight bf16 checkpoint with
    llama-3.2-1b's published shapes is written with the port's safetensors
    writer, and the port's daemon path (main → node → API) serves blocking
@@ -73,6 +73,33 @@ Phases (any failure exits non-zero and prints no result):
    and one int8-draft round into host and device time. Phase 3 also holds
    K1 at the verify windows (B=1, Sq 5 and 9, offsets 72 / 1024 / 4086,
    bf16 and int8 K/V);
+5c. graphs — the solo path's captured programs (models/decoder.py
+   ``SoloPrograms``: one CUDA-graph replay per prefill bucket and per decode
+   step) on the same checkpoint, with bf16 weights and KV, int8 KV
+   (XOT_TPU_KV_QUANT=int8) and int4 weights (XOT_TPU_QUANT=int4): the
+   engine's own entry points (captured prefill, ``generate_oneshot``'s 64
+   steps, two 32-step ``dispatch_chunk``s) against the uncaptured functions
+   called directly on a fresh cache, greedy and sampled at temp 0.6 /
+   top_k 35 from equally seeded generators, in a round that builds every
+   graph and a round that only replays: transcripts token-identical, the
+   prefill's logits within the serving phase's 5e-2 relative L2 (the
+   ``[graphs] <mode>`` lines: kernel nodes per graph, launches inside
+   replays — K1 in every prefill replay, K4 in the int4 step). K1, K2 and
+   K4 at the main path's shapes inside a captured graph whose inputs are
+   refilled before its replay, against their plain versions with the kernel
+   rows' tolerances, one launch counted per replay. ``[profile] graphs``
+   lines: wall and device ms per 128-token prefill and per decode step,
+   captured and eager (device: CUDA events around a call queued behind a
+   spin kernel), with the card's name and power limit, and the captured
+   bf16 step at positions 128 and 4000 of the 4096-slot cache with K2
+   (``XOT_TPU_FLASH_DECODE=1``) and without (recorded, not gated). Then the
+   solo daemon: four requests, ``POST /v1/warmup``, the same four again,
+   ``GET /v1/programs`` (and ``?scope=cluster``): no steady build, no new
+   capture during the repeat, the three solo families replaying, greedy ids
+   equal across the passes; the counters are zeroed just before its first
+   request and read just after the repeat. Launches made inside graph
+   replays count in every phase's counts (a graph's kernels, recorded at
+   its capture, once per replay);
 6. batched serving — the same checkpoint through the daemon with
    XOT_TPU_BATCHED=1 (8 slots, 64-token pages, cache 4096) at the batched
    server's defaults, draft-free n-gram speculation, QoS admission and
@@ -168,6 +195,7 @@ import shutil
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -297,6 +325,29 @@ def _cuda_ms(torch, fn, iters=30, warmup=3):
 
 def _rand(torch, shape, gen, dtype):
   return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+
+
+def _launched(name: str) -> int:
+  """Launches of kernel ``name`` since the last ``_reset_launches()``: its
+  wrapper's host launches (``LAUNCHES``) plus the launches it made inside
+  replayed CUDA graphs (utils/programs.py ``REPLAYED``: the launches a
+  graph's capture recorded, once per replay)."""
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, int4_matmul as k4, paged
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  host = {**fa.LAUNCHES, **paged.LAUNCHES, **k4.LAUNCHES}
+  return host[name] + programs.REPLAYED.get(name, 0)
+
+
+def _reset_launches() -> None:
+  """Every launch count to 0: the wrappers' and the graph replays'."""
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, int4_matmul as k4, paged
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  fa.reset_launch_counts()
+  paged.reset_launch_counts()
+  k4.reset_launch_counts()
+  programs.reset_replayed()
 
 
 def phase_kernels(torch):
@@ -429,8 +480,8 @@ def _kernel_names(torch, fn):
 def flash_prefill_rows(torch, gen, rows=K1_ROWS):
   """K1 against its plain version at ``rows``: max |err| (held to
   ``K1_ATOL`` and elementwise to ``K1_EW_ATOL + K1_RTOL·|ref|``), kernel /
-  plain / fair-library time, the card's bound, and ``torch.profiler``'s
-  count of device kernels in one call, which must be 1."""
+  plain / fair-library time, the card's bound, and the count of device
+  kernels in one call (``_kernels_per_call``), which must be 1."""
   from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa
 
   out = []
@@ -457,7 +508,7 @@ def flash_prefill_rows(torch, gen, rows=K1_ROWS):
       library_ms=lib_ms, library=library, bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
     )
     row["bound_share"] = bound_ms / row["ms"]
-    row["device_kernels_per_call"], row["profiler_sessions"] = _kernels_per_call(torch, lambda: fa.flash_attention_prefill(q, k, v, **kw))
+    row["device_kernels_per_call"] = _kernels_per_call(torch, lambda: fa.flash_attention_prefill(q, k, v, **kw))
     if row["device_kernels_per_call"] != 1:
       raise SystemExit(f"chip_smoke: flash_prefill {label}: {row['device_kernels_per_call']} device kernels per call, expected 1")
     out.append(row)
@@ -470,8 +521,7 @@ def flash_prefill_rows(torch, gen, rows=K1_ROWS):
 def flash_decode_rows(torch, gen, Hq, Hkv, hd):
   """K2 against its plain version at the solo path's cache (4096) at
   positions 4095 / 127 / 0 / mixed, and at cache 16384, position 16383.
-  ``torch.profiler`` counts the device kernels of one call of each row,
-  which must be 1."""
+  One call of each row must be one device kernel (``_kernels_per_call``)."""
   import torch.nn.functional as F
 
   from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa
@@ -505,7 +555,7 @@ def flash_decode_rows(torch, gen, Hq, Hkv, hd):
       library_ms=_cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)),
       bound_ms=max(bound_flops, bound_bytes), bound_by="operations" if bound_flops >= bound_bytes else "bytes",
     )
-    row["device_kernels_per_call"], row["profiler_sessions"] = _kernels_per_call(torch, lambda: fa.flash_decode_attention(q, k, v, pos))
+    row["device_kernels_per_call"] = _kernels_per_call(torch, lambda: fa.flash_decode_attention(q, k, v, pos))
     if row["device_kernels_per_call"] != 1:
       raise SystemExit(f"chip_smoke: flash_decode positions={positions} cache={cache}: {row['device_kernels_per_call']} device kernels per call, expected 1")
     rows.append(row)
@@ -520,8 +570,8 @@ def int4_kernel_rows(torch, gen):
   and 512 (a batched prefill call), plus one row with f32 x. The yardstick
   is torch.matmul of the same x with the weight dequantized beforehand (bf16,
   or f32 for f32 x) — the product int4 mode replaces; the dequant is not
-  timed. ``torch.profiler`` counts the device kernels of one call at T = 1
-  and 8, which must be 1."""
+  timed. One call at T = 1 and 8 must be one device kernel
+  (``_kernels_per_call``)."""
   from xotorch_support_jetson_tpu_torch.models.quantize import dequantize_leaf, quantize_weight_int4
   from xotorch_support_jetson_tpu_torch.ops import int4_matmul as k4
 
@@ -564,52 +614,24 @@ def int4_kernel_rows(torch, gen):
       )
       del w_lib
       if T <= 8:
-        row["device_kernels_per_call"], row["profiler_sessions"] = _kernels_per_call(torch, lambda: k4.int4_matmul(x, packed, scale))
+        row["device_kernels_per_call"] = _kernels_per_call(torch, lambda: k4.int4_matmul(x, packed, scale))
         if row["device_kernels_per_call"] != 1:
           raise SystemExit(f"chip_smoke: int4_matmul {name} T={T}: {row['device_kernels_per_call']} device kernels per call, expected 1")
       rows.append(row)
-      kern = f" | {row['device_kernels_per_call']} device kernel per call (profiler sessions taken: {row['profiler_sessions']})" if T <= 8 else ""
+      kern = f" | {row['device_kernels_per_call']} device kernel per call" if T <= 8 else ""
       log(f"[kernels] int4_matmul {name} in={d_in} out={d_out} T={T} x {row['x_dtype']} ({row['tile_t']}-token tiles, {row['mma']}, cluster of {split}): max|err| {err:.3e} ({used:.3f} of the bound atol {atol} + rtol {rtol:.3g}·|ref|; beyond the relative part {slack:.2e}) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | {'f32' if f32 else 'bf16'} matmul {row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']}, {nbytes / 1e6:.2f} MB){kern}")
     del packed, scale, w_bf16
   return rows
 
 
-def _kernels_per_call(torch, fn, reps=4, sessions=4):
-  """Device kernels ``torch.profiler`` records per call of ``fn`` (warm),
-  from one session of ``reps`` calls between spin kernels of
-  ``torch.cuda._sleep``: two before, one after. The profiler can hand back
-  a session with none or only part of its device events: on the H100 a
-  session with no device event at all, and, late in a long process (the
-  card tests' file), sessions whose first one or two device events were
-  missing though their launches were recorded. A session is read only when
-  its device events, in start order, begin with at least one of the
-  opening spins, end with the closing one, and hold a whole multiple of
-  ``reps`` other kernels between — what any ``fn`` with a fixed launch
-  count gives; it is redone otherwise, at most ``sessions`` times. Returns
-  (kernels per call, sessions taken); a call that launches no kernel, or
-  two, still reads as 0 or 2."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
+def _kernels_per_call(torch, fn):
+  """Device kernels one call of ``fn`` launches: the kernel nodes of a CUDA
+  graph captured around a warm call (utils/programs.py ``kernels_in``, which
+  reads them with cuGraphGetNodes / cuGraphNodeGetType). Every kernel the
+  call enqueues is a node, however late in the process it runs."""
+  from xotorch_support_jetson_tpu_torch.utils.programs import kernels_in
 
-  fn()
-  torch.cuda.synchronize()
-  seen = []
-  for attempt in range(1, sessions + 1):
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-      torch.cuda._sleep(1000)
-      torch.cuda._sleep(1000)
-      for _ in range(reps):
-        fn()
-      torch.cuda._sleep(1000)
-      torch.cuda.synchronize()
-    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start)
-    spin = ["spin_kernel" in e.name for e in events]
-    opening = next((i for i, x in enumerate(spin) if not x), len(spin))  # spins before the first other kernel
-    others = len(spin) - sum(spin)
-    seen.append((sum(spin), others))
-    if 1 <= opening <= 2 and spin[-1] and sum(spin) == opening + 1 and others % reps == 0:
-      return others // reps, attempt
-  raise SystemExit(f"chip_smoke: torch.profiler gave no whole session in {sessions} tries (spin kernels, other kernels per session for {reps} calls: {seen})")
+  return kernels_in(fn)
 
 
 def int4_matmul_bound(rows):
@@ -692,7 +714,7 @@ def paged_kernel_rows(torch, gen, Hq, Hkv, hd):
         library="sdpa over the pre-gathered bf16 window, position mask (gather and dequant not timed)",
         bound_ms=max(bound_flops, bound_bytes), bound_by="operations" if bound_flops >= bound_bytes else "bytes",
       )
-      row["device_kernels_per_call"], row["profiler_sessions"] = _kernels_per_call(torch, lambda: paged.paged_decode_attention(q, k, v, bt, lens, PAGE, **scales))
+      row["device_kernels_per_call"] = _kernels_per_call(torch, lambda: paged.paged_decode_attention(q, k, v, bt, lens, PAGE, **scales))
       if row["device_kernels_per_call"] != 1:
         raise SystemExit(f"chip_smoke: paged_decode lengths={lengths} kv={kv}: {row['device_kernels_per_call']} device kernels per call, expected 1")
       rows.append(row)
@@ -778,7 +800,7 @@ def paged_window_rows(torch, gen, Hq, Hkv, hd):
         library="sdpa over the pre-gathered bf16 windows, per-query position masks (gather and dequant not timed)",
         bound_ms=max(bound_flops, bound_bytes), bound_by="operations" if bound_flops >= bound_bytes else "bytes",
       )
-      row["device_kernels_per_call"], _ = _kernels_per_call(torch, lambda: paged.paged_decode_attention(q_flat, k, v, btw, lens_flat, PAGE, **scales))
+      row["device_kernels_per_call"] = _kernels_per_call(torch, lambda: paged.paged_decode_attention(q_flat, k, v, btw, lens_flat, PAGE, **scales))
       if row["device_kernels_per_call"] != 1:
         raise SystemExit(f"chip_smoke: the flattened verify call (kv={kv}): {row['device_kernels_per_call']} device kernels per call, expected 1")
       rows.append(row)
@@ -843,7 +865,11 @@ def _post(port: int, body: dict):
   n_events, request_id)."""
   req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/chat/completions", data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
   t0 = time.perf_counter()
-  with urllib.request.urlopen(req, timeout=600) as resp:
+  try:
+    opened = urllib.request.urlopen(req, timeout=600)
+  except urllib.error.HTTPError as e:  # carry the server's error body to whoever reads this request's result
+    raise RuntimeError(f"HTTP {e.code} from /v1/chat/completions: {e.read()[:600]!r}") from None
+  with opened as resp:
     if resp.status != 200:
       raise SystemExit(f"chip_smoke: HTTP {resp.status}")
     if not body.get("stream"):
@@ -981,7 +1007,8 @@ def _profile(torch, label, fn, reps):
 
 def profile_serving(torch, engine, steps=8):
   """The served model's prefill (the engine's 128-bucket path, logits to
-  the host) and its decode steps, default and with K2."""
+  the host: a replay of its captured graph) and its decode steps through
+  the uncaptured ``fused_decode``, default and with K2."""
   from xotorch_support_jetson_tpu_torch.models.decoder import fused_decode, init_kv_cache
 
   cfg, shard = engine.cfg, engine._effective_shard
@@ -998,11 +1025,11 @@ def profile_serving(torch, engine, steps=8):
   def decode():
     fused_decode(engine.params, cfg, shard, tok, cache, start, steps)
 
-  out = {"prefill": _profile(torch, "prefill (128-token bucket)", prefill, 5)}
-  out["decode"] = _profile(torch, f"decode, {steps} steps", decode, 3)
+  out = {"prefill": _profile(torch, "prefill (128-token bucket, captured)", prefill, 5)}
+  out["decode"] = _profile(torch, f"decode, {steps} steps (eager)", decode, 3)
   os.environ.update(XOT_TPU_FLASH_DECODE="1", XOT_TPU_FLASH_DECODE_MIN=str(CACHE))
   try:
-    out["decode_flash"] = _profile(torch, f"decode with K2, {steps} steps", decode, 3)
+    out["decode_flash"] = _profile(torch, f"decode with K2, {steps} steps (eager)", decode, 3)
   finally:
     os.environ.pop("XOT_TPU_FLASH_DECODE"), os.environ.pop("XOT_TPU_FLASH_DECODE_MIN")
   return out
@@ -1052,15 +1079,15 @@ async def _serve(torch, tmain, Shard, fa, args, port):
     log(f"[serving] daemon up on 127.0.0.1:{port}; weights loaded to the card in {load_s:.1f} s")
     body = _chat_body
     await _serve_requests(torch, node, engine, port, [("warmup", body(False, 0))])  # first CUDA/cuBLAS work off the clock
-    fa.reset_launch_counts()  # ---- the main path, counted
+    _reset_launches()  # ---- the main path, counted
     run_a = await _serve_requests(torch, node, engine, port, [
       ("greedy blocking", body(False, 0)), ("greedy streaming", body(True, 0)),
       ("sampled blocking", body(False, 0.8)), ("sampled streaming", body(True, 0.8)),
     ])
-    launches_a = dict(fa.LAUNCHES)
+    launches_a = {n: _launched(n) for n in ("flash_prefill", "flash_decode")}
     os.environ["XOT_TPU_FLASH_DECODE"], os.environ["XOT_TPU_FLASH_DECODE_MIN"] = "1", str(CACHE)
     run_b = await _serve_requests(torch, node, engine, port, [("flash-decode greedy blocking", body(False, 0)), ("flash-decode greedy streaming", body(True, 0))])
-    launches = dict(fa.LAUNCHES)  # ---- read just after the main path
+    launches = {n: _launched(n) for n in ("flash_prefill", "flash_decode")}  # ---- read just after the main path
     os.environ.pop("XOT_TPU_FLASH_DECODE"), os.environ.pop("XOT_TPU_FLASH_DECODE_MIN")
     for r in run_a + run_b:
       log(f"[serving] {r['label']}: {len(r['tokens'])} tokens, finish {r['finish_reason']}, ttft {r['ttft_s'] if r['ttft_s'] is None else round(r['ttft_s'], 4)} s, total {r['total_s']:.4f} s")
@@ -1118,9 +1145,9 @@ async def _serve_long_prompt(torch, node, engine, port, fa):
   prompt = ByteTokenizer().encode(ByteTokenizer().apply_chat_template(long_prompt_body(False)["messages"]))
   if len(prompt) != LONG_PROMPT_TOKENS:
     raise SystemExit(f"chip_smoke: the long prompt is {len(prompt)} tokens, expected {LONG_PROMPT_TOKENS}")
-  fa.reset_launch_counts()  # ---- the long-prompt path, counted
+  _reset_launches()  # ---- the long-prompt path, counted
   blocking, streaming = await _serve_requests(torch, node, engine, port, [("long greedy blocking", long_prompt_body(False)), ("long greedy streaming", long_prompt_body(True))])
-  launches = dict(fa.LAUNCHES)  # ---- read just after
+  launches = {n: _launched(n) for n in ("flash_prefill", "flash_decode")}  # ---- read just after
   if blocking["tokens"] != streaming["tokens"] or blocking["text"] != streaming["text"]:
     raise SystemExit(f"chip_smoke: long prompt: greedy blocking and streaming differ:\n{blocking['tokens']}\n{streaming['tokens']}")
   if launches["flash_prefill"] != 2 * engine.cfg.n_layers or launches["flash_decode"] != 0:
@@ -1180,10 +1207,9 @@ async def _serve_quant(torch, tmain, args, port, mode, env, bf16_logits):
     weight_bytes = sum(t.numel() * t.element_size() for t in [*engine.params["layers"].values(), *(v for k, v in engine.params.items() if k != "layers")])
     log(f"[quant] {mode}: daemon up; weights loaded and quantized on the card in {load_s:.1f} s ({weight_bytes / 1e9:.2f} GB of parameters, the bf16 embedding table included)")
     await _serve_requests(torch, node, engine, port, [("warmup", _chat_body(False, 0))])
-    fa.reset_launch_counts()  # ---- this pass's main path, counted
-    k4.reset_launch_counts()
+    _reset_launches()  # ---- this pass's main path, counted
     run = await _serve_requests(torch, node, engine, port, [("greedy blocking", _chat_body(False, 0)), ("greedy streaming", _chat_body(True, 0))])
-    launches = {"flash_prefill": fa.LAUNCHES["flash_prefill"], "flash_decode": fa.LAUNCHES["flash_decode"], "int4_matmul": k4.LAUNCHES["int4_matmul"]}  # ---- read just after
+    launches = {"flash_prefill": _launched("flash_prefill"), "flash_decode": _launched("flash_decode"), "int4_matmul": _launched("int4_matmul")}  # ---- read just after
     two_dot = k4.CALLS["int4_two_dot"]
     blocking, streaming = run
     if blocking["tokens"] != streaming["tokens"] or blocking["text"] != streaming["text"]:
@@ -1311,9 +1337,9 @@ def _spy_solo_spec(engine, dec, fa, rec):
 
   def counted(fn, key, **extra):
     def run(*a, **kw):
-      k1 = fa.LAUNCHES["flash_prefill"]
+      k1 = _launched("flash_prefill")
       res = fn(*a, **kw)
-      rec[key].append(dict(k1=fa.LAUNCHES["flash_prefill"] - k1, **{k: f(a, kw, res) for k, f in extra.items()}))
+      rec[key].append(dict(k1=_launched("flash_prefill") - k1, **{k: f(a, kw, res) for k, f in extra.items()}))
       return res
 
     return run
@@ -1382,12 +1408,12 @@ async def _serve_spec(torch, tmain, args, port, name, env, plain):
     rec = {k: [] for k in ("rounds", "ngram_chunks", "draft_prefills", "dispatches", "acceptance", "ngram_depths", "oneshots")}
     remove = _spy_solo_spec(engine, dec, fa, rec)
     before = metrics.snapshot()
-    fa.reset_launch_counts()  # ---- this pass's main path, counted
+    _reset_launches()  # ---- this pass's main path, counted
     try:
       # Streaming first: it opens at the full depth, whatever the blocking
       # request's acceptance then makes of it.
       run = await _serve_requests(torch, node, engine, port, [("greedy streaming", _chat_body(True, 0)), ("greedy blocking", _chat_body(False, 0))])
-      launches = dict(fa.LAUNCHES)  # ---- read just after
+      launches = {n: _launched(n) for n in ("flash_prefill", "flash_decode")}  # ---- read just after
     finally:
       remove()
     delta = snapshot_delta(before, metrics.snapshot())
@@ -1587,10 +1613,10 @@ def _spy_mixed(engine, fa, paged, slices):
   orig = ops.mixed_paged_batch_decode
 
   def spy(*args, **kw):
-    k1, k3 = fa.LAUNCHES["flash_prefill"], paged.LAUNCHES["paged_decode"]
+    k1, k3 = _launched("flash_prefill"), _launched("paged_decode")
     out = orig(*args, **kw)
     start, end = int(kw["pf_prefix"][0]), int(kw["pf_end"][0])
-    slices.append(dict(pad=int(kw["pf_tokens"].shape[1]), offset=start, tokens=end - start, k1=fa.LAUNCHES["flash_prefill"] - k1, k3=paged.LAUNCHES["paged_decode"] - k3))
+    slices.append(dict(pad=int(kw["pf_tokens"].shape[1]), offset=start, tokens=end - start, k1=_launched("flash_prefill") - k1, k3=_launched("paged_decode") - k3))
     return out
 
   ops.mixed_paged_batch_decode = spy
@@ -1605,10 +1631,10 @@ def _spy_spec(engine, paged, k4, records):
   orig = ops.spec_paged_batch_decode
 
   def spy(*args, **kw):
-    k3, n4 = paged.LAUNCHES["paged_decode"], k4.LAUNCHES["int4_matmul"]
+    k3, n4 = _launched("paged_decode"), _launched("int4_matmul")
     out = orig(*args, **kw)
     pc = kw.get("prop_counts")
-    records.append(dict(gmax=int(args[10]), rounds=int(args[9]), proposing=0 if pc is None else int((np.asarray(pc) > 0).sum()), k3=paged.LAUNCHES["paged_decode"] - k3, k4=k4.LAUNCHES["int4_matmul"] - n4))
+    records.append(dict(gmax=int(args[10]), rounds=int(args[9]), proposing=0 if pc is None else int((np.asarray(pc) > 0).sum()), k3=_launched("paged_decode") - k3, k4=_launched("int4_matmul") - n4))
     return out
 
   ops.spec_paged_batch_decode = spy
@@ -1661,15 +1687,14 @@ async def _serve_batched(torch, tmain, args, port, weights):
       # as rows free — while the others keep decoding.
       waves = (batched_bodies(12, "batch"), batched_bodies(4, "interactive")) if priority else (batched_bodies()[:8], batched_bodies()[8:])
       bodies = waves[0] + waves[1]
-      fa.reset_launch_counts()  # ---- this pass's main path, counted
-      paged.reset_launch_counts()
-      k4.reset_launch_counts()
+      _reset_launches()  # ---- this pass's main path, counted
       t0 = time.perf_counter()
       before = set(ids)
       first = [loop.run_in_executor(clients, _post, port, b) for b in waves[0]]
       while sum(1 for rid, t in ids.items() if t and rid not in before) < BATCH_SLOTS:
         if time.perf_counter() - t0 > 120 or any(f.done() for f in first):
-          raise SystemExit(f"chip_smoke: batched {name}: the first wave's rows did not all stream")
+          failed = [repr(f.exception()) for f in first if f.done() and f.exception() is not None]
+          raise SystemExit(f"chip_smoke: batched {name}: the first wave's rows did not all stream (failed requests: {failed})")
         await asyncio.sleep(0.005)
       second = [loop.run_in_executor(clients, _post, port, b) for b in waves[1]]
       endpoints = await asyncio.to_thread(_read_endpoints, port) if name == "bf16" else None  # its own thread: the 16 client threads are busy
@@ -1678,7 +1703,7 @@ async def _serve_batched(torch, tmain, args, port, weights):
       unspy()
       unspy_spec()
       unspy_adm()
-      launches = {"flash_prefill": fa.LAUNCHES["flash_prefill"], "flash_decode": fa.LAUNCHES["flash_decode"], "paged_decode": paged.LAUNCHES["paged_decode"], "int4_matmul": k4.LAUNCHES["int4_matmul"]}  # ---- read just after
+      launches = {"flash_prefill": _launched("flash_prefill"), "flash_decode": _launched("flash_decode"), "paged_decode": _launched("paged_decode"), "int4_matmul": _launched("int4_matmul")}  # ---- read just after
       two_dot = k4.CALLS["int4_two_dot"]
       delta, burn1 = snapshot_delta(snap0, metrics.snapshot()), _interactive_burn(metrics, slo)
       sched = {h: _hist_mean_ms(delta, h) for h in ("decode_chunk_seconds", "mixed_tick_seconds", "sched_host_gap_seconds")}
@@ -1886,10 +1911,10 @@ def check_window_against_plain(torch, engine):
     positions = lens[:, None] + torch.arange(W, dtype=torch.int32, device="cuda")[None, :]
     copies = [{k: v.clone() for k, v in pool.items()} for _ in range(3)]
     torch.cuda.synchronize()
-    paged.reset_launch_counts()
+    _reset_launches()
     got, _ = paged_window_forward(params, cfg, shard, window, positions, copies[0], bt, PAGE, True)
     torch.cuda.synchronize()
-    launches = paged.LAUNCHES["paged_decode"]
+    launches = _launched("paged_decode")
     gathered, _ = paged_window_forward(params, cfg, shard, window, positions, copies[1], bt, PAGE, False)
     steps = torch.cat([paged_decode_forward(params, cfg, shard, window[:, j : j + 1], positions[:, j : j + 1], copies[2], bt, PAGE, True)[0] for j in range(W)], dim=1)
     if tuple(got.shape) != (BATCH_SLOTS, W, cfg.vocab_size) or not torch.isfinite(got).all():
@@ -1930,12 +1955,12 @@ def check_spec_chunk_accepts(torch, engine):
   prop_counts = torch.full((BATCH_SLOTS,), n, dtype=torch.int32, device="cuda")
   copy = {k: v.clone() for k, v in pool.items()}
   torch.cuda.synchronize()
-  paged.reset_launch_counts()
+  _reset_launches()
   buf, counts, n_prop, _, next_pos, _, _ = fused_spec_paged_batch_decode(
     params, cfg, shard, None, None, None, tok, copy, None, bt, lens, active, gammas, temps, SPEC_ROUNDS, SPEC_GAMMA, page_size=PAGE, props=plain, prop_counts=prop_counts,
   )
   torch.cuda.synchronize()
-  launches = paged.LAUNCHES["paged_decode"]
+  launches = _launched("paged_decode")
   counts_l, buf_h, plain_h = counts.tolist(), buf.cpu().numpy(), plain.cpu().numpy()
   accepted, proposed = sum(c - SPEC_ROUNDS for c in counts_l), int(n_prop.sum())
   divergences = []
@@ -2008,11 +2033,10 @@ def check_mixed_against_alternating(torch, engine):
   try:
     pools = {"mixed": {k: v.clone() for k, v in pool.items()}, "alternating": {k: v.clone() for k, v in pool.items()}}
     torch.cuda.synchronize()
-    fa.reset_launch_counts()
-    paged.reset_launch_counts()
+    _reset_launches()
     t_mixed = decoder.fused_mixed_paged_batch_decode(params, cfg, shard, tok, pools["mixed"], bt, lens, active, temps, n_steps=1, page_size=PAGE, **pf)[0]
     torch.cuda.synchronize()
-    res["launches"] = {"flash_prefill": fa.LAUNCHES["flash_prefill"], "paged_decode": paged.LAUNCHES["paged_decode"]}
+    res["launches"] = {"flash_prefill": _launched("flash_prefill"), "paged_decode": _launched("paged_decode")}
     decoder.prefill_into_pages_many(params, cfg, shard, pf["pf_tokens"], pools["alternating"], pf["pf_bt"], pf["pf_prefix"], pf["pf_end"], PAGE)
     t_alt = decoder.fused_paged_batch_decode(params, cfg, shard, tok, pools["alternating"], bt, lens, active, temps, 1, page_size=PAGE)[0]
   finally:
@@ -2224,11 +2248,11 @@ async def tier_restore_logits(torch, engine):
     return plain_next(rows, *a, **kw)
 
   async def admit(rid, toks):
-    k1 = fa.LAUNCHES["flash_prefill"]
+    k1 = _launched("flash_prefill")
     r0 = metrics.counter_value("kv_tier_restored_pages_total")
     n_seen = len(seen)
     await bserver.submit(rid, np.asarray(toks, np.int32), max_tokens=1, temp=0.0, top_k=1, eos_ids=(), emit=lambda *a: None)
-    return seen[n_seen], fa.LAUNCHES["flash_prefill"] - k1, metrics.counter_value("kv_tier_restored_pages_total") - r0
+    return seen[n_seen], _launched("flash_prefill") - k1, metrics.counter_value("kv_tier_restored_pages_total") - r0
 
   decoder._next_token_batched = capture
   try:
@@ -2323,9 +2347,7 @@ async def _tier_turns(torch, engine, port, clients, ids, name):
   records: list[dict] = []
   unspy = _spy_admissions(bserver, records)
   snap0 = metrics.snapshot()
-  fa.reset_launch_counts()  # ---- this pass's main path, counted
-  paged.reset_launch_counts()
-  k4.reset_launch_counts()
+  _reset_launches()  # ---- this pass's main path, counted
   t0 = time.perf_counter()
   turn1 = await asyncio.gather(*(loop.run_in_executor(clients, _post, port, b) for b in tier_bodies()))
   t1 = time.perf_counter()
@@ -2333,7 +2355,7 @@ async def _tier_turns(torch, engine, port, clients, ids, name):
   mid = await asyncio.to_thread(_read_kv_tier, port)
   turn2 = await asyncio.gather(*second)
   wall = time.perf_counter() - t0
-  launches = {"flash_prefill": fa.LAUNCHES["flash_prefill"], "flash_decode": fa.LAUNCHES["flash_decode"], "paged_decode": paged.LAUNCHES["paged_decode"], "int4_matmul": k4.LAUNCHES["int4_matmul"]}  # ---- read just after
+  launches = {"flash_prefill": _launched("flash_prefill"), "flash_decode": _launched("flash_decode"), "paged_decode": _launched("paged_decode"), "int4_matmul": _launched("int4_matmul")}  # ---- read just after
   unspy()
   full_delta = snapshot_delta(snap0, metrics.snapshot())
   delta = full_delta["counters"]
@@ -2447,6 +2469,336 @@ async def _serve_tiered(torch, tmain, args, port):
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- 5c. graphs
+
+
+class _CkptDir:
+  """The engine's downloader interface over one local checkpoint."""
+
+  def __init__(self, path: Path) -> None:
+    self.path = path
+
+  async def ensure_shard(self, shard, engine_classname):
+    return self.path
+
+
+GRAPH_MODES = {"bf16": {}, "int8_kv": {"XOT_TPU_KV_QUANT": "int8"}, "int4": {"XOT_TPU_QUANT": "int4"}}
+GRAPH_PROFILE_STEPS = 8
+SPIN_CYCLES_PER_S = 2.0e9  # torch.cuda._sleep cycles per second, an upper bound at the H100's clocks
+
+
+def phase_graphs(torch, ckpt: Path, smi: str):
+  """The captured solo programs (models/decoder.py ``SoloPrograms``) on the
+  full-width checkpoint, per weight / KV mode, against the uncaptured
+  functions called directly; K1, K2 and K4 inside replays against their
+  plain versions; wall and device ms, captured and eager; then the solo
+  daemon through ``POST /v1/warmup`` and ``GET /v1/programs``."""
+  from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+  from xotorch_support_jetson_tpu_torch.inference.torch_engine import TorchShardedInferenceEngine
+
+  out = {"modes": {}, "card": smi}
+  for mode, knobs in GRAPH_MODES.items():
+    for knob in SERVING_KNOBS:
+      os.environ.pop(knob, None)
+    os.environ.update(knobs)
+    engine = TorchShardedInferenceEngine(_CkptDir(ckpt), device="cuda", tokenizer=ByteTokenizer())
+    try:
+      asyncio.run(engine.ensure_shard(Shard("llama-3.2-1b", 0, 15, 16)))
+      res = out["modes"][mode] = graphs_against_eager(torch, engine, mode)
+      res["profile"] = profile_graphs(torch, engine, mode, smi)
+      if mode == "bf16":
+        out["k2"] = k2_under_graphs(torch, engine, smi)
+    finally:
+      engine.executor.shutdown(wait=True)
+      for knob in knobs:
+        os.environ.pop(knob, None)
+      del engine
+      gc.collect()
+      torch.cuda.empty_cache()
+  out["kernels_in_replay"] = kernels_in_replay(torch)
+  out["daemon"] = asyncio.run(_graphs_daemon(torch, ckpt))
+  return out
+
+
+def _eager_solo(torch, engine, prompt, temp, seed, chunks):
+  """The uncaptured path on a fresh cache: the prefill (``shard_forward``
+  at the 128 bucket), then ``fused_generate`` (blocking) or ``fused_decode``
+  chunks (streaming) from the argmax token, sampling from a generator
+  seeded ``seed``."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import fused_decode, fused_generate, init_kv_cache, shard_forward
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  L = prompt.shape[1]
+  pad = torch.zeros((1, 128), dtype=torch.int32, device="cuda")
+  pad[:, :L] = torch.from_numpy(prompt).cuda()
+  cache = init_kv_cache(cfg, cfg.n_layers, 1, CACHE, device="cuda")
+  logits, _ = shard_forward(params, cfg, shard, pad, torch.arange(128, dtype=torch.int32, device="cuda")[None], cache, head_pos=torch.tensor([L - 1], device="cuda"))
+  first = int(torch.argmax(logits[0, 0]))
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  tok = torch.tensor([[first]], dtype=torch.int32, device="cuda")
+  if not chunks:
+    buf, n, _ = fused_generate(params, cfg, shard, tok, cache, torch.tensor([L], dtype=torch.int32, device="cuda"), MAX_TOKENS, (), temp=temp, top_k=35, generator=gen, n_limit=MAX_TOKENS)
+    return logits[:, 0, :], [first] + buf[0, :n].tolist()
+  toks, pos = [], L
+  for n in chunks:
+    t, _ = fused_decode(params, cfg, shard, tok, cache, torch.tensor([pos], dtype=torch.int32, device="cuda"), n, temp=temp, top_k=35, generator=gen)
+    toks += t[0].tolist()
+    tok, pos = t[:, -1:], pos + n
+  return logits[:, 0, :], [first] + toks
+
+
+def _captured_solo(torch, engine, rid, prompt, temp, seed, chunks):
+  """The same through the engine's own entry points: the captured prefill,
+  then ``generate_oneshot``'s or ``dispatch_chunk``'s captured steps."""
+  out, _ = engine._infer_tensor_sync(rid, prompt, None)
+  first = int(np.argmax(out[0]))
+  engine.generator.manual_seed(seed)
+  if not chunks:
+    toks = engine._generate_oneshot_sync(rid, first, MAX_TOKENS, (), temp, 35)
+  else:
+    handles = [engine._dispatch_chunk_sync(rid, chunks[0], temp, 35, first)] + [engine._dispatch_chunk_sync(rid, n, temp, 35, None) for n in chunks[1:]]
+    toks = [t for h in handles for t in engine._read_chunk_sync(h)]
+  engine.end_request(rid)
+  return torch.from_numpy(out), [first] + toks
+
+
+def graphs_against_eager(torch, engine, mode):
+  """Greedy and seeded sampled (temp 0.6, top_k 35) transcripts, blocking
+  (64 tokens) and streaming (two 32-token chunks), captured against
+  uncaptured, twice: the first round builds every graph, the second only
+  replays. Transcripts must be token-identical; the captured prefill's
+  logits must be within the serving phase's 5e-2 relative L2 of the
+  uncaptured ones."""
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  prompt = np.asarray([ByteTokenizer().encode(CHECK_PROMPT)], dtype=np.int32)
+  rows, worst = [], 0.0
+  _reset_launches()
+  for rnd in range(2):
+    for temp, seed in ((0.0, 0), (0.6, SEED + 100 + rnd)):
+      for chunks in ((), (32, 32)):
+        kind = "streaming" if chunks else "blocking"
+        want_logits, want = _eager_solo(torch, engine, prompt, temp, seed, chunks)
+        got_logits, got = _captured_solo(torch, engine, f"graphs-{mode}-{rnd}-{temp}-{kind}", prompt, temp, seed, chunks)
+        err = _rel_err(got_logits.cuda(), want_logits)
+        worst = max(worst, err)
+        rows.append(dict(round=rnd, temp=temp, kind=kind, tokens=len(got), identical=got == want, prefill_rel_err=err))
+        if got != want or not err < 5e-2:
+          raise SystemExit(f"chip_smoke: [graphs] {mode} round {rnd} temp {temp} {kind}: captured differs from uncaptured (prefill rel err {err:.3e}):\n{got}\n{want}")
+  greedy = [r for r in rows if r["temp"] == 0.0]
+  programs_ = [p for free in engine._cache_pool.values() for p in free]
+  graphs = [g for p in programs_ for g in p.graphs()]
+  nodes = {f"{g.family}:{'prefill' if g.family == 'decode.shard_forward' else 'step'}": g.kernel_nodes for g in graphs}
+  launches = {n: _launched(n) for n in ("flash_prefill", "flash_decode", "int4_matmul")}
+  replayed = dict(programs.REPLAYED)
+  log(f"[graphs] {mode}: {len(rows)} transcripts (greedy and sampled at temp 0.6 / top_k 35, blocking and streaming, build round and replay round) token-identical to the uncaptured functions; prefill logits rel err max {worst:.3e}; {len(graphs)} graphs on {len(programs_)} pooled cache(s), kernel nodes {nodes}; launches {launches}, of which in replays {replayed}")
+  if launches["flash_prefill"] == 0 or replayed.get("flash_prefill", 0) == 0:
+    raise SystemExit(f"chip_smoke: [graphs] {mode}: K1 did not run inside a prefill replay ({launches}, {replayed})")
+  if mode == "int4" and replayed.get("int4_matmul", 0) == 0:
+    raise SystemExit(f"chip_smoke: [graphs] int4: K4 did not run inside a step replay ({replayed})")
+  return dict(rows=rows, prefill_rel_err_max=worst, graphs=len(graphs), kernel_nodes=nodes, launches=launches, replayed=replayed, greedy_identical=all(r["identical"] for r in greedy))
+
+
+def _replay_ms(torch, fn, steps, reps=5):
+  """(wall ms, device ms) per step of ``fn``, a call of ``steps`` graph
+  replays: wall is the host's clock over ``reps`` calls with the card
+  synchronised at the end; device is CUDA events around one call queued
+  behind a spin kernel long enough for the host to enqueue the whole call
+  first (a replay is one launch, so the launch queue holds a call), so the
+  events see the card from the call's first kernel to its last."""
+  fn()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(reps):
+    fn()
+  torch.cuda.synchronize()
+  wall_s = (time.perf_counter() - t0) / reps
+  total = 0.0
+  for _ in range(reps):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0, 2.0 * wall_s + 0.005) * SPIN_CYCLES_PER_S))
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    total += start.elapsed_time(end)
+  return wall_s * 1e3 / steps, total / reps / steps
+
+
+def profile_graphs(torch, engine, mode, smi):
+  """Wall and device ms per 128-token prefill and per decode step
+  (``GRAPH_PROFILE_STEPS`` steps a call) on a 4096-slot cache, captured
+  (one replay each: ``_replay_ms``) and eager (the same functions without
+  ``programs``: ``_profile``, whose device time is torch.profiler's sum of
+  device events — an eager call's ~1,300 launches overflow the launch
+  queue, so events behind a spin would time the host). torch.profiler's
+  device sum over the replays is reported too, where it sees them."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import fused_decode, init_kv_cache, shard_forward
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  prompt = np.asarray([ByteTokenizer().encode("<|user|>Write a short poem about a fox who learns to fly.\n<|assistant|>")], dtype=np.int32)
+  L = prompt.shape[1]
+  pad = np.zeros((1, 128), dtype=np.int32)
+  pad[:, :L] = prompt
+  session = engine._new_session("profile", 1)
+  progs = session.programs
+  eager_cache = init_kv_cache(cfg, cfg.n_layers, 1, CACHE, device="cuda")
+  x = torch.from_numpy(pad).cuda()
+  positions = torch.arange(128, dtype=torch.int32, device="cuda")[None]
+  head = torch.tensor([L - 1], device="cuda")
+  tok = torch.full((1, 1), 65, dtype=torch.int32, device="cuda")
+  start = torch.tensor([100], dtype=torch.int32, device="cuda")
+  n = GRAPH_PROFILE_STEPS
+  fns = {
+    "prefill": (1, lambda: progs.prefill(pad, L), lambda: shard_forward(params, cfg, shard, x, positions, eager_cache, head_pos=head)),
+    "decode": (n, lambda: fused_decode(params, cfg, shard, 65, progs.cache, 100, n, programs=progs), lambda: fused_decode(params, cfg, shard, tok, eager_cache, start, n)),
+  }
+  res = {}
+  try:
+    for what, (steps, captured, eager) in fns.items():
+      cw, cd = _replay_ms(torch, captured, steps)
+      cp = _profile(torch, f"graphs {mode} {what} (captured, {steps} replay(s) a call)", captured, 3)
+      ep = _profile(torch, f"graphs {mode} {what} (eager, {steps} step(s) a call)", eager, 3)
+      ew, ed = ep["wall_ms"] / steps, ep["device_ms"] / steps
+      prof = cp["device_ms"] / steps if cp["device_ms"] else None
+      res[what] = dict(captured_wall_ms=cw, captured_device_ms=cd, captured_profiler_device_ms=prof, eager_wall_ms=ew, eager_device_ms=ed, eager_launches=ep["launches"] / steps)
+      unit = "128-token prefill" if what == "prefill" else "decode step"
+      seen = "not measured (no device events)" if prof is None else f"{prof:.3f} ms"
+      log(f"[profile] graphs {mode} {unit}: captured wall {cw:.3f} ms, device {cd:.3f} ms (wall/device {cw / cd:.2f}; profiler's device sum {seen}) | eager wall {ew:.3f} ms, device {ed:.3f} ms (wall/device {ew / ed:.2f}, {ep['launches'] / steps:.0f} launches) | {smi}")
+  finally:
+    engine.end_request("profile")
+  return res
+
+
+def k2_under_graphs(torch, engine, smi):
+  """The captured bf16 decode step on a 4096-slot cache at positions 128
+  and 4000, with K2 (``XOT_TPU_FLASH_DECODE=1``, ``_MIN`` 4096) and with
+  the default plain attention over every slot. Recorded, not gated."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import fused_decode
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  session = engine._new_session("k2", 1)
+  progs = session.programs
+  n = GRAPH_PROFILE_STEPS
+  res = {}
+  try:
+    for k2 in (False, True):
+      if k2:
+        os.environ.update(XOT_TPU_FLASH_DECODE="1", XOT_TPU_FLASH_DECODE_MIN=str(CACHE))
+      for pos in (128, 4000):
+        res[f"{'k2' if k2 else 'plain'}@{pos}"] = _replay_ms(torch, lambda: fused_decode(params, cfg, shard, 65, progs.cache, pos, n, programs=progs), n)
+  finally:
+    os.environ.pop("XOT_TPU_FLASH_DECODE", None)
+    os.environ.pop("XOT_TPU_FLASH_DECODE_MIN", None)
+    engine.end_request("k2")
+  for pos in (128, 4000):
+    (pw, pd), (kw, kd) = res[f"plain@{pos}"], res[f"k2@{pos}"]
+    log(f"[profile] graphs bf16 decode step at position {pos} of a {CACHE}-slot cache: K2 wall {kw:.3f} ms, device {kd:.3f} ms | plain attention wall {pw:.3f} ms, device {pd:.3f} ms | K2/plain device {kd / pd:.3f} | {smi}")
+  return {k: dict(wall_ms=v[0], device_ms=v[1]) for k, v in res.items()}
+
+
+def kernels_in_replay(torch):
+  """K1, K2 and K4 at the main path's shapes inside a captured graph
+  (utils/programs.py ``Graph``): the first run captures, then the inputs
+  are refilled in place and the replay's output is held against the
+  kernel's plain version on the new inputs, with the kernel rows'
+  tolerances; each replay must count its launch."""
+  from xotorch_support_jetson_tpu_torch.models.quantize import quantize_weight_int4
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, int4_matmul as k4
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+  q1, k1, v1 = _rand(torch, (1, 128, 32, 64), gen, torch.bfloat16), _rand(torch, (1, CACHE, 8, 64), gen, torch.bfloat16), _rand(torch, (1, CACHE, 8, 64), gen, torch.bfloat16)
+  off = torch.zeros((1,), dtype=torch.int32, device="cuda")
+  q2 = _rand(torch, (1, 1, 32, 64), gen, torch.bfloat16)
+  pos2 = torch.tensor([[4000]], dtype=torch.int32, device="cuda")
+  x4 = _rand(torch, (1, 2048), gen, torch.bfloat16)
+  w4, s4 = quantize_weight_int4(_rand(torch, (2048, 8192), gen, torch.float32))
+  cases = {
+    "flash_prefill": ((q1,), lambda: fa.flash_attention_prefill(q1, k1, v1, q_offset=off), lambda: fa.flash_attention_prefill_ref(q1, k1, v1, q_offset=off), (K1_EW_ATOL, K1_RTOL)),
+    "flash_decode": ((q2,), lambda: fa.flash_decode_attention(q2, k1, v1, pos2), lambda: fa.flash_decode_attention_ref(q2, k1, v1, pos2), (K2_ATOL, 2.0**-7)),
+    "int4_matmul": ((x4,), lambda: k4.int4_matmul(x4, w4, s4), lambda: k4.int4_matmul_ref(x4, w4, s4), (1e-4, 2.0**-7)),
+  }
+  res = {}
+  for name, (inputs, kernel, plain, (atol, rtol)) in cases.items():
+    out = kernel().clone()
+    graph = programs.Graph(f"check.{name}", lambda: out.copy_(kernel()))
+    graph.run(torch.device("cuda"))  # eager, then the capture
+    for t in inputs:
+      t.copy_(torch.randn(t.shape, generator=gen, device="cuda", dtype=torch.float32).to(t.dtype))
+    out.zero_()
+    before = programs.REPLAYED.get(name, 0)
+    graph.run(torch.device("cuda"))  # the replay, on the refilled inputs
+    torch.cuda.synchronize()
+    want = plain().float()
+    err = (out.float() - want).abs()
+    used = float((err / (atol + rtol * want.abs())).max())
+    res[name] = dict(max_abs_err=float(err.max()), bound_used=used, kernel_nodes=graph.kernel_nodes, replay_launches=programs.REPLAYED.get(name, 0) - before)
+    log(f"[graphs] {name} inside a replay (refilled inputs): max|err| {res[name]['max_abs_err']:.3e} against its plain version ({used:.3f} of atol {atol} + rtol {rtol:.3g}·|ref|); the graph holds {graph.kernel_nodes} kernel node(s); launches counted for the replay: {res[name]['replay_launches']}")
+    if not used <= 1.0 or (name == "flash_prefill" and not res[name]["max_abs_err"] <= K1_ATOL) or res[name]["replay_launches"] != 1:
+      raise SystemExit(f"chip_smoke: [graphs] {name} inside a replay: {res[name]}")
+  return res
+
+
+def _get_json(port: int, path: str):
+  with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=120) as resp:
+    return json.loads(resp.read())
+
+
+def _post_json(port: int, path: str, body: dict):
+  req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+  with urllib.request.urlopen(req, timeout=600) as resp:
+    return json.loads(resp.read())
+
+
+SOLO_FAMILIES = ("decode.shard_forward", "decode.fused", "decode.fused_generate")
+
+
+async def _graphs_daemon(torch, ckpt: Path):
+  """The solo daemon at its defaults: four requests (greedy and sampled,
+  blocking and streaming) build its programs, ``POST /v1/warmup`` warms
+  the batched manifest and marks the ledger steady, the same four requests
+  again, then ``GET /v1/programs``: no steady build, no new capture, the
+  solo families replaying, greedy ids equal to the first pass's."""
+  from xotorch_support_jetson_tpu_torch import main as tmain
+  from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+
+  args, port = _daemon_args(tmain, ckpt)
+  node, api, engine, _ = tmain.build_components(args, tokenizer=ByteTokenizer())
+  server = await api.run(host="127.0.0.1", port=port)
+  plan = [("greedy blocking", _chat_body(False, 0)), ("greedy streaming", _chat_body(True, 0)), ("sampled blocking", _chat_body(False, 0.8)), ("sampled streaming", _chat_body(True, 0.8))]
+  try:
+    await engine.ensure_shard(Shard("llama-3.2-1b", 0, 15, 16))
+    _reset_launches()  # ---- the graphs daemon's path, counted
+    first = await _serve_requests(torch, node, engine, port, plan)
+    cold = await asyncio.to_thread(_get_json, port, "/v1/programs")
+    warm = await asyncio.to_thread(_post_json, port, "/v1/warmup", {})
+    after_warm = await asyncio.to_thread(_get_json, port, "/v1/programs")
+    again = await _serve_requests(torch, node, engine, port, plan)
+    snap = await asyncio.to_thread(_get_json, port, "/v1/programs")
+    launches = {n: _launched(n) for n in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}  # ---- read just after
+    cluster = await asyncio.to_thread(_get_json, port, "/v1/programs?scope=cluster")
+  finally:
+    server.close()
+    await server.wait_closed()
+    await asyncio.get_running_loop().run_in_executor(engine.executor, engine._drop_batched_server)
+    engine.executor.shutdown(wait=True)
+  fams = snap["families"]
+  summary = {f: {k: fams.get(f, {}).get(k) for k in ("compiles", "dispatches", "captures", "replays", "graph_kernels", "steady_compiles")} for f in SOLO_FAMILIES}
+  new_captures = {f: fams.get(f, {}).get("captures", 0) - after_warm["families"].get(f, {}).get("captures", 0) for f in SOLO_FAMILIES}
+  log(f"[graphs] daemon: POST /v1/warmup -> manifest {[(e['family'], e['warmed']) for e in warm['manifest']]}, {warm['warmup_s']:.3f} s, errors {warm['errors']}; GET /v1/programs after the repeat: steady {snap['steady']}, steady_compiles {snap['totals']['steady_compiles']}, totals {snap['totals']}; solo families {summary}; captures during the repeat {new_captures}; launches {launches}")
+  for a, b in ((first[0], again[0]), (first[1], again[1]), (first[0], first[1])):
+    if a["tokens"] != b["tokens"]:
+      raise SystemExit(f"chip_smoke: [graphs] daemon: greedy ids differ ({a['label']} / {b['label']}):\n{a['tokens']}\n{b['tokens']}")
+  if not warm.get("steady") or warm.get("errors") or not snap["steady"] or snap["totals"]["steady_compiles"] != 0 or any(new_captures.values()):
+    raise SystemExit(f"chip_smoke: [graphs] daemon: the repeat built programs after warmup: {snap['totals']}, captures {new_captures}, warmup {warm}")
+  if any(not fams.get(f, {}).get("replays") for f in SOLO_FAMILIES) or cold["steady"] or cluster.get("unreachable") != [] or cluster["totals"]["dispatches"] != snap["totals"]["dispatches"]:
+    raise SystemExit(f"chip_smoke: [graphs] daemon: unexpected ledger {summary} (cold steady {cold['steady']}; cluster {cluster.get('unreachable')})")
+  if launches["flash_prefill"] == 0:
+    raise SystemExit(f"chip_smoke: [graphs] daemon: K1 never launched {launches}")
+  return dict(warmup=warm, programs=snap, solo_families=summary, launches=launches, greedy_tokens=first[0]["tokens"])
+
+
 def main() -> int:
   try:
     import torch
@@ -2465,6 +2817,7 @@ def main() -> int:
     serving = phase_serving(torch, ckpt)
     quant = phase_quant_serving(torch, ckpt, serving.pop("_bf16_logits"))
     spec = phase_spec_serving(torch, ckpt, serving)
+    graphs = phase_graphs(torch, ckpt, smi)
     # The int4-weights daemon first: the metrics registry and the SLO
     # engine are the process's, so a daemon started after the priority
     # pass would inherit its interactive burn (and the smallest budget).
@@ -2494,6 +2847,7 @@ def main() -> int:
     "batched_fifo": [bp["bf16_fifo"]["launches"]], "batched_priority": [bp["bf16_priority"]["launches"]], "batched_int4_weights": [p["launches"] for p in batched_int4["passes"].values()],
     "batched_tiered": [tiered["passes"]["tier_on"]["launches"]], "solo_spec": [p["launches"] for p in spec.values()],
     "batched_spec": [p["spec"]["launches"] for p in [*bp.values(), *batched_int4["passes"].values()]],
+    "solo_graphs": [graphs["daemon"]["launches"]],
   }
   by_path = {name: {path: sum(x.get(name, 0) for x in runs) for path, runs in paths.items()} for name in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
   for name in ("flash_prefill", "paged_decode"):
@@ -2522,7 +2876,7 @@ def main() -> int:
     # the per-step sums are in chip_smoke.json's int4_matmul_bound.
     entry("int4_matmul", "xotorch_support_jetson_tpu_torch/csrc/int4_matmul.cu", "xotorch_support_jetson_tpu/ops/pallas_int4.py:36", kern["int4_matmul"], k4_head),
   ]}
-  record = dict(card=smi, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, summary=kernels_line)
+  record = dict(card=smi, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, summary=kernels_line)
   out = ROOT / "chiprun_out"
   out.mkdir(exist_ok=True)
   (out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=float))

@@ -1,0 +1,488 @@
+"""The port's program ledger and captured solo programs (utils/programs.py,
+models/decoder.py ``SoloPrograms``) against the reference's ledger
+(``xotorch_support_jetson_tpu/utils/programs.py``) and JAX engine, on the
+CPU at a small size:
+
+- the ledger's unit behaviour, each case run through the reference's
+  ``tracked_jit`` and the port's ``tracked`` on the same inputs: builds,
+  dispatches and signatures counted, static arguments by value, nested
+  families, a build after ``mark_steady``, the snapshot, ``merge_snapshots``
+  and ``XOT_TPU_PROGRAMS=0``;
+- one request sequence through both engines gives the same build and
+  dispatch counts for ``decode.fused`` and ``decode.fused_generate``, and
+  for the solo prefill and one-token step (``decode.shard_forward`` in the
+  port; the reference's engine runs them as the plain jits ``_prefill`` and
+  ``_decode_step``, so their builds are its jit cache entries);
+- a request served on a recycled pool cache equals the JAX engine's on a
+  fresh one (greedy tokens identical, logits within rtol = atol = 2e-4);
+- ``GET /v1/programs`` and ``POST /v1/warmup`` answer with the reference's
+  keys, and the warmup manifest equals the reference's at the batched
+  defaults;
+- the speculation A/B keeps the draft when its timed run raises, in both
+  engines.
+
+The ``cuda``-marked cases hold the captured solo paths against the
+uncaptured functions on a card (greedy and seeded sampled transcripts
+identical, prefill logits within 2e-4 at f32) and skip without one. This
+file imports JAX only inside the CPU cases, so the card cases run where
+JAX is not installed (``-m cuda --noconftest``)."""
+
+import asyncio
+import json
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+
+from xotorch_support_jetson_tpu_torch.models import config as tconfig, decoder as tdec
+from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+from xotorch_support_jetson_tpu_torch.utils.metrics import metrics as tm
+from xotorch_support_jetson_tpu_torch.utils.programs import ProgramLedger, describe_signature, ledger, tracked
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+@pytest.fixture(autouse=True)
+def _clean_ledgers():
+  """Both ledgers are process-global: each case starts and ends forgotten."""
+  ledger.reset()
+  yield
+  ledger.reset()
+
+
+@pytest.fixture
+def ref():
+  """The reference's ledger module (imported here: the card cases run
+  where JAX is absent), reset around the case."""
+  import jax
+
+  from xotorch_support_jetson_tpu.utils import programs as jprograms
+
+  jprograms.ledger.reset()
+  yield jprograms, jax
+  jprograms.ledger.reset()
+
+
+# --------------------------------------------------------------- the ledger
+
+
+def _backends(ref):
+  """(decorator, ledger, array maker) for the reference and the port."""
+  jprograms, jax = ref
+  import jax.numpy as jnp
+
+  return [
+    ("reference", lambda fam, st=(): jprograms.tracked_jit(fam, static_argnames=st), jprograms.ledger, lambda shape: jnp.ones(shape, jnp.float32), lambda y: np.asarray(y)),
+    ("port", lambda fam, st=(): tracked(fam, st), ledger, lambda shape: torch.ones(shape, dtype=torch.float32), lambda y: y.numpy()),
+  ]
+
+
+def _counts(led, family):
+  st = led.snapshot()["families"].get(family, {})
+  return st.get("compiles", 0), st.get("dispatches", 0), st.get("steady_compiles", 0), list(st.get("signatures", []))
+
+
+def _scenario(name, deco, led, arr, host):
+  """One ledger scenario; returns what it observed."""
+  if name == "counts":
+    f = deco("test.unit")(lambda x: x * 2)
+    for _ in range(3):
+      host(f(arr((1, 3))))
+    first = _counts(led, "test.unit")
+    host(f(arr((2, 5))))
+    return first, _counts(led, "test.unit"), led.snapshot()["families"]["test.unit"]["compile_s"] > 0.0
+  if name == "static":
+
+    def rep(x, n):
+      return x * n
+
+    f = deco("test.static", ("n",))(rep)
+    for n in (3, 3, 4):
+      host(f(arr((2,)), n))
+    return _counts(led, "test.static")
+  if name == "nested":
+    inner = deco("test.inner")(lambda x: x + 1)
+    outer = deco("test.outer")(lambda x: inner(x) * 3)
+    host(outer(arr((4,))))
+    host(outer(arr((4,))))
+    return _counts(led, "test.outer"), _counts(led, "test.inner")
+  if name == "steady":
+    f = deco("test.sentinel")(lambda x: x * 2)
+    host(f(arr((2, 2))))
+    led.mark_steady(manifest=[{"family": "test.sentinel"}])
+    host(f(arr((2, 2))))
+    before = led.steady_compile_count()
+    host(f(arr((3, 7))))  # a new shape after warmup
+    return before, _counts(led, "test.sentinel"), led.snapshot()["steady"], led.snapshot()["manifest"]
+  if name == "snapshot":
+    f = deco("test.snap")(lambda x: x)
+    host(f(arr((2,))))
+    snap = led.snapshot()
+    json.dumps(snap)
+    return snap["totals"]["compiles"], snap["totals"]["dispatches"], snap["totals"]["steady_compiles"], snap["enabled"], snap["steady"], sorted(snap)
+  raise AssertionError(name)
+
+
+@pytest.mark.parametrize("name", ["counts", "static", "nested", "steady", "snapshot"])
+def test_ledger_matches_the_reference(ref, name):
+  (_, jdeco, jled, jarr, jhost), (_, tdeco, tled, tarr, thost) = _backends(ref)
+  want = _scenario(name, jdeco, jled, jarr, jhost)
+  got = _scenario(name, tdeco, tled, tarr, thost)
+  assert got == want
+  if name == "counts":
+    assert got[1][:2] == (2, 4) and got[1][3] == ["float32[1,3]", "float32[2,5]"]
+  if name == "nested":
+    assert got == ((1, 2, 0, ["float32[4]"]), (1, 0, 0, ["float32[4]"]))
+  if name == "steady":
+    assert got[1][2] == 1 and tm.counter_value("program_steady_compiles_total", labels={"family": "test.sentinel"}) >= 1
+
+
+def test_programs_off_records_nothing_and_changes_nothing(ref, monkeypatch):
+  for _, deco, led, arr, host in _backends(ref):
+    f = deco("test.poison")(lambda x: (x * 3 + 1).cumsum(0) if isinstance(x, torch.Tensor) else (x * 3 + 1).cumsum())
+    on = host(f(arr((8,))))
+    monkeypatch.setenv("XOT_TPU_PROGRAMS", "0")
+    before = led.snapshot()["totals"]
+    off = host(f(arr((8,))))
+    assert np.array_equal(on, off)
+    assert led.snapshot()["totals"] == before and led.snapshot()["enabled"] is False
+    monkeypatch.delenv("XOT_TPU_PROGRAMS")
+
+
+def test_describe_signature_and_merge_match_the_reference(ref):
+  jprograms, _ = ref
+  import jax.numpy as jnp
+
+  assert describe_signature((torch.ones((2, 3), dtype=torch.int32), {"a": torch.ones(4)}, 7), {"flag": True}) == jprograms.describe_signature((jnp.ones((2, 3), jnp.int32), {"a": jnp.ones((4,))}, 7), {"flag": True})
+  long = describe_signature(tuple(torch.ones(100 + i) for i in range(60)), {})
+  assert len(long) <= 512 and long.endswith("...")
+  a = {"node_id": "n0", "steady": True, "families": {"decode.batch": {"compiles": 2, "steady_compiles": 0, "dispatches": 10, "compile_s": 1.5, "device_s": 0.25, "signatures": ["int32[4,1]"]}}}
+  b = {"node_id": "n1", "steady": False, "families": {
+    "decode.batch": {"compiles": 1, "steady_compiles": 1, "dispatches": 4, "compile_s": 0.5, "device_s": 0.75, "signatures": ["int32[4,1]", "int32[8,1]"]},
+    "prefill.slots": {"compiles": 1, "dispatches": 2},
+  }}
+  for parts in ([a, b], [a], []):
+    want, got = jprograms.ProgramLedger.merge_snapshots(parts), ProgramLedger.merge_snapshots(parts)
+    assert {k: v for k, v in got.items() if k not in ("families", "totals")} == {k: v for k, v in want.items() if k not in ("families", "totals")}
+    for fam, st in want["families"].items():
+      assert {k: got["families"][fam][k] for k in st if k != "xla_compile_s"} == {k: v for k, v in st.items() if k != "xla_compile_s"}
+    assert {k: got["totals"][k] for k in want["totals"]} == want["totals"]
+
+
+# ------------------------------------------------------------ the engines
+
+SOLO = ("decode.fused", "decode.fused_generate")
+
+
+def _tiny_dir(tmp_path_factory):
+  from test_torch_engine import make_tiny_llama
+
+  return make_tiny_llama(tmp_path_factory.mktemp("tiny_llama_programs"))
+
+
+@pytest.fixture(scope="module")
+def tiny_dir(tmp_path_factory):
+  return _tiny_dir(tmp_path_factory)
+
+
+def _engines(path):
+  from test_torch_engine import DirDownloader
+  from xotorch_support_jetson_tpu.inference.jax_engine import JaxShardedInferenceEngine
+  from xotorch_support_jetson_tpu.inference.shard import Shard as JShard
+  from xotorch_support_jetson_tpu_torch.inference.torch_engine import TorchShardedInferenceEngine
+
+  je = JaxShardedInferenceEngine(DirDownloader(path), use_local_mesh=False)
+  te = TorchShardedInferenceEngine(DirDownloader(path), device="cpu")
+  return (je, JShard("llama-3.2-1b", 0, 15, 16)), (te, Shard("llama-3.2-1b", 0, 15, 16))
+
+
+async def _traffic(engine, shard, prompts):
+  """A request sequence: streaming chunks greedy and sampled at two
+  temperatures, blocking greedy and sampled at two max_tokens within one
+  bucket, one one-token step through infer_tensor; prompts of several
+  lengths within the 128 bucket. Returns the greedy transcripts."""
+  out = []
+  for i, (prompt, mode) in enumerate(zip(prompts, ["chunks0", "chunks0.7", "chunks0.9", "oneshot0", "oneshot0.8", "oneshot0", "step"])):
+    rid = f"r{i}"
+    logits, _ = await engine.infer_prompt(rid, shard, prompt)
+    first = int(np.argmax(logits[0]))
+    if mode.startswith("chunks"):
+      temp = float(mode[6:])
+      toks = await engine.read_chunk(await engine.dispatch_chunk(rid, shard, 6, temp, 35, first_token=first))
+      toks += await engine.read_chunk(await engine.dispatch_chunk(rid, shard, 6, temp, 35))
+    elif mode.startswith("oneshot"):
+      temp = float(mode[7:])
+      toks = await engine.generate_oneshot(rid, shard, first, 12 if i < 5 else 10, eos_ids=(2,), temp=temp)
+    else:
+      step, _ = await engine.infer_tensor(rid, shard, np.asarray([[first]], dtype=np.int32))
+      toks = [int(np.argmax(step[0]))]
+    if mode in ("chunks0", "oneshot0", "step"):  # greedy: comparable across engines
+      out.append([first] + toks)
+    engine.end_request(rid)
+  return out
+
+
+def test_engine_program_counts_match_the_reference(tiny_dir, monkeypatch):
+  import jax
+
+  from xotorch_support_jetson_tpu.inference import jax_engine as jeng
+  from xotorch_support_jetson_tpu.utils.programs import ledger as jledger
+
+  (je, js), (te, ts) = _engines(tiny_dir)
+  prompts = ["hello world", "hello world how are you today", "the quick brown fox", "the quick brown fox the quick brown fox", "hello", "you today", "brown fox"]
+  calls = {"_prefill": 0, "_decode_step": 0}
+  for name in calls:
+    orig = getattr(jeng, name)
+
+    def counted(*a, _orig=orig, _name=name, **k):
+      calls[_name] += 1
+      return _orig(*a, **k)
+
+    monkeypatch.setattr(jeng, name, counted)
+
+  async def run():
+    await je.ensure_shard(js)
+    await te.ensure_shard(ts)
+    jax.clear_caches()  # the reference's builds are its jit cache entries: count from empty
+    jledger.reset()
+    ledger.reset()
+    want = await _traffic(je, js, prompts)
+    got = await _traffic(te, ts, prompts)
+    return want, got
+
+  want, got = asyncio.run(run())
+  assert got == want
+  jsnap, tsnap = jledger.snapshot()["families"], ledger.snapshot()["families"]
+  for fam in SOLO:
+    assert (tsnap[fam]["compiles"], tsnap[fam]["dispatches"]) == (jsnap[fam]["compiles"], jsnap[fam]["dispatches"]), fam
+  assert tsnap["decode.fused"]["compiles"] == 2  # greedy, and sampled at any temperature
+  assert tsnap["decode.fused_generate"]["compiles"] == 2  # one step-count bucket (16), greedy and sampled
+  sf = tsnap["decode.shard_forward"]
+  assert sf["dispatches"] == calls["_prefill"] + calls["_decode_step"] == len(prompts) + 1
+  monkeypatch.undo()
+  assert sf["compiles"] == jeng._prefill._cache_size() + jeng._decode_step._cache_size() == 2  # one prompt bucket, one step
+
+
+def test_recycled_pool_cache_equals_the_reference_on_a_fresh_one(tiny_dir):
+  from test_torch_engine import PROMPT
+
+  (je, js), (te, ts) = _engines(tiny_dir)
+
+  async def serve(engine, shard, rid):
+    logits, _ = await engine.infer_prompt(rid, shard, PROMPT)
+    first = int(np.argmax(logits[0]))
+    step, _ = await engine.infer_tensor(rid, shard, np.asarray([[first]], dtype=np.int32))
+    nxt = int(np.argmax(step[0]))
+    toks = await engine.read_chunk(await engine.dispatch_chunk(rid, shard, 8, 0.0, 35, first_token=nxt))
+    toks += await engine.read_chunk(await engine.dispatch_chunk(rid, shard, 8, 0.0, 35))
+    out = logits, step, [first, nxt] + toks
+    if engine is je:
+      engine.end_request(rid)
+    return out
+
+  async def run():
+    want = await serve(je, js, "a")
+    # A longer request fills the port's cache well past the next prompt,
+    # then hands it back to the pool.
+    logits, _ = await te.infer_prompt("fill", ts, "the quick brown fox " * 10)
+    await te.generate_oneshot("fill", ts, int(np.argmax(logits[0])), 40, eos_ids=(), temp=0.0)
+    filled = te.sessions["fill"].programs
+    assert int((filled.cache["k"][:, 0].abs().sum(dim=(0, 2, 3)) > 0).sum()) > 60
+    te.end_request("fill")
+    got = await _serve_recorded(te, ts, serve, filled)
+    return want, got
+
+  want, got = asyncio.run(run())
+  np.testing.assert_allclose(got[0], want[0], **TOL)
+  np.testing.assert_allclose(got[1], want[1], **TOL)
+  assert got[2] == want[2]
+
+
+async def _serve_recorded(te, ts, serve, filled):
+  """``serve`` on the port engine; it must take the ``filled`` cache, and
+  give it back at its end."""
+  got = await serve(te, ts, "b")
+  assert te.sessions["b"].programs is filled and not any(te._cache_pool.values())
+  te.end_request("b")
+  assert [p for free in te._cache_pool.values() for p in free] == [filled]
+  return got
+
+
+# -------------------------------------------------------------- endpoints
+
+
+def _get(port, path):
+  with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+    return json.loads(resp.read())
+
+
+def _post(port, path, body):
+  req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+  with urllib.request.urlopen(req, timeout=120) as resp:
+    return json.loads(resp.read())
+
+
+def test_warmup_manifest_matches_the_reference_at_the_batched_defaults(tiny_dir, monkeypatch):
+  from xotorch_support_jetson_tpu.inference.batch_scheduler import BatchedServer as JaxBatchedServer
+  from xotorch_support_jetson_tpu_torch.inference.batch_scheduler import BatchedServer
+
+  monkeypatch.delenv("XOT_TPU_SPEC_NGRAM", raising=False)  # the batched defaults, both sides
+  (je, js), (te, ts) = _engines(tiny_dir)
+
+  async def run():
+    await je.ensure_shard(js)
+    await te.ensure_shard(ts)
+    out = []
+    for server in (JaxBatchedServer(je), BatchedServer(te)):
+      before = server.warmup_manifest()
+      res = await server.warmup()
+      out.append((before, res["manifest"], sorted(res), res["steady"], res["errors"], server.warmup_manifest()))
+      server.shutdown()
+    return out
+
+  want, got = asyncio.run(run())
+  assert got == want
+  assert [e["family"] for e in got[5]] == ["prefill.pages_many_sampled", "spec.paged_batch", "decode.paged_batch", "decode.mixed_paged_batch"]
+  assert [e["warmed"] for e in got[1]] == [True, True, False]  # the mixed tick needs a prefill arriving mid-decode
+  assert ledger.steady and ledger.snapshot()["manifest"] == got[1]
+
+
+def test_programs_and_warmup_endpoints(tiny_dir, monkeypatch, ref):
+  import jax.numpy as jnp
+
+  from xotorch_support_jetson_tpu_torch import main as tmain
+  from xotorch_support_jetson_tpu_torch.utils.helpers import find_available_port
+
+  jprograms, _ = ref
+  np.asarray(jprograms.tracked_jit("test.keys")(lambda x: x)(jnp.ones((2,))))
+  jsnap = jprograms.ledger.snapshot()
+  monkeypatch.setenv("XOT_TPU_MODEL_DIR", str(tiny_dir))
+  monkeypatch.setenv("XOT_TPU_PLATFORM", "cpu")
+  port = find_available_port("127.0.0.1")
+  args = tmain.build_parser().parse_args(["--discovery-module", "none", "--chatgpt-api-port", str(port), "--temp", "0.0", "--max-generate-tokens", "6", "--node-id", "test"])
+  chat = {"model": "llama-3.2-1b", "messages": [{"role": "user", "content": "hello world"}], "temperature": 0, "stream": False}
+
+  async def run():
+    node, api, engine, _ = tmain.build_components(args)
+    server = await api.run(host="127.0.0.1", port=port)
+    try:
+      first = await asyncio.to_thread(_post, port, "/v1/chat/completions", chat)
+      cold = await asyncio.to_thread(_get, port, "/v1/programs")
+      warm = await asyncio.to_thread(_post, port, "/v1/warmup", {})
+      again = await asyncio.to_thread(_post, port, "/v1/chat/completions", chat)
+      snap = await asyncio.to_thread(_get, port, "/v1/programs")
+      cluster = await asyncio.to_thread(_get, port, "/v1/programs?scope=cluster")
+    finally:
+      server.close()
+      await server.wait_closed()
+      engine._drop_batched_server()
+    return first, cold, warm, again, snap, cluster
+
+  first, cold, warm, again, snap, cluster = asyncio.run(run())
+  assert again["choices"][0]["message"]["content"] == first["choices"][0]["message"]["content"]
+  assert sorted(cold) == sorted([*jsnap, "node_id"]) and cold["node_id"] == "test" and cold["steady"] is False
+  ref_family_keys = set(jsnap["families"]["test.keys"]) - {"xla_compile_s"}  # the XLA backend's own compile seconds: no counterpart
+  for fam in ("decode.shard_forward", "decode.fused_generate"):
+    assert ref_family_keys <= set(cold["families"][fam]) and cold["families"][fam]["compiles"] == 1
+  assert sorted(warm) == ["errors", "manifest", "steady", "warmup_s"] and warm["steady"] is True and warm["errors"] == []
+  assert [e["family"] for e in warm["manifest"]] == ["prefill.pages_many_sampled", "decode.paged_batch", "decode.mixed_paged_batch"]
+  assert snap["steady"] is True and snap["totals"]["steady_compiles"] == 0  # the repeat built nothing
+  assert snap["families"]["decode.fused_generate"]["dispatches"] == 2
+  assert cluster["scope"] == "cluster" and cluster["nodes"] == ["test"] and cluster["unreachable"] == []
+  assert cluster["totals"]["dispatches"] == snap["totals"]["dispatches"]
+
+
+# ------------------------------------------------------- the speculation A/B
+
+
+def test_spec_calibration_failure_keeps_the_draft_in_both_engines(tiny_dir, monkeypatch, capsys):
+  """The A/B is skipped on the CPU; both engines are forced past that check
+  and their timed run raises: each keeps its draft and says why only
+  under DEBUG."""
+  from types import SimpleNamespace
+
+  from xotorch_support_jetson_tpu.inference import jax_engine as jeng
+  from xotorch_support_jetson_tpu.models import decoder as jdecoder
+  from xotorch_support_jetson_tpu_torch.inference import torch_engine as teng
+
+  (je, js), (te, ts) = _engines(tiny_dir)
+  asyncio.run(je.ensure_shard(js))
+  asyncio.run(te.ensure_shard(ts))
+
+  def boom(*a, **k):
+    raise RuntimeError("forced failure of the timed run")
+
+  monkeypatch.setattr(jdecoder, "fused_decode", boom)
+  monkeypatch.setattr(teng, "fused_decode", boom)
+  monkeypatch.setattr(jeng.jax, "devices", lambda *a: [SimpleNamespace(platform="gpu")])
+  monkeypatch.setattr(te, "device", torch.device("meta"))  # not the CPU: the A/B runs (on meta tensors) up to the raise
+  for debug in (0, 1):
+    monkeypatch.setattr(jeng, "DEBUG", debug)
+    monkeypatch.setattr(teng, "DEBUG", debug)
+    for engine in (je, te):
+      engine._draft_params = engine.params  # a stand-in draft
+      engine._maybe_calibrate_spec()
+      assert engine._draft_params is engine.params
+    out = capsys.readouterr().out
+    assert ("[jax_engine] spec calibration failed" in out) == ("[torch_engine] spec calibration failed" in out) == bool(debug)
+  assert te.spec_calibration is None
+
+
+# ------------------------------------------------------------ on the card
+
+
+def _card_model(quant: str = ""):
+  from xotorch_support_jetson_tpu_torch.models.quantize import quantize_params
+
+  cfg = tconfig.tiny_test_config(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=512, max_seq_len=512, dtype=torch.bfloat16)
+  shard = Shard("tiny", 0, 1, 2)
+  params = tdec.init_shard_params(cfg, shard, generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
+  if quant == "int4":
+    params = quantize_params(params, "int4")
+  return cfg, shard, params
+
+
+@pytest.fixture
+def card():
+  if not torch.cuda.is_available():
+    pytest.skip("needs an NVIDIA GPU (CUDA graphs and kernels have no CPU mode)")
+  return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8_kv", "int4", "k2"])
+def test_captured_solo_paths_equal_uncaptured_on_the_card(card, mode, monkeypatch):
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  if mode == "k2":
+    monkeypatch.setenv("XOT_TPU_FLASH_DECODE", "1")
+    monkeypatch.setenv("XOT_TPU_FLASH_DECODE_MIN", "256")
+  cfg, shard, params = _card_model("int4" if mode == "int4" else "")
+  kv = "int8" if mode == "int8_kv" else ""
+  prompt = np.random.default_rng(0).integers(3, 512, (1, 128)).astype(np.int32)
+  L = 77
+  prog = tdec.SoloPrograms(params, cfg, shard, tdec.init_kv_cache(cfg, 2, 1, 512, quant=kv, device="cuda"), generator=torch.Generator(device="cuda"), pool=torch.cuda.graph_pool_handle())
+  eager = tdec.init_kv_cache(cfg, 2, 1, 512, quant=kv, device="cuda")
+  programs.reset_replayed()
+  for rnd in range(2):  # the first round builds, the second replays
+    want, _ = tdec.shard_forward(params, cfg, shard, torch.from_numpy(prompt).cuda(), torch.arange(128, dtype=torch.int32, device="cuda")[None], eager, head_pos=torch.tensor([L - 1], device="cuda"))
+    got = prog.prefill(prompt, L)
+    torch.testing.assert_close(got, want[:, 0, :], **TOL)
+    first = int(torch.argmax(got[0]))
+    for temp, seed in ((0.0, 0), (0.6, 11 + rnd)):
+      prog.generator.manual_seed(seed)
+      g_eager = torch.Generator(device="cuda").manual_seed(seed)
+      start = L if temp == 0 else L + 40
+      w1, _ = tdec.fused_decode(params, cfg, shard, torch.tensor([[first]], dtype=torch.int32, device="cuda"), eager, torch.tensor([start], dtype=torch.int32, device="cuda"), 20, temp=temp, top_k=35, generator=g_eager)
+      g1, _ = tdec.fused_decode(params, cfg, shard, first, prog.cache, start, 20, temp=temp, top_k=35, programs=prog)
+      w2, _, _ = tdec.fused_generate(params, cfg, shard, w1[:, -1:], eager, torch.tensor([start + 20], dtype=torch.int32, device="cuda"), 32, eos_ids=(int(w1[0, 3]),), temp=temp, top_k=35, generator=g_eager, n_limit=30)
+      g2, n2, _ = tdec.fused_generate(params, cfg, shard, g1[:, -1:], prog.cache, start + 20, 32, eos_ids=(int(g1[0, 3]),), temp=temp, top_k=35, n_limit=30, programs=prog)
+      assert torch.equal(g1, w1) and torch.equal(g2, w2), (mode, temp)
+  assert len(prog.graphs()) == 3 and all(g.graph is not None for g in prog.graphs())  # the bucket, the greedy step, the sampled step
+  # The second prefill was a replay: K1 once per layer inside it.
+  assert programs.REPLAYED.get("flash_prefill", 0) == cfg.n_layers
+  if mode == "k2":
+    assert programs.REPLAYED.get("flash_decode", 0) > 0
+  if mode == "int4":
+    assert programs.REPLAYED.get("int4_matmul", 0) > 0

@@ -1,7 +1,9 @@
 """OpenAI-compatible HTTP API: ``/healthcheck``, ``/v1/models``,
 ``/v1/chat/completions`` (blocking, and SSE with ``"stream": true``),
-``/metrics`` (Prometheus text), ``/v1/slo`` (the local SLO report) and
-``/v1/kv/tier`` (the host KV tier's state).
+``/metrics`` (Prometheus text), ``/v1/slo`` (the local SLO report),
+``/v1/kv/tier`` (the host KV tier's state), ``/v1/programs`` (the device
+program ledger) and ``POST /v1/warmup`` (build the expected programs before
+traffic).
 
 Counterpart of those routes of the reference's ``api/chatgpt_api.py``, with
 the same request and response shapes: a chat request may carry a QoS
@@ -23,6 +25,7 @@ import os
 import time
 import uuid
 from pathlib import Path
+from urllib.parse import parse_qs
 
 from .. import registry
 from ..inference.engine import PromptTooLongError, ServerOverloadedError
@@ -182,8 +185,9 @@ def completion_chunk(request_id: str, model: str, created: int, content: str | N
 
 
 class _Request:
-  def __init__(self, method: str, path: str, headers: dict, body: bytes) -> None:
+  def __init__(self, method: str, path: str, headers: dict, body: bytes, query: dict | None = None) -> None:
     self.method, self.path, self.headers, self.body = method, path, headers, body
+    self.query = query or {}  # the query string's parameters, last value of each
 
 
 class _Response:
@@ -227,7 +231,8 @@ async def _read_request(reader: asyncio.StreamReader) -> _Request | None:
   if n > MAX_BODY_BYTES:
     raise ValueError("request body too large")
   body = await reader.readexactly(n) if n else b""
-  return _Request(parts[0].upper(), parts[1].split("?", 1)[0], headers, body)
+  path, _, qs = parts[1].partition("?")
+  return _Request(parts[0].upper(), path, headers, body, {k: v[-1] for k, v in parse_qs(qs).items()})
 
 
 async def _write_head(writer: asyncio.StreamWriter, status: int, headers: dict) -> None:
@@ -283,6 +288,8 @@ class ChatGPTAPI:
       ("GET", "/metrics"): self.handle_metrics,
       ("GET", "/v1/slo"): self.handle_slo,
       ("GET", "/v1/kv/tier"): self.handle_kv_tier,
+      ("GET", "/v1/programs"): self.handle_programs,
+      ("POST", "/v1/warmup"): self.handle_warmup,
     }
 
   # ------------------------------------------------------------- server
@@ -366,6 +373,53 @@ class ChatGPTAPI:
       "restored_pages_total": metrics.counter_value("kv_tier_restored_pages_total"),
       "prefix_registry": prefix_registry.snapshot(),
     })
+
+  async def handle_programs(self, request, writer):
+    """GET /v1/programs — the device-program ledger (utils/programs.py):
+    per family the builds, dispatches, steady builds, their seconds and
+    signatures, and the port's graph captures and replays; the warmup
+    manifest and the steady flag. The port has no ring yet, so
+    ``?scope=cluster`` answers as the reference does on a node without
+    peers: this snapshot merged alone, with ``unreachable: []``."""
+    from ..utils.programs import ProgramLedger, ledger
+
+    local = ledger.snapshot()
+    local["node_id"] = getattr(self.node, "id", None)
+    if request.query.get("scope") != "cluster":
+      return json_response(local)
+    merged = ProgramLedger.merge_snapshots([local])
+    merged["unreachable"] = []
+    return json_response(merged)
+
+  async def handle_warmup(self, request, writer):
+    """POST /v1/warmup — build the expected program set off the serving
+    path, as the reference does: when the engine supports batched serving
+    (a full-model shard does, also on a solo daemon) the batched server
+    drives its warmup manifest and marks the ledger steady, loading the
+    default model first on a cold engine. Without a batched server the
+    ledger is marked steady over an empty manifest."""
+    from ..utils.programs import ledger
+
+    engine = getattr(self.node, "inference_engine", None)
+    server = None
+    if engine is not None and getattr(engine, "supports_batched", None):
+      try:
+        if getattr(engine, "shard", None) is None and self.default_model:
+          shard = registry.build_base_shard(self.default_model, self.inference_engine_classname)
+          if shard is not None:
+            await engine.ensure_shard(shard)
+        if getattr(engine, "shard", None) is not None and engine.supports_batched():
+          server = engine.get_batched_server()
+      except Exception:  # noqa: BLE001 — a cold engine warms up empty
+        if DEBUG >= 1:
+          import traceback
+
+          traceback.print_exc()
+        server = None
+    if server is None:
+      ledger.mark_steady(manifest=[])
+      return json_response({"manifest": [], "warmup_s": 0.0, "steady": True, "detail": "no batched scheduler; ledger marked steady over an empty manifest"})
+    return json_response(await server.warmup())
 
   def handle_tokens(self, request_id: str, tokens: list[int], is_finished: bool) -> None:
     queue = self.token_queues.get(request_id)

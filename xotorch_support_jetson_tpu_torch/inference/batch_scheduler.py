@@ -68,6 +68,12 @@ defaults, with the paged layout and no draft model:
   latency, queue wait, chunk times) and, per QoS class, to the SLO engine
   (orchestration/slo.py, ``XOT_TPU_SLO``).
 
+The device programs it dispatches are recorded by the program ledger
+(utils/programs.py) under the reference's families, and
+``warmup_manifest`` / ``warmup`` (``POST /v1/warmup``) drive them before
+traffic and mark the ledger steady; they still run eagerly (their capture
+into CUDA graphs is not ported yet).
+
 All device work runs on the engine's single executor thread. Random draws
 for sampling come from one generator per dispatch, seeded on the event-loop
 thread by ``engine.split_key()``.
@@ -97,6 +103,7 @@ from ..ops.paged import check_paged_kernel, paged_kernel_supported
 from ..orchestration import slo
 from ..utils.helpers import DEBUG, env_flag
 from ..utils.metrics import FRACTION_BUCKETS, metrics
+from ..utils.programs import ledger
 from .batch_ops import to_host_async
 from .engine import PromptTooLongError, ServerOverloadedError
 from .kv_tier import KvTierManager, kv_tier_enabled, prefix_registry
@@ -441,6 +448,67 @@ class BatchedServer:
   def busy(self) -> bool:
     """Any work still resident, queued, parked, or mid-prefill?"""
     return any(s is not None for s in self.slots) or not self.queue.empty() or bool(self._parked) or bool(self._prefilling)
+
+  # ------------------------------------------------ warmup manifest
+
+  def warmup_manifest(self) -> list[dict]:
+    """The program families this configuration is expected to build, from
+    its active facets (the reference's, on the port's one backend: the
+    paged layout with the sampling epilogue fused into the prefill). The
+    spec facet resolves with the pool, as in the reference."""
+    fams: list[dict] = []
+
+    def add(family: str, why: str) -> None:
+      fams.append({"family": family, "why": why})
+
+    add("prefill.pages_many_sampled", "paged batched prefill")
+    if self.spec:
+      add("spec.paged_batch", "batched speculative decode (greedy rows)")
+    add("decode.paged_batch", "paged batched decode")
+    if self.mixed:
+      add("decode.mixed_paged_batch", "mixed prefill+decode tick")
+    return fams
+
+  async def warmup(self) -> dict:
+    """Build the manifest off the serving path (``POST /v1/warmup``): tiny
+    synthetic requests through the real submit path — the same programs,
+    shapes bucketed the same way — then mark the ledger steady, so any
+    later build counts as a steady compile. Families the synthetic traffic
+    cannot reach (the mixed tick needs a prefill arriving mid-decode) are
+    reported ``warmed: false``."""
+    manifest = self.warmup_manifest()
+    before = ledger.dispatch_counts()
+    before_c = {f["family"]: ledger.compile_count(f["family"]) for f in manifest}
+    t0 = time.perf_counter()
+    errors: list[str] = []
+
+    def sink(_rid, _toks, _fin) -> None:
+      return None
+
+    async def one(tag: str, temp: float) -> None:
+      try:
+        await self.submit(
+          f"_warmup-{tag}-{id(self):x}", np.ones((4,), dtype=np.int32),
+          max_tokens=max(int(self.chunk), 1) + 1, temp=temp, top_k=5 if temp > 0 else 0, eos_ids=(), emit=sink,
+        )
+      except Exception as e:  # noqa: BLE001 — warmup must never take the API down
+        errors.append(f"{tag}: {e!r}")
+
+    await one("sampled", 0.7)
+    if self.spec:
+      await one("greedy", 0.0)  # spec programs dispatch for greedy rows only
+    total_s = time.perf_counter() - t0
+    after = ledger.dispatch_counts()
+    fams = ledger.snapshot()["families"]
+    per_family_s: dict[str, float] = {}
+    for entry in manifest:
+      fam = entry["family"]
+      entry["warmed"] = after.get(fam, 0) > before.get(fam, 0) or ledger.compile_count(fam) > before_c.get(fam, 0)
+      if fam in fams:
+        per_family_s[fam] = fams[fam]["compile_s"]
+    ledger.note_warmup(manifest, per_family_s, total_s)
+    ledger.mark_steady(manifest)
+    return {"manifest": manifest, "warmup_s": round(total_s, 6), "steady": True, "errors": errors}
 
   def shutdown(self) -> None:
     """Stop the decode loop and drop the pool (model unload/reload).

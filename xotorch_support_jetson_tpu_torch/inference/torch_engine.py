@@ -4,7 +4,14 @@ Counterpart of the reference's ``inference/jax_engine.py`` for one node
 serving one full model: encode/decode/sample, prompt prefill into a dense
 slot-indexed KV cache (padded to a 128 bucket, per-request ``_Session``),
 chunked decode (``dispatch_chunk``/``read_chunk``) for streaming, one-shot
-decode (``generate_oneshot``) for blocking requests, and ``end_request``;
+decode (``generate_oneshot``) for blocking requests, and ``end_request``.
+As in the reference, each of these is one device program per dispatch:
+sessions take their cache from an engine-owned pool, and each pooled cache
+carries its captured programs (models/decoder.py ``SoloPrograms``), so a
+prefill bucket is one CUDA-graph replay and a decode step is one replay;
+the program ledger (utils/programs.py) counts them under the reference's
+families (``decode.shard_forward``, ``decode.fused``,
+``decode.fused_generate``). Speculation stays eager;
 and the continuous-batching server over the paged pool
 (``get_batched_server``, inference/batch_scheduler.py). All device work
 runs on one executor thread off the asyncio loop. Caches and pools are
@@ -50,7 +57,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..models.decoder import fused_decode, fused_generate, init_kv_cache, shard_forward
+from ..models.decoder import SoloPrograms, fused_decode, fused_generate, init_kv_cache, kv_quant_mode, shard_forward
 from ..utils.helpers import DEBUG, resolve_device
 from ..utils.metrics import FRACTION_BUCKETS, metrics
 from .engine import InferenceEngine, PromptTooLongError
@@ -91,13 +98,15 @@ def _tokenizers_differ(fp_a: dict[str, str] | None, fp_b: dict[str, str] | None)
 
 class _Session:
   __slots__ = (
-    "kv_cache", "curr_pos", "prompt_len", "max_seq", "next_token_dev", "prompt_np", "draft_cache",
+    "kv_cache", "programs", "pool_key", "curr_pos", "prompt_len", "max_seq", "next_token_dev", "prompt_np", "draft_cache",
     "spec_seed_dev", "spec_pos_dev", "spec_known_pos", "spec_inflight_slots",
     "ngram_index", "ngram_unread", "ngram_ewma", "ngram_gamma",
   )
 
-  def __init__(self, kv_cache, max_seq: int) -> None:
-    self.kv_cache = kv_cache
+  def __init__(self, programs: SoloPrograms, pool_key: tuple, max_seq: int) -> None:
+    self.programs = programs  # the pooled cache's captured programs (returned to the pool at the end)
+    self.pool_key = pool_key
+    self.kv_cache = programs.cache
     self.curr_pos = 0
     self.prompt_len = 0
     self.max_seq = max_seq
@@ -154,6 +163,12 @@ class TorchShardedInferenceEngine(InferenceEngine):
     self._shard_lock = asyncio.Lock()
     self._batched_server = None
     self._batch_ops = None
+    # Dense slot caches recycled across solo requests, by (rows, max_seq, KV
+    # quant mode), each with its captured programs (models/decoder.py
+    # SoloPrograms): graphs need fixed addresses. The pool grows when more
+    # sessions are live than it holds; a new model empties it.
+    self._cache_pool: dict[tuple, list[SoloPrograms]] = {}
+    self._graph_pool = None  # the CUDA graphs' shared memory pool, made at the first cache
     # Solo speculation (module docstring). The draft chain's acceptance
     # EWMA and live depth are engine-level (a property of the draft); the
     # n-gram chain keeps its pair on each session (a property of the text).
@@ -230,7 +245,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
     self.shard = shard
     self._effective_shard = eff
     self._maybe_build_draft()
-    self.sessions.clear()
+    self._clear_sessions()
     self.generator.manual_seed(self._seed)
     self._key_gen.manual_seed(self._seed)
     self._model_dir = Path(model_dir)
@@ -256,7 +271,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
     self.params = params
     self.tokenizer = tokenizer
     self._maybe_build_draft(calibrate=False)  # tests exercise the spec path deterministically
-    self.sessions.clear()
+    self._clear_sessions()
     self.generator.manual_seed(self._seed)
     self._key_gen.manual_seed(self._seed)
 
@@ -330,9 +345,9 @@ class TorchShardedInferenceEngine(InferenceEngine):
     """Keep the draft only if speculation measures at least 0.95× plain
     decode's tok/s: 64 greedy tokens each way on a 256-slot cache, timed
     on the host with the card synchronised, best of two after a warm-up.
-    Skipped on the CPU and with ``XOT_TPU_SPEC_AUTOCAL=0``. Only a failed
-    allocation of its caches ends it early (speculation stays on); a kernel
-    that fails to build or launch raises."""
+    Skipped on the CPU and with ``XOT_TPU_SPEC_AUTOCAL=0``. As in the
+    reference, any failure of the timed runs keeps speculation on (printed
+    under ``DEBUG``): calibration must never block serving."""
     if self.device.type == "cpu" or os.getenv("XOT_TPU_SPEC_AUTOCAL", "1") in ("0", "false"):
       return
     from ..models.decoder import fused_speculative_generate
@@ -374,8 +389,9 @@ class TorchShardedInferenceEngine(InferenceEngine):
 
     try:
       plain_tok_s, spec_tok_s = time_plain(), time_spec()
-    except torch.cuda.OutOfMemoryError as e:
-      print(f"[torch_engine] spec calibration failed ({e!r}); keeping speculative mode")
+    except Exception as e:  # noqa: BLE001 — calibration must never block serving
+      if DEBUG >= 1:
+        print(f"[torch_engine] spec calibration failed ({e!r}); keeping speculative mode")
       return
     kept = spec_tok_s >= 0.95 * plain_tok_s
     self.spec_calibration = dict(plain_tok_s=plain_tok_s, spec_tok_s=spec_tok_s, verdict="kept" if kept else "DISABLED")
@@ -422,10 +438,32 @@ class TorchShardedInferenceEngine(InferenceEngine):
     return await asyncio.get_running_loop().run_in_executor(self.executor, self._infer_tensor_sync, request_id, input_data, inference_state)
 
   def _new_session(self, request_id: str, B: int) -> _Session:
+    """A session on a pooled cache (a fresh one when the pool has none of
+    this shape free)."""
     max_seq = min(self.max_seq_len, self.cfg.max_seq_len)
-    cache = init_kv_cache(self.cfg, self._effective_shard.n_shard_layers, B, max_seq, device=self.device)
-    session = self.sessions[request_id] = _Session(cache, max_seq)
+    key = (B, max_seq, kv_quant_mode())
+    free = self._cache_pool.get(key)
+    if free:
+      programs = free.pop()
+    else:
+      cache = init_kv_cache(self.cfg, self._effective_shard.n_shard_layers, B, max_seq, device=self.device)
+      if self._graph_pool is None and self.device.type == "cuda":
+        self._graph_pool = torch.cuda.graph_pool_handle()
+      programs = SoloPrograms(self.params, self.cfg, self._effective_shard, cache, generator=self.generator, pool=self._graph_pool)
+    session = self.sessions[request_id] = _Session(programs, key, max_seq)
     return session
+
+  def _drop_session(self, request_id: str) -> None:
+    """End a session and return its cache, with its programs, to the pool."""
+    session = self.sessions.pop(request_id, None)
+    if session is not None:
+      self._cache_pool.setdefault(session.pool_key, []).append(session.programs)
+
+  def _clear_sessions(self) -> None:
+    """Forget every session and the pool (its graphs hold the old model)."""
+    self.sessions.clear()
+    self._cache_pool.clear()
+    self._graph_pool = None
 
   def _infer_tensor_sync(self, request_id, input_data, state):
     shard = self._effective_shard
@@ -437,7 +475,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
     if session.curr_pos == 0:
       prompt_len = state.prompt_len or x.shape[1]
       if prompt_len + 1 > session.max_seq:
-        self.sessions.pop(request_id, None)
+        self._drop_session(request_id)
         raise PromptTooLongError(f"prompt of {prompt_len} tokens exceeds the {session.max_seq}-token context window")
       state.extras.setdefault("orig_prompt_len", int(prompt_len))
       if is_tokens:
@@ -449,12 +487,15 @@ class TorchShardedInferenceEngine(InferenceEngine):
         x_in[:, : x.shape[1]] = x
       else:
         x_in = x  # hidden states arrive already padded
-      S = x_in.shape[1]
-      positions = torch.arange(S, dtype=torch.int32, device=self.device).expand(B, S)
-      head_pos = torch.full((B,), prompt_len - 1, dtype=torch.int64, device=self.device) if shard.is_last_layer else None
-      out, session.kv_cache = shard_forward(self.params, self.cfg, shard, self._to_device(x_in), positions, session.kv_cache, head_pos=head_pos)
-      if shard.is_last_layer:
-        out = out[:, 0, :]
+      if is_tokens:
+        out = session.programs.prefill(x_in, prompt_len)  # one captured program per bucket
+      else:
+        S = x_in.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=self.device).expand(B, S)
+        head_pos = torch.full((B,), prompt_len - 1, dtype=torch.int64, device=self.device) if shard.is_last_layer else None
+        out, _ = shard_forward(self.params, self.cfg, shard, self._to_device(x_in), positions, session.kv_cache, head_pos=head_pos)
+        if shard.is_last_layer:
+          out = out[:, 0, :]
       session.curr_pos = session.prompt_len = prompt_len
     else:
       if session.curr_pos >= session.max_seq:
@@ -465,10 +506,13 @@ class TorchShardedInferenceEngine(InferenceEngine):
           state.tokens = np.concatenate([state.tokens, x_step], axis=1)
       else:
         x_step = x
-      positions = torch.full((B, 1), session.curr_pos, dtype=torch.int32, device=self.device)
-      out, session.kv_cache = shard_forward(self.params, self.cfg, shard, self._to_device(x_step), positions, session.kv_cache)
-      if shard.is_last_layer:
-        out = out[:, 0, :]
+      if is_tokens:
+        out = session.programs.forward(x_step, session.curr_pos)
+      else:
+        positions = torch.full((B, 1), session.curr_pos, dtype=torch.int32, device=self.device)
+        out, _ = shard_forward(self.params, self.cfg, shard, self._to_device(x_step), positions, session.kv_cache)
+        if shard.is_last_layer:
+          out = out[:, 0, :]
       session.curr_pos += 1
     state.curr_pos = session.curr_pos
     return out.float().cpu().numpy(), state
@@ -707,17 +751,15 @@ class TorchShardedInferenceEngine(InferenceEngine):
     n_steps = min(n_steps, session.max_seq - session.curr_pos)
     if n_steps <= 0:
       return None
-    B = session.kv_cache["k"].shape[1]
     if first_token is not None:
-      token = torch.full((B, 1), int(first_token), dtype=torch.int32, device=self.device)
+      token = int(first_token)
     else:
       token = session.next_token_dev
       if token is None:
         raise RuntimeError(f"no chained token for request {request_id}; pass first_token after prefill")
-    start_pos = torch.full((B,), session.curr_pos, dtype=torch.int32, device=self.device)
-    toks, session.kv_cache = fused_decode(
-      self.params, self.cfg, self._effective_shard, token, session.kv_cache, start_pos, n_steps,
-      temp=float(temp), top_k=int(top_k), generator=self.generator,
+    toks, _ = fused_decode(
+      self.params, self.cfg, self._effective_shard, token, session.kv_cache, session.curr_pos, n_steps,
+      temp=float(temp), top_k=int(top_k), generator=self.generator, programs=session.programs,
     )
     session.next_token_dev = toks[:, -1:]
     session.curr_pos += n_steps
@@ -797,14 +839,15 @@ class TorchShardedInferenceEngine(InferenceEngine):
       if spec_gamma > 0:
         return self._generate_speculative_sync(request_id, first_token, max_steps, eos_ids, spec_gamma)
       self._spec_plain_streak += 1  # the depth floor: plain, counting toward a probe
+    # The program's step count is bucketed (a power of two, capped by the
+    # cache room) so varying max_tokens reuse a few programs; ``n_limit``
+    # caps the steps that run, as in the reference.
     limit = max(1, min(max_steps, room))
-    B = session.kv_cache["k"].shape[1]
-    token = torch.full((B, 1), int(first_token), dtype=torch.int32, device=self.device)
-    start_pos = torch.full((B,), session.curr_pos, dtype=torch.int32, device=self.device)
+    steps = min(1 << (limit - 1).bit_length(), room)
     eos = tuple(sorted(int(e) for e in eos_ids))
-    buf, _n, session.kv_cache = fused_generate(
-      self.params, self.cfg, self._effective_shard, token, session.kv_cache, start_pos, limit,
-      eos_ids=eos, temp=float(temp), top_k=int(top_k), generator=self.generator,
+    buf, _n, _ = fused_generate(
+      self.params, self.cfg, self._effective_shard, int(first_token), session.kv_cache, session.curr_pos, steps,
+      eos_ids=eos, temp=float(temp), top_k=int(top_k), generator=self.generator, n_limit=limit, programs=session.programs,
     )
     row = buf[0].cpu().numpy()
     n = limit
@@ -844,7 +887,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
     return [int(t) for t in row[:n]]
 
   def end_request(self, request_id: str) -> None:
-    self.sessions.pop(request_id, None)
+    self._drop_session(request_id)
 
   # ---------------------------------------------------------------- batching
 

@@ -13,7 +13,8 @@ Python loop. The KV cache is a dict of
 [L, B, max_seq, Hkv, hd] buffers (hd/2 for packed int4 codes, +
 ``k_scale``/``v_scale`` [.., 1] for int8 and int4) that the forward UPDATES
 IN PLACE — slot j holds absolute position j. On it run the solo decode
-loops (``fused_decode``, ``fused_generate``), greedy speculative decoding
+loops (``fused_decode``, ``fused_generate``; with ``SoloPrograms`` each
+prefill bucket and each decode step is one CUDA-graph replay), greedy speculative decoding
 with a draft model (``fused_speculative_generate`` / ``_chunk``) and the
 draft-free speculative chunk (``fused_spec_batch_decode``). The batched
 programs at the end run against a page pool (ops/paged.py) instead, also
@@ -26,12 +27,14 @@ from __future__ import annotations
 import math
 import os
 
+import numpy as np
 import torch
 
 from ..inference.shard import Shard
 from ..ops.attention import gqa_attention
 from ..ops.norm import rms_norm
 from ..ops.rope import apply_rope, rope_attention_factor, rope_inv_freq
+from ..utils.programs import Graph, ledger, tracked
 from .config import ModelConfig
 from .quantize import qdot
 
@@ -300,23 +303,69 @@ def _full_model(shard: Shard, what: str) -> None:
     raise ValueError(f"{what} requires a full-model shard")
 
 
-def fused_decode(params, cfg: ModelConfig, shard: Shard, token, cache, start_pos, n_steps: int, temp: float = 0.0, top_k: int = 35, generator=None):
+class _Like:
+  """Stands in for a tensor in a ledger signature (an int the caller passes
+  where the reference passes an array: the same program either way)."""
+
+  def __init__(self, dtype, shape, device) -> None:
+    self.dtype, self.shape, self.device = dtype, tuple(shape), torch.device(device)
+
+
+def _like(x, shape, device, dtype=torch.int32):
+  return x if isinstance(x, torch.Tensor) else _Like(dtype, shape, device)
+
+
+def routing_knobs() -> tuple:
+  """The env knobs the forward reads at call time to pick a route (K1 or
+  not, K2 or not, K4 or not). A captured graph holds the route it was
+  captured with, so graphs are keyed on these too."""
+  return tuple(os.getenv(k) for k in ("XOT_TPU_NO_FLASH", "XOT_TPU_FLASH_DECODE", "XOT_TPU_FLASH_DECODE_MIN", "XOT_TPU_INT4_KERNEL"))
+
+
+_SOLO_STATIC = ("cfg", "shard", "n_steps", "max_steps", "top_k", "greedy", "eos_ids")
+
+
+def _solo_sig(params, cfg, shard, token, cache, start_pos, temp, **static) -> dict:
+  """The ledger signature of a solo decode program: the reference's
+  arguments (token [B,1] and start_pos [B] int32, temp a device f32
+  scalar), its static ones by value."""
+  B, dev = cache["k"].shape[1], cache["k"].device
+  return dict(
+    params=params, cfg=cfg, shard=shard, token=_like(token, (B, 1), dev), cache=cache,
+    start_pos=_like(start_pos, (B,), dev), temp=_Like(torch.float32, (), dev), **static,
+  )
+
+
+def fused_decode(params, cfg: ModelConfig, shard: Shard, token, cache, start_pos, n_steps: int, temp: float = 0.0, top_k: int = 35, generator=None, programs=None):
   """Generate ``n_steps`` tokens on the device with no host round trip.
 
   token [B,1] int32; start_pos [B] int32. Each step's token feeds the next
   on the device; the cache updates in place. Returns (tokens [B, n_steps],
-  cache).
+  cache). One dispatch of the ``decode.fused`` family. With ``programs``
+  (the ``SoloPrograms`` of ``cache``; token and start_pos may then be
+  ints) each step is one replay of its captured decode step; without, the
+  steps run eagerly, op by op.
   """
   _full_model(shard, "fused_decode")
   greedy = temp is None or float(temp) <= 0.0
+  n_steps, top_k = int(n_steps), int(top_k)
+  sig = _solo_sig(params, cfg, shard, token, cache, start_pos, temp, n_steps=n_steps, top_k=top_k, greedy=greedy)
+  if programs is not None:
+    run = lambda: programs.decode(token, start_pos, n_steps, temp, top_k, greedy)  # noqa: E731
+  else:
+    run = lambda: _decode_eager(params, cfg, shard, token, cache, start_pos, n_steps, temp, top_k, greedy, generator)  # noqa: E731
+  return ledger.dispatch("decode.fused", sig, _SOLO_STATIC, run), cache
+
+
+def _decode_eager(params, cfg, shard, token, cache, start_pos, n_steps, temp, top_k, greedy, generator):
   pos = start_pos.to(torch.int32)
   out = []
-  for _ in range(int(n_steps)):
+  for _ in range(n_steps):
     logits, cache = shard_forward(params, cfg, shard, token, pos[:, None], cache)
     nxt = _next_token(logits[:, 0, :], generator, greedy, temp, top_k)
     out.append(nxt)
     token, pos = nxt[:, None], pos + 1
-  return torch.stack(out, dim=1), cache
+  return torch.stack(out, dim=1)
 
 
 def fused_generate(
@@ -332,17 +381,33 @@ def fused_generate(
   top_k: int = 35,
   generator=None,
   n_limit: int | None = None,
+  programs=None,
 ):
   """Generate until every row has sampled an EOS id or ``n_limit`` steps
   (default ``max_steps``). Returns (tokens [B, max_steps] int32, steps run,
   cache). Rows keep their EOS token; positions past a row's EOS hold what
   was sampled before every row finished (callers trim at the first EOS).
+  All rows' EOS is read on the host every ``EOS_CHECK_EVERY`` steps. One
+  dispatch of ``decode.fused_generate``; ``programs`` as in ``fused_decode``
+  (``max_steps`` sizes the buffer and keys the program, ``n_limit`` caps
+  the steps, as in the reference).
   """
   _full_model(shard, "fused_generate")
   greedy = temp is None or float(temp) <= 0.0
+  max_steps, top_k, eos_ids = int(max_steps), int(top_k), tuple(eos_ids)
+  limit = min(int(max_steps if n_limit is None else n_limit), max_steps)
+  sig = _solo_sig(params, cfg, shard, token, cache, start_pos, temp, max_steps=max_steps, eos_ids=eos_ids, top_k=top_k, greedy=greedy, n_limit=limit)
+  if programs is not None:
+    run = lambda: programs.generate(token, start_pos, max_steps, eos_ids, temp, top_k, greedy, limit)  # noqa: E731
+  else:
+    run = lambda: _generate_eager(params, cfg, shard, token, cache, start_pos, max_steps, eos_ids, temp, top_k, greedy, generator, limit)  # noqa: E731
+  buf, n = ledger.dispatch("decode.fused_generate", sig, _SOLO_STATIC, run)
+  return buf, n, cache
+
+
+def _generate_eager(params, cfg, shard, token, cache, start_pos, max_steps, eos_ids, temp, top_k, greedy, generator, limit):
   B = token.shape[0]
-  limit = min(int(max_steps if n_limit is None else n_limit), int(max_steps))
-  buf = torch.zeros((B, int(max_steps)), dtype=torch.int32, device=token.device)
+  buf = torch.zeros((B, max_steps), dtype=torch.int32, device=token.device)
   eos = torch.tensor(sorted(eos_ids), dtype=torch.int32, device=token.device) if eos_ids else None
   done = torch.zeros((B,), dtype=torch.bool, device=token.device)
   pos = start_pos.to(torch.int32)
@@ -357,7 +422,159 @@ def fused_generate(
       done |= torch.isin(nxt, eos)
       if n % EOS_CHECK_EVERY == 0 and bool(done.all()):
         break
-  return buf, n, cache
+  return buf, n
+
+
+class SoloPrograms:
+  """The captured solo programs of one dense slot cache: the reference's
+  one-program-per-dispatch execution on a CUDA device.
+
+  - ``prefill`` — one prompt padded to its ``PREFILL_BUCKET`` bucket, from
+    position 0 (family ``decode.shard_forward``): one graph per bucket;
+  - ``forward`` — one token's logits at a position (``decode.shard_forward``);
+  - ``decode`` / ``generate`` (``fused_decode`` / ``fused_generate`` with
+    ``programs=``): one graph per sampling variant (greedy, or sampled at one
+    ``top_k``), one replay per token. The step reads its token and position
+    from device buffers and writes the next ones back, so the chunk's
+    replays go out back to back with no host read; the temperature is a
+    device scalar filled before the replays, so one graph serves every
+    temperature. Each step stores its token at ``hist[row, position]``, and
+    a chunk's tokens are gathered from there once its replays are queued.
+
+  Inputs live in buffers filled in place (``tok``, ``pos``, ``temp``, the
+  bucket's tokens and ``head_pos``); outputs are copied into buffers
+  allocated outside the captures. A graph is keyed on what its body
+  depends on besides those buffers: the bucket or sampling variant and the
+  routing knobs (``routing_knobs``). The engine keeps one instance per
+  pooled cache (inference/torch_engine.py), so a graph's addresses stay
+  valid across requests; stale slots of a reused cache lie beyond every
+  query's position and are masked as a fresh cache's zeros are. The
+  ``generator`` is registered with every graph that samples, so a
+  replayed step draws what the eager step would. On the CPU every program
+  runs its body eagerly through the same buffers."""
+
+  def __init__(self, params, cfg: ModelConfig, shard: Shard, cache, generator=None, pool=None) -> None:
+    _full_model(shard, "SoloPrograms")
+    self.params, self.cfg, self.shard, self.cache = params, cfg, shard, cache
+    self.generator, self.pool = generator, pool
+    k = cache["k"]
+    B, S, dev = k.shape[1], k.shape[2], k.device
+    self.B, self.max_seq, self.device = B, S, dev
+    self.tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    self.pos = torch.zeros((B,), dtype=torch.int32, device=dev)
+    self.temp = torch.ones((), dtype=torch.float32, device=dev)
+    self.hist = torch.zeros((B, S), dtype=torch.int32, device=dev)  # hist[b, p]: the token sampled at position p
+    self.offsets = torch.arange(S, dtype=torch.int64, device=dev)
+    self.logits = torch.zeros((B, 1, cfg.vocab_size), dtype=torch.float32, device=dev)
+    self._buckets: dict[int, tuple] = {}
+    self._eos: dict[tuple, torch.Tensor] = {}
+    self._graphs: dict[tuple, Graph] = {}
+
+  def _graph(self, key: tuple, family: str, body, samples: bool = False) -> Graph:
+    key = key + routing_knobs()
+    g = self._graphs.get(key)
+    if g is None:
+      g = self._graphs[key] = Graph(family, body, generators=(self.generator,) if samples else (), pool=self.pool)
+    return g
+
+  def graphs(self) -> list[Graph]:
+    return list(self._graphs.values())
+
+  # ------------------------------------------------------- shard_forward
+
+  def prefill(self, x: np.ndarray, prompt_len: int) -> torch.Tensor:
+    """Logits [B, V] of token ``prompt_len - 1`` of ``x`` [B, S] (int, a
+    bucket's width, from position 0); the cache is written in place."""
+    B, S = x.shape
+    sig = dict(params=self.params, cfg=self.cfg, shard=self.shard, x=_Like(torch.int32, (B, S), self.device), kv_cache=self.cache, prompt_len=_Like(torch.int32, (B,), self.device))
+    return ledger.dispatch("decode.shard_forward", sig, ("cfg", "shard"), lambda: self._prefill(x, prompt_len))
+
+  def _prefill(self, x, prompt_len):
+    S = x.shape[1]
+    bufs = self._buckets.get(S)
+    if bufs is None:
+      bufs = self._buckets[S] = (
+        torch.zeros((self.B, S), dtype=torch.int32, device=self.device),
+        torch.zeros((self.B,), dtype=torch.int64, device=self.device),
+        torch.arange(S, dtype=torch.int32, device=self.device).expand(self.B, S),
+      )
+    tokens, head_pos, positions = bufs
+
+    def body():
+      logits, _ = shard_forward(self.params, self.cfg, self.shard, tokens, positions, self.cache, head_pos=head_pos)
+      self.logits.copy_(logits)
+
+    tokens.copy_(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)))
+    head_pos.fill_(int(prompt_len) - 1)
+    self._graph(("prefill", S), "decode.shard_forward", body).run(self.device)
+    return self.logits[:, 0, :].clone()
+
+  def forward(self, x: np.ndarray, pos: int) -> torch.Tensor:
+    """Logits [B, V] of one token per row, ``x`` [B, 1] at position ``pos``."""
+    B = x.shape[0]
+    sig = dict(params=self.params, cfg=self.cfg, shard=self.shard, x=_Like(torch.int32, (B, 1), self.device), kv_cache=self.cache, pos=_Like(torch.int32, (B,), self.device))
+    return ledger.dispatch("decode.shard_forward", sig, ("cfg", "shard"), lambda: self._forward(x, pos))
+
+  def _forward(self, x, pos):
+    def body():
+      logits, _ = shard_forward(self.params, self.cfg, self.shard, self.tok, self.pos[:, None], self.cache)
+      self.logits.copy_(logits)
+
+    self.tok.copy_(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)))
+    self.pos.fill_(int(pos))
+    self._graph(("forward",), "decode.shard_forward", body).run(self.device)
+    return self.logits[:, 0, :].clone()
+
+  # ------------------------------------------------------------ decoding
+
+  def _step(self, family: str, greedy: bool, top_k: int) -> Graph:
+    def body():
+      logits, _ = shard_forward(self.params, self.cfg, self.shard, self.tok, self.pos[:, None], self.cache)
+      nxt = _next_token(logits[:, 0, :], self.generator, greedy, self.temp, top_k)
+      self.hist.scatter_(1, self.pos[:, None].long(), nxt[:, None])
+      self.tok.copy_(nxt[:, None])
+      self.pos.add_(1)
+
+    return self._graph(("step", greedy, 0 if greedy else top_k), family, body, samples=not greedy)
+
+  def _seed(self, token, start_pos, temp, greedy: bool) -> None:
+    for buf, val in ((self.tok, token), (self.pos, start_pos)):
+      if isinstance(val, torch.Tensor):
+        buf.copy_(val.reshape(buf.shape))
+      else:
+        buf.fill_(int(val))
+    if not greedy:
+      self.temp.fill_(float(temp))
+
+  def _since(self, n: int) -> torch.Tensor:
+    """The last ``n`` steps' tokens [B, n], gathered from ``hist``."""
+    idx = (self.pos[:, None] - n).long() + self.offsets[None, :n]
+    return torch.gather(self.hist, 1, idx)
+
+  def decode(self, token, start_pos, n_steps: int, temp, top_k: int, greedy: bool) -> torch.Tensor:
+    self._seed(token, start_pos, temp, greedy)
+    step = self._step("decode.fused", greedy, top_k)
+    for _ in range(n_steps):
+      step.run(self.device, "decode.fused")
+    return self._since(n_steps)
+
+  def generate(self, token, start_pos, max_steps: int, eos_ids: tuple, temp, top_k: int, greedy: bool, limit: int):
+    self._seed(token, start_pos, temp, greedy)
+    step = self._step("decode.fused_generate", greedy, top_k)
+    eos = None
+    if eos_ids:
+      eos = self._eos.get(eos_ids)
+      if eos is None:
+        eos = self._eos[eos_ids] = torch.tensor(sorted(eos_ids), dtype=torch.int32, device=self.device)
+    n = 0
+    while n < limit:
+      step.run(self.device, "decode.fused_generate")
+      n += 1
+      if eos is not None and n % EOS_CHECK_EVERY == 0 and bool(torch.isin(self._since(n), eos).any(dim=1).all()):
+        break
+    buf = torch.zeros((self.B, max_steps), dtype=torch.int32, device=self.device)
+    buf[:, :n] = self._since(n)
+    return buf, n
 
 
 # ------------------------------------------------ speculative decoding
@@ -468,6 +685,7 @@ def _spec_shards(shard_t: Shard, shard_d: Shard) -> None:
     raise ValueError("speculative decoding requires full-model shards")
 
 
+@tracked("spec.generate", ("cfg_t", "shard_t", "cfg_d", "shard_d", "max_steps", "gamma", "eos_ids"))
 def fused_speculative_generate(params_t, cfg_t: ModelConfig, shard_t: Shard, params_d, cfg_d: ModelConfig, shard_d: Shard, token, cache_t, cache_d, start_pos, max_steps: int, gamma: int = 4, eos_ids: tuple = (), n_limit=None):
   """Greedy speculative decoding of one stream: token [1,1] int32 seeds
   it at ``start_pos`` (an int); ``cache_d`` is the draft's own dense slot
@@ -488,6 +706,7 @@ def fused_speculative_generate(params_t, cfg_t: ModelConfig, shard_t: Shard, par
   return buf, int(n[0]), int(rounds[0]), cache_t, cache_d
 
 
+@tracked("spec.chunk", ("cfg", "shard", "cfg_d", "shard_d", "steps", "gamma", "eos_ids"))
 def fused_speculative_chunk(params_t, cfg: ModelConfig, shard: Shard, params_d, token, cache_t, cache_d, pos, steps: int, gamma: int = 4, eos_ids: tuple = (), n_limit=None, cfg_d: ModelConfig | None = None, shard_d: Shard | None = None, pos_hi: int | None = None):
   """One streaming speculative chunk with a device-resident chain: the math
   of ``fused_speculative_generate`` bounded to ``n_limit`` (default
@@ -534,6 +753,7 @@ def _dense_full_model(params: Params, shard: Shard, what: str) -> None:
     raise NotImplementedError(f"{what} runs dense models only in the PyTorch port; got parameter groups {sorted(extra)}")
 
 
+@tracked("prefill.pages_many", ("cfg", "shard", "page_size"))
 def prefill_into_pages_many(params, cfg: ModelConfig, shard: Shard, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size: int):
   """Prefill K requests into the page pool in one forward.
 
@@ -575,6 +795,7 @@ def sample_rows(logits, generator, temps, top_ks, k_max: int):
   return _next_token_batched(logits, generator, temps, top_ks, k_max)
 
 
+@tracked("prefill.pages_many_sampled", ("cfg", "shard", "page_size", "k_max"))
 def prefill_into_pages_many_sampled(params, cfg: ModelConfig, shard: Shard, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size: int, temps, top_ks, generator, k_max: int):
   """``prefill_into_pages_many`` with the sampling epilogue: returns
   (first_tokens [K] int32, pool)."""
@@ -650,6 +871,7 @@ def _paged_decode_scan(params, cfg: ModelConfig, shard: Shard, token, pool, bloc
   return torch.stack(out, dim=1), tok, pos, pool
 
 
+@tracked("decode.paged_batch", ("cfg", "shard", "n_steps", "k_max", "page_size", "use_kernel"))
 def fused_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, temps, n_steps: int, top_k=35, k_max: int = 64, page_size: int = 64, use_kernel: bool | None = None, generator=None):
   """One decode chunk over every row of the page pool.
 
@@ -710,6 +932,7 @@ def _fused_mixed_paged_batch_decode_impl(params, cfg: ModelConfig, shard: Shard,
   return _paged_decode_scan(params, cfg, shard, token, pool, block_tables, positions, active, temps, top_ks, n_steps, k_max, page_size, use_kernel, generator)
 
 
+@tracked("decode.mixed_paged_batch", ("cfg", "shard", "n_steps", "k_max", "page_size", "use_kernel"))
 def fused_mixed_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, temps, pf_tokens, pf_bt, pf_prefix, pf_end, n_steps: int, top_k=35, k_max: int = 64, page_size: int = 64, use_kernel: bool | None = None, generator=None):
   """``fused_paged_batch_decode`` with one admission's prefill slice fused in.
 
@@ -912,6 +1135,7 @@ def _spec_chunk_args(what: str, params, shard: Shard, params_d, adapter_ids, tok
   return generator, top_ks, active.to(device=dev, dtype=torch.bool), torch.clamp(gammas.to(device=dev, dtype=torch.int32), max=int(gamma_max))
 
 
+@tracked("spec.paged_batch", ("cfg", "shard", "cfg_d", "shard_d", "n_rounds", "gamma_max", "k_max", "page_size", "use_kernel"))
 def fused_spec_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, params_d, cfg_d, shard_d, token, pool, cache_d, block_tables, positions, active, gammas, temps, n_rounds: int, gamma_max: int, top_k=35, k_max: int = 64, page_size: int = 64, use_kernel: bool | None = None, generator=None, props=None, prop_counts=None, adapter_ids=None):
   """One speculative decode chunk over every row of the page pool.
 
@@ -957,6 +1181,7 @@ def fused_spec_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, params
   return buf, counts, n_prop, next_tok, next_pos, pool, cache_d
 
 
+@tracked("spec.batch", ("cfg", "shard", "cfg_d", "shard_d", "n_rounds", "gamma_max", "k_max"))
 def fused_spec_batch_decode(params, cfg: ModelConfig, shard: Shard, params_d, cfg_d, shard_d, token, cache, cache_d, positions, active, gammas, temps, n_rounds: int, gamma_max: int, top_k=35, k_max: int = 64, generator=None, props=None, prop_counts=None, adapter_ids=None):
   """One speculative decode chunk over every row of the dense slot cache:
   ``fused_spec_paged_batch_decode``'s contract with the verify window run

@@ -7,7 +7,9 @@ its hand-written kernel (``csrc/flash_prefill.cu``, ``csrc/flash_decode.cu``)
 for a CUDA tensor — or raises on what the kernel does not take. There is no
 fallback from a CUDA tensor to the plain version. ``LAUNCHES`` counts kernel
 launches per wrapper (one per successful launch, nowhere else), so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels; a call recorded into a
+CUDA graph launches at the graph's replays and is counted there
+(``kernels.count_launch``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from ..utils.helpers import env_flag
 from .attention import gqa_attention
-from .kernels import PREFILL_ROWS, check_cuda as _check_cuda, decode_plan, decode_rows, load, prefill_plan, sm_count, stream_ptr as _stream_ptr
+from .kernels import PREFILL_ROWS, check_cuda as _check_cuda, count_launch, decode_plan, decode_rows, load, prefill_plan, sm_count, stream_ptr as _stream_ptr
 
 HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = PREFILL_ROWS  # q heads per kv head one 64-row consumer warpgroup of K1 can hold
@@ -98,7 +100,7 @@ def flash_attention_prefill(q, k, v, q_offset=0, k_scale=None, v_scale=None):
   )
   if rc != 0:
     raise RuntimeError(f"flash_prefill kernel launch failed (plan {plan}): cudaError {rc}")
-  LAUNCHES["flash_prefill"] += 1
+  count_launch(LAUNCHES, "flash_prefill")
   return out
 
 
@@ -148,7 +150,7 @@ def flash_decode_attention(q, k, v, q_positions):
   )
   if rc != 0:
     raise RuntimeError(f"flash_decode kernel launch failed (cluster of {cluster}, {range_} slots per block): cudaError {rc}")
-  LAUNCHES["flash_decode"] += 1
+  count_launch(LAUNCHES, "flash_decode")
   return out
 
 

@@ -10,7 +10,8 @@ nibble and 2r+1 in the high, a per-output-channel f32 scale [out];
 on the CPU and launches the hand-written kernel ``csrc/int4_matmul.cu`` for
 a CUDA tensor — or raises on what the kernel does not take. There is no
 fallback from a CUDA tensor to the plain version. ``LAUNCHES`` counts
-kernel launches; ``CALLS`` counts calls of the two-dot product, so a run can
+kernel launches (a call recorded into a CUDA graph is counted at the
+graph's replays, ``kernels.count_launch``); ``CALLS`` counts calls of the two-dot product, so a run can
 show that none took it.
 
 Unlike the reference, the kernel is the default for every product
@@ -23,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.helpers import env_flag
-from .kernels import check_cuda, load, sm_count, stream_ptr
+from .kernels import check_cuda, count_launch, load, sm_count, stream_ptr
 
 # Launch geometry, as csrc/int4_matmul.cu defines it: config c takes
 # BLOCK_OUT[c] output channels and TILE_T[c] tokens per block and
@@ -138,5 +139,5 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) ->
   )
   if rc != 0:
     raise RuntimeError(f"int4_matmul kernel launch failed: cudaError {rc}")
-  LAUNCHES["int4_matmul"] += 1
+  count_launch(LAUNCHES, "int4_matmul")
   return y

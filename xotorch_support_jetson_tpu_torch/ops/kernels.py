@@ -96,6 +96,21 @@ def build_all(names=None) -> dict[str, Path]:
     return dict(zip(names, pool.map(build, names)))
 
 
+def count_launch(counts: dict, name: str) -> None:
+  """Count one launch of kernel ``name`` in ``counts`` (a wrapper's
+  ``LAUNCHES``), or, while the current stream is being captured into a CUDA
+  graph, in ``utils/programs.py``'s ``CAPTURED``: the kernel then runs at
+  each replay of the graph, which counts it there (``REPLAYED``)."""
+  import torch
+
+  from ..utils.programs import CAPTURED
+
+  if torch.cuda.is_current_stream_capturing():
+    CAPTURED[name] = CAPTURED.get(name, 0) + 1
+  else:
+    counts[name] += 1
+
+
 def stream_ptr(device) -> int:
   """The current CUDA stream of ``device`` as the int a C entry point takes."""
   import torch

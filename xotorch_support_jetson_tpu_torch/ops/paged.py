@@ -24,7 +24,9 @@ position). Both clamp where a held row's window runs past its table.
 (``paged_decode_attention_ref``) for a tensor on the CPU and launches the
 hand-written kernel ``csrc/paged_decode.cu`` for a CUDA tensor — or raises
 on what the kernel does not take. There is no fallback from a CUDA tensor
-to the plain version. ``LAUNCHES`` counts kernel launches.
+to the plain version. ``LAUNCHES`` counts kernel launches
+(a call recorded into a CUDA graph is counted at the graph's replays,
+``kernels.count_launch``).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 
 from ..utils.helpers import env_flag
 from .attention import gqa_attention
-from .kernels import check_cuda, decode_plan, decode_rows, load, sm_count, stream_ptr
+from .kernels import check_cuda, count_launch, decode_plan, decode_rows, load, sm_count, stream_ptr
 
 HEAD_DIMS = (64, 128, 256)
 
@@ -224,7 +226,7 @@ def paged_decode_attention(q, k_pool_l, v_pool_l, block_tables, lengths, page_si
   )
   if rc != 0:
     raise RuntimeError(f"paged_decode kernel launch failed (cluster of {cluster}, {range_} slots per block): cudaError {rc}")
-  LAUNCHES["paged_decode"] += 1
+  count_launch(LAUNCHES, "paged_decode")
   return out
 
 

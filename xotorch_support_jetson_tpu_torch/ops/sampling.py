@@ -2,7 +2,13 @@
 top-k for batched serving, and greedy. Counterpart of the reference's
 ``ops/sampling.py``; the random stream comes from an explicit
 ``torch.Generator`` (Philox on the card), so sampled streams match the
-reference's support set, not its bits."""
+reference's support set, not its bits.
+
+As in the reference, ``temp`` may live on the device (a 0-dim tensor) while
+``top_k`` is static: the captured decode step (models/decoder.py
+``SoloPrograms``) reads the temperature from a buffer filled before each
+replay, so one graph serves every temperature, and ``top_k`` and greedy
+pick the graph. Nothing here reads a device value on the host."""
 
 from __future__ import annotations
 
@@ -20,16 +26,27 @@ def sample_logits(
   top_k: int = DEFAULT_TOP_K,
   top_p: float = 1.0,
 ) -> torch.Tensor:
-  """Returns sampled token ids [B] (int32); callers route temp<=0 to ``greedy``."""
-  logits = logits.float() / max(float(temp), 1e-6)
+  """Returns sampled token ids [B] (int32); callers route temp<=0 to
+  ``greedy``. ``temp`` is a float or a 0-dim f32 tensor on the logits'
+  device."""
+  t = temp.clamp(min=1e-6) if isinstance(temp, torch.Tensor) else max(float(temp), 1e-6)
+  logits = logits.float() / t
   if top_k and top_k > 0:
     k = min(int(top_k), logits.shape[-1])
     vals, idxs = torch.topk(logits, k, dim=-1)  # [B, k] descending
     vals = _apply_top_p(vals, top_p)
-    choice = torch.multinomial(torch.softmax(vals, dim=-1), 1, generator=generator)  # [B, 1]
-    return torch.gather(idxs, -1, choice)[:, 0].to(torch.int32)
-  masked = _apply_top_p_full(logits, top_p)
-  return torch.multinomial(torch.softmax(masked, dim=-1), 1, generator=generator)[:, 0].to(torch.int32)
+    return torch.gather(idxs, -1, _draw(vals, generator))[:, 0].to(torch.int32)
+  return _draw(_apply_top_p_full(logits, top_p), generator)[:, 0].to(torch.int32)
+
+
+def _draw(logits: torch.Tensor, generator) -> torch.Tensor:
+  """One index per row from softmax(logits), [B, 1]: the argmax of p / q
+  with q ~ Exp(1), which is how ``torch.multinomial`` draws one sample
+  (same generator use), written out because multinomial checks its input
+  with a host read, which a CUDA-graph capture does not allow."""
+  probs = torch.softmax(logits, dim=-1)
+  q = torch.empty_like(probs).exponential_(generator=generator)
+  return torch.argmax(probs / q, dim=-1, keepdim=True)
 
 
 def _apply_top_p(sorted_vals: torch.Tensor, top_p: float) -> torch.Tensor:

@@ -18,7 +18,13 @@ histogram (``FRACTION_BUCKETS``), the ``spec_gamma{row}`` and
 ``spec_proposer{row}`` gauges (0 plain, 1 n-gram, 2 model draft), the
 ``kv_draft_bytes`` / ``kv_draft_slots`` / ``kv_draft_pages_equivalent``
 gauges (0 on a draft-free server) and the ``path="spec"`` label of
-``decode_chunks_total`` and ``decode_tokens_total``.
+``decode_chunks_total`` and ``decode_tokens_total``. The program ledger
+(utils/programs.py) records the reference's ``program_compiles_total``,
+``program_dispatch_total`` and ``program_steady_compiles_total``
+(``{family}``), the ``program_compile_seconds`` / ``program_device_seconds``
+histograms, the ``programs_steady`` and ``warmup_programs`` gauges and
+``warmup_compile_seconds``, plus one series of its own,
+``program_captures_total{family}`` (CUDA graphs captured).
 The cluster merge of peer snapshots is not ported (there is no ring yet).
 """
 
