@@ -84,10 +84,11 @@ Phases (any failure exits non-zero and prints no result):
    graph and a round that only replays: transcripts token-identical, the
    prefill's logits within the serving phase's 5e-2 relative L2 (the
    ``[graphs] <mode>`` lines: kernel nodes per graph, launches inside
-   replays — K1 in every prefill replay, K4 in the int4 step). K1, K2 and
-   K4 at the main path's shapes inside a captured graph whose inputs are
-   refilled before its replay, against their plain versions with the kernel
-   rows' tolerances, one launch counted per replay. ``[profile] graphs``
+   replays — K1 in every prefill replay, K4 in the int4 step). K1, K2, K3
+   (one query per row, and the B=8 × W=9 verify window) and K4 at the main
+   path's shapes inside a captured graph whose inputs are refilled before
+   its replay, against their plain versions with the kernel rows'
+   tolerances, one launch counted per replay. ``[profile] graphs``
    lines: wall and device ms per 128-token prefill and per decode step,
    captured and eager (device: CUDA events around a call queued behind a
    spin kernel), with the card's name and power limit, and the captured
@@ -151,7 +152,39 @@ Phases (any failure exits non-zero and prints no result):
    150..600, W=9), per pool type: through K3 against the gather route and
    against 9 single-token steps within 5e-2 relative L2, K3 once per
    layer; and one spec chunk fed the plain 72-step greedy streams as its
-   proposals (8 rounds, depth 8) must accept at least 0.9 of them;
+   proposals (8 rounds, depth 8) must accept at least 0.9 of them.
+   Every batched dispatch of these passes is one CUDA-graph replay (the
+   pool's ``BatchedPrograms``): each pass's server starts with a fresh
+   pool, fresh graphs and a reset program ledger; the default bf16 pass
+   (on either weights), the XOT_TPU_SPEC_BATCH=0 pass and the
+   XOT_TPU_MIXED_TICK=0 pass, whose rates are compared, first serve two
+   build rounds (their two waves on other text of the same lengths, so the
+   dispatch shapes are captured there; aggregate, TTFT and captures are
+   reported). The measured round fails unless every
+   host launch of K1, K3 and K4 came from the eager first run of a graph
+   the pass captured (every other launch was inside a replay) and, per
+   batched family, ``GET /v1/programs`` shows one capture per build
+   (``[graphs] batched pass=`` lines, with the device memory at the pass's
+   start). After the passes, ``POST /v1/warmup`` twice on the last server:
+   the second must build and capture nothing and replay the warmed
+   families;
+6b. batched graphs — the batched dispatches (``batched_traffic``: an
+   admission prefill of 7 prompts at 150..600 tokens and a padding row, two
+   plain chunks of 8 steps, spec chunks of 4 rounds at depth 8 with n-gram
+   proposals and at depth 7 without, chained on device-resident tokens and
+   positions, and a mixed chunk with a 200-token slice; greedy and sampled
+   rows) through a pool's captured programs against the eager functions on
+   an identical pool, in a round that builds every graph and two that
+   replay them on refilled buffers, per KV pool type on bf16 weights and
+   on bf16 pages on int4 weights: every token identical, each graph
+   holding its kernels (K3 in every chunk, K1 in the prefill and slice,
+   K4 on int4 weights); then ``[profile] graphs batched`` lines: wall and
+   device ms of one replay per family (device: CUDA events behind a spin
+   kernel, with torch.profiler's sum beside it), its kernel nodes, its
+   capture seconds and the graph memory pool's bytes, beside the eager
+   chunk's wall and device ms. Phase 5c also holds K3 inside a replay
+   (one query per row, and the B=8 × W=9 verify window) on refilled
+   inputs against its plain version;
 7. tiered batched serving — run before the bf16 batched passes (the
    priority pass leaves an interactive burn that would slice its long
    prompts at the smallest budget), the batched daemon at the defaults
@@ -270,10 +303,15 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------- 1. device
 
 
+def _smi() -> str:
+  """The card's name and power limit as ``nvidia-smi`` reports them."""
+  return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device(torch):
   if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: no CUDA device visible (torch.cuda.is_available() is false)")
-  smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+  smi = _smi()
   cap = torch.cuda.get_device_capability(0)
   log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | compute capability {cap[0]}.{cap[1]} | torch {torch.__version__} cuda {torch.version.cuda}")
   if cap < (9, 0):
@@ -1543,7 +1581,7 @@ def profile_draft_round(torch, engine):
 SYSTEM_PREFIX = "You are a careful assistant. Answer in plain words, keep every answer short, and say when you do not know an answer."
 
 
-def batched_bodies(n=16, priority=None):
+def batched_bodies(n=16, priority=None, variant=0):
   """16 greedy streaming chat requests. The byte-level chat template puts
   BOS + "<|system|>" + the 116-byte system prompt + newline first: the
   same 128 tokens (two full 64-token pages) in every prompt. The user
@@ -1551,14 +1589,17 @@ def batched_bodies(n=16, priority=None):
   64 tokens, so rows free one at a time and requests sent after the first
   eight admit while the others stream — the admissions mixed ticks slice.
   With a ``priority`` every answer is 64 tokens: no row frees early, so a
-  later request of a higher class finds no free slot and preempts."""
+  later request of a higher class finds no free slot and preempts. Another
+  ``variant`` starts each suffix elsewhere in the word list: the same
+  lengths (the same dispatch shapes) with other tokens, so no prompt page
+  but the system prefix is a prefix-cache hit for the other variant."""
   if len(ByteTokenizer().encode(f"<|system|>{SYSTEM_PREFIX}\n")) != 2 * PAGE:
     raise SystemExit("chip_smoke: the shared system prefix must be exactly two pages")
   words = "the quick brown fox jumps over a lazy dog while seven tired owls count the stars above an old mill".split()
   bodies = []
   for i in range(n):
     size = 16 + (384 * i) // (n - 1)
-    text = f"request {i}: " + " ".join(words[(i + j) % len(words)] for j in range(size))
+    text = f"request {i}: " + " ".join(words[(i + j + 7 * variant) % len(words)] for j in range(size))
     msgs = [{"role": "system", "content": SYSTEM_PREFIX}, {"role": "user", "content": text[:size]}]
     body = {"model": "llama-3.2-1b", "messages": msgs, "stream": True, "temperature": 0, "max_tokens": MAX_TOKENS - 5 * (i % 8)}
     if priority:
@@ -1583,6 +1624,7 @@ BATCHED_PASSES = [
   ("bf16_fifo", "", {"XOT_TPU_MIXED_TICK": "0", "XOT_TPU_QOS": "0", "XOT_TPU_SLO": "0"}), ("bf16_priority", "", {}),
 ]
 PASS_KNOBS = ("XOT_TPU_MIXED_TICK", "XOT_TPU_QOS", "XOT_TPU_SLO", "XOT_TPU_SPEC_BATCH")
+MEASURED_PASSES = ("bf16", "bf16_nospec", "bf16_alternating")  # their rates are compared: build rounds first
 
 
 def phase_batched(torch, ckpt: Path, weights: str = "bf16"):
@@ -1652,6 +1694,7 @@ async def _serve_batched(torch, tmain, args, port, weights):
   from xotorch_support_jetson_tpu_torch.inference.shard import Shard
   from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, int4_matmul as k4, paged
   from xotorch_support_jetson_tpu_torch.orchestration import slo
+  from xotorch_support_jetson_tpu_torch.utils import programs
   from xotorch_support_jetson_tpu_torch.utils.metrics import metrics, snapshot_delta
 
   node, api, engine, _ = tmain.build_components(args, tokenizer=ByteTokenizer())
@@ -1671,9 +1714,20 @@ async def _serve_batched(torch, tmain, args, port, weights):
       for knob in PASS_KNOBS:
         os.environ.pop(knob, None)
       os.environ.update(env)
+      # Each pass's server has a fresh pool and fresh graphs: the ledger
+      # starts with it, so its captures and builds count alike.
+      programs.ledger.reset()
+      memory = dict(allocated=torch.cuda.memory_allocated(), reserved=torch.cuda.memory_reserved())
       warm = {"model": "llama-3.2-1b", "messages": [{"role": "user", "content": "warm up"}], "stream": True, "temperature": 0, "max_tokens": 9}
       await loop.run_in_executor(clients, _post, port, warm)  # first cuBLAS/kernel work off the clock
       bserver = engine.get_batched_server()
+      priority = name == "bf16_priority"
+      # The passes whose rates are compared (PERF.md §5-§6) first serve two
+      # build rounds, their traffic on other text: the dispatch shapes are
+      # built (captured) before the measured round, as a served daemon's
+      # are once traffic of those shapes has passed.
+      build = [await _build_round(loop, clients, port, ids, priority, variant) for variant in ((1, 2) if name in MEASURED_PASSES else ())]
+      graphs0 = {id(g) for g in engine.batch_ops.programs.graphs()}
       slices: list[dict] = []
       unspy = _spy_mixed(engine, fa, paged, slices)
       spec_records: list[dict] = []
@@ -1682,7 +1736,6 @@ async def _serve_batched(torch, tmain, args, port, weights):
       unspy_adm = _spy_admissions(bserver, admissions)
       hits0 = bserver.prefix_hit_pages
       snap0, burn0 = metrics.snapshot(), _interactive_burn(metrics, slo)
-      priority = name == "bf16_priority"
       # Two waves: the second is sent once every slot streams, so it admits
       # as rows free — while the others keep decoding.
       waves = (batched_bodies(12, "batch"), batched_bodies(4, "interactive")) if priority else (batched_bodies()[:8], batched_bodies()[8:])
@@ -1704,6 +1757,8 @@ async def _serve_batched(torch, tmain, args, port, weights):
       unspy_spec()
       unspy_adm()
       launches = {"flash_prefill": _launched("flash_prefill"), "flash_decode": _launched("flash_decode"), "paged_decode": _launched("paged_decode"), "int4_matmul": _launched("int4_matmul")}  # ---- read just after
+      host = {"flash_prefill": fa.LAUNCHES["flash_prefill"], "paged_decode": paged.LAUNCHES["paged_decode"], "int4_matmul": k4.LAUNCHES["int4_matmul"]}
+      graphs = _pass_graphs(engine.batch_ops.programs, graphs0, host, launches, await asyncio.to_thread(_get_json, port, "/v1/programs"))
       two_dot = k4.CALLS["int4_two_dot"]
       delta, burn1 = snapshot_delta(snap0, metrics.snapshot()), _interactive_burn(metrics, slo)
       sched = {h: _hist_mean_ms(delta, h) for h in ("decode_chunk_seconds", "mixed_tick_seconds", "sched_host_gap_seconds")}
@@ -1743,7 +1798,7 @@ async def _serve_batched(torch, tmain, args, port, weights):
         budget_from=budget_from, interactive_burn=dict(start=burn0, end=burn1), endpoints=endpoints,
         kv_tier=tiered, resumes=resumes, mixed_slices=slices, mixed_launches={"flash_prefill": sum(x["k1"] for x in slices), "paged_decode": sum(x["k3"] for x in slices)},
         ttft_p50_by_class={c: _pctl([r["ttft_s"] for r in reqs if r["priority"] == c], 0.5) for c in sorted({r["priority"] for r in reqs})},
-        spec=spec, per_request=reqs, streams=streams,
+        spec=spec, per_request=reqs, streams=streams, graphs=graphs, memory_at_start=memory, build_rounds=build,
       )
       need_k1 = quant != "int4"  # int4 pages prefill through the plain attention, as the reference gates K1
       need_k4 = weights == "int4"
@@ -1776,7 +1831,11 @@ async def _serve_batched(torch, tmain, args, port, weights):
         raise SystemExit(f"chip_smoke: batched {name}: host KV tier {tiered}; {preemptions} preemptions, resumes (prefix against the victim's full pages) {resumes}")
       if bserver.busy() or bserver.allocator.audit()["referenced"]:
         raise SystemExit(f"chip_smoke: batched {name}: the server did not drain: {bserver.allocator.audit()}")
+      if not graphs["ok"]:
+        raise SystemExit(f"chip_smoke: batched {name}: a dispatch ran outside its graph, or captures and builds differ: {graphs}")
       passes[name] = res
+      rounds = "; ".join(f"{b['tokens']} tokens in {b['wall_s']:.3f} s, aggregate {b['aggregate_tok_s']:.1f} tok/s, TTFT p50 {b['ttft_p50_s']:.4f} s p95 {b['ttft_p95_s']:.4f} s, captures {b['captures']} ({b['capture_s']:.3f} s)" for b in build) or "none"
+      log(f"[graphs] batched pass={name}: build rounds (the same shapes on other text): {rounds} | measured round: captures {graphs['captures']} ({graphs['capture_s']:.3f} s), per family (captures, builds, replays over every round; graphs new in the measured round; their eager first runs' K3 launches) {graphs['families']} | host launches {host} = the new graphs' first runs {graphs['first_runs']}; launches inside replays {graphs['replayed']} | device memory at the pass's start {memory}")
       pads = sorted({x["pad"] for x in slices})
       log(f"[batched] pass={name} spec: on {spec['on']} | {spec['dispatches']} spec dispatches (depth caps {spec['gmax']}, {spec['proposing_rows']} proposing rows in all; launches inside them {spec['launches']}) | accepted {spec['accepted']} of proposed {spec['proposed']} tokens by proposer | decode chunks by path {spec['chunks_by_path']}, tokens by path {spec['tokens_by_path']}")
       log(f"[batched] weights={weights} pass={name} kv={res['kv']}{' ' + str(env) if env else ''}: {len(reqs)} streaming requests, {n_tok} tokens in {wall:.3f} s: aggregate {res['aggregate_tok_s']:.1f} tok/s | TTFT p50 {res['ttft_p50_s']:.4f} s p95 {res['ttft_p95_s']:.4f} s | per-request decode p50 {res['decode_tok_s_p50']:.2f} tok/s (min {res['decode_tok_s_min']:.2f}) | launches {launches} | mixed dispatches {mixed} (slice pads {pads}, offsets {min((x['offset'] for x in slices), default=None)}..{max((x['offset'] for x in slices), default=None)}; launches inside them {res['mixed_launches']}) | preemptions {preemptions} | mixed budget from {budget_from} (interactive burn {burn0} -> {burn1}) | scheduler ms (registry, mean over the pass): {', '.join(f'{h} {v['mean_ms']} x{v['count']}' for h, v in sched.items())} | shared prefix pages {hits} | pool {res['pool_pages']} pages | host KV tier: spilled {tiered['spilled_pages']:.0f} restored {tiered['restored_pages']:.0f} pages, failures {tiered['failures']}")
@@ -1788,6 +1847,8 @@ async def _serve_batched(torch, tmain, args, port, weights):
       os.environ.pop(knob, None)
     node.on_token.deregister("chip_smoke")
     out = dict(passes=passes)
+    if weights == "bf16":
+      out["warmup"] = await asyncio.to_thread(_batched_warmup_twice, port)
     if "bf16_nospec" in passes:
       # Greedy tokens the speculating default pass and the XOT_TPU_SPEC_BATCH=0
       # pass agree on, position by position (reported, not gated: bf16 sums
@@ -1809,6 +1870,12 @@ async def _serve_batched(torch, tmain, args, port, weights):
       out["spec_chunk"] = check_spec_chunk_accepts(torch, engine)
       out["mixed_check"] = check_mixed_against_alternating(torch, engine)
       out["profile"] = profile_batched(torch, engine)
+    engine._drop_batched_server()  # its pool and graphs: the checks below bring their own
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["graphs"] = batched_graphs_against_eager(torch, engine, weights)
+    if weights == "bf16":
+      out["graphs_profile"] = profile_batched_graphs(torch, engine, _smi(), out["profile"])
     return out
   finally:
     await node.stop()
@@ -1816,6 +1883,77 @@ async def _serve_batched(torch, tmain, args, port, weights):
     server.close()
     await server.wait_closed()
     engine.executor.shutdown(wait=True)
+
+
+async def _build_round(loop, clients, port, ids, priority, variant) -> dict:
+  """A batched pass's traffic on other text (``batched_bodies`` of
+  ``variant``): two waves as the measured round sends them. Every request
+  must end with tokens. Returns its wall, tokens, aggregate, TTFT and the
+  captures (and their seconds) the ledger counted during it."""
+  from xotorch_support_jetson_tpu_torch.utils.programs import ledger
+
+  waves = (batched_bodies(12, "batch", variant), batched_bodies(4, "interactive", variant)) if priority else (batched_bodies(variant=variant)[:8], batched_bodies(variant=variant)[8:])
+  fams = ledger.snapshot()["families"]
+  c0, s0 = sum(f["captures"] for f in fams.values()), sum(f["capture_s"] for f in fams.values())
+  t0 = time.perf_counter()
+  before = set(ids)
+  first = [loop.run_in_executor(clients, _post, port, b) for b in waves[0]]
+  while sum(1 for rid, t in ids.items() if t and rid not in before) < BATCH_SLOTS:
+    if time.perf_counter() - t0 > 120 or any(f.done() for f in first):
+      failed = [repr(f.exception()) for f in first if f.done() and f.exception() is not None]
+      raise SystemExit(f"chip_smoke: batched build round: the first wave's rows did not all stream (failed requests: {failed})")
+    await asyncio.sleep(0.005)
+  replies = await asyncio.gather(*first, *(loop.run_in_executor(clients, _post, port, b) for b in waves[1]))
+  wall = time.perf_counter() - t0
+  tokens = [len(ids.get(rid, [])) for *_, rid in replies]
+  if not all(tokens):
+    raise SystemExit(f"chip_smoke: batched build round: tokens per request {tokens}")
+  fams = ledger.snapshot()["families"]
+  ttfts = [r[2] for r in replies]
+  return dict(
+    wall_s=wall, tokens=sum(tokens), aggregate_tok_s=sum(tokens) / wall, ttft_p50_s=_pctl(ttfts, 0.5), ttft_p95_s=_pctl(ttfts, 0.95),
+    captures=sum(f["captures"] for f in fams.values()) - c0, capture_s=sum(f["capture_s"] for f in fams.values()) - s0,
+  )
+
+
+def _pass_graphs(progs, before: set, host: dict, launches: dict, snap: dict) -> dict:
+  """A served pass's graph bookkeeping: per batched family the ledger's
+  captures, builds and replays (``GET /v1/programs``) and the graphs the
+  pass captured; the kernel launches their eager first runs made. ``ok``
+  when every host launch of K1, K3 and K4 came from such a first run (every
+  other launch was inside a replay) and each family captured one graph per
+  build."""
+  new = [g for g in progs.graphs() if id(g) not in before]
+  first_runs = {k: sum(g.kernels.get(k, 0) for g in new) for k in host}
+  fams = {}
+  for f in BATCHED_FAMILIES:
+    st = snap["families"].get(f, {})
+    mine = [g for g in new if g.family == f]
+    fams[f] = dict(captures=st.get("captures", 0), compiles=st.get("compiles", 0), replays=st.get("replays", 0), new_graphs=len(mine), first_run_k3=sum(g.kernels.get("paged_decode", 0) for g in mine))
+  replayed = {k: launches[k] - host[k] for k in host}
+  ok = host == first_runs and all(v["captures"] == v["compiles"] for v in fams.values()) and launches["paged_decode"] > host["paged_decode"]
+  return dict(ok=ok, families=fams, first_runs=first_runs, replayed=replayed, captures=len(new), capture_s=sum(g.capture_s for g in new))
+
+
+def _batched_warmup_twice(port) -> dict:
+  """``POST /v1/warmup`` twice on the last pass's server: the first builds
+  and captures what its synthetic traffic needs, the second (the same
+  traffic) must build and capture nothing and replay instead; every
+  batched family keeps one capture per build."""
+  w1 = _post_json(port, "/v1/warmup", {})
+  s1 = _get_json(port, "/v1/programs")
+  w2 = _post_json(port, "/v1/warmup", {})
+  s2 = _get_json(port, "/v1/programs")
+  fam = lambda snap, f, k: snap["families"].get(f, {}).get(k, 0)  # noqa: E731
+  res = dict(
+    manifest=[(e["family"], e["warmed"]) for e in w1["manifest"]], errors=w1["errors"] + w2["errors"], steady_compiles=s2["totals"]["steady_compiles"],
+    families={f: dict(captures=fam(s2, f, "captures"), compiles=fam(s2, f, "compiles"), new_captures=fam(s2, f, "captures") - fam(s1, f, "captures"), new_replays=fam(s2, f, "replays") - fam(s1, f, "replays")) for f in BATCHED_FAMILIES},
+  )
+  log(f"[graphs] batched daemon: POST /v1/warmup twice -> manifest {res['manifest']}, errors {res['errors']}; after the second: steady_compiles {res['steady_compiles']}, per family {res['families']}")
+  warmed = [f for f, ok in res["manifest"] if ok]
+  if res["errors"] or res["steady_compiles"] or any(v["new_captures"] or v["captures"] != v["compiles"] for v in res["families"].values()) or any(not res["families"][f]["new_replays"] for f in warmed):
+    raise SystemExit(f"chip_smoke: [graphs] batched daemon: the repeated warmup built or captured, or a family's captures differ from its builds: {res}")
+  return res
 
 
 def _interactive_burn(metrics, slo):
@@ -2093,6 +2231,193 @@ def profile_batched(torch, engine, steps=8):
   return out
 
 
+# ---------------------------------------------- 6b. batched graphs
+
+
+def batched_traffic(ops, pool, seed, lens, page=PAGE, mp=16, steps=8, gamma=SPEC_GAMMA, slice_tokens=MIXED_SLICE, slice_pad=MIXED_PAD):
+  """One round of the batched server's dispatches through ``ops`` (a
+  ``DecoderBatchOps``) against ``pool``, whose rows hold ``mp`` pages of
+  ``page`` tokens each (pages 1 … B·mp, shuffled) and one admission's pages
+  after them. B is ``len(lens) + 1``: the prompts of ``lens`` tokens and an
+  inactive last row (the padding row of the admission bucket). In order:
+  the admission prefill (the bucket of B rows, sampling the first tokens);
+  a plain chunk of ``steps`` steps; a plain chunk chained on its
+  device-resident next token; a spec chunk of ``steps // 2`` rounds at
+  depth ``gamma`` with n-gram proposals, chained on that; a chained spec
+  chunk at depth ``gamma - 1`` without proposals (device positions too);
+  and a mixed chunk of ``steps - 1`` steps (host positions) with a
+  ``slice_tokens``-token slice of another prompt padded to ``slice_pad``.
+  Rows 1, 4, … sample (temperature 0.8, top_k 5), the others are greedy.
+  Every output is copied on the device right after its dispatch (before the
+  next dispatch overwrites it) and returned as numpy, without what the
+  server never reads: the padding row's first token and a spec chunk's
+  slots past each row's count (an inactive row's window reads the trash
+  page, which duplicate junk writes leave in any order)."""
+  import torch
+
+  rng = np.random.default_rng(seed)
+  B = len(lens) + 1
+  outs = []
+
+  def keep(kind, *ts):
+    outs.append((kind, [t.clone() for t in ts]))
+
+  bt = (np.arange(B * mp, dtype=np.int32).reshape(B, mp) + 1)[rng.permutation(B)]
+  lens = np.asarray([*lens, 1], np.int32)
+  sampled = np.arange(B) % 3 == 1
+  temps, top_ks = np.where(sampled, 0.8, 0.0).astype(np.float32), np.where(sampled, 5, 1).astype(np.int32)
+  s_pad = -(-int(lens.max()) // 64) * 64
+  window = 1 << math.ceil(math.log2(-(-s_pad // page)))
+  tokens = np.zeros((B, s_pad), np.int32)
+  bts = np.zeros((B, window), np.int32)
+  for i in range(B - 1):
+    tokens[i, : lens[i]] = rng.integers(3, 256, lens[i])
+    bts[i] = bt[i, :window]
+  firsts, pool = ops.prefill_into_pages_many_sampled(tokens, pool, bts, np.zeros(B, np.int32), lens, page, temps, top_ks, 64, seed)
+  keep("prefill", firsts)
+  active = np.arange(B) < B - 1
+  tok = firsts.cpu().numpy().reshape(B, 1)
+  tok[-1] = 7  # the inactive row holds its token
+  pos = lens.copy()
+  for key in (seed + 1, seed + 2):
+    toks, nxt, npos, pool = ops.paged_batch_decode(tok, pool, bt, pos, active, temps, top_ks, steps, 64, page, key)
+    keep("plain", toks, nxt, npos)
+    tok, pos = nxt, (pos + steps * active).astype(np.int32)
+  rounds = steps // 2
+  width = rounds * (gamma + 1) + gamma
+  props = rng.integers(3, 256, (B, width)).astype(np.int32)
+  kinds = np.where(active & ~sampled, np.arange(B) % 3, -1)
+  gammas = np.where(kinds >= 0, gamma, 0).astype(np.int32)
+  counts = np.select([kinds == 0, kinds == 2], [width, 5], 0).astype(np.int32)
+  res = ops.spec_paged_batch_decode(tok, pool, None, bt, pos, active, gammas, temps, top_ks, rounds, gamma, 64, page, seed + 3, props=props, prop_counts=counts)
+  keep("spec", *res[:5])
+  res = ops.spec_paged_batch_decode(res[3], pool, None, bt, res[4], active, np.maximum(gammas - 1, 0), temps, top_ks, rounds, gamma - 1, 64, page, seed + 4)
+  keep("spec", *res[:5])
+  pf_tokens = np.zeros((1, slice_pad), np.int32)
+  pf_tokens[0, :slice_tokens] = rng.integers(3, 256, slice_tokens)
+  pf_bt = (np.arange(-(-slice_pad // page), dtype=np.int32) + B * mp + 1)[None]
+  toks, nxt, npos, pool = ops.mixed_paged_batch_decode(
+    res[3], pool, bt, res[4].cpu().numpy(), active, temps, top_ks, steps - 1, 64, page, seed + 5,
+    pf_tokens=pf_tokens, pf_bt=pf_bt, pf_prefix=np.array([0], np.int32), pf_end=np.array([slice_tokens], np.int32),
+  )
+  keep("mixed", toks, nxt, npos)
+  read = []
+  for kind, ts in outs:
+    ts = [t.cpu().numpy() for t in ts]
+    if kind == "prefill":
+      ts = [ts[0][: B - 1]]
+    if kind == "spec":
+      ts[0] = np.where(np.arange(ts[0].shape[1])[None, :] < ts[1][:, None], ts[0], -1)
+    read.append((kind, ts))
+  return read
+
+
+BATCHED_FAMILIES = ("prefill.pages_many_sampled", "decode.paged_batch", "decode.mixed_paged_batch", "spec.paged_batch")
+GRAPH_LENS = [int(x) for x in np.linspace(150, 600, BATCH_SLOTS - 1)]  # 7 prompts and the bucket's padding row
+
+
+def batched_graphs_against_eager(torch, engine, weights):
+  """The batched dispatches captured against uncaptured at full width, per
+  KV pool type (bf16, int8, int4 pages on bf16 weights; bf16 pages on int4
+  weights): ``batched_traffic`` (B=8, 64-token pages, 16 a row, prompts
+  150..600; plain chunks of 8 steps, spec chunks of 4 rounds at depth 8 and
+  7, a mixed chunk with a 200-token slice) through the pool ``init_pool``
+  made (one CUDA-graph replay per dispatch) and through the eager functions
+  on an identical pool, in a round that builds every graph and two that
+  replay them on other rows, positions, tables, proposals and keys. Every
+  token must be identical, greedy and seeded sampled rows alike, each graph
+  must hold its kernels (K3 in every chunk, K1 in the prefill and the
+  slice on bf16 and int8 pages, K4 everywhere on int4 weights), and the
+  replays must launch them (``REPLAYED``)."""
+  from xotorch_support_jetson_tpu_torch.inference.batch_ops import DecoderBatchOps
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  modes = KV_MODES if weights == "bf16" else {"bf16": ""}
+  res = {}
+  L = engine.cfg.n_layers
+  for kv, quant in modes.items():
+    os.environ["XOT_TPU_KV_QUANT"] = quant
+    try:
+      ops = DecoderBatchOps(engine)
+      captured = ops.init_pool(BATCH_SLOTS * 16 + 1 + MIXED_PAD // PAGE, PAGE)
+    finally:
+      os.environ.pop("XOT_TPU_KV_QUANT", None)
+    eager = {k: v.clone() for k, v in captured.items()}
+    _reset_launches()
+    n = 0
+    for rnd, seed in enumerate((SEED + 20, SEED + 21, SEED + 22)):
+      got, want = batched_traffic(ops, captured, seed, GRAPH_LENS), batched_traffic(ops, eager, seed, GRAPH_LENS)
+      for (kind, g), (_, w) in zip(got, want):
+        n += 1
+        if not all(np.array_equal(a, b) for a, b in zip(g, w)):
+          raise SystemExit(f"chip_smoke: [graphs] batched {weights} weights, {kv} pages, round {rnd}: the captured {kind} dispatch differs from the uncaptured one:\n{g}\n{w}")
+    graphs = ops.programs.graphs()
+    by_family = {f: [dict(kernel_nodes=g.kernel_nodes, capture_s=g.capture_s, kernels=dict(g.kernels)) for g in graphs if g.family == f] for f in BATCHED_FAMILIES}
+    replayed = dict(programs.REPLAYED)
+    res[kv] = dict(dispatches=n, identical=True, graphs=by_family, replayed=replayed, pool_bytes=programs.pool_bytes(ops.programs.graph_pool))
+    log(f"[graphs] batched {weights} weights, {kv} pages: {n} dispatches over 3 rounds (a build round, two replay rounds; greedy and sampled rows) token-identical to the uncaptured functions | graphs per family {{{', '.join(f'{f}: {len(v)}' for f, v in by_family.items())}}} | kernel nodes {[g.kernel_nodes for g in graphs]} | launches inside replays {replayed} | graph pool {res[kv]['pool_bytes']} bytes")
+    k1 = 0 if quant == "int4" else L
+    bad = [g.family for g in graphs if (g.family != "prefill.pages_many_sampled" and g.kernels.get("paged_decode", 0) < L) or (g.family in ("prefill.pages_many_sampled", "decode.mixed_paged_batch") and g.kernels.get("flash_prefill", 0) != k1) or ((weights == "int4") != (g.kernels.get("int4_matmul", 0) > 0))]
+    if bad or sorted({g.family for g in graphs}) != sorted(BATCHED_FAMILIES) or not replayed.get("paged_decode"):
+      raise SystemExit(f"chip_smoke: [graphs] batched {weights} weights, {kv} pages: graphs off their kernels {bad}: {by_family}, replayed {replayed}")
+    del ops, captured, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+  return res
+
+
+def profile_batched_graphs(torch, engine, smi, eager):
+  """Wall and device ms of one dispatch per batched family, captured (one
+  replay each, ``_replay_ms``: device from CUDA events around a call queued
+  behind a spin kernel), with torch.profiler's device sum beside it, the
+  graph's kernel nodes, its capture seconds and the graph pool's bytes; the
+  same rows as ``profile_batched`` (the eager functions, ``eager``): a
+  decode chunk (B=8, 8 steps), a mixed chunk (a 200-token slice at 1024),
+  a spec chunk (8 rounds at depth 8), and an admission prefill (8 rows of
+  256 tokens after a 128-token cached prefix)."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import BatchedPrograms
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  pool, bt, tok, lens = _batched_rows(torch, engine, extra_pages=8 * 6)
+  progs = BatchedPrograms(params, cfg, shard, pool)
+  B = BATCH_SLOTS
+  active = np.ones(B, bool)
+  temps, top_ks = np.zeros(B, np.float32), np.full(B, 35, np.int32)
+  gammas = np.full(B, SPEC_GAMMA, np.int32)
+  mpool, mbt, mtok, mlens, pf, _, _ = _mixed_rows(torch, engine)
+  mprogs = BatchedPrograms(params, cfg, shard, mpool)
+  adm_bt = (np.arange(B * 6, dtype=np.int32) + B * 16 + 1).reshape(B, 6)
+  adm_bt = np.concatenate([adm_bt, np.zeros((B, 2), np.int32)], axis=1)  # the page window rounds 6 pages up to 8
+  adm_tokens = np.random.default_rng(SEED + 23).integers(3, 256, (B, 256)).astype(np.int32)
+  pre = np.full(B, 2 * PAGE, np.int32)
+  fns = {
+    "decode.paged_batch": (progs, lambda: progs.decode(tok, bt, lens, active, temps, top_ks, 8, 64, PAGE, SEED), "decode_k3"),
+    "decode.mixed_paged_batch": (mprogs, lambda: mprogs.mixed(mtok, mbt, mlens, active, temps, top_ks, 8, 64, PAGE, SEED, **pf), "mixed_k1_k3"),
+    "spec.paged_batch": (progs, lambda: progs.spec(tok, bt, lens, active, gammas, temps, top_ks, SPEC_ROUNDS, SPEC_GAMMA, 64, PAGE, SEED), "spec_k3"),
+    "prefill.pages_many_sampled": (progs, lambda: progs.prefill(adm_tokens, adm_bt, pre, pre + 256, PAGE, temps, top_ks, 64, SEED), None),
+  }
+  res = {}
+  for fam, (owner, fn, eager_key) in fns.items():
+    wall, device = _replay_ms(torch, fn, 1)
+    prof = _profile(torch, f"graphs batched {fam} (one replay a call)", fn, 3)
+    graph = next(g for g in owner.graphs() if g.family == fam)
+    e = eager.get(eager_key) if eager_key else None
+    res[fam] = dict(
+      captured_wall_ms=wall, captured_device_ms=device, captured_profiler_device_ms=prof["device_ms"] or None, kernel_nodes=graph.kernel_nodes, capture_s=graph.capture_s,
+      eager_wall_ms=e["wall_ms"] if e else None, eager_device_ms=e["device_ms"] if e else None, eager_launches=e["launches"] if e else None,
+    )
+    seen = "not measured (no device events)" if not prof["device_ms"] else f"{prof['device_ms']:.3f} ms"
+    eager_txt = f" | eager wall {e['wall_ms']:.3f} ms, device {e['device_ms']:.3f} ms, {e['launches']:.0f} launches" if e else ""
+    log(f"[profile] graphs batched {fam}: captured wall {wall:.3f} ms, device {device:.3f} ms (wall/device {wall / device:.3f}; profiler's device sum {seen}) | {graph.kernel_nodes} kernel nodes, capture {graph.capture_s:.3f} s{eager_txt} | {smi}")
+  res["graph_pool_bytes"] = {"rows pool": programs.pool_bytes(progs.graph_pool), "mixed pool": programs.pool_bytes(mprogs.graph_pool)}
+  log(f"[profile] graphs batched: graph memory pools {res['graph_pool_bytes']} bytes")
+  del progs, mprogs, pool, mpool
+  gc.collect()
+  torch.cuda.empty_cache()
+  return res
+
+
 # ------------------------------------------------- 7. tiered batched serving
 
 TIER_PAGES = 32  # pages per round trip: 2,048 tokens at 64-token pages
@@ -2231,30 +2556,41 @@ async def tier_restore_logits(torch, engine):
   (the spill hook fires); the same prompt plus suffix admits again and
   restores the 24 pages from the host. The suffix prefill's last logits of
   the two admissions must be bit-identical (the same K1 prefill over the
-  same bytes), and the second must have restored 24 pages."""
+  same bytes), and the second must have restored 24 pages. The served
+  prefill is a graph replay whose logits stay inside the graph, so each
+  admission's dispatch is also run, with its exact operands, through the
+  uncaptured ``prefill_into_pages_many`` on a copy of the pool as the
+  dispatch finds it; K1's launches are counted around the served call
+  alone."""
   from xotorch_support_jetson_tpu_torch.models import decoder
-  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa
   from xotorch_support_jetson_tpu_torch.utils.metrics import metrics
 
   bserver = engine.get_batched_server()
   rng = np.random.default_rng(SEED + 5)
   prompt = [ByteTokenizer.bos_token_id] + rng.integers(32, 127, TIER_PROMPT - 1).tolist()
   longer = prompt + rng.integers(32, 127, TIER_SUFFIX).tolist()
-  seen = []
-  plain_next = decoder._next_token_batched
+  seen, k1s = [], []
+  ops = bserver.ops
+  served = ops.prefill_into_pages_many_sampled
 
-  def capture(rows, *a, **kw):
-    seen.append(rows.float().clone())
-    return plain_next(rows, *a, **kw)
+  def spy(tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size, *rest):
+    dev = lambda x: torch.from_numpy(np.asarray(x)).cuda()  # noqa: E731
+    copy = {k: v.clone() for k, v in pool.items()}
+    logits, _ = decoder.prefill_into_pages_many(engine.params, engine.cfg, engine._effective_shard, dev(tokens), copy, dev(bt_rows), dev(prefix_lens), dev(prompt_lens), page_size)
+    seen.append(logits.float())
+    del copy
+    k1 = _launched("flash_prefill")
+    out = served(tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size, *rest)
+    k1s.append(_launched("flash_prefill") - k1)
+    return out
 
   async def admit(rid, toks):
-    k1 = _launched("flash_prefill")
     r0 = metrics.counter_value("kv_tier_restored_pages_total")
     n_seen = len(seen)
     await bserver.submit(rid, np.asarray(toks, np.int32), max_tokens=1, temp=0.0, top_k=1, eos_ids=(), emit=lambda *a: None)
-    return seen[n_seen], _launched("flash_prefill") - k1, metrics.counter_value("kv_tier_restored_pages_total") - r0
+    return seen[n_seen], k1s[n_seen], metrics.counter_value("kv_tier_restored_pages_total") - r0
 
-  decoder._next_token_batched = capture
+  ops.prefill_into_pages_many_sampled = spy
   try:
     await admit("tier-prompt", prompt)
     cached, k1_cached, _ = await admit("tier-cached", longer)
@@ -2265,7 +2601,7 @@ async def tier_restore_logits(torch, engine):
     spilled = metrics.counter_value("kv_tier_spilled_pages_total") - s0
     restored_logits, k1_restored, restored = await admit("tier-restored", longer)
   finally:
-    decoder._next_token_batched = plain_next
+    del ops.prefill_into_pages_many_sampled
   res = dict(
     prompt_tokens=TIER_PROMPT, suffix_tokens=TIER_SUFFIX, evicted_pages=evicted, spilled_pages=spilled, restored_pages=restored,
     logits_bit_identical=bool(torch.equal(cached, restored_logits)), max_abs_diff=float((cached - restored_logits).abs().max()),
@@ -2490,7 +2826,7 @@ SPIN_CYCLES_PER_S = 2.0e9  # torch.cuda._sleep cycles per second, an upper bound
 def phase_graphs(torch, ckpt: Path, smi: str):
   """The captured solo programs (models/decoder.py ``SoloPrograms``) on the
   full-width checkpoint, per weight / KV mode, against the uncaptured
-  functions called directly; K1, K2 and K4 inside replays against their
+  functions called directly; K1, K2, K3 and K4 inside replays against their
   plain versions; wall and device ms, captured and eager; then the solo
   daemon through ``POST /v1/warmup`` and ``GET /v1/programs``."""
   from xotorch_support_jetson_tpu_torch.inference.shard import Shard
@@ -2698,13 +3034,16 @@ def k2_under_graphs(torch, engine, smi):
 
 
 def kernels_in_replay(torch):
-  """K1, K2 and K4 at the main path's shapes inside a captured graph
+  """K1, K2, K3 and K4 at the main path's shapes inside a captured graph
   (utils/programs.py ``Graph``): the first run captures, then the inputs
   are refilled in place and the replay's output is held against the
   kernel's plain version on the new inputs, with the kernel rows'
-  tolerances; each replay must count its launch."""
+  tolerances; each replay must count its launch. K3 twice: one query per
+  row (B=8, the batched decode step) and the flattened verify window (B=8
+  rows × W=9), both over 64-page tables of bf16 pages, with new queries,
+  lengths and tables for the replay."""
   from xotorch_support_jetson_tpu_torch.models.quantize import quantize_weight_int4
-  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, int4_matmul as k4
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, int4_matmul as k4, paged
   from xotorch_support_jetson_tpu_torch.utils import programs
 
   gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
@@ -2714,28 +3053,54 @@ def kernels_in_replay(torch):
   pos2 = torch.tensor([[4000]], dtype=torch.int32, device="cuda")
   x4 = _rand(torch, (1, 2048), gen, torch.bfloat16)
   w4, s4 = quantize_weight_int4(_rand(torch, (2048, 8192), gen, torch.float32))
-  cases = {
-    "flash_prefill": ((q1,), lambda: fa.flash_attention_prefill(q1, k1, v1, q_offset=off), lambda: fa.flash_attention_prefill_ref(q1, k1, v1, q_offset=off), (K1_EW_ATOL, K1_RTOL)),
-    "flash_decode": ((q2,), lambda: fa.flash_decode_attention(q2, k1, v1, pos2), lambda: fa.flash_decode_attention_ref(q2, k1, v1, pos2), (K2_ATOL, 2.0**-7)),
-    "int4_matmul": ((x4,), lambda: k4.int4_matmul(x4, w4, s4), lambda: k4.int4_matmul_ref(x4, w4, s4), (1e-4, 2.0**-7)),
-  }
-  res = {}
-  for name, (inputs, kernel, plain, (atol, rtol)) in cases.items():
-    out = kernel().clone()
-    graph = programs.Graph(f"check.{name}", lambda: out.copy_(kernel()))
-    graph.run(torch.device("cuda"))  # eager, then the capture
+  mp, n_pages = 64, BATCH_SLOTS * 64 + 1
+  kp, vp = _rand(torch, (n_pages, 8, PAGE, 64), gen, torch.bfloat16), _rand(torch, (n_pages, 8, PAGE, 64), gen, torch.bfloat16)
+  k3 = {}
+  for W in (1, VERIFY_W):
+    rows = BATCH_SLOTS * W
+    k3[W] = (_rand(torch, (rows, 32, 64), gen, torch.bfloat16), torch.zeros((rows, mp), dtype=torch.int32, device="cuda"), torch.zeros((rows,), dtype=torch.int32, device="cuda"))
+
+  def refill_k3(W):
+    q, bt, lengths = k3[W]
+    q.copy_(torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype))
+    tables = (torch.randperm(n_pages - 1, generator=gen, device="cuda")[: BATCH_SLOTS * mp].to(torch.int32) + 1).reshape(BATCH_SLOTS, mp)
+    bt.copy_(paged.window_block_tables(tables, W))
+    starts = torch.randint(1, mp * PAGE - W, (BATCH_SLOTS, 1), generator=gen, device="cuda")
+    lengths.copy_((starts + torch.arange(W, device="cuda")[None, :]).reshape(-1).to(torch.int32))
+
+  def k3_case(W):
+    q, bt, lengths = k3[W]
+    return (lambda: refill_k3(W), lambda: paged.paged_decode_attention(q, kp, vp, bt, lengths, PAGE), lambda: paged.paged_decode_attention_ref(q, kp, vp, bt, lengths, PAGE), (K3_ATOL, K3_RTOL), "paged_decode")
+
+  def refill(*inputs):
     for t in inputs:
       t.copy_(torch.randn(t.shape, generator=gen, device="cuda", dtype=torch.float32).to(t.dtype))
+
+  refill_k3(1)
+  refill_k3(VERIFY_W)
+  cases = {
+    "flash_prefill": (lambda: refill(q1), lambda: fa.flash_attention_prefill(q1, k1, v1, q_offset=off), lambda: fa.flash_attention_prefill_ref(q1, k1, v1, q_offset=off), (K1_EW_ATOL, K1_RTOL), "flash_prefill"),
+    "flash_decode": (lambda: refill(q2), lambda: fa.flash_decode_attention(q2, k1, v1, pos2), lambda: fa.flash_decode_attention_ref(q2, k1, v1, pos2), (K2_ATOL, 2.0**-7), "flash_decode"),
+    "paged_decode": k3_case(1),
+    f"paged_decode verify window B={BATCH_SLOTS}×W={VERIFY_W}": k3_case(VERIFY_W),
+    "int4_matmul": (lambda: refill(x4), lambda: k4.int4_matmul(x4, w4, s4), lambda: k4.int4_matmul_ref(x4, w4, s4), (1e-4, 2.0**-7), "int4_matmul"),
+  }
+  res = {}
+  for name, (refill_inputs, kernel, plain, (atol, rtol), kname) in cases.items():
+    out = kernel().clone()
+    graph = programs.Graph(f"check.{kname}", lambda: out.copy_(kernel()))
+    graph.run(torch.device("cuda"))  # eager, then the capture
+    refill_inputs()
     out.zero_()
-    before = programs.REPLAYED.get(name, 0)
+    before = programs.REPLAYED.get(kname, 0)
     graph.run(torch.device("cuda"))  # the replay, on the refilled inputs
     torch.cuda.synchronize()
     want = plain().float()
     err = (out.float() - want).abs()
     used = float((err / (atol + rtol * want.abs())).max())
-    res[name] = dict(max_abs_err=float(err.max()), bound_used=used, kernel_nodes=graph.kernel_nodes, replay_launches=programs.REPLAYED.get(name, 0) - before)
+    res[name] = dict(max_abs_err=float(err.max()), bound_used=used, kernel_nodes=graph.kernel_nodes, replay_launches=programs.REPLAYED.get(kname, 0) - before)
     log(f"[graphs] {name} inside a replay (refilled inputs): max|err| {res[name]['max_abs_err']:.3e} against its plain version ({used:.3f} of atol {atol} + rtol {rtol:.3g}·|ref|); the graph holds {graph.kernel_nodes} kernel node(s); launches counted for the replay: {res[name]['replay_launches']}")
-    if not used <= 1.0 or (name == "flash_prefill" and not res[name]["max_abs_err"] <= K1_ATOL) or res[name]["replay_launches"] != 1:
+    if not used <= 1.0 or (kname == "flash_prefill" and not res[name]["max_abs_err"] <= K1_ATOL) or res[name]["replay_launches"] != 1:
       raise SystemExit(f"chip_smoke: [graphs] {name} inside a replay: {res[name]}")
   return res
 

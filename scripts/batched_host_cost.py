@@ -6,7 +6,13 @@ sharing a 128-token system prefix, prompts 166-550 tokens, answers 29-64
 tokens, in two waves of 8; 8 slots, 64-token pages) through the checkout's
 daemon (``main.build_components``, ``node.start``, the HTTP API) on a seeded
 random bf16 checkpoint at llama-3.2-1b's published shapes, ``ROUNDS`` times
-after one warm-up request. Per chunk it times
+after one warm-up request, each round on other text of the same lengths
+(``batched_bodies`` variants: the same dispatch shapes, no prompt page but
+the system prefix cached from an earlier round), so on a checkout with
+captured programs the first rounds build them and the last mostly
+replays. It reports
+each round's aggregate tok/s and TTFT p50 / p95 (client clock). Per chunk
+it times
 
 - ``dispatch``: the scheduler's ``_dispatch_decode`` (the chunk's enqueue on
   the engine's executor);
@@ -44,7 +50,7 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-ROUNDS = 2
+ROUNDS = 3
 
 
 class _TimedEvent:
@@ -109,10 +115,10 @@ async def _serve(cs, tmain, bs, args, port):
     warm = {"model": "llama-3.2-1b", "messages": [{"role": "user", "content": "warm up"}], "stream": True, "temperature": 0, "max_tokens": 9}
     await loop.run_in_executor(clients, cs._post, port, warm)
     bserver = engine.get_batched_server()
-    for _ in range(ROUNDS):
+    for i in range(ROUNDS):
       rec = dict(dispatch_s=0.0, settle_s=0.0, wait_s=0.0, chunks=0)
       restore = _time_chunks(bs, bserver, rec)
-      bodies = cs.batched_bodies()
+      bodies = cs.batched_bodies(variant=i)
       t0 = time.perf_counter()
       before = set(ids)
       first = [loop.run_in_executor(clients, cs._post, port, b) for b in bodies[:8]]
@@ -124,12 +130,14 @@ async def _serve(cs, tmain, bs, args, port):
       wall = time.perf_counter() - t0
       restore()
       tokens = [len(ids.get(rid, [])) for *_, rid in replies]
+      ttfts = sorted(r[2] for r in replies)
       if any(n == 0 or n > b["max_tokens"] for n, b in zip(tokens, bodies)) or bserver.busy():
         raise SystemExit(f"batched_host_cost: tokens per request {tokens}")
       n = max(rec["chunks"], 1)
       rounds.append(dict(
         chunks=rec["chunks"], dispatch_ms=rec["dispatch_s"] * 1e3 / n, settle_bookkeeping_ms=(rec["settle_s"] - rec["wait_s"]) * 1e3 / n,
         device_wait_ms=rec["wait_s"] * 1e3 / n, wall_s=wall, tokens=sum(tokens), aggregate_tok_s=sum(tokens) / wall,
+        ttft_p50_s=cs._pctl(ttfts, 0.5), ttft_p95_s=cs._pctl(ttfts, 0.95),
       ))
     return rounds
   finally:
@@ -167,7 +175,7 @@ def main() -> int:
   rounds = asyncio.run(_serve(cs, tmain, bs, args, port))
   record = dict(card=smi, checkout=str(root), knobs=knobs, rounds=rounds)
   for i, r in enumerate(rounds):
-    print(f"[host_cost] {root.name} {knobs or 'defaults'} round {i}: {r['chunks']} chunks | dispatch {r['dispatch_ms']:.4f} ms, settle bookkeeping {r['settle_bookkeeping_ms']:.4f} ms, device wait {r['device_wait_ms']:.3f} ms per chunk | {r['tokens']} tokens in {r['wall_s']:.3f} s ({r['aggregate_tok_s']:.1f} tok/s) | {smi}", flush=True)
+    print(f"[host_cost] {root.name} {knobs or 'defaults'} round {i}: {r['chunks']} chunks | dispatch {r['dispatch_ms']:.4f} ms, settle bookkeeping {r['settle_bookkeeping_ms']:.4f} ms, device wait {r['device_wait_ms']:.3f} ms per chunk | {r['tokens']} tokens in {r['wall_s']:.3f} s ({r['aggregate_tok_s']:.1f} tok/s), TTFT p50 {r['ttft_p50_s']:.4f} s p95 {r['ttft_p95_s']:.4f} s | {smi}", flush=True)
   out = HERE / "chiprun_out"
   out.mkdir(exist_ok=True)
   n = len(list(out.glob(f"batched_host_cost-{root.name}-*.json")))

@@ -23,7 +23,10 @@ CPU at a small size:
 
 The ``cuda``-marked cases hold the captured solo paths against the
 uncaptured functions on a card (greedy and seeded sampled transcripts
-identical, prefill logits within 2e-4 at f32) and skip without one. This
+identical, prefill logits within 2e-4 at f32), the batched programs too
+(every family, bf16 / int8 / int4 pages and int4 weights, over a build
+round and two replay rounds: tokens identical), and K3 inside a replay on
+refilled inputs within its bound; they skip without a card. This
 file imports JAX only inside the CPU cases, so the card cases run where
 JAX is not installed (``-m cuda --noconftest``)."""
 
@@ -486,3 +489,110 @@ def test_captured_solo_paths_equal_uncaptured_on_the_card(card, mode, monkeypatc
     assert programs.REPLAYED.get("flash_decode", 0) > 0
   if mode == "int4":
     assert programs.REPLAYED.get("int4_matmul", 0) > 0
+
+
+class OpsEngine:
+  """What ``DecoderBatchOps`` reads of an engine."""
+
+  def __init__(self, cfg, shard, params, device="cuda") -> None:
+    self.cfg, self._effective_shard, self.params, self.device = cfg, shard, params, torch.device(device)
+
+
+CARD_PS, CARD_MP, CARD_PAGES = 16, 8, 40  # 16-token pages, 8 a row (128 tokens), 4 rows and an admission
+
+
+def _batched_traffic(ops, pool, seed: int) -> list:
+  """``chip_smoke.batched_traffic`` at the card model's size: 3 prompts and
+  the inactive padding row, plain chunks of 4 steps, spec chunks of 2
+  rounds at depth 3 and 2, a mixed chunk with a 12-token slice."""
+  import chip_smoke
+
+  return chip_smoke.batched_traffic(ops, pool, seed, [37, 20 + seed % 5, 50], page=CARD_PS, mp=CARD_MP, steps=4, gamma=3, slice_tokens=12, slice_pad=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8_kv", "int4_kv", "int4"])
+def test_captured_batched_programs_equal_uncaptured_on_the_card(card, mode, monkeypatch):
+  """The batched server's dispatches through ``BatchedPrograms`` (the pool
+  ``init_pool`` made: one CUDA-graph replay each) against the eager
+  functions on an identical pool, in a round that builds every graph and
+  two that replay them on other rows, positions, tables, proposals and
+  keys: every token identical (greedy and seeded sampled rows), one graph
+  per family signature, each replaying its kernels (K1 in the prefill and
+  mixed graphs' slices, K3 in every chunk, K4 on int4 weights) and
+  holding kernel nodes; the pools agree."""
+  from xotorch_support_jetson_tpu_torch.inference.batch_ops import DecoderBatchOps
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  monkeypatch.setenv("XOT_TPU_KV_QUANT", {"int8_kv": "int8", "int4_kv": "int4"}.get(mode, ""))
+  cfg, shard, params = _card_model("int4" if mode == "int4" else "")
+  ops = DecoderBatchOps(OpsEngine(cfg, shard, params))
+  captured = ops.init_pool(CARD_PAGES, CARD_PS)
+  eager = {k: v.clone() for k, v in captured.items()}
+  programs.reset_replayed()
+  for rnd, seed in enumerate((5, 6, 7)):
+    got = _batched_traffic(ops, captured, seed)
+    want = _batched_traffic(ops, eager, seed)
+    for i, ((kind, g), (_, w)) in enumerate(zip(got, want)):
+      for a, b in zip(g, w):
+        assert np.array_equal(a, b), (mode, rnd, i, kind)
+  for key in captured:
+    a, b = captured[key].float(), eager[key].float()
+    assert torch.allclose(a, b, atol=1.0 if key in ("k", "v") and captured[key].dtype == torch.int8 else 2e-2, rtol=2e-2), key
+  graphs = {g.family: g for g in ops.programs.graphs()}
+  fams = sorted(g.family for g in ops.programs.graphs())
+  assert fams == ["decode.mixed_paged_batch", "decode.paged_batch", "prefill.pages_many_sampled", "spec.paged_batch", "spec.paged_batch"]
+  assert all(g.graph is not None and g.kernel_nodes > 0 for g in ops.programs.graphs())
+  L = cfg.n_layers
+  assert graphs["decode.paged_batch"].kernels.get("paged_decode") == 4 * L  # K3 once per layer per step
+  assert graphs["decode.mixed_paged_batch"].kernels.get("paged_decode") == 3 * L
+  assert all(g.kernels.get("paged_decode") == 2 * L for g in ops.programs.graphs() if g.family == "spec.paged_batch")  # once per layer per round
+  k1_in_slices = 0 if mode == "int4_kv" else L  # int4 pages prefill through the plain attention
+  assert graphs["prefill.pages_many_sampled"].kernels.get("flash_prefill", 0) == k1_in_slices
+  assert graphs["decode.mixed_paged_batch"].kernels.get("flash_prefill", 0) == k1_in_slices
+  if mode == "int4":
+    assert all(g.kernels.get("int4_matmul", 0) > 0 for g in ops.programs.graphs())
+  # Round 1 replays its second plain chunk; rounds 2 and 3 replay every dispatch.
+  assert programs.REPLAYED.get("paged_decode", 0) == 4 * L + 2 * (2 * 4 * L + 2 * 2 * L + 3 * L)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 9])
+def test_k3_inside_a_replay_on_refilled_inputs(card, window):
+  """K3 at the batched path's shapes (B=8 rows of a 64-page table,
+  llama-3.2-1b's heads, bf16 pages; W=9: the flattened verify window)
+  captured in a ``Graph``, its query, lengths and tables refilled after
+  the capture: the replay's output is within K3's bound of its plain
+  version on the new inputs, and the replay counts one launch."""
+  from xotorch_support_jetson_tpu_torch.ops import paged
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  gen = torch.Generator(device="cuda").manual_seed(4)
+  B, W, P, ps, mp = 8, window, 8 * 64 + 1, 64, 64
+  rows = B * W
+  k = torch.randn((P, 8, ps, 64), generator=gen, device="cuda").to(torch.bfloat16)
+  v = torch.randn((P, 8, ps, 64), generator=gen, device="cuda").to(torch.bfloat16)
+  q = torch.randn((rows, 32, 64), generator=gen, device="cuda").to(torch.bfloat16)
+  bt = torch.zeros((rows, mp), dtype=torch.int32, device="cuda")
+  lengths = torch.zeros((rows,), dtype=torch.int32, device="cuda")
+
+  def refill(seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q.copy_(torch.randn(q.shape, generator=g, device="cuda").to(torch.bfloat16))
+    tables = (torch.randperm(P - 1, generator=g, device="cuda")[: B * mp].to(torch.int32) + 1).reshape(B, mp)
+    bt.copy_(paged.window_block_tables(tables, W))
+    lengths.copy_((torch.randint(1, mp * ps - W, (B, 1), generator=g, device="cuda") + torch.arange(W, device="cuda")[None, :]).reshape(rows).to(torch.int32))
+
+  refill(0)
+  out = paged.paged_decode_attention(q, k, v, bt, lengths, ps).clone()
+  graph = programs.Graph("check.paged_decode", lambda: out.copy_(paged.paged_decode_attention(q, k, v, bt, lengths, ps)))
+  graph.run(card)
+  assert graph.kernels == {"paged_decode": 1} and programs.kernels_in(lambda: paged.paged_decode_attention(q, k, v, bt, lengths, ps)) == 1
+  before = programs.REPLAYED.get("paged_decode", 0)
+  refill(1)
+  out.zero_()
+  graph.run(card)
+  torch.cuda.synchronize()
+  want = paged.paged_decode_attention_ref(q, k, v, bt, lengths, ps).float()
+  assert programs.REPLAYED.get("paged_decode", 0) - before == 1
+  torch.testing.assert_close(out.float(), want, atol=2.5e-4, rtol=2.0**-7)

@@ -7,14 +7,24 @@ also carries the host KV tier's page copies
 (inference/kv_tier.py): ``read_pages`` starts a spill's device-to-host copy
 and ``write_pages`` writes a restore's host pages back into the pool.
 
+The pool made by ``init_pool`` comes with its captured programs
+(models/decoder.py ``BatchedPrograms``): every dispatch against it — the
+admission prefill, the plain, mixed and speculative chunks — is one
+CUDA-graph replay on the card (its body run eagerly through the same
+buffers on the CPU). The eager functions serve any other pool (tests, the
+uncaptured comparison). ``drop_pool`` forgets a pool's programs with it.
+
 The scheduler hands host operands as numpy arrays. They reach the card as
 non-blocking copies out of pinned host memory, so a dispatch never waits
 for the device work queued before it — the lookahead pipeline depends on
 that. A ``key`` is an integer seed drawn from the engine
-(``TorchShardedInferenceEngine.split_key``); each dispatch samples from its
-own generator seeded with it. The decode contract is the reference's:
+(``TorchShardedInferenceEngine.split_key``); each dispatch samples as a
+generator freshly seeded with it would (the programs reseed their own
+generator before each replay). The decode contract is the reference's:
 ``(tokens [B, chunk], next_token [B, 1], positions [B], pool)`` with
-``next_token`` left on the device as the next chunk's input.
+``next_token`` left on the device as the next chunk's input; a program's
+outputs stay valid until its next dispatch, so the scheduler queues its
+host copies (``to_host_async``) right behind the dispatch.
 """
 
 from __future__ import annotations
@@ -40,7 +50,7 @@ def to_host_async(*tensors: torch.Tensor):
   valid once ``event.synchronize()`` returns (event None: already valid)."""
   dev = tensors[0].device
   if dev.type != "cuda":
-    return list(tensors), None
+    return [t.clone() for t in tensors], None  # a program's next run overwrites its outputs
   hosts = []
   for t in tensors:
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -58,6 +68,7 @@ class DecoderBatchOps:
   def __init__(self, engine):
     self.engine = engine
     self._copy_stream = None  # the KV tier's device-to-host stream, made at the first spill
+    self.programs = None  # the captured programs of the pool init_pool made last
 
   def round_slots(self, n: int) -> int:
     return n
@@ -74,10 +85,29 @@ class DecoderBatchOps:
     return torch.Generator(device=self.engine.device).manual_seed(int(key))
 
   def init_pool(self, n_pages: int, page_size: int):
+    """A page pool with its captured programs (``BatchedPrograms``), which
+    replace the previous pool's."""
+    from ..models.decoder import BatchedPrograms
     from ..ops.paged import init_paged_pool
 
     eng = self.engine
-    return init_paged_pool(eng.cfg, eng._effective_shard.n_shard_layers, n_pages, page_size, device=eng.device)
+    if self.programs is not None:  # the old pool's graphs go before the new pool is allocated
+      self.programs.close()
+      self.programs = None
+    pool = init_paged_pool(eng.cfg, eng._effective_shard.n_shard_layers, n_pages, page_size, device=eng.device)
+    self.programs = BatchedPrograms(eng.params, eng.cfg, eng._effective_shard, pool)
+    return pool
+
+  def drop_pool(self, pool) -> None:
+    """Forget ``pool``'s programs (shutdown): their graphs hold its
+    addresses and their own memory."""
+    if self.programs is not None and self.programs.pool is pool:
+      self.programs.close()
+      self.programs = None
+
+  def _programs_for(self, pool):
+    progs = self.programs
+    return progs if progs is not None and progs.pool is pool else None
 
   def prefill_into_pages_many(self, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size: int):
     from ..models.decoder import prefill_into_pages_many
@@ -91,6 +121,9 @@ class DecoderBatchOps:
   def prefill_into_pages_many_sampled(self, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size: int, temps, top_ks, k_max: int, key):
     from ..models.decoder import prefill_into_pages_many_sampled
 
+    progs = self._programs_for(pool)
+    if progs is not None:
+      return progs.prefill(tokens, bt_rows, prefix_lens, prompt_lens, page_size, temps, top_ks, k_max, key), pool
     eng = self.engine
     return prefill_into_pages_many_sampled(
       eng.params, eng.cfg, eng._effective_shard, self._dev(tokens), pool, self._dev(bt_rows),
@@ -101,6 +134,9 @@ class DecoderBatchOps:
   def paged_batch_decode(self, token, pool, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, key):
     from ..models.decoder import fused_paged_batch_decode
 
+    progs = self._programs_for(pool)
+    if progs is not None:
+      return (*progs.decode(token, block_tables, positions, active, temps, top_ks, n_steps, k_max, page_size, key), pool)
     eng = self.engine
     return fused_paged_batch_decode(
       eng.params, eng.cfg, eng._effective_shard, self._dev(token), pool, self._dev(block_tables), self._dev(positions),
@@ -129,6 +165,10 @@ class DecoderBatchOps:
     one event (``to_host_async``), as it does for a plain chunk's tokens."""
     from ..models.decoder import fused_spec_paged_batch_decode
 
+    progs = self._programs_for(pool)
+    if progs is not None and adapter_ids is None:
+      res = progs.spec(token, block_tables, positions, active, gammas, temps, top_ks, n_rounds, gamma_max, k_max, page_size, key, props=props, prop_counts=prop_counts)
+      return (*res, pool, cache_d)
     eng = self.engine
     return fused_spec_paged_batch_decode(
       eng.params, eng.cfg, eng._effective_shard, None, None, None, self._dev(token), pool, cache_d, self._dev(block_tables),
@@ -149,6 +189,9 @@ class DecoderBatchOps:
     its host operands on the same non-blocking pinned path."""
     from ..models.decoder import fused_mixed_paged_batch_decode
 
+    progs = self._programs_for(pool)
+    if progs is not None:
+      return (*progs.mixed(token, block_tables, positions, active, temps, top_ks, n_steps, k_max, page_size, key, pf_tokens, pf_bt, pf_prefix, pf_end), pool)
     eng = self.engine
     return fused_mixed_paged_batch_decode(
       eng.params, eng.cfg, eng._effective_shard, self._dev(token), pool, self._dev(block_tables), self._dev(positions),

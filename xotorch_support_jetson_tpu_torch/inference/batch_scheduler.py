@@ -68,15 +68,23 @@ defaults, with the paged layout and no draft model:
   latency, queue wait, chunk times) and, per QoS class, to the SLO engine
   (orchestration/slo.py, ``XOT_TPU_SLO``).
 
-The device programs it dispatches are recorded by the program ledger
-(utils/programs.py) under the reference's families, and
-``warmup_manifest`` / ``warmup`` (``POST /v1/warmup``) drive them before
-traffic and mark the ledger steady; they still run eagerly (their capture
-into CUDA graphs is not ported yet).
+Every device dispatch is one program, as in the reference: the page pool
+comes with its captured programs (models/decoder.py ``BatchedPrograms``,
+through inference/batch_ops.py), so on the card each admission prefill and
+each plain, mixed or speculative chunk is one CUDA-graph replay, built at
+the first dispatch of its signature. The program ledger (utils/programs.py)
+records them under the reference's families, and ``warmup_manifest`` /
+``warmup`` (``POST /v1/warmup``) drive them before traffic — capturing the
+graphs that traffic needs — and mark the ledger steady. A chained dispatch
+takes the in-flight chunk's next token (and a spec chunk's positions) as
+device-to-device fills of the next replay's inputs, and each chunk's host
+copies are queued behind its replay, before the next one. The graphs go
+with the pool (``shutdown``, a failed loop).
 
 All device work runs on the engine's single executor thread. Random draws
-for sampling come from one generator per dispatch, seeded on the event-loop
-thread by ``engine.split_key()``.
+for sampling come from the programs' generator, reseeded before each
+dispatch with a key drawn on the event-loop thread by
+``engine.split_key()``.
 
 The draft-model proposer, LoRA, disaggregation, drain and the dense
 batched layout are not ported yet; asking for one explicitly raises ``NotImplementedError`` when the server is built, as does
@@ -516,7 +524,7 @@ class BatchedServer:
     marshalled onto the loop that owns it."""
     task = self._loop_task
     self._loop_task = None
-    self.cache = None
+    self._drop_pool()
     if self.tier is not None:
       # A model swap invalidates the host copies: chain keys hash token ids,
       # not weights, so the same chain must not restore the old model's KV.
@@ -574,6 +582,12 @@ class BatchedServer:
     metrics.set_gauge("page_pool_pages_total", n_pages - 1)  # page 0 is the trash page
     metrics.set_gauge("kv_quant_bits", {"": 16, "int8": 8, "int4": 4}[kv_quant])
     self._update_gauges()
+
+  def _drop_pool(self) -> None:
+    """Let the pool go, and its captured programs with it."""
+    if self.cache is not None:
+      self.ops.drop_pool(self.cache)
+    self.cache = None
 
   def _tier_read(self, pages: list[int]):
     """The tier's spill-side read: start the pages' copy to the host. (None,
@@ -1617,7 +1631,7 @@ class BatchedServer:
         import traceback
 
         traceback.print_exc()
-      self.cache = None  # rebuilt at the next submit
+      self._drop_pool()  # rebuilt at the next submit
       self._fail_all(e)
 
   def _fail_all(self, exc: Exception) -> None:

@@ -18,8 +18,10 @@ prefill bucket and each decode step is one CUDA-graph replay), greedy speculativ
 with a draft model (``fused_speculative_generate`` / ``_chunk``) and the
 draft-free speculative chunk (``fused_spec_batch_decode``). The batched
 programs at the end run against a page pool (ops/paged.py) instead, also
-updated in place: the plain and mixed decode chunks, and the draft-free
-speculative chunk (``fused_spec_paged_batch_decode``).
+updated in place: the admission prefill, the plain and mixed decode
+chunks, and the draft-free speculative chunk
+(``fused_spec_paged_batch_decode``); with ``BatchedPrograms`` each such
+dispatch is one CUDA-graph replay.
 """
 
 from __future__ import annotations
@@ -1155,30 +1157,38 @@ def fused_spec_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, params
   Draft-free only: ``params_d`` must be None (the draft-model proposer and
   its dense draft cache are not ported; ``cache_d`` passes through), and
   so must ``adapter_ids`` (no LoRA yet)."""
-  from ..ops.paged import check_paged_kernel, paged_kernel_supported, window_block_tables
+  from ..ops.paged import check_paged_kernel, paged_kernel_supported
 
   generator, top_ks, active, gammas = _spec_chunk_args("fused_spec_paged_batch_decode", params, shard, params_d, adapter_ids, token, active, gammas, top_k, gamma_max, generator)
   dev = token.device
   if use_kernel is None:
     check_paged_kernel(cfg, dev)
     use_kernel = paged_kernel_supported(cfg)
-  B = token.shape[0]
   G = int(gamma_max)
-  props, prop_counts = _spec_props_args(props, prop_counts, B, int(n_rounds), G, dev)
+  props, prop_counts = _spec_props_args(props, prop_counts, token.shape[0], int(n_rounds), G, dev)
+  buf, counts, n_prop, next_tok, next_pos = _spec_paged_rounds(
+    params, cfg, shard, token.to(torch.int32), pool, block_tables.to(device=dev, dtype=torch.int32), positions.to(device=dev, dtype=torch.int32), active, gammas,
+    temps.to(device=dev, dtype=torch.float32), top_ks, int(n_rounds), G, int(k_max), int(page_size), bool(use_kernel), generator, props, prop_counts,
+  )
+  return buf, counts, n_prop, next_tok, next_pos, pool, cache_d
+
+
+def _spec_paged_rounds(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, gammas, temps, top_ks, n_rounds: int, G: int, k_max: int, page_size: int, use_kernel: bool, generator, props, prop_counts):
+  """The body of ``fused_spec_paged_batch_decode`` on operands already of
+  their device and dtype: the verify window through the page pool, the
+  rounds of ``_spec_batch_rounds``."""
+  from ..ops.paged import window_block_tables
+
   # Inactive rows' window writes must not land on pages another row may own
   # now: their tables pin to the trash page, once per chunk.
-  bt = torch.where(active[:, None], block_tables.to(device=dev, dtype=torch.int32), 0).contiguous()
+  bt = torch.where(active[:, None], block_tables, 0).contiguous()
   bt_window = window_block_tables(bt, G + 1) if use_kernel else None
 
   def verify(window, wpos):
-    logits, _ = paged_window_forward(params, cfg, shard, window, wpos, pool, bt, int(page_size), bool(use_kernel), bt_window)
+    logits, _ = paged_window_forward(params, cfg, shard, window, wpos, pool, bt, page_size, use_kernel, bt_window)
     return logits
 
-  buf, counts, n_prop, next_tok, next_pos = _spec_batch_rounds(
-    verify, token.to(torch.int32), positions.to(device=dev, dtype=torch.int32), active, gammas, temps.to(device=dev, dtype=torch.float32),
-    top_ks, int(n_rounds), G, int(k_max), generator, props, prop_counts,
-  )
-  return buf, counts, n_prop, next_tok, next_pos, pool, cache_d
+  return _spec_batch_rounds(verify, token, positions, active, gammas, temps, top_ks, n_rounds, G, k_max, generator, props, prop_counts)
 
 
 @tracked("spec.batch", ("cfg", "shard", "cfg_d", "shard_d", "n_rounds", "gamma_max", "k_max"))
@@ -1208,3 +1218,223 @@ def fused_spec_batch_decode(params, cfg: ModelConfig, shard: Shard, params_d, cf
     temps.to(device=dev, dtype=torch.float32), top_ks, int(n_rounds), G, int(k_max), generator, props, prop_counts,
   )
   return buf, counts, n_prop, next_tok, next_pos, cache, cache_d
+
+
+# ------------------------------------------------------- batched programs
+
+_NP_DTYPES = {torch.int32: np.int32, torch.int64: np.int64, torch.float32: np.float32, torch.bool: np.bool_}
+
+
+class BatchedPrograms:
+  """The captured batched programs of one page pool: the reference's
+  one-program-per-dispatch execution for the batched server on a CUDA
+  device. Each dispatch is one replay of a CUDA graph holding the whole
+  dispatch, every step or round of it:
+
+  - ``prefill`` — ``prefill.pages_many_sampled``: an admission batch's
+    prefill and first-token sampling (K1 on the card), one graph per row
+    bucket, token width, page window and ``k_max``;
+  - ``decode`` — ``decode.paged_batch``: ``n_steps`` decode steps over
+    every row (K3), one graph per row count, table width, ``n_steps``,
+    ``k_max``, page size and route;
+  - ``mixed`` — ``decode.mixed_paged_batch``: the same with one
+    admission's prefill slice fused in (K1 for the slice), also keyed on
+    the slice's pad and page window;
+  - ``spec`` — ``spec.paged_batch``: ``n_rounds`` verify rounds at depth
+    cap ``gamma_max`` (K3 over the B·W window rows), also keyed on whether
+    n-gram proposals come with it and their width.
+
+  A graph is built at the first dispatch of a signature the ledger records
+  as a build, so captures equal builds per family for one instance; it is
+  keyed on that signature and the routing knobs (``routing_knobs``, and
+  ``XOT_TPU_PAGED_KERNEL`` through the route). Every operand lives in a
+  static buffer filled in place before the run: host arrays arrive as
+  non-blocking copies out of pinned memory, device tensors (a chained
+  dispatch's token and positions) as device-to-device copies, all queued
+  on the compute stream ahead of the replay. Outputs are buffers allocated
+  outside the captures, one set per graph: valid until that graph runs
+  again, so a caller queues its reads of them (the scheduler's host copies,
+  the next chained dispatch's fills) before the next dispatch. The pool is
+  written in place at its fixed address, so the instance lives and dies
+  with it. One CUDA generator, registered with every graph, is reseeded
+  with the dispatch's key before each run (``Graph.run(seed=)``): a replay
+  draws exactly what the eager function draws from a generator seeded
+  with that key. The graphs share one memory pool (``graph_pool``): they
+  replay one at a time on one stream. On the CPU each program runs its
+  body eagerly through the same buffers."""
+
+  def __init__(self, params, cfg: ModelConfig, shard: Shard, pool: dict) -> None:
+    _dense_full_model(params, shard, "BatchedPrograms")
+    self.params, self.cfg, self.shard, self.pool = params, cfg, shard, pool
+    self.device = pool["k"].device
+    self.generator = torch.Generator(device=self.device)
+    self.graph_pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+    self._bufs: dict[tuple, torch.Tensor] = {}
+    self._graphs: dict[tuple, tuple[Graph, dict]] = {}
+
+  def graphs(self) -> list[Graph]:
+    return [g for g, _ in self._graphs.values()]
+
+  def close(self) -> None:
+    """Drop the graphs and buffers now (their bodies refer back to this
+    instance, so without this only the cycle collector would free them,
+    and the graph memory pool with them)."""
+    self._graphs.clear()
+    self._bufs.clear()
+
+  def _fill(self, name: str, x, dtype, shape: tuple | None = None) -> torch.Tensor:
+    """The static input buffer ``name`` of ``x``'s shape and ``dtype``,
+    filled in place with ``x`` without blocking the host."""
+    shape = tuple(x.shape) if shape is None else tuple(shape)
+    key = (name, shape, dtype)
+    buf = self._bufs.get(key)
+    if buf is None:
+      buf = self._bufs[key] = torch.zeros(shape, dtype=dtype, device=self.device)
+    if isinstance(x, torch.Tensor):
+      buf.copy_(x.reshape(shape), non_blocking=True)
+    else:
+      host = torch.from_numpy(np.ascontiguousarray(np.asarray(x, dtype=_NP_DTYPES[dtype]).reshape(shape)))
+      buf.copy_(host.pin_memory() if buf.is_cuda else host, non_blocking=True)
+    return buf
+
+  def _program(self, family: str, key: tuple, outs: dict, body) -> tuple[Graph, dict]:
+    """The graph of ``key`` (plus the routing knobs) with its output
+    buffers; ``outs`` maps names to (shape, dtype) and ``body(outs)`` runs
+    the dispatch into them. Both are used only when the graph is new."""
+    key = (family,) + key + routing_knobs()
+    entry = self._graphs.get(key)
+    if entry is None:
+      bufs = {name: torch.zeros(shape, dtype=dtype, device=self.device) for name, (shape, dtype) in outs.items()}
+      graph = Graph(family, lambda: body(bufs), generators=(self.generator,), pool=self.graph_pool)
+      entry = self._graphs[key] = (graph, bufs)
+    return entry
+
+  def _use_kernel(self) -> bool:
+    from ..ops.paged import check_paged_kernel, paged_kernel_supported
+
+    check_paged_kernel(self.cfg, self.device)
+    return paged_kernel_supported(self.cfg)
+
+  def _rows(self, token, block_tables, positions, active, temps, top_ks) -> tuple:
+    """The decode operands every chunk family takes, in their buffers."""
+    B = block_tables.shape[0]
+    return (
+      self._fill("token", token, torch.int32, (B, 1)), self._fill("block_tables", block_tables, torch.int32), self._fill("positions", positions, torch.int32, (B,)),
+      self._fill("active", active, torch.bool, (B,)), self._fill("temps", temps, torch.float32, (B,)), self._fill("top_ks", top_ks, torch.int32, (B,)),
+    )
+
+  def _rows_sig(self, token, block_tables, positions, active, temps, top_ks) -> dict:
+    B, dev = block_tables.shape[0], self.device
+    return dict(
+      params=self.params, cfg=self.cfg, shard=self.shard, token=_Like(torch.int32, (B, 1), dev), pool=self.pool, block_tables=_Like(torch.int32, block_tables.shape, dev),
+      positions=_Like(torch.int32, (B,), dev), active=_Like(torch.bool, (B,), dev), temps=_Like(torch.float32, (B,), dev), top_k=_Like(torch.int32, (B,), dev), generator=self.generator,
+    )
+
+  # ------------------------------------------------------------ families
+
+  def prefill(self, tokens, bt_rows, prefix_lens, prompt_lens, page_size: int, temps, top_ks, k_max: int, key: int) -> torch.Tensor:
+    """``prefill_into_pages_many_sampled``'s contract: the first tokens
+    [K] int32 (a fresh tensor); the pool is written in place."""
+    K, S = tokens.shape
+    mp, dev, page_size, k_max = bt_rows.shape[1], self.device, int(page_size), int(k_max)
+    vec = _Like(torch.int32, (K,), dev)
+    sig = dict(
+      params=self.params, cfg=self.cfg, shard=self.shard, tokens=_Like(torch.int32, (K, S), dev), pool=self.pool, bt_rows=_Like(torch.int32, (K, mp), dev),
+      prefix_lens=vec, prompt_lens=vec, page_size=page_size, temps=_Like(torch.float32, (K,), dev), top_ks=vec, generator=self.generator, k_max=k_max,
+    )
+
+    def run():
+      tok = self._fill("pf.tokens", tokens, torch.int32)
+      bt = self._fill("pf.bt", bt_rows, torch.int32)
+      pre, end = self._fill("pf.prefix", prefix_lens, torch.int32, (K,)), self._fill("pf.prompt", prompt_lens, torch.int32, (K,))
+      tmp, tks = self._fill("pf.temps", temps, torch.float32, (K,)), self._fill("pf.top_ks", top_ks, torch.int32, (K,))
+
+      def body(out):
+        last, _ = prefill_into_pages_many(self.params, self.cfg, self.shard, tok, self.pool, bt, pre, end, page_size)
+        out["first"].copy_(_next_token_batched(last, self.generator, tmp, tks, k_max))
+
+      graph, out = self._program("prefill.pages_many_sampled", (K, S, mp, k_max, page_size), {"first": ((K,), torch.int32)}, body)
+      graph.run(dev, seed=key)
+      return out["first"].clone()
+
+    return ledger.dispatch("prefill.pages_many_sampled", sig, ("cfg", "shard", "page_size", "k_max"), run)
+
+  def decode(self, token, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, key: int) -> tuple:
+    """``fused_paged_batch_decode``'s contract: (tokens [B, n_steps],
+    next_token [B, 1], positions [B]), the graph's output buffers."""
+    return self._chunk("decode.paged_batch", (token, block_tables, positions, active, temps, top_ks), n_steps, k_max, page_size, key)
+
+  def mixed(self, token, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, key: int, pf_tokens, pf_bt, pf_prefix, pf_end) -> tuple:
+    """``fused_mixed_paged_batch_decode``'s contract, as ``decode``."""
+    return self._chunk("decode.mixed_paged_batch", (token, block_tables, positions, active, temps, top_ks), n_steps, k_max, page_size, key, (pf_tokens, pf_bt, pf_prefix, pf_end))
+
+  def _chunk(self, family: str, rows: tuple, n_steps: int, k_max: int, page_size: int, key: int, pf: tuple | None = None) -> tuple:
+    """A plain chunk, or with ``pf`` (the slice's tokens [1, pad], table
+    [1, mp], prefix and end [1]) a mixed one."""
+    B, mp = rows[1].shape
+    n_steps, k_max, page_size, dev = int(n_steps), int(k_max), int(page_size), self.device
+    sig = dict(self._rows_sig(*rows), n_steps=n_steps, k_max=k_max, page_size=page_size)
+    slice_key = ()
+    if pf is not None:
+      slice_key = (pf[0].shape[1], pf[1].shape[1])
+      one = _Like(torch.int32, (1,), dev)
+      sig.update(pf_tokens=_Like(torch.int32, (1, slice_key[0]), dev), pf_bt=_Like(torch.int32, (1, slice_key[1]), dev), pf_prefix=one, pf_end=one)
+
+    def run():
+      use_kernel = self._use_kernel()
+      tok, bt, pos, act, tmp, tks = self._rows(*rows)
+      if pf is not None:
+        pf_bufs = tuple(self._fill(f"mx.{name}", x, torch.int32, shape) for name, x, shape in zip(("tokens", "bt", "prefix", "end"), pf, ((1, slice_key[0]), (1, slice_key[1]), (1,), (1,))))
+
+      def body(out):
+        common = (self.params, self.cfg, self.shard, tok, self.pool, bt, pos, act, tmp, tks)
+        tail = (n_steps, k_max, page_size, use_kernel, self.generator)
+        toks, nxt, npos, _ = _paged_decode_scan(*common, *tail) if pf is None else _fused_mixed_paged_batch_decode_impl(*common, *pf_bufs, *tail)
+        out["tokens"].copy_(toks)
+        out["next_token"].copy_(nxt)
+        out["positions"].copy_(npos)
+
+      outs = {"tokens": ((B, n_steps), torch.int32), "next_token": ((B, 1), torch.int32), "positions": ((B,), torch.int32)}
+      graph, out = self._program(family, (B, mp, n_steps, k_max, page_size, use_kernel, *slice_key), outs, body)
+      graph.run(dev, seed=key)
+      return out["tokens"], out["next_token"], out["positions"]
+
+    return ledger.dispatch(family, sig, ("cfg", "shard", "n_steps", "k_max", "page_size", "use_kernel"), run)
+
+  def spec(self, token, block_tables, positions, active, gammas, temps, top_ks, n_rounds: int, gamma_max: int, k_max: int, page_size: int, key: int, props=None, prop_counts=None) -> tuple:
+    """``fused_spec_paged_batch_decode``'s contract without the pool and
+    the draft cache: (tokens [B, n_rounds·(gamma_max+1)], counts [B],
+    n_prop [B], next_token [B, 1], next_positions [B]), the graph's output
+    buffers. ``props`` None (no n-gram rows) is a graph of its own."""
+    B, mp = block_tables.shape
+    n_rounds, G, k_max, page_size, dev = int(n_rounds), int(gamma_max), int(k_max), int(page_size), self.device
+    width = None if props is None else props.shape[1]
+    vec = _Like(torch.int32, (B,), dev)
+    sig = dict(
+      self._rows_sig(token, block_tables, positions, active, temps, top_ks), params_d=None, cfg_d=None, shard_d=None, cache_d=None, gammas=vec,
+      n_rounds=n_rounds, gamma_max=G, k_max=k_max, page_size=page_size, props=None if props is None else _Like(torch.int32, (B, width), dev),
+      prop_counts=None if prop_counts is None else vec, adapter_ids=None,
+    )
+    static = ("cfg", "shard", "cfg_d", "shard_d", "n_rounds", "gamma_max", "k_max", "page_size", "use_kernel")
+
+    def run():
+      use_kernel = self._use_kernel()
+      tok, bt, pos, act, tmp, tks = self._rows(token, block_tables, positions, active, temps, top_ks)
+      gam = self._fill("sp.gammas", gammas, torch.int32, (B,))
+      pbuf = cbuf = None
+      if props is not None:
+        pbuf, cbuf = self._fill("sp.props", props, torch.int32, (B, width)), self._fill("sp.prop_counts", prop_counts, torch.int32, (B,))
+
+      def body(out):
+        p, c = _spec_props_args(pbuf, cbuf, B, n_rounds, G, dev)
+        res = _spec_paged_rounds(self.params, self.cfg, self.shard, tok, self.pool, bt, pos, act, torch.clamp(gam, max=G), tmp, tks, n_rounds, G, k_max, page_size, use_kernel, self.generator, p, c)
+        for name, t in zip(("tokens", "counts", "n_prop", "next_token", "positions"), res):
+          out[name].copy_(t)
+
+      vecs = ((B,), torch.int32)
+      outs = {"tokens": ((B, n_rounds * (G + 1)), torch.int32), "counts": vecs, "n_prop": vecs, "next_token": ((B, 1), torch.int32), "positions": vecs}
+      graph, out = self._program("spec.paged_batch", (B, mp, n_rounds, G, k_max, page_size, use_kernel, width), outs, body)
+      graph.run(dev, seed=key)
+      return tuple(out[name] for name in ("tokens", "counts", "n_prop", "next_token", "positions"))
+
+    return ledger.dispatch("spec.paged_batch", sig, static, run)

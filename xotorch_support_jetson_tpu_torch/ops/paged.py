@@ -233,8 +233,11 @@ def paged_decode_attention(q, k_pool_l, v_pool_l, block_tables, lengths, page_si
 def window_block_tables(block_tables: torch.Tensor, window: int) -> torch.Tensor:
   """[B, mp] → [B·W, mp]: each row's table repeated once per window
   position, the layout ``paged_window_attention`` takes. Tables are constant
-  over a spec chunk, so this runs once per chunk, not per layer."""
-  return block_tables.repeat_interleave(window, dim=0).contiguous()
+  over a spec chunk, so this runs once per chunk, not per layer. An expand
+  and one copy, so a CUDA-graph capture records it with no read of the
+  device."""
+  B, mp = block_tables.shape
+  return block_tables[:, None, :].expand(B, window, mp).reshape(B * window, mp).contiguous()
 
 
 def paged_window_attention_ref(q, k_pool_l, v_pool_l, block_tables, positions, page_size: int, k_scale_pool_l=None, v_scale_pool_l=None) -> torch.Tensor:

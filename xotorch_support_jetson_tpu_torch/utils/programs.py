@@ -18,15 +18,20 @@ schema and the same signature rule:
   within a bucket builds nothing. ``tracked(family, static_argnames)`` is
   the decorator form (the counterpart of ``tracked_jit``).
 - ``Graph`` is what a build makes on the card: a ``torch.cuda.CUDAGraph``
-  of one step of work, captured the first time it runs (that run itself is
+  of one unit of work, captured the first time it runs (that run itself is
   eager and is the dispatch's real work) and replayed at every later run.
   The captured solo programs (models/decoder.py ``SoloPrograms``) are made
-  of them: each prefill bucket and each decode step is one replay. On the
-  CPU a Graph runs its body eagerly every time, so the bookkeeping is
-  testable anywhere. A capture or replay that fails raises: there is no
-  fallback to the eager loop. Captures and replays are counted per family
-  next to the reference's keys (``captures``, ``replays``, ``capture_s``,
-  ``graph_kernels``).
+  of them — each prefill bucket and each decode step is one replay — and
+  so are the batched server's (``BatchedPrograms``): each admission
+  prefill and each plain, mixed or speculative chunk, all its steps or
+  rounds, is one replay. A run can reseed the graph's generators first
+  (``seed``), so a replay draws what an eager run from a freshly seeded
+  generator draws. On the CPU a Graph runs its body eagerly every time, so
+  the bookkeeping is testable anywhere. A capture or replay that fails
+  raises: there is no fallback to the eager loop. Captures and replays are
+  counted per family next to the reference's keys (``captures``,
+  ``replays``, ``capture_s``, ``graph_kernels``); ``pool_bytes`` reads what
+  a graph memory pool holds.
 - Launch accounting. A kernel wrapper launches nothing while its stream is
   being captured (ops/kernels.py ``count_launch`` counts that call in
   ``CAPTURED`` instead of its ``LAUNCHES``); each Graph keeps the kernels
@@ -443,11 +448,18 @@ class Graph:
     self.graph = None
     self.kernels: dict[str, int] = {}  # wrapper launches per replay, by kernel
     self.kernel_nodes = 0  # every kernel node of the graph (cuGraphGetNodes)
+    self.capture_s = 0.0  # the capture with its instantiation
 
-  def run(self, device, family: str | None = None) -> None:
+  def run(self, device, family: str | None = None, seed: int | None = None) -> None:
     """One run of the body: eager on the CPU; on a CUDA device eager and
     captured the first time, replayed after (counted under ``family``,
-    default the family that built the graph)."""
+    default the family that built the graph). ``seed`` reseeds every
+    registered generator first (``manual_seed``): a replay reads the seed
+    and offset the generator holds when it is launched, so each run draws
+    what a fresh generator seeded with ``seed`` draws in the eager body."""
+    if seed is not None:
+      for g in self.generators:
+        g.manual_seed(int(seed))
     if getattr(device, "type", device) != "cuda":
       self.body()
       return
@@ -486,7 +498,8 @@ class Graph:
     self.kernel_nodes = graph_kernel_nodes(graph.raw_cuda_graph())
     graph.instantiate()
     self.graph = graph
-    ledger.note_capture(self.family, time.perf_counter() - t0, self.kernel_nodes)
+    self.capture_s = time.perf_counter() - t0
+    ledger.note_capture(self.family, self.capture_s, self.kernel_nodes)
 
 
 _CU_GRAPH_NODE_TYPE_KERNEL = 0
@@ -523,6 +536,24 @@ def graph_kernel_nodes(raw_graph: int) -> int:
       raise RuntimeError(f"cuGraphNodeGetType failed: CUresult {rc}")
     count += kinds.value == _CU_GRAPH_NODE_TYPE_KERNEL
   return count
+
+
+def pool_bytes(pool) -> int | None:
+  """Device bytes the caching allocator holds in the CUDA-graph memory pool
+  ``pool`` (a ``torch.cuda.graph_pool_handle()``): the segments of the
+  allocator's snapshot that belong to it. None where the snapshot does not
+  name its segments' pools."""
+  import torch
+
+  total, named = 0, False
+  for seg in torch.cuda.memory_snapshot():
+    pid = seg.get("segment_pool_id")
+    if pid is None:
+      continue
+    named = True
+    if tuple(pid) == tuple(pool):
+      total += int(seg["total_size"])
+  return total if named else None
 
 
 def kernels_in(fn) -> int:
