@@ -52,25 +52,36 @@ Phases (any failure exits non-zero and prints no result):
    XOT_TPU_SPEC_DECODE=ngram (draft-free n-gram chunks at depth ≤ 8,
    verify windows of 9), =int8 with XOT_TPU_SPEC_AUTOCAL=0 (the int8
    self-draft at depth 4, windows of 5), =int8 with the load-time A/B on
-   (its verdict and both tok/s are printed; either verdict passes), and
-   =int8 with XOT_TPU_SPEC_DRAFT naming a seeded 2-layer checkpoint at
-   llama-3.2-1b's widths that the script writes (a cross-model draft),
-   each serving one greedy blocking and one streaming request. The
-   counters are zeroed just before the requests and read just after. Gates:
-   the pass's spec chunks were dispatched; n-gram: K1 once per layer per
-   verify round (16 a round), blocking ids equal to phase 4's plain ids,
-   the streaming ids the plain single-token greedy choice given their own
-   prefix at ≥ 0.9 of the positions (bf16 window and single-token sums
-   may round apart at a near-tie, after which the stream follows its own
-   greedy path: its position-by-position agreement with phase 4's ids is
-   reported, not gated); a draft: K1 once per
-   target layer (verify) and once per draft layer (catch-up) in every
-   round and once per draft layer in each draft prefill, the blocking
+   (its verdict and both captured tok/s are printed; either verdict
+   passes), and =int8 with XOT_TPU_SPEC_DRAFT naming a seeded 2-layer
+   checkpoint at llama-3.2-1b's widths that the script writes (a
+   cross-model draft), each serving one greedy streaming and one blocking
+   request after the same two once as a warm-up (the draft's depth policy
+   reset after it), every dispatch captured (models/decoder.py
+   ``SoloPrograms``: a round, an n-gram chunk or a draft prefill is one
+   replay). Each pass starts from an empty program ledger. The
+   counters are zeroed just before the counted requests and read just
+   after. Gates: the pass's spec chunks were dispatched; every K1 launch
+   inside a graph run and every host launch in the first run of a graph
+   the pass captured (each dispatch a replay or a new graph's first run),
+   captures ≤ builds per family (``[graphs] spec pass=`` lines); n-gram: K1
+   once per layer per verify round (16 a round), blocking ids equal to the
+   plain pass's, the streaming ids the plain single-token greedy choice
+   given their own prefix at ≥ 0.9 of the positions (bf16 window and
+   single-token sums may round apart at a near-tie, after which the stream
+   follows its own greedy path: its position-by-position agreement with
+   the plain ids is reported, not gated); a draft: K1 once per target
+   layer (verify) and once per draft layer (catch-up) in every round and
+   once per draft layer in each draft prefill, the blocking
    (``fused_speculative_generate``) and streaming ids equal, and for the
    cross pass the 2-layer draft loaded. Acceptance, the n-gram depth after
-   each read and the decode rates beside phase 4's are reported, and
-   ``torch.profiler`` splits one n-gram spec chunk (3 rounds at depth 8)
-   and one int8-draft round into host and device time. Phase 3 also holds
+   each read and the decode rates beside phase 4's are reported. Then the
+   acceptance ceiling: an echo checkpoint (the port's
+   ``peaked_echo_params`` of the same seeded weights) and a 2-layer draft
+   written from it, served plain and then with ``ngram``, ``int8`` with
+   the A/B on, and the cross draft, gated alike, each pass's acceptance,
+   tok/s against the echo checkpoint's plain pass and A/B verdict on a
+   ``[spec] ceiling`` line. Phase 3 also holds
    K1 at the verify windows (B=1, Sq 5 and 9, offsets 72 / 1024 / 4086,
    bf16 and int8 K/V);
 5c. graphs — the solo path's captured programs (models/decoder.py
@@ -93,7 +104,19 @@ Phases (any failure exits non-zero and prints no result):
    captured and eager (device: CUDA events around a call queued behind a
    spin kernel), with the card's name and power limit, and the captured
    bf16 step at positions 128 and 4000 of the 4096-slot cache with K2
-   (``XOT_TPU_FLASH_DECODE=1``) and without (recorded, not gated). Then the
+   (``XOT_TPU_FLASH_DECODE=1``) and without (recorded, not gated). The
+   ``[graphs] spec`` cell: with the int8 self-draft and with the 2-layer
+   cross draft, on a pooled 4096-slot pair, three rounds of captured
+   against uncaptured dispatches on refilled buffers (the draft's 128-bucket
+   prefill, chained 8-token draft-chain chunks at depth 4, chained n-gram
+   chunks of 3 rounds at depth 8, 64-token speculative oneshots):
+   token-identical, K1 once per layer per window in each captured round;
+   ``[profile] graphs spec`` lines: captured wall and device ms (events
+   behind a spin kernel) of an n-gram chunk, one int8 and one cross round,
+   the oneshot and the draft prefill, kernel nodes, capture seconds and the
+   graph pool's bytes, beside the eager function's wall and device ms; and
+   K1 at Sq 5 and 9 inside a replay on a refilled query and offset within
+   its bounds, one kernel node. Then the
    solo daemon: four requests, ``POST /v1/warmup``, the same four again,
    ``GET /v1/programs`` (and ``?scope=cluster``): no steady build, no new
    capture during the repeat, the three solo families replaying, greedy ids
@@ -867,10 +890,12 @@ class ByteTokenizer:
     return text + ("<|assistant|>" if add_generation_prompt else "")
 
 
-def write_checkpoint(torch, path: Path, layers: int | None = None, seed: int = SEED) -> float:
+def write_checkpoint(torch, path: Path, layers: int | None = None, seed: int = SEED, echo: bool = False) -> float:
   """Seeded random bf16 weights at llama-3.2-1b's shapes, HF names, one
   .safetensors file (tied embeddings: no lm_head); ``layers`` cuts the
-  depth (the cross-model draft)."""
+  depth (the cross-model draft: the same seed gives it the target's
+  embedding and first layers); ``echo`` writes the port's
+  ``peaked_echo_params`` of those weights (the acceptance ceiling)."""
   from xotorch_support_jetson_tpu_torch.models.loader import save_safetensors
 
   t0 = time.perf_counter()
@@ -892,6 +917,16 @@ def write_checkpoint(torch, path: Path, layers: int | None = None, seed: int = S
       p + "self_attn.v_proj.weight": w(kd, D), p + "self_attn.o_proj.weight": w(D, qd),
       p + "mlp.gate_proj.weight": w(F_, D), p + "mlp.up_proj.weight": w(F_, D), p + "mlp.down_proj.weight": w(D, F_),
     })
+  if echo:
+    from xotorch_support_jetson_tpu_torch.utils.synthetic import peaked_echo_params
+
+    # The port's leaf names over the HF tensors (a scale ignores orientation).
+    names = {"wo": "self_attn.o_proj.weight", "w_down": "mlp.down_proj.weight"}
+    stacks = {k: torch.stack([tensors[f"model.layers.{i}.{n}"] for i in range(L)]) for k, n in names.items()}
+    damped = peaked_echo_params({"layers": stacks})["layers"]
+    for k, n in names.items():
+      for i in range(L):
+        tensors[f"model.layers.{i}.{n}"] = damped[k][i].clone()
   path.mkdir(parents=True, exist_ok=True)
   (path / "config.json").write_text(json.dumps(c, indent=1))
   save_safetensors(path / "model.safetensors", tensors)
@@ -1331,47 +1366,82 @@ SPEC_PASSES = {
   "int8_autocal": {"XOT_TPU_SPEC_DECODE": "int8"},
   "cross": {"XOT_TPU_SPEC_DECODE": "int8", "XOT_TPU_SPEC_AUTOCAL": "0", "XOT_TPU_SPEC_DRAFT": ""},
 }
+# The acceptance ceiling: the same passes on the echo checkpoint (the port's
+# peaked_echo_params of the same seeded weights, and a 2-layer draft written
+# from them), after a plain pass on it that they are compared with.
+ECHO_PASSES = {
+  "echo_plain": {},
+  "echo_ngram": SPEC_PASSES["ngram"],
+  "echo_int8_autocal": SPEC_PASSES["int8_autocal"],
+  "echo_cross": SPEC_PASSES["cross"],
+}
 DRAFT_LAYERS = 2
+SPEC_FAMILIES = ("spec.chunk", "spec.generate", "spec.batch")
 
 
-def phase_spec_serving(torch, ckpt: Path, plain):
+def phase_spec_serving(torch, ckpt: Path, draft_dir: Path, plain):
   """One solo daemon pass per ``SPEC_PASSES`` entry on the served
-  checkpoint; ``plain`` is phase 4's summary (its greedy ids and decode
-  rate)."""
-  from xotorch_support_jetson_tpu_torch import main as tmain
-
-  draft_dir = ROOT / "build" / "smoke_draft"
-  out = {}
-  try:
-    write_checkpoint(torch, draft_dir, layers=DRAFT_LAYERS)
-    for name, env in SPEC_PASSES.items():
-      args, port = _daemon_args(tmain, ckpt)
-      env = {k: (str(draft_dir) if k == "XOT_TPU_SPEC_DRAFT" else v) for k, v in env.items()}
-      os.environ.update(env)
-      try:
-        out[name] = asyncio.run(_serve_spec(torch, tmain, args, port, name, env, plain))
-      finally:
-        for knob in env:
-          os.environ.pop(knob, None)
-      gc.collect()
-      torch.cuda.empty_cache()
-  finally:
-    shutil.rmtree(draft_dir, ignore_errors=True)
+  checkpoint (``plain`` is phase 4's summary: its greedy ids and decode
+  rate), then the ``ECHO_PASSES`` on the echo checkpoint, which this phase
+  writes and removes."""
+  out = {name: _spec_pass(torch, ckpt, draft_dir, name, env, plain) for name, env in SPEC_PASSES.items()}
   a, b = out["int8"], out["cross"]
   log(f"[spec] int8 self-draft vs {DRAFT_LAYERS}-layer cross draft: acceptance {a['acceptance']:.3f} / {b['acceptance']:.3f}, streaming {a['decode_tok_s']:.1f} / {b['decode_tok_s']:.1f} tok/s, blocking {a['blocking_tok_s']:.1f} / {b['blocking_tok_s']:.1f} tok/s (plain: streaming {plain['decode_tok_s']:.1f}, blocking {plain['blocking_tokens'] / plain['blocking_s']:.1f})")
+  echo_dir, echo_draft = ROOT / "build" / "smoke_echo_ckpt", ROOT / "build" / "smoke_echo_draft"
+  try:
+    write_s = write_checkpoint(torch, echo_dir, echo=True) + write_checkpoint(torch, echo_draft, layers=DRAFT_LAYERS, echo=True)
+    log(f"[spec] wrote the echo checkpoint (peaked_echo_params of the same seeded weights) and its {DRAFT_LAYERS}-layer echo draft in {write_s:.1f} s")
+    echo_plain = None
+    for name, env in ECHO_PASSES.items():
+      res = out[name] = _spec_pass(torch, echo_dir, echo_draft, name, env, echo_plain)
+      if echo_plain is None:
+        echo_plain = dict(greedy_tokens_default=res["greedy_blocking"], decode_tok_s=res["decode_tok_s"], blocking_tokens=len(res["greedy_blocking"]), blocking_s=res["blocking_s"])
+  finally:
+    shutil.rmtree(echo_dir, ignore_errors=True)
+    shutil.rmtree(echo_draft, ignore_errors=True)
+  for name in ECHO_PASSES:
+    r = out[name]
+    cal = r["calibration"]
+    verdict = "A/B off" if cal is None else f"A/B {cal['verdict']}: {cal['spec_tok_s']:.1f} (captured rounds) vs {cal['plain_tok_s']:.1f} (captured steps) tok/s"
+    acc = "n/a" if r["acceptance"] is None else f"{r['acceptance']:.3f}"
+    log(f"[spec] ceiling pass={name}: acceptance {acc}; streaming {r['decode_tok_s']:.1f} tok/s ({r['decode_tok_s'] / echo_plain['decode_tok_s']:.3f}x the echo checkpoint's plain {echo_plain['decode_tok_s']:.1f}), blocking {r['blocking_tok_s']:.1f} tok/s ({r['blocking_tok_s'] * echo_plain['blocking_s'] / echo_plain['blocking_tokens']:.3f}x); {verdict}")
   return out
 
 
-def _spy_solo_spec(engine, dec, fa, rec):
-  """Count what the solo spec programs launch, until the returned function
-  removes the spies: each draft round (``_spec_solo_round``: its K1
-  launches, the verify window and the draft's catch-up), each n-gram chunk
-  (``fused_spec_batch_decode``: rounds, depth cap, K1 launches), each
-  draft prefill (K1), each dispatch's kind, each acceptance the draft
-  policy folds in, and each n-gram session's depth after a read."""
-  orig_round, orig_batch = dec._spec_solo_round, dec.fused_spec_batch_decode
-  orig_prefill, orig_dispatch = engine._ensure_draft_cache, engine._dispatch_chunk_sync
+def _spec_pass(torch, ckpt: Path, draft_dir: Path, name: str, env: dict, plain):
+  from xotorch_support_jetson_tpu_torch import main as tmain
+
+  args, port = _daemon_args(tmain, ckpt)
+  env = {k: (str(draft_dir) if k == "XOT_TPU_SPEC_DRAFT" else v) for k, v in env.items()}
+  os.environ.update(env)
+  t0 = time.perf_counter()
+  try:
+    return asyncio.run(_serve_spec(torch, tmain, args, port, name, env, plain))
+  finally:
+    log(f"[spec] pass={name}: {time.perf_counter() - t0:.1f} s with the daemon's start and load")
+    for knob in env:
+      os.environ.pop(knob, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _spy_solo_spec(engine, dec, rec):
+  """Count what the solo programs launch, until the returned function
+  removes the spies: every graph run (utils/programs.py ``Graph.run``: its
+  family, whether it was the graph's first run, its K1 launches; a draft
+  round's are its verify window and its catch-up), each n-gram chunk
+  (``fused_spec_batch_decode``: rounds, depth cap, K1 launches), each draft
+  prefill (K1), each dispatch's kind, each acceptance the draft policy
+  folds in, and each n-gram session's depth after a read."""
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  orig_run, orig_batch = programs.Graph.run, dec.fused_spec_batch_decode
   orig_note, orig_read = engine._note_spec_acceptance, engine._read_chunk_sync
+
+  def graph_run(graph, device, family=None, seed=None):
+    new, k1 = graph.graph is None, _launched("flash_prefill")
+    orig_run(graph, device, family, seed)
+    rec["graph_runs"].append(dict(family=family or graph.family, new=new, k1=_launched("flash_prefill") - k1))
 
   def counted(fn, key, **extra):
     def run(*a, **kw):
@@ -1382,10 +1452,10 @@ def _spy_solo_spec(engine, dec, fa, rec):
 
     return run
 
-  dec._spec_solo_round = counted(orig_round, "rounds")
+  programs.Graph.run = graph_run
   dec.fused_spec_batch_decode = counted(orig_batch, "ngram_chunks", rounds=lambda a, kw, r: int(a[13]), gmax=lambda a, kw, r: int(a[14]))
-  engine._ensure_draft_cache = counted(orig_prefill, "draft_prefills")
-  engine._dispatch_chunk_sync = counted(orig_dispatch, "dispatches", kind=lambda a, kw, h: "none" if h is None else (h[0] if isinstance(h, tuple) else "plain"))
+  engine._ensure_draft_cache = counted(engine._ensure_draft_cache, "draft_prefills")
+  engine._dispatch_chunk_sync = counted(engine._dispatch_chunk_sync, "dispatches", kind=lambda a, kw, h: "none" if h is None else (h[0] if isinstance(h, tuple) else "plain"))
   engine._generate_speculative_sync = counted(engine._generate_speculative_sync, "oneshots")
 
   def note(emitted, rounds, gamma):
@@ -1402,7 +1472,7 @@ def _spy_solo_spec(engine, dec, fa, rec):
   engine._note_spec_acceptance, engine._read_chunk_sync = note, read
 
   def remove():
-    dec._spec_solo_round, dec.fused_spec_batch_decode = orig_round, orig_batch
+    programs.Graph.run, dec.fused_spec_batch_decode = orig_run, orig_batch
     for name in ("_ensure_draft_cache", "_dispatch_chunk_sync", "_generate_speculative_sync", "_note_spec_acceptance", "_read_chunk_sync"):
       delattr(engine, name)
 
@@ -1415,11 +1485,17 @@ def _agreement(a, b) -> float:
 
 
 async def _serve_spec(torch, tmain, args, port, name, env, plain):
+  """One speculation pass (``plain`` None: the plain pass on the echo
+  checkpoint, whose ids the passes after it are held to). The program
+  ledger starts empty, as in a fresh daemon."""
   from xotorch_support_jetson_tpu_torch.inference.shard import Shard
   from xotorch_support_jetson_tpu_torch.models import decoder as dec
   from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa
+  from xotorch_support_jetson_tpu_torch.utils import programs
   from xotorch_support_jetson_tpu_torch.utils.metrics import metrics, snapshot_delta
 
+  base = name.removeprefix("echo_")
+  programs.ledger.reset()
   node, api, engine, _ = tmain.build_components(args, tokenizer=ByteTokenizer())
   server = await api.run(host="127.0.0.1", port=port)
   try:
@@ -1432,19 +1508,21 @@ async def _serve_spec(torch, tmain, args, port, name, env, plain):
     L_t = engine.cfg.n_layers
     L_d = (engine._draft_cfg or engine.cfg).n_layers
     res = dict(env=env, load_s=load_s, calibration=cal, draft_loaded=draft, draft_layers=L_d if draft else None)
-    if name == "int8_autocal":
+    if base == "int8_autocal":
       if cal is None:
-        raise SystemExit("chip_smoke: spec int8_autocal: the load-time A/B did not run")
-      log(f"[spec] pass=int8_autocal: load-time A/B verdict {cal['verdict']}: speculative {cal['spec_tok_s']:.1f} tok/s vs plain {cal['plain_tok_s']:.1f} tok/s (64 greedy tokens, 256-slot cache, best of two); load {load_s:.1f} s")
-    elif not draft and name != "ngram":
+        raise SystemExit(f"chip_smoke: spec {name}: the load-time A/B did not run")
+      log(f"[spec] pass={name}: load-time A/B verdict {cal['verdict']}: speculative {cal['spec_tok_s']:.1f} tok/s (captured rounds) vs plain {cal['plain_tok_s']:.1f} tok/s (captured steps) (64 greedy tokens, 256-slot cache pair, best of two after a warm-up run that captures); load {load_s:.1f} s")
+    elif not draft and base not in ("ngram", "plain"):
       raise SystemExit(f"chip_smoke: spec {name}: the draft did not load")
-    if name == "cross" and L_d != DRAFT_LAYERS:
-      raise SystemExit(f"chip_smoke: spec cross: the draft has {L_d} layers, expected {DRAFT_LAYERS}")
-    # A sampled warm-up: it never speculates, so the draft's depth enters
-    # the counted requests untouched.
-    await _serve_requests(torch, node, engine, port, [("warmup", _chat_body(False, 0.8))])
-    rec = {k: [] for k in ("rounds", "ngram_chunks", "draft_prefills", "dispatches", "acceptance", "ngram_depths", "oneshots")}
-    remove = _spy_solo_spec(engine, dec, fa, rec)
+    if base == "cross" and L_d != DRAFT_LAYERS:
+      raise SystemExit(f"chip_smoke: spec {name}: the draft has {L_d} layers, expected {DRAFT_LAYERS}")
+    # Warm-up: the counted requests once, so their graphs exist when the
+    # counted ones run (a daemon past its first traffic); then the draft's
+    # depth policy restarts where a load leaves it.
+    await _serve_requests(torch, node, engine, port, [("warmup streaming", _chat_body(True, 0)), ("warmup blocking", _chat_body(False, 0))])
+    engine._spec_ewma, engine._spec_gamma_live, engine._spec_plain_streak = None, engine.spec_gamma, 0
+    rec = {k: [] for k in ("graph_runs", "ngram_chunks", "draft_prefills", "dispatches", "acceptance", "ngram_depths", "oneshots")}
+    remove = _spy_solo_spec(engine, dec, rec)
     before = metrics.snapshot()
     _reset_launches()  # ---- this pass's main path, counted
     try:
@@ -1452,36 +1530,54 @@ async def _serve_spec(torch, tmain, args, port, name, env, plain):
       # request's acceptance then makes of it.
       run = await _serve_requests(torch, node, engine, port, [("greedy streaming", _chat_body(True, 0)), ("greedy blocking", _chat_body(False, 0))])
       launches = {n: _launched(n) for n in ("flash_prefill", "flash_decode")}  # ---- read just after
+      host_k1 = fa.LAUNCHES["flash_prefill"]
     finally:
       remove()
     delta = snapshot_delta(before, metrics.snapshot())
+    fams = programs.ledger.snapshot()["families"]
     streaming, blocking = run
+    if plain is None:
+      plain = dict(greedy_tokens_default=blocking["tokens"], decode_tok_s=_decode_rate(streaming))
     kinds = [d["kind"] for d in rec["dispatches"]]
     spec_kind = "ngram" if not draft else "spec"
+    rounds = [r for r in rec["graph_runs"] if r["family"] in ("spec.chunk", "spec.generate")]
     res.update(
       launches=launches, greedy_blocking=blocking["tokens"], greedy_streaming=streaming["tokens"], kinds=kinds,
       ttft_s=streaming["ttft_s"], decode_tok_s=_decode_rate(streaming), blocking_s=blocking["total_s"], blocking_tok_s=len(blocking["tokens"]) / blocking["total_s"],
       agreement_streaming_vs_plain=_agreement(streaming["tokens"], plain["greedy_tokens_default"]), agreement_blocking_vs_plain=_agreement(blocking["tokens"], plain["greedy_tokens_default"]),
-      draft_rounds=len(rec["rounds"]), draft_prefills=len(rec["draft_prefills"]), ngram_chunks=rec["ngram_chunks"], ngram_depths=rec["ngram_depths"],
-      speculative_oneshots=len(rec["oneshots"]),
+      draft_rounds=len(rounds), draft_prefills=len(rec["draft_prefills"]), ngram_chunks=rec["ngram_chunks"], ngram_depths=rec["ngram_depths"],
+      speculative_oneshots=len(rec["oneshots"]), acceptance=None,
+      programs={f: {k: fams.get(f, {}).get(k, 0) for k in ("compiles", "dispatches", "captures", "replays", "graph_kernels")} for f in sorted(fams)},
+      graph_runs=len(rec["graph_runs"]), graph_first_runs=sum(r["new"] for r in rec["graph_runs"]), host_k1=host_k1,
     )
-    if name == "int8" and not rec["oneshots"]:
-      raise SystemExit("chip_smoke: spec int8: the blocking request did not run fused_speculative_generate")
-    if spec_kind not in kinds and name != "int8_autocal":
+    # Every launch of the counted requests ran inside a graph run, and every
+    # host launch in the eager first run of a graph this pass captured: each
+    # dispatch was a replay, or the first run of a new graph.
+    in_runs, in_first = sum(r["k1"] for r in rec["graph_runs"]), sum(r["k1"] for r in rec["graph_runs"] if r["new"])
+    over = {f: v for f, v in res["programs"].items() if v["captures"] > v["compiles"]}
+    log(f"[graphs] spec pass={name}: {len(rec['graph_runs'])} graph runs, {res['graph_first_runs']} of them first runs; K1 {launches['flash_prefill']} launches, {in_runs} inside graph runs, host {host_k1} (first runs {in_first}); GET /v1/programs families {res['programs']}")
+    if launches["flash_prefill"] != in_runs or host_k1 != in_first or over:
+      raise SystemExit(f"chip_smoke: spec {name}: a dispatch ran outside its programs (K1 {launches['flash_prefill']} against {in_runs} in graph runs, host {host_k1} against {in_first} in first runs) or captured more than it built {over}")
+    if base == "int8" and not rec["oneshots"]:
+      raise SystemExit(f"chip_smoke: spec {name}: the blocking request did not run fused_speculative_generate")
+    if base not in ("int8_autocal", "plain") and spec_kind not in kinds:
       raise SystemExit(f"chip_smoke: spec {name}: no {spec_kind} chunk was dispatched ({kinds})")
     if draft:
       # Every round launches K1 once per target layer (the verify window)
       # and once per draft layer (the catch-up); every draft prefill once
       # per draft layer; every request's prefill once per target layer.
-      bad = [r for r in rec["rounds"] if r["k1"] != L_t + L_d] + [p for p in rec["draft_prefills"] if p["k1"] not in (0, L_d)]
-      expect = 2 * L_t + sum(p["k1"] for p in rec["draft_prefills"]) + len(rec["rounds"]) * (L_t + L_d)
-      if bad or not rec["rounds"] or launches["flash_prefill"] != expect:
-        raise SystemExit(f"chip_smoke: spec {name}: K1 launches {launches} against {expect} expected ({len(rec['rounds'])} rounds of {L_t} + {L_d} layers; off: {bad[:4]})")
+      bad = [r for r in rounds if r["k1"] != L_t + L_d] + [p for p in rec["draft_prefills"] if p["k1"] not in (0, L_d)]
+      expect = 2 * L_t + sum(p["k1"] for p in rec["draft_prefills"]) + len(rounds) * (L_t + L_d)
+      if bad or not rounds or launches["flash_prefill"] != expect:
+        raise SystemExit(f"chip_smoke: spec {name}: K1 launches {launches} against {expect} expected ({len(rounds)} rounds of {L_t} + {L_d} layers; off: {bad[:4]})")
       if blocking["tokens"] != streaming["tokens"]:
         raise SystemExit(f"chip_smoke: spec {name}: greedy blocking and streaming differ:\n{blocking['tokens']}\n{streaming['tokens']}")
-      emitted, rounds = sum(x[0] for x in rec["acceptance"]), sum(x[1] for x in rec["acceptance"])
-      res["acceptance"] = (emitted - rounds) / max(sum(x[1] * x[2] for x in rec["acceptance"]), 1)  # accepted over proposed
+      emitted, n_rounds = sum(x[0] for x in rec["acceptance"]), sum(x[1] for x in rec["acceptance"])
+      res["acceptance"] = (emitted - n_rounds) / max(sum(x[1] * x[2] for x in rec["acceptance"]), 1)  # accepted over proposed
       res["acceptance_calls"] = rec["acceptance"]
+    elif base == "plain":
+      if blocking["tokens"] != streaming["tokens"] or launches["flash_prefill"] != 2 * L_t or kinds.count("plain") != len([k for k in kinds if k != "none"]):
+        raise SystemExit(f"chip_smoke: spec {name}: greedy blocking and streaming differ, or K1 launches {launches} against {2 * L_t}, or kinds {kinds}")
     else:
       spec_chunks = [c for c in rec["ngram_chunks"] if c["gmax"] > 0]
       bad = [c for c in rec["ngram_chunks"] if c["k1"] != (L_t * c["rounds"] if c["gmax"] > 0 else 0)]
@@ -1490,21 +1586,18 @@ async def _serve_spec(torch, tmain, args, port, name, env, plain):
       accepted = _by_label(delta, "spec_accepted_tokens_total", "proposer").get("ngram", 0)
       proposed = _by_label(delta, "spec_proposed_tokens_total", "proposer").get("ngram", 0)
       res.update(acceptance=accepted / max(proposed, 1), accepted=accepted, proposed=proposed, verify_rounds=sum(c["rounds"] for c in spec_chunks))
-      if name == "ngram":
+      if base == "ngram":
         res["teacher_forced"] = teacher_forced(torch, engine, streaming["tokens"])
         if not spec_chunks or res["teacher_forced"]["agreement"] < 0.9:
-          raise SystemExit(f"chip_smoke: spec ngram: {len(spec_chunks)} spec chunks; the streaming ids agree with plain single-token greedy on {res['teacher_forced']['agreement']:.3f} of their positions (gate 0.9)")
+          raise SystemExit(f"chip_smoke: spec {name}: {len(spec_chunks)} spec chunks; the streaming ids agree with plain single-token greedy on {res['teacher_forced']['agreement']:.3f} of their positions (gate 0.9)")
       if blocking["tokens"] != plain["greedy_tokens_default"]:
-        raise SystemExit(f"chip_smoke: spec {name}: blocking requests must stay plain, and their ids equal phase 4's")
-    log(f"[spec] pass={name}: {kinds.count(spec_kind)} {spec_kind} chunks of {len(kinds)} dispatches ({kinds}); {len(rec['oneshots'])} speculative blocking requests; acceptance {res['acceptance']:.3f}; K1 launches {launches['flash_prefill']} ({res['draft_rounds']} draft rounds, {len(rec['ngram_chunks'])} n-gram chunks {[(c['rounds'], c['gmax']) for c in rec['ngram_chunks']]}); n-gram depths after each read {rec['ngram_depths']}")
-    log(f"[spec] pass={name}: streaming TTFT {res['ttft_s']:.4f} s, decode {res['decode_tok_s']:.1f} tok/s (plain {plain['decode_tok_s']:.1f}); blocking {res['blocking_tok_s']:.1f} tok/s; ids agree position by position with phase 4's plain greedy ids: streaming {res['agreement_streaming_vs_plain']:.3f}, blocking {res['agreement_blocking_vs_plain']:.3f}; blocking == streaming: {blocking['tokens'] == streaming['tokens']}")
+        raise SystemExit(f"chip_smoke: spec {name}: blocking requests must stay plain, and their ids equal the plain pass's")
+    acc = "n/a" if res["acceptance"] is None else f"{res['acceptance']:.3f}"
+    log(f"[spec] pass={name}: {kinds.count(spec_kind)} {spec_kind} chunks of {len(kinds)} dispatches ({kinds}); {len(rec['oneshots'])} speculative blocking requests; acceptance {acc}; K1 launches {launches['flash_prefill']} ({res['draft_rounds']} draft rounds, {len(rec['ngram_chunks'])} n-gram chunks {[(c['rounds'], c['gmax']) for c in rec['ngram_chunks']]}); n-gram depths after each read {rec['ngram_depths']}")
+    log(f"[spec] pass={name}: streaming TTFT {res['ttft_s']:.4f} s, decode {res['decode_tok_s']:.1f} tok/s (plain {plain['decode_tok_s']:.1f}); blocking {res['blocking_tok_s']:.1f} tok/s; ids agree position by position with the plain pass's greedy ids: streaming {res['agreement_streaming_vs_plain']:.3f}, blocking {res['agreement_blocking_vs_plain']:.3f}; blocking == streaming: {blocking['tokens'] == streaming['tokens']}")
     if "teacher_forced" in res:
       tf = res["teacher_forced"]
       log(f"[spec] pass={name}: the streaming ids are the plain single-token greedy choice, given their own prefix, at {tf['agreement']:.3f} of the positions; mismatches (position, token and logit, plain's token and logit): {[(m['position'], m['token'], round(m['logit'], 5), m['plain'], round(m['plain_logit'], 5)) for m in tf['mismatches']]}")
-    if name == "ngram":
-      res["profile"] = profile_ngram_chunk(torch, engine)
-    elif name == "int8":
-      res["profile"] = profile_draft_round(torch, engine)
     return res
   finally:
     server.close()
@@ -1555,24 +1648,25 @@ def profile_ngram_chunk(torch, engine):
     out = fused_spec_batch_decode(engine.params, cfg, shard, None, cfg, shard, tok, cache, None, one(100, torch.int32), one(True, torch.bool), one(8, torch.int32), one(0.0, torch.float32), 3, 8, top_k=1, k_max=1, props=props, prop_counts=one(35, torch.int32))
     out[1].cpu()  # the read a chunk ends with
 
-  return _profile(torch, "n-gram spec chunk, B=1, 3 rounds at depth 8 (W=9)", chunk, 3)
+  return _profile(torch, "n-gram spec chunk, B=1, 3 rounds at depth 8 (W=9; eager)", chunk, 3)
 
 
-def profile_draft_round(torch, engine):
-  """One int8-draft round as the draft chain runs it: 4 draft steps, the
-  verify window (W = 5) and the draft's catch-up at position 100 of
+def profile_draft_round(torch, engine, what="int8-draft"):
+  """One draft round as the draft chain runs it, eagerly: 4 draft steps,
+  the verify window (W = 5) and the draft's catch-up at position 100 of
   4096-slot caches, and the read-back that ends a block."""
   from xotorch_support_jetson_tpu_torch.models.decoder import fused_speculative_generate, init_kv_cache
 
   cfg, shard = engine.cfg, engine._effective_shard
+  cfg_d, shard_d = engine._draft_cfg or cfg, engine._draft_shard or shard
   ct = init_kv_cache(cfg, cfg.n_layers, 1, CACHE, device="cuda")
-  cd = init_kv_cache(cfg, cfg.n_layers, 1, CACHE, device="cuda")
+  cd = init_kv_cache(cfg_d, cfg_d.n_layers, 1, CACHE, device="cuda")
   tok = torch.full((1, 1), 65, dtype=torch.int32, device="cuda")
 
   def one_round():
-    fused_speculative_generate(engine.params, cfg, shard, engine._draft_params, cfg, shard, tok, ct, cd, 100, 1, gamma=4)
+    fused_speculative_generate(engine.params, cfg, shard, engine._draft_params, cfg_d, shard_d, tok, ct, cd, 100, 1, gamma=4)
 
-  return _profile(torch, "int8-draft round, depth 4 (4 draft steps, W=5 verify, W=5 catch-up)", one_round, 3)
+  return _profile(torch, f"{what} round, depth 4 (4 draft steps, W=5 verify, W=5 catch-up; eager)", one_round, 3)
 
 
 # ------------------------------------------------------------- 6. batched
@@ -2823,12 +2917,13 @@ GRAPH_PROFILE_STEPS = 8
 SPIN_CYCLES_PER_S = 2.0e9  # torch.cuda._sleep cycles per second, an upper bound at the H100's clocks
 
 
-def phase_graphs(torch, ckpt: Path, smi: str):
+def phase_graphs(torch, ckpt: Path, draft_dir: Path, smi: str):
   """The captured solo programs (models/decoder.py ``SoloPrograms``) on the
   full-width checkpoint, per weight / KV mode, against the uncaptured
   functions called directly; K1, K2, K3 and K4 inside replays against their
-  plain versions; wall and device ms, captured and eager; then the solo
-  daemon through ``POST /v1/warmup`` and ``GET /v1/programs``."""
+  plain versions; wall and device ms, captured and eager; the captured
+  speculation (``spec_graphs``); then the solo daemon through ``POST
+  /v1/warmup`` and ``GET /v1/programs``."""
   from xotorch_support_jetson_tpu_torch.inference.shard import Shard
   from xotorch_support_jetson_tpu_torch.inference.torch_engine import TorchShardedInferenceEngine
 
@@ -2852,6 +2947,7 @@ def phase_graphs(torch, ckpt: Path, smi: str):
       gc.collect()
       torch.cuda.empty_cache()
   out["kernels_in_replay"] = kernels_in_replay(torch)
+  out["spec"] = spec_graphs(torch, ckpt, draft_dir, smi)
   out["daemon"] = asyncio.run(_graphs_daemon(torch, ckpt))
   return out
 
@@ -3105,6 +3201,220 @@ def kernels_in_replay(torch):
   return res
 
 
+SPEC_GRAPH_ROUNDS = 3  # captured against uncaptured: a round that builds the graphs, two that replay them on refilled buffers
+
+
+def spec_graphs(torch, ckpt: Path, draft_dir: Path, smi: str):
+  """The ``[graphs] spec`` cell: solo speculation's captured programs at
+  full width (models/decoder.py ``SoloPrograms`` on a pooled 4096-slot
+  cache pair, taken as a session takes one) against the uncaptured
+  functions on an identical pair of caches, with the int8 self-draft and
+  with the 2-layer cross draft; then K1 at the verify windows inside a
+  replay on refilled inputs."""
+  from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+  from xotorch_support_jetson_tpu_torch.inference.torch_engine import TorchShardedInferenceEngine
+
+  out = {}
+  for draft, knobs in (("int8", {}), ("cross", {"XOT_TPU_SPEC_DRAFT": str(draft_dir)})):
+    for knob in SERVING_KNOBS:
+      os.environ.pop(knob, None)
+    os.environ.update(XOT_TPU_SPEC_DECODE="int8", XOT_TPU_SPEC_AUTOCAL="0", **knobs)
+    engine = TorchShardedInferenceEngine(_CkptDir(ckpt), device="cuda", tokenizer=ByteTokenizer())
+    try:
+      asyncio.run(engine.ensure_shard(Shard("llama-3.2-1b", 0, 15, 16)))
+      out[draft] = _spec_graph_cases(torch, engine, draft, smi)
+    finally:
+      engine.executor.shutdown(wait=True)
+      for knob in SPEC_KNOBS:
+        os.environ.pop(knob, None)
+      del engine
+      gc.collect()
+      torch.cuda.empty_cache()
+  out["k1_in_replay"] = k1_verify_in_replay(torch)
+  return out
+
+
+def _spec_graph_cases(torch, engine, draft: str, smi: str):
+  """Captured against uncaptured over ``SPEC_GRAPH_ROUNDS`` rounds, each
+  dispatch chained on the last one's device outputs (so every round after
+  the first refills the graphs' buffers): the draft's prefill at the 128
+  bucket (logits within 5e-2 relative L2, the same argmax), draft-chain
+  chunks of 8 tokens at depth 4, and with the int8 self-draft n-gram
+  chunks of 3 rounds at depth 8 on a 35-token proposal stream, with the
+  cross draft 64-token speculative oneshots: tokens, counts and chained
+  outputs identical. Then wall and device ms of one captured dispatch
+  (``_replay_ms``) beside the eager function's (``_profile``): the n-gram
+  chunk, one draft round, the oneshot and the draft prefill, with each
+  graph's kernel nodes and capture seconds and the graph pool's bytes."""
+  from xotorch_support_jetson_tpu_torch.models import decoder as dec
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  cfg_d, shard_d, params_d = engine._draft_cfg or cfg, engine._draft_shard or shard, engine._draft_params
+  L_t, L_d = cfg.n_layers, cfg_d.n_layers
+  progs, _ = engine._take_programs(1, CACHE)
+  ct, cd = dec.init_kv_cache(cfg, L_t, 1, CACHE, device="cuda"), dec.init_kv_cache(cfg_d, L_d, 1, CACHE, device="cuda")
+  prompt = np.asarray([ByteTokenizer().encode(CHECK_PROMPT)], dtype=np.int32)
+  L = prompt.shape[1]
+  pad = np.zeros((1, 128), dtype=np.int32)
+  pad[:, :L] = prompt
+  x, positions, head = torch.from_numpy(pad).cuda(), torch.arange(128, dtype=torch.int32, device="cuda")[None], torch.tensor([L - 1], device="cuda")
+  one = lambda v, dt=torch.int32: torch.full((1,), v, dtype=dt, device="cuda")  # noqa: E731
+  gen = np.random.default_rng(SEED + 31)
+  res, errs, t0 = {"rounds": []}, [], time.perf_counter()
+  for rnd in range(SPEC_GRAPH_ROUNDS):
+    row = dict(round=rnd)
+    got_t, want_t = progs.prefill(pad, L), dec.shard_forward(params, cfg, shard, x, positions, ct, head_pos=head)[0][:, 0, :]
+    got_d, want_d = progs.draft.prefill(pad, L), dec.shard_forward(params_d, cfg_d, shard_d, x, positions, cd, head_pos=head)[0][:, 0, :]
+    row["prefill_rel_err"], row["draft_prefill_rel_err"] = _rel_err(got_t, want_t), _rel_err(got_d, want_d)
+    if int(got_t.argmax()) != int(want_t.argmax()) or int(got_d.argmax()) != int(want_d.argmax()) or not max(row["prefill_rel_err"], row["draft_prefill_rel_err"]) < 5e-2:
+      errs.append(("prefill", rnd, row))
+    first = int(want_t.argmax())
+    # Draft-chain chunks, chained on the device seed and position.
+    g_in = e_in = (torch.full((1, 1), first, dtype=torch.int32, device="cuda"), L)
+    chunks = []
+    for c in range(3):
+      g = dec.fused_speculative_chunk(params, cfg, shard, params_d, g_in[0], progs.cache, progs.draft.cache, g_in[1], 8, gamma=4, n_limit=8, cfg_d=cfg_d, shard_d=shard_d, pos_hi=L + 13 * c, programs=progs)
+      e = dec.fused_speculative_chunk(params, cfg, shard, params_d, e_in[0], ct, cd, e_in[1], 8, gamma=4, n_limit=8, cfg_d=cfg_d, shard_d=shard_d, pos_hi=L + 13 * c)
+      gp, ep = g[0].tolist(), e[0].tolist()
+      chunks.append(gp[: 2 + gp[0]])
+      if gp[: 2 + gp[0]] != ep[: 2 + ep[0]] or int(g[1]) != int(e[1]) or int(g[2]) != int(e[2]):
+        errs.append(("chunk", rnd, c, gp[: 2 + gp[0]], ep[: 2 + ep[0]]))
+      g_in, e_in = (g[1], g[2]), (e[1], e[2])
+    row["chunks"] = chunks
+    start = int(e_in[1])
+    if draft == "int8":
+      # n-gram chunks on the target alone, chained likewise.
+      g_in = e_in = (torch.full((1, 1), first, dtype=torch.int32, device="cuda"), one(start))
+      ngram = []
+      for c in range(3):
+        props = torch.from_numpy(gen.integers(3, 256, (1, 35)).astype(np.int32)).cuda()
+        common = (params, cfg, shard, None, cfg, shard)
+        tail = (one(True, torch.bool), one(8), one(0.0, torch.float32), 3, 8)
+        g = dec.fused_spec_batch_decode(*common, g_in[0], progs.cache, None, g_in[1], *tail, top_k=1, k_max=1, props=props, prop_counts=one(35), programs=progs)
+        e = dec.fused_spec_batch_decode(*common, e_in[0], ct, None, e_in[1], *tail, top_k=1, k_max=1, props=props, prop_counts=one(35))
+        n = int(e[1][0])
+        ngram.append(g[0][0, : int(g[1][0])].tolist())
+        if any(not torch.equal(a, b) for a, b in zip(g[1:5], e[1:5])) or not torch.equal(g[0][:, :n], e[0][:, :n]):
+          errs.append(("ngram", rnd, c, ngram[-1], e[0][0, :n].tolist()))
+        g_in, e_in = (g[3], g[4]), (e[3], e[4])
+      row["ngram"] = ngram
+    else:
+      # Speculative oneshots from 64 tokens on.
+      at = start + 100 * rnd
+      tok = torch.full((1, 1), first, dtype=torch.int32, device="cuda")
+      g = dec.fused_speculative_generate(params, cfg, shard, params_d, cfg_d, shard_d, first, progs.cache, progs.draft.cache, at, 64, gamma=4, programs=progs)
+      e = dec.fused_speculative_generate(params, cfg, shard, params_d, cfg_d, shard_d, tok, ct, cd, at, 64, gamma=4)
+      row["oneshot"] = g[0][: g[1]].tolist()
+      if g[1:3] != e[1:3] or row["oneshot"] != e[0][: e[1]].tolist():
+        errs.append(("oneshot", rnd, g[1:3], e[1:3]))
+    res["rounds"].append(row)
+  if errs:
+    raise SystemExit(f"chip_smoke: [graphs] spec {draft}: captured differs from uncaptured: {errs[:3]}")
+  graphs = {g.family: g for g in progs.graphs() if g.family in SPEC_FAMILIES}
+  round_graph = graphs.get("spec.chunk") or graphs["spec.generate"]
+  bad = {f: g.kernels for f, g in graphs.items() if f != "spec.batch" and g.kernels.get("flash_prefill") != L_t + L_d}
+  if "spec.batch" in graphs and graphs["spec.batch"].kernels.get("flash_prefill") != 3 * L_t:
+    bad["spec.batch"] = graphs["spec.batch"].kernels
+  if bad:
+    raise SystemExit(f"chip_smoke: [graphs] spec {draft}: K1 is not once per layer per window in the captured rounds: {bad}")
+  log(f"[graphs] spec {draft}: {SPEC_GRAPH_ROUNDS} rounds captured against uncaptured token-identical in {time.perf_counter() - t0:.1f} s (draft prefill rel err max {max(r['draft_prefill_rel_err'] for r in res['rounds']):.3e}; chained draft-chain chunks, {'n-gram chunks' if draft == 'int8' else 'oneshots'}); graphs {[(g.family, g.kernel_nodes, round(g.capture_s, 3), g.kernels) for g in progs.graphs() + progs.draft.graphs()]}")
+  # Timing: one captured dispatch against the eager function.
+  tok = torch.full((1, 1), 65, dtype=torch.int32, device="cuda")
+  props = torch.full((1, 35), 65, dtype=torch.int32, device="cuda")
+  rows = {
+    "draft prefill, 128-token bucket": (lambda: progs.draft.prefill(pad, L), lambda: dec.shard_forward(params_d, cfg_d, shard_d, x, positions, cd, head_pos=head), progs.draft.graphs()[0], None, 5),
+    f"{draft} round, depth 4": (
+      lambda: dec.fused_speculative_chunk(params, cfg, shard, params_d, 65, progs.cache, progs.draft.cache, 100, 8, gamma=4, n_limit=1, cfg_d=cfg_d, shard_d=shard_d, programs=progs)[0].cpu(),
+      None, round_graph, lambda: profile_draft_round(torch, engine, f"{draft} draft"), 5,
+    ),
+  }
+  if draft == "int8":
+    rows["n-gram chunk, 3 rounds at depth 8"] = (
+      lambda: dec.fused_spec_batch_decode(params, cfg, shard, None, cfg, shard, tok, progs.cache, None, one(100), one(True, torch.bool), one(8), one(0.0, torch.float32), 3, 8, top_k=1, k_max=1, props=props, prop_counts=one(35), programs=progs)[1].cpu(),
+      None, graphs["spec.batch"], lambda: profile_ngram_chunk(torch, engine), 5,
+    )
+  else:
+    ct2, cd2 = dec.init_kv_cache(cfg, L_t, 1, CACHE, device="cuda"), dec.init_kv_cache(cfg_d, L_d, 1, CACHE, device="cuda")
+    rows["speculative oneshot, 64 tokens at depth 4"] = (
+      lambda: dec.fused_speculative_generate(params, cfg, shard, params_d, cfg_d, shard_d, 65, progs.cache, progs.draft.cache, 100, 64, gamma=4, programs=progs)[0].cpu(),
+      lambda: dec.fused_speculative_generate(params, cfg, shard, params_d, cfg_d, shard_d, tok, ct2, cd2, 100, 64, gamma=4)[0].cpu(), round_graph, None, 3,
+    )
+  res["profile"] = {}
+  for label, (captured, eager, graph, eager_profile, reps) in rows.items():
+    t0 = time.perf_counter()
+    wall, device = _replay_ms(torch, captured, 1, reps=reps)
+    if eager_profile:
+      ep = eager_profile()
+    elif "oneshot" in label:
+      ep = _eager_device_ms(torch, eager)
+    else:
+      ep = _profile(torch, f"graphs spec {draft}: {label} (eager)", eager, 3)
+    res["profile"][label] = dict(
+      captured_wall_ms=wall, captured_device_ms=device, wall_over_device=wall / device, kernel_nodes=graph.kernel_nodes, capture_s=graph.capture_s,
+      eager_wall_ms=ep["wall_ms"], eager_device_ms=ep["device_ms"], eager_launches=ep["launches"],
+    )
+    log(f"[profile] graphs spec {draft}: {label}: captured wall {wall:.3f} ms, device {device:.3f} ms (wall/device {wall / device:.3f}) | {graph.kernel_nodes} kernel nodes, capture {graph.capture_s:.3f} s | eager wall {ep['wall_ms']:.3f} ms, device {ep['device_ms']:.3f} ms, {ep['launches']:.0f} launches | {smi} ({time.perf_counter() - t0:.1f} s)")
+  res["graph_pool_bytes"] = programs.pool_bytes(engine._graph_pool)
+  log(f"[profile] graphs spec {draft}: the engine's graph memory pool holds {res['graph_pool_bytes']} bytes (the pair's prefill, step and speculation graphs)")
+  del progs, ct, cd
+  return res
+
+
+def _eager_device_ms(torch, fn):
+  """One eager call of ``fn``: its wall ms (host clock, card synchronised)
+  and device ms and kernels (torch.profiler with device activity only: a
+  call of ~150,000 launches would take the profiler minutes to sort with
+  its host events)."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  fn()
+  torch.cuda.synchronize()
+  wall_ms = (time.perf_counter() - t0) * 1e3
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+  return dict(wall_ms=wall_ms, device_ms=sum(e.self_device_time_total for e in device) / 1e3, launches=sum(e.count for e in device))
+
+
+def k1_verify_in_replay(torch):
+  """K1 at the solo verify windows (B=1, Sq 5 and 9: the draft chain's and
+  the n-gram chain's windows, and the draft's catch-up) over the 4096-slot
+  bf16 cache inside a captured graph, its query and offset refilled after
+  the capture: the replay's output within K1's bounds of its plain version
+  on the new inputs, one kernel node, one launch counted."""
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+  k, v = _rand(torch, (1, CACHE, 8, 64), gen, torch.bfloat16), _rand(torch, (1, CACHE, 8, 64), gen, torch.bfloat16)
+  res = {}
+  for Sq in (5, 9):
+    q = _rand(torch, (1, Sq, 32, 64), gen, torch.bfloat16)
+    off = torch.tensor([72], dtype=torch.int32, device="cuda")
+    out = fa.flash_attention_prefill(q, k, v, q_offset=off).clone()
+    graph = programs.Graph("check.flash_prefill", lambda q=q, off=off, out=out: out.copy_(fa.flash_attention_prefill(q, k, v, q_offset=off)))
+    graph.run(torch.device("cuda"))  # eager, then the capture
+    q.copy_(torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype))
+    off.fill_(CACHE - 10)
+    out.zero_()
+    before = programs.REPLAYED.get("flash_prefill", 0)
+    graph.run(torch.device("cuda"))  # the replay, on the refilled inputs
+    torch.cuda.synchronize()
+    want = fa.flash_attention_prefill_ref(q, k, v, q_offset=off).float()
+    err = (out.float() - want).abs()
+    used = float((err / (K1_EW_ATOL + K1_RTOL * want.abs())).max())
+    r = res[Sq] = dict(max_abs_err=float(err.max()), bound_used=used, kernel_nodes=graph.kernel_nodes, replay_launches=programs.REPLAYED.get("flash_prefill", 0) - before)
+    log(f"[graphs] spec: K1 at Sq {Sq} (B=1, offset 72 at capture, {CACHE - 10} at the replay) inside a replay on refilled inputs: max|err| {r['max_abs_err']:.3e} ({used:.3f} of atol {K1_EW_ATOL} + rtol {K1_RTOL:.3g}·|ref|; cap {K1_ATOL}); {graph.kernel_nodes} kernel node(s); launches counted for the replay: {r['replay_launches']}")
+    if not used <= 1.0 or not r["max_abs_err"] <= K1_ATOL or r["kernel_nodes"] != 1 or r["replay_launches"] != 1:
+      raise SystemExit(f"chip_smoke: [graphs] spec: K1 at Sq {Sq} inside a replay: {r}")
+  return res
+
+
 def _get_json(port: int, path: str):
   with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=120) as resp:
     return json.loads(resp.read())
@@ -3175,14 +3485,15 @@ def main() -> int:
   smi = phase_device(torch)
   build_s = phase_build()
   kern = phase_kernels(torch)
-  ckpt = ROOT / "build" / "smoke_ckpt"
+  ckpt, draft_dir = ROOT / "build" / "smoke_ckpt", ROOT / "build" / "smoke_draft"
   try:
     write_s = write_checkpoint(torch, ckpt)
     log(f"[serving] wrote a random bf16 llama-3.2-1b checkpoint ({sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9:.2f} GB) in {write_s:.1f} s")
     serving = phase_serving(torch, ckpt)
     quant = phase_quant_serving(torch, ckpt, serving.pop("_bf16_logits"))
-    spec = phase_spec_serving(torch, ckpt, serving)
-    graphs = phase_graphs(torch, ckpt, smi)
+    write_checkpoint(torch, draft_dir, layers=DRAFT_LAYERS)
+    spec = phase_spec_serving(torch, ckpt, draft_dir, serving)
+    graphs = phase_graphs(torch, ckpt, draft_dir, smi)
     # The int4-weights daemon first: the metrics registry and the SLO
     # engine are the process's, so a daemon started after the priority
     # pass would inherit its interactive burn (and the smallest budget).
@@ -3193,11 +3504,12 @@ def main() -> int:
     batched = phase_batched(torch, ckpt)
   finally:
     shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(draft_dir, ignore_errors=True)
   # Launches per kernel on each main path (the tiered multi-turn pass with
   # the tier on is "batched_tiered": K1, K3): the solo bf16 daemon run (K1,
   # K2), the solo quantized runs (K1; K4 under int4 weights), the solo
   # speculation runs ("solo_spec": K1 in prefills, verify windows and draft
-  # catch-ups), the batched
+  # catch-ups; "solo_spec_ceiling": the same on the echo checkpoint), the batched
   # runs on bf16 weights at the defaults (K1, K3; summed over the three pool
   # types), the same with XOT_TPU_MIXED_TICK=0, the priority pass, and the
   # batched run on int4 weights (K1, K3, K4). Of the batched default runs'
@@ -3210,7 +3522,8 @@ def main() -> int:
     "solo": [serving["launches"]], "solo_long_prompt": [serving["long"]["launches"]], "solo_quant": [q["launches"] for q in quant.values()],
     "batched": [bp[k]["launches"] for k in ("bf16", "int8", "int4")], "batched_nospec": [bp["bf16_nospec"]["launches"]], "batched_alternating": [bp["bf16_alternating"]["launches"]],
     "batched_fifo": [bp["bf16_fifo"]["launches"]], "batched_priority": [bp["bf16_priority"]["launches"]], "batched_int4_weights": [p["launches"] for p in batched_int4["passes"].values()],
-    "batched_tiered": [tiered["passes"]["tier_on"]["launches"]], "solo_spec": [p["launches"] for p in spec.values()],
+    "batched_tiered": [tiered["passes"]["tier_on"]["launches"]], "solo_spec": [spec[k]["launches"] for k in SPEC_PASSES],
+    "solo_spec_ceiling": [spec[k]["launches"] for k in ECHO_PASSES],
     "batched_spec": [p["spec"]["launches"] for p in [*bp.values(), *batched_int4["passes"].values()]],
     "solo_graphs": [graphs["daemon"]["launches"]],
   }

@@ -87,6 +87,18 @@ def test_gather_scatter_and_touched_targets_match_jax():
   np.testing.assert_array_equal(tpool.numpy()[:, real], want[:, real])
 
 
+@pytest.mark.parametrize("width", [1, 3])
+def test_gather_row_pages_is_contiguous_at_any_window(width):
+  """A one-page window (a short prompt's prefill or mixed slice) too: K1
+  takes the gathered K/V only as contiguous tensors."""
+  rng = np.random.default_rng(2)
+  pool = rng.standard_normal((2, 9, 2, PS, 4)).astype(np.float32)
+  bt = np.array([[4, 7, 2], [1, 8, 5]], np.int32)[:, :width]
+  got = paged.gather_row_pages(_t(pool), _t(bt))
+  assert got.is_contiguous()
+  np.testing.assert_array_equal(got.numpy(), np.asarray(jpaged.gather_row_pages(jnp.asarray(pool), jnp.asarray(bt))))
+
+
 # ------------------------------------------------------------- attention
 
 

@@ -520,7 +520,7 @@ def test_captured_batched_programs_equal_uncaptured_on_the_card(card, mode, monk
   keys: every token identical (greedy and seeded sampled rows), one graph
   per family signature, each replaying its kernels (K1 in the prefill and
   mixed graphs' slices, K3 in every chunk, K4 on int4 weights) and
-  holding kernel nodes; the pools agree."""
+  holding kernel nodes; the pools agree on every page but the trash page."""
   from xotorch_support_jetson_tpu_torch.inference.batch_ops import DecoderBatchOps
   from xotorch_support_jetson_tpu_torch.utils import programs
 
@@ -537,8 +537,11 @@ def test_captured_batched_programs_equal_uncaptured_on_the_card(card, mode, monk
       for a, b in zip(g, w):
         assert np.array_equal(a, b), (mode, rnd, i, kind)
   for key in captured:
-    a, b = captured[key].float(), eager[key].float()
-    assert torch.allclose(a, b, atol=1.0 if key in ("k", "v") and captured[key].dtype == torch.int8 else 2e-2, rtol=2e-2), key
+    # Page 0 is the trash page: the padding row's and masked writes land
+    # there in whatever order the kernels run, and nothing reads it.
+    a, b = captured[key][:, 1:].float(), eager[key][:, 1:].float()
+    close = torch.isclose(a, b, atol=1.0 if key in ("k", "v") and captured[key].dtype == torch.int8 else 2e-2, rtol=2e-2)
+    assert bool(close.all()), (key, sorted({int(p) + 1 for p in (~close).nonzero()[:, 1].tolist()})[:8])
   graphs = {g.family: g for g in ops.programs.graphs()}
   fams = sorted(g.family for g in ops.programs.graphs())
   assert fams == ["decode.mixed_paged_batch", "decode.paged_batch", "prefill.pages_many_sampled", "spec.paged_batch", "spec.paged_batch"]
@@ -596,3 +599,117 @@ def test_k3_inside_a_replay_on_refilled_inputs(card, window):
   want = paged.paged_decode_attention_ref(q, k, v, bt, lengths, ps).float()
   assert programs.REPLAYED.get("paged_decode", 0) - before == 1
   torch.testing.assert_close(out.float(), want, atol=2.5e-4, rtol=2.0**-7)
+
+
+def _card_draft(proposer: str, cfg, shard, params):
+  """(cfg, shard, params) of the card model's draft: its int8 self-draft,
+  or a 1-layer int8 model of another width on the same vocab."""
+  from xotorch_support_jetson_tpu_torch.models.quantize import quantize_params
+
+  if proposer == "int8":
+    return cfg, shard, quantize_params(params, "int8")
+  cfg_d = tconfig.tiny_test_config(vocab_size=512, dim=128, n_layers=1, n_heads=2, n_kv_heads=1, hidden_dim=256, max_seq_len=512, dtype=torch.bfloat16)
+  shard_d = Shard("draft", 0, 0, 1)
+  return cfg_d, shard_d, quantize_params(tdec.init_shard_params(cfg_d, shard_d, generator=torch.Generator(device="cuda").manual_seed(5), device="cuda"), "int8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8_kv"])
+@pytest.mark.parametrize("proposer", ["ngram", "int8", "cross"])
+def test_captured_spec_paths_equal_uncaptured_on_the_card(card, proposer, kv):
+  """Solo speculation through ``SoloPrograms`` (a target cache paired with
+  the draft's) against the eager functions on identical caches, in a round
+  that builds every graph and two that replay them on refilled buffers:
+  the prefills (target and draft), three draft-chain chunks chained on
+  the device seed and position and a speculative oneshot with an EOS id,
+  or three chained n-gram chunks with proposals and a tracking-only one:
+  every token and count identical, one graph per depth or chunk shape,
+  each round graph holding K1 once per target and draft layer."""
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  quant = "int8" if kv == "int8_kv" else ""
+  cfg, shard, params = _card_model()
+  pool = torch.cuda.graph_pool_handle()
+  draft = None
+  if proposer != "ngram":
+    cfg_d, shard_d, params_d = _card_draft(proposer, cfg, shard, params)
+    draft = tdec.SoloPrograms(params_d, cfg_d, shard_d, tdec.init_kv_cache(cfg_d, cfg_d.n_layers, 1, 512, quant=quant, device="cuda"), pool=pool)
+    cd = tdec.init_kv_cache(cfg_d, cfg_d.n_layers, 1, 512, quant=quant, device="cuda")
+  prog = tdec.SoloPrograms(params, cfg, shard, tdec.init_kv_cache(cfg, 2, 1, 512, quant=quant, device="cuda"), generator=torch.Generator(device="cuda"), pool=pool, draft=draft)
+  ct = tdec.init_kv_cache(cfg, 2, 1, 512, quant=quant, device="cuda")
+  rng = np.random.default_rng(1)
+  one = lambda v, dt=torch.int32: torch.full((1,), v, dtype=dt, device="cuda")  # noqa: E731
+  programs.reset_replayed()
+  for rnd in range(3):
+    prompt = rng.integers(3, 512, (1, 128)).astype(np.int32)
+    L = 60 + 7 * rnd
+    x, pos128 = torch.from_numpy(prompt).cuda(), torch.arange(128, dtype=torch.int32, device="cuda")[None]
+    want, _ = tdec.shard_forward(params, cfg, shard, x, pos128, ct, head_pos=torch.tensor([L - 1], device="cuda"))
+    got = prog.prefill(prompt, L)
+    torch.testing.assert_close(got, want[:, 0, :], **TOL)
+    first = int(torch.argmax(want[0, 0]))
+    if draft is None:
+      g_in = e_in = (torch.tensor([[first]], dtype=torch.int32, device="cuda"), one(L))
+      for c, G in enumerate((4, 4, 0)):  # the last chunk tracks only (no proposal)
+        props = torch.from_numpy(rng.integers(3, 512, (1, 2 * (G + 1) + G)).astype(np.int32)).cuda() if G else None
+        kw = dict(top_k=1, k_max=1, props=props, prop_counts=one(props.shape[1]) if G else None)
+        args = (one(True, torch.bool), one(G), one(0.0, torch.float32), 2 if G else 8, G)
+        g = tdec.fused_spec_batch_decode(params, cfg, shard, None, cfg, shard, g_in[0], prog.cache, None, g_in[1], *args, programs=prog, **kw)
+        e = tdec.fused_spec_batch_decode(params, cfg, shard, None, cfg, shard, e_in[0], ct, None, e_in[1], *args, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(g[:5], e[:5])), (proposer, kv, rnd, c)
+        g_in, e_in = (g[3], g[4]), (e[3], e[4])
+      continue
+    want_d, _ = tdec.shard_forward(params_d, cfg_d, shard_d, x, pos128, cd, head_pos=torch.tensor([L - 1], device="cuda"))
+    torch.testing.assert_close(draft.prefill(prompt, L), want_d[:, 0, :], **TOL)
+    g_in = e_in = (torch.tensor([[first]], dtype=torch.int32, device="cuda"), L)
+    for c in range(3):
+      kw = dict(gamma=3, n_limit=6 + c, cfg_d=cfg_d, shard_d=shard_d, pos_hi=L + 12 * c)
+      g = tdec.fused_speculative_chunk(params, cfg, shard, params_d, g_in[0], prog.cache, draft.cache, g_in[1], 8, programs=prog, **kw)
+      e = tdec.fused_speculative_chunk(params, cfg, shard, params_d, e_in[0], ct, cd, e_in[1], 8, **kw)
+      m = int(e[0][0])
+      assert torch.equal(g[0][: 2 + m], e[0][: 2 + m]) and torch.equal(g[1], e[1]) and torch.equal(g[2], e[2]), (proposer, kv, rnd, c)
+      g_in, e_in = (g[1], g[2]), (e[1], e[2])
+    at = int(e_in[1])
+    eg = tdec.fused_speculative_generate(params, cfg, shard, params_d, cfg_d, shard_d, e_in[0], ct, cd, at, 32, gamma=3, n_limit=24)
+    eos = (int(eg[0][5]),) if rnd == 1 else ()
+    gg = tdec.fused_speculative_generate(params, cfg, shard, params_d, cfg_d, shard_d, int(g_in[0]), prog.cache, draft.cache, at, 32, gamma=3, eos_ids=eos, n_limit=24, programs=prog)
+    eg = tdec.fused_speculative_generate(params, cfg, shard, params_d, cfg_d, shard_d, e_in[0], ct, cd, at, 32, gamma=3, eos_ids=eos, n_limit=24)
+    assert gg[1:3] == eg[1:3] and torch.equal(gg[0][: gg[1]], eg[0][: eg[1]]), (proposer, kv, rnd)
+  graphs = prog.graphs() + (draft.graphs() if draft else [])
+  assert all(g.graph is not None and g.kernel_nodes > 0 for g in graphs)
+  spec = [g for g in graphs if g.family.startswith("spec.")]
+  if draft is None:
+    assert sorted(g.kernels.get("flash_prefill", 0) for g in spec) == [0, 2 * cfg.n_layers]  # the tracking-only chunk runs W=1
+  else:
+    assert len(spec) == 1 and spec[0].kernels.get("flash_prefill") == cfg.n_layers + cfg_d.n_layers  # one round: verify window and catch-up
+  assert programs.REPLAYED.get("flash_prefill", 0) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [5, 9])
+def test_k1_verify_window_inside_a_replay_on_refilled_inputs(card, Sq):
+  """K1 at the solo verify windows (B=1, Sq = G+1, llama-3.2-1b's heads,
+  a 4096-slot bf16 cache) captured in a ``Graph``, its query and offset
+  refilled after the capture: the replay's output within K1's bounds of
+  its plain version on the new inputs, one kernel node, one launch."""
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  gen = torch.Generator(device="cuda").manual_seed(6)
+  k, v = (torch.randn((1, 4096, 8, 64), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+  q = torch.randn((1, Sq, 32, 64), generator=gen, device="cuda").to(torch.bfloat16)
+  off = torch.tensor([72], dtype=torch.int32, device="cuda")
+  out = fa.flash_attention_prefill(q, k, v, q_offset=off).clone()
+  graph = programs.Graph("check.flash_prefill", lambda: out.copy_(fa.flash_attention_prefill(q, k, v, q_offset=off)))
+  graph.run(card)
+  assert graph.kernels == {"flash_prefill": 1} and graph.kernel_nodes == 1
+  q.copy_(torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16))
+  off.fill_(4086)
+  out.zero_()
+  before = programs.REPLAYED.get("flash_prefill", 0)
+  graph.run(card)
+  torch.cuda.synchronize()
+  want = fa.flash_attention_prefill_ref(q, k, v, q_offset=off).float()
+  err = (out.float() - want).abs()
+  assert programs.REPLAYED.get("flash_prefill", 0) - before == 1
+  assert float(err.max()) <= 3e-2 and bool((err <= 1e-2 + 2.0**-7 * want.abs()).all())

@@ -11,8 +11,12 @@ carries its captured programs (models/decoder.py ``SoloPrograms``), so a
 prefill bucket is one CUDA-graph replay and a decode step is one replay;
 the program ledger (utils/programs.py) counts them under the reference's
 families (``decode.shard_forward``, ``decode.fused``,
-``decode.fused_generate``). Speculation stays eager;
-and the continuous-batching server over the paged pool
+``decode.fused_generate``). Speculation runs captured too: a speculative
+round is one replay (``spec.chunk``, ``spec.generate``), an n-gram chunk
+one replay with every round in it (``spec.batch``), and the draft's prompt
+prefill one replay of its bucket on the draft's own pooled cache, which
+comes paired with the target's. Also the continuous-batching server over
+the paged pool
 (``get_batched_server``, inference/batch_scheduler.py). All device work
 runs on one executor thread off the asyncio loop. Caches and pools are
 updated in place by the decoder.
@@ -36,7 +40,8 @@ greedy and exact, as the reference reads it:
   walks an engine-level acceptance EWMA (``XOT_TPU_SPEC_GAMMA``, default 4,
   down to 0 = plain, a depth-1 probe after ``XOT_TPU_SPEC_REPROBE`` plain
   dispatches). On the card a load-time A/B drops the draft when speculation
-  is slower than plain (``XOT_TPU_SPEC_AUTOCAL=0`` skips it).
+  is slower than plain, both timed as served: the captured rounds against
+  the captured plain step (``XOT_TPU_SPEC_AUTOCAL=0`` skips it).
 - Any other value, or a draft that did not load: streaming greedy chunks
   draft from the session's own prompt+generated history (n-grams,
   ``XOT_TPU_SPEC_NGRAM``, ``_NGRAM_N``, ``_NGRAM_MAX``) through
@@ -112,7 +117,7 @@ class _Session:
     self.max_seq = max_seq
     self.next_token_dev = None  # [B,1] device tensor chaining decode chunks
     self.prompt_np = None  # prompt token ids (the draft's prefill, the n-gram index)
-    self.draft_cache = None  # the draft's dense slot cache, built at the first spec dispatch
+    self.draft_cache = None  # the draft's dense slot cache (programs.draft's), once the prompt is prefilled into it
     # Draft spec chain: seed token and position stay on the device, so chunk
     # N+1 dispatches from chunk N's outputs before the host reads chunk N.
     # The host keeps the confirmed position plus the summed worst-case slots
@@ -164,9 +169,10 @@ class TorchShardedInferenceEngine(InferenceEngine):
     self._batched_server = None
     self._batch_ops = None
     # Dense slot caches recycled across solo requests, by (rows, max_seq, KV
-    # quant mode), each with its captured programs (models/decoder.py
-    # SoloPrograms): graphs need fixed addresses. The pool grows when more
-    # sessions are live than it holds; a new model empties it.
+    # quant mode, draft), each with its captured programs (models/decoder.py
+    # SoloPrograms) and, with a draft loaded, the draft's cache and programs:
+    # graphs need fixed addresses. The pool grows when more sessions are
+    # live than it holds; a new model or draft empties it.
     self._cache_pool: dict[tuple, list[SoloPrograms]] = {}
     self._graph_pool = None  # the CUDA graphs' shared memory pool, made at the first cache
     # Solo speculation (module docstring). The draft chain's acceptance
@@ -343,20 +349,23 @@ class TorchShardedInferenceEngine(InferenceEngine):
 
   def _maybe_calibrate_spec(self) -> None:
     """Keep the draft only if speculation measures at least 0.95× plain
-    decode's tok/s: 64 greedy tokens each way on a 256-slot cache, timed
-    on the host with the card synchronised, best of two after a warm-up.
+    decode's tok/s, each timed as it is served: 64 greedy tokens through
+    the captured plain step (``fused_decode`` with ``programs=``) and
+    through the captured speculative rounds (``fused_speculative_generate``
+    with ``programs=``) on a 256-slot cache pair taken as a session takes
+    one, on the host with the card synchronised, best of two after a
+    warm-up run that takes the captures (the timed runs are replays).
     Skipped on the CPU and with ``XOT_TPU_SPEC_AUTOCAL=0``. As in the
     reference, any failure of the timed runs keeps speculation on (printed
     under ``DEBUG``): calibration must never block serving."""
     if self.device.type == "cpu" or os.getenv("XOT_TPU_SPEC_AUTOCAL", "1") in ("0", "false"):
       return
-    from ..models.decoder import fused_speculative_generate
+    from ..models import decoder
 
     eff, cfg = self._effective_shard, self.cfg
     cfg_d, shard_d = self._draft_cfg or cfg, self._draft_shard or eff
     n = 64
     max_seq = min(256, self.max_seq_len, cfg.max_seq_len)
-    tok = torch.ones((1, 1), dtype=torch.int32, device=self.device)
 
     def timed(fn) -> tuple[int, float]:
       torch.cuda.synchronize(self.device)
@@ -365,30 +374,25 @@ class TorchShardedInferenceEngine(InferenceEngine):
       torch.cuda.synchronize(self.device)
       return emitted, time.perf_counter() - t0
 
-    def time_plain() -> float:
-      cache = init_kv_cache(cfg, eff.n_shard_layers, 1, max_seq, device=self.device)
+    try:
+      progs, _ = self._take_programs(1, max_seq)
 
-      def run(start):
-        toks, _ = fused_decode(self.params, cfg, eff, tok, cache, torch.full((1,), start, dtype=torch.int32, device=self.device), n)
+      def plain(start) -> int:
+        toks, _ = fused_decode(self.params, cfg, eff, 1, progs.cache, start, n, programs=progs)
         toks.cpu()
         return n
 
-      run(0)  # warm-up
-      return max(k / dt for k, dt in (timed(lambda s=s: run(s)) for s in (n, 2 * n)))
-
-    def time_spec() -> float:
-      def run():
-        ct = init_kv_cache(cfg, eff.n_shard_layers, 1, max_seq, device=self.device)
-        cd = init_kv_cache(cfg_d, shard_d.n_shard_layers, 1, max_seq, device=self.device)
-        buf, m, _, _, _ = fused_speculative_generate(self.params, cfg, eff, self._draft_params, cfg_d, shard_d, tok, ct, cd, 0, n, gamma=self.spec_gamma, eos_ids=(-1,))
+      def spec() -> int:
+        buf, m, _, _, _ = decoder.fused_speculative_generate(
+          self.params, cfg, eff, self._draft_params, cfg_d, shard_d, 1, progs.cache, progs.draft.cache, 0, n, gamma=self.spec_gamma, eos_ids=(-1,), programs=progs,
+        )
         buf.cpu()
         return min(m, n)
 
-      run()  # warm-up
-      return max(k / dt for k, dt in (timed(run), timed(run)))
-
-    try:
-      plain_tok_s, spec_tok_s = time_plain(), time_spec()
+      plain(0)  # warm-up: the captures
+      plain_tok_s = max(k / dt for k, dt in (timed(lambda s=s: plain(s)) for s in (n, 2 * n)))
+      spec()
+      spec_tok_s = max(k / dt for k, dt in (timed(spec), timed(spec)))
     except Exception as e:  # noqa: BLE001 — calibration must never block serving
       if DEBUG >= 1:
         print(f"[torch_engine] spec calibration failed ({e!r}); keeping speculative mode")
@@ -396,11 +400,11 @@ class TorchShardedInferenceEngine(InferenceEngine):
     kept = spec_tok_s >= 0.95 * plain_tok_s
     self.spec_calibration = dict(plain_tok_s=plain_tok_s, spec_tok_s=spec_tok_s, verdict="kept" if kept else "DISABLED")
     if kept:
-      print(f"[torch_engine] speculative decode kept: {spec_tok_s:.1f} vs plain {plain_tok_s:.1f} tok/s")
+      print(f"[torch_engine] speculative decode kept: {spec_tok_s:.1f} tok/s (captured rounds) vs plain {plain_tok_s:.1f} (captured steps)")
     else:
       print(
-        f"[torch_engine] speculative decode DISABLED for this model: measured {spec_tok_s:.1f} tok/s vs plain "
-        f"{plain_tok_s:.1f} (low draft acceptance); set XOT_TPU_SPEC_AUTOCAL=0 to force it"
+        f"[torch_engine] speculative decode DISABLED for this model: measured {spec_tok_s:.1f} tok/s (captured rounds) vs plain "
+        f"{plain_tok_s:.1f} (captured steps; low draft acceptance); set XOT_TPU_SPEC_AUTOCAL=0 to force it"
       )
       self._draft_params = None
 
@@ -437,30 +441,49 @@ class TorchShardedInferenceEngine(InferenceEngine):
     await self.ensure_shard(shard)
     return await asyncio.get_running_loop().run_in_executor(self.executor, self._infer_tensor_sync, request_id, input_data, inference_state)
 
-  def _new_session(self, request_id: str, B: int) -> _Session:
-    """A session on a pooled cache (a fresh one when the pool has none of
-    this shape free)."""
-    max_seq = min(self.max_seq_len, self.cfg.max_seq_len)
-    key = (B, max_seq, kv_quant_mode())
+  def _take_programs(self, B: int, max_seq: int) -> tuple[SoloPrograms, tuple]:
+    """A dense cache with its captured programs from the pool (a fresh one
+    when the pool has none free under this key), and the key it returns
+    under. With a draft loaded, a single-row cache comes paired with the
+    draft's own cache and programs (``SoloPrograms.draft``): the
+    speculative rounds' graphs hold both addresses. The key names the draft
+    (its config, shard, KV mode and parameters)."""
+    kv = kv_quant_mode()
+    draft = None
+    if B == 1 and self._draft_params is not None:
+      draft = (self._draft_cfg or self.cfg, self._draft_shard or self._effective_shard, kv, id(self._draft_params))
+    key = (B, max_seq, kv, draft)
     free = self._cache_pool.get(key)
     if free:
-      programs = free.pop()
-    else:
-      cache = init_kv_cache(self.cfg, self._effective_shard.n_shard_layers, B, max_seq, device=self.device)
-      if self._graph_pool is None and self.device.type == "cuda":
-        self._graph_pool = torch.cuda.graph_pool_handle()
-      programs = SoloPrograms(self.params, self.cfg, self._effective_shard, cache, generator=self.generator, pool=self._graph_pool)
+      return free.pop(), key
+    if self._graph_pool is None and self.device.type == "cuda":
+      self._graph_pool = torch.cuda.graph_pool_handle()
+    programs_d = None
+    if draft is not None:
+      cfg_d, shard_d = draft[:2]
+      cache_d = init_kv_cache(cfg_d, shard_d.n_shard_layers, B, max_seq, device=self.device)
+      programs_d = SoloPrograms(self._draft_params, cfg_d, shard_d, cache_d, pool=self._graph_pool)
+    cache = init_kv_cache(self.cfg, self._effective_shard.n_shard_layers, B, max_seq, device=self.device)
+    return SoloPrograms(self.params, self.cfg, self._effective_shard, cache, generator=self.generator, pool=self._graph_pool, draft=programs_d), key
+
+  def _new_session(self, request_id: str, B: int) -> _Session:
+    """A session on a pooled cache (and, with a draft, its paired draft
+    cache)."""
+    max_seq = min(self.max_seq_len, self.cfg.max_seq_len)
+    programs, key = self._take_programs(B, max_seq)
     session = self.sessions[request_id] = _Session(programs, key, max_seq)
     return session
 
   def _drop_session(self, request_id: str) -> None:
-    """End a session and return its cache, with its programs, to the pool."""
+    """End a session and return its cache, with its programs and its draft
+    pair, to the pool."""
     session = self.sessions.pop(request_id, None)
     if session is not None:
       self._cache_pool.setdefault(session.pool_key, []).append(session.programs)
 
   def _clear_sessions(self) -> None:
-    """Forget every session and the pool (its graphs hold the old model)."""
+    """Forget every session and the pool (its graphs hold the old model and
+    draft)."""
     self.sessions.clear()
     self._cache_pool.clear()
     self._graph_pool = None
@@ -616,7 +639,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
 
   def _dispatch_ngram_chunk_sync(self, request_id, first_token, steps: int, gamma: int):
     """One draft-free speculative chunk (``fused_spec_batch_decode`` at B=1
-    on the session's dense cache): the host proposes what followed the
+    on the session's dense cache, one captured program): the host proposes what followed the
     current suffix earlier in the history, the target verifies each window.
     Returns the handle, or None to hand this dispatch to the plain path (no
     proposal at the depth floor, or too close to the cache end)."""
@@ -660,31 +683,30 @@ class TorchShardedInferenceEngine(InferenceEngine):
       self.params, self.cfg, self._effective_shard, None, self.cfg, self._effective_shard,
       token, session.kv_cache, None, pos, torch.ones((1,), dtype=torch.bool, device=dev), torch.full((1,), g_eff, dtype=torch.int32, device=dev),
       torch.zeros((1,), dtype=torch.float32, device=dev), rounds, G, top_k=1, k_max=1,
-      props=props, prop_counts=prop_counts,
+      props=props, prop_counts=prop_counts, programs=session.programs,
     )
     session.next_token_dev = seed
     session.ngram_unread = True
     return ("ngram", request_id, rounds, torch.cat([counts, n_prop, buf[0]]))
 
   def _ensure_draft_cache(self, session) -> None:
-    """The draft's prefill over the prompt, padded like the target's."""
+    """The draft's prefill over the prompt, padded like the target's, into
+    the session's paired draft cache (one captured program per bucket)."""
     if session.draft_cache is not None:
       return
-    cfg_d = self._draft_cfg or self.cfg
-    shard_d = self._draft_shard or self._effective_shard
+    draft = session.programs.draft
     B, S = session.prompt_np.shape
-    cache = init_kv_cache(cfg_d, shard_d.n_shard_layers, B, session.max_seq, device=self.device)
     pad_to = min(_round_up(S, PREFILL_BUCKET), session.max_seq)
     x_in = np.zeros((B, pad_to), dtype=np.int32)
     x_in[:, :S] = session.prompt_np
-    positions = torch.arange(pad_to, dtype=torch.int32, device=self.device).expand(B, pad_to)
-    head_pos = torch.full((B,), S - 1, dtype=torch.int64, device=self.device)
-    _, session.draft_cache = shard_forward(self._draft_params, cfg_d, shard_d, self._to_device(x_in), positions, cache, head_pos=head_pos)
+    draft.prefill(x_in, S)
+    session.draft_cache = draft.cache
 
   def _dispatch_spec_chunk_sync(self, request_id, n_steps, first_token, steps: int, gamma: int):
-    """One streaming chunk of the draft chain (``fused_speculative_chunk``):
-    seed token and position ride the device, so the node's dispatch-ahead
-    works without a host read. The node trims at EOS as for plain chunks."""
+    """One streaming chunk of the draft chain (``fused_speculative_chunk``,
+    its rounds captured): seed token and position ride the device, so the
+    node's dispatch-ahead works without a host read. The node trims at EOS
+    as for plain chunks."""
     from ..models.decoder import fused_speculative_chunk
 
     session = self.sessions[request_id]
@@ -699,7 +721,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
     worst = steps + gamma + 1
     packed, seed, new_pos, session.kv_cache, session.draft_cache = fused_speculative_chunk(
       self.params, self.cfg, self._effective_shard, self._draft_params, token, session.kv_cache, session.draft_cache,
-      pos, steps, gamma=gamma, n_limit=min(n_steps, steps), cfg_d=self._draft_cfg, shard_d=self._draft_shard, pos_hi=pos_hi,
+      pos, steps, gamma=gamma, n_limit=min(n_steps, steps), cfg_d=self._draft_cfg, shard_d=self._draft_shard, pos_hi=pos_hi, programs=session.programs,
     )
     session.spec_seed_dev = seed
     session.spec_pos_dev = new_pos
@@ -860,8 +882,8 @@ class TorchShardedInferenceEngine(InferenceEngine):
     return [int(t) for t in row[:n]]
 
   def _generate_speculative_sync(self, request_id, first_token, max_steps, eos_ids, gamma: int):
-    """Greedy speculative oneshot (``fused_speculative_generate``): the
-    plain greedy tokens, at the draft's pace."""
+    """Greedy speculative oneshot (``fused_speculative_generate``, its
+    rounds captured): the plain greedy tokens, at the draft's pace."""
     from ..models.decoder import fused_speculative_generate
 
     session = self.sessions[request_id]
@@ -873,7 +895,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
     eos = tuple(sorted(int(e) for e in eos_ids))
     buf, n, rounds, session.kv_cache, session.draft_cache = fused_speculative_generate(
       self.params, self.cfg, self._effective_shard, self._draft_params, self._draft_cfg or self.cfg, self._draft_shard or self._effective_shard,
-      token, session.kv_cache, session.draft_cache, session.curr_pos, steps, gamma=gamma, eos_ids=eos, n_limit=limit,
+      token, session.kv_cache, session.draft_cache, session.curr_pos, steps, gamma=gamma, eos_ids=eos, n_limit=limit, programs=session.programs,
     )
     row = buf.cpu().numpy()
     self._note_spec_acceptance(n, rounds, gamma)

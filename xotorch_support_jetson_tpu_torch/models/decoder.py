@@ -13,10 +13,11 @@ Python loop. The KV cache is a dict of
 [L, B, max_seq, Hkv, hd] buffers (hd/2 for packed int4 codes, +
 ``k_scale``/``v_scale`` [.., 1] for int8 and int4) that the forward UPDATES
 IN PLACE — slot j holds absolute position j. On it run the solo decode
-loops (``fused_decode``, ``fused_generate``; with ``SoloPrograms`` each
-prefill bucket and each decode step is one CUDA-graph replay), greedy speculative decoding
+loops (``fused_decode``, ``fused_generate``), greedy speculative decoding
 with a draft model (``fused_speculative_generate`` / ``_chunk``) and the
-draft-free speculative chunk (``fused_spec_batch_decode``). The batched
+draft-free speculative chunk (``fused_spec_batch_decode``); with
+``SoloPrograms`` each prefill bucket, decode step, speculative round and
+draft-free chunk is one CUDA-graph replay. The batched
 programs at the end run against a page pool (ops/paged.py) instead, also
 updated in place: the admission prefill, the plain and mixed decode
 chunks, and the draft-free speculative chunk
@@ -453,12 +454,31 @@ class SoloPrograms:
   query's position and are masked as a fresh cache's zeros are. The
   ``generator`` is registered with every graph that samples, so a
   replayed step draws what the eager step would. On the CPU every program
-  runs its body eagerly through the same buffers."""
+  runs its body eagerly through the same buffers.
 
-  def __init__(self, params, cfg: ModelConfig, shard: Shard, cache, generator=None, pool=None) -> None:
+  Solo speculation, with ``draft`` (the draft's own ``SoloPrograms`` over
+  its dense cache, pooled with this one; its ``prefill`` is the draft's
+  prompt prefill, one graph per bucket):
+
+  - ``spec_rounds`` — the draft chain's rounds (``spec.chunk`` /
+    ``spec.generate``): one graph per depth G holds one round (G draft
+    steps, the verify window, the catch-up, a chunk's outputs) on state
+    buffers filled in place (``_spec_solo_state``: the limits and the EOS
+    row included), the host's schedule and its one read per block
+    unchanged;
+  - ``spec_batch`` — the n-gram chain's chunk (``spec.batch``,
+    ``fused_spec_batch_decode`` with ``params_d=None``): one graph per
+    (rounds, G, ``k_max``, with or without proposals), the proposals in a
+    buffer at their largest length ``rounds·(G+1)+G``.
+
+  Every output is copied out of the graph's buffers after the run: a
+  chained chunk's replays overwrite them before the host reads the one
+  before."""
+
+  def __init__(self, params, cfg: ModelConfig, shard: Shard, cache, generator=None, pool=None, draft: SoloPrograms | None = None) -> None:
     _full_model(shard, "SoloPrograms")
     self.params, self.cfg, self.shard, self.cache = params, cfg, shard, cache
-    self.generator, self.pool = generator, pool
+    self.generator, self.pool, self.draft = generator, pool, draft
     k = cache["k"]
     B, S, dev = k.shape[1], k.shape[2], k.device
     self.B, self.max_seq, self.device = B, S, dev
@@ -471,12 +491,14 @@ class SoloPrograms:
     self._buckets: dict[int, tuple] = {}
     self._eos: dict[tuple, torch.Tensor] = {}
     self._graphs: dict[tuple, Graph] = {}
+    self._spec: dict[tuple, dict] = {}  # speculation's buffers, by graph key
+    self._spec_gen = None  # the n-gram chunk's sampling generator (its rows are greedy)
 
-  def _graph(self, key: tuple, family: str, body, samples: bool = False) -> Graph:
+  def _graph(self, key: tuple, family: str, body, generators: tuple = ()) -> Graph:
     key = key + routing_knobs()
     g = self._graphs.get(key)
     if g is None:
-      g = self._graphs[key] = Graph(family, body, generators=(self.generator,) if samples else (), pool=self.pool)
+      g = self._graphs[key] = Graph(family, body, generators=generators, pool=self.pool)
     return g
 
   def graphs(self) -> list[Graph]:
@@ -537,7 +559,7 @@ class SoloPrograms:
       self.tok.copy_(nxt[:, None])
       self.pos.add_(1)
 
-    return self._graph(("step", greedy, 0 if greedy else top_k), family, body, samples=not greedy)
+    return self._graph(("step", greedy, 0 if greedy else top_k), family, body, generators=() if greedy else (self.generator,))
 
   def _seed(self, token, start_pos, temp, greedy: bool) -> None:
     for buf, val in ((self.tok, token), (self.pos, start_pos)):
@@ -578,6 +600,76 @@ class SoloPrograms:
     buf[:, :n] = self._since(n)
     return buf, n
 
+  # --------------------------------------------------------- speculation
+
+  def spec_rounds(self, family: str, token, pos, pos_hi: int, max_steps: int, G: int, eos_ids: tuple, limit: int, n_limit: int) -> tuple[dict, int, int]:
+    """``_spec_solo_rounds`` on this cache and the draft's: the state kept
+    per depth, each round one replay of the depth's captured round
+    (counted under ``family``). Returns (state, n, rounds)."""
+    d = self.draft
+    if max_steps > self.max_seq:
+      raise ValueError(f"a speculative dispatch of {max_steps} steps exceeds the {self.max_seq}-slot cache")
+    width = max(SPEC_EOS_SLOTS, len(eos_ids))
+    key = ("spec_round", G, width)
+    st = self._spec.get(key)
+    if st is None:
+      st = self._spec[key] = _spec_solo_state(self.device, self.max_seq + G + 1, width)
+    eos_row = self._spec.get(("eos", eos_ids, width))
+    if eos_row is None:
+      eos_row = self._spec[("eos", eos_ids, width)] = _spec_eos_row(eos_ids, width, self.device)
+    _spec_solo_fill(st, token, pos, eos_row, limit, n_limit)
+    graph = self._graph(key, family, lambda: _spec_solo_round(self.params, self.cfg, self.shard, d.params, d.cfg, d.shard, self.cache, d.cache, st, G))
+    n, rounds = _spec_solo_schedule(lambda: graph.run(self.device, family), st, limit, G + 1, self.max_seq, pos_hi)
+    return st, n, rounds
+
+  def spec_generate(self, token, start: int, max_steps: int, G: int, eos_ids: tuple, limit: int) -> tuple:
+    """``fused_speculative_generate``'s rounds: (buf [max_steps+G+1], n,
+    rounds), the buffer a fresh tensor."""
+    st, n, rounds = self.spec_rounds("spec.generate", token, start, start, max_steps, G, eos_ids, limit, limit)
+    return st["buf"][: max_steps + G + 1].clone(), n, rounds
+
+  def spec_batch(self, token, positions, active, gammas, temps, top_ks, n_rounds: int, G: int, k_max: int, props=None, prop_counts=None) -> tuple:
+    """``fused_spec_batch_decode`` on this cache without a draft: (tokens
+    [B, n_rounds·(G+1)], counts [B], n_prop [B], next_token [B, 1],
+    next_positions [B]), fresh tensors. The operands are device tensors of
+    the function's (already normalized) dtypes, ``props`` at most
+    ``n_rounds·(G+1)+G`` wide; the sampling generator is reseeded with 0
+    before each run, as the function seeds a fresh one."""
+    B, dev, W = self.B, self.device, G + 1
+    key = ("spec_batch", n_rounds, G, k_max, props is not None)
+    bufs = self._spec.get(key)
+    if bufs is None:
+      i32 = dict(dtype=torch.int32, device=dev)
+      vec = lambda dtype=torch.int32: torch.zeros((B,), dtype=dtype, device=dev)  # noqa: E731
+      bufs = self._spec[key] = dict(
+        token=torch.zeros((B, 1), **i32), positions=vec(), active=vec(torch.bool), gammas=vec(), temps=vec(torch.float32), top_ks=vec(),
+        props=torch.zeros((B, n_rounds * W + G), **i32), prop_counts=vec(),
+        tokens=torch.zeros((B, n_rounds * W), **i32), counts=vec(), n_prop=vec(), next_token=torch.zeros((B, 1), **i32), next_positions=vec(),
+      )
+    for name, val in (("token", token), ("positions", positions), ("active", active), ("gammas", gammas), ("temps", temps), ("top_ks", top_ks)):
+      bufs[name].copy_(val.reshape(bufs[name].shape))
+    if props is not None:
+      bufs["props"].zero_()
+      bufs["props"][:, : props.shape[1]].copy_(props)
+      bufs["prop_counts"].copy_(prop_counts)
+    if self._spec_gen is None:
+      self._spec_gen = torch.Generator(device=dev)
+    outs = ("tokens", "counts", "n_prop", "next_token", "next_positions")
+
+    def body():
+      p, c = (bufs["props"], bufs["prop_counts"]) if props is not None else (None, None)
+
+      def verify(window, wpos):
+        logits, _ = shard_forward(self.params, self.cfg, self.shard, window, wpos, self.cache)
+        return logits
+
+      res = _spec_batch_rounds(verify, bufs["token"], bufs["positions"], bufs["active"], torch.clamp(bufs["gammas"], max=G), bufs["temps"], bufs["top_ks"], n_rounds, G, k_max, self._spec_gen, p, c)
+      for name, val in zip(outs, res):
+        bufs[name].copy_(val)
+
+    self._graph(key, "spec.batch", body, generators=(self._spec_gen,)).run(dev, "spec.batch", seed=0)
+    return tuple(bufs[name].clone() for name in outs)
+
 
 # ------------------------------------------------ speculative decoding
 # Greedy draft-then-verify for one stream (B=1) on the dense slot cache.
@@ -599,6 +691,15 @@ class SoloPrograms:
 # most G+1 slots, so from a position of at most ``pos_hi`` the host runs
 # (max_seq - pos_hi) // (G+1) rounds without a write past the cache, and
 # reads the exact position back before any further round.
+#
+# A round reads and writes its state in device buffers in place
+# (``_spec_solo_state``), the limits and the EOS set included, and ends by
+# writing a chunk's outputs from the state it leaves, so under
+# ``SoloPrograms`` one captured round per depth serves every dispatch.
+
+# The EOS row's width: the ids padded with -1 (no token's id), so one round
+# graph serves every EOS set of up to this many ids.
+SPEC_EOS_SLOTS = 8
 
 
 def _spec_block_rounds(limit: int, n_known: int, rounds_known: int, room_rounds: int, W: int) -> int:
@@ -609,15 +710,61 @@ def _spec_block_rounds(limit: int, n_known: int, rounds_known: int, room_rounds:
   return min(EOS_CHECK_EVERY, room_rounds, max(1, math.ceil((limit - n_known) / rate)))
 
 
-def _spec_solo_round(params_t, cfg_t, shard_t, params_d, cfg_d, shard_d, cache_t, cache_d, state, buf, G: int, eos, limit: int):
-  """One draft-then-verify round; ``state`` = (cur [1,1], pos [1], n [1],
-  rounds [1], done [1]) on the device, returned updated (unchanged where
-  the loop's condition was already false)."""
-  cur, pos, n, rounds, done = state
+def _spec_solo_state(dev, buf_len: int, eos_width: int) -> dict:
+  """The draft chain's round state on the device: ``cur`` [1,1] (the next
+  round's input token), ``pos``, ``n`` (tokens emitted), ``rounds`` and
+  the limits ``limit`` / ``n_limit`` [1] int32, ``done`` [1] bool, ``eos``
+  [eos_width] (padded with -1), ``buf`` [buf_len] (the emitted tokens), the
+  dispatch's input token and position ``tok0`` / ``pos0``, and a chunk's
+  outputs as of the last round: ``packed`` [2+buf_len] = [m, rounds,
+  buf...] with m = min(n, n_limit), ``seed`` [1,1] (the last of the m
+  tokens, or the input token when m = 0) and ``new_pos`` [] = pos0 + m."""
+  i32 = dict(dtype=torch.int32, device=dev)
+  st = {name: torch.zeros((1,), **i32) for name in ("pos", "n", "rounds", "limit", "n_limit", "pos0")}
+  st.update(
+    cur=torch.zeros((1, 1), **i32), tok0=torch.zeros((1, 1), **i32), done=torch.zeros((1,), dtype=torch.bool, device=dev),
+    eos=torch.full((eos_width,), -1, **i32), buf=torch.zeros((buf_len,), **i32),
+    packed=torch.zeros((2 + buf_len,), **i32), seed=torch.zeros((1, 1), **i32), new_pos=torch.zeros((), **i32),
+  )
+  return st
+
+
+def _spec_eos_row(eos_ids: tuple, width: int, dev) -> torch.Tensor:
+  row = torch.full((width,), -1, dtype=torch.int32)
+  row[: len(eos_ids)] = torch.tensor(sorted(eos_ids), dtype=torch.int32)
+  return row.to(dev)
+
+
+def _spec_solo_fill(st: dict, token, pos, eos_row: torch.Tensor, limit: int, n_limit: int) -> None:
+  """Seed ``st`` for one dispatch, in place and without a host read:
+  ``token`` an int or a [1,1] device tensor, ``pos`` an int or a device
+  position (a chained chunk's), ``eos_row`` a device row of the state's
+  width."""
+  for name, val in (("cur", token), ("pos", pos)):
+    if isinstance(val, torch.Tensor):
+      st[name].copy_(val.reshape(st[name].shape))
+    else:
+      st[name].fill_(int(val))
+  st["tok0"].copy_(st["cur"])
+  st["pos0"].copy_(st["pos"])
+  for name in ("n", "rounds", "done", "buf", "packed"):
+    st[name].zero_()
+  st["seed"].copy_(st["tok0"])
+  st["new_pos"].copy_(st["pos0"][0])
+  st["limit"].fill_(int(limit))
+  st["n_limit"].fill_(int(n_limit))
+  st["eos"].copy_(eos_row)
+
+
+def _spec_solo_round(params_t, cfg_t, shard_t, params_d, cfg_d, shard_d, cache_t, cache_d, st: dict, G: int) -> None:
+  """One draft-then-verify round on the state ``st`` (``_spec_solo_state``),
+  updated in place; where the loop's condition was already false nothing
+  the caller reads changes."""
+  cur, pos, n, done, buf = st["cur"], st["pos"], st["n"], st["done"], st["buf"]
   dev = cur.device
   W = G + 1
   idx = torch.arange(W, dtype=torch.int32, device=dev)
-  live = ~done & (n < limit)
+  live = ~done & (n < st["limit"])
   # 1) The draft proposes G tokens greedily, one single-token step each.
   tok, p, d = cur, pos, []
   for _ in range(G):
@@ -643,29 +790,26 @@ def _spec_solo_round(params_t, cfg_t, shard_t, params_d, cfg_d, shard_d, cache_t
   # writes the last proposed token's KV.
   shard_forward(params_d, cfg_d, shard_d, window, positions, cache_d)
   k = n_acc + 1
-  if eos is not None:
-    hit = ((emitted[:, None] == eos[None, :]) & (idx[:, None] < k)).any().reshape(1)
-    done = done | (live & hit)
-  return (
+  hit = ((emitted[:, None] == st["eos"][None, :]) & (idx[:, None] < k)).any().reshape(1)
+  new = (
     torch.where(live, corr, cur[0]).reshape(1, 1), torch.where(live, pos + k, pos), torch.where(live, n + k, n),
-    rounds + live.to(torch.int32), done,
+    st["rounds"] + live.to(torch.int32), done | (live & hit),
   )
+  for name, val in zip(("cur", "pos", "n", "rounds", "done"), new):
+    st[name].copy_(val)
+  # A chunk's outputs from the state this round leaves.
+  m = torch.minimum(st["n"], st["n_limit"])
+  st["packed"].copy_(torch.cat([m, st["rounds"], buf]))
+  st["seed"].copy_(torch.where(m > 0, torch.gather(buf, 0, torch.clamp(m - 1, min=0).long()), st["tok0"].reshape(1)).reshape(1, 1))
+  st["new_pos"].copy_((st["pos0"] + m)[0])
 
 
-def _spec_solo_rounds(params_t, cfg_t, shard_t, params_d, cfg_d, shard_d, cache_t, cache_d, token, pos, pos_hi: int, max_steps: int, G: int, eos_ids: tuple, limit: int):
-  """The round loop of ``fused_speculative_generate``/``_chunk``: rounds
-  while not done, n < limit and pos + G + 1 <= max_seq, each read-back
-  after a block of ``_spec_block_rounds``. ``pos`` [1] is on the device and
-  ``pos_hi`` an upper bound of it the host knows. Returns (buf
-  [max_steps+G+1], n [1], rounds [1], cur [1,1], pos [1]), all on the device."""
-  dev = token.device
-  W = G + 1
-  max_seq = cache_t["k"].shape[2]
-  limit = min(int(limit), int(max_steps))
-  buf = torch.zeros((int(max_steps) + W,), dtype=torch.int32, device=dev)
-  eos = torch.tensor(sorted(eos_ids), dtype=torch.int32, device=dev) if eos_ids else None
-  zero = torch.zeros((1,), dtype=torch.int32, device=dev)
-  state = (token.to(torch.int32).reshape(1, 1), pos, zero, zero, torch.zeros((1,), dtype=torch.bool, device=dev))
+def _spec_solo_schedule(run_round, st: dict, limit: int, W: int, max_seq: int, pos_hi: int) -> tuple[int, int]:
+  """The host's side of the round loop: ``run_round()`` runs one round on
+  ``st``, in blocks of ``_spec_block_rounds`` with one read-back after
+  each, while n < limit and a round fits below ``max_seq`` from the
+  position bound ``pos_hi``. Returns (n, rounds) as last read: the final
+  state's."""
   n_known = rounds_known = 0
   while n_known < limit:
     room = (max_seq - pos_hi) // W
@@ -673,13 +817,24 @@ def _spec_solo_rounds(params_t, cfg_t, shard_t, params_d, cfg_d, shard_d, cache_
       break
     block = _spec_block_rounds(limit, n_known, rounds_known, room, W)
     for _ in range(block):
-      state = _spec_solo_round(params_t, cfg_t, shard_t, params_d, cfg_d, shard_d, cache_t, cache_d, state, buf, G, eos, limit)
-    _, pos_dev, n, rounds, done = state
-    n_known, pos_hi, rounds_known, stop = torch.cat([n, pos_dev, rounds, done.to(torch.int32)]).tolist()
+      run_round()
+    n_known, pos_hi, rounds_known, stop = torch.cat([st["n"], st["pos"], st["rounds"], st["done"].to(torch.int32)]).tolist()
     if stop:
       break
-  cur, pos_dev, n, rounds, _ = state
-  return buf, n, rounds, cur, pos_dev
+  return n_known, rounds_known
+
+
+def _spec_solo_rounds(params_t, cfg_t, shard_t, params_d, cfg_d, shard_d, cache_t, cache_d, token, pos, pos_hi: int, max_steps: int, G: int, eos_ids: tuple, limit: int, n_limit: int):
+  """The round loop of ``fused_speculative_generate``/``_chunk``, eager, on
+  fresh state (``buf`` [max_steps+G+1]). Returns (state, n, rounds)."""
+  dev = cache_t["k"].device
+  width = max(SPEC_EOS_SLOTS, len(eos_ids))
+  st = _spec_solo_state(dev, max_steps + G + 1, width)
+  _spec_solo_fill(st, token, pos, _spec_eos_row(eos_ids, width, dev), limit, n_limit)
+  n, rounds = _spec_solo_schedule(
+    lambda: _spec_solo_round(params_t, cfg_t, shard_t, params_d, cfg_d, shard_d, cache_t, cache_d, st, G), st, limit, G + 1, cache_t["k"].shape[2], pos_hi,
+  )
+  return st, n, rounds
 
 
 def _spec_shards(shard_t: Shard, shard_d: Shard) -> None:
@@ -687,8 +842,31 @@ def _spec_shards(shard_t: Shard, shard_d: Shard) -> None:
     raise ValueError("speculative decoding requires full-model shards")
 
 
-@tracked("spec.generate", ("cfg_t", "shard_t", "cfg_d", "shard_d", "max_steps", "gamma", "eos_ids"))
-def fused_speculative_generate(params_t, cfg_t: ModelConfig, shard_t: Shard, params_d, cfg_d: ModelConfig, shard_d: Shard, token, cache_t, cache_d, start_pos, max_steps: int, gamma: int = 4, eos_ids: tuple = (), n_limit=None):
+def _spec_programs(programs, params_d, cache_t, cache_d) -> None:
+  """``programs`` must be ``cache_t``'s, with ``params_d``'s draft on
+  ``cache_d``: its graphs hold those addresses."""
+  d = programs.draft
+  if programs.cache is not cache_t or d is None or d.cache is not cache_d or d.params is not params_d:
+    raise ValueError("programs= must be the target cache's SoloPrograms, with this draft on cache_d")
+
+
+_SPEC_GENERATE_STATIC = ("cfg_t", "cfg_d", "shard_t", "shard_d", "max_steps", "gamma", "eos_ids")
+_SPEC_CHUNK_STATIC = ("cfg", "shard", "cfg_d", "shard_d", "steps", "gamma", "eos_ids")
+
+
+def _spec_generate_sig(params_t, params_d, cfg_t, cfg_d, shard_t, shard_d, cache_t, cache_d, max_steps: int, gamma: int, eos_ids: tuple) -> dict:
+  """The ledger signature of ``spec.generate`` as the reference's program
+  takes its arguments: token [1,1] and the int32 scalars start_pos and
+  n_limit (traced), the static ones by value."""
+  dev = cache_t["k"].device
+  scalar = _Like(torch.int32, (), dev)
+  return dict(
+    params_t=params_t, params_d=params_d, cfg_t=cfg_t, cfg_d=cfg_d, shard_t=shard_t, shard_d=shard_d, cache_t=cache_t, cache_d=cache_d,
+    token=_Like(torch.int32, (1, 1), dev), start_pos=scalar, max_steps=max_steps, gamma=gamma, eos_ids=eos_ids, n_limit=scalar,
+  )
+
+
+def fused_speculative_generate(params_t, cfg_t: ModelConfig, shard_t: Shard, params_d, cfg_d: ModelConfig, shard_d: Shard, token, cache_t, cache_d, start_pos, max_steps: int, gamma: int = 4, eos_ids: tuple = (), n_limit=None, programs=None):
   """Greedy speculative decoding of one stream: token [1,1] int32 seeds
   it at ``start_pos`` (an int); ``cache_d`` is the draft's own dense slot
   cache, prefilled to the same position. Both caches update in place.
@@ -697,19 +875,30 @@ def fused_speculative_generate(params_t, cfg_t: ModelConfig, shard_t: Shard, par
   cache_d): ``buf[:n]`` are the emitted tokens (trim at the first EOS
   host-side; n may pass ``n_limit`` by up to gamma); acceptance is (n /
   n_rounds - 1) / gamma. Token-identical to ``fused_generate`` at temp 0
-  under exact arithmetic, for any draft."""
+  under exact arithmetic, for any draft. One dispatch of ``spec.generate``.
+  With ``programs`` (the ``SoloPrograms`` of ``cache_t``, whose draft holds
+  ``cache_d``; token may then be an int) each round is one replay of its
+  captured round; without, the rounds run eagerly."""
   _spec_shards(shard_t, shard_d)
-  if token.shape[0] != 1:
+  if isinstance(token, torch.Tensor) and token.shape[0] != 1:
     raise ValueError("speculative decoding is single-stream (B=1)")
-  start = int(start_pos)
-  pos = torch.full((1,), start, dtype=torch.int32, device=token.device)
-  limit = int(max_steps if n_limit is None else n_limit)
-  buf, n, rounds, _, _ = _spec_solo_rounds(params_t, cfg_t, shard_t, params_d, cfg_d, shard_d, cache_t, cache_d, token, pos, start, int(max_steps), int(gamma), tuple(eos_ids), limit)
-  return buf, int(n[0]), int(rounds[0]), cache_t, cache_d
+  start, max_steps, G, eos_ids = int(start_pos), int(max_steps), int(gamma), tuple(eos_ids)
+  limit = min(int(max_steps if n_limit is None else n_limit), max_steps)
+  sig = _spec_generate_sig(params_t, params_d, cfg_t, cfg_d, shard_t, shard_d, cache_t, cache_d, max_steps, G, eos_ids)
+  if programs is not None:
+    _spec_programs(programs, params_d, cache_t, cache_d)
+    run = lambda: programs.spec_generate(token, start, max_steps, G, eos_ids, limit)  # noqa: E731
+  else:
+
+    def run():
+      st, n, rounds = _spec_solo_rounds(params_t, cfg_t, shard_t, params_d, cfg_d, shard_d, cache_t, cache_d, token, start, start, max_steps, G, eos_ids, limit, limit)
+      return st["buf"], n, rounds
+
+  buf, n, rounds = ledger.dispatch("spec.generate", sig, _SPEC_GENERATE_STATIC, run)
+  return buf, n, rounds, cache_t, cache_d
 
 
-@tracked("spec.chunk", ("cfg", "shard", "cfg_d", "shard_d", "steps", "gamma", "eos_ids"))
-def fused_speculative_chunk(params_t, cfg: ModelConfig, shard: Shard, params_d, token, cache_t, cache_d, pos, steps: int, gamma: int = 4, eos_ids: tuple = (), n_limit=None, cfg_d: ModelConfig | None = None, shard_d: Shard | None = None, pos_hi: int | None = None):
+def fused_speculative_chunk(params_t, cfg: ModelConfig, shard: Shard, params_d, token, cache_t, cache_d, pos, steps: int, gamma: int = 4, eos_ids: tuple = (), n_limit=None, cfg_d: ModelConfig | None = None, shard_d: Shard | None = None, pos_hi: int | None = None, programs=None):
   """One streaming speculative chunk with a device-resident chain: the math
   of ``fused_speculative_generate`` bounded to ``n_limit`` (default
   ``steps``) emitted tokens. ``pos`` is an int or the previous chunk's
@@ -717,25 +906,43 @@ def fused_speculative_chunk(params_t, cfg: ModelConfig, shard: Shard, params_d, 
   (needed when ``pos`` is a tensor, else it is read back once).
 
   Returns (packed [2+steps+gamma+1] int32 = [m, rounds, tokens...], seed
-  [1,1], new_pos [], cache_t, cache_d), every tensor on the device: m =
-  min(n, n_limit), the seed is the last of the m tokens and new_pos = pos +
-  m, so chunk N+1 dispatches from chunk N's outputs before the host reads
-  chunk N. ``cfg_d``/``shard_d`` default to the target's (a self-draft)."""
-  shard_d = shard_d or shard
+  [1,1], new_pos [], cache_t, cache_d), every tensor on the device and
+  fresh: m = min(n, n_limit), the seed is the last of the m tokens and
+  new_pos = pos + m, so chunk N+1 dispatches from chunk N's outputs before
+  the host reads chunk N. ``cfg_d``/``shard_d`` default to the target's (a
+  self-draft). One dispatch of ``spec.chunk``, whose program holds the
+  ``spec.generate`` program as the reference's does (a build of it counts,
+  not a dispatch); ``programs`` as in ``fused_speculative_generate``."""
+  cfg_d, shard_d = cfg_d or cfg, shard_d or shard
   _spec_shards(shard, shard_d)
-  dev = token.device
   if isinstance(pos, torch.Tensor):
-    pos_dev = pos.to(device=dev, dtype=torch.int32).reshape(1)
-    pos_hi = int(pos_dev[0]) if pos_hi is None else int(pos_hi)
+    pos_hi = int(pos.reshape(-1)[0]) if pos_hi is None else int(pos_hi)
   else:
-    pos_dev = torch.full((1,), int(pos), dtype=torch.int32, device=dev)
     pos_hi = int(pos)
+  steps, G, eos_ids = int(steps), int(gamma), tuple(eos_ids)
   n_limit = int(steps if n_limit is None else n_limit)
-  buf, n, rounds, _, _ = _spec_solo_rounds(params_t, cfg, shard, params_d, cfg_d or cfg, shard_d, cache_t, cache_d, token, pos_dev, pos_hi, int(steps), int(gamma), tuple(eos_ids), n_limit)
-  m = torch.clamp(n, max=n_limit)
-  packed = torch.cat([m, rounds, buf])
-  seed = torch.where(m > 0, torch.gather(buf, 0, torch.clamp(m - 1, min=0).long()), token.reshape(1).to(torch.int32)).reshape(1, 1)
-  return packed, seed, (pos_dev + m)[0], cache_t, cache_d
+  limit = min(n_limit, steps)
+  dev = cache_t["k"].device
+  scalar = _Like(torch.int32, (), dev)
+  sig = dict(
+    params_t=params_t, params_d=params_d, token=_Like(torch.int32, (1, 1), dev), cache_t=cache_t, cache_d=cache_d, pos=scalar, n_limit=scalar,
+    steps=steps, gamma=G, eos_ids=eos_ids, cfg=cfg, shard=shard, cfg_d=cfg_d, shard_d=shard_d,
+  )
+  inner = _spec_generate_sig(params_t, params_d, cfg, cfg_d, shard, shard_d, cache_t, cache_d, steps, G, eos_ids)
+  if programs is not None:
+    _spec_programs(programs, params_d, cache_t, cache_d)
+
+  def rounds():
+    if programs is not None:
+      return programs.spec_rounds("spec.chunk", token, pos, pos_hi, steps, G, eos_ids, limit, n_limit)[0]
+    return _spec_solo_rounds(params_t, cfg, shard, params_d, cfg_d, shard_d, cache_t, cache_d, token, pos, pos_hi, steps, G, eos_ids, limit, n_limit)[0]
+
+  def run():
+    st = ledger.dispatch("spec.generate", inner, _SPEC_GENERATE_STATIC, rounds)
+    return st["packed"][: 2 + steps + G + 1].clone(), st["seed"].clone(), st["new_pos"].clone()
+
+  packed, seed, new_pos = ledger.dispatch("spec.chunk", sig, _SPEC_CHUNK_STATIC, run)
+  return packed, seed, new_pos, cache_t, cache_d
 
 
 # ------------------------------------------------------- paged serving
@@ -1191,8 +1398,10 @@ def _spec_paged_rounds(params, cfg: ModelConfig, shard: Shard, token, pool, bloc
   return _spec_batch_rounds(verify, token, positions, active, gammas, temps, top_ks, n_rounds, G, k_max, generator, props, prop_counts)
 
 
-@tracked("spec.batch", ("cfg", "shard", "cfg_d", "shard_d", "n_rounds", "gamma_max", "k_max"))
-def fused_spec_batch_decode(params, cfg: ModelConfig, shard: Shard, params_d, cfg_d, shard_d, token, cache, cache_d, positions, active, gammas, temps, n_rounds: int, gamma_max: int, top_k=35, k_max: int = 64, generator=None, props=None, prop_counts=None, adapter_ids=None):
+_SPEC_BATCH_STATIC = ("cfg", "shard", "cfg_d", "shard_d", "n_rounds", "gamma_max", "k_max")
+
+
+def fused_spec_batch_decode(params, cfg: ModelConfig, shard: Shard, params_d, cfg_d, shard_d, token, cache, cache_d, positions, active, gammas, temps, n_rounds: int, gamma_max: int, top_k=35, k_max: int = 64, generator=None, props=None, prop_counts=None, adapter_ids=None, programs=None):
   """One speculative decode chunk over every row of the dense slot cache:
   ``fused_spec_paged_batch_decode``'s contract with the verify window run
   by ``shard_forward`` on ``cache`` (K1 at Sq = gamma_max+1, one launch per
@@ -1200,23 +1409,37 @@ def fused_spec_batch_decode(params, cfg: ModelConfig, shard: Shard, params_d, cf
   ``n_rounds·(gamma_max+1)`` within the cache. The solo n-gram chunk calls
   it at B=1. Returns (tokens [B, n_rounds·(gamma_max+1)], counts [B],
   n_prop [B], next_token [B, 1], next_positions [B], cache, cache_d),
-  every tensor on the device.
+  every tensor on the device. One dispatch of ``spec.batch``; with
+  ``programs`` (the ``SoloPrograms`` of ``cache``, and no ``generator``:
+  the program seeds its own as a fresh one is seeded here) the chunk is one
+  replay of its captured program, every round in it.
 
   Draft-free only: ``params_d`` must be None (``cache_d`` passes through),
   and so must ``adapter_ids``."""
+  sig = dict(
+    params=params, cfg=cfg, shard=shard, params_d=params_d, cfg_d=cfg_d, shard_d=shard_d, token=token, cache=cache, cache_d=cache_d, positions=positions,
+    active=active, gammas=gammas, temps=temps, n_rounds=int(n_rounds), gamma_max=int(gamma_max), top_k=top_k, k_max=int(k_max), generator=generator,
+    props=props, prop_counts=prop_counts, adapter_ids=adapter_ids,
+  )
   generator, top_ks, active, gammas = _spec_chunk_args("fused_spec_batch_decode", params, shard, params_d, adapter_ids, token, active, gammas, top_k, gamma_max, generator)
   dev = token.device
   G = int(gamma_max)
   props, prop_counts = _spec_props_args(props, prop_counts, token.shape[0], int(n_rounds), G, dev)
+  token, positions, temps = token.to(torch.int32), positions.to(device=dev, dtype=torch.int32), temps.to(device=dev, dtype=torch.float32)
+  if programs is not None:
+    if programs.cache is not cache or sig["generator"] is not None:
+      raise ValueError("programs= must be the cache's SoloPrograms, with no generator")
+    run = lambda: programs.spec_batch(token, positions, active, gammas, temps, top_ks, int(n_rounds), G, int(k_max), props, prop_counts)  # noqa: E731
+  else:
 
-  def verify(window, wpos):
-    logits, _ = shard_forward(params, cfg, shard, window, wpos, cache)
-    return logits
+    def run():
+      def verify(window, wpos):
+        logits, _ = shard_forward(params, cfg, shard, window, wpos, cache)
+        return logits
 
-  buf, counts, n_prop, next_tok, next_pos = _spec_batch_rounds(
-    verify, token.to(torch.int32), positions.to(device=dev, dtype=torch.int32), active, gammas,
-    temps.to(device=dev, dtype=torch.float32), top_ks, int(n_rounds), G, int(k_max), generator, props, prop_counts,
-  )
+      return _spec_batch_rounds(verify, token, positions, active, gammas, temps, top_ks, int(n_rounds), G, int(k_max), generator, props, prop_counts)
+
+  buf, counts, n_prop, next_tok, next_pos = ledger.dispatch("spec.batch", sig, _SPEC_BATCH_STATIC, run)
   return buf, counts, n_prop, next_tok, next_pos, cache, cache_d
 
 

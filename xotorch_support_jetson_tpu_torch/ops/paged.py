@@ -128,7 +128,8 @@ def gather_row_pages(pool_part: torch.Tensor, bt_rows: torch.Tensor) -> torch.Te
   K, mp = bt_rows.shape
   L, _, H, ps, kd = pool_part.shape
   g = pool_part.index_select(1, bt_rows.reshape(-1).long()).view(L, K, mp, H, ps, kd)
-  return g.transpose(3, 4).reshape(L, K, mp * ps, H, kd)
+  # A one-page window reshapes as a strided view: K1 takes contiguous K/V.
+  return g.transpose(3, 4).reshape(L, K, mp * ps, H, kd).contiguous()
 
 
 def touched_page_targets(bt_rows: torch.Tensor, prefix_lens: torch.Tensor, prompt_lens: torch.Tensor, page_size: int) -> torch.Tensor:

@@ -21,14 +21,16 @@ schema and the same signature rule:
   of one unit of work, captured the first time it runs (that run itself is
   eager and is the dispatch's real work) and replayed at every later run.
   The captured solo programs (models/decoder.py ``SoloPrograms``) are made
-  of them — each prefill bucket and each decode step is one replay — and
+  of them — each prefill bucket, decode step, speculative round and n-gram
+  chunk is one replay — and
   so are the batched server's (``BatchedPrograms``): each admission
   prefill and each plain, mixed or speculative chunk, all its steps or
   rounds, is one replay. A run can reseed the graph's generators first
   (``seed``), so a replay draws what an eager run from a freshly seeded
   generator draws. On the CPU a Graph runs its body eagerly every time, so
   the bookkeeping is testable anywhere. A capture or replay that fails
-  raises: there is no fallback to the eager loop. Captures and replays are
+  raises: there is no fallback to the eager loop; a capture runs with the
+  garbage collector off (``_no_collection``). Captures and replays are
   counted per family next to the reference's keys (``captures``,
   ``replays``, ``capture_s``, ``graph_kernels``); ``pool_bytes`` reads what
   a graph memory pool holds.
@@ -57,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import gc
 import inspect
 import os
 import threading
@@ -425,6 +428,20 @@ def reset_replayed() -> None:
   REPLAYED.clear()
 
 
+@contextmanager
+def _no_collection():
+  """No garbage collection while a stream captures: a collection there can
+  free a graph that an unreachable cycle still held, and destroying a graph
+  during a capture invalidates the capture."""
+  enabled = gc.isenabled()
+  gc.disable()
+  try:
+    yield
+  finally:
+    if enabled:
+      gc.enable()
+
+
 class Graph:
   """One step of device work, captured into a CUDA graph on its first run
   and replayed after; on the CPU ``body`` runs eagerly every time.
@@ -483,7 +500,7 @@ class Graph:
     before = dict(CAPTURED)
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
+    with torch.cuda.stream(stream), _no_collection():
       # thread_local: another thread's CUDA calls (the event loop's, a
       # copy stream's) are not an error while this thread captures.
       graph.capture_begin(*(() if self.pool is None else (self.pool,)), capture_error_mode="thread_local")
@@ -568,7 +585,7 @@ def kernels_in(fn) -> int:
   graph = torch.cuda.CUDAGraph(keep_graph=True)
   stream = torch.cuda.Stream()
   stream.wait_stream(torch.cuda.current_stream())
-  with torch.cuda.stream(stream):
+  with torch.cuda.stream(stream), _no_collection():
     graph.capture_begin(capture_error_mode="thread_local")
     try:
       fn()
