@@ -124,6 +124,27 @@ Phases (any failure exits non-zero and prints no result):
    request and read just after the repeat. Launches made inside graph
    replays count in every phase's counts (a graph's kernels, recorded at
    its capture, once per replay);
+5d. the API surface — on that daemon after its gated windows (so its
+   scoring programs build after the warmup, as the reference's do; the
+   counters are zeroed just before and read just after): ``/v1/completions``
+   blocking and streaming greedy on the 72-token prompt with 64-token
+   answers (ids equal), ``echo``, a ``stop`` cut and the 400s; OpenAI
+   logprobs (chat ``top_logprobs`` 5 and completions ``logprobs`` 3) on
+   that prompt (the 256 bucket) and on the 3,000-token one (3072, n bucket
+   64): entries one for one with the returned tokens, each chosen log-prob
+   <= 0, each top list sorted, top-1 the greedy token wherever the
+   runner-up trails by more than ``SCORE_GAP_TOL``, K1 once per layer in
+   each scoring forward, one ``prefill.score_last`` dispatch per scored
+   request in ``GET /v1/programs``, each scoring call's wall and device ms
+   and peak memory, and each call again through the plain attention
+   (``XOT_TPU_NO_FLASH``: no K1, chosen log-probs within 5e-2 relative L2,
+   its wall ms); token encode, ``/initial_models``, ``/modelpool``,
+   ``/v1/models``, ``POST /download`` of a throw-away model directory under
+   a temporary ``XOT_TPU_HOME`` and ``/v1/download/progress`` (complete),
+   ``DELETE /models/{name}`` of it (then 404; the served checkpoint
+   untouched) and ``GET /`` with the web page's controls. Phase 3 also
+   holds K1 at the scoring forward's shapes (Sq = Skv = 256 and 3072,
+   offset 0) beside SDPA ``is_causal``;
 6. batched serving — the same checkpoint through the daemon with
    XOT_TPU_BATCHED=1 (8 slots, 64-token pages, cache 4096) at the batched
    server's defaults, draft-free n-gram speculation, QoS admission and
@@ -152,7 +173,11 @@ Phases (any failure exits non-zero and prints no result):
    a pass with the SLO engine on fails if the gauge was not there when it
    began. Each pass reports, from deltas of the metrics registry, the mean
    decode-chunk, mixed-tick and host-gap times; the default bf16 pass also
-   reads GET /metrics and GET /v1/slo mid-pass. One batched decode step's
+   reads GET /metrics and GET /v1/slo mid-pass. After the repeated
+   warmup, one chat request with logprobs on the batched daemon: decoded
+   by the batched server, scored on the engine's executor thread (the
+   batched replays' thread), K1 once per layer in the scoring forward, one
+   ``prefill.score_last`` dispatch. One batched decode step's
    logits through K3 must agree with the gather path on the same pool; one mixed call at full
    width (``fused_mixed_paged_batch_decode``: 8 decode rows, a 200-token
    slice at offset 1024) must agree with the alternating equivalent
@@ -183,7 +208,10 @@ Phases (any failure exits non-zero and prints no result):
    XOT_TPU_MIXED_TICK=0 pass, whose rates are compared, first serve two
    build rounds (their two waves on other text of the same lengths, so the
    dispatch shapes are captured there; aggregate, TTFT and captures are
-   reported). The measured round fails unless every
+   reported, and when the eighth row's first token came against the first
+   wave's earliest end: a build round's first-wave request may end with
+   its tokens before the eighth row streams, a measured round's may not).
+   The measured round fails unless every
    host launch of K1, K3 and K4 came from the eager first run of a graph
    the pass captured (every other launch was inside a replay) and, per
    batched family, ``GET /v1/programs`` shows one capture per build
@@ -233,7 +261,12 @@ Phases (any failure exits non-zero and prints no result):
    after. A tier-on pass fails unless it spilled and restored with no failure,
    launched K1 and K3, ended every request with all its tokens and the
    endpoint answered with host pages; the share of turn-2 greedy tokens
-   the two passes agree on is reported, not gated.
+   the two passes agree on is reported, not gated;
+8. processes — with tokenizer files written into the checkpoint (a
+   process resolves its tokenizer there): ``python -m
+   xotorch_support_jetson_tpu_torch.main run llama-3.2-1b --prompt ...``
+   prints its tokens and exits 0, and a daemon process serves a
+   completion, gets ``POST /quit`` and exits 0 within ``QUIT_EXIT_S``.
 
 The last two lines are the card as ``nvidia-smi`` reports it and
 ``{"ok": true, "device": {...}}``; the line before them is the kernels' JSON
@@ -250,6 +283,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -416,6 +450,7 @@ def phase_kernels(torch):
   Hq, Hkv, hd = 32, 8, 64
   results = {"flash_prefill": flash_prefill_rows(torch, gen)}
   results["flash_prefill_verify"] = flash_prefill_rows(torch, gen, K1_VERIFY_ROWS)
+  results["flash_prefill_scoring"] = flash_prefill_rows(torch, gen, K1_SCORING_ROWS, own_kv=True)
   results["flash_decode"] = flash_decode_rows(torch, gen, Hq, Hkv, hd)
   results["paged_decode"] = paged_kernel_rows(torch, gen, Hq, Hkv, hd)
   results["paged_window"] = paged_window_rows(torch, gen, Hq, Hkv, hd)
@@ -444,19 +479,24 @@ K1_ROWS = [
 # Sq = gamma+1 = 5 (int8 draft, depth 4) or 9 (n-gram, depth 8), early, in
 # the middle and at the last window of the 4096-slot cache.
 K1_VERIFY_ROWS = [(Sq, [off], kv, 64) for kv in ("bf16", "int8") for Sq in (5, 9) for off in (72, 1024, 4086)]
+# K1 in the logprobs scoring forward (models/decoder.py score_last_tokens):
+# the sequence's own K/V (Sq = Skv = S_pad, no cache) from position 0, at
+# the API phase's two buckets: the 72-token prompt with its 64-token answer
+# (136 tokens, the 256 bucket) and the 3,000-token one (3072).
+K1_SCORING_ROWS = [(256, [0], "bf16", 64), (3072, [0], "bf16", 64)]
 
 
-def k1_case(torch, gen, Sq, offsets, kv, hd):
-  """One K1 row's inputs: q, k, v (int8 codes when ``kv`` is "int8") and
-  the wrapper's keywords. Every slot past a row's last position holds junk
-  (1e4) that must stay masked; the offsets are a device tensor, as the
-  decoder passes them."""
+def k1_case(torch, gen, Sq, offsets, kv, hd, skv=CACHE):
+  """One K1 row's inputs: q, k, v (``skv`` slots; int8 codes when ``kv``
+  is "int8") and the wrapper's keywords. Every slot past a row's last
+  position holds junk (1e4) that must stay masked; the offsets are a
+  device tensor, as the decoder passes them."""
   from xotorch_support_jetson_tpu_torch.models.quantize import quantize_kv
 
   B, (Hq, Hkv) = len(offsets), K1_HEADS
   q = _rand(torch, (B, Sq, Hq, hd), gen, torch.bfloat16)
-  k = _rand(torch, (B, CACHE, Hkv, hd), gen, torch.bfloat16)
-  v = _rand(torch, (B, CACHE, Hkv, hd), gen, torch.bfloat16)
+  k = _rand(torch, (B, skv, Hkv, hd), gen, torch.bfloat16)
+  v = _rand(torch, (B, skv, Hkv, hd), gen, torch.bfloat16)
   for b, off in enumerate(offsets):
     k[b, off + Sq :] = 1e4
     v[b, off + Sq :] = 1e4
@@ -538,8 +578,9 @@ def _kernel_names(torch, fn):
   return sorted({e.name[:80] for e in prof.events() if e.device_type == DeviceType.CUDA})
 
 
-def flash_prefill_rows(torch, gen, rows=K1_ROWS):
-  """K1 against its plain version at ``rows``: max |err| (held to
+def flash_prefill_rows(torch, gen, rows=K1_ROWS, own_kv=False):
+  """K1 against its plain version at ``rows`` (against the 4096-slot
+  cache, or with ``own_kv`` the row's own Sq slots): max |err| (held to
   ``K1_ATOL`` and elementwise to ``K1_EW_ATOL + K1_RTOL·|ref|``), kernel /
   plain / fair-library time, the card's bound, and the count of device
   kernels in one call (``_kernels_per_call``), which must be 1."""
@@ -547,7 +588,8 @@ def flash_prefill_rows(torch, gen, rows=K1_ROWS):
 
   out = []
   for Sq, offsets, kv, hd in rows:
-    q, k, v, kw = k1_case(torch, gen, Sq, offsets, kv, hd)
+    skv = Sq if own_kv else CACHE
+    q, k, v, kw = k1_case(torch, gen, Sq, offsets, kv, hd, skv)
     got = fa.flash_attention_prefill(q, k, v, **kw)
     want = fa.flash_attention_prefill_ref(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -562,7 +604,7 @@ def flash_prefill_rows(torch, gen, rows=K1_ROWS):
     bound_ms, bound_by, flops, nbytes = k1_bound(Sq, offsets, kv, hd)
     lib_ms, library = k1_library(torch, q, k, v, offsets) if kv == "bf16" else (None, "no PyTorch call takes int8 codes with scales")
     row = dict(
-      Sq=Sq, q_offset=offsets[0] if len(offsets) == 1 else offsets, B=len(offsets), kv=kv, hd=hd, max_abs_err=err, abs_beyond_rel=beyond_rel,
+      Sq=Sq, q_offset=offsets[0] if len(offsets) == 1 else offsets, B=len(offsets), kv=kv, hd=hd, skv=skv, max_abs_err=err, abs_beyond_rel=beyond_rel,
       tol=dict(cap=K1_ATOL, atol=K1_EW_ATOL, rtol=K1_RTOL), tol_used=used,
       ms=_cuda_ms(torch, lambda: fa.flash_attention_prefill(q, k, v, **kw)),
       plain_ms=_cuda_ms(torch, lambda: fa.flash_attention_prefill_ref(q, k, v, **kw), iters=10 if Sq <= 1024 else 3, warmup=1),
@@ -574,7 +616,7 @@ def flash_prefill_rows(torch, gen, rows=K1_ROWS):
       raise SystemExit(f"chip_smoke: flash_prefill {label}: {row['device_kernels_per_call']} device kernels per call, expected 1")
     out.append(row)
     lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
-    log(f"[kernels] flash_prefill {label} cache={CACHE}: max|err| {err:.3e} (cap {K1_ATOL}; {used:.3f} of the bound atol {K1_EW_ATOL} + rtol 2^-7·|ref|; beyond the relative part {beyond_rel:.2e}) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | sdpa {lib} ({library}) | bound {bound_ms:.5f} ms ({bound_by}; {row['bound_share']:.3f} of it reached) | {row['device_kernels_per_call']} device kernel per call")
+    log(f"[kernels] flash_prefill {label} {'own K/V (Sq = Skv, the scoring forward)' if own_kv else f'cache={CACHE}'}: max|err| {err:.3e} (cap {K1_ATOL}; {used:.3f} of the bound atol {K1_EW_ATOL} + rtol 2^-7·|ref|; beyond the relative part {beyond_rel:.2e}) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | sdpa {lib} ({library}) | bound {bound_ms:.5f} ms ({bound_by}; {row['bound_share']:.3f} of it reached) | {row['device_kernels_per_call']} device kernel per call")
     del q, k, v, kw, got
   return out
 
@@ -1803,6 +1845,7 @@ async def _serve_batched(torch, tmain, args, port, weights):
     passes = {}
     plan = BATCHED_PASSES if weights == "bf16" else [("bf16", "", {})]
     for name, quant, env in plan:
+      t_pass = time.perf_counter()
       engine._drop_batched_server()  # a fresh pool (and QoS / mixed-tick verdict) for this pass
       os.environ["XOT_TPU_KV_QUANT"] = quant
       for knob in PASS_KNOBS:
@@ -1843,6 +1886,7 @@ async def _serve_batched(torch, tmain, args, port, weights):
           failed = [repr(f.exception()) for f in first if f.done() and f.exception() is not None]
           raise SystemExit(f"chip_smoke: batched {name}: the first wave's rows did not all stream (failed requests: {failed})")
         await asyncio.sleep(0.005)
+      second_s = time.perf_counter() - t0
       second = [loop.run_in_executor(clients, _post, port, b) for b in waves[1]]
       endpoints = await asyncio.to_thread(_read_endpoints, port) if name == "bf16" else None  # its own thread: the 16 client threads are busy
       replies = await asyncio.gather(*first, *second)
@@ -1920,7 +1964,8 @@ async def _serve_batched(torch, tmain, args, port, weights):
       if off_k3:  # every round's verify window through K3 once per layer (and K4 on int4 weights)
         raise SystemExit(f"chip_smoke: batched {name}: spec dispatches off their kernels: {off_k3[:4]}")
       if priority and preemptions < 1:
-        raise SystemExit(f"chip_smoke: batched {name}: no preemption (interactive requests arrived while {BATCH_SLOTS} batch rows streamed)")
+        ends = sorted(round(r[3], 3) for r in replies[: len(first)])
+        raise SystemExit(f"chip_smoke: batched {name}: no preemption (interactive requests arrived while {BATCH_SLOTS} batch rows streamed); the interactive wave sent {second_s:.3f} s after the first, the batch requests' ends {ends} s, the interactive TTFTs {[round(r[2], 3) for r in replies[len(first):]]} s, {graphs['captures']} captures ({graphs['capture_s']:.3f} s) in the pass, {len(spec_records)} spec dispatches")
       if not tiered["on"] or any(tiered["failures"].values()) or len(resumes) != preemptions or any(r["prefix"] != r["full"] for r in resumes):
         raise SystemExit(f"chip_smoke: batched {name}: host KV tier {tiered}; {preemptions} preemptions, resumes (prefix against the victim's full pages) {resumes}")
       if bserver.busy() or bserver.allocator.audit()["referenced"]:
@@ -1937,12 +1982,14 @@ async def _serve_batched(torch, tmain, args, port, weights):
         log(f"[batched] pass={name}: GET /metrics and /v1/slo mid-pass: {endpoints}")
       if priority:
         log(f"[batched] pass={name}: TTFT p50 by class {res['ttft_p50_by_class']} | resumes (tokens, prefix at admission, the victim's full pages): {[(r['tokens'], r['prefix'], r['full']) for r in resumes]}")
+      log(f"[time] batched {weights} weights, pass {name}: {time.perf_counter() - t_pass:.1f} s")
     for knob in ("XOT_TPU_KV_QUANT", *PASS_KNOBS):
       os.environ.pop(knob, None)
     node.on_token.deregister("chip_smoke")
     out = dict(passes=passes)
     if weights == "bf16":
       out["warmup"] = await asyncio.to_thread(_batched_warmup_twice, port)
+      out["logprobs"] = await _batched_logprobs(torch, node, engine, port)  # after the gated windows
     if "bf16_nospec" in passes:
       # Greedy tokens the speculating default pass and the XOT_TPU_SPEC_BATCH=0
       # pass agree on, position by position (reported, not gated: bf16 sums
@@ -1967,13 +2014,15 @@ async def _serve_batched(torch, tmain, args, port, weights):
     engine._drop_batched_server()  # its pool and graphs: the checks below bring their own
     gc.collect()
     torch.cuda.empty_cache()
+    t_graphs = time.perf_counter()
     out["graphs"] = batched_graphs_against_eager(torch, engine, weights)
+    log(f"[time] batched {weights} weights: graphs against eager {time.perf_counter() - t_graphs:.1f} s")
     if weights == "bf16":
       out["graphs_profile"] = profile_batched_graphs(torch, engine, _smi(), out["profile"])
     return out
   finally:
     await node.stop()
-    clients.shutdown(wait=True)
+    await asyncio.to_thread(clients.shutdown, True)  # off the loop: requests still in flight get their answers
     server.close()
     await server.wait_closed()
     engine.executor.shutdown(wait=True)
@@ -1982,8 +2031,13 @@ async def _serve_batched(torch, tmain, args, port, weights):
 async def _build_round(loop, clients, port, ids, priority, variant) -> dict:
   """A batched pass's traffic on other text (``batched_bodies`` of
   ``variant``): two waves as the measured round sends them. Every request
-  must end with tokens. Returns its wall, tokens, aggregate, TTFT and the
-  captures (and their seconds) the ledger counted during it."""
+  must end with tokens. Unlike the measured round, a first-wave request
+  that ends with its tokens before the eighth row streams does not fail
+  the round: here the rows decode while the pool's graphs are first
+  captured. Each round logs when the eighth row's first token came, the
+  captures before it and the first wave's earliest end, and lists the
+  requests that ended first. Returns those, its wall, tokens, aggregate,
+  TTFT and the captures (and their seconds) the ledger counted during it."""
   from xotorch_support_jetson_tpu_torch.utils.programs import ledger
 
   waves = (batched_bodies(12, "batch", variant), batched_bodies(4, "interactive", variant)) if priority else (batched_bodies(variant=variant)[:8], batched_bodies(variant=variant)[8:])
@@ -1992,21 +2046,31 @@ async def _build_round(loop, clients, port, ids, priority, variant) -> dict:
   t0 = time.perf_counter()
   before = set(ids)
   first = [loop.run_in_executor(clients, _post, port, b) for b in waves[0]]
-  while sum(1 for rid, t in ids.items() if t and rid not in before) < BATCH_SLOTS:
-    if time.perf_counter() - t0 > 120 or any(f.done() for f in first):
+  ended: dict[int, float] = {}  # first-wave request -> seconds from the first send to when the poll saw it end
+  while sum(1 for rid, t in list(ids.items()) if t and rid not in before) < BATCH_SLOTS:
+    now = time.perf_counter() - t0
+    if now > 120 or any(f.done() and f.exception() is not None for f in first):
       failed = [repr(f.exception()) for f in first if f.done() and f.exception() is not None]
       raise SystemExit(f"chip_smoke: batched build round: the first wave's rows did not all stream (failed requests: {failed})")
+    ended.update((i, now) for i, f in enumerate(first) if f.done() and i not in ended)
     await asyncio.sleep(0.005)
+  eighth_s = time.perf_counter() - t0
+  fams = ledger.snapshot()["families"]
+  c8, s8 = sum(f["captures"] for f in fams.values()) - c0, sum(f["capture_s"] for f in fams.values()) - s0
   replies = await asyncio.gather(*first, *(loop.run_in_executor(clients, _post, port, b) for b in waves[1]))
   wall = time.perf_counter() - t0
   tokens = [len(ids.get(rid, [])) for *_, rid in replies]
   if not all(tokens):
     raise SystemExit(f"chip_smoke: batched build round: tokens per request {tokens}")
+  early = [dict(ended_s=ended[i], tokens=tokens[i], ttft_s=replies[i][2]) for i in sorted(ended, key=ended.get)]
+  earliest = min(r[3] for r in replies[: len(first)])
+  log(f"[batched] build round {variant}: the eighth row's first token {eighth_s:.3f} s after the first send, {c8} captures ({s8:.3f} s) before it; the first wave's earliest end {earliest:.3f} s; ended before the eighth row streamed: {early or 'none'}")
   fams = ledger.snapshot()["families"]
   ttfts = [r[2] for r in replies]
   return dict(
     wall_s=wall, tokens=sum(tokens), aggregate_tok_s=sum(tokens) / wall, ttft_p50_s=_pctl(ttfts, 0.5), ttft_p95_s=_pctl(ttfts, 0.95),
     captures=sum(f["captures"] for f in fams.values()) - c0, capture_s=sum(f["capture_s"] for f in fams.values()) - s0,
+    eighth_first_token_s=eighth_s, captures_before_eighth=c8, capture_s_before_eighth=s8, first_wave_earliest_end_s=earliest, ended_before_eighth=early,
   )
 
 
@@ -2890,7 +2954,7 @@ async def _serve_tiered(torch, tmain, args, port):
     return out
   finally:
     await node.stop()
-    clients.shutdown(wait=True)
+    await asyncio.to_thread(clients.shutdown, True)  # off the loop: requests still in flight get their answers
     server.close()
     await server.wait_closed()
     engine.executor.shutdown(wait=True)
@@ -2928,6 +2992,7 @@ def phase_graphs(torch, ckpt: Path, draft_dir: Path, smi: str):
   from xotorch_support_jetson_tpu_torch.inference.torch_engine import TorchShardedInferenceEngine
 
   out = {"modes": {}, "card": smi}
+  t0 = time.perf_counter()
   for mode, knobs in GRAPH_MODES.items():
     for knob in SERVING_KNOBS:
       os.environ.pop(knob, None)
@@ -2946,9 +3011,14 @@ def phase_graphs(torch, ckpt: Path, draft_dir: Path, smi: str):
       del engine
       gc.collect()
       torch.cuda.empty_cache()
+  log(f"[time] graphs: the three modes {time.perf_counter() - t0:.1f} s")
+  t0 = time.perf_counter()
   out["kernels_in_replay"] = kernels_in_replay(torch)
   out["spec"] = spec_graphs(torch, ckpt, draft_dir, smi)
+  log(f"[time] graphs: kernels in replays and the spec cell {time.perf_counter() - t0:.1f} s")
+  t0 = time.perf_counter()
   out["daemon"] = asyncio.run(_graphs_daemon(torch, ckpt))
+  log(f"[time] graphs: the daemon and the API phase {time.perf_counter() - t0:.1f} s")
   return out
 
 
@@ -3453,6 +3523,10 @@ async def _graphs_daemon(torch, ckpt: Path):
     snap = await asyncio.to_thread(_get_json, port, "/v1/programs")
     launches = {n: _launched(n) for n in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}  # ---- read just after
     cluster = await asyncio.to_thread(_get_json, port, "/v1/programs?scope=cluster")
+    # The API phase after the windows the gates below read: its scoring
+    # forward is a program the warmup manifest does not hold (as in the
+    # reference), so it builds after warmup.
+    api_res = await _api_phase(torch, node, engine, port)
   finally:
     server.close()
     await server.wait_closed()
@@ -3471,7 +3545,417 @@ async def _graphs_daemon(torch, ckpt: Path):
     raise SystemExit(f"chip_smoke: [graphs] daemon: unexpected ledger {summary} (cold steady {cold['steady']}; cluster {cluster.get('unreachable')})")
   if launches["flash_prefill"] == 0:
     raise SystemExit(f"chip_smoke: [graphs] daemon: K1 never launched {launches}")
-  return dict(warmup=warm, programs=snap, solo_families=summary, launches=launches, greedy_tokens=first[0]["tokens"])
+  return dict(warmup=warm, programs=snap, solo_families=summary, launches=launches, greedy_tokens=first[0]["tokens"], api=api_res)
+
+
+# ------------------------------------------------------- 5d. the API surface
+
+# Top-1 of a scored row must be the greedy token wherever the runner-up
+# trails it by more than this (nats). Generation and scoring reach the same
+# logits through different routes (a 4096-slot cache and the plain decode
+# attention against K1 over the sequence's own K/V), each in bf16: the
+# served logits differ from the plain path's by ~1.6e-2 relative L2 (the
+# serving phase's check), ~0.013 nats at these logits' scale, and each logit
+# is rounded to bf16 (2^-6 near 4); 0.1 is about eight such steps. A wrong
+# row or an off-by-one position misses by whole nats.
+SCORE_GAP_TOL = 0.1
+# The scorer's K1 route against its plain route (``_scoring_against_plain``):
+# the top log-prob rows' relative L2 (the chosen ones measured 1.3e-3 and
+# 1.8e-3 on the H100 at S_pad 3072 and 256), and a runner-up's distance
+# below its row's top in nats: eight bf16 steps of a logit in [2, 4).
+SCORE_ROUTE_TOP_REL = 1e-2
+SCORE_ROUTE_NATS = 0.125
+THROWAWAY = "qwen-3-0.6b"  # the card whose directory the API phase creates, downloads and deletes
+HOME_NEEDLES = ('id="model"', 'id="dl-btn"', 'id="del-btn"', 'id="attach"', 'id="stop"', 'id="topology"', "/v1/download/progress")  # tests/test_api.py
+
+
+def _http(port: int, method: str, path: str, body=None, timeout=600):
+  """(status, body text) of one request; an HTTP error status is returned, not raised."""
+  data = None if body is None else json.dumps(body).encode()
+  req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method, headers={"Content-Type": "application/json"})
+  try:
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+      return resp.status, resp.read().decode()
+  except urllib.error.HTTPError as e:
+    return e.code, e.read().decode()
+
+
+def _sse(raw: str) -> list[dict]:
+  events = [line[6:] for line in raw.split("\n") if line.startswith("data: ")]
+  if not events or events[-1] != "[DONE]":
+    raise SystemExit(f"chip_smoke: [api] an SSE stream did not end with [DONE]: {raw[-300:]!r}")
+  return [json.loads(e) for e in events[:-1]]
+
+
+def _spy_scoring(torch, records):
+  """Wrap ``decoder.score_last_tokens`` (the engine looks it up at each
+  call): per call its K1 launches, wall and device ms (CUDA events), peak
+  device memory above what was allocated before it, the thread it ran on,
+  and its inputs and chosen log-probs for the plain-route check."""
+  from xotorch_support_jetson_tpu_torch.models import decoder as dec
+
+  orig = dec.score_last_tokens
+
+  def spy(params, cfg, shard, tokens, seq_len, n_scored, top_n):
+    torch.cuda.synchronize()
+    k1, base = _launched("flash_prefill"), torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = orig(params, cfg, shard, tokens, seq_len, n_scored, top_n)
+    end.record()
+    torch.cuda.synchronize()
+    records.append(dict(
+      S_pad=tokens.shape[1], seq_len=int(seq_len), n_bucket=n_scored, k1=_launched("flash_prefill") - k1, wall_ms=(time.perf_counter() - t0) * 1e3,
+      device_ms=start.elapsed_time(end), peak_bytes=torch.cuda.max_memory_allocated() - base, thread=threading.get_ident(),
+      call=(params, cfg, shard, tokens, seq_len, n_scored, top_n), chosen=out[0].clone(), top=out[2].clone(),
+    ))
+    return out
+
+  dec.score_last_tokens = spy
+  return lambda: setattr(dec, "score_last_tokens", orig)
+
+
+def _scoring_against_plain(torch, records):
+  """Each recorded scoring call again through the plain attention
+  (``XOT_TPU_NO_FLASH``): no K1 launch, chosen log-probs within 5e-2
+  relative L2 of the K1 route's (PERF.md §2's logits gate), and its wall
+  ms. Every log-prob carries its row's -log Z (several nats on the seeded
+  weights), which that relative measure divides by, so two
+  more: the top-``top_n`` log-prob rows within ``SCORE_ROUTE_TOP_REL``
+  relative L2, and each runner-up's distance below its row's top, where
+  -log Z cancels, within ``SCORE_ROUTE_NATS`` nats of the K1 route's (the
+  chosen token's own distance is 0 on both routes wherever it is the
+  top, as greedy tokens nearly always are)."""
+  from xotorch_support_jetson_tpu_torch.models import decoder as dec
+
+  out = []
+  os.environ["XOT_TPU_NO_FLASH"] = "1"
+  try:
+    for r in records:
+      torch.cuda.synchronize()
+      k1, t0 = _launched("flash_prefill"), time.perf_counter()
+      chosen, _, top = dec.score_last_tokens(*r["call"])
+      torch.cuda.synchronize()
+      below = float(((r["top"] - r["top"][:, :1]) - (top - top[:, :1])).abs().max())
+      res = dict(
+        S_pad=r["S_pad"], top_n=r["call"][6], plain_wall_ms=(time.perf_counter() - t0) * 1e3, k1_launches=_launched("flash_prefill") - k1, rel_err=_rel_err(r["chosen"], chosen),
+        top_rel_err=_rel_err(r["top"], top), below_top_max_abs_nats=below,
+      )
+      if res["k1_launches"] or not (res["rel_err"] < 5e-2 and res["top_rel_err"] < SCORE_ROUTE_TOP_REL and below <= SCORE_ROUTE_NATS):
+        raise SystemExit(f"chip_smoke: [api] the scorer's K1 route and its plain route disagree (or the plain route launched K1): {res}")
+      out.append(res)
+  finally:
+    os.environ.pop("XOT_TPU_NO_FLASH")
+  return out
+
+
+def _check_logprobs(label, entries, ids, eos, decode, chat: bool) -> dict:
+  """The logprobs of one response against its generated ids: entries one
+  for one with the returned tokens (chat: every generated token, as the
+  reference; completions: EOS dropped), each chosen log-prob <= 0, each
+  top list sorted, top-1 the greedy token wherever the runner-up trails by
+  more than ``SCORE_GAP_TOL``."""
+  kept = ids if chat else [t for t in ids if t not in eos]
+  if chat:
+    toks, chosen, tops = [e["token"] for e in entries["content"]], [e["logprob"] for e in entries["content"]], [[(t["token"], t["logprob"]) for t in e["top_logprobs"]] for e in entries["content"]]
+  else:
+    toks, chosen, tops = entries["tokens"], entries["token_logprobs"], [list(d.items()) for d in entries["top_logprobs"]]
+  if toks != [decode([t]) for t in kept] or len(chosen) != len(kept) or len(tops) != len(kept):
+    raise SystemExit(f"chip_smoke: [api] {label}: logprobs entries do not line up with the {len(kept)} returned tokens ({len(toks)} entries)")
+  near, worst = 0, 0.0
+  for tok, lp, top in zip(toks, chosen, tops):
+    vals = [v for _, v in top]
+    if lp > 0 or vals != sorted(vals, reverse=True):
+      raise SystemExit(f"chip_smoke: [api] {label}: chosen log-prob {lp} > 0 or an unsorted top list {top}")
+    gap = vals[0] - vals[1] if len(vals) > 1 else math.inf
+    if top[0][0] != tok:
+      if gap > SCORE_GAP_TOL:
+        raise SystemExit(f"chip_smoke: [api] {label}: top-1 {top[0]} is not the greedy token {tok!r} ({lp}) with a gap of {gap} > {SCORE_GAP_TOL}")
+      near, worst = near + 1, max(worst, gap)
+  return dict(entries=len(kept), top1_not_greedy_within_tol=near, largest_gap_there=worst, min_chosen=min(chosen, default=None))
+
+
+async def _api_phase(torch, node, engine, port):
+  """The default daemon's API surface on the bf16 solo daemon, after its
+  gated passes: ``/v1/completions`` (blocking and streaming greedy on the
+  72-token prompt, ``echo``, a ``stop`` cut, the 400s), OpenAI logprobs
+  (chat ``top_logprobs`` 5 and completions ``logprobs`` 3 on that prompt
+  and on the 3,000-token one), token encode, the model lists and pool, a
+  download of a local model directory and its progress, the delete of it,
+  and the web page. The counters are zeroed just before and read just
+  after."""
+  from xotorch_support_jetson_tpu_torch.download.downloader import get_models_dir, repo_to_dirname
+  from xotorch_support_jetson_tpu_torch.models.loader import save_safetensors
+  from xotorch_support_jetson_tpu_torch import registry
+
+  tok = ByteTokenizer()
+  eos = {tok.eos_token_id, *engine.cfg.eos_token_ids}
+  n_layers = engine.cfg.n_layers
+  prompt72 = tok.apply_chat_template(CHAT)
+  long_body = long_prompt_body(False)
+  prompt_long = tok.apply_chat_template(long_body["messages"])
+  if len(tok.encode(prompt72)) != 72 or len(tok.encode(prompt_long)) != LONG_PROMPT_TOKENS:
+    raise SystemExit("chip_smoke: [api] unexpected prompt lengths")
+  ids: dict[str, list[int]] = {}
+  node.on_token.register("chip_smoke_api").on_next(lambda rid, toks, fin: ids.setdefault(rid, []).extend(toks))
+  call = lambda method, path, body=None: asyncio.to_thread(_http, port, method, path, body)  # noqa: E731
+  res: dict = {}
+
+  def tokens_of(body: dict) -> list[int]:
+    rid = body["id"].split("-", 1)[1]
+    return ids[rid]
+
+  records: list[dict] = []
+  unspy = _spy_scoring(torch, records)
+  fam0 = (await asyncio.to_thread(_get_json, port, "/v1/programs"))["families"].get("prefill.score_last", {})
+  _reset_launches()  # ---- the API phase, counted
+  try:
+    t0 = time.perf_counter()
+    comp = {"model": "llama-3.2-1b", "prompt": prompt72, "max_tokens": MAX_TOKENS, "temperature": 0}
+    st, raw = await call("POST", "/v1/completions", comp)
+    blocking = json.loads(raw)
+    st_s, raw_s = await call("POST", "/v1/completions", {**comp, "stream": True})
+    events = _sse(raw_s)
+    stream_text = "".join(c["text"] for e in events for c in e["choices"])
+    stream_rid = events[0]["id"].split("-", 1)[1]
+    text = blocking["choices"][0]["text"]
+    if st != 200 or st_s != 200 or tokens_of(blocking) != ids[stream_rid] or text != stream_text or len(tokens_of(blocking)) != blocking["usage"]["completion_tokens"] or blocking["usage"]["prompt_tokens"] != 72:
+      raise SystemExit(f"chip_smoke: [api] /v1/completions: blocking and streaming greedy differ or a bad body ({st}, {st_s}): {raw[:300]}")
+    st_e, raw_e = await call("POST", "/v1/completions", {**comp, "echo": True})
+    stop = text[len(text) // 2 : len(text) // 2 + 3]
+    st_c, raw_c = await call("POST", "/v1/completions", {**comp, "stop": stop})
+    cut = json.loads(raw_c)["choices"][0]
+    if st_e != 200 or json.loads(raw_e)["choices"][0]["text"] != prompt72 + text or st_c != 200 or cut["text"] != text[: text.find(stop)] or cut["finish_reason"] != "stop":
+      raise SystemExit(f"chip_smoke: [api] /v1/completions echo or stop cut wrong: {raw_e[:200]} | stop {stop!r}: {raw_c[:300]}")
+    refused = {}
+    for name, body in (("two prompts", {**comp, "prompt": ["a", "b"]}), ("empty prompt", {**comp, "prompt": ""}), ("logprobs 50", {**comp, "logprobs": 50}), ("logprobs with stream", {**comp, "logprobs": 2, "stream": True}), ("stream_options not an object", {"messages": CHAT, "stream": True, "stream_options": "usage"})):
+      st_r, raw_r = await call("POST", "/v1/chat/completions" if "messages" in body else "/v1/completions", body)
+      refused[name] = (st_r, json.loads(raw_r)["error"])
+      if st_r != 400:
+        raise SystemExit(f"chip_smoke: [api] {name}: {st_r} {raw_r[:200]}, expected 400")
+    res["completions"] = dict(tokens=len(tokens_of(blocking)), finish=blocking["choices"][0]["finish_reason"], stop=stop, refused=refused, s=time.perf_counter() - t0)
+    log(f"[api] /v1/completions on the 72-token prompt: blocking == streaming greedy ({res['completions']['tokens']} tokens, finish {res['completions']['finish']}); echo prepends the prompt; stop {stop!r} cuts to {len(cut['text'])} chars (finish stop); 400s: {refused}")
+
+    # Logprobs: chat top_logprobs 5 and completions logprobs 3, on both prompts.
+    scored = []
+    plans = [
+      ("chat, 72-token prompt", "/v1/chat/completions", {"model": "llama-3.2-1b", "messages": CHAT, "max_tokens": MAX_TOKENS, "temperature": 0, "logprobs": True, "top_logprobs": 5}, True),
+      ("completions, 72-token prompt", "/v1/completions", {**comp, "logprobs": 3}, False),
+      ("chat, 3,000-token prompt", "/v1/chat/completions", {**long_body, "logprobs": True, "top_logprobs": 5}, True),
+      ("completions, 3,000-token prompt", "/v1/completions", {"model": "llama-3.2-1b", "prompt": prompt_long, "max_tokens": MAX_TOKENS, "temperature": 0, "logprobs": 3}, False),
+    ]
+    for label, path, body, chat in plans:
+      n_rec = len(records)
+      st_l, raw_l = await call("POST", path, body)
+      if st_l != 200:
+        raise SystemExit(f"chip_smoke: [api] logprobs {label}: HTTP {st_l} {raw_l[:300]}")
+      data = json.loads(raw_l)
+      lp = data["choices"][0]["logprobs"]
+      if lp is None or len(records) != n_rec + 1:
+        raise SystemExit(f"chip_smoke: [api] logprobs {label}: no logprobs in the body ({len(records) - n_rec} scoring calls)")
+      rec = records[-1]
+      check = _check_logprobs(label, lp, tokens_of(data), eos, tok.decode, chat)
+      if rec["k1"] != n_layers:
+        raise SystemExit(f"chip_smoke: [api] logprobs {label}: the scoring forward launched K1 {rec['k1']} times, expected {n_layers} (once per layer)")
+      scored.append(dict(label=label, **check, **{k: rec[k] for k in ("S_pad", "seq_len", "n_bucket", "k1", "wall_ms", "device_ms", "peak_bytes")}))
+      log(f"[api] logprobs {label}: {check['entries']} entries aligned, min chosen {check['min_chosen']:.4f}, top-1 not the greedy token at {check['top1_not_greedy_within_tol']} near-ties (largest gap there {check['largest_gap_there']:.4f} <= {SCORE_GAP_TOL}) | scoring forward S_pad {rec['S_pad']} n_bucket {rec['n_bucket']}: K1 {rec['k1']} launches, wall {rec['wall_ms']:.3f} ms, device span (CUDA events, idle gaps included) {rec['device_ms']:.3f} ms, peak {rec['peak_bytes'] / 2**20:.1f} MiB above the allocated")
+    fam1 = (await asyncio.to_thread(_get_json, port, "/v1/programs"))["families"].get("prefill.score_last", {})
+    launches = {n: _launched(n) for n in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}  # ---- read just after
+    ledger = {k: fam1.get(k, 0) - fam0.get(k, 0) for k in ("compiles", "dispatches", "steady_compiles", "captures")}
+    if ledger["dispatches"] != len(plans):
+      raise SystemExit(f"chip_smoke: [api] the ledger shows {ledger['dispatches']} prefill.score_last dispatches for {len(plans)} scored requests: {fam1}")
+    res.update(logprobs=scored, ledger=ledger, launches=launches)
+    log(f"[api] ledger prefill.score_last over the {len(plans)} scored requests (after POST /v1/warmup): {ledger}; signatures {fam1.get('signatures')}; launches in the phase {launches}")
+    unspy()
+    res["plain_route"] = _scoring_against_plain(torch, records)
+    for r in res["plain_route"]:
+      log(f"[api] scoring forward S_pad {r['S_pad']}: plain attention route (XOT_TPU_NO_FLASH) wall {r['plain_wall_ms']:.3f} ms, chosen log-probs within {r['rel_err']:.2e} relative L2 of the K1 route (limit 5e-2), top-{r['top_n']} rows within {r['top_rel_err']:.2e} (limit {SCORE_ROUTE_TOP_REL}), runners-up's distances below the top within {r['below_top_max_abs_nats']:.4f} nats (limit {SCORE_ROUTE_NATS})")
+    # Where a scoring call's time goes: host wall against the device's busy
+    # time (torch.profiler), one call per bucket.
+    from xotorch_support_jetson_tpu_torch.models import decoder as dec
+
+    firsts = {r["S_pad"]: r["call"] for r in records}
+    res["profile"] = {S: _profile(torch, f"scoring forward S_pad {S} (n bucket {c[5]}, eager)", lambda c=c: dec.score_last_tokens(*c), 3) for S, c in firsts.items()}
+
+    # The other routes.
+    st, raw = await call("POST", "/v1/chat/token/encode", {"model": "llama-3.2-1b", "messages": CHAT})
+    enc = json.loads(raw)
+    st_i, raw_i = await call("GET", "/initial_models")
+    st_p, raw_p = await call("GET", "/modelpool")
+    pool = _sse(raw_p)
+    if st != 200 or enc["num_tokens"] != 72 or enc["encoded_prompt"] != prompt72 or st_i != 200 or "llama-3.2-1b" not in json.loads(raw_i) or st_p != 200 or "llama-3.2-1b" not in [e["model"] for e in pool]:
+      raise SystemExit(f"chip_smoke: [api] token encode / initial_models / modelpool: {raw[:200]} | {raw_i[:200]} | {raw_p[:200]}")
+    home = ROOT / "build" / "smoke_home"
+    shutil.rmtree(home, ignore_errors=True)
+    saved = {k: os.environ.get(k) for k in ("XOT_TPU_HOME", "XOT_TPU_MODEL_DIR")}
+    os.environ["XOT_TPU_HOME"] = str(home)
+    try:
+      throwaway = get_models_dir() / repo_to_dirname(registry.get_repo(THROWAWAY, "TorchShardedInferenceEngine"))
+      throwaway.mkdir(parents=True)
+      (throwaway / "config.json").write_text("{}")
+      save_safetensors(throwaway / "model.safetensors", {"w": torch.zeros(4, dtype=torch.bfloat16)})
+      st_m, raw_m = await call("GET", "/v1/models")
+      downloaded = [m["id"] for m in json.loads(raw_m)["data"] if m["downloaded"]]
+      os.environ.pop("XOT_TPU_MODEL_DIR")  # the served model stays loaded; the download resolves the throw-away directory
+      st_d, raw_d = await call("POST", "/download", {"model": THROWAWAY})
+      for _ in range(100):
+        if node.node_download_progress:
+          break
+        await asyncio.sleep(0.05)
+      os.environ["XOT_TPU_MODEL_DIR"] = saved["XOT_TPU_MODEL_DIR"]
+      st_g, raw_g = await call("GET", "/v1/download/progress")
+      progress = json.loads(raw_g).get(str(node.id), {})
+      st_x, raw_x = await call("DELETE", f"/models/{THROWAWAY}")
+      st_y, raw_y = await call("DELETE", f"/models/{THROWAWAY}")
+    finally:
+      for k, v in saved.items():
+        if v is None:
+          os.environ.pop(k, None)
+        else:
+          os.environ[k] = v
+      shutil.rmtree(home, ignore_errors=True)
+    served = Path(saved["XOT_TPU_MODEL_DIR"])
+    if st_m != 200 or downloaded != [THROWAWAY] or st_d != 200 or progress.get("status") != "complete" or progress.get("total_files") != 2 or st_x != 200 or st_y != 404 or throwaway.exists() or not (served / "model.safetensors").exists():
+      raise SystemExit(f"chip_smoke: [api] models / download / progress / delete: downloaded {downloaded}; {raw_d}; progress {progress}; delete {st_x} {raw_x} then {st_y} {raw_y}; served checkpoint present {(served / 'model.safetensors').exists()}")
+    st_h, page = await call("GET", "/")
+    missing = [n for n in HOME_NEEDLES if n not in page]
+    if st_h != 200 or missing:
+      raise SystemExit(f"chip_smoke: [api] GET /: {st_h}, missing {missing}")
+    res["routes"] = dict(encode_tokens=enc["num_tokens"], initial_models=len(json.loads(raw_i)), modelpool_events=len(pool), downloaded=downloaded, progress={k: progress[k] for k in ("status", "total_files", "total_bytes", "repo_id")}, delete=(st_x, st_y), page_bytes=len(page))
+    log(f"[api] token encode {enc['num_tokens']} tokens; /initial_models {res['routes']['initial_models']} cards, /modelpool {len(pool)} events; /v1/models downloaded {downloaded}; POST /download {THROWAWAY} (local directory) -> progress {res['routes']['progress']}; DELETE /models/{THROWAWAY} {st_x} then {st_y}, the served checkpoint untouched; GET / {len(page)} bytes with every needle")
+  finally:
+    node.on_token.deregister("chip_smoke_api")
+    unspy()
+  return res
+
+
+async def _batched_logprobs(torch, node, engine, port):
+  """One chat request with logprobs on the batched daemon, after its gated
+  windows: generated by the batched server, scored on the engine's one
+  executor thread (the thread of the batched replays), K1 once per layer
+  in the scoring forward, one ``prefill.score_last`` dispatch. The counters
+  are zeroed just before and read just after."""
+  tok = ByteTokenizer()
+  ids: dict[str, list[int]] = {}
+  node.on_token.register("chip_smoke_lp").on_next(lambda rid, toks, fin: ids.setdefault(rid, []).extend(toks))
+  records: list[dict] = []
+  unspy = _spy_scoring(torch, records)
+  fam0 = (await asyncio.to_thread(_get_json, port, "/v1/programs"))["families"].get("prefill.score_last", {})
+  _reset_launches()  # ---- the batched logprobs request, counted
+  try:
+    st, raw = await asyncio.to_thread(_http, port, "POST", "/v1/chat/completions", {"model": "llama-3.2-1b", "messages": CHAT, "max_tokens": 32, "temperature": 0, "logprobs": True, "top_logprobs": 5})
+  finally:
+    unspy()
+    node.on_token.deregister("chip_smoke_lp")
+  launches = {n: _launched(n) for n in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}  # ---- read just after
+  executor_thread = await asyncio.get_running_loop().run_in_executor(engine.executor, threading.get_ident)
+  fam1 = (await asyncio.to_thread(_get_json, port, "/v1/programs"))["families"].get("prefill.score_last", {})
+  if st != 200:
+    raise SystemExit(f"chip_smoke: [api] batched logprobs: HTTP {st} {raw[:300]}")
+  data = json.loads(raw)
+  lp = data["choices"][0]["logprobs"]
+  if lp is None or len(records) != 1:
+    raise SystemExit(f"chip_smoke: [api] batched logprobs: logprobs {lp is not None}, {len(records)} scoring calls")
+  rid = data["id"].split("-", 1)[1]
+  check = _check_logprobs("batched chat", lp, ids[rid], {tok.eos_token_id, *engine.cfg.eos_token_ids}, tok.decode, True)
+  rec = records[0]
+  dispatches = fam1.get("dispatches", 0) - fam0.get("dispatches", 0)
+  if rec["k1"] != engine.cfg.n_layers or rec["thread"] != executor_thread or dispatches != 1:
+    raise SystemExit(f"chip_smoke: [api] batched logprobs: K1 {rec['k1']} launches, scored on the executor thread {rec['thread'] == executor_thread}, {dispatches} prefill.score_last dispatches")
+  if launches["paged_decode"] == 0:
+    raise SystemExit(f"chip_smoke: [api] batched logprobs: the request did not decode on the batched server (launches {launches})")
+  res = dict(**check, k1=rec["k1"], wall_ms=rec["wall_ms"], device_ms=rec["device_ms"], peak_bytes=rec["peak_bytes"], S_pad=rec["S_pad"], dispatches=dispatches, launches=launches)
+  log(f"[api] batched chat with logprobs: {check['entries']} entries aligned ({check['top1_not_greedy_within_tol']} near-ties); scored on the engine's executor thread, serialised with the batched replays; K1 {rec['k1']} launches; wall {rec['wall_ms']:.3f} ms, device span {rec['device_ms']:.3f} ms; one prefill.score_last dispatch")
+  return res
+
+
+# The run command and /quit against daemon processes (a SIGINT in this
+# process would stop the smoke run): the checkpoint gets tokenizer files,
+# since a process resolves its tokenizer from the checkpoint directory.
+QUIT_EXIT_S = 60  # a daemon that got POST /quit must have exited within this
+
+
+def write_tokenizer(path: Path) -> None:
+  """A word-level tokenizer over llama-3.2-1b's 128,256 ids ("t<id>"; BOS
+  128000, EOS 128009) with a plain chat template, as HF files."""
+  from tokenizers import Tokenizer, models, pre_tokenizers
+  from transformers import PreTrainedTokenizerFast
+
+  vocab = {f"t{i}": i for i in range(LLAMA_3_2_1B["vocab_size"])}
+  vocab["<|begin_of_text|>"] = vocab.pop("t128000")
+  vocab["<|eot_id|>"] = vocab.pop("t128009")
+  tm = Tokenizer(models.WordLevel(vocab, unk_token="t0"))
+  tm.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+  tok = PreTrainedTokenizerFast(tokenizer_object=tm, unk_token="t0", bos_token="<|begin_of_text|>", eos_token="<|eot_id|>")
+  tok.chat_template = "{% for m in messages %}{{ m['role'] }}: {{ m['content'] }} {% endfor %}assistant:"
+  tok.save_pretrained(path)
+
+
+def phase_processes(ckpt: Path):
+  """``python -m xotorch_support_jetson_tpu_torch.main run llama-3.2-1b``
+  prints tokens and exits 0; a daemon process serves a completion, gets
+  ``POST /quit`` and exits 0 within ``QUIT_EXIT_S``. The daemon loads its
+  model at its first request, so it starts first, the tokenizer files are
+  written while it starts, and its completion is sent while the run
+  command runs (the two loads overlap)."""
+  from concurrent.futures import ThreadPoolExecutor
+
+  from xotorch_support_jetson_tpu_torch.utils.helpers import find_available_port
+
+  env = {k: v for k, v in os.environ.items() if k not in SERVING_KNOBS}
+  env.update(XOT_TPU_MODEL_DIR=str(ckpt))
+  cmd = [sys.executable, "-m", "xotorch_support_jetson_tpu_torch.main"]
+  port = find_available_port("127.0.0.1")
+  t_up = time.perf_counter()
+  proc = subprocess.Popen([*cmd, "--chatgpt-api-host", "127.0.0.1", "--chatgpt-api-port", str(port), "--max-generate-tokens", "16"], cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+  try:
+    t0 = time.perf_counter()
+    write_tokenizer(ckpt)
+    tokenizer_s = time.perf_counter() - t0
+
+    def run_command():
+      t0 = time.perf_counter()
+      run = subprocess.run([*cmd, "run", "llama-3.2-1b", "--prompt", CHAT[0]["content"], "--temp", "0", "--max-generate-tokens", "32"], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+      return run, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(1) as pool:
+      running = pool.submit(run_command)
+      while True:
+        if proc.poll() is not None or time.perf_counter() - t_up > 300:
+          raise SystemExit(f"chip_smoke: [api] the daemon process did not come up (exit {proc.poll()})")
+        try:
+          if _http(port, "GET", "/healthcheck", timeout=5)[0] == 200:
+            break
+        except OSError:
+          time.sleep(0.5)
+      up_s = time.perf_counter() - t_up
+      t0 = time.perf_counter()
+      st, raw = _http(port, "POST", "/v1/completions", {"model": "llama-3.2-1b", "prompt": "t1 t2 t3", "max_tokens": 8, "temperature": 0})
+      served_s = time.perf_counter() - t0
+      if st != 200 or json.loads(raw)["usage"]["completion_tokens"] < 1:
+        raise SystemExit(f"chip_smoke: [api] the daemon process did not serve: {st} {raw[:300]}")
+      run, run_s = running.result()
+    stats = run.stdout.rstrip().rsplit("\n", 1)[-1]
+    if run.returncode != 0 or not stats.startswith("[") or " tokens in " not in stats or int(stats[1:].split(" ")[0]) < 1:
+      raise SystemExit(f"chip_smoke: [api] the run command exited {run.returncode}: {run.stdout[-600:]} {run.stderr[-1500:]}")
+    log(f"[api] tokenizer files written in {tokenizer_s:.1f} s (while the daemon process started); run command (a process): exit 0 in {run_s:.1f} s; it printed {run.stdout.strip()[:160]!r} ... {stats}")
+    t1 = time.perf_counter()
+    st_q, raw_q = _http(port, "POST", "/quit")
+    try:
+      rc = proc.wait(timeout=QUIT_EXIT_S)
+    except subprocess.TimeoutExpired:
+      raise SystemExit(f"chip_smoke: [api] the daemon process did not exit within {QUIT_EXIT_S} s of POST /quit") from None
+    quit_s = time.perf_counter() - t1
+    if st_q != 200 or rc != 0:
+      raise SystemExit(f"chip_smoke: [api] POST /quit: {st_q} {raw_q}; the process exited {rc}: {proc.stdout.read()[-600:]}")
+  finally:
+    if proc.poll() is None:
+      proc.kill()
+    proc.communicate()
+  log(f"[api] daemon process (started first): up {up_s:.1f} s after its start, served a completion in {served_s:.1f} s (its model loaded beside the run command's), POST /quit -> exit 0 in {quit_s:.2f} s (limit {QUIT_EXIT_S} s)")
+  return dict(tokenizer_s=tokenizer_s, run_s=run_s, run_stats=stats, up_s=up_s, served_s=served_s, quit_exit_s=quit_s)
 
 
 def main() -> int:
@@ -3482,26 +3966,37 @@ def main() -> int:
   except ImportError as e:
     print(f"chip_smoke: cannot import the PyTorch port ({e}); run from the repository root", file=sys.stderr)
     return 2
+  phase_s: dict[str, float] = {}
+
+  def timed(name, fn, *args, **kwargs):
+    """Run one phase; its wall seconds go to the log (``[time]``) and the record."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    phase_s[name] = time.perf_counter() - t0
+    log(f"[time] {name}: {phase_s[name]:.1f} s")
+    return out
+
   smi = phase_device(torch)
-  build_s = phase_build()
-  kern = phase_kernels(torch)
+  build_s = timed("build", phase_build)
+  kern = timed("kernels", phase_kernels, torch)
   ckpt, draft_dir = ROOT / "build" / "smoke_ckpt", ROOT / "build" / "smoke_draft"
   try:
     write_s = write_checkpoint(torch, ckpt)
     log(f"[serving] wrote a random bf16 llama-3.2-1b checkpoint ({sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9:.2f} GB) in {write_s:.1f} s")
-    serving = phase_serving(torch, ckpt)
-    quant = phase_quant_serving(torch, ckpt, serving.pop("_bf16_logits"))
+    serving = timed("serving", phase_serving, torch, ckpt)
+    quant = timed("quant", phase_quant_serving, torch, ckpt, serving.pop("_bf16_logits"))
     write_checkpoint(torch, draft_dir, layers=DRAFT_LAYERS)
-    spec = phase_spec_serving(torch, ckpt, draft_dir, serving)
-    graphs = phase_graphs(torch, ckpt, draft_dir, smi)
+    spec = timed("spec", phase_spec_serving, torch, ckpt, draft_dir, serving)
+    graphs = timed("graphs and api", phase_graphs, torch, ckpt, draft_dir, smi)
     # The int4-weights daemon first: the metrics registry and the SLO
     # engine are the process's, so a daemon started after the priority
     # pass would inherit its interactive burn (and the smallest budget).
-    batched_int4 = phase_batched(torch, ckpt, weights="int4")
+    batched_int4 = timed("batched int4 weights", phase_batched, torch, ckpt, weights="int4")
     # The tiered pass before the priority pass too: its long prompts are
     # sliced by the interactive burn's budget.
-    tiered = phase_tiered(torch, ckpt)
-    batched = phase_batched(torch, ckpt)
+    tiered = timed("tiered", phase_tiered, torch, ckpt)
+    batched = timed("batched", phase_batched, torch, ckpt)
+    processes = timed("processes", phase_processes, ckpt)
   finally:
     shutil.rmtree(ckpt, ignore_errors=True)
     shutil.rmtree(draft_dir, ignore_errors=True)
@@ -3516,7 +4011,10 @@ def main() -> int:
   # launches, those inside mixed dispatches are listed apart as well.
   # "batched_spec" is the part of every batched pass's launches made inside
   # spec dispatches (K3, and K4 on int4 weights): a path of its own within
-  # those passes, so the total does not count it twice.
+  # those passes, so the total does not count it twice. "solo_api" is the
+  # API phase on the solo daemon (K1 in its prefills and once per layer in
+  # each logprobs scoring forward), "batched_api" the batched logprobs
+  # request (K1, K3).
   bp = batched["passes"]
   paths = {
     "solo": [serving["launches"]], "solo_long_prompt": [serving["long"]["launches"]], "solo_quant": [q["launches"] for q in quant.values()],
@@ -3525,7 +4023,7 @@ def main() -> int:
     "batched_tiered": [tiered["passes"]["tier_on"]["launches"]], "solo_spec": [spec[k]["launches"] for k in SPEC_PASSES],
     "solo_spec_ceiling": [spec[k]["launches"] for k in ECHO_PASSES],
     "batched_spec": [p["spec"]["launches"] for p in [*bp.values(), *batched_int4["passes"].values()]],
-    "solo_graphs": [graphs["daemon"]["launches"]],
+    "solo_graphs": [graphs["daemon"]["launches"]], "solo_api": [graphs["daemon"]["api"]["launches"]], "batched_api": [batched["logprobs"]["launches"]],
   }
   by_path = {name: {path: sum(x.get(name, 0) for x in runs) for path, runs in paths.items()} for name in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
   for name in ("flash_prefill", "paged_decode"):
@@ -3542,9 +4040,11 @@ def main() -> int:
 
   k4_head = next(i for i, r in enumerate(kern["int4_matmul"]) if r["weight"] == "w_gate/w_up" and r["T"] == 1)
   kernels_line = {"kernels": [
-    # Head row: Sq 128 at offset 0; the solo verify-window rows' errors count too.
-    {**entry("flash_prefill", "xotorch_support_jetson_tpu_torch/csrc/flash_prefill.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:32", kern["flash_prefill"] + kern["flash_prefill_verify"], 0),
-     "verify_windows": [{k: r[k] for k in ("Sq", "q_offset", "kv", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_prefill_verify"]]},
+    # Head row: Sq 128 at offset 0 against the 4096-slot cache; the solo
+    # verify-window and scoring-shape rows' errors count too.
+    {**entry("flash_prefill", "xotorch_support_jetson_tpu_torch/csrc/flash_prefill.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:32", kern["flash_prefill"] + kern["flash_prefill_verify"] + kern["flash_prefill_scoring"], 0),
+     "verify_windows": [{k: r[k] for k in ("Sq", "q_offset", "kv", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_prefill_verify"]],
+     "scoring_rows": [{k: r[k] for k in ("Sq", "skv", "q_offset", "kv", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_prefill_scoring"]]},
     entry("flash_decode", "xotorch_support_jetson_tpu_torch/csrc/flash_decode.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:190", kern["flash_decode"], 0),
     # Head row: B=8 at mixed lengths, bf16 pages (the batched path's geometry);
     # the verify-window rows' errors count too.
@@ -3554,7 +4054,7 @@ def main() -> int:
     # the per-step sums are in chip_smoke.json's int4_matmul_bound.
     entry("int4_matmul", "xotorch_support_jetson_tpu_torch/csrc/int4_matmul.cu", "xotorch_support_jetson_tpu/ops/pallas_int4.py:36", kern["int4_matmul"], k4_head),
   ]}
-  record = dict(card=smi, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, summary=kernels_line)
+  record = dict(card=smi, phase_s=phase_s, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, processes=processes, summary=kernels_line)
   out = ROOT / "chiprun_out"
   out.mkdir(exist_ok=True)
   (out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=float))

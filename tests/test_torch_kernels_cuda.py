@@ -10,7 +10,8 @@ type, and K3 reads restored pages bit-identically.
 
 K3 also carries the verify window of batched speculation: B=8 rows × W=9
 positions flattened into one launch (``paged_window_attention``); K1 the
-solo verify windows (B=1, Sq 5 and 9, offsets up to 4086).
+solo verify windows (B=1, Sq 5 and 9, offsets up to 4086) and the logprobs
+scoring forward's shape (Sq = Skv, offset 0), once per layer there.
 
 K2 and K3 are also held at caches past 4096 and at windows that are not a
 whole number of cluster ranges, at GQA groups 1, 2 and 8, and to one device
@@ -126,6 +127,36 @@ def _check_prefill(dev, Sq, offsets, hd=64, Hq=32, Hkv=8, Skv=4096, quant=False,
 @pytest.mark.parametrize("Sq,offset", [(1, 0), (2, 0), (1, 4095), (65, 0), (65, 1000), (777, 0), (777, 3000), (3000, 0), (4096, 0), (512, 3584), (2048, 2048)])
 def test_flash_prefill_long_and_ragged_prompts(dev, Sq, offset):
   _check_prefill(dev, Sq, [offset])
+
+
+@pytest.mark.parametrize("S", [128, 3072])
+def test_flash_prefill_scoring_shape(dev, S):
+  """The logprobs scoring forward's shape: the sequence's own K/V (Sq =
+  Skv), from position 0."""
+  _check_prefill(dev, S, [0], Skv=S)
+
+
+def test_scoring_forward_runs_k1_once_per_layer(dev, monkeypatch):
+  """``score_last_tokens`` on the card: K1 in every layer of the
+  cache-less forward (hd 64, bf16), chosen log-probs within the serving
+  gate's 5e-2 relative L2 of the plain-attention route
+  (``XOT_TPU_NO_FLASH``), which launches no K1."""
+  from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+  from xotorch_support_jetson_tpu_torch.models import config as tconfig, decoder as tdec
+
+  cfg = tconfig.tiny_test_config(dim=256, n_heads=4, n_kv_heads=2, hidden_dim=512, vocab_size=512, max_seq_len=512, dtype=torch.bfloat16)
+  shard = Shard("tiny", 0, cfg.n_layers - 1, cfg.n_layers)
+  params = tdec.init_shard_params(cfg, shard, torch.Generator(device=dev).manual_seed(0), device=dev)
+  toks = torch.from_numpy(np.random.default_rng(3).integers(0, 512, (1, 256)).astype(np.int32)).to(dev)
+  before = fa.LAUNCHES["flash_prefill"]
+  got = tdec.score_last_tokens(params, cfg, shard, toks, 200, 64, 20)
+  torch.cuda.synchronize()
+  assert fa.LAUNCHES["flash_prefill"] - before == cfg.n_layers
+  monkeypatch.setenv("XOT_TPU_NO_FLASH", "1")
+  want = tdec.score_last_tokens(params, cfg, shard, toks, 200, 64, 20)
+  assert fa.LAUNCHES["flash_prefill"] - before == cfg.n_layers
+  assert ((got[0] - want[0]).norm() / want[0].norm()).item() < 5e-2
+  assert bool((got[0] <= 0).all()) and bool((got[2][:, :-1] >= got[2][:, 1:]).all())
 
 
 @pytest.mark.parametrize("Sq,offsets", [(512, [0, 128, 128, 1536]), (65, [0, 1000, 3, 3584]), (777, [3000, 0, 17, 2048])])

@@ -57,7 +57,7 @@ from xotorch_support_jetson_tpu_torch.inference.torch_engine import TorchSharded
 from xotorch_support_jetson_tpu_torch.models import config as tconfig
 from xotorch_support_jetson_tpu_torch.models.convert import params_from_jax
 from xotorch_support_jetson_tpu_torch.ops import paged as tpaged
-from xotorch_support_jetson_tpu_torch.orchestration.node import CallbackRegistry
+from xotorch_support_jetson_tpu_torch.utils.helpers import AsyncCallbackSystem
 from xotorch_support_jetson_tpu_torch.utils.helpers import find_available_port
 from xotorch_support_jetson_tpu_torch.utils.metrics import metrics as tmetrics
 
@@ -647,7 +647,7 @@ def _jax_kv_tier_body(server) -> dict:
 
 
 def _port_kv_tier_body(server) -> dict:
-  node = types.SimpleNamespace(on_token=CallbackRegistry(), inference_engine=types.SimpleNamespace(_batched_server=server))
+  node = types.SimpleNamespace(on_token=AsyncCallbackSystem(), inference_engine=types.SimpleNamespace(_batched_server=server))
   api = ChatGPTAPI(node, "TorchShardedInferenceEngine")
   port = find_available_port("127.0.0.1")
 

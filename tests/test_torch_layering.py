@@ -35,7 +35,7 @@ def test_port_imports_nothing_of_jax(path):
 def test_scan_covers_the_own_copies():
   """The port's own copies of JAX-free reference modules are scanned too."""
   scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
-  assert {"inference/ngram.py", "inference/paging.py", "inference/kv_tier.py", "inference/qos.py", "utils/synthetic.py"} <= scanned
+  assert {"inference/ngram.py", "inference/paging.py", "inference/kv_tier.py", "inference/qos.py", "utils/synthetic.py", "download/hf_utils.py", "download/progress.py"} <= scanned
 
 
 def test_forbidden_matcher():

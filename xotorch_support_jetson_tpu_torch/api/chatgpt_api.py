@@ -1,9 +1,14 @@
 """OpenAI-compatible HTTP API: ``/healthcheck``, ``/v1/models``,
-``/v1/chat/completions`` (blocking, and SSE with ``"stream": true``),
+``/v1/chat/completions`` and the legacy ``/v1/completions`` (blocking, and
+SSE with ``"stream": true``; OpenAI ``logprobs`` on blocking requests,
+scored after the generation in one forward), ``/v1/chat/token/encode``,
 ``/metrics`` (Prometheus text), ``/v1/slo`` (the local SLO report),
 ``/v1/kv/tier`` (the host KV tier's state), ``/v1/programs`` (the device
-program ledger) and ``POST /v1/warmup`` (build the expected programs before
-traffic).
+program ledger), ``POST /v1/warmup`` (build the expected programs before
+traffic), the model-management routes (``/initial_models``, the
+``/modelpool`` SSE stream, ``POST /download``, ``/v1/download/progress``,
+``DELETE /models/{model_name}``), ``POST /quit``, and the web chat
+(``GET /`` and the static files of ``tinychat/``).
 
 Counterpart of those routes of the reference's ``api/chatgpt_api.py``, with
 the same request and response shapes: a chat request may carry a QoS
@@ -21,11 +26,13 @@ import asyncio
 import hashlib
 import json
 import math
+import mimetypes
 import os
+import signal
 import time
 import uuid
 from pathlib import Path
-from urllib.parse import parse_qs
+from urllib.parse import parse_qs, unquote
 
 from .. import registry
 from ..inference.engine import PromptTooLongError, ServerOverloadedError
@@ -36,6 +43,7 @@ from ..utils.metrics import metrics
 
 _REASONS = {200: "OK", 204: "No Content", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed", 408: "Request Timeout", 413: "Payload Too Large", 429: "Too Many Requests", 500: "Internal Server Error"}
 MAX_BODY_BYTES = 16 << 20
+STATIC_DIR = Path(__file__).resolve().parent.parent / "tinychat"
 
 
 class Message:
@@ -52,7 +60,7 @@ class Message:
 
 
 class ChatCompletionRequest:
-  def __init__(self, model: str, messages: list[Message], temperature: float | None = None, max_tokens=None, stream=False, stop=(), tools=None):
+  def __init__(self, model: str, messages: list[Message], temperature: float | None = None, max_tokens=None, stream=False, stop=(), tools=None, logprobs=False, top_logprobs=0):
     self.model = model
     self.messages = messages
     self.temperature = temperature
@@ -60,6 +68,8 @@ class ChatCompletionRequest:
     self.stream = stream
     self.stop = tuple(stop)
     self.tools = tools  # request-level tool definitions (the chat template's ``tools``)
+    self.logprobs = bool(logprobs)
+    self.top_logprobs = int(top_logprobs)
 
 
 def find_stop(text: str, stops: tuple) -> tuple[int | None, int]:
@@ -120,12 +130,52 @@ def parse_chat_request(data: dict, default_model: str) -> ChatCompletionRequest:
     stop = tuple(stop)
   else:
     raise ValueError("'stop' must be a non-empty string or a list of up to 4 non-empty strings")
-  if data.get("logprobs"):
-    raise ValueError("'logprobs' is not supported by the PyTorch port yet")
   model = data.get("model", default_model)
   if not model or model.startswith("gpt-") or model not in registry.model_cards:  # alias client defaults
     model = default_model
-  return ChatCompletionRequest(model, messages, temperature, max_tokens, bool(data.get("stream", False)), stop, data.get("tools"))
+  logprobs = data.get("logprobs", False)
+  if not isinstance(logprobs, bool):
+    raise ValueError("'logprobs' must be a boolean")
+  top_logprobs = data.get("top_logprobs", 0) or 0
+  if not isinstance(top_logprobs, int) or isinstance(top_logprobs, bool) or not 0 <= top_logprobs <= 20:
+    raise ValueError("'top_logprobs' must be an integer in [0, 20]")
+  if top_logprobs and not logprobs:
+    raise ValueError("'top_logprobs' requires 'logprobs': true")
+  if logprobs and data.get("stream"):
+    # Logprobs are scored after the generation, in one forward over the
+    # whole response: a stream has no final message to attach them to.
+    raise ValueError("'logprobs' is not supported with 'stream': true")
+  return ChatCompletionRequest(model, messages, temperature, max_tokens, bool(data.get("stream", False)), stop, data.get("tools"), logprobs, top_logprobs)
+
+
+def _align_logprobs(tokenizer, all_tokens: list, eos_set, text: str, prompt_len: int, stop_cut: bool) -> tuple[list, list, list]:
+  """Token strings, text offsets and kept indices for ``/v1/completions``
+  logprobs. The arrays align with the returned text: no entries for EOS
+  tokens (the text omits them) or for tokens that start past a stop-string
+  cut; ``keep`` indexes the surviving positions in ``all_tokens``. When the
+  per-token decodes concatenate to the joint decode, offsets are their
+  running lengths; otherwise (a byte-level BPE splitting a multi-byte
+  character) each offset is the length of a joint prefix decode, O(tokens²):
+  callers run this off the event loop."""
+  ids = [int(t) for t in all_tokens if t not in eos_set]
+  positions = [i for i, t in enumerate(all_tokens) if t not in eos_set]
+  pieces = [tokenizer.decode([t]) for t in ids]
+  if "".join(pieces) == tokenizer.decode(ids):
+    prefix_lens, acc = [], 0
+    for piece in pieces:
+      prefix_lens.append(acc)
+      acc += len(piece)
+  else:
+    prefix_lens = [len(tokenizer.decode(ids[:j])) for j in range(len(ids))]
+  toks, offsets, keep = [], [], []
+  for j, (i, piece) in enumerate(zip(positions, pieces)):
+    start = prefix_lens[j]
+    if stop_cut and start >= len(text):  # starts past the cut
+      break
+    toks.append(piece)
+    offsets.append(prompt_len + min(start, len(text)))
+    keep.append(i)
+  return toks, offsets, keep
 
 
 def parse_qos_fields(data: dict, headers) -> tuple[str | None, str | None, float | None]:
@@ -188,14 +238,22 @@ class _Request:
   def __init__(self, method: str, path: str, headers: dict, body: bytes, query: dict | None = None) -> None:
     self.method, self.path, self.headers, self.body = method, path, headers, body
     self.query = query or {}  # the query string's parameters, last value of each
+    self.match = ""  # the path parameter of a prefix route (DELETE /models/{model_name})
+
+  def json(self):
+    """The body as JSON; ValueError when it is not JSON."""
+    try:
+      return json.loads(self.body or b"null")
+    except (json.JSONDecodeError, UnicodeDecodeError):
+      raise ValueError("invalid JSON body") from None
 
 
 class _Response:
-  """A complete (non-streaming) HTTP response: a JSON body, or ``text`` with
-  its content type."""
+  """A complete (non-streaming) HTTP response: a JSON body, ``text``, or
+  raw ``data`` bytes, with its content type."""
 
-  def __init__(self, body: dict | None, status: int = 200, headers: dict | None = None, text: str | None = None, content_type: str = "application/json") -> None:
-    self.body, self.status, self.headers, self.text, self.content_type = body, status, headers or {}, text, content_type
+  def __init__(self, body: dict | None, status: int = 200, headers: dict | None = None, text: str | None = None, content_type: str = "application/json", data: bytes | None = None) -> None:
+    self.body, self.status, self.headers, self.text, self.content_type, self.data = body, status, headers or {}, text, content_type, data
 
 
 def json_response(body: dict, status: int = 200, headers: dict | None = None) -> _Response:
@@ -241,11 +299,11 @@ async def _write_head(writer: asyncio.StreamWriter, status: int, headers: dict) 
   await writer.drain()
 
 
-_CORS = {"Access-Control-Allow-Origin": "*", "Access-Control-Allow-Methods": "GET, POST, OPTIONS", "Access-Control-Allow-Headers": "*"}
+_CORS = {"Access-Control-Allow-Origin": "*", "Access-Control-Allow-Methods": "GET, POST, DELETE, OPTIONS", "Access-Control-Allow-Headers": "*"}
 
 
 async def _send_json(writer: asyncio.StreamWriter, resp: _Response) -> None:
-  data = (resp.text if resp.text is not None else json.dumps(resp.body)).encode()
+  data = resp.data if resp.data is not None else (resp.text if resp.text is not None else json.dumps(resp.body)).encode()
   await _write_head(writer, resp.status, {"Content-Type": resp.content_type, "Content-Length": str(len(data)), "Connection": "close", **resp.headers, **_CORS})
   writer.write(data)
   await writer.drain()
@@ -264,6 +322,24 @@ class _SSEStream:
     self.writer.write(data)
     await self.writer.drain()
 
+  async def event(self, payload) -> None:
+    await self.write(f"data: {json.dumps(payload)}\n\n".encode())
+
+
+def _static_file(rel: str) -> Path | None:
+  """A file of ``tinychat/`` by its URL path, or None: a path that leaves
+  the directory is refused, as aiohttp's static route refuses it."""
+  root = STATIC_DIR.resolve()
+  target = (root / unquote(rel).lstrip("/")).resolve()
+  return target if target.is_relative_to(root) and target.is_file() else None
+
+
+async def _file_response(path: Path | None) -> _Response:
+  if path is None:
+    return json_response({"error": "not found"}, 404)
+  data = await asyncio.to_thread(path.read_bytes)
+  return _Response(None, data=data, content_type=mimetypes.guess_type(path.name)[0] or "application/octet-stream")
+
 
 class ChatGPTAPI:
   def __init__(self, node, inference_engine_classname: str, response_timeout: float | None = None, default_model: str | None = None, system_prompt: str | None = None):
@@ -278,6 +354,7 @@ class ChatGPTAPI:
     self.default_model = default_model or "llama-3.2-1b"
     self.system_prompt = system_prompt
     self.token_queues: dict[str, asyncio.Queue] = {}
+    self._downloads: set[asyncio.Task] = set()
     self.node.on_token.register("chatgpt-api-token-handler").on_next(self.handle_tokens)
     self.routes = {
       ("GET", "/healthcheck"): self.handle_healthcheck,
@@ -285,18 +362,45 @@ class ChatGPTAPI:
       ("GET", "/models"): self.handle_get_models,
       ("POST", "/v1/chat/completions"): self.handle_post_chat_completions,
       ("POST", "/chat/completions"): self.handle_post_chat_completions,
+      ("POST", "/v1/completions"): self.handle_post_completions,
+      ("POST", "/completions"): self.handle_post_completions,
+      ("POST", "/v1/chat/token/encode"): self.handle_post_chat_token_encode,
+      ("POST", "/chat/token/encode"): self.handle_post_chat_token_encode,
+      ("GET", "/initial_models"): self.handle_get_initial_models,
+      ("GET", "/modelpool"): self.handle_model_support,
       ("GET", "/metrics"): self.handle_metrics,
       ("GET", "/v1/slo"): self.handle_slo,
       ("GET", "/v1/kv/tier"): self.handle_kv_tier,
       ("GET", "/v1/programs"): self.handle_programs,
       ("POST", "/v1/warmup"): self.handle_warmup,
+      ("GET", "/v1/download/progress"): self.handle_get_download_progress,
+      ("POST", "/download"): self.handle_post_download,
+      ("POST", "/quit"): self.handle_quit,
+      ("GET", "/"): self.handle_root,
     }
+    # Routes with one path parameter (the rest of the path, one segment).
+    self.prefix_routes = {("DELETE", "/models/"): self.handle_delete_model}
 
   # ------------------------------------------------------------- server
 
   async def run(self, host: str = "0.0.0.0", port: int = 52415) -> asyncio.AbstractServer:
     """Start serving; returns the server (``close()`` + ``wait_closed()`` stop it)."""
     return await asyncio.start_server(self._serve_connection, host, port)
+
+  def _route(self, request: _Request):
+    """The handler of ``request``: an exact route, a prefix route (its
+    parameter in ``request.match``), or a ``tinychat/`` file for a GET."""
+    handler = self.routes.get((request.method, request.path))
+    if handler is not None:
+      return handler
+    for (method, prefix), prefix_handler in self.prefix_routes.items():
+      rest = request.path[len(prefix):]
+      if request.method == method and request.path.startswith(prefix) and rest and "/" not in rest:
+        request.match = unquote(rest)
+        return prefix_handler
+    if request.method == "GET" and _static_file(request.path) is not None:
+      return self.handle_static
+    return None
 
   async def _serve_connection(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
     try:
@@ -310,7 +414,7 @@ class ChatGPTAPI:
       if request.method == "OPTIONS":
         await _write_head(writer, 204, {"Content-Length": "0", "Connection": "close", **_CORS})
         return
-      handler = self.routes.get((request.method, request.path))
+      handler = self._route(request)
       if handler is None:
         known = any(path == request.path for _, path in self.routes)
         await _send_json(writer, json_response({"error": "method not allowed" if known else "not found"}, 405 if known else 404))
@@ -325,18 +429,111 @@ class ChatGPTAPI:
 
   # ------------------------------------------------------------- routes
 
+  async def handle_root(self, request, writer):
+    return await _file_response(_static_file("index.html"))
+
+  async def handle_static(self, request, writer):
+    return await _file_response(_static_file(request.path))
+
   async def handle_healthcheck(self, request, writer):
     return json_response({"status": "ok"})
 
+  async def handle_quit(self, request, writer):
+    """POST /quit — answer, then send SIGINT to this process (the daemon's
+    handler starts its shutdown)."""
+    await _send_json(writer, json_response({"detail": "Quit signal received"}))
+    os.kill(os.getpid(), signal.SIGINT)
+    return None
+
+  def _served_cards(self):
+    return ((model_id, card) for model_id, card in registry.model_cards.items() if card.repo_for(self.inference_engine_classname))
+
   async def handle_get_models(self, request, writer):
-    local = os.getenv("XOT_TPU_MODEL_DIR")
-    downloaded = bool(local) and any(Path(local).glob("*.safetensors"))
+    """GET /v1/models — ``downloaded`` is per card: its own directory under
+    the downloads home holds safetensors."""
+    from ..download.downloader import get_models_dir, repo_to_dirname
+
+    models_dir = get_models_dir()
+
+    def has_local_weights(card) -> bool:
+      d = models_dir / repo_to_dirname(card.repo_for(self.inference_engine_classname))
+      return d.is_dir() and any(d.glob("*.safetensors"))
+
     models = [
-      {"id": model_id, "object": "model", "owned_by": "xot_tpu", "ready": True, "name": card.pretty, "downloaded": downloaded}
-      for model_id, card in registry.model_cards.items()
-      if card.repo_for(self.inference_engine_classname)
+      {"id": model_id, "object": "model", "owned_by": "xot_tpu", "ready": True, "name": card.pretty, "downloaded": has_local_weights(card)}
+      for model_id, card in self._served_cards()
     ]
     return json_response({"object": "list", "data": models})
+
+  async def handle_get_initial_models(self, request, writer):
+    return json_response({
+      model_id: {"name": card.pretty, "downloaded": None, "download_percentage": None, "total_size": None, "total_downloaded": None, "loading": False}
+      for model_id, card in self._served_cards()
+    })
+
+  async def handle_model_support(self, request, writer):
+    """GET /modelpool — one SSE event per served model, then ``[DONE]``."""
+    stream = _SSEStream(writer)
+    await stream.prepare()
+    for model_id, card in self._served_cards():
+      await stream.event({"model": model_id, "name": card.pretty, "downloaded": None, "download_percentage": None})
+    await stream.write(b"data: [DONE]\n\n")
+    return None
+
+  async def handle_get_download_progress(self, request, writer):
+    return json_response({str(node_id): progress for node_id, progress in self.node.node_download_progress.items()})
+
+  async def handle_post_download(self, request, writer):
+    """POST /download — resolve a model's checkpoint in the background
+    (download/downloader.py: a local directory; the port has no hub fetch
+    yet); progress lands in ``/v1/download/progress``."""
+    try:
+      data = request.json()
+    except ValueError as e:
+      return json_response({"error": str(e)}, 400)
+    model_id = data.get("model") if isinstance(data, dict) else None
+    shard = registry.build_full_shard(model_id, self.inference_engine_classname)
+    if shard is None:
+      return json_response({"error": f"Invalid model: {model_id}"}, 400)
+    if self.node.shard_downloader is None:
+      return json_response({"error": "no downloader configured"}, 400)
+    task = asyncio.create_task(self.node.shard_downloader.ensure_shard(shard, self.inference_engine_classname))
+    self._downloads.add(task)
+    task.add_done_callback(self._download_done)
+    return json_response({"status": f"Download started for {model_id}"})
+
+  def _download_done(self, task: asyncio.Task) -> None:
+    self._downloads.discard(task)
+    if not task.cancelled() and task.exception() is not None:
+      print(f"[api] download failed: {task.exception()}")
+
+  async def handle_delete_model(self, request, writer):
+    from ..download.downloader import delete_model
+
+    model_name = request.match
+    if await delete_model(model_name, self.inference_engine_classname):
+      return json_response({"status": f"Model {model_name} deleted"})
+    return json_response({"detail": f"Model {model_name} not found"}, 404)
+
+  async def handle_post_chat_token_encode(self, request, writer):
+    """POST /v1/chat/token/encode — the chat template's prompt and its ids."""
+    try:
+      data = request.json()
+      if not isinstance(data, dict):
+        raise ValueError("invalid JSON body")
+      model = data.get("model", self.default_model)
+      if model.startswith("gpt-"):
+        model = self.default_model
+      messages = [Message(m["role"], m["content"], m.get("tools")) for m in data.get("messages", [])]
+    except (ValueError, TypeError, KeyError, AttributeError) as e:
+      return json_response({"error": f"invalid request: {e}"}, 400)
+    shard = registry.build_base_shard(model, self.inference_engine_classname)
+    if shard is None:
+      return json_response({"error": f"Unsupported model: {model}"}, 400)
+    tokenizer = await self._tokenizer_for(shard)
+    prompt = build_prompt(tokenizer, messages, data.get("tools"))
+    tokens = tokenizer.encode(prompt)
+    return json_response({"length": len(prompt), "num_tokens": len(tokens), "encoded_tokens": [int(t) for t in tokens], "encoded_prompt": prompt})
 
   async def handle_metrics(self, request, writer):
     """GET /metrics — the registry in Prometheus text format (local scope)."""
@@ -461,19 +658,63 @@ class ChatGPTAPI:
   def _finish_reason(self, tokenizer, last_token: int) -> str:
     return "stop" if last_token in self._eos_set(tokenizer) else "length"
 
+  async def _collect_all_tokens(self, request_id: str, gen_task: asyncio.Task) -> list[int]:
+    """Drain the request's token queue to its finish event."""
+    all_tokens: list[int] = []
+    while True:
+      tokens, is_finished = await self._next_tokens(request_id, gen_task)
+      all_tokens.extend(tokens)
+      if is_finished:
+        return all_tokens
+
+  def _error_response(self, e: Exception) -> _Response:
+    """A generation request's failure → its status: 408 timeout, 400 too
+    long a prompt, a structured 429 for an overload refusal (a full queue or
+    page pool, a rate limit, a deadline shed), else 500."""
+    if isinstance(e, asyncio.TimeoutError):
+      return json_response({"detail": "Response generation timed out"}, 408)
+    if isinstance(e, PromptTooLongError):
+      return json_response({"error": {"message": str(e), "type": "invalid_request_error", "code": "context_length_exceeded"}}, 400)
+    if isinstance(e, ServerOverloadedError):
+      return overloaded_response(e)
+    if DEBUG >= 1:
+      import traceback
+
+      traceback.print_exception(e)
+    return json_response({"detail": f"Error processing prompt: {e}"}, 500)
+
+  async def _close_request(self, request_id: str, gen_task: asyncio.Task | None) -> None:
+    """Cancel an unfinished generation (a timeout, an error, a client gone,
+    a stop string) and drop the request's state."""
+    if gen_task is not None and not gen_task.done():
+      self.node.cancel_request(request_id)
+      try:
+        await asyncio.wait_for(asyncio.shield(gen_task), timeout=30)
+      except Exception:  # noqa: BLE001 — already reported to the client
+        pass
+    self.token_queues.pop(request_id, None)
+    self.node.request_options.pop(request_id, None)
+
+  def _start(self, shard, prompt: str, request_id: str, stream: bool, max_tokens, temperature, qos) -> asyncio.Task:
+    priority, tenant, deadline_ms = qos
+    self.node.set_request_options(request_id, stream=stream, max_tokens=max_tokens, temperature=temperature, priority=priority, tenant=tenant, deadline_ms=deadline_ms)
+    return asyncio.create_task(self.node.process_prompt(shard, prompt, request_id))
+
   async def handle_post_chat_completions(self, request, writer):
     try:
-      data = json.loads(request.body or b"null")
-    except (json.JSONDecodeError, UnicodeDecodeError):
-      return json_response({"error": "invalid JSON body"}, 400)
-    try:
+      data = request.json()
       chat_request = parse_chat_request(data, self.default_model)
-      priority, tenant, deadline_ms = parse_qos_fields(data, request.headers)
+      qos = parse_qos_fields(data, request.headers)
+      stream_options = data.get("stream_options")
+      if stream_options is not None and not isinstance(stream_options, dict):
+        raise ValueError("'stream_options' must be an object")
     except ValueError as e:
       return json_response({"error": str(e)}, 400)
+    include_usage = bool((stream_options or {}).get("include_usage"))
     shard = registry.build_base_shard(chat_request.model, self.inference_engine_classname)
     if shard is None:
-      return json_response({"detail": f"Unsupported model: {chat_request.model} with engine {self.inference_engine_classname}"}, 400)
+      supported = registry.get_supported_models([[self.inference_engine_classname]])
+      return json_response({"detail": f"Unsupported model: {chat_request.model} with engine {self.inference_engine_classname}. Supported: {supported}"}, 400)
     if self.system_prompt and not any(m.role == "system" for m in chat_request.messages):
       chat_request.messages.insert(0, Message("system", self.system_prompt))
 
@@ -484,47 +725,135 @@ class ChatGPTAPI:
     try:
       tokenizer = await self._tokenizer_for(shard)
       prompt = build_prompt(tokenizer, chat_request.messages, chat_request.tools)
-      self.node.set_request_options(
-        request_id, stream=chat_request.stream, max_tokens=chat_request.max_tokens, temperature=chat_request.temperature,
-        priority=priority, tenant=tenant, deadline_ms=deadline_ms,
-      )
-      gen_task = asyncio.create_task(self.node.process_prompt(shard, prompt, request_id))
+      # Usage costs one more encode: paid where it is reported (blocking
+      # always, streaming with stream_options.include_usage).
+      prompt_ids = tokenizer.encode(prompt) if not chat_request.stream or include_usage else []
+      gen_task = self._start(shard, prompt, request_id, chat_request.stream, chat_request.max_tokens, chat_request.temperature, qos)
       if chat_request.stream:
-        return await self._stream_response(writer, chat_request, request_id, tokenizer, created, gen_task)
+        return await self._stream_response(writer, chat_request, request_id, tokenizer, created, gen_task, len(prompt_ids), include_usage)
       await asyncio.wait_for(asyncio.shield(gen_task), timeout=self.response_timeout)
-      prompt_tokens = len(tokenizer.encode(prompt))
-      return await self._blocking_response(chat_request, request_id, tokenizer, created, prompt_tokens, gen_task)
-    except asyncio.TimeoutError:
-      return json_response({"detail": "Response generation timed out"}, 408)
-    except PromptTooLongError as e:
-      return json_response({"error": {"message": str(e), "type": "invalid_request_error", "code": "context_length_exceeded"}}, 400)
-    except ServerOverloadedError as e:
-      # A full queue or page pool, a rate limit or a deadline shed: a
-      # retryable 429, with Retry-After where the refusal has a backoff hint.
-      return overloaded_response(e)
-    except Exception as e:  # noqa: BLE001 — the API boundary reports every failure as a 500
+      return await self._blocking_response(chat_request, request_id, tokenizer, created, prompt_ids, gen_task, shard)
+    except Exception as e:  # noqa: BLE001 — the API boundary reports every failure with its status
+      return self._error_response(e)
+    finally:
+      await self._close_request(request_id, gen_task)
+
+  async def handle_post_completions(self, request, writer):
+    """Legacy text completions (``/v1/completions``): the prompt runs raw,
+    with no chat template, through the same generation. Takes
+    ``max_tokens``, ``temperature``, ``stop``, ``stream``, ``echo`` and
+    OpenAI's integer ``logprobs`` (the top-N per generated token, scored
+    after the generation; blocking only)."""
+    try:
+      data = request.json()
+      if not isinstance(data, dict):
+        raise ValueError("invalid JSON body")
+    except ValueError as e:
+      return json_response({"error": str(e)}, 400)
+    prompt = data.get("prompt")
+    if isinstance(prompt, list):
+      if len(prompt) != 1 or not isinstance(prompt[0], str):
+        return json_response({"error": "'prompt' must be a string (or a single-element list of one)"}, 400)
+      prompt = prompt[0]
+    if not isinstance(prompt, str) or not prompt:
+      return json_response({"error": "'prompt' must be a non-empty string"}, 400)
+    logprobs_n = data.get("logprobs")
+    if logprobs_n is not None and (not isinstance(logprobs_n, int) or isinstance(logprobs_n, bool) or not 0 <= logprobs_n <= 20):
+      return json_response({"error": "'logprobs' must be an integer in [0, 20]"}, 400)
+    if logprobs_n and data.get("stream"):
+      return json_response({"error": "'logprobs' is not supported with 'stream': true"}, 400)
+    try:
+      # The chat validation checks the shared fields.
+      base = parse_chat_request({**data, "messages": [{"role": "user", "content": prompt}], "logprobs": False, "top_logprobs": 0}, self.default_model)
+      qos = parse_qos_fields(data, request.headers)
+    except ValueError as e:
+      return json_response({"error": str(e)}, 400)
+    shard = registry.build_base_shard(base.model, self.inference_engine_classname)
+    if shard is None:
+      return json_response({"detail": f"Unsupported model: {base.model}"}, 400)
+
+    request_id = str(uuid.uuid4())
+    self.token_queues[request_id] = asyncio.Queue()
+    created = int(time.time())
+    gen_task = None
+
+    def chunk(text: str, finish_reason, logprobs=None) -> dict:
+      return {"id": f"cmpl-{request_id}", "object": "text_completion", "created": created, "model": base.model, "choices": [{"index": 0, "text": text, "logprobs": logprobs, "finish_reason": finish_reason}]}
+
+    try:
+      tokenizer = await self._tokenizer_for(shard)
+      prompt_ids = list(tokenizer.encode(prompt))
+      gen_task = self._start(shard, prompt, request_id, base.stream, base.max_tokens, base.temperature, qos)
+      if base.stream:
+        return await self._run_sse_stream(writer, request_id, tokenizer, base.stop, gen_task, lambda delta: chunk(delta, None), lambda reason: chunk("", reason))
+      await asyncio.wait_for(asyncio.shield(gen_task), timeout=self.response_timeout)
+      all_tokens = await self._collect_all_tokens(request_id, gen_task)
+      eos_set = self._eos_set(tokenizer)
+      text = tokenizer.decode([t for t in all_tokens if t not in eos_set])
+      finish_reason = self._finish_reason(tokenizer, all_tokens[-1] if all_tokens else -1)
+      stop_cut = False
+      if base.stop:
+        cut, _ = find_stop(text, base.stop)
+        if cut is not None:
+          text, finish_reason, stop_cut = text[:cut], "stop", True
+      logprobs_obj = None
+      if logprobs_n:
+        scored = await self._score_logprobs(shard, prompt_ids, all_tokens, logprobs_n)
+        if scored is not None:
+          chosen_lp, top_ids, top_lp = scored
+          toks, offsets, keep = await asyncio.to_thread(_align_logprobs, tokenizer, all_tokens, eos_set, text, len(prompt), stop_cut)
+          logprobs_obj = {
+            "tokens": toks,
+            "token_logprobs": [float(chosen_lp[i]) for i in keep],
+            "top_logprobs": [{tokenizer.decode([int(tid)]): float(tlp) for tid, tlp in zip(top_ids[i][:logprobs_n], top_lp[i][:logprobs_n])} for i in keep],
+            "text_offset": offsets,
+          }
+      if data.get("echo"):
+        text = prompt + text
+      usage = {"prompt_tokens": len(prompt_ids), "completion_tokens": len(all_tokens), "total_tokens": len(prompt_ids) + len(all_tokens)}
+      return json_response({**chunk(text, finish_reason, logprobs_obj), "system_fingerprint": "xot_tpu_0.1.0", "usage": usage})
+    except Exception as e:  # noqa: BLE001 — the API boundary reports every failure with its status
+      return self._error_response(e)
+    finally:
+      await self._close_request(request_id, gen_task)
+
+  async def _score_logprobs(self, shard, prompt_ids, gen_tokens, top_n: int):
+    """(chosen_lp, top_ids, top_lp) for the generated tokens, scored in one
+    forward over prompt and completion; None when there is nothing to
+    score or the scoring failed (logprobs are decoration: the response
+    still goes out, as in the reference)."""
+    if not prompt_ids or not gen_tokens:
+      return None
+    try:
+      return await self.node.score_tokens(shard, list(prompt_ids) + list(gen_tokens), len(gen_tokens), max(top_n, 1))
+    except Exception as e:  # noqa: BLE001 — reported, and the response goes out without logprobs
+      print(f"[api] logprobs scoring failed: {e}")
       if DEBUG >= 1:
         import traceback
 
         traceback.print_exc()
-      return json_response({"detail": f"Error processing prompt: {e}"}, 500)
-    finally:
-      if gen_task is not None and not gen_task.done():
-        self.node.cancel_request(request_id)
-        try:
-          await asyncio.wait_for(asyncio.shield(gen_task), timeout=30)
-        except Exception:  # noqa: BLE001 — already reported to the client
-          pass
-      self.token_queues.pop(request_id, None)
-      self.node.request_options.pop(request_id, None)
+      return None
 
-  async def _blocking_response(self, chat_request, request_id, tokenizer, created, prompt_tokens, gen_task):
-    all_tokens: list[int] = []
-    while True:
-      tokens, is_finished = await self._next_tokens(request_id, gen_task)
-      all_tokens.extend(tokens)
-      if is_finished:
-        break
+  @staticmethod
+  def _chat_logprobs(tokenizer, token_ids, scored, top_n: int) -> dict | None:
+    """The chat body's ``logprobs``: one entry per generated token."""
+    if scored is None:
+      return None
+    chosen_lp, top_ids, top_lp = scored
+
+    def entry(tid: int, lp: float) -> dict:
+      s = tokenizer.decode([int(tid)])
+      return {"token": s, "logprob": float(lp), "bytes": list(s.encode())}
+
+    content = []
+    for i, t in enumerate(token_ids):
+      e = entry(t, chosen_lp[i])
+      e["top_logprobs"] = [entry(int(tid), float(tlp)) for tid, tlp in zip(top_ids[i][:top_n], top_lp[i][:top_n])]
+      content.append(e)
+    return {"content": content, "refusal": None}
+
+  async def _blocking_response(self, chat_request, request_id, tokenizer, created, prompt_ids, gen_task, shard):
+    all_tokens = await self._collect_all_tokens(request_id, gen_task)
     eos_set = self._eos_set(tokenizer)
     content = tokenizer.decode([t for t in all_tokens if t not in eos_set])
     finish_reason = self._finish_reason(tokenizer, all_tokens[-1] if all_tokens else -1)
@@ -532,38 +861,62 @@ class ChatGPTAPI:
       cut, _ = find_stop(content, chat_request.stop)
       if cut is not None:
         content, finish_reason = content[:cut], "stop"
+    logprobs_obj = None
+    if chat_request.logprobs:
+      # Every generated token is scored, a trailing EOS and tokens past a
+      # stop-string cut included (token and text boundaries differ there).
+      scored = await self._score_logprobs(shard, prompt_ids, all_tokens, chat_request.top_logprobs)
+      logprobs_obj = self._chat_logprobs(tokenizer, all_tokens, scored, chat_request.top_logprobs)
+    prompt_tokens = len(prompt_ids)
     return json_response({
       "id": f"chatcmpl-{request_id}",
       "object": "chat.completion",
       "created": created,
       "model": chat_request.model,
       "system_fingerprint": "xot_tpu_0.1.0",
-      "choices": [{"index": 0, "message": {"role": "assistant", "content": content}, "logprobs": None, "finish_reason": finish_reason}],
+      "choices": [{"index": 0, "message": {"role": "assistant", "content": content}, "logprobs": logprobs_obj, "finish_reason": finish_reason}],
       "usage": {"prompt_tokens": prompt_tokens, "completion_tokens": len(all_tokens), "total_tokens": prompt_tokens + len(all_tokens)},
     })
 
-  async def _stream_response(self, writer, chat_request, request_id, tokenizer, created, gen_task):
-    """SSE: incremental detokenization (decode the whole list, emit the new
-    suffix), stop-string hold-back, finish_reason from the raw final batch.
-    The first batch is fetched before the response is committed, so errors
-    known at admission still get their HTTP status."""
+  async def _stream_response(self, writer, chat_request, request_id, tokenizer, created, gen_task, prompt_tokens: int, include_usage: bool):
+    def trailer(n_completion: int) -> dict | None:
+      if not include_usage:  # OpenAI stream_options.include_usage: a last, usage-only chunk
+        return None
+      usage = completion_chunk(request_id, chat_request.model, created, None, None)
+      usage["choices"] = []
+      usage["usage"] = {"prompt_tokens": prompt_tokens, "completion_tokens": n_completion, "total_tokens": prompt_tokens + n_completion}
+      return usage
+
+    return await self._run_sse_stream(
+      writer, request_id, tokenizer, chat_request.stop, gen_task,
+      lambda delta: completion_chunk(request_id, chat_request.model, created, delta, None),
+      lambda reason: completion_chunk(request_id, chat_request.model, created, None, reason),
+      trailer,
+    )
+
+  async def _run_sse_stream(self, writer, request_id, tokenizer, stops, gen_task, make_delta_chunk, make_finish_chunk, make_trailer_chunk=None):
+    """The one SSE token loop of both endpoints: incremental
+    detokenization (decode the whole list, emit the new suffix), stop-string
+    hold-back, finish_reason from the raw final batch, and an optional
+    trailer chunk (``make_trailer_chunk(n_completion)``, usage). The chunk
+    shapes come from the callbacks. The first batch is fetched before the
+    response is committed, so errors known at admission still get their
+    HTTP status; later ones are reported in-band."""
     tokens, is_finished = await self._next_tokens(request_id, gen_task)
     stream = _SSEStream(writer)
     await stream.prepare()
     eos_set = self._eos_set(tokenizer)
     all_tokens: list[int] = []
+    n_completion = 0
     emitted_text = ""
-
-    async def emit(chunk: dict) -> None:
-      await stream.write(f"data: {json.dumps(chunk)}\n\n".encode())
-
     try:
       while True:
+        n_completion += len(tokens)
         all_tokens.extend(t for t in tokens if t not in eos_set)
         full_text = tokenizer.decode(all_tokens) if all_tokens else ""
         cut, safe_len = None, len(full_text)
-        if chat_request.stop:
-          cut, safe_len = find_stop(full_text, chat_request.stop)
+        if stops:
+          cut, safe_len = find_stop(full_text, stops)
           if cut is not None:
             full_text = full_text[:cut]
           elif is_finished:
@@ -571,18 +924,21 @@ class ChatGPTAPI:
         delta = full_text[len(emitted_text):safe_len]
         if delta:
           emitted_text = full_text[:safe_len]
-          await emit(completion_chunk(request_id, chat_request.model, created, delta, None))
+          await stream.event(make_delta_chunk(delta))
         if cut is not None:
-          await emit(completion_chunk(request_id, chat_request.model, created, None, "stop"))
+          await stream.event(make_finish_chunk("stop"))
           break
         if is_finished:
-          await emit(completion_chunk(request_id, chat_request.model, created, None, self._finish_reason(tokenizer, tokens[-1] if tokens else -1)))
+          await stream.event(make_finish_chunk(self._finish_reason(tokenizer, tokens[-1] if tokens else -1)))
           break
         tokens, is_finished = await self._next_tokens(request_id, gen_task)
+      trailer = make_trailer_chunk(n_completion) if make_trailer_chunk is not None else None
+      if trailer is not None:
+        await stream.event(trailer)
     except (ConnectionResetError, BrokenPipeError):
       return None  # client gone; the handler cancels the generation
     except Exception as e:  # noqa: BLE001 — the response is committed: report in-band
       detail = "Response generation timed out" if isinstance(e, asyncio.TimeoutError) else f"Error processing prompt: {e}"
-      await stream.write(f"data: {json.dumps({'error': {'message': detail}})}\n\n".encode())
+      await stream.event({"error": {"message": detail}})
     await stream.write(b"data: [DONE]\n\n")
     return None

@@ -28,3 +28,6 @@ class Shard:
   @property
   def n_shard_layers(self) -> int:
     return self.end_layer - self.start_layer + 1
+
+  def to_dict(self) -> dict:
+    return {"model_id": self.model_id, "start_layer": self.start_layer, "end_layer": self.end_layer, "n_layers": self.n_layers}

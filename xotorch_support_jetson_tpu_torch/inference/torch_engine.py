@@ -19,7 +19,9 @@ comes paired with the target's. Also the continuous-batching server over
 the paged pool
 (``get_batched_server``, inference/batch_scheduler.py). All device work
 runs on one executor thread off the asyncio loop. Caches and pools are
-updated in place by the decoder.
+updated in place by the decoder. ``score_tokens`` (OpenAI ``logprobs``)
+runs one cache-less scoring forward per request, eagerly (uncaptured),
+recorded in the ledger as ``prefill.score_last``.
 
 It runs on ``cuda`` unless the caller asks for the CPU (``device="cpu"`` or
 ``XOT_TPU_PLATFORM=cpu``); with no card visible it raises.
@@ -910,6 +912,44 @@ class TorchShardedInferenceEngine(InferenceEngine):
 
   def end_request(self, request_id: str) -> None:
     self._drop_session(request_id)
+
+  # ---------------------------------------------------------------- scoring
+
+  async def score_tokens(self, shard: Shard, tokens, n_scored: int, top_n: int):
+    """Logprobs of the last ``n_scored`` of ``tokens`` (OpenAI ``logprobs``):
+    one cache-less forward over prompt and completion
+    (models/decoder.py ``score_last_tokens``), on the executor thread like
+    every other dispatch. Returns numpy (chosen_logprobs [n], top_ids
+    [n, top_n], top_logprobs [n, top_n]), or None when there is nothing to
+    score or the loaded shard lacks the head. As in the reference, the
+    sequence is padded to the 128 bucket, ``n_scored`` to a multiple of 32
+    (within the bucket) and the top list is 20 wide, so one program serves
+    every length in a bucket; the extra rows and columns are sliced off
+    here."""
+    eff = self._effective_shard
+    if self.cfg is None or self.params is None or eff is None or not (eff.is_first_layer and eff.is_last_layer):
+      return None
+    from ..models.decoder import score_last_tokens
+
+    toks = np.asarray(tokens, dtype=np.int32).reshape(-1)
+    S = int(toks.shape[0])
+    if n_scored <= 0 or n_scored >= S:
+      return None
+    pad_to = _round_up(S, PREFILL_BUCKET)
+    buf = np.zeros((1, pad_to), dtype=np.int32)
+    buf[0, :S] = toks
+    n_bucket = min(_round_up(int(n_scored), 32), pad_to - 1)
+
+    def run():
+      # The real length rides as a device scalar (a traced int32 in the
+      # reference): it keys no build, and filling it syncs nothing.
+      seq_len = torch.full((), S, dtype=torch.int32, device=self.device)
+      out = score_last_tokens(self.params, self.cfg, eff, self._to_device(buf), seq_len, n_bucket, 20)
+      chosen_lp, top_ids, top_lp = (x.cpu().numpy() for x in out)
+      n, t = int(n_scored), max(int(top_n), 1)
+      return chosen_lp[-n:], top_ids[-n:, :t], top_lp[-n:, :t]
+
+    return await asyncio.get_running_loop().run_in_executor(self.executor, run)
 
   # ---------------------------------------------------------------- batching
 

@@ -3,9 +3,19 @@
     python -m xotorch_support_jetson_tpu_torch.main --discovery-module none \\
       --chatgpt-api-port 52415 --default-model llama-3.2-1b
 
-serves the checkpoint in ``XOT_TPU_MODEL_DIR`` on the CUDA card (on the CPU
-with ``XOT_TPU_PLATFORM=cpu``). Counterpart of the reference's ``main.py``
-daemon wiring without the ring: one node serves the whole model.
+serves the checkpoint in ``XOT_TPU_MODEL_DIR`` (or the model's directory
+under ``XOT_TPU_HOME/downloads``) on the CUDA card (on the CPU with
+``XOT_TPU_PLATFORM=cpu``);
+
+    python -m xotorch_support_jetson_tpu_torch.main run llama-3.2-1b --prompt "hi"
+
+(or ``--run-model llama-3.2-1b``) generates one answer, prints it and
+exits. ``--models-seed-dir`` moves pre-fetched model directories into the
+downloads home first. SIGINT or SIGTERM (also ``POST /quit``) stops the
+daemon: the API stops taking requests and the node waits for outstanding
+ones (``XOT_TPU_DRAIN_S``); a second signal stops it at once. Counterpart
+of the reference's ``main.py`` daemon wiring without the ring: one node
+serves the whole model.
 """
 
 from __future__ import annotations
@@ -13,13 +23,18 @@ from __future__ import annotations
 import argparse
 import asyncio
 import signal
+import time
+import uuid
 
+from . import registry
 from .inference.engine import get_inference_engine, inference_engine_classes
 from .utils.helpers import get_or_create_node_id
 
 
 def build_parser() -> argparse.ArgumentParser:
   parser = argparse.ArgumentParser(prog="xot-torch", description="PyTorch/CUDA LLM serving daemon (solo node)")
+  parser.add_argument("command", nargs="?", choices=["run"], help="command to run (default: the daemon with its API server)")
+  parser.add_argument("model_name", nargs="?", help="model id (see the registry)")
   parser.add_argument("--default-model", type=str, default="llama-3.2-1b")
   parser.add_argument("--node-id", type=str, default=None)
   # The port has no peer discovery yet; "none" is accepted so the
@@ -32,8 +47,11 @@ def build_parser() -> argparse.ArgumentParser:
   parser.add_argument("--inference-engine", type=str, default="torch", choices=list(inference_engine_classes))
   parser.add_argument("--temp", "--default-temp", dest="temp", type=float, default=0.6)
   parser.add_argument("--top-k", type=int, default=35)
+  parser.add_argument("--prompt", type=str, default="Who are you?")
   parser.add_argument("--system-prompt", type=str, default=None)
   parser.add_argument("--disable-tui", action="store_true", help="accepted for command-line compatibility (the port has no TUI)")
+  parser.add_argument("--run-model", type=str, default=None, help="alias for the `run MODEL` command")
+  parser.add_argument("--models-seed-dir", type=str, default=None, help="move pre-fetched model dirs from here into the downloads home at startup")
   return parser
 
 
@@ -44,7 +62,8 @@ def build_components(args, tokenizer=None, device=None):
   from .download.downloader import new_shard_downloader
   from .orchestration.node import Node
 
-  engine = get_inference_engine(args.inference_engine, new_shard_downloader(), device=device, tokenizer=tokenizer)
+  downloader = new_shard_downloader()
+  engine = get_inference_engine(args.inference_engine, downloader, device=device, tokenizer=tokenizer)
   engine_classname = type(engine).__name__
   node = Node(
     args.node_id or get_or_create_node_id(),
@@ -52,27 +71,104 @@ def build_components(args, tokenizer=None, device=None):
     max_generate_tokens=args.max_generate_tokens,
     default_sample_temp=args.temp,
     default_sample_top_k=args.top_k,
+    shard_downloader=downloader,
   )
+
+  def on_progress(shard, event) -> None:
+    # The reference broadcasts this to its peers and every node (itself
+    # included) keeps it per node id; a solo node keeps its own.
+    node.node_download_progress[node.id] = event.to_dict()
+
+  downloader.on_progress.register("node").on_next(on_progress)
   api = ChatGPTAPI(node, engine_classname, response_timeout=args.chatgpt_api_response_timeout, default_model=args.default_model, system_prompt=args.system_prompt)
   return node, api, engine, engine_classname
 
 
+async def run_model_cli(node, engine_classname: str, model_name: str, prompt: str) -> None:
+  """The ``run`` command: one chat-templated prompt, its tokens printed as
+  they arrive, then the count and the rate."""
+  shard = registry.build_base_shard(model_name, engine_classname)
+  if shard is None:
+    print(f"Error: unsupported model '{model_name}' for engine {engine_classname}")
+    return
+  engine = node.inference_engine
+  await engine.ensure_shard(node.get_current_shard(shard))
+  tokenizer = engine.tokenizer
+  templated = tokenizer.apply_chat_template([{"role": "user", "content": prompt}], tokenize=False, add_generation_prompt=True)
+
+  request_id = str(uuid.uuid4())
+  done = asyncio.Event()
+  tokens_out: list[int] = []
+  t_start = time.perf_counter()
+
+  def on_token(rid, tokens, is_finished):
+    if rid != request_id:
+      return
+    tokens_out.extend(tokens)
+    print(tokenizer.decode(tokens), end="", flush=True)
+    if is_finished:
+      done.set()
+
+  node.on_token.register("cli").on_next(on_token)
+  await node.process_prompt(shard, templated, request_id)
+  try:
+    await asyncio.wait_for(done.wait(), timeout=300)
+  except asyncio.TimeoutError:
+    print("\n[timeout]")
+  elapsed = time.perf_counter() - t_start
+  print(f"\n[{len(tokens_out)} tokens in {elapsed:.1f}s — {len(tokens_out) / max(elapsed, 1e-9):.1f} tok/s]")
+
+
+async def _until(aw, event: asyncio.Event):
+  """Await ``aw`` unless ``event`` is set first (then ``aw`` is cancelled)."""
+  task = asyncio.ensure_future(aw)
+  stopper = asyncio.ensure_future(event.wait())
+  try:
+    await asyncio.wait({task, stopper}, return_when=asyncio.FIRST_COMPLETED)
+  finally:
+    for t in (task, stopper):
+      if not t.done():
+        t.cancel()
+  if task.done() and not task.cancelled():
+    return task.result()
+  return None
+
+
 async def async_main(args) -> None:
-  node, api, _engine, _ = build_components(args)
+  if args.models_seed_dir:
+    from .download.downloader import seed_models
+
+    try:
+      await seed_models(args.models_seed_dir)
+    except OSError as e:  # seeding is best-effort, as in the reference
+      print(f"error seeding models from {args.models_seed_dir}: {e}")
+  node, api, _engine, engine_classname = build_components(args)
   await node.start()
-  server = await api.run(host=args.chatgpt_api_host, port=args.chatgpt_api_port)
   stop_event = asyncio.Event()
+  force_event = asyncio.Event()  # a second signal: skip the drain
   loop = asyncio.get_running_loop()
+
+  def shutdown() -> None:
+    if stop_event.is_set():
+      force_event.set()
+    stop_event.set()
+
   for sig in (signal.SIGINT, signal.SIGTERM):
     try:
-      loop.add_signal_handler(sig, stop_event.set)
+      loop.add_signal_handler(sig, shutdown)
     except NotImplementedError:
       pass
   try:
+    if args.command == "run" or (args.command is None and args.run_model):
+      model = args.model_name or args.run_model or args.default_model
+      await _until(run_model_cli(node, engine_classname, model, args.prompt), stop_event)
+      return
+    server = await api.run(host=args.chatgpt_api_host, port=args.chatgpt_api_port)
     await stop_event.wait()
+    server.close()  # no new connections
+    await node.graceful_drain(force=force_event)
+    await _until(server.wait_closed(), force_event)
   finally:
-    server.close()
-    await server.wait_closed()
     await node.stop()
 
 

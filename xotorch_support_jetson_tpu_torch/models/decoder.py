@@ -17,7 +17,8 @@ loops (``fused_decode``, ``fused_generate``), greedy speculative decoding
 with a draft model (``fused_speculative_generate`` / ``_chunk``) and the
 draft-free speculative chunk (``fused_spec_batch_decode``); with
 ``SoloPrograms`` each prefill bucket, decode step, speculative round and
-draft-free chunk is one CUDA-graph replay. The batched
+draft-free chunk is one CUDA-graph replay. ``score_last_tokens`` (OpenAI
+``logprobs``) scores a sequence's last tokens in one cache-less forward. The batched
 programs at the end run against a page pool (ops/paged.py) instead, also
 updated in place: the admission prefill, the plain and mixed decode
 chunks, and the draft-free speculative chunk
@@ -226,6 +227,18 @@ def _attention(q, k, v, kv, positions, kv_positions, cfg: ModelConfig):
   return gqa_attention(q, k_cache, v_cache, positions, kv_positions)
 
 
+def _causal_attention(q, k, v, positions, cfg: ModelConfig):
+  """Cache-less causal attention over the call's own k/v: K1 on the card
+  with ``q_offset`` 0 (a cache-less forward runs its sequence from position
+  0, so k/v row j is position j), else the plain ``gqa_attention`` — the
+  reference's cache-less branch."""
+  from ..ops.flash_attention import flash_attention_prefill, flash_supported
+
+  if cfg.plain_attention and flash_supported(q.shape, k.shape[1], q.device, q.dtype):
+    return flash_attention_prefill(q, k.contiguous(), v.contiguous(), q_offset=0)
+  return gqa_attention(q, k, v, positions, positions[0])
+
+
 def _layer_step(h, p, kv, positions, kv_positions, inv_freq, cfg: ModelConfig):
   """One decoder layer. h [B,S,D] → h. ``kv`` is this layer's cache dict
   (views into the session cache, updated in place) or None (cache-less)."""
@@ -235,7 +248,7 @@ def _layer_step(h, p, kv, positions, kv_positions, inv_freq, cfg: ModelConfig):
   if kv is not None:
     attn = _attention(q, k, v, kv, positions, kv_positions, cfg)
   else:
-    attn = gqa_attention(q, k, v, positions, positions[0])
+    attn = _causal_attention(q, k, v, positions, cfg)
   h = h + _mm(attn.reshape(B, S, -1), p, "wo", cfg.quant_compute)
   return _mlp_block(h, p, cfg)
 
@@ -259,6 +272,19 @@ def head_logits(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tens
   return (h @ w_out.to(h.dtype)).float()
 
 
+def _forward_layers(params: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, kv_cache: Params | None) -> torch.Tensor:
+  """Embed (token ids) and run every layer of ``params``: hidden [B,S,D]."""
+  h = embed_tokens(params, cfg, x) if x.dim() == 2 else x.to(cfg.dtype)
+  inv_freq = rope_inv_freq(cfg, device=h.device)
+  kv_positions = torch.arange(kv_cache["k"].shape[2], dtype=torch.int32, device=h.device) if kv_cache is not None else None
+  layers = params["layers"]
+  for i in range(layers["wq"].shape[0]):
+    lp = {key: val[i] for key, val in layers.items()}
+    kv = None if kv_cache is None else {key: val[i] for key, val in kv_cache.items()}
+    h = _layer_step(h, lp, kv, positions, kv_positions, inv_freq, cfg)
+  return h
+
+
 def shard_forward(
   params: Params,
   cfg: ModelConfig,
@@ -271,23 +297,48 @@ def shard_forward(
   """Run the shard's layers. Returns (hidden | logits, cache).
 
   With a cache (updated in place): queries attend to every cache slot ≤
-  their absolute position. Without: plain causal attention within the call.
-  ``head_pos`` (last shard only) gathers one row per batch entry before the
-  LM head, returning logits [B, 1, V].
+  their absolute position. Without: causal attention within the call, the
+  sequence starting at position 0 (K1 on the card). ``head_pos`` (last
+  shard only) gathers one row per batch entry before the LM head, returning
+  logits [B, 1, V].
   """
-  h = embed_tokens(params, cfg, x) if x.dim() == 2 else x.to(cfg.dtype)
-  inv_freq = rope_inv_freq(cfg, device=h.device)
-  kv_positions = torch.arange(kv_cache["k"].shape[2], dtype=torch.int32, device=h.device) if kv_cache is not None else None
-  layers = params["layers"]
-  for i in range(layers["wq"].shape[0]):
-    lp = {key: val[i] for key, val in layers.items()}
-    kv = None if kv_cache is None else {key: val[i] for key, val in kv_cache.items()}
-    h = _layer_step(h, lp, kv, positions, kv_positions, inv_freq, cfg)
+  h = _forward_layers(params, cfg, x, positions, kv_cache)
   if not shard.is_last_layer:
     return h, kv_cache
   if head_pos is not None:
     h = h[torch.arange(h.shape[0], device=h.device), head_pos.to(h.device)][:, None, :]
   return head_logits(params, cfg, h), kv_cache
+
+
+# ---------------------------------------------------------------- scoring
+# (OpenAI ``logprobs``): the serving paths return token ids only, so
+# logprobs are recomputed after the fact in one forward over prompt and
+# completion, only when a client asks. The head runs on the scored rows
+# alone: full-sequence logits would be [S, V] f32, ~2 GB at 4K tokens.
+
+
+@tracked("prefill.score_last", ("cfg", "shard", "n_scored", "top_n"))
+def score_last_tokens(params, cfg: ModelConfig, shard: Shard, tokens, seq_len, n_scored: int, top_n: int):
+  """Logprobs of the last ``n_scored`` tokens of a [1, S_pad] sequence.
+
+  One cache-less forward (K1 in every layer on the card, at Sq = Skv =
+  S_pad from position 0); ``seq_len`` (an int or an int32 scalar tensor)
+  is the real length, and the padding past it is inert under causal
+  attention. The hidden states at positions
+  ``seq_len - n_scored - 1 …`` predict the scored tokens; the indices are
+  clipped into range, so an ``n_scored`` bucketed past the sequence gives
+  junk leading rows that the caller slices off. Returns (chosen_logprob
+  [n], top_ids [n, top_n], top_logprobs [n, top_n]), log_softmax in f32.
+  Full-model shards only."""
+  _full_model(shard, "score_last_tokens")
+  S = tokens.shape[1]
+  positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(tokens.shape[0], S)
+  h = _forward_layers(params, cfg, tokens, positions, None)
+  idx = (seq_len - n_scored - 1 + torch.arange(n_scored, device=tokens.device)).clamp(0, S - 2)
+  logp = torch.log_softmax(head_logits(params, cfg, h[:, idx])[0].float(), dim=-1)  # [n, V]
+  chosen_lp = logp.gather(1, tokens[0, idx + 1].long()[:, None])[:, 0]
+  top_lp, top_ids = torch.topk(logp, top_n, dim=-1)
+  return chosen_lp, top_ids, top_lp
 
 
 # ---------------------------------------------------------------- decoding

@@ -9,8 +9,10 @@ the engine's continuous-batching server instead (``_batched_serve``), with
 the request's QoS identity (priority, tenant, deadline) from the API.
 Tokens reach listeners (the API) through ``on_token``. While the node runs,
 a background task keeps the SLO engine's windows fresh
-(orchestration/slo.py) off the event loop. There is no ring, gRPC or
-discovery in the port yet.
+(orchestration/slo.py) off the event loop. ``score_tokens`` serves the
+API's ``logprobs``, ``graceful_drain`` the shutdown's wait, and
+``node_download_progress`` ``GET /v1/download/progress``. There is no
+ring, gRPC or discovery in the port yet.
 """
 
 from __future__ import annotations
@@ -18,47 +20,26 @@ from __future__ import annotations
 import asyncio
 import os
 import uuid
-from typing import Callable
 
 import numpy as np
 
 from ..inference.shard import Shard
 from ..inference.state import InferenceState
+from ..utils.helpers import AsyncCallbackSystem
 from .slo import slo_enabled, slo_engine
 
 SLO_POLL_S = 1.0  # how often the node offers the SLO engine a tick (it self-gates to XOT_TPU_SLO_TICK_S)
 
 
-class _Channel:
-  def __init__(self) -> None:
-    self.observers: list[Callable] = []
-
-  def on_next(self, callback: Callable) -> None:
-    self.observers.append(callback)
-
-
-class CallbackRegistry:
-  """Named observer channels; ``trigger_all`` calls every observer."""
-
-  def __init__(self) -> None:
-    self._channels: dict[str, _Channel] = {}
-
-  def register(self, name: str) -> _Channel:
-    return self._channels.setdefault(name, _Channel())
-
-  def deregister(self, name: str) -> None:
-    self._channels.pop(name, None)
-
-  def trigger_all(self, *args) -> None:
-    for channel in list(self._channels.values()):
-      for observer in channel.observers:
-        observer(*args)
-
-
 class Node:
-  def __init__(self, _id: str, inference_engine, max_generate_tokens: int = 10000, default_sample_temp: float = 0.6, default_sample_top_k: int = 35) -> None:
+  def __init__(self, _id: str, inference_engine, max_generate_tokens: int = 10000, default_sample_temp: float = 0.6, default_sample_top_k: int = 35, shard_downloader=None) -> None:
     self.id = _id
     self.inference_engine = inference_engine
+    self.shard_downloader = shard_downloader
+    # node id → its latest download progress (RepoProgressEvent.to_dict()),
+    # filled from the downloader's on_progress (main.py); GET
+    # /v1/download/progress answers with it.
+    self.node_download_progress: dict[str, dict] = {}
     self.max_generate_tokens = max_generate_tokens
     self.default_sample_temp = default_sample_temp
     self.default_sample_top_k = default_sample_top_k
@@ -66,7 +47,7 @@ class Node:
     self.request_options: dict[str, dict] = {}
     self.cancelled_requests: set[str] = set()
     self.outstanding_requests: dict[str, str] = {}
-    self.on_token = CallbackRegistry()
+    self.on_token = AsyncCallbackSystem()
     self._slo_task: asyncio.Task | None = None
 
   async def start(self) -> None:
@@ -79,6 +60,26 @@ class Node:
     if self._slo_task is not None:
       self._slo_task.cancel()
       self._slo_task = None
+
+  async def graceful_drain(self, drain_s: float | None = None, force: asyncio.Event | None = None) -> None:
+    """The shutdown path's wait (main.py, after the API stopped taking
+    requests): up to ``XOT_TPU_DRAIN_S`` (default 20 s) for outstanding
+    requests, solo or batched, to finish; ``force`` (a second signal) ends
+    the wait at once. Does not stop the node. The reference also announces
+    the shutdown to its peers and migrates batched rows to a survivor; a
+    solo node has neither, so that part comes with the ring."""
+    if drain_s is None:
+      try:
+        drain_s = float(os.getenv("XOT_TPU_DRAIN_S", "20") or 20)
+      except ValueError:
+        drain_s = 20.0
+    server = getattr(self.inference_engine, "_batched_server", None)
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + drain_s
+    while loop.time() < deadline and not (force is not None and force.is_set()):
+      if not (self.outstanding_requests or (server is not None and server.busy())):
+        break
+      await asyncio.sleep(0.1)
 
   async def _slo_ticks(self) -> None:
     """Offer the SLO engine a tick every ``SLO_POLL_S``. A tick snapshots
@@ -238,6 +239,15 @@ class Node:
       )
     finally:
       self._finish_request(request_id)
+
+  async def score_tokens(self, base_shard: Shard, tokens, n_scored: int, top_n: int):
+    """Logprobs after the fact for the API's ``logprobs`` field: one
+    scoring forward over prompt and completion on this node, which holds
+    the whole model (None when the engine cannot score)."""
+    scorer = getattr(self.inference_engine, "score_tokens", None)
+    if scorer is None:
+      return None
+    return await scorer(self.get_current_shard(base_shard), tokens, n_scored, top_n)
 
   def cancel_request(self, request_id: str) -> None:
     """Stop generating for a request at the next chunk boundary (the

@@ -59,8 +59,34 @@ def get_repo(model_id: str, inference_engine_classname: str) -> str | None:
   return card.repo_for(inference_engine_classname) if card else None
 
 
+def get_pretty_name(model_id: str) -> str | None:
+  card = model_cards.get(model_id)
+  return card.pretty if card else None
+
+
+def get_family(model_id: str) -> str | None:
+  card = model_cards.get(model_id)
+  return card.family if card else None
+
+
 def build_base_shard(model_id: str, inference_engine_classname: str) -> Shard | None:
   card = model_cards.get(model_id)
   if card is None or card.repo_for(inference_engine_classname) is None:
     return None
   return Shard(model_id, 0, 0, card.layers)
+
+
+def build_full_shard(model_id: str, inference_engine_classname: str) -> Shard | None:
+  base = build_base_shard(model_id, inference_engine_classname)
+  return None if base is None else Shard(model_id, 0, base.n_layers - 1, base.n_layers)
+
+
+def get_supported_models(supported_inference_engine_lists: list[list[str]] | None = None) -> list[str]:
+  """Models every engine list supports (each inner list is an OR of engine
+  names or class names)."""
+  if not supported_inference_engine_lists:
+    return list(model_cards)
+  from .inference.engine import inference_engine_classes
+
+  normalized = [[inference_engine_classes.get(e, e) for e in engines] for engines in supported_inference_engine_lists]
+  return [model_id for model_id, card in model_cards.items() if all(any(e in card.repo for e in engines) for engines in normalized)]

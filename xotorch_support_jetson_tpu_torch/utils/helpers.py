@@ -1,7 +1,8 @@
-"""Cross-cutting helpers: debug level, boolean and float env knobs, node identity,
-free-port probing, and the on-device placement rule of the port's entry
-points. Own copy of the subset of the reference's ``utils/helpers.py`` the
-serving slice uses."""
+"""Cross-cutting helpers: debug level, the framework's home directory,
+boolean and float env knobs, node identity, free-port probing, named
+callback channels (``AsyncCallbackSystem``), and the on-device placement
+rule of the port's entry points. Own copy of the subset of the reference's
+``utils/helpers.py`` the serving slice uses."""
 
 from __future__ import annotations
 
@@ -10,10 +11,16 @@ import random
 import socket
 import uuid
 from pathlib import Path
+from typing import Callable
 
 DEBUG = int(os.getenv("DEBUG", "0"))
 
-XOT_HOME = Path(os.getenv("XOT_TPU_HOME", Path.home() / ".cache" / "xot_tpu"))
+
+def xot_home() -> Path:
+  """The framework's home directory: ``XOT_TPU_HOME``, default
+  ``~/.cache/xot_tpu``. Read at each call, so a process that sets it after
+  import (a test, a smoke run) finds its own."""
+  return Path(os.getenv("XOT_TPU_HOME", Path.home() / ".cache" / "xot_tpu"))
 
 
 def env_flag(name: str, default: bool = False) -> bool:
@@ -34,6 +41,34 @@ def env_float(name: str, default: float) -> float:
     return default
 
 
+class _Channel:
+  def __init__(self) -> None:
+    self.observers: list[Callable] = []
+
+  def on_next(self, callback: Callable) -> None:
+    self.observers.append(callback)
+
+
+class AsyncCallbackSystem:
+  """Named observer channels (the reference's ``AsyncCallbackSystem``):
+  ``register(name).on_next(callback)``; ``trigger_all(*args)`` calls every
+  observer of every channel."""
+
+  def __init__(self) -> None:
+    self._channels: dict[str, _Channel] = {}
+
+  def register(self, name: str) -> _Channel:
+    return self._channels.setdefault(name, _Channel())
+
+  def deregister(self, name: str) -> None:
+    self._channels.pop(name, None)
+
+  def trigger_all(self, *args) -> None:
+    for channel in list(self._channels.values()):
+      for observer in channel.observers:
+        observer(*args)
+
+
 def find_available_port(host: str = "", min_port: int = 49152, max_port: int = 65535) -> int:
   """Pick a free TCP port by bind-probing random candidates."""
   for _ in range(100):
@@ -52,7 +87,7 @@ def get_or_create_node_id() -> str:
   (``XOT_TPU_UUID`` pins it)."""
   if env_id := os.getenv("XOT_TPU_UUID"):
     return env_id
-  id_file = XOT_HOME / ".node_id"
+  id_file = xot_home() / ".node_id"
   try:
     if id_file.is_file():
       stored = id_file.read_text().strip()
