@@ -106,7 +106,7 @@ Phases (any failure exits non-zero and prints no result):
    bf16 step at positions 128 and 4000 of the 4096-slot cache with K2
    (``XOT_TPU_FLASH_DECODE=1``) and without (recorded, not gated). The
    ``[graphs] spec`` cell: with the int8 self-draft and with the 2-layer
-   cross draft, on a pooled 4096-slot pair, three rounds of captured
+   cross draft, on a pooled 4096-slot pair, two rounds of captured
    against uncaptured dispatches on refilled buffers (the draft's 128-bucket
    prefill, chained 8-token draft-chain chunks at depth 4, chained n-gram
    chunks of 3 rounds at depth 8, 64-token speculative oneshots):
@@ -156,9 +156,11 @@ Phases (any failure exits non-zero and prints no result):
    int4), and bf16 once more with XOT_TPU_SPEC_BATCH=0; then bf16 again
    with XOT_TPU_MIXED_TICK=0, and with QoS and the SLO engine off as well
    (the FIFO scheduler); then a priority pass
-   (12 ``batch`` requests, then 4 ``interactive`` ones once 8 batch rows
-   stream), last because the process's SLO engine keeps the burn its
-   interactive requests leave.
+   (12 ``batch`` requests of ``PRIORITY_BATCH_TOKENS`` = 720-token
+   answers, ten spec chunks' worth at full acceptance, then 4
+   ``interactive`` ones once 8 batch rows stream, so they arrive while
+   every row is held), last because the process's SLO engine keeps the
+   burn its interactive requests leave.
    The counters are zeroed just before each pass and read just after: K1
    (bf16 and int8 pages) and K3 must have run, K4 in the int4-weights pass
    (every prefill chunk too, whatever its rows: no int4_two_dot call), and
@@ -266,7 +268,29 @@ Phases (any failure exits non-zero and prints no result):
    process resolves its tokenizer there): ``python -m
    xotorch_support_jetson_tpu_torch.main run llama-3.2-1b --prompt ...``
    prints its tokens and exits 0, and a daemon process serves a
-   completion, gets ``POST /quit`` and exits 0 within ``QUIT_EXIT_S``.
+   completion, gets ``POST /quit`` and exits 0 within ``QUIT_EXIT_S``;
+9. gemma2 — a seeded random bf16 checkpoint at gemma-2-9b's published
+   shapes and full depth (``GEMMA_2_9B``: 42 layers, head dim 256, softcaps
+   50 / 30, a 4,096-token window on the even layers; the bos / eos / pad
+   ids are the byte tokenizer's), written once, served through the daemon:
+   solo bf16 with ``XOT_TPU_MAX_SEQ=8192``, every dispatch captured
+   (greedy blocking and streaming chat ids equal; a 6,000-token prompt,
+   bucket 6016, blocking and streaming ids equal; one logprobs request,
+   entries aligned, one scoring dispatch; one n-gram streaming request,
+   spec chunks dispatched; K1, K2 and K3 launch 0 times over all of them:
+   gemma2 attends through the plain route, as the reference routes it);
+   the served logits of the long prompt's last token (captured prefill)
+   and of one captured decode step after it against a plain f32 forward
+   written out here (``gemma_plain_f32``) within 5e-2 relative L2, and the
+   same forward without the window more than 5e-2 away; the captured
+   programs against the uncaptured functions (greedy ids identical, the
+   6016 bucket's logits within 5e-2); the captured decode step's wall and
+   device ms at position 6000 and the long prefill's, each with the plain
+   attention's share; then batched at the defaults on the same engine (16
+   streams, spec and mixed dispatches required, decode chunks on the
+   gather route, K1-K3 0); then solo with ``XOT_TPU_QUANT=int4`` (ids
+   equal, K4 once per quantized product per forward: 7 a layer and the
+   head). Phase 3 also holds K4 at gemma-2-9b's six weight shapes, T = 1.
 
 The last two lines are the card as ``nvidia-smi`` reports it and
 ``{"ok": true, "device": {...}}``; the line before them is the kernels' JSON
@@ -347,6 +371,22 @@ KV_MODES = {"bf16": "", "int8": "int8", "int4": "int4"}
 # makes: 16 layers and the tied LM head.
 LLAMA_1B_MATMULS = {"wq/wo": (2048, 2048), "wk/wv": (2048, 512), "w_gate/w_up": (2048, 8192), "w_down": (8192, 2048), "lm_head": (2048, 128256)}
 CALLS_PER_STEP = {"wq/wo": 32, "wk/wv": 32, "w_gate/w_up": 32, "w_down": 16, "lm_head": 1}
+# gemma-2-9b: google/gemma-2-9b config.json (published values), but for
+# three fields the phase logs: the bos / eos / pad ids (2 / 1 / 0) are bytes
+# under the smoke's byte tokenizer, so the written config takes the
+# tokenizer's ids (``ByteTokenizer``: 128000 / 128009, pad = eos), and the
+# weights are random bf16 (the published file says float32).
+GEMMA_2_9B = {
+  "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2", "vocab_size": 256000, "hidden_size": 3584, "intermediate_size": 14336,
+  "num_hidden_layers": 42, "num_attention_heads": 16, "num_key_value_heads": 8, "head_dim": 256, "query_pre_attn_scalar": 256,
+  "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0, "sliding_window": 4096, "max_position_embeddings": 8192, "rms_norm_eps": 1e-6,
+  "rope_theta": 10000.0, "hidden_activation": "gelu_pytorch_tanh", "hidden_act": "gelu_pytorch_tanh", "attention_bias": False, "tie_word_embeddings": True,
+  "bos_token_id": 128000, "eos_token_id": 128009, "pad_token_id": 128009, "torch_dtype": "bfloat16",
+}
+# gemma-2-9b's weight products, (in, out), and how many one decode step
+# makes: 42 layers and the tied LM head.
+GEMMA_2_9B_MATMULS = {"wq": (3584, 4096), "wk/wv": (3584, 2048), "wo": (4096, 3584), "w_gate/w_up": (3584, 14336), "w_down": (14336, 3584), "lm_head": (3584, 256000)}
+GEMMA_CALLS_PER_STEP = {"wq": 42, "wk/wv": 84, "wo": 42, "w_gate/w_up": 84, "w_down": 42, "lm_head": 1}
 # Weight-quantized solo passes: the environment each daemon starts with.
 QUANT_MODES = {"int4": {"XOT_TPU_QUANT": "int4"}, "int8": {"XOT_TPU_QUANT": "int8"}, "int8_w8a8": {"XOT_TPU_QUANT": "int8", "XOT_TPU_QUANT_COMPUTE": "w8a8"}}
 # Solo speculation knobs: every daemon starts with them unset.
@@ -456,6 +496,9 @@ def phase_kernels(torch):
   results["paged_window"] = paged_window_rows(torch, gen, Hq, Hkv, hd)
   results["int4_matmul"] = int4_kernel_rows(torch, gen)
   results["int4_matmul_bound"] = int4_matmul_bound(results["int4_matmul"])
+  # K4 at gemma-2-9b's weight shapes, solo decode (T = 1): the gemma2 int4 phase's products.
+  results["int4_matmul_gemma2"] = int4_kernel_rows(torch, gen, GEMMA_2_9B_MATMULS, tokens=(1,), f32_row=False, model="gemma-2-9b")
+  results["int4_matmul_gemma2_bound"] = int4_matmul_bound(results["int4_matmul_gemma2"], GEMMA_CALLS_PER_STEP, tokens=(1,), model="gemma-2-9b")
   return results
 
 
@@ -667,10 +710,11 @@ def flash_decode_rows(torch, gen, Hq, Hkv, hd):
   return rows
 
 
-def int4_kernel_rows(torch, gen):
-  """K4 against its plain version at llama-3.2-1b's five weight shapes, T =
-  1 (solo decode), 8 (batched decode, 8 slots), 128 (the prefill bucket)
-  and 512 (a batched prefill call), plus one row with f32 x. The yardstick
+def int4_kernel_rows(torch, gen, matmuls=LLAMA_1B_MATMULS, tokens=(1, 8, 128, 512), f32_row=True, model="llama-3.2-1b"):
+  """K4 against its plain version at ``matmuls``' weight shapes (by default
+  llama-3.2-1b's five), at ``tokens`` rows: T = 1 (solo decode), 8 (batched
+  decode, 8 slots), 128 (the prefill bucket) and 512 (a batched prefill
+  call), plus one row with f32 x (``f32_row``). The yardstick
   is torch.matmul of the same x with the weight dequantized beforehand (bf16,
   or f32 for f32 x) — the product int4 mode replaces; the dequant is not
   timed. One call at T = 1 and 8 must be one device kernel
@@ -679,10 +723,10 @@ def int4_kernel_rows(torch, gen):
   from xotorch_support_jetson_tpu_torch.ops import int4_matmul as k4
 
   rows = []
-  for name, (d_in, d_out) in LLAMA_1B_MATMULS.items():
+  for name, (d_in, d_out) in matmuls.items():
     packed, scale = quantize_weight_int4(torch.randn((d_in, d_out), generator=gen, device="cuda") * d_in**-0.5)
     w_bf16 = dequantize_leaf(packed, scale, d_in, torch.bfloat16)
-    cases = [(T, torch.bfloat16) for T in (1, 8, 128, 512)] + ([(128, torch.float32)] if name == "w_gate/w_up" else [])
+    cases = [(T, torch.bfloat16) for T in tokens] + ([(128, torch.float32)] if f32_row and name == "w_gate/w_up" else [])
     for T, dtype in cases:
       x = _rand(torch, (T, d_in), gen, dtype)
       f32 = dtype == torch.float32
@@ -706,7 +750,7 @@ def int4_kernel_rows(torch, gen):
       w_lib = w_bf16.float() if f32 else w_bf16
       cfg, split = k4.plan(T, d_in, d_out, k4.sm_count(x.device.index), k4.wide_ok(x, packed))  # the wrapper's launch geometry
       row = dict(
-        weight=name, T=T, d_in=d_in, d_out=d_out, x_dtype=str(dtype).removeprefix("torch."), tile_t=k4.TILE_T[cfg], split=split,
+        model=model, weight=name, T=T, d_in=d_in, d_out=d_out, x_dtype=str(dtype).removeprefix("torch."), tile_t=k4.TILE_T[cfg], split=split,
         mma="wgmma" if cfg == 2 else "mma.sync",
         max_abs_err=err, abs_slack=slack, tol=dict(atol=atol, rtol=rtol), tol_used=used,
         ms=_cuda_ms(torch, lambda: k4.int4_matmul(x, packed, scale)),
@@ -722,7 +766,7 @@ def int4_kernel_rows(torch, gen):
           raise SystemExit(f"chip_smoke: int4_matmul {name} T={T}: {row['device_kernels_per_call']} device kernels per call, expected 1")
       rows.append(row)
       kern = f" | {row['device_kernels_per_call']} device kernel per call" if T <= 8 else ""
-      log(f"[kernels] int4_matmul {name} in={d_in} out={d_out} T={T} x {row['x_dtype']} ({row['tile_t']}-token tiles, {row['mma']}, cluster of {split}): max|err| {err:.3e} ({used:.3f} of the bound atol {atol} + rtol {rtol:.3g}·|ref|; beyond the relative part {slack:.2e}) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | {'f32' if f32 else 'bf16'} matmul {row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']}, {nbytes / 1e6:.2f} MB){kern}")
+      log(f"[kernels] int4_matmul {model} {name} in={d_in} out={d_out} T={T} x {row['x_dtype']} ({row['tile_t']}-token tiles, {row['mma']}, cluster of {split}): max|err| {err:.3e} ({used:.3f} of the bound atol {atol} + rtol {rtol:.3g}·|ref|; beyond the relative part {slack:.2e}) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | {'f32' if f32 else 'bf16'} matmul {row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']}, {nbytes / 1e6:.2f} MB){kern}")
     del packed, scale, w_bf16
   return rows
 
@@ -737,17 +781,17 @@ def _kernels_per_call(torch, fn):
   return kernels_in(fn)
 
 
-def int4_matmul_bound(rows):
-  """K4 per llama-3.2-1b decode step: the 113 weight products of one step
-  (16 layers and the tied head), summed from the measured rows at T = 1
-  (solo) and T = 8 (batched, 8 slots)."""
+def int4_matmul_bound(rows, calls=CALLS_PER_STEP, tokens=(1, 8), model="llama-3.2-1b"):
+  """K4 per decode step: the weight products of one step (by default
+  llama-3.2-1b's 113: 16 layers and the tied head), summed from the
+  measured rows at T = 1 (solo) and T = 8 (batched, 8 slots)."""
   res = {}
-  for T in (1, 8):
+  for T in tokens:
     at = {r["weight"]: r for r in rows if r["T"] == T and r["x_dtype"] == "bfloat16"}
-    step = {key: sum(n * at[w][key] for w, n in CALLS_PER_STEP.items()) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    step.update(calls=sum(CALLS_PER_STEP.values()), packed_bytes=sum(n * (at[w]["d_in"] // 2 * at[w]["d_out"] + at[w]["d_out"] * 4) for w, n in CALLS_PER_STEP.items()))
+    step = {key: sum(n * at[w][key] for w, n in calls.items()) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    step.update(calls=sum(calls.values()), packed_bytes=sum(n * (at[w]["d_in"] // 2 * at[w]["d_out"] + at[w]["d_out"] * 4) for w, n in calls.items()))
     res[f"T{T}"] = step
-    log(f"[kernels] int4_matmul per decode step at T={T} ({step['calls']} calls, {step['packed_bytes'] / 1e6:.2f} MB packed weights + scales): kernel {step['ms']:.4f} ms | plain {step['plain_ms']:.4f} ms | bf16 matmul {step['library_ms']:.4f} ms | bound {step['bound_ms']:.5f} ms")
+    log(f"[kernels] int4_matmul {model} per decode step at T={T} ({step['calls']} calls, {step['packed_bytes'] / 1e6:.2f} MB packed weights + scales): kernel {step['ms']:.4f} ms | plain {step['plain_ms']:.4f} ms | bf16 matmul {step['library_ms']:.4f} ms | bound {step['bound_ms']:.5f} ms")
   return res
 
 
@@ -1161,14 +1205,14 @@ def _chat_body(stream, temp):
   return {"model": "llama-3.2-1b", "messages": CHAT, "stream": stream, "temperature": temp, "max_tokens": MAX_TOKENS}
 
 
-def _daemon_args(tmain, ckpt: Path):
+def _daemon_args(tmain, ckpt: Path, max_tokens: int = MAX_TOKENS, model: str = "llama-3.2-1b"):
   from xotorch_support_jetson_tpu_torch.utils.helpers import find_available_port
 
   os.environ["XOT_TPU_MODEL_DIR"] = str(ckpt)
   for knob in SERVING_KNOBS:
     os.environ.pop(knob, None)
   port = find_available_port("127.0.0.1")
-  args = tmain.build_parser().parse_args(["--discovery-module", "none", "--chatgpt-api-port", str(port), "--default-model", "llama-3.2-1b", "--max-generate-tokens", str(MAX_TOKENS), "--node-id", "chip-smoke"])
+  args = tmain.build_parser().parse_args(["--discovery-module", "none", "--chatgpt-api-port", str(port), "--default-model", model, "--max-generate-tokens", str(max_tokens), "--node-id", "chip-smoke"])
   return args, port
 
 
@@ -1717,6 +1761,16 @@ def profile_draft_round(torch, engine, what="int8-draft"):
 SYSTEM_PREFIX = "You are a careful assistant. Answer in plain words, keep every answer short, and say when you do not know an answer."
 
 
+SPEC_ROUNDS, SPEC_GAMMA = 8, 8  # one spec chunk at the server's shape: XOT_TPU_BATCH_CHUNK rounds at depth XOT_TPU_SPEC_NGRAM_MAX
+# The priority pass holds its batch rows for a known time: a spec chunk
+# emits at most SPEC_ROUNDS × (SPEC_GAMMA + 1) = 72 tokens a row, so a
+# batch answer of 10 chunks' worth needs at least 10 captured chunks even
+# at full n-gram acceptance; the interactive wave, sent once the eighth
+# batch row streams, arrives while all eight are held.
+PRIORITY_HELD_CHUNKS = 10
+PRIORITY_BATCH_TOKENS = PRIORITY_HELD_CHUNKS * SPEC_ROUNDS * (SPEC_GAMMA + 1)
+
+
 def batched_bodies(n=16, priority=None, variant=0):
   """16 greedy streaming chat requests. The byte-level chat template puts
   BOS + "<|system|>" + the 116-byte system prompt + newline first: the
@@ -1724,8 +1778,10 @@ def batched_bodies(n=16, priority=None, variant=0):
   suffixes are distinct, 16 to 400 bytes, longest last. Answers are 29 to
   64 tokens, so rows free one at a time and requests sent after the first
   eight admit while the others stream — the admissions mixed ticks slice.
-  With a ``priority`` every answer is 64 tokens: no row frees early, so a
-  later request of a higher class finds no free slot and preempts. Another
+  With a ``priority`` no row frees early, so a later request of a higher
+  class finds no free slot and preempts: a ``batch`` answer is
+  ``PRIORITY_BATCH_TOKENS`` long (at least ``PRIORITY_HELD_CHUNKS`` spec
+  chunks even if every proposal is accepted), any other 64. Another
   ``variant`` starts each suffix elsewhere in the word list: the same
   lengths (the same dispatch shapes) with other tokens, so no prompt page
   but the system prefix is a prefix-cache hit for the other variant."""
@@ -1739,7 +1795,7 @@ def batched_bodies(n=16, priority=None, variant=0):
     msgs = [{"role": "system", "content": SYSTEM_PREFIX}, {"role": "user", "content": text[:size]}]
     body = {"model": "llama-3.2-1b", "messages": msgs, "stream": True, "temperature": 0, "max_tokens": MAX_TOKENS - 5 * (i % 8)}
     if priority:
-      body.update(priority=priority, max_tokens=MAX_TOKENS)
+      body.update(priority=priority, max_tokens=PRIORITY_BATCH_TOKENS if priority == "batch" else MAX_TOKENS)
     bodies.append(body)
   return bodies
 
@@ -1769,7 +1825,7 @@ def phase_batched(torch, ckpt: Path, weights: str = "bf16"):
   and bf16 pages."""
   from xotorch_support_jetson_tpu_torch import main as tmain
 
-  args, port = _daemon_args(tmain, ckpt)
+  args, port = _daemon_args(tmain, ckpt, max_tokens=PRIORITY_BATCH_TOKENS)  # the priority pass's batch answers; every other request names its own
   os.environ.update(XOT_TPU_BATCHED="1", XOT_TPU_BATCH_SLOTS=str(BATCH_SLOTS), XOT_TPU_PAGE_SIZE=str(PAGE))
   if weights != "bf16":
     os.environ["XOT_TPU_QUANT"] = weights
@@ -2225,7 +2281,6 @@ def check_window_against_plain(torch, engine):
   return res
 
 
-SPEC_ROUNDS, SPEC_GAMMA = 8, 8  # one spec chunk at the server's shape: XOT_TPU_BATCH_CHUNK rounds at depth XOT_TPU_SPEC_NGRAM_MAX
 
 
 def check_spec_chunk_accepts(torch, engine):
@@ -2960,6 +3015,481 @@ async def _serve_tiered(torch, tmain, args, port):
     engine.executor.shutdown(wait=True)
 
 
+# ------------------------------------------------- 9. gemma2 (gemma-2-9b)
+
+GEMMA_MAX_SEQ = 8192  # XOT_TPU_MAX_SEQ of the gemma2 daemon: room beyond the 4,096-token window
+GEMMA_LONG_TOKENS = 6000  # the long prompt (bucket 6016): every query past 4,096 slides on the even layers
+GEMMA_LONG_HEAD = 2000  # its first tokens are text of another kind, so the window changes what the last query attends
+GEMMA_ANSWER = 32
+GEMMA_LONG_ANSWER = 16
+GEMMA_CHECK_TOL = 5e-2  # relative L2 of the served logits against the plain f32 forward (PERF.md §2's tolerance)
+GEMMA_MODEL = "gemma2-9b"
+
+
+def write_gemma_checkpoint(torch, path: Path, seed: int = SEED + 9) -> float:
+  """Seeded random bf16 weights at gemma-2-9b's shapes and full depth, HF
+  names, one .safetensors file written tensor by tensor (the weights never
+  sit in host memory at once). N(0, 1/fan_in) projections, N(0, 0.02)
+  embeddings, zero-centred norm gains N(0, 0.05)."""
+  import struct
+
+  t0 = time.perf_counter()
+  c = GEMMA_2_9B
+  D, F_, V, L = c["hidden_size"], c["intermediate_size"], c["vocab_size"], c["num_hidden_layers"]
+  qd, kd = c["num_attention_heads"] * c["head_dim"], c["num_key_value_heads"] * c["head_dim"]
+  shapes = {"model.embed_tokens.weight": (V, D), "model.norm.weight": (D,)}
+  for i in range(L):
+    p = f"model.layers.{i}."
+    shapes.update({p + n: (D,) for n in ("input_layernorm.weight", "post_attention_layernorm.weight", "pre_feedforward_layernorm.weight", "post_feedforward_layernorm.weight")})
+    shapes.update({
+      p + "self_attn.q_proj.weight": (qd, D), p + "self_attn.k_proj.weight": (kd, D), p + "self_attn.v_proj.weight": (kd, D), p + "self_attn.o_proj.weight": (D, qd),
+      p + "mlp.gate_proj.weight": (F_, D), p + "mlp.up_proj.weight": (F_, D), p + "mlp.down_proj.weight": (D, F_),
+    })
+  header, offset = {"__metadata__": {"format": "pt"}}, 0
+  for name, shape in shapes.items():
+    n = math.prod(shape) * 2
+    header[name] = {"dtype": "BF16", "shape": list(shape), "data_offsets": [offset, offset + n]}
+    offset += n
+  raw = json.dumps(header, separators=(",", ":")).encode()
+  raw += b" " * (-len(raw) % 8)
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  path.mkdir(parents=True, exist_ok=True)
+  (path / "config.json").write_text(json.dumps(c, indent=1))
+  with open(path / "model.safetensors", "wb") as f:
+    f.write(struct.pack("<Q", len(raw)))
+    f.write(raw)
+    for name, shape in shapes.items():
+      scale = 0.05 if len(shape) == 1 else 0.02 if name == "model.embed_tokens.weight" else shape[1] ** -0.5
+      t = (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+      f.write(t.view(torch.uint8).cpu().numpy().data)
+  return time.perf_counter() - t0
+
+
+def gemma_long_prompt() -> tuple[list[int], str]:
+  """(ids, user text) of a prompt of ``GEMMA_LONG_TOKENS`` byte-tokenizer
+  ids (BOS, the chat template, the text): its first ~``GEMMA_LONG_HEAD``
+  text bytes are upper-case words and digits, the rest lower-case words,
+  so a query past position 4,096 sees other text with the window than
+  without it."""
+  tok = ByteTokenizer()
+  overhead = len(tok.encode(tok.apply_chat_template([{"role": "user", "content": ""}])))
+  head = " ".join(f"LEDGER {i:04d} ENTRY" for i in range(GEMMA_LONG_HEAD // 17 + 1))[:GEMMA_LONG_HEAD]
+  words = "the quick brown fox jumps over a lazy dog while seven tired owls count the stars above an old mill".split()
+  tail = " ".join(words[i % len(words)] for i in range(GEMMA_LONG_TOKENS))
+  text = (head + " " + tail)[: GEMMA_LONG_TOKENS - overhead]
+  ids = tok.encode(tok.apply_chat_template([{"role": "user", "content": text}]))
+  if len(ids) != GEMMA_LONG_TOKENS:
+    raise SystemExit(f"chip_smoke: [gemma2] the long prompt is {len(ids)} tokens, expected {GEMMA_LONG_TOKENS}")
+  return ids, text
+
+
+def gemma_plain_f32(torch, params, cfg, ids: list[int], window: bool = True, n_last: int = 2):
+  """A plain f32 forward of gemma2 over the served weights, written out
+  here from the published architecture (each layer's weights cast to f32
+  as it runs): the embed times bf16(sqrt(D)), per layer the pre-attention
+  norm, q/k/v, HF rope, scores scaled by 1/sqrt(query_pre_attn_scalar),
+  ``cap·tanh(s/cap)``, the causal mask and on even layers (``window``) the
+  last ``sliding_window`` positions only, softmax, o, the post-attention
+  norm; the pre-MLP norm, GeGLU (tanh GELU), the post-MLP norm; the final
+  norm, the tied head and the final softcap. Logits [n_last, V] f32 of the
+  last ``n_last`` positions."""
+  lay = params["layers"]
+  S, H, Hkv, hd = len(ids), cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+  dev = params["embed"].device
+  x = torch.tensor(ids, device=dev)
+
+  def rms(v, w):
+    return v * torch.rsqrt(v.pow(2).mean(-1, keepdim=True) + cfg.norm_eps) * w.float()
+
+  inv = 1.0 / (cfg.rope_theta ** (torch.arange(0, hd, 2, device=dev, dtype=torch.float32) / hd))
+  ang = torch.arange(S, device=dev, dtype=torch.float32)[:, None] * inv[None, :]
+  cos, sin = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
+
+  def rope(v):
+    a, b = v.chunk(2, dim=-1)
+    return torch.cat([a * cos - b * sin, b * cos + a * sin], dim=-1)
+
+  pos = torch.arange(S, device=dev)
+  causal = pos[None, :] <= pos[:, None]
+  slide = causal & (pos[None, :] > pos[:, None] - cfg.sliding_window)
+  h = params["embed"][x].float() * torch.tensor(math.sqrt(cfg.dim), dtype=torch.bfloat16).item()
+  for i in range(lay["wq"].shape[0]):
+    p = {k: v[i] for k, v in lay.items()}
+    a = rms(h, p["attn_norm"])
+    q = rope((a @ p["wq"].float()).view(S, H, hd))
+    k = rope((a @ p["wk"].float()).view(S, Hkv, hd)).repeat_interleave(H // Hkv, dim=1)
+    v = (a @ p["wv"].float()).view(S, Hkv, hd).repeat_interleave(H // Hkv, dim=1)
+    s = torch.einsum("qhd,khd->hqk", q, k) / math.sqrt(cfg.query_pre_attn_scalar)
+    s = cfg.attn_logit_softcap * torch.tanh(s / cfg.attn_logit_softcap)
+    mask = slide if (window and float(p["is_sliding"]) > 0) else causal
+    s = torch.softmax(s.masked_fill(~mask[None], -math.inf), dim=-1)
+    o = torch.einsum("hqk,khd->qhd", s, v).reshape(S, H * hd)
+    del s, q, k, v
+    h = h + rms(o @ p["wo"].float(), p["post_attn_norm"])
+    m = rms(h, p["mlp_norm"])
+    g = torch.nn.functional.gelu(m @ p["w_gate"].float(), approximate="tanh") * (m @ p["w_up"].float())
+    h = h + rms(g @ p["w_down"].float(), p["post_mlp_norm"])
+  out = rms(h[-n_last:], params["final_norm"]) @ params["embed"].float().T
+  return cfg.final_logit_softcap * torch.tanh(out / cfg.final_logit_softcap)
+
+
+def _gemma_chat(stream: bool, content=None, max_tokens: int = GEMMA_ANSWER, **extra) -> dict:
+  return {"model": GEMMA_MODEL, "messages": [{"role": "user", "content": content or CHAT[0]["content"]}], "stream": stream, "temperature": 0, "max_tokens": max_tokens, **extra}
+
+
+def _attn_ms(torch, cfg, Sq: int, offset: int, cache: int, sliding: bool) -> float:
+  """Device ms of one layer's plain attention (``gqa_attention`` with the
+  config's options) at Sq queries from ``offset`` over a ``cache``-slot
+  bf16 cache: what a gemma2 step or prefill spends on attention per layer."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import _attn_opts
+  from xotorch_support_jetson_tpu_torch.ops.attention import gqa_attention
+
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+  q = _rand(torch, (1, Sq, cfg.n_heads, cfg.head_dim), gen, torch.bfloat16)
+  k, v = (_rand(torch, (1, cache, cfg.n_kv_heads, cfg.head_dim), gen, torch.bfloat16) for _ in range(2))
+  qpos = torch.arange(offset, offset + Sq, dtype=torch.int32, device="cuda")[None]
+  kvpos = torch.arange(cache, dtype=torch.int32, device="cuda")
+  opts = _attn_opts(cfg, torch.tensor(1.0 if sliding else 0.0, device="cuda"))
+  ms = _cuda_ms(torch, lambda: gqa_attention(q, k, v, qpos, kvpos, **opts), iters=5, warmup=1)
+  del q, k, v
+  return ms
+
+
+def phase_gemma2(torch, ckpt: Path, smi: str):
+  """gemma-2-9b at full width and depth through the daemon: solo bf16
+  (captured, ``XOT_TPU_MAX_SEQ`` 8192) then batched at the defaults on the
+  same engine, then solo with ``XOT_TPU_QUANT=int4``."""
+  from xotorch_support_jetson_tpu_torch import main as tmain
+
+  out = {}
+  args, port = _daemon_args(tmain, ckpt, model=GEMMA_MODEL)
+  os.environ["XOT_TPU_MAX_SEQ"] = str(GEMMA_MAX_SEQ)
+  try:
+    out["bf16"] = asyncio.run(_gemma_bf16(torch, tmain, args, port, smi))
+  finally:
+    for knob in ("XOT_TPU_MAX_SEQ", "XOT_TPU_BATCHED", "XOT_TPU_BATCH_SLOTS", "XOT_TPU_PAGE_SIZE"):
+      os.environ.pop(knob, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+  args, port = _daemon_args(tmain, ckpt, model=GEMMA_MODEL)
+  os.environ["XOT_TPU_QUANT"] = "int4"
+  try:
+    out["int4"] = asyncio.run(_gemma_int4(torch, tmain, args, port))
+  finally:
+    os.environ.pop("XOT_TPU_QUANT", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+  return out
+
+
+def _gemma_launches() -> dict:
+  return {n: _launched(n) for n in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
+
+
+async def _gemma_up(torch, tmain, args, port, label):
+  from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+
+  node, api, engine, _ = tmain.build_components(args, tokenizer=ByteTokenizer())
+  if engine.device.type != "cuda":
+    raise SystemExit("chip_smoke: [gemma2] the engine did not choose the card")
+  if os.getenv("XOT_TPU_MAX_SEQ"):
+    # The engine module read XOT_TPU_MAX_SEQ when this process imported it
+    # (the llama phases); a daemon process started with the knob has this.
+    engine.max_seq_len = int(os.environ["XOT_TPU_MAX_SEQ"])
+  await node.start()  # as main.async_main: the SLO engine ticks for the batched pass
+  server = await api.run(host="127.0.0.1", port=port)
+  t0 = time.perf_counter()
+  await engine.ensure_shard(Shard(GEMMA_MODEL, 0, GEMMA_2_9B["num_hidden_layers"] - 1, GEMMA_2_9B["num_hidden_layers"]))
+  torch.cuda.synchronize()
+  load_s = time.perf_counter() - t0
+  cfg = engine.cfg
+  if cfg.family != "gemma2" or cfg.plain_attention or cfg.sliding_window != 4096 or cfg.head_dim != 256:
+    raise SystemExit(f"chip_smoke: [gemma2] the loaded config is not gemma2's: {cfg}")
+  log(f"[gemma2] {label} daemon up on 127.0.0.1:{port}; {sum(t.numel() * t.element_size() for t in _leaves(engine.params)) / 1e9:.2f} GB of weights loaded to the card in {load_s:.1f} s; device memory allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+  return node, server, engine, load_s
+
+
+def _leaves(params):
+  for v in params.values():
+    yield from (_leaves(v) if isinstance(v, dict) else [v])
+
+
+async def _gemma_down(node, server, engine):
+  await node.stop()
+  server.close()
+  await server.wait_closed()
+  engine.executor.shutdown(wait=True)
+
+
+def _no_attention_kernels(label: str, launches: dict) -> None:
+  """K1, K2 and K3 implement no softcap or window: gemma2 attends through
+  the plain route everywhere, as the reference routes it."""
+  if launches["flash_prefill"] or launches["flash_decode"] or launches["paged_decode"]:
+    raise SystemExit(f"chip_smoke: [gemma2] {label}: an attention kernel launched on gemma2 ({launches})")
+
+
+async def _gemma_bf16(torch, tmain, args, port, smi):
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  node, server, engine, load_s = await _gemma_up(torch, tmain, args, port, "bf16")
+  res = dict(load_s=load_s, card=smi)
+  try:
+    cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+    log(f"[gemma2] config: google/gemma-2-9b's published shapes (hidden 3584, 42 layers, 16/8 heads, head_dim 256, ffn 14336, vocab 256000, query_pre_attn_scalar 256, softcaps 50/30, sliding_window 4096, rms eps 1e-6, tied), random bf16 weights; bos/eos/pad written as the byte tokenizer's 128000/128009/128009 (the published 2/1/0 are bytes here); serving cap {engine.max_seq_len}")
+    await _serve_requests(torch, node, engine, port, [("warmup", _gemma_chat(False, max_tokens=8))])
+    long_ids, long_content = gemma_long_prompt()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # ---- the solo gemma2 path, counted
+    fam0 = programs.ledger.snapshot()["families"]
+    chat = await _serve_requests(torch, node, engine, port, [("greedy blocking", _gemma_chat(False)), ("greedy streaming", _gemma_chat(True))])
+    t_long = time.perf_counter()
+    long = await _serve_requests(torch, node, engine, port, [("long greedy blocking", _gemma_chat(False, long_content, GEMMA_LONG_ANSWER)), ("long greedy streaming", _gemma_chat(True, long_content, GEMMA_LONG_ANSWER))])
+    long_s = time.perf_counter() - t_long
+    peak_long = torch.cuda.max_memory_allocated()
+    lp_ids: dict[str, list[int]] = {}
+    node.on_token.register("chip_smoke_lp").on_next(lambda rid, toks, fin: lp_ids.setdefault(rid, []).extend(toks))
+    try:
+      st, raw = await asyncio.to_thread(_http, port, "POST", "/v1/chat/completions", _gemma_chat(False, max_tokens=16, logprobs=True, top_logprobs=5))
+    finally:
+      node.on_token.deregister("chip_smoke_lp")
+    engine.spec_decode, engine._spec_ngram_on = "ngram", True  # the n-gram chain for one request (XOT_TPU_SPEC_DECODE=ngram)
+    try:
+      rep = "the fox jumps over the dog. " * 24
+      ngram = await _serve_requests(torch, node, engine, port, [("n-gram greedy streaming", _gemma_chat(True, rep, 48))])
+    finally:
+      engine.spec_decode, engine._spec_ngram_on = None, False
+    plain_rep = await _serve_requests(torch, node, engine, port, [("plain greedy blocking (the n-gram prompt)", _gemma_chat(False, rep, 48))])
+    launches = _gemma_launches()  # ---- read just after
+    fam1 = programs.ledger.snapshot()["families"]
+    _no_attention_kernels("solo bf16", launches)
+    for a, b, what in ((chat[0], chat[1], "chat"), (long[0], long[1], "long prompt")):
+      if a["tokens"] != b["tokens"]:
+        raise SystemExit(f"chip_smoke: [gemma2] {what}: greedy blocking and streaming differ:\n{a['tokens']}\n{b['tokens']}")
+    if st != 200:
+      raise SystemExit(f"chip_smoke: [gemma2] logprobs: HTTP {st} {raw[:300]}")
+    data = json.loads(raw)
+    lp = data["choices"][0]["logprobs"]
+    check_lp = _check_logprobs("gemma2 chat", lp, lp_ids[data["id"].split("-", 1)[1]], {ByteTokenizer.eos_token_id}, ByteTokenizer().decode, True) if lp else None
+    spec_n = fam1.get("spec.batch", {}).get("dispatches", 0) - fam0.get("spec.batch", {}).get("dispatches", 0)
+    scored = fam1.get("prefill.score_last", {}).get("dispatches", 0) - fam0.get("prefill.score_last", {}).get("dispatches", 0)
+    if check_lp is None or scored != 1 or spec_n < 1:
+      raise SystemExit(f"chip_smoke: [gemma2] logprobs {check_lp}, {scored} prefill.score_last dispatches, {spec_n} n-gram chunks (spec.batch dispatches)")
+    agree = _agreement(ngram[0]["tokens"], plain_rep[0]["tokens"])
+    res.update(
+      launches=launches, chat_tokens=chat[0]["tokens"], decode_tok_s=_decode_rate(chat[1]), ttft_s=chat[1]["ttft_s"], long_ttft_s=long[1]["ttft_s"], long_decode_tok_s=_decode_rate(long[1]),
+      long_tokens=long[0]["tokens"], long_requests_s=long_s, peak_allocated_long=peak_long, logprobs=check_lp, ngram_chunks=spec_n, ngram_agreement=agree,
+      ngram_decode_tok_s=_decode_rate(ngram[0]),
+    )
+    log(f"[gemma2] solo bf16: greedy blocking == streaming ({len(chat[0]['tokens'])} tokens; TTFT {chat[1]['ttft_s']:.4f} s, decode {res['decode_tok_s']:.1f} tok/s) | long prompt of {len(long_ids)} tokens (bucket 6016): blocking == streaming ({len(long[0]['tokens'])} tokens), TTFT {long[1]['ttft_s']:.4f} s, decode {res['long_decode_tok_s']:.1f} tok/s, peak device memory {peak_long / 1e9:.2f} GB | logprobs {check_lp} | n-gram chain: {spec_n} spec.batch dispatches, {res['ngram_decode_tok_s']:.1f} tok/s, ids agreeing with plain {agree:.3f} | launches {launches} (K1/K2/K3 none: the plain route) | {smi}")
+    # The served logits beyond position 4,096 against the plain f32 forward,
+    # with and without the window: the captured 6016 prefill's last token
+    # and one captured decode step after it.
+    served_pre, _ = engine._infer_tensor_sync("gemma-check", np.asarray([long_ids], np.int32), None)
+    nxt = int(np.argmax(served_pre[0]))
+    served_step, _ = engine._infer_tensor_sync("gemma-check", np.asarray([[nxt]], np.int32), None)
+    engine.end_request("gemma-check")
+    served = torch.from_numpy(np.stack([served_pre[0], served_step[0]])).cuda().float()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+      ref = gemma_plain_f32(torch, params, cfg, long_ids + [nxt])
+      ref_nowin = gemma_plain_f32(torch, params, cfg, long_ids + [nxt], window=False)
+    ref_s = time.perf_counter() - t0
+    err = [_rel_err(served[i], ref[i]) for i in range(2)]
+    err_nowin = [_rel_err(served[i], ref_nowin[i]) for i in range(2)]
+    win_vs_nowin = [_rel_err(ref_nowin[i], ref[i]) for i in range(2)]
+    res["check"] = dict(positions=[len(long_ids) - 1, len(long_ids)], rel_err=err, rel_err_without_window=err_nowin, f32_window_vs_no_window=win_vs_nowin, argmax_agree=[int(served[i].argmax()) == int(ref[i].argmax()) for i in range(2)], ref_s=ref_s)
+    log(f"[gemma2] served logits at positions {len(long_ids) - 1} (captured prefill) and {len(long_ids)} (captured step) against a plain f32 forward on the same weights: rel L2 {err[0]:.3e} / {err[1]:.3e} (limit {GEMMA_CHECK_TOL}); against the same forward without the window {err_nowin[0]:.3e} / {err_nowin[1]:.3e} (must exceed {GEMMA_CHECK_TOL}); f32 with vs without the window {win_vs_nowin[0]:.3e} / {win_vs_nowin[1]:.3e}; argmax agree {res['check']['argmax_agree']} ({ref_s:.1f} s for both f32 forwards)")
+    del ref, ref_nowin
+    if not max(err) < GEMMA_CHECK_TOL or not min(err_nowin) > GEMMA_CHECK_TOL:
+      raise SystemExit(f"chip_smoke: [gemma2] served logits: {res['check']}")
+    res["graphs"] = _gemma_graphs_against_eager(torch, engine, long_ids)
+    res["profile"] = _gemma_profile(torch, engine, long_ids, smi)
+    # Batched at the defaults on the same engine: its solo caches and their
+    # graphs go first (the page pool takes their room).
+    engine._cache_pool.clear()
+    engine._graph_pool = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["batched"] = await _gemma_batched(torch, node, engine, port, smi)
+    return res
+  finally:
+    await _gemma_down(node, server, engine)
+
+
+def _gemma_graphs_against_eager(torch, engine, long_ids):
+  """Captured equals eager on gemma2: the engine's captured 128-bucket
+  prefill and blocking / chunked greedy decode against the uncaptured
+  functions on a fresh cache of the same size (ids identical, prefill
+  logits within 5e-2 relative L2), and the captured 6016 bucket's logits
+  against an eager ``shard_forward`` of the long prompt."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import init_kv_cache, shard_forward
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  prompt = np.asarray([ByteTokenizer().encode(CHECK_PROMPT)], dtype=np.int32)
+  rows = []
+  for rnd, chunks in enumerate(((), (16, 16))):
+    want_logits, want = _eager_solo(torch, engine, prompt, 0.0, 0, chunks, cache=GEMMA_MAX_SEQ, steps=GEMMA_ANSWER)
+    got_logits, got = _captured_solo(torch, engine, f"gemma-graphs-{rnd}", prompt, 0.0, 0, chunks, steps=GEMMA_ANSWER)
+    err = _rel_err(got_logits.cuda(), want_logits)
+    rows.append(dict(kind="streaming" if chunks else "blocking", identical=got == want, prefill_rel_err=err))
+    if got != want or not err < 5e-2:
+      raise SystemExit(f"chip_smoke: [gemma2] captured differs from uncaptured ({rows[-1]}):\n{got}\n{want}")
+  S = len(long_ids)
+  pad_to = -(-S // 128) * 128
+  x = torch.zeros((1, pad_to), dtype=torch.int32, device="cuda")
+  x[0, :S] = torch.tensor(long_ids, device="cuda")
+  cache = init_kv_cache(cfg, cfg.n_layers, 1, GEMMA_MAX_SEQ, device="cuda")
+  torch.cuda.reset_peak_memory_stats()
+  base = torch.cuda.memory_allocated()
+  eager, _ = shard_forward(params, cfg, shard, x, torch.arange(pad_to, dtype=torch.int32, device="cuda")[None], cache, head_pos=torch.tensor([S - 1], device="cuda"))
+  eager_peak = torch.cuda.max_memory_allocated() - base
+  del cache
+  captured, _ = engine._infer_tensor_sync("gemma-long-graph", np.asarray([long_ids], np.int32), None)
+  engine.end_request("gemma-long-graph")
+  err_long = _rel_err(torch.from_numpy(captured).cuda(), eager[:, 0])
+  graphs = [g for free in engine._cache_pool.values() for p in free for g in p.graphs()]
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  pool = programs.pool_bytes(engine._graph_pool)
+  log(f"[gemma2] captured against uncaptured: {rows}; the captured 6016 bucket's logits within {err_long:.3e} rel L2 of an eager shard_forward (eager peak {eager_peak / 1e9:.2f} GB above what was allocated) | {len(graphs)} graphs, the engine's graph pool {pool} bytes, kernel nodes {[(g.family, g.kernel_nodes, round(g.capture_s, 3)) for g in graphs]}")
+  if not err_long < 5e-2:
+    raise SystemExit(f"chip_smoke: [gemma2] the captured long prefill differs from eager: {err_long}")
+  return dict(rows=rows, long_rel_err=err_long, eager_long_peak_bytes=eager_peak, graph_pool_bytes=pool, graphs=[(g.family, g.kernel_nodes, g.capture_s) for g in graphs])
+
+
+def _gemma_profile(torch, engine, long_ids, smi):
+  """Where a gemma2 step's device time goes: the captured decode step at
+  position 6000 of the 8192-slot cache (wall and device ms,
+  ``_replay_ms``), one layer's plain attention at that step on a sliding
+  and a global layer (``_attn_ms``) times 21 each against it; the same for
+  the served 6016 prefill (its device time from torch.profiler)."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import fused_decode
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  session = engine._new_session("gemma-profile", 1)
+  progs = session.programs
+  try:
+    n = GRAPH_PROFILE_STEPS
+    wall, device = _replay_ms(torch, lambda: fused_decode(params, cfg, shard, 65, progs.cache, 6000, n, programs=progs), n)
+  finally:
+    engine.end_request("gemma-profile")
+  half = cfg.n_layers // 2
+  step_attn = half * (_attn_ms(torch, cfg, 1, 6000, GEMMA_MAX_SEQ, True) + _attn_ms(torch, cfg, 1, 6000, GEMMA_MAX_SEQ, False))
+
+  def prefill():
+    engine._infer_tensor_sync("gemma-profile-long", np.asarray([long_ids], np.int32), None)
+    engine.end_request("gemma-profile-long")
+
+  prof = _profile(torch, "gemma2 prefill (6000-token prompt, 6016 bucket, captured)", prefill, 2)
+  pre_attn = half * (_attn_ms(torch, cfg, 6016, 0, GEMMA_MAX_SEQ, True) + _attn_ms(torch, cfg, 6016, 0, GEMMA_MAX_SEQ, False))
+  res = dict(
+    step_wall_ms=wall, step_device_ms=device, step_attention_ms=step_attn, step_attention_share=step_attn / device,
+    prefill_wall_ms=prof["wall_ms"], prefill_device_ms=prof["device_ms"], prefill_attention_ms=pre_attn, prefill_attention_share=pre_attn / prof["device_ms"] if prof["device_ms"] else None,
+  )
+  log(f"[profile] gemma2 decode step at position 6000 of {GEMMA_MAX_SEQ} slots (captured): wall {wall:.3f} ms, device {device:.3f} ms; plain attention {step_attn:.3f} ms of it (42 layers, from one layer's time on a sliding and a global layer: share {res['step_attention_share']:.3f}) | {smi}")
+  share = "not measured (no device events)" if res["prefill_attention_share"] is None else f"{res['prefill_attention_share']:.3f}"
+  log(f"[profile] gemma2 prefill of 6000 tokens (6016 bucket, captured): wall {prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} ms; plain attention {pre_attn:.3f} ms (share {share}) | {smi}")
+  return res
+
+
+async def _gemma_batched(torch, node, engine, port, smi):
+  """gemma2 on the batched server at its defaults (n-gram speculation,
+  QoS, mixed ticks; 8 slots, 64-token pages) on the solo daemon's engine:
+  the 16 streams of ``batched_bodies`` in two waves. Gates: every request
+  ends with all its tokens, spec and mixed dispatches ran, decode chunks
+  took the gather route, and K1/K2/K3 never launched."""
+  from concurrent.futures import ThreadPoolExecutor
+
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, int4_matmul as k4, paged
+  from xotorch_support_jetson_tpu_torch.utils import programs
+  from xotorch_support_jetson_tpu_torch.utils.metrics import metrics, snapshot_delta
+
+  os.environ.update(XOT_TPU_BATCHED="1", XOT_TPU_BATCH_SLOTS=str(BATCH_SLOTS), XOT_TPU_PAGE_SIZE=str(PAGE))
+  programs.ledger.reset()
+  clients = ThreadPoolExecutor(max_workers=16)
+  loop = asyncio.get_running_loop()
+  ids: dict[str, list[int]] = {}
+  node.on_token.register("chip_smoke_gemma").on_next(lambda rid, toks, fin: ids.setdefault(rid, []).extend(toks))
+  try:
+    await loop.run_in_executor(clients, _post, port, _gemma_chat(True, "warm up", 9))
+    bserver = engine.get_batched_server()
+    slices, spec_records = [], []
+    unspy, unspy_spec = _spy_mixed(engine, fa, paged, slices), _spy_spec(engine, paged, k4, spec_records)
+    bodies = [dict(b, model=GEMMA_MODEL) for b in batched_bodies()]
+    snap0 = metrics.snapshot()
+    _reset_launches()  # ---- the batched gemma2 pass, counted
+    t0 = time.perf_counter()
+    before = set(ids)
+    first = [loop.run_in_executor(clients, _post, port, b) for b in bodies[:8]]
+    while sum(1 for rid, t in list(ids.items()) if t and rid not in before) < BATCH_SLOTS:
+      if time.perf_counter() - t0 > 300 or any(f.done() and f.exception() is not None for f in first):
+        raise SystemExit(f"chip_smoke: [gemma2] batched: the first wave's rows did not all stream ({[repr(f.exception()) for f in first if f.done() and f.exception() is not None]})")
+      await asyncio.sleep(0.005)
+    replies = await asyncio.gather(*first, *(loop.run_in_executor(clients, _post, port, b) for b in bodies[8:]))
+    wall = time.perf_counter() - t0
+    unspy()
+    unspy_spec()
+    launches = _gemma_launches()  # ---- read just after
+    delta = snapshot_delta(snap0, metrics.snapshot())
+    chunks = {path: n for path, n in _by_label(delta, "decode_chunks_total", "path").items() if n}  # the registry keeps earlier passes' paths at 0
+    toks = []
+    for (_, finish, ttft, total, _, rid), b in zip(replies, bodies):
+      n = len(ids.get(rid, []))
+      if not n or n > b["max_tokens"] or finish not in ("stop", "length") or (finish == "length" and n != b["max_tokens"]):
+        raise SystemExit(f"chip_smoke: [gemma2] batched: request {rid} gave {n} of {b['max_tokens']} tokens, finish {finish}")
+      toks.append(n)
+    _no_attention_kernels("batched", launches)
+    if not spec_records or not slices or set(chunks) - {"gather", "spec"} or bserver.decode_path != "gather":
+      raise SystemExit(f"chip_smoke: [gemma2] batched: {len(spec_records)} spec and {len(slices)} mixed dispatches, decode chunks by path {chunks}, decode path {bserver.decode_path}")
+    ttfts = [r[2] for r in replies]
+    res = dict(
+      requests=len(replies), tokens=sum(toks), wall_s=wall, aggregate_tok_s=sum(toks) / wall, ttft_p50_s=_pctl(ttfts, 0.5), ttft_p95_s=_pctl(ttfts, 0.95),
+      spec_dispatches=len(spec_records), mixed_dispatches=len(slices), chunks_by_path=chunks, launches=launches, pool_pages=bserver.allocator.n_pages,
+      accepted=_by_label(delta, "spec_accepted_tokens_total", "proposer"), proposed=_by_label(delta, "spec_proposed_tokens_total", "proposer"),
+      captures=sum(f["captures"] for f in programs.ledger.snapshot()["families"].values()), capture_s=sum(f["capture_s"] for f in programs.ledger.snapshot()["families"].values()),
+    )
+    log(f"[gemma2] batched at the defaults: {len(replies)} streaming requests, {res['tokens']} tokens in {wall:.3f} s: aggregate {res['aggregate_tok_s']:.1f} tok/s | TTFT p50 {res['ttft_p50_s']:.4f} s p95 {res['ttft_p95_s']:.4f} s | {len(spec_records)} spec dispatches (accepted {res['accepted']} of proposed {res['proposed']}), {len(slices)} mixed dispatches, decode chunks by path {chunks}, decode path {bserver.decode_path} | {res['captures']} captures ({res['capture_s']:.1f} s) | pool {res['pool_pages']} pages | launches {launches} | {smi}")
+    engine._drop_batched_server()
+    return res
+  finally:
+    node.on_token.deregister("chip_smoke_gemma")
+    await asyncio.to_thread(clients.shutdown, True)
+    for knob in ("XOT_TPU_BATCHED", "XOT_TPU_BATCH_SLOTS", "XOT_TPU_PAGE_SIZE"):
+      os.environ.pop(knob, None)
+
+
+async def _gemma_int4(torch, tmain, args, port):
+  """gemma-2-9b with ``XOT_TPU_QUANT=int4`` (quantized on the card at
+  load, the tied head's quantized copy included): greedy blocking and
+  streaming ids equal, K4 once per quantized product per forward (7 a
+  layer and the head: 295), no non-kernel int4 product, no attention
+  kernel."""
+  from xotorch_support_jetson_tpu_torch.ops import int4_matmul as k4
+
+  node, server, engine, load_s = await _gemma_up(torch, tmain, args, port, "int4")
+  try:
+    per_forward = 7 * engine.cfg.n_layers + 1
+    if "lm_head_scale" not in engine.params:
+      raise SystemExit("chip_smoke: [gemma2] int4: the tied head has no quantized copy")
+    await _serve_requests(torch, node, engine, port, [("warmup", _gemma_chat(False, max_tokens=8))])
+    two_dot0 = k4.CALLS["int4_two_dot"]
+    _reset_launches()  # ---- the int4 gemma2 path, counted
+    run = await _serve_requests(torch, node, engine, port, [("int4 greedy blocking", _gemma_chat(False)), ("int4 greedy streaming", _gemma_chat(True))])
+    launches = _gemma_launches()  # ---- read just after
+    two_dot = k4.CALLS["int4_two_dot"] - two_dot0
+    _no_attention_kernels("int4", launches)
+    if run[0]["tokens"] != run[1]["tokens"]:
+      raise SystemExit(f"chip_smoke: [gemma2] int4: greedy blocking and streaming differ:\n{run[0]['tokens']}\n{run[1]['tokens']}")
+    if launches["int4_matmul"] == 0 or launches["int4_matmul"] % per_forward or two_dot:
+      raise SystemExit(f"chip_smoke: [gemma2] int4: K4 launches {launches['int4_matmul']} (not a multiple of {per_forward} per forward), {two_dot} int4_two_dot calls")
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(engine.params))
+    res = dict(load_s=load_s, launches=launches, per_forward=per_forward, forwards=launches["int4_matmul"] // per_forward, weight_bytes=weight_bytes, tokens=run[0]["tokens"], ttft_s=run[1]["ttft_s"], decode_tok_s=_decode_rate(run[1]))
+    log(f"[gemma2] solo int4 weights ({weight_bytes / 1e9:.2f} GB on the card): greedy blocking == streaming ({len(run[0]['tokens'])} tokens), TTFT {res['ttft_s']:.4f} s, decode {res['decode_tok_s']:.1f} tok/s | K4 {launches['int4_matmul']} launches = {res['forwards']} forwards × {per_forward} | launches {launches}")
+    return res
+  finally:
+    await _gemma_down(node, server, engine)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3022,24 +3552,24 @@ def phase_graphs(torch, ckpt: Path, draft_dir: Path, smi: str):
   return out
 
 
-def _eager_solo(torch, engine, prompt, temp, seed, chunks):
-  """The uncaptured path on a fresh cache: the prefill (``shard_forward``
-  at the 128 bucket), then ``fused_generate`` (blocking) or ``fused_decode``
-  chunks (streaming) from the argmax token, sampling from a generator
-  seeded ``seed``."""
+def _eager_solo(torch, engine, prompt, temp, seed, chunks, cache=CACHE, steps=MAX_TOKENS):
+  """The uncaptured path on a fresh cache of ``cache`` slots: the prefill
+  (``shard_forward`` at the 128 bucket), then ``fused_generate`` of
+  ``steps`` (blocking) or ``fused_decode`` chunks (streaming) from the
+  argmax token, sampling from a generator seeded ``seed``."""
   from xotorch_support_jetson_tpu_torch.models.decoder import fused_decode, fused_generate, init_kv_cache, shard_forward
 
   cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
   L = prompt.shape[1]
   pad = torch.zeros((1, 128), dtype=torch.int32, device="cuda")
   pad[:, :L] = torch.from_numpy(prompt).cuda()
-  cache = init_kv_cache(cfg, cfg.n_layers, 1, CACHE, device="cuda")
+  cache = init_kv_cache(cfg, cfg.n_layers, 1, cache, device="cuda")
   logits, _ = shard_forward(params, cfg, shard, pad, torch.arange(128, dtype=torch.int32, device="cuda")[None], cache, head_pos=torch.tensor([L - 1], device="cuda"))
   first = int(torch.argmax(logits[0, 0]))
   gen = torch.Generator(device="cuda").manual_seed(seed)
   tok = torch.tensor([[first]], dtype=torch.int32, device="cuda")
   if not chunks:
-    buf, n, _ = fused_generate(params, cfg, shard, tok, cache, torch.tensor([L], dtype=torch.int32, device="cuda"), MAX_TOKENS, (), temp=temp, top_k=35, generator=gen, n_limit=MAX_TOKENS)
+    buf, n, _ = fused_generate(params, cfg, shard, tok, cache, torch.tensor([L], dtype=torch.int32, device="cuda"), steps, (), temp=temp, top_k=35, generator=gen, n_limit=steps)
     return logits[:, 0, :], [first] + buf[0, :n].tolist()
   toks, pos = [], L
   for n in chunks:
@@ -3049,14 +3579,14 @@ def _eager_solo(torch, engine, prompt, temp, seed, chunks):
   return logits[:, 0, :], [first] + toks
 
 
-def _captured_solo(torch, engine, rid, prompt, temp, seed, chunks):
+def _captured_solo(torch, engine, rid, prompt, temp, seed, chunks, steps=MAX_TOKENS):
   """The same through the engine's own entry points: the captured prefill,
   then ``generate_oneshot``'s or ``dispatch_chunk``'s captured steps."""
   out, _ = engine._infer_tensor_sync(rid, prompt, None)
   first = int(np.argmax(out[0]))
   engine.generator.manual_seed(seed)
   if not chunks:
-    toks = engine._generate_oneshot_sync(rid, first, MAX_TOKENS, (), temp, 35)
+    toks = engine._generate_oneshot_sync(rid, first, steps, (), temp, 35)
   else:
     handles = [engine._dispatch_chunk_sync(rid, chunks[0], temp, 35, first)] + [engine._dispatch_chunk_sync(rid, n, temp, 35, None) for n in chunks[1:]]
     toks = [t for h in handles for t in engine._read_chunk_sync(h)]
@@ -3067,10 +3597,11 @@ def _captured_solo(torch, engine, rid, prompt, temp, seed, chunks):
 def graphs_against_eager(torch, engine, mode):
   """Greedy and seeded sampled (temp 0.6, top_k 35) transcripts, blocking
   (64 tokens) and streaming (two 32-token chunks), captured against
-  uncaptured, twice: the first round builds every graph, the second only
-  replays. Transcripts must be token-identical; the captured prefill's
-  logits must be within the serving phase's 5e-2 relative L2 of the
-  uncaptured ones."""
+  uncaptured: the first round builds every graph with all four, the
+  second only replays, with greedy streaming and sampled blocking (each
+  graph replayed at least once). Transcripts must be token-identical; the
+  captured prefill's logits must be within the serving phase's 5e-2
+  relative L2 of the uncaptured ones."""
   from xotorch_support_jetson_tpu_torch.utils import programs
 
   prompt = np.asarray([ByteTokenizer().encode(CHECK_PROMPT)], dtype=np.int32)
@@ -3079,6 +3610,8 @@ def graphs_against_eager(torch, engine, mode):
   for rnd in range(2):
     for temp, seed in ((0.0, 0), (0.6, SEED + 100 + rnd)):
       for chunks in ((), (32, 32)):
+        if rnd == 1 and (temp == 0.0) != bool(chunks):
+          continue
         kind = "streaming" if chunks else "blocking"
         want_logits, want = _eager_solo(torch, engine, prompt, temp, seed, chunks)
         got_logits, got = _captured_solo(torch, engine, f"graphs-{mode}-{rnd}-{temp}-{kind}", prompt, temp, seed, chunks)
@@ -3093,7 +3626,7 @@ def graphs_against_eager(torch, engine, mode):
   nodes = {f"{g.family}:{'prefill' if g.family == 'decode.shard_forward' else 'step'}": g.kernel_nodes for g in graphs}
   launches = {n: _launched(n) for n in ("flash_prefill", "flash_decode", "int4_matmul")}
   replayed = dict(programs.REPLAYED)
-  log(f"[graphs] {mode}: {len(rows)} transcripts (greedy and sampled at temp 0.6 / top_k 35, blocking and streaming, build round and replay round) token-identical to the uncaptured functions; prefill logits rel err max {worst:.3e}; {len(graphs)} graphs on {len(programs_)} pooled cache(s), kernel nodes {nodes}; launches {launches}, of which in replays {replayed}")
+  log(f"[graphs] {mode}: {len(rows)} transcripts (greedy and sampled at temp 0.6 / top_k 35, blocking and streaming in the build round, greedy streaming and sampled blocking in the replay round) token-identical to the uncaptured functions; prefill logits rel err max {worst:.3e}; {len(graphs)} graphs on {len(programs_)} pooled cache(s), kernel nodes {nodes}; launches {launches}, of which in replays {replayed}")
   if launches["flash_prefill"] == 0 or replayed.get("flash_prefill", 0) == 0:
     raise SystemExit(f"chip_smoke: [graphs] {mode}: K1 did not run inside a prefill replay ({launches}, {replayed})")
   if mode == "int4" and replayed.get("int4_matmul", 0) == 0:
@@ -3134,7 +3667,9 @@ def profile_graphs(torch, engine, mode, smi):
   ``programs``: ``_profile``, whose device time is torch.profiler's sum of
   device events — an eager call's ~1,300 launches overflow the launch
   queue, so events behind a spin would time the host). torch.profiler's
-  device sum over the replays is reported too, where it sees them."""
+  device sum over the replays is reported too, where it sees them. Only
+  the bf16 mode profiles (captured and eager); the other modes time their
+  replays alone."""
   from xotorch_support_jetson_tpu_torch.models.decoder import fused_decode, init_kv_cache, shard_forward
 
   cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
@@ -3159,12 +3694,16 @@ def profile_graphs(torch, engine, mode, smi):
   try:
     for what, (steps, captured, eager) in fns.items():
       cw, cd = _replay_ms(torch, captured, steps)
+      unit = "128-token prefill" if what == "prefill" else "decode step"
+      if mode != "bf16":
+        res[what] = dict(captured_wall_ms=cw, captured_device_ms=cd)
+        log(f"[profile] graphs {mode} {unit}: captured wall {cw:.3f} ms, device {cd:.3f} ms (wall/device {cw / cd:.2f}) | {smi}")
+        continue
       cp = _profile(torch, f"graphs {mode} {what} (captured, {steps} replay(s) a call)", captured, 3)
       ep = _profile(torch, f"graphs {mode} {what} (eager, {steps} step(s) a call)", eager, 3)
       ew, ed = ep["wall_ms"] / steps, ep["device_ms"] / steps
       prof = cp["device_ms"] / steps if cp["device_ms"] else None
       res[what] = dict(captured_wall_ms=cw, captured_device_ms=cd, captured_profiler_device_ms=prof, eager_wall_ms=ew, eager_device_ms=ed, eager_launches=ep["launches"] / steps)
-      unit = "128-token prefill" if what == "prefill" else "decode step"
       seen = "not measured (no device events)" if prof is None else f"{prof:.3f} ms"
       log(f"[profile] graphs {mode} {unit}: captured wall {cw:.3f} ms, device {cd:.3f} ms (wall/device {cw / cd:.2f}; profiler's device sum {seen}) | eager wall {ew:.3f} ms, device {ed:.3f} ms (wall/device {ew / ed:.2f}, {ep['launches'] / steps:.0f} launches) | {smi}")
   finally:
@@ -3271,7 +3810,7 @@ def kernels_in_replay(torch):
   return res
 
 
-SPEC_GRAPH_ROUNDS = 3  # captured against uncaptured: a round that builds the graphs, two that replay them on refilled buffers
+SPEC_GRAPH_ROUNDS = 2  # captured against uncaptured: a round that builds the graphs, one that replays them on refilled buffers
 
 
 def spec_graphs(torch, ckpt: Path, draft_dir: Path, smi: str):
@@ -3979,7 +4518,7 @@ def main() -> int:
   smi = phase_device(torch)
   build_s = timed("build", phase_build)
   kern = timed("kernels", phase_kernels, torch)
-  ckpt, draft_dir = ROOT / "build" / "smoke_ckpt", ROOT / "build" / "smoke_draft"
+  ckpt, draft_dir, gemma_dir = ROOT / "build" / "smoke_ckpt", ROOT / "build" / "smoke_draft", ROOT / "build" / "smoke_gemma2"
   try:
     write_s = write_checkpoint(torch, ckpt)
     log(f"[serving] wrote a random bf16 llama-3.2-1b checkpoint ({sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9:.2f} GB) in {write_s:.1f} s")
@@ -3997,9 +4536,14 @@ def main() -> int:
     tiered = timed("tiered", phase_tiered, torch, ckpt)
     batched = timed("batched", phase_batched, torch, ckpt)
     processes = timed("processes", phase_processes, ckpt)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    write_s = timed("gemma2 checkpoint", write_gemma_checkpoint, torch, gemma_dir)
+    log(f"[gemma2] wrote a random bf16 gemma-2-9b checkpoint ({sum(f.stat().st_size for f in gemma_dir.iterdir()) / 1e9:.2f} GB, full width and depth) in {write_s:.1f} s")
+    gemma = timed("gemma2", phase_gemma2, torch, gemma_dir, smi)
   finally:
     shutil.rmtree(ckpt, ignore_errors=True)
     shutil.rmtree(draft_dir, ignore_errors=True)
+    shutil.rmtree(gemma_dir, ignore_errors=True)
   # Launches per kernel on each main path (the tiered multi-turn pass with
   # the tier on is "batched_tiered": K1, K3): the solo bf16 daemon run (K1,
   # K2), the solo quantized runs (K1; K4 under int4 weights), the solo
@@ -4014,7 +4558,9 @@ def main() -> int:
   # those passes, so the total does not count it twice. "solo_api" is the
   # API phase on the solo daemon (K1 in its prefills and once per layer in
   # each logprobs scoring forward), "batched_api" the batched logprobs
-  # request (K1, K3).
+  # request (K1, K3). The gemma2 paths: "gemma2" is the solo bf16 daemon's
+  # counted requests and its batched pass (no K1-K3: the plain route),
+  # "gemma2_int4" the int4-weights daemon (K4).
   bp = batched["passes"]
   paths = {
     "solo": [serving["launches"]], "solo_long_prompt": [serving["long"]["launches"]], "solo_quant": [q["launches"] for q in quant.values()],
@@ -4024,6 +4570,7 @@ def main() -> int:
     "solo_spec_ceiling": [spec[k]["launches"] for k in ECHO_PASSES],
     "batched_spec": [p["spec"]["launches"] for p in [*bp.values(), *batched_int4["passes"].values()]],
     "solo_graphs": [graphs["daemon"]["launches"]], "solo_api": [graphs["daemon"]["api"]["launches"]], "batched_api": [batched["logprobs"]["launches"]],
+    "gemma2": [gemma["bf16"]["launches"], gemma["bf16"]["batched"]["launches"]], "gemma2_int4": [gemma["int4"]["launches"]],
   }
   by_path = {name: {path: sum(x.get(name, 0) for x in runs) for path, runs in paths.items()} for name in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
   for name in ("flash_prefill", "paged_decode"):
@@ -4051,10 +4598,12 @@ def main() -> int:
     {**entry("paged_decode", "xotorch_support_jetson_tpu_torch/csrc/paged_decode.cu", "xotorch_support_jetson_tpu/ops/paged.py:236", kern["paged_decode"] + kern["paged_window"], 12),
      "verify_window": {k: kern["paged_window"][0][k] for k in ("B", "W", "starts", "kv", "ms", "w1_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
     # Head row: one MLP projection (in 2048, out 8192) at T=1, solo decode;
-    # the per-step sums are in chip_smoke.json's int4_matmul_bound.
-    entry("int4_matmul", "xotorch_support_jetson_tpu_torch/csrc/int4_matmul.cu", "xotorch_support_jetson_tpu/ops/pallas_int4.py:36", kern["int4_matmul"], k4_head),
+    # the per-step sums are in chip_smoke.json's int4_matmul_bound. The
+    # gemma-2-9b rows (T=1) count toward the error too.
+    {**entry("int4_matmul", "xotorch_support_jetson_tpu_torch/csrc/int4_matmul.cu", "xotorch_support_jetson_tpu/ops/pallas_int4.py:36", kern["int4_matmul"] + kern["int4_matmul_gemma2"], k4_head),
+     "gemma2_rows": [{k: r[k] for k in ("weight", "T", "d_in", "d_out", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["int4_matmul_gemma2"]]},
   ]}
-  record = dict(card=smi, phase_s=phase_s, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, processes=processes, summary=kernels_line)
+  record = dict(card=smi, phase_s=phase_s, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, processes=processes, gemma2=gemma, summary=kernels_line)
   out = ROOT / "chiprun_out"
   out.mkdir(exist_ok=True)
   (out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=float))

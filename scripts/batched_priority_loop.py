@@ -5,8 +5,9 @@
 The batched daemon at its defaults (8 slots, 64-token pages, llama-3.2-1b's
 published shapes with seeded random bf16 weights, as in ``chip_smoke.py``)
 serves the priority pass ``passes`` times, each on a fresh server as
-``chip_smoke.py`` builds one per pass: 12 ``batch`` requests, then 4
-``interactive`` ones once eight rows stream. A pass fails when a request
+``chip_smoke.py`` builds one per pass: 12 ``batch`` requests (answers of
+``chip_smoke.PRIORITY_BATCH_TOKENS``), then 4 ``interactive`` ones once
+eight rows stream. A pass fails when a request
 answers an HTTP error, a row ends short of its tokens, or no row was
 preempted. The server's error bodies and, with ``DEBUG=1`` (set here unless
 the caller sets it), the tracebacks the API and the scheduler print go to
@@ -36,7 +37,7 @@ async def _loop(torch, ckpt: Path, n_passes: int) -> list[dict]:
   from xotorch_support_jetson_tpu_torch.inference.shard import Shard
   from xotorch_support_jetson_tpu_torch.utils.metrics import metrics, snapshot_delta
 
-  args, port = cs._daemon_args(tmain, ckpt)
+  args, port = cs._daemon_args(tmain, ckpt, max_tokens=cs.PRIORITY_BATCH_TOKENS)
   os.environ.update(XOT_TPU_BATCHED="1", XOT_TPU_BATCH_SLOTS=str(cs.BATCH_SLOTS), XOT_TPU_PAGE_SIZE=str(cs.PAGE))
   node, api, engine, _ = tmain.build_components(args, tokenizer=cs.ByteTokenizer())
   await node.start()

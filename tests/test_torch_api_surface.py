@@ -367,6 +367,11 @@ def test_quit_answers_then_signals_its_process(daemons, monkeypatch):
   monkeypatch.setattr(os, "kill", lambda pid, sig: sent.append((pid, sig)))
   (js, _, jb), (ts, _, tb) = _both(daemons, "POST", "/quit")
   assert js == ts == 200 and json.loads(tb) == json.loads(jb) == {"detail": "Quit signal received"}
+  # Both daemons answer before they signal: the second signal may follow
+  # the client's read of the answer.
+  deadline = time.monotonic() + 10
+  while len(sent) < 2 and time.monotonic() < deadline:
+    time.sleep(0.01)
   assert sent == [(os.getpid(), signal.SIGINT)] * 2
 
 

@@ -120,7 +120,5 @@ def test_unported_configs_refuse_at_load():
     tconfig.config_from_hf({"model_type": "mixtral", "vocab_size": 8, "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2, "intermediate_size": 8, "num_local_experts": 4})
   with pytest.raises(NotImplementedError, match="latent attention"):
     tconfig.config_from_hf({"model_type": "deepseek_v2", "vocab_size": 8, "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2, "intermediate_size": 8, "kv_lora_rank": 4})
-  with pytest.raises(NotImplementedError, match="gemma2"):
-    tconfig.config_from_hf({"model_type": "gemma2", "vocab_size": 8, "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2, "intermediate_size": 8})
   with pytest.raises(NotImplementedError, match="vision"):
     tconfig.config_from_hf({"model_type": "llava", "text_config": {}, "vision_config": {}})

@@ -475,3 +475,64 @@ def test_kv_tier_round_trip_is_byte_identical_and_k3_reads_it_alike(dev, kv):
   res = chip_smoke.tier_round_trip(torch, ops, cfg, 4, kv, n=16)
   assert all(res["leaves_equal"].values()) and res["host_entries_equal"] and res["host_entries_pageable"]
   assert res["k3_bit_identical"]
+
+
+# gemma-2-9b's weight products (in, out): wq, wk/wv, wo, gate/up, down, the tied head.
+GEMMA_2_9B_MATMULS = [(3584, 4096), (3584, 2048), (4096, 3584), (3584, 14336), (14336, 3584), (3584, 256000)]
+
+
+@pytest.mark.parametrize("d_in,d_out", GEMMA_2_9B_MATMULS)
+@pytest.mark.parametrize("T", [1, 8])
+def test_int4_matmul_at_gemma2_shapes(dev, T, d_in, d_out):
+  x, packed, scale = _int4_case(dev, T, d_in, d_out, seed=31)
+  before = k4.LAUNCHES["int4_matmul"]
+  got = k4.int4_matmul(x, packed, scale)
+  torch.cuda.synchronize()
+  assert k4.LAUNCHES["int4_matmul"] == before + 1
+  torch.testing.assert_close(got.float(), k4.int4_matmul_ref(x, packed, scale).float(), **K4_TOL)
+
+
+def _tiny_gemma2(dev):
+  """A tiny bf16 gemma2 (3 layers: 0 and 2 slide over 32 positions, head
+  dim 64, query_pre_attn_scalar 48, softcaps 50 / 30) with random weights."""
+  from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+  from xotorch_support_jetson_tpu_torch.models import config as tconfig, decoder as tdec
+
+  cfg = tconfig.tiny_test_config(
+    vocab_size=512, dim=256, n_layers=3, n_heads=4, n_kv_heads=2, head_dim=64, hidden_dim=512, max_seq_len=512, dtype=torch.bfloat16, family="gemma2",
+    post_norms=True, mlp_act="gelu_tanh", attn_logit_softcap=50.0, final_logit_softcap=30.0, query_pre_attn_scalar=48.0, sliding_window=32, embed_scale=16.0, tied_embedding=True,
+  )
+  shard = Shard("tiny-gemma2", 0, 2, 3)
+  return cfg, shard, tdec.init_shard_params(cfg, shard, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+
+
+def test_gemma2_captured_equals_eager_and_launches_no_attention_kernel(dev):
+  """The captured solo programs on a tiny gemma2 equal the eager functions
+  (prefill logits, 40 greedy steps past the window), and no attention
+  kernel launches, captured or eager: K1–K3 implement no softcap or
+  window. The paged decode resolves to the gather route on the card."""
+  from xotorch_support_jetson_tpu_torch.models import decoder as tdec
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  cfg, shard, params = _tiny_gemma2(dev)
+  prompt = np.random.default_rng(0).integers(3, 512, (1, 128)).astype(np.int32)
+  L = 100
+  before = (fa.LAUNCHES["flash_prefill"], fa.LAUNCHES["flash_decode"], paged.LAUNCHES["paged_decode"])
+  programs.reset_replayed()
+  prog = tdec.SoloPrograms(params, cfg, shard, tdec.init_kv_cache(cfg, 3, 1, 512, device=dev), generator=torch.Generator(device=dev), pool=torch.cuda.graph_pool_handle())
+  for _ in range(2):  # the first round builds, the second replays
+    eager = tdec.init_kv_cache(cfg, 3, 1, 512, device=dev)
+    want, _ = tdec.shard_forward(params, cfg, shard, torch.from_numpy(prompt).to(dev), torch.arange(128, dtype=torch.int32, device=dev)[None], eager, head_pos=torch.tensor([L - 1], device=dev))
+    got = prog.prefill(prompt, L)
+    torch.testing.assert_close(got, want[:, 0, :], atol=ATOL, rtol=0)
+    first = int(torch.argmax(want[0, 0]))
+    w, _ = tdec.fused_decode(params, cfg, shard, torch.tensor([[first]], dtype=torch.int32, device=dev), eager, torch.tensor([L], dtype=torch.int32, device=dev), 40)
+    g, _ = tdec.fused_decode(params, cfg, shard, first, prog.cache, L, 40, programs=prog)
+    assert torch.equal(g, w)
+  assert (fa.LAUNCHES["flash_prefill"], fa.LAUNCHES["flash_decode"], paged.LAUNCHES["paged_decode"]) == before and not programs.REPLAYED
+  pool = paged.init_paged_pool(cfg, 3, 9, 64, device=dev)
+  bt = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32, device=dev)
+  args = (torch.tensor([[7], [9]], dtype=torch.int32, device=dev), pool, bt, torch.tensor([40, 90], dtype=torch.int32, device=dev), torch.ones(2, dtype=torch.bool, device=dev), torch.zeros(2, device=dev), 4)
+  toks = tdec.fused_paged_batch_decode(params, cfg, shard, *args, page_size=64)[0]
+  assert paged.LAUNCHES["paged_decode"] == before[2]
+  assert toks.shape == (2, 4)

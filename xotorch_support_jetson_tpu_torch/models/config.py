@@ -1,11 +1,13 @@
 """Model configuration for the dense decoder families (llama, qwen2/qwen3,
-mistral, phi3) and the HF ``config.json`` → internal mapping.
+mistral, phi3, gemma2) and the HF ``config.json`` → internal mapping.
 
 Counterpart of the reference's ``models/config.py`` for the dense key space:
 llama3 / yarn / longrope rope scaling, explicit ``head_dim``, qkv bias,
-qk_norm and tied embeddings. ``dtype`` is a torch dtype. Configurations the
-port does not run yet (MoE, MLA, vision towers, gemma2's softcap and sliding
-window) raise ``NotImplementedError`` at load.
+qk_norm, tied embeddings, and gemma2's variations (pre+post norms, GeGLU,
+softcaps, the ``query_pre_attn_scalar`` scale, the sliding window on even
+layers, the sqrt(dim) embed scale). ``dtype`` is a torch dtype.
+Configurations the port does not run yet (MoE, MLA, vision towers) raise
+``NotImplementedError`` at load.
 """
 
 from __future__ import annotations
@@ -77,16 +79,32 @@ class ModelConfig:
   dtype: Any = torch.bfloat16
   eos_token_ids: tuple[int, ...] = ()
   quant_compute: str = ""  # int8 weight matmul mode ("w8a16" | "w8a8"); "" → XOT_TPU_QUANT_COMPUTE
+  # gemma2: pre+post norms around each block, GeGLU (tanh-gelu) MLP, tanh
+  # softcapping of the attention scores and the final logits, sqrt(dim)
+  # embed scaling, the attention scale from query_pre_attn_scalar, and
+  # sliding-window attention on the even layers.
+  post_norms: bool = False
+  mlp_act: str = "silu"  # "silu" | "gelu_tanh"
+  attn_logit_softcap: float = 0.0  # 0 ⇒ off
+  final_logit_softcap: float = 0.0
+  query_pre_attn_scalar: float = 0.0  # 0 ⇒ scale by 1/sqrt(head_dim)
+  sliding_window: int = 0  # 0 ⇒ global attention everywhere
+  embed_scale: float = 1.0  # gemma multiplies embeddings by sqrt(dim)
 
   def __post_init__(self):
     if self.head_dim == 0:
       object.__setattr__(self, "head_dim", self.dim // self.n_heads)
 
+  def layer_is_sliding(self, layer_idx: int) -> bool:
+    """HF Gemma2: layers at even global indices use the sliding window."""
+    return self.sliding_window > 0 and layer_idx % 2 == 0
+
   @property
   def plain_attention(self) -> bool:
-    """No per-config attention variations — the gate for the attention
-    kernels. Always true for the dense families this port loads."""
-    return True
+    """No per-config attention variations (softcap, window, scale
+    override) — the one gate for the attention kernels K1–K3, which
+    implement none of them."""
+    return not self.attn_logit_softcap and not self.sliding_window and not self.query_pre_attn_scalar
 
   @property
   def q_dim(self) -> int:
@@ -123,8 +141,6 @@ def _refuse_unported(hf: dict, family: str) -> None:
     reasons.append("mixture-of-experts layers")
   if hf.get("kv_lora_rank"):
     reasons.append("multi-head latent attention (MLA)")
-  if family == "gemma2" or hf.get("attn_logit_softcapping") or hf.get("final_logit_softcapping"):
-    reasons.append("gemma2 softcapping / sliding-window attention")
   if reasons:
     raise NotImplementedError(
       f"the PyTorch port does not run {', '.join(reasons)} yet (model family {family!r}); "
@@ -194,6 +210,17 @@ def config_from_hf(hf: dict, dtype=None) -> ModelConfig:
     eos = [eos]
   # transformers ≥4.56 writes "dtype"; older checkpoints carry "torch_dtype"
   torch_dtype = str(hf.get("torch_dtype") or hf.get("dtype") or "bfloat16")
+  gemma: dict[str, Any] = {}
+  if family == "gemma2":
+    gemma = dict(
+      post_norms=True,
+      mlp_act="gelu_tanh",
+      attn_logit_softcap=float(hf.get("attn_logit_softcapping") or 0.0),
+      final_logit_softcap=float(hf.get("final_logit_softcapping") or 0.0),
+      query_pre_attn_scalar=float(hf.get("query_pre_attn_scalar") or 0.0),
+      sliding_window=int(hf.get("sliding_window") or 0),
+      embed_scale=math.sqrt(float(hf["hidden_size"])),
+    )
   n_heads = int(hf["num_attention_heads"])
   return ModelConfig(
     vocab_size=int(hf["vocab_size"]),
@@ -210,10 +237,11 @@ def config_from_hf(hf: dict, dtype=None) -> ModelConfig:
     qkv_bias=family == "qwen2" or bool(hf.get("attention_bias", False)),
     qk_norm=family == "qwen3",
     partial_rotary_factor=float(hf.get("partial_rotary_factor", 1.0)),
-    tied_embedding=bool(hf.get("tie_word_embeddings", family == "qwen2" and int(hf["hidden_size"]) < 2048)),
+    tied_embedding=bool(hf.get("tie_word_embeddings", family == "gemma2" or (family == "qwen2" and int(hf["hidden_size"]) < 2048))),
     family=family,
     dtype=dtype or _DTYPES.get(torch_dtype, torch.bfloat16),
     eos_token_ids=tuple(int(e) for e in eos),
+    **gemma,
   )
 
 

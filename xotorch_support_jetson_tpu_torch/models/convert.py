@@ -21,16 +21,19 @@ from .decoder import Params
 from .loader import check_shard_params
 
 _QUANT_LAYER_KEYS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
-_LAYER_KEYS = {"attn_norm", "mlp_norm", "bq", "bk", "bv", "q_norm", "k_norm", *_QUANT_LAYER_KEYS, *(f"{k}_scale" for k in _QUANT_LAYER_KEYS)}
+_NORM_KEYS = {"attn_norm", "post_attn_norm", "mlp_norm", "post_mlp_norm", "final_norm"}
+_LAYER_KEYS = {*_NORM_KEYS - {"final_norm"}, "bq", "bk", "bv", "q_norm", "k_norm", "is_sliding", *_QUANT_LAYER_KEYS, *(f"{k}_scale" for k in _QUANT_LAYER_KEYS)}
 _TOP_KEYS = {"embed", "final_norm", "lm_head", "lm_head_scale"}
 
 
 def _leaf(key: str, arr, cfg: ModelConfig, device) -> torch.Tensor:
-  """Quantization codes stay int8 and scales f32; every other leaf goes to
-  ``cfg.dtype``."""
+  """Quantization codes stay int8; scales, gemma2's sliding flags and its
+  norm gains (``1 + w``, held in f32 as the loaders hold them) stay f32;
+  every other leaf goes to ``cfg.dtype``."""
   if np.asarray(arr).dtype == np.int8:
     return _tensor(arr, torch.int8, device)
-  return _tensor(arr, torch.float32 if key.endswith("_scale") else cfg.dtype, device)
+  f32 = key.endswith("_scale") or key == "is_sliding" or (cfg.post_norms and key in _NORM_KEYS)
+  return _tensor(arr, torch.float32 if f32 else cfg.dtype, device)
 
 
 def _tensor(arr, dtype, device) -> torch.Tensor:

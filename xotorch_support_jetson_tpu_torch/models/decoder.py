@@ -1,6 +1,10 @@
-"""The dense decoder: llama 3.x, qwen-2.5/3, mistral and phi-family dense
+"""The dense decoder: llama 3.x, qwen-2.5/3, mistral, phi-family and gemma2
 checkpoints. Counterpart of the reference's ``models/decoder.py`` (dense
-path only).
+path only). gemma2's variations ride on the config (``_attn_opts``: the
+scale override, the score softcap and the per-layer sliding window, whose
+flag is the ``layers/is_sliding`` leaf; the post norms, the GeGLU MLP, the
+embed scale and the final softcap); its attention takes the plain route
+everywhere, as the reference's does: K1–K3 implement none of them.
 
 Parameters are a plain dict of tensors in the reference's layout: layer
 leaves stacked on a leading [L] axis (``layers/wq`` [L, D, Hq·hd], used as
@@ -120,6 +124,12 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor, start: torch.Tensor) ->
 # ---------------------------------------------------------------- init
 
 
+def sliding_flags(cfg: ModelConfig, global_indices, device=None) -> torch.Tensor:
+  """Per-layer sliding-window flags [L] f32 from GLOBAL layer indices: the
+  one encoding shared by ``init_shard_params`` and the checkpoint loader."""
+  return torch.tensor([1.0 if cfg.layer_is_sliding(i) else 0.0 for i in global_indices], dtype=torch.float32, device=device)
+
+
 def init_shard_params(cfg: ModelConfig, shard: Shard, generator: torch.Generator | None = None, dtype=None, device=None) -> Params:
   """Random-init params for a shard (tests, smoke runs), the reference's
   layout and scales: N(0, 1/fan_in) projections, N(0, 0.02) embeddings,
@@ -151,6 +161,10 @@ def init_shard_params(cfg: ModelConfig, shard: Shard, generator: torch.Generator
     layers.update(bq=torch.zeros(L, Qd, dtype=dtype, device=device), bk=torch.zeros(L, Kd, dtype=dtype, device=device), bv=torch.zeros(L, Kd, dtype=dtype, device=device))
   if cfg.qk_norm:
     layers.update(q_norm=ones(L, cfg.head_dim), k_norm=ones(L, cfg.head_dim))
+  if cfg.post_norms:  # gemma2's post-attention / post-feedforward norms
+    layers.update(post_attn_norm=ones(L, D), post_mlp_norm=ones(L, D))
+  if cfg.sliding_window:
+    layers["is_sliding"] = sliding_flags(cfg, range(shard.start_layer, shard.start_layer + L), device)
   params: Params = {"layers": layers}
   if shard.is_first_layer:
     params["embed"] = w(V, D, scale=0.02)
@@ -184,18 +198,54 @@ def _dense_qkv(x, p, cfg: ModelConfig, positions, inv_freq):
   return apply_rope(q, positions, inv_freq, m), apply_rope(k, positions, inv_freq, m), v
 
 
+def _mlp_act(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+  """The gate's activation in f32: SiLU, or gemma2's tanh GELU."""
+  if cfg.mlp_act == "gelu_tanh":
+    return torch.nn.functional.gelu(x.float(), approximate="tanh")
+  return torch.nn.functional.silu(x.float())
+
+
+def _attn_opts(cfg: ModelConfig, layer_sliding=None) -> dict:
+  """The attention options a config implies (gemma2's scale override,
+  score softcap and sliding window). The window is read from the layer's
+  ``is_sliding`` flag on the device, huge (no mask) on a global layer, so
+  no layer bakes another's window into a captured graph."""
+  opts: dict = {}
+  if cfg.query_pre_attn_scalar:
+    opts["scale"] = 1.0 / cfg.query_pre_attn_scalar**0.5
+  if cfg.attn_logit_softcap:
+    opts["logit_softcap"] = cfg.attn_logit_softcap
+  if cfg.sliding_window and layer_sliding is not None:
+    opts["sliding_window"] = torch.where(layer_sliding > 0, cfg.sliding_window, 2**30)
+  return opts
+
+
+def _attn_out(attn: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+  """The output projection of attention [B, S, Hq, hd], then gemma2's
+  post-attention norm."""
+  B, S = attn.shape[:2]
+  out = _mm(attn.reshape(B, S, -1), p, "wo", cfg.quant_compute)
+  if "post_attn_norm" in p:
+    out = rms_norm(out, p["post_attn_norm"], cfg.norm_eps)
+  return out
+
+
 def _mlp_block(h, p, cfg: ModelConfig):
-  """Post-attention norm + SwiGLU FFN (dense branch)."""
+  """Pre-MLP norm + gated FFN (dense branch), then gemma2's post-MLP norm."""
   x = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
-  gated = torch.nn.functional.silu(_mm(x, p, "w_gate", cfg.quant_compute).float()).to(h.dtype) * _mm(x, p, "w_up", cfg.quant_compute)
-  return h + _mm(gated, p, "w_down", cfg.quant_compute)
+  gated = _mlp_act(_mm(x, p, "w_gate", cfg.quant_compute), cfg).to(h.dtype) * _mm(x, p, "w_up", cfg.quant_compute)
+  out = _mm(gated, p, "w_down", cfg.quant_compute)
+  if "post_mlp_norm" in p:
+    out = rms_norm(out, p["post_mlp_norm"], cfg.norm_eps)
+  return h + out
 
 
-def _attention(q, k, v, kv, positions, kv_positions, cfg: ModelConfig):
+def _attention(q, k, v, kv, positions, kv_positions, cfg: ModelConfig, opts: dict):
   """Write this layer's k/v into its cache slice ``kv`` (in place) and
   attend. The dispatch mirrors the reference: K1 for prefill (and int8-KV
   prefill; int4 codes take the plain path), K2 for an opted-in long-cache
-  decode step, else the plain ``gqa_attention``."""
+  decode step, else the plain ``gqa_attention`` with the config's
+  ``opts`` (``_attn_opts``)."""
   from ..ops.flash_attention import flash_attention_prefill, flash_decode_attention, flash_decode_supported, flash_supported
 
   S = q.shape[1]
@@ -214,7 +264,7 @@ def _attention(q, k, v, kv, positions, kv_positions, cfg: ModelConfig):
       return flash_attention_prefill(q, kv["k"], kv["v"], q_offset=start, k_scale=kv["k_scale"], v_scale=kv["v_scale"])
     k_codes = unpack_int4_kv(kv["k"]) if packed else kv["k"]
     v_codes = unpack_int4_kv(kv["v"]) if packed else kv["v"]
-    return gqa_attention(q, k_codes, v_codes, positions, kv_positions, k_scale=kv["k_scale"], v_scale=kv["v_scale"])
+    return gqa_attention(q, k_codes, v_codes, positions, kv_positions, k_scale=kv["k_scale"], v_scale=kv["v_scale"], **opts)
   _write_cache(kv["k"], k, start)
   _write_cache(kv["v"], v, start)
   k_cache, v_cache = kv["k"].to(q.dtype), kv["v"].to(q.dtype)
@@ -224,10 +274,10 @@ def _attention(q, k, v, kv, positions, kv_positions, cfg: ModelConfig):
     return flash_attention_prefill(q, k_cache, v_cache, q_offset=start)
   if cfg.plain_attention and S == 1 and flash_decode_supported(q.shape, k_cache.shape[1], q.device, q.dtype):
     return flash_decode_attention(q, k_cache, v_cache, positions)
-  return gqa_attention(q, k_cache, v_cache, positions, kv_positions)
+  return gqa_attention(q, k_cache, v_cache, positions, kv_positions, **opts)
 
 
-def _causal_attention(q, k, v, positions, cfg: ModelConfig):
+def _causal_attention(q, k, v, positions, cfg: ModelConfig, opts: dict):
   """Cache-less causal attention over the call's own k/v: K1 on the card
   with ``q_offset`` 0 (a cache-less forward runs its sequence from position
   0, so k/v row j is position j), else the plain ``gqa_attention`` — the
@@ -236,26 +286,30 @@ def _causal_attention(q, k, v, positions, cfg: ModelConfig):
 
   if cfg.plain_attention and flash_supported(q.shape, k.shape[1], q.device, q.dtype):
     return flash_attention_prefill(q, k.contiguous(), v.contiguous(), q_offset=0)
-  return gqa_attention(q, k, v, positions, positions[0])
+  return gqa_attention(q, k, v, positions, positions[0], **opts)
 
 
 def _layer_step(h, p, kv, positions, kv_positions, inv_freq, cfg: ModelConfig):
   """One decoder layer. h [B,S,D] → h. ``kv`` is this layer's cache dict
   (views into the session cache, updated in place) or None (cache-less)."""
-  B, S, D = h.shape
   x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
   q, k, v = _dense_qkv(x, p, cfg, positions, inv_freq)
+  opts = _attn_opts(cfg, p.get("is_sliding"))
   if kv is not None:
-    attn = _attention(q, k, v, kv, positions, kv_positions, cfg)
+    attn = _attention(q, k, v, kv, positions, kv_positions, cfg, opts)
   else:
-    attn = _causal_attention(q, k, v, positions, cfg)
-  h = h + _mm(attn.reshape(B, S, -1), p, "wo", cfg.quant_compute)
-  return _mlp_block(h, p, cfg)
+    attn = _causal_attention(q, k, v, positions, cfg, opts)
+  return _mlp_block(h + _attn_out(attn, p, cfg), p, cfg)
 
 
 def embed_tokens(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-  """Token ids [B,S] → embeddings [B,S,D] in model dtype."""
-  return params["embed"][x].to(cfg.dtype)
+  """Token ids [B,S] → embeddings [B,S,D] in model dtype; gemma2 scales
+  them by sqrt(dim) cast to the model dtype first, as HF does (in bf16
+  sqrt(3584) is 60.0)."""
+  h = params["embed"][x].to(cfg.dtype)
+  if cfg.embed_scale != 1.0:
+    h = h * torch.tensor(cfg.embed_scale, dtype=cfg.dtype).item()
+  return h
 
 
 def head_logits(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -265,11 +319,15 @@ def head_logits(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tens
   head."""
   h = rms_norm(h, params["final_norm"], cfg.norm_eps)
   if "lm_head_scale" in params:
-    return qdot(h, params["lm_head"], params["lm_head_scale"], cfg.quant_compute or QUANT_COMPUTE).float()
-  w_out = params.get("lm_head")
-  if w_out is None:
-    w_out = params["embed"].T  # tied embeddings, single-params case
-  return (h @ w_out.to(h.dtype)).float()
+    logits = qdot(h, params["lm_head"], params["lm_head_scale"], cfg.quant_compute or QUANT_COMPUTE).float()
+  else:
+    w_out = params.get("lm_head")
+    if w_out is None:
+      w_out = params["embed"].T  # tied embeddings, single-params case
+    logits = (h @ w_out.to(h.dtype)).float()
+  if cfg.final_logit_softcap:  # gemma2
+    logits = cfg.final_logit_softcap * torch.tanh(logits / cfg.final_logit_softcap)
+  return logits
 
 
 def _forward_layers(params: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, kv_cache: Params | None) -> torch.Tensor:
@@ -1001,7 +1059,9 @@ def fused_speculative_chunk(params_t, cfg: ModelConfig, shard: Shard, params_d, 
 # onto fixed-size pages of one shared pool through block tables [B, mp]. The
 # pool is updated IN PLACE. Rows without a request keep their table zeroed,
 # so their writes land in the reserved trash page 0. Dense models only: the
-# port loads no MLA, MoE or gemma2 checkpoint and has no LoRA yet.
+# port loads no MLA or MoE checkpoint and has no LoRA yet. gemma2 attends
+# through the gather route (K3 has no softcap or window), as the
+# reference's layer steps gate on ``cfg.plain_attention``.
 
 _DENSE_TOP_KEYS = frozenset({"layers", "embed", "final_norm", "lm_head", "lm_head_scale"})
 
@@ -1071,7 +1131,6 @@ def _paged_layer_step(h, p, pool_l, block_tables, positions, inv_freq, cfg: Mode
   positions [B, 1]."""
   from ..ops.paged import paged_decode_attention, paged_gqa_attention_ref, write_token_kv
 
-  B, S, D = h.shape
   x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
   pos = positions[:, 0]
   lengths = pos + 1  # valid KV slots incl. the token written below
@@ -1090,13 +1149,13 @@ def _paged_layer_step(h, p, pool_l, block_tables, positions, inv_freq, cfg: Mode
   else:
     write_token_kv(pool_l["k"], k[:, 0], block_tables, pos, page_size)
     write_token_kv(pool_l["v"], v[:, 0], block_tables, pos, page_size)
-  if use_kernel:
-    # K3 on the card: codes and scales straight off the pool.
+  if use_kernel and cfg.plain_attention:
+    # K3 on the card: codes and scales straight off the pool. K3 has no
+    # softcap or window, so gemma2 takes the gather route, as there.
     attn = paged_decode_attention(q[:, 0].contiguous(), pool_l["k"], pool_l["v"], block_tables, lengths, page_size, **scales)[:, None]
   else:
-    attn = paged_gqa_attention_ref(q, pool_l["k"], pool_l["v"], block_tables, lengths, page_size, **scales)
-  h = h + _mm(attn.reshape(B, S, -1), p, "wo", cfg.quant_compute)
-  return _mlp_block(h, p, cfg)
+    attn = paged_gqa_attention_ref(q, pool_l["k"], pool_l["v"], block_tables, lengths, page_size, **scales, **_attn_opts(cfg, p.get("is_sliding")))
+  return _mlp_block(h + _attn_out(attn, p, cfg), p, cfg)
 
 
 def paged_decode_forward(params, cfg: ModelConfig, shard: Shard, tokens, positions, pool, block_tables, page_size: int, use_kernel: bool):
@@ -1254,7 +1313,6 @@ def _paged_window_layer_step(h, p, pool_l, block_tables, bt_window, positions, i
   routes, token-exact)."""
   from ..ops.paged import paged_window_attention, paged_window_attention_ref, write_window_kv
 
-  B, W, D = h.shape
   x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
   q, k, v = _dense_qkv(x, p, cfg, positions, inv_freq)
   scales = {}
@@ -1271,12 +1329,11 @@ def _paged_window_layer_step(h, p, pool_l, block_tables, bt_window, positions, i
   else:
     write_window_kv(pool_l["k"], k, block_tables, positions, page_size)
     write_window_kv(pool_l["v"], v, block_tables, positions, page_size)
-  if use_kernel:
+  if use_kernel and cfg.plain_attention:
     attn = paged_window_attention(q, pool_l["k"], pool_l["v"], bt_window, positions, page_size, **scales)
   else:
-    attn = paged_window_attention_ref(q, pool_l["k"], pool_l["v"], block_tables, positions, page_size, **scales)
-  h = h + _mm(attn.reshape(B, W, -1), p, "wo", cfg.quant_compute)
-  return _mlp_block(h, p, cfg)
+    attn = paged_window_attention_ref(q, pool_l["k"], pool_l["v"], block_tables, positions, page_size, **scales, **_attn_opts(cfg, p.get("is_sliding")))
+  return _mlp_block(h + _attn_out(attn, p, cfg), p, cfg)
 
 
 def paged_window_forward(params, cfg: ModelConfig, shard: Shard, tokens, positions, pool, block_tables, page_size: int, use_kernel: bool, bt_window=None):

@@ -7,6 +7,8 @@ The port reads and writes ``.safetensors`` with its own small codec (an
 ``torch.frombuffer`` — bf16 needs no ``ml_dtypes`` and no ``safetensors``
 package. Per-layer tensors are stacked into the reference's [L, ...] leaves;
 HF ``[out, in]`` projections are transposed to ``[in, out]`` once, here.
+gemma2's zero-centred norm gains become ``1 + w`` in f32, and its layer
+stack carries ``is_sliding`` [L] f32 flags from the global layer indices.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from ..inference.shard import Shard
 from ..utils.helpers import DEBUG
 from .config import ModelConfig
-from .decoder import Params
+from .decoder import Params, sliding_flags
 
 _ST_DTYPES = {
   "BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32, "F64": torch.float64,
@@ -30,6 +32,7 @@ _ST_DTYPES = {
 _ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
 
 _LAYER_RE = re.compile(r"^model\.layers\.(\d+)\.(.+)$")
+_NORM_KEYS = ("attn_norm", "post_attn_norm", "mlp_norm", "post_mlp_norm")
 
 # HF per-layer suffix → (our key, transpose?)
 _LAYER_MAP: dict[str, tuple[str, bool]] = {
@@ -44,6 +47,11 @@ _LAYER_MAP: dict[str, tuple[str, bool]] = {
   "self_attn.q_norm.weight": ("q_norm", False),
   "self_attn.k_norm.weight": ("k_norm", False),
   "post_attention_layernorm.weight": ("mlp_norm", False),
+  # gemma2's four-norm layout: input_layernorm / post_attention_layernorm
+  # wrap attention (the latter is post_attn_norm under cfg.post_norms),
+  # pre/post_feedforward_layernorm wrap the MLP.
+  "pre_feedforward_layernorm.weight": ("mlp_norm", False),
+  "post_feedforward_layernorm.weight": ("post_mlp_norm", False),
   "mlp.gate_proj.weight": ("w_gate", True),
   "mlp.up_proj.weight": ("w_up", True),
   "mlp.down_proj.weight": ("w_down", True),
@@ -133,6 +141,11 @@ def load_shard_weights(model_dir: str | Path, cfg: ModelConfig, shard: Shard, de
     t = t.to(device=device, dtype=cfg.dtype)
     return t.T.contiguous() if transpose else t
 
+  def gain(t: torch.Tensor) -> torch.Tensor:
+    """A gemma norm gain: HF computes x·(1 + w.float()) in f32, so the
+    gain stays f32 (a bf16 1 + w loses every |w| < 2^-8)."""
+    return t.to(device=device, dtype=torch.float32) + 1.0
+
   for file in _weight_files_for_shard(model_dir, shard):
     for name, t in iter_safetensors(file):
       m = _LAYER_RE.match(name)
@@ -142,7 +155,9 @@ def load_shard_weights(model_dir: str | Path, cfg: ModelConfig, shard: Shard, de
           continue
         if suffix in _LAYER_MAP:
           key, transpose = _LAYER_MAP[suffix]
-          per_layer[idx][key] = put(t, transpose)
+          if cfg.post_norms and suffix == "post_attention_layernorm.weight":
+            key = "post_attn_norm"  # gemma2: this norm follows attention
+          per_layer[idx][key] = gain(t) if cfg.post_norms and key in _NORM_KEYS else put(t, transpose)
         elif suffix == "self_attn.qkv_proj.weight":  # phi3: fused [q+k+v, D]
           qd, kd = cfg.q_dim, cfg.kv_dim
           per_layer[idx]["wq"] = put(t[:qd], True)
@@ -157,7 +172,7 @@ def load_shard_weights(model_dir: str | Path, cfg: ModelConfig, shard: Shard, de
         if shard.is_first_layer or (shard.is_last_layer and cfg.tied_embedding):
           top["embed"] = put(t, False)
       elif name == "model.norm.weight" and shard.is_last_layer:
-        top["final_norm"] = put(t, False)
+        top["final_norm"] = gain(t) if cfg.post_norms else put(t, False)
       elif name == "lm_head.weight" and shard.is_last_layer:
         top["lm_head"] = put(t, True)
 
@@ -168,6 +183,8 @@ def load_shard_weights(model_dir: str | Path, cfg: ModelConfig, shard: Shard, de
     if missing:
       raise ValueError(f"layer {idx}: missing tensors {sorted(missing)}")
   params: Params = {"layers": {key: torch.stack([per_layer[i].pop(key) for i in indices]) for key in layer_keys}}
+  if cfg.sliding_window:
+    params["layers"]["is_sliding"] = sliding_flags(cfg, indices, device)
   if shard.is_first_layer:
     params["embed"] = top["embed"]
   if shard.is_last_layer:
@@ -201,6 +218,10 @@ def check_shard_params(params: Params, cfg: ModelConfig, shard: Shard) -> None:
     expect.update({"bq": (L, cfg.q_dim), "bk": (L, cfg.kv_dim), "bv": (L, cfg.kv_dim)})
   if cfg.qk_norm:
     expect.update({"q_norm": (L, cfg.head_dim), "k_norm": (L, cfg.head_dim)})
+  if cfg.post_norms:  # the decoder gates on the keys: a missing post-norm fails here
+    expect.update({"post_attn_norm": (L, cfg.dim), "post_mlp_norm": (L, cfg.dim)})
+  if cfg.sliding_window:
+    expect["is_sliding"] = (L,)
   layers = params.get("layers", {})
   for key, shape in expect.items():
     if key not in layers:

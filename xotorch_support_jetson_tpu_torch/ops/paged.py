@@ -154,12 +154,13 @@ def scatter_row_pages(pool_part: torch.Tensor, t: torch.Tensor, target: torch.Te
   return pool_part
 
 
-def paged_gqa_attention_ref(q, k_pool_l, v_pool_l, block_tables, lengths, page_size: int, k_scale_pool_l=None, v_scale_pool_l=None, q_positions=None) -> torch.Tensor:
+def paged_gqa_attention_ref(q, k_pool_l, v_pool_l, block_tables, lengths, page_size: int, k_scale_pool_l=None, v_scale_pool_l=None, q_positions=None, **attn_opts) -> torch.Tensor:
   """Paged attention by gather (q [B, Sq, Hq, hd]; Sq is 1 on the decode
   path). With scale pools the gathered codes stay the einsum operand (int4
   codes unpack after the gather) and the scales gather alongside.
   ``q_positions`` [B, Sq] overrides the single-query default (each row's
-  ``lengths - 1``)."""
+  ``lengths - 1``). ``attn_opts`` carry gemma2's scale, softcap and
+  sliding window to ``gqa_attention`` (models/decoder.py ``_attn_opts``)."""
   k = gather_pages(k_pool_l, block_tables)
   v = gather_pages(v_pool_l, block_tables)
   kv_positions = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
@@ -172,7 +173,7 @@ def paged_gqa_attention_ref(q, k_pool_l, v_pool_l, block_tables, lengths, page_s
 
       k, v = unpack_int4_kv(k), unpack_int4_kv(v)
     scales = dict(k_scale=gather_pages(k_scale_pool_l, block_tables), v_scale=gather_pages(v_scale_pool_l, block_tables))
-  return gqa_attention(q, k, v, q_positions, kv_positions, **scales)
+  return gqa_attention(q, k, v, q_positions, kv_positions, **scales, **attn_opts)
 
 
 def paged_decode_attention_ref(q, k_pool_l, v_pool_l, block_tables, lengths, page_size: int, k_scale_pool_l=None, v_scale_pool_l=None) -> torch.Tensor:
@@ -241,11 +242,12 @@ def window_block_tables(block_tables: torch.Tensor, window: int) -> torch.Tensor
   return block_tables[:, None, :].expand(B, window, mp).reshape(B * window, mp).contiguous()
 
 
-def paged_window_attention_ref(q, k_pool_l, v_pool_l, block_tables, positions, page_size: int, k_scale_pool_l=None, v_scale_pool_l=None) -> torch.Tensor:
+def paged_window_attention_ref(q, k_pool_l, v_pool_l, block_tables, positions, page_size: int, k_scale_pool_l=None, v_scale_pool_l=None, **attn_opts) -> torch.Tensor:
   """Plain version of ``paged_window_attention`` (the reference's gather
   route): q [B, W, Hq, hd] at positions [B, W], each query attending to the
-  slots at or below its own position. block_tables [B, mp]."""
-  return paged_gqa_attention_ref(q, k_pool_l, v_pool_l, block_tables, positions[:, -1] + 1, page_size, k_scale_pool_l, v_scale_pool_l, q_positions=positions)
+  slots at or below its own position. block_tables [B, mp]; ``attn_opts``
+  as in ``paged_gqa_attention_ref``."""
+  return paged_gqa_attention_ref(q, k_pool_l, v_pool_l, block_tables, positions[:, -1] + 1, page_size, k_scale_pool_l, v_scale_pool_l, q_positions=positions, **attn_opts)
 
 
 def paged_window_attention(q, k_pool_l, v_pool_l, bt_window, positions, page_size: int, k_scale_pool_l=None, v_scale_pool_l=None) -> torch.Tensor:
@@ -268,8 +270,9 @@ def paged_kernel_supported(cfg) -> bool:
   """Whether paged decode attention goes through ``paged_decode_attention``
   (K3 on a CUDA tensor, its plain version on the CPU) rather than the
   gather reference. Only an explicit ``XOT_TPU_PAGED_KERNEL=0`` asks for
-  the gather path. The reference's TPU dispatch table
-  (``inference/paging.py select_decode_path``) is not carried over."""
+  the gather path, and a config with attention variations (gemma2) has no
+  other: the kernel implements none of them. The reference's TPU dispatch
+  table (``inference/paging.py select_decode_path``) is not carried over."""
   return cfg.plain_attention and env_flag("XOT_TPU_PAGED_KERNEL", default=True)
 
 
