@@ -114,7 +114,8 @@ Phases (any failure exits non-zero and prints no result):
    ``[profile] graphs spec`` lines: captured wall and device ms (events
    behind a spin kernel) of an n-gram chunk, one int8 and one cross round,
    the oneshot and the draft prefill, kernel nodes, capture seconds and the
-   graph pool's bytes, beside the eager function's wall and device ms; and
+   graph pool's bytes, beside the eager function's wall and device ms (not
+   the oneshot's: its profile cost ~40 s a run); and
    K1 at Sq 5 and 9 inside a replay on a refilled query and offset within
    its bounds, one kernel node. Then the
    solo daemon: four requests, ``POST /v1/warmup``, the same four again,
@@ -269,6 +270,39 @@ Phases (any failure exits non-zero and prints no result):
    xotorch_support_jetson_tpu_torch.main run llama-3.2-1b --prompt ...``
    prints its tokens and exits 0, and a daemon process serves a
    completion, gets ``POST /quit`` and exits 0 within ``QUIT_EXIT_S``;
+8b. ring — llama-3.2-1b (the same checkpoint and tokenizer files) split
+   over three partial shards, layers 0-7 / 8-11 / 12-15. In this process
+   (part a): the whole model's captured prefill logits, greedy ids and the
+   top-2 gap of its plain forward at every answer position; then three
+   partial-shard engines (``ShardPrograms``: one replay per prefill bucket
+   and per step) whose hops are chained by hand, each hidden state moved
+   through the host as the peer transport moves it, a 72-token chat prompt
+   and 64 greedy laps after a warm-up request. The counters are zeroed just
+   before the counted request and read just after: K1 exactly 16 (8 + 4 +
+   4 in the three prefills), no K2 or K4, no build or capture after the
+   warm-up. Gates: the tail's prefill logits within 5e-2 relative L2 of the
+   whole model's; the ring's ids equal the whole model's up to the first
+   position whose top-2 gap is within ``SCORE_GAP_TOL`` (and its first EOS);
+   each shard's captured prefill and step within 5e-2 of its uncaptured
+   forward on the same inputs (bit-equality reported), the hops in bf16.
+   Reported: the bytes per hop (the hidden state and the frame the peer
+   transport sends), the per-token lap's host time against the three
+   captured steps' device time (CUDA events behind a spin kernel), then a
+   request with ``XOT_TPU_FLASH_DECODE=1`` (K2 exactly 16 per lap) and one
+   on shards loaded with ``XOT_TPU_QUANT=int4`` (K4 must run). Then three
+   daemon processes (part b) on the card, joined by manual discovery on
+   127.0.0.1 with ``XOT_TPU_MEMORY_MB`` 4800 / 2401 / 2400 (the same
+   split), the weights found under their ``XOT_TPU_HOME``: once every
+   ``/v1/topology`` lists the three with those memories and a warm-up
+   request loaded the shards, a streaming and a blocking chat request to
+   the head and a streaming one to the tail, the kernel launches read from
+   each daemon's ``/metrics`` (``kernel_launches_total``) just before and
+   just after: K1 24 / 12 / 12 (each daemon's layers once per prefill).
+   Gates: every answer's ids equal part a's up to the near-tie bound, every
+   ``/v1/topology`` lists the three, and a request for llama-3.1-8b (its
+   ``config.json`` alone under the daemons' home) answers 507. The head's
+   streaming TTFT and decode rate are printed beside the solo phase's;
+   each daemon gets ``POST /quit`` and must exit 0;
 9. gemma2 — a seeded random bf16 checkpoint at gemma-2-9b's published
    shapes and full depth (``GEMMA_2_9B``: 42 layers, head dim 256, softcaps
    50 / 30, a 4,096-token window on the even layers; the bos / eos / pad
@@ -1752,7 +1786,9 @@ def profile_draft_round(torch, engine, what="int8-draft"):
   def one_round():
     fused_speculative_generate(engine.params, cfg, shard, engine._draft_params, cfg_d, shard_d, tok, ct, cd, 100, 1, gamma=4)
 
-  return _profile(torch, f"{what} round, depth 4 (4 draft steps, W=5 verify, W=5 catch-up; eager)", one_round, 3)
+  # One repetition: the eager round is host-bound and steady, and each
+  # repetition costs the profiler ~10,000 launches to sort.
+  return _profile(torch, f"{what} round, depth 4 (4 draft steps, W=5 verify, W=5 catch-up; eager)", one_round, 1)
 
 
 # ------------------------------------------------------------- 6. batched
@@ -3853,8 +3889,9 @@ def _spec_graph_cases(torch, engine, draft: str, smi: str):
   cross draft 64-token speculative oneshots: tokens, counts and chained
   outputs identical. Then wall and device ms of one captured dispatch
   (``_replay_ms``) beside the eager function's (``_profile``): the n-gram
-  chunk, one draft round, the oneshot and the draft prefill, with each
-  graph's kernel nodes and capture seconds and the graph pool's bytes."""
+  chunk, one draft round and the draft prefill, and the captured oneshot
+  alone, with each graph's kernel nodes and capture seconds and the graph
+  pool's bytes."""
   from xotorch_support_jetson_tpu_torch.models import decoder as dec
   from xotorch_support_jetson_tpu_torch.utils import programs
 
@@ -3944,10 +3981,11 @@ def _spec_graph_cases(torch, engine, draft: str, smi: str):
       None, graphs["spec.batch"], lambda: profile_ngram_chunk(torch, engine), 5,
     )
   else:
-    ct2, cd2 = dec.init_kv_cache(cfg, L_t, 1, CACHE, device="cuda"), dec.init_kv_cache(cfg_d, L_d, 1, CACHE, device="cuda")
+    # The eager oneshot is not timed (PERF.md keeps its time): its profile
+    # of ~150,000 launches took ~40 s of each run.
     rows["speculative oneshot, 64 tokens at depth 4"] = (
       lambda: dec.fused_speculative_generate(params, cfg, shard, params_d, cfg_d, shard_d, 65, progs.cache, progs.draft.cache, 100, 64, gamma=4, programs=progs)[0].cpu(),
-      lambda: dec.fused_speculative_generate(params, cfg, shard, params_d, cfg_d, shard_d, tok, ct2, cd2, 100, 64, gamma=4)[0].cpu(), round_graph, None, 3,
+      None, round_graph, None, 3,
     )
   res["profile"] = {}
   for label, (captured, eager, graph, eager_profile, reps) in rows.items():
@@ -3955,39 +3993,20 @@ def _spec_graph_cases(torch, engine, draft: str, smi: str):
     wall, device = _replay_ms(torch, captured, 1, reps=reps)
     if eager_profile:
       ep = eager_profile()
-    elif "oneshot" in label:
-      ep = _eager_device_ms(torch, eager)
+    elif eager is None:
+      ep = dict(wall_ms=None, device_ms=None, launches=None)
     else:
       ep = _profile(torch, f"graphs spec {draft}: {label} (eager)", eager, 3)
     res["profile"][label] = dict(
       captured_wall_ms=wall, captured_device_ms=device, wall_over_device=wall / device, kernel_nodes=graph.kernel_nodes, capture_s=graph.capture_s,
       eager_wall_ms=ep["wall_ms"], eager_device_ms=ep["device_ms"], eager_launches=ep["launches"],
     )
-    log(f"[profile] graphs spec {draft}: {label}: captured wall {wall:.3f} ms, device {device:.3f} ms (wall/device {wall / device:.3f}) | {graph.kernel_nodes} kernel nodes, capture {graph.capture_s:.3f} s | eager wall {ep['wall_ms']:.3f} ms, device {ep['device_ms']:.3f} ms, {ep['launches']:.0f} launches | {smi} ({time.perf_counter() - t0:.1f} s)")
+    eager_text = "eager not measured in this run" if ep["wall_ms"] is None else f"eager wall {ep['wall_ms']:.3f} ms, device {ep['device_ms']:.3f} ms, {ep['launches']:.0f} launches"
+    log(f"[profile] graphs spec {draft}: {label}: captured wall {wall:.3f} ms, device {device:.3f} ms (wall/device {wall / device:.3f}) | {graph.kernel_nodes} kernel nodes, capture {graph.capture_s:.3f} s | {eager_text} | {smi} ({time.perf_counter() - t0:.1f} s)")
   res["graph_pool_bytes"] = programs.pool_bytes(engine._graph_pool)
   log(f"[profile] graphs spec {draft}: the engine's graph memory pool holds {res['graph_pool_bytes']} bytes (the pair's prefill, step and speculation graphs)")
   del progs, ct, cd
   return res
-
-
-def _eager_device_ms(torch, fn):
-  """One eager call of ``fn``: its wall ms (host clock, card synchronised)
-  and device ms and kernels (torch.profiler with device activity only: a
-  call of ~150,000 launches would take the profiler minutes to sort with
-  its host events)."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
-
-  torch.cuda.synchronize()
-  t0 = time.perf_counter()
-  fn()
-  torch.cuda.synchronize()
-  wall_ms = (time.perf_counter() - t0) * 1e3
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    fn()
-    torch.cuda.synchronize()
-  device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-  return dict(wall_ms=wall_ms, device_ms=sum(e.self_device_time_total for e in device) / 1e3, launches=sum(e.count for e in device))
 
 
 def k1_verify_in_replay(torch):
@@ -4448,7 +4467,7 @@ def phase_processes(ckpt: Path):
   cmd = [sys.executable, "-m", "xotorch_support_jetson_tpu_torch.main"]
   port = find_available_port("127.0.0.1")
   t_up = time.perf_counter()
-  proc = subprocess.Popen([*cmd, "--chatgpt-api-host", "127.0.0.1", "--chatgpt-api-port", str(port), "--max-generate-tokens", "16"], cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+  proc = subprocess.Popen([*cmd, "--discovery-module", "none", "--chatgpt-api-host", "127.0.0.1", "--chatgpt-api-port", str(port), "--max-generate-tokens", "16"], cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
   try:
     t0 = time.perf_counter()
     write_tokenizer(ckpt)
@@ -4456,7 +4475,7 @@ def phase_processes(ckpt: Path):
 
     def run_command():
       t0 = time.perf_counter()
-      run = subprocess.run([*cmd, "run", "llama-3.2-1b", "--prompt", CHAT[0]["content"], "--temp", "0", "--max-generate-tokens", "32"], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+      run = subprocess.run([*cmd, "run", "llama-3.2-1b", "--discovery-module", "none", "--prompt", CHAT[0]["content"], "--temp", "0", "--max-generate-tokens", "32"], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
       return run, time.perf_counter() - t0
 
     with ThreadPoolExecutor(1) as pool:
@@ -4495,6 +4514,408 @@ def phase_processes(ckpt: Path):
     proc.communicate()
   log(f"[api] daemon process (started first): up {up_s:.1f} s after its start, served a completion in {served_s:.1f} s (its model loaded beside the run command's), POST /quit -> exit 0 in {quit_s:.2f} s (limit {QUIT_EXIT_S} s)")
   return dict(tokenizer_s=tokenizer_s, run_s=run_s, run_stats=stats, up_s=up_s, served_s=served_s, quit_exit_s=quit_s)
+
+
+# ---------------------------------------------------------------- 8b. ring
+
+RING_MODEL = "llama-3.2-1b"
+RING_BIG_MODEL = ("llama-3.1-8b", {**LLAMA_3_2_1B, "hidden_size": 4096, "intermediate_size": 14336, "num_hidden_layers": 32, "head_dim": 128, "tie_word_embeddings": False})
+# The three daemons: id, layers and reported memory (MB). Memories in a
+# 2 : 1 : 1 ratio give 0-7 / 8-11 / 12-15; the middle reports 1 MB more, so
+# the ring's order (memory descending) puts it before the tail.
+RING_NODES = (("ring-head", (0, 7), 4800), ("ring-middle", (8, 11), 2401), ("ring-tail", (12, 15), 2400))
+RING_WORDS = 70  # the chat content: 70 words of the word-level tokenizer, a 72-token prompt with the template's two
+RING_STEPS = MAX_TOKENS
+RING_FLASH_STEPS = 8
+RING_LAP_REPS = 3
+RING_UP_S = 240  # the three daemons up, their views converged
+RING_DEVICE = "cuda"
+
+
+def ring_chat(stream: bool, model: str = RING_MODEL) -> dict:
+  content = " ".join(f"t{(1000 + 7919 * i) % 120000}" for i in range(RING_WORDS))
+  return {"model": model, "messages": [{"role": "user", "content": content}], "stream": stream, "temperature": 0, "max_tokens": RING_STEPS}
+
+
+def ring_ids(text: str) -> list[int]:
+  """Token ids of a completion of the word-level tokenizer (``write_tokenizer``)."""
+  special = {"<|begin_of_text|>": 128000, "<|eot_id|>": 128009}
+  return [special[w] if w in special else int(w[1:]) for w in text.split()]
+
+
+def phase_ring(torch, ckpt: Path, smi: str, solo: dict | None):
+  """The ring: llama-3.2-1b split over three partial shards, in this
+  process (part a) and as three daemon processes (part b). The daemons
+  start first, and their start-up and warm-up request overlap part a's
+  loads and checks; part a's timing waits for them."""
+  daemons = _start_ring_daemons(ckpt)
+  warm = threading.Thread(target=_warm_ring_daemons, args=(daemons,), daemon=True)
+  warm.start()
+  try:
+    os.environ["XOT_TPU_MODEL_DIR"] = str(ckpt)
+    for knob in SERVING_KNOBS:
+      os.environ.pop(knob, None)
+    part_a = asyncio.run(_ring_in_process(torch, smi, quiet=lambda: warm.join(RING_UP_S)))
+    os.environ.pop("XOT_TPU_MODEL_DIR", None)
+    part_b = _ring_daemons(daemons, smi, part_a, solo)
+  finally:
+    _stop_ring_daemons(daemons)
+  return dict(in_process=part_a, daemons=part_b, launches={k: part_a["launches"].get(k, 0) for k in ("flash_prefill", "flash_decode", "int4_matmul")}, daemon_launches=part_b["launches"])
+
+
+async def _ring_engines(shards):
+  from xotorch_support_jetson_tpu_torch.download.downloader import new_shard_downloader
+  from xotorch_support_jetson_tpu_torch.inference.torch_engine import TorchShardedInferenceEngine
+
+  engines = [TorchShardedInferenceEngine(new_shard_downloader()) for _ in shards]
+  for e, s in zip(engines, shards):
+    await e.ensure_shard(s)
+  return engines
+
+
+async def _ring_lap(engines, shards, rid, x, state, hops=None):
+  """One hop through each shard, each hidden state moved to the host as
+  the peer transport moves it."""
+  for e, s in zip(engines, shards):
+    x, state = await e.infer_tensor(rid, s, x, state)
+    if hops is not None:
+      hops.append(x)
+  return x, state
+
+
+async def _ring_generate(engines, shards, rid, ids, steps, hops=None, lap_s=None):
+  """Greedy ids of ``steps`` laps (the prefill's and each step's), chained
+  by hand; each lap's host seconds go to ``lap_s``."""
+  import torch
+
+  logits, state = await _ring_lap(engines, shards, rid, np.asarray([ids], np.int32), None, hops)
+  first_logits, out = logits, [int(np.argmax(logits[0]))]
+  for _ in range(steps - 1):
+    t0 = time.perf_counter()
+    logits, state = await _ring_lap(engines, shards, rid, np.asarray([[out[-1]]], np.int32), state, hops)
+    out.append(int(np.argmax(logits[0])))
+    if lap_s is not None:
+      torch.cuda.synchronize()
+      lap_s.append(time.perf_counter() - t0)
+  for e in engines:
+    e.end_request(rid)
+  return out, first_logits
+
+
+def _first_difference(got: list[int], ref: list[int], gaps: list[float], valid: int) -> tuple[int, bool]:
+  """(positions that agree before the first difference, whether that
+  difference is allowed): ``got`` may leave ``ref`` only at a near-tie of
+  the whole model, a position whose top-2 gap (``gaps``, along the whole
+  model's trajectory, which ``ref`` follows over its first ``valid``
+  positions) is within SCORE_GAP_TOL; past ``valid`` the gaps say nothing
+  and a difference is reported, not gated."""
+  k = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b), None)
+  if k is None:
+    return min(len(got), len(ref)), True
+  return k, k >= valid or gaps[k] <= SCORE_GAP_TOL
+
+
+async def _ring_in_process(torch, smi, quiet=None):
+  """Part a; ``quiet`` (blocking) returns once the daemons' warm-up has
+  ended, before the timed laps."""
+  from xotorch_support_jetson_tpu_torch.api.chatgpt_api import Message, build_prompt
+  from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+  from xotorch_support_jetson_tpu_torch.models.decoder import init_kv_cache, shard_forward
+  from xotorch_support_jetson_tpu_torch.networking.tcp.serialization import encode_frame, state_fields
+  from xotorch_support_jetson_tpu_torch.utils.programs import ledger
+
+  shards = [Shard(RING_MODEL, a, b, 16) for _, (a, b), _ in RING_NODES]
+  full_shard = Shard(RING_MODEL, 0, 15, 16)
+  t0 = time.perf_counter()
+  (full,) = await _ring_engines([full_shard])
+  prompt = build_prompt(full.tokenizer, [Message("user", ring_chat(False)["messages"][0]["content"])])
+  ids = [int(t) for t in full.tokenizer.encode(prompt)]
+  if len(ids) != RING_WORDS + 2:
+    raise SystemExit(f"chip_smoke: [ring] the chat prompt has {len(ids)} tokens, expected {RING_WORDS + 2}")
+  # The whole model's reference: its captured prefill's logits, its greedy
+  # ids, and the top-2 gap of the plain forward at every answer position.
+  ref_logits, _ = await full.infer_tensor("ring-ref", full_shard, np.asarray([ids], np.int32))
+  first = int(np.argmax(ref_logits[0]))
+  ref_ids = [first] + await full.generate_oneshot("ring-ref", full_shard, first, RING_STEPS - 1, (), 0.0, 35)
+  full.end_request("ring-ref")
+  seq = torch.tensor([ids + ref_ids[:-1]], dtype=torch.int32, device=RING_DEVICE)
+  with torch.no_grad():
+    all_logits, _ = shard_forward(full.params, full.cfg, full._effective_shard, seq, torch.arange(seq.shape[1], dtype=torch.int32, device=RING_DEVICE)[None], None)
+  top2 = all_logits[0, len(ids) - 1 :].float().topk(2, dim=-1).values
+  gaps = (top2[:, 0] - top2[:, 1]).tolist()
+  eos = set(full.cfg.eos_token_ids)
+  del full, all_logits
+  gc.collect()
+  torch.cuda.empty_cache()
+  engines = await _ring_engines(shards)
+  load_s = time.perf_counter() - t0
+  # Warm-up: one chained request builds and captures every program.
+  await _ring_generate(engines, shards, "ring-warm", ids, 4)
+  snap0 = ledger.snapshot()["families"]
+  builds0 = {f: (snap0.get(f, {}).get("compiles", 0), snap0.get(f, {}).get("captures", 0)) for f in ("ring.prefill", "ring.step")}
+  _reset_launches()  # ---- the ring's main path, counted
+  hops = []
+  ring_ids_, tail_logits = await _ring_generate(engines, shards, "ring-a", ids, RING_STEPS, hops=hops)
+  launches = {n: _launched(n) for n in ("flash_prefill", "flash_decode", "int4_matmul")}  # ---- read just after
+  snap1 = ledger.snapshot()["families"]
+  builds1 = {f: (snap1[f]["compiles"], snap1[f].get("captures", 0)) for f in ("ring.prefill", "ring.step")}
+  if builds1 != builds0:
+    raise SystemExit(f"chip_smoke: [ring] programs were built after the warm-up: {builds0} -> {builds1}")
+  if launches["flash_prefill"] != 16 or launches["flash_decode"] or launches["int4_matmul"]:
+    raise SystemExit(f"chip_smoke: [ring] launches of one chained request {launches}: K1 must run once per layer of each shard's prefill (8 + 4 + 4)")
+  err = _rel_err(torch.from_numpy(tail_logits), torch.from_numpy(ref_logits))
+  if not err < 5e-2:
+    raise SystemExit(f"chip_smoke: [ring] the tail's prefill logits are {err:.3e} (relative L2) from the whole model's")
+  n_gate, ok = _first_difference(ring_ids_, ref_ids, gaps, len(ref_ids))
+  if not ok:
+    raise SystemExit(f"chip_smoke: [ring] chained greedy ids leave the whole model's at position {n_gate}, where its top-2 gap {gaps[n_gate]:.4f} is above {SCORE_GAP_TOL}:\n{ring_ids_}\n{ref_ids}")
+  log(f"[ring] in-process: shards {[(s.start_layer, s.end_layer) for s in shards]} loaded (and the whole model for the reference) in {load_s:.1f} s; a 72-token prompt, {RING_STEPS} greedy laps chained by hand")
+  log(f"[ring] launches of the counted request: {launches} (K1 8 + 4 + 4 = 16 per chained prefill; no build or capture after the warm-up: {builds1})")
+  log(f"[ring] tail prefill logits vs the whole model's: {err:.3e} relative L2 (gate 5e-2); ids equal the whole model's over the first {n_gate} of {len(ref_ids)} (a difference is allowed only at a near-tie, a top-2 gap within {SCORE_GAP_TOL}; {sum(g <= SCORE_GAP_TOL for g in gaps)} of the {len(gaps)} positions are, the smallest gap {min(gaps):.4f} at {int(np.argmin(gaps))})")
+  # Captured against uncaptured, per shard: the prefill and one step on a
+  # fresh cache, from the same inputs the counted request's hops had.
+  x_pre = np.zeros((1, 128), np.int32)
+  x_pre[0, : len(ids)] = ids
+  inputs = [torch.from_numpy(x_pre).to(RING_DEVICE), hops[0].to(RING_DEVICE), hops[1].to(RING_DEVICE)]
+  step_inputs = [torch.tensor([[ring_ids_[0]]], dtype=torch.int32, device=RING_DEVICE), hops[3].to(RING_DEVICE), hops[4].to(RING_DEVICE)]
+  captured = [hops[0], hops[1], torch.from_numpy(tail_logits)], [hops[3], hops[4], torch.from_numpy(np.asarray(hops[5]))]
+  checks = []
+  for i, e in enumerate(engines):
+    cfg, shard, params = e.cfg, e._effective_shard, e.params
+    cache = init_kv_cache(cfg, shard.n_shard_layers, 1, CACHE, device=RING_DEVICE)
+    last = shard.is_last_layer
+    with torch.no_grad():
+      y, _ = shard_forward(params, cfg, shard, inputs[i], torch.arange(128, dtype=torch.int32, device=RING_DEVICE)[None], cache, head_pos=torch.tensor([len(ids) - 1], device=RING_DEVICE) if last else None)
+      y = y[:, 0, :].float().cpu() if last else y.cpu()
+      z, _ = shard_forward(params, cfg, shard, step_inputs[i], torch.tensor([[len(ids)]], dtype=torch.int32, device=RING_DEVICE), cache)
+      z = z[:, 0, :].float().cpu() if last else z.cpu()
+    pe, se = _rel_err(captured[0][i].float(), y.float()), _rel_err(captured[1][i].float(), z.float())
+    if not (pe < 5e-2 and se < 5e-2) or (not last and (hops[i].dtype != torch.bfloat16 or hops[3 + i].dtype != torch.bfloat16)):
+      raise SystemExit(f"chip_smoke: [ring] shard {i}: captured prefill / step {pe:.3e} / {se:.3e} from the uncaptured forward, or a hop not in bf16")
+    checks.append(dict(shard=(shard.start_layer, shard.end_layer), prefill_rel_err=pe, step_rel_err=se, prefill_equal=bool(torch.equal(captured[0][i].float(), y.float())), step_equal=bool(torch.equal(captured[1][i].float(), z.float()))))
+  log(f"[ring] captured vs uncaptured per shard (prefill, step; relative L2, bit-equal): {[(c['shard'], round(c['prefill_rel_err'], 6), round(c['step_rel_err'], 6), c['prefill_equal'], c['step_equal']) for c in checks]}")
+  # The bytes each hop carries: the hidden state (bf16) and the frame the
+  # peer transport sends with it (the state's token history included).
+  _, st = await engines[0].infer_tensor("ring-bytes", shards[0], np.asarray([ids], np.int32), None)
+  prefill_frame = len(encode_frame({"state": state_fields(st)[0]}, {"tensor": hops[0], "state_tokens": st.tokens}))
+  step_frame = len(encode_frame({"state": state_fields(st)[0]}, {"tensor": hops[3], "state_tokens": st.tokens}))
+  engines[0].end_request("ring-bytes")
+  hop_bytes = dict(prefill_tensor=hops[0].numel() * hops[0].element_size(), step_tensor=hops[3].numel() * hops[3].element_size(), prefill_frame=prefill_frame, step_frame_at_prompt=step_frame)
+  log(f"[ring] bytes per hop: prefill hidden state {hop_bytes['prefill_tensor']} B ({hop_bytes['prefill_tensor'] / 1024:.0f} KiB, 128 x 2048 bf16), a step's {hop_bytes['step_tensor']} B; frames with the state: {prefill_frame} B and {step_frame} B")
+  # K2 on the ring: each shard's step with XOT_TPU_FLASH_DECODE=1.
+  os.environ.update(XOT_TPU_FLASH_DECODE="1", XOT_TPU_FLASH_DECODE_MIN=str(CACHE))
+  try:
+    _reset_launches()
+    flash_ids, _ = await _ring_generate(engines, shards, "ring-k2", ids, RING_FLASH_STEPS + 1)
+    launches["flash_decode"] = _launched("flash_decode")
+    launches["flash_prefill"] += _launched("flash_prefill")
+  finally:
+    os.environ.pop("XOT_TPU_FLASH_DECODE"), os.environ.pop("XOT_TPU_FLASH_DECODE_MIN")
+  if launches["flash_decode"] != 16 * RING_FLASH_STEPS:
+    raise SystemExit(f"chip_smoke: [ring] K2 launched {launches['flash_decode']} times in {RING_FLASH_STEPS} ring steps (16 per lap)")
+  log(f"[ring] XOT_TPU_FLASH_DECODE=1: K2 {launches['flash_decode']} launches in {RING_FLASH_STEPS} laps (once per layer of each shard's step); ids agree with the default ring's on {sum(a == b for a, b in zip(flash_ids, ring_ids_))}/{len(flash_ids)}")
+  # K4 on the ring: the three shards loaded again with XOT_TPU_QUANT=int4.
+  os.environ["XOT_TPU_QUANT"] = "int4"
+  try:
+    int4_engines = await _ring_engines(shards)
+    _reset_launches()
+    int4_ids, _ = await _ring_generate(int4_engines, shards, "ring-int4", ids, RING_FLASH_STEPS + 1)
+    launches["int4_matmul"] = _launched("int4_matmul")
+    launches["flash_prefill"] += _launched("flash_prefill")
+    for e in int4_engines:
+      e.executor.shutdown(wait=True)
+    del int4_engines
+  finally:
+    os.environ.pop("XOT_TPU_QUANT")
+  gc.collect()
+  torch.cuda.empty_cache()
+  if not launches["int4_matmul"]:
+    raise SystemExit("chip_smoke: [ring] K4 never launched on int4 shards")
+  log(f"[ring] XOT_TPU_QUANT=int4: K4 {launches['int4_matmul']} launches in a prefill and {RING_FLASH_STEPS} laps (7 products per layer and the tail's head: 113 a lap); ids agree with bf16 on {sum(a == b for a, b in zip(int4_ids, ring_ids_))}/{len(int4_ids)}")
+  # Timing, on a quiet card (the daemons' warm-up request has ended): the
+  # per-token lap of a chained request against each shard's captured step,
+  # device time (CUDA events behind a spin kernel), summed over the three.
+  if quiet is not None:
+    await asyncio.to_thread(quiet)
+  lap_s = []
+  await _ring_generate(engines, shards, "ring-lap", ids, RING_STEPS, lap_s=lap_s)
+  step_ms = []
+  for i, e in enumerate(engines):
+    await e.infer_tensor("ring-time", shards[i], np.asarray([ids], np.int32) if i == 0 else hops[i - 1], None)
+    progs, x = e.sessions["ring-time"].programs, step_inputs[i].cpu() if i else np.asarray([[ring_ids_[0]]], np.int32)
+    wall, dev = _replay_ms(torch, lambda: progs.forward(x, len(ids)), 1)
+    step_ms.append(dict(wall_ms=wall, device_ms=dev))
+    e.end_request("ring-time")
+  lap_ms = sorted(1e3 * s for s in lap_s)
+  lap = dict(median_ms=lap_ms[len(lap_ms) // 2], mean_ms=sum(lap_ms) / len(lap_ms), min_ms=lap_ms[0], device_sum_ms=sum(s["device_ms"] for s in step_ms), steps=step_ms)
+  log(f"[ring] per-token lap (3 hops chained by hand, hidden states through the host; {smi}): median {lap['median_ms']:.3f} ms, mean {lap['mean_ms']:.3f}, min {lap['min_ms']:.3f} against the three captured steps' device time {lap['device_sum_ms']:.3f} ms ({', '.join(f'{s['device_ms']:.3f}' for s in step_ms)}; wall {', '.join(f'{s['wall_ms']:.3f}' for s in step_ms)})")
+  for e in engines:
+    e.executor.shutdown(wait=True)
+  del engines
+  gc.collect()
+  torch.cuda.empty_cache()
+  return dict(prompt_tokens=len(ids), ids=ring_ids_, ref_ids=ref_ids, gaps=gaps, gated=n_gate, tail_rel_err=err, launches=launches, checks=checks, hop_bytes=hop_bytes, lap=lap, load_s=load_s, eos=sorted(eos))
+
+
+def _ring_metrics_launches(port: int) -> dict:
+  _, text = _http(port, "GET", "/metrics", timeout=60)
+  out = {}
+  for line in text.splitlines():
+    if line.startswith("xot_tpu_kernel_launches_total{"):
+      name = line.split('kernel="', 1)[1].split('"', 1)[0]
+      out[name] = int(float(line.rsplit(" ", 1)[1]))
+  return out
+
+
+def _ring_request(port: int, body: dict) -> dict:
+  """One chat request: its ids, and for a stream the client's TTFT and
+  decode rate."""
+  t0 = time.perf_counter()
+  st, raw = _http(port, "POST", "/v1/chat/completions", body)
+  total = time.perf_counter() - t0
+  if st != 200:
+    raise SystemExit(f"chip_smoke: [ring] chat on port {port}: {st} {raw[:600]}")
+  if not body["stream"]:
+    return dict(ids=ring_ids(json.loads(raw)["choices"][0]["message"]["content"]), total_s=total)
+  # A stream read whole here: its TTFT comes from a second, streamed read.
+  text = "".join(ev["choices"][0]["delta"].get("content") or "" for ev in _sse(raw) if ev.get("choices"))
+  return dict(ids=ring_ids(text), total_s=total)
+
+
+def _start_ring_daemons(ckpt: Path) -> dict:
+  """Start three daemon processes on the card, a ring through manual
+  discovery on 127.0.0.1, the weights found under their ``XOT_TPU_HOME``
+  (with llama-3.1-8b's ``config.json`` alone beside them)."""
+  from xotorch_support_jetson_tpu_torch import registry
+  from xotorch_support_jetson_tpu_torch.download.downloader import repo_to_dirname
+  from xotorch_support_jetson_tpu_torch.utils.helpers import find_available_port
+
+  home = ROOT / "build" / "ring_home"
+  shutil.rmtree(home, ignore_errors=True)
+  downloads = home / "downloads"
+  downloads.mkdir(parents=True)
+  (downloads / repo_to_dirname(registry.get_repo(RING_MODEL, "TorchShardedInferenceEngine"))).symlink_to(ckpt.resolve(), target_is_directory=True)
+  big = downloads / repo_to_dirname(registry.get_repo(RING_BIG_MODEL[0], "TorchShardedInferenceEngine"))
+  big.mkdir()
+  (big / "config.json").write_text(json.dumps(RING_BIG_MODEL[1]))  # its geometry only: the 507 request loads nothing
+  node_ports = [find_available_port("127.0.0.1") for _ in RING_NODES]
+  api_ports = [find_available_port("127.0.0.1") for _ in RING_NODES]
+  config = home / "ring.json"
+  config.write_text(json.dumps({"peers": {nid: {"address": "127.0.0.1", "port": p, "device_capabilities": {"model": "H100", "chip": "gpu", "memory": mb, "flops": {"fp32": 0, "fp16": 0, "int8": 0}}} for (nid, _, mb), p in zip(RING_NODES, node_ports)}}))
+  env = {k: v for k, v in os.environ.items() if k not in SERVING_KNOBS and k != "XOT_TPU_MODEL_DIR"}
+  env["XOT_TPU_HOME"] = str(home)
+  daemons = dict(home=home, api_ports=api_ports, procs=[], logs=[], t_up=time.perf_counter())
+  for (nid, _, mb), np_, ap in zip(RING_NODES, node_ports, api_ports):
+    log_f = open(home / f"{nid}.log", "w")
+    daemons["logs"].append(log_f)
+    daemons["procs"].append(subprocess.Popen(
+      [sys.executable, "-m", "xotorch_support_jetson_tpu_torch.main", "--discovery-module", "manual", "--discovery-config-path", str(config), "--node-id", nid,
+       "--node-host", "127.0.0.1", "--node-port", str(np_), "--chatgpt-api-host", "127.0.0.1", "--chatgpt-api-port", str(ap),
+       "--max-generate-tokens", str(RING_STEPS), "--temp", "0", "--default-model", RING_MODEL],
+      cwd=ROOT, env={**env, "XOT_TPU_MEMORY_MB": str(mb)}, stdout=log_f, stderr=subprocess.STDOUT,
+    ))
+  return daemons
+
+
+def _stop_ring_daemons(daemons: dict) -> None:
+  """Kill whatever still runs, and keep the daemons' logs."""
+  for p in daemons["procs"]:
+    if p.poll() is None:
+      p.kill()
+    p.wait()
+  for f in daemons["logs"]:
+    f.close()
+  out = ROOT / "chiprun_out" / "ring_daemons"
+  out.mkdir(parents=True, exist_ok=True)
+  for nid, _, _ in RING_NODES:
+    src = daemons["home"] / f"{nid}.log"
+    if src.exists():
+      shutil.copyfile(src, out / f"{nid}.log")
+
+
+def _warm_ring_daemons(daemons: dict) -> None:
+  """Wait until every daemon is up and their views converged (every
+  ``/v1/topology`` lists the three with their memories), then send one
+  warm-up request, which loads each shard and captures its programs. Runs
+  on a thread; its outcome goes to ``daemons``."""
+  try:
+    home, procs, api_ports, t_up = daemons["home"], daemons["procs"], daemons["api_ports"], daemons["t_up"]
+    want = {nid for nid, _, _ in RING_NODES}
+    while True:
+      for p, (nid, _, _) in zip(procs, RING_NODES):
+        if p.poll() is not None:
+          raise RuntimeError(f"daemon {nid} exited {p.returncode}: {(home / f'{nid}.log').read_text()[-1500:]}")
+      if time.perf_counter() - t_up > RING_UP_S:
+        raise RuntimeError("the daemons did not come up and converge")
+      try:
+        views = [json.loads(_http(ap, "GET", "/v1/topology", timeout=5)[1]) for ap in api_ports]
+        if all(set(v["nodes"]) == want and all(v["nodes"][nid]["memory"] == mb for nid, _, mb in RING_NODES) for v in views):
+          break
+      except (OSError, ValueError, KeyError):
+        pass
+      time.sleep(0.5)
+    daemons["up_s"] = time.perf_counter() - t_up
+    t0 = time.perf_counter()
+    _ring_request(api_ports[0], {**ring_chat(True), "max_tokens": 4})
+    daemons["warm_s"] = time.perf_counter() - t0
+  except BaseException as e:  # noqa: BLE001 — reported by the main thread
+    daemons["error"] = e
+
+
+def _ring_daemons(daemons: dict, smi: str, part_a: dict, solo: dict | None):
+  """Part b, after the warm-up: the counted requests and the gates."""
+  procs, api_ports = daemons["procs"], daemons["api_ports"]
+  if "error" in daemons or "warm_s" not in daemons:
+    raise SystemExit(f"chip_smoke: [ring] the daemons' start-up or warm-up failed: {daemons.get('error', 'it did not end in time')!r}")
+  up_s, warm_s = daemons["up_s"], daemons["warm_s"]
+  want = {nid for nid, _, _ in RING_NODES}
+  log(f"[ring] three daemons up and converged {up_s:.1f} s after their start, their warm-up request (shard loads, captures) {warm_s:.1f} s, both beside part a: every /v1/topology listed {sorted(want)} with memories {[mb for _, _, mb in RING_NODES]} MB")
+  head, tail = api_ports[0], api_ports[-1]
+  before = [_ring_metrics_launches(p) for p in api_ports]  # ---- the daemons' main path, counted
+  t0 = time.perf_counter()
+  stream = _post(head, ring_chat(True))
+  stream_ids = ring_ids(stream[0])
+  answers = {"head streaming": stream_ids, "head blocking": _ring_request(head, ring_chat(False))["ids"], "tail streaming": _ring_request(tail, ring_chat(True))["ids"]}
+  served_s = time.perf_counter() - t0
+  after = [_ring_metrics_launches(p) for p in api_ports]  # ---- read just after
+  per_node = [{k: a.get(k, 0) - b.get(k, 0) for k in a} for a, b in zip(after, before)]
+  launches = {k: sum(n.get(k, 0) for n in per_node) for k in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
+  want_k1 = [8 * 3, 4 * 3, 4 * 3]
+  if [n.get("flash_prefill", 0) for n in per_node] != want_k1:
+    raise SystemExit(f"chip_smoke: [ring] K1 launches per daemon {[n.get('flash_prefill', 0) for n in per_node]}, expected {want_k1} (its layers, once per prefill of 3 requests)")
+  # Each answer against the in-process ring's ids (which follow the whole
+  # model's over their first ``gated``): it may leave them only at a
+  # near-tie, and without one it ends where they reach an EOS (the text
+  # holds none) or the 64 tokens.
+  ref, eos = part_a["ids"], set(part_a["eos"])
+  ref_text = ref[: next((i for i, t in enumerate(ref) if t in eos), len(ref))]
+  agree = {}
+  for label, got in answers.items():
+    k, ok = _first_difference(got, ref_text, part_a["gaps"], part_a["gated"])
+    agree[label] = k
+    if not ok or (k == min(len(got), len(ref_text)) and len(got) != len(ref_text)):
+      raise SystemExit(f"chip_smoke: [ring] {label}: its ids leave the in-process ring's at {k} (not a near-tie of the whole model), or end elsewhere:\n{got}\n{ref_text}")
+  for ap in api_ports:
+    if set(json.loads(_http(ap, "GET", "/v1/topology")[1])["nodes"]) != want:
+      raise SystemExit(f"chip_smoke: [ring] GET /v1/topology on port {ap} does not list the three nodes")
+  st, raw = _http(head, "POST", "/v1/chat/completions", ring_chat(False, RING_BIG_MODEL[0]))
+  if st != 507 or json.loads(raw)["error"]["type"] != "insufficient_resources":
+    raise SystemExit(f"chip_smoke: [ring] a request for {RING_BIG_MODEL[0]} on the ring answered {st}: {raw[:400]}")
+  ttft, total = stream[2], stream[3]
+  rate = (len(stream_ids) - 1) / max(total - ttft, 1e-9)
+  log(f"[ring] daemons ({smi}): 3 requests in {served_s:.2f} s; positions equal to the in-process ring's ids, of the answer's tokens: {[(k, agree[k], len(v)) for k, v in answers.items()]}")
+  log(f"[ring] launches in the daemons (GET /metrics deltas per node): {per_node}; totals {launches}")
+  solo_line = f"TTFT {solo['ttft_s']:.4f} s, decode {solo['decode_tok_s']:.1f} tok/s" if solo else "not measured in this run"
+  log(f"[ring] streaming on the head: TTFT {ttft:.4f} s, decode {rate:.1f} tok/s over {len(stream_ids)} tokens | the solo phase in this run: {solo_line}")
+  log(f"[ring] a {RING_BIG_MODEL[0]} request (its config under XOT_TPU_HOME, no weights): HTTP {st} insufficient_resources: {json.loads(raw)['error']['message'][:200]}")
+  t1 = time.perf_counter()
+  for ap in api_ports:
+    _http(ap, "POST", "/quit", timeout=30)
+  rcs = [p.wait(timeout=QUIT_EXIT_S) for p in procs]
+  quit_s = time.perf_counter() - t1
+  if any(rcs):
+    raise SystemExit(f"chip_smoke: [ring] the daemons exited {rcs} after POST /quit")
+  return dict(up_s=up_s, warm_s=warm_s, served_s=served_s, answers=answers, agree=agree, launches=launches, per_node=per_node, ttft_s=ttft, decode_tok_s=rate, solo_ttft_s=solo and solo["ttft_s"], solo_decode_tok_s=solo and solo["decode_tok_s"], status_big=st, quit_s=quit_s)
 
 
 def main() -> int:
@@ -4536,6 +4957,7 @@ def main() -> int:
     tiered = timed("tiered", phase_tiered, torch, ckpt)
     batched = timed("batched", phase_batched, torch, ckpt)
     processes = timed("processes", phase_processes, ckpt)
+    ring = timed("ring", phase_ring, torch, ckpt, smi, serving)
     shutil.rmtree(ckpt, ignore_errors=True)
     write_s = timed("gemma2 checkpoint", write_gemma_checkpoint, torch, gemma_dir)
     log(f"[gemma2] wrote a random bf16 gemma-2-9b checkpoint ({sum(f.stat().st_size for f in gemma_dir.iterdir()) / 1e9:.2f} GB, full width and depth) in {write_s:.1f} s")
@@ -4571,6 +4993,7 @@ def main() -> int:
     "batched_spec": [p["spec"]["launches"] for p in [*bp.values(), *batched_int4["passes"].values()]],
     "solo_graphs": [graphs["daemon"]["launches"]], "solo_api": [graphs["daemon"]["api"]["launches"]], "batched_api": [batched["logprobs"]["launches"]],
     "gemma2": [gemma["bf16"]["launches"], gemma["bf16"]["batched"]["launches"]], "gemma2_int4": [gemma["int4"]["launches"]],
+    "ring": [ring["launches"]], "ring_daemons": [ring["daemon_launches"]],
   }
   by_path = {name: {path: sum(x.get(name, 0) for x in runs) for path, runs in paths.items()} for name in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
   for name in ("flash_prefill", "paged_decode"):
@@ -4603,7 +5026,7 @@ def main() -> int:
     {**entry("int4_matmul", "xotorch_support_jetson_tpu_torch/csrc/int4_matmul.cu", "xotorch_support_jetson_tpu/ops/pallas_int4.py:36", kern["int4_matmul"] + kern["int4_matmul_gemma2"], k4_head),
      "gemma2_rows": [{k: r[k] for k in ("weight", "T", "d_in", "d_out", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["int4_matmul_gemma2"]]},
   ]}
-  record = dict(card=smi, phase_s=phase_s, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, processes=processes, gemma2=gemma, summary=kernels_line)
+  record = dict(card=smi, phase_s=phase_s, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, processes=processes, ring=ring, gemma2=gemma, summary=kernels_line)
   out = ROOT / "chiprun_out"
   out.mkdir(exist_ok=True)
   (out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=float))

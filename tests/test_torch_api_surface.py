@@ -85,7 +85,7 @@ class _Daemons:
     self.japi = japi.ChatGPTAPI(self.jnode, JENGINE, response_timeout=120, default_model=MODEL)
     await self.jnode.start()
     self.jrunner = await self.japi.run(host="127.0.0.1", port=self.jport)
-    args = tmain.build_parser().parse_args(["--chatgpt-api-port", str(self.tport), "--temp", "0.0", "--max-generate-tokens", str(MAX_TOKENS), "--node-id", "torch-node"])
+    args = tmain.build_parser().parse_args(["--discovery-module", "none", "--chatgpt-api-port", str(self.tport), "--temp", "0.0", "--max-generate-tokens", str(MAX_TOKENS), "--node-id", "torch-node"])
     self.tnode, self.tapi, self.tengine, _ = tmain.build_components(args)
     await self.tnode.start()
     self.tserver = await self.tapi.run(host="127.0.0.1", port=self.tport)
@@ -560,7 +560,7 @@ def test_registry_helpers_equal_the_reference(model):
   assert (full and full.to_dict()) == (jfull and jfull.to_dict())
   assert tregistry.get_pretty_name(model) == jregistry.get_pretty_name(model)
   assert tregistry.get_family(model) == jregistry.get_family(model)
-  assert set(tregistry.get_supported_models([["torch"]])) == set(tregistry.model_cards)
+  assert set(tregistry.get_supported_models([["torch"]])) == {m for m, card in tregistry.model_cards.items() if card.repo_for(TENGINE)}
   assert tregistry.get_supported_models() == list(tregistry.model_cards)
   assert tregistry.get_supported_models([["jax"]]) == []
 
@@ -639,7 +639,7 @@ def test_download_route_fills_the_progress_of_this_node(tmp_path, monkeypatch, t
   for f in tiny_dir.iterdir():
     (card_dir / f.name).write_bytes(f.read_bytes())
   port = find_available_port("127.0.0.1")
-  args = tmain.build_parser().parse_args(["--chatgpt-api-port", str(port), "--node-id", "dl-node"])
+  args = tmain.build_parser().parse_args(["--discovery-module", "none", "--chatgpt-api-port", str(port), "--node-id", "dl-node"])
 
   async def go():
     node, api, engine, _ = tmain.build_components(args)
@@ -710,7 +710,7 @@ def _port_process(args, env_extra, **kw):
 
 
 def test_run_command_process_exits_zero(tiny_dir, tmp_path):
-  proc = _port_process(["run", MODEL, "--prompt", PROMPT, "--temp", "0", "--max-generate-tokens", "6"], {"XOT_TPU_MODEL_DIR": str(tiny_dir), "XOT_TPU_HOME": str(tmp_path)})
+  proc = _port_process(["run", MODEL, "--discovery-module", "none", "--prompt", PROMPT, "--temp", "0", "--max-generate-tokens", "6"], {"XOT_TPU_MODEL_DIR": str(tiny_dir), "XOT_TPU_HOME": str(tmp_path)})
   out, _ = proc.communicate(timeout=120)
   assert proc.returncode == 0, out
   assert " tokens in " in out and "tok/s" in out
@@ -730,7 +730,7 @@ def _wait_up(port, proc, timeout=60):
 
 def test_quit_stops_a_daemon_process(tiny_dir, tmp_path):
   port = find_available_port("127.0.0.1")
-  proc = _port_process(["--chatgpt-api-host", "127.0.0.1", "--chatgpt-api-port", str(port)], {"XOT_TPU_MODEL_DIR": str(tiny_dir), "XOT_TPU_HOME": str(tmp_path)})
+  proc = _port_process(["--discovery-module", "none", "--chatgpt-api-host", "127.0.0.1", "--chatgpt-api-port", str(port)], {"XOT_TPU_MODEL_DIR": str(tiny_dir), "XOT_TPU_HOME": str(tmp_path)})
   try:
     _wait_up(port, proc)
     assert _http(port, "POST", "/quit")[:1] == (200,)

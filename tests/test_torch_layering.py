@@ -12,10 +12,13 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "xotorch_support_jetson_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "xotorch_support_jetson_tpu")
+# Not installed on the card's machine: the ring carries its RPCs over
+# asyncio streams and validates its config by hand.
+FORBIDDEN_ON_THE_CARD = ("grpc", "google.protobuf", "pydantic", "rich")
 
 
 def _forbidden(module: str) -> bool:
-  return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+  return any(module == f or module.startswith(f + ".") for f in FORBIDDEN + FORBIDDEN_ON_THE_CARD)
 
 
 def _imports(path: Path):
@@ -36,11 +39,20 @@ def test_scan_covers_the_own_copies():
   """The port's own copies of JAX-free reference modules are scanned too."""
   scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
   assert {"inference/ngram.py", "inference/paging.py", "inference/kv_tier.py", "inference/qos.py", "utils/synthetic.py", "download/hf_utils.py", "download/progress.py"} <= scanned
+  assert {
+    "topology/device_capabilities.py", "topology/topology.py", "topology/partitioning.py", "parallel/hbm_planner.py",
+    "networking/peer_handle.py", "networking/discovery.py", "networking/server.py", "networking/retry.py",
+    "networking/tcp/serialization.py", "networking/tcp/tcp_server.py", "networking/tcp/tcp_peer_handle.py",
+    "networking/manual/network_topology_config.py", "networking/manual/manual_discovery.py", "networking/udp/udp_discovery.py",
+    "inference/dummy_engine.py",
+  } <= scanned
 
 
 def test_forbidden_matcher():
   assert _forbidden("xotorch_support_jetson_tpu.models.config")
   assert _forbidden("jax.numpy")
+  assert _forbidden("grpc.aio") and _forbidden("google.protobuf.message") and _forbidden("pydantic") and _forbidden("rich.console")
+  assert not _forbidden("google") and not _forbidden("richer")
   assert not _forbidden("xotorch_support_jetson_tpu_torch.models.config")
   assert not _forbidden("jaxtyping_free_name")
 

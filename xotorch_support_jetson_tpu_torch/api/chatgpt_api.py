@@ -7,7 +7,8 @@ scored after the generation in one forward), ``/v1/chat/token/encode``,
 program ledger), ``POST /v1/warmup`` (build the expected programs before
 traffic), the model-management routes (``/initial_models``, the
 ``/modelpool`` SSE stream, ``POST /download``, ``/v1/download/progress``,
-``DELETE /models/{model_name}``), ``POST /quit``, and the web chat
+``DELETE /models/{model_name}``), ``POST /quit``, the ring's merged
+topology (``GET /topology`` and ``/v1/topology``), and the web chat
 (``GET /`` and the static files of ``tinychat/``).
 
 Counterpart of those routes of the reference's ``api/chatgpt_api.py``, with
@@ -15,6 +16,13 @@ the same request and response shapes: a chat request may carry a QoS
 identity (``priority``/``deadline_ms``/``tenant`` body fields or
 ``x-priority``/``x-deadline-ms``/``x-tenant-id`` headers; a bad value is a
 400), and an overload refusal is a structured 429 with ``Retry-After``.
+A ring whose partition map cannot hold the model answers 507
+``insufficient_resources`` before anything loads. On a ring node,
+``logprobs`` (they need the whole model on one node) and ``?scope=cluster``
+on ``/metrics``, ``/v1/slo``, ``/v1/programs`` and ``/v1/kv/tier`` (the
+cluster pulls are not ported) are refused. ``/metrics`` also carries each
+kernel's launches in this process (``kernel_launches_total{kernel}``: the
+wrappers' host launches plus those inside graph replays).
 The server is a small HTTP/1.1 server on ``asyncio`` streams from the
 standard library (one request per connection, ``Connection: close``), so
 the serving path depends on no web framework.
@@ -38,10 +46,11 @@ from .. import registry
 from ..inference.engine import PromptTooLongError, ServerOverloadedError
 from ..inference.qos import PRIORITY_CLASSES
 from ..orchestration import slo
+from ..parallel.hbm_planner import RingBudgetError
 from ..utils.helpers import DEBUG
 from ..utils.metrics import metrics
 
-_REASONS = {200: "OK", 204: "No Content", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed", 408: "Request Timeout", 413: "Payload Too Large", 429: "Too Many Requests", 500: "Internal Server Error"}
+_REASONS = {200: "OK", 204: "No Content", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed", 408: "Request Timeout", 413: "Payload Too Large", 429: "Too Many Requests", 500: "Internal Server Error", 501: "Not Implemented", 507: "Insufficient Storage"}
 MAX_BODY_BYTES = 16 << 20
 STATIC_DIR = Path(__file__).resolve().parent.parent / "tinychat"
 
@@ -341,6 +350,19 @@ async def _file_response(path: Path | None) -> _Response:
   return _Response(None, data=data, content_type=mimetypes.guess_type(path.name)[0] or "application/octet-stream")
 
 
+def _kernel_launch_lines() -> str:
+  """``kernel_launches_total{kernel}`` in Prometheus text: each kernel's
+  launches in this process so far (host launches and those inside replayed
+  graphs)."""
+  from ..ops import flash_attention, int4_matmul, paged
+  from ..utils.programs import REPLAYED
+
+  host = {**flash_attention.LAUNCHES, **paged.LAUNCHES, **int4_matmul.LAUNCHES}
+  lines = ["# TYPE xot_tpu_kernel_launches_total counter"]
+  lines += [f'xot_tpu_kernel_launches_total{{kernel="{name}"}} {n + REPLAYED.get(name, 0)}' for name, n in sorted(host.items())]
+  return "\n".join(lines) + "\n"
+
+
 class ChatGPTAPI:
   def __init__(self, node, inference_engine_classname: str, response_timeout: float | None = None, default_model: str | None = None, system_prompt: str | None = None):
     self.node = node
@@ -372,6 +394,8 @@ class ChatGPTAPI:
       ("GET", "/v1/slo"): self.handle_slo,
       ("GET", "/v1/kv/tier"): self.handle_kv_tier,
       ("GET", "/v1/programs"): self.handle_programs,
+      ("GET", "/v1/topology"): self.handle_get_topology,
+      ("GET", "/topology"): self.handle_get_topology,
       ("POST", "/v1/warmup"): self.handle_warmup,
       ("GET", "/v1/download/progress"): self.handle_get_download_progress,
       ("POST", "/download"): self.handle_post_download,
@@ -535,14 +559,33 @@ class ChatGPTAPI:
     tokens = tokenizer.encode(prompt)
     return json_response({"length": len(prompt), "num_tokens": len(tokens), "encoded_tokens": [int(t) for t in tokens], "encoded_prompt": prompt})
 
+  def _cluster_scope_refusal(self, request) -> _Response | None:
+    """``?scope=cluster`` on a node with peers: the reference merges its
+    peers' answers through pulls the port has not ported, so it answers 501
+    rather than a local view under a cluster label. Without peers the
+    cluster is this node, as in the reference."""
+    if request.query.get("scope") == "cluster" and getattr(self.node, "peers", None):
+      return json_response({"error": {"message": f"{request.path}?scope=cluster: the cluster pulls are not ported to the PyTorch package yet", "type": "not_implemented"}}, 501)
+    return None
+
+  async def handle_get_topology(self, request, writer):
+    """GET /topology, /v1/topology — the node's merged ring view."""
+    topology = self.node.current_topology
+    return json_response(topology.to_json() if topology else {})
+
   async def handle_metrics(self, request, writer):
-    """GET /metrics — the registry in Prometheus text format (local scope)."""
-    return _Response(None, text=metrics.render_prometheus(), content_type="text/plain; version=0.0.4")
+    """GET /metrics — the registry in Prometheus text format (local scope),
+    and each kernel's launches in this process."""
+    if (refusal := self._cluster_scope_refusal(request)) is not None:
+      return refusal
+    return _Response(None, text=metrics.render_prometheus() + _kernel_launch_lines(), content_type="text/plain; version=0.0.4")
 
   async def handle_slo(self, request, writer):
     """GET /v1/slo — the SLO engine's local report: per-class objectives,
     burn rates over each window, availability and goodput, each rate with
     its raw counts. ``{"enabled": false}`` when ``XOT_TPU_SLO=0``."""
+    if (refusal := self._cluster_scope_refusal(request)) is not None:
+      return refusal
     if not slo.slo_enabled():
       return json_response({"enabled": False, "detail": "SLO engine disabled (XOT_TPU_SLO=0)"})
 
@@ -556,11 +599,13 @@ class ChatGPTAPI:
   async def handle_kv_tier(self, request, writer):
     """GET /v1/kv/tier — the KV memory hierarchy's state, with the
     reference's keys: whether the tier is on, host occupancy and budget,
-    spill and restore totals, and the prefix registry's view. The port has
-    no ring yet, so ``?scope=cluster`` answers with this same local view,
-    as the reference does on a node without peers."""
+    spill and restore totals, and the prefix registry's view. The cluster
+    pulls are not ported: without peers ``?scope=cluster`` answers with
+    this same local view, as the reference does; with peers, 501."""
     from ..inference.kv_tier import kv_tier_enabled, prefix_registry
 
+    if (refusal := self._cluster_scope_refusal(request)) is not None:
+      return refusal
     tier = getattr(getattr(self.node.inference_engine, "_batched_server", None), "tier", None)
     return json_response({
       "enabled": kv_tier_enabled(),
@@ -575,11 +620,13 @@ class ChatGPTAPI:
     """GET /v1/programs — the device-program ledger (utils/programs.py):
     per family the builds, dispatches, steady builds, their seconds and
     signatures, and the port's graph captures and replays; the warmup
-    manifest and the steady flag. The port has no ring yet, so
-    ``?scope=cluster`` answers as the reference does on a node without
-    peers: this snapshot merged alone, with ``unreachable: []``."""
+    manifest and the steady flag. Without peers ``?scope=cluster`` answers
+    as the reference does on a node alone: this snapshot merged alone, with
+    ``unreachable: []``; with peers, 501 (the pulls are not ported)."""
     from ..utils.programs import ProgramLedger, ledger
 
+    if (refusal := self._cluster_scope_refusal(request)) is not None:
+      return refusal
     local = ledger.snapshot()
     local["node_id"] = getattr(self.node, "id", None)
     if request.query.get("scope") != "cluster":
@@ -629,8 +676,12 @@ class ChatGPTAPI:
       queue.put_nowait((list(tokens), is_finished))
 
   async def _tokenizer_for(self, shard):
-    """The serving engine's tokenizer, loading the model if it is not yet."""
+    """The serving engine's tokenizer, loading this node's shard of the
+    model if it is not yet (after the ring's memory check)."""
     engine = self.node.inference_engine
+    check = getattr(self.node, "check_ring_budget", None)
+    if check is not None:
+      check(shard)  # a ring that cannot hold the model loads nothing
     await engine.ensure_shard(self.node.get_current_shard(shard))
     return engine.tokenizer
 
@@ -670,13 +721,16 @@ class ChatGPTAPI:
   def _error_response(self, e: Exception) -> _Response:
     """A generation request's failure → its status: 408 timeout, 400 too
     long a prompt, a structured 429 for an overload refusal (a full queue or
-    page pool, a rate limit, a deadline shed), else 500."""
+    page pool, a rate limit, a deadline shed), 507 for a ring that cannot
+    hold the model, else 500."""
     if isinstance(e, asyncio.TimeoutError):
       return json_response({"detail": "Response generation timed out"}, 408)
     if isinstance(e, PromptTooLongError):
       return json_response({"error": {"message": str(e), "type": "invalid_request_error", "code": "context_length_exceeded"}}, 400)
     if isinstance(e, ServerOverloadedError):
       return overloaded_response(e)
+    if isinstance(e, RingBudgetError):
+      return json_response({"error": {"message": str(e), "type": "insufficient_resources"}}, 507)
     if DEBUG >= 1:
       import traceback
 
@@ -718,6 +772,8 @@ class ChatGPTAPI:
     if self.system_prompt and not any(m.role == "system" for m in chat_request.messages):
       chat_request.messages.insert(0, Message("system", self.system_prompt))
 
+    if chat_request.logprobs and (refusal := self._ring_logprobs_refusal(shard)) is not None:
+      return refusal
     request_id = str(uuid.uuid4())
     self.token_queues[request_id] = asyncio.Queue()
     created = int(time.time())
@@ -771,6 +827,8 @@ class ChatGPTAPI:
     shard = registry.build_base_shard(base.model, self.inference_engine_classname)
     if shard is None:
       return json_response({"detail": f"Unsupported model: {base.model}"}, 400)
+    if logprobs_n and (refusal := self._ring_logprobs_refusal(shard)) is not None:
+      return refusal
 
     request_id = str(uuid.uuid4())
     self.token_queues[request_id] = asyncio.Queue()
@@ -816,6 +874,15 @@ class ChatGPTAPI:
       return self._error_response(e)
     finally:
       await self._close_request(request_id, gen_task)
+
+  def _ring_logprobs_refusal(self, shard) -> _Response | None:
+    """A 400 when this node holds only part of the model (a ring node):
+    the scoring forward needs every layer on one node, and the reference's
+    silent omission of the field is not mirrored."""
+    own = self.node.get_current_shard(shard)
+    if own.is_first_layer and own.is_last_layer:
+      return None
+    return json_response({"error": {"message": f"logprobs need the whole model on one node; this ring splits it (this node holds layers {own.start_layer}-{own.end_layer})", "type": "invalid_request_error", "code": "logprobs_unsupported"}}, 400)
 
   async def _score_logprobs(self, shard, prompt_ids, gen_tokens, top_n: int):
     """(chosen_lp, top_ids, top_lp) for the generated tokens, scored in one

@@ -58,15 +58,24 @@ class InferenceEngine(ABC):
   async def ensure_shard(self, shard: Shard) -> None:
     ...
 
+  def end_request(self, request_id: str) -> None:
+    """Drop the request's per-request state (an engine without any keeps
+    this no-op)."""
+
 
 # engine short-name → classname
-inference_engine_classes: dict[str, str] = {"torch": "TorchShardedInferenceEngine"}
+inference_engine_classes: dict[str, str] = {"torch": "TorchShardedInferenceEngine", "dummy": "DummyInferenceEngine"}
 
 
 def get_inference_engine(inference_engine_name: str, shard_downloader=None, **kwargs) -> InferenceEngine:
-  """Lazy factory; ``kwargs`` go to the engine (``device``, ``tokenizer``)."""
+  """Lazy factory; ``kwargs`` go to the torch engine (``device``,
+  ``tokenizer``). The dummy engine takes none."""
   if inference_engine_name == "torch":
     from .torch_engine import TorchShardedInferenceEngine
 
     return TorchShardedInferenceEngine(shard_downloader, **kwargs)
+  if inference_engine_name == "dummy":
+    from .dummy_engine import DummyInferenceEngine
+
+    return DummyInferenceEngine()
   raise ValueError(f"unknown inference engine: {inference_engine_name!r} (known: {sorted(inference_engine_classes)})")

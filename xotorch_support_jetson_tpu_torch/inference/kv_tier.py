@@ -27,8 +27,9 @@ turns. This module is the second tier:
 - ``PrefixRegistry`` is the bounded index of chain keys this node holds
   (either tier) and of each peer's advertisement. Advertised keys are hints
   for placement and are never dereferenced: a node restores only from its
-  own host tier. The remote half has no caller until the gRPC ring is
-  ported; it is host-only bookkeeping, held against the reference's.
+  own host tier. The remote half has no caller until the ring's
+  disaggregation (``SendKvPages``) is ported; it is host-only
+  bookkeeping, held against the reference's.
 
 The device side of the copies is the engine's batch ops
 (inference/batch_ops.py ``read_pages`` / ``write_pages``): a spill gathers
@@ -271,7 +272,7 @@ class KvTierManager:
     the sender's ``quant`` tag disagrees with this pool's mode (int8 and
     int4 pages can share a byte size, so the tag guard fires first) or when
     the page geometry differs from pages this tier already holds. No caller
-    until the gRPC ring is ported."""
+    until the ring's ``SendKvPages`` is ported."""
     if not keys or not leaves:
       return 0
     if quant is not None and self.kv_quant is not None and quant != self.kv_quant:

@@ -1,7 +1,7 @@
 """QoS layer of the batched scheduler: priority classes, per-tenant fair
 queueing, token-bucket rate limits, and deadline-aware admission. Own copy
 of the reference's ``inference/qos.py`` without its cross-node propagation
-(``QosWire``/``qos_metadata``: there is no ring yet).
+(``QosWire``/``qos_metadata``: not ported to the ring yet).
 
 - PRIORITY CLASSES ``interactive`` / ``standard`` / ``batch``. Selection is
   priority-ordered with an AGING term: a class's effective score is

@@ -1,8 +1,8 @@
 """The unit of model partitioning: a contiguous, inclusive layer range.
 
-Own copy of the reference's ``inference/shard.py``. The solo slice always
-serves the full-model shard; the type stays so engine and registry keep
-the reference's contract.
+Own copy of the reference's ``inference/shard.py``. A node alone serves
+the full-model shard; a ring node serves the range its partition gives it
+(topology/partitioning.py).
 """
 
 from __future__ import annotations

@@ -1,10 +1,9 @@
 """The PyTorch/CUDA inference engine.
 
-Counterpart of the reference's ``inference/jax_engine.py`` for one node
-serving one full model: encode/decode/sample, prompt prefill into a dense
-slot-indexed KV cache (padded to a 128 bucket, per-request ``_Session``),
-chunked decode (``dispatch_chunk``/``read_chunk``) for streaming, one-shot
-decode (``generate_oneshot``) for blocking requests, and ``end_request``.
+Counterpart of the reference's ``inference/jax_engine.py``:
+encode/decode/sample, prompt prefill into a dense slot-indexed KV cache
+(padded to a 128 bucket, per-request ``_Session``), chunked decode
+(``dispatch_chunk``/``read_chunk``) for streaming, one-shot decode (``generate_oneshot``) for blocking requests, and ``end_request``.
 As in the reference, each of these is one device program per dispatch:
 sessions take their cache from an engine-owned pool, and each pooled cache
 carries its captured programs (models/decoder.py ``SoloPrograms``), so a
@@ -22,6 +21,12 @@ runs on one executor thread off the asyncio loop. Caches and pools are
 updated in place by the decoder. ``score_tokens`` (OpenAI ``logprobs``)
 runs one cache-less scoring forward per request, eagerly (uncaptured),
 recorded in the ledger as ``prefill.score_last``.
+
+A ring node loads a partial shard (its layer range; the tied embedding on
+both the head and the tail). Its sessions take ``ShardPrograms``
+(``ring.prefill``, ``ring.step``: one replay per hop) and hand the next
+node a hidden state in the model's dtype; only the tail returns logits.
+Speculation, batching and scoring need the whole model on one node.
 
 It runs on ``cuda`` unless the caller asks for the CPU (``device="cpu"`` or
 ``XOT_TPU_PLATFORM=cpu``); with no card visible it raises.
@@ -64,7 +69,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..models.decoder import SoloPrograms, fused_decode, fused_generate, init_kv_cache, kv_quant_mode, shard_forward
+from ..models.decoder import ShardPrograms, SoloPrograms, fused_decode, fused_generate, init_kv_cache, kv_quant_mode
 from ..utils.helpers import DEBUG, resolve_device
 from ..utils.metrics import FRACTION_BUCKETS, metrics
 from .engine import InferenceEngine, PromptTooLongError
@@ -105,14 +110,15 @@ def _tokenizers_differ(fp_a: dict[str, str] | None, fp_b: dict[str, str] | None)
 
 class _Session:
   __slots__ = (
-    "kv_cache", "programs", "pool_key", "curr_pos", "prompt_len", "max_seq", "next_token_dev", "prompt_np", "draft_cache",
+    "kv_cache", "programs", "pool_key", "epoch", "curr_pos", "prompt_len", "max_seq", "next_token_dev", "prompt_np", "draft_cache",
     "spec_seed_dev", "spec_pos_dev", "spec_known_pos", "spec_inflight_slots",
     "ngram_index", "ngram_unread", "ngram_ewma", "ngram_gamma",
   )
 
-  def __init__(self, programs: SoloPrograms, pool_key: tuple, max_seq: int) -> None:
+  def __init__(self, programs: SoloPrograms | ShardPrograms, pool_key: tuple, max_seq: int, epoch: int = 0) -> None:
     self.programs = programs  # the pooled cache's captured programs (returned to the pool at the end)
     self.pool_key = pool_key
+    self.epoch = epoch  # the request's replay_epoch when this session began
     self.kv_cache = programs.cache
     self.curr_pos = 0
     self.prompt_len = 0
@@ -240,6 +246,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
       start = round(shard.start_layer * cfg.n_layers / shard.n_layers)
       end = round((shard.end_layer + 1) * cfg.n_layers / shard.n_layers) - 1
       eff = Shard(shard.model_id, start, max(start, end), cfg.n_layers)
+    self._refuse_partial_spec(eff)
     self._drop_batched_server()  # its page pool belongs to the old model
     self.params = self._draft_params = None  # free the old model's device memory before loading
     params = load_shard_weights(model_dir, cfg, eff, device=self.device)
@@ -272,6 +279,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
 
   def load_test_model(self, shard: Shard, cfg, params, tokenizer=None) -> None:
     """Directly inject a model (tests)."""
+    self._refuse_partial_spec(shard)
     self._drop_batched_server()
     self.shard = shard
     self._effective_shard = shard
@@ -282,6 +290,13 @@ class TorchShardedInferenceEngine(InferenceEngine):
     self._clear_sessions()
     self.generator.manual_seed(self._seed)
     self._key_gen.manual_seed(self._seed)
+
+  def _refuse_partial_spec(self, shard: Shard) -> None:
+    """Solo speculation (``XOT_TPU_SPEC_DECODE``) needs the whole model on
+    one node; a ring node's partial shard refuses it rather than serve
+    without it (speculation over a ring is not ported)."""
+    if self.spec_decode and not (shard.is_first_layer and shard.is_last_layer):
+      raise ValueError(f"XOT_TPU_SPEC_DECODE={self.spec_decode!r} needs the whole model on one node; this node holds layers {shard.start_layer}-{shard.end_layer} of {shard.n_layers}")
 
   # ---------------------------------------------------------------- draft
 
@@ -443,14 +458,26 @@ class TorchShardedInferenceEngine(InferenceEngine):
     await self.ensure_shard(shard)
     return await asyncio.get_running_loop().run_in_executor(self.executor, self._infer_tensor_sync, request_id, input_data, inference_state)
 
-  def _take_programs(self, B: int, max_seq: int) -> tuple[SoloPrograms, tuple]:
+  def _take_programs(self, B: int, max_seq: int) -> tuple[SoloPrograms | ShardPrograms, tuple]:
     """A dense cache with its captured programs from the pool (a fresh one
     when the pool has none free under this key), and the key it returns
-    under. With a draft loaded, a single-row cache comes paired with the
+    under: ``SoloPrograms`` for a full-model shard, ``ShardPrograms`` for a
+    ring node's partial one. With a draft loaded, a single-row cache comes paired with the
     draft's own cache and programs (``SoloPrograms.draft``): the
     speculative rounds' graphs hold both addresses. The key names the draft
     (its config, shard, KV mode and parameters)."""
     kv = kv_quant_mode()
+    eff = self._effective_shard
+    if not (eff.is_first_layer and eff.is_last_layer):
+      # A ring node's partial shard: its own programs, no draft.
+      key = (B, max_seq, kv, None)
+      free = self._cache_pool.get(key)
+      if free:
+        return free.pop(), key
+      if self._graph_pool is None and self.device.type == "cuda":
+        self._graph_pool = torch.cuda.graph_pool_handle()
+      cache = init_kv_cache(self.cfg, eff.n_shard_layers, B, max_seq, device=self.device)
+      return ShardPrograms(self.params, self.cfg, eff, cache, pool=self._graph_pool), key
     draft = None
     if B == 1 and self._draft_params is not None:
       draft = (self._draft_cfg or self.cfg, self._draft_shard or self._effective_shard, kv, id(self._draft_params))
@@ -468,12 +495,12 @@ class TorchShardedInferenceEngine(InferenceEngine):
     cache = init_kv_cache(self.cfg, self._effective_shard.n_shard_layers, B, max_seq, device=self.device)
     return SoloPrograms(self.params, self.cfg, self._effective_shard, cache, generator=self.generator, pool=self._graph_pool, draft=programs_d), key
 
-  def _new_session(self, request_id: str, B: int) -> _Session:
+  def _new_session(self, request_id: str, B: int, epoch: int = 0) -> _Session:
     """A session on a pooled cache (and, with a draft, its paired draft
     cache)."""
     max_seq = min(self.max_seq_len, self.cfg.max_seq_len)
     programs, key = self._take_programs(B, max_seq)
-    session = self.sessions[request_id] = _Session(programs, key, max_seq)
+    session = self.sessions[request_id] = _Session(programs, key, max_seq, epoch)
     return session
 
   def _drop_session(self, request_id: str) -> None:
@@ -491,12 +518,30 @@ class TorchShardedInferenceEngine(InferenceEngine):
     self._graph_pool = None
 
   def _infer_tensor_sync(self, request_id, input_data, state):
+    """One hop of this shard: a prompt's prefill when the session is new,
+    else one position. The input is token ids [B, S] (numpy, on the head)
+    or the hidden state the shard before sent (a torch tensor in the
+    model's dtype, padded to the head's bucket in the prefill). The tail
+    returns f32 logits [B, V] (numpy), any other shard its hidden state as a
+    torch tensor on the host in the model's dtype. A ``replay_epoch`` in the
+    state other than the session's drops the session first (the request is
+    replayed after a peer's loss, as the reference's engine does)."""
     shard = self._effective_shard
     state = state or InferenceState()
-    x = np.asarray(input_data)
-    is_tokens = x.ndim == 2 and np.issubdtype(x.dtype, np.integer)
+    epoch = int(state.extras.get("replay_epoch", 0))
+    is_tokens = not isinstance(input_data, torch.Tensor)
+    x = np.asarray(input_data) if is_tokens else input_data
+    if is_tokens and not (x.ndim == 2 and np.issubdtype(x.dtype, np.integer)):
+      raise ValueError(f"a shard's input is token ids [B, S] or a hidden-state tensor; got an array of {x.dtype} {x.shape}")
+    if is_tokens != shard.is_first_layer:
+      raise ValueError(f"shard {shard.start_layer}-{shard.end_layer} takes {'token ids' if shard.is_first_layer else 'a hidden state'}")
     B = x.shape[0]
-    session = self.sessions.get(request_id) or self._new_session(request_id, B)
+    session = self.sessions.get(request_id)
+    if session is not None and session.epoch != epoch:
+      self._drop_session(request_id)
+      session = None
+    if session is None:
+      session = self._new_session(request_id, B, epoch)
     if session.curr_pos == 0:
       prompt_len = state.prompt_len or x.shape[1]
       if prompt_len + 1 > session.max_seq:
@@ -512,15 +557,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
         x_in[:, : x.shape[1]] = x
       else:
         x_in = x  # hidden states arrive already padded
-      if is_tokens:
-        out = session.programs.prefill(x_in, prompt_len)  # one captured program per bucket
-      else:
-        S = x_in.shape[1]
-        positions = torch.arange(S, dtype=torch.int32, device=self.device).expand(B, S)
-        head_pos = torch.full((B,), prompt_len - 1, dtype=torch.int64, device=self.device) if shard.is_last_layer else None
-        out, _ = shard_forward(self.params, self.cfg, shard, self._to_device(x_in), positions, session.kv_cache, head_pos=head_pos)
-        if shard.is_last_layer:
-          out = out[:, 0, :]
+      out = session.programs.prefill(x_in, prompt_len)  # one captured program per bucket
       session.curr_pos = session.prompt_len = prompt_len
     else:
       if session.curr_pos >= session.max_seq:
@@ -531,16 +568,12 @@ class TorchShardedInferenceEngine(InferenceEngine):
           state.tokens = np.concatenate([state.tokens, x_step], axis=1)
       else:
         x_step = x
-      if is_tokens:
-        out = session.programs.forward(x_step, session.curr_pos)
-      else:
-        positions = torch.full((B, 1), session.curr_pos, dtype=torch.int32, device=self.device)
-        out, _ = shard_forward(self.params, self.cfg, shard, self._to_device(x_step), positions, session.kv_cache)
-        if shard.is_last_layer:
-          out = out[:, 0, :]
+      out = session.programs.forward(x_step, session.curr_pos)
       session.curr_pos += 1
     state.curr_pos = session.curr_pos
-    return out.float().cpu().numpy(), state
+    if shard.is_last_layer:
+      return out.float().cpu().numpy(), state
+    return out.cpu(), state
 
   def _to_device(self, x: np.ndarray) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(x))

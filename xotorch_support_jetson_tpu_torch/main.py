@@ -14,32 +14,52 @@ exits. ``--models-seed-dir`` moves pre-fetched model directories into the
 downloads home first. SIGINT or SIGTERM (also ``POST /quit``) stops the
 daemon: the API stops taking requests and the node waits for outstanding
 ones (``XOT_TPU_DRAIN_S``); a second signal stops it at once. Counterpart
-of the reference's ``main.py`` daemon wiring without the ring: one node
-serves the whole model.
+of the reference's ``main.py`` daemon wiring.
+
+Nodes form a ring that splits the model's layers by their memory
+(``XOT_TPU_MEMORY_MB`` overrides the probed figure). Each node runs a peer
+server on ``--node-host``:``--node-port`` (a free port by default) and
+finds its peers with ``--discovery-module``: ``udp`` (the default, as in
+the reference: beacons to ``--broadcast-port``, listening on
+``--listen-port``, ``--allowed-node-ids``, ``--interface-type-filter``,
+peers dropped after ``--discovery-timeout`` s of silence), ``manual`` (the
+JSON file ``--discovery-config-path`` names, re-read when it changes) or
+``none`` (a node alone). ``--wait-for-peers N`` holds the start until N
+peers are found. ``--inference-engine dummy`` serves the ``dummy`` model
+without weights.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import signal
 import time
 import uuid
 
 from . import registry
 from .inference.engine import get_inference_engine, inference_engine_classes
-from .utils.helpers import get_or_create_node_id
+from .inference.shard import Shard
+from .utils.helpers import find_available_port, get_or_create_node_id
 
 
 def build_parser() -> argparse.ArgumentParser:
-  parser = argparse.ArgumentParser(prog="xot-torch", description="PyTorch/CUDA LLM serving daemon (solo node)")
+  parser = argparse.ArgumentParser(prog="xot-torch", description="PyTorch/CUDA LLM serving daemon")
   parser.add_argument("command", nargs="?", choices=["run"], help="command to run (default: the daemon with its API server)")
   parser.add_argument("model_name", nargs="?", help="model id (see the registry)")
   parser.add_argument("--default-model", type=str, default="llama-3.2-1b")
   parser.add_argument("--node-id", type=str, default=None)
-  # The port has no peer discovery yet; "none" is accepted so the
-  # reference's command line runs unchanged.
-  parser.add_argument("--discovery-module", type=str, choices=["none"], default="none")
+  parser.add_argument("--node-host", type=str, default="0.0.0.0")
+  parser.add_argument("--node-port", type=int, default=None)
+  parser.add_argument("--listen-port", type=int, default=5678)
+  parser.add_argument("--broadcast-port", type=int, default=5678)
+  parser.add_argument("--discovery-module", type=str, choices=["udp", "manual", "none"], default="udp")
+  parser.add_argument("--discovery-timeout", type=int, default=30)
+  parser.add_argument("--discovery-config-path", type=str, default=None)
+  parser.add_argument("--wait-for-peers", type=int, default=0)
+  parser.add_argument("--allowed-node-ids", type=str, default=None, help="comma-separated")
+  parser.add_argument("--interface-type-filter", type=str, default=None, help="comma-separated interface types UDP discovery may adopt peers from (e.g. ethernet,wifi)")
   parser.add_argument("--chatgpt-api-host", type=str, default="0.0.0.0")
   parser.add_argument("--chatgpt-api-port", type=int, default=52415)
   parser.add_argument("--chatgpt-api-response-timeout", type=int, default=None)
@@ -55,29 +75,83 @@ def build_parser() -> argparse.ArgumentParser:
   return parser
 
 
+def build_discovery(args, node_id: str, node_port: int):
+  """The ``--discovery-module`` the arguments name, creating TCP peer
+  handles."""
+  from .networking.discovery import NoDiscovery
+  from .networking.tcp.tcp_peer_handle import TCPPeerHandle
+
+  if args.discovery_module == "udp":
+    from .networking.udp.udp_discovery import UDPDiscovery
+
+    return UDPDiscovery(
+      node_id, node_port, args.listen_port, args.broadcast_port, TCPPeerHandle,
+      discovery_timeout=args.discovery_timeout,
+      allowed_node_ids=args.allowed_node_ids.split(",") if args.allowed_node_ids else None,
+      allowed_interface_types=args.interface_type_filter.split(",") if args.interface_type_filter else None,
+    )
+  if args.discovery_module == "manual":
+    from .networking.manual.manual_discovery import ManualDiscovery
+
+    if not args.discovery_config_path:
+      raise ValueError("--discovery-config-path is required with --discovery-module manual")
+    return ManualDiscovery(args.discovery_config_path, node_id, TCPPeerHandle)
+  return NoDiscovery()
+
+
 def build_components(args, tokenizer=None, device=None):
-  """Wire downloader → engine → node → API. ``tokenizer`` (optional) is
-  handed to the engine instead of one resolved from the checkpoint."""
+  """Wire downloader → engine → discovery → node → peer server → API.
+  ``tokenizer`` (optional) is handed to the torch engine instead of one
+  resolved from the checkpoint."""
   from .api.chatgpt_api import ChatGPTAPI
   from .download.downloader import new_shard_downloader
-  from .orchestration.node import Node
+  from .networking.tcp.tcp_server import TCPServer
+  from .orchestration.node import Node, refuse_unported_ring_knobs
 
+  refuse_unported_ring_knobs()
+  node_id = args.node_id or get_or_create_node_id()
+  node_port = args.node_port or find_available_port(args.node_host)
   downloader = new_shard_downloader()
-  engine = get_inference_engine(args.inference_engine, downloader, device=device, tokenizer=tokenizer)
+  engine_kwargs = {"device": device, "tokenizer": tokenizer} if args.inference_engine == "torch" else {}
+  engine = get_inference_engine(args.inference_engine, downloader, **engine_kwargs)
   engine_classname = type(engine).__name__
   node = Node(
-    args.node_id or get_or_create_node_id(),
+    node_id,
     engine,
     max_generate_tokens=args.max_generate_tokens,
     default_sample_temp=args.temp,
     default_sample_top_k=args.top_k,
     shard_downloader=downloader,
+    discovery=build_discovery(args, node_id, node_port),
   )
+  node.server = TCPServer(node, args.node_host, node_port)
+
+  def on_opaque_status(request_id: str, status: str) -> None:
+    # When any node starts a prompt, every node loads its own shard of that
+    # model (the reference's preload).
+    try:
+      data = json.loads(status)
+      if data.get("type") == "node_status" and data.get("status") == "start_process_prompt":
+        base = data.get("base_shard", {})
+        base_shard = Shard(base["model_id"], int(base["start_layer"]), int(base["end_layer"]), int(base["n_layers"]))
+        node.spawn(engine.ensure_shard(node.get_current_shard(base_shard)))
+    except Exception:  # noqa: BLE001 — a preload is best-effort
+      pass
+
+  node.on_opaque_status.register("preload").on_next(on_opaque_status)
+  last_broadcast: dict = {}
 
   def on_progress(shard, event) -> None:
-    # The reference broadcasts this to its peers and every node (itself
-    # included) keeps it per node id; a solo node keeps its own.
+    # Every node keeps each node's latest progress; peers hear it by a
+    # broadcast at most every 0.2 s (and at the end).
     node.node_download_progress[node.id] = event.to_dict()
+    if not node.peers:
+      return
+    now = time.time()
+    if now - last_broadcast.get(shard, 0) < 0.2 and event.status != "complete":
+      return
+    last_broadcast[shard] = now
+    node.spawn(node.broadcast_opaque_status("", json.dumps({"type": "download_progress", "node_id": node.id, "progress": event.to_dict()})))
 
   downloader.on_progress.register("node").on_next(on_progress)
   api = ChatGPTAPI(node, engine_classname, response_timeout=args.chatgpt_api_response_timeout, default_model=args.default_model, system_prompt=args.system_prompt)
@@ -143,7 +217,7 @@ async def async_main(args) -> None:
     except OSError as e:  # seeding is best-effort, as in the reference
       print(f"error seeding models from {args.models_seed_dir}: {e}")
   node, api, _engine, engine_classname = build_components(args)
-  await node.start()
+  await (node.start(args.wait_for_peers) if args.wait_for_peers else node.start())
   stop_event = asyncio.Event()
   force_event = asyncio.Event()  # a second signal: skip the drain
   loop = asyncio.get_running_loop()

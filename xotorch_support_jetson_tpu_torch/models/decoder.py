@@ -21,7 +21,9 @@ loops (``fused_decode``, ``fused_generate``), greedy speculative decoding
 with a draft model (``fused_speculative_generate`` / ``_chunk``) and the
 draft-free speculative chunk (``fused_spec_batch_decode``); with
 ``SoloPrograms`` each prefill bucket, decode step, speculative round and
-draft-free chunk is one CUDA-graph replay. ``score_last_tokens`` (OpenAI
+draft-free chunk is one CUDA-graph replay. A ring node's partial shard runs
+its prefill bucket and its one-position step as one replay each
+(``ShardPrograms``). ``score_last_tokens`` (OpenAI
 ``logprobs``) scores a sequence's last tokens in one cache-less forward. The batched
 programs at the end run against a page pool (ops/paged.py) instead, also
 updated in place: the admission prefill, the plain and mixed decode
@@ -778,6 +780,107 @@ class SoloPrograms:
 
     self._graph(key, "spec.batch", body, generators=(self._spec_gen,)).run(dev, "spec.batch", seed=0)
     return tuple(bufs[name].clone() for name in outs)
+
+
+class ShardPrograms:
+  """The captured programs of a partial shard's dense slot cache: a ring
+  node's counterparts of the reference's jitted ``_prefill`` and
+  ``_decode_step`` (inference/jax_engine.py), one CUDA-graph replay per
+  dispatch.
+
+  - ``prefill`` — one prompt padded to its bucket, from position 0
+    (family ``ring.prefill``): one graph per bucket width;
+  - ``forward`` — one position per row (family ``ring.step``): one graph.
+
+  The head (layer 0) is entered with token ids, every other shard with the
+  hidden state the shard before it sent, already padded to the head's
+  bucket; each arrives by a copy into the graph's input buffer. The tail
+  (the last layer) returns logits [B, V] in f32: in the prefill those of
+  position ``prompt_len - 1``, gathered through ``head_pos``, a device
+  buffer filled per call, so no capture bakes a prompt length. Any other
+  shard returns its hidden state in the model's dtype: [B, S, D] from the
+  prefill, [B, 1, D] from a step. The step reads its position from the
+  ``pos`` buffer. Outputs are copied out of the graphs' buffers. On the CPU
+  every program runs its body eagerly through the same buffers."""
+
+  def __init__(self, params, cfg: ModelConfig, shard: Shard, cache, pool=None) -> None:
+    if shard.is_first_layer and shard.is_last_layer:
+      raise ValueError("a full-model shard takes SoloPrograms")
+    self.params, self.cfg, self.shard, self.cache, self.pool = params, cfg, shard, cache, pool
+    k = cache["k"]
+    B, S, dev = k.shape[1], k.shape[2], k.device
+    self.B, self.max_seq, self.device = B, S, dev
+    self.pos = torch.zeros((B,), dtype=torch.int32, device=dev)
+    self.head_pos = torch.zeros((B,), dtype=torch.int64, device=dev)
+    self.step_in = self._input((B, 1))
+    self.step_out = torch.zeros((B, 1, cfg.vocab_size if shard.is_last_layer else cfg.dim), dtype=torch.float32 if shard.is_last_layer else cfg.dtype, device=dev)
+    self._buckets: dict[int, tuple] = {}
+    self._graphs: dict[tuple, Graph] = {}
+
+  def _input(self, shape: tuple) -> torch.Tensor:
+    if self.shard.is_first_layer:
+      return torch.zeros(shape, dtype=torch.int32, device=self.device)
+    return torch.zeros((*shape, self.cfg.dim), dtype=self.cfg.dtype, device=self.device)
+
+  def _graph(self, key: tuple, family: str, body) -> Graph:
+    key = key + routing_knobs()
+    g = self._graphs.get(key)
+    if g is None:
+      g = self._graphs[key] = Graph(family, body, pool=self.pool)
+    return g
+
+  def graphs(self) -> list[Graph]:
+    return list(self._graphs.values())
+
+  def _fill(self, buf: torch.Tensor, x) -> None:
+    if isinstance(x, torch.Tensor):
+      buf.copy_(x.reshape(buf.shape))
+    else:
+      buf.copy_(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).reshape(buf.shape))
+
+  def _sig(self, x_shape: tuple, scalar: str) -> dict:
+    x = _Like(torch.int32, x_shape, self.device) if self.shard.is_first_layer else _Like(self.cfg.dtype, (*x_shape, self.cfg.dim), self.device)
+    return {"params": self.params, "cfg": self.cfg, "shard": self.shard, "x": x, "kv_cache": self.cache, scalar: _Like(torch.int32, (self.B,), self.device)}
+
+  def prefill(self, x, prompt_len: int) -> torch.Tensor:
+    """``x``: token ids [B, S] (numpy) on the head, a hidden state [B, S, D]
+    (torch) elsewhere, S a bucket's width; the cache is written in place."""
+    S = x.shape[1]
+    return ledger.dispatch("ring.prefill", self._sig((self.B, S), "prompt_len"), ("cfg", "shard"), lambda: self._prefill(x, prompt_len))
+
+  def _prefill(self, x, prompt_len: int) -> torch.Tensor:
+    S = x.shape[1]
+    bufs = self._buckets.get(S)
+    if bufs is None:
+      out_shape, out_dtype = ((self.B, 1, self.cfg.vocab_size), torch.float32) if self.shard.is_last_layer else ((self.B, S, self.cfg.dim), self.cfg.dtype)
+      out = torch.zeros(out_shape, dtype=out_dtype, device=self.device)
+      bufs = self._buckets[S] = (self._input((self.B, S)), torch.arange(S, dtype=torch.int32, device=self.device).expand(self.B, S), out)
+    inp, positions, out = bufs
+    last = self.shard.is_last_layer
+
+    def body():
+      y, _ = shard_forward(self.params, self.cfg, self.shard, inp, positions, self.cache, head_pos=self.head_pos if last else None)
+      out.copy_(y)
+
+    self._fill(inp, x)
+    self.head_pos.fill_(int(prompt_len) - 1)
+    self._graph(("prefill", S), "ring.prefill", body).run(self.device)
+    return out[:, 0, :].clone() if last else out.clone()
+
+  def forward(self, x, pos: int) -> torch.Tensor:
+    """``x``: one token per row [B, 1] on the head, a hidden state [B, 1, D]
+    elsewhere, at position ``pos``."""
+    return ledger.dispatch("ring.step", self._sig((self.B, 1), "pos"), ("cfg", "shard"), lambda: self._step(x, pos))
+
+  def _step(self, x, pos: int) -> torch.Tensor:
+    def body():
+      y, _ = shard_forward(self.params, self.cfg, self.shard, self.step_in, self.pos[:, None], self.cache)
+      self.step_out.copy_(y)
+
+    self._fill(self.step_in, x)
+    self.pos.fill_(int(pos))
+    self._graph(("step",), "ring.step", body).run(self.device)
+    return self.step_out[:, 0, :].clone() if self.shard.is_last_layer else self.step_out.clone()
 
 
 # ------------------------------------------------ speculative decoding

@@ -146,13 +146,21 @@ def load_shard_weights(model_dir: str | Path, cfg: ModelConfig, shard: Shard, de
     gain stays f32 (a bf16 1 + w loses every |w| < 2^-8)."""
     return t.to(device=device, dtype=torch.float32) + 1.0
 
+  def wanted(name: str) -> bool:
+    """Read from disk only what the shard keeps (a ring node's range)."""
+    m = _LAYER_RE.match(name)
+    if m:
+      return shard.start_layer <= int(m.group(1)) <= shard.end_layer
+    if name == "model.embed_tokens.weight":
+      return shard.is_first_layer or (shard.is_last_layer and cfg.tied_embedding)
+    return name in ("model.norm.weight", "lm_head.weight") and shard.is_last_layer
+
   for file in _weight_files_for_shard(model_dir, shard):
-    for name, t in iter_safetensors(file):
+    header, _ = read_safetensors_header(file)
+    for name, t in iter_safetensors(file, names={n for n in header if n != "__metadata__" and wanted(n)}):
       m = _LAYER_RE.match(name)
       if m:
         idx, suffix = int(m.group(1)), m.group(2)
-        if not (shard.start_layer <= idx <= shard.end_layer):
-          continue
         if suffix in _LAYER_MAP:
           key, transpose = _LAYER_MAP[suffix]
           if cfg.post_norms and suffix == "post_attention_layernorm.weight":
@@ -169,11 +177,10 @@ def load_shard_weights(model_dir: str | Path, cfg: ModelConfig, shard: Shard, de
         elif DEBUG >= 3:
           print(f"[loader] skipping unmapped tensor {name}")
       elif name == "model.embed_tokens.weight":
-        if shard.is_first_layer or (shard.is_last_layer and cfg.tied_embedding):
-          top["embed"] = put(t, False)
-      elif name == "model.norm.weight" and shard.is_last_layer:
+        top["embed"] = put(t, False)
+      elif name == "model.norm.weight":
         top["final_norm"] = gain(t) if cfg.post_norms else put(t, False)
-      elif name == "lm_head.weight" and shard.is_last_layer:
+      else:  # lm_head.weight
         top["lm_head"] = put(t, True)
 
   indices = list(per_layer)

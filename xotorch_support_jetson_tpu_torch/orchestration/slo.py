@@ -1,6 +1,7 @@
 """Local SLO engine: per-class objectives, multi-window burn rates, and
 goodput accounting. Own copy of the reference's ``orchestration/slo.py``
-without its cluster scope (no ring yet) and without the anomaly watchers.
+without its cluster scope (the ring's cluster pulls are not ported) and
+without the anomaly watchers.
 
 **Objectives** are env-configurable per QoS class (defaults below):
 ``XOT_TPU_SLO_<CLASS>_TTFT_P95_MS`` / ``_ITL_P99_MS`` / ``_AVAILABILITY``.

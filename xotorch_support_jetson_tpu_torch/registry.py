@@ -1,6 +1,6 @@
 """Model registry: model id → layer count, family, HF repo — the dense
 and gemma2 cards of the reference's ``registry.py``, keyed by the port
-engine's class name. MoE, MLA, llava and diffusion cards wait for the
+engine's class name, and the dummy engine's card. MoE, MLA, llava and diffusion cards wait for the
 slices that port those model families.
 """
 
@@ -18,7 +18,7 @@ class ModelCard:
   model_id: str
   layers: int
   pretty: str
-  family: str  # "llama" | "qwen2" | "qwen3" | "mistral" | "phi3" | "gemma2"
+  family: str  # "llama" | "qwen2" | "qwen3" | "mistral" | "phi3" | "gemma2" | "dummy"
   repo: dict[str, str] = field(default_factory=dict)
 
   def repo_for(self, engine_classname: str) -> str | None:
@@ -54,6 +54,8 @@ _CARDS: list[ModelCard] = [
 ]
 
 model_cards: dict[str, ModelCard] = {c.model_id: c for c in _CARDS}
+# The dummy model runs on the dummy engine only (as in the reference).
+model_cards["dummy"] = ModelCard("dummy", 8, "Dummy", "dummy", {"DummyInferenceEngine": "dummy"})
 
 
 def get_repo(model_id: str, inference_engine_classname: str) -> str | None:

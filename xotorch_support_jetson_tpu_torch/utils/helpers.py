@@ -1,7 +1,8 @@
 """Cross-cutting helpers: debug level, the framework's home directory,
 boolean and float env knobs, node identity, free-port probing, named
-callback channels (``AsyncCallbackSystem``), and the on-device placement
-rule of the port's entry points. Own copy of the subset of the reference's
+callback channels (``AsyncCallbackSystem``), the host's IPv4 interfaces
+and their ranking for UDP discovery, and the on-device placement rule of
+the port's entry points. Own copy of the subset of the reference's
 ``utils/helpers.py`` the serving slice uses."""
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from pathlib import Path
 from typing import Callable
 
 DEBUG = int(os.getenv("DEBUG", "0"))
+DEBUG_DISCOVERY = int(os.getenv("DEBUG_DISCOVERY", "0"))
 
 
 def xot_home() -> Path:
@@ -116,3 +118,50 @@ def resolve_device(device=None):
   if device.type == "cuda" and not torch.cuda.is_available():
     raise RuntimeError("no CUDA device is visible; pass device='cpu' (or set XOT_TPU_PLATFORM=cpu) to run on the CPU")
   return device
+
+
+# UDP discovery's interface ranking (the reference's table): a peer seen on
+# several interfaces is kept on the best one.
+INTERFACE_PRIORITY = {
+  "ici": 50,
+  "thunderbolt": 40,
+  "ethernet": 30,
+  "wifi": 20,
+  "other": 10,
+  "loopback": 5,
+}
+
+
+def get_interface_priority_and_type(interface_name: str) -> tuple[int, str]:
+  name = interface_name.lower()
+  if name.startswith("lo"):
+    return INTERFACE_PRIORITY["loopback"], "loopback"
+  if name.startswith(("eth", "en", "eno", "ens", "enp")):
+    return INTERFACE_PRIORITY["ethernet"], "ethernet"
+  if name.startswith(("wlan", "wl", "wifi")):
+    return INTERFACE_PRIORITY["wifi"], "wifi"
+  if "thunderbolt" in name or name.startswith("tb"):
+    return INTERFACE_PRIORITY["thunderbolt"], "thunderbolt"
+  return INTERFACE_PRIORITY["other"], "other"
+
+
+def get_all_ip_addresses_and_interfaces() -> list[tuple[str, str]]:
+  """(IPv4 address, interface name) of every local interface that has one,
+  read from the kernel (``SIOCGIFADDR``): no name resolution and no packet
+  sent. Loopback alone when nothing else answers."""
+  import fcntl
+  import struct
+
+  results: list[tuple[str, str]] = []
+  try:
+    interfaces = socket.if_nameindex()
+  except OSError:
+    interfaces = []
+  with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+    for _, name in interfaces:
+      try:
+        packed = fcntl.ioctl(s.fileno(), 0x8915, struct.pack("256s", name.encode()[:15]))  # SIOCGIFADDR
+      except OSError:
+        continue  # no IPv4 address on this interface
+      results.append((socket.inet_ntoa(packed[20:24]), name))
+  return results or [("127.0.0.1", "lo")]

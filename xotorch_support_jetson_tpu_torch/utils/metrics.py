@@ -25,7 +25,8 @@ gauges (0 on a draft-free server) and the ``path="spec"`` label of
 histograms, the ``programs_steady`` and ``warmup_programs`` gauges and
 ``warmup_compile_seconds``, plus one series of its own,
 ``program_captures_total{family}`` (CUDA graphs captured).
-The cluster merge of peer snapshots is not ported (there is no ring yet).
+The cluster merge of peer snapshots is not ported (the ring's cluster
+pulls wait for a later slice).
 """
 
 from __future__ import annotations
