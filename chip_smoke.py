@@ -18,7 +18,9 @@ Phases (any failure exits non-zero and prints no result):
    offsets 2048 / 3072 / 1024; K3 also on the verify window of batched
    speculation, B=8 rows × W=9 positions flattened into one launch, rows
    starting at 150..600 and at 1..4087, with W=1 over the same rows beside
-   it):
+   it; and at Qwen3-30B-A3B's shapes: K1 at its 128 bucket and K3 at B=8
+   mixed lengths with Hq 32 / Hkv 4 at hd 128, K4 at its q, k/v, o and
+   head products at T = 1):
    error, kernel / plain / library time and the card's bound (K1's library
    call is SDPA on the live slots with causal masking, the fastest backend
    that runs); K4's per-decode-step sums, and the count of device kernels
@@ -303,10 +305,38 @@ Phases (any failure exits non-zero and prints no result):
    ``config.json`` alone under the daemons' home) answers 507. The head's
    streaming TTFT and decode rate are printed beside the solo phase's;
    each daemon gets ``POST /quit`` and must exit 0;
+8c. moe — a seeded random bf16 checkpoint at Qwen3-30B-A3B's published
+   shapes (``QWEN3_30B_A3B``: hidden 2048, 32/4 heads at hd 128, 128
+   experts of 768, top-8 renormalised, qk-norm, vocab 151936, an untied
+   head), 12 of its 48 layers (``MOE_LAYERS``: the run's time limit; the
+   byte tokenizer's bos / eos ids), written once. First the two MoE paths
+   of ops/moe.py (gather, einsum) timed on one layer's experts, bf16 and
+   int4, at T = 1 … 128 (``moe_path_rows``: device ms, bytes moved, the
+   two outputs within 1e-2 relative L2; the T up to which gather won,
+   beside ops/moe.py's H100 table). Then the daemon: solo bf16, every
+   dispatch captured — greedy blocking and streaming chat after a warm-up
+   pair of the same requests, the counts zeroed just before and read just
+   after: ids equal, K1 12 per prefill and no K2 / K3 / K4, every MoE call
+   on the path the H100 table gives its token count (``_check_moe_paths``),
+   no build or capture after the warm-up; the served logits of the
+   prompt's last token (captured prefill) and of one captured decode step
+   after it within 5e-2 relative L2 of a plain f32 forward written out
+   here (``moe_plain_f32``, its own top-k routing); captured against
+   uncaptured (ids identical, prefill logits within 5e-2); the captured
+   decode step's wall and device ms and the routed FFN's share of it (the
+   12 layers' FFN captured alone); then batched at the defaults on the same
+   engine (16 streams, spec and mixed dispatches required, decode chunks
+   through K3; K1 and K3 in whole multiples of 12, every MoE call on the
+   table's path); then solo with ``XOT_TPU_QUANT=int4`` (ids equal, K4
+   once per two-dimensional quantized product per forward, 4 a layer and
+   the head: the experts are dequantized next to their product, as in the
+   reference; the MoE calls on the table's int4 paths);
 9. gemma2 — a seeded random bf16 checkpoint at gemma-2-9b's published
-   shapes and full depth (``GEMMA_2_9B``: 42 layers, head dim 256, softcaps
-   50 / 30, a 4,096-token window on the even layers; the bos / eos / pad
-   ids are the byte tokenizer's), written once, served through the daemon:
+   shapes (``GEMMA_2_9B``: head dim 256, softcaps 50 / 30, a 4,096-token
+   window on the even layers; the bos / eos / pad ids are the byte
+   tokenizer's), 8 of its 42 layers (``GEMMA_LAYERS``: the run's time
+   limit; ``scripts/gemma2_phase.py --layers 42`` serves the full depth),
+   written once, served through the daemon:
    solo bf16 with ``XOT_TPU_MAX_SEQ=8192``, every dispatch captured
    (greedy blocking and streaming chat ids equal; a 6,000-token prompt,
    bucket 6016, blocking and streaming ids equal; one logprobs request,
@@ -325,6 +355,7 @@ Phases (any failure exits non-zero and prints no result):
    gather route, K1-K3 0); then solo with ``XOT_TPU_QUANT=int4`` (ids
    equal, K4 once per quantized product per forward: 7 a layer and the
    head). Phase 3 also holds K4 at gemma-2-9b's six weight shapes, T = 1.
+   The MoE phase runs before it: the MoE checkpoint is removed first.
 
 The last two lines are the card as ``nvidia-smi`` reports it and
 ``{"ok": true, "device": {...}}``; the line before them is the kernels' JSON
@@ -509,13 +540,15 @@ def _launched(name: str) -> int:
 
 
 def _reset_launches() -> None:
-  """Every launch count to 0: the wrappers' and the graph replays'."""
-  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, int4_matmul as k4, paged
+  """Every launch count to 0: the wrappers' and the graph replays', and
+  the MoE path counts (ops/moe.py ``PATHS``)."""
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, int4_matmul as k4, moe, paged
   from xotorch_support_jetson_tpu_torch.utils import programs
 
   fa.reset_launch_counts()
   paged.reset_launch_counts()
   k4.reset_launch_counts()
+  moe.reset_path_counts()
   programs.reset_replayed()
 
 
@@ -533,6 +566,12 @@ def phase_kernels(torch):
   # K4 at gemma-2-9b's weight shapes, solo decode (T = 1): the gemma2 int4 phase's products.
   results["int4_matmul_gemma2"] = int4_kernel_rows(torch, gen, GEMMA_2_9B_MATMULS, tokens=(1,), f32_row=False, model="gemma-2-9b")
   results["int4_matmul_gemma2_bound"] = int4_matmul_bound(results["int4_matmul_gemma2"], GEMMA_CALLS_PER_STEP, tokens=(1,), model="gemma-2-9b")
+  # Qwen3-30B-A3B's shapes (the MoE phase): K1 at its 128 prefill bucket and
+  # K3 at B=8 mixed lengths, 32/4 heads at hd 128; K4 at its products outside
+  # the experts, solo decode (T = 1).
+  results["flash_prefill_moe"] = flash_prefill_rows(torch, gen, [(128, [0], "bf16", 128)], heads=(32, 4))
+  results["paged_decode_moe"] = paged_kernel_rows(torch, gen, 32, 4, 128, length_sets=K3_LENGTHS[-1:], kvs=("bf16",))
+  results["int4_matmul_moe"] = int4_kernel_rows(torch, gen, QWEN3_MOE_MATMULS, tokens=(1,), f32_row=False, model="Qwen3-30B-A3B")
   return results
 
 
@@ -563,14 +602,14 @@ K1_VERIFY_ROWS = [(Sq, [off], kv, 64) for kv in ("bf16", "int8") for Sq in (5, 9
 K1_SCORING_ROWS = [(256, [0], "bf16", 64), (3072, [0], "bf16", 64)]
 
 
-def k1_case(torch, gen, Sq, offsets, kv, hd, skv=CACHE):
+def k1_case(torch, gen, Sq, offsets, kv, hd, skv=CACHE, heads=K1_HEADS):
   """One K1 row's inputs: q, k, v (``skv`` slots; int8 codes when ``kv``
   is "int8") and the wrapper's keywords. Every slot past a row's last
   position holds junk (1e4) that must stay masked; the offsets are a
   device tensor, as the decoder passes them."""
   from xotorch_support_jetson_tpu_torch.models.quantize import quantize_kv
 
-  B, (Hq, Hkv) = len(offsets), K1_HEADS
+  B, (Hq, Hkv) = len(offsets), heads
   q = _rand(torch, (B, Sq, Hq, hd), gen, torch.bfloat16)
   k = _rand(torch, (B, skv, Hkv, hd), gen, torch.bfloat16)
   v = _rand(torch, (B, skv, Hkv, hd), gen, torch.bfloat16)
@@ -584,12 +623,12 @@ def k1_case(torch, gen, Sq, offsets, kv, hd, skv=CACHE):
   return q, k, v, kw
 
 
-def k1_bound(Sq, offsets, kv, hd):
+def k1_bound(Sq, offsets, kv, hd, heads=K1_HEADS):
   """The least time the card could take for a K1 call: the larger of its
   operations (4·hd·Hq per causal (query, key) pair) over the bf16 peak and
   its bytes (q and out, and the live K/V — codes and scales for int8 —
   each once) over the HBM rate. Returns (ms, what bounds it, flops, bytes)."""
-  B, (Hq, Hkv) = len(offsets), K1_HEADS
+  B, (Hq, Hkv) = len(offsets), heads
   pairs = sum(off * Sq + Sq * (Sq + 1) // 2 for off in offsets)  # sum over rows of (position + 1)
   flops = 4 * hd * Hq * pairs
   live = sum(off + Sq for off in offsets)
@@ -655,7 +694,7 @@ def _kernel_names(torch, fn):
   return sorted({e.name[:80] for e in prof.events() if e.device_type == DeviceType.CUDA})
 
 
-def flash_prefill_rows(torch, gen, rows=K1_ROWS, own_kv=False):
+def flash_prefill_rows(torch, gen, rows=K1_ROWS, own_kv=False, heads=K1_HEADS):
   """K1 against its plain version at ``rows`` (against the 4096-slot
   cache, or with ``own_kv`` the row's own Sq slots): max |err| (held to
   ``K1_ATOL`` and elementwise to ``K1_EW_ATOL + K1_RTOL·|ref|``), kernel /
@@ -666,7 +705,7 @@ def flash_prefill_rows(torch, gen, rows=K1_ROWS, own_kv=False):
   out = []
   for Sq, offsets, kv, hd in rows:
     skv = Sq if own_kv else CACHE
-    q, k, v, kw = k1_case(torch, gen, Sq, offsets, kv, hd, skv)
+    q, k, v, kw = k1_case(torch, gen, Sq, offsets, kv, hd, skv, heads)
     got = fa.flash_attention_prefill(q, k, v, **kw)
     want = fa.flash_attention_prefill_ref(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -674,14 +713,14 @@ def flash_prefill_rows(torch, gen, rows=K1_ROWS, own_kv=False):
     err = diff.max().item()
     beyond_rel = (diff - K1_RTOL * want.float().abs()).max().item()  # what the relative part leaves to the absolute one
     used = (diff / (K1_EW_ATOL + K1_RTOL * want.float().abs())).max().item()  # share of the elementwise bound the worst element uses
-    label = f"B={len(offsets)} Sq={Sq} q_offset={offsets if len(offsets) > 1 else offsets[0]} kv={kv} hd={hd}"
+    label = f"B={len(offsets)} Sq={Sq} q_offset={offsets if len(offsets) > 1 else offsets[0]} kv={kv} hd={hd}" + ("" if heads == K1_HEADS else f" heads={heads[0]}/{heads[1]}")
     if not torch.isfinite(got).all() or not err <= K1_ATOL or not used <= 1.0:
       raise SystemExit(f"chip_smoke: flash_prefill disagrees with its plain version ({label}): max|err| {err} (cap {K1_ATOL}), {used:.2f}x the bound atol {K1_EW_ATOL} + rtol 2^-7·|ref|")
     del diff, want
-    bound_ms, bound_by, flops, nbytes = k1_bound(Sq, offsets, kv, hd)
+    bound_ms, bound_by, flops, nbytes = k1_bound(Sq, offsets, kv, hd, heads)
     lib_ms, library = k1_library(torch, q, k, v, offsets) if kv == "bf16" else (None, "no PyTorch call takes int8 codes with scales")
     row = dict(
-      Sq=Sq, q_offset=offsets[0] if len(offsets) == 1 else offsets, B=len(offsets), kv=kv, hd=hd, skv=skv, max_abs_err=err, abs_beyond_rel=beyond_rel,
+      Sq=Sq, q_offset=offsets[0] if len(offsets) == 1 else offsets, B=len(offsets), kv=kv, hd=hd, heads=list(heads), skv=skv, max_abs_err=err, abs_beyond_rel=beyond_rel,
       tol=dict(cap=K1_ATOL, atol=K1_EW_ATOL, rtol=K1_RTOL), tol_used=used,
       ms=_cuda_ms(torch, lambda: fa.flash_attention_prefill(q, k, v, **kw)),
       plain_ms=_cuda_ms(torch, lambda: fa.flash_attention_prefill_ref(q, k, v, **kw), iters=10 if Sq <= 1024 else 3, warmup=1),
@@ -829,9 +868,13 @@ def int4_matmul_bound(rows, calls=CALLS_PER_STEP, tokens=(1, 8), model="llama-3.
   return res
 
 
-def paged_kernel_rows(torch, gen, Hq, Hkv, hd):
+K3_LENGTHS = ([1], [64], [65], [4096], [1, 64, 65, 777, 1500, 2048, 3333, 4096])
+
+
+def paged_kernel_rows(torch, gen, Hq, Hkv, hd, length_sets=K3_LENGTHS, kvs=tuple(KV_MODES)):
   """K3 against its plain version at the batched path's pool geometry
-  (page size 64, 64 pages per row = the 4096 cache), per pool type. Each
+  (page size 64, 64 pages per row = the 4096 cache), per pool type in
+  ``kvs``, for each row batch of ``length_sets``. Each
   row's pages are shuffled, non-contiguous ids; table entries past a row's
   last page hold junk the kernel must never read."""
   import torch.nn.functional as F
@@ -841,7 +884,7 @@ def paged_kernel_rows(torch, gen, Hq, Hkv, hd):
 
   mp = CACHE // PAGE
   rows = []
-  for lengths in ([1], [64], [65], [4096], [1, 64, 65, 777, 1500, 2048, 3333, 4096]):
+  for lengths in length_sets:
     B = len(lengths)
     P = B * mp + 1
     q = _rand(torch, (B, Hq, hd), gen, torch.bfloat16)
@@ -852,7 +895,7 @@ def paged_kernel_rows(torch, gen, Hq, Hkv, hd):
     bt = torch.where(valid, ids, torch.full_like(ids, 1 << 30))  # junk past each row's pages
     bt_clean = torch.where(valid, ids, torch.zeros_like(ids))
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    for kv in KV_MODES:
+    for kv in kvs:
       k, v, scales = k_f, v_f, {}
       if kv != "bf16":
         quant = quantize_kv_int4 if kv == "int4" else quantize_kv
@@ -888,7 +931,7 @@ def paged_kernel_rows(torch, gen, Hq, Hkv, hd):
       qt, kt, vt = q[:, :, None, :], kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
       mask = (torch.arange(mp * PAGE, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
       row = dict(
-        B=B, lengths=lengths, kv=kv, max_abs_err=err, tol=dict(atol=K3_ATOL, rtol=K3_RTOL), tol_used=used,
+        B=B, lengths=lengths, kv=kv, heads=[Hq, Hkv], hd=hd, max_abs_err=err, tol=dict(atol=K3_ATOL, rtol=K3_RTOL), tol_used=used,
         ms=_cuda_ms(torch, lambda: paged.paged_decode_attention(q, k, v, bt, lens, PAGE, **scales)),
         plain_ms=_cuda_ms(torch, lambda: paged.paged_decode_attention_ref(q, k, v, bt_clean, lens, PAGE, **scales), iters=10),
         library_ms=_cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)),
@@ -899,7 +942,7 @@ def paged_kernel_rows(torch, gen, Hq, Hkv, hd):
       if row["device_kernels_per_call"] != 1:
         raise SystemExit(f"chip_smoke: paged_decode lengths={lengths} kv={kv}: {row['device_kernels_per_call']} device kernels per call, expected 1")
       rows.append(row)
-      log(f"[kernels] paged_decode B={B} lengths={lengths if B == 1 else 'mixed 1..4096'} kv={kv} page={PAGE} mp={mp}: max|err| {err:.3e} ({used:.3f} of the bound atol {K3_ATOL} + rtol 2^-7·|ref|) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | sdpa (pre-gathered window) {row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']}, {nbytes / 1e6:.2f} MB) | {row['device_kernels_per_call']} device kernel per call")
+      log(f"[kernels] paged_decode B={B} lengths={lengths if B == 1 else 'mixed 1..4096'} kv={kv} heads={Hq}/{Hkv} hd={hd} page={PAGE} mp={mp}: max|err| {err:.3e} ({used:.3f} of the bound atol {K3_ATOL} + rtol 2^-7·|ref|) | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | sdpa (pre-gathered window) {row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms ({row['bound_by']}, {nbytes / 1e6:.2f} MB) | {row['device_kernels_per_call']} device kernel per call")
   return rows
 
 
@@ -1230,7 +1273,7 @@ def profile_serving(torch, engine, steps=8):
 
 SERVING_KNOBS = (
   "XOT_TPU_FLASH_DECODE", "XOT_TPU_FLASH_DECODE_MIN", "XOT_TPU_NO_FLASH", "XOT_TPU_KV_QUANT", "XOT_TPU_PLATFORM", "XOT_TPU_BATCHED", "XOT_TPU_PAGED_KERNEL",
-  "XOT_TPU_QUANT", "XOT_TPU_QUANT_COMPUTE", "XOT_TPU_INT4_KERNEL", *SPEC_KNOBS,
+  "XOT_TPU_QUANT", "XOT_TPU_QUANT_COMPUTE", "XOT_TPU_INT4_KERNEL", "XOT_TPU_MOE_GATHER", *SPEC_KNOBS,
 )
 CHAT = [{"role": "user", "content": "Write a short poem about a fox who learns to fly."}]
 
@@ -1911,6 +1954,36 @@ def _spy_spec(engine, paged, k4, records):
   return lambda: delattr(ops, "spec_paged_batch_decode")
 
 
+def _hold_wave(bserver, n: int, arrivals: list):
+  """Hold the batched server's first ``n`` submissions until all ``n`` have
+  reached it, then let them in together, shortest prompt first (the order
+  ``batched_bodies`` sends them): the wave admits in one pass whatever the
+  client threads' timing, and ``arrivals`` gets the seconds from the first
+  submission to each later one. Later submissions pass straight through.
+  Returns the function that removes the hold."""
+  orig = bserver.submit
+  held: list = []
+  t0: list[float] = []
+
+  async def submit(request_id, tokens, **kw):
+    if len(held) >= n:
+      return await orig(request_id, tokens, **kw)
+    go = asyncio.Event()
+    t0 or t0.append(time.perf_counter())
+    arrivals.append(time.perf_counter() - t0[0])
+    held.append((len(tokens), go))
+    if len(held) == n:
+      # Set from a callback, so this submission waits like the others: the
+      # waiters resume in this order, each enqueued before the scheduler's
+      # loop (woken by the first) runs.
+      asyncio.get_running_loop().call_soon(lambda: [ev.set() for _, ev in sorted(held, key=lambda h: h[0])])
+    await go.wait()
+    return await orig(request_id, tokens, **kw)
+
+  bserver.submit = submit
+  return lambda: delattr(bserver, "submit")
+
+
 def _by_label(delta, name, label):
   """A labelled counter's growth in a registry delta, by one label's value."""
   return {dict(map(tuple, k)).get(label): v for k, v in delta["labeled_counters"].get(name, [])}
@@ -1955,7 +2028,7 @@ async def _serve_batched(torch, tmain, args, port, weights):
       # build rounds, their traffic on other text: the dispatch shapes are
       # built (captured) before the measured round, as a served daemon's
       # are once traffic of those shapes has passed.
-      build = [await _build_round(loop, clients, port, ids, priority, variant) for variant in ((1, 2) if name in MEASURED_PASSES else ())]
+      build = [await _build_round(loop, clients, port, ids, priority, variant, bserver) for variant in ((1, 2) if name in MEASURED_PASSES else ())]
       graphs0 = {id(g) for g in engine.batch_ops.programs.graphs()}
       slices: list[dict] = []
       unspy = _spy_mixed(engine, fa, paged, slices)
@@ -1965,19 +2038,26 @@ async def _serve_batched(torch, tmain, args, port, weights):
       unspy_adm = _spy_admissions(bserver, admissions)
       hits0 = bserver.prefix_hit_pages
       snap0, burn0 = metrics.snapshot(), _interactive_burn(metrics, slo)
-      # Two waves: the second is sent once every slot streams, so it admits
-      # as rows free — while the others keep decoding.
+      # Two waves: the first reaches the scheduler together (``_hold_wave``),
+      # the second is sent once every slot streams, so it admits as rows
+      # free — while the others keep decoding.
       waves = (batched_bodies(12, "batch"), batched_bodies(4, "interactive")) if priority else (batched_bodies()[:8], batched_bodies()[8:])
       bodies = waves[0] + waves[1]
+      arrivals: list[float] = []
+      unhold = _hold_wave(bserver, len(waves[0]), arrivals)
       _reset_launches()  # ---- this pass's main path, counted
       t0 = time.perf_counter()
       before = set(ids)
       first = [loop.run_in_executor(clients, _post, port, b) for b in waves[0]]
-      while sum(1 for rid, t in ids.items() if t and rid not in before) < BATCH_SLOTS:
-        if time.perf_counter() - t0 > 120 or any(f.done() for f in first):
-          failed = [repr(f.exception()) for f in first if f.done() and f.exception() is not None]
-          raise SystemExit(f"chip_smoke: batched {name}: the first wave's rows did not all stream (failed requests: {failed})")
-        await asyncio.sleep(0.005)
+      try:
+        while sum(1 for rid, t in ids.items() if t and rid not in before) < BATCH_SLOTS:
+          if time.perf_counter() - t0 > 120 or any(f.done() for f in first):
+            failed = [repr(f.exception()) for f in first if f.done() and f.exception() is not None]
+            ended = [round(f.result()[3], 3) for f in first if f.done() and f.exception() is None]
+            raise SystemExit(f"chip_smoke: batched {name}: the first wave's rows did not all stream (failed requests: {failed}; ended after {ended} s; {len(arrivals)} of {len(first)} reached the scheduler, at {[round(a, 3) for a in arrivals]} s after the first; rows streaming {[len(t) for rid, t in ids.items() if rid not in before]} tokens)")
+          await asyncio.sleep(0.005)
+      finally:
+        unhold()
       second_s = time.perf_counter() - t0
       second = [loop.run_in_executor(clients, _post, port, b) for b in waves[1]]
       endpoints = await asyncio.to_thread(_read_endpoints, port) if name == "bf16" else None  # its own thread: the 16 client threads are busy
@@ -2028,7 +2108,7 @@ async def _serve_batched(torch, tmain, args, port, weights):
         budget_from=budget_from, interactive_burn=dict(start=burn0, end=burn1), endpoints=endpoints,
         kv_tier=tiered, resumes=resumes, mixed_slices=slices, mixed_launches={"flash_prefill": sum(x["k1"] for x in slices), "paged_decode": sum(x["k3"] for x in slices)},
         ttft_p50_by_class={c: _pctl([r["ttft_s"] for r in reqs if r["priority"] == c], 0.5) for c in sorted({r["priority"] for r in reqs})},
-        spec=spec, per_request=reqs, streams=streams, graphs=graphs, memory_at_start=memory, build_rounds=build,
+        spec=spec, per_request=reqs, streams=streams, graphs=graphs, memory_at_start=memory, build_rounds=build, first_wave_arrivals_s=arrivals,
       )
       need_k1 = quant != "int4"  # int4 pages prefill through the plain attention, as the reference gates K1
       need_k4 = weights == "int4"
@@ -2120,7 +2200,7 @@ async def _serve_batched(torch, tmain, args, port, weights):
     engine.executor.shutdown(wait=True)
 
 
-async def _build_round(loop, clients, port, ids, priority, variant) -> dict:
+async def _build_round(loop, clients, port, ids, priority, variant, bserver) -> dict:
   """A batched pass's traffic on other text (``batched_bodies`` of
   ``variant``): two waves as the measured round sends them. Every request
   must end with tokens. Unlike the measured round, a first-wave request
@@ -2135,6 +2215,8 @@ async def _build_round(loop, clients, port, ids, priority, variant) -> dict:
   waves = (batched_bodies(12, "batch", variant), batched_bodies(4, "interactive", variant)) if priority else (batched_bodies(variant=variant)[:8], batched_bodies(variant=variant)[8:])
   fams = ledger.snapshot()["families"]
   c0, s0 = sum(f["captures"] for f in fams.values()), sum(f["capture_s"] for f in fams.values())
+  arrivals: list[float] = []
+  unhold = _hold_wave(bserver, len(waves[0]), arrivals)  # as the measured round sends it
   t0 = time.perf_counter()
   before = set(ids)
   first = [loop.run_in_executor(clients, _post, port, b) for b in waves[0]]
@@ -2146,6 +2228,7 @@ async def _build_round(loop, clients, port, ids, priority, variant) -> dict:
       raise SystemExit(f"chip_smoke: batched build round: the first wave's rows did not all stream (failed requests: {failed})")
     ended.update((i, now) for i, f in enumerate(first) if f.done() and i not in ended)
     await asyncio.sleep(0.005)
+  unhold()
   eighth_s = time.perf_counter() - t0
   fams = ledger.snapshot()["families"]
   c8, s8 = sum(f["captures"] for f in fams.values()) - c0, sum(f["capture_s"] for f in fams.values()) - s0
@@ -2156,13 +2239,13 @@ async def _build_round(loop, clients, port, ids, priority, variant) -> dict:
     raise SystemExit(f"chip_smoke: batched build round: tokens per request {tokens}")
   early = [dict(ended_s=ended[i], tokens=tokens[i], ttft_s=replies[i][2]) for i in sorted(ended, key=ended.get)]
   earliest = min(r[3] for r in replies[: len(first)])
-  log(f"[batched] build round {variant}: the eighth row's first token {eighth_s:.3f} s after the first send, {c8} captures ({s8:.3f} s) before it; the first wave's earliest end {earliest:.3f} s; ended before the eighth row streamed: {early or 'none'}")
+  log(f"[batched] build round {variant}: the first wave reached the scheduler over {arrivals[-1]:.3f} s; the eighth row's first token {eighth_s:.3f} s after the first send, {c8} captures ({s8:.3f} s) before it; the first wave's earliest end {earliest:.3f} s; ended before the eighth row streamed: {early or 'none'}")
   fams = ledger.snapshot()["families"]
   ttfts = [r[2] for r in replies]
   return dict(
     wall_s=wall, tokens=sum(tokens), aggregate_tok_s=sum(tokens) / wall, ttft_p50_s=_pctl(ttfts, 0.5), ttft_p95_s=_pctl(ttfts, 0.95),
     captures=sum(f["captures"] for f in fams.values()) - c0, capture_s=sum(f["capture_s"] for f in fams.values()) - s0,
-    eighth_first_token_s=eighth_s, captures_before_eighth=c8, capture_s_before_eighth=s8, first_wave_earliest_end_s=earliest, ended_before_eighth=early,
+    first_wave_arrivals_s=arrivals, eighth_first_token_s=eighth_s, captures_before_eighth=c8, capture_s_before_eighth=s8, first_wave_earliest_end_s=earliest, ended_before_eighth=early,
   )
 
 
@@ -3060,17 +3143,22 @@ GEMMA_ANSWER = 32
 GEMMA_LONG_ANSWER = 16
 GEMMA_CHECK_TOL = 5e-2  # relative L2 of the served logits against the plain f32 forward (PERF.md §2's tolerance)
 GEMMA_MODEL = "gemma2-9b"
+# 8 of gemma-2-9b's 42 layers (4 sliding, 4 global): every check of the
+# phase runs at full width, and the MoE phase gets the time the cut frees
+# within the run's 1,200 s (``scripts/gemma2_phase.py --layers 42`` runs
+# the full depth).
+GEMMA_LAYERS = 8
 
 
-def write_gemma_checkpoint(torch, path: Path, seed: int = SEED + 9) -> float:
-  """Seeded random bf16 weights at gemma-2-9b's shapes and full depth, HF
-  names, one .safetensors file written tensor by tensor (the weights never
-  sit in host memory at once). N(0, 1/fan_in) projections, N(0, 0.02)
-  embeddings, zero-centred norm gains N(0, 0.05)."""
+def write_gemma_checkpoint(torch, path: Path, seed: int = SEED + 9, layers: int = GEMMA_LAYERS) -> float:
+  """Seeded random bf16 weights at gemma-2-9b's shapes and ``layers`` of its
+  depth, HF names, one .safetensors file written tensor by tensor (the
+  weights never sit in host memory at once). N(0, 1/fan_in) projections,
+  N(0, 0.02) embeddings, zero-centred norm gains N(0, 0.05)."""
   import struct
 
   t0 = time.perf_counter()
-  c = GEMMA_2_9B
+  c = dict(GEMMA_2_9B, num_hidden_layers=layers)
   D, F_, V, L = c["hidden_size"], c["intermediate_size"], c["vocab_size"], c["num_hidden_layers"]
   qd, kd = c["num_attention_heads"] * c["head_dim"], c["num_key_value_heads"] * c["head_dim"]
   shapes = {"model.embed_tokens.weight": (V, D), "model.norm.weight": (D,)}
@@ -3192,13 +3280,13 @@ def _attn_ms(torch, cfg, Sq: int, offset: int, cache: int, sliding: bool) -> flo
 
 
 def phase_gemma2(torch, ckpt: Path, smi: str):
-  """gemma-2-9b at full width and depth through the daemon: solo bf16
+  """gemma-2-9b at full width (``GEMMA_LAYERS`` deep) through the daemon: solo bf16
   (captured, ``XOT_TPU_MAX_SEQ`` 8192) then batched at the defaults on the
   same engine, then solo with ``XOT_TPU_QUANT=int4``."""
   from xotorch_support_jetson_tpu_torch import main as tmain
 
   out = {}
-  args, port = _daemon_args(tmain, ckpt, model=GEMMA_MODEL)
+  args, port = _daemon_args(tmain, ckpt, max_tokens=4 * MAX_TOKENS, model=GEMMA_MODEL)  # the batched pass's answers (``_batched_defaults`` answer_scale)
   os.environ["XOT_TPU_MAX_SEQ"] = str(GEMMA_MAX_SEQ)
   try:
     out["bf16"] = asyncio.run(_gemma_bf16(torch, tmain, args, port, smi))
@@ -3218,16 +3306,23 @@ def phase_gemma2(torch, ckpt: Path, smi: str):
   return out
 
 
-def _gemma_launches() -> dict:
+def _kernel_launches() -> dict:
   return {n: _launched(n) for n in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
 
 
-async def _gemma_up(torch, tmain, args, port, label):
+async def _daemon_up(torch, tmain, args, port, tag, model, label, check_cfg, preload=None):
+  """The daemon's components for ``model`` (its registry card's depth,
+  remapped by the engine onto the checkpoint's), started as
+  ``main.async_main`` starts them, the shard loaded; ``check_cfg(cfg)``
+  returns what is wrong with the loaded config, or nothing. ``preload``
+  (cfg, params) at the card's full depth is put into the engine instead of
+  a checkpoint read from disk (the daemon then finds its shard loaded)."""
+  from xotorch_support_jetson_tpu_torch import registry
   from xotorch_support_jetson_tpu_torch.inference.shard import Shard
 
   node, api, engine, _ = tmain.build_components(args, tokenizer=ByteTokenizer())
   if engine.device.type != "cuda":
-    raise SystemExit("chip_smoke: [gemma2] the engine did not choose the card")
+    raise SystemExit(f"chip_smoke: [{tag}] the engine did not choose the card")
   if os.getenv("XOT_TPU_MAX_SEQ"):
     # The engine module read XOT_TPU_MAX_SEQ when this process imported it
     # (the llama phases); a daemon process started with the knob has this.
@@ -3235,14 +3330,25 @@ async def _gemma_up(torch, tmain, args, port, label):
   await node.start()  # as main.async_main: the SLO engine ticks for the batched pass
   server = await api.run(host="127.0.0.1", port=port)
   t0 = time.perf_counter()
-  await engine.ensure_shard(Shard(GEMMA_MODEL, 0, GEMMA_2_9B["num_hidden_layers"] - 1, GEMMA_2_9B["num_hidden_layers"]))
+  layers = registry.model_cards[model].layers
+  if preload is not None:
+    import dataclasses
+
+    cfg, params = preload
+    engine.load_test_model(Shard(model, 0, layers - 1, layers), dataclasses.replace(cfg, max_seq_len=engine._serving_cap(cfg)), params, tokenizer=ByteTokenizer())
+  await engine.ensure_shard(Shard(model, 0, layers - 1, layers))
   torch.cuda.synchronize()
   load_s = time.perf_counter() - t0
-  cfg = engine.cfg
-  if cfg.family != "gemma2" or cfg.plain_attention or cfg.sliding_window != 4096 or cfg.head_dim != 256:
-    raise SystemExit(f"chip_smoke: [gemma2] the loaded config is not gemma2's: {cfg}")
-  log(f"[gemma2] {label} daemon up on 127.0.0.1:{port}; {sum(t.numel() * t.element_size() for t in _leaves(engine.params)) / 1e9:.2f} GB of weights loaded to the card in {load_s:.1f} s; device memory allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+  wrong = check_cfg(engine.cfg)
+  if wrong:
+    raise SystemExit(f"chip_smoke: [{tag}] the loaded config: {wrong}: {engine.cfg}")
+  log(f"[{tag}] {label} daemon up on 127.0.0.1:{port}; {sum(t.numel() * t.element_size() for t in _leaves(engine.params)) / 1e9:.2f} GB of weights loaded to the card in {load_s:.1f} s; device memory allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
   return node, server, engine, load_s
+
+
+def _gemma_cfg_problem(cfg) -> str:
+  return "" if cfg.family == "gemma2" and not cfg.plain_attention and cfg.sliding_window == 4096 and cfg.head_dim == 256 else "not gemma2's"
+
 
 
 def _leaves(params):
@@ -3250,7 +3356,7 @@ def _leaves(params):
     yield from (_leaves(v) if isinstance(v, dict) else [v])
 
 
-async def _gemma_down(node, server, engine):
+async def _daemon_down(node, server, engine):
   await node.stop()
   server.close()
   await server.wait_closed()
@@ -3267,11 +3373,11 @@ def _no_attention_kernels(label: str, launches: dict) -> None:
 async def _gemma_bf16(torch, tmain, args, port, smi):
   from xotorch_support_jetson_tpu_torch.utils import programs
 
-  node, server, engine, load_s = await _gemma_up(torch, tmain, args, port, "bf16")
+  node, server, engine, load_s = await _daemon_up(torch, tmain, args, port, "gemma2", GEMMA_MODEL, "bf16", _gemma_cfg_problem)
   res = dict(load_s=load_s, card=smi)
   try:
     cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
-    log(f"[gemma2] config: google/gemma-2-9b's published shapes (hidden 3584, 42 layers, 16/8 heads, head_dim 256, ffn 14336, vocab 256000, query_pre_attn_scalar 256, softcaps 50/30, sliding_window 4096, rms eps 1e-6, tied), random bf16 weights; bos/eos/pad written as the byte tokenizer's 128000/128009/128009 (the published 2/1/0 are bytes here); serving cap {engine.max_seq_len}")
+    log(f"[gemma2] config: google/gemma-2-9b's published shapes (hidden 3584, {cfg.n_layers} of its 42 layers, 16/8 heads, head_dim 256, ffn 14336, vocab 256000, query_pre_attn_scalar 256, softcaps 50/30, sliding_window 4096, rms eps 1e-6, tied), random bf16 weights; bos/eos/pad written as the byte tokenizer's 128000/128009/128009 (the published 2/1/0 are bytes here); serving cap {engine.max_seq_len}")
     await _serve_requests(torch, node, engine, port, [("warmup", _gemma_chat(False, max_tokens=8))])
     long_ids, long_content = gemma_long_prompt()
     torch.cuda.reset_peak_memory_stats()
@@ -3295,7 +3401,7 @@ async def _gemma_bf16(torch, tmain, args, port, smi):
     finally:
       engine.spec_decode, engine._spec_ngram_on = None, False
     plain_rep = await _serve_requests(torch, node, engine, port, [("plain greedy blocking (the n-gram prompt)", _gemma_chat(False, rep, 48))])
-    launches = _gemma_launches()  # ---- read just after
+    launches = _kernel_launches()  # ---- read just after
     fam1 = programs.ledger.snapshot()["families"]
     _no_attention_kernels("solo bf16", launches)
     for a, b, what in ((chat[0], chat[1], "chat"), (long[0], long[1], "long prompt")):
@@ -3346,10 +3452,16 @@ async def _gemma_bf16(torch, tmain, args, port, smi):
     engine._graph_pool = None
     gc.collect()
     torch.cuda.empty_cache()
-    res["batched"] = await _gemma_batched(torch, node, engine, port, smi)
+    # Answers 4x as long (116-256 tokens): the random gemma copies its last
+    # token, so every n-gram proposal is accepted and, at GEMMA_LAYERS deep,
+    # the first wave's 29-64-token answers end in two spec chunks, before the
+    # second wave's requests arrive: no admission would find a decoding row
+    # to share a mixed tick with.
+    res["batched"] = await _batched_defaults(torch, node, engine, port, smi, GEMMA_MODEL, "gemma2", "gather", answer_scale=4)
+    _no_attention_kernels("batched", res["batched"]["launches"])
     return res
   finally:
-    await _gemma_down(node, server, engine)
+    await _daemon_down(node, server, engine)
 
 
 def _gemma_graphs_against_eager(torch, engine, long_ids):
@@ -3422,18 +3534,20 @@ def _gemma_profile(torch, engine, long_ids, smi):
     step_wall_ms=wall, step_device_ms=device, step_attention_ms=step_attn, step_attention_share=step_attn / device,
     prefill_wall_ms=prof["wall_ms"], prefill_device_ms=prof["device_ms"], prefill_attention_ms=pre_attn, prefill_attention_share=pre_attn / prof["device_ms"] if prof["device_ms"] else None,
   )
-  log(f"[profile] gemma2 decode step at position 6000 of {GEMMA_MAX_SEQ} slots (captured): wall {wall:.3f} ms, device {device:.3f} ms; plain attention {step_attn:.3f} ms of it (42 layers, from one layer's time on a sliding and a global layer: share {res['step_attention_share']:.3f}) | {smi}")
+  log(f"[profile] gemma2 decode step at position 6000 of {GEMMA_MAX_SEQ} slots (captured): wall {wall:.3f} ms, device {device:.3f} ms; plain attention {step_attn:.3f} ms of it ({cfg.n_layers} layers, from one layer's time on a sliding and a global layer: share {res['step_attention_share']:.3f}) | {smi}")
   share = "not measured (no device events)" if res["prefill_attention_share"] is None else f"{res['prefill_attention_share']:.3f}"
   log(f"[profile] gemma2 prefill of 6000 tokens (6016 bucket, captured): wall {prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} ms; plain attention {pre_attn:.3f} ms (share {share}) | {smi}")
   return res
 
 
-async def _gemma_batched(torch, node, engine, port, smi):
-  """gemma2 on the batched server at its defaults (n-gram speculation,
+async def _batched_defaults(torch, node, engine, port, smi, model, tag, route, answer_scale: int = 1):
+  """``model`` on the batched server at its defaults (n-gram speculation,
   QoS, mixed ticks; 8 slots, 64-token pages) on the solo daemon's engine:
-  the 16 streams of ``batched_bodies`` in two waves. Gates: every request
-  ends with all its tokens, spec and mixed dispatches ran, decode chunks
-  took the gather route, and K1/K2/K3 never launched."""
+  the 16 streams of ``batched_bodies`` in two waves (their answers
+  ``answer_scale`` times as long), the launch counts zeroed just before and
+  read just after. Gates: every request ends with all its tokens, spec and
+  mixed dispatches ran, and the plain decode chunks took ``route``
+  ("kernel": K3; "gather"); the caller gates the kernels' launches."""
   from concurrent.futures import ThreadPoolExecutor
 
   from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, int4_matmul as k4, paged
@@ -3445,38 +3559,37 @@ async def _gemma_batched(torch, node, engine, port, smi):
   clients = ThreadPoolExecutor(max_workers=16)
   loop = asyncio.get_running_loop()
   ids: dict[str, list[int]] = {}
-  node.on_token.register("chip_smoke_gemma").on_next(lambda rid, toks, fin: ids.setdefault(rid, []).extend(toks))
+  node.on_token.register("chip_smoke_batched").on_next(lambda rid, toks, fin: ids.setdefault(rid, []).extend(toks))
   try:
-    await loop.run_in_executor(clients, _post, port, _gemma_chat(True, "warm up", 9))
+    await loop.run_in_executor(clients, _post, port, {"model": model, "messages": [{"role": "user", "content": "warm up"}], "stream": True, "temperature": 0, "max_tokens": 9})
     bserver = engine.get_batched_server()
     slices, spec_records = [], []
     unspy, unspy_spec = _spy_mixed(engine, fa, paged, slices), _spy_spec(engine, paged, k4, spec_records)
-    bodies = [dict(b, model=GEMMA_MODEL) for b in batched_bodies()]
+    bodies = [dict(b, model=model, max_tokens=b["max_tokens"] * answer_scale) for b in batched_bodies()]
     snap0 = metrics.snapshot()
-    _reset_launches()  # ---- the batched gemma2 pass, counted
+    _reset_launches()  # ---- the batched pass, counted
     t0 = time.perf_counter()
     before = set(ids)
     first = [loop.run_in_executor(clients, _post, port, b) for b in bodies[:8]]
     while sum(1 for rid, t in list(ids.items()) if t and rid not in before) < BATCH_SLOTS:
       if time.perf_counter() - t0 > 300 or any(f.done() and f.exception() is not None for f in first):
-        raise SystemExit(f"chip_smoke: [gemma2] batched: the first wave's rows did not all stream ({[repr(f.exception()) for f in first if f.done() and f.exception() is not None]})")
+        raise SystemExit(f"chip_smoke: [{tag}] batched: the first wave's rows did not all stream ({[repr(f.exception()) for f in first if f.done() and f.exception() is not None]})")
       await asyncio.sleep(0.005)
     replies = await asyncio.gather(*first, *(loop.run_in_executor(clients, _post, port, b) for b in bodies[8:]))
     wall = time.perf_counter() - t0
     unspy()
     unspy_spec()
-    launches = _gemma_launches()  # ---- read just after
+    launches, moe_paths = _kernel_launches(), _moe_path_counts()  # ---- read just after
     delta = snapshot_delta(snap0, metrics.snapshot())
     chunks = {path: n for path, n in _by_label(delta, "decode_chunks_total", "path").items() if n}  # the registry keeps earlier passes' paths at 0
     toks = []
     for (_, finish, ttft, total, _, rid), b in zip(replies, bodies):
       n = len(ids.get(rid, []))
       if not n or n > b["max_tokens"] or finish not in ("stop", "length") or (finish == "length" and n != b["max_tokens"]):
-        raise SystemExit(f"chip_smoke: [gemma2] batched: request {rid} gave {n} of {b['max_tokens']} tokens, finish {finish}")
+        raise SystemExit(f"chip_smoke: [{tag}] batched: request {rid} gave {n} of {b['max_tokens']} tokens, finish {finish}")
       toks.append(n)
-    _no_attention_kernels("batched", launches)
-    if not spec_records or not slices or set(chunks) - {"gather", "spec"} or bserver.decode_path != "gather":
-      raise SystemExit(f"chip_smoke: [gemma2] batched: {len(spec_records)} spec and {len(slices)} mixed dispatches, decode chunks by path {chunks}, decode path {bserver.decode_path}")
+    if not spec_records or not slices or set(chunks) - {route, "spec"} or bserver.decode_path != route:
+      raise SystemExit(f"chip_smoke: [{tag}] batched: {len(spec_records)} spec and {len(slices)} mixed dispatches, decode chunks by path {chunks}, decode path {bserver.decode_path}; tokens and finish per request {[(n, r[1]) for n, r in zip(toks, replies)]}")
     ttfts = [r[2] for r in replies]
     res = dict(
       requests=len(replies), tokens=sum(toks), wall_s=wall, aggregate_tok_s=sum(toks) / wall, ttft_p50_s=_pctl(ttfts, 0.5), ttft_p95_s=_pctl(ttfts, 0.95),
@@ -3484,11 +3597,12 @@ async def _gemma_batched(torch, node, engine, port, smi):
       accepted=_by_label(delta, "spec_accepted_tokens_total", "proposer"), proposed=_by_label(delta, "spec_proposed_tokens_total", "proposer"),
       captures=sum(f["captures"] for f in programs.ledger.snapshot()["families"].values()), capture_s=sum(f["capture_s"] for f in programs.ledger.snapshot()["families"].values()),
     )
-    log(f"[gemma2] batched at the defaults: {len(replies)} streaming requests, {res['tokens']} tokens in {wall:.3f} s: aggregate {res['aggregate_tok_s']:.1f} tok/s | TTFT p50 {res['ttft_p50_s']:.4f} s p95 {res['ttft_p95_s']:.4f} s | {len(spec_records)} spec dispatches (accepted {res['accepted']} of proposed {res['proposed']}), {len(slices)} mixed dispatches, decode chunks by path {chunks}, decode path {bserver.decode_path} | {res['captures']} captures ({res['capture_s']:.1f} s) | pool {res['pool_pages']} pages | launches {launches} | {smi}")
+    res["moe_paths"] = moe_paths
+    log(f"[{tag}] batched at the defaults: {len(replies)} streaming requests, {res['tokens']} tokens in {wall:.3f} s: aggregate {res['aggregate_tok_s']:.1f} tok/s | TTFT p50 {res['ttft_p50_s']:.4f} s p95 {res['ttft_p95_s']:.4f} s | {len(spec_records)} spec dispatches (accepted {res['accepted']} of proposed {res['proposed']}), {len(slices)} mixed dispatches, decode chunks by path {chunks}, decode path {bserver.decode_path} | {res['captures']} captures ({res['capture_s']:.1f} s) | pool {res['pool_pages']} pages | launches {launches} | {smi}")
     engine._drop_batched_server()
     return res
   finally:
-    node.on_token.deregister("chip_smoke_gemma")
+    node.on_token.deregister("chip_smoke_batched")
     await asyncio.to_thread(clients.shutdown, True)
     for knob in ("XOT_TPU_BATCHED", "XOT_TPU_BATCH_SLOTS", "XOT_TPU_PAGE_SIZE"):
       os.environ.pop(knob, None)
@@ -3498,11 +3612,10 @@ async def _gemma_int4(torch, tmain, args, port):
   """gemma-2-9b with ``XOT_TPU_QUANT=int4`` (quantized on the card at
   load, the tied head's quantized copy included): greedy blocking and
   streaming ids equal, K4 once per quantized product per forward (7 a
-  layer and the head: 295), no non-kernel int4 product, no attention
-  kernel."""
+  layer and the head), no non-kernel int4 product, no attention kernel."""
   from xotorch_support_jetson_tpu_torch.ops import int4_matmul as k4
 
-  node, server, engine, load_s = await _gemma_up(torch, tmain, args, port, "int4")
+  node, server, engine, load_s = await _daemon_up(torch, tmain, args, port, "gemma2", GEMMA_MODEL, "int4", _gemma_cfg_problem)
   try:
     per_forward = 7 * engine.cfg.n_layers + 1
     if "lm_head_scale" not in engine.params:
@@ -3511,7 +3624,7 @@ async def _gemma_int4(torch, tmain, args, port):
     two_dot0 = k4.CALLS["int4_two_dot"]
     _reset_launches()  # ---- the int4 gemma2 path, counted
     run = await _serve_requests(torch, node, engine, port, [("int4 greedy blocking", _gemma_chat(False)), ("int4 greedy streaming", _gemma_chat(True))])
-    launches = _gemma_launches()  # ---- read just after
+    launches = _kernel_launches()  # ---- read just after
     two_dot = k4.CALLS["int4_two_dot"] - two_dot0
     _no_attention_kernels("int4", launches)
     if run[0]["tokens"] != run[1]["tokens"]:
@@ -3523,7 +3636,503 @@ async def _gemma_int4(torch, tmain, args, port):
     log(f"[gemma2] solo int4 weights ({weight_bytes / 1e9:.2f} GB on the card): greedy blocking == streaming ({len(run[0]['tokens'])} tokens), TTFT {res['ttft_s']:.4f} s, decode {res['decode_tok_s']:.1f} tok/s | K4 {launches['int4_matmul']} launches = {res['forwards']} forwards × {per_forward} | launches {launches}")
     return res
   finally:
-    await _gemma_down(node, server, engine)
+    await _daemon_down(node, server, engine)
+
+
+# ---------------------------------------------------------------- MoE
+
+
+# Qwen/Qwen3-30B-A3B's published config.json, but for the bos / eos ids,
+# which take the byte tokenizer's (151643 / 151645 are not its ids), and
+# the depth, which the phase cuts (``MOE_LAYERS``).
+QWEN3_30B_A3B = {
+  "architectures": ["Qwen3MoeForCausalLM"], "model_type": "qwen3_moe", "vocab_size": 151936, "hidden_size": 2048, "intermediate_size": 6144,
+  "moe_intermediate_size": 768, "num_hidden_layers": 48, "num_attention_heads": 32, "num_key_value_heads": 4, "head_dim": 128, "num_experts": 128,
+  "num_experts_per_tok": 8, "norm_topk_prob": True, "decoder_sparse_step": 1, "mlp_only_layers": [], "rms_norm_eps": 1e-6, "rope_theta": 1000000.0,
+  "max_position_embeddings": 40960, "tie_word_embeddings": False, "attention_bias": False, "router_aux_loss_coef": 0.001,
+  "bos_token_id": 128000, "eos_token_id": 128009, "torch_dtype": "bfloat16",
+}
+MOE_MODEL = "qwen-3-30b-a3b"
+# 12 of the 48 layers (~16.2 GB of bf16 weights): the whole smoke run must
+# end within the 1,200 s it is given; scripts/moe_phase.py --layers 48 runs
+# the full depth (~61 GB) in a call of its own.
+MOE_LAYERS = 12
+MOE_PATH_TS = (1, 2, 4, 8, 16, 32, 72, 128)  # token counts at which both MoE paths are timed
+MOE_CHECK_TOL = 5e-2  # relative L2 of the served logits against the plain f32 forward (PERF.md §2)
+MOE_ROUTER_STD = 3.0  # the random routers' logit scale (``write_moe_checkpoint``)
+# Qwen3-30B-A3B's weight products outside the experts, (in, out), for K4
+# under int4 weights: q, k/v, o and the untied head; one decode step makes
+# each once a layer (k/v twice) and the head once.
+QWEN3_MOE_MATMULS = {"wq": (2048, 4096), "wk/wv": (2048, 512), "wo": (4096, 2048), "lm_head": (2048, 151936)}
+
+
+def moe_shapes(layers: int = MOE_LAYERS) -> dict:
+  """HF tensor name → shape of the Qwen3-MoE checkpoint at ``layers``."""
+  c = QWEN3_30B_A3B
+  D, V, E, Fm, hd = c["hidden_size"], c["vocab_size"], c["num_experts"], c["moe_intermediate_size"], c["head_dim"]
+  qd, kd = c["num_attention_heads"] * hd, c["num_key_value_heads"] * hd
+  shapes = {"model.embed_tokens.weight": (V, D), "model.norm.weight": (D,), "lm_head.weight": (V, D)}
+  for i in range(layers):
+    p = f"model.layers.{i}."
+    shapes.update({p + "input_layernorm.weight": (D,), p + "post_attention_layernorm.weight": (D,), p + "self_attn.q_norm.weight": (hd,), p + "self_attn.k_norm.weight": (hd,)})
+    shapes.update({p + "self_attn.q_proj.weight": (qd, D), p + "self_attn.k_proj.weight": (kd, D), p + "self_attn.v_proj.weight": (kd, D), p + "self_attn.o_proj.weight": (D, qd), p + "mlp.gate.weight": (E, D)})
+    for e in range(E):
+      shapes.update({f"{p}mlp.experts.{e}.gate_proj.weight": (Fm, D), f"{p}mlp.experts.{e}.up_proj.weight": (Fm, D), f"{p}mlp.experts.{e}.down_proj.weight": (D, Fm)})
+  return shapes
+
+
+def write_moe_checkpoint(torch, path: Path, layers: int = MOE_LAYERS, seed: int = SEED + 17) -> float:
+  """Seeded random bf16 weights at Qwen3-30B-A3B's shapes and ``layers``
+  of its depth, HF names, one .safetensors file written tensor by tensor
+  (the weights never sit in host memory at once). N(0, 1/fan_in)
+  projections and head, N(0, 0.02) embeddings, unit norm gains, and
+  routers N(0, (MOE_ROUTER_STD)²/fan_in): router logits of std 3 on the
+  normed hidden state, so the top 8 of 128 experts hold most of the
+  probability and the 8th's renormalised weight is small, as a trained
+  router's are. With std-1 logits (flat routing) the 8th and 9th experts
+  are near-tied in about one decision in seven, bf16 and f32 route such a
+  token apart, and each such token's FFN output moves by about an eighth:
+  the served step's logits then sat 3e-2 to 5.3e-2 from the plain f32
+  forward (PERF.md §6)."""
+  import struct
+
+  t0 = time.perf_counter()
+  shapes = moe_shapes(layers)
+  header, offset = {"__metadata__": {"format": "pt"}}, 0
+  for name, shape in shapes.items():
+    n = math.prod(shape) * 2
+    header[name] = {"dtype": "BF16", "shape": list(shape), "data_offsets": [offset, offset + n]}
+    offset += n
+  raw = json.dumps(header, separators=(",", ":")).encode()
+  raw += b" " * (-len(raw) % 8)
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  path.mkdir(parents=True, exist_ok=True)
+  (path / "config.json").write_text(json.dumps(dict(QWEN3_30B_A3B, num_hidden_layers=layers), indent=1))
+  with open(path / "model.safetensors", "wb") as f:
+    f.write(struct.pack("<Q", len(raw)))
+    f.write(raw)
+    for name, shape in shapes.items():
+      if len(shape) == 1:
+        t = torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+      else:
+        scale = 0.02 if name == "model.embed_tokens.weight" else MOE_ROUTER_STD * shape[1] ** -0.5 if name.endswith("mlp.gate.weight") else shape[1] ** -0.5
+        t = (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+      f.write(t.view(torch.uint8).cpu().numpy().data)
+  return time.perf_counter() - t0
+
+
+def moe_params_on_card(torch, layers: int, seed: int = SEED + 17):
+  """(cfg, params): the port's parameter tree of a random Qwen3-30B-A3B at
+  ``layers`` deep, drawn on the card from ``write_moe_checkpoint``'s
+  distributions (other draws), one layer slice at a time, for a depth
+  whose checkpoint is too large to write for one run (48 layers: ~61 GB)."""
+  from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+  from xotorch_support_jetson_tpu_torch.models.config import config_from_hf
+  from xotorch_support_jetson_tpu_torch.models.loader import check_shard_params
+
+  cfg = config_from_hf(dict(QWEN3_30B_A3B, num_hidden_layers=layers))
+  D, V, E, F, hd = cfg.dim, cfg.vocab_size, cfg.n_experts, cfg.moe_hidden_dim, cfg.head_dim
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+
+  def w(shape, scale, L=layers):
+    out = torch.empty((L, *shape), dtype=torch.bfloat16, device="cuda")
+    for i in range(L):
+      out[i].copy_(torch.randn(shape, generator=gen, device="cuda") * scale)
+    return out
+
+  def ones(*shape):
+    return torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+
+  lay = {
+    "attn_norm": ones(layers, D), "mlp_norm": ones(layers, D), "q_norm": ones(layers, hd), "k_norm": ones(layers, hd),
+    "wq": w((D, cfg.q_dim), D**-0.5), "wk": w((D, cfg.kv_dim), D**-0.5), "wv": w((D, cfg.kv_dim), D**-0.5), "wo": w((cfg.q_dim, D), cfg.q_dim**-0.5),
+    "w_router": w((D, E), MOE_ROUTER_STD * D**-0.5),
+    "w_experts_gate": w((E, D, F), D**-0.5), "w_experts_up": w((E, D, F), D**-0.5), "w_experts_down": w((E, F, D), F**-0.5),
+  }
+  params = {"moe_layers": lay, "embed": w((V, D), 0.02, L=1)[0], "final_norm": ones(D), "lm_head": w((D, V), D**-0.5, L=1)[0]}
+  check_shard_params(params, cfg, Shard(MOE_MODEL, 0, layers - 1, layers))
+  return cfg, params
+
+
+def moe_plain_f32(torch, params, cfg, ids: list[int], n_last: int = 2):
+  """A plain f32 forward of Qwen3-MoE over the served weights, written out
+  here from the published architecture (each layer's weights cast to f32
+  as it runs): per layer the pre-attention norm, q/k/v, the per-head q/k
+  norms, HF rope, causal GQA softmax attention, o; the pre-MLP norm, the
+  router's softmax over the experts, the top k renormalised, and each
+  expert's SwiGLU on the tokens routed to it (gathered on the host: this
+  is no serving path); the final norm and the untied head. Also counts
+  the routing decisions whose k-th and (k+1)-th scores lie within 1 % of
+  each other (near-ties, where bf16 and f32 may route differently).
+  Returns (logits [n_last, V] f32 of the last positions, near-ties,
+  routing decisions)."""
+  lay = params["moe_layers"]
+  S, H, Hkv, hd, k = len(ids), cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_active_experts
+  dev = params["embed"].device
+  x = torch.tensor(ids, device=dev)
+
+  def rms(v, w):
+    return v * torch.rsqrt(v.pow(2).mean(-1, keepdim=True) + cfg.norm_eps) * w.float()
+
+  inv = 1.0 / (cfg.rope_theta ** (torch.arange(0, hd, 2, device=dev, dtype=torch.float32) / hd))
+  ang = torch.arange(S, device=dev, dtype=torch.float32)[:, None] * inv[None, :]
+  cos, sin = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
+
+  def rope(v):
+    a, b = v.chunk(2, dim=-1)
+    return torch.cat([a * cos - b * sin, b * cos + a * sin], dim=-1)
+
+  pos = torch.arange(S, device=dev)
+  causal = pos[None, :] <= pos[:, None]
+  h = params["embed"][x].float()
+  ties = 0
+  for i in range(lay["wq"].shape[0]):
+    p = {key: v[i] for key, v in lay.items()}
+    a = rms(h, p["attn_norm"])
+    q = rope(rms((a @ p["wq"].float()).view(S, H, hd), p["q_norm"]))
+    kk = rope(rms((a @ p["wk"].float()).view(S, Hkv, hd), p["k_norm"])).repeat_interleave(H // Hkv, dim=1)
+    v = (a @ p["wv"].float()).view(S, Hkv, hd).repeat_interleave(H // Hkv, dim=1)
+    s = torch.einsum("qhd,khd->hqk", q, kk) / math.sqrt(hd)
+    s = torch.softmax(s.masked_fill(~causal[None], -math.inf), dim=-1)
+    h = h + torch.einsum("hqk,khd->qhd", s, v).reshape(S, H * hd) @ p["wo"].float()
+    m = rms(h, p["mlp_norm"])
+    probs = torch.softmax(m @ p["w_router"].float(), dim=-1)
+    top = torch.topk(probs, k + 1, dim=-1)
+    ties += int((top.values[:, k - 1] - top.values[:, k] < 1e-2 * top.values[:, k - 1]).sum())
+    w, idx = top.values[:, :k], top.indices[:, :k]
+    w = w / w.sum(-1, keepdim=True)
+    out = torch.zeros_like(m)
+    for e in idx.unique().tolist():
+      rows, slot = (idx == e).nonzero(as_tuple=True)
+      xe = m[rows]
+      ye = (torch.nn.functional.silu(xe @ p["w_experts_gate"][e].float()) * (xe @ p["w_experts_up"][e].float())) @ p["w_experts_down"][e].float()
+      out.index_add_(0, rows, ye * w[rows, slot][:, None])
+    h = h + out
+  return rms(h[-n_last:], params["final_norm"]) @ params["lm_head"].float(), ties, S * lay["wq"].shape[0]
+
+
+def _moe_weights(torch, gen, weights: str):
+  """One layer's router and experts at Qwen3-30B-A3B's shapes, seeded
+  random bf16 (N(0, 1/fan_in)), optionally quantized as the served model
+  quantizes them: (router, gate, up, down, scales)."""
+  from xotorch_support_jetson_tpu_torch.models.quantize import quantize_params
+
+  c = QWEN3_30B_A3B
+  D, E, F = c["hidden_size"], c["num_experts"], c["moe_intermediate_size"]
+  router = _rand(torch, (D, E), gen, torch.float32).mul_(D**-0.5).to(torch.bfloat16)
+  w = {"w_experts_gate": (E, D, F), "w_experts_up": (E, D, F), "w_experts_down": (E, F, D)}
+  w = {k: _rand(torch, shape, gen, torch.float32).mul_(shape[1] ** -0.5).to(torch.bfloat16) for k, shape in w.items()}
+  scales = {}
+  if weights != "bf16":
+    q = quantize_params({"moe_layers": {k: v[None] for k, v in w.items()}}, weights)["moe_layers"]
+    w = {k: q[k][0] for k in w}
+    scales = dict(gate_scale=q["w_experts_gate_scale"][0], up_scale=q["w_experts_up_scale"][0], down_scale=q["w_experts_down_scale"][0])
+  return router, w["w_experts_gate"], w["w_experts_up"], w["w_experts_down"], scales
+
+
+def moe_path_rows(torch, weights: str = "bf16", Ts=MOE_PATH_TS):
+  """Device ms of one layer's routed FFN (ops/moe.py ``moe_ffn``) at
+  Qwen3-30B-A3B's shapes (128 experts of 2048 → 768, top-8 renormalised)
+  on both paths, at each token count in ``Ts``, the experts in ``weights``
+  ("bf16", "int8", "int4"; dequantized next to the product as served), with
+  the two outputs' relative L2 and the bytes each path must move: the
+  einsum path reads every expert once (and, quantized, writes and reads
+  the dequantized stacks), the gather path reads its routed slabs, writes
+  the gathered copy and reads it again. Returns the rows and the largest
+  T up to which the gather path was faster at every measured T (the H100
+  table's entry, ops/moe.py ``H100_GATHER_MAX``)."""
+  from xotorch_support_jetson_tpu_torch.ops import moe
+
+  c = QWEN3_30B_A3B
+  D, E, F, k = c["hidden_size"], c["num_experts"], c["moe_intermediate_size"], c["num_experts_per_tok"]
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+  router, g, u, d, scales = _moe_weights(torch, gen, weights)
+  expert_bytes = sum(t.numel() * t.element_size() for t in (g, u, d, *scales.values()))
+  slab = expert_bytes / E
+  deq = 0 if weights == "bf16" else 2 * 3 * E * D * F * 2  # the dequantized stacks written and read again
+  rows, saved = [], (os.environ.get("XOT_TPU_MOE_GATHER"), moe.REFERENCE_GATHER_MAX)
+  moe.REFERENCE_GATHER_MAX = 1 << 20  # XOT_TPU_MOE_GATHER=1: the gather path at any T
+  try:
+    for T in Ts:
+      x = _rand(torch, (T, D), gen, torch.bfloat16)
+
+      def run(knob):
+        os.environ["XOT_TPU_MOE_GATHER"] = knob
+        return moe.moe_ffn(x, router, g, u, d, k=k, norm_topk=True, hidden_dim=F, **scales)
+
+      err = _rel_err(run("1"), run("0"))
+      os.environ["XOT_TPU_MOE_GATHER"] = "1"
+      gather_ms = _cuda_ms(torch, lambda: moe.moe_ffn(x, router, g, u, d, k=k, norm_topk=True, hidden_dim=F, **scales), iters=20)
+      os.environ["XOT_TPU_MOE_GATHER"] = "0"
+      einsum_ms = _cuda_ms(torch, lambda: moe.moe_ffn(x, router, g, u, d, k=k, norm_topk=True, hidden_dim=F, **scales), iters=20)
+      gbytes = T * k * (slab + (2 * 3 * D * F * 2))  # routed slabs read, their dequantized/gathered copies written and read
+      ebytes = expert_bytes + deq
+      rows.append(dict(T=T, weights=weights, gather_ms=gather_ms, einsum_ms=einsum_ms, rel_err=err, gather_bytes=gbytes, einsum_bytes=ebytes,
+                       gather_bound_ms=gbytes / HBM_BYTES_PER_S * 1e3, einsum_bound_ms=ebytes / HBM_BYTES_PER_S * 1e3))
+      log(f"[moe] paths, {weights} experts, T={T}: gather {gather_ms:.4f} ms (bytes bound {rows[-1]['gather_bound_ms']:.4f}), einsum {einsum_ms:.4f} ms (bound {rows[-1]['einsum_bound_ms']:.4f}); outputs rel L2 {err:.2e}")
+      del x
+  finally:
+    moe.REFERENCE_GATHER_MAX = saved[1]
+    if saved[0] is None:
+      os.environ.pop("XOT_TPU_MOE_GATHER", None)
+    else:
+      os.environ["XOT_TPU_MOE_GATHER"] = saved[0]
+  best = 0
+  for r in rows:
+    if r["gather_ms"] >= r["einsum_ms"]:
+      break
+    best = r["T"]
+  bad = [r for r in rows if not r["rel_err"] < 1e-2]
+  if bad:
+    raise SystemExit(f"chip_smoke: [moe] the two MoE paths disagree: {bad}")
+  del router, g, u, d, scales
+  torch.cuda.empty_cache()
+  return rows, best
+
+
+def _moe_path_counts() -> dict:
+  """MoE calls by path and token count since the last ``_reset_launches()``
+  (ops/moe.py ``PATHS``, plus those made inside replayed CUDA graphs)."""
+  from xotorch_support_jetson_tpu_torch.ops import moe
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  out = dict(moe.PATHS)
+  for key, n in programs.REPLAYED.items():
+    if "@" in key:
+      out[key] = out.get(key, 0) + n
+  return out
+
+
+def _check_moe_paths(tag: str, counts: dict, weights: str) -> dict:
+  """Every MoE call took the path the H100 table (ops/moe.py
+  ``gather_max``) gives its token count: the gather path up to the table's
+  T, the einsum path up to 256 tokens, chunks of 256 beyond. Returns the
+  calls by path."""
+  from xotorch_support_jetson_tpu_torch.ops.moe import gather_max
+
+  c = QWEN3_30B_A3B
+  limit = gather_max("cuda", c["num_experts"], c["num_experts_per_tok"], weights)
+
+  def want(T):
+    return "gather" if T <= limit else "einsum" if T <= 256 else "chunked"
+
+  wrong = {k: n for k, n in counts.items() if k.split("@")[0] != want(int(k.split("@")[1]))}
+  if not counts or wrong:
+    raise SystemExit(f"chip_smoke: [{tag}] MoE paths against the H100 table (gather up to T = {limit}, {weights} experts): {counts}; off the table: {wrong}")
+  by_path: dict[str, int] = {}
+  for k, n in counts.items():
+    by_path[k.split("@")[0]] = by_path.get(k.split("@")[0], 0) + n
+  return by_path
+
+
+def _moe_chat(stream: bool, max_tokens: int = MAX_TOKENS) -> dict:
+  return {"model": MOE_MODEL, "messages": CHAT, "stream": stream, "temperature": 0, "max_tokens": max_tokens}
+
+
+def _moe_cfg_problem(cfg) -> str:
+  ok = cfg.family == "qwen3-moe" and cfg.n_experts == 128 and cfg.n_active_experts == 8 and cfg.moe_hidden_dim == 768 and cfg.norm_topk_prob and cfg.qk_norm and cfg.head_dim == 128
+  return "" if ok else "not Qwen3-30B-A3B's"
+
+
+def phase_moe(torch, ckpt: Path | None, smi: str, full: bool = True, preload=None):
+  """Qwen3-30B-A3B at full width (the checkpoint's depth): the two MoE
+  paths timed at Qwen3-30B-A3B's expert shapes (bf16 and int4 experts),
+  then the daemon: solo bf16 (captured) and batched at the defaults on the
+  same engine, then solo with ``XOT_TPU_QUANT=int4``. Without ``full``
+  (a depth whose bf16 stacks and int4 codes would not fit on the card
+  together), the solo bf16 daemon alone; ``preload`` as in
+  ``_daemon_up`` (no checkpoint then)."""
+  from xotorch_support_jetson_tpu_torch import main as tmain
+  from xotorch_support_jetson_tpu_torch.ops import moe
+
+  out: dict = {"paths": {}}
+  for weights in ("bf16", "int4") if full else ():
+    rows, best = moe_path_rows(torch, weights)
+    out["paths"][weights] = dict(rows=rows, gather_max=best, table=moe.H100_GATHER_MAX.get((128, 8, weights)))
+    log(f"[moe] {weights} experts: the gather path was faster up to T = {best} in this run; ops/moe.py's H100 table holds {out['paths'][weights]['table']} | {smi}")
+  args, port = _daemon_args(tmain, ckpt or ROOT / "build" / "no_checkpoint", model=MOE_MODEL)
+  try:
+    out["bf16"] = asyncio.run(_moe_bf16(torch, tmain, args, port, smi, batched=full, preload=preload))
+  finally:
+    for knob in ("XOT_TPU_BATCHED", "XOT_TPU_BATCH_SLOTS", "XOT_TPU_PAGE_SIZE"):
+      os.environ.pop(knob, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+  if not full:
+    return out
+  args, port = _daemon_args(tmain, ckpt, model=MOE_MODEL)
+  os.environ["XOT_TPU_QUANT"] = "int4"
+  try:
+    out["int4"] = asyncio.run(_moe_int4(torch, tmain, args, port, smi))
+  finally:
+    os.environ.pop("XOT_TPU_QUANT", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+  return out
+
+
+async def _moe_counted(torch, node, engine, port, label):
+  """Greedy blocking and streaming chat after a warm-up pair of the same
+  kinds, the launch and MoE path counts zeroed just before and read just
+  after; (replies, launches, MoE path counts, builds and captures made by
+  the counted requests, by family)."""
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  await _serve_requests(torch, node, engine, port, [("warmup blocking", _moe_chat(False)), ("warmup streaming", _moe_chat(True))])
+  fam0 = programs.ledger.snapshot()["families"]
+  _reset_launches()  # ---- the solo MoE path, counted
+  run = await _serve_requests(torch, node, engine, port, [(f"{label} greedy blocking", _moe_chat(False)), (f"{label} greedy streaming", _moe_chat(True))])
+  launches, paths = _kernel_launches(), _moe_path_counts()  # ---- read just after
+  fam1 = programs.ledger.snapshot()["families"]
+  built = {f: (v["compiles"] - fam0.get(f, {}).get("compiles", 0), v["captures"] - fam0.get(f, {}).get("captures", 0)) for f, v in fam1.items()}
+  built = {f: bc for f, bc in built.items() if any(bc)}
+  if run[0]["tokens"] != run[1]["tokens"]:
+    raise SystemExit(f"chip_smoke: [moe] {label}: greedy blocking and streaming differ:\n{run[0]['tokens']}\n{run[1]['tokens']}")
+  if built:
+    raise SystemExit(f"chip_smoke: [moe] {label}: the counted requests built or captured programs after the warm-up (family: builds, captures): {built}")
+  return run, launches, paths
+
+
+async def _moe_bf16(torch, tmain, args, port, smi, batched: bool = True, preload=None):
+  node, server, engine, load_s = await _daemon_up(torch, tmain, args, port, "moe", MOE_MODEL, "bf16", _moe_cfg_problem, preload)
+  res = dict(load_s=load_s, card=smi, weight_bytes=sum(t.numel() * t.element_size() for t in _leaves(engine.params)))
+  try:
+    cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+    L = cfg.n_layers
+    log(f"[moe] config: Qwen/Qwen3-30B-A3B's published shapes (hidden 2048, {L} of its 48 layers, 32/4 heads, head_dim 128, 128 experts of 768, top-8 renormalised, qk-norm, vocab 151936, untied head, rope theta 1e6), random bf16 weights; bos/eos written as the byte tokenizer's 128000/128009; serving cap {engine.max_seq_len}")
+    run, launches, paths = await _moe_counted(torch, node, engine, port, "bf16")
+    by_path = _check_moe_paths("moe", paths, "bf16")
+    prefills = 2
+    if launches["flash_prefill"] != L * prefills or launches["flash_decode"] or launches["paged_decode"] or launches["int4_matmul"]:
+      raise SystemExit(f"chip_smoke: [moe] solo bf16: launches {launches}, expected K1 {L} per prefill ({prefills} prefills) and nothing else")
+    res.update(launches=launches, moe_paths=paths, moe_by_path=by_path, tokens=run[0]["tokens"], ttft_s=run[1]["ttft_s"], decode_tok_s=_decode_rate(run[1]), peak_allocated=torch.cuda.max_memory_allocated())
+    log(f"[moe] solo bf16: greedy blocking == streaming ({len(run[0]['tokens'])} tokens); TTFT {res['ttft_s']:.4f} s, decode {res['decode_tok_s']:.1f} tok/s | launches {launches} (K1 {L} a prefill) | MoE calls by path and T {paths}, each on the H100 table's path | no build or capture after the warm-up | {smi}")
+    # The served logits against the plain f32 forward: the captured prefill's
+    # last token and one captured decode step after it.
+    ids = ByteTokenizer().encode(ByteTokenizer().apply_chat_template(CHAT))
+    served_pre, _ = engine._infer_tensor_sync("moe-check", np.asarray([ids], np.int32), None)
+    nxt = int(np.argmax(served_pre[0]))
+    served_step, _ = engine._infer_tensor_sync("moe-check", np.asarray([[nxt]], np.int32), None)
+    engine.end_request("moe-check")
+    served = torch.from_numpy(np.stack([served_pre[0], served_step[0]])).cuda().float()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+      ref, ties, decisions = moe_plain_f32(torch, params, cfg, ids + [nxt])
+    err = [_rel_err(served[i], ref[i]) for i in range(2)]
+    res["check"] = dict(positions=[len(ids) - 1, len(ids)], rel_err=err, near_ties=ties, routing_decisions=decisions, argmax_agree=[int(served[i].argmax()) == int(ref[i].argmax()) for i in range(2)], ref_s=time.perf_counter() - t0)
+    log(f"[moe] served logits at positions {len(ids) - 1} (captured prefill) and {len(ids)} (captured step) against a plain f32 forward on the same weights: rel L2 {err[0]:.3e} / {err[1]:.3e} (limit {MOE_CHECK_TOL}); argmax agree {res['check']['argmax_agree']}; near-tied routing decisions (k-th and (k+1)-th scores within 1 %) {ties} of {decisions}")
+    del ref
+    if not max(err) < MOE_CHECK_TOL:
+      raise SystemExit(f"chip_smoke: [moe] served logits: {res['check']}")
+    res["graphs"] = _moe_graphs_against_eager(torch, engine)
+    res["profile"] = _moe_profile(torch, engine, smi)
+    if not batched:
+      return res
+    engine._cache_pool.clear()
+    engine._graph_pool = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["batched"] = b = await _batched_defaults(torch, node, engine, port, smi, MOE_MODEL, "moe", "kernel")
+    bl = b["launches"]
+    if not bl["flash_prefill"] or bl["flash_prefill"] % L or not bl["paged_decode"] or bl["paged_decode"] % L or bl["flash_decode"] or bl["int4_matmul"]:
+      raise SystemExit(f"chip_smoke: [moe] batched: launches {bl}, expected K1 and K3 in whole multiples of {L} (once per layer per forward) and no K2 / K4")
+    b["moe_by_path"] = _check_moe_paths("moe", b["moe_paths"], "bf16")
+    log(f"[moe] batched: MoE calls by path and T {b['moe_paths']}, each on the H100 table's path; K1 {bl['flash_prefill']} and K3 {bl['paged_decode']} launches, once per layer per forward")
+    return res
+  finally:
+    await _daemon_down(node, server, engine)
+
+
+def _moe_graphs_against_eager(torch, engine):
+  """Captured equals uncaptured on the MoE model: the engine's captured
+  128-bucket prefill and greedy blocking / chunked decode (64 tokens)
+  against the uncaptured functions on a fresh 4096-slot cache (ids
+  identical, prefill logits within 5e-2 relative L2)."""
+  prompt = np.asarray([ByteTokenizer().encode(CHECK_PROMPT)], dtype=np.int32)
+  rows = []
+  for rnd, chunks in enumerate(((), (32, 32))):
+    want_logits, want = _eager_solo(torch, engine, prompt, 0.0, 0, chunks)
+    got_logits, got = _captured_solo(torch, engine, f"moe-graphs-{rnd}", prompt, 0.0, 0, chunks)
+    err = _rel_err(got_logits.cuda(), want_logits)
+    rows.append(dict(kind="streaming" if chunks else "blocking", identical=got == want, prefill_rel_err=err))
+    if got != want or not err < 5e-2:
+      raise SystemExit(f"chip_smoke: [moe] captured differs from uncaptured ({rows[-1]}):\n{got}\n{want}")
+  log(f"[moe] captured against uncaptured: {rows}")
+  return rows
+
+
+def _moe_profile(torch, engine, smi):
+  """The captured decode step at position 100 of the 4096-slot cache
+  (wall and device ms, ``_replay_ms``; torch.profiler's kernels over its
+  replays), and the step's routed FFN alone: the layers' ``_moe_block``
+  at T = 1 captured as one CUDA graph on the step's shapes and timed the
+  same way, its share of the step's device time."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import _moe_block, fused_decode
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  session = engine._new_session("moe-profile", 1)
+  progs = session.programs
+  n = GRAPH_PROFILE_STEPS
+  try:
+    step = lambda: fused_decode(params, cfg, shard, 65, progs.cache, 100, n, programs=progs)  # noqa: E731
+    wall, device = _replay_ms(torch, step, n)
+    prof = _profile(torch, f"moe decode, {n} captured steps", step, 2)
+  finally:
+    engine.end_request("moe-profile")
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+  x = _rand(torch, (1, 1, cfg.dim), gen, cfg.dtype)
+  out = torch.empty_like(x)
+  layers = [{k: v[i] for k, v in params["moe_layers"].items()} for i in range(cfg.n_layers)]
+
+  def ffn():
+    for p in layers:
+      out.copy_(_moe_block(x, p, cfg))
+
+  ffn()
+  torch.cuda.synchronize()
+  graph = torch.cuda.CUDAGraph()
+  stream = torch.cuda.Stream()
+  stream.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(stream):
+    graph.capture_begin()
+    ffn()
+    graph.capture_end()
+  torch.cuda.current_stream().wait_stream(stream)
+  ffn_wall, ffn_device = _replay_ms(torch, graph.replay, 1)
+  del graph
+  res = dict(step_wall_ms=wall, step_device_ms=device, step_profiler_device_ms=prof["device_ms"] / n if prof["device_ms"] else None, moe_ffn_device_ms=ffn_device, moe_ffn_share=ffn_device / device, top_device_ops=prof["top_device_ops"])
+  log(f"[profile] moe decode step at position 100 of {CACHE} slots (captured, {cfg.n_layers} layers): wall {wall:.3f} ms, device {device:.3f} ms; the routed FFN of the {cfg.n_layers} layers captured alone at T = 1 (gather path) {ffn_device:.3f} ms device: share {res['moe_ffn_share']:.3f} | {smi}")
+  return res
+
+
+async def _moe_int4(torch, tmain, args, port, smi):
+  """Qwen3-30B-A3B with ``XOT_TPU_QUANT=int4`` (quantized on the card at
+  load): greedy blocking and streaming ids equal, K4 once per
+  two-dimensional quantized product per forward (q, k, v, o a layer and the
+  head: the experts are dequantized next to their product, as in the
+  reference), no non-kernel int4 product, the MoE calls on the table's int4
+  paths."""
+  from xotorch_support_jetson_tpu_torch.ops import int4_matmul as k4
+
+  node, server, engine, load_s = await _daemon_up(torch, tmain, args, port, "moe", MOE_MODEL, "int4", _moe_cfg_problem)
+  try:
+    L = engine.cfg.n_layers
+    per_forward = 4 * L + 1
+    lay = engine.params["moe_layers"]
+    if "lm_head_scale" not in engine.params or "w_experts_gate_scale" not in lay or lay["w_experts_gate"].shape[-2] * 2 != engine.cfg.dim:
+      raise SystemExit("chip_smoke: [moe] int4: the head or the experts are not int4")
+    two_dot0 = k4.CALLS["int4_two_dot"]
+    run, launches, paths = await _moe_counted(torch, node, engine, port, "int4")
+    two_dot = k4.CALLS["int4_two_dot"] - two_dot0
+    by_path = _check_moe_paths("moe", paths, "int4")
+    if launches["int4_matmul"] == 0 or launches["int4_matmul"] % per_forward or two_dot or launches["flash_prefill"] != 2 * L:
+      raise SystemExit(f"chip_smoke: [moe] int4: launches {launches} (K4 not a multiple of {per_forward} per forward, or K1 not {L} per prefill), {two_dot} int4_two_dot calls")
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(engine.params))
+    res = dict(load_s=load_s, launches=launches, per_forward=per_forward, forwards=launches["int4_matmul"] // per_forward, weight_bytes=weight_bytes, moe_paths=paths, moe_by_path=by_path, tokens=run[0]["tokens"], ttft_s=run[1]["ttft_s"], decode_tok_s=_decode_rate(run[1]))
+    log(f"[moe] solo int4 weights ({weight_bytes / 1e9:.2f} GB on the card): greedy blocking == streaming ({len(run[0]['tokens'])} tokens), TTFT {res['ttft_s']:.4f} s, decode {res['decode_tok_s']:.1f} tok/s | K4 {launches['int4_matmul']} launches = {res['forwards']} forwards × {per_forward} | launches {launches} | MoE calls by path and T {paths}, each on the H100 table's int4 path | {smi}")
+    return res
+  finally:
+    await _daemon_down(node, server, engine)
 
 
 # ---------------------------------------------------------------- main
@@ -4939,7 +5548,7 @@ def main() -> int:
   smi = phase_device(torch)
   build_s = timed("build", phase_build)
   kern = timed("kernels", phase_kernels, torch)
-  ckpt, draft_dir, gemma_dir = ROOT / "build" / "smoke_ckpt", ROOT / "build" / "smoke_draft", ROOT / "build" / "smoke_gemma2"
+  ckpt, draft_dir, gemma_dir, moe_dir = ROOT / "build" / "smoke_ckpt", ROOT / "build" / "smoke_draft", ROOT / "build" / "smoke_gemma2", ROOT / "build" / "smoke_moe"
   try:
     write_s = write_checkpoint(torch, ckpt)
     log(f"[serving] wrote a random bf16 llama-3.2-1b checkpoint ({sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9:.2f} GB) in {write_s:.1f} s")
@@ -4959,13 +5568,18 @@ def main() -> int:
     processes = timed("processes", phase_processes, ckpt)
     ring = timed("ring", phase_ring, torch, ckpt, smi, serving)
     shutil.rmtree(ckpt, ignore_errors=True)
+    write_s = timed("moe checkpoint", write_moe_checkpoint, torch, moe_dir)
+    log(f"[moe] wrote a random bf16 Qwen3-30B-A3B checkpoint ({sum(f.stat().st_size for f in moe_dir.iterdir()) / 1e9:.2f} GB, full width, {MOE_LAYERS} of 48 layers) in {write_s:.1f} s")
+    moe_res = timed("moe", phase_moe, torch, moe_dir, smi)
+    shutil.rmtree(moe_dir, ignore_errors=True)
     write_s = timed("gemma2 checkpoint", write_gemma_checkpoint, torch, gemma_dir)
-    log(f"[gemma2] wrote a random bf16 gemma-2-9b checkpoint ({sum(f.stat().st_size for f in gemma_dir.iterdir()) / 1e9:.2f} GB, full width and depth) in {write_s:.1f} s")
+    log(f"[gemma2] wrote a random bf16 gemma-2-9b checkpoint ({sum(f.stat().st_size for f in gemma_dir.iterdir()) / 1e9:.2f} GB, full width, {GEMMA_LAYERS} of 42 layers) in {write_s:.1f} s")
     gemma = timed("gemma2", phase_gemma2, torch, gemma_dir, smi)
   finally:
     shutil.rmtree(ckpt, ignore_errors=True)
     shutil.rmtree(draft_dir, ignore_errors=True)
     shutil.rmtree(gemma_dir, ignore_errors=True)
+    shutil.rmtree(moe_dir, ignore_errors=True)
   # Launches per kernel on each main path (the tiered multi-turn pass with
   # the tier on is "batched_tiered": K1, K3): the solo bf16 daemon run (K1,
   # K2), the solo quantized runs (K1; K4 under int4 weights), the solo
@@ -4982,7 +5596,9 @@ def main() -> int:
   # each logprobs scoring forward), "batched_api" the batched logprobs
   # request (K1, K3). The gemma2 paths: "gemma2" is the solo bf16 daemon's
   # counted requests and its batched pass (no K1-K3: the plain route),
-  # "gemma2_int4" the int4-weights daemon (K4).
+  # "gemma2_int4" the int4-weights daemon (K4). The MoE paths: "moe" is the
+  # solo bf16 daemon's counted requests (K1) and its batched pass (K1, K3),
+  # "moe_int4" the int4-weights daemon (K1, K4).
   bp = batched["passes"]
   paths = {
     "solo": [serving["launches"]], "solo_long_prompt": [serving["long"]["launches"]], "solo_quant": [q["launches"] for q in quant.values()],
@@ -4994,6 +5610,7 @@ def main() -> int:
     "solo_graphs": [graphs["daemon"]["launches"]], "solo_api": [graphs["daemon"]["api"]["launches"]], "batched_api": [batched["logprobs"]["launches"]],
     "gemma2": [gemma["bf16"]["launches"], gemma["bf16"]["batched"]["launches"]], "gemma2_int4": [gemma["int4"]["launches"]],
     "ring": [ring["launches"]], "ring_daemons": [ring["daemon_launches"]],
+    "moe": [moe_res["bf16"]["launches"], moe_res["bf16"]["batched"]["launches"]], "moe_int4": [moe_res["int4"]["launches"]],
   }
   by_path = {name: {path: sum(x.get(name, 0) for x in runs) for path, runs in paths.items()} for name in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
   for name in ("flash_prefill", "paged_decode"):
@@ -5012,21 +5629,24 @@ def main() -> int:
   kernels_line = {"kernels": [
     # Head row: Sq 128 at offset 0 against the 4096-slot cache; the solo
     # verify-window and scoring-shape rows' errors count too.
-    {**entry("flash_prefill", "xotorch_support_jetson_tpu_torch/csrc/flash_prefill.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:32", kern["flash_prefill"] + kern["flash_prefill_verify"] + kern["flash_prefill_scoring"], 0),
+    {**entry("flash_prefill", "xotorch_support_jetson_tpu_torch/csrc/flash_prefill.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:32", kern["flash_prefill"] + kern["flash_prefill_verify"] + kern["flash_prefill_scoring"] + kern["flash_prefill_moe"], 0),
+     "moe_rows": [{k: r[k] for k in ("Sq", "q_offset", "kv", "hd", "heads", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_prefill_moe"]],
      "verify_windows": [{k: r[k] for k in ("Sq", "q_offset", "kv", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_prefill_verify"]],
      "scoring_rows": [{k: r[k] for k in ("Sq", "skv", "q_offset", "kv", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_prefill_scoring"]]},
     entry("flash_decode", "xotorch_support_jetson_tpu_torch/csrc/flash_decode.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:190", kern["flash_decode"], 0),
     # Head row: B=8 at mixed lengths, bf16 pages (the batched path's geometry);
     # the verify-window rows' errors count too.
-    {**entry("paged_decode", "xotorch_support_jetson_tpu_torch/csrc/paged_decode.cu", "xotorch_support_jetson_tpu/ops/paged.py:236", kern["paged_decode"] + kern["paged_window"], 12),
+    {**entry("paged_decode", "xotorch_support_jetson_tpu_torch/csrc/paged_decode.cu", "xotorch_support_jetson_tpu/ops/paged.py:236", kern["paged_decode"] + kern["paged_window"] + kern["paged_decode_moe"], 12),
+     "moe_rows": [{k: r[k] for k in ("B", "kv", "hd", "heads", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["paged_decode_moe"]],
      "verify_window": {k: kern["paged_window"][0][k] for k in ("B", "W", "starts", "kv", "ms", "w1_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
     # Head row: one MLP projection (in 2048, out 8192) at T=1, solo decode;
     # the per-step sums are in chip_smoke.json's int4_matmul_bound. The
     # gemma-2-9b rows (T=1) count toward the error too.
-    {**entry("int4_matmul", "xotorch_support_jetson_tpu_torch/csrc/int4_matmul.cu", "xotorch_support_jetson_tpu/ops/pallas_int4.py:36", kern["int4_matmul"] + kern["int4_matmul_gemma2"], k4_head),
+    {**entry("int4_matmul", "xotorch_support_jetson_tpu_torch/csrc/int4_matmul.cu", "xotorch_support_jetson_tpu/ops/pallas_int4.py:36", kern["int4_matmul"] + kern["int4_matmul_gemma2"] + kern["int4_matmul_moe"], k4_head),
+     "moe_rows": [{k: r[k] for k in ("weight", "T", "d_in", "d_out", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["int4_matmul_moe"]],
      "gemma2_rows": [{k: r[k] for k in ("weight", "T", "d_in", "d_out", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["int4_matmul_gemma2"]]},
   ]}
-  record = dict(card=smi, phase_s=phase_s, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, processes=processes, ring=ring, gemma2=gemma, summary=kernels_line)
+  record = dict(card=smi, phase_s=phase_s, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, processes=processes, ring=ring, moe=moe_res, gemma2=gemma, summary=kernels_line)
   out = ROOT / "chiprun_out"
   out.mkdir(exist_ok=True)
   (out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=float))

@@ -1,10 +1,11 @@
 """Run ``chip_smoke.py``'s gemma2 phase alone on one card.
 
-    python3 scripts/gemma2_phase.py
+    python3 scripts/gemma2_phase.py [--layers N]
 
 Builds the kernels, times K4 at gemma-2-9b's weight shapes (T = 1) against
 its plain version, writes the seeded random gemma-2-9b checkpoint (full
-width and depth, ~18.5 GB) and serves it through the daemon: solo bf16 with
+width; ``chip_smoke.GEMMA_LAYERS`` layers, or N: 42 is the full depth,
+~18.5 GB) and serves it through the daemon: solo bf16 with
 ``XOT_TPU_MAX_SEQ=8192`` (captured; chat, a 6,000-token prompt, logprobs, an
 n-gram request; the served logits past position 4,096 against a plain f32
 forward with and without the window; captured against eager; the decode
@@ -46,7 +47,7 @@ def main() -> int:
   ckpt = ROOT / "build" / "gemma2_phase_ckpt"
   try:
     t0 = time.perf_counter()
-    cs.write_gemma_checkpoint(torch, ckpt)
+    cs.write_gemma_checkpoint(torch, ckpt, layers=int(sys.argv[sys.argv.index("--layers") + 1]) if "--layers" in sys.argv else cs.GEMMA_LAYERS)
     cs.log(f"[time] gemma2 checkpoint: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     record["gemma2"] = cs.phase_gemma2(torch, ckpt, smi)

@@ -116,8 +116,9 @@ def test_fused_generate_stops_at_eos():
 
 
 def test_unported_configs_refuse_at_load():
-  with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-    tconfig.config_from_hf({"model_type": "mixtral", "vocab_size": 8, "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2, "intermediate_size": 8, "num_local_experts": 4})
+  # MoE checkpoints load (tests/test_torch_moe.py); MLA and vision towers still refuse.
+  moe = tconfig.config_from_hf({"model_type": "mixtral", "vocab_size": 8, "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2, "intermediate_size": 8, "num_local_experts": 4})
+  assert (moe.family, moe.n_experts, moe.moe_hidden_dim, moe.norm_topk_prob) == ("mixtral", 4, 8, True)
   with pytest.raises(NotImplementedError, match="latent attention"):
     tconfig.config_from_hf({"model_type": "deepseek_v2", "vocab_size": 8, "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2, "intermediate_size": 8, "kv_lora_rank": 4})
   with pytest.raises(NotImplementedError, match="vision"):

@@ -1,12 +1,14 @@
-"""Model configuration for the dense decoder families (llama, qwen2/qwen3,
-mistral, phi3, gemma2) and the HF ``config.json`` → internal mapping.
+"""Model configuration for the decoder families (llama, qwen2/qwen3,
+mistral, phi3, gemma2, and the mixture-of-experts mixtral, qwen2-moe and
+qwen3-moe) and the HF ``config.json`` → internal mapping.
 
-Counterpart of the reference's ``models/config.py`` for the dense key space:
-llama3 / yarn / longrope rope scaling, explicit ``head_dim``, qkv bias,
-qk_norm, tied embeddings, and gemma2's variations (pre+post norms, GeGLU,
-softcaps, the ``query_pre_attn_scalar`` scale, the sliding window on even
-layers, the sqrt(dim) embed scale). ``dtype`` is a torch dtype.
-Configurations the port does not run yet (MoE, MLA, vision towers) raise
+Counterpart of the reference's ``models/config.py``: llama3 / yarn /
+longrope rope scaling, explicit ``head_dim``, qkv bias, qk_norm, tied
+embeddings, gemma2's variations (pre+post norms, GeGLU, softcaps, the
+``query_pre_attn_scalar`` scale, the sliding window on even layers, the
+sqrt(dim) embed scale) and the MoE key space (routed experts, shared
+experts, the routing mode; ops/moe.py). ``dtype`` is a torch dtype.
+Configurations the port does not run yet (MLA, vision towers) raise
 ``NotImplementedError`` at load.
 """
 
@@ -90,6 +92,24 @@ class ModelConfig:
   query_pre_attn_scalar: float = 0.0  # 0 ⇒ scale by 1/sqrt(head_dim)
   sliding_window: int = 0  # 0 ⇒ global attention everywhere
   embed_scale: float = 1.0  # gemma multiplies embeddings by sqrt(dim)
+  # --- MoE (ops/moe.py). n_experts == 0 ⇒ dense model; first_k_dense layers
+  # stay dense even in an MoE model (deepseek puts layer 0 dense).
+  n_experts: int = 0
+  n_active_experts: int = 0  # top-k routed experts per token
+  moe_hidden_dim: int = 0  # per-routed-expert intermediate width
+  shared_expert_dim: int = 0  # total shared-expert intermediate width (0 ⇒ none)
+  shared_expert_gate: bool = False  # qwen2-moe: sigmoid gate on the shared expert
+  first_k_dense: int = 0
+  router_scoring: str = "softmax"  # "softmax" | "sigmoid" (deepseek-v3)
+  norm_topk_prob: bool = False
+  routed_scaling_factor: float = 1.0
+  moe_capacity_factor: float | None = None  # None ⇒ exact compute (no token drops)
+  moe_aux_loss_coef: float = 0.0  # load-balancing loss weight in training
+  # Group-limited routing (deepseek): only experts in the top ``topk_group``
+  # groups are eligible; group score = max ("max") or top-2 sum ("top2sum").
+  n_group: int = 1
+  topk_group: int = 1
+  group_mode: str = "none"  # "none" | "max" | "top2sum"
 
   def __post_init__(self):
     if self.head_dim == 0:
@@ -132,13 +152,11 @@ def _family(hf: dict) -> str:
 
 
 def _refuse_unported(hf: dict, family: str) -> None:
-  """The port's dense decoder runs none of these yet: refuse at load with
-  the reason instead of serving wrong logits."""
+  """The port's decoder runs none of these yet: refuse at load with the
+  reason instead of serving wrong logits."""
   reasons = []
   if "text_config" in hf or hf.get("vision_config"):
     reasons.append("vision-language checkpoints (llava towers)")
-  if hf.get("num_local_experts") or hf.get("num_experts") or hf.get("n_routed_experts"):
-    reasons.append("mixture-of-experts layers")
   if hf.get("kv_lora_rank"):
     reasons.append("multi-head latent attention (MLA)")
   if reasons:
@@ -201,8 +219,47 @@ def _rope_scaling(hf: dict):
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.bfloat16, "float32": torch.float32}
 
 
+def _moe_fields(hf: dict, family: str) -> dict[str, Any]:
+  """The MoE key space: mixtral (num_local_experts, expert width =
+  intermediate_size), qwen2-moe (num_experts, moe_intermediate_size, a
+  gated shared expert), qwen3-moe, deepseek-v2/v3 (n_routed_experts,
+  n_shared_experts, first_k_dense_replace, sigmoid scoring and
+  routed_scaling_factor on v3). Empty for a dense checkpoint."""
+  n_experts = int(hf.get("num_local_experts") or hf.get("num_experts") or hf.get("n_routed_experts") or 0)
+  if not n_experts:
+    return {}
+  moe_hidden = int(hf.get("moe_intermediate_size") or hf["intermediate_size"])
+  shared_dim = int(hf.get("n_shared_experts") or 0) * moe_hidden
+  if family == "qwen2-moe":
+    shared_dim = int(hf.get("shared_expert_intermediate_size") or 0)
+  # deepseek group-limited routing: v3 is always sigmoid + top-2-sum group
+  # scores (HF DeepseekV3TopkRouter); v2 keys it on topk_method.
+  scoring = "sigmoid" if (hf.get("scoring_func") == "sigmoid" or family == "deepseek-v3") else "softmax"
+  if family == "deepseek-v3":
+    group_mode = "top2sum"
+  elif hf.get("topk_method") == "group_limited_greedy":
+    group_mode = "max"
+  else:
+    group_mode = "none"
+  return dict(
+    n_experts=n_experts,
+    n_active_experts=int(hf.get("num_experts_per_tok", 2)),
+    moe_hidden_dim=moe_hidden,
+    shared_expert_dim=shared_dim,
+    shared_expert_gate=family == "qwen2-moe",
+    first_k_dense=int(hf.get("first_k_dense_replace", 0)),
+    router_scoring=scoring,
+    norm_topk_prob=bool(hf.get("norm_topk_prob", family == "mixtral")),
+    routed_scaling_factor=float(hf.get("routed_scaling_factor", 1.0)),
+    moe_aux_loss_coef=float(hf.get("router_aux_loss_coef", hf.get("aux_loss_alpha", 0.001))),
+    n_group=int(hf.get("n_group") or 1),
+    topk_group=int(hf.get("topk_group") or 1),
+    group_mode=group_mode,
+  )
+
+
 def config_from_hf(hf: dict, dtype=None) -> ModelConfig:
-  """Map an HF ``config.json`` dict of a dense family to ModelConfig."""
+  """Map an HF ``config.json`` dict to ModelConfig."""
   family = _family(hf)
   _refuse_unported(hf, family)
   eos = hf.get("eos_token_id", [])
@@ -234,13 +291,14 @@ def config_from_hf(hf: dict, dtype=None) -> ModelConfig:
     rope_theta=float(hf.get("rope_theta", 10000.0)),
     rope_scaling=_rope_scaling(hf),
     max_seq_len=int(hf.get("max_position_embeddings", 8192)),
-    qkv_bias=family == "qwen2" or bool(hf.get("attention_bias", False)),
-    qk_norm=family == "qwen3",
+    qkv_bias=family in ("qwen2", "qwen2-moe") or bool(hf.get("attention_bias", False)),
+    qk_norm=family in ("qwen3", "qwen3-moe"),
     partial_rotary_factor=float(hf.get("partial_rotary_factor", 1.0)),
     tied_embedding=bool(hf.get("tie_word_embeddings", family == "gemma2" or (family == "qwen2" and int(hf["hidden_size"]) < 2048))),
     family=family,
     dtype=dtype or _DTYPES.get(torch_dtype, torch.bfloat16),
     eos_token_ids=tuple(int(e) for e in eos),
+    **_moe_fields(hf, family),
     **gemma,
   )
 

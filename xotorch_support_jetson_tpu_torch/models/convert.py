@@ -5,7 +5,9 @@
 already agree) and returns torch tensors in ``cfg.dtype`` on ``device``, so
 the tests run both packages on identical weights. A weight-quantized tree
 (``quantize_params``) carries across as it is: int8 codes (packed int4
-too) stay int8 and the ``<name>_scale`` leaves stay f32. The input is plain numpy
+too) stay int8 and the ``<name>_scale`` leaves stay f32. An MoE tree's
+``moe_layers`` stack comes across with its router, experts and shared
+experts; ``router_bias`` stays f32. The input is plain numpy
 (bf16 arrives as an ``ml_dtypes`` array and is reinterpreted bit for bit),
 so this module never imports JAX.
 """
@@ -21,18 +23,24 @@ from .decoder import Params
 from .loader import check_shard_params
 
 _QUANT_LAYER_KEYS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
+_QUANT_MOE_KEYS = {"w_experts_gate", "w_experts_up", "w_experts_down", "w_shared_gate", "w_shared_up", "w_shared_down"}
 _NORM_KEYS = {"attn_norm", "post_attn_norm", "mlp_norm", "post_mlp_norm", "final_norm"}
-_LAYER_KEYS = {*_NORM_KEYS - {"final_norm"}, "bq", "bk", "bv", "q_norm", "k_norm", "is_sliding", *_QUANT_LAYER_KEYS, *(f"{k}_scale" for k in _QUANT_LAYER_KEYS)}
+_ATTN_KEYS = {*_NORM_KEYS - {"final_norm"}, "bq", "bk", "bv", "q_norm", "k_norm", "is_sliding", *(f"{k}_scale" for k in ("wq", "wk", "wv", "wo"))}
+_STACK_KEYS = {
+  "layers": {*_ATTN_KEYS, *_QUANT_LAYER_KEYS, *(f"{k}_scale" for k in _QUANT_LAYER_KEYS)},
+  "moe_layers": {*_ATTN_KEYS, "wq", "wk", "wv", "wo", "w_router", "router_bias", "w_shared_expert_gate", *_QUANT_MOE_KEYS, *(f"{k}_scale" for k in _QUANT_MOE_KEYS)},
+}
 _TOP_KEYS = {"embed", "final_norm", "lm_head", "lm_head_scale"}
 
 
 def _leaf(key: str, arr, cfg: ModelConfig, device) -> torch.Tensor:
   """Quantization codes stay int8; scales, gemma2's sliding flags and its
-  norm gains (``1 + w``, held in f32 as the loaders hold them) stay f32;
-  every other leaf goes to ``cfg.dtype``."""
+  norm gains (``1 + w``, held in f32 as the loaders hold them) and the
+  router's selection bias stay f32; every other leaf goes to
+  ``cfg.dtype``."""
   if np.asarray(arr).dtype == np.int8:
     return _tensor(arr, torch.int8, device)
-  f32 = key.endswith("_scale") or key == "is_sliding" or (cfg.post_norms and key in _NORM_KEYS)
+  f32 = key.endswith("_scale") or key in ("is_sliding", "router_bias") or (cfg.post_norms and key in _NORM_KEYS)
   return _tensor(arr, torch.float32 if f32 else cfg.dtype, device)
 
 
@@ -46,10 +54,12 @@ def _tensor(arr, dtype, device) -> torch.Tensor:
 
 
 def params_from_jax(np_params: dict, cfg: ModelConfig, shard: Shard, device=None) -> Params:
-  unknown = (set(np_params) - _TOP_KEYS - {"layers"}) | (set(np_params.get("layers", {})) - _LAYER_KEYS)
+  unknown = set(np_params) - _TOP_KEYS - set(_STACK_KEYS)
+  for name, keys in _STACK_KEYS.items():
+    unknown |= {f"{name}/{k}" for k in set(np_params.get(name, {})) - keys}
   if unknown:
     raise NotImplementedError(f"the PyTorch port has no counterpart for these parameter leaves yet: {sorted(unknown)}")
-  params: Params = {"layers": {k: _leaf(k, v, cfg, device) for k, v in np_params["layers"].items()}}
+  params: Params = {name: {k: _leaf(k, v, cfg, device) for k, v in np_params[name].items()} for name in _STACK_KEYS if name in np_params}
   for key in _TOP_KEYS & set(np_params):
     params[key] = _leaf(key, np_params[key], cfg, device)
   check_shard_params(params, cfg, shard)

@@ -1,15 +1,22 @@
-"""The dense decoder: llama 3.x, qwen-2.5/3, mistral, phi-family and gemma2
-checkpoints. Counterpart of the reference's ``models/decoder.py`` (dense
-path only). gemma2's variations ride on the config (``_attn_opts``: the
-scale override, the score softcap and the per-layer sliding window, whose
-flag is the ``layers/is_sliding`` leaf; the post norms, the GeGLU MLP, the
-embed scale and the final softcap); its attention takes the plain route
-everywhere, as the reference's does: K1–K3 implement none of them.
+"""The decoder: llama 3.x, qwen-2.5/3, mistral, phi-family, gemma2 and the
+mixture-of-experts mixtral, qwen2-moe and qwen3-moe checkpoints.
+Counterpart of the reference's ``models/decoder.py`` (all but MLA, LoRA
+and the vision tower). gemma2's variations ride on the config
+(``_attn_opts``: the scale override, the score softcap and the per-layer
+sliding window, whose flag is the ``layers/is_sliding`` leaf; the post
+norms, the GeGLU MLP, the embed scale and the final softcap); its
+attention takes the plain route everywhere, as the reference's does:
+K1–K3 implement none of them.
 
 Parameters are a plain dict of tensors in the reference's layout: layer
 leaves stacked on a leading [L] axis (``layers/wq`` [L, D, Hq·hd], used as
 ``x @ w``), ``embed`` [V, D], ``final_norm`` [D], ``lm_head`` [D, V]
-(absent when tied to ``embed``). Weight-quantized params
+(absent when tied to ``embed``). An MoE model's layers are a dense prefix
+``layers`` (its ``first_k_dense``) and the ``moe_layers`` stack, whose FFN
+is the routed one (ops/moe.py: ``w_router`` [L, D, E], ``w_experts_*``
+[L, E, D, F] / [L, E, F, D], an optional shared expert and its sigmoid
+gate); every path runs both stacks in order with one cache-layer index
+across them (``layer_params``). Weight-quantized params
 (models/quantize.py) carry int8 or packed-int4 codes beside
 ``<name>_scale`` leaves; every weight product goes through ``_mm`` /
 ``qdot``. The reference's ``lax.scan`` over layers and steps becomes a
@@ -148,26 +155,39 @@ def init_shard_params(cfg: ModelConfig, shard: Shard, generator: torch.Generator
   def ones(*shape):
     return torch.ones(shape, dtype=dtype, device=device)
 
-  layers = {
-    "attn_norm": ones(L, D),
-    "wq": w(L, D, Qd),
-    "wk": w(L, D, Kd),
-    "wv": w(L, D, Kd),
-    "wo": w(L, Qd, D),
-    "mlp_norm": ones(L, D),
-    "w_gate": w(L, D, F),
-    "w_up": w(L, D, F),
-    "w_down": w(L, F, D),
-  }
-  if cfg.qkv_bias:
-    layers.update(bq=torch.zeros(L, Qd, dtype=dtype, device=device), bk=torch.zeros(L, Kd, dtype=dtype, device=device), bv=torch.zeros(L, Kd, dtype=dtype, device=device))
-  if cfg.qk_norm:
-    layers.update(q_norm=ones(L, cfg.head_dim), k_norm=ones(L, cfg.head_dim))
-  if cfg.post_norms:  # gemma2's post-attention / post-feedforward norms
-    layers.update(post_attn_norm=ones(L, D), post_mlp_norm=ones(L, D))
-  if cfg.sliding_window:
-    layers["is_sliding"] = sliding_flags(cfg, range(shard.start_layer, shard.start_layer + L), device)
-  params: Params = {"layers": layers}
+  def attn_leaves(L: int, start: int) -> dict:
+    leaves = {"attn_norm": ones(L, D), "wq": w(L, D, Qd), "wk": w(L, D, Kd), "wv": w(L, D, Kd), "wo": w(L, Qd, D), "mlp_norm": ones(L, D)}
+    if cfg.qkv_bias:
+      leaves.update(bq=torch.zeros(L, Qd, dtype=dtype, device=device), bk=torch.zeros(L, Kd, dtype=dtype, device=device), bv=torch.zeros(L, Kd, dtype=dtype, device=device))
+    if cfg.qk_norm:
+      leaves.update(q_norm=ones(L, cfg.head_dim), k_norm=ones(L, cfg.head_dim))
+    if cfg.post_norms:  # gemma2's post-attention / post-feedforward norms
+      leaves.update(post_attn_norm=ones(L, D), post_mlp_norm=ones(L, D))
+    if cfg.sliding_window:
+      leaves["is_sliding"] = sliding_flags(cfg, range(start, start + L), device)
+    return leaves
+
+  params: Params = {}
+  # An MoE model: the dense prefix (global layers below first_k_dense), then the MoE stack.
+  n_dense = min(max(cfg.first_k_dense - shard.start_layer, 0), L) if cfg.n_experts else L
+  if n_dense:
+    params["layers"] = {**attn_leaves(n_dense, shard.start_layer), "w_gate": w(n_dense, D, F), "w_up": w(n_dense, D, F), "w_down": w(n_dense, F, D)}
+  if n_dense < L:
+    Lm, E, Fm, Fs = L - n_dense, cfg.n_experts, cfg.moe_hidden_dim, cfg.shared_expert_dim
+    moe = {
+      **attn_leaves(Lm, shard.start_layer + n_dense),
+      "w_router": w(Lm, D, E),
+      "w_experts_gate": w(Lm, E, D, Fm),
+      "w_experts_up": w(Lm, E, D, Fm),
+      "w_experts_down": w(Lm, E, Fm, D),
+    }
+    if cfg.router_scoring == "sigmoid":
+      moe["router_bias"] = torch.zeros((Lm, E), dtype=torch.float32, device=device)
+    if Fs:
+      moe.update(w_shared_gate=w(Lm, D, Fs), w_shared_up=w(Lm, D, Fs), w_shared_down=w(Lm, Fs, D))
+      if cfg.shared_expert_gate:
+        moe["w_shared_expert_gate"] = w(Lm, D, 1)
+    params["moe_layers"] = moe
   if shard.is_first_layer:
     params["embed"] = w(V, D, scale=0.02)
   if shard.is_last_layer:
@@ -232,9 +252,35 @@ def _attn_out(attn: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
   return out
 
 
+def _moe_block(x, p, cfg: ModelConfig) -> torch.Tensor:
+  """The routed FFN (ops/moe.py; quantized experts are dequantized next to
+  their product there) plus the shared expert, sigmoid-gated on qwen2-moe:
+  x [B, S, D] normed → [B, S, D]."""
+  from ..ops.moe import moe_ffn
+
+  B, S, D = x.shape
+  xt = x.reshape(B * S, D)
+  out = moe_ffn(
+    xt, p["w_router"], p["w_experts_gate"], p["w_experts_up"], p["w_experts_down"],
+    k=cfg.n_active_experts, scoring=cfg.router_scoring, norm_topk=cfg.norm_topk_prob, selection_bias=p.get("router_bias"),
+    scale=cfg.routed_scaling_factor, capacity_factor=cfg.moe_capacity_factor, n_group=cfg.n_group, topk_group=cfg.topk_group, group_mode=cfg.group_mode,
+    gate_scale=p.get("w_experts_gate_scale"), up_scale=p.get("w_experts_up_scale"), down_scale=p.get("w_experts_down_scale"), hidden_dim=cfg.moe_hidden_dim,
+  )
+  if "w_shared_gate" in p:
+    shared = torch.nn.functional.silu(_mm(xt, p, "w_shared_gate", cfg.quant_compute).float()).to(x.dtype) * _mm(xt, p, "w_shared_up", cfg.quant_compute)
+    shared = _mm(shared, p, "w_shared_down", cfg.quant_compute)
+    if "w_shared_expert_gate" in p:  # qwen2-moe's sigmoid-gated shared expert
+      shared = shared * torch.sigmoid((xt @ p["w_shared_expert_gate"]).float()).to(x.dtype)
+    out = out + shared
+  return out.reshape(B, S, D)
+
+
 def _mlp_block(h, p, cfg: ModelConfig):
-  """Pre-MLP norm + gated FFN (dense branch), then gemma2's post-MLP norm."""
+  """Pre-MLP norm + FFN (the routed one on an MoE layer), then gemma2's
+  post-MLP norm."""
   x = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
+  if "w_experts_gate" in p:
+    return h + _moe_block(x, p, cfg)
   gated = _mlp_act(_mm(x, p, "w_gate", cfg.quant_compute), cfg).to(h.dtype) * _mm(x, p, "w_up", cfg.quant_compute)
   out = _mm(gated, p, "w_down", cfg.quant_compute)
   if "post_mlp_norm" in p:
@@ -332,14 +378,25 @@ def head_logits(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tens
   return logits
 
 
+STACKS = ("layers", "moe_layers")
+
+
+def layer_params(params: Params):
+  """Each layer's leaves (views), in order: the dense stack, then the MoE
+  stack. The i-th layer yielded is cache layer i of the shard."""
+  for name in STACKS:
+    stack = params.get(name)
+    if stack:
+      for i in range(stack["attn_norm"].shape[0]):
+        yield {key: val[i] for key, val in stack.items()}
+
+
 def _forward_layers(params: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, kv_cache: Params | None) -> torch.Tensor:
   """Embed (token ids) and run every layer of ``params``: hidden [B,S,D]."""
   h = embed_tokens(params, cfg, x) if x.dim() == 2 else x.to(cfg.dtype)
   inv_freq = rope_inv_freq(cfg, device=h.device)
   kv_positions = torch.arange(kv_cache["k"].shape[2], dtype=torch.int32, device=h.device) if kv_cache is not None else None
-  layers = params["layers"]
-  for i in range(layers["wq"].shape[0]):
-    lp = {key: val[i] for key, val in layers.items()}
+  for i, lp in enumerate(layer_params(params)):
     kv = None if kv_cache is None else {key: val[i] for key, val in kv_cache.items()}
     h = _layer_step(h, lp, kv, positions, kv_positions, inv_freq, cfg)
   return h
@@ -431,9 +488,10 @@ def _like(x, shape, device, dtype=torch.int32):
 
 def routing_knobs() -> tuple:
   """The env knobs the forward reads at call time to pick a route (K1 or
-  not, K2 or not, K4 or not). A captured graph holds the route it was
-  captured with, so graphs are keyed on these too."""
-  return tuple(os.getenv(k) for k in ("XOT_TPU_NO_FLASH", "XOT_TPU_FLASH_DECODE", "XOT_TPU_FLASH_DECODE_MIN", "XOT_TPU_INT4_KERNEL"))
+  not, K2 or not, K4 or not, the MoE gather or einsum path). A captured
+  graph holds the route it was captured with, so graphs are keyed on these
+  too."""
+  return tuple(os.getenv(k) for k in ("XOT_TPU_NO_FLASH", "XOT_TPU_FLASH_DECODE", "XOT_TPU_FLASH_DECODE_MIN", "XOT_TPU_INT4_KERNEL", "XOT_TPU_MOE_GATHER"))
 
 
 _SOLO_STATIC = ("cfg", "shard", "n_steps", "max_steps", "top_k", "greedy", "eos_ids")
@@ -1161,19 +1219,19 @@ def fused_speculative_chunk(params_t, cfg: ModelConfig, shard: Shard, params_d, 
 # (ops/paged.py + inference/batch_scheduler.py): rows map logical positions
 # onto fixed-size pages of one shared pool through block tables [B, mp]. The
 # pool is updated IN PLACE. Rows without a request keep their table zeroed,
-# so their writes land in the reserved trash page 0. Dense models only: the
-# port loads no MLA or MoE checkpoint and has no LoRA yet. gemma2 attends
+# so their writes land in the reserved trash page 0. Dense and MoE layer
+# stacks: the port loads no MLA checkpoint and has no LoRA yet. gemma2 attends
 # through the gather route (K3 has no softcap or window), as the
 # reference's layer steps gate on ``cfg.plain_attention``.
 
-_DENSE_TOP_KEYS = frozenset({"layers", "embed", "final_norm", "lm_head", "lm_head_scale"})
+_DENSE_TOP_KEYS = frozenset({*STACKS, "embed", "final_norm", "lm_head", "lm_head_scale"})
 
 
 def _dense_full_model(params: Params, shard: Shard, what: str) -> None:
   _full_model(shard, what)
   extra = set(params) - _DENSE_TOP_KEYS
   if extra:
-    raise NotImplementedError(f"{what} runs dense models only in the PyTorch port; got parameter groups {sorted(extra)}")
+    raise NotImplementedError(f"{what} runs dense and MoE layer stacks only in the PyTorch port; got parameter groups {sorted(extra)}")
 
 
 @tracked("prefill.pages_many", ("cfg", "shard", "page_size"))
@@ -1266,9 +1324,7 @@ def paged_decode_forward(params, cfg: ModelConfig, shard: Shard, tokens, positio
   int32 → (logits [B, 1, V], pool updated in place)."""
   h = embed_tokens(params, cfg, tokens)
   inv_freq = rope_inv_freq(cfg, device=h.device)
-  layers = params["layers"]
-  for i in range(layers["wq"].shape[0]):
-    lp = {key: val[i] for key, val in layers.items()}
+  for i, lp in enumerate(layer_params(params)):
     pool_l = {key: val[i] for key, val in pool.items()}
     h = _paged_layer_step(h, lp, pool_l, block_tables, positions, inv_freq, cfg, page_size, use_kernel)
   return head_logits(params, cfg, h), pool
@@ -1450,9 +1506,7 @@ def paged_window_forward(params, cfg: ModelConfig, shard: Shard, tokens, positio
     bt_window = window_block_tables(block_tables, tokens.shape[1])
   h = embed_tokens(params, cfg, tokens)
   inv_freq = rope_inv_freq(cfg, device=h.device)
-  layers = params["layers"]
-  for i in range(layers["wq"].shape[0]):
-    lp = {key: val[i] for key, val in layers.items()}
+  for i, lp in enumerate(layer_params(params)):
     pool_l = {key: val[i] for key, val in pool.items()}
     h = _paged_window_layer_step(h, lp, pool_l, block_tables, bt_window, positions, inv_freq, cfg, page_size, use_kernel)
   return head_logits(params, cfg, h), pool

@@ -1,6 +1,5 @@
-"""HF safetensors → decoder params, shard-aware, for the dense families.
-Counterpart of ``load_shard_weights`` in the reference's
-``models/loader.py``.
+"""HF safetensors → decoder params, shard-aware. Counterpart of
+``load_shard_weights`` in the reference's ``models/loader.py``.
 
 The port reads and writes ``.safetensors`` with its own small codec (an
 8-byte header length, a JSON header, raw little-endian tensor bytes) and
@@ -9,6 +8,12 @@ package. Per-layer tensors are stacked into the reference's [L, ...] leaves;
 HF ``[out, in]`` projections are transposed to ``[in, out]`` once, here.
 gemma2's zero-centred norm gains become ``1 + w`` in f32, and its layer
 stack carries ``is_sliding`` [L] f32 flags from the global layer indices.
+An MoE checkpoint (mixtral's ``block_sparse_moe.*`` names, qwen2-moe's and
+qwen3-moe's ``mlp.*``) loads as a dense prefix ``layers`` (global layers
+below ``first_k_dense``) and a ``moe_layers`` stack: its router, its shared
+expert and gate, and each expert's projections written straight into the
+stacked ``[L, E, D, F]`` / ``[L, E, F, D]`` leaves (no second copy of the
+experts at any time).
 """
 
 from __future__ import annotations
@@ -55,7 +60,23 @@ _LAYER_MAP: dict[str, tuple[str, bool]] = {
   "mlp.gate_proj.weight": ("w_gate", True),
   "mlp.up_proj.weight": ("w_up", True),
   "mlp.down_proj.weight": ("w_down", True),
+  # MoE routers and shared experts (mixtral, qwen2-moe, qwen3-moe, deepseek)
+  "block_sparse_moe.gate.weight": ("w_router", True),
+  "mlp.gate.weight": ("w_router", True),
+  "mlp.gate.e_score_correction_bias": ("router_bias", False),
+  "mlp.shared_expert.gate_proj.weight": ("w_shared_gate", True),
+  "mlp.shared_expert.up_proj.weight": ("w_shared_up", True),
+  "mlp.shared_expert.down_proj.weight": ("w_shared_down", True),
+  "mlp.shared_experts.gate_proj.weight": ("w_shared_gate", True),
+  "mlp.shared_experts.up_proj.weight": ("w_shared_up", True),
+  "mlp.shared_experts.down_proj.weight": ("w_shared_down", True),
+  "mlp.shared_expert_gate.weight": ("w_shared_expert_gate", True),
 }
+
+# Per-expert projections `{block_sparse_moe|mlp}.experts.{e}.{proj}.weight`
+# (mixtral names w1 / w3 / w2), stacked into [L, E, D, F] / [L, E, F, D].
+_EXPERT_RE = re.compile(r"^(?:block_sparse_moe|mlp)\.experts\.(\d+)\.(w1|w2|w3|gate_proj|up_proj|down_proj)\.weight$")
+_EXPERT_KEY = {"w1": "w_experts_gate", "gate_proj": "w_experts_gate", "w3": "w_experts_up", "up_proj": "w_experts_up", "w2": "w_experts_down", "down_proj": "w_experts_down"}
 
 
 # ------------------------------------------------------------ safetensors codec
@@ -136,10 +157,22 @@ def load_shard_weights(model_dir: str | Path, cfg: ModelConfig, shard: Shard, de
   model_dir = Path(model_dir)
   per_layer: dict[int, dict[str, torch.Tensor]] = {i: {} for i in range(shard.start_layer, shard.end_layer + 1)}
   top: dict[str, torch.Tensor] = {}
+  # The dense prefix and the MoE stack, by global layer index.
+  first_k = cfg.first_k_dense if cfg.n_experts else shard.end_layer + 1
+  groups = {"layers": [i for i in per_layer if i < first_k], "moe_layers": [i for i in per_layer if i >= first_k]}
+  moe_start = groups["moe_layers"][0] if groups["moe_layers"] else 0
+  experts: dict[str, torch.Tensor] = {}  # key → [Lm, E, in, out], filled in place
+  seen: dict[str, set] = {}
 
-  def put(t: torch.Tensor, transpose: bool) -> torch.Tensor:
-    t = t.to(device=device, dtype=cfg.dtype)
+  def put(t: torch.Tensor, transpose: bool, key: str = "") -> torch.Tensor:
+    t = t.to(device=device, dtype=torch.float32 if key == "router_bias" else cfg.dtype)
     return t.T.contiguous() if transpose else t
+
+  def put_expert(key: str, layer: int, e: int, t: torch.Tensor) -> None:
+    if key not in experts:
+      experts[key] = torch.empty((len(groups["moe_layers"]), cfg.n_experts, t.shape[1], t.shape[0]), dtype=cfg.dtype, device=device)
+    experts[key][layer - moe_start, e].copy_(t.to(device=device, dtype=cfg.dtype).T)
+    seen.setdefault(key, set()).add((layer, e))
 
   def gain(t: torch.Tensor) -> torch.Tensor:
     """A gemma norm gain: HF computes x·(1 + w.float()) in f32, so the
@@ -165,7 +198,7 @@ def load_shard_weights(model_dir: str | Path, cfg: ModelConfig, shard: Shard, de
           key, transpose = _LAYER_MAP[suffix]
           if cfg.post_norms and suffix == "post_attention_layernorm.weight":
             key = "post_attn_norm"  # gemma2: this norm follows attention
-          per_layer[idx][key] = gain(t) if cfg.post_norms and key in _NORM_KEYS else put(t, transpose)
+          per_layer[idx][key] = gain(t) if cfg.post_norms and key in _NORM_KEYS else put(t, transpose, key)
         elif suffix == "self_attn.qkv_proj.weight":  # phi3: fused [q+k+v, D]
           qd, kd = cfg.q_dim, cfg.kv_dim
           per_layer[idx]["wq"] = put(t[:qd], True)
@@ -174,6 +207,8 @@ def load_shard_weights(model_dir: str | Path, cfg: ModelConfig, shard: Shard, de
         elif suffix == "mlp.gate_up_proj.weight":  # phi3: fused [2F, D]
           per_layer[idx]["w_gate"] = put(t[: cfg.hidden_dim], True)
           per_layer[idx]["w_up"] = put(t[cfg.hidden_dim :], True)
+        elif (em := _EXPERT_RE.match(suffix)) is not None and idx >= first_k:
+          put_expert(_EXPERT_KEY[em.group(2)], idx, int(em.group(1)), t)
         elif DEBUG >= 3:
           print(f"[loader] skipping unmapped tensor {name}")
       elif name == "model.embed_tokens.weight":
@@ -183,15 +218,24 @@ def load_shard_weights(model_dir: str | Path, cfg: ModelConfig, shard: Shard, de
       else:  # lm_head.weight
         top["lm_head"] = put(t, True)
 
-  indices = list(per_layer)
-  layer_keys = sorted(per_layer[indices[0]])
-  for idx in indices:
-    missing = set(layer_keys) - set(per_layer[idx])
-    if missing:
-      raise ValueError(f"layer {idx}: missing tensors {sorted(missing)}")
-  params: Params = {"layers": {key: torch.stack([per_layer[i].pop(key) for i in indices]) for key in layer_keys}}
-  if cfg.sliding_window:
-    params["layers"]["is_sliding"] = sliding_flags(cfg, indices, device)
+  for key, got in seen.items():
+    want = {(i, e) for i in groups["moe_layers"] for e in range(cfg.n_experts)}
+    if got != want:
+      raise ValueError(f"moe_layers/{key}: missing expert tensors {sorted(want - got)[:8]}")
+  params: Params = {}
+  for name, indices in groups.items():
+    if not indices:
+      continue
+    layer_keys = sorted(per_layer[indices[0]])
+    for idx in indices:
+      missing = set(layer_keys) - set(per_layer[idx])
+      if missing:
+        raise ValueError(f"layer {idx}: missing tensors {sorted(missing)}")
+    params[name] = {key: torch.stack([per_layer[i].pop(key) for i in indices]) for key in layer_keys}
+    if cfg.sliding_window:
+      params[name]["is_sliding"] = sliding_flags(cfg, indices, device)
+  if groups["moe_layers"]:
+    params["moe_layers"].update(experts)
   if shard.is_first_layer:
     params["embed"] = top["embed"]
   if shard.is_last_layer:
@@ -208,32 +252,53 @@ def load_shard_weights(model_dir: str | Path, cfg: ModelConfig, shard: Shard, de
 
 
 def check_shard_params(params: Params, cfg: ModelConfig, shard: Shard) -> None:
-  """Shape validator for a dense shard."""
+  """Shape validator (the reference's ``check_shard_params``): the dense
+  stack, and an MoE model's ``moe_layers`` stack."""
   L = shard.n_shard_layers
-  expect = {
-    "attn_norm": (L, cfg.dim),
-    "wq": (L, cfg.dim, cfg.q_dim),
-    "wk": (L, cfg.dim, cfg.kv_dim),
-    "wv": (L, cfg.dim, cfg.kv_dim),
-    "wo": (L, cfg.q_dim, cfg.dim),
-    "mlp_norm": (L, cfg.dim),
-    "w_gate": (L, cfg.dim, cfg.hidden_dim),
-    "w_up": (L, cfg.dim, cfg.hidden_dim),
-    "w_down": (L, cfg.hidden_dim, cfg.dim),
-  }
-  if cfg.qkv_bias:
-    expect.update({"bq": (L, cfg.q_dim), "bk": (L, cfg.kv_dim), "bv": (L, cfg.kv_dim)})
-  if cfg.qk_norm:
-    expect.update({"q_norm": (L, cfg.head_dim), "k_norm": (L, cfg.head_dim)})
-  if cfg.post_norms:  # the decoder gates on the keys: a missing post-norm fails here
-    expect.update({"post_attn_norm": (L, cfg.dim), "post_mlp_norm": (L, cfg.dim)})
-  if cfg.sliding_window:
-    expect["is_sliding"] = (L,)
-  layers = params.get("layers", {})
-  for key, shape in expect.items():
-    if key not in layers:
-      raise ValueError(f"layers/{key}: missing")
-    _check_leaf(f"layers/{key}", layers, key, shape)
+  n_dense = sum(1 for i in range(shard.start_layer, shard.end_layer + 1) if i < cfg.first_k_dense) if cfg.n_experts else L
+
+  def attn_expect(L: int) -> dict:
+    expect = {
+      "attn_norm": (L, cfg.dim),
+      "wq": (L, cfg.dim, cfg.q_dim),
+      "wk": (L, cfg.dim, cfg.kv_dim),
+      "wv": (L, cfg.dim, cfg.kv_dim),
+      "wo": (L, cfg.q_dim, cfg.dim),
+      "mlp_norm": (L, cfg.dim),
+    }
+    if cfg.qkv_bias:
+      expect.update({"bq": (L, cfg.q_dim), "bk": (L, cfg.kv_dim), "bv": (L, cfg.kv_dim)})
+    if cfg.qk_norm:  # the decoder gates on the keys: a missing q/k norm fails here
+      expect.update({"q_norm": (L, cfg.head_dim), "k_norm": (L, cfg.head_dim)})
+    if cfg.post_norms:  # ...and a missing post-norm
+      expect.update({"post_attn_norm": (L, cfg.dim), "post_mlp_norm": (L, cfg.dim)})
+    if cfg.sliding_window:
+      expect["is_sliding"] = (L,)
+    return expect
+
+  checks: dict[str, dict] = {}
+  if n_dense:
+    checks["layers"] = {**attn_expect(n_dense), "w_gate": (n_dense, cfg.dim, cfg.hidden_dim), "w_up": (n_dense, cfg.dim, cfg.hidden_dim), "w_down": (n_dense, cfg.hidden_dim, cfg.dim)}
+  if L - n_dense:
+    Lm, E, Fm, Fs = L - n_dense, cfg.n_experts, cfg.moe_hidden_dim, cfg.shared_expert_dim
+    moe = {
+      **attn_expect(Lm),
+      "w_router": (Lm, cfg.dim, E),
+      "w_experts_gate": (Lm, E, cfg.dim, Fm),
+      "w_experts_up": (Lm, E, cfg.dim, Fm),
+      "w_experts_down": (Lm, E, Fm, cfg.dim),
+    }
+    if Fs:
+      moe.update({"w_shared_gate": (Lm, cfg.dim, Fs), "w_shared_up": (Lm, cfg.dim, Fs), "w_shared_down": (Lm, Fs, cfg.dim)})
+      if cfg.shared_expert_gate:
+        moe["w_shared_expert_gate"] = (Lm, cfg.dim, 1)
+    checks["moe_layers"] = moe
+  for name, expect in checks.items():
+    stack = params.get(name, {})
+    for key, shape in expect.items():
+      if key not in stack:
+        raise ValueError(f"{name}/{key}: missing")
+      _check_leaf(f"{name}/{key}", stack, key, shape)
   if shard.is_first_layer and tuple(params["embed"].shape) != (cfg.vocab_size, cfg.dim):
     raise ValueError(f"embed: expected {(cfg.vocab_size, cfg.dim)}, got {tuple(params['embed'].shape)}")
   if shard.is_last_layer and "lm_head" in params:

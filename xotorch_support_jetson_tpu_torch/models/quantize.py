@@ -1,11 +1,13 @@
 """Weight and KV-cache quantization, int8 and packed int4. Counterpart of
-the reference's ``models/quantize.py`` (dense leaves only).
+the reference's ``models/quantize.py``.
 
 Weights (``XOT_TPU_QUANT``): symmetric per-output-channel int8, or int4
 packed two codes per byte along the IN axis (even in-rows in the low
 nibble, odd in the high: ``[.., in/2, out]``). A quantized leaf keeps its
-name and gains a sibling ``<name>_scale`` [.., out] f32 leaf. ``qdot``
-computes a product with a quantized leaf: ``w8a16`` (int8 codes upcast
+name and gains a sibling ``<name>_scale`` [.., out] f32 leaf. Stacked
+expert leaves ([.., E, in, out]) are dequantized next to their product
+(ops/moe.py, ``dequantize_leaf``), as in the reference. ``qdot``
+computes a product with a two-dimensional quantized leaf: ``w8a16`` (int8 codes upcast
 next to the product), ``w8a8`` (activations quantized per row too, an
 int8×int8→int32 product), or packed int4, detected by the halved in-axis
 (the K4 kernel, ops/int4_matmul.py).
@@ -21,10 +23,11 @@ from __future__ import annotations
 
 import torch
 
-# Weight leaves eligible for quantization (last two dims [in, out]), by
-# parameter group, plus the top-level lm_head — the reference's table. The
-# port loads dense models only, so ``quantize_params`` quantizes the
-# "layers" group and refuses any other group.
+# Weight leaves eligible for quantization (last two dims [in, out]; expert
+# leaves carry an extra [E] axis), by parameter group, plus the top-level
+# lm_head — the reference's table. Norm gains, biases, routers and the
+# embedding table stay in the model dtype. ``quantize_params`` refuses any
+# other parameter group (the port loads no vision tower).
 _MLA_LEAVES = ("wq_a", "wq_b", "wkv_a", "wkv_b")
 QUANT_STACK_LEAVES = {
   "layers": ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", *_MLA_LEAVES),
@@ -34,7 +37,7 @@ QUANT_STACK_LEAVES = {
   ),
 }
 QUANT_TOP_LEAVES = ("lm_head",)
-_DENSE_GROUPS = {"layers", "embed", "final_norm", "lm_head", "lm_head_scale"}
+_KNOWN_GROUPS = {*QUANT_STACK_LEAVES, "embed", "final_norm", "lm_head", "lm_head_scale"}
 
 
 def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -75,21 +78,32 @@ def quantize_params(params: dict, mode: str = "int8") -> dict:
   head); the full-precision table stays for the embedding gather."""
   if mode not in ("int8", "int4"):
     raise ValueError(f"unsupported quantization mode {mode!r}")
-  other = set(params) - _DENSE_GROUPS
+  other = set(params) - _KNOWN_GROUPS
   if other:
-    raise NotImplementedError(f"weight quantization in the PyTorch port covers dense models only; got parameter groups {sorted(other)}")
-  quant = quantize_weight if mode == "int8" else quantize_weight_int4
+    raise NotImplementedError(f"weight quantization in the PyTorch port covers the decoder's layer stacks and head only; got parameter groups {sorted(other)}")
+  base = quantize_weight if mode == "int8" else quantize_weight_int4
+
+  def quant(w):
+    """A stacked expert leaf one layer at a time: its f32 working copies
+    stay one layer's size (the codes are the same, per output channel)."""
+    if w.dim() < 4:
+      return base(w)
+    codes, scales = zip(*(base(w[i]) for i in range(w.shape[0])))
+    return torch.stack(codes), torch.stack(scales)
+
   out = dict(params)
 
   def fits(w) -> bool:
     return w.dtype != torch.int8 and not (mode == "int4" and w.shape[-2] % 2)  # odd in-dim: stays full precision
 
-  if "layers" in params:
-    stack = dict(params["layers"])
-    for name in QUANT_STACK_LEAVES["layers"]:
+  for group, eligible in QUANT_STACK_LEAVES.items():
+    if group not in params:
+      continue
+    stack = dict(params[group])
+    for name in eligible:
       if name in stack and fits(stack[name]):
         stack[name], stack[f"{name}_scale"] = quant(stack[name])
-    out["layers"] = stack
+    out[group] = stack
   for name in QUANT_TOP_LEAVES:
     if name in out and fits(out[name]):
       out[name], out[f"{name}_scale"] = quant(out[name])
@@ -111,7 +125,7 @@ def qdot(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, compute: str = "
     from ..ops.int4_matmul import int4_kernel_supported, int4_matmul, int4_two_dot
 
     if w.dim() != 2:
-      raise NotImplementedError("stacked (expert) int4 leaves: the PyTorch port loads no MoE model")
+      raise NotImplementedError("stacked (expert) int4 leaves are dequantized next to their product (ops/moe.py), not taken by qdot")
     x2 = x.reshape(-1, x.shape[-1])
     if int4_kernel_supported(x2.shape, w.shape):
       y = int4_matmul(x2.contiguous(), w, scale.float())

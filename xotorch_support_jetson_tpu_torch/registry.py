@@ -1,7 +1,8 @@
-"""Model registry: model id → layer count, family, HF repo — the dense
-and gemma2 cards of the reference's ``registry.py``, keyed by the port
-engine's class name, and the dummy engine's card. MoE, MLA, llava and diffusion cards wait for the
-slices that port those model families.
+"""Model registry: model id → layer count, family, HF repo — the dense,
+gemma2 and qwen3-moe cards of the reference's ``registry.py``, keyed by the
+port engine's class name, and the dummy engine's card. MLA (deepseek),
+llava and diffusion cards wait for the slices that port those model
+families.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ class ModelCard:
   model_id: str
   layers: int
   pretty: str
-  family: str  # "llama" | "qwen2" | "qwen3" | "mistral" | "phi3" | "gemma2" | "dummy"
+  family: str  # "llama" | "qwen2" | "qwen3" | "qwen3-moe" | "mistral" | "phi3" | "gemma2" | "dummy"
   repo: dict[str, str] = field(default_factory=dict)
 
   def repo_for(self, engine_classname: str) -> str | None:
@@ -48,6 +49,8 @@ _CARDS: list[ModelCard] = [
   _card("qwen-3-0.6b", 28, "Qwen 3 0.6B", "qwen3", "Qwen/Qwen3-0.6B"),
   _card("qwen-3-1.7b", 28, "Qwen 3 1.7B", "qwen3", "Qwen/Qwen3-1.7B"),
   _card("qwen-3-8b", 36, "Qwen 3 8B", "qwen3", "Qwen/Qwen3-8B"),
+  _card("qwen-3-30b-a3b", 48, "Qwen 3 30B-A3B (MoE)", "qwen3-moe", "Qwen/Qwen3-30B-A3B"),
+  _card("qwen-3-235b-a22b", 94, "Qwen 3 235B-A22B (MoE)", "qwen3-moe", "Qwen/Qwen3-235B-A22B"),
   _card("phi-4-mini-instruct", 32, "Phi-4 Mini Instruct", "phi3", "microsoft/Phi-4-mini-instruct"),
   _card("gemma2-9b", 42, "Gemma2 9B", "gemma2", "google/gemma-2-9b-it"),
   _card("gemma2-27b", 46, "Gemma2 27B", "gemma2", "google/gemma-2-27b-it"),

@@ -78,20 +78,25 @@ def simulate_spec_acceptance(bits: list[bool], gamma: int, max_steps: int) -> fl
 
 
 def peaked_echo_params(params: dict, damp: float = 0.05) -> dict:
-  """A peaked-logit variant of ``params`` (the port's tree: stacked
-  ``layers`` leaves): the residual-stream writes ``wo`` and ``w_down``
-  scaled by ``damp``. Returns a shallow copy (untouched leaves shared).
+  """A peaked-logit variant of ``params`` (the port's tree: the stacked
+  ``layers`` and ``moe_layers`` leaves): the residual-stream writes ``wo``
+  and the down projections scaled by ``damp``. Returns a shallow copy (untouched leaves shared).
   On a weight-quantized tree a leaf with a ``<name>_scale`` sibling keeps
   its codes (damping int8 or int4 codes would round them to nothing) and
   its scale is damped instead: the same model. ``damp`` is taken in each
   leaf's dtype (in bf16 it rounds to 0.0500488…), as the reference's
   weakly typed scalar is."""
   out = dict(params)
-  stack = dict(params["layers"])
-  for k in list(stack):
-    if (k == "wo" or k.endswith("_down")) and not k.endswith("_scale"):
-      name = f"{k}_scale" if f"{k}_scale" in stack else k
-      leaf = stack[name]
-      stack[name] = leaf * torch.tensor(damp, dtype=leaf.dtype, device=leaf.device)
-  out["layers"] = stack
+  for group in ("layers", "moe_layers"):
+    if group not in params:
+      continue
+    stack = dict(params[group])
+    for k in list(stack):
+      # The residual-stream writes: wo and every down projection (dense
+      # w_down, the experts' and the shared expert's).
+      if (k == "wo" or k.endswith("_down")) and not k.endswith("_scale"):
+        name = f"{k}_scale" if f"{k}_scale" in stack else k
+        leaf = stack[name]
+        stack[name] = leaf * torch.tensor(damp, dtype=leaf.dtype, device=leaf.device)
+    out[group] = stack
   return out
