@@ -20,7 +20,8 @@ Phases (any failure exits non-zero and prints no result):
    starting at 150..600 and at 1..4087, with W=1 over the same rows beside
    it; and at Qwen3-30B-A3B's shapes: K1 at its 128 bucket and K3 at B=8
    mixed lengths with Hq 32 / Hkv 4 at hd 128, K4 at its q, k/v, o and
-   head products at T = 1):
+   head products at T = 1; K4 at DeepSeek-Coder-V2-Lite's eight products at
+   T = 1):
    error, kernel / plain / library time and the card's bound (K1's library
    call is SDPA on the live slots with causal masking, the fastest backend
    that runs); K4's per-decode-step sums, and the count of device kernels
@@ -331,6 +332,38 @@ Phases (any failure exits non-zero and prints no result):
    once per two-dimensional quantized product per forward, 4 a layer and
    the head: the experts are dequantized next to their product, as in the
    reference; the MoE calls on the table's int4 paths);
+8d. mla — a seeded random bf16 checkpoint at DeepSeek-Coder-V2-Lite's
+   published shapes (``DEEPSEEK_CODER_V2_LITE``: hidden 2048, 16 heads,
+   MLA latent 512 and rope 64, no q LoRA, yarn; layer 0 dense, then 64
+   experts of 1408, top-6, 2 shared; vocab 102400, untied; its bos / eos
+   100000 / 100001, the ``DeepseekByteTokenizer``'s), 8 of its 27 layers
+   (``MLA_LAYERS``: the run's time limit and the disk a call may write;
+   ``scripts/mla_phase.py --layers 27`` serves the full depth), routers of
+   logit std 3, written once after the MoE checkpoint is removed. First
+   one attention layer at DeepSeek-V3's widths (q LoRA 1536, 128 heads)
+   over a 4,096-slot latent cache: the port's absorbed op against the
+   naive per-head f32 form within 5e-2 (``mla_v3_attention_check``). Then
+   the daemon: solo bf16, every dispatch captured — a warm-up round of
+   every request kind, then the counted round, the counts zeroed just
+   before and read just after: greedy blocking and streaming chat ids
+   equal, a 3,000-token prompt blocking and streaming ids equal, one
+   n-gram streaming request (spec chunks dispatched), one logprobs request
+   (entries aligned, one scoring dispatch); K1, K2, K3 and K4 launch 0
+   times (MLA attends through the plain absorbed op, the naive cache-less
+   form and the paged gather, as the reference routes it), every MoE call
+   on the path the H100 table gives its token count, no build or capture
+   after the warm-up; the served logits of the long prompt's last token
+   (captured prefill) and of one captured decode step after it within
+   5e-2 relative L2 of a naive f32 forward written out here
+   (``mla_plain_f32``); captured against uncaptured; the captured decode
+   step's wall and device ms with the absorbed op's and the MoE FFN's
+   shares (each captured alone); then batched at the defaults on the same
+   engine (16 streams; no mixed and no spec dispatch, as the reference's
+   MLA server runs neither; K1-K3 0); then solo with
+   ``XOT_TPU_QUANT=int4`` (ids equal, nothing built after its warm-up
+   pair, K4 once per two-dimensional product
+   per forward: q, the latent projection and o in every layer, layer 0's
+   MLP, the shared experts of every MoE layer and the head, 6·8 + 1);
 9. gemma2 — a seeded random bf16 checkpoint at gemma-2-9b's published
    shapes (``GEMMA_2_9B``: head dim 256, softcaps 50 / 30, a 4,096-token
    window on the even layers; the bos / eos / pad ids are the byte
@@ -355,7 +388,7 @@ Phases (any failure exits non-zero and prints no result):
    gather route, K1-K3 0); then solo with ``XOT_TPU_QUANT=int4`` (ids
    equal, K4 once per quantized product per forward: 7 a layer and the
    head). Phase 3 also holds K4 at gemma-2-9b's six weight shapes, T = 1.
-   The MoE phase runs before it: the MoE checkpoint is removed first.
+   The MoE and MLA phases run before it: each removes its checkpoint.
 
 The last two lines are the card as ``nvidia-smi`` reports it and
 ``{"ok": true, "device": {...}}``; the line before them is the kernels' JSON
@@ -572,6 +605,8 @@ def phase_kernels(torch):
   results["flash_prefill_moe"] = flash_prefill_rows(torch, gen, [(128, [0], "bf16", 128)], heads=(32, 4))
   results["paged_decode_moe"] = paged_kernel_rows(torch, gen, 32, 4, 128, length_sets=K3_LENGTHS[-1:], kvs=("bf16",))
   results["int4_matmul_moe"] = int4_kernel_rows(torch, gen, QWEN3_MOE_MATMULS, tokens=(1,), f32_row=False, model="Qwen3-30B-A3B")
+  # DeepSeek-Coder-V2-Lite's products (the MLA phase's int4 path), solo decode (T = 1).
+  results["int4_matmul_mla"] = int4_kernel_rows(torch, gen, DEEPSEEK_V2_LITE_MATMULS, tokens=(1,), f32_row=False, model="DeepSeek-Coder-V2-Lite")
   return results
 
 
@@ -3310,17 +3345,19 @@ def _kernel_launches() -> dict:
   return {n: _launched(n) for n in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
 
 
-async def _daemon_up(torch, tmain, args, port, tag, model, label, check_cfg, preload=None):
+async def _daemon_up(torch, tmain, args, port, tag, model, label, check_cfg, preload=None, tokenizer=None):
   """The daemon's components for ``model`` (its registry card's depth,
   remapped by the engine onto the checkpoint's), started as
   ``main.async_main`` starts them, the shard loaded; ``check_cfg(cfg)``
   returns what is wrong with the loaded config, or nothing. ``preload``
   (cfg, params) at the card's full depth is put into the engine instead of
-  a checkpoint read from disk (the daemon then finds its shard loaded)."""
+  a checkpoint read from disk (the daemon then finds its shard loaded).
+  ``tokenizer`` defaults to the ``ByteTokenizer``."""
   from xotorch_support_jetson_tpu_torch import registry
   from xotorch_support_jetson_tpu_torch.inference.shard import Shard
 
-  node, api, engine, _ = tmain.build_components(args, tokenizer=ByteTokenizer())
+  tokenizer = tokenizer or ByteTokenizer()
+  node, api, engine, _ = tmain.build_components(args, tokenizer=tokenizer)
   if engine.device.type != "cuda":
     raise SystemExit(f"chip_smoke: [{tag}] the engine did not choose the card")
   if os.getenv("XOT_TPU_MAX_SEQ"):
@@ -3335,7 +3372,7 @@ async def _daemon_up(torch, tmain, args, port, tag, model, label, check_cfg, pre
     import dataclasses
 
     cfg, params = preload
-    engine.load_test_model(Shard(model, 0, layers - 1, layers), dataclasses.replace(cfg, max_seq_len=engine._serving_cap(cfg)), params, tokenizer=ByteTokenizer())
+    engine.load_test_model(Shard(model, 0, layers - 1, layers), dataclasses.replace(cfg, max_seq_len=engine._serving_cap(cfg)), params, tokenizer=tokenizer)
   await engine.ensure_shard(Shard(model, 0, layers - 1, layers))
   torch.cuda.synchronize()
   load_s = time.perf_counter() - t0
@@ -3540,14 +3577,16 @@ def _gemma_profile(torch, engine, long_ids, smi):
   return res
 
 
-async def _batched_defaults(torch, node, engine, port, smi, model, tag, route, answer_scale: int = 1):
+async def _batched_defaults(torch, node, engine, port, smi, model, tag, route, answer_scale: int = 1, spec_and_mixed: bool = True):
   """``model`` on the batched server at its defaults (n-gram speculation,
   QoS, mixed ticks; 8 slots, 64-token pages) on the solo daemon's engine:
   the 16 streams of ``batched_bodies`` in two waves (their answers
   ``answer_scale`` times as long), the launch counts zeroed just before and
   read just after. Gates: every request ends with all its tokens, spec and
-  mixed dispatches ran, and the plain decode chunks took ``route``
-  ("kernel": K3; "gather"); the caller gates the kernels' launches."""
+  mixed dispatches ran (none at all without ``spec_and_mixed``: an MLA
+  model's server runs neither, as the reference's), and the plain decode
+  chunks took ``route`` ("kernel": K3; "gather"); the caller gates the
+  kernels' launches."""
   from concurrent.futures import ThreadPoolExecutor
 
   from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, int4_matmul as k4, paged
@@ -3588,7 +3627,8 @@ async def _batched_defaults(torch, node, engine, port, smi, model, tag, route, a
       if not n or n > b["max_tokens"] or finish not in ("stop", "length") or (finish == "length" and n != b["max_tokens"]):
         raise SystemExit(f"chip_smoke: [{tag}] batched: request {rid} gave {n} of {b['max_tokens']} tokens, finish {finish}")
       toks.append(n)
-    if not spec_records or not slices or set(chunks) - {route, "spec"} or bserver.decode_path != route:
+    ran = (bool(spec_records), bool(slices))
+    if ran != (spec_and_mixed, spec_and_mixed) or set(chunks) - {route, "spec"} or bserver.decode_path != route:
       raise SystemExit(f"chip_smoke: [{tag}] batched: {len(spec_records)} spec and {len(slices)} mixed dispatches, decode chunks by path {chunks}, decode path {bserver.decode_path}; tokens and finish per request {[(n, r[1]) for n, r in zip(toks, replies)]}")
     ttfts = [r[2] for r in replies]
     res = dict(
@@ -3660,6 +3700,7 @@ MOE_LAYERS = 12
 MOE_PATH_TS = (1, 2, 4, 8, 16, 32, 72, 128)  # token counts at which both MoE paths are timed
 MOE_CHECK_TOL = 5e-2  # relative L2 of the served logits against the plain f32 forward (PERF.md §2)
 MOE_ROUTER_STD = 3.0  # the random routers' logit scale (``write_moe_checkpoint``)
+QWEN3_MOE_FFN = dict(E=128, k=8, D=2048, F=768, norm_topk=True)  # Qwen3-30B-A3B's routed experts
 # Qwen3-30B-A3B's weight products outside the experts, (in, out), for K4
 # under int4 weights: q, k/v, o and the untied head; one decode step makes
 # each once a layer (k/v twice) and the head once.
@@ -3694,10 +3735,17 @@ def write_moe_checkpoint(torch, path: Path, layers: int = MOE_LAYERS, seed: int 
   token apart, and each such token's FFN output moves by about an eighth:
   the served step's logits then sat 3e-2 to 5.3e-2 from the plain f32
   forward (PERF.md §6)."""
+  return _write_seeded_checkpoint(torch, path, dict(QWEN3_30B_A3B, num_hidden_layers=layers), moe_shapes(layers), seed, MOE_ROUTER_STD)
+
+
+def _write_seeded_checkpoint(torch, path: Path, config: dict, shapes: dict, seed: int, router_std: float) -> float:
+  """``config.json`` and one .safetensors file of seeded random bf16
+  tensors of ``shapes``, written tensor by tensor: N(0, 1/fan_in)
+  projections and head, N(0, 0.02) embeddings, unit norm gains, routers
+  (``mlp.gate.weight``) N(0, router_std²/fan_in). Returns the seconds."""
   import struct
 
   t0 = time.perf_counter()
-  shapes = moe_shapes(layers)
   header, offset = {"__metadata__": {"format": "pt"}}, 0
   for name, shape in shapes.items():
     n = math.prod(shape) * 2
@@ -3707,7 +3755,7 @@ def write_moe_checkpoint(torch, path: Path, layers: int = MOE_LAYERS, seed: int 
   raw += b" " * (-len(raw) % 8)
   gen = torch.Generator(device="cuda").manual_seed(seed)
   path.mkdir(parents=True, exist_ok=True)
-  (path / "config.json").write_text(json.dumps(dict(QWEN3_30B_A3B, num_hidden_layers=layers), indent=1))
+  (path / "config.json").write_text(json.dumps(config, indent=1))
   with open(path / "model.safetensors", "wb") as f:
     f.write(struct.pack("<Q", len(raw)))
     f.write(raw)
@@ -3715,7 +3763,7 @@ def write_moe_checkpoint(torch, path: Path, layers: int = MOE_LAYERS, seed: int 
       if len(shape) == 1:
         t = torch.ones(shape, dtype=torch.bfloat16, device="cuda")
       else:
-        scale = 0.02 if name == "model.embed_tokens.weight" else MOE_ROUTER_STD * shape[1] ** -0.5 if name.endswith("mlp.gate.weight") else shape[1] ** -0.5
+        scale = 0.02 if name == "model.embed_tokens.weight" else router_std * shape[1] ** -0.5 if name.endswith("mlp.gate.weight") else shape[1] ** -0.5
         t = (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
       f.write(t.view(torch.uint8).cpu().numpy().data)
   return time.perf_counter() - t0
@@ -3811,14 +3859,13 @@ def moe_plain_f32(torch, params, cfg, ids: list[int], n_last: int = 2):
   return rms(h[-n_last:], params["final_norm"]) @ params["lm_head"].float(), ties, S * lay["wq"].shape[0]
 
 
-def _moe_weights(torch, gen, weights: str):
-  """One layer's router and experts at Qwen3-30B-A3B's shapes, seeded
-  random bf16 (N(0, 1/fan_in)), optionally quantized as the served model
+def _moe_weights(torch, gen, weights: str, ffn: dict):
+  """One layer's router and experts at ``ffn``'s shapes, seeded random
+  bf16 (N(0, 1/fan_in)), optionally quantized as the served model
   quantizes them: (router, gate, up, down, scales)."""
   from xotorch_support_jetson_tpu_torch.models.quantize import quantize_params
 
-  c = QWEN3_30B_A3B
-  D, E, F = c["hidden_size"], c["num_experts"], c["moe_intermediate_size"]
+  D, E, F = ffn["D"], ffn["E"], ffn["F"]
   router = _rand(torch, (D, E), gen, torch.float32).mul_(D**-0.5).to(torch.bfloat16)
   w = {"w_experts_gate": (E, D, F), "w_experts_up": (E, D, F), "w_experts_down": (E, F, D)}
   w = {k: _rand(torch, shape, gen, torch.float32).mul_(shape[1] ** -0.5).to(torch.bfloat16) for k, shape in w.items()}
@@ -3830,10 +3877,12 @@ def _moe_weights(torch, gen, weights: str):
   return router, w["w_experts_gate"], w["w_experts_up"], w["w_experts_down"], scales
 
 
-def moe_path_rows(torch, weights: str = "bf16", Ts=MOE_PATH_TS):
+def moe_path_rows(torch, weights: str = "bf16", Ts=MOE_PATH_TS, ffn: dict | None = None):
   """Device ms of one layer's routed FFN (ops/moe.py ``moe_ffn``) at
-  Qwen3-30B-A3B's shapes (128 experts of 2048 → 768, top-8 renormalised)
-  on both paths, at each token count in ``Ts``, the experts in ``weights``
+  ``ffn``'s shapes (default Qwen3-30B-A3B's, ``QWEN3_MOE_FFN``: 128 experts
+  of 2048 → 768, top-8 renormalised; DeepSeek-V2-Lite's ``MLA_FFN``: 64 of
+  2048 → 1408, top-6 not renormalised) on both paths, at each token count
+  in ``Ts``, the experts in ``weights``
   ("bf16", "int8", "int4"; dequantized next to the product as served), with
   the two outputs' relative L2 and the bytes each path must move: the
   einsum path reads every expert once (and, quantized, writes and reads
@@ -3843,10 +3892,10 @@ def moe_path_rows(torch, weights: str = "bf16", Ts=MOE_PATH_TS):
   table's entry, ops/moe.py ``H100_GATHER_MAX``)."""
   from xotorch_support_jetson_tpu_torch.ops import moe
 
-  c = QWEN3_30B_A3B
-  D, E, F, k = c["hidden_size"], c["num_experts"], c["moe_intermediate_size"], c["num_experts_per_tok"]
+  ffn = ffn or QWEN3_MOE_FFN
+  D, E, F, k, norm = ffn["D"], ffn["E"], ffn["F"], ffn["k"], ffn["norm_topk"]
   gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
-  router, g, u, d, scales = _moe_weights(torch, gen, weights)
+  router, g, u, d, scales = _moe_weights(torch, gen, weights, ffn)
   expert_bytes = sum(t.numel() * t.element_size() for t in (g, u, d, *scales.values()))
   slab = expert_bytes / E
   deq = 0 if weights == "bf16" else 2 * 3 * E * D * F * 2  # the dequantized stacks written and read again
@@ -3858,18 +3907,18 @@ def moe_path_rows(torch, weights: str = "bf16", Ts=MOE_PATH_TS):
 
       def run(knob):
         os.environ["XOT_TPU_MOE_GATHER"] = knob
-        return moe.moe_ffn(x, router, g, u, d, k=k, norm_topk=True, hidden_dim=F, **scales)
+        return moe.moe_ffn(x, router, g, u, d, k=k, norm_topk=norm, hidden_dim=F, **scales)
 
       err = _rel_err(run("1"), run("0"))
       os.environ["XOT_TPU_MOE_GATHER"] = "1"
-      gather_ms = _cuda_ms(torch, lambda: moe.moe_ffn(x, router, g, u, d, k=k, norm_topk=True, hidden_dim=F, **scales), iters=20)
+      gather_ms = _cuda_ms(torch, lambda: moe.moe_ffn(x, router, g, u, d, k=k, norm_topk=norm, hidden_dim=F, **scales), iters=20)
       os.environ["XOT_TPU_MOE_GATHER"] = "0"
-      einsum_ms = _cuda_ms(torch, lambda: moe.moe_ffn(x, router, g, u, d, k=k, norm_topk=True, hidden_dim=F, **scales), iters=20)
+      einsum_ms = _cuda_ms(torch, lambda: moe.moe_ffn(x, router, g, u, d, k=k, norm_topk=norm, hidden_dim=F, **scales), iters=20)
       gbytes = T * k * (slab + (2 * 3 * D * F * 2))  # routed slabs read, their dequantized/gathered copies written and read
       ebytes = expert_bytes + deq
-      rows.append(dict(T=T, weights=weights, gather_ms=gather_ms, einsum_ms=einsum_ms, rel_err=err, gather_bytes=gbytes, einsum_bytes=ebytes,
+      rows.append(dict(T=T, E=E, k=k, F=F, weights=weights, gather_ms=gather_ms, einsum_ms=einsum_ms, rel_err=err, gather_bytes=gbytes, einsum_bytes=ebytes,
                        gather_bound_ms=gbytes / HBM_BYTES_PER_S * 1e3, einsum_bound_ms=ebytes / HBM_BYTES_PER_S * 1e3))
-      log(f"[moe] paths, {weights} experts, T={T}: gather {gather_ms:.4f} ms (bytes bound {rows[-1]['gather_bound_ms']:.4f}), einsum {einsum_ms:.4f} ms (bound {rows[-1]['einsum_bound_ms']:.4f}); outputs rel L2 {err:.2e}")
+      log(f"[moe] paths, {E} experts of {F} top-{k}, {weights} experts, T={T}: gather {gather_ms:.4f} ms (bytes bound {rows[-1]['gather_bound_ms']:.4f}), einsum {einsum_ms:.4f} ms (bound {rows[-1]['einsum_bound_ms']:.4f}); outputs rel L2 {err:.2e}")
       del x
   finally:
     moe.REFERENCE_GATHER_MAX = saved[1]
@@ -3903,15 +3952,16 @@ def _moe_path_counts() -> dict:
   return out
 
 
-def _check_moe_paths(tag: str, counts: dict, weights: str) -> dict:
+def _check_moe_paths(tag: str, counts: dict, weights: str, ffn: dict | None = None) -> dict:
   """Every MoE call took the path the H100 table (ops/moe.py
-  ``gather_max``) gives its token count: the gather path up to the table's
-  T, the einsum path up to 256 tokens, chunks of 256 beyond. Returns the
-  calls by path."""
+  ``gather_max``) gives its token count at ``ffn``'s expert count and top-k
+  (default Qwen3-30B-A3B's): the gather path up to the table's T, the
+  einsum path up to 256 tokens, chunks of 256 beyond. Returns the calls by
+  path."""
   from xotorch_support_jetson_tpu_torch.ops.moe import gather_max
 
-  c = QWEN3_30B_A3B
-  limit = gather_max("cuda", c["num_experts"], c["num_experts_per_tok"], weights)
+  ffn = ffn or QWEN3_MOE_FFN
+  limit = gather_max("cuda", ffn["E"], ffn["k"], weights)
 
   def want(T):
     return "gather" if T <= limit else "einsum" if T <= 256 else "chunked"
@@ -4088,21 +4138,28 @@ def _moe_profile(torch, engine, smi):
     for p in layers:
       out.copy_(_moe_block(x, p, cfg))
 
-  ffn()
+  ffn_device = _captured_ms(torch, ffn)
+  res = dict(step_wall_ms=wall, step_device_ms=device, step_profiler_device_ms=prof["device_ms"] / n if prof["device_ms"] else None, moe_ffn_device_ms=ffn_device, moe_ffn_share=ffn_device / device, top_device_ops=prof["top_device_ops"])
+  log(f"[profile] moe decode step at position 100 of {CACHE} slots (captured, {cfg.n_layers} layers): wall {wall:.3f} ms, device {device:.3f} ms; the routed FFN of the {cfg.n_layers} layers captured alone at T = 1 (gather path) {ffn_device:.3f} ms device: share {res['moe_ffn_share']:.3f} | {smi}")
+  return res
+
+
+def _captured_ms(torch, fn) -> float:
+  """Device ms of ``fn`` captured alone as one CUDA graph and replayed
+  (``_replay_ms``): a part of a step timed on the step's own shapes."""
+  fn()
   torch.cuda.synchronize()
   graph = torch.cuda.CUDAGraph()
   stream = torch.cuda.Stream()
   stream.wait_stream(torch.cuda.current_stream())
   with torch.cuda.stream(stream):
     graph.capture_begin()
-    ffn()
+    fn()
     graph.capture_end()
   torch.cuda.current_stream().wait_stream(stream)
-  ffn_wall, ffn_device = _replay_ms(torch, graph.replay, 1)
+  device = _replay_ms(torch, graph.replay, 1)[1]
   del graph
-  res = dict(step_wall_ms=wall, step_device_ms=device, step_profiler_device_ms=prof["device_ms"] / n if prof["device_ms"] else None, moe_ffn_device_ms=ffn_device, moe_ffn_share=ffn_device / device, top_device_ops=prof["top_device_ops"])
-  log(f"[profile] moe decode step at position 100 of {CACHE} slots (captured, {cfg.n_layers} layers): wall {wall:.3f} ms, device {device:.3f} ms; the routed FFN of the {cfg.n_layers} layers captured alone at T = 1 (gather path) {ffn_device:.3f} ms device: share {res['moe_ffn_share']:.3f} | {smi}")
-  return res
+  return device
 
 
 async def _moe_int4(torch, tmain, args, port, smi):
@@ -4130,6 +4187,607 @@ async def _moe_int4(torch, tmain, args, port, smi):
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(engine.params))
     res = dict(load_s=load_s, launches=launches, per_forward=per_forward, forwards=launches["int4_matmul"] // per_forward, weight_bytes=weight_bytes, moe_paths=paths, moe_by_path=by_path, tokens=run[0]["tokens"], ttft_s=run[1]["ttft_s"], decode_tok_s=_decode_rate(run[1]))
     log(f"[moe] solo int4 weights ({weight_bytes / 1e9:.2f} GB on the card): greedy blocking == streaming ({len(run[0]['tokens'])} tokens), TTFT {res['ttft_s']:.4f} s, decode {res['decode_tok_s']:.1f} tok/s | K4 {launches['int4_matmul']} launches = {res['forwards']} forwards × {per_forward} | launches {launches} | MoE calls by path and T {paths}, each on the H100 table's int4 path | {smi}")
+    return res
+  finally:
+    await _daemon_down(node, server, engine)
+
+
+# ---------------------------------------------------------------- 8d. mla
+
+
+# deepseek-ai/DeepSeek-Coder-V2-Lite-Instruct's published config.json (the
+# deepseek-coder-v2-lite card; its bos / eos 100000 / 100001 are the
+# ``DeepseekByteTokenizer``'s).
+DEEPSEEK_CODER_V2_LITE = {
+  "architectures": ["DeepseekV2ForCausalLM"], "model_type": "deepseek_v2", "vocab_size": 102400, "hidden_size": 2048, "intermediate_size": 10944,
+  "moe_intermediate_size": 1408, "num_hidden_layers": 27, "num_attention_heads": 16, "num_key_value_heads": 16, "n_shared_experts": 2, "n_routed_experts": 64,
+  "routed_scaling_factor": 1.0, "kv_lora_rank": 512, "q_lora_rank": None, "qk_rope_head_dim": 64, "v_head_dim": 128, "qk_nope_head_dim": 128,
+  "topk_method": "greedy", "n_group": 1, "topk_group": 1, "num_experts_per_tok": 6, "moe_layer_freq": 1, "first_k_dense_replace": 1, "norm_topk_prob": False,
+  "scoring_func": "softmax", "aux_loss_alpha": 0.001, "seq_aux": True, "hidden_act": "silu", "max_position_embeddings": 163840, "rms_norm_eps": 1e-6,
+  "rope_theta": 10000, "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 0.707, "mscale_all_dim": 0.707, "original_max_position_embeddings": 4096, "type": "yarn"},
+  "attention_bias": False, "tie_word_embeddings": False, "torch_dtype": "bfloat16", "bos_token_id": 100000, "eos_token_id": 100001,
+}
+# deepseek-ai/DeepSeek-V3's published config.json (one attention layer of it
+# is held at full width: ``mla_v3_attention_check``).
+DEEPSEEK_V3 = {
+  "architectures": ["DeepseekV3ForCausalLM"], "model_type": "deepseek_v3", "vocab_size": 129280, "hidden_size": 7168, "intermediate_size": 18432,
+  "moe_intermediate_size": 2048, "num_hidden_layers": 61, "num_attention_heads": 128, "num_key_value_heads": 128, "n_shared_experts": 1, "n_routed_experts": 256,
+  "routed_scaling_factor": 2.5, "kv_lora_rank": 512, "q_lora_rank": 1536, "qk_rope_head_dim": 64, "v_head_dim": 128, "qk_nope_head_dim": 128,
+  "topk_method": "noaux_tc", "n_group": 8, "topk_group": 4, "num_experts_per_tok": 8, "moe_layer_freq": 1, "first_k_dense_replace": 3, "norm_topk_prob": True,
+  "scoring_func": "sigmoid", "max_position_embeddings": 163840, "rms_norm_eps": 1e-6, "rope_theta": 10000,
+  "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 1.0, "mscale_all_dim": 1.0, "original_max_position_embeddings": 4096, "type": "yarn"},
+  "tie_word_embeddings": False, "torch_dtype": "bfloat16", "bos_token_id": 0, "eos_token_id": 1,
+}
+MLA_MODEL = "deepseek-coder-v2-lite"
+# 8 of the 27 layers (layer 0 dense, seven MoE layers; ~9.2 GB of bf16
+# weights): the whole smoke run must end within the 1,200 s it is given,
+# and a call may write 45 GiB beside the llama, gemma2 and MoE
+# checkpoints. scripts/mla_phase.py --layers 27 serves the full depth
+# (~31.4 GB, drawn on the card) in a call of its own.
+MLA_LAYERS = 8
+MLA_CHECK_TOL = 5e-2  # relative L2 of the served logits against the naive f32 forward, and of the V3-width layer
+MLA_ROUTER_STD = 3.0  # the random routers' logit scale, as ``MOE_ROUTER_STD``
+MLA_FFN = dict(E=64, k=6, D=2048, F=1408, norm_topk=False)  # DeepSeek-V2-Lite's routed experts
+MLA_NORM_EPS = 1e-6  # HF deepseek's q_a / kv_a layernorm eps, whatever rms_norm_eps says
+# DeepSeek-Coder-V2-Lite's two-dimensional weight products, (in, out), for
+# K4 under int4 weights: q, the latent projection, o (every layer), layer
+# 0's dense MLP, the shared experts (every MoE layer) and the untied head.
+# kv_b and the routed experts are dequantized next to their use, as in the
+# reference.
+DEEPSEEK_V2_LITE_MATMULS = {
+  "wq": (2048, 3072), "wkv_a": (2048, 576), "wo": (2048, 2048), "w_gate/w_up": (2048, 10944), "w_down": (10944, 2048),
+  "w_shared_gate/w_shared_up": (2048, 2816), "w_shared_down": (2816, 2048), "lm_head": (2048, 102400),
+}
+
+
+class DeepseekByteTokenizer(ByteTokenizer):
+  """The byte tokenizer with DeepSeek-Coder-V2-Lite's published BOS / EOS
+  ids (128000 / 128009 lie past its 102,400-token vocabulary)."""
+
+  bos_token_id = 100000
+  eos_token_id = 100001
+
+
+def mla_shapes(layers: int = MLA_LAYERS) -> dict:
+  """HF tensor name → shape of the DeepSeek-Coder-V2-Lite checkpoint at
+  ``layers``: a direct q_proj (no q LoRA), the latent projection with its
+  MQA rope channel, the latent norm, kv_b, o; layer 0's dense MLP, then
+  per MoE layer the router, two shared experts (one fused 2816-wide MLP in
+  HF's layout) and 64 routed experts."""
+  c = DEEPSEEK_CODER_V2_LITE
+  D, V, F, Fm, E, H = c["hidden_size"], c["vocab_size"], c["intermediate_size"], c["moe_intermediate_size"], c["n_routed_experts"], c["num_attention_heads"]
+  rank, rope, nope, vd = c["kv_lora_rank"], c["qk_rope_head_dim"], c["qk_nope_head_dim"], c["v_head_dim"]
+  Fs = c["n_shared_experts"] * Fm
+  shapes = {"model.embed_tokens.weight": (V, D), "model.norm.weight": (D,), "lm_head.weight": (V, D)}
+  for i in range(layers):
+    p = f"model.layers.{i}."
+    shapes.update({
+      p + "input_layernorm.weight": (D,), p + "post_attention_layernorm.weight": (D,), p + "self_attn.q_proj.weight": (H * (nope + rope), D),
+      p + "self_attn.kv_a_proj_with_mqa.weight": (rank + rope, D), p + "self_attn.kv_a_layernorm.weight": (rank,),
+      p + "self_attn.kv_b_proj.weight": (H * (nope + vd), rank), p + "self_attn.o_proj.weight": (D, H * vd),
+    })
+    if i < c["first_k_dense_replace"]:
+      shapes.update({p + "mlp.gate_proj.weight": (F, D), p + "mlp.up_proj.weight": (F, D), p + "mlp.down_proj.weight": (D, F)})
+      continue
+    shapes.update({p + "mlp.gate.weight": (E, D), p + "mlp.shared_experts.gate_proj.weight": (Fs, D), p + "mlp.shared_experts.up_proj.weight": (Fs, D), p + "mlp.shared_experts.down_proj.weight": (D, Fs)})
+    for e in range(E):
+      shapes.update({f"{p}mlp.experts.{e}.gate_proj.weight": (Fm, D), f"{p}mlp.experts.{e}.up_proj.weight": (Fm, D), f"{p}mlp.experts.{e}.down_proj.weight": (D, Fm)})
+  return shapes
+
+
+def write_mla_checkpoint(torch, path: Path, layers: int = MLA_LAYERS, seed: int = SEED + 18) -> float:
+  """Seeded random bf16 weights at DeepSeek-Coder-V2-Lite's shapes and
+  ``layers`` of its depth, HF names, written tensor by tensor
+  (``_write_seeded_checkpoint``; routers of logit std ``MLA_ROUTER_STD``,
+  as the MoE checkpoint's: flat random routers near-tie too often for a
+  bf16 forward to route as the f32 one does)."""
+  return _write_seeded_checkpoint(torch, path, dict(DEEPSEEK_CODER_V2_LITE, num_hidden_layers=layers), mla_shapes(layers), seed, MLA_ROUTER_STD)
+
+
+def mla_params_on_card(torch, layers: int, seed: int = SEED + 18):
+  """(cfg, params): the port's parameter tree of a random
+  DeepSeek-Coder-V2-Lite at ``layers`` deep, drawn on the card from
+  ``write_mla_checkpoint``'s distributions (other draws), one layer slice
+  at a time: the full depth's checkpoint (~31.4 GB) is not written for one
+  run."""
+  from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+  from xotorch_support_jetson_tpu_torch.models.config import config_from_hf
+  from xotorch_support_jetson_tpu_torch.models.loader import check_shard_params
+
+  cfg = config_from_hf(dict(DEEPSEEK_CODER_V2_LITE, num_hidden_layers=layers))
+  D, V, F, E, Fm, Fs, H = cfg.dim, cfg.vocab_size, cfg.hidden_dim, cfg.n_experts, cfg.moe_hidden_dim, cfg.shared_expert_dim, cfg.n_heads
+  rank, rope, qk, vd = cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.qk_head_dim, cfg.v_head_dim
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+
+  def w(shape, scale, L):
+    out = torch.empty((L, *shape), dtype=torch.bfloat16, device="cuda")
+    for i in range(L):
+      out[i].copy_(torch.randn(shape, generator=gen, device="cuda") * scale)
+    return out
+
+  def ones(*shape):
+    return torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+
+  def attn(L):
+    return {
+      "attn_norm": ones(L, D), "mlp_norm": ones(L, D), "kv_a_norm": ones(L, rank), "wq": w((D, H * qk), D**-0.5, L), "wkv_a": w((D, rank + rope), D**-0.5, L),
+      "wkv_b": w((rank, H * (cfg.qk_nope_head_dim + vd)), rank**-0.5, L), "wo": w((H * vd, D), (H * vd) ** -0.5, L),
+    }
+
+  n_dense, Lm = cfg.first_k_dense, layers - cfg.first_k_dense
+  dense = {**attn(n_dense), "w_gate": w((D, F), D**-0.5, n_dense), "w_up": w((D, F), D**-0.5, n_dense), "w_down": w((F, D), F**-0.5, n_dense)}
+  moe = {
+    **attn(Lm), "w_router": w((D, E), MLA_ROUTER_STD * D**-0.5, Lm),
+    "w_experts_gate": w((E, D, Fm), D**-0.5, Lm), "w_experts_up": w((E, D, Fm), D**-0.5, Lm), "w_experts_down": w((E, Fm, D), Fm**-0.5, Lm),
+    "w_shared_gate": w((D, Fs), D**-0.5, Lm), "w_shared_up": w((D, Fs), D**-0.5, Lm), "w_shared_down": w((Fs, D), Fs**-0.5, Lm),
+  }
+  params = {"layers": dense, "moe_layers": moe, "embed": w((V, D), 0.02, 1)[0], "final_norm": ones(D), "lm_head": w((D, V), D**-0.5, 1)[0]}
+  check_shard_params(params, cfg, Shard(MLA_MODEL, 0, layers - 1, layers))
+  return cfg, params
+
+
+def _yarn_plain(torch, c: dict, dev):
+  """(inverse frequencies [rope/2], cos/sin factor) of the published
+  ``rope_scaling`` (yarn), written out from its definition: NTK-by-parts
+  between the beta_fast / beta_slow correction dims (floored / ceiled),
+  interpolated by ``factor`` below, and the attention factor
+  mscale(factor, mscale) / mscale(factor, mscale_all_dim)."""
+  rs, dim, base = c["rope_scaling"], c["qk_rope_head_dim"], float(c["rope_theta"])
+
+  def corr(rot):
+    return dim * math.log(rs["original_max_position_embeddings"] / (rot * 2 * math.pi)) / (2 * math.log(base))
+
+  low, high = max(math.floor(corr(rs["beta_fast"])), 0), min(math.ceil(corr(rs["beta_slow"])), dim - 1)
+  freqs = base ** (torch.arange(0, dim, 2, device=dev, dtype=torch.float32) / dim)
+  ramp = torch.clamp((torch.arange(dim // 2, device=dev, dtype=torch.float32) - low) / max(high - low, 1e-3), 0, 1)
+  inv = (1.0 / (rs["factor"] * freqs)) * ramp + (1.0 / freqs) * (1 - ramp)
+
+  def mscale(m):
+    return 0.1 * m * math.log(rs["factor"]) + 1.0
+
+  return inv, mscale(rs["mscale"]) / mscale(rs["mscale_all_dim"])
+
+
+def _rope_interleaved_plain(torch, v, cos, sin):
+  """deepseek's rope: channels (2i, 2i+1) rotate as one complex number."""
+  a, b = v[..., 0::2], v[..., 1::2]
+  return torch.stack([a * cos - b * sin, a * sin + b * cos], dim=-1).flatten(-2)
+
+
+def mla_plain_f32(torch, params, cfg, ids: list[int], n_last: int = 2, hf: dict = DEEPSEEK_CODER_V2_LITE):
+  """A plain f32 forward of DeepSeek-V2 over the served weights, written
+  out here from the published architecture (each layer's weights cast to
+  f32 as it runs), in the naive per-head form: per layer the pre-attention
+  norm, q (direct), the latent projection and its norm (eps 1e-6), yarn's
+  interleaved rope on the rope channels, per-head k / v from the latent
+  through kv_b, causal softmax attention scaled by 1/sqrt(nope + rope) (the
+  JAX package's scale), o; the pre-MLP norm, then layer 0's SwiGLU MLP or
+  the router's softmax over the 64 experts, the top 6 unrenormalised, each
+  expert's SwiGLU on the tokens routed to it (gathered on the host: this
+  is no serving path) and the shared experts; the final norm and the
+  untied head (``hf``: the published config whose rope scaling it
+  applies). Also counts the routing decisions whose k-th and (k+1)-th
+  scores lie within 1 % of each other. Returns (logits [n_last, V] f32 of
+  the last positions, near-ties, routing decisions)."""
+  S, H, nope, rope, vd, rank, k = len(ids), cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank, cfg.n_active_experts
+  dev = params["embed"].device
+  x = torch.tensor(ids, device=dev)
+
+  def rms(v, w, eps=cfg.norm_eps):
+    return v * torch.rsqrt(v.pow(2).mean(-1, keepdim=True) + eps) * w.float()
+
+  inv, af = _yarn_plain(torch, hf, dev)
+  ang = torch.arange(S, device=dev, dtype=torch.float32)[:, None] * inv[None, :]
+  cos, sin = (torch.cos(ang) * af)[:, None, :], (torch.sin(ang) * af)[:, None, :]
+  pos = torch.arange(S, device=dev)
+  causal = pos[None, :] <= pos[:, None]
+  h = params["embed"][x].float()
+  ties = decisions = 0
+  for stack in ("layers", "moe_layers"):
+    lay = params[stack]
+    for i in range(lay["wkv_a"].shape[0]):
+      p = {key: v[i] for key, v in lay.items()}
+      a = rms(h, p["attn_norm"])
+      q = (a @ p["wq"].float()).view(S, H, nope + rope)
+      kv_a = a @ p["wkv_a"].float()
+      latent = rms(kv_a[:, :rank], p["kv_a_norm"], MLA_NORM_EPS)
+      k_pe = _rope_interleaved_plain(torch, kv_a[:, None, rank:], cos, sin)
+      kv = (latent @ p["wkv_b"].float()).view(S, H, nope + vd)
+      qq = torch.cat([q[..., :nope], _rope_interleaved_plain(torch, q[..., nope:], cos, sin)], dim=-1)
+      kk = torch.cat([kv[..., :nope], k_pe.expand(S, H, rope)], dim=-1)
+      s = torch.einsum("qhd,khd->hqk", qq, kk) / math.sqrt(nope + rope)
+      s = torch.softmax(s.masked_fill(~causal[None], -math.inf), dim=-1)
+      o = torch.einsum("hqk,khd->qhd", s, kv[..., nope:]).reshape(S, H * vd)
+      del s, qq, kk, kv
+      h = h + o @ p["wo"].float()
+      m = rms(h, p["mlp_norm"])
+      if "w_router" not in p:
+        h = h + (torch.nn.functional.silu(m @ p["w_gate"].float()) * (m @ p["w_up"].float())) @ p["w_down"].float()
+        continue
+      probs = torch.softmax(m @ p["w_router"].float(), dim=-1)
+      top = torch.topk(probs, k + 1, dim=-1)
+      ties += int((top.values[:, k - 1] - top.values[:, k] < 1e-2 * top.values[:, k - 1]).sum())
+      decisions += S
+      wts, idx = top.values[:, :k] * cfg.routed_scaling_factor, top.indices[:, :k]
+      out = (torch.nn.functional.silu(m @ p["w_shared_gate"].float()) * (m @ p["w_shared_up"].float())) @ p["w_shared_down"].float()
+      for e in idx.unique().tolist():
+        rows, slot = (idx == e).nonzero(as_tuple=True)
+        xe = m[rows]
+        ye = (torch.nn.functional.silu(xe @ p["w_experts_gate"][e].float()) * (xe @ p["w_experts_up"][e].float())) @ p["w_experts_down"][e].float()
+        out.index_add_(0, rows, ye * wts[rows, slot][:, None])
+      h = h + out
+  return rms(h[-n_last:], params["final_norm"]) @ params["lm_head"].float(), ties, decisions
+
+
+def mla_v3_attention_check(torch, smi: str, hf: dict = DEEPSEEK_V3, slots: int = CACHE, dev: str = "cuda") -> dict:
+  """One MLA attention layer at DeepSeek-V3's published widths (hidden
+  7168, 128 heads, q LoRA 1536, latent 512, rope 64, nope 128, v 128; yarn
+  factor 40), seeded random bf16 weights drawn on the card, over a
+  4,096-slot bf16 latent cache whose first 4,095 slots hold seeded random
+  latents: the port's cached branch (``decoder._mla_attention``: the q
+  LoRA, the latent written at position 4,095, the absorbed op over every
+  slot) against the naive per-head form in f32 written out here (q through
+  wq_a → norm → wq_b, k / v per head from the cache's latents through
+  kv_b, softmax at 1/sqrt(192), o), both then through o. Also times the
+  absorbed op alone (``mla_absorbed_attention`` on the cache) beside the
+  bytes it must move. (``hf``, ``slots`` and ``dev`` rehearse it on the
+  CPU at small widths.)"""
+  from xotorch_support_jetson_tpu_torch.models import decoder
+  from xotorch_support_jetson_tpu_torch.models.config import config_from_hf
+  from xotorch_support_jetson_tpu_torch.ops.attention import mla_absorbed_attention
+  from xotorch_support_jetson_tpu_torch.ops.rope import rope_inv_freq
+
+  cfg = config_from_hf(dict(hf, num_hidden_layers=1))
+  D, H, rank, rope, nope, vd, ql = cfg.dim, cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.q_lora_rank
+  gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+
+  def w(*shape):
+    return (torch.randn(shape, generator=gen, device=dev) * shape[0] ** -0.5).to(torch.bfloat16)
+
+  def ones(n):
+    return torch.ones(n, dtype=torch.bfloat16, device=dev)
+
+  p = {
+    "attn_norm": ones(D), "wq_a": w(D, ql), "q_a_norm": ones(ql), "wq_b": w(ql, H * (nope + rope)),
+    "wkv_a": w(D, rank + rope), "kv_a_norm": ones(rank), "wkv_b": w(rank, H * (nope + vd)), "wo": w(H * vd, D),
+  }
+  cache = decoder.init_kv_cache(cfg, 1, 1, slots, dtype=torch.bfloat16, device=dev)
+  latent = torch.randn((slots - 1, rank), generator=gen, device=dev)
+  cache["k"][0, 0, : slots - 1, 0] = (latent * torch.rsqrt(latent.pow(2).mean(-1, keepdim=True) + MLA_NORM_EPS)).to(torch.bfloat16)
+  cache["v"][0, 0, : slots - 1, 0] = torch.randn((slots - 1, rope), generator=gen, device=dev).to(torch.bfloat16)
+  x = torch.randn((1, 1, D), generator=gen, device=dev).to(torch.bfloat16)
+  pos = torch.full((1, 1), slots - 1, dtype=torch.int32, device=dev)
+  kv_pos = torch.arange(slots, dtype=torch.int32, device=dev)
+  kv = {key: val[0] for key, val in cache.items()}
+  got = decoder._mla_attention(x, p, kv, pos, kv_pos, rope_inv_freq(cfg, dev), cfg)  # [1, 1, H, v]
+  got_o = got.reshape(1, H * vd) @ p["wo"]
+  # The naive f32 form over the cache as the port wrote it.
+  f = {key: val.float() for key, val in p.items()}
+  xf = x.float()[0]
+  inv, af = _yarn_plain(torch, hf, dev)
+  ang = float(slots - 1) * inv
+  cos, sin = (torch.cos(ang) * af)[None, :], (torch.sin(ang) * af)[None, :]
+
+  def rms(v, g, eps=MLA_NORM_EPS):
+    return v * torch.rsqrt(v.pow(2).mean(-1, keepdim=True) + eps) * g
+
+  q = (rms(xf @ f["wq_a"], f["q_a_norm"]) @ f["wq_b"]).view(H, nope + rope)
+  q = torch.cat([q[:, :nope], _rope_interleaved_plain(torch, q[:, nope:], cos, sin)], dim=-1)
+  kvf = (cache["k"][0, 0, :, 0].float() @ f["wkv_b"]).view(slots, H, nope + vd)
+  k = torch.cat([kvf[..., :nope], cache["v"][0, 0, :, 0].float()[:, None, :].expand(slots, H, rope)], dim=-1)
+  s = torch.softmax(torch.einsum("hd,khd->hk", q, k) / math.sqrt(nope + rope), dim=-1)
+  want = torch.einsum("hk,khd->hd", s, kvf[..., nope:])
+  want_o = want.reshape(1, H * vd) @ f["wo"]
+  err, err_o = _rel_err(got[0, 0], want), _rel_err(got_o, want_o)
+  ckv, kpe = cache["k"][0, :, :, 0], cache["v"][0, :, :, 0]
+  nbytes = (ckv.numel() + kpe.numel() + p["wkv_b"].numel() + H * (nope + rope) + H * vd) * 2  # cache, kv_b, q in, out
+  ms = None
+  if dev == "cuda":  # the absorbed op alone, as a decode step calls it
+    q_nope = _rand(torch, (1, 1, H, nope), gen, torch.bfloat16)
+    q_pe = _rand(torch, (1, 1, H, rope), gen, torch.bfloat16)
+    ms = _cuda_ms(torch, lambda: mla_absorbed_attention(q_nope, q_pe, ckv, kpe, p["wkv_b"], pos, kv_pos, vd))
+  res = dict(
+    widths=dict(hidden=D, heads=H, q_lora_rank=ql, kv_lora_rank=rank, rope=rope, nope=nope, v=vd), cache=slots, rel_err=err, rel_err_after_o=err_o,
+    absorbed_ms=ms, absorbed_bytes=nbytes, absorbed_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, card=smi,
+  )
+  log(f"[mla] one attention layer at DeepSeek-V3's widths (hidden {D}, {H} heads, q LoRA {ql}, latent {rank}, rope {rope}, nope {nope}, v {vd}) over a {slots}-slot bf16 latent cache: the port's absorbed op against the naive f32 per-head form: rel L2 {err:.3e} ({err_o:.3e} after o; limit {MLA_CHECK_TOL}) | the absorbed op alone {ms} ms against a bytes bound of {res['absorbed_bound_ms']:.4f} ms | {smi}")
+  del p, cache, f, kvf, k
+  torch.cuda.empty_cache()
+  if not max(err, err_o) < MLA_CHECK_TOL:
+    raise SystemExit(f"chip_smoke: [mla] the V3-width attention layer: {res}")
+  return res
+
+
+def mla_long_prompt() -> tuple[list[int], str]:
+  """(ids, user text) of a ``LONG_PROMPT_TOKENS``-token prompt under the
+  ``DeepseekByteTokenizer`` (BOS, the chat template, the text)."""
+  tok = DeepseekByteTokenizer()
+  overhead = len(tok.encode(tok.apply_chat_template([{"role": "user", "content": ""}])))
+  words = "the quick brown fox jumps over a lazy dog while seven tired owls count the stars above an old mill".split()
+  text = " ".join(words[i % len(words)] for i in range(LONG_PROMPT_TOKENS))[: LONG_PROMPT_TOKENS - overhead]
+  ids = tok.encode(tok.apply_chat_template([{"role": "user", "content": text}]))
+  if len(ids) != LONG_PROMPT_TOKENS:
+    raise SystemExit(f"chip_smoke: [mla] the long prompt is {len(ids)} tokens, expected {LONG_PROMPT_TOKENS}")
+  return ids, text
+
+
+def _mla_chat(stream: bool, content=None, max_tokens: int = MAX_TOKENS, **extra) -> dict:
+  return {"model": MLA_MODEL, "messages": [{"role": "user", "content": content or CHAT[0]["content"]}], "stream": stream, "temperature": 0, "max_tokens": max_tokens, **extra}
+
+
+def _mla_cfg_problem(cfg) -> str:
+  ok = (
+    cfg.is_mla and cfg.family == "deepseek-v2" and cfg.kv_lora_rank == 512 and cfg.q_lora_rank == 0 and cfg.qk_head_dim == 192 and cfg.v_head_dim == 128 and cfg.n_heads == 16
+    and cfg.n_experts == 64 and cfg.n_active_experts == 6 and cfg.moe_hidden_dim == 1408 and cfg.shared_expert_dim == 2816 and cfg.first_k_dense == 1
+    and not cfg.norm_topk_prob and cfg.vocab_size == 102400 and getattr(cfg.rope_scaling, "factor", None) == 40
+  )
+  return "" if ok else "not DeepSeek-Coder-V2-Lite's"
+
+
+def _nothing_built(label: str, fam0: dict, fam1: dict) -> None:
+  """No program family built or captured between two ledger snapshots
+  (the counted requests after their warm-up)."""
+  built = {f: (v["compiles"] - fam0.get(f, {}).get("compiles", 0), v["captures"] - fam0.get(f, {}).get("captures", 0)) for f, v in fam1.items()}
+  built = {f: bc for f, bc in built.items() if any(bc)}
+  if built:
+    raise SystemExit(f"chip_smoke: [mla] {label}: the counted requests built or captured programs after the warm-up (family: builds, captures): {built}")
+
+
+def _no_mla_attention_kernels(label: str, launches: dict) -> None:
+  """K1, K2 and K3 never run on MLA: the absorbed op, the naive cache-less
+  form and the paged gather are plain, as the reference routes them."""
+  if launches["flash_prefill"] or launches["flash_decode"] or launches["paged_decode"]:
+    raise SystemExit(f"chip_smoke: [mla] {label}: an attention kernel launched on MLA ({launches})")
+
+
+def phase_mla(torch, ckpt: Path | None, smi: str, full: bool = True, preload=None):
+  """DeepSeek-Coder-V2-Lite at full width (the checkpoint's depth): one
+  attention layer at DeepSeek-V3's widths, then the daemon: solo bf16
+  (captured) and batched at the defaults on the same engine, then solo
+  with ``XOT_TPU_QUANT=int4``. Without ``full`` (the full depth, drawn on
+  the card: ``preload`` as in ``_daemon_up``), the solo bf16 daemon
+  alone."""
+  from xotorch_support_jetson_tpu_torch import main as tmain
+
+  out: dict = {}
+  if full:
+    out["v3_attention"] = mla_v3_attention_check(torch, smi)
+  args, port = _daemon_args(tmain, ckpt or ROOT / "build" / "no_checkpoint", model=MLA_MODEL)
+  try:
+    out["bf16"] = asyncio.run(_mla_bf16(torch, tmain, args, port, smi, batched=full, preload=preload))
+  finally:
+    for knob in ("XOT_TPU_BATCHED", "XOT_TPU_BATCH_SLOTS", "XOT_TPU_PAGE_SIZE"):
+      os.environ.pop(knob, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+  if not full:
+    return out
+  args, port = _daemon_args(tmain, ckpt, model=MLA_MODEL)
+  os.environ["XOT_TPU_QUANT"] = "int4"
+  try:
+    out["int4"] = asyncio.run(_mla_int4(torch, tmain, args, port, smi))
+  finally:
+    os.environ.pop("XOT_TPU_QUANT", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+  return out
+
+
+def _mla_plan(long_text: str) -> list:
+  """The solo requests of the MLA phase, in order: greedy blocking and
+  streaming chat, the long prompt blocking and streaming, one n-gram
+  streaming request (its repetitive prompt) and the same prompt plain."""
+  rep = "the fox jumps over the dog. " * 24
+  return [
+    ("greedy blocking", _mla_chat(False)), ("greedy streaming", _mla_chat(True)),
+    ("long greedy blocking", _mla_chat(False, long_text)), ("long greedy streaming", _mla_chat(True, long_text)),
+    ("n-gram greedy streaming", _mla_chat(True, rep, 48)), ("plain greedy blocking (the n-gram prompt)", _mla_chat(False, rep, 48)),
+  ]
+
+
+async def _mla_requests(torch, node, engine, port, long_text: str) -> tuple[list, tuple]:
+  """``_mla_plan``'s requests (the n-gram one through the n-gram chain, as
+  ``XOT_TPU_SPEC_DECODE=ngram`` sets it), then one logprobs request:
+  (replies, (HTTP status, body, the logprobs request's ids))."""
+  plan = _mla_plan(long_text)
+  run = await _serve_requests(torch, node, engine, port, plan[:4])
+  engine.spec_decode, engine._spec_ngram_on = "ngram", True
+  try:
+    run += await _serve_requests(torch, node, engine, port, plan[4:5])
+  finally:
+    engine.spec_decode, engine._spec_ngram_on = None, False
+  run += await _serve_requests(torch, node, engine, port, plan[5:])
+  lp_ids: dict[str, list[int]] = {}
+  node.on_token.register("chip_smoke_lp").on_next(lambda rid, toks, fin: lp_ids.setdefault(rid, []).extend(toks))
+  try:
+    st, raw = await asyncio.to_thread(_http, port, "POST", "/v1/chat/completions", _mla_chat(False, max_tokens=16, logprobs=True, top_logprobs=5))
+  finally:
+    node.on_token.deregister("chip_smoke_lp")
+  return run, (st, raw, lp_ids)
+
+
+async def _mla_bf16(torch, tmain, args, port, smi, batched: bool = True, preload=None):
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  node, server, engine, load_s = await _daemon_up(torch, tmain, args, port, "mla", MLA_MODEL, "bf16", _mla_cfg_problem, preload, tokenizer=DeepseekByteTokenizer())
+  res = dict(load_s=load_s, card=smi, weight_bytes=sum(t.numel() * t.element_size() for t in _leaves(engine.params)))
+  try:
+    cfg, params = engine.cfg, engine.params
+    L = cfg.n_layers
+    log(f"[mla] config: deepseek-ai/DeepSeek-Coder-V2-Lite-Instruct's published shapes (hidden 2048, {L} of its 27 layers: layer 0 dense (10944), then MoE layers of 64 experts of 1408 top-6 unrenormalised and 2 shared; 16 heads, MLA latent 512, rope 64, nope 128, v 128, no q LoRA; yarn factor 40; vocab 102400, untied head), random bf16 weights; bos/eos 100000/100001; serving cap {engine.max_seq_len}")
+    long_ids, long_text = mla_long_prompt()
+    await _mla_requests(torch, node, engine, port, long_text)  # the warm-up: every request kind once
+    fam0 = programs.ledger.snapshot()["families"]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # ---- the solo MLA path, counted
+    run, (st, raw, lp_ids) = await _mla_requests(torch, node, engine, port, long_text)
+    launches, paths = _kernel_launches(), _moe_path_counts()  # ---- read just after
+    fam1 = programs.ledger.snapshot()["families"]
+    peak = torch.cuda.max_memory_allocated()
+    _no_mla_attention_kernels("solo bf16", launches)
+    if launches["int4_matmul"]:
+      raise SystemExit(f"chip_smoke: [mla] solo bf16: K4 launched on bf16 weights ({launches})")
+    _nothing_built("solo bf16", fam0, fam1)
+    for a, b, what in ((run[0], run[1], "chat"), (run[2], run[3], "long prompt")):
+      if a["tokens"] != b["tokens"]:
+        raise SystemExit(f"chip_smoke: [mla] {what}: greedy blocking and streaming differ:\n{a['tokens']}\n{b['tokens']}")
+    if st != 200:
+      raise SystemExit(f"chip_smoke: [mla] logprobs: HTTP {st} {raw[:300]}")
+    data = json.loads(raw)
+    lp = data["choices"][0]["logprobs"]
+    tok = DeepseekByteTokenizer()
+    check_lp = _check_logprobs("mla chat", lp, lp_ids[data["id"].split("-", 1)[1]], {tok.eos_token_id}, tok.decode, True) if lp else None
+    spec_n = fam1.get("spec.batch", {}).get("dispatches", 0) - fam0.get("spec.batch", {}).get("dispatches", 0)
+    scored = fam1.get("prefill.score_last", {}).get("dispatches", 0) - fam0.get("prefill.score_last", {}).get("dispatches", 0)
+    if check_lp is None or scored != 1 or spec_n < 1:
+      raise SystemExit(f"chip_smoke: [mla] logprobs {check_lp}, {scored} prefill.score_last dispatches, {spec_n} n-gram chunks (spec.batch dispatches)")
+    by_path = _check_moe_paths("mla", paths, "bf16", MLA_FFN)
+    agree = _agreement(run[4]["tokens"], run[5]["tokens"])
+    res.update(
+      launches=launches, moe_paths=paths, moe_by_path=by_path, tokens=run[0]["tokens"], ttft_s=run[1]["ttft_s"], decode_tok_s=_decode_rate(run[1]),
+      long_prompt_tokens=len(long_ids), long_ttft_s=run[3]["ttft_s"], long_decode_tok_s=_decode_rate(run[3]), peak_allocated=peak, logprobs=check_lp,
+      ngram_chunks=spec_n, ngram_agreement=agree, ngram_decode_tok_s=_decode_rate(run[4]),
+    )
+    log(f"[mla] solo bf16: greedy blocking == streaming ({len(run[0]['tokens'])} tokens; TTFT {res['ttft_s']:.4f} s, decode {res['decode_tok_s']:.1f} tok/s) | long prompt of {len(long_ids)} tokens (bucket 3072): blocking == streaming, TTFT {res['long_ttft_s']:.4f} s, decode {res['long_decode_tok_s']:.1f} tok/s | peak device memory {peak / 1e9:.2f} GB | logprobs {check_lp} | n-gram chain: {spec_n} spec.batch dispatches, {res['ngram_decode_tok_s']:.1f} tok/s, ids agreeing with plain {agree:.3f} | launches {launches} (K1/K2/K3/K4 none) | MoE calls by path and T {paths}, each on the H100 table's path | no build or capture after the warm-up | {smi}")
+    # The served logits against the naive f32 forward: the long prompt's
+    # last token (the captured 3072 prefill) and one captured step after it.
+    served_pre, _ = engine._infer_tensor_sync("mla-check", np.asarray([long_ids], np.int32), None)
+    nxt = int(np.argmax(served_pre[0]))
+    served_step, _ = engine._infer_tensor_sync("mla-check", np.asarray([[nxt]], np.int32), None)
+    engine.end_request("mla-check")
+    served = torch.from_numpy(np.stack([served_pre[0], served_step[0]])).cuda().float()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+      ref, ties, decisions = mla_plain_f32(torch, params, cfg, long_ids + [nxt])
+    err = [_rel_err(served[i], ref[i]) for i in range(2)]
+    res["check"] = dict(positions=[len(long_ids) - 1, len(long_ids)], rel_err=err, near_ties=ties, routing_decisions=decisions, argmax_agree=[int(served[i].argmax()) == int(ref[i].argmax()) for i in range(2)], ref_s=time.perf_counter() - t0)
+    log(f"[mla] served logits at positions {len(long_ids) - 1} (captured prefill) and {len(long_ids)} (captured step) against the naive f32 forward on the same weights: rel L2 {err[0]:.3e} / {err[1]:.3e} (limit {MLA_CHECK_TOL}); argmax agree {res['check']['argmax_agree']}; near-tied routing decisions {ties} of {decisions}")
+    del ref
+    if not max(err) < MLA_CHECK_TOL:
+      raise SystemExit(f"chip_smoke: [mla] served logits: {res['check']}")
+    res["graphs"] = _mla_graphs_against_eager(torch, engine)
+    res["profile"] = _mla_profile(torch, engine, smi)
+    if not batched:
+      return res
+    engine._cache_pool.clear()
+    engine._graph_pool = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["batched"] = b = await _batched_defaults(torch, node, engine, port, smi, MLA_MODEL, "mla", "gather", spec_and_mixed=False)
+    _no_mla_attention_kernels("batched", b["launches"])
+    b["moe_by_path"] = _check_moe_paths("mla", b["moe_paths"], "bf16", MLA_FFN)
+    log(f"[mla] batched: {b['spec_dispatches']} spec and {b['mixed_dispatches']} mixed dispatches (none, as the reference's MLA server); decode chunks by path {b['chunks_by_path']}; MoE calls by path and T {b['moe_paths']}, each on the H100 table's path; launches {b['launches']}")
+    return res
+  finally:
+    await _daemon_down(node, server, engine)
+
+
+def _mla_graphs_against_eager(torch, engine):
+  """Captured equals uncaptured on the MLA model: the engine's captured
+  128-bucket prefill and greedy blocking / chunked decode (64 tokens)
+  against the uncaptured functions on a fresh 4096-slot latent cache (ids
+  identical, prefill logits within 5e-2 relative L2)."""
+  prompt = np.asarray([DeepseekByteTokenizer().encode(CHECK_PROMPT)], dtype=np.int32)
+  rows = []
+  for rnd, chunks in enumerate(((), (32, 32))):
+    want_logits, want = _eager_solo(torch, engine, prompt, 0.0, 0, chunks)
+    got_logits, got = _captured_solo(torch, engine, f"mla-graphs-{rnd}", prompt, 0.0, 0, chunks)
+    err = _rel_err(got_logits.cuda(), want_logits)
+    rows.append(dict(kind="streaming" if chunks else "blocking", identical=got == want, prefill_rel_err=err))
+    if got != want or not err < 5e-2:
+      raise SystemExit(f"chip_smoke: [mla] captured differs from uncaptured ({rows[-1]}):\n{got}\n{want}")
+  log(f"[mla] captured against uncaptured: {rows}")
+  return rows
+
+
+def _mla_profile(torch, engine, smi):
+  """The captured decode step at position 100 of the 4096-slot latent
+  cache (wall and device ms, ``_replay_ms``; torch.profiler's kernels over
+  its replays), and two parts of it captured alone on the step's shapes
+  (``_captured_ms``): every layer's absorbed op (``mla_absorbed_attention``
+  over the 4,096 latent slots, its f32 copies of the cache and of kv_b
+  included) and the MoE layers' FFN (``_moe_block``, routed and shared
+  experts at T = 1); each one's share of the step's device time."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import _mla_w_kv_b, _moe_block, fused_decode, layer_params
+  from xotorch_support_jetson_tpu_torch.ops.attention import mla_absorbed_attention
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  session = engine._new_session("mla-profile", 1)
+  progs = session.programs
+  n = GRAPH_PROFILE_STEPS
+  try:
+    step = lambda: fused_decode(params, cfg, shard, 65, progs.cache, 100, n, programs=progs)  # noqa: E731
+    wall, device = _replay_ms(torch, step, n)
+    prof = _profile(torch, f"mla decode, {n} captured steps", step, 2)
+    cache = progs.cache
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
+    H = cfg.n_heads
+    q_nope = _rand(torch, (1, 1, H, cfg.qk_nope_head_dim), gen, cfg.dtype)
+    q_pe = _rand(torch, (1, 1, H, cfg.qk_rope_head_dim), gen, cfg.dtype)
+    pos = torch.full((1, 1), 100, dtype=torch.int32, device="cuda")
+    kv_pos = torch.arange(cache["k"].shape[2], dtype=torch.int32, device="cuda")
+    layers = list(layer_params(params))
+
+    def attention():
+      for i, p in enumerate(layers):
+        mla_absorbed_attention(q_nope, q_pe, cache["k"][i, :, :, 0], cache["v"][i, :, :, 0], _mla_w_kv_b(p, cfg.dtype), pos, kv_pos, cfg.v_head_dim)
+
+    attn_device = _captured_ms(torch, attention)
+    x = _rand(torch, (1, 1, cfg.dim), gen, cfg.dtype)
+    moe = [p for p in layers if "w_router" in p]
+
+    def ffn():
+      for p in moe:
+        _moe_block(x, p, cfg)
+
+    ffn_device = _captured_ms(torch, ffn)
+  finally:
+    engine.end_request("mla-profile")
+  res = dict(
+    step_wall_ms=wall, step_device_ms=device, step_profiler_device_ms=prof["device_ms"] / n if prof["device_ms"] else None, absorbed_attention_device_ms=attn_device,
+    absorbed_attention_share=attn_device / device, moe_ffn_device_ms=ffn_device, moe_ffn_share=ffn_device / device, top_device_ops=prof["top_device_ops"],
+  )
+  log(f"[profile] mla decode step at position 100 of {progs.cache['k'].shape[2]} slots (captured, {cfg.n_layers} layers): wall {wall:.3f} ms, device {device:.3f} ms; the absorbed op of the {cfg.n_layers} layers captured alone {attn_device:.3f} ms device (share {res['absorbed_attention_share']:.3f}); the MoE FFN of the {len(moe)} MoE layers (routed + shared) {ffn_device:.3f} ms (share {res['moe_ffn_share']:.3f}) | {smi}")
+  return res
+
+
+async def _mla_int4(torch, tmain, args, port, smi):
+  """DeepSeek-Coder-V2-Lite with ``XOT_TPU_QUANT=int4`` (quantized on the
+  card at load): after a warm-up pair, greedy blocking and streaming ids
+  equal and nothing built or captured, K4 once per
+  two-dimensional quantized product per forward (q, the latent projection
+  and o in every layer, layer 0's MLP, the shared experts of every MoE
+  layer, the head: 6 a layer and the head), no non-kernel int4 product, no
+  attention kernel, the MoE calls on the table's int4 paths."""
+  from xotorch_support_jetson_tpu_torch.ops import int4_matmul as k4
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  node, server, engine, load_s = await _daemon_up(torch, tmain, args, port, "mla", MLA_MODEL, "int4", _mla_cfg_problem, tokenizer=DeepseekByteTokenizer())
+  try:
+    L = engine.cfg.n_layers
+    per_forward = 6 * L + 1
+    lay = engine.params["moe_layers"]
+    if "lm_head_scale" not in engine.params or "wkv_b_scale" not in lay or lay["wkv_a"].shape[-2] * 2 != engine.cfg.dim:
+      raise SystemExit("chip_smoke: [mla] int4: the head or the latent projections are not int4")
+    await _serve_requests(torch, node, engine, port, [("warmup blocking", _mla_chat(False)), ("warmup streaming", _mla_chat(True))])
+    two_dot0, fam0 = k4.CALLS["int4_two_dot"], programs.ledger.snapshot()["families"]
+    _reset_launches()  # ---- the solo int4 MLA path, counted
+    run = await _serve_requests(torch, node, engine, port, [("int4 greedy blocking", _mla_chat(False)), ("int4 greedy streaming", _mla_chat(True))])
+    launches, paths = _kernel_launches(), _moe_path_counts()  # ---- read just after
+    two_dot = k4.CALLS["int4_two_dot"] - two_dot0
+    _nothing_built("int4", fam0, programs.ledger.snapshot()["families"])
+    _no_mla_attention_kernels("int4", launches)
+    if run[0]["tokens"] != run[1]["tokens"]:
+      raise SystemExit(f"chip_smoke: [mla] int4: greedy blocking and streaming differ:\n{run[0]['tokens']}\n{run[1]['tokens']}")
+    by_path = _check_moe_paths("mla", paths, "int4", MLA_FFN)
+    if launches["int4_matmul"] == 0 or launches["int4_matmul"] % per_forward or two_dot:
+      raise SystemExit(f"chip_smoke: [mla] int4: launches {launches} (K4 not a multiple of {per_forward} per forward), {two_dot} int4_two_dot calls")
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(engine.params))
+    res = dict(
+      load_s=load_s, launches=launches, per_forward=per_forward, forwards=launches["int4_matmul"] // per_forward, products=DEEPSEEK_V2_LITE_MATMULS, weight_bytes=weight_bytes,
+      moe_paths=paths, moe_by_path=by_path, tokens=run[0]["tokens"], ttft_s=run[1]["ttft_s"], decode_tok_s=_decode_rate(run[1]),
+    )
+    log(f"[mla] solo int4 weights ({weight_bytes / 1e9:.2f} GB on the card): greedy blocking == streaming ({len(run[0]['tokens'])} tokens), TTFT {res['ttft_s']:.4f} s, decode {res['decode_tok_s']:.1f} tok/s | K4 {launches['int4_matmul']} launches = {res['forwards']} forwards × {per_forward} (wq, wkv_a, wo × {L}; layer 0's w_gate, w_up, w_down; w_shared_gate, w_shared_up, w_shared_down × {L - 1}; the head) | launches {launches} | MoE calls by path and T {paths}, each on the H100 table's int4 path | {smi}")
     return res
   finally:
     await _daemon_down(node, server, engine)
@@ -5548,7 +6206,7 @@ def main() -> int:
   smi = phase_device(torch)
   build_s = timed("build", phase_build)
   kern = timed("kernels", phase_kernels, torch)
-  ckpt, draft_dir, gemma_dir, moe_dir = ROOT / "build" / "smoke_ckpt", ROOT / "build" / "smoke_draft", ROOT / "build" / "smoke_gemma2", ROOT / "build" / "smoke_moe"
+  ckpt, draft_dir, gemma_dir, moe_dir, mla_dir = (ROOT / "build" / name for name in ("smoke_ckpt", "smoke_draft", "smoke_gemma2", "smoke_moe", "smoke_mla"))
   try:
     write_s = write_checkpoint(torch, ckpt)
     log(f"[serving] wrote a random bf16 llama-3.2-1b checkpoint ({sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9:.2f} GB) in {write_s:.1f} s")
@@ -5572,6 +6230,10 @@ def main() -> int:
     log(f"[moe] wrote a random bf16 Qwen3-30B-A3B checkpoint ({sum(f.stat().st_size for f in moe_dir.iterdir()) / 1e9:.2f} GB, full width, {MOE_LAYERS} of 48 layers) in {write_s:.1f} s")
     moe_res = timed("moe", phase_moe, torch, moe_dir, smi)
     shutil.rmtree(moe_dir, ignore_errors=True)
+    write_s = timed("mla checkpoint", write_mla_checkpoint, torch, mla_dir)
+    log(f"[mla] wrote a random bf16 DeepSeek-Coder-V2-Lite checkpoint ({sum(f.stat().st_size for f in mla_dir.iterdir()) / 1e9:.2f} GB, full width, {MLA_LAYERS} of 27 layers) in {write_s:.1f} s")
+    mla_res = timed("mla", phase_mla, torch, mla_dir, smi)
+    shutil.rmtree(mla_dir, ignore_errors=True)
     write_s = timed("gemma2 checkpoint", write_gemma_checkpoint, torch, gemma_dir)
     log(f"[gemma2] wrote a random bf16 gemma-2-9b checkpoint ({sum(f.stat().st_size for f in gemma_dir.iterdir()) / 1e9:.2f} GB, full width, {GEMMA_LAYERS} of 42 layers) in {write_s:.1f} s")
     gemma = timed("gemma2", phase_gemma2, torch, gemma_dir, smi)
@@ -5580,6 +6242,7 @@ def main() -> int:
     shutil.rmtree(draft_dir, ignore_errors=True)
     shutil.rmtree(gemma_dir, ignore_errors=True)
     shutil.rmtree(moe_dir, ignore_errors=True)
+    shutil.rmtree(mla_dir, ignore_errors=True)
   # Launches per kernel on each main path (the tiered multi-turn pass with
   # the tier on is "batched_tiered": K1, K3): the solo bf16 daemon run (K1,
   # K2), the solo quantized runs (K1; K4 under int4 weights), the solo
@@ -5598,7 +6261,10 @@ def main() -> int:
   # counted requests and its batched pass (no K1-K3: the plain route),
   # "gemma2_int4" the int4-weights daemon (K4). The MoE paths: "moe" is the
   # solo bf16 daemon's counted requests (K1) and its batched pass (K1, K3),
-  # "moe_int4" the int4-weights daemon (K1, K4).
+  # "moe_int4" the int4-weights daemon (K1, K4). The MLA paths: "mla" is the
+  # solo bf16 daemon's counted requests and its batched pass (no K1-K3: the
+  # absorbed op, the naive cache-less form and the paged gather are plain),
+  # "mla_int4" the int4-weights daemon (K4).
   bp = batched["passes"]
   paths = {
     "solo": [serving["launches"]], "solo_long_prompt": [serving["long"]["launches"]], "solo_quant": [q["launches"] for q in quant.values()],
@@ -5611,6 +6277,7 @@ def main() -> int:
     "gemma2": [gemma["bf16"]["launches"], gemma["bf16"]["batched"]["launches"]], "gemma2_int4": [gemma["int4"]["launches"]],
     "ring": [ring["launches"]], "ring_daemons": [ring["daemon_launches"]],
     "moe": [moe_res["bf16"]["launches"], moe_res["bf16"]["batched"]["launches"]], "moe_int4": [moe_res["int4"]["launches"]],
+    "mla": [mla_res["bf16"]["launches"], mla_res["bf16"]["batched"]["launches"]], "mla_int4": [mla_res["int4"]["launches"]],
   }
   by_path = {name: {path: sum(x.get(name, 0) for x in runs) for path, runs in paths.items()} for name in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
   for name in ("flash_prefill", "paged_decode"):
@@ -5641,12 +6308,14 @@ def main() -> int:
      "verify_window": {k: kern["paged_window"][0][k] for k in ("B", "W", "starts", "kv", "ms", "w1_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
     # Head row: one MLP projection (in 2048, out 8192) at T=1, solo decode;
     # the per-step sums are in chip_smoke.json's int4_matmul_bound. The
-    # gemma-2-9b rows (T=1) count toward the error too.
-    {**entry("int4_matmul", "xotorch_support_jetson_tpu_torch/csrc/int4_matmul.cu", "xotorch_support_jetson_tpu/ops/pallas_int4.py:36", kern["int4_matmul"] + kern["int4_matmul_gemma2"] + kern["int4_matmul_moe"], k4_head),
+    # gemma-2-9b, Qwen3-30B-A3B and DeepSeek-Coder-V2-Lite rows (T=1) count
+    # toward the error too.
+    {**entry("int4_matmul", "xotorch_support_jetson_tpu_torch/csrc/int4_matmul.cu", "xotorch_support_jetson_tpu/ops/pallas_int4.py:36", kern["int4_matmul"] + kern["int4_matmul_gemma2"] + kern["int4_matmul_moe"] + kern["int4_matmul_mla"], k4_head),
+     "mla_rows": [{k: r[k] for k in ("weight", "T", "d_in", "d_out", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["int4_matmul_mla"]],
      "moe_rows": [{k: r[k] for k in ("weight", "T", "d_in", "d_out", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["int4_matmul_moe"]],
      "gemma2_rows": [{k: r[k] for k in ("weight", "T", "d_in", "d_out", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["int4_matmul_gemma2"]]},
   ]}
-  record = dict(card=smi, phase_s=phase_s, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, processes=processes, ring=ring, moe=moe_res, gemma2=gemma, summary=kernels_line)
+  record = dict(card=smi, phase_s=phase_s, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, processes=processes, ring=ring, moe=moe_res, mla=mla_res, gemma2=gemma, summary=kernels_line)
   out = ROOT / "chiprun_out"
   out.mkdir(exist_ok=True)
   (out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=float))

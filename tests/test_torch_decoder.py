@@ -116,10 +116,14 @@ def test_fused_generate_stops_at_eos():
 
 
 def test_unported_configs_refuse_at_load():
-  # MoE checkpoints load (tests/test_torch_moe.py); MLA and vision towers still refuse.
+  # MoE (tests/test_torch_moe.py) and MLA (tests/test_torch_mla.py)
+  # checkpoints load; vision towers still refuse.
   moe = tconfig.config_from_hf({"model_type": "mixtral", "vocab_size": 8, "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2, "intermediate_size": 8, "num_local_experts": 4})
   assert (moe.family, moe.n_experts, moe.moe_hidden_dim, moe.norm_topk_prob) == ("mixtral", 4, 8, True)
-  with pytest.raises(NotImplementedError, match="latent attention"):
-    tconfig.config_from_hf({"model_type": "deepseek_v2", "vocab_size": 8, "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2, "intermediate_size": 8, "kv_lora_rank": 4})
+  mla = tconfig.config_from_hf({
+    "model_type": "deepseek_v2", "vocab_size": 8, "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2, "intermediate_size": 8, "kv_lora_rank": 4,
+    "qk_nope_head_dim": 4, "qk_rope_head_dim": 2, "v_head_dim": 4,
+  })
+  assert (mla.family, mla.is_mla, mla.kv_lora_rank, mla.q_lora_rank, mla.qk_head_dim, mla.cache_k_dim, mla.cache_v_dim) == ("deepseek-v2", True, 4, 0, 6, 4, 2)
   with pytest.raises(NotImplementedError, match="vision"):
     tconfig.config_from_hf({"model_type": "llava", "text_config": {}, "vision_config": {}})

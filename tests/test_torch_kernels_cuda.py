@@ -469,8 +469,10 @@ def test_kv_tier_round_trip_is_byte_identical_and_k3_reads_it_alike(dev, kv):
 
   import chip_smoke
   from xotorch_support_jetson_tpu_torch.inference.batch_ops import DecoderBatchOps
+  from xotorch_support_jetson_tpu_torch.models.config import tiny_test_config
 
-  cfg = types.SimpleNamespace(head_dim=64, n_heads=32, n_kv_heads=8, dtype=torch.bfloat16)
+  # llama-3.2-1b's attention geometry; the pool reads the config's cache geometry.
+  cfg = tiny_test_config(dim=2048, n_layers=4, n_heads=32, n_kv_heads=8, head_dim=64, dtype=torch.bfloat16)
   ops = DecoderBatchOps(types.SimpleNamespace(device=dev))
   res = chip_smoke.tier_round_trip(torch, ops, cfg, 4, kv, n=16)
   assert all(res["leaves_equal"].values()) and res["host_entries_equal"] and res["host_entries_pageable"]

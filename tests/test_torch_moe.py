@@ -20,7 +20,7 @@ at f32.
   dispatches equal the JAX server's); ``params_from_jax`` on an MoE tree.
 - The ring budget counts the expert stacks as the reference's planner does,
   and a ring too small for an MoE model answers 507.
-- MLA and vision checkpoints are still refused at load.
+- Vision checkpoints are still refused at load (an MLA checkpoint parses).
 """
 
 import asyncio
@@ -299,8 +299,8 @@ def test_loaded_leaves_match_jax(models, family):
 def test_params_from_jax_refuses_unknown_moe_leaves(models):
   jc, tc, js, ts, jp, tp = models["qwen3-moe"]
   tree = jax.tree.map(np.asarray, jp)
-  tree["moe_layers"]["wkv_a"] = tree["moe_layers"]["wq"]
-  with pytest.raises(NotImplementedError, match="moe_layers/wkv_a"):
+  tree["moe_layers"]["wq_lora_a"] = tree["moe_layers"]["wq"]  # a LoRA leaf: not ported (MLA's wkv_a is known since it was)
+  with pytest.raises(NotImplementedError, match="moe_layers/wq_lora_a"):
     params_from_jax(tree, tc, ts)
 
 
@@ -312,8 +312,12 @@ def test_registry_moe_cards_equal_the_reference():
 
 
 def test_mla_and_vision_checkpoints_still_refused():
-  with pytest.raises(NotImplementedError, match="latent attention"):
-    tconfig.config_from_hf({"model_type": "deepseek_v2", "vocab_size": 8, "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2, "intermediate_size": 8, "kv_lora_rank": 4, "n_routed_experts": 4})
+  # An MLA MoE checkpoint now parses with its MLA fields (tests/test_torch_mla.py); vision still refuses.
+  mla = tconfig.config_from_hf({
+    "model_type": "deepseek_v2", "vocab_size": 8, "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2, "intermediate_size": 8, "kv_lora_rank": 4,
+    "n_routed_experts": 4, "qk_nope_head_dim": 4, "qk_rope_head_dim": 2, "v_head_dim": 4,
+  })
+  assert (mla.is_mla, mla.n_experts, mla.kv_lora_rank, mla.qk_rope_head_dim, mla.v_head_dim, mla.cache_kv_heads) == (True, 4, 4, 2, 4, 1)
   with pytest.raises(NotImplementedError, match="vision"):
     tconfig.config_from_hf({"model_type": "llava", "text_config": {}, "vision_config": {}})
 

@@ -179,9 +179,10 @@ class DecoderBatchOps:
     )
 
   def mixed_tick_supported(self) -> bool:
-    """The mixed prefill+decode program runs on this backend (every model
-    the port loads is a dense decoder)."""
-    return True
+    """The mixed prefill+decode program runs on this backend, except for an
+    MLA model, which stays on the alternating schedule as in the
+    reference."""
+    return not self.engine.cfg.is_mla
 
   def mixed_paged_batch_decode(self, token, pool, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, key, pf_tokens, pf_bt, pf_prefix, pf_end):
     """``paged_batch_decode`` with one admission's prefill slice fused in

@@ -540,7 +540,7 @@ class BatchedServer:
     from ..models.decoder import kv_quant_mode
 
     eng = self.engine
-    kv_quant = kv_quant_mode()
+    kv_quant = kv_quant_mode(eng.cfg)
     self.max_seq = min(eng.max_seq_len, eng.cfg.max_seq_len)
     ps = self.page_size
     self.pages_per_row = pages_to_cover(self.max_seq, ps)
@@ -550,7 +550,7 @@ class BatchedServer:
     per_dense = self.n_slots * self.pages_per_row
     if kv_quant:
       n_layers = eng._effective_shard.n_shard_layers
-      dense_budget = n_layers * per_dense * ps * eng.cfg.n_kv_heads * 2 * eng.cfg.head_dim * 2
+      dense_budget = n_layers * per_dense * ps * eng.cfg.cache_kv_heads * (eng.cfg.cache_k_dim + eng.cfg.cache_v_dim) * 2
       per_dense = dense_budget // max(kv_cache_bytes(eng.cfg, n_layers, ps, kv_quant), 1)
     n_pages = int(os.getenv("XOT_TPU_BATCH_PAGES", "0")) or per_dense + 1
     self.allocator = PageAllocator(n_pages, ps)
@@ -567,14 +567,15 @@ class BatchedServer:
     # Batched speculation verdict, the reference's parse: only "0" and
     # "false" turn it off. The port offers the n-gram proposer only; it
     # holds no device state, so the draft gauges read 0 and the page budget
-    # stays whole.
+    # stays whole. An MLA model's paged server does not speculate, as the
+    # reference's does not (no verify window over latent pages).
     want = self._spec_batch_arg if self._spec_batch_arg is not None else os.getenv("XOT_TPU_SPEC_BATCH", "auto") not in ("0", "false")
     proposers = []
     if self.ops.spec_supported():
       proposers.append("model")
     if ngram_enabled() and self.ops.spec_ngram_supported():
       proposers.append("ngram")
-    self.spec = bool(want) and bool(proposers)
+    self.spec = bool(want) and bool(proposers) and not eng.cfg.is_mla
     self.spec_proposers = tuple(proposers) if self.spec else ()
     if self.spec:
       for name in ("kv_draft_bytes", "kv_draft_slots", "kv_draft_pages_equivalent"):

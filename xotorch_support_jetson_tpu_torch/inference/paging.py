@@ -22,11 +22,12 @@ import numpy as np
 
 
 def kv_cache_bytes(cfg, n_layers: int, n_tokens: int, quant: str = "") -> int:
-  """Device bytes of ``n_tokens`` cached positions under ``quant``: int4
-  packs two code nibbles per byte, and both quantized modes pay one f32
-  scale per (token, head) per side."""
-  heads = cfg.n_kv_heads
-  per_side = 2 * cfg.head_dim  # k and v
+  """Device bytes of ``n_tokens`` cached positions under ``quant``, from
+  the config's cache geometry (an MLA model's latent and rope channel):
+  int4 packs two code nibbles per byte, and both quantized modes pay one
+  f32 scale per (token, head) per side."""
+  heads = cfg.cache_kv_heads
+  per_side = cfg.cache_k_dim + cfg.cache_v_dim
   if quant == "int4":
     per_token = heads * (per_side // 2 + 2 * 4)
   elif quant:

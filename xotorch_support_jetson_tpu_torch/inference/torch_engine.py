@@ -466,7 +466,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
     draft's own cache and programs (``SoloPrograms.draft``): the
     speculative rounds' graphs hold both addresses. The key names the draft
     (its config, shard, KV mode and parameters)."""
-    kv = kv_quant_mode()
+    kv = kv_quant_mode(self.cfg)
     eff = self._effective_shard
     if not (eff.is_first_layer and eff.is_last_layer):
       # A ring node's partial shard: its own programs, no draft.

@@ -1,15 +1,16 @@
 """Model configuration for the decoder families (llama, qwen2/qwen3,
-mistral, phi3, gemma2, and the mixture-of-experts mixtral, qwen2-moe and
-qwen3-moe) and the HF ``config.json`` → internal mapping.
+mistral, phi3, gemma2, the mixture-of-experts mixtral, qwen2-moe and
+qwen3-moe, and deepseek-v2/v3 with multi-head latent attention) and the HF
+``config.json`` → internal mapping.
 
 Counterpart of the reference's ``models/config.py``: llama3 / yarn /
 longrope rope scaling, explicit ``head_dim``, qkv bias, qk_norm, tied
 embeddings, gemma2's variations (pre+post norms, GeGLU, softcaps, the
 ``query_pre_attn_scalar`` scale, the sliding window on even layers, the
-sqrt(dim) embed scale) and the MoE key space (routed experts, shared
-experts, the routing mode; ops/moe.py). ``dtype`` is a torch dtype.
-Configurations the port does not run yet (MLA, vision towers) raise
-``NotImplementedError`` at load.
+sqrt(dim) embed scale), the MoE key space (routed experts, shared
+experts, the routing mode; ops/moe.py) and MLA's latent ranks and head
+dims. ``dtype`` is a torch dtype. Configurations the port does not run yet
+(vision towers) raise ``NotImplementedError`` at load.
 """
 
 from __future__ import annotations
@@ -110,6 +111,16 @@ class ModelConfig:
   n_group: int = 1
   topk_group: int = 1
   group_mode: str = "none"  # "none" | "max" | "top2sum"
+  # --- MLA (multi-head latent attention, deepseek-v2/v3). kv_lora_rank > 0
+  # switches the attention block to MLA: queries optionally LoRA-compressed
+  # (q_lora_rank, 0 ⇒ direct wq), KV compressed to a shared latent plus a
+  # small MQA rope channel. Rope applies only to the rope parts, with
+  # deepseek's interleaved pairing (ops/rope.py apply_rope_interleaved).
+  q_lora_rank: int = 0
+  kv_lora_rank: int = 0
+  qk_nope_head_dim: int = 0
+  qk_rope_head_dim: int = 0
+  v_head_dim: int = 0
 
   def __post_init__(self):
     if self.head_dim == 0:
@@ -125,6 +136,31 @@ class ModelConfig:
     override) — the one gate for the attention kernels K1–K3, which
     implement none of them."""
     return not self.attn_logit_softcap and not self.sliding_window and not self.query_pre_attn_scalar
+
+  @property
+  def is_mla(self) -> bool:
+    return self.kv_lora_rank > 0
+
+  @property
+  def qk_head_dim(self) -> int:
+    return self.qk_nope_head_dim + self.qk_rope_head_dim if self.is_mla else self.head_dim
+
+  # KV-cache geometry (models/decoder.py init_kv_cache, ops/paged.py
+  # init_paged_pool): MLA caches the latent — the shared kv latent in the
+  # "k" buffer, the rope channel in the "v" buffer, one head entry (the
+  # kv_b up-projection is absorbed into attention, ops/attention.py
+  # mla_absorbed_attention). Dense models cache GQA heads.
+  @property
+  def cache_kv_heads(self) -> int:
+    return 1 if self.is_mla else self.n_kv_heads
+
+  @property
+  def cache_k_dim(self) -> int:
+    return self.kv_lora_rank if self.is_mla else self.head_dim
+
+  @property
+  def cache_v_dim(self) -> int:
+    return self.qk_rope_head_dim if self.is_mla else self.head_dim
 
   @property
   def q_dim(self) -> int:
@@ -157,8 +193,6 @@ def _refuse_unported(hf: dict, family: str) -> None:
   reasons = []
   if "text_config" in hf or hf.get("vision_config"):
     reasons.append("vision-language checkpoints (llava towers)")
-  if hf.get("kv_lora_rank"):
-    reasons.append("multi-head latent attention (MLA)")
   if reasons:
     raise NotImplementedError(
       f"the PyTorch port does not run {', '.join(reasons)} yet (model family {family!r}); "
@@ -278,6 +312,15 @@ def config_from_hf(hf: dict, dtype=None) -> ModelConfig:
       sliding_window=int(hf.get("sliding_window") or 0),
       embed_scale=math.sqrt(float(hf["hidden_size"])),
     )
+  mla: dict[str, Any] = {}
+  if hf.get("kv_lora_rank"):
+    mla = dict(
+      q_lora_rank=int(hf.get("q_lora_rank") or 0),
+      kv_lora_rank=int(hf["kv_lora_rank"]),
+      qk_nope_head_dim=int(hf["qk_nope_head_dim"]),
+      qk_rope_head_dim=int(hf["qk_rope_head_dim"]),
+      v_head_dim=int(hf["v_head_dim"]),
+    )
   n_heads = int(hf["num_attention_heads"])
   return ModelConfig(
     vocab_size=int(hf["vocab_size"]),
@@ -299,6 +342,7 @@ def config_from_hf(hf: dict, dtype=None) -> ModelConfig:
     dtype=dtype or _DTYPES.get(torch_dtype, torch.bfloat16),
     eos_token_ids=tuple(int(e) for e in eos),
     **_moe_fields(hf, family),
+    **mla,
     **gemma,
   )
 

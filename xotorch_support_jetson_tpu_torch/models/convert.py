@@ -7,7 +7,9 @@ the tests run both packages on identical weights. A weight-quantized tree
 (``quantize_params``) carries across as it is: int8 codes (packed int4
 too) stay int8 and the ``<name>_scale`` leaves stay f32. An MoE tree's
 ``moe_layers`` stack comes across with its router, experts and shared
-experts; ``router_bias`` stays f32. The input is plain numpy
+experts; ``router_bias`` stays f32. An MLA (deepseek) stack carries its
+latent projections (``wq`` or ``wq_a`` / ``q_a_norm`` / ``wq_b``,
+``wkv_a``, ``kv_a_norm``, ``wkv_b``) and their scales. The input is plain numpy
 (bf16 arrives as an ``ml_dtypes`` array and is reinterpreted bit for bit),
 so this module never imports JAX.
 """
@@ -25,7 +27,11 @@ from .loader import check_shard_params
 _QUANT_LAYER_KEYS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
 _QUANT_MOE_KEYS = {"w_experts_gate", "w_experts_up", "w_experts_down", "w_shared_gate", "w_shared_up", "w_shared_down"}
 _NORM_KEYS = {"attn_norm", "post_attn_norm", "mlp_norm", "post_mlp_norm", "final_norm"}
-_ATTN_KEYS = {*_NORM_KEYS - {"final_norm"}, "bq", "bk", "bv", "q_norm", "k_norm", "is_sliding", *(f"{k}_scale" for k in ("wq", "wk", "wv", "wo"))}
+_MLA_KEYS = {"wq_a", "wq_b", "wkv_a", "wkv_b"}
+_ATTN_KEYS = {
+  *_NORM_KEYS - {"final_norm"}, "bq", "bk", "bv", "q_norm", "k_norm", "is_sliding", "q_a_norm", "kv_a_norm", *_MLA_KEYS,
+  *(f"{k}_scale" for k in ("wq", "wk", "wv", "wo", *_MLA_KEYS)),
+}
 _STACK_KEYS = {
   "layers": {*_ATTN_KEYS, *_QUANT_LAYER_KEYS, *(f"{k}_scale" for k in _QUANT_LAYER_KEYS)},
   "moe_layers": {*_ATTN_KEYS, "wq", "wk", "wv", "wo", "w_router", "router_bias", "w_shared_expert_gate", *_QUANT_MOE_KEYS, *(f"{k}_scale" for k in _QUANT_MOE_KEYS)},

@@ -1,12 +1,16 @@
-"""The decoder: llama 3.x, qwen-2.5/3, mistral, phi-family, gemma2 and the
-mixture-of-experts mixtral, qwen2-moe and qwen3-moe checkpoints.
-Counterpart of the reference's ``models/decoder.py`` (all but MLA, LoRA
-and the vision tower). gemma2's variations ride on the config
-(``_attn_opts``: the scale override, the score softcap and the per-layer
-sliding window, whose flag is the ``layers/is_sliding`` leaf; the post
-norms, the GeGLU MLP, the embed scale and the final softcap); its
-attention takes the plain route everywhere, as the reference's does:
-K1–K3 implement none of them.
+"""The decoder: llama 3.x, qwen-2.5/3, mistral, phi-family, gemma2, the
+mixture-of-experts mixtral, qwen2-moe and qwen3-moe checkpoints, and
+deepseek-v2/v3 with multi-head latent attention (MLA). Counterpart of the
+reference's ``models/decoder.py`` (all but LoRA and the vision tower). An
+MLA layer caches only its kv latent and rope channel and attends through
+weight absorption (``ops/attention.py mla_absorbed_attention``); its
+cache-less forward runs the naive per-head K/V through ``gqa_attention``,
+and K1–K3 never run on it, as in the reference. gemma2's variations ride
+on the config (``_attn_opts``: the scale override, the score softcap and
+the per-layer sliding window, whose flag is the ``layers/is_sliding``
+leaf; the post norms, the GeGLU MLP, the embed scale and the final
+softcap); its attention takes the plain route everywhere, as the
+reference's does: K1–K3 implement none of them.
 
 Parameters are a plain dict of tensors in the reference's layout: layer
 leaves stacked on a leading [L] axis (``layers/wq`` [L, D, Hq·hd], used as
@@ -50,7 +54,7 @@ import torch
 from ..inference.shard import Shard
 from ..ops.attention import gqa_attention
 from ..ops.norm import rms_norm
-from ..ops.rope import apply_rope, rope_attention_factor, rope_inv_freq
+from ..ops.rope import apply_rope, apply_rope_interleaved, rope_attention_factor, rope_inv_freq
 from ..utils.programs import Graph, ledger, tracked
 from .config import ModelConfig
 from .quantize import qdot
@@ -79,13 +83,15 @@ def _mm(x: torch.Tensor, p: Params, name: str, compute: str = "") -> torch.Tenso
 # ---------------------------------------------------------------- KV cache
 
 
-def kv_quant_mode(quant: str | None = None) -> str:
+def kv_quant_mode(cfg: ModelConfig, quant: str | None = None) -> str:
   """KV-cache quantization: explicit arg wins, else ``XOT_TPU_KV_QUANT``
-  ("", "int8", or "int4": two code nibbles per byte along the head dim)."""
+  ("", "int8", or "int4": two code nibbles per byte along the head dim).
+  An MLA model's latent cache stays in the model dtype whatever is asked:
+  it reconstructs both k and v, so quantizing it is all risk."""
   mode = os.getenv("XOT_TPU_KV_QUANT", "") if quant is None else quant
   if mode not in ("", "int8", "int4"):
     raise ValueError(f"XOT_TPU_KV_QUANT supports '', 'int8' or 'int4'; got {mode!r}")
-  return mode
+  return "" if cfg.is_mla else mode
 
 
 def pool_kv_quant(pool: Params, cfg: ModelConfig) -> str:
@@ -93,31 +99,35 @@ def pool_kv_quant(pool: Params, cfg: ModelConfig) -> str:
   "int4"): int4 code leaves carry a halved trailing axis."""
   if "k_scale" not in pool:
     return ""
-  return "int4" if pool["k"].shape[-1] * 2 == cfg.head_dim else "int8"
+  return "int4" if pool["k"].shape[-1] * 2 == cfg.cache_k_dim else "int8"
 
 
 def init_kv_cache(cfg: ModelConfig, n_shard_layers: int, batch: int, max_seq: int, dtype=None, quant: str | None = None, device=None) -> Params:
-  """Slot-indexed KV cache: slot j holds the KV of absolute position j;
-  ``quant="int8"`` stores int8 codes plus per-(token, head) f32 scales,
-  ``quant="int4"`` packed int4 codes (halved last axis) with the same
-  scales."""
-  mode = kv_quant_mode(quant)
-  hd = cfg.head_dim
+  """Slot-indexed KV cache: slot j holds the KV of absolute position j.
+  Geometry from the config: GQA heads for a dense model; for MLA "k" holds
+  the kv latent (``kv_lora_rank`` wide) and "v" the rope channel
+  (``qk_rope_head_dim``), one head entry. ``quant="int8"`` stores int8
+  codes plus per-(token, head) f32 scales, ``quant="int4"`` packed int4
+  codes (halved last axis) with the same scales (dense models only:
+  ``kv_quant_mode``)."""
+  mode = kv_quant_mode(cfg, quant)
+  kd, vd = cfg.cache_k_dim, cfg.cache_v_dim
   if mode == "int4":
-    if hd % 2:
-      raise ValueError(f"int4 KV needs an even head dim; got {hd}")
-    hd //= 2
-  shape = (n_shard_layers, batch, max_seq, cfg.n_kv_heads, hd)
+    if kd % 2 or vd % 2:
+      raise ValueError(f"int4 KV needs even cache dims; got k={kd} v={vd}")
+    kd, vd = kd // 2, vd // 2
+  k_shape = (n_shard_layers, batch, max_seq, cfg.cache_kv_heads, kd)
+  v_shape = (n_shard_layers, batch, max_seq, cfg.cache_kv_heads, vd)
   if mode:
-    scale_shape = shape[:-1] + (1,)
+    scale_shape = k_shape[:-1] + (1,)
     return {
-      "k": torch.zeros(shape, dtype=torch.int8, device=device),
-      "v": torch.zeros(shape, dtype=torch.int8, device=device),
+      "k": torch.zeros(k_shape, dtype=torch.int8, device=device),
+      "v": torch.zeros(v_shape, dtype=torch.int8, device=device),
       "k_scale": torch.ones(scale_shape, dtype=torch.float32, device=device),
       "v_scale": torch.ones(scale_shape, dtype=torch.float32, device=device),
     }
   dtype = dtype or cfg.dtype
-  return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
+  return {"k": torch.zeros(k_shape, dtype=dtype, device=device), "v": torch.zeros(v_shape, dtype=dtype, device=device)}
 
 
 def _write_cache(cache: torch.Tensor, new: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
@@ -156,6 +166,17 @@ def init_shard_params(cfg: ModelConfig, shard: Shard, generator: torch.Generator
     return torch.ones(shape, dtype=dtype, device=device)
 
   def attn_leaves(L: int, start: int) -> dict:
+    if cfg.is_mla:
+      H, qk, vh, rank = cfg.n_heads, cfg.qk_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+      leaves = {
+        "attn_norm": ones(L, D), "wkv_a": w(L, D, rank + cfg.qk_rope_head_dim), "kv_a_norm": ones(L, rank),
+        "wkv_b": w(L, rank, H * (cfg.qk_nope_head_dim + vh)), "wo": w(L, H * vh, D), "mlp_norm": ones(L, D),
+      }
+      if cfg.q_lora_rank:
+        leaves.update(wq_a=w(L, D, cfg.q_lora_rank), q_a_norm=ones(L, cfg.q_lora_rank), wq_b=w(L, cfg.q_lora_rank, H * qk))
+      else:
+        leaves["wq"] = w(L, D, H * qk)
+      return leaves
     leaves = {"attn_norm": ones(L, D), "wq": w(L, D, Qd), "wk": w(L, D, Kd), "wv": w(L, D, Kd), "wo": w(L, Qd, D), "mlp_norm": ones(L, D)}
     if cfg.qkv_bias:
       leaves.update(bq=torch.zeros(L, Qd, dtype=dtype, device=device), bk=torch.zeros(L, Kd, dtype=dtype, device=device), bv=torch.zeros(L, Kd, dtype=dtype, device=device))
@@ -198,6 +219,70 @@ def init_shard_params(cfg: ModelConfig, shard: Shard, generator: torch.Generator
 
 
 # ---------------------------------------------------------------- forward
+
+
+# HF deepseek fixes the latent norms' eps at 1e-6 whatever rms_norm_eps says.
+_MLA_NORM_EPS = 1e-6
+
+
+def _mla_latents(x, p, cfg: ModelConfig, positions, inv_freq):
+  """MLA projections (deepseek-v2/v3): queries through wq_a → q_a_norm →
+  wq_b (or a direct wq when ``q_lora_rank`` is 0), the shared kv latent and
+  one MQA rope channel; interleaved rope on the rope parts only. Returns
+  (q_nope [B,S,H,nope], q_pe [B,S,H,rope], c_kv [B,S,rank] normed, k_pe
+  [B,S,rope])."""
+  B, S, _ = x.shape
+  H, nope, rope = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+  if "wq_a" in p:
+    q = _mm(rms_norm(_mm(x, p, "wq_a", cfg.quant_compute), p["q_a_norm"], _MLA_NORM_EPS), p, "wq_b", cfg.quant_compute)
+  else:
+    q = _mm(x, p, "wq", cfg.quant_compute)
+  q = q.reshape(B, S, H, nope + rope)
+  q_nope, q_pe = q[..., :nope], q[..., nope:]
+  kv_a = _mm(x, p, "wkv_a", cfg.quant_compute)  # [B, S, rank + rope]
+  c_kv = rms_norm(kv_a[..., : cfg.kv_lora_rank], p["kv_a_norm"], _MLA_NORM_EPS)
+  m = rope_attention_factor(cfg)
+  q_pe = apply_rope_interleaved(q_pe, positions, inv_freq, m)
+  k_pe = apply_rope_interleaved(kv_a[..., cfg.kv_lora_rank :][:, :, None, :], positions, inv_freq, m)[:, :, 0, :]
+  return q_nope, q_pe, c_kv, k_pe
+
+
+def _mla_w_kv_b(p, dtype) -> torch.Tensor:
+  """The kv_b up-projection [rank, H·(nope + v)], dequantized whole when
+  quantized (the absorbed op needs the matrix, not a product)."""
+  w = p["wkv_b"]
+  if "wkv_b_scale" in p:
+    from .quantize import dequantize_leaf
+
+    w = dequantize_leaf(w, p["wkv_b_scale"], p["kv_a_norm"].shape[-1], dtype)
+  return w
+
+
+def _mla_qkv(x, p, cfg: ModelConfig, positions, inv_freq):
+  """Naive (non-absorbed) MLA q/k/v for the cache-less forward: q/k
+  [B,S,H,nope+rope], v [B,S,H,v_head_dim]."""
+  B, S, _ = x.shape
+  H, nope, rope = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+  q_nope, q_pe, c_kv, k_pe = _mla_latents(x, p, cfg, positions, inv_freq)
+  kv = (c_kv @ _mla_w_kv_b(p, x.dtype)).reshape(B, S, H, nope + cfg.v_head_dim)
+  q = torch.cat([q_nope, q_pe], dim=-1)
+  k = torch.cat([kv[..., :nope], k_pe[:, :, None, :].expand(B, S, H, rope)], dim=-1)
+  return q, k, kv[..., nope:]
+
+
+def _mla_attention(x, p, kv, positions, kv_positions, inv_freq, cfg: ModelConfig) -> torch.Tensor:
+  """MLA against the dense slot cache: write the latent and the rope
+  channel (in place), then the absorbed op over every slot, masked by
+  position — the reference's cached MLA branch."""
+  from ..ops.attention import mla_absorbed_attention
+
+  q_nope, q_pe, c_kv, k_pe = _mla_latents(x, p, cfg, positions, inv_freq)
+  start = positions[:, 0]
+  _write_cache(kv["k"], c_kv[:, :, None, :], start)
+  _write_cache(kv["v"], k_pe[:, :, None, :], start)
+  return mla_absorbed_attention(
+    q_nope, q_pe, kv["k"][:, :, 0, :].to(x.dtype), kv["v"][:, :, 0, :].to(x.dtype), _mla_w_kv_b(p, x.dtype), positions, kv_positions, cfg.v_head_dim,
+  )
 
 
 def _dense_qkv(x, p, cfg: ModelConfig, positions, inv_freq):
@@ -339,8 +424,17 @@ def _causal_attention(q, k, v, positions, cfg: ModelConfig, opts: dict):
 
 def _layer_step(h, p, kv, positions, kv_positions, inv_freq, cfg: ModelConfig):
   """One decoder layer. h [B,S,D] → h. ``kv`` is this layer's cache dict
-  (views into the session cache, updated in place) or None (cache-less)."""
+  (views into the session cache, updated in place) or None (cache-less).
+  MLA: the absorbed op against the latent cache, or, cache-less, the naive
+  per-head K/V through the plain ``gqa_attention`` (never K1)."""
   x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
+  if "wkv_a" in p:
+    if kv is not None:
+      attn = _mla_attention(x, p, kv, positions, kv_positions, inv_freq, cfg)
+    else:
+      q, k, v = _mla_qkv(x, p, cfg, positions, inv_freq)
+      attn = gqa_attention(q, k, v, positions, positions[0])
+    return _mlp_block(h + _attn_out(attn, p, cfg), p, cfg)
   q, k, v = _dense_qkv(x, p, cfg, positions, inv_freq)
   opts = _attn_opts(cfg, p.get("is_sliding"))
   if kv is not None:
@@ -1220,11 +1314,18 @@ def fused_speculative_chunk(params_t, cfg: ModelConfig, shard: Shard, params_d, 
 # onto fixed-size pages of one shared pool through block tables [B, mp]. The
 # pool is updated IN PLACE. Rows without a request keep their table zeroed,
 # so their writes land in the reserved trash page 0. Dense and MoE layer
-# stacks: the port loads no MLA checkpoint and has no LoRA yet. gemma2 attends
-# through the gather route (K3 has no softcap or window), as the
-# reference's layer steps gate on ``cfg.plain_attention``.
+# stacks (the port has no LoRA yet). gemma2 attends through the gather route
+# (K3 has no softcap or window), as the reference's layer steps gate on
+# ``cfg.plain_attention``; MLA pages hold the latent and the rope channel
+# and decode through ``paged_mla_attention_ref``. MLA takes no mixed tick,
+# no verify window and no batched speculation, as in the reference.
 
 _DENSE_TOP_KEYS = frozenset({*STACKS, "embed", "final_norm", "lm_head", "lm_head_scale"})
+
+
+def _no_mla(cfg: ModelConfig, what: str) -> None:
+  if cfg.is_mla:
+    raise ValueError(f"{what} does not support MLA models")
 
 
 def _dense_full_model(params: Params, shard: Shard, what: str) -> None:
@@ -1289,12 +1390,21 @@ def _paged_layer_step(h, p, pool_l, block_tables, positions, inv_freq, cfg: Mode
 
   ``pool_l`` is this layer's page dict: {"k", "v"} [P, Hkv, ps, kd]
   (+ "k_scale"/"v_scale" [P, Hkv, ps, 1] for int8/int4), written in place;
-  positions [B, 1]."""
-  from ..ops.paged import paged_decode_attention, paged_gqa_attention_ref, write_token_kv
+  positions [B, 1]. MLA pages hold the latent ("k") and the rope channel
+  ("v"), one head entry."""
+  from ..ops.paged import paged_decode_attention, paged_gqa_attention_ref, paged_mla_attention_ref, write_token_kv
 
   x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
   pos = positions[:, 0]
   lengths = pos + 1  # valid KV slots incl. the token written below
+  if "wkv_a" in p:
+    q_nope, q_pe, c_kv, k_pe = _mla_latents(x, p, cfg, positions, inv_freq)
+    write_token_kv(pool_l["k"], c_kv[:, 0][:, None, :], block_tables, pos, page_size)
+    write_token_kv(pool_l["v"], k_pe[:, 0][:, None, :], block_tables, pos, page_size)
+    attn = paged_mla_attention_ref(
+      q_nope, q_pe, pool_l["k"].to(h.dtype), pool_l["v"].to(h.dtype), block_tables, lengths, _mla_w_kv_b(p, h.dtype), cfg.v_head_dim, page_size,
+    )
+    return _mlp_block(h + _attn_out(attn, p, cfg), p, cfg)
   q, k, v = _dense_qkv(x, p, cfg, positions, inv_freq)
   scales = {}
   if "k_scale" in pool_l:  # int8/int4 KV pages (models/quantize.py)
@@ -1421,13 +1531,14 @@ def fused_mixed_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token
   ``pf_prefix``/``pf_end`` bounding the slice's absolute positions
   (``pf_prefix + S_pad <= mp·page_size``). Returns the plain contract
   (tokens [B, n_steps], next_token [B, 1], positions [B], pool updated in
-  place): the slice emits nothing, its pages advance. A partial shard and
-  any parameter set but the dense decoder's are refused (an MLA
-  checkpoint is refused earlier, at load: models/config.py).
-  ``use_kernel=None`` resolves as in ``fused_paged_batch_decode``."""
+  place): the slice emits nothing, its pages advance. A partial shard,
+  an MLA model (as in the reference) and any parameter set but the
+  decoder's are refused. ``use_kernel=None`` resolves as in
+  ``fused_paged_batch_decode``."""
   from ..ops.paged import check_paged_kernel, paged_kernel_supported
 
   _dense_full_model(params, shard, "fused_mixed_paged_batch_decode")
+  _no_mla(cfg, "fused_mixed_paged_batch_decode")
   dev = token.device
   if use_kernel is None:
     check_paged_kernel(cfg, dev)
@@ -1502,6 +1613,7 @@ def paged_window_forward(params, cfg: ModelConfig, shard: Shard, tokens, positio
   here when the caller has not made it once for the chunk."""
   from ..ops.paged import window_block_tables
 
+  _no_mla(cfg, "paged_window_forward")
   if use_kernel and bt_window is None:
     bt_window = window_block_tables(block_tables, tokens.shape[1])
   h = embed_tokens(params, cfg, tokens)
@@ -1628,9 +1740,11 @@ def fused_spec_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, params
 
   Draft-free only: ``params_d`` must be None (the draft-model proposer and
   its dense draft cache are not ported; ``cache_d`` passes through), and
-  so must ``adapter_ids`` (no LoRA yet)."""
+  so must ``adapter_ids`` (no LoRA yet). An MLA model is refused, as in
+  the reference (its paged server runs no batched speculation)."""
   from ..ops.paged import check_paged_kernel, paged_kernel_supported
 
+  _no_mla(cfg, "fused_spec_paged_batch_decode")
   generator, top_ks, active, gammas = _spec_chunk_args("fused_spec_paged_batch_decode", params, shard, params_d, adapter_ids, token, active, gammas, top_k, gamma_max, generator)
   dev = token.device
   if use_kernel is None:
@@ -1854,6 +1968,7 @@ class BatchedPrograms:
 
   def mixed(self, token, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, key: int, pf_tokens, pf_bt, pf_prefix, pf_end) -> tuple:
     """``fused_mixed_paged_batch_decode``'s contract, as ``decode``."""
+    _no_mla(self.cfg, "fused_mixed_paged_batch_decode")
     return self._chunk("decode.mixed_paged_batch", (token, block_tables, positions, active, temps, top_ks), n_steps, k_max, page_size, key, (pf_tokens, pf_bt, pf_prefix, pf_end))
 
   def _chunk(self, family: str, rows: tuple, n_steps: int, k_max: int, page_size: int, key: int, pf: tuple | None = None) -> tuple:

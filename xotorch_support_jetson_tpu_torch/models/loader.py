@@ -13,7 +13,9 @@ qwen3-moe's ``mlp.*``) loads as a dense prefix ``layers`` (global layers
 below ``first_k_dense``) and a ``moe_layers`` stack: its router, its shared
 expert and gate, and each expert's projections written straight into the
 stacked ``[L, E, D, F]`` / ``[L, E, F, D]`` leaves (no second copy of the
-experts at any time).
+experts at any time). A deepseek-v2/v3 checkpoint's MLA projections load
+as ``wq`` (or ``wq_a`` / ``q_a_norm`` / ``wq_b`` with a ``q_lora_rank``),
+``wkv_a``, ``kv_a_norm`` and ``wkv_b``.
 """
 
 from __future__ import annotations
@@ -51,6 +53,14 @@ _LAYER_MAP: dict[str, tuple[str, bool]] = {
   "self_attn.v_proj.bias": ("bv", False),
   "self_attn.q_norm.weight": ("q_norm", False),
   "self_attn.k_norm.weight": ("k_norm", False),
+  # MLA (deepseek-v2/v3): q optionally LoRA-compressed; KV compressed to a
+  # latent plus an MQA rope channel.
+  "self_attn.q_a_proj.weight": ("wq_a", True),
+  "self_attn.q_a_layernorm.weight": ("q_a_norm", False),
+  "self_attn.q_b_proj.weight": ("wq_b", True),
+  "self_attn.kv_a_proj_with_mqa.weight": ("wkv_a", True),
+  "self_attn.kv_a_layernorm.weight": ("kv_a_norm", False),
+  "self_attn.kv_b_proj.weight": ("wkv_b", True),
   "post_attention_layernorm.weight": ("mlp_norm", False),
   # gemma2's four-norm layout: input_layernorm / post_attention_layernorm
   # wrap attention (the latter is post_attn_norm under cfg.post_norms),
@@ -253,11 +263,27 @@ def load_shard_weights(model_dir: str | Path, cfg: ModelConfig, shard: Shard, de
 
 def check_shard_params(params: Params, cfg: ModelConfig, shard: Shard) -> None:
   """Shape validator (the reference's ``check_shard_params``): the dense
-  stack, and an MoE model's ``moe_layers`` stack."""
+  stack, and an MoE model's ``moe_layers`` stack; MLA's projections in
+  either layout (direct ``wq`` or the q LoRA)."""
   L = shard.n_shard_layers
   n_dense = sum(1 for i in range(shard.start_layer, shard.end_layer + 1) if i < cfg.first_k_dense) if cfg.n_experts else L
 
   def attn_expect(L: int) -> dict:
+    if cfg.is_mla:
+      H = cfg.n_heads
+      expect = {
+        "attn_norm": (L, cfg.dim),
+        "wkv_a": (L, cfg.dim, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+        "kv_a_norm": (L, cfg.kv_lora_rank),
+        "wkv_b": (L, cfg.kv_lora_rank, H * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
+        "wo": (L, H * cfg.v_head_dim, cfg.dim),
+        "mlp_norm": (L, cfg.dim),
+      }
+      if cfg.q_lora_rank:
+        expect.update({"wq_a": (L, cfg.dim, cfg.q_lora_rank), "q_a_norm": (L, cfg.q_lora_rank), "wq_b": (L, cfg.q_lora_rank, H * cfg.qk_head_dim)})
+      else:
+        expect["wq"] = (L, cfg.dim, H * cfg.qk_head_dim)
+      return expect
     expect = {
       "attn_norm": (L, cfg.dim),
       "wq": (L, cfg.dim, cfg.q_dim),

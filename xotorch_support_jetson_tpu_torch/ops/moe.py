@@ -27,7 +27,8 @@ Path choice (``gather_max``). ``XOT_TPU_MOE_GATHER`` keeps the reference's
 meaning wherever it is set: on, the gather path up to 32 tokens; off, the
 einsum path always. Unset, a CPU tensor takes the reference's default (the
 einsum path) and a CUDA tensor the H100 table ``H100_GATHER_MAX``, measured
-by ``scripts/moe_paths.py`` on Qwen3-30B-A3B's shapes. ``PATHS`` counts the
+by ``scripts/moe_paths.py`` on Qwen3-30B-A3B's and DeepSeek-V2-Lite's
+shapes. ``PATHS`` counts the
 path of each call by token count (``"gather@1"``, ``"einsum@128"``,
 ``"chunked@600"``); a call recorded into a CUDA graph is counted at each
 replay (ops/kernels.py ``count_launch``).
@@ -50,8 +51,12 @@ REFERENCE_GATHER_MAX = 32
 # gather path's median device time over four runs was below the einsum
 # path's for one layer's routed FFN, by (experts, active experts, expert
 # weights); scripts/moe_paths.py measures both paths at T = 1, 2, 4, 8, 16,
-# 32, 72, 128 (PERF.md §6).
-H100_GATHER_MAX = {(128, 8, "bf16"): 8, (128, 8, "int8"): 8, (128, 8, "int4"): 8}
+# 32, 72, 128 (PERF.md §6): Qwen3-30B-A3B's 128 experts of 768, top-8, and
+# DeepSeek-V2-Lite's 64 of 1408, top-6.
+H100_GATHER_MAX = {
+  (128, 8, "bf16"): 8, (128, 8, "int8"): 8, (128, 8, "int4"): 8,
+  (64, 6, "bf16"): 4, (64, 6, "int8"): 8, (64, 6, "int4"): 8,
+}
 
 PATHS: Counter = Counter()  # "<path>@<T>" → calls (replays included on a card)
 

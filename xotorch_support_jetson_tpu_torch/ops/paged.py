@@ -1,14 +1,19 @@
 """Paged KV cache: a shared page pool addressed through per-row block
 tables, and the paged decode attention (K3). Counterpart of the
-reference's ``ops/paged.py`` (dense GQA models).
+reference's ``ops/paged.py``.
 
 Pool layout: ``[L, P, Hkv, ps, kd]`` per leaf — one logical page id
 addresses the same page in every layer, and each (page, head) ``[ps, kd]``
 tile is contiguous. ``kd`` is ``hd`` for bf16 and int8 codes and ``hd/2``
 for packed int4 codes; quantized pools carry ``k_scale``/``v_scale``
-``[L, P, Hkv, ps, 1]`` f32 leaves. Page 0 is a trash page: unallocated
-block-table entries point there, and writes of padding or inactive rows
-land there, so no write needs a condition.
+``[L, P, Hkv, ps, 1]`` f32 leaves. An MLA (deepseek) pool takes the
+config's cache geometry: "k" holds the kv latent (``kv_lora_rank`` wide),
+"v" the rope channel (``qk_rope_head_dim``), one head entry, never
+quantized; its decode attention is ``paged_mla_attention_ref``, the
+reference's gather and absorbed op (no kernel, as in the reference).
+Page 0 is a trash page: unallocated block-table entries point there, and
+writes of padding or inactive rows land there, so no write needs a
+condition.
 
 The reference's pool ops return new pools; here they UPDATE THE POOL IN
 PLACE (``write_token_kv``, ``write_window_kv``, ``scatter_row_pages``) and
@@ -34,7 +39,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.helpers import env_flag
-from .attention import gqa_attention
+from .attention import gqa_attention, mla_absorbed_attention
 from .kernels import check_cuda, count_launch, decode_plan, decode_rows, load, sm_count, stream_ptr
 
 HEAD_DIMS = (64, 128, 256)
@@ -49,28 +54,31 @@ def reset_launch_counts() -> None:
 
 def init_paged_pool(cfg, n_shard_layers: int, n_pages: int, page_size: int, dtype=None, quant: str | None = None, device=None) -> dict:
   """Page pool for a shard. ``n_pages`` INCLUDES the reserved trash page 0.
-  ``quant`` ("", "int8", "int4"; default ``XOT_TPU_KV_QUANT``) as in
+  Geometry from the config (``cache_kv_heads``, ``cache_k_dim``,
+  ``cache_v_dim``; MLA's k and v differ in width). ``quant`` ("", "int8",
+  "int4"; default ``XOT_TPU_KV_QUANT``, always "" for MLA) as in
   ``models/decoder.py init_kv_cache``: int8 adds per-(slot, head) scale
   leaves, int4 halves the code axis and keeps the same scales."""
   from ..models.decoder import kv_quant_mode
 
-  mode = kv_quant_mode(quant)
-  hd = cfg.head_dim
+  mode = kv_quant_mode(cfg, quant)
+  kd, vd = cfg.cache_k_dim, cfg.cache_v_dim
   if mode == "int4":
-    if hd % 2:
-      raise ValueError(f"int4 KV pages need an even head dim; got {hd}")
-    hd //= 2
-  shape = (n_shard_layers, n_pages, cfg.n_kv_heads, page_size, hd)
+    if kd % 2 or vd % 2:
+      raise ValueError(f"int4 KV pages need even cache dims; got k={kd} v={vd}")
+    kd, vd = kd // 2, vd // 2
+  k_shape = (n_shard_layers, n_pages, cfg.cache_kv_heads, page_size, kd)
+  v_shape = (n_shard_layers, n_pages, cfg.cache_kv_heads, page_size, vd)
   if mode:
-    scale_shape = shape[:-1] + (1,)
+    scale_shape = k_shape[:-1] + (1,)
     return {
-      "k": torch.zeros(shape, dtype=torch.int8, device=device),
-      "v": torch.zeros(shape, dtype=torch.int8, device=device),
+      "k": torch.zeros(k_shape, dtype=torch.int8, device=device),
+      "v": torch.zeros(v_shape, dtype=torch.int8, device=device),
       "k_scale": torch.ones(scale_shape, dtype=torch.float32, device=device),
       "v_scale": torch.ones(scale_shape, dtype=torch.float32, device=device),
     }
   dtype = dtype or cfg.dtype
-  return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
+  return {"k": torch.zeros(k_shape, dtype=dtype, device=device), "v": torch.zeros(v_shape, dtype=dtype, device=device)}
 
 
 def write_token_kv(pool_l: torch.Tensor, new: torch.Tensor, block_tables: torch.Tensor, pos: torch.Tensor, page_size: int) -> torch.Tensor:
@@ -176,6 +184,15 @@ def paged_gqa_attention_ref(q, k_pool_l, v_pool_l, block_tables, lengths, page_s
   return gqa_attention(q, k, v, q_positions, kv_positions, **scales, **attn_opts)
 
 
+def paged_mla_attention_ref(q_nope, q_pe, k_pool_l, v_pool_l, block_tables, lengths, w_kv_b, v_dim: int, page_size: int) -> torch.Tensor:
+  """Paged MLA decode attention: gather the latent pages, then the absorbed
+  op (q_nope [B, 1, H, nope], q_pe [B, 1, H, rope] → [B, 1, H, v_dim])."""
+  ckv = gather_pages(k_pool_l, block_tables)[:, :, 0, :]  # [B, mp·ps, rank]
+  kpe = gather_pages(v_pool_l, block_tables)[:, :, 0, :]
+  kv_positions = torch.arange(ckv.shape[1], dtype=torch.int32, device=ckv.device)
+  return mla_absorbed_attention(q_nope, q_pe, ckv, kpe, w_kv_b, (lengths - 1)[:, None], kv_positions, v_dim)
+
+
 def paged_decode_attention_ref(q, k_pool_l, v_pool_l, block_tables, lengths, page_size: int, k_scale_pool_l=None, v_scale_pool_l=None) -> torch.Tensor:
   """Plain version of K3, same signature as ``paged_decode_attention``:
   q [B, Hq, hd] → [B, Hq, hd] through the gather reference."""
@@ -270,10 +287,10 @@ def paged_kernel_supported(cfg) -> bool:
   """Whether paged decode attention goes through ``paged_decode_attention``
   (K3 on a CUDA tensor, its plain version on the CPU) rather than the
   gather reference. Only an explicit ``XOT_TPU_PAGED_KERNEL=0`` asks for
-  the gather path, and a config with attention variations (gemma2) has no
-  other: the kernel implements none of them. The reference's TPU dispatch
+  the gather path, and a config with attention variations (gemma2) or MLA
+  has no other: the kernel implements neither. The reference's TPU dispatch
   table (``inference/paging.py select_decode_path``) is not carried over."""
-  return cfg.plain_attention and env_flag("XOT_TPU_PAGED_KERNEL", default=True)
+  return cfg.plain_attention and not cfg.is_mla and env_flag("XOT_TPU_PAGED_KERNEL", default=True)
 
 
 def check_paged_kernel(cfg, device) -> None:

@@ -1,6 +1,7 @@
 """Rotary position embeddings with llama3 / yarn / longrope frequency
-scaling, HF half-rotation pairing (channel i pairs with i + rot/2), as pure
-functions of positions. Counterpart of the reference's ``ops/rope.py``."""
+scaling, HF half-rotation pairing (channel i pairs with i + rot/2) and
+deepseek's interleaved pairing (channel 2i with 2i+1), as pure functions of
+positions. Counterpart of the reference's ``ops/rope.py``."""
 
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ def rope_inv_freq(cfg: ModelConfig, device=None) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=32)
 def _inv_freq(cfg: ModelConfig, device: torch.device) -> torch.Tensor:
-  rot_dim = int(cfg.head_dim * cfg.partial_rotary_factor)
+  # MLA (deepseek) rotates only the qk_rope_head_dim channels.
+  rot_dim = cfg.qk_rope_head_dim if cfg.is_mla else int(cfg.head_dim * cfg.partial_rotary_factor)
   half = rot_dim // 2
   if isinstance(cfg.rope_scaling, YarnScaling):
     return _yarn_inv_freq(rot_dim, cfg.rope_theta, cfg.rope_scaling).to(device)
@@ -88,3 +90,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,
   x1, x2 = x.float().chunk(2, dim=-1)
   out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
   return out if tail is None else torch.cat([out, tail], dim=-1)
+
+
+def apply_rope_interleaved(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor, attn_factor: float = 1.0) -> torch.Tensor:
+  """Rotate with deepseek's interleaved pairing: channel 2i pairs with 2i+1
+  (HF deepseek-v2/v3's complex multiply over adjacent pairs; yarn's
+  ``attn_factor`` scales cos/sin). Checkpoints store q_pe/k_pe in this
+  layout, so no load permutation is needed."""
+  angles = positions[..., :, None].float() * inv_freq[None, :]  # [..., S, half]
+  cos = (torch.cos(angles) * attn_factor).unsqueeze(-2)
+  sin = (torch.sin(angles) * attn_factor).unsqueeze(-2)
+  xf = x.float()
+  even, odd = xf[..., 0::2], xf[..., 1::2]
+  out = torch.stack([even * cos - odd * sin, even * sin + odd * cos], dim=-1).reshape(x.shape)
+  return out.to(x.dtype)

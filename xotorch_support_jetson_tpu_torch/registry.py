@@ -1,8 +1,8 @@
 """Model registry: model id → layer count, family, HF repo — the dense,
-gemma2 and qwen3-moe cards of the reference's ``registry.py``, keyed by the
-port engine's class name, and the dummy engine's card. MLA (deepseek),
-llava and diffusion cards wait for the slices that port those model
-families.
+gemma2, qwen3-moe and deepseek (MLA + MoE) cards of the reference's
+``registry.py``, keyed by the port engine's class name, and the dummy
+engine's card. llava and diffusion cards wait for the slices that port
+those model families.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ class ModelCard:
   model_id: str
   layers: int
   pretty: str
-  family: str  # "llama" | "qwen2" | "qwen3" | "qwen3-moe" | "mistral" | "phi3" | "gemma2" | "dummy"
+  family: str  # "llama" | "qwen2" | "qwen3" | "qwen3-moe" | "deepseek-moe" | "mistral" | "phi3" | "gemma2" | "dummy"
   repo: dict[str, str] = field(default_factory=dict)
 
   def repo_for(self, engine_classname: str) -> str | None:
@@ -38,6 +38,9 @@ _CARDS: list[ModelCard] = [
   _card("llama-3.1-70b", 80, "Llama 3.1 70B", "llama", "unsloth/Meta-Llama-3.1-70B-Instruct"),
   _card("llama-3-8b", 32, "Llama 3 8B", "llama", "unsloth/llama-3-8b"),
   _card("mistral-7b", 32, "Mistral 7B Instruct", "mistral", "mistralai/Mistral-7B-Instruct-v0.3"),
+  _card("deepseek-coder-v2-lite", 27, "Deepseek Coder V2 Lite", "deepseek-moe", "deepseek-ai/DeepSeek-Coder-V2-Lite-Instruct"),
+  _card("deepseek-v3", 61, "Deepseek V3", "deepseek-moe", "unsloth/DeepSeek-V3-bf16"),
+  _card("deepseek-r1", 61, "Deepseek R1", "deepseek-moe", "deepseek-ai/DeepSeek-R1"),
   _card("deepseek-r1-distill-qwen-1.5b", 28, "DeepSeek R1 Distill Qwen 1.5B", "qwen2", "unsloth/DeepSeek-R1-Distill-Qwen-1.5B"),
   _card("deepseek-r1-distill-qwen-7b", 28, "DeepSeek R1 Distill Qwen 7B", "qwen2", "unsloth/DeepSeek-R1-Distill-Qwen-7B"),
   _card("deepseek-r1-distill-llama-8b", 32, "DeepSeek R1 Distill Llama 8B", "llama", "unsloth/DeepSeek-R1-Distill-Llama-8B"),
