@@ -17,14 +17,18 @@ Phases (any failure exits non-zero and prints no result):
    K1 also at the mixed-tick slice shapes, B=1, Sq 16 / 256 / 1024 at
    offsets 2048 / 3072 / 1024; K3 also on the verify window of batched
    speculation, B=8 rows × W=9 positions flattened into one launch, rows
-   starting at 150..600 and at 1..4087, with W=1 over the same rows beside
-   it; and at Qwen3-30B-A3B's shapes: K1 at its 128 bucket and K3 at B=8
+   starting at 150..600 and at 1..4087, and W=5 (a model-drafted window)
+   at 150..600, with W=1 over the same rows beside each; and at
+   Qwen3-30B-A3B's shapes: K1 at its 128 bucket and K3 at B=8
    mixed lengths with Hq 32 / Hkv 4 at hd 128, K4 at its q, k/v, o and
    head products at T = 1; K4 at DeepSeek-Coder-V2-Lite's eight products at
-   T = 1):
+   T = 1; and the dense batched layout's shapes: K1 at B=8 verify windows,
+   Sq 5 and 9, rows at offsets 150..600 over the 4096-slot cache, bf16 and
+   int8 K/V, and K2 at B=8 rows of mixed positions 1..4095):
    error, kernel / plain / library time and the card's bound (K1's library
-   call is SDPA on the live slots with causal masking, the fastest backend
-   that runs); K4's per-decode-step sums, and the count of device kernels
+   call is SDPA on the live slots with causal masking, or over the cache
+   with a per-row causal mask where rows sit at different offsets, the
+   fastest backend that runs); K4's per-decode-step sums, and the count of device kernels
    in one call of every K1, K2 and K3 row and of K4 at T = 1 and 8 (the
    kernel nodes of a CUDA graph captured around a call), which must be 1;
 4. solo serving — a seeded random-weight bf16 checkpoint with
@@ -211,8 +215,8 @@ Phases (any failure exits non-zero and prints no result):
    pool's ``BatchedPrograms``): each pass's server starts with a fresh
    pool, fresh graphs and a reset program ledger; the default bf16 pass
    (on either weights), the XOT_TPU_SPEC_BATCH=0 pass and the
-   XOT_TPU_MIXED_TICK=0 pass, whose rates are compared, first serve two
-   build rounds (their two waves on other text of the same lengths, so the
+   XOT_TPU_MIXED_TICK=0 pass, whose rates are compared, first serve a
+   build round (its two waves on other text of the same lengths, so the
    dispatch shapes are captured there; aggregate, TTFT and captures are
    reported, and when the eighth row's first token came against the first
    wave's earliest end: a build round's first-wave request may end with
@@ -231,8 +235,8 @@ Phases (any failure exits non-zero and prints no result):
    proposals and at depth 7 without, chained on device-resident tokens and
    positions, and a mixed chunk with a 200-token slice; greedy and sampled
    rows) through a pool's captured programs against the eager functions on
-   an identical pool, in a round that builds every graph and two that
-   replay them on refilled buffers, per KV pool type on bf16 weights and
+   an identical pool, in a round that builds every graph and one that
+   replays them on refilled buffers, per KV pool type on bf16 weights and
    on bf16 pages on int4 weights: every token identical, each graph
    holding its kernels (K3 in every chunk, K1 in the prefill and slice,
    K4 on int4 weights); then ``[profile] graphs batched`` lines: wall and
@@ -268,6 +272,37 @@ Phases (any failure exits non-zero and prints no result):
    launched K1 and K3, ended every request with all its tokens and the
    endpoint answered with host pages; the share of turn-2 greedy tokens
    the two passes agree on is reported, not gated;
+7b. batched layouts — the batched daemon on the same checkpoint: first
+   ``XOT_TPU_PAGED=auto``, whose server builds the layout the H100
+   decode-path table answers at 8 slots and a 4096-token window (printed;
+   the layout must follow the verdict); then the passes of
+   ``LAYOUT_PASSES``, each the batched phase's 16 streaming greedy
+   requests in two waves after a build round on other text (as the
+   measured batched passes: the shapes are captured before the measured
+   round, whose capture seconds are printed beside its rates): ``bf16_dense`` (``XOT_TPU_PAGED=0`` with
+   ``XOT_TPU_FLASH_DECODE=1`` at a minimum of the window: K2 in every
+   ``decode.batch`` replay, K1 in every dense verify window), and with the
+   ``DRAFT_LAYERS``-layer draft loaded (``XOT_TPU_SPEC_DECODE=int8``,
+   ``XOT_TPU_SPEC_DRAFT``): ``bf16_draft`` (paged: model-drafted rows
+   verify through K3) and ``bf16_dense_draft``. The counters are zeroed
+   just before each pass's requests and read just after. Gates: every
+   request ends with all its tokens; the layout, the decode path label and
+   the launches (dense: no K3, K2 once per layer per step in every
+   ``decode.batch`` graph, K1 once per target and draft layer per round in
+   every ``spec.batch`` graph; paged: K1 and K3); with the draft: the
+   "model" proposer proposed, the draft's prefill dispatched (K1 once per
+   draft layer), the ``kv_draft_*`` gauges set (8 slots), spec dispatches;
+   every dispatch a replay or a new graph's first run, captures equal to
+   builds; the server drained. Printed: dispatches by program name, the
+   proposers' accepted and proposed tokens, the gauges, and the share of
+   greedy tokens agreeing with the default paged pass (not gated);
+7c. fetch — a daemon with an empty ``XOT_TPU_HOME`` and no
+   ``XOT_TPU_MODEL_DIR`` serves llama-3.2-1b's card: it fetches the
+   ``DRAFT_LAYERS``-layer checkpoint through the hub API from a
+   ``127.0.0.1`` hub of the script's own (``_LoopbackHub``) and answers one
+   streaming chat request on the card. Gates: every file fetched whole,
+   the last progress event complete, tokens answered, K1 in the prefill.
+   Every other phase runs with ``HF_HUB_OFFLINE=1``;
 8. processes — with tokenizer files written into the checkpoint (a
    process resolves its tokenizer there): ``python -m
    xotorch_support_jetson_tpu_torch.main run llama-3.2-1b --prompt ...``
@@ -592,8 +627,14 @@ def phase_kernels(torch):
   results["flash_prefill_verify"] = flash_prefill_rows(torch, gen, K1_VERIFY_ROWS)
   results["flash_prefill_scoring"] = flash_prefill_rows(torch, gen, K1_SCORING_ROWS, own_kv=True)
   results["flash_decode"] = flash_decode_rows(torch, gen, Hq, Hkv, hd)
+  # The dense batched layout's shapes: K1 at B=8 verify windows, each row at
+  # its own offset, and K2 at B=8 rows of mixed positions.
+  results["flash_prefill_b8_verify"] = flash_prefill_rows(torch, gen, K1_B8_VERIFY_ROWS)
+  results["flash_decode_b8"] = flash_decode_rows(torch, gen, Hq, Hkv, hd, K2_B8_ROWS)
   results["paged_decode"] = paged_kernel_rows(torch, gen, Hq, Hkv, hd)
   results["paged_window"] = paged_window_rows(torch, gen, Hq, Hkv, hd)
+  # The model-drafted verify window (the bf16_draft pass's spec.paged_batch): W=5.
+  results["paged_window_w5"] = paged_window_rows(torch, gen, Hq, Hkv, hd, W=DRAFT_VERIFY_W, wide=False)
   results["int4_matmul"] = int4_kernel_rows(torch, gen)
   results["int4_matmul_bound"] = int4_matmul_bound(results["int4_matmul"])
   # K4 at gemma-2-9b's weight shapes, solo decode (T = 1): the gemma2 int4 phase's products.
@@ -630,6 +671,15 @@ K1_ROWS = [
 # Sq = gamma+1 = 5 (int8 draft, depth 4) or 9 (n-gram, depth 8), early, in
 # the middle and at the last window of the 4096-slot cache.
 K1_VERIFY_ROWS = [(Sq, [off], kv, 64) for kv in ("bf16", "int8") for Sq in (5, 9) for off in (72, 1024, 4086)]
+# K1 on the dense batched layout's verify windows (spec.batch): B=8 rows at
+# their own offsets over the 4096-slot cache, Sq 5 (a model draft at depth
+# 4) and 9 (n-gram depth 8), bf16 and int8 K/V. SDPA takes them in one call
+# with a per-row causal mask over the cache (``k1_library``).
+K1_B8_OFFSETS = [150, 214, 278, 342, 407, 471, 535, 600]
+K1_B8_VERIFY_ROWS = [(Sq, K1_B8_OFFSETS, kv, 64) for kv in ("bf16", "int8") for Sq in (5, 9)]
+# K2 on the dense layout's decode step (decode.batch): B=8 rows of mixed
+# positions over the 4096-slot cache.
+K2_B8_ROWS = (([1, 64, 65, 777, 1500, 2048, 3333, 4095], CACHE),)
 # K1 in the logprobs scoring forward (models/decoder.py score_last_tokens):
 # the sequence's own K/V (Sq = Skv = S_pad, no cache) from position 0, at
 # the API phase's two buckets: the 72-token prompt with its 64-token answer
@@ -679,20 +729,28 @@ def k1_library(torch, q, k, v, offsets):
   masking the library's causal kernels take — ``is_causal=True`` at offset
   0, ``causal_lower_right(Sq, off + Sq)`` otherwise. Each SDPA backend is
   tried alone and the fastest that runs is kept; kv heads are expanded
-  outside the timing where a backend refuses ``enable_gqa``. A row with
-  mixed per-row offsets has no single call: (None, reason)."""
+  outside the timing where a backend refuses ``enable_gqa``. Rows at
+  different offsets take one call over the whole cache with a boolean
+  per-row causal mask [B, 1, Sq, Skv] (key j visible to query i of row b
+  while j <= offset_b + i), as the K2 and verify-window rows time SDPA."""
   import torch.nn.functional as F
   from torch.nn.attention import SDPBackend, sdpa_kernel
   from torch.nn.attention.bias import causal_lower_right
 
-  if len(set(offsets)) != 1:
-    return None, "no single SDPA call: per-row offsets differ"
-  Sq, live = q.shape[1], offsets[0] + q.shape[1]
+  Sq = q.shape[1]
   qt = q.transpose(1, 2).contiguous()
-  kt, vt = k[:, :live].transpose(1, 2).contiguous(), v[:, :live].transpose(1, 2).contiguous()
+  if len(set(offsets)) == 1:
+    live = offsets[0] + Sq
+    kt, vt = k[:, :live].transpose(1, 2).contiguous(), v[:, :live].transpose(1, 2).contiguous()
+    mask = None if offsets[0] == 0 else causal_lower_right(Sq, live)
+    how = "is_causal" if mask is None else "causal_lower_right"
+  else:
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    last = torch.tensor(offsets, device=q.device)[:, None] + torch.arange(Sq, device=q.device)[None, :]  # each query's last visible slot
+    mask = (torch.arange(k.shape[1], device=q.device)[None, None, :] <= last[:, :, None])[:, None]
+    how = "per-row boolean causal mask"
   group = q.shape[2] // k.shape[2]
   ke, ve = kt.repeat_interleave(group, dim=1), vt.repeat_interleave(group, dim=1)  # outside the timing
-  mask = None if offsets[0] == 0 else causal_lower_right(Sq, live)
   best = None
   for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION):
     for gqa, kk, vv in (("enable_gqa", kt, vt), ("expanded", ke, ve)):
@@ -711,7 +769,7 @@ def k1_library(torch, q, k, v, offsets):
         continue
       ms = _cuda_ms(torch, call)
       if best is None or ms < best[0]:
-        best = (ms, f"{backend.name.lower()} ({gqa}, {'is_causal' if mask is None else 'causal_lower_right'})", call)
+        best = (ms, f"{backend.name.lower()} ({gqa}, {how})", call)
       break
   if best is None:
     return None, "no SDPA backend took the call"
@@ -772,16 +830,20 @@ def flash_prefill_rows(torch, gen, rows=K1_ROWS, own_kv=False, heads=K1_HEADS):
   return out
 
 
-def flash_decode_rows(torch, gen, Hq, Hkv, hd):
-  """K2 against its plain version at the solo path's cache (4096) at
-  positions 4095 / 127 / 0 / mixed, and at cache 16384, position 16383.
-  One call of each row must be one device kernel (``_kernels_per_call``)."""
+K2_ROWS = (([4095], CACHE), ([127], CACHE), ([0], CACHE), ([0, 1000, 2047, 4095], CACHE), ([16383], 16384))
+
+
+def flash_decode_rows(torch, gen, Hq, Hkv, hd, rows_at=K2_ROWS):
+  """K2 against its plain version at ``rows_at`` ((positions, cache)
+  pairs; by default the solo path's cache (4096) at positions 4095 / 127 /
+  0 / mixed, and cache 16384 at position 16383). One call of each row must
+  be one device kernel (``_kernels_per_call``)."""
   import torch.nn.functional as F
 
   from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa
 
   rows = []
-  for positions, cache in (([4095], CACHE), ([127], CACHE), ([0], CACHE), ([0, 1000, 2047, 4095], CACHE), ([16383], 16384)):
+  for positions, cache in rows_at:
     B = len(positions)
     q = _rand(torch, (B, 1, Hq, hd), gen, torch.bfloat16)
     k = _rand(torch, (B, cache, Hkv, hd), gen, torch.bfloat16)
@@ -982,14 +1044,16 @@ def paged_kernel_rows(torch, gen, Hq, Hkv, hd, length_sets=K3_LENGTHS, kvs=tuple
 
 
 VERIFY_W = 9  # the batched speculation's verify window: XOT_TPU_SPEC_NGRAM_MAX (8) + 1
+DRAFT_VERIFY_W = 5  # a model-drafted verify window: gamma (4) + 1
 
 
-def paged_window_rows(torch, gen, Hq, Hkv, hd):
+def paged_window_rows(torch, gen, Hq, Hkv, hd, W=VERIFY_W, wide=True):
   """K3 on the verify window of batched speculation, flattened as the spec
-  chunk calls it (``ops/paged.py paged_window_attention``): B=8 rows × W=9
-  window positions = 72 single-query rows in ONE launch, each with its own
-  length (position + 1) over its row's table, per pool type. Rows start at
-  150..600 (the batched traffic) and at 1..4087 (window ends up to the 4096
+  chunk calls it (``ops/paged.py paged_window_attention``): B=8 rows × W
+  window positions (9: n-gram rows; 5: model-drafted rows) = B·W
+  single-query rows in ONE launch, each with its own length (position + 1)
+  over its row's table, per pool type. Rows start at 150..600 (the batched
+  traffic) and, with ``wide``, at 1..4096-W (window ends up to the 4096
   cache). Held elementwise to K3's bound against the gather route
   (``paged_window_attention_ref``). Beside the time: the bound (each row's
   live KV read once, though the flattened call reads it W times, mostly
@@ -1001,9 +1065,10 @@ def paged_window_rows(torch, gen, Hq, Hkv, hd):
   from xotorch_support_jetson_tpu_torch.models.quantize import quantize_kv, quantize_kv_int4, unpack_int4_kv
   from xotorch_support_jetson_tpu_torch.ops import paged
 
-  mp, W = CACHE // PAGE, VERIFY_W
+  mp = CACHE // PAGE
   rows = []
-  for starts in ([int(x) for x in np.linspace(150, 600, BATCH_SLOTS)], [1, 64, 65, 777, 1500, 2048, 3333, CACHE - W]):
+  start_sets = [[int(x) for x in np.linspace(150, 600, BATCH_SLOTS)]] + ([[1, 64, 65, 777, 1500, 2048, 3333, CACHE - W]] if wide else [])
+  for starts in start_sets:
     B = len(starts)
     ends = [n + W for n in starts]
     P = B * mp + 1
@@ -1321,6 +1386,7 @@ def _daemon_args(tmain, ckpt: Path, max_tokens: int = MAX_TOKENS, model: str = "
   from xotorch_support_jetson_tpu_torch.utils.helpers import find_available_port
 
   os.environ["XOT_TPU_MODEL_DIR"] = str(ckpt)
+  os.environ["HF_HUB_OFFLINE"] = "1"  # a daemon of the script fetches only in the fetch phase, from its loopback hub
   for knob in SERVING_KNOBS:
     os.environ.pop(knob, None)
   port = find_available_port("127.0.0.1")
@@ -2059,11 +2125,11 @@ async def _serve_batched(torch, tmain, args, port, weights):
       await loop.run_in_executor(clients, _post, port, warm)  # first cuBLAS/kernel work off the clock
       bserver = engine.get_batched_server()
       priority = name == "bf16_priority"
-      # The passes whose rates are compared (PERF.md §5-§6) first serve two
-      # build rounds, their traffic on other text: the dispatch shapes are
+      # The passes whose rates are compared (PERF.md §5-§6) first serve a
+      # build round, its traffic on other text: the dispatch shapes are
       # built (captured) before the measured round, as a served daemon's
       # are once traffic of those shapes has passed.
-      build = [await _build_round(loop, clients, port, ids, priority, variant, bserver) for variant in ((1, 2) if name in MEASURED_PASSES else ())]
+      build = [await _build_round(loop, clients, port, ids, priority, variant, bserver) for variant in ((1,) if name in MEASURED_PASSES else ())]
       graphs0 = {id(g) for g in engine.batch_ops.programs.graphs()}
       slices: list[dict] = []
       unspy = _spy_mixed(engine, fa, paged, slices)
@@ -2690,8 +2756,8 @@ def batched_graphs_against_eager(torch, engine, weights):
   150..600; plain chunks of 8 steps, spec chunks of 4 rounds at depth 8 and
   7, a mixed chunk with a 200-token slice) through the pool ``init_pool``
   made (one CUDA-graph replay per dispatch) and through the eager functions
-  on an identical pool, in a round that builds every graph and two that
-  replay them on other rows, positions, tables, proposals and keys. Every
+  on an identical pool, in a round that builds every graph and one that
+  replays them on other rows, positions, tables, proposals and keys. Every
   token must be identical, greedy and seeded sampled rows alike, each graph
   must hold its kernels (K3 in every chunk, K1 in the prefill and the
   slice on bf16 and int8 pages, K4 everywhere on int4 weights), and the
@@ -2712,7 +2778,7 @@ def batched_graphs_against_eager(torch, engine, weights):
     eager = {k: v.clone() for k, v in captured.items()}
     _reset_launches()
     n = 0
-    for rnd, seed in enumerate((SEED + 20, SEED + 21, SEED + 22)):
+    for rnd, seed in enumerate((SEED + 20, SEED + 21)):
       got, want = batched_traffic(ops, captured, seed, GRAPH_LENS), batched_traffic(ops, eager, seed, GRAPH_LENS)
       for (kind, g), (_, w) in zip(got, want):
         n += 1
@@ -2722,7 +2788,7 @@ def batched_graphs_against_eager(torch, engine, weights):
     by_family = {f: [dict(kernel_nodes=g.kernel_nodes, capture_s=g.capture_s, kernels=dict(g.kernels)) for g in graphs if g.family == f] for f in BATCHED_FAMILIES}
     replayed = dict(programs.REPLAYED)
     res[kv] = dict(dispatches=n, identical=True, graphs=by_family, replayed=replayed, pool_bytes=programs.pool_bytes(ops.programs.graph_pool))
-    log(f"[graphs] batched {weights} weights, {kv} pages: {n} dispatches over 3 rounds (a build round, two replay rounds; greedy and sampled rows) token-identical to the uncaptured functions | graphs per family {{{', '.join(f'{f}: {len(v)}' for f, v in by_family.items())}}} | kernel nodes {[g.kernel_nodes for g in graphs]} | launches inside replays {replayed} | graph pool {res[kv]['pool_bytes']} bytes")
+    log(f"[graphs] batched {weights} weights, {kv} pages: {n} dispatches over 2 rounds (a build round, a replay round; greedy and sampled rows) token-identical to the uncaptured functions | graphs per family {{{', '.join(f'{f}: {len(v)}' for f, v in by_family.items())}}} | kernel nodes {[g.kernel_nodes for g in graphs]} | launches inside replays {replayed} | graph pool {res[kv]['pool_bytes']} bytes")
     k1 = 0 if quant == "int4" else L
     bad = [g.family for g in graphs if (g.family != "prefill.pages_many_sampled" and g.kernels.get("paged_decode", 0) < L) or (g.family in ("prefill.pages_many_sampled", "decode.mixed_paged_batch") and g.kernels.get("flash_prefill", 0) != k1) or ((weights == "int4") != (g.kernels.get("int4_matmul", 0) > 0))]
     if bad or sorted({g.family for g in graphs}) != sorted(BATCHED_FAMILIES) or not replayed.get("paged_decode"):
@@ -6185,6 +6251,348 @@ def _ring_daemons(daemons: dict, smi: str, part_a: dict, solo: dict | None):
   return dict(up_s=up_s, warm_s=warm_s, served_s=served_s, answers=answers, agree=agree, launches=launches, per_node=per_node, ttft_s=ttft, decode_tok_s=rate, solo_ttft_s=solo and solo["ttft_s"], solo_decode_tok_s=solo and solo["decode_tok_s"], status_big=st, quit_s=quit_s)
 
 
+# ------------------------------------------------ the batched layouts
+
+# The dense layout and the batched draft-model proposer on the llama
+# checkpoint, each pass 16 streaming greedy requests in two waves as the
+# batched phase sends them: (name, draft loaded, environment). The dense
+# passes set K2's minimum at the window, so K2 runs in every decode.batch
+# replay (and in the draft's proposal steps).
+DENSE_ENV = {"XOT_TPU_PAGED": "0", "XOT_TPU_FLASH_DECODE": "1", "XOT_TPU_FLASH_DECODE_MIN": str(CACHE)}
+LAYOUT_PASSES = [("bf16_dense", False, DENSE_ENV), ("bf16_draft", True, {}), ("bf16_dense_draft", True, DENSE_ENV)]
+LAYOUT_KNOBS = ("XOT_TPU_PAGED", "XOT_TPU_FLASH_DECODE", "XOT_TPU_FLASH_DECODE_MIN", "XOT_TPU_KV_QUANT", *PASS_KNOBS)
+DENSE_FAMILIES = ("prefill.slots_sampled", "decode.batch", "spec.batch")
+
+
+def phase_batched_layouts(torch, ckpt: Path, draft_dir: Path, paged_streams: list | None):
+  """The batched daemon in the dense layout and with a draft model
+  (``LAYOUT_PASSES``), the ``XOT_TPU_PAGED=auto`` verdict, each pass's
+  greedy streams against the default paged pass's (reported)."""
+  from xotorch_support_jetson_tpu_torch import main as tmain
+
+  out = {}
+  try:
+    for draft in (False, True):
+      args, port = _daemon_args(tmain, ckpt)  # unsets the serving knobs: the batched ones go after it
+      os.environ.update(XOT_TPU_BATCHED="1", XOT_TPU_BATCH_SLOTS=str(BATCH_SLOTS), XOT_TPU_PAGE_SIZE=str(PAGE))
+      if draft:
+        os.environ.update(XOT_TPU_SPEC_DECODE="int8", XOT_TPU_SPEC_DRAFT=str(draft_dir), XOT_TPU_SPEC_AUTOCAL="0")
+      out.update(asyncio.run(_serve_layouts(torch, tmain, args, port, [p for p in LAYOUT_PASSES if p[1] == draft], draft, paged_streams)))
+      for knob in ("XOT_TPU_SPEC_DECODE", "XOT_TPU_SPEC_DRAFT", "XOT_TPU_SPEC_AUTOCAL"):
+        os.environ.pop(knob, None)
+  finally:
+    for knob in ("XOT_TPU_BATCHED", "XOT_TPU_BATCH_SLOTS", "XOT_TPU_PAGE_SIZE", "XOT_TPU_SPEC_DECODE", "XOT_TPU_SPEC_DRAFT", "XOT_TPU_SPEC_AUTOCAL", *LAYOUT_KNOBS):
+      os.environ.pop(knob, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+  return out
+
+
+def _layout_graphs(progs, before_build: set, before: set, host: dict, launches: dict, snap: dict, fams) -> dict:
+  """``_pass_graphs`` for any layout: per family in ``fams`` (and the
+  draft's ``prefill.slots``) the ledger's captures, builds and replays
+  over the pass, the graphs the measured round captured, and the kernels
+  each graph captured since ``before_build`` (the build round's and the
+  measured round's) records per replay. ``ok`` when every host launch of
+  the measured round came from one of its new graphs' first runs and each
+  family of ``fams`` captured one graph per build (``prefill.slots`` also
+  counts the builds nested in ``prefill.slots_sampled``, which capture
+  nothing of their own, as ``prefill.pages_many`` is nested in the paged
+  prefill)."""
+  new = [g for g in progs.graphs() if id(g) not in before]
+  built = [g for g in progs.graphs() if id(g) not in before_build]
+  first_runs = {k: sum(g.kernels.get(k, 0) for g in new) for k in host}
+  per = {}
+  for f in (*fams, "prefill.slots"):
+    st = snap["families"].get(f, {})
+    mine = [g for g in new if g.family == f]
+    per[f] = dict(captures=st.get("captures", 0), compiles=st.get("compiles", 0), replays=st.get("replays", 0), dispatches=st.get("dispatches", 0), new_graphs=len(mine), kernels=[g.kernels for g in built if g.family == f])
+  ok = host == first_runs and all(per[f]["captures"] == per[f]["compiles"] for f in fams)
+  return dict(ok=ok, families=per, first_runs=first_runs, replayed={k: launches[k] - host[k] for k in host}, captures=len(new), capture_s=sum(g.capture_s for g in new))
+
+
+async def _serve_layouts(torch, tmain, args, port, passes, draft: bool, paged_streams):
+  from concurrent.futures import ThreadPoolExecutor
+
+  from xotorch_support_jetson_tpu_torch.inference.paging import select_decode_path
+  from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+  from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa, int4_matmul as k4, paged
+  from xotorch_support_jetson_tpu_torch.utils import programs
+  from xotorch_support_jetson_tpu_torch.utils.metrics import metrics, snapshot_delta
+
+  node, api, engine, _ = tmain.build_components(args, tokenizer=ByteTokenizer())
+  await node.start()
+  server = await api.run(host="127.0.0.1", port=port)
+  clients = ThreadPoolExecutor(max_workers=16)
+  loop = asyncio.get_running_loop()
+  out = {}
+  try:
+    await engine.ensure_shard(Shard("llama-3.2-1b", 0, 15, 16))
+    L = engine.cfg.n_layers
+    if draft and (engine._draft_params is None or engine._draft_cfg is None):
+      raise SystemExit(f"chip_smoke: [layouts] the {DRAFT_LAYERS}-layer draft did not load (XOT_TPU_SPEC_DRAFT)")
+    L_d = engine._draft_cfg.n_layers if draft else 0
+    ids: dict[str, list[int]] = {}
+    node.on_token.register("chip_smoke").on_next(lambda rid, toks, fin: ids.setdefault(rid, []).extend(toks))
+    warm = {"model": "llama-3.2-1b", "messages": [{"role": "user", "content": "warm up"}], "stream": True, "temperature": 0, "max_tokens": 9}
+    if not draft:
+      # XOT_TPU_PAGED=auto: the server resolves its layout from the decode-path
+      # table at pool build (a warm request builds it).
+      engine._drop_batched_server()
+      os.environ["XOT_TPU_PAGED"] = "auto"
+      await loop.run_in_executor(clients, _post, port, warm)
+      bs = engine.get_batched_server()
+      verdict = select_decode_path(BATCH_SLOTS, bs.max_seq, bs.kv_quant or "", device=engine.device)
+      out["auto"] = dict(table_verdict=verdict, paged=bs.paged, decode_path=bs.decode_path, slots=BATCH_SLOTS, window=bs.max_seq)
+      log(f"[layouts] XOT_TPU_PAGED=auto: the H100 table answers {verdict!r} at B={BATCH_SLOTS}, window {bs.max_seq}, bf16 KV; the server built the {'paged' if bs.paged else 'dense'} layout, decode path {bs.decode_path!r}")
+      if bs.paged != (verdict != "dense"):
+        raise SystemExit(f"chip_smoke: [layouts] XOT_TPU_PAGED=auto built paged={bs.paged} against the verdict {verdict!r}")
+    for name, _, env in passes:
+      t_pass = time.perf_counter()
+      engine._drop_batched_server()
+      for knob in LAYOUT_KNOBS:
+        os.environ.pop(knob, None)
+      os.environ.update(env)
+      programs.ledger.reset()
+      await loop.run_in_executor(clients, _post, port, warm)
+      bserver = engine.get_batched_server()
+      dense = "XOT_TPU_PAGED" in env
+      if bserver.paged == dense:
+        raise SystemExit(f"chip_smoke: [layouts] {name}: the server built paged={bserver.paged}")
+      progs = engine.batch_ops.programs
+      # A build round first, on other text, as the measured paged passes
+      # serve one (MEASURED_PASSES): the dispatch shapes are captured before
+      # the measured round, whose rates are compared with theirs.
+      graphs_build0 = {id(g) for g in progs.graphs()}
+      build = await _build_round(loop, clients, port, ids, False, 1, bserver)
+      graphs0 = {id(g) for g in progs.graphs()}
+      snap0 = metrics.snapshot()
+      prog0 = await asyncio.to_thread(_get_json, port, "/v1/programs")
+      waves = (batched_bodies()[:8], batched_bodies()[8:])
+      bodies = waves[0] + waves[1]
+      arrivals: list[float] = []
+      unhold = _hold_wave(bserver, len(waves[0]), arrivals)
+      _reset_launches()  # ---- this pass's main path, counted
+      t0 = time.perf_counter()
+      before = set(ids)
+      first = [loop.run_in_executor(clients, _post, port, b) for b in waves[0]]
+      try:
+        while sum(1 for rid, t in ids.items() if t and rid not in before) < BATCH_SLOTS:
+          if time.perf_counter() - t0 > 120 or any(f.done() for f in first):
+            failed = [repr(f.exception()) for f in first if f.done() and f.exception() is not None]
+            raise SystemExit(f"chip_smoke: [layouts] {name}: the first wave's rows did not all stream (failed requests: {failed}; {len(arrivals)} of {len(first)} reached the scheduler)")
+          await asyncio.sleep(0.005)
+      finally:
+        unhold()
+      second = [loop.run_in_executor(clients, _post, port, b) for b in waves[1]]
+      replies = await asyncio.gather(*first, *second)
+      wall = time.perf_counter() - t0
+      launches = {k: _launched(k) for k in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}  # ---- read just after
+      host = {"flash_prefill": fa.LAUNCHES["flash_prefill"], "flash_decode": fa.LAUNCHES["flash_decode"], "paged_decode": paged.LAUNCHES["paged_decode"], "int4_matmul": k4.LAUNCHES["int4_matmul"]}
+      snap1 = await asyncio.to_thread(_get_json, port, "/v1/programs")
+      fams = DENSE_FAMILIES if dense else BATCHED_FAMILIES
+      graphs = _layout_graphs(progs, graphs_build0, graphs0, host, launches, snap1, fams)
+      dispatches = {f: snap1["families"].get(f, {}).get("dispatches", 0) - prog0["families"].get(f, {}).get("dispatches", 0) for f in sorted(snap1["families"])}
+      dispatches = {f: n for f, n in dispatches.items() if n}
+      delta = snapshot_delta(snap0, metrics.snapshot())
+      gauges = {g: metrics.gauge_value(g) for g in ("kv_draft_bytes", "kv_draft_slots", "kv_draft_pages_equivalent")}
+      spec = dict(
+        proposers=list(bserver.spec_proposers), accepted=_by_label(delta, "spec_accepted_tokens_total", "proposer"), proposed=_by_label(delta, "spec_proposed_tokens_total", "proposer"),
+        chunks_by_path=_by_label(delta, "decode_chunks_total", "path"), tokens_by_path=_by_label(delta, "decode_tokens_total", "path"),
+      )
+      streams, n_tok, ttfts = [], 0, []
+      for (text, finish, ttft, total, n_events, rid), b in zip(replies, bodies):
+        toks = ids.get(rid, [])
+        if not toks or len(toks) > b["max_tokens"] or finish not in ("stop", "length") or (finish == "length" and len(toks) != b["max_tokens"]):
+          raise SystemExit(f"chip_smoke: [layouts] {name}: request {rid} gave {len(toks)} of {b['max_tokens']} tokens, finish {finish}")
+        streams.append(list(toks))
+        n_tok += len(toks)
+        ttfts.append(ttft)
+      agree = None
+      if paged_streams is not None:
+        same = sum(sum(1 for x, y in zip(s, t) if x == y) for s, t in zip(streams, paged_streams))
+        agree = same / max(sum(max(len(s), len(t)) for s, t in zip(streams, paged_streams)), 1)
+      res = dict(
+        env=env, draft=draft, paged=bserver.paged, decode_path=bserver.decode_path, requests=len(bodies), tokens=n_tok, wall_s=wall, aggregate_tok_s=n_tok / wall,
+        ttft_p50_s=_pctl(ttfts, 0.5), ttft_p95_s=_pctl(ttfts, 0.95), launches=launches, dispatches=dispatches, spec=spec, kv_draft=gauges, graphs=graphs,
+        agreement_with_paged_default=agree, pool_pages=None if bserver.allocator is None else bserver.allocator.n_pages, build=build,
+      )
+      # Gates: the pass's kernels and its path label, the proposers and the
+      # draft's cache, every dispatch a replay or a new graph's first run.
+      problems = []
+      if dense:
+        # K2 wherever a step runs on the slot cache (decode.batch, and the
+        # draft's proposal steps); K1 in every admission and verify window.
+        plain_steps = dispatches.get("decode.batch") or (draft and dispatches.get("spec.batch"))
+        if launches["paged_decode"] or not launches["flash_prefill"] or bool(launches["flash_decode"]) != bool(plain_steps) or bserver.decode_path != "dense":
+          problems.append(f"dense launches {launches} over dispatches {dispatches}, decode path {bserver.decode_path}")
+        if dispatches.get("decode.batch") and not spec["chunks_by_path"].get("dense"):
+          problems.append(f"decode chunks by path {spec['chunks_by_path']}: no dense chunk")
+        for k in graphs["families"]["decode.batch"]["kernels"]:
+          if k.get("flash_decode") != L * 8:
+            problems.append(f"a decode.batch graph records {k} (K2 {L * 8} expected: once per layer per step)")
+        rounds_k1 = {8 * L, 8 * (L + L_d)}  # a chunk with no model-drafted row runs no draft
+        for k in graphs["families"]["spec.batch"]["kernels"]:
+          if k.get("flash_prefill", 0) not in rounds_k1 or k.get("paged_decode"):
+            problems.append(f"a spec.batch graph records {k} (K1 {sorted(rounds_k1)} expected: every verify window{' and catch-up' if draft else ''})")
+      elif not launches["paged_decode"] or not launches["flash_prefill"]:
+        problems.append(f"paged launches {launches}")
+      if draft:
+        if "model" not in spec["proposers"] or not spec["proposed"].get("model") or gauges["kv_draft_slots"] != BATCH_SLOTS or not gauges["kv_draft_bytes"] or not dispatches.get("prefill.slots"):
+          problems.append(f"draft: proposers {spec['proposers']}, proposed {spec['proposed']}, gauges {gauges}, dispatches {dispatches}")
+        if not dispatches.get("spec.batch" if dense else "spec.paged_batch"):
+          problems.append(f"no spec dispatch ({dispatches})")
+        for k in graphs["families"]["prefill.slots"]["kernels"]:
+          if k.get("flash_prefill") != L_d:
+            problems.append(f"a draft prefill graph records {k} (K1 {L_d} expected)")
+      elif any(gauges.values()):
+        problems.append(f"kv_draft gauges {gauges} without a draft")
+      if bserver.busy() or (bserver.allocator is not None and bserver.allocator.audit()["referenced"]):
+        problems.append("the server did not drain")
+      if not graphs["ok"]:
+        problems.append(f"a dispatch ran outside its graph, or captures and builds differ: {graphs}")
+      if problems:
+        raise SystemExit(f"chip_smoke: [layouts] {name}: " + "; ".join(problems))
+      out[name] = res
+      log(f"[batched] pass={name} ({'dense' if dense else 'paged'} layout{', draft model' if draft else ''}) {env}: {len(bodies)} streaming requests, {n_tok} tokens in {wall:.3f} s: aggregate {res['aggregate_tok_s']:.1f} tok/s | TTFT p50 {res['ttft_p50_s']:.4f} s p95 {res['ttft_p95_s']:.4f} s | launches {launches} | dispatches by program {dispatches} | proposers {spec['proposers']}: accepted {spec['accepted']} of proposed {spec['proposed']} | kv_draft gauges {gauges} | decode chunks by path {spec['chunks_by_path']} | greedy tokens agreeing with the paged default pass {agree if agree is None else round(agree, 3)} | captures {graphs['captures']} ({graphs['capture_s']:.3f} s; the build round before it: {build['captures']} captures, {build['capture_s']:.3f} s, {build['wall_s']:.3f} s wall) | {_smi()}")
+      log(f"[time] layouts, pass {name}: {time.perf_counter() - t_pass:.1f} s")
+    node.on_token.deregister("chip_smoke")
+    engine._drop_batched_server()
+    return out
+  finally:
+    await node.stop()
+    await asyncio.to_thread(clients.shutdown, True)
+    server.close()
+    await server.wait_closed()
+    engine.executor.shutdown(wait=True)
+
+
+# ------------------------------------------------------------ hub fetch
+
+HUB_REPO_MODEL = "llama-3.2-1b"  # the card the fetched daemon serves (its layers remapped onto the checkpoint's)
+
+
+class _LoopbackHub:
+  """A hub in the API's shape on 127.0.0.1, serving one repo from a
+  directory: ``/api/models/{repo}/tree/main`` listings and
+  ``/{repo}/resolve/main/{file}`` with Range. ``served`` counts bytes."""
+
+  def __init__(self, repo: str, root: Path):
+    import http.server
+
+    hub = self
+    self.repo, self.root, self.requests, self.served = repo, root, [], 0
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+      def log_message(self, *a):
+        pass
+
+      def do_GET(self):  # noqa: N802
+        hub.requests.append(self.path)
+        tree, resolve = f"/api/models/{hub.repo}/tree/main", f"/{hub.repo}/resolve/main/"
+        if self.path.startswith(tree):
+          sub = self.path[len(tree):].strip("/")
+          base = hub.root / sub
+          entries = [{"type": "directory" if p.is_dir() else "file", "path": p.relative_to(hub.root).as_posix(), "size": 0 if p.is_dir() else p.stat().st_size} for p in sorted(base.iterdir())]
+          body = json.dumps(entries).encode()
+          self.send_response(200)
+        elif self.path.startswith(resolve) and (hub.root / self.path[len(resolve):]).is_file():
+          data = (hub.root / self.path[len(resolve):]).read_bytes()
+          start = int(self.headers["Range"].split("=")[1].split("-")[0]) if self.headers.get("Range") else 0
+          body = data[start:]
+          self.send_response(206 if start else 200)
+        else:
+          body = b""
+          self.send_response(404)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+        hub.served += len(body)
+
+    self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    self.httpd.daemon_threads = True
+    self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+    self.thread.start()
+    self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+  def close(self) -> None:
+    self.httpd.shutdown()
+    self.httpd.server_close()
+
+
+def phase_fetch(torch, draft_dir: Path):
+  """A daemon whose downloads home is empty serves a model it first fetches
+  through the hub API from a loopback hub (``_LoopbackHub``: the
+  ``DRAFT_LAYERS``-layer checkpoint at llama-3.2-1b's widths under the
+  card's repo), and answers one chat request on the card. Gates: every
+  file of the checkpoint fetched whole, the downloader's last progress
+  event complete, tokens answered, K1 in the prefill."""
+  from xotorch_support_jetson_tpu_torch import main as tmain, registry
+  from xotorch_support_jetson_tpu_torch.utils.helpers import find_available_port
+
+  home = ROOT / "build" / "fetch_home"
+  shutil.rmtree(home, ignore_errors=True)
+  repo = registry.get_repo(HUB_REPO_MODEL, "TorchShardedInferenceEngine")
+  hub = _LoopbackHub(repo, draft_dir)
+  saved = {k: os.environ.get(k) for k in ("XOT_TPU_HOME", "HF_ENDPOINT", "HF_HUB_OFFLINE", "XOT_TPU_MODEL_DIR")}
+  os.environ.update(XOT_TPU_HOME=str(home), HF_ENDPOINT=hub.url)
+  os.environ.pop("HF_HUB_OFFLINE", None)
+  os.environ.pop("XOT_TPU_MODEL_DIR", None)
+  try:
+    port = find_available_port("127.0.0.1")
+    args = tmain.build_parser().parse_args(["--discovery-module", "none", "--chatgpt-api-port", str(port), "--default-model", HUB_REPO_MODEL, "--max-generate-tokens", "16", "--node-id", "chip-smoke-fetch"])
+    return asyncio.run(_serve_fetched(torch, tmain, args, port, hub, home, repo, draft_dir))
+  finally:
+    hub.close()
+    for k, v in saved.items():
+      if v is None:
+        os.environ.pop(k, None)
+      else:
+        os.environ[k] = v
+    shutil.rmtree(home, ignore_errors=True)
+
+
+async def _serve_fetched(torch, tmain, args, port, hub, home: Path, repo: str, draft_dir: Path):
+  from concurrent.futures import ThreadPoolExecutor
+
+  from xotorch_support_jetson_tpu_torch.download.downloader import get_models_dir, repo_to_dirname
+
+  node, api, engine, _ = tmain.build_components(args, tokenizer=ByteTokenizer())
+  events = []
+  node.shard_downloader.on_progress.register("chip_smoke").on_next(lambda shard, ev: events.append(ev.to_dict()))
+  await node.start()
+  server = await api.run(host="127.0.0.1", port=port)
+  clients = ThreadPoolExecutor(max_workers=2)
+  loop = asyncio.get_running_loop()
+  ids: list[int] = []
+  node.on_token.register("chip_smoke").on_next(lambda rid, toks, fin: ids.extend(toks))
+  try:
+    _reset_launches()  # ---- the fetch and the request, counted
+    t0 = time.perf_counter()
+    text, finish, ttft, total, n_events, rid = await loop.run_in_executor(clients, _post, port, {"model": HUB_REPO_MODEL, "messages": CHAT, "stream": True, "temperature": 0, "max_tokens": 16})
+    wall = time.perf_counter() - t0
+    launches = {k: _launched(k) for k in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}  # ---- read just after
+    model_dir = get_models_dir() / repo_to_dirname(repo)
+    want = sorted(p.relative_to(draft_dir).as_posix() for p in draft_dir.rglob("*") if p.is_file())
+    got = sorted(p.relative_to(model_dir).as_posix() for p in model_dir.rglob("*") if p.is_file()) if model_dir.is_dir() else []
+    whole = got == want and all((model_dir / n).read_bytes() == (draft_dir / n).read_bytes() for n in got)  # config.json and model.safetensors
+    nbytes = sum((model_dir / n).stat().st_size for n in got)
+    res = dict(
+      repo=repo, files=got, bytes=nbytes, wall_s=wall, ttft_s=ttft, tokens=len(ids), finish=finish, events=len(events), last_event=events[-1]["status"] if events else None,
+      hub_requests=len(hub.requests), hub_bytes=hub.served, launches=launches, home_is_empty_first=True,
+    )
+    log(f"[fetch] an empty XOT_TPU_HOME ({home.name}): the daemon fetched {repo} ({len(got)} files, {nbytes / 1e9:.3f} GB) through the hub API from a 127.0.0.1 hub ({len(hub.requests)} requests, {hub.served / 1e9:.3f} GB served; {len(events)} progress events, the last {res['last_event']!r}) and answered one chat request: {len(ids)} tokens, finish {finish}, TTFT {ttft:.3f} s (the fetch and the load included), {wall:.3f} s in all | launches {launches} | {_smi()}")
+    if not got or not whole or not any(n.endswith(".safetensors") for n in got) or "config.json" not in got or res["last_event"] != "complete" or not ids or finish not in ("stop", "length") or not launches["flash_prefill"]:
+      raise SystemExit(f"chip_smoke: [fetch] the fetched daemon: {res}")
+    return res
+  finally:
+    await node.stop()
+    await asyncio.to_thread(clients.shutdown, True)
+    server.close()
+    await server.wait_closed()
+    engine.executor.shutdown(wait=True)
+
+
 def main() -> int:
   try:
     import torch
@@ -6194,6 +6602,10 @@ def main() -> int:
     print(f"chip_smoke: cannot import the PyTorch port ({e}); run from the repository root", file=sys.stderr)
     return 2
   phase_s: dict[str, float] = {}
+  # No phase reaches a hub over the network: the fetch phase points its own
+  # daemon at the script's 127.0.0.1 hub, every other one fetches nothing.
+  os.environ["HF_HUB_OFFLINE"] = "1"
+  os.environ["HF_ENDPOINT"] = "http://127.0.0.1:9"
 
   def timed(name, fn, *args, **kwargs):
     """Run one phase; its wall seconds go to the log (``[time]``) and the record."""
@@ -6223,6 +6635,8 @@ def main() -> int:
     # sliced by the interactive burn's budget.
     tiered = timed("tiered", phase_tiered, torch, ckpt)
     batched = timed("batched", phase_batched, torch, ckpt)
+    layouts = timed("batched layouts", phase_batched_layouts, torch, ckpt, draft_dir, batched["passes"]["bf16"]["streams"])
+    fetch = timed("fetch", phase_fetch, torch, draft_dir)
     processes = timed("processes", phase_processes, ckpt)
     ring = timed("ring", phase_ring, torch, ckpt, smi, serving)
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -6278,6 +6692,8 @@ def main() -> int:
     "ring": [ring["launches"]], "ring_daemons": [ring["daemon_launches"]],
     "moe": [moe_res["bf16"]["launches"], moe_res["bf16"]["batched"]["launches"]], "moe_int4": [moe_res["int4"]["launches"]],
     "mla": [mla_res["bf16"]["launches"], mla_res["bf16"]["batched"]["launches"]], "mla_int4": [mla_res["int4"]["launches"]],
+    "batched_dense": [layouts["bf16_dense"]["launches"]], "batched_draft": [layouts["bf16_draft"]["launches"]], "batched_dense_draft": [layouts["bf16_dense_draft"]["launches"]],
+    "fetch": [fetch["launches"]],
   }
   by_path = {name: {path: sum(x.get(name, 0) for x in runs) for path, runs in paths.items()} for name in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
   for name in ("flash_prefill", "paged_decode"):
@@ -6296,14 +6712,17 @@ def main() -> int:
   kernels_line = {"kernels": [
     # Head row: Sq 128 at offset 0 against the 4096-slot cache; the solo
     # verify-window and scoring-shape rows' errors count too.
-    {**entry("flash_prefill", "xotorch_support_jetson_tpu_torch/csrc/flash_prefill.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:32", kern["flash_prefill"] + kern["flash_prefill_verify"] + kern["flash_prefill_scoring"] + kern["flash_prefill_moe"], 0),
+    {**entry("flash_prefill", "xotorch_support_jetson_tpu_torch/csrc/flash_prefill.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:32", kern["flash_prefill"] + kern["flash_prefill_verify"] + kern["flash_prefill_scoring"] + kern["flash_prefill_moe"] + kern["flash_prefill_b8_verify"], 0),
+     "b8_verify_windows": [{k: r[k] for k in ("B", "Sq", "q_offset", "kv", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_prefill_b8_verify"]],
      "moe_rows": [{k: r[k] for k in ("Sq", "q_offset", "kv", "hd", "heads", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_prefill_moe"]],
      "verify_windows": [{k: r[k] for k in ("Sq", "q_offset", "kv", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_prefill_verify"]],
      "scoring_rows": [{k: r[k] for k in ("Sq", "skv", "q_offset", "kv", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_prefill_scoring"]]},
-    entry("flash_decode", "xotorch_support_jetson_tpu_torch/csrc/flash_decode.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:190", kern["flash_decode"], 0),
+    {**entry("flash_decode", "xotorch_support_jetson_tpu_torch/csrc/flash_decode.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:190", kern["flash_decode"] + kern["flash_decode_b8"], 0),
+     "b8_rows": [{k: r[k] for k in ("B", "positions", "cache", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_decode_b8"]]},
     # Head row: B=8 at mixed lengths, bf16 pages (the batched path's geometry);
     # the verify-window rows' errors count too.
-    {**entry("paged_decode", "xotorch_support_jetson_tpu_torch/csrc/paged_decode.cu", "xotorch_support_jetson_tpu/ops/paged.py:236", kern["paged_decode"] + kern["paged_window"] + kern["paged_decode_moe"], 12),
+    {**entry("paged_decode", "xotorch_support_jetson_tpu_torch/csrc/paged_decode.cu", "xotorch_support_jetson_tpu/ops/paged.py:236", kern["paged_decode"] + kern["paged_window"] + kern["paged_window_w5"] + kern["paged_decode_moe"], 12),
+     "drafted_verify_windows": [{k: r[k] for k in ("B", "W", "starts", "kv", "max_abs_err", "ms", "w1_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["paged_window_w5"]],
      "moe_rows": [{k: r[k] for k in ("B", "kv", "hd", "heads", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["paged_decode_moe"]],
      "verify_window": {k: kern["paged_window"][0][k] for k in ("B", "W", "starts", "kv", "ms", "w1_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
     # Head row: one MLP projection (in 2048, out 8192) at T=1, solo decode;
@@ -6315,7 +6734,7 @@ def main() -> int:
      "moe_rows": [{k: r[k] for k in ("weight", "T", "d_in", "d_out", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["int4_matmul_moe"]],
      "gemma2_rows": [{k: r[k] for k in ("weight", "T", "d_in", "d_out", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["int4_matmul_gemma2"]]},
   ]}
-  record = dict(card=smi, phase_s=phase_s, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, processes=processes, ring=ring, moe=moe_res, mla=mla_res, gemma2=gemma, summary=kernels_line)
+  record = dict(card=smi, phase_s=phase_s, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, layouts=layouts, fetch=fetch, processes=processes, ring=ring, moe=moe_res, mla=mla_res, gemma2=gemma, summary=kernels_line)
   out = ROOT / "chiprun_out"
   out.mkdir(exist_ok=True)
   (out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=float))

@@ -567,7 +567,10 @@ def test_registry_helpers_equal_the_reference(model):
 
 def test_local_downloader_resolves_on_disk_checkpoints(tmp_path, monkeypatch, tiny_dir):
   """``XOT_TPU_MODEL_DIR`` first; else the card's own directory under the
-  downloads home, its files reported complete; else a clear error."""
+  downloads home, its files reported complete; else the hub fetch, which
+  ``HF_HUB_OFFLINE`` (set for the test suite) turns into a clear error
+  instead (tests/test_torch_download.py fetches from a loopback hub)."""
+  monkeypatch.setenv("HF_HUB_OFFLINE", "1")
   monkeypatch.setenv("XOT_TPU_HOME", str(tmp_path))
   monkeypatch.delenv("XOT_TPU_MODEL_DIR", raising=False)
   shard = tregistry.build_full_shard(MODEL, TENGINE)
@@ -576,7 +579,7 @@ def test_local_downloader_resolves_on_disk_checkpoints(tmp_path, monkeypatch, ti
   async def go():
     dl = tdl.new_shard_downloader()
     dl.on_progress.register("t").on_next(lambda s, e: events.append((s, e)))
-    with pytest.raises(FileNotFoundError, match="no hub download"):
+    with pytest.raises(FileNotFoundError, match="no local checkpoint.*HF_HUB_OFFLINE is set"):
       await dl.ensure_shard(shard, TENGINE)
     card_dir = tdl.get_models_dir() / tdl.repo_to_dirname(tregistry.get_repo(MODEL, TENGINE))
     card_dir.mkdir(parents=True)

@@ -242,9 +242,23 @@ def test_batched_server_backpressure_and_oversized_prompts(model, knobs):
 
 @pytest.mark.parametrize("knob,value", [("XOT_TPU_PAGED", "0"), ("XOT_TPU_PAGED", "auto")])
 def test_unported_batched_features_refuse_at_build(model, knobs, knob, value):
+  """``XOT_TPU_PAGED=0|auto`` no longer refuses: the server builds the
+  layout the reference's does (dense; under ``auto`` the decode-path
+  table's verdict, paged on the CPU) and answers the requests with the JAX
+  server's tokens (tests/test_torch_dense_batched.py holds the dense
+  layout in full)."""
+  from xotorch_support_jetson_tpu.inference.batch_scheduler import BatchedServer as JaxBatchedServer
+
   knobs.setenv(knob, value)
-  with pytest.raises(NotImplementedError, match=knob):
-    _port_server(model)
+  jc, _, js, _, jp, _ = model
+  prompts, max_tokens, eos = _requests(model)
+  jengine = JaxShardedInferenceEngine(use_local_mesh=False)
+  jengine.load_test_model(js, jc, jp)
+  jserver = JaxBatchedServer(jengine, n_slots=2, chunk=3)
+  want = asyncio.run(_serve(jserver, prompts, max_tokens, eos))
+  server = _port_server(model)
+  assert asyncio.run(_serve(server, prompts, max_tokens, eos)) == want
+  assert server.paged == jserver.paged == (value == "auto") and server.decode_path == jserver.decode_path
 
 
 @pytest.mark.parametrize("value", ["1", "on"])

@@ -140,9 +140,9 @@ def test_engine_validates_the_quantization_knobs(monkeypatch):
 
 def test_engine_refuses_speculative_decoding(monkeypatch):
   """The engine speculates under XOT_TPU_SPEC_DECODE as the reference does
-  (tests/test_torch_spec_solo.py holds it against the JAX engine); what the
-  port still refuses is the batched server with a draft loaded, whose
-  model proposer is not ported, rather than serve n-gram only."""
+  (tests/test_torch_spec_solo.py holds it against the JAX engine), and its
+  batched server takes the loaded draft as its "model" proposer
+  (tests/test_torch_draft_batched.py holds that against the reference)."""
   from xotorch_support_jetson_tpu_torch.models.config import tiny_test_config
   from xotorch_support_jetson_tpu_torch.models.decoder import init_shard_params
 
@@ -153,8 +153,10 @@ def test_engine_refuses_speculative_decoding(monkeypatch):
   cfg, shard = tiny_test_config(n_layers=2), Shard("m", 0, 1, 2)
   engine.load_test_model(shard, cfg, init_shard_params(cfg, shard, torch.Generator().manual_seed(0)))
   assert engine.spec_decode == "int8" and engine._draft_params is not None  # the int8 self-draft
-  with pytest.raises(NotImplementedError, match="XOT_TPU_SPEC_DECODE"):
-    engine.get_batched_server()
+  server = engine.get_batched_server()
+  server._ensure_cache()
+  assert server.ops.spec_supported() and server.spec_proposers[0] == "model" and server.draft_cache is not None
+  server.shutdown()
   monkeypatch.setenv("XOT_TPU_SPEC_DECODE", "")
   engine = TorchShardedInferenceEngine(device="cpu")
   assert engine.quant is None and engine.spec_decode is None

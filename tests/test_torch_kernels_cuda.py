@@ -213,6 +213,30 @@ def test_flash_prefill_is_one_kernel_and_one_allocation_per_call(dev, quant):
     assert _allocations(lambda: fa.flash_attention_prefill(q, k, v, **kw)) == 1
 
 
+# The dense batched layout's shapes: verify windows of B=8 rows at their
+# own offsets over the 4096-slot cache (spec.batch), and decode steps of
+# B=8 rows at mixed positions (decode.batch with XOT_TPU_FLASH_DECODE=1).
+B8_WINDOW_OFFSETS = [[150, 214, 278, 342, 407, 471, 535, 600], [0, 1, 63, 64, 777, 2048, 3333, 4086]]
+B8_DECODE_POSITIONS = [[1, 64, 65, 777, 1500, 2048, 3333, 4095], [4095, 0, 2047, 8, 4000, 513, 96, 3071]]
+
+
+@pytest.mark.parametrize("Sq", [5, 9])
+@pytest.mark.parametrize("offsets", B8_WINDOW_OFFSETS, ids=["150-600", "0-4086"])
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_prefill_b8_verify_windows(dev, Sq, offsets, quant):
+  """K1 at the dense layout's verify windows: B=8 rows, Sq = gamma+1 (5:
+  a model draft at depth 4; 9: n-gram depth 8), each row at its own
+  offset, one launch, against the plain version."""
+  _check_prefill(dev, Sq, offsets, quant=quant)
+
+
+@pytest.mark.parametrize("positions", B8_DECODE_POSITIONS, ids=["ascending", "shuffled"])
+def test_flash_decode_b8_mixed_positions(dev, positions):
+  """K2 at B=8 rows of mixed positions in one launch (the dense layout's
+  decode step), against the plain version."""
+  _check_flash_decode(dev, positions, 4096, 64)
+
+
 @pytest.mark.parametrize("positions,Skv,hd", [([4095], 4096, 64), ([0, 1, 700, 4095], 4096, 64), ([0], 4096, 64), ([999, 3], 1000, 64), ([300, 0], 512, 128), ([511], 512, 256)])
 def test_flash_decode_matches_plain(dev, positions, Skv, hd):
   _check_flash_decode(dev, positions, Skv, hd)

@@ -601,6 +601,97 @@ def test_k3_inside_a_replay_on_refilled_inputs(card, window):
   torch.testing.assert_close(out.float(), want, atol=2.5e-4, rtol=2.0**-7)
 
 
+def _dense_traffic(ops, cache, cache_d, seed: int) -> list:
+  """The dense layout's dispatches at the card model's size, as host
+  arrays: three admissions into rows 2, 0 and 3 with the padding row on
+  spare slot 1 (one sampled row), the draft's prefill of the greedy rows,
+  two chained plain chunks of 4 steps, and a spec chunk of 2 rounds at
+  depth cap 3 (the draft proposing when ``cache_d`` is given, else an
+  n-gram stream on one row)."""
+  rng = np.random.default_rng(seed)
+  lens = np.array([37, 20 + seed % 5, 50, 1], np.int32)
+  rows = np.array([2, 0, 3, 1], np.int32)
+  tokens = np.zeros((4, 64), np.int32)
+  for i in range(3):
+    tokens[i, : lens[i]] = rng.integers(3, 512, lens[i])
+  temps, top_ks = np.array([0.0, 0.7, 0.0, 0.0], np.float32), np.array([35, 20, 35, 1], np.int32)
+  first, _ = ops.prefill_into_slots_sampled(tokens, cache, rows, lens, temps, top_ks, 64, seed)
+  out = [first.cpu().numpy()]
+  if cache_d is not None:
+    greedy = [0, 2]
+    ops.prefill_draft_into_slots(tokens[greedy], cache_d, rows[greedy], lens[greedy])
+  by_row = np.zeros((4, 1), np.int32)
+  by_row[rows[:3], 0] = out[0][:3]
+  pos = np.zeros(4, np.int32)
+  pos[rows[:3]] = lens[:3]
+  r_temps, r_topk = np.zeros(4, np.float32), np.ones(4, np.int32)
+  r_temps[rows[:3]], r_topk[rows[:3]] = temps[:3], top_ks[:3]
+  active = np.zeros(4, bool)
+  active[rows[:3]] = True
+  token = by_row
+  for step in range(2):
+    toks, token, npos, _ = ops.batch_decode(token, cache, pos, active, r_temps, r_topk, 4, 64, seed + 1 + step)
+    out += [toks.cpu().numpy(), npos.cpu().numpy()]
+    pos = npos.cpu().numpy()
+  gammas = np.zeros(4, np.int32)
+  gammas[[2, 3]] = [3, 2]
+  props = counts = None
+  if cache_d is None:
+    props = np.zeros((4, 2 * 4 + 3), np.int32)
+    props[3, :6] = rng.integers(3, 512, 6)
+    counts = np.array([0, 0, 0, 6], np.int32)
+  res = ops.spec_batch_decode(token, cache, cache_d, pos, active, gammas, r_temps, r_topk, 2, 3, 64, seed + 3, props=props, prop_counts=counts)
+  out += [t.cpu().numpy() for t in res[:5]]
+  return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8_kv", "k2"])
+@pytest.mark.parametrize("draft", ["none", "int8", "cross"])
+def test_captured_dense_programs_equal_uncaptured_on_the_card(card, mode, draft, monkeypatch):
+  """The dense layout's dispatches through ``BatchedPrograms`` (the slot
+  cache ``init_cache`` made, the draft's cache joined to it) against the
+  eager functions on identical caches, in a round that builds every graph
+  and two that replay them: every token identical (greedy and seeded
+  sampled rows); K1 in the admission prefill and in every verify window
+  (and in the draft's catch-up and prefill), K2 in every plain step with
+  ``XOT_TPU_FLASH_DECODE=1``."""
+  from xotorch_support_jetson_tpu_torch.inference.batch_ops import DecoderBatchOps
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  if mode == "k2":
+    monkeypatch.setenv("XOT_TPU_FLASH_DECODE", "1")
+    monkeypatch.setenv("XOT_TPU_FLASH_DECODE_MIN", "256")
+  monkeypatch.setenv("XOT_TPU_KV_QUANT", "int8" if mode == "int8_kv" else "")
+  cfg, shard, params = _card_model()
+  eng = OpsEngine(cfg, shard, params)
+  L_d = 0
+  if draft != "none":
+    eng._draft_cfg, eng._draft_shard, eng._draft_params = _card_draft(draft, cfg, shard, params)
+    L_d = eng._draft_cfg.n_layers
+  ops = DecoderBatchOps(eng)
+  captured = ops.init_cache(4, 512)
+  cd_captured = ops.init_draft_cache(4, 512) if draft != "none" else None
+  eager = {k: v.clone() for k, v in captured.items()}
+  cd_eager = None if cd_captured is None else {k: v.clone() for k, v in cd_captured.items()}
+  programs.reset_replayed()
+  for rnd, seed in enumerate((5, 6, 7)):
+    got = _dense_traffic(ops, captured, cd_captured, seed)
+    want = _dense_traffic(ops, eager, cd_eager, seed)
+    for i, (a, b) in enumerate(zip(got, want)):
+      assert np.array_equal(a, b), (mode, draft, rnd, i)
+  graphs = {g.family: g for g in ops.programs.graphs()}
+  want_fams = {"prefill.slots_sampled", "decode.batch", "spec.batch"} | ({"prefill.slots"} if draft != "none" else set())
+  assert set(graphs) == want_fams and all(g.graph is not None and g.kernel_nodes > 0 for g in ops.programs.graphs())
+  L = cfg.n_layers
+  assert graphs["prefill.slots_sampled"].kernels.get("flash_prefill", 0) == L
+  assert graphs["spec.batch"].kernels.get("flash_prefill", 0) == 2 * (L + L_d)  # the verify window, and the draft's catch-up, per round
+  assert graphs["decode.batch"].kernels.get("flash_decode", 0) == (4 * L if mode == "k2" else 0)
+  if draft != "none":
+    assert graphs["prefill.slots"].kernels.get("flash_prefill", 0) == L_d
+    assert graphs["spec.batch"].kernels.get("flash_decode", 0) == (2 * 3 * L_d if mode == "k2" else 0)  # the draft's proposal steps
+
+
 def _card_draft(proposer: str, cfg, shard, params):
   """(cfg, shard, params) of the card model's draft: its int8 self-draft,
   or a 1-layer int8 model of another width on the same vocab."""

@@ -325,9 +325,30 @@ def test_fused_spec_chunk_matches_reference(models, case, with_props):
 
 
 def test_spec_chunk_refuses_a_draft_model(models):
-  _, tc, _, ts, _, tp = models["random"]
-  with pytest.raises(NotImplementedError, match="draft-model proposer"):
+  """A draft model now proposes inside the paged spec chunk (the model
+  proposer; tests/test_torch_draft_batched.py holds it against the
+  reference in full): given no slot cache for it, the chunk refuses; given
+  one, a draft equal to the target proposes what the target verifies, so
+  every round accepts its whole window, as in the reference's chunk."""
+  jc, tc, js, ts, jp, tp = models["random"]
+  with pytest.raises(ValueError, match="slot cache"):
     tdec.fused_spec_paged_batch_decode(tp, tc, ts, tp, tc, ts, torch.zeros((1, 1), dtype=torch.int32), {}, None, torch.zeros((1, 4), dtype=torch.int32), torch.zeros(1, dtype=torch.int32), torch.ones(1, dtype=torch.bool), torch.ones(1, dtype=torch.int32), torch.zeros(1), 2, 2, page_size=PS)
+  prompt = np.array([[3, 14, 15, 92, 65]], np.int32)
+  bt = np.array([[1, 2, 3, 4]], np.int32)
+  z, lens = np.zeros(1, np.int32), np.array([5], np.int32)
+  jpool, tpool = jpaged.init_paged_pool(jc, 2, 5, PS), paged.init_paged_pool(tc, 2, 5, PS)
+  jl, jpool = jdec.prefill_into_pages_many(jp, jc, js, jnp.asarray(prompt), jpool, jnp.asarray(bt), jnp.asarray(z), jnp.asarray(lens), PS)
+  tdec.prefill_into_pages_many(tp, tc, ts, torch.from_numpy(prompt), tpool, torch.from_numpy(bt), torch.from_numpy(z), torch.from_numpy(lens), PS)
+  jcd, tcd = jdec.init_kv_cache(jc, 2, 1, 32), tdec.init_kv_cache(tc, 2, 1, 32)
+  _, jcd = jdec.prefill_into_slots(jp, jc, js, jnp.asarray(prompt), jcd, jnp.zeros(1, jnp.int32), jnp.asarray(lens))
+  tdec.prefill_into_slots(tp, tc, ts, torch.from_numpy(prompt), tcd, torch.zeros(1, dtype=torch.int32), torch.from_numpy(lens))
+  first = np.argmax(np.asarray(jl), -1).astype(np.int32)[:, None]
+  rows = (np.array([5], np.int32), np.array([True]), np.array([2], np.int32), np.zeros(1, np.float32))
+  jout = jdec.fused_spec_paged_batch_decode(jp, jc, js, jp, jc, js, jnp.asarray(first), jpool, jcd, jnp.asarray(bt), *map(jnp.asarray, rows), 3, 2, page_size=PS)
+  tout = tdec.fused_spec_paged_batch_decode(tp, tc, ts, tp, tc, ts, torch.from_numpy(first), tpool, tcd, torch.from_numpy(bt), *map(torch.from_numpy, rows), 3, 2, page_size=PS)
+  n = int(tout[1][0])
+  assert n == int(jout[1][0]) == 9 and int(tout[2][0]) == int(jout[2][0]) == 6
+  assert tout[0][0, :n].tolist() == np.asarray(jout[0])[0, :n].tolist()
 
 
 def test_sampled_rows_run_plain_and_draw_the_plain_chunks_tokens(models):

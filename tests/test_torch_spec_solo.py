@@ -21,8 +21,9 @@ rtol = atol = 2e-4.
   (``generate_oneshot``) requests;
 - the draft loader's verdicts (missing checkpoint, vocab mismatch, differing
   tokenizer files, a quantized target with no draft) equal the JAX
-  engine's; the batched server refuses a loaded draft (the reference would
-  draft with it) and serves ``ngram`` as before;
+  engine's; the batched server offers a loaded draft as its "model"
+  proposer, as the reference's does, and serves ``ngram`` alone without
+  one;
 - the port's daemon (main → node → API) with each proposer: streaming and
   blocking greedy ids equal to the JAX engine's under the node's loop.
 """
@@ -189,7 +190,8 @@ def test_speculative_chunks_chain_like_the_reference(models):
 @pytest.mark.parametrize("with_props", [False, True])
 def test_dense_spec_batch_decode_matches_reference(models, with_props):
   """The draft-free dense chunk at B=1 (the solo n-gram program): buffer,
-  counts, proposed counts, next token and position."""
+  counts, proposed counts, next token and position; a draft given without
+  its slot cache refuses."""
   jc, tc, js, ts, jp, tp = models["target"]
   ref = _spec_generate(models, "int8", PROMPT, 24, 2)[0]
   first, greedy = int(np.argmax(ref[3][0])), ref[0]
@@ -214,7 +216,7 @@ def test_dense_spec_batch_decode_matches_reference(models, with_props):
   assert tcnt.tolist() == jcnt.tolist() and tnp.tolist() == jnp_.tolist() and ttok.tolist() == jtok.tolist() and tpos.tolist() == jpos.tolist()
   assert tb[0, :c].tolist() == jb[0, :c].tolist() == greedy[:c]
   assert (c > 4) == with_props  # proposals accepted; without them each round emits one token
-  with pytest.raises(NotImplementedError):
+  with pytest.raises(ValueError, match="slot cache"):  # a draft proposes from its own cache (tests/test_torch_draft_batched.py)
     tdec.fused_spec_batch_decode(tp, tc, ts, tp, tc, ts, torch.zeros((1, 1), dtype=torch.int32), None, None, torch.zeros((1,), dtype=torch.int32), torch.ones((1,), dtype=torch.bool), torch.ones((1,), dtype=torch.int32), torch.zeros((1,)), 1, 1)
 
 
@@ -487,20 +489,28 @@ def test_draft_loader_verdicts_match_reference(spec_env, models, tmp_path, case)
 
 
 def test_batched_server_refuses_a_loaded_draft(spec_env, models):
-  """The reference's batched server drafts with a loaded model; the port's
-  has no model proposer, so it refuses instead of serving n-gram only.
-  ``XOT_TPU_SPEC_DECODE=ngram`` (no draft) builds as before."""
+  """A loaded draft no longer refuses the batched server: like the
+  reference's, it offers the "model" proposer beside the n-gram one and
+  builds the draft's slot cache with the pool
+  (tests/test_torch_draft_batched.py serves it against the reference).
+  ``XOT_TPU_SPEC_DECODE=ngram`` (no draft) builds the n-gram proposer
+  alone, as before."""
   (je, _), (te, _) = _engines(models["target"], "int8")
-  jserver = JaxBatchedServer(je, n_slots=2, chunk=4)
+  jserver, server = JaxBatchedServer(je, n_slots=2, chunk=4), BatchedServer(te, n_slots=2, chunk=4)
   try:
-    assert jserver.ops.spec_supported()  # the reference's server would offer the "model" proposer
+    assert jserver.ops.spec_supported() and server.ops.spec_supported()
+    jserver._ensure_cache()
+    server._ensure_cache()
+    assert server.spec_proposers == jserver.spec_proposers == ("model", "ngram")
+    assert server.draft_cache is not None and tuple(server.draft_cache["k"].shape) == tuple(jserver.draft_cache["k"].shape)
   finally:
     jserver.shutdown()
-  with pytest.raises(NotImplementedError, match="draft-model proposer"):
-    BatchedServer(te)
+    server.shutdown()
   _, (te, _) = _engines(models["target"], "ngram")
   assert te._draft_params is None
   server = BatchedServer(te, n_slots=2, chunk=4)
+  server._ensure_cache()
+  assert server.spec_proposers == ("ngram",) and server.draft_cache is None
   server.shutdown()
 
 

@@ -509,8 +509,8 @@ class ChatGPTAPI:
 
   async def handle_post_download(self, request, writer):
     """POST /download — resolve a model's checkpoint in the background
-    (download/downloader.py: a local directory; the port has no hub fetch
-    yet); progress lands in ``/v1/download/progress``."""
+    (download/downloader.py: a local directory, or else a fetch from the
+    hub); progress lands in ``/v1/download/progress``."""
     try:
       data = request.json()
     except ValueError as e:

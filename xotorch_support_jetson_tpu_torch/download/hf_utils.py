@@ -1,7 +1,7 @@
-"""Hub plumbing that does no I/O over the network: the token and auth
-headers a fetch would send, and the shard-aware choice of a repo's files.
-Own copy of those functions of the reference's ``download/hf_utils.py``;
-the fetch itself is not ported yet.
+"""Hub plumbing: the endpoint (``HF_ENDPOINT``), the token and auth headers
+a fetch sends, and the shard-aware choice of a repo's files. Own copy of
+the reference's ``download/hf_utils.py``; the fetch itself is
+``download/downloader.py HFShardDownloader``.
 """
 
 from __future__ import annotations
@@ -13,6 +13,10 @@ from pathlib import Path
 from typing import Iterable
 
 from ..inference.shard import Shard
+
+
+def get_hf_endpoint() -> str:
+  return os.environ.get("HF_ENDPOINT", "https://huggingface.co")
 
 
 def get_hf_home() -> Path:

@@ -1,18 +1,23 @@
 """Device operations of the continuous-batching scheduler, behind one small
 interface (counterpart of the reference's ``inference/batch_ops.py``
-``DecoderBatchOps``; the pp/sp mesh backends, the draft-model proposer and
-LoRA are not ported yet). It runs the draft-free speculative chunk
-(``spec_paged_batch_decode``: n-gram proposals verified through K3). It
-also carries the host KV tier's page copies
-(inference/kv_tier.py): ``read_pages`` starts a spill's device-to-host copy
-and ``write_pages`` writes a restore's host pages back into the pool.
+``DecoderBatchOps``; the pp/sp mesh backends and LoRA are not ported yet).
+It serves both layouts: the page pool (``init_pool``) and the dense slot
+cache (``init_cache``, ``XOT_TPU_PAGED=0``). It runs the speculative
+chunks on either, with the n-gram proposer and, when the engine holds a
+draft (``XOT_TPU_SPEC_DECODE=int8`` or ``XOT_TPU_SPEC_DRAFT``), the model
+proposer on the draft's own slot cache (``init_draft_cache``,
+``prefill_draft_into_slots``). It also carries the host KV tier's page
+copies (inference/kv_tier.py): ``read_pages`` starts a spill's
+device-to-host copy and ``write_pages`` writes a restore's host pages back
+into the pool.
 
-The pool made by ``init_pool`` comes with its captured programs
-(models/decoder.py ``BatchedPrograms``): every dispatch against it — the
-admission prefill, the plain, mixed and speculative chunks — is one
+The pool or cache made by ``init_pool`` / ``init_cache`` comes with its
+captured programs (models/decoder.py ``BatchedPrograms``), and the draft
+cache joins them: every dispatch against it — the admission prefill, the
+draft's prefill, the plain, mixed and speculative chunks — is one
 CUDA-graph replay on the card (its body run eagerly through the same
-buffers on the CPU). The eager functions serve any other pool (tests, the
-uncaptured comparison). ``drop_pool`` forgets a pool's programs with it.
+buffers on the CPU). The eager functions serve any other store (tests, the
+uncaptured comparison). ``drop_pool`` forgets a store's programs with it.
 
 The scheduler hands host operands as numpy arrays. They reach the card as
 non-blocking copies out of pinned host memory, so a dispatch never waits
@@ -84,19 +89,34 @@ class DecoderBatchOps:
   def _generator(self, key: int) -> torch.Generator:
     return torch.Generator(device=self.engine.device).manual_seed(int(key))
 
-  def init_pool(self, n_pages: int, page_size: int):
-    """A page pool with its captured programs (``BatchedPrograms``), which
-    replace the previous pool's."""
+  def _new_programs(self, make, dense: bool):
+    """``make()``'s store with its captured programs (``BatchedPrograms``),
+    which replace the previous store's (their graphs go before the new
+    store is allocated)."""
     from ..models.decoder import BatchedPrograms
+
+    eng = self.engine
+    if self.programs is not None:
+      self.programs.close()
+      self.programs = None
+    store = make()
+    self.programs = BatchedPrograms(eng.params, eng.cfg, eng._effective_shard, store, dense=dense)
+    return store
+
+  def init_pool(self, n_pages: int, page_size: int):
+    """A page pool with its captured programs."""
     from ..ops.paged import init_paged_pool
 
     eng = self.engine
-    if self.programs is not None:  # the old pool's graphs go before the new pool is allocated
-      self.programs.close()
-      self.programs = None
-    pool = init_paged_pool(eng.cfg, eng._effective_shard.n_shard_layers, n_pages, page_size, device=eng.device)
-    self.programs = BatchedPrograms(eng.params, eng.cfg, eng._effective_shard, pool)
-    return pool
+    return self._new_programs(lambda: init_paged_pool(eng.cfg, eng._effective_shard.n_shard_layers, n_pages, page_size, device=eng.device), dense=False)
+
+  def init_cache(self, n_slots: int, max_seq: int):
+    """The dense slot cache [L, n_slots, max_seq, ...] (KV quant as
+    ``XOT_TPU_KV_QUANT`` says) with its captured programs."""
+    from ..models.decoder import init_kv_cache
+
+    eng = self.engine
+    return self._new_programs(lambda: init_kv_cache(eng.cfg, eng._effective_shard.n_shard_layers, n_slots, max_seq, device=eng.device), dense=True)
 
   def drop_pool(self, pool) -> None:
     """Forget ``pool``'s programs (shutdown): their graphs hold its
@@ -108,6 +128,40 @@ class DecoderBatchOps:
   def _programs_for(self, pool):
     progs = self.programs
     return progs if progs is not None and progs.pool is pool else None
+
+  def prefill_into_slots(self, tokens, cache, rows, prompt_lens):
+    from ..models.decoder import prefill_into_slots
+
+    eng = self.engine
+    return prefill_into_slots(eng.params, eng.cfg, eng._effective_shard, self._dev(tokens), cache, self._dev(rows), self._dev(prompt_lens))
+
+  def prefill_into_slots_sampled(self, tokens, cache, rows, prompt_lens, temps, top_ks, k_max: int, key):
+    """Prefill K admissions into K rows of the slot cache and sample their
+    first tokens: (first_tokens [K], cache)."""
+    from ..models.decoder import prefill_into_slots_sampled
+
+    progs = self._programs_for(cache)
+    if progs is not None:
+      return progs.prefill_slots(tokens, rows, prompt_lens, temps, top_ks, k_max, key), cache
+    eng = self.engine
+    return prefill_into_slots_sampled(
+      eng.params, eng.cfg, eng._effective_shard, self._dev(tokens), cache, self._dev(rows), self._dev(prompt_lens),
+      self._dev(temps), self._dev(top_ks), self._generator(key), int(k_max),
+    )
+
+  def batch_decode(self, token, cache, positions, active, temps, top_ks, n_steps: int, k_max: int, key):
+    """One decode chunk over the slot cache: (tokens, next_token,
+    positions, cache), ``fused_batch_decode``'s contract."""
+    from ..models.decoder import fused_batch_decode
+
+    progs = self._programs_for(cache)
+    if progs is not None:
+      return (*progs.batch_decode(token, positions, active, temps, top_ks, n_steps, k_max, key), cache)
+    eng = self.engine
+    return fused_batch_decode(
+      eng.params, eng.cfg, eng._effective_shard, self._dev(token), cache, self._dev(positions), self._dev(active), self._dev(temps), n_steps,
+      top_k=self._dev(top_ks), k_max=k_max, generator=self._generator(key),
+    )
 
   def prefill_into_pages_many(self, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size: int):
     from ..models.decoder import prefill_into_pages_many
@@ -147,36 +201,88 @@ class DecoderBatchOps:
   # ------------------------------------------------- batched speculation
 
   def spec_supported(self) -> bool:
-    """The model proposer is available: never in the port (it is not
-    ported; the server refuses to build with a draft loaded), so the server
-    offers only the n-gram proposer."""
-    return False
+    """The model proposer is available: the engine holds a draft (the int8
+    self-draft or a draft checkpoint)."""
+    return getattr(self.engine, "_draft_params", None) is not None
 
   def spec_ngram_supported(self) -> bool:
     """The draft-free spec program runs here: it needs a full-model
     single-device backend, which this class is."""
     return True
 
-  def spec_paged_batch_decode(self, token, pool, cache_d, block_tables, positions, active, gammas, temps, top_ks, n_rounds: int, gamma_max: int, k_max: int, page_size: int, key, props=None, prop_counts=None, adapter_ids=None):
-    """One speculative chunk (``fused_spec_paged_batch_decode``), the
-    reference's signature. Returns (tokens, counts, n_prop, next_token,
-    positions, pool, cache_d) with every tensor on the device; the
-    scheduler queues the host copies of tokens, counts and n_prop behind
-    one event (``to_host_async``), as it does for a plain chunk's tokens."""
-    from ..models.decoder import fused_spec_paged_batch_decode
-
-    progs = self._programs_for(pool)
-    if progs is not None and adapter_ids is None:
-      res = progs.spec(token, block_tables, positions, active, gammas, temps, top_ks, n_rounds, gamma_max, k_max, page_size, key, props=props, prop_counts=prop_counts)
-      return (*res, pool, cache_d)
+  def draft_geometry(self):
+    """(cfg_d, shard_d) of the draft: the target's own for a self-draft."""
     eng = self.engine
-    return fused_spec_paged_batch_decode(
-      eng.params, eng.cfg, eng._effective_shard, None, None, None, self._dev(token), pool, cache_d, self._dev(block_tables),
-      self._dev(positions), self._dev(active), self._dev(gammas), self._dev(temps), n_rounds, gamma_max, top_k=self._dev(top_ks),
-      k_max=k_max, page_size=page_size, generator=self._generator(key),
+    return (getattr(eng, "_draft_cfg", None) or eng.cfg), (getattr(eng, "_draft_shard", None) or eng._effective_shard)
+
+  def init_draft_cache(self, n_slots: int, max_seq: int):
+    """The draft's slot cache [L_d, n_slots, max_seq, ...], in the model
+    dtype whatever ``XOT_TPU_KV_QUANT`` says (a small cache, and int8
+    rounding between the draft's proposals and the verify would buy
+    nothing), joined to the current store's programs."""
+    from ..models.decoder import init_kv_cache
+
+    cfg_d, shard_d = self.draft_geometry()
+    cache_d = init_kv_cache(cfg_d, shard_d.n_shard_layers, n_slots, max_seq, quant="", device=self.engine.device)
+    if self.programs is not None:
+      self.programs.set_draft(self.engine._draft_params, cfg_d, shard_d, cache_d)
+    return cache_d
+
+  def _draft_programs(self, cache_d):
+    progs = self.programs
+    return progs if progs is not None and progs.draft is not None and progs.draft[3] is cache_d else None
+
+  def prefill_draft_into_slots(self, tokens, cache_d, rows, prompt_lens):
+    """The draft's prompt prefill into its slot cache (its own dispatch of
+    ``prefill.slots``, queued behind the target's admission); returns
+    ``cache_d``, written in place."""
+    from ..models.decoder import prefill_into_slots
+
+    progs = self._draft_programs(cache_d)
+    if progs is not None:
+      progs.draft_prefill(tokens, rows, prompt_lens)
+      return cache_d
+    cfg_d, shard_d = self.draft_geometry()
+    _, cache_d = prefill_into_slots(self.engine._draft_params, cfg_d, shard_d, self._dev(tokens), cache_d, self._dev(rows), self._dev(prompt_lens))
+    return cache_d
+
+  def _spec(self, store, cache_d, block_tables, token, positions, active, gammas, temps, top_ks, n_rounds, gamma_max, k_max, page_size, key, props, prop_counts, adapter_ids):
+    """Either speculative chunk. ``cache_d`` None is the draft-free chunk
+    (no model-drafted row in it); otherwise the draft proposes on it."""
+    from ..models.decoder import fused_spec_batch_decode, fused_spec_paged_batch_decode
+
+    progs = self._programs_for(store)
+    use_draft = cache_d is not None
+    if progs is not None and adapter_ids is None and (not use_draft or self._draft_programs(cache_d) is progs):
+      res = progs.spec(token, block_tables, positions, active, gammas, temps, top_ks, n_rounds, gamma_max, k_max, page_size, key, props=props, prop_counts=prop_counts, use_draft=use_draft)
+      return (*res, store, cache_d)
+    eng = self.engine
+    cfg_d, shard_d = self.draft_geometry()
+    params_d = eng._draft_params if use_draft else None
+    rows = (self._dev(positions), self._dev(active), self._dev(gammas), self._dev(temps), n_rounds, gamma_max)
+    kw = dict(
+      top_k=self._dev(top_ks), k_max=k_max, generator=self._generator(key), adapter_ids=adapter_ids,
       props=None if props is None else self._dev(props), prop_counts=None if prop_counts is None else self._dev(prop_counts),
-      adapter_ids=adapter_ids,
     )
+    if block_tables is None:
+      return fused_spec_batch_decode(eng.params, eng.cfg, eng._effective_shard, params_d, cfg_d, shard_d, self._dev(token), store, cache_d, *rows, **kw)
+    return fused_spec_paged_batch_decode(
+      eng.params, eng.cfg, eng._effective_shard, params_d, cfg_d, shard_d, self._dev(token), store, cache_d, self._dev(block_tables), *rows, page_size=page_size, **kw,
+    )
+
+  def spec_paged_batch_decode(self, token, pool, cache_d, block_tables, positions, active, gammas, temps, top_ks, n_rounds: int, gamma_max: int, k_max: int, page_size: int, key, props=None, prop_counts=None, adapter_ids=None):
+    """One speculative chunk over the page pool
+    (``fused_spec_paged_batch_decode``), the reference's signature. Returns
+    (tokens, counts, n_prop, next_token, positions, pool, cache_d) with
+    every tensor on the device; the scheduler queues the host copies of
+    tokens, counts and n_prop behind one event (``to_host_async``), as it
+    does for a plain chunk's tokens."""
+    return self._spec(pool, cache_d, block_tables, token, positions, active, gammas, temps, top_ks, n_rounds, gamma_max, k_max, page_size, key, props, prop_counts, adapter_ids)
+
+  def spec_batch_decode(self, token, cache, cache_d, positions, active, gammas, temps, top_ks, n_rounds: int, gamma_max: int, k_max: int, key, props=None, prop_counts=None, adapter_ids=None):
+    """One speculative chunk over the slot cache (``fused_spec_batch_decode``),
+    as ``spec_paged_batch_decode``."""
+    return self._spec(cache, cache_d, None, token, positions, active, gammas, temps, top_ks, n_rounds, gamma_max, k_max, 0, key, props, prop_counts, adapter_ids)
 
   def mixed_tick_supported(self) -> bool:
     """The mixed prefill+decode program runs on this backend, except for an

@@ -1,12 +1,13 @@
-"""Continuous batching over the paged KV pool for single-node serving: a
-fixed set of batch rows ("slots"), each holding one in-flight request.
+"""Continuous batching for single-node serving: a fixed set of batch rows
+("slots"), each holding one in-flight request.
 
 Counterpart of the reference's ``inference/batch_scheduler.py`` at its
-defaults, with the paged layout and no draft model:
+defaults and in both of its layouts:
 
-- one page pool ``[L, P, Hkv, ps, kd]`` (ops/paged.py) with per-row block
-  tables; page-aligned prompt prefixes are shared between requests through
-  the allocator's content-keyed prefix cache (inference/paging.py);
+- the paged layout (default) keeps one page pool ``[L, P, Hkv, ps, kd]``
+  (ops/paged.py) with per-row block tables; page-aligned prompt prefixes
+  are shared between requests through the allocator's content-keyed
+  prefix cache (inference/paging.py);
 - admission is batched: every request admissible at a chunk boundary
   prefills in one padded dispatch (``prefill_into_pages_many[_sampled]``),
   rows bucketed to a power of two;
@@ -51,16 +52,31 @@ defaults, with the paged layout and no draft model:
   ``XOT_TPU_MIXED_BUDGET`` pins it); the final, sampling slice dispatches
   through the ordinary admission path. ``XOT_TPU_MIXED_TICK=0`` restores
   the strictly alternating schedule;
-- greedy rows speculate draft-free by default (``XOT_TPU_SPEC_BATCH``,
+- ``XOT_TPU_PAGED=0`` (or ``false``) keeps the dense layout instead: one
+  slot-cache row of the whole window per slot, admissions prefilled whole
+  (no chunking, no prefix cache, no host tier, no mixed ticks) through
+  ``prefill_into_slots_sampled``, each padding row on a distinct spare free
+  slot, and decode chunks through ``fused_batch_decode`` (K2 with
+  ``XOT_TPU_FLASH_DECODE=1``, K1 in its verify windows).
+  ``XOT_TPU_PAGED=auto`` lets the decode-path table choose at pool build
+  (inference/paging.py ``select_decode_path``: "dense" there picks the
+  dense layout);
+- greedy rows speculate by default (``XOT_TPU_SPEC_BATCH``,
   default ``auto``; only ``0`` and ``false`` turn it off, as in the
   reference): each row drafts from its own prompt+generated history
   (inference/ngram.py ``NgramIndex``, ``XOT_TPU_SPEC_NGRAM``, ``_NGRAM_N``,
   ``_NGRAM_MAX``), the target verifies every row's window in one forward
   per round (``fused_spec_paged_batch_decode``: K3 over the B·W window rows
-  in one launch per layer), and each row advances by its accepted run plus
-  one. Sampled rows run at depth 0. A per-row acceptance EWMA walks each
-  row's depth (inference/paging.py ``spec_adapt_gamma``), so rows that stop
-  paying fall back to plain chunks; once every row is plain, a depth-1
+  in one launch per layer; ``fused_spec_batch_decode`` on the dense cache),
+  and each row advances by its accepted run plus one. With a draft loaded
+  (``XOT_TPU_SPEC_DECODE=int8`` or ``XOT_TPU_SPEC_DRAFT``) greedy rows open
+  on the "model" proposer instead: the draft proposes from its own slot
+  cache, built with the pool (its bytes come out of the page budget;
+  ``kv_draft_*`` gauges) and prefilled with each admission's whole prompt
+  in the same executor call. Sampled rows run at depth 0. A per-row
+  acceptance EWMA walks each row's depth (inference/paging.py
+  ``spec_adapt_gamma``), so rows that stop paying fall back to plain
+  chunks, or to another proposer; once every row is plain, a depth-1
   probe runs every ``XOT_TPU_SPEC_REPROBE`` plain chunks. Proposals key on
   settled history, so a chunk with n-gram rows never chains behind an
   in-flight one; a mixed tick takes precedence over speculation;
@@ -69,10 +85,11 @@ defaults, with the paged layout and no draft model:
   (orchestration/slo.py, ``XOT_TPU_SLO``).
 
 Every device dispatch is one program, as in the reference: the page pool
-comes with its captured programs (models/decoder.py ``BatchedPrograms``,
-through inference/batch_ops.py), so on the card each admission prefill and
-each plain, mixed or speculative chunk is one CUDA-graph replay, built at
-the first dispatch of its signature. The program ledger (utils/programs.py)
+(or the slot cache, and the draft's cache with it) comes with its captured
+programs (models/decoder.py ``BatchedPrograms``, through
+inference/batch_ops.py), so on the card each admission prefill, draft
+prefill and plain, mixed or speculative chunk is one CUDA-graph replay,
+built at the first dispatch of its signature. The program ledger (utils/programs.py)
 records them under the reference's families, and ``warmup_manifest`` /
 ``warmup`` (``POST /v1/warmup``) drive them before traffic — capturing the
 graphs that traffic needs — and mark the ledger steady. A chained dispatch
@@ -86,10 +103,10 @@ for sampling come from the programs' generator, reseeded before each
 dispatch with a key drawn on the event-loop thread by
 ``engine.split_key()``.
 
-The draft-model proposer, LoRA, disaggregation, drain and the dense
-batched layout are not ported yet; asking for one explicitly raises ``NotImplementedError`` when the server is built, as does
-a CUDA engine whose head dim K3 has no variant for (unless
-``XOT_TPU_PAGED_KERNEL=0`` asks for the gather path).
+LoRA, disaggregation and drain are not ported yet. A paged server on a
+CUDA engine whose head dim K3 has no variant for raises
+``NotImplementedError`` (unless ``XOT_TPU_PAGED_KERNEL=0`` asks for the
+gather path).
 
 Enable with ``XOT_TPU_BATCHED=1`` (orchestration/node.py routes full-model
 prompts here). ``XOT_TPU_BATCH_SLOTS`` (default 4), ``XOT_TPU_BATCH_CHUNK``
@@ -107,7 +124,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..ops.paged import check_paged_kernel, paged_kernel_supported
+from ..ops.paged import check_paged_kernel, paged_kernel_tile
 from ..orchestration import slo
 from ..utils.helpers import DEBUG, env_flag
 from ..utils.metrics import FRACTION_BUCKETS, metrics
@@ -117,13 +134,13 @@ from .engine import PromptTooLongError, ServerOverloadedError
 from .kv_tier import KvTierManager, kv_tier_enabled, prefix_registry
 from .ngram import NgramIndex, ngram_enabled, ngram_knobs
 from .paging import (
-  PageAllocator, ewma_update, kv_cache_bytes, mixed_tick_enabled, pages_to_cover, select_mixed_budget, spec_adapt_gamma, spec_reprobe_proposer,
-  spec_select_proposer, spec_worst_advance,
+  PageAllocator, ewma_update, kv_cache_bytes, mixed_tick_enabled, pages_to_cover, resolved_decode_path, select_decode_path, select_mixed_budget,
+  spec_adapt_gamma, spec_reprobe_proposer, spec_select_proposer, spec_worst_advance,
 )
 from .qos import DeadlineUnmeetableError
 from .sched_admission import AdmissionControl, _Request
 
-__all__ = ["BatchedServer", "_Request", "check_unported_knobs"]
+__all__ = ["BatchedServer", "_Request"]
 
 PREFILL_BUCKET = 128
 # Smallest pad of a mixed slice's prefill. K1 takes two or more query rows
@@ -134,22 +151,12 @@ PREFILL_BUCKET = 128
 MIXED_MIN_PAD = 16
 
 # spec_proposer{row} gauge encoding: 0 plain decode, 1 n-gram lookup, 2 a
-# model draft (the reference's codes; the port has no model draft yet).
+# model draft (the reference's codes).
 PROPOSER_CODE = {"plain": 0, "ngram": 1, "model": 2}
 
 
 def _round_up(n: int, multiple: int) -> int:
   return ((n + multiple - 1) // multiple) * multiple
-
-
-def check_unported_knobs() -> None:
-  """Refuse an environment that explicitly asks for a batched-serving
-  feature the port does not have yet, instead of serving without it."""
-  asked = []
-  if os.getenv("XOT_TPU_PAGED", "1").strip().lower() in ("0", "false", "auto"):
-    asked.append("XOT_TPU_PAGED=%s (the dense batched layout)" % os.getenv("XOT_TPU_PAGED"))
-  if asked:
-    raise NotImplementedError(f"the PyTorch port's batched server does not have {', '.join(asked)} yet; unset these knobs or set them to 0")
 
 
 @dataclass
@@ -184,9 +191,10 @@ class _Slot:
   pages: list = field(default_factory=list)
   chain_keys: list = field(default_factory=list)
   t_first: float = 0.0  # perf_counter at the first emitted token (goodput's realized ITL)
-  # Batched speculation: the row's draft depth, its proposer ("ngram" or
-  # "plain"), its acceptance EWMA per proposer, and its n-gram index over
-  # prompt+generated history (None for sampled rows or with the family off).
+  # Batched speculation: the row's draft depth, its proposer ("model",
+  # "ngram" or "plain"), its acceptance EWMA per proposer, and its n-gram
+  # index over prompt+generated history (None for sampled rows or with the
+  # family off).
   spec_gamma: int = 0
   spec_proposer: str = "plain"
   spec_ewmas: dict = field(default_factory=dict)
@@ -241,7 +249,7 @@ class _Chunk:
   counts: object = None
   pos_dev: object = None
   gammas: np.ndarray | None = None  # [B] dispatched depths
-  proposers: list | None = None  # [n_slots] "ngram" | "plain"
+  proposers: list | None = None  # [n_slots] "model" | "ngram" | "plain"
   n_prop: object = None
 
 
@@ -249,15 +257,11 @@ class BatchedServer:
   """Owns the slot pool and the decode loop for one engine."""
 
   def __init__(self, engine, n_slots: int | None = None, chunk: int | None = None, top_k: int | None = None, max_queue: int | None = None, lookahead: bool | None = None, qos=None, spec_batch: bool | None = None):
-    check_unported_knobs()
-    if getattr(engine, "_draft_params", None) is not None:
-      # The reference's server drafts with a loaded model (its "model"
-      # proposer); serving n-gram only here would diverge without a word.
-      raise NotImplementedError(
-        "the PyTorch port's batched server does not have the draft-model proposer yet; a draft is loaded "
-        "(XOT_TPU_SPEC_DECODE=int8 / XOT_TPU_SPEC_DRAFT): unset them, or set XOT_TPU_SPEC_DECODE=ngram"
-      )
-    if engine.cfg is not None:
+    # The layout: XOT_TPU_PAGED=0|false is the dense slot cache, "auto"
+    # lets the decode-path table choose at pool build (_ensure_cache).
+    self._paged_mode = os.getenv("XOT_TPU_PAGED", "1")
+    self.paged = self._paged_mode not in ("0", "false")
+    if engine.cfg is not None and self._paged_mode != "auto" and self.paged:
       check_paged_kernel(engine.cfg, engine.device)
     self.engine = engine
     self.ops = engine.batch_ops
@@ -274,6 +278,7 @@ class BatchedServer:
     # Chunked prefill: a prompt longer than this many tokens prefills in
     # chunks with decode chunks between them (or, under mixed ticks, in
     # budgeted slices fused into them). 0 disables.
+    # The dense layout always prefills whole.
     self.prefill_chunk = int(os.getenv("XOT_TPU_PREFILL_CHUNK", "2048"))
     self.mixed = mixed_tick_enabled()
     # Batched speculation: ``spec_batch=None`` resolves from
@@ -301,7 +306,9 @@ class BatchedServer:
     self.tier: KvTierManager | None = None  # the host KV tier, built with the pool
     self.block_tables: np.ndarray | None = None
     self.cache = None
-    self.decode_path = "kernel"  # decode_chunks_total's path label, resolved with the pool
+    self.draft_cache = None  # the draft's slot cache (the "model" proposer), built with the pool
+    self.kv_quant: str | None = None
+    self.decode_path = "dense"  # decode_chunks_total's path label, resolved with the pool
     self.pages_per_row = 0
     self.max_seq = 0
     self.prefix_hit_pages = 0  # prompt pages served from the prefix cache
@@ -461,20 +468,27 @@ class BatchedServer:
 
   def warmup_manifest(self) -> list[dict]:
     """The program families this configuration is expected to build, from
-    its active facets (the reference's, on the port's one backend: the
-    paged layout with the sampling epilogue fused into the prefill). The
-    spec facet resolves with the pool, as in the reference."""
+    its active facets (the reference's, on the port's one backend: paged
+    or dense KV, with the sampling epilogue fused into the prefill). The
+    layout under ``auto`` and the spec facet resolve with the pool, as in
+    the reference."""
     fams: list[dict] = []
 
     def add(family: str, why: str) -> None:
       fams.append({"family": family, "why": why})
 
-    add("prefill.pages_many_sampled", "paged batched prefill")
+    if self.paged:
+      add("prefill.pages_many_sampled", "paged batched prefill")
+    else:
+      add("prefill.slots_sampled", "dense batched prefill")
     if self.spec:
-      add("spec.paged_batch", "batched speculative decode (greedy rows)")
-    add("decode.paged_batch", "paged batched decode")
-    if self.mixed:
-      add("decode.mixed_paged_batch", "mixed prefill+decode tick")
+      add("spec.paged_batch" if self.paged else "spec.batch", "batched speculative decode (greedy rows)")
+    if self.paged:
+      add("decode.paged_batch", "paged batched decode")
+      if self.mixed:
+        add("decode.mixed_paged_batch", "mixed prefill+decode tick")
+    else:
+      add("decode.batch", "dense batched decode")
     return fams
 
   async def warmup(self) -> dict:
@@ -542,53 +556,85 @@ class BatchedServer:
     eng = self.engine
     kv_quant = kv_quant_mode(eng.cfg)
     self.max_seq = min(eng.max_seq_len, eng.cfg.max_seq_len)
-    ps = self.page_size
-    self.pages_per_row = pages_to_cover(self.max_seq, ps)
-    # Default pool size: the dense bf16 layout's budget (n_slots full
-    # windows) expressed in pages of the actual quant mode — int8 pages
-    # hold ~1.9x, int4 ~3.6x the contexts at hd 64.
-    per_dense = self.n_slots * self.pages_per_row
-    if kv_quant:
-      n_layers = eng._effective_shard.n_shard_layers
-      dense_budget = n_layers * per_dense * ps * eng.cfg.cache_kv_heads * (eng.cfg.cache_k_dim + eng.cfg.cache_v_dim) * 2
-      per_dense = dense_budget // max(kv_cache_bytes(eng.cfg, n_layers, ps, kv_quant), 1)
-    n_pages = int(os.getenv("XOT_TPU_BATCH_PAGES", "0")) or per_dense + 1
-    self.allocator = PageAllocator(n_pages, ps)
-    self.block_tables = np.zeros((self.n_slots, self.pages_per_row), dtype=np.int32)
-    self.cache = self.ops.init_pool(n_pages, ps)
-    if self.tier is None and kv_tier_enabled():
-      self.tier = KvTierManager.from_env(page_size=ps, read_pages=self._tier_read, write_pages=self._tier_write)
-    if self.tier is not None:
-      # Rewired onto every (re)built allocator: device evictions spill their
-      # pages host-side before the free list reuses them.
-      self.allocator.spill_hook = self.tier.spill
-      self.tier.kv_quant = kv_quant
-    self.decode_path = "kernel" if paged_kernel_supported(eng.cfg) else "gather"
+    if self._paged_mode == "auto":
+      # The layout from the decode-path table: "dense" at this pool's
+      # (slots, window, quant) point means the slot cache beats both paged
+      # paths there (never on the CPU, which answers "gather").
+      self.paged = select_decode_path(self.n_slots, self.max_seq, kv_quant, device=eng.device) != "dense"
+      if self.paged:
+        check_paged_kernel(eng.cfg, eng.device)
     # Batched speculation verdict, the reference's parse: only "0" and
-    # "false" turn it off. The port offers the n-gram proposer only; it
-    # holds no device state, so the draft gauges read 0 and the page budget
-    # stays whole. An MLA model's paged server does not speculate, as the
-    # reference's does not (no verify window over latent pages).
+    # "false" turn it off. It needs the resolved layout (an MLA model's
+    # paged server does not speculate, as the reference's does not: no
+    # verify window over latent pages; its dense one does) and lands before
+    # the pool is sized, so the draft cache's bytes enter the page budget.
     want = self._spec_batch_arg if self._spec_batch_arg is not None else os.getenv("XOT_TPU_SPEC_BATCH", "auto") not in ("0", "false")
     proposers = []
     if self.ops.spec_supported():
       proposers.append("model")
     if ngram_enabled() and self.ops.spec_ngram_supported():
       proposers.append("ngram")
-    self.spec = bool(want) and bool(proposers) and not eng.cfg.is_mla
+    self.spec = bool(want) and bool(proposers) and not (self.paged and eng.cfg.is_mla)
     self.spec_proposers = tuple(proposers) if self.spec else ()
-    if self.spec:
+    ps = self.page_size
+    draft_pages_equiv = 0
+    if self.spec and "model" in self.spec_proposers:
+      cfg_d, shard_d = self.ops.draft_geometry()
+      draft_bytes = kv_cache_bytes(cfg_d, shard_d.n_shard_layers, self.n_slots * self.max_seq, "")
+      page_bytes = max(kv_cache_bytes(eng.cfg, eng._effective_shard.n_shard_layers, ps, kv_quant), 1)
+      draft_pages_equiv = -(-draft_bytes // page_bytes)
+      metrics.set_gauge("kv_draft_bytes", draft_bytes)
+      metrics.set_gauge("kv_draft_slots", self.n_slots)
+      metrics.set_gauge("kv_draft_pages_equivalent", draft_pages_equiv)
+    elif self.spec:
+      # The n-gram proposer holds no device state: the gauges read 0 and
+      # the page budget stays whole.
       for name in ("kv_draft_bytes", "kv_draft_slots", "kv_draft_pages_equivalent"):
         metrics.set_gauge(name, 0)
-    metrics.set_gauge("page_pool_pages_total", n_pages - 1)  # page 0 is the trash page
+    if self.paged:
+      self.pages_per_row = pages_to_cover(self.max_seq, ps)
+      # Default pool size: the dense bf16 layout's budget (n_slots full
+      # windows) expressed in pages of the actual quant mode — int8 pages
+      # hold ~1.9x, int4 ~3.6x the contexts at hd 64.
+      per_dense = self.n_slots * self.pages_per_row
+      if kv_quant:
+        n_layers = eng._effective_shard.n_shard_layers
+        dense_budget = n_layers * per_dense * ps * eng.cfg.cache_kv_heads * (eng.cfg.cache_k_dim + eng.cfg.cache_v_dim) * 2
+        per_dense = dense_budget // max(kv_cache_bytes(eng.cfg, n_layers, ps, kv_quant), 1)
+      if draft_pages_equiv:
+        # The draft cache rides in the same budget (floored at one row's
+        # window); an explicit XOT_TPU_BATCH_PAGES is the operator's own.
+        per_dense = max(per_dense - draft_pages_equiv, self.pages_per_row + 1)
+      n_pages = int(os.getenv("XOT_TPU_BATCH_PAGES", "0")) or per_dense + 1
+      self.allocator = PageAllocator(n_pages, ps)
+      self.block_tables = np.zeros((self.n_slots, self.pages_per_row), dtype=np.int32)
+      self.cache = self.ops.init_pool(n_pages, ps)
+      if self.tier is None and kv_tier_enabled():
+        self.tier = KvTierManager.from_env(page_size=ps, read_pages=self._tier_read, write_pages=self._tier_write)
+      if self.tier is not None:
+        # Rewired onto every (re)built allocator: device evictions spill their
+        # pages host-side before the free list reuses them.
+        self.allocator.spill_hook = self.tier.spill
+        self.tier.kv_quant = kv_quant
+      metrics.set_gauge("page_pool_pages_total", n_pages - 1)  # page 0 is the trash page
+    else:
+      self.cache = self.ops.init_cache(self.n_slots, self.max_seq)
+    if self.spec and "model" in self.spec_proposers:
+      self.draft_cache = self.ops.init_draft_cache(self.n_slots, self.max_seq)
+    self.kv_quant = kv_quant
+    window = self.pages_per_row * ps if self.paged else self.max_seq
+    self.decode_path = resolved_decode_path(self.n_slots, window, kv_quant, paged=self.paged, cfg=eng.cfg, device=eng.device)
+    metrics.set_gauge("paged_kernel_tile", paged_kernel_tile(eng.cfg, self.n_slots, window, ps, eng.device) if self.decode_path == "kernel" else 0)
     metrics.set_gauge("kv_quant_bits", {"": 16, "int8": 8, "int4": 4}[kv_quant])
     self._update_gauges()
 
   def _drop_pool(self) -> None:
-    """Let the pool go, and its captured programs with it."""
+    """Let the pool (or slot cache) go, the draft cache and the captured
+    programs with it."""
     if self.cache is not None:
       self.ops.drop_pool(self.cache)
     self.cache = None
+    self.draft_cache = None
 
   def _tier_read(self, pages: list[int]):
     """The tier's spill-side read: start the pages' copy to the host. (None,
@@ -692,6 +738,11 @@ class BatchedServer:
             req.future.set_result(list(req.carry_tokens))
           return "done", None
         raise PromptTooLongError(f"prompt of {S} tokens exceeds the {self.max_seq}-token context window")
+      if not self.paged:
+        # A slot row holds the whole window: nothing to allocate. pad_to is
+        # set per dispatch by _chunk_ready.
+        self._note_admitted(req)
+        return "ready", _Ready(req=req, row=row, pad_to=0)
       ps = self.page_size
       chain_keys = self.allocator.chain_keys(req.tokens, ps)
       # Reuse at most (S-1)//ps pages: at least one suffix token must run
@@ -835,7 +886,8 @@ class BatchedServer:
       if r is not None:
         ready.append(r)
         taken.add(row)
-    self._parked_avail_seen = self.allocator.n_available
+    if self.allocator is not None:
+      self._parked_avail_seen = self.allocator.n_available
     if ready and self._mixed_active() and any(s is not None for s in self.slots):
       # The budget sees the pass's full depth, or the first deferral would
       # be sized for a backlog of one.
@@ -851,12 +903,14 @@ class BatchedServer:
       await self._dispatch(ready)
 
   def _chunk_ready(self, r: _Ready) -> None:
-    """Set this dispatch's padded span, capping long prompts to one chunk:
-    cover [prefix_len, chunk_end) only; the next admission pass dispatches
-    the rest. The pad stays inside the row's logical window."""
+    """Set this dispatch's padded span, capping long prompts to one chunk
+    (paged layout): cover [prefix_len, chunk_end) only; the next admission
+    pass dispatches the rest. The dense layout prefills whole (its program
+    has no resume offset). The pad stays inside the row's logical
+    window."""
     S = int(r.req.tokens.shape[0])
     cap = self.prefill_chunk
-    if cap <= 0 or S - r.prefix_len <= cap:
+    if not self.paged or cap <= 0 or S - r.prefix_len <= cap:
       r.chunk_end = 0
       r.pad_to = min(_round_up(max(S - r.prefix_len, 1), PREFILL_BUCKET), self.max_seq - r.prefix_len)
       return
@@ -895,7 +949,7 @@ class BatchedServer:
       self._admitting.add(r.req.request_id)
     try:
       for group in self._dispatch_groups(ready):
-        await self._dispatch_group(group)
+        await self._dispatch_group(group, all_rows={r.row for r in ready})
     except BaseException as e:  # loop teardown mid-dispatch: no admitted future may leak unresolved
       for r in ready:
         self._admitting.discard(r.req.request_id)
@@ -910,11 +964,19 @@ class BatchedServer:
       kpad *= 2
     return max(min(kpad, self.n_slots), K)
 
-  async def _dispatch_group(self, group: list[_Ready]) -> None:
+  async def _dispatch_group(self, group: list[_Ready], all_rows: set[int]) -> None:
     eng = self.engine
     K = len(group)
     S_pad = max(r.pad_to for r in group)
     n_rows = self._row_bucket(K)
+    spare: list[int] = []
+    if not self.paged:
+      # Dense padding rows write junk into a real slot row, so each takes a
+      # distinct spare free slot (never one another admission owns: index
+      # writes between duplicates are undefined). Without enough spares the
+      # batch stays nearer exact-K.
+      spare = [i for i, s in enumerate(self.slots) if s is None and i not in all_rows]
+      n_rows = K + min(n_rows - K, len(spare))
     tok = np.zeros((n_rows, S_pad), dtype=np.int32)
     prompt_lens = np.ones((n_rows,), dtype=np.int32)  # padding rows: prefix 0, prompt_len 1
     temps = np.zeros((n_rows,), dtype=np.float32)
@@ -927,19 +989,36 @@ class BatchedServer:
       prompt_lens[i] = end
       temps[i] = r.req.temp
       top_ks[i] = min(r.req.top_k, self.k_max)
-    # The gathered window covers each row's padded write reach only; padding
-    # rows keep an all-zero table (their writes land in the trash page).
-    mp_used = self._page_window(max(int(r.prefix_len) for r in group) + S_pad)
-    bts = np.zeros((n_rows, mp_used), dtype=np.int32)
-    prefix_lens = np.zeros((n_rows,), dtype=np.int32)
-    for i, r in enumerate(group):
-      row_pages = (r.shared_pages + r.new_pages)[:mp_used]
-      bts[i, : len(row_pages)] = row_pages
-      prefix_lens[i] = r.prefix_len
     key = eng.split_key()  # on the event-loop thread; the executor only runs device work
+    draft_job = self._draft_prefill_job(group)
+    if self.paged:
+      # The gathered window covers each row's padded write reach only;
+      # padding rows keep an all-zero table (their writes land in the trash
+      # page).
+      mp_used = self._page_window(max(int(r.prefix_len) for r in group) + S_pad)
+      bts = np.zeros((n_rows, mp_used), dtype=np.int32)
+      prefix_lens = np.zeros((n_rows,), dtype=np.int32)
+      for i, r in enumerate(group):
+        row_pages = (r.shared_pages + r.new_pages)[:mp_used]
+        bts[i, : len(row_pages)] = row_pages
+        prefix_lens[i] = r.prefix_len
+
+      def prefill():
+        firsts, self.cache = self.ops.prefill_into_pages_many_sampled(tok, self.cache, bts, prefix_lens, prompt_lens, self.page_size, temps, top_ks, self.k_max, key)
+        return firsts
+    else:
+      rows = np.asarray([r.row for r in group] + spare[: n_rows - K], dtype=np.int32)
+
+      def prefill():
+        firsts, self.cache = self.ops.prefill_into_slots_sampled(tok, self.cache, rows, prompt_lens, temps, top_ks, self.k_max, key)
+        return firsts
 
     def run():
-      firsts, self.cache = self.ops.prefill_into_pages_many_sampled(tok, self.cache, bts, prefix_lens, prompt_lens, self.page_size, temps, top_ks, self.k_max, key)
+      # The draft's prefill rides the same executor call, queued behind the
+      # target's before the first tokens are read back.
+      firsts = prefill()
+      if draft_job is not None:
+        draft_job()
       return firsts.cpu().numpy()
 
     t_dispatch = time.perf_counter()
@@ -965,6 +1044,32 @@ class BatchedServer:
         self._prefilling.append(r)
         continue
       self._finish_admission(r, int(firsts[i]))
+
+  def _draft_prefill_job(self, group: list[_Ready]):
+    """The draft's prefill for this admission group, or None: each final
+    (sampling) greedy admission prefills its whole prompt into the draft's
+    slot cache, one padded forward for the group. The draft has no prefix
+    cache and prefills a chunked prompt once, at its final chunk. Greedy
+    output never depends on this cache (the verify is exact for any
+    draft); it only sets the acceptance."""
+    if not self.spec or self.draft_cache is None:
+      return None
+    final = [r for r in group if not r.chunk_end and r.req.temp <= 0.0]
+    if not final:
+      return None
+    d_pad = min(_round_up(max(int(r.req.tokens.shape[0]) for r in final), PREFILL_BUCKET), self.max_seq)
+    dtok = np.zeros((len(final), d_pad), dtype=np.int32)
+    dlens = np.ones((len(final),), dtype=np.int32)
+    drows = np.asarray([r.row for r in final], dtype=np.int32)
+    for i, r in enumerate(final):
+      S = int(r.req.tokens.shape[0])
+      dtok[i, :S] = r.req.tokens
+      dlens[i] = S
+
+    def job():
+      self.draft_cache = self.ops.prefill_draft_into_slots(dtok, self.draft_cache, drows, dlens)
+
+    return job
 
   def _finish_admission(self, r: _Ready, first: int) -> None:
     req = r.req
@@ -1002,12 +1107,19 @@ class BatchedServer:
       # rest. Sampled rows stay at 0. The index covers the (absorbed)
       # prompt and the first token, so a preempted row resumes with a
       # fresh index over its whole stream.
+      # A loaded draft opens every greedy row on the model proposer; a
+      # draft-free server opens on the n-gram proposer at its own cap.
       cls = req.qos.priority if req.qos is not None else "standard"
-      slot.spec_proposer = "ngram"
-      slot.spec_gamma = max(self.spec_ngram_max // 2, 1) if cls == "batch" else self.spec_ngram_max
-      slot.ngram = NgramIndex(self.spec_ngram_n)
-      slot.ngram.extend(req.tokens)
-      slot.ngram.extend([first])
+      if "model" in self.spec_proposers:
+        slot.spec_proposer = "model"
+        slot.spec_gamma = max(self.spec_gamma_max // 2, 1) if cls == "batch" else self.spec_gamma_max
+      else:
+        slot.spec_proposer = "ngram"
+        slot.spec_gamma = max(self.spec_ngram_max // 2, 1) if cls == "batch" else self.spec_ngram_max
+      if "ngram" in self.spec_proposers:
+        slot.ngram = NgramIndex(self.spec_ngram_n)
+        slot.ngram.extend(req.tokens)
+        slot.ngram.extend([first])
     self.slots[r.row] = slot
     self._h_occupied[r.row] = True
     self._h_tokens[r.row, 0] = first
@@ -1016,9 +1128,10 @@ class BatchedServer:
     self._h_top_ks[r.row] = min(req.top_k, self.k_max)
     self._h_generated[r.row] = slot.generated
     self._h_max_tokens[r.row] = req.max_tokens
-    self.block_tables[r.row, :] = 0
-    n = len(slot.shared_pages) + len(slot.pages)
-    self.block_tables[r.row, :n] = slot.shared_pages + slot.pages
+    if self.paged:
+      self.block_tables[r.row, :] = 0
+      n = len(slot.shared_pages) + len(slot.pages)
+      self.block_tables[r.row, :n] = slot.shared_pages + slot.pages
 
   # ------------------------------------------------------------------- SLO
 
@@ -1057,7 +1170,10 @@ class BatchedServer:
     covers the row's GENERATED full pages: the chain keys extend over the
     absorbed stream (prompt + new tokens), so a preempted row's resume and
     a conversation's next turn find the whole history as a prefix, on the
-    device now and on the host once LRU pressure spills it."""
+    device now and on the host once LRU pressure spills it. The dense
+    layout holds no pages."""
+    if not self.paged:
+      return
     for p in slot.shared_pages:
       self.allocator.release(p)
     n_shared = len(slot.shared_pages)
@@ -1087,7 +1203,8 @@ class BatchedServer:
 
   def _clear_row(self, row: int) -> None:
     """Reset a freed row's block table and dispatch arrays."""
-    self.block_tables[row, :] = 0
+    if self.paged and self.block_tables is not None:
+      self.block_tables[row, :] = 0
     if self.spec:
       metrics.set_gauge("spec_gamma", 0, labels={"row": str(row)})
       metrics.set_gauge("spec_proposer", 0, labels={"row": str(row)})
@@ -1133,9 +1250,10 @@ class BatchedServer:
   # ----------------------------------------------------------- mixed ticks
 
   def _mixed_active(self) -> bool:
-    """Mixed prefill+decode ticks apply: knob on, chunking on, and a backend
-    with the fused mixed program."""
-    return self.mixed and self.prefill_chunk > 0 and self.ops.mixed_tick_supported()
+    """Mixed prefill+decode ticks apply: knob on, the paged layout (a slice
+    resumes from a per-row prefix offset), chunking on, and a backend with
+    the fused mixed program."""
+    return self.mixed and self.paged and self.prefill_chunk > 0 and self.ops.mixed_tick_supported()
 
   def _itl_burn(self) -> float | None:
     """Interactive-class fast-window ITL burn — the budget policy's input.
@@ -1264,7 +1382,7 @@ class BatchedServer:
       elif s.cancelled or int(positions[i]) + self.chunk >= self.max_seq:
         active[i] = False
         finishing += 1
-      elif not self._grow_pages(i, s, int(positions[i]), headroom):
+      elif self.paged and not self._grow_pages(i, s, int(positions[i]), headroom):
         active[i] = False
         starved.add(i)
     deadlocked = inflight is None and bool(starved) and not active.any() and finishing == 0
@@ -1296,7 +1414,8 @@ class BatchedServer:
     while a chunk is in flight, this sets ``_spec_needs_host`` and the loop
     settles first; with the pipeline drained the proposals are computed
     here (one suffix lookup per row) and staged in ``_spec_props``. A miss
-    contributes no depth and charges the miss policy."""
+    contributes no depth and charges the miss policy. Model-drafted rows
+    need no host proposal: the draft runs inside the chunk."""
     self._spec_props = None
     self._spec_needs_host = False
     if not self.spec:
@@ -1305,11 +1424,13 @@ class BatchedServer:
     greedy = [(i, s) for i, s in live if s.req.temp <= 0.0]
     if not greedy:
       return 0
-    if all(s.spec_gamma <= 0 for _, s in greedy):
+    model_ok = self.draft_cache is not None
+    if all(s.spec_gamma <= 0 or (s.spec_proposer == "model" and not model_ok) for _, s in greedy):
       if self.spec_reprobe <= 0 or self._spec_plain_chunks < self.spec_reprobe:
         return 0
+      available = self.spec_proposers if model_ok else tuple(p for p in self.spec_proposers if p != "model")
       for i, s in greedy:  # probe round: depth 1, the best proposer per row
-        prop = spec_reprobe_proposer(s.spec_ewmas, self.spec_proposers)
+        prop = spec_reprobe_proposer(s.spec_ewmas, available)
         if prop is None:
           continue
         s.spec_proposer, s.spec_gamma = prop, 1
@@ -1322,14 +1443,19 @@ class BatchedServer:
     props: dict[int, np.ndarray] = {}
     stream_cap = spec_worst_advance(self.chunk, self.spec_ngram_max)
     for i, s in greedy:
-      if s.spec_gamma <= 0 or s.spec_proposer != "ngram" or s.ngram is None:
+      if s.spec_gamma <= 0:
         continue
-      cand = s.ngram.propose(stream_cap)
-      if len(cand) == 0:
-        self._note_ngram_miss(i, s)
-        continue
-      props[i] = cand
-      gmax = max(gmax, min(s.spec_gamma, len(cand)))
+      if s.spec_proposer == "ngram":
+        if s.ngram is None:
+          continue
+        cand = s.ngram.propose(stream_cap)
+        if len(cand) == 0:
+          self._note_ngram_miss(i, s)
+          continue
+        props[i] = cand
+        gmax = max(gmax, min(s.spec_gamma, len(cand)))
+      elif model_ok:
+        gmax = max(gmax, s.spec_gamma)
     if gmax == 0:
       return 0
     worst = spec_worst_advance(self.chunk, gmax)
@@ -1360,9 +1486,11 @@ class BatchedServer:
     pinned host memory.
 
     ``plan.gmax > 0`` dispatches the spec program (``chunk`` verify rounds,
-    per-row depths and n-gram streams from the slots, variable advance). A
-    chained spec dispatch takes the in-flight chunk's device positions: the
-    host learns a spec chunk's advance only at its settle."""
+    per-row depths and n-gram streams from the slots, variable advance),
+    with the draft's cache only when a model-drafted row is in it (else the
+    draft-free program). A chained spec dispatch takes the in-flight
+    chunk's device positions: the host learns a spec chunk's advance only
+    at its settle."""
     eng = self.engine
     gmax = plan.gmax
     spec = gmax > 0
@@ -1371,6 +1499,7 @@ class BatchedServer:
     tokens = inflight.next_tok if inflight is not None else self._h_tokens
     positions = inflight.pos_dev if (spec and inflight is not None) else plan.positions
     gammas = proposers = props_arr = prop_counts = None
+    use_draft = False
     if spec:
       props_map, self._spec_props = self._spec_props, None
       gammas = np.zeros((self.n_slots,), dtype=np.int32)
@@ -1380,12 +1509,18 @@ class BatchedServer:
         props_arr = np.zeros((self.n_slots, stream_w), dtype=np.int32)
         prop_counts = np.zeros((self.n_slots,), dtype=np.int32)
       for i, s in plan.rows:
-        if plan.active[i] and s.req.temp <= 0.0 and s.spec_proposer == "ngram" and props_map and i in props_map:
+        if not (plan.active[i] and s.req.temp <= 0.0):
+          continue
+        if s.spec_proposer == "ngram" and props_map and i in props_map:
           stream = props_map[i][:stream_w]
           props_arr[i, : len(stream)] = stream
           prop_counts[i] = len(stream)
           gammas[i] = min(s.spec_gamma, gmax)
           proposers[i] = "ngram"
+        elif s.spec_proposer == "model" and self.draft_cache is not None and s.spec_gamma > 0:
+          gammas[i] = min(s.spec_gamma, gmax)
+          proposers[i] = "model"
+          use_draft = True
       self._spec_plain_chunks = 0
     elif self.spec:
       self._spec_plain_chunks += 1
@@ -1416,14 +1551,26 @@ class BatchedServer:
       metrics.observe_hist("sched_host_gap_seconds", 0.0 if inflight is not None else now - self._t_last_ready)
 
     def run():
-      kw = dict(k_max=self.k_max, page_size=self.page_size, key=key)
+      kw = dict(k_max=self.k_max, key=key)
+      if self.paged:
+        kw["page_size"] = self.page_size
       if spec:
-        toks, counts, n_prop, next_tok, pos_dev, self.cache, _ = self.ops.spec_paged_batch_decode(
-          tokens, self.cache, None, self.block_tables, positions, plan.active, gammas, self._h_temps, self._h_top_ks, self.chunk, gmax,
-          props=props_arr, prop_counts=prop_counts, **kw,
-        )
+        # The draft's cache rides only a chunk with a model-drafted row; it
+        # is written in place, so a later model probe finds it as it was.
+        cd = self.draft_cache if use_draft else None
+        common = (positions, plan.active, gammas, self._h_temps, self._h_top_ks, self.chunk, gmax)
+        if self.paged:
+          toks, counts, n_prop, next_tok, pos_dev, self.cache, _ = self.ops.spec_paged_batch_decode(
+            tokens, self.cache, cd, self.block_tables, *common, props=props_arr, prop_counts=prop_counts, **kw,
+          )
+        else:
+          toks, counts, n_prop, next_tok, pos_dev, self.cache, _ = self.ops.spec_batch_decode(tokens, self.cache, cd, *common, props=props_arr, prop_counts=prop_counts, **kw)
         host, ready = to_host_async(toks, counts, n_prop)
         return host, ready, next_tok, pos_dev
+      if not self.paged:
+        toks, next_tok, _pos, self.cache = self.ops.batch_decode(tokens, self.cache, plan.positions, plan.active, self._h_temps, self._h_top_ks, self.chunk, **kw)
+        host, ready = to_host_async(toks)
+        return host, ready, next_tok, None
       args = (tokens, self.cache, self.block_tables, plan.positions, plan.active, self._h_temps, self._h_top_ks, self.chunk)
       if mixed_r is not None:
         toks, next_tok, _pos, self.cache = self.ops.mixed_paged_batch_decode(*args, **kw, pf_tokens=pf_tokens, pf_bt=pf_bt, pf_prefix=pf_bounds[0], pf_end=pf_bounds[1])
@@ -1640,8 +1787,7 @@ class BatchedServer:
       if slot is not None and not slot.req.future.done():
         slot.req.future.set_exception(exc)
       self.slots[i] = None
-      if self.block_tables is not None:
-        self._clear_row(i)
+      self._clear_row(i)
     self._t_last_ready = None
     while self._prefilling:
       r = self._prefilling.pop()

@@ -6,10 +6,14 @@ the batched serving slice uses (``PageAllocator``, ``pages_to_cover``,
 and the per-row speculation policy ``spec_adapt_gamma``,
 ``spec_select_proposer``, ``spec_reprobe_proposer``, ``spec_worst_advance``
 and ``ewma_update``), with the host KV tier's hooks on the allocator
-(``spill_hook``, ``chain_keys_extend``, ``is_cached``, ``adopt_restored``).
-The reference's decode-path and page-tile tables are TPU measurements and
-are not carried over: on a CUDA tensor the port's paged decode always takes
-its kernel (ops/paged.py).
+(``spill_hook``, ``chain_keys_extend``, ``is_cached``, ``adopt_restored``),
+and the decode-path dispatch (``select_decode_path``,
+``resolved_decode_path``): the reference's walk and forcing, off the card
+its "gather" answer, and on a CUDA device a table measured on the H100
+(``_H100_DECODE_PATH_TABLE``) in place of the reference's TPU one, which is
+not carried over. Nor is its page-tile table (pages per grid step of its
+TPU kernel): K3 has no such parameter, and ``ops/paged.py
+paged_kernel_tile`` reports the pages one K3 block covers instead.
 """
 
 from __future__ import annotations
@@ -202,6 +206,96 @@ class PageAllocator:
     assert len(self._by_key) == len(self._key_of), "key<->page maps diverged"
     assert 0 not in free | cached, "trash page 0 escaped into the pool"
     return {"free": len(free), "cached": len(cached), "lru": len(lru), "referenced": len(reffed)}
+
+
+# ------------------------------------------------- decode-path dispatch
+#
+# Which batched decode attention a (batch, window, KV quant) point takes:
+# - "kernel": K3 (csrc/paged_decode.cu) straight off the page pool;
+# - "gather": the page windows gathered, then the plain attention;
+# - "dense": the dense slot cache (models/decoder.py fused_batch_decode:
+#   K2 with XOT_TPU_FLASH_DECODE=1, else the plain attention). Advisory:
+#   honoured only where the layout is still free (the batched server under
+#   XOT_TPU_PAGED=auto); inside a paged program it degrades to "kernel".
+#   int4 KV has no dense layout in the table, so its rows never say "dense".
+#
+# Rows are (max_batch, max_context_tokens, kv_quant, path); None = any; the
+# first row whose bounds cover the query wins. The reference's table is a
+# TPU measurement and answers only on a TPU; on a CUDA device the port walks
+# this one, measured by ``scripts/decode_paths.py`` at llama-3.2-1b's
+# shapes: the captured batched decode chunk per token for each path, the
+# median of the script's runs, a path other than "kernel" taking a point
+# only where it beat "kernel" by more than both medians' spread (PERF.md §6).
+
+_H100_DECODE_PATH_TABLE = (
+  # Every measured point: B 1…64, windows 1024 / 4096 / 8192, bf16 / int8 /
+  # int4 KV. K3 beat gather 1.3–18× and the dense cache's plain attention
+  # 1.1–12.6× per token (B=64, window 8192, bf16: kernel 121.6, dense 1526.5,
+  # gather 2092.7 µs/token; B=1, 1024, bf16: 3095.8 / 4076.4 / 4812.1) —
+  # scripts/decode_paths.py, 7 replays of an 8-step chunk per path, NVIDIA
+  # H100 80GB HBM3, 700.00 W. K2 on the dense cache (XOT_TPU_FLASH_DECODE=1,
+  # off by default) ran 0.85–1.09× K3's time and is no verdict.
+  (None, None, None, "kernel"),
+)
+
+
+def _table_match(table, batch: int, context: int, kv_quant: str):
+  """First-row-wins walk of a (max_batch, max_context, quant, verdict)
+  dispatch table."""
+  for max_b, max_ctx, quant, verdict in table:
+    if max_b is not None and batch > max_b:
+      continue
+    if max_ctx is not None and context > max_ctx:
+      continue
+    if quant is not None and quant != kv_quant:
+      continue
+    return verdict
+  return table[-1][-1]
+
+
+def _platform(device) -> str:
+  """The reference's platform word for a torch device: "gpu" for CUDA,
+  "cpu" otherwise."""
+  if device is None:
+    return "cpu"
+  return "gpu" if getattr(device, "type", str(device).split(":")[0]) == "cuda" else "cpu"
+
+
+def select_decode_path(batch: int, context: int, kv_quant: str = "", platform: str | None = None, device=None) -> str:
+  """Pick the decode attention path for a (batch, context, quant) point:
+  "gather" | "kernel" | "dense". ``context`` is the per-row KV window in
+  tokens. ``XOT_TPU_PAGED_KERNEL=1`` forces "kernel", ``=0`` forces
+  "gather" (the reference's forcing); otherwise a CPU device answers
+  "gather", as the reference does off-TPU, and a CUDA device walks the H100
+  table. ``platform`` ("cpu" / "gpu") overrides what ``device`` says."""
+  forced = os.getenv("XOT_TPU_PAGED_KERNEL")
+  if forced is not None:
+    from ..utils.helpers import env_flag
+
+    return "kernel" if env_flag("XOT_TPU_PAGED_KERNEL") else "gather"
+  if (platform or _platform(device)) != "gpu":
+    return "gather"
+  return _table_match(_H100_DECODE_PATH_TABLE, batch, context, kv_quant)
+
+
+def resolved_decode_path(batch: int, context: int, kv_quant: str = "", paged: bool = True, cfg=None, platform: str | None = None, device=None) -> str:
+  """The decode path a dispatch actually runs, the label of
+  ``decode_chunks_total{path=}``: "dense" for the dense layout; inside a
+  paged program a "dense" verdict degrades to "kernel" and a config K3
+  cannot serve (gemma2, MLA, ``XOT_TPU_PAGED_KERNEL=0``) pins "gather" —
+  the resolution of the paged programs' ``use_kernel=None``
+  (models/decoder.py ``paged_use_kernel``)."""
+  if not paged:
+    return "dense"
+  path = select_decode_path(batch, context, kv_quant, platform=platform, device=device)
+  if path == "gather":
+    return "gather"
+  if cfg is not None:
+    from ..ops.paged import paged_kernel_supported
+
+    if not paged_kernel_supported(cfg):
+      return "gather"
+  return "kernel"
 
 
 # Mixed prefill+decode ticks (inference/batch_scheduler.py): a chunked

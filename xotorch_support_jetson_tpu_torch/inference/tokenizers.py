@@ -27,7 +27,9 @@ def _load_tokenizer(source: str):
 
 async def resolve_tokenizer(repo_id: str, local_dir: str | Path | None = None):
   """Resolve from ``local_dir`` (default ``XOT_TPU_MODEL_DIR``) when it holds
-  tokenizer files; there is no hub download in the port yet."""
+  tokenizer files: the engine passes the checkpoint directory its shard
+  downloader resolved or fetched (the fetch takes the tokenizer files with
+  the weights); the tokenizer loader itself never reaches a hub."""
   if local_dir is None:
     local_dir = os.getenv("XOT_TPU_MODEL_DIR")
   if not local_dir or not any((Path(local_dir) / f).exists() for f in _TOKENIZER_FILES):

@@ -30,17 +30,19 @@ Python loop. The KV cache is a dict of
 IN PLACE — slot j holds absolute position j. On it run the solo decode
 loops (``fused_decode``, ``fused_generate``), greedy speculative decoding
 with a draft model (``fused_speculative_generate`` / ``_chunk``) and the
-draft-free speculative chunk (``fused_spec_batch_decode``); with
-``SoloPrograms`` each prefill bucket, decode step, speculative round and
-draft-free chunk is one CUDA-graph replay. A ring node's partial shard runs
-its prefill bucket and its one-position step as one replay each
-(``ShardPrograms``). ``score_last_tokens`` (OpenAI
-``logprobs``) scores a sequence's last tokens in one cache-less forward. The batched
-programs at the end run against a page pool (ops/paged.py) instead, also
-updated in place: the admission prefill, the plain and mixed decode
-chunks, and the draft-free speculative chunk
-(``fused_spec_paged_batch_decode``); with ``BatchedPrograms`` each such
-dispatch is one CUDA-graph replay.
+speculative chunk over B rows (``fused_spec_batch_decode``, draft-free or
+with a draft model on its own slot cache); with ``SoloPrograms`` each
+prefill bucket, decode step, speculative round and draft-free chunk is one
+CUDA-graph replay. A ring node's partial shard runs its prefill bucket and
+its one-position step as one replay each (``ShardPrograms``).
+``score_last_tokens`` (OpenAI ``logprobs``) scores a sequence's last
+tokens in one cache-less forward. The batched server's dense layout runs
+on such a cache too (``prefill_into_slots[_sampled]``,
+``fused_batch_decode``); its paged programs run against a page pool
+(ops/paged.py) instead, also updated in place: the admission prefill, the
+plain and mixed decode chunks, and the speculative chunk
+(``fused_spec_paged_batch_decode``). With ``BatchedPrograms`` each batched
+dispatch, in either layout, is one CUDA-graph replay.
 """
 
 from __future__ import annotations
@@ -1309,6 +1311,101 @@ def fused_speculative_chunk(params_t, cfg: ModelConfig, shard: Shard, params_d, 
   return packed, seed, new_pos, cache_t, cache_d
 
 
+# ------------------------------------------------- dense batched serving
+# (inference/batch_scheduler.py under XOT_TPU_PAGED=0): one row of the slot
+# cache [L, n_slots, max_seq, ...] per batch slot, slot j of a row holding
+# its position j. Every family of dense, MoE and MLA stacks, bf16 or
+# quantized KV; the batched draft model keeps such a cache too.
+
+
+def _prefill_into_slots_impl(params, cfg: ModelConfig, shard: Shard, tokens, cache, rows, prompt_lens):
+  _dense_full_model(params, shard, "prefill_into_slots")
+  K, S = tokens.shape
+  positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :].expand(K, S)
+  # The forward runs on a scratch cache of the padded prompt's S slots (a
+  # prompt attends only below its own positions), then writes those slots
+  # of the K rows in place; slots past S keep what they held, as the
+  # reference's gathered rows do, masked by position until overwritten.
+  temp = {key: torch.zeros((val.shape[0], K, S, *val.shape[3:]), dtype=val.dtype, device=val.device) for key, val in cache.items()}
+  logits, temp = shard_forward(params, cfg, shard, tokens, positions, temp, head_pos=(prompt_lens - 1).long())
+  idx = rows.to(device=tokens.device, dtype=torch.int64)
+  for key, val in cache.items():
+    val.narrow(2, 0, S).index_copy_(1, idx, temp[key])
+  return logits[:, 0, :], cache
+
+
+@tracked("prefill.slots", ("cfg", "shard"))
+def prefill_into_slots(params, cfg: ModelConfig, shard: Shard, tokens, cache, rows, prompt_lens):
+  """Prefill K requests into K rows of the slot cache in one forward.
+
+  tokens [K, S_pad] int32 (each row its own prompt from position 0,
+  zero-padded); rows [K] int32 — distinct slot indices, padding rows
+  included (index writes between duplicates are undefined; the scheduler
+  gives each padding row a spare free slot); prompt_lens [K] int32 (padding
+  rows 1). Returns (last-token logits [K, V], cache written in place).
+
+  The reference's "not donated" rule holds: the forward runs on scratch
+  slots and writes the K rows only after it returns, so a prefill that
+  fails leaves the pooled cache as it was, and the other rows serve on. K1
+  on the card at Sq = Skv = S_pad (int8 codes included)."""
+  return _prefill_into_slots_impl(params, cfg, shard, tokens, cache, rows, prompt_lens)
+
+
+@tracked("prefill.slots_sampled", ("cfg", "shard", "k_max"))
+def prefill_into_slots_sampled(params, cfg: ModelConfig, shard: Shard, tokens, cache, rows, prompt_lens, temps, top_ks, generator, k_max: int):
+  """``prefill_into_slots`` with the sampling epilogue: returns
+  (first_tokens [K] int32, cache)."""
+  last, cache = prefill_into_slots(params, cfg, shard, tokens, cache, rows, prompt_lens)
+  return _next_token_batched(last, generator, temps, top_ks, k_max), cache
+
+
+def _batch_decode_scan(params, cfg: ModelConfig, shard: Shard, token, cache, positions, active, temps, top_ks, n_steps: int, k_max: int, generator):
+  """The dense chunk's loop: ``n_steps`` steps over every row of the slot
+  cache, each step's token feeding the next on the device. Inactive rows
+  hold their token and position (they rewrite their own held slot)."""
+  tok, pos = token, positions
+  out = []
+  for _ in range(int(n_steps)):
+    logits, cache = shard_forward(params, cfg, shard, tok, pos[:, None], cache)
+    nxt = _next_token_batched(logits[:, 0, :], generator, temps, top_ks, k_max)
+    nxt = torch.where(active, nxt, tok[:, 0])
+    pos = torch.where(active, pos + 1, pos)
+    out.append(nxt)
+    tok = nxt[:, None]
+  return torch.stack(out, dim=1), tok, pos
+
+
+def _row_top_ks(top_k, B: int, dev) -> torch.Tensor:
+  """top_k an int (filled on the device: a host copy would block on the
+  stream) or per-row values, as int32 [B]."""
+  if isinstance(top_k, int):
+    return torch.full((B,), top_k, dtype=torch.int32, device=dev)
+  return top_k.to(device=dev, dtype=torch.int32).expand(B)
+
+
+@tracked("decode.batch", ("cfg", "shard", "n_steps", "k_max"))
+def fused_batch_decode(params, cfg: ModelConfig, shard: Shard, token, cache, positions, active, temps, n_steps: int, top_k=35, k_max: int = 64, generator=None):
+  """One decode chunk over every row of the slot cache.
+
+  token [B, 1] int32, positions [B] int32, active [B] bool, temps [B] f32
+  (≤ 0: greedy), top_k an int or [B] (capped at ``k_max``). Returns
+  (tokens [B, n_steps], next_token [B, 1], positions [B], cache): the
+  reference's contract, ``next_token`` left on the device as the next
+  chunk's input. K2 carries the attention on the card with
+  ``XOT_TPU_FLASH_DECODE=1`` at a window of at least
+  ``XOT_TPU_FLASH_DECODE_MIN``, else the plain attention."""
+  _dense_full_model(params, shard, "fused_batch_decode")
+  dev = token.device
+  if generator is None:
+    generator = torch.Generator(device=dev).manual_seed(0)
+  B = token.shape[0]
+  toks, nxt, pos = _batch_decode_scan(
+    params, cfg, shard, token.to(torch.int32), cache, positions.to(device=dev, dtype=torch.int32), active.to(device=dev, dtype=torch.bool),
+    temps.to(device=dev, dtype=torch.float32), _row_top_ks(top_k, B, dev), int(n_steps), int(k_max), generator,
+  )
+  return toks, nxt, pos, cache
+
+
 # ------------------------------------------------------- paged serving
 # (ops/paged.py + inference/batch_scheduler.py): rows map logical positions
 # onto fixed-size pages of one shared pool through block tables [B, mp]. The
@@ -1326,6 +1423,20 @@ _DENSE_TOP_KEYS = frozenset({*STACKS, "embed", "final_norm", "lm_head", "lm_head
 def _no_mla(cfg: ModelConfig, what: str) -> None:
   if cfg.is_mla:
     raise ValueError(f"{what} does not support MLA models")
+
+
+def paged_use_kernel(cfg: ModelConfig, batch: int, context: int, pool: Params, device) -> bool:
+  """``use_kernel=None`` of the paged programs, as the reference resolves
+  it: K3's route (``paged_decode_attention``) unless the config has no
+  other (``paged_kernel_supported``) or the decode-path table answers
+  "gather" at this (batch, window, KV quant) point (inference/paging.py
+  ``select_decode_path``: always on the CPU, as off-TPU in the reference;
+  the H100 table on a card). A head dim K3 lacks refuses on a card."""
+  from ..inference.paging import select_decode_path
+  from ..ops.paged import check_paged_kernel, paged_kernel_supported
+
+  check_paged_kernel(cfg, device)
+  return paged_kernel_supported(cfg) and select_decode_path(batch, context, pool_kv_quant(pool, cfg), device=device) != "gather"
 
 
 def _dense_full_model(params: Params, shard: Shard, what: str) -> None:
@@ -1470,19 +1581,15 @@ def fused_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token, pool
   Returns (tokens [B, n_steps], next_token [B, 1], positions [B], pool):
   ``next_token`` stays on the device and is the next chunk's input.
   Inactive rows do not advance. ``use_kernel=None`` resolves through
-  ``ops/paged.py paged_kernel_supported``: K3 on the card."""
-  from ..ops.paged import check_paged_kernel, paged_kernel_supported
-
+  ``paged_use_kernel``."""
   _dense_full_model(params, shard, "fused_paged_batch_decode")
   dev = token.device
+  B = token.shape[0]
   if use_kernel is None:
-    check_paged_kernel(cfg, dev)
-    use_kernel = paged_kernel_supported(cfg)
+    use_kernel = paged_use_kernel(cfg, B, block_tables.shape[1] * int(page_size), pool, dev)
   if generator is None:
     generator = torch.Generator(device=dev).manual_seed(0)
-  B = token.shape[0]
-  # A Python int is filled on the device: a host copy would block on the stream.
-  top_ks = torch.full((B,), top_k, dtype=torch.int32, device=dev) if isinstance(top_k, int) else top_k.to(device=dev, dtype=torch.int32).expand(B)
+  top_ks = _row_top_ks(top_k, B, dev)
   return _paged_decode_scan(
     params, cfg, shard, token.to(torch.int32), pool, block_tables.to(torch.int32).contiguous(), positions.to(torch.int32), active.to(torch.bool),
     temps.to(torch.float32), top_ks, int(n_steps), int(k_max), int(page_size), bool(use_kernel), generator,
@@ -1535,18 +1642,15 @@ def fused_mixed_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token
   an MLA model (as in the reference) and any parameter set but the
   decoder's are refused. ``use_kernel=None`` resolves as in
   ``fused_paged_batch_decode``."""
-  from ..ops.paged import check_paged_kernel, paged_kernel_supported
-
   _dense_full_model(params, shard, "fused_mixed_paged_batch_decode")
   _no_mla(cfg, "fused_mixed_paged_batch_decode")
   dev = token.device
+  B = token.shape[0]
   if use_kernel is None:
-    check_paged_kernel(cfg, dev)
-    use_kernel = paged_kernel_supported(cfg)
+    use_kernel = paged_use_kernel(cfg, B, block_tables.shape[1] * int(page_size), pool, dev)
   if generator is None:
     generator = torch.Generator(device=dev).manual_seed(0)
-  B = token.shape[0]
-  top_ks = torch.full((B,), top_k, dtype=torch.int32, device=dev) if isinstance(top_k, int) else top_k.to(device=dev, dtype=torch.int32).expand(B)
+  top_ks = _row_top_ks(top_k, B, dev)
   return _fused_mixed_paged_batch_decode_impl(
     params, cfg, shard, token.to(torch.int32), pool, block_tables.to(torch.int32).contiguous(), positions.to(torch.int32), active.to(torch.bool),
     temps.to(torch.float32), top_ks, pf_tokens.to(torch.int32), pf_bt.to(torch.int32), pf_prefix.to(torch.int32), pf_end.to(torch.int32),
@@ -1564,8 +1668,10 @@ def fused_mixed_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token
 # rejected tail positions hold garbage KV that the next round's window
 # rewrites before anything reads it.
 #
-# The port is draft-free: proposals are host n-gram streams
-# (inference/ngram.py) handed in as ``props``. Per-row depths ``gammas``
+# Proposals come from a draft model (``params_d``: G greedy steps a round on
+# the draft's own slot cache, then its catch-up over the window) and, per
+# row, from host n-gram streams (inference/ngram.py) handed in as
+# ``props``, which take the row over while it follows them. Per-row depths ``gammas``
 # are device data, so a row at depth 0 decodes plain inside the same call.
 # Greedy rows emit exactly the target's greedy tokens for ANY proposal;
 # sampled rows run at depth 0 and draw one sample per round from the
@@ -1624,7 +1730,7 @@ def paged_window_forward(params, cfg: ModelConfig, shard: Shard, tokens, positio
   return head_logits(params, cfg, h), pool
 
 
-def _spec_batch_rounds(verify, token, positions, active, gammas, temps, top_ks, n_rounds: int, gamma_max: int, k_max: int, generator, props=None, prop_counts=None):
+def _spec_batch_rounds(verify, token, positions, active, gammas, temps, top_ks, n_rounds: int, gamma_max: int, k_max: int, generator, props=None, prop_counts=None, draft=None):
   """The draft-free round loop: ``verify(window [B, W], wpos [B, W])``
   runs the target over each row's window and returns logits [B, W, V].
   Returns (buf [B, n_rounds·W], counts [B], n_prop [B], next_tok [B, 1],
@@ -1638,7 +1744,13 @@ def _spec_batch_rounds(verify, token, positions, active, gammas, temps, top_ks, 
   proposed row drafts the next G stream tokens each round for as long as
   every verified token continued the stream; the first divergence drops it
   to plain for the rest of the chunk. Nothing here reads a value back to
-  the host."""
+  the host.
+
+  ``draft`` (``_draft_fns``) adds the model proposer: each round the draft
+  proposes G tokens for every row in G single-token steps on its own slot
+  cache (host-proposed rows take their stream over them), and after the
+  verify it runs the whole window (its catch-up), so its cache covers
+  every accepted position. Without it the rows draft zeros."""
   B = token.shape[0]
   G = int(gamma_max)
   W = G + 1
@@ -1654,7 +1766,7 @@ def _spec_batch_rounds(verify, token, positions, active, gammas, temps, top_ks, 
   zeros_b = torch.zeros((B,), dtype=torch.int32, device=dev)
   tok, pos, counts, n_prop = token, positions, zeros_b, zeros_b
   for _ in range(int(n_rounds)):
-    d = torch.zeros((B, G), dtype=torch.int32, device=dev)
+    d = draft[0](tok, pos) if draft is not None and G > 0 else torch.zeros((B, G), dtype=torch.int32, device=dev)
     geff = gammas
     if with_props:
       d_stream = torch.gather(props_pad, 1, counts.long()[:, None] + widx[None, :G])
@@ -1677,6 +1789,8 @@ def _spec_batch_rounds(verify, token, positions, active, gammas, temps, top_ks, 
     # Each row appends at its own offset; slots past the advance hold the
     # correction and are overwritten by the next round's append.
     buf.scatter_(1, counts.long()[:, None] + widx[None, :], emitted)
+    if draft is not None:
+      draft[1](window, wpos)
     if with_props:
       # On-stream iff the whole window continued the stream: full
       # acceptance AND the correction is the stream's next token.
@@ -1705,11 +1819,36 @@ def _spec_props_args(props, prop_counts, B: int, n_rounds: int, gamma_max: int, 
   return props, counts
 
 
-def _spec_chunk_args(what: str, params, shard: Shard, params_d, adapter_ids, token, active, gammas, top_k, gamma_max: int, generator):
-  """The draft-free spec chunks' refusals and per-row operands: (generator,
-  top_ks [B], active [B] bool, gammas [B] clamped to ``gamma_max``)."""
+def _draft_fns(params_d, cfg_d: ModelConfig, shard_d: Shard, cache_d, G: int):
+  """The model proposer of ``_spec_batch_rounds`` over the draft's own slot
+  cache ``cache_d`` (written in place): ``propose(tok [B,1], pos [B])`` runs
+  G greedy single-token steps (K2 on the card where the solo step takes
+  it) and returns [B, G]; ``catch_up(window, wpos)`` runs the verify window
+  through the draft (K1 on the card)."""
+
+  def propose(tok, pos):
+    out = []
+    for _ in range(G):
+      logits, _ = shard_forward(params_d, cfg_d, shard_d, tok, pos[:, None], cache_d)
+      nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
+      out.append(nxt)
+      tok, pos = nxt[:, None], pos + 1
+    return torch.stack(out, dim=1)
+
+  def catch_up(window, wpos):
+    shard_forward(params_d, cfg_d, shard_d, window, wpos, cache_d)
+
+  return propose, catch_up
+
+
+def _spec_chunk_args(what: str, params, shard: Shard, params_d, shard_d, cache_d, adapter_ids, token, active, gammas, top_k, gamma_max: int, generator):
+  """The spec chunks' refusals and per-row operands: (generator, top_ks [B],
+  active [B] bool, gammas [B] clamped to ``gamma_max``). A draft
+  (``params_d``) needs its slot cache and a full-model shard."""
   if params_d is not None:
-    raise NotImplementedError(f"{what}: the draft-model proposer is not ported; pass params_d=None (n-gram proposals only)")
+    if cache_d is None:
+      raise ValueError(f"{what}: a draft model (params_d) needs its slot cache (cache_d)")
+    _full_model(shard_d, what)
   if adapter_ids is not None:
     raise NotImplementedError(f"{what}: per-row adapters are not ported")
   _dense_full_model(params, shard, what)
@@ -1717,8 +1856,7 @@ def _spec_chunk_args(what: str, params, shard: Shard, params_d, adapter_ids, tok
   if generator is None:
     generator = torch.Generator(device=dev).manual_seed(0)
   B = token.shape[0]
-  top_ks = torch.full((B,), top_k, dtype=torch.int32, device=dev) if isinstance(top_k, int) else top_k.to(device=dev, dtype=torch.int32).expand(B)
-  return generator, top_ks, active.to(device=dev, dtype=torch.bool), torch.clamp(gammas.to(device=dev, dtype=torch.int32), max=int(gamma_max))
+  return generator, _row_top_ks(top_k, B, dev), active.to(device=dev, dtype=torch.bool), torch.clamp(gammas.to(device=dev, dtype=torch.int32), max=int(gamma_max))
 
 
 @tracked("spec.paged_batch", ("cfg", "shard", "cfg_d", "shard_d", "n_rounds", "gamma_max", "k_max", "page_size", "use_kernel"))
@@ -1738,28 +1876,28 @@ def fused_spec_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, params
   trip. ``use_kernel=None`` resolves as in ``fused_paged_batch_decode``:
   K3 on the card, one launch per layer per round.
 
-  Draft-free only: ``params_d`` must be None (the draft-model proposer and
-  its dense draft cache are not ported; ``cache_d`` passes through), and
-  so must ``adapter_ids`` (no LoRA yet). An MLA model is refused, as in
-  the reference (its paged server runs no batched speculation)."""
-  from ..ops.paged import check_paged_kernel, paged_kernel_supported
-
+  ``params_d`` (with ``cfg_d`` / ``shard_d``) is the model proposer: the
+  draft proposes from its own slot cache ``cache_d`` [L_d, B, max_seq,
+  ...], written in place (``_spec_batch_rounds``); None is the draft-free
+  chunk (``cache_d`` passes through). ``adapter_ids`` must be None (no
+  LoRA yet). An MLA model is refused, as in the reference (its paged
+  server runs no batched speculation)."""
   _no_mla(cfg, "fused_spec_paged_batch_decode")
-  generator, top_ks, active, gammas = _spec_chunk_args("fused_spec_paged_batch_decode", params, shard, params_d, adapter_ids, token, active, gammas, top_k, gamma_max, generator)
+  generator, top_ks, active, gammas = _spec_chunk_args("fused_spec_paged_batch_decode", params, shard, params_d, shard_d, cache_d, adapter_ids, token, active, gammas, top_k, gamma_max, generator)
   dev = token.device
   if use_kernel is None:
-    check_paged_kernel(cfg, dev)
-    use_kernel = paged_kernel_supported(cfg)
+    use_kernel = paged_use_kernel(cfg, token.shape[0], block_tables.shape[1] * int(page_size), pool, dev)
   G = int(gamma_max)
   props, prop_counts = _spec_props_args(props, prop_counts, token.shape[0], int(n_rounds), G, dev)
+  draft = _draft_fns(params_d, cfg_d, shard_d, cache_d, G) if params_d is not None else None
   buf, counts, n_prop, next_tok, next_pos = _spec_paged_rounds(
     params, cfg, shard, token.to(torch.int32), pool, block_tables.to(device=dev, dtype=torch.int32), positions.to(device=dev, dtype=torch.int32), active, gammas,
-    temps.to(device=dev, dtype=torch.float32), top_ks, int(n_rounds), G, int(k_max), int(page_size), bool(use_kernel), generator, props, prop_counts,
+    temps.to(device=dev, dtype=torch.float32), top_ks, int(n_rounds), G, int(k_max), int(page_size), bool(use_kernel), generator, props, prop_counts, draft,
   )
   return buf, counts, n_prop, next_tok, next_pos, pool, cache_d
 
 
-def _spec_paged_rounds(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, gammas, temps, top_ks, n_rounds: int, G: int, k_max: int, page_size: int, use_kernel: bool, generator, props, prop_counts):
+def _spec_paged_rounds(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, gammas, temps, top_ks, n_rounds: int, G: int, k_max: int, page_size: int, use_kernel: bool, generator, props, prop_counts, draft=None):
   """The body of ``fused_spec_paged_batch_decode`` on operands already of
   their device and dtype: the verify window through the page pool, the
   rounds of ``_spec_batch_rounds``."""
@@ -1774,7 +1912,19 @@ def _spec_paged_rounds(params, cfg: ModelConfig, shard: Shard, token, pool, bloc
     logits, _ = paged_window_forward(params, cfg, shard, window, wpos, pool, bt, page_size, use_kernel, bt_window)
     return logits
 
-  return _spec_batch_rounds(verify, token, positions, active, gammas, temps, top_ks, n_rounds, G, k_max, generator, props, prop_counts)
+  return _spec_batch_rounds(verify, token, positions, active, gammas, temps, top_ks, n_rounds, G, k_max, generator, props, prop_counts, draft)
+
+
+def _spec_dense_rounds(params, cfg: ModelConfig, shard: Shard, token, cache, positions, active, gammas, temps, top_ks, n_rounds: int, G: int, k_max: int, generator, props, prop_counts, draft=None):
+  """The body of ``fused_spec_batch_decode``: the verify window run by
+  ``shard_forward`` on the slot cache (K1 at Sq = G+1 over B rows of their
+  own offsets on the card)."""
+
+  def verify(window, wpos):
+    logits, _ = shard_forward(params, cfg, shard, window, wpos, cache)
+    return logits
+
+  return _spec_batch_rounds(verify, token, positions, active, gammas, temps, top_ks, n_rounds, G, k_max, generator, props, prop_counts, draft)
 
 
 _SPEC_BATCH_STATIC = ("cfg", "shard", "cfg_d", "shard_d", "n_rounds", "gamma_max", "k_max")
@@ -1791,32 +1941,29 @@ def fused_spec_batch_decode(params, cfg: ModelConfig, shard: Shard, params_d, cf
   every tensor on the device. One dispatch of ``spec.batch``; with
   ``programs`` (the ``SoloPrograms`` of ``cache``, and no ``generator``:
   the program seeds its own as a fresh one is seeded here) the chunk is one
-  replay of its captured program, every round in it.
+  replay of its captured program, every round in it (draft-free only: the
+  batched server's captured chunk is ``BatchedPrograms.spec``).
 
-  Draft-free only: ``params_d`` must be None (``cache_d`` passes through),
-  and so must ``adapter_ids``."""
+  ``params_d`` / ``cache_d`` are the model proposer, as in
+  ``fused_spec_paged_batch_decode``; ``adapter_ids`` must be None. MLA
+  models verify through the dense latent cache, as in the reference."""
   sig = dict(
     params=params, cfg=cfg, shard=shard, params_d=params_d, cfg_d=cfg_d, shard_d=shard_d, token=token, cache=cache, cache_d=cache_d, positions=positions,
     active=active, gammas=gammas, temps=temps, n_rounds=int(n_rounds), gamma_max=int(gamma_max), top_k=top_k, k_max=int(k_max), generator=generator,
     props=props, prop_counts=prop_counts, adapter_ids=adapter_ids,
   )
-  generator, top_ks, active, gammas = _spec_chunk_args("fused_spec_batch_decode", params, shard, params_d, adapter_ids, token, active, gammas, top_k, gamma_max, generator)
+  generator, top_ks, active, gammas = _spec_chunk_args("fused_spec_batch_decode", params, shard, params_d, shard_d, cache_d, adapter_ids, token, active, gammas, top_k, gamma_max, generator)
   dev = token.device
   G = int(gamma_max)
   props, prop_counts = _spec_props_args(props, prop_counts, token.shape[0], int(n_rounds), G, dev)
   token, positions, temps = token.to(torch.int32), positions.to(device=dev, dtype=torch.int32), temps.to(device=dev, dtype=torch.float32)
   if programs is not None:
-    if programs.cache is not cache or sig["generator"] is not None:
-      raise ValueError("programs= must be the cache's SoloPrograms, with no generator")
+    if programs.cache is not cache or sig["generator"] is not None or params_d is not None:
+      raise ValueError("programs= must be the cache's SoloPrograms, with no generator and no draft")
     run = lambda: programs.spec_batch(token, positions, active, gammas, temps, top_ks, int(n_rounds), G, int(k_max), props, prop_counts)  # noqa: E731
   else:
-
-    def run():
-      def verify(window, wpos):
-        logits, _ = shard_forward(params, cfg, shard, window, wpos, cache)
-        return logits
-
-      return _spec_batch_rounds(verify, token, positions, active, gammas, temps, top_ks, int(n_rounds), G, int(k_max), generator, props, prop_counts)
+    draft = _draft_fns(params_d, cfg_d, shard_d, cache_d, G) if params_d is not None else None
+    run = lambda: _spec_dense_rounds(params, cfg, shard, token, cache, positions, active, gammas, temps, top_ks, int(n_rounds), G, int(k_max), generator, props, prop_counts, draft)  # noqa: E731
 
   buf, counts, n_prop, next_tok, next_pos = ledger.dispatch("spec.batch", sig, _SPEC_BATCH_STATIC, run)
   return buf, counts, n_prop, next_tok, next_pos, cache, cache_d
@@ -1828,23 +1975,36 @@ _NP_DTYPES = {torch.int32: np.int32, torch.int64: np.int64, torch.float32: np.fl
 
 
 class BatchedPrograms:
-  """The captured batched programs of one page pool: the reference's
+  """The captured batched programs of one KV store — a page pool, or with
+  ``dense`` the slot cache [L, n_slots, max_seq, ...] — the reference's
   one-program-per-dispatch execution for the batched server on a CUDA
   device. Each dispatch is one replay of a CUDA graph holding the whole
   dispatch, every step or round of it:
 
   - ``prefill`` — ``prefill.pages_many_sampled``: an admission batch's
     prefill and first-token sampling (K1 on the card), one graph per row
-    bucket, token width, page window and ``k_max``;
+    bucket, token width, page window and ``k_max``; on the slot cache
+    ``prefill_slots`` — ``prefill.slots_sampled`` — one graph per row count,
+    token width and ``k_max``;
   - ``decode`` — ``decode.paged_batch``: ``n_steps`` decode steps over
     every row (K3), one graph per row count, table width, ``n_steps``,
-    ``k_max``, page size and route;
-  - ``mixed`` — ``decode.mixed_paged_batch``: the same with one
+    ``k_max``, page size and route; on the slot cache ``batch_decode`` —
+    ``decode.batch`` (K2 or the plain attention) — per row count,
+    ``n_steps`` and ``k_max``;
+  - ``mixed`` — ``decode.mixed_paged_batch``: the paged chunk with one
     admission's prefill slice fused in (K1 for the slice), also keyed on
     the slice's pad and page window;
-  - ``spec`` — ``spec.paged_batch``: ``n_rounds`` verify rounds at depth
-    cap ``gamma_max`` (K3 over the B·W window rows), also keyed on whether
-    n-gram proposals come with it and their width.
+  - ``spec`` — ``spec.paged_batch`` (K3 over the B·W window rows) or
+    ``spec.batch`` on the slot cache (K1 at Sq = W over the B rows):
+    ``n_rounds`` verify rounds at depth cap ``gamma_max``, also keyed on
+    whether n-gram proposals come with it and their width, and on whether
+    the draft model proposes (its G steps and its catch-up inside each
+    round, on the draft's slot cache);
+  - ``draft_prefill`` — ``prefill.slots`` on the draft's slot cache: the
+    draft's prompt prefill riding an admission, per row count and width.
+
+  The draft (``set_draft``: its params, config, shard and slot cache) is
+  fixed for the instance's life, as the pool is: its graphs hold both.
 
   A graph is built at the first dispatch of a signature the ledger records
   as a build, so captures equal builds per family for one instance; it is
@@ -1856,7 +2016,7 @@ class BatchedPrograms:
   on the compute stream ahead of the replay. Outputs are buffers allocated
   outside the captures, one set per graph: valid until that graph runs
   again, so a caller queues its reads of them (the scheduler's host copies,
-  the next chained dispatch's fills) before the next dispatch. The pool is
+  the next chained dispatch's fills) before the next dispatch. The store is
   written in place at its fixed address, so the instance lives and dies
   with it. One CUDA generator, registered with every graph, is reseeded
   with the dispatch's key before each run (``Graph.run(seed=)``): a replay
@@ -1865,14 +2025,20 @@ class BatchedPrograms:
   replay one at a time on one stream. On the CPU each program runs its
   body eagerly through the same buffers."""
 
-  def __init__(self, params, cfg: ModelConfig, shard: Shard, pool: dict) -> None:
+  def __init__(self, params, cfg: ModelConfig, shard: Shard, pool: dict, dense: bool = False) -> None:
     _dense_full_model(params, shard, "BatchedPrograms")
-    self.params, self.cfg, self.shard, self.pool = params, cfg, shard, pool
+    self.params, self.cfg, self.shard, self.pool, self.dense = params, cfg, shard, pool, bool(dense)
     self.device = pool["k"].device
     self.generator = torch.Generator(device=self.device)
     self.graph_pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+    self.draft: tuple | None = None  # (params_d, cfg_d, shard_d, cache_d)
     self._bufs: dict[tuple, torch.Tensor] = {}
     self._graphs: dict[tuple, tuple[Graph, dict]] = {}
+
+  def set_draft(self, params_d, cfg_d: ModelConfig, shard_d: Shard, cache_d: dict) -> None:
+    """Attach the draft model and its slot cache (before any graph that
+    drafts is built)."""
+    self.draft = (params_d, cfg_d, shard_d, cache_d)
 
   def graphs(self) -> list[Graph]:
     return [g for g, _ in self._graphs.values()]
@@ -1883,6 +2049,7 @@ class BatchedPrograms:
     and the graph memory pool with them)."""
     self._graphs.clear()
     self._bufs.clear()
+    self.draft = None
 
   def _fill(self, name: str, x, dtype, shape: tuple | None = None) -> torch.Tensor:
     """The static input buffer ``name`` of ``x``'s shape and ``dtype``,
@@ -1911,26 +2078,30 @@ class BatchedPrograms:
       entry = self._graphs[key] = (graph, bufs)
     return entry
 
-  def _use_kernel(self) -> bool:
-    from ..ops.paged import check_paged_kernel, paged_kernel_supported
-
-    check_paged_kernel(self.cfg, self.device)
-    return paged_kernel_supported(self.cfg)
+  def _use_kernel(self, B: int, mp: int, page_size: int) -> bool:
+    return paged_use_kernel(self.cfg, B, mp * page_size, self.pool, self.device)
 
   def _rows(self, token, block_tables, positions, active, temps, top_ks) -> tuple:
-    """The decode operands every chunk family takes, in their buffers."""
-    B = block_tables.shape[0]
+    """The decode operands every chunk family takes, in their buffers (no
+    table on the slot cache: ``block_tables`` None)."""
+    B = positions.shape[0]
+    bt = None if block_tables is None else self._fill("block_tables", block_tables, torch.int32)
     return (
-      self._fill("token", token, torch.int32, (B, 1)), self._fill("block_tables", block_tables, torch.int32), self._fill("positions", positions, torch.int32, (B,)),
+      self._fill("token", token, torch.int32, (B, 1)), bt, self._fill("positions", positions, torch.int32, (B,)),
       self._fill("active", active, torch.bool, (B,)), self._fill("temps", temps, torch.float32, (B,)), self._fill("top_ks", top_ks, torch.int32, (B,)),
     )
 
   def _rows_sig(self, token, block_tables, positions, active, temps, top_ks) -> dict:
-    B, dev = block_tables.shape[0], self.device
-    return dict(
-      params=self.params, cfg=self.cfg, shard=self.shard, token=_Like(torch.int32, (B, 1), dev), pool=self.pool, block_tables=_Like(torch.int32, block_tables.shape, dev),
+    B, dev = positions.shape[0], self.device
+    sig = dict(
+      params=self.params, cfg=self.cfg, shard=self.shard, token=_Like(torch.int32, (B, 1), dev),
       positions=_Like(torch.int32, (B,), dev), active=_Like(torch.bool, (B,), dev), temps=_Like(torch.float32, (B,), dev), top_k=_Like(torch.int32, (B,), dev), generator=self.generator,
     )
+    if self.dense:
+      sig["cache"] = self.pool
+    else:
+      sig.update(pool=self.pool, block_tables=_Like(torch.int32, block_tables.shape, dev))
+    return sig
 
   # ------------------------------------------------------------ families
 
@@ -1961,10 +2132,62 @@ class BatchedPrograms:
 
     return ledger.dispatch("prefill.pages_many_sampled", sig, ("cfg", "shard", "page_size", "k_max"), run)
 
+  def prefill_slots(self, tokens, rows, prompt_lens, temps, top_ks, k_max: int, key: int) -> torch.Tensor:
+    """``prefill_into_slots_sampled``'s contract on the slot cache: the
+    first tokens [K] int32 (a fresh tensor); the K rows are written in
+    place."""
+    K, S = tokens.shape
+    dev, k_max = self.device, int(k_max)
+    vec = _Like(torch.int32, (K,), dev)
+    sig = dict(
+      params=self.params, cfg=self.cfg, shard=self.shard, tokens=_Like(torch.int32, (K, S), dev), cache=self.pool, rows=vec, prompt_lens=vec,
+      temps=_Like(torch.float32, (K,), dev), top_ks=vec, generator=self.generator, k_max=k_max,
+    )
+
+    def run():
+      tok = self._fill("ps.tokens", tokens, torch.int32)
+      rws, lens = self._fill("ps.rows", rows, torch.int32, (K,)), self._fill("ps.prompt", prompt_lens, torch.int32, (K,))
+      tmp, tks = self._fill("ps.temps", temps, torch.float32, (K,)), self._fill("ps.top_ks", top_ks, torch.int32, (K,))
+
+      def body(out):
+        last, _ = prefill_into_slots(self.params, self.cfg, self.shard, tok, self.pool, rws, lens)
+        out["first"].copy_(_next_token_batched(last, self.generator, tmp, tks, k_max))
+
+      graph, out = self._program("prefill.slots_sampled", (K, S, k_max), {"first": ((K,), torch.int32)}, body)
+      graph.run(dev, seed=key)
+      return out["first"].clone()
+
+    return ledger.dispatch("prefill.slots_sampled", sig, ("cfg", "shard", "k_max"), run)
+
+  def draft_prefill(self, tokens, rows, prompt_lens) -> None:
+    """``prefill_into_slots`` of the draft on its slot cache (the draft's
+    prompt prefill riding an admission dispatch); nothing is returned."""
+    params_d, cfg_d, shard_d, cache_d = self.draft
+    K, S = tokens.shape
+    dev = self.device
+    vec = _Like(torch.int32, (K,), dev)
+    sig = dict(params=params_d, cfg=cfg_d, shard=shard_d, tokens=_Like(torch.int32, (K, S), dev), cache=cache_d, rows=vec, prompt_lens=vec)
+
+    def run():
+      tok = self._fill("dp.tokens", tokens, torch.int32)
+      rws, lens = self._fill("dp.rows", rows, torch.int32, (K,)), self._fill("dp.prompt", prompt_lens, torch.int32, (K,))
+
+      def body(_out):
+        _prefill_into_slots_impl(params_d, cfg_d, shard_d, tok, cache_d, rws, lens)
+
+      graph, _ = self._program("prefill.slots", (K, S), {}, body)
+      graph.run(dev)
+
+    ledger.dispatch("prefill.slots", sig, ("cfg", "shard"), run)
+
   def decode(self, token, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, key: int) -> tuple:
     """``fused_paged_batch_decode``'s contract: (tokens [B, n_steps],
     next_token [B, 1], positions [B]), the graph's output buffers."""
     return self._chunk("decode.paged_batch", (token, block_tables, positions, active, temps, top_ks), n_steps, k_max, page_size, key)
+
+  def batch_decode(self, token, positions, active, temps, top_ks, n_steps: int, k_max: int, key: int) -> tuple:
+    """``fused_batch_decode``'s contract on the slot cache, as ``decode``."""
+    return self._chunk("decode.batch", (token, None, positions, active, temps, top_ks), n_steps, k_max, 0, key)
 
   def mixed(self, token, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, key: int, pf_tokens, pf_bt, pf_prefix, pf_end) -> tuple:
     """``fused_mixed_paged_batch_decode``'s contract, as ``decode``."""
@@ -1972,11 +2195,17 @@ class BatchedPrograms:
     return self._chunk("decode.mixed_paged_batch", (token, block_tables, positions, active, temps, top_ks), n_steps, k_max, page_size, key, (pf_tokens, pf_bt, pf_prefix, pf_end))
 
   def _chunk(self, family: str, rows: tuple, n_steps: int, k_max: int, page_size: int, key: int, pf: tuple | None = None) -> tuple:
-    """A plain chunk, or with ``pf`` (the slice's tokens [1, pad], table
-    [1, mp], prefix and end [1]) a mixed one."""
-    B, mp = rows[1].shape
+    """A plain chunk (paged, or on the slot cache), or with ``pf`` (the
+    slice's tokens [1, pad], table [1, mp], prefix and end [1]) a mixed
+    one."""
+    B = rows[2].shape[0]
+    mp = 0 if self.dense else rows[1].shape[1]
     n_steps, k_max, page_size, dev = int(n_steps), int(k_max), int(page_size), self.device
-    sig = dict(self._rows_sig(*rows), n_steps=n_steps, k_max=k_max, page_size=page_size)
+    sig = dict(self._rows_sig(*rows), n_steps=n_steps, k_max=k_max)
+    static = ("cfg", "shard", "n_steps", "k_max")
+    if not self.dense:
+      sig.update(page_size=page_size)
+      static += ("page_size", "use_kernel")
     slice_key = ()
     if pf is not None:
       slice_key = (pf[0].shape[1], pf[1].shape[1])
@@ -1984,15 +2213,18 @@ class BatchedPrograms:
       sig.update(pf_tokens=_Like(torch.int32, (1, slice_key[0]), dev), pf_bt=_Like(torch.int32, (1, slice_key[1]), dev), pf_prefix=one, pf_end=one)
 
     def run():
-      use_kernel = self._use_kernel()
+      use_kernel = False if self.dense else self._use_kernel(B, mp, page_size)
       tok, bt, pos, act, tmp, tks = self._rows(*rows)
       if pf is not None:
         pf_bufs = tuple(self._fill(f"mx.{name}", x, torch.int32, shape) for name, x, shape in zip(("tokens", "bt", "prefix", "end"), pf, ((1, slice_key[0]), (1, slice_key[1]), (1,), (1,))))
 
       def body(out):
-        common = (self.params, self.cfg, self.shard, tok, self.pool, bt, pos, act, tmp, tks)
-        tail = (n_steps, k_max, page_size, use_kernel, self.generator)
-        toks, nxt, npos, _ = _paged_decode_scan(*common, *tail) if pf is None else _fused_mixed_paged_batch_decode_impl(*common, *pf_bufs, *tail)
+        if self.dense:
+          toks, nxt, npos = _batch_decode_scan(self.params, self.cfg, self.shard, tok, self.pool, pos, act, tmp, tks, n_steps, k_max, self.generator)
+        else:
+          common = (self.params, self.cfg, self.shard, tok, self.pool, bt, pos, act, tmp, tks)
+          tail = (n_steps, k_max, page_size, use_kernel, self.generator)
+          toks, nxt, npos, _ = _paged_decode_scan(*common, *tail) if pf is None else _fused_mixed_paged_batch_decode_impl(*common, *pf_bufs, *tail)
         out["tokens"].copy_(toks)
         out["next_token"].copy_(nxt)
         out["positions"].copy_(npos)
@@ -2002,26 +2234,38 @@ class BatchedPrograms:
       graph.run(dev, seed=key)
       return out["tokens"], out["next_token"], out["positions"]
 
-    return ledger.dispatch(family, sig, ("cfg", "shard", "n_steps", "k_max", "page_size", "use_kernel"), run)
+    return ledger.dispatch(family, sig, static, run)
 
-  def spec(self, token, block_tables, positions, active, gammas, temps, top_ks, n_rounds: int, gamma_max: int, k_max: int, page_size: int, key: int, props=None, prop_counts=None) -> tuple:
-    """``fused_spec_paged_batch_decode``'s contract without the pool and
-    the draft cache: (tokens [B, n_rounds·(gamma_max+1)], counts [B],
-    n_prop [B], next_token [B, 1], next_positions [B]), the graph's output
-    buffers. ``props`` None (no n-gram rows) is a graph of its own."""
-    B, mp = block_tables.shape
+  def spec(self, token, block_tables, positions, active, gammas, temps, top_ks, n_rounds: int, gamma_max: int, k_max: int, page_size: int, key: int, props=None, prop_counts=None, use_draft: bool = False) -> tuple:
+    """``fused_spec_paged_batch_decode``'s contract (``fused_spec_batch_decode``'s
+    on the slot cache, ``block_tables`` None) without the store and the
+    draft cache: (tokens [B, n_rounds·(gamma_max+1)], counts [B], n_prop
+    [B], next_token [B, 1], next_positions [B]), the graph's output
+    buffers. ``props`` None (no n-gram rows) is a graph of its own, and so
+    is ``use_draft`` (the draft model proposes: ``set_draft``)."""
+    B = positions.shape[0]
+    mp = 0 if self.dense else block_tables.shape[1]
     n_rounds, G, k_max, page_size, dev = int(n_rounds), int(gamma_max), int(k_max), int(page_size), self.device
     width = None if props is None else props.shape[1]
     vec = _Like(torch.int32, (B,), dev)
+    # The draft's geometry keys the program whether it proposes or not (the
+    # target's own without a draft), as the reference passes it.
+    params_d, cfg_d, shard_d, cache_d = self.draft if self.draft is not None else (None, self.cfg, self.shard, None)
+    if not use_draft:
+      params_d = cache_d = None
+    family = "spec.batch" if self.dense else "spec.paged_batch"
     sig = dict(
-      self._rows_sig(token, block_tables, positions, active, temps, top_ks), params_d=None, cfg_d=None, shard_d=None, cache_d=None, gammas=vec,
-      n_rounds=n_rounds, gamma_max=G, k_max=k_max, page_size=page_size, props=None if props is None else _Like(torch.int32, (B, width), dev),
+      self._rows_sig(token, block_tables, positions, active, temps, top_ks), params_d=params_d, cfg_d=cfg_d, shard_d=shard_d, cache_d=cache_d, gammas=vec,
+      n_rounds=n_rounds, gamma_max=G, k_max=k_max, props=None if props is None else _Like(torch.int32, (B, width), dev),
       prop_counts=None if prop_counts is None else vec, adapter_ids=None,
     )
-    static = ("cfg", "shard", "cfg_d", "shard_d", "n_rounds", "gamma_max", "k_max", "page_size", "use_kernel")
+    static = ("cfg", "shard", "cfg_d", "shard_d", "n_rounds", "gamma_max", "k_max")
+    if not self.dense:
+      sig.update(page_size=page_size)
+      static += ("page_size", "use_kernel")
 
     def run():
-      use_kernel = self._use_kernel()
+      use_kernel = False if self.dense else self._use_kernel(B, mp, page_size)
       tok, bt, pos, act, tmp, tks = self._rows(token, block_tables, positions, active, temps, top_ks)
       gam = self._fill("sp.gammas", gammas, torch.int32, (B,))
       pbuf = cbuf = None
@@ -2030,14 +2274,19 @@ class BatchedPrograms:
 
       def body(out):
         p, c = _spec_props_args(pbuf, cbuf, B, n_rounds, G, dev)
-        res = _spec_paged_rounds(self.params, self.cfg, self.shard, tok, self.pool, bt, pos, act, torch.clamp(gam, max=G), tmp, tks, n_rounds, G, k_max, page_size, use_kernel, self.generator, p, c)
+        draft = _draft_fns(params_d, cfg_d, shard_d, cache_d, G) if use_draft else None
+        g = torch.clamp(gam, max=G)
+        if self.dense:
+          res = _spec_dense_rounds(self.params, self.cfg, self.shard, tok, self.pool, pos, act, g, tmp, tks, n_rounds, G, k_max, self.generator, p, c, draft)
+        else:
+          res = _spec_paged_rounds(self.params, self.cfg, self.shard, tok, self.pool, bt, pos, act, g, tmp, tks, n_rounds, G, k_max, page_size, use_kernel, self.generator, p, c, draft)
         for name, t in zip(("tokens", "counts", "n_prop", "next_token", "positions"), res):
           out[name].copy_(t)
 
       vecs = ((B,), torch.int32)
       outs = {"tokens": ((B, n_rounds * (G + 1)), torch.int32), "counts": vecs, "n_prop": vecs, "next_token": ((B, 1), torch.int32), "positions": vecs}
-      graph, out = self._program("spec.paged_batch", (B, mp, n_rounds, G, k_max, page_size, use_kernel, width), outs, body)
+      graph, out = self._program(family, (B, mp, n_rounds, G, k_max, page_size, use_kernel, width, bool(use_draft)), outs, body)
       graph.run(dev, seed=key)
       return tuple(out[name] for name in ("tokens", "counts", "n_prop", "next_token", "positions"))
 
-    return ledger.dispatch("spec.paged_batch", sig, static, run)
+    return ledger.dispatch(family, sig, static, run)

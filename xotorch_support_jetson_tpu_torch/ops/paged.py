@@ -283,13 +283,28 @@ def paged_window_attention(q, k_pool_l, v_pool_l, bt_window, positions, page_siz
   return out.view(B, W, Hq, hd)
 
 
+def paged_kernel_tile(cfg, batch: int, context: int, page_size: int, device) -> int:
+  """Pages of a row's window that one K3 block covers at this pool's shape
+  (the slot range per block of ``decode_plan``, as the wrapper launches
+  it), 0 off the card. The batched server's ``paged_kernel_tile`` gauge;
+  the reference reports its kernel's pages per grid step there, a
+  parameter K3 does not have."""
+  device = torch.device(device)
+  if device.type != "cuda":
+    return 0
+  _, range_ = decode_plan(context, decode_rows(batch, cfg.n_heads, cfg.n_kv_heads), sm_count(device.index))
+  return -(-int(range_) // int(page_size))
+
+
 def paged_kernel_supported(cfg) -> bool:
   """Whether paged decode attention goes through ``paged_decode_attention``
   (K3 on a CUDA tensor, its plain version on the CPU) rather than the
   gather reference. Only an explicit ``XOT_TPU_PAGED_KERNEL=0`` asks for
   the gather path, and a config with attention variations (gemma2) or MLA
-  has no other: the kernel implements neither. The reference's TPU dispatch
-  table (``inference/paging.py select_decode_path``) is not carried over."""
+  has no other: the kernel implements neither. Whether it should run at a
+  (batch, window, KV quant) point is the decode-path table's call
+  (``inference/paging.py select_decode_path``; models/decoder.py
+  ``paged_use_kernel`` resolves through both)."""
   return cfg.plain_attention and not cfg.is_mla and env_flag("XOT_TPU_PAGED_KERNEL", default=True)
 
 
