@@ -95,8 +95,8 @@ Phases (any failure exits non-zero and prints no result):
    ``SoloPrograms``: one CUDA-graph replay per prefill bucket and per decode
    step) on the same checkpoint, with bf16 weights and KV, int8 KV
    (XOT_TPU_KV_QUANT=int8) and int4 weights (XOT_TPU_QUANT=int4): the
-   engine's own entry points (captured prefill, ``generate_oneshot``'s 64
-   steps, two 32-step ``dispatch_chunk``s) against the uncaptured functions
+   engine's own entry points (captured prefill, ``generate_oneshot``'s 32
+   steps, two 16-step ``dispatch_chunk``s) against the uncaptured functions
    called directly on a fresh cache, greedy and sampled at temp 0.6 /
    top_k 35 from equally seeded generators, in a round that builds every
    graph and a round that only replays: transcripts token-identical, the
@@ -341,6 +341,29 @@ Phases (any failure exits non-zero and prints no result):
    ``config.json`` alone under the daemons' home) answers 507. The head's
    streaming TTFT and decode rate are printed beside the solo phase's;
    each daemon gets ``POST /quit`` and must exit 0;
+8e. lora — multi-LoRA serving on the same llama-3.2-1b checkpoint, before
+   it is removed: ten seeded adapters on wq/wv (ranks 16 and 8, f32 npz
+   under build/, B large enough that an adapter row's greedy tokens leave
+   the base's) served from ``XOT_TPU_LORA_DIR`` with
+   ``XOT_TPU_LORA_RANK=16`` and ``XOT_TPU_LORA_SLOTS=8``. Solo: a daemon
+   with ``XOT_TPU_LORA=0`` gives the base tokens and no registry; then the
+   registry lists the ten (``GET /v1/adapters``), an adapter selected by
+   the ``model`` field and one by ``x-adapter`` leave the base tokens, the
+   base request's tokens equal the ``XOT_TPU_LORA=0`` daemon's, an unknown
+   name answers 400 ``unknown_adapter``, and the selected adapters' logits
+   on the served weights (the hook, K1) agree with a plain f32 forward on
+   merged weights W + 2·A·B within 5e-2 relative L2. Batched
+   (``LORA_PASSES``): the paged default (K1, K3, n-gram spec dispatches
+   with adapter rows required), the dense layout with K2, and int4 base
+   weights (K4): per pass a 16-request wave naming six adapters beside
+   base rows, then one naming the four not resident, which swap in
+   without a 429; every adapter's logits on its row's prompt against the
+   merged plain forward, its greedy token against the row's first token,
+   no pin left, the aggregate tok/s (beside a base-only wave on the paged
+   pass) and ``lora_swap_seconds``. The hook's device time: a captured
+   solo step and a captured B=8 ``decode.paged_batch`` chunk, hook off and
+   on. K1-K4 each launch on the phase's path (``lora`` in the kernels
+   line);
 8c. moe — a seeded random bf16 checkpoint at Qwen3-30B-A3B's published
    shapes (``QWEN3_30B_A3B``: hidden 2048, 32/4 heads at hd 128, 128
    experts of 768, top-8 renormalised, qk-norm, vocab 151936, an untied
@@ -1196,10 +1219,10 @@ def write_checkpoint(torch, path: Path, layers: int | None = None, seed: int = S
   return time.perf_counter() - t0
 
 
-def _post(port: int, body: dict):
-  """One chat completion; returns (text, finish_reason, ttft_s, total_s,
-  n_events, request_id)."""
-  req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/chat/completions", data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+def _post(port: int, body: dict, headers: dict | None = None):
+  """One chat completion (with extra ``headers``); returns (text,
+  finish_reason, ttft_s, total_s, n_events, request_id)."""
+  req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/chat/completions", data=json.dumps(body).encode(), headers={"Content-Type": "application/json", **(headers or {})})
   t0 = time.perf_counter()
   try:
     opened = urllib.request.urlopen(req, timeout=600)
@@ -1231,14 +1254,15 @@ def _post(port: int, body: dict):
 
 
 async def _serve_requests(torch, node, engine, port, plan):
-  """Send ``plan`` [(label, body)] one after another; collect token ids via
-  the node's token callbacks (requests are sequential)."""
+  """Send ``plan`` [(label, body) or (label, body, headers)] one after
+  another; collect token ids via the node's token callbacks (requests are
+  sequential)."""
   ids: dict[str, list[int]] = {}
   node.on_token.register("chip_smoke").on_next(lambda rid, toks, fin: ids.setdefault(rid, []).extend(toks))
   out = []
-  for label, body in plan:
+  for label, body, *headers in plan:
     before = set(ids)
-    text, finish, ttft, total, n_events, _ = await asyncio.to_thread(_post, port, body)
+    text, finish, ttft, total, n_events, _ = await asyncio.to_thread(_post, port, body, *headers)
     new = [rid for rid in ids if rid not in before]
     if len(new) != 1:
       raise SystemExit(f"chip_smoke: expected one request's tokens for {label}, saw {len(new)}")
@@ -2260,9 +2284,11 @@ async def _serve_batched(torch, tmain, args, port, weights):
       os.environ.pop(knob, None)
     node.on_token.deregister("chip_smoke")
     out = dict(passes=passes)
+    t_tail = time.perf_counter()
     if weights == "bf16":
       out["warmup"] = await asyncio.to_thread(_batched_warmup_twice, port)
       out["logprobs"] = await _batched_logprobs(torch, node, engine, port)  # after the gated windows
+      log(f"[time] batched {weights} weights: warmup and logprobs {time.perf_counter() - t_tail:.1f} s")
     if "bf16_nospec" in passes:
       # Greedy tokens the speculating default pass and the XOT_TPU_SPEC_BATCH=0
       # pass agree on, position by position (reported, not gated: bf16 sums
@@ -2283,7 +2309,9 @@ async def _serve_batched(torch, tmain, args, port, weights):
       out["window_check"] = check_window_against_plain(torch, engine)
       out["spec_chunk"] = check_spec_chunk_accepts(torch, engine)
       out["mixed_check"] = check_mixed_against_alternating(torch, engine)
+      log(f"[time] batched {weights} weights: to the checks' end {time.perf_counter() - t_tail:.1f} s")
       out["profile"] = profile_batched(torch, engine)
+      log(f"[time] batched {weights} weights: to the profile's end {time.perf_counter() - t_tail:.1f} s")
     engine._drop_batched_server()  # its pool and graphs: the checks below bring their own
     gc.collect()
     torch.cuda.empty_cache()
@@ -2292,6 +2320,7 @@ async def _serve_batched(torch, tmain, args, port, weights):
     log(f"[time] batched {weights} weights: graphs against eager {time.perf_counter() - t_graphs:.1f} s")
     if weights == "bf16":
       out["graphs_profile"] = profile_batched_graphs(torch, engine, _smi(), out["profile"])
+      log(f"[time] batched {weights} weights: to the graphs profile's end {time.perf_counter() - t_tail:.1f} s")
     return out
   finally:
     await node.stop()
@@ -2627,11 +2656,14 @@ def check_mixed_against_alternating(torch, engine):
   return res
 
 
+PROFILE_EAGER_REPS = 1  # an eager profile's repetitions: under torch.profiler each costs seconds, and the kernels repeat within a call
+
+
 def profile_batched(torch, engine, steps=8):
   """One batched decode chunk (B=8, bf16 pool, prompts 150..600) through
   the engine's batch ops: with K3, with a mixed slice fused in (K1 + K3),
   as a spec chunk (8 rounds at depth 8), and with the gather path
-  (XOT_TPU_PAGED_KERNEL=0)."""
+  (XOT_TPU_PAGED_KERNEL=0), each ``PROFILE_EAGER_REPS`` calls."""
   pool, bt, tok, lens = _batched_rows(torch, engine)
   ops = engine.batch_ops
   active = torch.ones(BATCH_SLOTS, dtype=torch.bool, device="cuda")
@@ -2641,11 +2673,11 @@ def profile_batched(torch, engine, steps=8):
   def chunk():
     ops.paged_batch_decode(tok, pool, bt, lens, active, temps, top_ks, steps, k_max=64, page_size=PAGE, key=SEED)
 
-  out = {"decode_k3": _profile(torch, f"batched decode chunk with K3, B={BATCH_SLOTS}, {steps} steps", chunk, 3)}
+  out = {"decode_k3": _profile(torch, f"batched decode chunk with K3, B={BATCH_SLOTS}, {steps} steps", chunk, PROFILE_EAGER_REPS)}
   mpool, mbt, mtok, mlens, pf, _, _ = _mixed_rows(torch, engine)
   out["mixed_k1_k3"] = _profile(
     torch, f"mixed chunk (K1 slice {MIXED_SLICE} tokens at {MIXED_PREFIX}, pad {MIXED_PAD}; K3 decode), B={BATCH_SLOTS}, {steps} steps",
-    lambda: ops.mixed_paged_batch_decode(mtok, mpool, mbt, mlens, active, temps, top_ks, steps, k_max=64, page_size=PAGE, key=SEED, **pf), 3,
+    lambda: ops.mixed_paged_batch_decode(mtok, mpool, mbt, mlens, active, temps, top_ks, steps, k_max=64, page_size=PAGE, key=SEED, **pf), PROFILE_EAGER_REPS,
   )
   del mpool
   gammas = torch.full((BATCH_SLOTS,), SPEC_GAMMA, dtype=torch.int32, device="cuda")
@@ -2654,11 +2686,11 @@ def profile_batched(torch, engine, steps=8):
   # proposed or accepted; zero proposals here).
   out["spec_k3"] = _profile(
     torch, f"spec chunk (K3 over B·W = {BATCH_SLOTS * (SPEC_GAMMA + 1)} window rows a layer), B={BATCH_SLOTS}, {steps} rounds at depth {SPEC_GAMMA}",
-    lambda: ops.spec_paged_batch_decode(tok, pool, None, bt, lens, active, gammas, temps, top_ks, steps, SPEC_GAMMA, k_max=64, page_size=PAGE, key=SEED), 3,
+    lambda: ops.spec_paged_batch_decode(tok, pool, None, bt, lens, active, gammas, temps, top_ks, steps, SPEC_GAMMA, k_max=64, page_size=PAGE, key=SEED), PROFILE_EAGER_REPS,
   )
   os.environ["XOT_TPU_PAGED_KERNEL"] = "0"
   try:
-    out["decode_gather"] = _profile(torch, f"batched decode chunk with the gather path, B={BATCH_SLOTS}, {steps} steps", chunk, 3)
+    out["decode_gather"] = _profile(torch, f"batched decode chunk with the gather path, B={BATCH_SLOTS}, {steps} steps", chunk, PROFILE_EAGER_REPS)
   finally:
     os.environ.pop("XOT_TPU_PAGED_KERNEL")
   return out
@@ -4899,10 +4931,13 @@ def phase_graphs(torch, ckpt: Path, draft_dir: Path, smi: str):
     engine = TorchShardedInferenceEngine(_CkptDir(ckpt), device="cuda", tokenizer=ByteTokenizer())
     try:
       asyncio.run(engine.ensure_shard(Shard("llama-3.2-1b", 0, 15, 16)))
+      t_mode = time.perf_counter()
       res = out["modes"][mode] = graphs_against_eager(torch, engine, mode)
+      log(f"[time] graphs {mode}: against eager {time.perf_counter() - t_mode:.1f} s")
       res["profile"] = profile_graphs(torch, engine, mode, smi)
       if mode == "bf16":
         out["k2"] = k2_under_graphs(torch, engine, smi)
+      log(f"[time] graphs {mode}: with the profiles {time.perf_counter() - t_mode:.1f} s")
     finally:
       engine.executor.shutdown(wait=True)
       for knob in knobs:
@@ -4913,6 +4948,7 @@ def phase_graphs(torch, ckpt: Path, draft_dir: Path, smi: str):
   log(f"[time] graphs: the three modes {time.perf_counter() - t0:.1f} s")
   t0 = time.perf_counter()
   out["kernels_in_replay"] = kernels_in_replay(torch)
+  log(f"[time] graphs: kernels in replays {time.perf_counter() - t0:.1f} s")
   out["spec"] = spec_graphs(torch, ckpt, draft_dir, smi)
   log(f"[time] graphs: kernels in replays and the spec cell {time.perf_counter() - t0:.1f} s")
   t0 = time.perf_counter()
@@ -4963,10 +4999,13 @@ def _captured_solo(torch, engine, rid, prompt, temp, seed, chunks, steps=MAX_TOK
   return torch.from_numpy(out), [first] + toks
 
 
+GRAPH_TRANSCRIPT = 32  # tokens a transcript of graphs_against_eager: a step graph replays many times either way
+
+
 def graphs_against_eager(torch, engine, mode):
   """Greedy and seeded sampled (temp 0.6, top_k 35) transcripts, blocking
-  (64 tokens) and streaming (two 32-token chunks), captured against
-  uncaptured: the first round builds every graph with all four, the
+  (``GRAPH_TRANSCRIPT`` tokens) and streaming (two chunks of half that),
+  captured against uncaptured: the first round builds every graph with all four, the
   second only replays, with greedy streaming and sampled blocking (each
   graph replayed at least once). Transcripts must be token-identical; the
   captured prefill's logits must be within the serving phase's 5e-2
@@ -4978,12 +5017,12 @@ def graphs_against_eager(torch, engine, mode):
   _reset_launches()
   for rnd in range(2):
     for temp, seed in ((0.0, 0), (0.6, SEED + 100 + rnd)):
-      for chunks in ((), (32, 32)):
+      for chunks in ((), (GRAPH_TRANSCRIPT // 2,) * 2):
         if rnd == 1 and (temp == 0.0) != bool(chunks):
           continue
         kind = "streaming" if chunks else "blocking"
-        want_logits, want = _eager_solo(torch, engine, prompt, temp, seed, chunks)
-        got_logits, got = _captured_solo(torch, engine, f"graphs-{mode}-{rnd}-{temp}-{kind}", prompt, temp, seed, chunks)
+        want_logits, want = _eager_solo(torch, engine, prompt, temp, seed, chunks, steps=GRAPH_TRANSCRIPT)
+        got_logits, got = _captured_solo(torch, engine, f"graphs-{mode}-{rnd}-{temp}-{kind}", prompt, temp, seed, chunks, steps=GRAPH_TRANSCRIPT)
         err = _rel_err(got_logits.cuda(), want_logits)
         worst = max(worst, err)
         rows.append(dict(round=rnd, temp=temp, kind=kind, tokens=len(got), identical=got == want, prefill_rel_err=err))
@@ -5069,7 +5108,7 @@ def profile_graphs(torch, engine, mode, smi):
         log(f"[profile] graphs {mode} {unit}: captured wall {cw:.3f} ms, device {cd:.3f} ms (wall/device {cw / cd:.2f}) | {smi}")
         continue
       cp = _profile(torch, f"graphs {mode} {what} (captured, {steps} replay(s) a call)", captured, 3)
-      ep = _profile(torch, f"graphs {mode} {what} (eager, {steps} step(s) a call)", eager, 3)
+      ep = _profile(torch, f"graphs {mode} {what} (eager, {steps} step(s) a call)", eager, PROFILE_EAGER_REPS)
       ew, ed = ep["wall_ms"] / steps, ep["device_ms"] / steps
       prof = cp["device_ms"] / steps if cp["device_ms"] else None
       res[what] = dict(captured_wall_ms=cw, captured_device_ms=cd, captured_profiler_device_ms=prof, eager_wall_ms=ew, eager_device_ms=ed, eager_launches=ep["launches"] / steps)
@@ -5329,7 +5368,7 @@ def _spec_graph_cases(torch, engine, draft: str, smi: str):
     elif eager is None:
       ep = dict(wall_ms=None, device_ms=None, launches=None)
     else:
-      ep = _profile(torch, f"graphs spec {draft}: {label} (eager)", eager, 3)
+      ep = _profile(torch, f"graphs spec {draft}: {label} (eager)", eager, PROFILE_EAGER_REPS)
     res["profile"][label] = dict(
       captured_wall_ms=wall, captured_device_ms=device, wall_over_device=wall / device, kernel_nodes=graph.kernel_nodes, capture_s=graph.capture_s,
       eager_wall_ms=ep["wall_ms"], eager_device_ms=ep["device_ms"], eager_launches=ep["launches"],
@@ -6593,6 +6632,410 @@ async def _serve_fetched(torch, tmain, args, port, hub, home: Path, repo: str, d
     engine.executor.shutdown(wait=True)
 
 
+# ------------------------------------------------------------ 8e. multi-LoRA
+
+LORA_COUNT, LORA_RANK, LORA_SLOTS = 10, 16, 8  # XOT_TPU_LORA_RANK / _SLOTS: slot 0 is the base, 7 adapters resident
+LORA_NAMES = [f"lora{i}" for i in range(LORA_COUNT)]
+LORA_WAVE1, LORA_WAVE2 = LORA_NAMES[:6], LORA_NAMES[6:]  # the second wave's four are not resident yet: swaps
+# The adapter rows' hook path (bf16 weights and factors, K1) against a
+# plain f32 forward on merged weights W + 2·A·B through 16 layers: the
+# tolerance the gemma2, MoE and MLA phases hold their plain f32 forwards to.
+LORA_TOL = 5e-2
+# (name, environment, kernels the pass must launch): the paged default
+# (K1 admissions, K3 decode and n-gram verify windows), the dense layout
+# with K2 (K1 admissions), int4 base weights (K4 beside the delta).
+LORA_PASSES = [("paged", {}, ("flash_prefill", "paged_decode")), ("dense", DENSE_ENV, ("flash_prefill", "flash_decode")), ("int4", {"XOT_TPU_QUANT": "int4"}, ("int4_matmul",))]
+LORA_KNOBS = ("XOT_TPU_LORA", "XOT_TPU_LORA_DIR", "XOT_TPU_LORA_RANK", "XOT_TPU_LORA_SLOTS")
+
+
+def write_lora_adapters(path: Path, seed: int = SEED + 20) -> dict:
+  """``LORA_COUNT`` seeded adapters on wq and wv at llama-3.2-1b's widths,
+  ranks 16 and 8 alternating, in the adapter npz format (f32): A ~ N(0,
+  1/D), B ~ N(0, 0.25/r), so the delta 2·x·A·B is about as large as the
+  base product (the checkpoint's weights are N(0, 1/D)) and an adapter
+  row's greedy tokens leave the base row's. Returns name → arrays."""
+  from xotorch_support_jetson_tpu_torch.inference.adapters import save_adapter
+
+  c = LLAMA_3_2_1B
+  L, D = c["num_hidden_layers"], c["hidden_size"]
+  outs = {"wq": c["num_attention_heads"] * c["head_dim"], "wv": c["num_key_value_heads"] * c["head_dim"]}
+  rng = np.random.default_rng(seed)
+  adapters = {}
+  for i, name in enumerate(LORA_NAMES):
+    r = LORA_RANK if i % 2 == 0 else LORA_RANK // 2
+    per = {t: (rng.normal(0, D**-0.5, (L, D, r)).astype(np.float32), rng.normal(0, 0.5 / r**0.5, (L, r, o)).astype(np.float32)) for t, o in outs.items()}
+    adapters[name] = {"layers": per}
+    save_adapter(path / name, adapters[name])
+  return adapters
+
+
+def _lora_plain_params(torch, engine):
+  """The served params as a plain f32 model: every quantized leaf
+  dequantized, the adapter stacks dropped."""
+  from xotorch_support_jetson_tpu_torch.models.quantize import dequantize_leaf
+
+  cfg = engine.cfg
+  ins = {"wo": cfg.n_heads * cfg.head_dim, "w_down": cfg.hidden_dim, "lm_head": cfg.dim}
+
+  def f32(group: dict) -> dict:
+    out = {}
+    for k, v in group.items():
+      if k.endswith("_scale") or "_alora_" in k:
+        continue
+      out[k] = dequantize_leaf(v, group[f"{k}_scale"], ins.get(k, cfg.dim), torch.float32) if f"{k}_scale" in group else v.float()
+    return out
+
+  params = f32({k: v for k, v in engine.params.items() if not isinstance(v, dict)})
+  params.update({k: f32(v) for k, v in engine.params.items() if isinstance(v, dict)})
+  return params
+
+
+def _last_logits(torch, cfg, shard, params, ids: list[int], adapter_slot=None):
+  """Cache-less forward over ``ids`` (K1 where the environment allows):
+  the last position's logits [V] in f32."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import shard_forward
+
+  toks = torch.tensor([ids], dtype=torch.int32, device="cuda")
+  pos = torch.arange(len(ids), dtype=torch.int32, device="cuda")[None]
+  aid = None if adapter_slot is None else torch.tensor([adapter_slot], dtype=torch.int32, device="cuda")
+  logits, _ = shard_forward(params, cfg, shard, toks, pos, None, adapter_ids=aid)
+  return logits[0, -1].float()
+
+
+def lora_logit_checks(torch, engine, adapters: dict, prompts: dict, firsts: dict | None = None) -> dict:
+  """Per adapter, on its row's prompt: the served weights through the hook
+  (bf16 or int4 base, K1) against the plain f32 forward on merged weights
+  (relative L2 ≤ ``LORA_TOL``, ``XOT_TPU_NO_FLASH`` for the plain one),
+  whether its greedy token leaves the base model's, and with ``firsts``
+  (the served first tokens) each one's logit gap below the hook path's
+  greedy token (0 where they agree)."""
+  import dataclasses
+
+  reg, cfg, shard = engine.adapter_registry, engine.cfg, engine._effective_shard
+  cfg32 = dataclasses.replace(cfg, dtype=torch.float32, quant_compute="")
+  out = {}
+  base_plain = _lora_plain_params(torch, engine)
+  for name, ids in prompts.items():
+    slot = reg.acquire(name, holder="chip_smoke")
+    try:
+      served = _last_logits(torch, cfg, shard, engine.params, ids, slot)
+      base = _last_logits(torch, cfg, shard, engine.params, ids)
+    finally:
+      reg.unpin("chip_smoke")
+    merged = dict(base_plain, layers=dict(base_plain["layers"]))
+    for t, (a, b) in adapters[name]["layers"].items():
+      merged["layers"][t] = base_plain["layers"][t] + 2.0 * torch.from_numpy(a).cuda() @ torch.from_numpy(b).cuda()
+    os.environ["XOT_TPU_NO_FLASH"] = "1"
+    try:
+      plain = _last_logits(torch, cfg32, shard, merged, ids)
+    finally:
+      os.environ.pop("XOT_TPU_NO_FLASH", None)
+    out[name] = dict(rel_err=_rel_err(served, plain), argmax_agree=int(served.argmax()) == int(plain.argmax()), moves_off_base=int(served.argmax()) != int(base.argmax()), first=int(served.argmax()))
+    if firsts is not None:
+      out[name]["first_gap"] = float(served.max() - served[firsts[name]])
+  bad = {n: r for n, r in out.items() if not r["rel_err"] <= LORA_TOL}
+  if bad or not any(r["moves_off_base"] for r in out.values()):
+    raise SystemExit(f"chip_smoke: [lora] adapter logits against the merged plain f32 forward (tolerance {LORA_TOL}): {out}")
+  del base_plain
+  torch.cuda.empty_cache()
+  return out
+
+
+LORA_ANSWER = 32  # answer cap of the phase's batched waves (the batched phase's answers run 29 to 64 tokens)
+
+
+def _lora_bodies(names: list, variant: int = 0) -> list:
+  """``batched_bodies`` with each row's adapter named in its ``model``
+  field (None: the base model), answers capped at ``LORA_ANSWER``."""
+  bodies = batched_bodies(variant=variant)
+  for b, name in zip(bodies, names):
+    b["max_tokens"] = min(b["max_tokens"], LORA_ANSWER)
+    if name:
+      b["model"] = name
+  return bodies
+
+
+def _lora_wave_names(wave: list) -> list:
+  """16 rows: per eight, the wave's adapters in turn and base rows after."""
+  return [wave[i % 8 % len(wave)] if i % 8 < 6 else None for i in range(16)]
+
+
+def _prompt_ids(body) -> list[int]:
+  return ByteTokenizer().encode("".join(f"<|{m['role']}|>{m['content']}\n" for m in body["messages"]) + "<|assistant|>")
+
+
+def phase_lora(torch, ckpt: Path, smi: str) -> dict:
+  """Multi-LoRA serving on the llama-3.2-1b checkpoint: ``LORA_COUNT``
+  adapters served from ``XOT_TPU_LORA_DIR``, solo (``XOT_TPU_LORA=0``
+  first, for the base tokens), then batched (``LORA_PASSES``), then the
+  hook's device time in a captured solo step and a captured B=8 chunk."""
+  from xotorch_support_jetson_tpu_torch import main as tmain
+
+  lora_dir = ROOT / "build" / "smoke_lora"
+  shutil.rmtree(lora_dir, ignore_errors=True)
+  t0 = time.perf_counter()
+  adapters = write_lora_adapters(lora_dir)
+  n_bytes = sum(f.stat().st_size for f in lora_dir.iterdir())
+  log(f"[lora] wrote {LORA_COUNT} seeded adapters on wq/wv (ranks {LORA_RANK} and {LORA_RANK // 2}, f32 npz, {n_bytes / 1e6:.1f} MB) in {time.perf_counter() - t0:.1f} s")
+  out: dict = {"adapters_bytes": n_bytes}
+  env = dict(XOT_TPU_LORA_DIR=str(lora_dir), XOT_TPU_LORA_RANK=str(LORA_RANK), XOT_TPU_LORA_SLOTS=str(LORA_SLOTS))
+  try:
+    args, port = _daemon_args(tmain, ckpt)
+    os.environ.update(env, XOT_TPU_LORA="0")
+    out["off"] = asyncio.run(_lora_solo(torch, tmain, args, port, adapters, None, smi))
+    args, port = _daemon_args(tmain, ckpt)
+    os.environ.pop("XOT_TPU_LORA")
+    out["solo"] = asyncio.run(_lora_solo(torch, tmain, args, port, adapters, out["off"], smi))
+    out["passes"] = {}
+    for weights in ("bf16", "int4"):
+      args, port = _daemon_args(tmain, ckpt)  # unsets the serving knobs: the pass's go after it
+      os.environ.update(env, XOT_TPU_BATCHED="1", XOT_TPU_BATCH_SLOTS=str(BATCH_SLOTS), XOT_TPU_PAGE_SIZE=str(PAGE))
+      if weights == "int4":
+        os.environ["XOT_TPU_QUANT"] = "int4"  # read when the engine is built
+      passes = [p for p in LORA_PASSES if (p[0] == "int4") == (weights == "int4")]
+      out["passes"].update(asyncio.run(_lora_batched(torch, tmain, args, port, adapters, passes, smi)))
+  finally:
+    for knob in (*LORA_KNOBS, "XOT_TPU_BATCHED", "XOT_TPU_BATCH_SLOTS", "XOT_TPU_PAGE_SIZE", "XOT_TPU_QUANT", *LAYOUT_KNOBS):
+      os.environ.pop(knob, None)
+    shutil.rmtree(lora_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+  launches = {k: out["solo"]["launches"].get(k, 0) + sum(p["launches"][k] for p in out["passes"].values()) for k in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
+  if not all(launches.values()):
+    raise SystemExit(f"chip_smoke: [lora] a kernel never launched on the lora path: {launches}")
+  out["launches"] = launches
+  return out
+
+
+async def _lora_solo(torch, tmain, args, port, adapters, off, smi) -> dict:
+  """The solo daemon: with ``off`` None it runs with ``XOT_TPU_LORA=0``
+  (no registry, ``/v1/adapters`` off, the base tokens); else the adapters
+  are registered and listed, an adapter selected by the ``model`` field
+  and one by ``x-adapter`` leave the base tokens, the base request's tokens
+  equal the ``XOT_TPU_LORA=0`` daemon's, an unknown name answers 400
+  ``unknown_adapter``, and each selected adapter's logits agree with the
+  merged plain forward. Then the hook's share of a captured solo step."""
+  node, server, engine, load_s = await _daemon_up(torch, tmain, args, port, "lora", "llama-3.2-1b", "bf16", lambda cfg: "")
+  try:
+    base_body = {"model": "llama-3.2-1b", "messages": CHAT, "stream": False, "temperature": 0, "max_tokens": 24}
+    listed = await asyncio.to_thread(_get_json, port, "/v1/adapters")
+    if off is None:
+      if engine.adapter_registry is not None or listed.get("enabled") is not False:
+        raise SystemExit(f"chip_smoke: [lora] XOT_TPU_LORA=0 built a registry ({listed})")
+      run = await _serve_requests(torch, node, engine, port, [("base", base_body)])
+      return dict(load_s=load_s, base_tokens=run[0]["tokens"], adapters_listed=listed)
+    reg = engine.adapter_registry
+    if reg is None or reg.names() != LORA_NAMES or sorted(listed.get("adapters", {})) != sorted(LORA_NAMES) or reg.rank != LORA_RANK or reg.capacity != LORA_SLOTS:
+      raise SystemExit(f"chip_smoke: [lora] the registry or GET /v1/adapters does not hold the {LORA_COUNT} adapters at rank {LORA_RANK}, {LORA_SLOTS} slots: {listed}")
+    stacked = sum(v.numel() * v.element_size() for k, v in engine.params["layers"].items() if "_alora_" in k)
+    await _serve_requests(torch, node, engine, port, [("warm", dict(base_body, max_tokens=4))])
+    _reset_launches()  # ---- the solo adapter path, counted
+    run = await _serve_requests(torch, node, engine, port, [
+      ("base", base_body), ("model field", dict(base_body, model="lora3")), ("x-adapter", base_body, {"x-adapter": "lora4"}),
+    ])
+    launches = {k: _launched(k) for k in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}  # ---- read just after
+    base, by_model, by_header = (r["tokens"] for r in run)
+    try:
+      await asyncio.to_thread(_post, port, dict(base_body, max_tokens=4), {"x-adapter": "nope"})
+      unknown = "answered"
+    except RuntimeError as e:
+      unknown = str(e)
+    problems = []
+    if base != off["base_tokens"]:
+      problems.append(f"the base request's tokens {base} differ from the XOT_TPU_LORA=0 daemon's {off['base_tokens']}")
+    if by_model == base or by_header == base:
+      problems.append("an adapter request gave the base tokens")
+    if "HTTP 400" not in unknown or "unknown_adapter" not in unknown:
+      problems.append(f"an unknown adapter: {unknown}")
+    if reg.pinned_holders():
+      problems.append(f"pins left: {reg.pinned_holders()}")
+    if problems:
+      raise SystemExit("chip_smoke: [lora] solo: " + "; ".join(problems))
+    ids = _prompt_ids(base_body)
+    checks = lora_logit_checks(torch, engine, adapters, {"lora3": ids, "lora4": ids})
+    profile = profile_lora_solo(torch, engine)
+    res = dict(load_s=load_s, stacked_bytes=stacked, launches=launches, tokens={"base": base, "lora3": by_model, "lora4": by_header}, logits=checks, unknown=unknown[:160], profile=profile)
+    log(f"[lora] solo: registry of {LORA_COUNT} adapters (rank {LORA_RANK}, {LORA_SLOTS} slots, stacked leaves {stacked / 1e6:.1f} MB on the card); base tokens == the XOT_TPU_LORA=0 daemon's; 'model': 'lora3' and x-adapter: lora4 leave them; unknown name → 400 unknown_adapter | logits vs merged plain f32 (tol {LORA_TOL}): " + ", ".join(f"{n} {c['rel_err']:.4f}" for n, c in checks.items()) + f" | launches {launches} | captured step at position {LORA_PROFILE_POS}: hook off {profile['off_ms']:.4f} ms, on {profile['on_ms']:.4f} ms (delta {profile['delta_ms']:.4f} ms, {100 * profile['share']:.1f}% of the step) | {smi}")
+    return res
+  finally:
+    await _daemon_down(node, server, engine)
+
+
+LORA_PROFILE_POS = 512
+
+
+def _off_on(times: list) -> dict:
+  """Timings taken off, on, on, off: the means, the hook's delta and its
+  share of the step with the hook on."""
+  off, on = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+  return dict(off_ms=off, on_ms=on, delta_ms=on - off, share=(on - off) / on, runs_ms=times)
+
+
+def profile_lora_solo(torch, engine) -> dict:
+  """Device ms of one captured solo decode step at ``LORA_PROFILE_POS``
+  (the plain attention) with the hook off and on (slot 1), in turns (off,
+  on, on, off): the delta's device time is their difference, its share
+  that over the step."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import init_kv_cache, shard_forward
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  cache = init_kv_cache(cfg, cfg.n_layers, 1, CACHE, device="cuda")
+  tok = torch.ones((1, 1), dtype=torch.int32, device="cuda")
+  pos = torch.full((1, 1), LORA_PROFILE_POS, dtype=torch.int32, device="cuda")
+  aid = torch.ones((1,), dtype=torch.int32, device="cuda")
+  step = {False: lambda: shard_forward(params, cfg, shard, tok, pos, cache), True: lambda: shard_forward(params, cfg, shard, tok, pos, cache, adapter_ids=aid)}
+  return _off_on([_captured_ms(torch, step[hook]) for hook in (False, True, True, False)])
+
+
+def profile_lora_chunk(torch, engine) -> dict:
+  """Device ms per step of the served B=8 ``decode.paged_batch`` chunk (a
+  ``BatchedPrograms`` replay: 8 steps, K3, rows at position 512) with the
+  hook off and on (slots 1..7 and a base row), in turns; and the bytes the
+  gathers read per layer."""
+  from xotorch_support_jetson_tpu_torch.models.decoder import BatchedPrograms
+  from xotorch_support_jetson_tpu_torch.ops.paged import init_paged_pool
+
+  cfg, shard, params = engine.cfg, engine._effective_shard, engine.params
+  B, mp, steps = BATCH_SLOTS, 16, 8
+  progs = BatchedPrograms(params, cfg, shard, init_paged_pool(cfg, cfg.n_layers, B * mp + 1, PAGE, device="cuda"))
+  bt = (1 + np.arange(B * mp, dtype=np.int32)).reshape(B, mp)
+  rows = (np.ones((B, 1), np.int32), bt, np.full((B,), LORA_PROFILE_POS, np.int32), np.ones(B, bool), np.zeros(B, np.float32), np.ones(B, np.int32))
+  aid = np.array([1, 2, 3, 4, 5, 6, 7, 0], np.int32)
+  try:
+    times = [_replay_ms(torch, lambda ids=ids: progs.decode(*rows, steps, 64, PAGE, 0, adapter_ids=ids), steps, reps=20)[1] for ids in (None, aid, aid, None)]
+  finally:
+    progs.close()
+  lay = params["layers"]
+  gather_bytes = sum(B * lay[k].shape[2] * lay[k].shape[3] * lay[k].element_size() for k in lay if "_alora_" in k)  # per layer
+  return dict(_off_on(times), gather_bytes_per_layer=gather_bytes)
+
+
+async def _lora_batched(torch, tmain, args, port, adapters, passes, smi) -> dict:
+  """One batched daemon, one pass per ``passes`` entry (the server rebuilt
+  between): a 16-request wave naming ``LORA_WAVE1``'s six adapters beside
+  base rows, then one naming ``LORA_WAVE2``'s four, not resident, so the
+  registry swaps them in (no 429). On the paged pass a base-only wave
+  comes first, and after the adapter waves the first adapter wave and the
+  base-only wave are served again, their rates compared: the first
+  rounds capture their dispatch shapes (an adapter row's prompt hits no
+  base page, so adapter waves capture prefill shapes of their own), the
+  repeated ones run on captured graphs. Each adapter row's first token
+  checks against its logits on the served weights, those against the
+  merged plain forward; no pin is left; the pass's kernels launch."""
+  from concurrent.futures import ThreadPoolExecutor
+
+  from xotorch_support_jetson_tpu_torch.utils.metrics import metrics, snapshot_delta
+
+  weights = "int4" if os.getenv("XOT_TPU_QUANT") == "int4" else "bf16"
+  node, server, engine, load_s = await _daemon_up(torch, tmain, args, port, "lora", "llama-3.2-1b", weights, lambda cfg: "")
+  clients = ThreadPoolExecutor(max_workers=16)
+  loop = asyncio.get_running_loop()
+  res = {}
+  try:
+    reg = engine.adapter_registry
+    if reg is None:
+      raise SystemExit("chip_smoke: [lora] the batched daemon built no registry")
+    ids: dict[str, list[int]] = {}
+    node.on_token.register("chip_smoke").on_next(lambda rid, toks, fin: ids.setdefault(rid, []).extend(toks))
+    for name, env, kernels in passes:
+      t_pass = time.perf_counter()
+      engine._drop_batched_server()
+      for knob in LAYOUT_KNOBS:
+        os.environ.pop(knob, None)
+      os.environ.update(env)
+      await loop.run_in_executor(clients, _post, port, {"model": "llama-3.2-1b", "messages": CHAT, "stream": True, "temperature": 0, "max_tokens": 9})
+      bserver = engine.get_batched_server()
+      if not bserver._lora_active() or bserver.paged == (name == "dense"):
+        raise SystemExit(f"chip_smoke: [lora] {name}: the server is not adapter-aware, or built paged={bserver.paged}")
+
+      async def wave(bodies):
+        t0 = time.perf_counter()
+        replies = await asyncio.gather(*(loop.run_in_executor(clients, _post, port, b) for b in bodies))
+        wall = time.perf_counter() - t0
+        streams = []
+        for (_, finish, _, _, _, rid), b in zip(replies, bodies):
+          toks = ids.get(rid, [])
+          if not toks or len(toks) > b["max_tokens"] or finish not in ("stop", "length"):
+            raise SystemExit(f"chip_smoke: [lora] {name}: request {rid} ({b['model']}) gave {len(toks)} tokens, finish {finish}")
+          streams.append(toks)
+        return streams, sum(map(len, streams)) / wall, wall
+
+      base_rate = None
+      if name == "paged":
+        await wave(_lora_bodies([None] * 16, variant=1))
+      names1, names2 = _lora_wave_names(LORA_WAVE1), _lora_wave_names(LORA_WAVE2)
+      bodies1, bodies2 = _lora_bodies(names1), _lora_bodies(names2, variant=2)
+      snap0 = metrics.snapshot()
+      prog0 = await asyncio.to_thread(_get_json, port, "/v1/programs")
+      _reset_launches()  # ---- this pass's adapter waves, counted
+      s1, rate1, wall1 = await wave(bodies1)
+      s2, rate2, wall2 = await wave(bodies2)
+      launches = {k: _launched(k) for k in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}  # ---- read just after
+      prog1 = await asyncio.to_thread(_get_json, port, "/v1/programs")
+      delta = snapshot_delta(snap0, metrics.snapshot())
+      lora_rate = repeat = None
+      if name == "paged":
+        # Per repeated wave: its rate, graph captures, prefix pages hit and
+        # dispatches by family (what sets the two rates apart).
+        repeat = {}
+        for label, bodies in (("lora", bodies1), ("base", _lora_bodies([None] * 16, variant=1))):
+          p0, hits0 = await asyncio.to_thread(_get_json, port, "/v1/programs"), bserver.prefix_hit_pages
+          _, rate, _ = await wave(bodies)
+          p1 = await asyncio.to_thread(_get_json, port, "/v1/programs")
+          repeat[label] = dict(
+            tok_s=rate, prefix_pages=bserver.prefix_hit_pages - hits0, captures=sum(f.get("captures", 0) for f in p1["families"].values()) - sum(f.get("captures", 0) for f in p0["families"].values()),
+            dispatches={f: v["dispatches"] - p0["families"].get(f, {}).get("dispatches", 0) for f, v in p1["families"].items() if v["dispatches"] - p0["families"].get(f, {}).get("dispatches", 0)},
+          )
+        lora_rate, base_rate = repeat["lora"]["tok_s"], repeat["base"]["tok_s"]
+      dispatches = {f: prog1["families"][f]["dispatches"] - prog0["families"].get(f, {}).get("dispatches", 0) for f in prog1["families"]}
+      dispatches = {f: n for f, n in dispatches.items() if n}
+      swaps = _by_label(delta, "lora_swaps_total", "direction")
+      swap_h = delta["histograms"].get("lora_swap_seconds", {})
+      prompts = {}
+      firsts = {}
+      for nm, b, s in [*zip(names1, bodies1, s1), *zip(names2, bodies2, s2)]:
+        if nm and nm not in prompts:
+          prompts[nm], firsts[nm] = _prompt_ids(b), s[0]
+      checks = lora_logit_checks(torch, engine, adapters, prompts, firsts)
+      problems = []
+      if not all(launches[k] for k in kernels):
+        problems.append(f"launches {launches}: {kernels} expected")
+      if name == "paged" and not dispatches.get("spec.paged_batch"):
+        problems.append(f"no n-gram spec dispatch with adapter rows ({dispatches})")
+      if not swaps.get("in") or not swaps.get("out"):
+        problems.append(f"the second wave swapped nothing in or out: {swaps}")
+      if reg.pinned_holders() or bserver.busy():
+        problems.append(f"pins left {reg.pinned_holders()}, or the server did not drain")
+      # A served first token may leave the hook path's greedy token only at
+      # a near-tie (the ring phase's SCORE_GAP_TOL): the batched prefill's
+      # padded, paged forward and the cache-less one round apart (K4 also
+      # runs other tilings at their token counts on int4 weights).
+      disagree = {n: (firsts[n], c["first"], round(c["first_gap"], 4)) for n, c in checks.items() if firsts[n] != c["first"]}
+      if any(gap > SCORE_GAP_TOL for _, _, gap in disagree.values()):
+        problems.append(f"first tokens against the hook path's greedy tokens (served, hook path, logit gap; limit {SCORE_GAP_TOL}): {disagree}")
+      if problems:
+        raise SystemExit(f"chip_smoke: [lora] {name}: " + "; ".join(problems))
+      n_tok = sum(map(len, s1 + s2))
+      res[name] = dict(
+        env=env, weights=weights, paged=bserver.paged, launches=launches, dispatches=dispatches, swaps=swaps, swap_seconds=swap_h,
+        tokens=n_tok, aggregate_tok_s=n_tok / (wall1 + wall2), wave1_tok_s=rate1, wave2_tok_s=rate2, repeated_lora_tok_s=lora_rate, repeated_base_only_tok_s=base_rate,
+        captures=sum(f.get("captures", 0) for f in prog1["families"].values()) - sum(f.get("captures", 0) for f in prog0["families"].values()), repeated=repeat,
+        logits=checks, first_token_disagreements=disagree, pool_pages=None if bserver.allocator is None else bserver.allocator.n_pages,
+      )
+      if name == "paged":
+        res[name]["profile_chunk"] = profile_lora_chunk(torch, engine)
+      swap_ms = 1e3 * swap_h.get("sum", 0.0) / max(sum(swap_h.get("counts", [])), 1)
+      pc = res[name].get("profile_chunk")
+      log(f"[lora] pass={name} ({weights} weights, {'paged' if bserver.paged else 'dense'}) {env}: 2 × 16 streaming requests (6 adapters + base rows, then 4 cold adapters), {n_tok} tokens: aggregate {res[name]['aggregate_tok_s']:.1f} tok/s (waves {rate1:.1f} / {rate2:.1f})" + f", {res[name]['captures']} captures" + (f"; served again (rate, captures, prefix pages hit, dispatches): the first adapter wave {repeat['lora']}, the base-only wave {repeat['base']}" if repeat else "") + f" | swaps {swaps}, lora_swap_seconds mean {swap_ms:.2f} ms | logits vs merged plain f32 max rel {max(c['rel_err'] for c in checks.values()):.4f} (tol {LORA_TOL}), first tokens off the hook path {disagree} | launches {launches} | dispatches {dispatches}" + (f" | captured B=8 chunk per step: hook off {pc['off_ms']:.4f} ms, on {pc['on_ms']:.4f} ms (delta {pc['delta_ms']:.4f} ms, {100 * pc['share']:.1f}%; gathers {pc['gather_bytes_per_layer'] / 1e6:.2f} MB a layer)" if pc else "") + f" | {smi}")
+      log(f"[time] lora, pass {name}: {time.perf_counter() - t_pass:.1f} s")
+    node.on_token.deregister("chip_smoke")
+    engine._drop_batched_server()
+    return res
+  finally:
+    await asyncio.to_thread(clients.shutdown, True)
+    await _daemon_down(node, server, engine)
+
+
 def main() -> int:
   try:
     import torch
@@ -6639,6 +7082,7 @@ def main() -> int:
     fetch = timed("fetch", phase_fetch, torch, draft_dir)
     processes = timed("processes", phase_processes, ckpt)
     ring = timed("ring", phase_ring, torch, ckpt, smi, serving)
+    lora = timed("lora", phase_lora, torch, ckpt, smi)
     shutil.rmtree(ckpt, ignore_errors=True)
     write_s = timed("moe checkpoint", write_moe_checkpoint, torch, moe_dir)
     log(f"[moe] wrote a random bf16 Qwen3-30B-A3B checkpoint ({sum(f.stat().st_size for f in moe_dir.iterdir()) / 1e9:.2f} GB, full width, {MOE_LAYERS} of 48 layers) in {write_s:.1f} s")
@@ -6678,7 +7122,9 @@ def main() -> int:
   # "moe_int4" the int4-weights daemon (K1, K4). The MLA paths: "mla" is the
   # solo bf16 daemon's counted requests and its batched pass (no K1-K3: the
   # absorbed op, the naive cache-less form and the paged gather are plain),
-  # "mla_int4" the int4-weights daemon (K4).
+  # "mla_int4" the int4-weights daemon (K4). "lora" is the multi-LoRA
+  # phase: its solo adapter requests (K1) and its batched adapter waves
+  # (paged: K1, K3; dense: K1, K2; int4 weights: K4 with K1, K3).
   bp = batched["passes"]
   paths = {
     "solo": [serving["launches"]], "solo_long_prompt": [serving["long"]["launches"]], "solo_quant": [q["launches"] for q in quant.values()],
@@ -6693,7 +7139,7 @@ def main() -> int:
     "moe": [moe_res["bf16"]["launches"], moe_res["bf16"]["batched"]["launches"]], "moe_int4": [moe_res["int4"]["launches"]],
     "mla": [mla_res["bf16"]["launches"], mla_res["bf16"]["batched"]["launches"]], "mla_int4": [mla_res["int4"]["launches"]],
     "batched_dense": [layouts["bf16_dense"]["launches"]], "batched_draft": [layouts["bf16_draft"]["launches"]], "batched_dense_draft": [layouts["bf16_dense_draft"]["launches"]],
-    "fetch": [fetch["launches"]],
+    "fetch": [fetch["launches"]], "lora": [lora["solo"]["launches"], *(p["launches"] for p in lora["passes"].values())],
   }
   by_path = {name: {path: sum(x.get(name, 0) for x in runs) for path, runs in paths.items()} for name in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
   for name in ("flash_prefill", "paged_decode"):
@@ -6734,7 +7180,7 @@ def main() -> int:
      "moe_rows": [{k: r[k] for k in ("weight", "T", "d_in", "d_out", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["int4_matmul_moe"]],
      "gemma2_rows": [{k: r[k] for k in ("weight", "T", "d_in", "d_out", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["int4_matmul_gemma2"]]},
   ]}
-  record = dict(card=smi, phase_s=phase_s, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, layouts=layouts, fetch=fetch, processes=processes, ring=ring, moe=moe_res, mla=mla_res, gemma2=gemma, summary=kernels_line)
+  record = dict(card=smi, phase_s=phase_s, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, layouts=layouts, fetch=fetch, processes=processes, ring=ring, lora=lora, moe=moe_res, mla=mla_res, gemma2=gemma, summary=kernels_line)
   out = ROOT / "chiprun_out"
   out.mkdir(exist_ok=True)
   (out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=float))

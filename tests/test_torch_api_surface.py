@@ -707,9 +707,9 @@ def test_run_command_prints_the_jax_tokens(daemons, capsys):
   assert "unsupported model" in capsys.readouterr().out
 
 
-def _port_process(args, env_extra, **kw):
+def _port_process(args, env_extra, stdout=subprocess.PIPE, **kw):
   env = {**os.environ, "XOT_TPU_PLATFORM": "cpu", **env_extra}
-  return subprocess.Popen([sys.executable, "-m", "xotorch_support_jetson_tpu_torch.main", *args], cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, **kw)
+  return subprocess.Popen([sys.executable, "-m", "xotorch_support_jetson_tpu_torch.main", *args], cwd=ROOT, env=env, stdout=stdout, stderr=subprocess.STDOUT, text=True, **kw)
 
 
 def test_run_command_process_exits_zero(tiny_dir, tmp_path):
@@ -719,28 +719,44 @@ def test_run_command_process_exits_zero(tiny_dir, tmp_path):
   assert " tokens in " in out and "tok/s" in out
 
 
-def _wait_up(port, proc, timeout=60):
+def _wait_up(port, proc, log, timeout=300):
+  """Until the daemon answers its healthcheck; False when it exited first
+  (its output in ``log``). The bound only ends a hung start: under a
+  parallel test run the daemon's torch import alone can take a minute."""
   deadline = time.monotonic() + timeout
   while time.monotonic() < deadline:
-    assert proc.poll() is None, proc.stdout.read()
+    if proc.poll() is not None:
+      return False
     try:
       if _http(port, "GET", "/healthcheck")[0] == 200:
-        return
+        return True
     except OSError:
-      time.sleep(0.2)
-  raise AssertionError("the daemon did not come up")
+      pass
+    time.sleep(0.2)
+  raise AssertionError(f"the daemon did not come up:\n{log.read_text()}")
 
 
 def test_quit_stops_a_daemon_process(tiny_dir, tmp_path):
-  port = find_available_port("127.0.0.1")
-  proc = _port_process(["--discovery-module", "none", "--chatgpt-api-host", "127.0.0.1", "--chatgpt-api-port", str(port)], {"XOT_TPU_MODEL_DIR": str(tiny_dir), "XOT_TPU_HOME": str(tmp_path)})
-  try:
-    _wait_up(port, proc)
-    assert _http(port, "POST", "/quit")[:1] == (200,)
-    assert proc.wait(timeout=30) == 0
-  finally:
-    proc.kill()
-    proc.communicate()
+  """``POST /quit`` answers 200 and the daemon exits 0. The daemon writes
+  to a file (a pipe nobody reads would block it once full), and a start
+  that lost its port to another process between the probe and the bind
+  retries on a fresh one."""
+  for attempt in range(3):
+    port = find_available_port("127.0.0.1")
+    log = tmp_path / f"daemon{attempt}.log"
+    with log.open("w") as out:
+      proc = _port_process(["--discovery-module", "none", "--chatgpt-api-host", "127.0.0.1", "--chatgpt-api-port", str(port)], {"XOT_TPU_MODEL_DIR": str(tiny_dir), "XOT_TPU_HOME": str(tmp_path)}, stdout=out)
+    try:
+      if not _wait_up(port, proc, log):
+        assert "address already in use" in log.read_text().lower(), log.read_text()
+        continue
+      assert _http(port, "POST", "/quit")[:1] == (200,)
+      assert proc.wait(timeout=120) == 0, log.read_text()
+      return
+    finally:
+      proc.kill()
+      proc.wait()
+  raise AssertionError("no free port held for the daemon in three starts")
 
 
 def test_second_signal_stops_the_drain_at_once(monkeypatch):

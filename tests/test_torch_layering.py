@@ -38,7 +38,7 @@ def test_port_imports_nothing_of_jax(path):
 def test_scan_covers_the_own_copies():
   """The port's own copies of JAX-free reference modules are scanned too."""
   scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
-  assert {"inference/ngram.py", "inference/paging.py", "inference/kv_tier.py", "inference/qos.py", "utils/synthetic.py", "download/hf_utils.py", "download/progress.py"} <= scanned
+  assert {"inference/ngram.py", "inference/paging.py", "inference/kv_tier.py", "inference/qos.py", "inference/adapters.py", "utils/synthetic.py", "download/hf_utils.py", "download/progress.py"} <= scanned
   assert {
     "topology/device_capabilities.py", "topology/topology.py", "topology/partitioning.py", "parallel/hbm_planner.py",
     "networking/peer_handle.py", "networking/discovery.py", "networking/server.py", "networking/retry.py",

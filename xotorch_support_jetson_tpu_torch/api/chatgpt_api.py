@@ -5,7 +5,7 @@ scored after the generation in one forward), ``/v1/chat/token/encode``,
 ``/metrics`` (Prometheus text), ``/v1/slo`` (the local SLO report),
 ``/v1/kv/tier`` (the host KV tier's state), ``/v1/programs`` (the device
 program ledger), ``POST /v1/warmup`` (build the expected programs before
-traffic), the model-management routes (``/initial_models``, the
+traffic), ``/v1/adapters`` (the multi-LoRA registry), the model-management routes (``/initial_models``, the
 ``/modelpool`` SSE stream, ``POST /download``, ``/v1/download/progress``,
 ``DELETE /models/{model_name}``), ``POST /quit``, the ring's merged
 topology (``GET /topology`` and ``/v1/topology``), and the web chat
@@ -15,7 +15,11 @@ Counterpart of those routes of the reference's ``api/chatgpt_api.py``, with
 the same request and response shapes: a chat request may carry a QoS
 identity (``priority``/``deadline_ms``/``tenant`` body fields or
 ``x-priority``/``x-deadline-ms``/``x-tenant-id`` headers; a bad value is a
-400), and an overload refusal is a structured 429 with ``Retry-After``.
+400) and an adapter (``parse_adapter_field``: the ``x-adapter`` header, a
+``model`` field naming a registered adapter, or the tenant's default; an
+unknown name is a 400 ``unknown_adapter`` before any device work), and an
+overload refusal (a full queue, every adapter slot pinned) is a structured
+429 with ``Retry-After``.
 A ring whose partition map cannot hold the model answers 507
 ``insufficient_resources`` before anything loads. On a ring node,
 ``logprobs`` (they need the whole model on one node) and ``?scope=cluster``
@@ -43,6 +47,7 @@ from pathlib import Path
 from urllib.parse import parse_qs, unquote
 
 from .. import registry
+from ..inference.adapters import UnknownAdapterError, check_known, lora_tenant_map
 from ..inference.engine import PromptTooLongError, ServerOverloadedError
 from ..inference.qos import PRIORITY_CLASSES
 from ..orchestration import slo
@@ -231,6 +236,28 @@ def parse_qos_fields(data: dict, headers) -> tuple[str | None, str | None, float
   return priority, tenant, deadline
 
 
+def parse_adapter_field(data: dict, headers, tenant: str | None, known=None) -> str | None:
+  """The request's multi-LoRA adapter, first hit wins: the ``x-adapter``
+  header; an OpenAI-compatible ``model`` field that names a REGISTERED
+  adapter (``known(name)``: only a known name aliases the model field, so
+  ordinary model ids keep their meaning); the tenant's default from
+  ``XOT_TPU_LORA_TENANTS``. None is the base model. Trust: adapter names
+  are client-asserted, like tenant keys."""
+  name = headers.get("x-adapter")
+  if name:
+    return str(name)[:128]
+  model = data.get("model")
+  if model and known is not None and known(str(model)):
+    return str(model)
+  if tenant:
+    return lora_tenant_map().get(tenant)
+  return None
+
+
+def unknown_adapter_response(e: Exception) -> _Response:
+  return json_response({"error": {"message": str(e), "type": "invalid_request_error", "code": "unknown_adapter"}}, 400)
+
+
 def completion_chunk(request_id: str, model: str, created: int, content: str | None, finish_reason: str | None) -> dict:
   delta = {} if content is None else {"role": "assistant", "content": content}
   return {
@@ -397,6 +424,7 @@ class ChatGPTAPI:
       ("GET", "/v1/topology"): self.handle_get_topology,
       ("GET", "/topology"): self.handle_get_topology,
       ("POST", "/v1/warmup"): self.handle_warmup,
+      ("GET", "/v1/adapters"): self.handle_adapters,
       ("GET", "/v1/download/progress"): self.handle_get_download_progress,
       ("POST", "/download"): self.handle_post_download,
       ("POST", "/quit"): self.handle_quit,
@@ -665,6 +693,33 @@ class ChatGPTAPI:
       return json_response({"manifest": [], "warmup_s": 0.0, "steady": True, "detail": "no batched scheduler; ledger marked steady over an empty manifest"})
     return json_response(await server.warmup())
 
+  def _adapter_registry(self):
+    return getattr(getattr(self.node, "inference_engine", None), "adapter_registry", None)
+
+  async def handle_adapters(self, request, writer):
+    """GET /v1/adapters — the multi-LoRA registry: every registered adapter
+    with its device slot, host residency and pins, the capacity and the
+    byte budgets; ``{"enabled": false}`` when multi-LoRA serving is off."""
+    reg = self._adapter_registry()
+    if reg is None:
+      return json_response({"enabled": False, "detail": "multi-LoRA serving off (XOT_TPU_LORA=0 or no adapters loaded)"})
+    return json_response({"enabled": True, **reg.snapshot()})
+
+  def _adapter_known(self, name: str) -> bool:
+    """Is ``name`` a registered adapter on this node (the ``model`` field's
+    alias)? The router's replicas are not consulted: the router is not
+    ported."""
+    reg = self._adapter_registry()
+    return reg is not None and reg.known(name)
+
+  def _resolve_adapter(self, data: dict, headers, tenant: str | None) -> str | None:
+    """The request's adapter name (or None), checked against this node's
+    registry: raises ``UnknownAdapterError`` for a name it never saw."""
+    name = parse_adapter_field(data, headers, tenant, known=self._adapter_known)
+    if name is not None:
+      check_known(self._adapter_registry(), name)
+    return name
+
   def handle_tokens(self, request_id: str, tokens: list[int], is_finished: bool) -> None:
     queue = self.token_queues.get(request_id)
     if queue is not None:
@@ -720,13 +775,16 @@ class ChatGPTAPI:
 
   def _error_response(self, e: Exception) -> _Response:
     """A generation request's failure → its status: 408 timeout, 400 too
-    long a prompt, a structured 429 for an overload refusal (a full queue or
-    page pool, a rate limit, a deadline shed), 507 for a ring that cannot
-    hold the model, else 500."""
+    long a prompt or an unknown adapter, a structured 429 for an overload
+    refusal (a full queue or page pool, a rate limit, a deadline shed,
+    every adapter slot pinned), 507 for a ring that cannot hold the model,
+    else 500."""
     if isinstance(e, asyncio.TimeoutError):
       return json_response({"detail": "Response generation timed out"}, 408)
     if isinstance(e, PromptTooLongError):
       return json_response({"error": {"message": str(e), "type": "invalid_request_error", "code": "context_length_exceeded"}}, 400)
+    if isinstance(e, UnknownAdapterError):
+      return unknown_adapter_response(e)
     if isinstance(e, ServerOverloadedError):
       return overloaded_response(e)
     if isinstance(e, RingBudgetError):
@@ -749,9 +807,9 @@ class ChatGPTAPI:
     self.token_queues.pop(request_id, None)
     self.node.request_options.pop(request_id, None)
 
-  def _start(self, shard, prompt: str, request_id: str, stream: bool, max_tokens, temperature, qos) -> asyncio.Task:
+  def _start(self, shard, prompt: str, request_id: str, stream: bool, max_tokens, temperature, qos, adapter: str | None = None) -> asyncio.Task:
     priority, tenant, deadline_ms = qos
-    self.node.set_request_options(request_id, stream=stream, max_tokens=max_tokens, temperature=temperature, priority=priority, tenant=tenant, deadline_ms=deadline_ms)
+    self.node.set_request_options(request_id, stream=stream, max_tokens=max_tokens, temperature=temperature, priority=priority, tenant=tenant, deadline_ms=deadline_ms, adapter=adapter)
     return asyncio.create_task(self.node.process_prompt(shard, prompt, request_id))
 
   async def handle_post_chat_completions(self, request, writer):
@@ -759,9 +817,12 @@ class ChatGPTAPI:
       data = request.json()
       chat_request = parse_chat_request(data, self.default_model)
       qos = parse_qos_fields(data, request.headers)
+      adapter = self._resolve_adapter(data, request.headers, qos[1])
       stream_options = data.get("stream_options")
       if stream_options is not None and not isinstance(stream_options, dict):
         raise ValueError("'stream_options' must be an object")
+    except UnknownAdapterError as e:
+      return unknown_adapter_response(e)
     except ValueError as e:
       return json_response({"error": str(e)}, 400)
     include_usage = bool((stream_options or {}).get("include_usage"))
@@ -784,7 +845,7 @@ class ChatGPTAPI:
       # Usage costs one more encode: paid where it is reported (blocking
       # always, streaming with stream_options.include_usage).
       prompt_ids = tokenizer.encode(prompt) if not chat_request.stream or include_usage else []
-      gen_task = self._start(shard, prompt, request_id, chat_request.stream, chat_request.max_tokens, chat_request.temperature, qos)
+      gen_task = self._start(shard, prompt, request_id, chat_request.stream, chat_request.max_tokens, chat_request.temperature, qos, adapter)
       if chat_request.stream:
         return await self._stream_response(writer, chat_request, request_id, tokenizer, created, gen_task, len(prompt_ids), include_usage)
       await asyncio.wait_for(asyncio.shield(gen_task), timeout=self.response_timeout)
@@ -822,6 +883,9 @@ class ChatGPTAPI:
       # The chat validation checks the shared fields.
       base = parse_chat_request({**data, "messages": [{"role": "user", "content": prompt}], "logprobs": False, "top_logprobs": 0}, self.default_model)
       qos = parse_qos_fields(data, request.headers)
+      adapter = self._resolve_adapter(data, request.headers, qos[1])
+    except UnknownAdapterError as e:
+      return unknown_adapter_response(e)
     except ValueError as e:
       return json_response({"error": str(e)}, 400)
     shard = registry.build_base_shard(base.model, self.inference_engine_classname)
@@ -841,7 +905,7 @@ class ChatGPTAPI:
     try:
       tokenizer = await self._tokenizer_for(shard)
       prompt_ids = list(tokenizer.encode(prompt))
-      gen_task = self._start(shard, prompt, request_id, base.stream, base.max_tokens, base.temperature, qos)
+      gen_task = self._start(shard, prompt, request_id, base.stream, base.max_tokens, base.temperature, qos, adapter)
       if base.stream:
         return await self._run_sse_stream(writer, request_id, tokenizer, base.stop, gen_task, lambda delta: chunk(delta, None), lambda reason: chunk("", reason))
       await asyncio.wait_for(asyncio.shield(gen_task), timeout=self.response_timeout)

@@ -1,6 +1,6 @@
 """Device operations of the continuous-batching scheduler, behind one small
 interface (counterpart of the reference's ``inference/batch_ops.py``
-``DecoderBatchOps``; the pp/sp mesh backends and LoRA are not ported yet).
+``DecoderBatchOps``; the pp/sp mesh backends are not ported yet).
 It serves both layouts: the page pool (``init_pool``) and the dense slot
 cache (``init_cache``, ``XOT_TPU_PAGED=0``). It runs the speculative
 chunks on either, with the n-gram proposer and, when the engine holds a
@@ -29,7 +29,11 @@ generator before each replay). The decode contract is the reference's:
 ``(tokens [B, chunk], next_token [B, 1], positions [B], pool)`` with
 ``next_token`` left on the device as the next chunk's input; a program's
 outputs stay valid until its next dispatch, so the scheduler queues its
-host copies (``to_host_async``) right behind the dispatch.
+host copies (``to_host_async``) right behind the dispatch. Every prefill
+and decode method takes ``adapter_ids`` (each row's slot in the engine's
+stacked adapter leaves, ``lora_supported``), and the mixed chunk its
+slice's ``pf_adapter``; the scheduler passes them only while the engine
+holds an adapter registry.
 """
 
 from __future__ import annotations
@@ -78,6 +82,11 @@ class DecoderBatchOps:
   def round_slots(self, n: int) -> int:
     return n
 
+  def lora_supported(self) -> bool:
+    """The programs take per-row ``adapter_ids`` once the engine has built
+    its adapter registry (``enable_multi_lora``)."""
+    return getattr(self.engine, "adapter_registry", None) is not None
+
   def fused_sampling_supported(self) -> bool:
     """Prefill and first-token sampling run as one call
     (``prefill_into_pages_many_sampled``), which the scheduler always uses."""
@@ -88,6 +97,11 @@ class DecoderBatchOps:
 
   def _generator(self, key: int) -> torch.Generator:
     return torch.Generator(device=self.engine.device).manual_seed(int(key))
+
+  def _adapter_kw(self, **ids) -> dict:
+    """The given adapter operands on the device, as keywords (none when
+    None: the eager functions' ledger signatures stay as without)."""
+    return {k: self._dev(v) for k, v in ids.items() if v is not None}
 
   def _new_programs(self, make, dense: bool):
     """``make()``'s store with its captured programs (``BatchedPrograms``),
@@ -129,73 +143,73 @@ class DecoderBatchOps:
     progs = self.programs
     return progs if progs is not None and progs.pool is pool else None
 
-  def prefill_into_slots(self, tokens, cache, rows, prompt_lens):
+  def prefill_into_slots(self, tokens, cache, rows, prompt_lens, adapter_ids=None):
     from ..models.decoder import prefill_into_slots
 
     eng = self.engine
-    return prefill_into_slots(eng.params, eng.cfg, eng._effective_shard, self._dev(tokens), cache, self._dev(rows), self._dev(prompt_lens))
+    return prefill_into_slots(eng.params, eng.cfg, eng._effective_shard, self._dev(tokens), cache, self._dev(rows), self._dev(prompt_lens), **self._adapter_kw(adapter_ids=adapter_ids))
 
-  def prefill_into_slots_sampled(self, tokens, cache, rows, prompt_lens, temps, top_ks, k_max: int, key):
+  def prefill_into_slots_sampled(self, tokens, cache, rows, prompt_lens, temps, top_ks, k_max: int, key, adapter_ids=None):
     """Prefill K admissions into K rows of the slot cache and sample their
     first tokens: (first_tokens [K], cache)."""
     from ..models.decoder import prefill_into_slots_sampled
 
     progs = self._programs_for(cache)
     if progs is not None:
-      return progs.prefill_slots(tokens, rows, prompt_lens, temps, top_ks, k_max, key), cache
+      return progs.prefill_slots(tokens, rows, prompt_lens, temps, top_ks, k_max, key, adapter_ids), cache
     eng = self.engine
     return prefill_into_slots_sampled(
       eng.params, eng.cfg, eng._effective_shard, self._dev(tokens), cache, self._dev(rows), self._dev(prompt_lens),
-      self._dev(temps), self._dev(top_ks), self._generator(key), int(k_max),
+      self._dev(temps), self._dev(top_ks), self._generator(key), int(k_max), **self._adapter_kw(adapter_ids=adapter_ids),
     )
 
-  def batch_decode(self, token, cache, positions, active, temps, top_ks, n_steps: int, k_max: int, key):
+  def batch_decode(self, token, cache, positions, active, temps, top_ks, n_steps: int, k_max: int, key, adapter_ids=None):
     """One decode chunk over the slot cache: (tokens, next_token,
     positions, cache), ``fused_batch_decode``'s contract."""
     from ..models.decoder import fused_batch_decode
 
     progs = self._programs_for(cache)
     if progs is not None:
-      return (*progs.batch_decode(token, positions, active, temps, top_ks, n_steps, k_max, key), cache)
+      return (*progs.batch_decode(token, positions, active, temps, top_ks, n_steps, k_max, key, adapter_ids), cache)
     eng = self.engine
     return fused_batch_decode(
       eng.params, eng.cfg, eng._effective_shard, self._dev(token), cache, self._dev(positions), self._dev(active), self._dev(temps), n_steps,
-      top_k=self._dev(top_ks), k_max=k_max, generator=self._generator(key),
+      top_k=self._dev(top_ks), k_max=k_max, generator=self._generator(key), **self._adapter_kw(adapter_ids=adapter_ids),
     )
 
-  def prefill_into_pages_many(self, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size: int):
+  def prefill_into_pages_many(self, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size: int, adapter_ids=None):
     from ..models.decoder import prefill_into_pages_many
 
     eng = self.engine
     return prefill_into_pages_many(
       eng.params, eng.cfg, eng._effective_shard, self._dev(tokens), pool, self._dev(bt_rows),
-      self._dev(prefix_lens), self._dev(prompt_lens), int(page_size),
+      self._dev(prefix_lens), self._dev(prompt_lens), int(page_size), **self._adapter_kw(adapter_ids=adapter_ids),
     )
 
-  def prefill_into_pages_many_sampled(self, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size: int, temps, top_ks, k_max: int, key):
+  def prefill_into_pages_many_sampled(self, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size: int, temps, top_ks, k_max: int, key, adapter_ids=None):
     from ..models.decoder import prefill_into_pages_many_sampled
 
     progs = self._programs_for(pool)
     if progs is not None:
-      return progs.prefill(tokens, bt_rows, prefix_lens, prompt_lens, page_size, temps, top_ks, k_max, key), pool
+      return progs.prefill(tokens, bt_rows, prefix_lens, prompt_lens, page_size, temps, top_ks, k_max, key, adapter_ids), pool
     eng = self.engine
     return prefill_into_pages_many_sampled(
       eng.params, eng.cfg, eng._effective_shard, self._dev(tokens), pool, self._dev(bt_rows),
       self._dev(prefix_lens), self._dev(prompt_lens), int(page_size),
-      self._dev(temps), self._dev(top_ks), self._generator(key), int(k_max),
+      self._dev(temps), self._dev(top_ks), self._generator(key), int(k_max), **self._adapter_kw(adapter_ids=adapter_ids),
     )
 
-  def paged_batch_decode(self, token, pool, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, key):
+  def paged_batch_decode(self, token, pool, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, key, adapter_ids=None):
     from ..models.decoder import fused_paged_batch_decode
 
     progs = self._programs_for(pool)
     if progs is not None:
-      return (*progs.decode(token, block_tables, positions, active, temps, top_ks, n_steps, k_max, page_size, key), pool)
+      return (*progs.decode(token, block_tables, positions, active, temps, top_ks, n_steps, k_max, page_size, key, adapter_ids), pool)
     eng = self.engine
     return fused_paged_batch_decode(
       eng.params, eng.cfg, eng._effective_shard, self._dev(token), pool, self._dev(block_tables), self._dev(positions),
       self._dev(active), self._dev(temps), n_steps, top_k=self._dev(top_ks), k_max=k_max, page_size=page_size,
-      generator=self._generator(key),
+      generator=self._generator(key), **self._adapter_kw(adapter_ids=adapter_ids),
     )
 
   # ------------------------------------------------- batched speculation
@@ -253,15 +267,15 @@ class DecoderBatchOps:
 
     progs = self._programs_for(store)
     use_draft = cache_d is not None
-    if progs is not None and adapter_ids is None and (not use_draft or self._draft_programs(cache_d) is progs):
-      res = progs.spec(token, block_tables, positions, active, gammas, temps, top_ks, n_rounds, gamma_max, k_max, page_size, key, props=props, prop_counts=prop_counts, use_draft=use_draft)
+    if progs is not None and (not use_draft or self._draft_programs(cache_d) is progs):
+      res = progs.spec(token, block_tables, positions, active, gammas, temps, top_ks, n_rounds, gamma_max, k_max, page_size, key, props=props, prop_counts=prop_counts, use_draft=use_draft, adapter_ids=adapter_ids)
       return (*res, store, cache_d)
     eng = self.engine
     cfg_d, shard_d = self.draft_geometry()
     params_d = eng._draft_params if use_draft else None
     rows = (self._dev(positions), self._dev(active), self._dev(gammas), self._dev(temps), n_rounds, gamma_max)
     kw = dict(
-      top_k=self._dev(top_ks), k_max=k_max, generator=self._generator(key), adapter_ids=adapter_ids,
+      top_k=self._dev(top_ks), k_max=k_max, generator=self._generator(key), adapter_ids=None if adapter_ids is None else self._dev(adapter_ids),
       props=None if props is None else self._dev(props), prop_counts=None if prop_counts is None else self._dev(prop_counts),
     )
     if block_tables is None:
@@ -290,20 +304,21 @@ class DecoderBatchOps:
     reference."""
     return not self.engine.cfg.is_mla
 
-  def mixed_paged_batch_decode(self, token, pool, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, key, pf_tokens, pf_bt, pf_prefix, pf_end):
+  def mixed_paged_batch_decode(self, token, pool, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, key, pf_tokens, pf_bt, pf_prefix, pf_end, adapter_ids=None, pf_adapter=None):
     """``paged_batch_decode`` with one admission's prefill slice fused in
     (``pf_tokens`` [1, pad], ``pf_bt`` [1, mp], ``pf_prefix``/``pf_end`` [1]),
-    its host operands on the same non-blocking pinned path."""
+    its host operands on the same non-blocking pinned path; ``pf_adapter``
+    [1] is the slice's own adapter slot."""
     from ..models.decoder import fused_mixed_paged_batch_decode
 
     progs = self._programs_for(pool)
     if progs is not None:
-      return (*progs.mixed(token, block_tables, positions, active, temps, top_ks, n_steps, k_max, page_size, key, pf_tokens, pf_bt, pf_prefix, pf_end), pool)
+      return (*progs.mixed(token, block_tables, positions, active, temps, top_ks, n_steps, k_max, page_size, key, pf_tokens, pf_bt, pf_prefix, pf_end, adapter_ids, pf_adapter), pool)
     eng = self.engine
     return fused_mixed_paged_batch_decode(
       eng.params, eng.cfg, eng._effective_shard, self._dev(token), pool, self._dev(block_tables), self._dev(positions),
       self._dev(active), self._dev(temps), self._dev(pf_tokens), self._dev(pf_bt), self._dev(pf_prefix), self._dev(pf_end), n_steps,
-      top_k=self._dev(top_ks), k_max=k_max, page_size=page_size, generator=self._generator(key),
+      top_k=self._dev(top_ks), k_max=k_max, page_size=page_size, generator=self._generator(key), **self._adapter_kw(adapter_ids=adapter_ids, pf_adapter=pf_adapter),
     )
 
   # ------------------------------------------------- KV tier page copies

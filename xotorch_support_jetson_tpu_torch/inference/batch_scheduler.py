@@ -80,6 +80,17 @@ defaults and in both of its layouts:
   probe runs every ``XOT_TPU_SPEC_REPROBE`` plain chunks. Proposals key on
   settled history, so a chunk with n-gram rows never chains behind an
   in-flight one; a mixed tick takes precedence over speculation;
+- with the engine's adapter registry built (``enable_multi_lora``,
+  ``XOT_TPU_LORA_DIR``), each request may name an adapter (``submit``'s
+  ``adapter``): admission pins its slot (inference/adapters.py; a cold
+  adapter swaps in from the host tier), every prefill, plain, mixed and
+  speculative dispatch carries each row's slot (``adapter_ids``; the mixed
+  slice its own ``pf_adapter``), and every path a row leaves the pool by
+  unpins it. The registry's slots come off the default page budget. An
+  adapter row's prefix-cache chain is seeded with its adapter
+  (inference/paging.py ``adapter_chain_seed``): pages are shared only
+  between rows of one adapter (the reference shares them across adapters,
+  which serves one adapter's K/V to another's rows);
 - every latency it sees goes to utils/metrics.py (TTFT, inter-token
   latency, queue wait, chunk times) and, per QoS class, to the SLO engine
   (orchestration/slo.py, ``XOT_TPU_SLO``).
@@ -134,7 +145,7 @@ from .engine import PromptTooLongError, ServerOverloadedError
 from .kv_tier import KvTierManager, kv_tier_enabled, prefix_registry
 from .ngram import NgramIndex, ngram_enabled, ngram_knobs
 from .paging import (
-  PageAllocator, ewma_update, kv_cache_bytes, mixed_tick_enabled, pages_to_cover, resolved_decode_path, select_decode_path, select_mixed_budget,
+  PageAllocator, adapter_chain_seed, ewma_update, kv_cache_bytes, lora_pages_equivalent, mixed_tick_enabled, pages_to_cover, resolved_decode_path, select_decode_path, select_mixed_budget,
   spec_adapt_gamma, spec_reprobe_proposer, spec_select_proposer, spec_worst_advance,
 )
 from .qos import DeadlineUnmeetableError
@@ -326,6 +337,7 @@ class BatchedServer:
     self._h_generated = np.zeros((self.n_slots,), dtype=np.int64)
     self._h_max_tokens = np.zeros((self.n_slots,), dtype=np.int64)
     self._h_occupied = np.zeros((self.n_slots,), dtype=bool)
+    self._h_adapters = np.zeros((self.n_slots,), dtype=np.int32)  # each row's adapter slot (0: base)
     # Page availability as of the last admission pass: the lookahead drain
     # gate retries parked requests only when this grows.
     self._parked_avail_seen: int = -1
@@ -361,18 +373,20 @@ class BatchedServer:
 
   # ------------------------------------------------------------- public API
 
-  async def submit(self, request_id: str, tokens: np.ndarray, *, max_tokens: int, temp: float, top_k: int, eos_ids, emit, priority: str = "standard", tenant: str = "default", deadline_ms: float | None = None) -> list:
+  async def submit(self, request_id: str, tokens: np.ndarray, *, max_tokens: int, temp: float, top_k: int, eos_ids, emit, priority: str = "standard", tenant: str = "default", deadline_ms: float | None = None, adapter: str | None = None) -> list:
     """Enqueue a request; resolves with its tokens when it finishes. Tokens
     stream out via ``emit(request_id, new_tokens, finished)`` as chunks
     complete. ``priority`` / ``tenant`` / ``deadline_ms`` feed the QoS layer
-    (ignored with QoS off). Raises ``ServerOverloadedError`` (or a QoS
-    subclass carrying ``retry_after_ms``) when the request is refused."""
+    (ignored with QoS off); ``adapter`` names a registered adapter (None:
+    the base model). Raises ``ServerOverloadedError`` (or a QoS subclass
+    carrying ``retry_after_ms``) when the request is refused; an unknown
+    adapter fails the request with ``UnknownAdapterError`` at admission."""
     tokens = np.asarray(tokens, dtype=np.int32).reshape(-1)
     ticket = self.admission.admit(request_id, int(tokens.shape[0]), int(max_tokens), priority, tenant, deadline_ms)
     req = _Request(
       request_id=request_id, tokens=tokens, max_tokens=int(max_tokens), temp=float(temp), top_k=int(top_k),
       eos_ids=tuple(int(e) for e in eos_ids), emit=emit, future=asyncio.get_running_loop().create_future(),
-      t_submit=time.perf_counter(), qos=ticket,
+      t_submit=time.perf_counter(), qos=ticket, adapter=adapter or None,
     )
     await self.admission.enqueue(req)
     self._update_gauges()
@@ -546,6 +560,47 @@ class BatchedServer:
     if task is not None and not task.done():
       task.get_loop().call_soon_threadsafe(task.cancel)
 
+  # ---------------------------------------------------------- multi-LoRA
+
+  def _lora_active(self) -> bool:
+    """Adapter-aware serving applies: the engine built its registry
+    (``enable_multi_lora``) and the backend's programs take the per-row
+    slots."""
+    return self.ops.lora_supported() and getattr(self.engine, "adapter_registry", None) is not None
+
+  def _lora_acquire(self, req: _Request) -> None:
+    """Resolve (and pin) the request's named adapter to a device slot at
+    admission: a cold adapter is a host restore or a checkpoint load (a
+    swap, in ``lora_swap_seconds``), never a new graph. An unknown name
+    raises the client-error type, a fully pinned slot set the retryable
+    overload type; both fail the request through ``_prepare``'s failure
+    path, its pages released."""
+    if not req.adapter:
+      req.adapter_slot = 0
+      return
+    from .adapters import check_known
+
+    reg = self.engine.adapter_registry if self._lora_active() else None
+    check_known(reg, req.adapter)
+    req.adapter_slot = reg.acquire(req.adapter, holder=req.request_id)
+
+  def _lora_unpin(self, req: _Request | None) -> None:
+    """Drop the request's slot pin (idempotent): called on every path a row
+    leaves the pool by (finish, cancel, preemption, failure, teardown), so
+    the registry's LRU never reassigns a slot a resident row still indexes,
+    and a departed row never pins one for good."""
+    if req is None or not req.adapter:
+      return
+    reg = getattr(self.engine, "adapter_registry", None)
+    if reg is not None:
+      reg.unpin(req.request_id)
+
+  def _lora_kw(self, rows: np.ndarray) -> dict:
+    """``adapter_ids=`` of a dispatch (a copy of ``rows``) while the engine
+    holds a registry, else nothing: base serving's dispatches stay as they
+    were."""
+    return {"adapter_ids": np.array(rows, dtype=np.int32)} if self._lora_active() else {}
+
   # ---------------------------------------------------------------- pool
 
   def _ensure_cache(self) -> None:
@@ -605,6 +660,13 @@ class BatchedServer:
         # The draft cache rides in the same budget (floored at one row's
         # window); an explicit XOT_TPU_BATCH_PAGES is the operator's own.
         per_dense = max(per_dense - draft_pages_equiv, self.pages_per_row + 1)
+      if self._lora_active():
+        # So do the registry's adapter slots, allocated up front: their
+        # bytes in pages come off the default pool, with the same floor.
+        page_bytes = max(kv_cache_bytes(eng.cfg, eng._effective_shard.n_shard_layers, ps, kv_quant), 1)
+        lora_pages = lora_pages_equivalent(eng.adapter_registry.device_bytes(), page_bytes)
+        if lora_pages:
+          per_dense = max(per_dense - lora_pages, self.pages_per_row + 1)
       n_pages = int(os.getenv("XOT_TPU_BATCH_PAGES", "0")) or per_dense + 1
       self.allocator = PageAllocator(n_pages, ps)
       self.block_tables = np.zeros((self.n_slots, self.pages_per_row), dtype=np.int32)
@@ -741,10 +803,11 @@ class BatchedServer:
       if not self.paged:
         # A slot row holds the whole window: nothing to allocate. pad_to is
         # set per dispatch by _chunk_ready.
+        self._lora_acquire(req)
         self._note_admitted(req)
         return "ready", _Ready(req=req, row=row, pad_to=0)
       ps = self.page_size
-      chain_keys = self.allocator.chain_keys(req.tokens, ps)
+      chain_keys = self.allocator.chain_keys(req.tokens, ps, adapter_chain_seed(req.adapter))
       # Reuse at most (S-1)//ps pages: at least one suffix token must run
       # through prefill to produce the last-position logits.
       shared_pages = self.allocator.lookup_prefix(chain_keys[: (S - 1) // ps])
@@ -799,6 +862,7 @@ class BatchedServer:
       self.prefix_hit_pages += len(shared_pages)
       if shared_pages:
         metrics.inc("prefix_cache_hit_pages_total", len(shared_pages))
+      self._lora_acquire(req)  # pin the adapter's slot; a failure releases the pages below
       self._note_admitted(req)
       return "ready", _Ready(req=req, row=row, pad_to=0, prefix_len=prefix_len, shared_pages=shared_pages, new_pages=new_pages, chain_keys=chain_keys)
     except Exception as e:  # noqa: BLE001 — a failed request never blocks the pool
@@ -918,7 +982,9 @@ class BatchedServer:
     r.pad_to = min(_round_up(cap, PREFILL_BUCKET), self.max_seq - r.prefix_len)
 
   def _release_ready_pages(self, r: _Ready) -> None:
-    """Free a not-yet-finished admission's pages (cancel or failure)."""
+    """Free a not-yet-finished admission's pages and adapter pin (cancel or
+    failure)."""
+    self._lora_unpin(r.req)
     for p in r.shared_pages:
       self.allocator.release(p)
     if r.new_pages:
@@ -953,6 +1019,7 @@ class BatchedServer:
     except BaseException as e:  # loop teardown mid-dispatch: no admitted future may leak unresolved
       for r in ready:
         self._admitting.discard(r.req.request_id)
+        self._lora_unpin(r.req)  # in neither the slots nor _prefilling: _fail_all would miss the pin
         if not r.req.future.done():
           r.req.future.set_exception(RuntimeError(f"batched server shut down mid-admission: {e!r}"))
       raise
@@ -981,6 +1048,7 @@ class BatchedServer:
     prompt_lens = np.ones((n_rows,), dtype=np.int32)  # padding rows: prefix 0, prompt_len 1
     temps = np.zeros((n_rows,), dtype=np.float32)
     top_ks = np.ones((n_rows,), dtype=np.int32)
+    adapters = np.zeros((n_rows,), dtype=np.int32)  # padding rows: the base slot
     for i, r in enumerate(group):
       # A chunked prefill covers [prefix_len, chunk_end) only; the final
       # chunk (chunk_end == 0) runs to the prompt's end and samples.
@@ -989,6 +1057,8 @@ class BatchedServer:
       prompt_lens[i] = end
       temps[i] = r.req.temp
       top_ks[i] = min(r.req.top_k, self.k_max)
+      adapters[i] = r.req.adapter_slot
+    lora_kw = self._lora_kw(adapters)
     key = eng.split_key()  # on the event-loop thread; the executor only runs device work
     draft_job = self._draft_prefill_job(group)
     if self.paged:
@@ -1004,13 +1074,13 @@ class BatchedServer:
         prefix_lens[i] = r.prefix_len
 
       def prefill():
-        firsts, self.cache = self.ops.prefill_into_pages_many_sampled(tok, self.cache, bts, prefix_lens, prompt_lens, self.page_size, temps, top_ks, self.k_max, key)
+        firsts, self.cache = self.ops.prefill_into_pages_many_sampled(tok, self.cache, bts, prefix_lens, prompt_lens, self.page_size, temps, top_ks, self.k_max, key, **lora_kw)
         return firsts
     else:
       rows = np.asarray([r.row for r in group] + spare[: n_rows - K], dtype=np.int32)
 
       def prefill():
-        firsts, self.cache = self.ops.prefill_into_slots_sampled(tok, self.cache, rows, prompt_lens, temps, top_ks, self.k_max, key)
+        firsts, self.cache = self.ops.prefill_into_slots_sampled(tok, self.cache, rows, prompt_lens, temps, top_ks, self.k_max, key, **lora_kw)
         return firsts
 
     def run():
@@ -1128,6 +1198,7 @@ class BatchedServer:
     self._h_top_ks[r.row] = min(req.top_k, self.k_max)
     self._h_generated[r.row] = slot.generated
     self._h_max_tokens[r.row] = req.max_tokens
+    self._h_adapters[r.row] = req.adapter_slot
     if self.paged:
       self.block_tables[r.row, :] = 0
       n = len(slot.shared_pages) + len(slot.pages)
@@ -1171,7 +1242,9 @@ class BatchedServer:
     absorbed stream (prompt + new tokens), so a preempted row's resume and
     a conversation's next turn find the whole history as a prefix, on the
     device now and on the host once LRU pressure spills it. The dense
-    layout holds no pages."""
+    layout holds no pages. The row's adapter pin drops here too: every
+    caller takes the row out of the pool."""
+    self._lora_unpin(slot.req)
     if not self.paged:
       return
     for p in slot.shared_pages:
@@ -1185,7 +1258,7 @@ class BatchedServer:
       absorbed = np.concatenate([slot.req.tokens, np.asarray(new_toks, np.int64)]) if new_toks else slot.req.tokens
       # Positions [0, pos) hold exactly the KV of absorbed[:pos]; only FULL
       # pages are donatable.
-      keys = PageAllocator.chain_keys_extend(keys, absorbed[: (slot.pos // self.page_size) * self.page_size], self.page_size)
+      keys = PageAllocator.chain_keys_extend(keys, absorbed[: (slot.pos // self.page_size) * self.page_size], self.page_size, adapter_chain_seed(slot.req.adapter))
     to_free = []
     donated = []
     for i, p in enumerate(slot.pages):
@@ -1215,6 +1288,7 @@ class BatchedServer:
     self._h_top_ks[row] = 1
     self._h_generated[row] = 0
     self._h_max_tokens[row] = 0
+    self._h_adapters[row] = 0
 
   def _grow_pages(self, row: int, slot: _Slot, pos: int, headroom: int | None = None) -> bool:
     """Ensure ``slot`` has pages covering the chunk dispatched at ``pos``
@@ -1544,6 +1618,7 @@ class BatchedServer:
       pf_bt[0, : len(row_pages)] = row_pages
       pf_bounds = (np.asarray([m_start], dtype=np.int32), np.asarray([m_end], dtype=np.int32))
     key = eng.split_key()
+    lora_kw = self._lora_kw(self._h_adapters)
     now = time.perf_counter()
     if self._t_last_ready is not None:
       # The device-idle window this dispatch waited for host work (0 when
@@ -1551,7 +1626,7 @@ class BatchedServer:
       metrics.observe_hist("sched_host_gap_seconds", 0.0 if inflight is not None else now - self._t_last_ready)
 
     def run():
-      kw = dict(k_max=self.k_max, key=key)
+      kw = dict(k_max=self.k_max, key=key, **lora_kw)
       if self.paged:
         kw["page_size"] = self.page_size
       if spec:
@@ -1573,7 +1648,9 @@ class BatchedServer:
         return host, ready, next_tok, None
       args = (tokens, self.cache, self.block_tables, plan.positions, plan.active, self._h_temps, self._h_top_ks, self.chunk)
       if mixed_r is not None:
-        toks, next_tok, _pos, self.cache = self.ops.mixed_paged_batch_decode(*args, **kw, pf_tokens=pf_tokens, pf_bt=pf_bt, pf_prefix=pf_bounds[0], pf_end=pf_bounds[1])
+        # The slice carries its own admission's adapter (pf_adapter).
+        pf_kw = {"pf_adapter": np.asarray([mixed_r.req.adapter_slot], np.int32)} if lora_kw else {}
+        toks, next_tok, _pos, self.cache = self.ops.mixed_paged_batch_decode(*args, **kw, **pf_kw, pf_tokens=pf_tokens, pf_bt=pf_bt, pf_prefix=pf_bounds[0], pf_end=pf_bounds[1])
       else:
         toks, next_tok, _pos, self.cache = self.ops.paged_batch_decode(*args, **kw)
       host, ready = to_host_async(toks)
@@ -1784,13 +1861,16 @@ class BatchedServer:
 
   def _fail_all(self, exc: Exception) -> None:
     for i, slot in enumerate(self.slots):
-      if slot is not None and not slot.req.future.done():
-        slot.req.future.set_exception(exc)
+      if slot is not None:
+        self._lora_unpin(slot.req)
+        if not slot.req.future.done():
+          slot.req.future.set_exception(exc)
       self.slots[i] = None
       self._clear_row(i)
     self._t_last_ready = None
     while self._prefilling:
       r = self._prefilling.pop()
+      self._lora_unpin(r.req)
       if not r.req.future.done():
         r.req.future.set_exception(exc)
     self.admission.fail_queued(exc)

@@ -5,7 +5,8 @@ the batched serving slice uses (``PageAllocator``, ``pages_to_cover``,
 ``kv_cache_bytes``, the mixed-tick budget policy ``select_mixed_budget``,
 and the per-row speculation policy ``spec_adapt_gamma``,
 ``spec_select_proposer``, ``spec_reprobe_proposer``, ``spec_worst_advance``
-and ``ewma_update``), with the host KV tier's hooks on the allocator
+and ``ewma_update``, and the adapter stacks' ``lora_device_bytes`` and
+``lora_pages_equivalent``), with the host KV tier's hooks on the allocator
 (``spill_hook``, ``chain_keys_extend``, ``is_cached``, ``adopt_restored``),
 and the decode-path dispatch (``select_decode_path``,
 ``resolved_decode_path``): the reference's walk and forcing, off the card
@@ -39,6 +40,31 @@ def kv_cache_bytes(cfg, n_layers: int, n_tokens: int, quant: str = "") -> int:
   else:
     per_token = heads * per_side * cfg.dtype.itemsize
   return int(n_layers) * int(n_tokens) * int(per_token)
+
+
+def lora_device_bytes(n_layers: int, d_in: int, d_out: int, rank: int, n_slots: int, itemsize: int = 4) -> int:
+  """Device bytes of ONE target projection's stacked adapter slots
+  (inference/adapters.py): ``A [L, n_slots, d_in, r]`` + ``B [L, n_slots,
+  r, d_out]``. The registry's capacity is allocated up front, so the
+  batched server deducts it from the default page budget, as it does the
+  draft's cache."""
+  return int(n_layers) * int(n_slots) * int(rank) * (int(d_in) + int(d_out)) * int(itemsize)
+
+
+def lora_pages_equivalent(device_bytes: int, page_bytes: int) -> int:
+  """Adapter-stack bytes in pages of the serving pool (rounded up): what
+  the scheduler takes off the default pool size."""
+  return -(-int(device_bytes) // max(int(page_bytes), 1))
+
+
+def adapter_chain_seed(adapter: str | None) -> bytes:
+  """The prefix-cache chain's seed for a row serving ``adapter``: empty for
+  the base model (its keys stay the plain content chain), else a digest of
+  the adapter's name. An adapter changes every layer's K/V past the first
+  layer's k, so a page is reusable only under the adapter that wrote it.
+  The reference keys its prefix cache on tokens alone; the port does not
+  carry that over."""
+  return hashlib.blake2b(b"adapter:" + adapter.encode(), digest_size=16).digest() if adapter else b""
 
 
 def pages_to_cover(end_pos: int, page_size: int) -> int:
@@ -119,21 +145,25 @@ class PageAllocator:
   # ----------------------------------------------------------- prefix cache
 
   @staticmethod
-  def chain_keys(tokens, page_size: int) -> list[bytes]:
+  def chain_keys(tokens, page_size: int, seed: bytes = b"") -> list[bytes]:
     """Cumulative content keys for each FULL page of ``tokens``: key i
-    hashes key i-1 with page i's token ids (int64 bytes)."""
-    return PageAllocator.chain_keys_extend([], tokens, page_size)
+    hashes key i-1 with page i's token ids (int64 bytes). ``seed`` starts
+    the chain: the scheduler seeds an adapter row's chain with its adapter
+    (``adapter_chain_seed``), so pages whose KV an adapter computed never
+    serve another adapter's or the base model's rows."""
+    return PageAllocator.chain_keys_extend([], tokens, page_size, seed)
 
   @staticmethod
-  def chain_keys_extend(prev_keys: list[bytes], tokens, page_size: int) -> list[bytes]:
+  def chain_keys_extend(prev_keys: list[bytes], tokens, page_size: int, seed: bytes = b"") -> list[bytes]:
     """Extend a chain-key list over a LONGER token sequence, carrying the
-    running hash forward from ``prev_keys[-1]`` (O(new tokens)).
-    ``prev_keys`` must be the chain of ``tokens[: len(prev_keys) *
-    page_size]``. The release path uses it to donate a row's generated pages
-    under the keys a later admission of the same stream computes."""
+    running hash forward from ``prev_keys[-1]`` (O(new tokens); ``seed``
+    when there is none yet). ``prev_keys`` must be the chain of
+    ``tokens[: len(prev_keys) * page_size]``. The release path uses it to
+    donate a row's generated pages under the keys a later admission of the
+    same stream computes."""
     arr = np.asarray(tokens, dtype=np.int64)  # normalize dtype: same ids -> same bytes
     keys = list(prev_keys)
-    prev = keys[-1] if keys else b""
+    prev = keys[-1] if keys else seed
     for i in range(len(keys), len(arr) // page_size):
       prev = hashlib.blake2b(prev + arr[i * page_size : (i + 1) * page_size].tobytes(), digest_size=16).digest()
       keys.append(prev)

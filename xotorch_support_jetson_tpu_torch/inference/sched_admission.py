@@ -48,6 +48,12 @@ class _Request:
   # resumed incarnation zeroes t_submit), so goodput judges the latency the
   # client saw.
   slo_ttft_s: float | None = None
+  # Multi-LoRA serving: the named adapter this request selected (None: the
+  # base model) and the device slot it holds pinned while admitted
+  # (inference/adapters.py). The name survives a preemption, so a resumed
+  # row re-pins its adapter at its next admission.
+  adapter: str | None = None
+  adapter_slot: int = 0
 
 
 class AdmissionControl:

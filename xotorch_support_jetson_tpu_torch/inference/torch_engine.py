@@ -54,6 +54,15 @@ greedy and exact, as the reference reads it:
   ``XOT_TPU_SPEC_NGRAM``, ``_NGRAM_N``, ``_NGRAM_MAX``) through
   ``fused_spec_batch_decode`` at B=1, one synchronous chunk at a time, the
   depth walking a per-session EWMA.
+
+Multi-LoRA serving (``enable_multi_lora``, or ``XOT_TPU_LORA_DIR`` at load):
+stacked adapter slots among the params, written in place by the registry
+(inference/adapters.py), so every captured graph reads the adapters
+installed when it runs. A solo request selects its adapter by name
+(``set_request_adapter``); its session pins the slot and every dispatch
+of it (prefill, step, plain chunk, oneshot) runs the adapter hook. Adapter
+sessions never speculate: speculation verifies the base target, as in the
+reference. The batched server takes the name at ``submit``.
 """
 
 from __future__ import annotations
@@ -112,7 +121,7 @@ class _Session:
   __slots__ = (
     "kv_cache", "programs", "pool_key", "epoch", "curr_pos", "prompt_len", "max_seq", "next_token_dev", "prompt_np", "draft_cache",
     "spec_seed_dev", "spec_pos_dev", "spec_known_pos", "spec_inflight_slots",
-    "ngram_index", "ngram_unread", "ngram_ewma", "ngram_gamma",
+    "ngram_index", "ngram_unread", "ngram_ewma", "ngram_gamma", "adapter_slot",
   )
 
   def __init__(self, programs: SoloPrograms | ShardPrograms, pool_key: tuple, max_seq: int, epoch: int = 0) -> None:
@@ -143,6 +152,10 @@ class _Session:
     self.ngram_unread = False
     self.ngram_ewma = None
     self.ngram_gamma = -1
+    # The pinned adapter slot of this session (0: the base model): every
+    # dispatch of the session passes it as adapter_ids, and the spec and
+    # n-gram chunks step aside (they verify the base target).
+    self.adapter_slot = 0
 
 
 class TorchShardedInferenceEngine(InferenceEngine):
@@ -202,6 +215,11 @@ class TorchShardedInferenceEngine(InferenceEngine):
     # (as the reference records it): the cross draft's tokenizer check
     # compares against the previous load's files.
     self._model_dir = None
+    # Multi-LoRA serving: the adapter registry enable_multi_lora builds
+    # (None: base-only serving), and the solo requests' adapter names. A
+    # model load resets both.
+    self.adapter_registry = None
+    self._session_adapters: dict[str, str] = {}
 
   def split_key(self) -> int:
     """A fresh seed for one batched dispatch's sampling generator
@@ -248,6 +266,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
       eff = Shard(shard.model_id, start, max(start, end), cfg.n_layers)
     self._refuse_partial_spec(eff)
     self._drop_batched_server()  # its page pool belongs to the old model
+    self.adapter_registry = None  # its geometry and slots belong to the old model
     self.params = self._draft_params = None  # free the old model's device memory before loading
     params = load_shard_weights(model_dir, cfg, eff, device=self.device)
     if self.quant:
@@ -264,8 +283,35 @@ class TorchShardedInferenceEngine(InferenceEngine):
     self.generator.manual_seed(self._seed)
     self._key_gen.manual_seed(self._seed)
     self._model_dir = Path(model_dir)
+    self._maybe_load_adapter_dir()
     if DEBUG >= 1:
       print(f"[torch_engine] loaded {shard} from {model_dir} on {self.device}")
+
+  def _maybe_load_adapter_dir(self) -> None:
+    """``XOT_TPU_LORA_DIR``: enable multi-LoRA at model load and register
+    every ``*.npz`` adapter checkpoint in the directory (the name is the
+    file stem; inference/adapters.py formats). Best-effort, as in the
+    reference: a bad adapter file is skipped with a message, never a failed
+    load, and a model that refuses multi-LoRA (MLA) only prints why. A ring
+    node's partial shard skips it (it serves hidden states: no hook)."""
+    lora_dir = os.getenv("XOT_TPU_LORA_DIR")
+    if not lora_dir or self.adapter_registry is not None:
+      return
+    eff = self._effective_shard
+    if not (eff.is_first_layer and eff.is_last_layer):
+      return
+    try:
+      reg = self.enable_multi_lora()
+    except (RuntimeError, ValueError) as e:
+      print(f"[torch_engine] XOT_TPU_LORA_DIR set but multi-LoRA unavailable: {e}")
+      return
+    if reg is None:
+      return  # XOT_TPU_LORA=0
+    for path in sorted(Path(lora_dir).glob("*.npz")):
+      try:
+        reg.register(path.stem, path=str(path))
+      except Exception as e:  # noqa: BLE001 — one bad adapter must not sink the load
+        print(f"[torch_engine] skipping adapter {path.name}: {e}")
 
   async def _load_tokenizer(self, shard: Shard, model_dir) -> None:
     if self._fixed_tokenizer is not None:
@@ -281,6 +327,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
     """Directly inject a model (tests)."""
     self._refuse_partial_spec(shard)
     self._drop_batched_server()
+    self.adapter_registry = None
     self.shard = shard
     self._effective_shard = shard
     self.cfg = cfg
@@ -497,18 +544,22 @@ class TorchShardedInferenceEngine(InferenceEngine):
 
   def _new_session(self, request_id: str, B: int, epoch: int = 0) -> _Session:
     """A session on a pooled cache (and, with a draft, its paired draft
-    cache)."""
+    cache), with its adapter slot pinned when the request named one."""
     max_seq = min(self.max_seq_len, self.cfg.max_seq_len)
+    slot = self._acquire_session_slot(request_id)
     programs, key = self._take_programs(B, max_seq)
     session = self.sessions[request_id] = _Session(programs, key, max_seq, epoch)
+    session.adapter_slot = slot
     return session
 
   def _drop_session(self, request_id: str) -> None:
     """End a session and return its cache, with its programs and its draft
-    pair, to the pool."""
+    pair, to the pool; its adapter pin goes with it."""
     session = self.sessions.pop(request_id, None)
     if session is not None:
       self._cache_pool.setdefault(session.pool_key, []).append(session.programs)
+      if session.adapter_slot and self.adapter_registry is not None:
+        self.adapter_registry.unpin(("solo", request_id))
 
   def _clear_sessions(self) -> None:
     """Forget every session and the pool (its graphs hold the old model and
@@ -557,7 +608,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
         x_in[:, : x.shape[1]] = x
       else:
         x_in = x  # hidden states arrive already padded
-      out = session.programs.prefill(x_in, prompt_len)  # one captured program per bucket
+      out = session.programs.prefill(x_in, prompt_len, **self._session_adapter_kw(session))  # one captured program per bucket
       session.curr_pos = session.prompt_len = prompt_len
     else:
       if session.curr_pos >= session.max_seq:
@@ -568,7 +619,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
           state.tokens = np.concatenate([state.tokens, x_step], axis=1)
       else:
         x_step = x
-      out = session.programs.forward(x_step, session.curr_pos)
+      out = session.programs.forward(x_step, session.curr_pos, **self._session_adapter_kw(session))
       session.curr_pos += 1
     state.curr_pos = session.curr_pos
     if shard.is_last_layer:
@@ -600,8 +651,8 @@ class TorchShardedInferenceEngine(InferenceEngine):
   def _spec_chunk_eligible(self, session, temp, first_token) -> bool:
     """The draft spec chain: greedy single-stream requests with a draft
     loaded, entered right after prefill and continued on the device."""
-    if self._draft_params is None or (temp is not None and float(temp) > 0.0):
-      return False
+    if self._draft_params is None or (temp is not None and float(temp) > 0.0) or session.adapter_slot:
+      return False  # an adapter session decodes plain: the chain verifies the base target
     if session.spec_seed_dev is not None:
       return True  # chain active
     return self._fresh_single_stream(session, first_token)
@@ -639,8 +690,8 @@ class TorchShardedInferenceEngine(InferenceEngine):
     prefill, continued while the session's index lives."""
     if self._draft_params is not None or not self.spec_decode or not self._spec_ngram_on:
       return False
-    if temp is not None and float(temp) > 0.0:
-      return False
+    if (temp is not None and float(temp) > 0.0) or session.adapter_slot:
+      return False  # an adapter session decodes plain: the chunks verify the base target
     if session.ngram_index is not None or session.ngram_unread:
       return True  # chain active
     return self._fresh_single_stream(session, first_token)
@@ -816,7 +867,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
         raise RuntimeError(f"no chained token for request {request_id}; pass first_token after prefill")
     toks, _ = fused_decode(
       self.params, self.cfg, self._effective_shard, token, session.kv_cache, session.curr_pos, n_steps,
-      temp=float(temp), top_k=int(top_k), generator=self.generator, programs=session.programs,
+      temp=float(temp), top_k=int(top_k), generator=self.generator, programs=session.programs, **self._session_adapter_kw(session),
     )
     session.next_token_dev = toks[:, -1:]
     session.curr_pos += n_steps
@@ -886,6 +937,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
     if (
       self._draft_params is not None
       and (temp is None or float(temp) <= 0.0)
+      and not session.adapter_slot  # speculation verifies the base target: adapter sessions stay plain
       and session.prompt_np is not None
       and session.curr_pos == session.prompt_len  # fresh after prefill: the draft sees the prompt only
       and session.prompt_np.shape[0] == 1
@@ -905,6 +957,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
     buf, _n, _ = fused_generate(
       self.params, self.cfg, self._effective_shard, int(first_token), session.kv_cache, session.curr_pos, steps,
       eos_ids=eos, temp=float(temp), top_k=int(top_k), generator=self.generator, n_limit=limit, programs=session.programs,
+      **self._session_adapter_kw(session),
     )
     row = buf[0].cpu().numpy()
     n = limit
@@ -945,6 +998,120 @@ class TorchShardedInferenceEngine(InferenceEngine):
 
   def end_request(self, request_id: str) -> None:
     self._drop_session(request_id)
+    self._session_adapters.pop(request_id, None)
+
+  # ---------------------------------------------------------------- multi-LoRA
+
+  def enable_multi_lora(self, capacity: int | None = None, rank: int | None = None, host_budget_bytes: int | None = None):
+    """Turn on multi-LoRA serving: all-zero STACKED adapter leaves
+    ``{wq,wv}_alora_{a,b} [L, n_slots, ...]`` on the ``layers`` and
+    ``moe_layers`` stacks, in the model dtype on the device (slot 0 stays
+    zero = the base model), and the ``inference/adapters.py`` registry over
+    them. Returns the registry, or None with ``XOT_TPU_LORA=0`` (base
+    serving byte for byte: the hook never runs). The capacity rounds up to
+    a power of two and is allocated here, once: every captured graph holds
+    the leaves' addresses, so an install is an in-place copy into a slot
+    (``_install_adapter_slot``) and never a new tensor.
+
+    The sessions, the solo pool and the batched server are dropped, as in
+    the reference: their graphs hold the params without the leaves. Whole
+    models on one device only (a ring node's partial shard is refused);
+    MLA models are refused with the reference's message (their targets map
+    onto the latent projections the per-row hook does not cover)."""
+    from .adapters import ADAPTER_TARGETS, AdapterRegistry, lora_capacity, lora_enabled, lora_rank, round_pow2
+
+    if not lora_enabled():
+      return None
+    if self.adapter_registry is not None:
+      return self.adapter_registry
+    if self.cfg is None or self.params is None:
+      raise RuntimeError("load a model before enabling multi-LoRA")
+    if self.cfg.is_mla:
+      raise ValueError("multi-LoRA serving does not support MLA models (wq/wv targets map onto latent projections)")
+    eff = self._effective_shard
+    if not (eff.is_first_layer and eff.is_last_layer):
+      raise ValueError("multi-LoRA serving needs the whole model on one node")
+    cap = round_pow2(capacity) if capacity else lora_capacity()
+    rank = int(rank or lora_rank())
+    params = dict(self.params)
+    geometry: dict = {}
+    for stack in ("layers", "moe_layers"):
+      if stack not in params:
+        continue
+      layers = dict(params[stack])
+      geo: dict = {}
+      for t in ADAPTER_TARGETS:
+        w = layers.get(t)
+        if w is None:
+          continue
+        # The model's width, not w's in-axis: packed int4 codes halve it.
+        L, d_in, d_out = int(w.shape[0]), int(self.cfg.dim), int(w.shape[2])
+        geo[t] = (L, d_in, d_out)
+        layers[f"{t}_alora_a"] = torch.zeros((L, cap, d_in, rank), dtype=self.cfg.dtype, device=self.device)
+        layers[f"{t}_alora_b"] = torch.zeros((L, cap, rank, d_out), dtype=self.cfg.dtype, device=self.device)
+      if geo:
+        params[stack] = layers
+        geometry[stack] = geo
+    if not geometry:
+      raise ValueError("the loaded model has no LoRA target projections (wq/wv)")
+    self.params = params
+    self.adapter_registry = AdapterRegistry(geometry=geometry, rank=rank, capacity=cap, install=self._install_adapter_slot, host_budget_bytes=host_budget_bytes)
+    self._session_adapters = {}
+    self._clear_sessions()
+    self._drop_batched_server()
+    return self.adapter_registry
+
+  def _install_adapter_slot(self, slot: int, arrays: dict | None) -> None:
+    """The registry's install hook: write one adapter's (rank-padded)
+    factors into slot ``slot`` of the stacked leaves, IN PLACE (``None``
+    zeroes the slot). The leaves keep their addresses, so captured graphs
+    read the new factors at their next replay; the copies queue on the
+    current stream behind the work already dispatched."""
+    for stack, layers in self.params.items():
+      per = (arrays or {}).get(stack, {})
+      for name, leaf in layers.items() if stack in ("layers", "moe_layers") else ():
+        if "_alora_" not in name:
+          continue
+        t, f = name.split("_alora_")
+        if t not in per:
+          leaf[:, slot].zero_()  # a target this adapter leaves alone
+          continue
+        host = np.array(per[t][0 if f == "a" else 1], copy=True, order="C")  # npz arrays are read-only
+        leaf[:, slot].copy_(torch.from_numpy(host).to(leaf.dtype))
+
+  def set_request_adapter(self, request_id: str, name: str | None) -> None:
+    """Select a named adapter for a request served on the SOLO path (the
+    batched server takes the name at ``submit``). Checked against the
+    registry now: an unknown name answers 400 at the API, before any device
+    work."""
+    if not name:
+      return
+    from .adapters import check_known
+
+    check_known(self.adapter_registry, name)
+    self._session_adapters[request_id] = name
+    while len(self._session_adapters) > 1024:  # a client-driven keyspace stays bounded
+      self._session_adapters.pop(next(iter(self._session_adapters)))
+
+  def _acquire_session_slot(self, request_id: str) -> int:
+    """The solo session's adapter slot, pinned for the session (0: the base
+    model). Dead solo pins (sessions dropped by a model change or a replay
+    epoch without an unpin) are swept here, so a leaked pin never shrinks
+    the evictable slot set for good."""
+    reg = self.adapter_registry
+    name = self._session_adapters.get(request_id)
+    if reg is None or name is None:
+      return 0
+    for holder in reg.pinned_holders():
+      if isinstance(holder, tuple) and holder[0] == "solo" and holder[1] != request_id and holder[1] not in self.sessions:
+        reg.unpin(holder)
+    return reg.acquire(name, holder=("solo", request_id))
+
+  @staticmethod
+  def _session_adapter_kw(session) -> dict:
+    """``adapter_ids=`` of a session's dispatches: its slot for every row,
+    or nothing for a base session (the hook never runs)."""
+    return {"adapter_ids": int(session.adapter_slot)} if session.adapter_slot else {}
 
   # ---------------------------------------------------------------- scoring
 

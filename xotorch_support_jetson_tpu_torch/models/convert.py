@@ -9,7 +9,11 @@ too) stay int8 and the ``<name>_scale`` leaves stay f32. An MoE tree's
 ``moe_layers`` stack comes across with its router, experts and shared
 experts; ``router_bias`` stays f32. An MLA (deepseek) stack carries its
 latent projections (``wq`` or ``wq_a`` / ``q_a_norm`` / ``wq_b``,
-``wkv_a``, ``kv_a_norm``, ``wkv_b``) and their scales. The input is plain numpy
+``wkv_a``, ``kv_a_norm``, ``wkv_b``) and their scales. The stacked
+multi-LoRA slots a serving engine adds (``{wq,wv}_alora_{a,b}`` [L,
+n_slots, ...], inference/adapters.py) come across in ``cfg.dtype``, never
+quantized, so a test builds the port's adapter state from the reference
+engine's. The input is plain numpy
 (bf16 arrives as an ``ml_dtypes`` array and is reinterpreted bit for bit),
 so this module never imports JAX.
 """
@@ -28,9 +32,10 @@ _QUANT_LAYER_KEYS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
 _QUANT_MOE_KEYS = {"w_experts_gate", "w_experts_up", "w_experts_down", "w_shared_gate", "w_shared_up", "w_shared_down"}
 _NORM_KEYS = {"attn_norm", "post_attn_norm", "mlp_norm", "post_mlp_norm", "final_norm"}
 _MLA_KEYS = {"wq_a", "wq_b", "wkv_a", "wkv_b"}
+_ADAPTER_KEYS = {f"{t}_alora_{f}" for t in ("wq", "wv") for f in "ab"}
 _ATTN_KEYS = {
   *_NORM_KEYS - {"final_norm"}, "bq", "bk", "bv", "q_norm", "k_norm", "is_sliding", "q_a_norm", "kv_a_norm", *_MLA_KEYS,
-  *(f"{k}_scale" for k in ("wq", "wk", "wv", "wo", *_MLA_KEYS)),
+  *(f"{k}_scale" for k in ("wq", "wk", "wv", "wo", *_MLA_KEYS)), *_ADAPTER_KEYS,
 }
 _STACK_KEYS = {
   "layers": {*_ATTN_KEYS, *_QUANT_LAYER_KEYS, *(f"{k}_scale" for k in _QUANT_LAYER_KEYS)},

@@ -1,7 +1,7 @@
 """The decoder: llama 3.x, qwen-2.5/3, mistral, phi-family, gemma2, the
 mixture-of-experts mixtral, qwen2-moe and qwen3-moe checkpoints, and
 deepseek-v2/v3 with multi-head latent attention (MLA). Counterpart of the
-reference's ``models/decoder.py`` (all but LoRA and the vision tower). An
+reference's ``models/decoder.py`` (all but the training LoRA leaves and the vision tower). An
 MLA layer caches only its kv latent and rope channel and attends through
 weight absorption (``ops/attention.py mla_absorbed_attention``); its
 cache-less forward runs the naive per-head K/V through ``gqa_attention``,
@@ -287,12 +287,39 @@ def _mla_attention(x, p, kv, positions, kv_positions, inv_freq, cfg: ModelConfig
   )
 
 
-def _dense_qkv(x, p, cfg: ModelConfig, positions, inv_freq):
-  """x [B,S,D] → q [B,S,Hq,hd], k/v [B,S,Hkv,hd] (qkv bias, qk norm, rope)."""
+def _alora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+  """Per-row adapter-indexed low-rank delta (the Punica BGMV idea).
+
+  x [B,S,D]; a [n_slots, D, r] / b [n_slots, r, O] are one layer's STACKED
+  adapter factors (inference/adapters.py keeps slot 0 all-zero = the base
+  model); ids [B] int32 is each row's slot, a device tensor, so the adapter
+  mix changes no captured graph. The gather materializes [B, D, r] +
+  [B, r, O] per layer (r is small), then two batched products; the scale
+  is the reference's fixed alpha = 2·rank ⇒ 2. Plain PyTorch: the
+  reference leaves it to XLA too, outside any Pallas kernel."""
+  idx = ids.to(device=x.device, dtype=torch.long)
+  a_sel = a.index_select(0, idx)  # [B, D, r]
+  b_sel = b.index_select(0, idx)  # [B, r, O]
+  h = torch.bmm(x, a_sel)
+  return (torch.bmm(h, b_sel) * 2.0).to(x.dtype)
+
+
+def _dense_qkv(x, p, cfg: ModelConfig, positions, inv_freq, adapter_ids=None):
+  """x [B,S,D] → q [B,S,Hq,hd], k/v [B,S,Hkv,hd] (qkv bias, qk norm, rope).
+
+  ``adapter_ids`` [B] int32: each row's adapter slot in the stacked
+  ``*_alora_a`` / ``*_alora_b`` leaves (the engine's
+  ``enable_multi_lora``), its delta added after the base products and
+  before the qkv bias, as in the reference. None skips the hook: base
+  serving never pays the gather."""
   B, S, _ = x.shape
   q = _mm(x, p, "wq", cfg.quant_compute)
   k = _mm(x, p, "wk", cfg.quant_compute)
   v = _mm(x, p, "wv", cfg.quant_compute)
+  if adapter_ids is not None and "wq_alora_a" in p:
+    q = q + _alora_delta(x, p["wq_alora_a"], p["wq_alora_b"], adapter_ids)
+  if adapter_ids is not None and "wv_alora_a" in p:
+    v = v + _alora_delta(x, p["wv_alora_a"], p["wv_alora_b"], adapter_ids)
   if "bq" in p:
     q = q + p["bq"]
     k = k + p["bk"]
@@ -424,11 +451,13 @@ def _causal_attention(q, k, v, positions, cfg: ModelConfig, opts: dict):
   return gqa_attention(q, k, v, positions, positions[0], **opts)
 
 
-def _layer_step(h, p, kv, positions, kv_positions, inv_freq, cfg: ModelConfig):
+def _layer_step(h, p, kv, positions, kv_positions, inv_freq, cfg: ModelConfig, adapter_ids=None):
   """One decoder layer. h [B,S,D] → h. ``kv`` is this layer's cache dict
   (views into the session cache, updated in place) or None (cache-less).
   MLA: the absorbed op against the latent cache, or, cache-less, the naive
-  per-head K/V through the plain ``gqa_attention`` (never K1)."""
+  per-head K/V through the plain ``gqa_attention`` (never K1); it takes no
+  adapters (``enable_multi_lora`` refuses MLA). ``adapter_ids`` as in
+  ``_dense_qkv``."""
   x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
   if "wkv_a" in p:
     if kv is not None:
@@ -437,7 +466,7 @@ def _layer_step(h, p, kv, positions, kv_positions, inv_freq, cfg: ModelConfig):
       q, k, v = _mla_qkv(x, p, cfg, positions, inv_freq)
       attn = gqa_attention(q, k, v, positions, positions[0])
     return _mlp_block(h + _attn_out(attn, p, cfg), p, cfg)
-  q, k, v = _dense_qkv(x, p, cfg, positions, inv_freq)
+  q, k, v = _dense_qkv(x, p, cfg, positions, inv_freq, adapter_ids)
   opts = _attn_opts(cfg, p.get("is_sliding"))
   if kv is not None:
     attn = _attention(q, k, v, kv, positions, kv_positions, cfg, opts)
@@ -487,14 +516,14 @@ def layer_params(params: Params):
         yield {key: val[i] for key, val in stack.items()}
 
 
-def _forward_layers(params: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, kv_cache: Params | None) -> torch.Tensor:
+def _forward_layers(params: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, kv_cache: Params | None, adapter_ids=None) -> torch.Tensor:
   """Embed (token ids) and run every layer of ``params``: hidden [B,S,D]."""
   h = embed_tokens(params, cfg, x) if x.dim() == 2 else x.to(cfg.dtype)
   inv_freq = rope_inv_freq(cfg, device=h.device)
   kv_positions = torch.arange(kv_cache["k"].shape[2], dtype=torch.int32, device=h.device) if kv_cache is not None else None
   for i, lp in enumerate(layer_params(params)):
     kv = None if kv_cache is None else {key: val[i] for key, val in kv_cache.items()}
-    h = _layer_step(h, lp, kv, positions, kv_positions, inv_freq, cfg)
+    h = _layer_step(h, lp, kv, positions, kv_positions, inv_freq, cfg, adapter_ids)
   return h
 
 
@@ -506,6 +535,7 @@ def shard_forward(
   positions: torch.Tensor,  # [B,S] int32 absolute positions
   kv_cache: Params | None = None,
   head_pos: torch.Tensor | None = None,  # [B] per-row S-axis index for the head
+  adapter_ids: torch.Tensor | None = None,  # [B] per-row adapter slot
 ) -> tuple[torch.Tensor, Params | None]:
   """Run the shard's layers. Returns (hidden | logits, cache).
 
@@ -513,9 +543,10 @@ def shard_forward(
   their absolute position. Without: causal attention within the call, the
   sequence starting at position 0 (K1 on the card). ``head_pos`` (last
   shard only) gathers one row per batch entry before the LM head, returning
-  logits [B, 1, V].
+  logits [B, 1, V]. ``adapter_ids`` applies each row's adapter
+  (``_dense_qkv``); None is the base model.
   """
-  h = _forward_layers(params, cfg, x, positions, kv_cache)
+  h = _forward_layers(params, cfg, x, positions, kv_cache, adapter_ids)
   if not shard.is_last_layer:
     return h, kv_cache
   if head_pos is not None:
@@ -593,18 +624,30 @@ def routing_knobs() -> tuple:
 _SOLO_STATIC = ("cfg", "shard", "n_steps", "max_steps", "top_k", "greedy", "eos_ids")
 
 
-def _solo_sig(params, cfg, shard, token, cache, start_pos, temp, **static) -> dict:
+def _solo_sig(params, cfg, shard, token, cache, start_pos, temp, adapter_ids=None, **static) -> dict:
   """The ledger signature of a solo decode program: the reference's
   arguments (token [B,1] and start_pos [B] int32, temp a device f32
-  scalar), its static ones by value."""
+  scalar, and with an adapter its [B] int32 slots), its static ones by
+  value."""
   B, dev = cache["k"].shape[1], cache["k"].device
-  return dict(
+  sig = dict(
     params=params, cfg=cfg, shard=shard, token=_like(token, (B, 1), dev), cache=cache,
     start_pos=_like(start_pos, (B,), dev), temp=_Like(torch.float32, (), dev), **static,
   )
+  if adapter_ids is not None:
+    sig["adapter_ids"] = _like(adapter_ids, (B,), dev)
+  return sig
 
 
-def fused_decode(params, cfg: ModelConfig, shard: Shard, token, cache, start_pos, n_steps: int, temp: float = 0.0, top_k: int = 35, generator=None, programs=None):
+def _adapter_rows(adapter_ids, B: int, dev):
+  """``adapter_ids`` (None, an int slot for every row, or [B] slots) as an
+  int32 [B] device tensor, or None."""
+  if adapter_ids is None or isinstance(adapter_ids, torch.Tensor):
+    return adapter_ids
+  return torch.full((B,), int(adapter_ids), dtype=torch.int32, device=dev)
+
+
+def fused_decode(params, cfg: ModelConfig, shard: Shard, token, cache, start_pos, n_steps: int, temp: float = 0.0, top_k: int = 35, generator=None, programs=None, adapter_ids=None):
   """Generate ``n_steps`` tokens on the device with no host round trip.
 
   token [B,1] int32; start_pos [B] int32. Each step's token feeds the next
@@ -612,24 +655,26 @@ def fused_decode(params, cfg: ModelConfig, shard: Shard, token, cache, start_pos
   cache). One dispatch of the ``decode.fused`` family. With ``programs``
   (the ``SoloPrograms`` of ``cache``; token and start_pos may then be
   ints) each step is one replay of its captured decode step; without, the
-  steps run eagerly, op by op.
+  steps run eagerly, op by op. ``adapter_ids`` (an int slot or [B]) applies
+  each row's adapter (``_dense_qkv``).
   """
   _full_model(shard, "fused_decode")
   greedy = temp is None or float(temp) <= 0.0
   n_steps, top_k = int(n_steps), int(top_k)
-  sig = _solo_sig(params, cfg, shard, token, cache, start_pos, temp, n_steps=n_steps, top_k=top_k, greedy=greedy)
+  sig = _solo_sig(params, cfg, shard, token, cache, start_pos, temp, adapter_ids, n_steps=n_steps, top_k=top_k, greedy=greedy)
   if programs is not None:
-    run = lambda: programs.decode(token, start_pos, n_steps, temp, top_k, greedy)  # noqa: E731
+    run = lambda: programs.decode(token, start_pos, n_steps, temp, top_k, greedy, adapter_ids)  # noqa: E731
   else:
-    run = lambda: _decode_eager(params, cfg, shard, token, cache, start_pos, n_steps, temp, top_k, greedy, generator)  # noqa: E731
+    run = lambda: _decode_eager(params, cfg, shard, token, cache, start_pos, n_steps, temp, top_k, greedy, generator, adapter_ids)  # noqa: E731
   return ledger.dispatch("decode.fused", sig, _SOLO_STATIC, run), cache
 
 
-def _decode_eager(params, cfg, shard, token, cache, start_pos, n_steps, temp, top_k, greedy, generator):
+def _decode_eager(params, cfg, shard, token, cache, start_pos, n_steps, temp, top_k, greedy, generator, adapter_ids=None):
   pos = start_pos.to(torch.int32)
+  aid = _adapter_rows(adapter_ids, token.shape[0], token.device)
   out = []
   for _ in range(n_steps):
-    logits, cache = shard_forward(params, cfg, shard, token, pos[:, None], cache)
+    logits, cache = shard_forward(params, cfg, shard, token, pos[:, None], cache, adapter_ids=aid)
     nxt = _next_token(logits[:, 0, :], generator, greedy, temp, top_k)
     out.append(nxt)
     token, pos = nxt[:, None], pos + 1
@@ -650,6 +695,7 @@ def fused_generate(
   generator=None,
   n_limit: int | None = None,
   programs=None,
+  adapter_ids=None,
 ):
   """Generate until every row has sampled an EOS id or ``n_limit`` steps
   (default ``max_steps``). Returns (tokens [B, max_steps] int32, steps run,
@@ -658,30 +704,31 @@ def fused_generate(
   All rows' EOS is read on the host every ``EOS_CHECK_EVERY`` steps. One
   dispatch of ``decode.fused_generate``; ``programs`` as in ``fused_decode``
   (``max_steps`` sizes the buffer and keys the program, ``n_limit`` caps
-  the steps, as in the reference).
+  the steps, as in the reference; ``adapter_ids`` as in ``fused_decode``).
   """
   _full_model(shard, "fused_generate")
   greedy = temp is None or float(temp) <= 0.0
   max_steps, top_k, eos_ids = int(max_steps), int(top_k), tuple(eos_ids)
   limit = min(int(max_steps if n_limit is None else n_limit), max_steps)
-  sig = _solo_sig(params, cfg, shard, token, cache, start_pos, temp, max_steps=max_steps, eos_ids=eos_ids, top_k=top_k, greedy=greedy, n_limit=limit)
+  sig = _solo_sig(params, cfg, shard, token, cache, start_pos, temp, adapter_ids, max_steps=max_steps, eos_ids=eos_ids, top_k=top_k, greedy=greedy, n_limit=limit)
   if programs is not None:
-    run = lambda: programs.generate(token, start_pos, max_steps, eos_ids, temp, top_k, greedy, limit)  # noqa: E731
+    run = lambda: programs.generate(token, start_pos, max_steps, eos_ids, temp, top_k, greedy, limit, adapter_ids)  # noqa: E731
   else:
-    run = lambda: _generate_eager(params, cfg, shard, token, cache, start_pos, max_steps, eos_ids, temp, top_k, greedy, generator, limit)  # noqa: E731
+    run = lambda: _generate_eager(params, cfg, shard, token, cache, start_pos, max_steps, eos_ids, temp, top_k, greedy, generator, limit, adapter_ids)  # noqa: E731
   buf, n = ledger.dispatch("decode.fused_generate", sig, _SOLO_STATIC, run)
   return buf, n, cache
 
 
-def _generate_eager(params, cfg, shard, token, cache, start_pos, max_steps, eos_ids, temp, top_k, greedy, generator, limit):
+def _generate_eager(params, cfg, shard, token, cache, start_pos, max_steps, eos_ids, temp, top_k, greedy, generator, limit, adapter_ids=None):
   B = token.shape[0]
+  aid = _adapter_rows(adapter_ids, B, token.device)
   buf = torch.zeros((B, max_steps), dtype=torch.int32, device=token.device)
   eos = torch.tensor(sorted(eos_ids), dtype=torch.int32, device=token.device) if eos_ids else None
   done = torch.zeros((B,), dtype=torch.bool, device=token.device)
   pos = start_pos.to(torch.int32)
   n = 0
   while n < limit:
-    logits, cache = shard_forward(params, cfg, shard, token, pos[:, None], cache)
+    logits, cache = shard_forward(params, cfg, shard, token, pos[:, None], cache, adapter_ids=aid)
     nxt = _next_token(logits[:, 0, :], generator, greedy, temp, top_k)
     buf[:, n] = nxt
     n += 1
@@ -710,10 +757,12 @@ class SoloPrograms:
     a chunk's tokens are gathered from there once its replays are queued.
 
   Inputs live in buffers filled in place (``tok``, ``pos``, ``temp``, the
-  bucket's tokens and ``head_pos``); outputs are copied into buffers
-  allocated outside the captures. A graph is keyed on what its body
-  depends on besides those buffers: the bucket or sampling variant and the
-  routing knobs (``routing_knobs``). The engine keeps one instance per
+  bucket's tokens and ``head_pos``, and ``aid``, each row's adapter slot);
+  outputs are copied into buffers allocated outside the captures. A graph
+  is keyed on what its body depends on besides those buffers: the bucket
+  or sampling variant, whether the adapter hook runs (a session with an
+  adapter, ``adapter_ids`` given: its slot is data, so one graph serves
+  every adapter), and the routing knobs (``routing_knobs``). The engine keeps one instance per
   pooled cache (inference/torch_engine.py), so a graph's addresses stay
   valid across requests; stale slots of a reused cache lie beyond every
   query's position and are masked as a fresh cache's zeros are. The
@@ -750,6 +799,7 @@ class SoloPrograms:
     self.tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
     self.pos = torch.zeros((B,), dtype=torch.int32, device=dev)
     self.temp = torch.ones((), dtype=torch.float32, device=dev)
+    self.aid = torch.zeros((B,), dtype=torch.int32, device=dev)  # each row's adapter slot
     self.hist = torch.zeros((B, S), dtype=torch.int32, device=dev)  # hist[b, p]: the token sampled at position p
     self.offsets = torch.arange(S, dtype=torch.int64, device=dev)
     self.logits = torch.zeros((B, 1, cfg.vocab_size), dtype=torch.float32, device=dev)
@@ -769,16 +819,32 @@ class SoloPrograms:
   def graphs(self) -> list[Graph]:
     return list(self._graphs.values())
 
+  def _adapter(self, adapter_ids) -> bool:
+    """Fill ``aid`` with ``adapter_ids`` (an int slot for every row, or
+    [B]); whether the hook runs (False for None)."""
+    if adapter_ids is None:
+      return False
+    if isinstance(adapter_ids, torch.Tensor):
+      self.aid.copy_(adapter_ids.reshape(self.aid.shape))
+    else:
+      self.aid.fill_(int(adapter_ids))
+    return True
+
+  def _sig(self, x_shape: tuple, scalar: str, adapter_ids) -> dict:
+    sig = {"params": self.params, "cfg": self.cfg, "shard": self.shard, "x": _Like(torch.int32, x_shape, self.device), "kv_cache": self.cache, scalar: _Like(torch.int32, (self.B,), self.device)}
+    if adapter_ids is not None:
+      sig["adapter_ids"] = _Like(torch.int32, (self.B,), self.device)
+    return sig
+
   # ------------------------------------------------------- shard_forward
 
-  def prefill(self, x: np.ndarray, prompt_len: int) -> torch.Tensor:
+  def prefill(self, x: np.ndarray, prompt_len: int, adapter_ids=None) -> torch.Tensor:
     """Logits [B, V] of token ``prompt_len - 1`` of ``x`` [B, S] (int, a
-    bucket's width, from position 0); the cache is written in place."""
-    B, S = x.shape
-    sig = dict(params=self.params, cfg=self.cfg, shard=self.shard, x=_Like(torch.int32, (B, S), self.device), kv_cache=self.cache, prompt_len=_Like(torch.int32, (B,), self.device))
-    return ledger.dispatch("decode.shard_forward", sig, ("cfg", "shard"), lambda: self._prefill(x, prompt_len))
+    bucket's width, from position 0); the cache is written in place.
+    ``adapter_ids``: an int slot for every row, or [B], or None."""
+    return ledger.dispatch("decode.shard_forward", self._sig(x.shape, "prompt_len", adapter_ids), ("cfg", "shard"), lambda: self._prefill(x, prompt_len, adapter_ids))
 
-  def _prefill(self, x, prompt_len):
+  def _prefill(self, x, prompt_len, adapter_ids=None):
     S = x.shape[1]
     bufs = self._buckets.get(S)
     if bufs is None:
@@ -788,43 +854,44 @@ class SoloPrograms:
         torch.arange(S, dtype=torch.int32, device=self.device).expand(self.B, S),
       )
     tokens, head_pos, positions = bufs
+    hook = self._adapter(adapter_ids)
 
     def body():
-      logits, _ = shard_forward(self.params, self.cfg, self.shard, tokens, positions, self.cache, head_pos=head_pos)
+      logits, _ = shard_forward(self.params, self.cfg, self.shard, tokens, positions, self.cache, head_pos=head_pos, adapter_ids=self.aid if hook else None)
       self.logits.copy_(logits)
 
     tokens.copy_(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)))
     head_pos.fill_(int(prompt_len) - 1)
-    self._graph(("prefill", S), "decode.shard_forward", body).run(self.device)
+    self._graph(("prefill", S, hook), "decode.shard_forward", body).run(self.device)
     return self.logits[:, 0, :].clone()
 
-  def forward(self, x: np.ndarray, pos: int) -> torch.Tensor:
+  def forward(self, x: np.ndarray, pos: int, adapter_ids=None) -> torch.Tensor:
     """Logits [B, V] of one token per row, ``x`` [B, 1] at position ``pos``."""
-    B = x.shape[0]
-    sig = dict(params=self.params, cfg=self.cfg, shard=self.shard, x=_Like(torch.int32, (B, 1), self.device), kv_cache=self.cache, pos=_Like(torch.int32, (B,), self.device))
-    return ledger.dispatch("decode.shard_forward", sig, ("cfg", "shard"), lambda: self._forward(x, pos))
+    return ledger.dispatch("decode.shard_forward", self._sig(x.shape, "pos", adapter_ids), ("cfg", "shard"), lambda: self._forward(x, pos, adapter_ids))
 
-  def _forward(self, x, pos):
+  def _forward(self, x, pos, adapter_ids=None):
+    hook = self._adapter(adapter_ids)
+
     def body():
-      logits, _ = shard_forward(self.params, self.cfg, self.shard, self.tok, self.pos[:, None], self.cache)
+      logits, _ = shard_forward(self.params, self.cfg, self.shard, self.tok, self.pos[:, None], self.cache, adapter_ids=self.aid if hook else None)
       self.logits.copy_(logits)
 
     self.tok.copy_(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)))
     self.pos.fill_(int(pos))
-    self._graph(("forward",), "decode.shard_forward", body).run(self.device)
+    self._graph(("forward", hook), "decode.shard_forward", body).run(self.device)
     return self.logits[:, 0, :].clone()
 
   # ------------------------------------------------------------ decoding
 
-  def _step(self, family: str, greedy: bool, top_k: int) -> Graph:
+  def _step(self, family: str, greedy: bool, top_k: int, hook: bool = False) -> Graph:
     def body():
-      logits, _ = shard_forward(self.params, self.cfg, self.shard, self.tok, self.pos[:, None], self.cache)
+      logits, _ = shard_forward(self.params, self.cfg, self.shard, self.tok, self.pos[:, None], self.cache, adapter_ids=self.aid if hook else None)
       nxt = _next_token(logits[:, 0, :], self.generator, greedy, self.temp, top_k)
       self.hist.scatter_(1, self.pos[:, None].long(), nxt[:, None])
       self.tok.copy_(nxt[:, None])
       self.pos.add_(1)
 
-    return self._graph(("step", greedy, 0 if greedy else top_k), family, body, generators=() if greedy else (self.generator,))
+    return self._graph(("step", greedy, 0 if greedy else top_k, hook), family, body, generators=() if greedy else (self.generator,))
 
   def _seed(self, token, start_pos, temp, greedy: bool) -> None:
     for buf, val in ((self.tok, token), (self.pos, start_pos)):
@@ -840,16 +907,16 @@ class SoloPrograms:
     idx = (self.pos[:, None] - n).long() + self.offsets[None, :n]
     return torch.gather(self.hist, 1, idx)
 
-  def decode(self, token, start_pos, n_steps: int, temp, top_k: int, greedy: bool) -> torch.Tensor:
+  def decode(self, token, start_pos, n_steps: int, temp, top_k: int, greedy: bool, adapter_ids=None) -> torch.Tensor:
     self._seed(token, start_pos, temp, greedy)
-    step = self._step("decode.fused", greedy, top_k)
+    step = self._step("decode.fused", greedy, top_k, self._adapter(adapter_ids))
     for _ in range(n_steps):
       step.run(self.device, "decode.fused")
     return self._since(n_steps)
 
-  def generate(self, token, start_pos, max_steps: int, eos_ids: tuple, temp, top_k: int, greedy: bool, limit: int):
+  def generate(self, token, start_pos, max_steps: int, eos_ids: tuple, temp, top_k: int, greedy: bool, limit: int, adapter_ids=None):
     self._seed(token, start_pos, temp, greedy)
-    step = self._step("decode.fused_generate", greedy, top_k)
+    step = self._step("decode.fused_generate", greedy, top_k, self._adapter(adapter_ids))
     eos = None
     if eos_ids:
       eos = self._eos.get(eos_ids)
@@ -1318,7 +1385,7 @@ def fused_speculative_chunk(params_t, cfg: ModelConfig, shard: Shard, params_d, 
 # quantized KV; the batched draft model keeps such a cache too.
 
 
-def _prefill_into_slots_impl(params, cfg: ModelConfig, shard: Shard, tokens, cache, rows, prompt_lens):
+def _prefill_into_slots_impl(params, cfg: ModelConfig, shard: Shard, tokens, cache, rows, prompt_lens, adapter_ids=None):
   _dense_full_model(params, shard, "prefill_into_slots")
   K, S = tokens.shape
   positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :].expand(K, S)
@@ -1327,7 +1394,7 @@ def _prefill_into_slots_impl(params, cfg: ModelConfig, shard: Shard, tokens, cac
   # of the K rows in place; slots past S keep what they held, as the
   # reference's gathered rows do, masked by position until overwritten.
   temp = {key: torch.zeros((val.shape[0], K, S, *val.shape[3:]), dtype=val.dtype, device=val.device) for key, val in cache.items()}
-  logits, temp = shard_forward(params, cfg, shard, tokens, positions, temp, head_pos=(prompt_lens - 1).long())
+  logits, temp = shard_forward(params, cfg, shard, tokens, positions, temp, head_pos=(prompt_lens - 1).long(), adapter_ids=adapter_ids)
   idx = rows.to(device=tokens.device, dtype=torch.int64)
   for key, val in cache.items():
     val.narrow(2, 0, S).index_copy_(1, idx, temp[key])
@@ -1335,7 +1402,7 @@ def _prefill_into_slots_impl(params, cfg: ModelConfig, shard: Shard, tokens, cac
 
 
 @tracked("prefill.slots", ("cfg", "shard"))
-def prefill_into_slots(params, cfg: ModelConfig, shard: Shard, tokens, cache, rows, prompt_lens):
+def prefill_into_slots(params, cfg: ModelConfig, shard: Shard, tokens, cache, rows, prompt_lens, adapter_ids=None):
   """Prefill K requests into K rows of the slot cache in one forward.
 
   tokens [K, S_pad] int32 (each row its own prompt from position 0,
@@ -1347,26 +1414,28 @@ def prefill_into_slots(params, cfg: ModelConfig, shard: Shard, tokens, cache, ro
   The reference's "not donated" rule holds: the forward runs on scratch
   slots and writes the K rows only after it returns, so a prefill that
   fails leaves the pooled cache as it was, and the other rows serve on. K1
-  on the card at Sq = Skv = S_pad (int8 codes included)."""
-  return _prefill_into_slots_impl(params, cfg, shard, tokens, cache, rows, prompt_lens)
+  on the card at Sq = Skv = S_pad (int8 codes included). ``adapter_ids``
+  [K] int32: each row's adapter slot (``_dense_qkv``), None the base
+  model."""
+  return _prefill_into_slots_impl(params, cfg, shard, tokens, cache, rows, prompt_lens, adapter_ids)
 
 
 @tracked("prefill.slots_sampled", ("cfg", "shard", "k_max"))
-def prefill_into_slots_sampled(params, cfg: ModelConfig, shard: Shard, tokens, cache, rows, prompt_lens, temps, top_ks, generator, k_max: int):
+def prefill_into_slots_sampled(params, cfg: ModelConfig, shard: Shard, tokens, cache, rows, prompt_lens, temps, top_ks, generator, k_max: int, adapter_ids=None):
   """``prefill_into_slots`` with the sampling epilogue: returns
   (first_tokens [K] int32, cache)."""
-  last, cache = prefill_into_slots(params, cfg, shard, tokens, cache, rows, prompt_lens)
+  last, cache = prefill_into_slots(params, cfg, shard, tokens, cache, rows, prompt_lens, adapter_ids)
   return _next_token_batched(last, generator, temps, top_ks, k_max), cache
 
 
-def _batch_decode_scan(params, cfg: ModelConfig, shard: Shard, token, cache, positions, active, temps, top_ks, n_steps: int, k_max: int, generator):
+def _batch_decode_scan(params, cfg: ModelConfig, shard: Shard, token, cache, positions, active, temps, top_ks, n_steps: int, k_max: int, generator, adapter_ids=None):
   """The dense chunk's loop: ``n_steps`` steps over every row of the slot
   cache, each step's token feeding the next on the device. Inactive rows
   hold their token and position (they rewrite their own held slot)."""
   tok, pos = token, positions
   out = []
   for _ in range(int(n_steps)):
-    logits, cache = shard_forward(params, cfg, shard, tok, pos[:, None], cache)
+    logits, cache = shard_forward(params, cfg, shard, tok, pos[:, None], cache, adapter_ids=adapter_ids)
     nxt = _next_token_batched(logits[:, 0, :], generator, temps, top_ks, k_max)
     nxt = torch.where(active, nxt, tok[:, 0])
     pos = torch.where(active, pos + 1, pos)
@@ -1384,7 +1453,7 @@ def _row_top_ks(top_k, B: int, dev) -> torch.Tensor:
 
 
 @tracked("decode.batch", ("cfg", "shard", "n_steps", "k_max"))
-def fused_batch_decode(params, cfg: ModelConfig, shard: Shard, token, cache, positions, active, temps, n_steps: int, top_k=35, k_max: int = 64, generator=None):
+def fused_batch_decode(params, cfg: ModelConfig, shard: Shard, token, cache, positions, active, temps, n_steps: int, top_k=35, k_max: int = 64, generator=None, adapter_ids=None):
   """One decode chunk over every row of the slot cache.
 
   token [B, 1] int32, positions [B] int32, active [B] bool, temps [B] f32
@@ -1393,7 +1462,8 @@ def fused_batch_decode(params, cfg: ModelConfig, shard: Shard, token, cache, pos
   reference's contract, ``next_token`` left on the device as the next
   chunk's input. K2 carries the attention on the card with
   ``XOT_TPU_FLASH_DECODE=1`` at a window of at least
-  ``XOT_TPU_FLASH_DECODE_MIN``, else the plain attention."""
+  ``XOT_TPU_FLASH_DECODE_MIN``, else the plain attention. ``adapter_ids``
+  [B] int32: each row's adapter slot, None the base model."""
   _dense_full_model(params, shard, "fused_batch_decode")
   dev = token.device
   if generator is None:
@@ -1401,7 +1471,7 @@ def fused_batch_decode(params, cfg: ModelConfig, shard: Shard, token, cache, pos
   B = token.shape[0]
   toks, nxt, pos = _batch_decode_scan(
     params, cfg, shard, token.to(torch.int32), cache, positions.to(device=dev, dtype=torch.int32), active.to(device=dev, dtype=torch.bool),
-    temps.to(device=dev, dtype=torch.float32), _row_top_ks(top_k, B, dev), int(n_steps), int(k_max), generator,
+    temps.to(device=dev, dtype=torch.float32), _row_top_ks(top_k, B, dev), int(n_steps), int(k_max), generator, _ids(adapter_ids, dev),
   )
   return toks, nxt, pos, cache
 
@@ -1411,7 +1481,7 @@ def fused_batch_decode(params, cfg: ModelConfig, shard: Shard, token, cache, pos
 # onto fixed-size pages of one shared pool through block tables [B, mp]. The
 # pool is updated IN PLACE. Rows without a request keep their table zeroed,
 # so their writes land in the reserved trash page 0. Dense and MoE layer
-# stacks (the port has no LoRA yet). gemma2 attends through the gather route
+# stacks, each row with its own adapter slot (``adapter_ids``). gemma2 attends through the gather route
 # (K3 has no softcap or window), as the reference's layer steps gate on
 # ``cfg.plain_attention``; MLA pages hold the latent and the rope channel
 # and decode through ``paged_mla_attention_ref``. MLA takes no mixed tick,
@@ -1439,6 +1509,11 @@ def paged_use_kernel(cfg: ModelConfig, batch: int, context: int, pool: Params, d
   return paged_kernel_supported(cfg) and select_decode_path(batch, context, pool_kv_quant(pool, cfg), device=device) != "gather"
 
 
+def _ids(adapter_ids, dev):
+  """Per-row adapter slots as int32 on ``dev`` (None passes through)."""
+  return None if adapter_ids is None else adapter_ids.to(device=dev, dtype=torch.int32)
+
+
 def _dense_full_model(params: Params, shard: Shard, what: str) -> None:
   _full_model(shard, what)
   extra = set(params) - _DENSE_TOP_KEYS
@@ -1447,7 +1522,7 @@ def _dense_full_model(params: Params, shard: Shard, what: str) -> None:
 
 
 @tracked("prefill.pages_many", ("cfg", "shard", "page_size"))
-def prefill_into_pages_many(params, cfg: ModelConfig, shard: Shard, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size: int):
+def prefill_into_pages_many(params, cfg: ModelConfig, shard: Shard, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size: int, adapter_ids=None):
   """Prefill K requests into the page pool in one forward.
 
   tokens [K, S_pad] int32 — each row's prompt SUFFIX from its own
@@ -1456,14 +1531,15 @@ def prefill_into_pages_many(params, cfg: ModelConfig, shard: Shard, tokens, pool
   <= mp·page_size``. The rows' page windows are gathered, run through
   ``shard_forward`` (K1 with per-row ``q_offset = prefix_lens`` on the card),
   and the touched pages scattered back. Returns (last-token logits [K, V],
-  pool updated in place)."""
+  pool updated in place). ``adapter_ids`` [K] int32: each row's adapter
+  slot, None the base model."""
   from ..ops.paged import gather_row_pages, scatter_row_pages, touched_page_targets
 
   _dense_full_model(params, shard, "prefill_into_pages_many")
   K, S = tokens.shape
   temp = {key: gather_row_pages(val, bt_rows) for key, val in pool.items()}
   positions = prefix_lens[:, None] + torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :]
-  logits, temp = shard_forward(params, cfg, shard, tokens, positions, temp, head_pos=(prompt_lens - prefix_lens - 1).long())
+  logits, temp = shard_forward(params, cfg, shard, tokens, positions, temp, head_pos=(prompt_lens - prefix_lens - 1).long(), adapter_ids=_ids(adapter_ids, tokens.device))
   target = touched_page_targets(bt_rows, prefix_lens, prompt_lens, page_size)
   for key in pool:
     scatter_row_pages(pool[key], temp[key], target)
@@ -1489,14 +1565,14 @@ def sample_rows(logits, generator, temps, top_ks, k_max: int):
 
 
 @tracked("prefill.pages_many_sampled", ("cfg", "shard", "page_size", "k_max"))
-def prefill_into_pages_many_sampled(params, cfg: ModelConfig, shard: Shard, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size: int, temps, top_ks, generator, k_max: int):
+def prefill_into_pages_many_sampled(params, cfg: ModelConfig, shard: Shard, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size: int, temps, top_ks, generator, k_max: int, adapter_ids=None):
   """``prefill_into_pages_many`` with the sampling epilogue: returns
   (first_tokens [K] int32, pool)."""
-  last, pool = prefill_into_pages_many(params, cfg, shard, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size)
+  last, pool = prefill_into_pages_many(params, cfg, shard, tokens, pool, bt_rows, prefix_lens, prompt_lens, page_size, adapter_ids)
   return _next_token_batched(last, generator, temps, top_ks, k_max), pool
 
 
-def _paged_layer_step(h, p, pool_l, block_tables, positions, inv_freq, cfg: ModelConfig, page_size: int, use_kernel: bool):
+def _paged_layer_step(h, p, pool_l, block_tables, positions, inv_freq, cfg: ModelConfig, page_size: int, use_kernel: bool, adapter_ids=None):
   """One decoder layer against the page pool — decode only (S == 1).
 
   ``pool_l`` is this layer's page dict: {"k", "v"} [P, Hkv, ps, kd]
@@ -1516,7 +1592,7 @@ def _paged_layer_step(h, p, pool_l, block_tables, positions, inv_freq, cfg: Mode
       q_nope, q_pe, pool_l["k"].to(h.dtype), pool_l["v"].to(h.dtype), block_tables, lengths, _mla_w_kv_b(p, h.dtype), cfg.v_head_dim, page_size,
     )
     return _mlp_block(h + _attn_out(attn, p, cfg), p, cfg)
-  q, k, v = _dense_qkv(x, p, cfg, positions, inv_freq)
+  q, k, v = _dense_qkv(x, p, cfg, positions, inv_freq, adapter_ids)
   scales = {}
   if "k_scale" in pool_l:  # int8/int4 KV pages (models/quantize.py)
     from .quantize import quantize_kv, quantize_kv_int4
@@ -1540,18 +1616,19 @@ def _paged_layer_step(h, p, pool_l, block_tables, positions, inv_freq, cfg: Mode
   return _mlp_block(h + _attn_out(attn, p, cfg), p, cfg)
 
 
-def paged_decode_forward(params, cfg: ModelConfig, shard: Shard, tokens, positions, pool, block_tables, page_size: int, use_kernel: bool):
+def paged_decode_forward(params, cfg: ModelConfig, shard: Shard, tokens, positions, pool, block_tables, page_size: int, use_kernel: bool, adapter_ids=None):
   """One decode step for all rows against the page pool: tokens [B, 1]
-  int32 → (logits [B, 1, V], pool updated in place)."""
+  int32 → (logits [B, 1, V], pool updated in place). ``adapter_ids`` [B]:
+  each row's adapter slot, None the base model."""
   h = embed_tokens(params, cfg, tokens)
   inv_freq = rope_inv_freq(cfg, device=h.device)
   for i, lp in enumerate(layer_params(params)):
     pool_l = {key: val[i] for key, val in pool.items()}
-    h = _paged_layer_step(h, lp, pool_l, block_tables, positions, inv_freq, cfg, page_size, use_kernel)
+    h = _paged_layer_step(h, lp, pool_l, block_tables, positions, inv_freq, cfg, page_size, use_kernel, adapter_ids)
   return head_logits(params, cfg, h), pool
 
 
-def _paged_decode_scan(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, use_kernel: bool, generator):
+def _paged_decode_scan(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, use_kernel: bool, generator, adapter_ids=None):
   """The chunked paged decode loop: ``n_steps`` steps, each step's token
   feeding the next on the device (no host sync)."""
   # Inactive rows would write into whatever page their table names; pin
@@ -1561,7 +1638,7 @@ def _paged_decode_scan(params, cfg: ModelConfig, shard: Shard, token, pool, bloc
   tok, pos = token, positions
   out = []
   for _ in range(int(n_steps)):
-    logits, pool = paged_decode_forward(params, cfg, shard, tok, pos[:, None], pool, bt, page_size, use_kernel)
+    logits, pool = paged_decode_forward(params, cfg, shard, tok, pos[:, None], pool, bt, page_size, use_kernel, adapter_ids)
     nxt = _next_token_batched(logits[:, 0, :], generator, temps, top_ks, k_max)
     nxt = torch.where(active, nxt, tok[:, 0])  # inactive rows hold their token
     pos = torch.where(active, pos + 1, pos)  # ...and their position
@@ -1571,7 +1648,7 @@ def _paged_decode_scan(params, cfg: ModelConfig, shard: Shard, token, pool, bloc
 
 
 @tracked("decode.paged_batch", ("cfg", "shard", "n_steps", "k_max", "page_size", "use_kernel"))
-def fused_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, temps, n_steps: int, top_k=35, k_max: int = 64, page_size: int = 64, use_kernel: bool | None = None, generator=None):
+def fused_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, temps, n_steps: int, top_k=35, k_max: int = 64, page_size: int = 64, use_kernel: bool | None = None, generator=None, adapter_ids=None):
   """One decode chunk over every row of the page pool.
 
   token [B, 1] int32 (each row's last token), block_tables [B, mp] int32
@@ -1581,7 +1658,8 @@ def fused_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token, pool
   Returns (tokens [B, n_steps], next_token [B, 1], positions [B], pool):
   ``next_token`` stays on the device and is the next chunk's input.
   Inactive rows do not advance. ``use_kernel=None`` resolves through
-  ``paged_use_kernel``."""
+  ``paged_use_kernel``. ``adapter_ids`` [B] int32: each row's adapter
+  slot, None the base model."""
   _dense_full_model(params, shard, "fused_paged_batch_decode")
   dev = token.device
   B = token.shape[0]
@@ -1592,7 +1670,7 @@ def fused_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token, pool
   top_ks = _row_top_ks(top_k, B, dev)
   return _paged_decode_scan(
     params, cfg, shard, token.to(torch.int32), pool, block_tables.to(torch.int32).contiguous(), positions.to(torch.int32), active.to(torch.bool),
-    temps.to(torch.float32), top_ks, int(n_steps), int(k_max), int(page_size), bool(use_kernel), generator,
+    temps.to(torch.float32), top_ks, int(n_steps), int(k_max), int(page_size), bool(use_kernel), generator, _ids(adapter_ids, dev),
   )
 
 
@@ -1606,7 +1684,7 @@ def fused_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token, pool
 # halves, so the decode half reads exactly what the plain program would.
 
 
-def _fused_mixed_paged_batch_decode_impl(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, temps, top_ks, pf_tokens, pf_bt, pf_prefix, pf_end, n_steps: int, k_max: int, page_size: int, use_kernel: bool, generator):
+def _fused_mixed_paged_batch_decode_impl(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, temps, top_ks, pf_tokens, pf_bt, pf_prefix, pf_end, n_steps: int, k_max: int, page_size: int, use_kernel: bool, generator, adapter_ids=None, pf_adapter=None):
   from ..ops.paged import gather_row_pages, scatter_row_pages, touched_page_targets
 
   # Prefill half: prefill_into_pages_many's gather → shard_forward (K1 on
@@ -1619,16 +1697,17 @@ def _fused_mixed_paged_batch_decode_impl(params, cfg: ModelConfig, shard: Shard,
   S = pf_tokens.shape[1]
   temp = {key: gather_row_pages(val, pf_bt) for key, val in pool.items()}
   ppos = pf_prefix[:, None] + torch.arange(S, dtype=torch.int32, device=pf_tokens.device)[None, :]
-  _, temp = shard_forward(params, cfg, shard, pf_tokens, ppos, temp, head_pos=(pf_end - pf_prefix - 1).long())
+  # The slice applies its own admission's adapter (``pf_adapter`` [1]).
+  _, temp = shard_forward(params, cfg, shard, pf_tokens, ppos, temp, head_pos=(pf_end - pf_prefix - 1).long(), adapter_ids=pf_adapter)
   target = touched_page_targets(pf_bt, pf_prefix, pf_end, page_size)
   for key in pool:
     scatter_row_pages(pool[key], temp[key], target)
   # Decode half: the plain chunk's loop, unchanged (K3 on the card).
-  return _paged_decode_scan(params, cfg, shard, token, pool, block_tables, positions, active, temps, top_ks, n_steps, k_max, page_size, use_kernel, generator)
+  return _paged_decode_scan(params, cfg, shard, token, pool, block_tables, positions, active, temps, top_ks, n_steps, k_max, page_size, use_kernel, generator, adapter_ids)
 
 
 @tracked("decode.mixed_paged_batch", ("cfg", "shard", "n_steps", "k_max", "page_size", "use_kernel"))
-def fused_mixed_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, temps, pf_tokens, pf_bt, pf_prefix, pf_end, n_steps: int, top_k=35, k_max: int = 64, page_size: int = 64, use_kernel: bool | None = None, generator=None):
+def fused_mixed_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, temps, pf_tokens, pf_bt, pf_prefix, pf_end, n_steps: int, top_k=35, k_max: int = 64, page_size: int = 64, use_kernel: bool | None = None, generator=None, adapter_ids=None, pf_adapter=None):
   """``fused_paged_batch_decode`` with one admission's prefill slice fused in.
 
   Decode operands as in ``fused_paged_batch_decode``; the slice is
@@ -1641,7 +1720,8 @@ def fused_mixed_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token
   place): the slice emits nothing, its pages advance. A partial shard,
   an MLA model (as in the reference) and any parameter set but the
   decoder's are refused. ``use_kernel=None`` resolves as in
-  ``fused_paged_batch_decode``."""
+  ``fused_paged_batch_decode``. ``adapter_ids`` [B] are the decode rows'
+  adapter slots, ``pf_adapter`` [1] the slice's own."""
   _dense_full_model(params, shard, "fused_mixed_paged_batch_decode")
   _no_mla(cfg, "fused_mixed_paged_batch_decode")
   dev = token.device
@@ -1654,7 +1734,7 @@ def fused_mixed_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token
   return _fused_mixed_paged_batch_decode_impl(
     params, cfg, shard, token.to(torch.int32), pool, block_tables.to(torch.int32).contiguous(), positions.to(torch.int32), active.to(torch.bool),
     temps.to(torch.float32), top_ks, pf_tokens.to(torch.int32), pf_bt.to(torch.int32), pf_prefix.to(torch.int32), pf_end.to(torch.int32),
-    int(n_steps), int(k_max), int(page_size), bool(use_kernel), generator,
+    int(n_steps), int(k_max), int(page_size), bool(use_kernel), generator, _ids(adapter_ids, dev), _ids(pf_adapter, dev),
   )
 
 
@@ -1676,10 +1756,12 @@ def fused_mixed_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, token
 # Greedy rows emit exactly the target's greedy tokens for ANY proposal;
 # sampled rows run at depth 0 and draw one sample per round from the
 # window's first position, with one draw of the generator per round, as the
-# plain chunk draws one per step.
+# plain chunk draws one per step. The target applies each row's adapter
+# (``adapter_ids``) and the draft stays the base model, as in the reference:
+# greedy rows emit the adapter-applied target's own greedy tokens.
 
 
-def _paged_window_layer_step(h, p, pool_l, block_tables, bt_window, positions, inv_freq, cfg: ModelConfig, page_size: int, use_kernel: bool):
+def _paged_window_layer_step(h, p, pool_l, block_tables, bt_window, positions, inv_freq, cfg: ModelConfig, page_size: int, use_kernel: bool, adapter_ids=None):
   """One decoder layer for a W-token verify window against the page pool.
 
   positions [B, W] are each row's own window positions. All W tokens' KV
@@ -1690,7 +1772,7 @@ def _paged_window_layer_step(h, p, pool_l, block_tables, bt_window, positions, i
   from ..ops.paged import paged_window_attention, paged_window_attention_ref, write_window_kv
 
   x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
-  q, k, v = _dense_qkv(x, p, cfg, positions, inv_freq)
+  q, k, v = _dense_qkv(x, p, cfg, positions, inv_freq, adapter_ids)
   scales = {}
   if "k_scale" in pool_l:  # int8/int4 KV pages: per-(token, head) scales, as one-token writes make
     from .quantize import quantize_kv, quantize_kv_int4
@@ -1712,11 +1794,12 @@ def _paged_window_layer_step(h, p, pool_l, block_tables, bt_window, positions, i
   return _mlp_block(h + _attn_out(attn, p, cfg), p, cfg)
 
 
-def paged_window_forward(params, cfg: ModelConfig, shard: Shard, tokens, positions, pool, block_tables, page_size: int, use_kernel: bool, bt_window=None):
+def paged_window_forward(params, cfg: ModelConfig, shard: Shard, tokens, positions, pool, block_tables, page_size: int, use_kernel: bool, bt_window=None, adapter_ids=None):
   """W-token forward for every row against the page pool, the batched
   verify pass: tokens/positions [B, W] → (logits [B, W, V], pool updated in
   place). ``bt_window`` is ``window_block_tables(block_tables, W)``, made
-  here when the caller has not made it once for the chunk."""
+  here when the caller has not made it once for the chunk; ``adapter_ids``
+  [B] each row's adapter slot."""
   from ..ops.paged import window_block_tables
 
   _no_mla(cfg, "paged_window_forward")
@@ -1726,7 +1809,7 @@ def paged_window_forward(params, cfg: ModelConfig, shard: Shard, tokens, positio
   inv_freq = rope_inv_freq(cfg, device=h.device)
   for i, lp in enumerate(layer_params(params)):
     pool_l = {key: val[i] for key, val in pool.items()}
-    h = _paged_window_layer_step(h, lp, pool_l, block_tables, bt_window, positions, inv_freq, cfg, page_size, use_kernel)
+    h = _paged_window_layer_step(h, lp, pool_l, block_tables, bt_window, positions, inv_freq, cfg, page_size, use_kernel, adapter_ids)
   return head_logits(params, cfg, h), pool
 
 
@@ -1841,7 +1924,7 @@ def _draft_fns(params_d, cfg_d: ModelConfig, shard_d: Shard, cache_d, G: int):
   return propose, catch_up
 
 
-def _spec_chunk_args(what: str, params, shard: Shard, params_d, shard_d, cache_d, adapter_ids, token, active, gammas, top_k, gamma_max: int, generator):
+def _spec_chunk_args(what: str, params, shard: Shard, params_d, shard_d, cache_d, token, active, gammas, top_k, gamma_max: int, generator):
   """The spec chunks' refusals and per-row operands: (generator, top_ks [B],
   active [B] bool, gammas [B] clamped to ``gamma_max``). A draft
   (``params_d``) needs its slot cache and a full-model shard."""
@@ -1849,8 +1932,6 @@ def _spec_chunk_args(what: str, params, shard: Shard, params_d, shard_d, cache_d
     if cache_d is None:
       raise ValueError(f"{what}: a draft model (params_d) needs its slot cache (cache_d)")
     _full_model(shard_d, what)
-  if adapter_ids is not None:
-    raise NotImplementedError(f"{what}: per-row adapters are not ported")
   _dense_full_model(params, shard, what)
   dev = token.device
   if generator is None:
@@ -1879,11 +1960,12 @@ def fused_spec_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, params
   ``params_d`` (with ``cfg_d`` / ``shard_d``) is the model proposer: the
   draft proposes from its own slot cache ``cache_d`` [L_d, B, max_seq,
   ...], written in place (``_spec_batch_rounds``); None is the draft-free
-  chunk (``cache_d`` passes through). ``adapter_ids`` must be None (no
-  LoRA yet). An MLA model is refused, as in the reference (its paged
-  server runs no batched speculation)."""
+  chunk (``cache_d`` passes through). ``adapter_ids`` [B] applies each
+  row's adapter in the target's verify windows (the draft stays the base
+  model). An MLA model is refused, as in the reference (its paged server
+  runs no batched speculation)."""
   _no_mla(cfg, "fused_spec_paged_batch_decode")
-  generator, top_ks, active, gammas = _spec_chunk_args("fused_spec_paged_batch_decode", params, shard, params_d, shard_d, cache_d, adapter_ids, token, active, gammas, top_k, gamma_max, generator)
+  generator, top_ks, active, gammas = _spec_chunk_args("fused_spec_paged_batch_decode", params, shard, params_d, shard_d, cache_d, token, active, gammas, top_k, gamma_max, generator)
   dev = token.device
   if use_kernel is None:
     use_kernel = paged_use_kernel(cfg, token.shape[0], block_tables.shape[1] * int(page_size), pool, dev)
@@ -1892,12 +1974,12 @@ def fused_spec_paged_batch_decode(params, cfg: ModelConfig, shard: Shard, params
   draft = _draft_fns(params_d, cfg_d, shard_d, cache_d, G) if params_d is not None else None
   buf, counts, n_prop, next_tok, next_pos = _spec_paged_rounds(
     params, cfg, shard, token.to(torch.int32), pool, block_tables.to(device=dev, dtype=torch.int32), positions.to(device=dev, dtype=torch.int32), active, gammas,
-    temps.to(device=dev, dtype=torch.float32), top_ks, int(n_rounds), G, int(k_max), int(page_size), bool(use_kernel), generator, props, prop_counts, draft,
+    temps.to(device=dev, dtype=torch.float32), top_ks, int(n_rounds), G, int(k_max), int(page_size), bool(use_kernel), generator, props, prop_counts, draft, _ids(adapter_ids, dev),
   )
   return buf, counts, n_prop, next_tok, next_pos, pool, cache_d
 
 
-def _spec_paged_rounds(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, gammas, temps, top_ks, n_rounds: int, G: int, k_max: int, page_size: int, use_kernel: bool, generator, props, prop_counts, draft=None):
+def _spec_paged_rounds(params, cfg: ModelConfig, shard: Shard, token, pool, block_tables, positions, active, gammas, temps, top_ks, n_rounds: int, G: int, k_max: int, page_size: int, use_kernel: bool, generator, props, prop_counts, draft=None, adapter_ids=None):
   """The body of ``fused_spec_paged_batch_decode`` on operands already of
   their device and dtype: the verify window through the page pool, the
   rounds of ``_spec_batch_rounds``."""
@@ -1909,19 +1991,19 @@ def _spec_paged_rounds(params, cfg: ModelConfig, shard: Shard, token, pool, bloc
   bt_window = window_block_tables(bt, G + 1) if use_kernel else None
 
   def verify(window, wpos):
-    logits, _ = paged_window_forward(params, cfg, shard, window, wpos, pool, bt, page_size, use_kernel, bt_window)
+    logits, _ = paged_window_forward(params, cfg, shard, window, wpos, pool, bt, page_size, use_kernel, bt_window, adapter_ids)
     return logits
 
   return _spec_batch_rounds(verify, token, positions, active, gammas, temps, top_ks, n_rounds, G, k_max, generator, props, prop_counts, draft)
 
 
-def _spec_dense_rounds(params, cfg: ModelConfig, shard: Shard, token, cache, positions, active, gammas, temps, top_ks, n_rounds: int, G: int, k_max: int, generator, props, prop_counts, draft=None):
+def _spec_dense_rounds(params, cfg: ModelConfig, shard: Shard, token, cache, positions, active, gammas, temps, top_ks, n_rounds: int, G: int, k_max: int, generator, props, prop_counts, draft=None, adapter_ids=None):
   """The body of ``fused_spec_batch_decode``: the verify window run by
   ``shard_forward`` on the slot cache (K1 at Sq = G+1 over B rows of their
   own offsets on the card)."""
 
   def verify(window, wpos):
-    logits, _ = shard_forward(params, cfg, shard, window, wpos, cache)
+    logits, _ = shard_forward(params, cfg, shard, window, wpos, cache, adapter_ids=adapter_ids)
     return logits
 
   return _spec_batch_rounds(verify, token, positions, active, gammas, temps, top_ks, n_rounds, G, k_max, generator, props, prop_counts, draft)
@@ -1945,25 +2027,26 @@ def fused_spec_batch_decode(params, cfg: ModelConfig, shard: Shard, params_d, cf
   batched server's captured chunk is ``BatchedPrograms.spec``).
 
   ``params_d`` / ``cache_d`` are the model proposer, as in
-  ``fused_spec_paged_batch_decode``; ``adapter_ids`` must be None. MLA
+  ``fused_spec_paged_batch_decode``, and so is ``adapter_ids``. MLA
   models verify through the dense latent cache, as in the reference."""
   sig = dict(
     params=params, cfg=cfg, shard=shard, params_d=params_d, cfg_d=cfg_d, shard_d=shard_d, token=token, cache=cache, cache_d=cache_d, positions=positions,
     active=active, gammas=gammas, temps=temps, n_rounds=int(n_rounds), gamma_max=int(gamma_max), top_k=top_k, k_max=int(k_max), generator=generator,
     props=props, prop_counts=prop_counts, adapter_ids=adapter_ids,
   )
-  generator, top_ks, active, gammas = _spec_chunk_args("fused_spec_batch_decode", params, shard, params_d, shard_d, cache_d, adapter_ids, token, active, gammas, top_k, gamma_max, generator)
+  generator, top_ks, active, gammas = _spec_chunk_args("fused_spec_batch_decode", params, shard, params_d, shard_d, cache_d, token, active, gammas, top_k, gamma_max, generator)
   dev = token.device
   G = int(gamma_max)
   props, prop_counts = _spec_props_args(props, prop_counts, token.shape[0], int(n_rounds), G, dev)
   token, positions, temps = token.to(torch.int32), positions.to(device=dev, dtype=torch.int32), temps.to(device=dev, dtype=torch.float32)
   if programs is not None:
-    if programs.cache is not cache or sig["generator"] is not None or params_d is not None:
-      raise ValueError("programs= must be the cache's SoloPrograms, with no generator and no draft")
+    if programs.cache is not cache or sig["generator"] is not None or params_d is not None or adapter_ids is not None:
+      raise ValueError("programs= must be the cache's SoloPrograms, with no generator, no draft and no adapters")
     run = lambda: programs.spec_batch(token, positions, active, gammas, temps, top_ks, int(n_rounds), G, int(k_max), props, prop_counts)  # noqa: E731
   else:
     draft = _draft_fns(params_d, cfg_d, shard_d, cache_d, G) if params_d is not None else None
-    run = lambda: _spec_dense_rounds(params, cfg, shard, token, cache, positions, active, gammas, temps, top_ks, int(n_rounds), G, int(k_max), generator, props, prop_counts, draft)  # noqa: E731
+    aid = _ids(adapter_ids, dev)
+    run = lambda: _spec_dense_rounds(params, cfg, shard, token, cache, positions, active, gammas, temps, top_ks, int(n_rounds), G, int(k_max), generator, props, prop_counts, draft, aid)  # noqa: E731
 
   buf, counts, n_prop, next_tok, next_pos = ledger.dispatch("spec.batch", sig, _SPEC_BATCH_STATIC, run)
   return buf, counts, n_prop, next_tok, next_pos, cache, cache_d
@@ -2005,6 +2088,14 @@ class BatchedPrograms:
 
   The draft (``set_draft``: its params, config, shard and slot cache) is
   fixed for the instance's life, as the pool is: its graphs hold both.
+
+  With ``adapter_ids`` ([rows] int32: each row's slot in the stacked
+  adapter leaves; the mixed slice's own ``pf_adapter`` [1]) a family runs
+  the adapter hook (``_dense_qkv``): the slots are one more filled buffer,
+  so the adapter mix changes no graph, and only whether the hook runs
+  keys one. The stacked leaves are written in place at their fixed
+  addresses by the engine (``_install_adapter_slot``), so a replay reads
+  the adapters installed when it runs.
 
   A graph is built at the first dispatch of a signature the ledger records
   as a build, so captures equal builds per family for one instance; it is
@@ -2091,12 +2182,18 @@ class BatchedPrograms:
       self._fill("active", active, torch.bool, (B,)), self._fill("temps", temps, torch.float32, (B,)), self._fill("top_ks", top_ks, torch.int32, (B,)),
     )
 
-  def _rows_sig(self, token, block_tables, positions, active, temps, top_ks) -> dict:
+  def _adapter(self, name: str, adapter_ids, rows: int):
+    """The filled adapter-slot buffer of ``adapter_ids``, or None."""
+    return None if adapter_ids is None else self._fill(name, adapter_ids, torch.int32, (rows,))
+
+  def _rows_sig(self, token, block_tables, positions, active, temps, top_ks, adapter_ids=None) -> dict:
     B, dev = positions.shape[0], self.device
     sig = dict(
       params=self.params, cfg=self.cfg, shard=self.shard, token=_Like(torch.int32, (B, 1), dev),
       positions=_Like(torch.int32, (B,), dev), active=_Like(torch.bool, (B,), dev), temps=_Like(torch.float32, (B,), dev), top_k=_Like(torch.int32, (B,), dev), generator=self.generator,
     )
+    if adapter_ids is not None:
+      sig["adapter_ids"] = _Like(torch.int32, (B,), dev)
     if self.dense:
       sig["cache"] = self.pool
     else:
@@ -2105,7 +2202,7 @@ class BatchedPrograms:
 
   # ------------------------------------------------------------ families
 
-  def prefill(self, tokens, bt_rows, prefix_lens, prompt_lens, page_size: int, temps, top_ks, k_max: int, key: int) -> torch.Tensor:
+  def prefill(self, tokens, bt_rows, prefix_lens, prompt_lens, page_size: int, temps, top_ks, k_max: int, key: int, adapter_ids=None) -> torch.Tensor:
     """``prefill_into_pages_many_sampled``'s contract: the first tokens
     [K] int32 (a fresh tensor); the pool is written in place."""
     K, S = tokens.shape
@@ -2115,24 +2212,27 @@ class BatchedPrograms:
       params=self.params, cfg=self.cfg, shard=self.shard, tokens=_Like(torch.int32, (K, S), dev), pool=self.pool, bt_rows=_Like(torch.int32, (K, mp), dev),
       prefix_lens=vec, prompt_lens=vec, page_size=page_size, temps=_Like(torch.float32, (K,), dev), top_ks=vec, generator=self.generator, k_max=k_max,
     )
+    if adapter_ids is not None:
+      sig["adapter_ids"] = vec
 
     def run():
       tok = self._fill("pf.tokens", tokens, torch.int32)
       bt = self._fill("pf.bt", bt_rows, torch.int32)
       pre, end = self._fill("pf.prefix", prefix_lens, torch.int32, (K,)), self._fill("pf.prompt", prompt_lens, torch.int32, (K,))
       tmp, tks = self._fill("pf.temps", temps, torch.float32, (K,)), self._fill("pf.top_ks", top_ks, torch.int32, (K,))
+      aid = self._adapter("pf.adapters", adapter_ids, K)
 
       def body(out):
-        last, _ = prefill_into_pages_many(self.params, self.cfg, self.shard, tok, self.pool, bt, pre, end, page_size)
+        last, _ = prefill_into_pages_many(self.params, self.cfg, self.shard, tok, self.pool, bt, pre, end, page_size, aid)
         out["first"].copy_(_next_token_batched(last, self.generator, tmp, tks, k_max))
 
-      graph, out = self._program("prefill.pages_many_sampled", (K, S, mp, k_max, page_size), {"first": ((K,), torch.int32)}, body)
+      graph, out = self._program("prefill.pages_many_sampled", (K, S, mp, k_max, page_size, aid is not None), {"first": ((K,), torch.int32)}, body)
       graph.run(dev, seed=key)
       return out["first"].clone()
 
     return ledger.dispatch("prefill.pages_many_sampled", sig, ("cfg", "shard", "page_size", "k_max"), run)
 
-  def prefill_slots(self, tokens, rows, prompt_lens, temps, top_ks, k_max: int, key: int) -> torch.Tensor:
+  def prefill_slots(self, tokens, rows, prompt_lens, temps, top_ks, k_max: int, key: int, adapter_ids=None) -> torch.Tensor:
     """``prefill_into_slots_sampled``'s contract on the slot cache: the
     first tokens [K] int32 (a fresh tensor); the K rows are written in
     place."""
@@ -2143,17 +2243,20 @@ class BatchedPrograms:
       params=self.params, cfg=self.cfg, shard=self.shard, tokens=_Like(torch.int32, (K, S), dev), cache=self.pool, rows=vec, prompt_lens=vec,
       temps=_Like(torch.float32, (K,), dev), top_ks=vec, generator=self.generator, k_max=k_max,
     )
+    if adapter_ids is not None:
+      sig["adapter_ids"] = vec
 
     def run():
       tok = self._fill("ps.tokens", tokens, torch.int32)
       rws, lens = self._fill("ps.rows", rows, torch.int32, (K,)), self._fill("ps.prompt", prompt_lens, torch.int32, (K,))
       tmp, tks = self._fill("ps.temps", temps, torch.float32, (K,)), self._fill("ps.top_ks", top_ks, torch.int32, (K,))
+      aid = self._adapter("ps.adapters", adapter_ids, K)
 
       def body(out):
-        last, _ = prefill_into_slots(self.params, self.cfg, self.shard, tok, self.pool, rws, lens)
+        last, _ = prefill_into_slots(self.params, self.cfg, self.shard, tok, self.pool, rws, lens, aid)
         out["first"].copy_(_next_token_batched(last, self.generator, tmp, tks, k_max))
 
-      graph, out = self._program("prefill.slots_sampled", (K, S, k_max), {"first": ((K,), torch.int32)}, body)
+      graph, out = self._program("prefill.slots_sampled", (K, S, k_max, aid is not None), {"first": ((K,), torch.int32)}, body)
       graph.run(dev, seed=key)
       return out["first"].clone()
 
@@ -2180,28 +2283,30 @@ class BatchedPrograms:
 
     ledger.dispatch("prefill.slots", sig, ("cfg", "shard"), run)
 
-  def decode(self, token, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, key: int) -> tuple:
+  def decode(self, token, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, key: int, adapter_ids=None) -> tuple:
     """``fused_paged_batch_decode``'s contract: (tokens [B, n_steps],
     next_token [B, 1], positions [B]), the graph's output buffers."""
-    return self._chunk("decode.paged_batch", (token, block_tables, positions, active, temps, top_ks), n_steps, k_max, page_size, key)
+    return self._chunk("decode.paged_batch", (token, block_tables, positions, active, temps, top_ks), n_steps, k_max, page_size, key, adapter_ids=adapter_ids)
 
-  def batch_decode(self, token, positions, active, temps, top_ks, n_steps: int, k_max: int, key: int) -> tuple:
+  def batch_decode(self, token, positions, active, temps, top_ks, n_steps: int, k_max: int, key: int, adapter_ids=None) -> tuple:
     """``fused_batch_decode``'s contract on the slot cache, as ``decode``."""
-    return self._chunk("decode.batch", (token, None, positions, active, temps, top_ks), n_steps, k_max, 0, key)
+    return self._chunk("decode.batch", (token, None, positions, active, temps, top_ks), n_steps, k_max, 0, key, adapter_ids=adapter_ids)
 
-  def mixed(self, token, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, key: int, pf_tokens, pf_bt, pf_prefix, pf_end) -> tuple:
+  def mixed(self, token, block_tables, positions, active, temps, top_ks, n_steps: int, k_max: int, page_size: int, key: int, pf_tokens, pf_bt, pf_prefix, pf_end, adapter_ids=None, pf_adapter=None) -> tuple:
     """``fused_mixed_paged_batch_decode``'s contract, as ``decode``."""
     _no_mla(self.cfg, "fused_mixed_paged_batch_decode")
-    return self._chunk("decode.mixed_paged_batch", (token, block_tables, positions, active, temps, top_ks), n_steps, k_max, page_size, key, (pf_tokens, pf_bt, pf_prefix, pf_end))
+    return self._chunk("decode.mixed_paged_batch", (token, block_tables, positions, active, temps, top_ks), n_steps, k_max, page_size, key, (pf_tokens, pf_bt, pf_prefix, pf_end), adapter_ids, pf_adapter)
 
-  def _chunk(self, family: str, rows: tuple, n_steps: int, k_max: int, page_size: int, key: int, pf: tuple | None = None) -> tuple:
+  def _chunk(self, family: str, rows: tuple, n_steps: int, k_max: int, page_size: int, key: int, pf: tuple | None = None, adapter_ids=None, pf_adapter=None) -> tuple:
     """A plain chunk (paged, or on the slot cache), or with ``pf`` (the
     slice's tokens [1, pad], table [1, mp], prefix and end [1]) a mixed
     one."""
     B = rows[2].shape[0]
     mp = 0 if self.dense else rows[1].shape[1]
     n_steps, k_max, page_size, dev = int(n_steps), int(k_max), int(page_size), self.device
-    sig = dict(self._rows_sig(*rows), n_steps=n_steps, k_max=k_max)
+    sig = dict(self._rows_sig(*rows, adapter_ids), n_steps=n_steps, k_max=k_max)
+    if pf_adapter is not None:
+      sig["pf_adapter"] = _Like(torch.int32, (1,), dev)
     static = ("cfg", "shard", "n_steps", "k_max")
     if not self.dense:
       sig.update(page_size=page_size)
@@ -2215,28 +2320,29 @@ class BatchedPrograms:
     def run():
       use_kernel = False if self.dense else self._use_kernel(B, mp, page_size)
       tok, bt, pos, act, tmp, tks = self._rows(*rows)
+      aid, pf_aid = self._adapter("adapters", adapter_ids, B), self._adapter("mx.adapter", pf_adapter, 1)
       if pf is not None:
         pf_bufs = tuple(self._fill(f"mx.{name}", x, torch.int32, shape) for name, x, shape in zip(("tokens", "bt", "prefix", "end"), pf, ((1, slice_key[0]), (1, slice_key[1]), (1,), (1,))))
 
       def body(out):
         if self.dense:
-          toks, nxt, npos = _batch_decode_scan(self.params, self.cfg, self.shard, tok, self.pool, pos, act, tmp, tks, n_steps, k_max, self.generator)
+          toks, nxt, npos = _batch_decode_scan(self.params, self.cfg, self.shard, tok, self.pool, pos, act, tmp, tks, n_steps, k_max, self.generator, aid)
         else:
           common = (self.params, self.cfg, self.shard, tok, self.pool, bt, pos, act, tmp, tks)
-          tail = (n_steps, k_max, page_size, use_kernel, self.generator)
-          toks, nxt, npos, _ = _paged_decode_scan(*common, *tail) if pf is None else _fused_mixed_paged_batch_decode_impl(*common, *pf_bufs, *tail)
+          tail = (n_steps, k_max, page_size, use_kernel, self.generator, aid)
+          toks, nxt, npos, _ = _paged_decode_scan(*common, *tail) if pf is None else _fused_mixed_paged_batch_decode_impl(*common, *pf_bufs, *tail, pf_aid)
         out["tokens"].copy_(toks)
         out["next_token"].copy_(nxt)
         out["positions"].copy_(npos)
 
       outs = {"tokens": ((B, n_steps), torch.int32), "next_token": ((B, 1), torch.int32), "positions": ((B,), torch.int32)}
-      graph, out = self._program(family, (B, mp, n_steps, k_max, page_size, use_kernel, *slice_key), outs, body)
+      graph, out = self._program(family, (B, mp, n_steps, k_max, page_size, use_kernel, *slice_key, aid is not None, pf_aid is not None), outs, body)
       graph.run(dev, seed=key)
       return out["tokens"], out["next_token"], out["positions"]
 
     return ledger.dispatch(family, sig, static, run)
 
-  def spec(self, token, block_tables, positions, active, gammas, temps, top_ks, n_rounds: int, gamma_max: int, k_max: int, page_size: int, key: int, props=None, prop_counts=None, use_draft: bool = False) -> tuple:
+  def spec(self, token, block_tables, positions, active, gammas, temps, top_ks, n_rounds: int, gamma_max: int, k_max: int, page_size: int, key: int, props=None, prop_counts=None, use_draft: bool = False, adapter_ids=None) -> tuple:
     """``fused_spec_paged_batch_decode``'s contract (``fused_spec_batch_decode``'s
     on the slot cache, ``block_tables`` None) without the store and the
     draft cache: (tokens [B, n_rounds·(gamma_max+1)], counts [B], n_prop
@@ -2257,7 +2363,7 @@ class BatchedPrograms:
     sig = dict(
       self._rows_sig(token, block_tables, positions, active, temps, top_ks), params_d=params_d, cfg_d=cfg_d, shard_d=shard_d, cache_d=cache_d, gammas=vec,
       n_rounds=n_rounds, gamma_max=G, k_max=k_max, props=None if props is None else _Like(torch.int32, (B, width), dev),
-      prop_counts=None if prop_counts is None else vec, adapter_ids=None,
+      prop_counts=None if prop_counts is None else vec, adapter_ids=None if adapter_ids is None else vec,
     )
     static = ("cfg", "shard", "cfg_d", "shard_d", "n_rounds", "gamma_max", "k_max")
     if not self.dense:
@@ -2268,6 +2374,7 @@ class BatchedPrograms:
       use_kernel = False if self.dense else self._use_kernel(B, mp, page_size)
       tok, bt, pos, act, tmp, tks = self._rows(token, block_tables, positions, active, temps, top_ks)
       gam = self._fill("sp.gammas", gammas, torch.int32, (B,))
+      aid = self._adapter("adapters", adapter_ids, B)
       pbuf = cbuf = None
       if props is not None:
         pbuf, cbuf = self._fill("sp.props", props, torch.int32, (B, width)), self._fill("sp.prop_counts", prop_counts, torch.int32, (B,))
@@ -2277,15 +2384,15 @@ class BatchedPrograms:
         draft = _draft_fns(params_d, cfg_d, shard_d, cache_d, G) if use_draft else None
         g = torch.clamp(gam, max=G)
         if self.dense:
-          res = _spec_dense_rounds(self.params, self.cfg, self.shard, tok, self.pool, pos, act, g, tmp, tks, n_rounds, G, k_max, self.generator, p, c, draft)
+          res = _spec_dense_rounds(self.params, self.cfg, self.shard, tok, self.pool, pos, act, g, tmp, tks, n_rounds, G, k_max, self.generator, p, c, draft, aid)
         else:
-          res = _spec_paged_rounds(self.params, self.cfg, self.shard, tok, self.pool, bt, pos, act, g, tmp, tks, n_rounds, G, k_max, page_size, use_kernel, self.generator, p, c, draft)
+          res = _spec_paged_rounds(self.params, self.cfg, self.shard, tok, self.pool, bt, pos, act, g, tmp, tks, n_rounds, G, k_max, page_size, use_kernel, self.generator, p, c, draft, aid)
         for name, t in zip(("tokens", "counts", "n_prop", "next_token", "positions"), res):
           out[name].copy_(t)
 
       vecs = ((B,), torch.int32)
       outs = {"tokens": ((B, n_rounds * (G + 1)), torch.int32), "counts": vecs, "n_prop": vecs, "next_token": ((B, 1), torch.int32), "positions": vecs}
-      graph, out = self._program(family, (B, mp, n_rounds, G, k_max, page_size, use_kernel, width, bool(use_draft)), outs, body)
+      graph, out = self._program(family, (B, mp, n_rounds, G, k_max, page_size, use_kernel, width, bool(use_draft), aid is not None), outs, body)
       graph.run(dev, seed=key)
       return tuple(out[name] for name in ("tokens", "counts", "n_prop", "next_token", "positions"))
 

@@ -242,14 +242,15 @@ class Node:
 
   # ----------------------------------------------------- request options
 
-  def set_request_options(self, request_id: str, *, stream: bool | None = None, max_tokens: int | None = None, temperature: float | None = None, top_k: int | None = None, priority: str | None = None, tenant: str | None = None, deadline_ms: float | None = None) -> None:
+  def set_request_options(self, request_id: str, *, stream: bool | None = None, max_tokens: int | None = None, temperature: float | None = None, top_k: int | None = None, priority: str | None = None, tenant: str | None = None, deadline_ms: float | None = None, adapter: str | None = None) -> None:
     """Per-request serving hints set by the API before ``process_prompt``:
     ``stream=False`` lets the decode loop generate the whole response in one
     device loop; ``priority``/``tenant``/``deadline_ms`` are the request's
-    QoS identity for the batched server; the rest override the node
+    QoS identity for the batched server; ``adapter`` names a registered
+    multi-LoRA adapter (solo and batched); the rest override the node
     defaults for this request."""
     opts = self.request_options.setdefault(request_id, {})
-    for k, v in (("stream", stream), ("max_tokens", max_tokens), ("temperature", temperature), ("top_k", top_k), ("priority", priority), ("tenant", tenant), ("deadline_ms", deadline_ms)):
+    for k, v in (("stream", stream), ("max_tokens", max_tokens), ("temperature", temperature), ("top_k", top_k), ("priority", priority), ("tenant", tenant), ("deadline_ms", deadline_ms), ("adapter", adapter)):
       if v is not None:
         opts[k] = v
 
@@ -345,6 +346,11 @@ class Node:
       return await self._batched_serve(base_shard, shard, prompt, request_id)
     self.outstanding_requests[request_id] = "processing"
     try:
+      adapter = self.request_options.get(request_id, {}).get("adapter")
+      if adapter and hasattr(self.inference_engine, "set_request_adapter"):
+        # The solo path applies the same per-row hook per session; an
+        # unknown name raises the client-error type before any device work.
+        self.inference_engine.set_request_adapter(request_id, adapter)
       output, state = await self.inference_engine.infer_prompt(request_id, shard, prompt, inference_state)
       await self.process_inference_result(base_shard, output, request_id, state, shard=shard)
     except BaseException:
@@ -580,7 +586,7 @@ class Node:
       opts = self.request_options.get(request_id, {})
       await engine.get_batched_server().submit(
         request_id, tokens, max_tokens=max_tokens, temp=temp, top_k=top_k, eos_ids=eos_ids, emit=emit,
-        priority=opts.get("priority", "standard"), tenant=opts.get("tenant", "default"), deadline_ms=opts.get("deadline_ms"),
+        priority=opts.get("priority", "standard"), tenant=opts.get("tenant", "default"), deadline_ms=opts.get("deadline_ms"), adapter=opts.get("adapter"),
       )
     finally:
       self._finish_request(request_id)
