@@ -447,6 +447,33 @@ Phases (any failure exits non-zero and prints no result):
    equal, K4 once per quantized product per forward: 7 a layer and the
    head). Phase 3 also holds K4 at gemma-2-9b's six weight shapes, T = 1.
    The MoE and MLA phases run before it: each removes its checkpoint.
+10. llava — a seeded random bf16 checkpoint at llava-hf/llava-1.5-7b-hf's
+   published shapes (``LLAVA_15``: the whole CLIP ViT-L/14-336 tower, of
+   which 23 layers run, the 1024 → 4096 → 4096 projector, and 8 of the
+   llama-2-7b decoder's 32 layers, ``LLAVA_LAYERS``; ~4.4 GB under the HF
+   llava key names, so the loader's vision map runs; removed after the
+   phase), served through the daemon with ``XOT_TPU_FLASH_DECODE=1``
+   (``XOT_TPU_FLASH_DECODE_MIN=4096``), the byte tokenizer's BOS / EOS 1 /
+   2 and a Pillow front end standing in for the HF processor
+   (``LlavaByteProcessor``: 336×336, CLIP's normalization, 576
+   placeholders of id 32000 an image). It prints what ``import PIL,
+   transformers`` gives here. A warm-up round, then, each counted alone:
+   one greedy streaming chat request with a PNG ``image_url`` (where
+   Pillow is missing: the 400 naming it, then the engine's device half on
+   seeded pixels), K1 exactly once per decoder layer (its embeddings
+   prefill), K2 in its decode, K3 never, one ``vision.encode`` and one
+   ``prefill.embeds`` dispatch, its ids equal to an uncaptured forward of
+   the same merged embeddings on the card (``llava_plain_tokens``); one
+   text-only streaming request (K1 once per layer, K2); nothing built or
+   captured after the warm-up. Then the tower's features and the served
+   prefill's logits against a plain f32 forward (``llava_plain_f32``)
+   within 5e-2 relative L2, the tower's time per image and its share of
+   the image request's TTFT; a batched wave of 16 text requests at the
+   defaults (K1 and K3; spec and mixed dispatches); then the two solo
+   requests again with ``XOT_TPU_QUANT=int4`` (K4 in them, the tower kept
+   in bf16). Phase 3 holds K1–K4 at llava-1.5-7b's shapes.
+   ``scripts/llava_phase.py`` runs it at all 32 layers and adds one
+   llava-1.6-vicuna-7b any-res request.
 
 The last two lines are the card as ``nvidia-smi`` reports it and
 ``{"ok": true, "device": {...}}``; the line before them is the kernels' JSON
@@ -671,6 +698,13 @@ def phase_kernels(torch):
   results["int4_matmul_moe"] = int4_kernel_rows(torch, gen, QWEN3_MOE_MATMULS, tokens=(1,), f32_row=False, model="Qwen3-30B-A3B")
   # DeepSeek-Coder-V2-Lite's products (the MLA phase's int4 path), solo decode (T = 1).
   results["int4_matmul_mla"] = int4_kernel_rows(torch, gen, DEEPSEEK_V2_LITE_MATMULS, tokens=(1,), f32_row=False, model="DeepSeek-Coder-V2-Lite")
+  # llava-1.5-7b's decoder (the llava phase), 32/32 heads at hd 128: K1 at
+  # its image prompt's 640 bucket, K2 at position 640 of the 4096-slot
+  # cache, K3 at B=8 mixed lengths; K4 at its products, solo decode (T = 1).
+  results["flash_prefill_llava"] = flash_prefill_rows(torch, gen, [(640, [0], "bf16", 128)], heads=(32, 32))
+  results["flash_decode_llava"] = flash_decode_rows(torch, gen, 32, 32, 128, (([640], CACHE),))
+  results["paged_decode_llava"] = paged_kernel_rows(torch, gen, 32, 32, 128, length_sets=K3_LENGTHS[-1:], kvs=("bf16",))
+  results["int4_matmul_llava"] = int4_kernel_rows(torch, gen, LLAVA_MATMULS, tokens=(1,), f32_row=False, model="llava-1.5-7b")
   return results
 
 
@@ -1330,8 +1364,11 @@ def check_against_plain(torch, engine):
 
 def _profile(torch, label, fn, reps):
   """Where ``fn``'s time goes: host wall time per call with the profiler
-  off, and ``torch.profiler``'s device time per call (device-side kernel
-  and copy events only: the aten op rows repeat their kernels' time)."""
+  off, over ``reps`` calls, and ``torch.profiler``'s device time of one
+  more call (device-side kernel and copy events only: the aten op rows
+  repeat their kernels' time). The profiled call is one: the profiler's
+  cost grows with the events it keeps, and a call's device work repeats
+  from call to call."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
 
@@ -1343,20 +1380,19 @@ def _profile(torch, label, fn, reps):
   torch.cuda.synchronize()
   wall_ms = (time.perf_counter() - t0) * 1e3 / reps
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-    for _ in range(reps):
-      fn()
+    fn()
     torch.cuda.synchronize()
   events = prof.key_averages()
   device = sorted((e for e in events if e.device_type == DeviceType.CUDA), key=lambda e: e.self_device_time_total, reverse=True)
   host = sorted((e for e in events if e.device_type == DeviceType.CPU), key=lambda e: e.self_cpu_time_total, reverse=True)
-  device_ms = sum(e.self_device_time_total for e in device) / 1e3 / reps
-  k1_ms = sum(e.self_device_time_total for e in device if "flash_prefill_kernel" in e.key) / 1e3 / reps
+  device_ms = sum(e.self_device_time_total for e in device) / 1e3
+  k1_ms = sum(e.self_device_time_total for e in device if "flash_prefill_kernel" in e.key) / 1e3
   res = dict(
     k1_device_ms=k1_ms, k1_device_share=k1_ms / device_ms if device_ms else None,
     label=label, reps=reps, wall_ms=wall_ms, device_ms=device_ms, device_busy_share=device_ms / wall_ms,
-    launches=sum(e.count for e in host if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")) / reps,
-    top_host_ops=[(e.key, round(e.count / reps, 1), round(e.self_cpu_time_total / 1e3 / reps, 4)) for e in host[:10]],
-    top_device_ops=[(e.key[:70], round(e.count / reps, 1), round(e.self_device_time_total / 1e3 / reps, 4)) for e in device[:10]],
+    launches=sum(e.count for e in host if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")),
+    top_host_ops=[(e.key, round(e.count, 1), round(e.self_cpu_time_total / 1e3, 4)) for e in host[:10]],
+    top_device_ops=[(e.key[:70], round(e.count, 1), round(e.self_device_time_total / 1e3, 4)) for e in device[:10]],
   )
   busy = "not measured (the profiler saw no device events)" if not device else f"{res['device_busy_share']:.3f}"
   log(f"[profile] {label}: wall {wall_ms:.3f} ms (profiler off), device {device_ms:.3f} ms, device busy {busy}, {res['launches']:.0f} launches")
@@ -2661,9 +2697,9 @@ PROFILE_EAGER_REPS = 1  # an eager profile's repetitions: under torch.profiler e
 
 def profile_batched(torch, engine, steps=8):
   """One batched decode chunk (B=8, bf16 pool, prompts 150..600) through
-  the engine's batch ops: with K3, with a mixed slice fused in (K1 + K3),
-  as a spec chunk (8 rounds at depth 8), and with the gather path
-  (XOT_TPU_PAGED_KERNEL=0), each ``PROFILE_EAGER_REPS`` calls."""
+  the engine's batch ops with K3, eagerly, ``PROFILE_EAGER_REPS`` calls:
+  the eager side of the captured plain chunk in ``profile_batched_graphs``
+  (the mixed and spec chunks are profiled captured only)."""
   pool, bt, tok, lens = _batched_rows(torch, engine)
   ops = engine.batch_ops
   active = torch.ones(BATCH_SLOTS, dtype=torch.bool, device="cuda")
@@ -2673,27 +2709,7 @@ def profile_batched(torch, engine, steps=8):
   def chunk():
     ops.paged_batch_decode(tok, pool, bt, lens, active, temps, top_ks, steps, k_max=64, page_size=PAGE, key=SEED)
 
-  out = {"decode_k3": _profile(torch, f"batched decode chunk with K3, B={BATCH_SLOTS}, {steps} steps", chunk, PROFILE_EAGER_REPS)}
-  mpool, mbt, mtok, mlens, pf, _, _ = _mixed_rows(torch, engine)
-  out["mixed_k1_k3"] = _profile(
-    torch, f"mixed chunk (K1 slice {MIXED_SLICE} tokens at {MIXED_PREFIX}, pad {MIXED_PAD}; K3 decode), B={BATCH_SLOTS}, {steps} steps",
-    lambda: ops.mixed_paged_batch_decode(mtok, mpool, mbt, mlens, active, temps, top_ks, steps, k_max=64, page_size=PAGE, key=SEED, **pf), PROFILE_EAGER_REPS,
-  )
-  del mpool
-  gammas = torch.full((BATCH_SLOTS,), SPEC_GAMMA, dtype=torch.int32, device="cuda")
-  # A spec chunk of the same rows: 8 rounds at depth 8, so each verify
-  # window is 9 tokens a row (the device work does not depend on what is
-  # proposed or accepted; zero proposals here).
-  out["spec_k3"] = _profile(
-    torch, f"spec chunk (K3 over B·W = {BATCH_SLOTS * (SPEC_GAMMA + 1)} window rows a layer), B={BATCH_SLOTS}, {steps} rounds at depth {SPEC_GAMMA}",
-    lambda: ops.spec_paged_batch_decode(tok, pool, None, bt, lens, active, gammas, temps, top_ks, steps, SPEC_GAMMA, k_max=64, page_size=PAGE, key=SEED), PROFILE_EAGER_REPS,
-  )
-  os.environ["XOT_TPU_PAGED_KERNEL"] = "0"
-  try:
-    out["decode_gather"] = _profile(torch, f"batched decode chunk with the gather path, B={BATCH_SLOTS}, {steps} steps", chunk, PROFILE_EAGER_REPS)
-  finally:
-    os.environ.pop("XOT_TPU_PAGED_KERNEL")
-  return out
+  return {"decode_k3": _profile(torch, f"batched decode chunk with K3, B={BATCH_SLOTS}, {steps} steps", chunk, PROFILE_EAGER_REPS)}
 
 
 # ---------------------------------------------- 6b. batched graphs
@@ -3836,11 +3852,13 @@ def write_moe_checkpoint(torch, path: Path, layers: int = MOE_LAYERS, seed: int 
   return _write_seeded_checkpoint(torch, path, dict(QWEN3_30B_A3B, num_hidden_layers=layers), moe_shapes(layers), seed, MOE_ROUTER_STD)
 
 
-def _write_seeded_checkpoint(torch, path: Path, config: dict, shapes: dict, seed: int, router_std: float) -> float:
+def _write_seeded_checkpoint(torch, path: Path, config: dict, shapes: dict, seed: int, router_std: float = 1.0) -> float:
   """``config.json`` and one .safetensors file of seeded random bf16
   tensors of ``shapes``, written tensor by tensor: N(0, 1/fan_in)
-  projections and head, N(0, 0.02) embeddings, unit norm gains, routers
-  (``mlp.gate.weight``) N(0, router_std²/fan_in). Returns the seconds."""
+  projections, head and convolutions (fan_in: every axis after the first),
+  N(0, 0.02) embeddings (and llava's class embedding and image newline),
+  unit norm gains, zero biases, routers (``mlp.gate.weight``)
+  N(0, router_std²/fan_in). Returns the seconds."""
   import struct
 
   t0 = time.perf_counter()
@@ -3857,11 +3875,15 @@ def _write_seeded_checkpoint(torch, path: Path, config: dict, shapes: dict, seed
   with open(path / "model.safetensors", "wb") as f:
     f.write(struct.pack("<Q", len(raw)))
     f.write(raw)
+    small = ("embed_tokens.weight", "class_embedding", "image_newline")
     for name, shape in shapes.items():
-      if len(shape) == 1:
+      if name.endswith(".bias"):
+        t = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+      elif len(shape) == 1 and not name.endswith(small):
         t = torch.ones(shape, dtype=torch.bfloat16, device="cuda")
       else:
-        scale = 0.02 if name == "model.embed_tokens.weight" else router_std * shape[1] ** -0.5 if name.endswith("mlp.gate.weight") else shape[1] ** -0.5
+        fan_in = math.prod(shape[1:])
+        scale = 0.02 if name.endswith(small) else router_std * fan_in**-0.5 if name.endswith("mlp.gate.weight") else fan_in**-0.5
         t = (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
       f.write(t.view(torch.uint8).cpu().numpy().data)
   return time.perf_counter() - t0
@@ -4622,13 +4644,13 @@ def _mla_cfg_problem(cfg) -> str:
   return "" if ok else "not DeepSeek-Coder-V2-Lite's"
 
 
-def _nothing_built(label: str, fam0: dict, fam1: dict) -> None:
+def _nothing_built(label: str, fam0: dict, fam1: dict, tag: str = "mla") -> None:
   """No program family built or captured between two ledger snapshots
   (the counted requests after their warm-up)."""
   built = {f: (v["compiles"] - fam0.get(f, {}).get("compiles", 0), v["captures"] - fam0.get(f, {}).get("captures", 0)) for f, v in fam1.items()}
   built = {f: bc for f, bc in built.items() if any(bc)}
   if built:
-    raise SystemExit(f"chip_smoke: [mla] {label}: the counted requests built or captured programs after the warm-up (family: builds, captures): {built}")
+    raise SystemExit(f"chip_smoke: [{tag}] {label}: the counted requests built or captured programs after the warm-up (family: builds, captures): {built}")
 
 
 def _no_mla_attention_kernels(label: str, launches: dict) -> None:
@@ -6717,6 +6739,9 @@ def lora_logit_checks(torch, engine, adapters: dict, prompts: dict, firsts: dict
   base_plain = _lora_plain_params(torch, engine)
   for name, ids in prompts.items():
     slot = reg.acquire(name, holder="chip_smoke")
+    pending = reg.pending_install(slot)  # acquired on the event loop: the write is queued on the engine's executor
+    if pending is not None:
+      pending.result()
     try:
       served = _last_logits(torch, cfg, shard, engine.params, ids, slot)
       base = _last_logits(torch, cfg, shard, engine.params, ids)
@@ -7036,6 +7061,422 @@ async def _lora_batched(torch, tmain, args, port, adapters, passes, smi) -> dict
     await _daemon_down(node, server, engine)
 
 
+# ------------------------------------------------------------ 10. llava
+# llava-hf/llava-1.5-7b-hf's published config.json: a CLIP ViT-L/14 tower
+# at 336 px (24 layers; the features enter the last, so 23 run; 576
+# patches), a 1024 → 4096 → 4096 projector, and a llama-2-7b decoder
+# (hidden 4096, 32 / 32 heads of 128, FFN 11008, vocab 32064 holding the
+# image placeholder 32000, rope θ 1e4).
+LLAVA_15 = {
+  "architectures": ["LlavaForConditionalGeneration"], "model_type": "llava", "image_token_index": 32000, "pad_token_id": 32001,
+  "projector_hidden_act": "gelu", "vision_feature_layer": -2, "vision_feature_select_strategy": "default", "tie_word_embeddings": False,
+  "text_config": {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama", "hidden_size": 4096, "intermediate_size": 11008, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 32, "vocab_size": 32064, "max_position_embeddings": 4096, "rms_norm_eps": 1e-05,
+    "rope_theta": 10000.0, "torch_dtype": "float16", "bos_token_id": 1, "eos_token_id": 2, "tie_word_embeddings": False,
+  },
+  "vision_config": {
+    "model_type": "clip_vision_model", "hidden_size": 1024, "intermediate_size": 4096, "num_hidden_layers": 24, "num_attention_heads": 16,
+    "image_size": 336, "patch_size": 14, "projection_dim": 768, "layer_norm_eps": 1e-05,
+  },
+}
+# llava-hf/llava-v1.6-vicuna-7b-hf: the same tower and decoder widths, any-res
+# over five pinpoints with a learned image newline (scripts/llava_phase.py).
+LLAVA_16_VICUNA = dict(
+  LLAVA_15, architectures=["LlavaNextForConditionalGeneration"], model_type="llava_next", use_image_newline_parameter=True,
+  image_grid_pinpoints=[[336, 672], [672, 336], [672, 672], [1008, 336], [336, 1008]],
+)
+LLAVA_MODEL = "llava-1.5-7b-hf"
+LLAVA_NEXT_MODEL = "llava-1.6-vicuna-7b"
+LLAVA_LAYERS = 8  # of the decoder's 32 (the run's time limit); the tower runs at full depth
+LLAVA_ANSWER = 32
+LLAVA_CHECK_TOL = 5e-2  # relative L2: the tower's features and the served prefill logits against plain f32 (PERF.md §2)
+LLAVA_IMAGE_ID = 32000
+CLIP_MEAN, CLIP_STD = (0.48145466, 0.4578275, 0.40821073), (0.26862954, 0.26130258, 0.27577711)
+# K4 at llava-1.5-7b's decoder products (the int4 pass), solo decode (T = 1).
+LLAVA_MATMULS = {"wq/wk/wv/wo": (4096, 4096), "w_gate/w_up": (4096, 11008), "w_down": (11008, 4096), "lm_head": (4096, 32064)}
+
+
+class LlavaByteProcessor(ByteTokenizer):
+  """Script glue for the random llava checkpoints: the byte tokenizer with
+  llama-2's BOS / EOS ids (1 / 2, inside the 32,064-token vocabulary), and,
+  called as a processor, what HF's llava-1.5 processor does with a prompt
+  and its Pillow images: each image resized to 336×336 (bicubic) and
+  normalized with CLIP's mean and std, each ``<image>`` expanded into the
+  image's 576 placeholder ids."""
+
+  bos_token_id = 1
+  eos_token_id = 2
+
+  def ids(self, text: str, n_features: int = 576) -> list[int]:
+    parts = text.split("<image>")
+    out = [self.bos_token_id]
+    for i, part in enumerate(parts):
+      out += list(part.encode("utf-8"))
+      if i < len(parts) - 1:
+        out += [LLAVA_IMAGE_ID] * n_features
+    return out
+
+  def __call__(self, text: str, images, return_tensors: str = "np") -> dict:
+    from PIL import Image
+
+    mean, std = np.asarray(CLIP_MEAN, np.float32), np.asarray(CLIP_STD, np.float32)
+    px = [((np.asarray(im.convert("RGB").resize((336, 336), Image.BICUBIC), np.float32) / 255.0 - mean) / std).transpose(2, 0, 1) for im in images]
+    return {"input_ids": np.asarray([self.ids(text)], np.int32), "pixel_values": np.stack(px).astype(np.float32)}
+
+
+def llava_shapes(config: dict, layers: int) -> dict:
+  """HF tensor name → shape of a llava checkpoint (the published key names:
+  the decoder under ``language_model.``, the tower, the projector, and
+  llava-next's ``image_newline``) at ``layers`` of its decoder's depth."""
+  t, v = config["text_config"], config["vision_config"]
+  D, F, V = t["hidden_size"], t["intermediate_size"], t["vocab_size"]
+  Dv, Fv, P = v["hidden_size"], v["intermediate_size"], v["patch_size"]
+  shapes = {"language_model.model.embed_tokens.weight": (V, D), "language_model.model.norm.weight": (D,), "language_model.lm_head.weight": (V, D)}
+  for i in range(layers):
+    p = f"language_model.model.layers.{i}."
+    shapes.update({
+      p + "input_layernorm.weight": (D,), p + "post_attention_layernorm.weight": (D,),
+      **{p + f"self_attn.{n}_proj.weight": (D, D) for n in "qkvo"},
+      p + "mlp.gate_proj.weight": (F, D), p + "mlp.up_proj.weight": (F, D), p + "mlp.down_proj.weight": (D, F),
+    })
+  vp = "vision_tower.vision_model."
+  shapes.update({
+    vp + "embeddings.class_embedding": (Dv,), vp + "embeddings.patch_embedding.weight": (Dv, 3, P, P),
+    vp + "embeddings.position_embedding.weight": ((v["image_size"] // P) ** 2 + 1, Dv),
+    vp + "pre_layrnorm.weight": (Dv,), vp + "pre_layrnorm.bias": (Dv,), vp + "post_layernorm.weight": (Dv,), vp + "post_layernorm.bias": (Dv,),
+  })
+  for j in range(v["num_hidden_layers"]):
+    p = f"{vp}encoder.layers.{j}."
+    for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+      shapes.update({f"{p}self_attn.{n}.weight": (Dv, Dv), f"{p}self_attn.{n}.bias": (Dv,)})
+    shapes.update({
+      p + "layer_norm1.weight": (Dv,), p + "layer_norm1.bias": (Dv,), p + "layer_norm2.weight": (Dv,), p + "layer_norm2.bias": (Dv,),
+      p + "mlp.fc1.weight": (Fv, Dv), p + "mlp.fc1.bias": (Fv,), p + "mlp.fc2.weight": (Dv, Fv), p + "mlp.fc2.bias": (Dv,),
+    })
+  shapes.update({
+    "multi_modal_projector.linear_1.weight": (D, Dv), "multi_modal_projector.linear_1.bias": (D,),
+    "multi_modal_projector.linear_2.weight": (D, D), "multi_modal_projector.linear_2.bias": (D,),
+  })
+  if config.get("image_grid_pinpoints"):
+    shapes["image_newline"] = (D,)
+  return shapes
+
+
+def write_llava_checkpoint(torch, path: Path, layers: int = LLAVA_LAYERS, config: dict = LLAVA_15, seed: int = SEED + 21) -> float:
+  """Seeded random bf16 weights at a llava checkpoint's published shapes
+  (``_write_seeded_checkpoint``: N(0, 1/fan_in) projections, convolution
+  and head, N(0, 0.02) embeddings, unit norm gains, zero biases),
+  ``layers`` of its decoder's depth and its whole tower."""
+  cfg = dict(config, text_config=dict(config["text_config"], num_hidden_layers=layers))
+  return _write_seeded_checkpoint(torch, path, cfg, llava_shapes(config, layers), seed)
+
+
+def _llava_cfg_problem(cfg) -> str:
+  v = cfg.vision
+  ok = (
+    v is not None and (v.hidden_size, v.intermediate_size, v.n_layers, v.n_run, v.n_heads, v.image_size, v.patch_size, v.n_patches, v.projector_dim) == (1024, 4096, 24, 23, 16, 336, 14, 576, 4096)
+    and v.drop_cls and cfg.image_token_id == LLAVA_IMAGE_ID and (cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.hidden_dim, cfg.vocab_size) == (4096, 32, 32, 128, 11008, 32064)
+    and cfg.rope_theta == 10000.0 and not cfg.tied_embedding and cfg.family == "llama"
+  )
+  return "" if ok else "not llava-1.5-7b's"
+
+
+def _llava_png(seed: int = SEED + 21) -> str | None:
+  """A seeded 512×384 RGB noise image as base64 PNG, or None without Pillow."""
+  try:
+    from PIL import Image
+  except ImportError:
+    return None
+  import base64
+  import io
+
+  arr = np.random.default_rng(seed).integers(0, 256, (384, 512, 3), dtype=np.uint8)
+  buf = io.BytesIO()
+  Image.fromarray(arr).save(buf, format="PNG")
+  return base64.b64encode(buf.getvalue()).decode()
+
+
+def _llava_chat(stream: bool, png: str | None, max_tokens: int = LLAVA_ANSWER, text: str = "Describe the picture in one line.", model: str = LLAVA_MODEL) -> dict:
+  content = text if png is None else [{"type": "text", "text": text}, {"type": "image_url", "image_url": {"url": f"data:image/png;base64,{png}"}}]
+  return {"model": model, "messages": [{"role": "user", "content": content}], "stream": stream, "temperature": 0, "max_tokens": max_tokens}
+
+
+def _pil_and_transformers() -> str:
+  """What ``python3 -c "import PIL, transformers; print(...)"`` prints here."""
+  r = subprocess.run([sys.executable, "-c", "import PIL, transformers; print(PIL.__version__, transformers.__version__)"], capture_output=True, text=True, timeout=300)
+  return r.stdout.strip() if r.returncode == 0 else (r.stderr.strip().splitlines() or ["import failed"])[-1]
+
+
+def phase_llava(torch, ckpt: Path, smi: str, layers: int = LLAVA_LAYERS) -> dict:
+  """llava-1.5-7b at full width (the checkpoint's depth of its decoder, the
+  whole tower) through the daemon with ``XOT_TPU_FLASH_DECODE=1`` (K2 from
+  position 0 of the 4096-slot cache): image, text and batched requests
+  (``_llava_serve``), then the same solo requests with
+  ``XOT_TPU_QUANT=int4``."""
+  from concurrent.futures import ThreadPoolExecutor
+
+  from xotorch_support_jetson_tpu_torch import main as tmain
+
+  out = {}
+  with ThreadPoolExecutor(1) as probe:  # a separate interpreter's imports, beside the serving
+    versions = probe.submit(_pil_and_transformers)
+    for name, quant in (("bf16", None), ("int4", "int4")):
+      args, port = _daemon_args(tmain, ckpt, model=LLAVA_MODEL)
+      os.environ.update(XOT_TPU_FLASH_DECODE="1", XOT_TPU_FLASH_DECODE_MIN=str(CACHE), **({"XOT_TPU_QUANT": quant} if quant else {}))
+      try:
+        out[name] = asyncio.run(_llava_serve(torch, tmain, args, port, smi, layers, quant))
+      finally:
+        for knob in ("XOT_TPU_FLASH_DECODE", "XOT_TPU_FLASH_DECODE_MIN", "XOT_TPU_QUANT"):
+          os.environ.pop(knob, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["pil_transformers"] = versions.result()
+  log(f"[llava] python3 -c \"import PIL, transformers; print(PIL.__version__, transformers.__version__)\": {out['pil_transformers']}")
+  return out
+
+
+def phase_llava_next(torch, ckpt: Path, smi: str, layers: int) -> dict:
+  """llava-1.6-vicuna-7b (``LLAVA_16_VICUNA``, the checkpoint's depth): one
+  any-res request through the daemon's engine (``_llava_next``)."""
+  from xotorch_support_jetson_tpu_torch import main as tmain
+
+  args, port = _daemon_args(tmain, ckpt, model=LLAVA_NEXT_MODEL)
+  os.environ.update(XOT_TPU_FLASH_DECODE="1", XOT_TPU_FLASH_DECODE_MIN=str(CACHE))
+  try:
+    return asyncio.run(_llava_next(torch, tmain, args, port, smi, layers))
+  finally:
+    for knob in ("XOT_TPU_FLASH_DECODE", "XOT_TPU_FLASH_DECODE_MIN"):
+      os.environ.pop(knob, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _spy_multimodal(engine, seen: list):
+  """Record the device half's inputs (ids, pixels, sizes) of each image request."""
+  orig = engine._infer_multimodal_sync
+
+  def spy(request_id, tokens, pixel_values, image_sizes, state):
+    seen.append((tokens, pixel_values, image_sizes))
+    return orig(request_id, tokens, pixel_values, image_sizes, state)
+
+  engine._infer_multimodal_sync = spy
+  return lambda: setattr(engine, "_infer_multimodal_sync", orig)
+
+
+async def _llava_image(torch, node, engine, port, png, label: str, seen: list) -> dict:
+  """One greedy streaming image request: over HTTP with the PNG, or, without
+  Pillow on this machine, through the engine's device half with seeded
+  pixels and the ids a processor would give (after the HTTP request is
+  refused with a 400 naming Pillow). Returns ``_serve_requests``' record."""
+  if png is not None:
+    return (await _serve_requests(torch, node, engine, port, [(label, _llava_chat(True, png))]))[0]
+  st, raw = await asyncio.to_thread(_http, port, "POST", "/v1/chat/completions", _llava_chat(True, "iVBORw0KGgo="))
+  if st != 400 or "Pillow" not in raw:
+    raise SystemExit(f"chip_smoke: [llava] without Pillow an image request must answer a 400 naming it; got {st} {raw[:300]!r}")
+  from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+
+  tok = LlavaByteProcessor()
+  ids = np.asarray([tok.ids(tok.apply_chat_template([{"role": "user", "content": "Describe the picture in one line. <image>"}]))], np.int32)
+  px = torch.randn((1, 3, 336, 336), generator=torch.Generator().manual_seed(SEED + 21)).numpy()
+  shard = Shard(LLAVA_MODEL, 0, 31, 32)
+  t0 = time.perf_counter()
+  logits, _ = await engine.infer_image_tokens(label, shard, ids, px)
+  ttft = time.perf_counter() - t0
+  toks = [int(np.argmax(logits[0]))] + await engine.generate_oneshot(label, shard, int(np.argmax(logits[0])), LLAVA_ANSWER - 1, eos_ids=(tok.eos_token_id,), temp=0.0)
+  engine.end_request(label)
+  return dict(label=label, stream=False, temperature=0.0, tokens=toks, text=tok.decode(toks), finish_reason=None, ttft_s=ttft, total_s=time.perf_counter() - t0)
+
+
+def llava_plain_tokens(torch, engine, tokens, pixel_values, image_sizes, n: int) -> list[int]:
+  """Greedy ids of an uncaptured forward of the same merged embeddings on
+  the served weights: the tower eagerly, the merge, the prefill of the
+  padded prompt and ``n - 1`` single-token steps, each op by op (no
+  program, no graph) on a fresh cache of the session's size, through the
+  kernels the served path takes."""
+  from xotorch_support_jetson_tpu_torch.models import decoder as dec, vision
+
+  cfg, params, shard = engine.cfg, engine.params, engine._effective_shard
+  S = tokens.shape[1]
+  pad = -(-S // 128) * 128
+  tok = torch.zeros((1, pad), dtype=torch.int32, device="cuda")
+  tok[0, :S] = torch.from_numpy(tokens[0]).cuda()
+  feats = engine.image_features(pixel_values, image_sizes)
+  merged = vision.merge_image_embeddings(params["embed"][tok].to(cfg.dtype), tok, feats, cfg.image_token_id)
+  cache = dec.init_kv_cache(cfg, shard.n_shard_layers, 1, min(engine.max_seq_len, cfg.max_seq_len), device="cuda")
+  positions = torch.arange(pad, dtype=torch.int32, device="cuda")[None]
+  logits, _ = dec.shard_forward(params, cfg, shard, merged, positions, cache, head_pos=torch.tensor([S - 1], device="cuda"))
+  first = int(logits[0, 0].argmax())
+  steps, _ = dec.fused_decode(params, cfg, shard, torch.tensor([[first]], dtype=torch.int32, device="cuda"), cache, torch.tensor([S], dtype=torch.int32, device="cuda"), n - 1, temp=0.0)
+  return [first] + [int(t) for t in steps[0].tolist()]
+
+
+def llava_plain_f32(torch, engine, tokens, pixel_values, image_sizes) -> tuple:
+  """(features, last-position logits) of a plain f32 forward on the same
+  weights upcast: the tower and projector in f32 (K1-K4 never run on f32),
+  the merge, and a cache-less forward of the prompt, with TF32 off for its
+  products and the patch convolution."""
+  import dataclasses
+
+  from xotorch_support_jetson_tpu_torch.models import decoder as dec, vision
+
+  cfg, shard = engine.cfg, engine._effective_shard
+
+  def f32(tree):
+    return {k: f32(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
+
+  vp, p32 = f32(engine._vision_params), f32(engine.params)
+  cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+  tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+  torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+  try:
+    feats = vision.encode_images(vp["vision"], vp["projector"], cfg.vision, torch.from_numpy(pixel_values).cuda())[None].reshape(1, -1, cfg.dim)
+    tok = torch.from_numpy(tokens).cuda()
+    merged = vision.merge_image_embeddings(p32["embed"][tok], tok, feats, cfg.image_token_id)
+    S = tokens.shape[1]
+    logits, _ = dec.shard_forward(p32, cfg32, shard, merged, torch.arange(S, dtype=torch.int32, device="cuda")[None], None, head_pos=torch.tensor([S - 1], device="cuda"))
+  finally:
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+  return feats, logits[0, 0]
+
+
+async def _llava_serve(torch, tmain, args, port, smi, layers: int, quant: str | None) -> dict:
+  """The llava daemon: a warm-up round (an image request and a text one),
+  then the counted round, each request's launches zeroed just before it and
+  read just after: the image request (K1 exactly once per layer in its
+  prefill, K2 in its decode, K3 never, K4 only on int4 weights; its greedy
+  ids equal to ``llava_plain_tokens``'s), then a text-only request (K1 once
+  per layer). Nothing is built or captured after the warm-up. On bf16
+  weights also: the tower's features and the served prefill's logits
+  against ``llava_plain_f32`` within ``LLAVA_CHECK_TOL``, the tower's time
+  per image and its share of the image request's TTFT, and one batched
+  wave of 16 text requests at the defaults (K3, spec and mixed
+  dispatches)."""
+  from xotorch_support_jetson_tpu_torch.utils import programs
+
+  tag = "llava" if quant is None else f"llava {quant}"
+  node, server, engine, load_s = await _daemon_up(torch, tmain, args, port, "llava", LLAVA_MODEL, tag, _llava_cfg_problem, tokenizer=LlavaByteProcessor())
+  res = dict(load_s=load_s, card=smi, weight_bytes=sum(t.numel() * t.element_size() for t in _leaves(engine.params)), tower_bytes=sum(t.numel() * t.element_size() for t in _leaves(engine._vision_params)))
+  seen: list = []
+  unspy = _spy_multimodal(engine, seen)
+  try:
+    L = engine.cfg.n_layers
+    if L != layers:
+      raise SystemExit(f"chip_smoke: [llava] {L} decoder layers loaded, expected {layers}")
+    if quant and engine._vision_params["vision"]["layers"]["wq"].dtype != torch.bfloat16:
+      raise SystemExit("chip_smoke: [llava] the tower was quantized (the reference keeps it in the model dtype)")
+    log(f"[llava] {tag}: llava-hf/llava-1.5-7b-hf's published shapes (CLIP ViT-L/14-336: hidden 1024, 24 layers of which 23 run, 16 heads, FFN 4096, 576 patches; projector 1024 → 4096 → 4096; llama-2-7b decoder: hidden 4096, {L} of its 32 layers, 32/32 heads of 128, FFN 11008, vocab 32064, image token 32000), random bf16 weights; bos/eos 1/2; {res['weight_bytes'] / 1e9:.2f} GB decoder + {res['tower_bytes'] / 1e9:.2f} GB tower and projector")
+    png = _llava_png()
+    text_body = _llava_chat(True, None)
+    await _llava_image(torch, node, engine, port, png, "warmup image", seen)  # the warm-up: every request kind once
+    await _serve_requests(torch, node, engine, port, [("warmup text", text_body)])
+    fam0 = programs.ledger.snapshot()["families"]
+    _reset_launches()  # ---- the image request, counted
+    img = await _llava_image(torch, node, engine, port, png, "image greedy streaming", seen)
+    launches = _kernel_launches()  # ---- read just after
+    _reset_launches()  # ---- the text request, counted
+    txt = (await _serve_requests(torch, node, engine, port, [("text greedy streaming", text_body)]))[0]
+    launches_text = _kernel_launches()  # ---- read just after
+    fam1 = programs.ledger.snapshot()["families"]
+    _nothing_built(tag, fam0, fam1, "llava")
+    k4 = bool(quant)
+    for what, got in (("image request", launches), ("text request", launches_text)):
+      if got["flash_prefill"] != L or not got["flash_decode"] or got["paged_decode"] or bool(got["int4_matmul"]) != k4:
+        raise SystemExit(f"chip_smoke: [llava] {tag} {what}: launches {got}; expected K1 exactly {L} (one prefill), K2 in the decode, K3 none, K4 {'in every product' if k4 else 'none'}")
+    if fam1["prefill.embeds"]["dispatches"] - fam0.get("prefill.embeds", {}).get("dispatches", 0) != 1 or fam1["vision.encode"]["dispatches"] - fam0.get("vision.encode", {}).get("dispatches", 0) != 1:
+      raise SystemExit(f"chip_smoke: [llava] {tag}: the image request must run one vision.encode and one prefill.embeds dispatch: {fam1}")
+    ids, px, sizes = seen[-1]
+    plain = llava_plain_tokens(torch, engine, ids, px, sizes, len(img["tokens"]))
+    if plain[: len(img["tokens"])] != img["tokens"]:
+      raise SystemExit(f"chip_smoke: [llava] {tag}: the served image answer differs from the uncaptured forward of the same merged embeddings:\n{img['tokens']}\n{plain}")
+    res.update(
+      launches=launches, launches_text=launches_text, image_tokens=img["tokens"], prompt_tokens=int(ids.shape[1]), image_placeholders=int((ids == LLAVA_IMAGE_ID).sum()),
+      image_ttft_s=img["ttft_s"], image_decode_tok_s=_decode_rate(img) if img["stream"] else None, text_ttft_s=txt["ttft_s"], text_decode_tok_s=_decode_rate(txt),
+      http=png is not None,
+    )
+    log(f"[llava] {tag}: image request ({'HTTP, a 512×384 PNG' if png else 'the device half: no Pillow here'}; prompt {res['prompt_tokens']} tokens of which {res['image_placeholders']} image placeholders, prefill bucket {-(-res['prompt_tokens'] // 128) * 128}): TTFT {img['ttft_s']:.4f} s, decode {res['image_decode_tok_s'] or float('nan'):.1f} tok/s, {len(img['tokens'])} tokens equal to the uncaptured forward's | launches {launches} | text request: TTFT {txt['ttft_s']:.4f} s, decode {res['text_decode_tok_s']:.1f} tok/s, launches {launches_text} | no build or capture after the warm-up | {smi}")
+    if quant is None:
+      feats_bf16 = engine.image_features(px, sizes).reshape(1, -1, engine.cfg.dim)
+      feats32, ref = llava_plain_f32(torch, engine, ids, px, sizes)
+      served, _ = await asyncio.get_running_loop().run_in_executor(engine.executor, engine._infer_multimodal_sync, "llava-check", ids, px, sizes, None)
+      engine.end_request("llava-check")
+      served = torch.from_numpy(served[0]).cuda()
+      check = dict(feature_rel_err=_rel_err(feats_bf16, feats32), logits_rel_err=_rel_err(served, ref), argmax_agree=int(served.argmax()) == int(ref.argmax()))
+      res["check"] = check
+      del feats32, ref
+      if not (check["feature_rel_err"] < LLAVA_CHECK_TOL and check["logits_rel_err"] < LLAVA_CHECK_TOL):
+        raise SystemExit(f"chip_smoke: [llava] against the plain f32 forward: {check}")
+      tower = [0.0] * 5
+      for i in range(len(tower)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.image_features(px, sizes)
+        torch.cuda.synchronize()
+        tower[i] = time.perf_counter() - t0
+      res["tower_ms"] = min(tower) * 1e3
+      res["tower_share_of_ttft"] = res["tower_ms"] / 1e3 / img["ttft_s"]
+      res["tower_profile"] = _profile(torch, "llava tower and projector, one 336 px image (eager)", lambda: engine.image_features(px, sizes), 3)
+      log(f"[llava] the tower's 576 features (bf16, eager) against the plain f32 tower: rel L2 {check['feature_rel_err']:.3e}; the served prefill's logits (captured, K1) against the plain f32 forward: rel L2 {check['logits_rel_err']:.3e} (limit {LLAVA_CHECK_TOL}), argmax agree {check['argmax_agree']} | the tower and projector: {res['tower_ms']:.3f} ms an image (best of 5, host clock around a synchronised call), {res['tower_share_of_ttft']:.3f} of the image request's TTFT | {smi}")
+      engine._cache_pool.clear()
+      engine._graph_pool = None
+      gc.collect()
+      torch.cuda.empty_cache()
+      res["batched"] = b = await _batched_defaults(torch, node, engine, port, smi, LLAVA_MODEL, "llava", "kernel")
+      if not b["launches"]["paged_decode"] or not b["launches"]["flash_prefill"]:
+        raise SystemExit(f"chip_smoke: [llava] batched text wave: launches {b['launches']}; K1 and K3 must run")
+    return res
+  finally:
+    unspy()
+    await _daemon_down(node, server, engine)
+
+
+async def _llava_next(torch, tmain, args, port, smi, layers: int) -> dict:
+  """llava-1.6-vicuna-7b: one any-res request through the device half (a
+  672×672 image: 1 base tile and a 2×2 grid, 2,928 features with the 48
+  newlines), after a warm-up one: K1 exactly once per layer, greedy ids
+  equal to the uncaptured forward's; the tower's time for its 5 tiles."""
+  from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+  from xotorch_support_jetson_tpu_torch.models.vision import anyres_grid_shape
+
+  node, server, engine, load_s = await _daemon_up(torch, tmain, args, port, "llava", LLAVA_NEXT_MODEL, "llava-next bf16", lambda cfg: "" if cfg.vision is not None and cfg.vision.anyres else "not llava-next", tokenizer=LlavaByteProcessor())
+  try:
+    vcfg = engine.cfg.vision
+    size = (672, 672)
+    gh, gw = anyres_grid_shape(size, vcfg.grid_pinpoints, vcfg.image_size)
+    side = vcfg.image_size // vcfg.patch_size
+    n_feat = vcfg.n_patches + gh * side * (gw * side + 1)
+    tok = LlavaByteProcessor()
+    ids = np.asarray([tok.ids(tok.apply_chat_template([{"role": "user", "content": "Describe the picture in one line. <image>"}]), n_feat)], np.int32)
+    px = torch.randn((1, 1 + gh * gw, 3, 336, 336), generator=torch.Generator().manual_seed(SEED + 22)).numpy()
+    sizes = np.asarray([size], np.int64)
+    shard = Shard(LLAVA_NEXT_MODEL, 0, 31, 32)
+    out = {}
+    for rid in ("next-warmup", "next-counted"):
+      _reset_launches()
+      t0 = time.perf_counter()
+      logits, _ = await engine.infer_image_tokens(rid, shard, ids, px, sizes)
+      ttft = time.perf_counter() - t0
+      first = int(np.argmax(logits[0]))
+      toks = [first] + await engine.generate_oneshot(rid, shard, first, LLAVA_ANSWER - 1, eos_ids=(), temp=0.0)
+      wall = time.perf_counter() - t0
+      engine.end_request(rid)
+      out = dict(launches=_kernel_launches(), ttft_s=ttft, wall_s=wall, tokens=toks, features=n_feat, tiles=1 + gh * gw, prompt_tokens=int(ids.shape[1]))
+    if out["launches"]["flash_prefill"] != layers:
+      raise SystemExit(f"chip_smoke: [llava] llava-next: launches {out['launches']}; K1 exactly {layers}")
+    plain = llava_plain_tokens(torch, engine, ids, px, sizes, len(out["tokens"]))
+    if plain != out["tokens"]:
+      raise SystemExit(f"chip_smoke: [llava] llava-next: the served answer differs from the uncaptured forward's:\n{out['tokens']}\n{plain}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.image_features(px, sizes)
+    torch.cuda.synchronize()
+    out["tower_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"[llava] llava-1.6-vicuna-7b any-res ({out['tiles']} tiles of 336, {n_feat} features with the newlines; prompt {out['prompt_tokens']} tokens, bucket {-(-out['prompt_tokens'] // 128) * 128}): time to the first token {ttft:.4f} s (device half), the tower and packing {out['tower_ms']:.3f} ms, {len(out['tokens'])} tokens equal to the uncaptured forward's | launches {out['launches']} | {smi}")
+    return out
+  finally:
+    await _daemon_down(node, server, engine)
+
+
 def main() -> int:
   try:
     import torch
@@ -7061,7 +7502,7 @@ def main() -> int:
   smi = phase_device(torch)
   build_s = timed("build", phase_build)
   kern = timed("kernels", phase_kernels, torch)
-  ckpt, draft_dir, gemma_dir, moe_dir, mla_dir = (ROOT / "build" / name for name in ("smoke_ckpt", "smoke_draft", "smoke_gemma2", "smoke_moe", "smoke_mla"))
+  ckpt, draft_dir, gemma_dir, moe_dir, mla_dir, llava_dir = (ROOT / "build" / name for name in ("smoke_ckpt", "smoke_draft", "smoke_gemma2", "smoke_moe", "smoke_mla", "smoke_llava"))
   try:
     write_s = write_checkpoint(torch, ckpt)
     log(f"[serving] wrote a random bf16 llama-3.2-1b checkpoint ({sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9:.2f} GB) in {write_s:.1f} s")
@@ -7084,6 +7525,10 @@ def main() -> int:
     ring = timed("ring", phase_ring, torch, ckpt, smi, serving)
     lora = timed("lora", phase_lora, torch, ckpt, smi)
     shutil.rmtree(ckpt, ignore_errors=True)
+    write_s = timed("llava checkpoint", write_llava_checkpoint, torch, llava_dir)
+    log(f"[llava] wrote a random bf16 llava-1.5-7b checkpoint ({sum(f.stat().st_size for f in llava_dir.iterdir()) / 1e9:.2f} GB, full width, the whole tower and {LLAVA_LAYERS} of the decoder's 32 layers) in {write_s:.1f} s")
+    llava = timed("llava", phase_llava, torch, llava_dir, smi)
+    shutil.rmtree(llava_dir, ignore_errors=True)
     write_s = timed("moe checkpoint", write_moe_checkpoint, torch, moe_dir)
     log(f"[moe] wrote a random bf16 Qwen3-30B-A3B checkpoint ({sum(f.stat().st_size for f in moe_dir.iterdir()) / 1e9:.2f} GB, full width, {MOE_LAYERS} of 48 layers) in {write_s:.1f} s")
     moe_res = timed("moe", phase_moe, torch, moe_dir, smi)
@@ -7101,6 +7546,7 @@ def main() -> int:
     shutil.rmtree(gemma_dir, ignore_errors=True)
     shutil.rmtree(moe_dir, ignore_errors=True)
     shutil.rmtree(mla_dir, ignore_errors=True)
+    shutil.rmtree(llava_dir, ignore_errors=True)
   # Launches per kernel on each main path (the tiered multi-turn pass with
   # the tier on is "batched_tiered": K1, K3): the solo bf16 daemon run (K1,
   # K2), the solo quantized runs (K1; K4 under int4 weights), the solo
@@ -7124,7 +7570,10 @@ def main() -> int:
   # absorbed op, the naive cache-less form and the paged gather are plain),
   # "mla_int4" the int4-weights daemon (K4). "lora" is the multi-LoRA
   # phase: its solo adapter requests (K1) and its batched adapter waves
-  # (paged: K1, K3; dense: K1, K2; int4 weights: K4 with K1, K3).
+  # (paged: K1, K3; dense: K1, K2; int4 weights: K4 with K1, K3). "llava"
+  # is the llava phase on bf16 weights: its counted image and text requests
+  # (K1, K2) and its batched text wave (K1, K3); "llava_int4" the same two
+  # requests on int4 weights (K1, K2, K4).
   bp = batched["passes"]
   paths = {
     "solo": [serving["launches"]], "solo_long_prompt": [serving["long"]["launches"]], "solo_quant": [q["launches"] for q in quant.values()],
@@ -7140,6 +7589,7 @@ def main() -> int:
     "mla": [mla_res["bf16"]["launches"], mla_res["bf16"]["batched"]["launches"]], "mla_int4": [mla_res["int4"]["launches"]],
     "batched_dense": [layouts["bf16_dense"]["launches"]], "batched_draft": [layouts["bf16_draft"]["launches"]], "batched_dense_draft": [layouts["bf16_dense_draft"]["launches"]],
     "fetch": [fetch["launches"]], "lora": [lora["solo"]["launches"], *(p["launches"] for p in lora["passes"].values())],
+    "llava": [llava["bf16"]["launches"], llava["bf16"]["launches_text"], llava["bf16"]["batched"]["launches"]], "llava_int4": [llava["int4"]["launches"], llava["int4"]["launches_text"]],
   }
   by_path = {name: {path: sum(x.get(name, 0) for x in runs) for path, runs in paths.items()} for name in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
   for name in ("flash_prefill", "paged_decode"):
@@ -7158,16 +7608,19 @@ def main() -> int:
   kernels_line = {"kernels": [
     # Head row: Sq 128 at offset 0 against the 4096-slot cache; the solo
     # verify-window and scoring-shape rows' errors count too.
-    {**entry("flash_prefill", "xotorch_support_jetson_tpu_torch/csrc/flash_prefill.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:32", kern["flash_prefill"] + kern["flash_prefill_verify"] + kern["flash_prefill_scoring"] + kern["flash_prefill_moe"] + kern["flash_prefill_b8_verify"], 0),
+    {**entry("flash_prefill", "xotorch_support_jetson_tpu_torch/csrc/flash_prefill.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:32", kern["flash_prefill"] + kern["flash_prefill_verify"] + kern["flash_prefill_scoring"] + kern["flash_prefill_moe"] + kern["flash_prefill_b8_verify"] + kern["flash_prefill_llava"], 0),
+     "llava_rows": [{k: r[k] for k in ("Sq", "q_offset", "kv", "hd", "heads", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_prefill_llava"]],
      "b8_verify_windows": [{k: r[k] for k in ("B", "Sq", "q_offset", "kv", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_prefill_b8_verify"]],
      "moe_rows": [{k: r[k] for k in ("Sq", "q_offset", "kv", "hd", "heads", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_prefill_moe"]],
      "verify_windows": [{k: r[k] for k in ("Sq", "q_offset", "kv", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_prefill_verify"]],
      "scoring_rows": [{k: r[k] for k in ("Sq", "skv", "q_offset", "kv", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_prefill_scoring"]]},
-    {**entry("flash_decode", "xotorch_support_jetson_tpu_torch/csrc/flash_decode.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:190", kern["flash_decode"] + kern["flash_decode_b8"], 0),
+    {**entry("flash_decode", "xotorch_support_jetson_tpu_torch/csrc/flash_decode.cu", "xotorch_support_jetson_tpu/ops/pallas_attention.py:190", kern["flash_decode"] + kern["flash_decode_b8"] + kern["flash_decode_llava"], 0),
+     "llava_rows": [{k: r[k] for k in ("B", "positions", "cache", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_decode_llava"]],
      "b8_rows": [{k: r[k] for k in ("B", "positions", "cache", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["flash_decode_b8"]]},
     # Head row: B=8 at mixed lengths, bf16 pages (the batched path's geometry);
     # the verify-window rows' errors count too.
-    {**entry("paged_decode", "xotorch_support_jetson_tpu_torch/csrc/paged_decode.cu", "xotorch_support_jetson_tpu/ops/paged.py:236", kern["paged_decode"] + kern["paged_window"] + kern["paged_window_w5"] + kern["paged_decode_moe"], 12),
+    {**entry("paged_decode", "xotorch_support_jetson_tpu_torch/csrc/paged_decode.cu", "xotorch_support_jetson_tpu/ops/paged.py:236", kern["paged_decode"] + kern["paged_window"] + kern["paged_window_w5"] + kern["paged_decode_moe"] + kern["paged_decode_llava"], 12),
+     "llava_rows": [{k: r[k] for k in ("B", "kv", "hd", "heads", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["paged_decode_llava"]],
      "drafted_verify_windows": [{k: r[k] for k in ("B", "W", "starts", "kv", "max_abs_err", "ms", "w1_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["paged_window_w5"]],
      "moe_rows": [{k: r[k] for k in ("B", "kv", "hd", "heads", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["paged_decode_moe"]],
      "verify_window": {k: kern["paged_window"][0][k] for k in ("B", "W", "starts", "kv", "ms", "w1_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
@@ -7175,12 +7628,13 @@ def main() -> int:
     # the per-step sums are in chip_smoke.json's int4_matmul_bound. The
     # gemma-2-9b, Qwen3-30B-A3B and DeepSeek-Coder-V2-Lite rows (T=1) count
     # toward the error too.
-    {**entry("int4_matmul", "xotorch_support_jetson_tpu_torch/csrc/int4_matmul.cu", "xotorch_support_jetson_tpu/ops/pallas_int4.py:36", kern["int4_matmul"] + kern["int4_matmul_gemma2"] + kern["int4_matmul_moe"] + kern["int4_matmul_mla"], k4_head),
+    {**entry("int4_matmul", "xotorch_support_jetson_tpu_torch/csrc/int4_matmul.cu", "xotorch_support_jetson_tpu/ops/pallas_int4.py:36", kern["int4_matmul"] + kern["int4_matmul_gemma2"] + kern["int4_matmul_moe"] + kern["int4_matmul_mla"] + kern["int4_matmul_llava"], k4_head),
+     "llava_rows": [{k: r[k] for k in ("weight", "T", "d_in", "d_out", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["int4_matmul_llava"]],
      "mla_rows": [{k: r[k] for k in ("weight", "T", "d_in", "d_out", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["int4_matmul_mla"]],
      "moe_rows": [{k: r[k] for k in ("weight", "T", "d_in", "d_out", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["int4_matmul_moe"]],
      "gemma2_rows": [{k: r[k] for k in ("weight", "T", "d_in", "d_out", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["int4_matmul_gemma2"]]},
   ]}
-  record = dict(card=smi, phase_s=phase_s, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, layouts=layouts, fetch=fetch, processes=processes, ring=ring, lora=lora, moe=moe_res, mla=mla_res, gemma2=gemma, summary=kernels_line)
+  record = dict(card=smi, phase_s=phase_s, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, layouts=layouts, fetch=fetch, processes=processes, ring=ring, lora=lora, llava=llava, moe=moe_res, mla=mla_res, gemma2=gemma, summary=kernels_line)
   out = ROOT / "chiprun_out"
   out.mkdir(exist_ok=True)
   (out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=float))

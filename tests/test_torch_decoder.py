@@ -116,8 +116,8 @@ def test_fused_generate_stops_at_eos():
 
 
 def test_unported_configs_refuse_at_load():
-  # MoE (tests/test_torch_moe.py) and MLA (tests/test_torch_mla.py)
-  # checkpoints load; vision towers still refuse.
+  # MoE (tests/test_torch_moe.py), MLA (tests/test_torch_mla.py) and llava
+  # (tests/test_torch_vision.py) checkpoints load; nothing refuses at parse.
   moe = tconfig.config_from_hf({"model_type": "mixtral", "vocab_size": 8, "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2, "intermediate_size": 8, "num_local_experts": 4})
   assert (moe.family, moe.n_experts, moe.moe_hidden_dim, moe.norm_topk_prob) == ("mixtral", 4, 8, True)
   mla = tconfig.config_from_hf({
@@ -125,5 +125,5 @@ def test_unported_configs_refuse_at_load():
     "qk_nope_head_dim": 4, "qk_rope_head_dim": 2, "v_head_dim": 4,
   })
   assert (mla.family, mla.is_mla, mla.kv_lora_rank, mla.q_lora_rank, mla.qk_head_dim, mla.cache_k_dim, mla.cache_v_dim) == ("deepseek-v2", True, 4, 0, 6, 4, 2)
-  with pytest.raises(NotImplementedError, match="vision"):
-    tconfig.config_from_hf({"model_type": "llava", "text_config": {}, "vision_config": {}})
+  llava = tconfig.config_from_hf({"model_type": "llava", "image_token_index": 32000, "text_config": {"model_type": "llama", "vocab_size": 8, "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2, "intermediate_size": 8}, "vision_config": {"hidden_size": 4, "intermediate_size": 8, "num_hidden_layers": 2, "num_attention_heads": 2, "image_size": 28, "patch_size": 14}})
+  assert (llava.family, llava.dim, llava.image_token_id, llava.vision.n_patches, llava.vision.projector_dim) == ("llama", 8, 32000, 4, 8)

@@ -15,6 +15,7 @@ on. Greedy tokens are identical; logits within rtol = atol = 2e-4."""
 import asyncio
 import dataclasses
 import functools
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -412,6 +413,40 @@ def test_mixed_batch_rows_match_jax_and_merged_solo(monkeypatch, layout):
   assert sorted(reg.resident_names()) == ["a1", "a2"]
   assert tm.counter_value("lora_requests_total", labels={"adapter": "a1"}) == before + 4  # two a1 rows a pass
   assert tm.gauge_value("lora_adapters_resident") == 2
+
+
+def test_batched_adapter_install_runs_off_the_event_loop(monkeypatch):
+  """A cold adapter's install at batched admission (the scheduler runs on
+  the event loop) is written on the engine's executor thread, ahead of the
+  admission's prefill: the loop's thread never copies factors, each row
+  equals its merged solo reference, and ``lora_swap_seconds`` records every
+  write. Without a running loop (a caller's own thread) the install runs
+  where it is called, as before."""
+  monkeypatch.setenv("XOT_TPU_PAGED", "1")
+  engine, reg = _port_engine()
+  writers: list = []
+  write = engine._write_adapter_slot
+
+  def spy(slot, arrays):
+    writers.append(threading.current_thread())
+    return write(slot, arrays)
+
+  monkeypatch.setattr(engine, "_write_adapter_slot", spy)
+  executor_thread = engine.executor.submit(threading.current_thread).result()
+  server = BatchedServer(engine, n_slots=2, chunk=2)
+  swaps = tm.hist_count("lora_swap_seconds")
+  n_gen = 6
+  prompts, names = ref.PROMPTS[:2], ref.NAMES[:2]
+  outs, _ = _serve(server, prompts, names, n_gen)
+  server.shutdown()
+  assert writers and all(t is executor_thread for t in writers) and threading.main_thread() not in writers
+  assert tm.hist_count("lora_swap_seconds") == swaps + len(writers) == swaps + 2  # a1 and a2, one write each
+  merged = {"a1": ref.MERGED_1, "a2": ref.MERGED_2}
+  assert outs == [ref._solo_ref(merged[nm], p, n_gen - 1) for p, nm in zip(prompts, names)]
+  assert not reg.pinned_holders() and reg.pending_install(reg.slot_of("a1")) is None
+  reg.register("a3", ref.ADAPTER_1)
+  reg.acquire("a3")  # no running loop on this thread: written here, at once
+  assert writers[-1] is threading.main_thread() and tm.hist_count("lora_swap_seconds") == swaps + 3
 
 
 def test_block_math_and_pool_deduction_match_jax():

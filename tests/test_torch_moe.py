@@ -312,14 +312,15 @@ def test_registry_moe_cards_equal_the_reference():
 
 
 def test_mla_and_vision_checkpoints_still_refused():
-  # An MLA MoE checkpoint now parses with its MLA fields (tests/test_torch_mla.py); vision still refuses.
+  # An MLA MoE checkpoint now parses with its MLA fields (tests/test_torch_mla.py),
+  # and a llava checkpoint with its tower's (tests/test_torch_vision.py).
   mla = tconfig.config_from_hf({
     "model_type": "deepseek_v2", "vocab_size": 8, "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2, "intermediate_size": 8, "kv_lora_rank": 4,
     "n_routed_experts": 4, "qk_nope_head_dim": 4, "qk_rope_head_dim": 2, "v_head_dim": 4,
   })
   assert (mla.is_mla, mla.n_experts, mla.kv_lora_rank, mla.qk_rope_head_dim, mla.v_head_dim, mla.cache_kv_heads) == (True, 4, 4, 2, 4, 1)
-  with pytest.raises(NotImplementedError, match="vision"):
-    tconfig.config_from_hf({"model_type": "llava", "text_config": {}, "vision_config": {}})
+  llava = tconfig.config_from_hf({"model_type": "llava", "image_token_index": 32000, "text_config": {"model_type": "llama", "vocab_size": 8, "hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 2, "intermediate_size": 8}, "vision_config": {"hidden_size": 4, "intermediate_size": 8, "num_hidden_layers": 2, "num_attention_heads": 2, "image_size": 28, "patch_size": 14}})
+  assert llava.vision is not None and llava.vision.n_run == 1 and llava.n_experts == 0
 
 
 # ------------------------------------------------------------ solo forward

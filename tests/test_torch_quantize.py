@@ -90,8 +90,11 @@ def test_quantize_params_refuses_what_the_port_does_not_load():
   tp = params_from_jax(jax.tree.map(np.asarray, jp), tc, ts)
   with pytest.raises(ValueError, match="unsupported quantization mode"):
     tq.quantize_params(tp, "fp8")
-  with pytest.raises(NotImplementedError, match="vision"):
-    tq.quantize_params({**tp, "vision": {}}, "int8")
+  with pytest.raises(NotImplementedError, match="parameter groups"):
+    tq.quantize_params({**tp, "unet": {}}, "int8")
+  tower = {"vision": {"patch_embed": tp["embed"][:4]}, "projector": {"w1": tp["layers"]["wq"][0]}}
+  kept = tq.quantize_params({**tp, **tower}, "int8")  # llava's tower and projector stay as they are, as the reference's
+  assert kept["vision"] is tower["vision"] and kept["projector"] is tower["projector"]
   assert "moe_layers" in tq.quantize_params({**tp, "moe_layers": {}}, "int8")  # the MoE stack is quantized
   q = tq.quantize_params(tp, "int8")
   assert tq.quantize_params(q, "int8")["layers"]["wq"] is q["layers"]["wq"]  # already int8: left as it is

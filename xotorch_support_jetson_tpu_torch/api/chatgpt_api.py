@@ -19,7 +19,12 @@ identity (``priority``/``deadline_ms``/``tenant`` body fields or
 ``model`` field naming a registered adapter, or the tenant's default; an
 unknown name is a 400 ``unknown_adapter`` before any device work), and an
 overload refusal (a full queue, every adapter slot pinned) is a structured
-429 with ``Retry-After``.
+429 with ``Retry-After``. On a vision model (llava), each ``data:``
+``image_url`` part of a chat message becomes an ``<image>`` placeholder in
+the prompt and its base64 payload rides to the engine in the request's
+state (``remap_messages``); on a text model image parts are dropped. An
+image the server cannot take (no Pillow, an undecodable image, more
+placeholders than images) is a 400.
 A ring whose partition map cannot hold the model answers 507
 ``insufficient_resources`` before anything loads. On a ring node,
 ``logprobs`` (they need the whole model on one node) and ``?scope=cluster``
@@ -48,7 +53,8 @@ from urllib.parse import parse_qs, unquote
 
 from .. import registry
 from ..inference.adapters import UnknownAdapterError, check_known, lora_tenant_map
-from ..inference.engine import PromptTooLongError, ServerOverloadedError
+from ..inference.engine import ImageInputError, PromptTooLongError, ServerOverloadedError
+from ..inference.state import InferenceState
 from ..inference.qos import PRIORITY_CLASSES
 from ..orchestration import slo
 from ..parallel.hbm_planner import RingBudgetError
@@ -67,7 +73,7 @@ class Message:
     self.tools = tools  # per-message tool definitions, rendered by the chat template
 
   def to_dict(self) -> dict:
-    data = {"role": self.role, "content": _flatten(self.content)}
+    data = {"role": self.role, "content": self.content}
     if self.tools:
       data["tools"] = self.tools
     return data
@@ -106,18 +112,40 @@ def find_stop(text: str, stops: tuple) -> tuple[int | None, int]:
   return None, len(text) - hold
 
 
-def _flatten(content) -> str:
-  """Multimodal content blocks → their text parts (images are dropped: the
-  port serves text-only models)."""
-  if isinstance(content, list):
-    return " ".join(part.get("text", "") for part in content if isinstance(part, dict) and part.get("type") == "text")
-  return content
+def remap_messages(messages: list[Message], vision: bool = False) -> tuple[list[Message], list[str]]:
+  """Flatten multimodal content blocks into text, as the reference does.
+  With ``vision`` (the served model has a tower) each ``data:`` image URL
+  becomes an ``<image>`` placeholder (the processor expands it into the
+  image's feature placeholders) and its base64 payload is collected for the
+  engine; on a text model image parts are dropped, leaving no
+  placeholder. Returns (messages with text content, payloads)."""
+  remapped = []
+  images: list[str] = []
+  for message in messages:
+    if isinstance(message.content, list):
+      parts = []
+      for part in message.content:
+        if not isinstance(part, dict):
+          continue
+        if part.get("type") == "text":
+          parts.append(part.get("text", ""))
+        elif part.get("type") == "image_url" and vision:
+          url = (part.get("image_url") or {}).get("url", "")
+          if url.startswith("data:") and "," in url:
+            images.append(url.split(",", 1)[1])
+            parts.append("<image>")
+      remapped.append(Message(message.role, " ".join(parts), message.tools))
+    else:
+      remapped.append(message)
+  return remapped, images
 
 
 def build_prompt(tokenizer, messages: list[Message], tools=None) -> str:
   """The chat template over ``messages`` (with their own ``tools``) and the
-  request's ``tools``, as the reference renders them."""
+  request's ``tools``, as the reference renders them; content blocks not
+  remapped yet lose their image parts (``remap_messages``)."""
   kwargs = {"tools": tools} if tools else {}
+  messages, _ = remap_messages(messages)
   return tokenizer.apply_chat_template([m.to_dict() for m in messages], tokenize=False, add_generation_prompt=True, **kwargs)
 
 
@@ -775,7 +803,7 @@ class ChatGPTAPI:
 
   def _error_response(self, e: Exception) -> _Response:
     """A generation request's failure → its status: 408 timeout, 400 too
-    long a prompt or an unknown adapter, a structured 429 for an overload
+    long a prompt, an unknown adapter or an image the server cannot take, a structured 429 for an overload
     refusal (a full queue or page pool, a rate limit, a deadline shed,
     every adapter slot pinned), 507 for a ring that cannot hold the model,
     else 500."""
@@ -783,6 +811,8 @@ class ChatGPTAPI:
       return json_response({"detail": "Response generation timed out"}, 408)
     if isinstance(e, PromptTooLongError):
       return json_response({"error": {"message": str(e), "type": "invalid_request_error", "code": "context_length_exceeded"}}, 400)
+    if isinstance(e, ImageInputError):
+      return json_response({"error": {"message": str(e), "type": "invalid_request_error", "code": "invalid_image"}}, 400)
     if isinstance(e, UnknownAdapterError):
       return unknown_adapter_response(e)
     if isinstance(e, ServerOverloadedError):
@@ -807,10 +837,19 @@ class ChatGPTAPI:
     self.token_queues.pop(request_id, None)
     self.node.request_options.pop(request_id, None)
 
-  def _start(self, shard, prompt: str, request_id: str, stream: bool, max_tokens, temperature, qos, adapter: str | None = None) -> asyncio.Task:
+  def _start(self, shard, prompt: str, request_id: str, stream: bool, max_tokens, temperature, qos, adapter: str | None = None, images: list[str] | None = None) -> asyncio.Task:
     priority, tenant, deadline_ms = qos
     self.node.set_request_options(request_id, stream=stream, max_tokens=max_tokens, temperature=temperature, priority=priority, tenant=tenant, deadline_ms=deadline_ms, adapter=adapter)
-    return asyncio.create_task(self.node.process_prompt(shard, prompt, request_id))
+    state = InferenceState(extras={"images": images}) if images else None
+    return asyncio.create_task(self.node.process_prompt(shard, prompt, request_id, inference_state=state))
+
+  def _serves_vision(self, model: str) -> bool:
+    """Whether image parts become placeholders: a llava card, or a loaded
+    model with a tower (a local checkpoint served under any id), as the
+    reference decides."""
+    card = registry.model_cards.get(model)
+    engine_cfg = getattr(self.node.inference_engine, "cfg", None)
+    return (card is not None and card.family == "llava") or getattr(engine_cfg, "vision", None) is not None
 
   async def handle_post_chat_completions(self, request, writer):
     try:
@@ -841,11 +880,12 @@ class ChatGPTAPI:
     gen_task = None
     try:
       tokenizer = await self._tokenizer_for(shard)
-      prompt = build_prompt(tokenizer, chat_request.messages, chat_request.tools)
+      messages, images = remap_messages(chat_request.messages, vision=self._serves_vision(chat_request.model))
+      prompt = build_prompt(tokenizer, messages, chat_request.tools)
       # Usage costs one more encode: paid where it is reported (blocking
       # always, streaming with stream_options.include_usage).
       prompt_ids = tokenizer.encode(prompt) if not chat_request.stream or include_usage else []
-      gen_task = self._start(shard, prompt, request_id, chat_request.stream, chat_request.max_tokens, chat_request.temperature, qos, adapter)
+      gen_task = self._start(shard, prompt, request_id, chat_request.stream, chat_request.max_tokens, chat_request.temperature, qos, adapter, images)
       if chat_request.stream:
         return await self._stream_response(writer, chat_request, request_id, tokenizer, created, gen_task, len(prompt_ids), include_usage)
       await asyncio.wait_for(asyncio.shield(gen_task), timeout=self.response_timeout)

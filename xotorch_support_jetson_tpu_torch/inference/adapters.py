@@ -258,6 +258,12 @@ class AdapterRegistry:
   ``geometry`` is ``{stack: {target: (L, d_in, d_out)}}`` of the serving
   model (the engine derives it from its params); ``install(slot, arrays)``
   is the engine-provided device write (``arrays=None`` zeroes the slot).
+  It returns None when the write is done, or a ``concurrent.futures.Future``
+  when it is queued for the engine's device thread (the batched server's
+  admission runs on the event loop, which must not wait on the card): the
+  future's result is the write's own seconds (``lora_swap_seconds``), and
+  ``pending_install(slot)`` hands it to the admission's prefill dispatch,
+  which fails if the write did. A failed queued write frees its slot.
   Thread-safe: ``acquire`` runs from the scheduler's event loop AND the
   engine's executor thread (solo sessions)."""
 
@@ -279,6 +285,7 @@ class AdapterRegistry:
     self._free: list[int] = list(range(1, self.capacity))
     self._pins: dict[object, str] = {}  # holder -> name
     self._pin_counts: dict[str, int] = {}
+    self._pending: dict[int, object] = {}  # slot -> the queued install's Future
     self._update_gauges()
 
   # ------------------------------------------------------------ host tier
@@ -307,10 +314,7 @@ class AdapterRegistry:
       self._enforce_host_budget_locked()
       slot = self._device.get(name)
       if slot is not None:
-        t0 = time.perf_counter()
-        self._install(slot, self._padded(arrays))
-        metrics.observe_hist("lora_swap_seconds", time.perf_counter() - t0)
-        metrics.inc("lora_swaps_total", labels={"direction": "in"})
+        self._run_install(name, slot, arrays)
     self._update_gauges()
 
   def _validate(self, name: str, arrays: dict) -> None:
@@ -389,17 +393,14 @@ class AdapterRegistry:
             )
           slot = self._device.pop(victim)
           metrics.inc("lora_swaps_total", labels={"direction": "out"})
-        t0 = time.perf_counter()
         try:
-          self._install(slot, self._padded(arrays))
+          self._run_install(name, slot, arrays)
         except BaseException:
           # A failed install (device OOM, bad factors) must not leak the
           # slot: it went nowhere, so it returns to the free list — usable
           # capacity never shrinks with failures.
           self._free.append(slot)
           raise
-        metrics.observe_hist("lora_swap_seconds", time.perf_counter() - t0)
-        metrics.inc("lora_swaps_total", labels={"direction": "in"})
         self._device[name] = slot
       self._device.move_to_end(name)
       if holder is not None and self._pins.get(holder) != name:
@@ -409,6 +410,40 @@ class AdapterRegistry:
         metrics.inc("lora_requests_total", labels={"adapter": name})
     self._update_gauges()
     return slot
+
+  def _run_install(self, name: str, slot: int, arrays: dict) -> None:
+    """Write ``arrays`` into ``slot`` through the engine's hook: timed here
+    when the write ran inline, by the write itself when it was queued."""
+    t0 = time.perf_counter()
+    pending = self._install(slot, self._padded(arrays))
+    metrics.inc("lora_swaps_total", labels={"direction": "in"})
+    if pending is None:
+      metrics.observe_hist("lora_swap_seconds", time.perf_counter() - t0)
+      return
+    self._pending[slot] = pending
+    pending.add_done_callback(lambda fut: self._install_done(name, slot, fut))
+
+  def _install_done(self, name: str, slot: int, fut) -> None:
+    """A queued write finished (on the engine's device thread): its
+    seconds into ``lora_swap_seconds``; on failure the slot leaves the
+    resident set (the next acquire writes it again) and the admission's
+    prefill raises the error (``pending_install``)."""
+    with self._lock:
+      if self._pending.get(slot) is fut:
+        del self._pending[slot]
+      err = fut.exception()
+      if err is None:
+        metrics.observe_hist("lora_swap_seconds", fut.result())
+        return
+      if self._device.get(name) == slot:
+        del self._device[name]
+        self._free.append(slot)
+    self._update_gauges()
+
+  def pending_install(self, slot: int):
+    """The queued install of ``slot`` not finished yet (a Future), else None."""
+    with self._lock:
+      return self._pending.get(slot)
 
   def _padded(self, arrays: dict) -> dict:
     """Zero-pad the factors to the registry rank (the stacked width)."""

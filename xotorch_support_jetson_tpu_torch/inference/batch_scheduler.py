@@ -114,8 +114,11 @@ for sampling come from the programs' generator, reseeded before each
 dispatch with a key drawn on the event-loop thread by
 ``engine.split_key()``.
 
-LoRA, disaggregation and drain are not ported yet. A paged server on a
-CUDA engine whose head dim K3 has no variant for raises
+Multi-LoRA rows (inference/adapters.py) pin their adapter's slot at
+admission; a cold adapter's install is queued on the executor thread ahead
+of the admission's prefill, so the event loop never copies factors or
+waits on the card. Disaggregation and drain over a ring are not ported
+yet. A paged server on a CUDA engine whose head dim K3 has no variant for raises
 ``NotImplementedError`` (unless ``XOT_TPU_PAGED_KERNEL=0`` asks for the
 gather path).
 
@@ -583,6 +586,7 @@ class BatchedServer:
     reg = self.engine.adapter_registry if self._lora_active() else None
     check_known(reg, req.adapter)
     req.adapter_slot = reg.acquire(req.adapter, holder=req.request_id)
+    req.adapter_install = reg.pending_install(req.adapter_slot)  # queued on the executor: read by the prefill
 
   def _lora_unpin(self, req: _Request | None) -> None:
     """Drop the request's slot pin (idempotent): called on every path a row
@@ -1084,6 +1088,12 @@ class BatchedServer:
         return firsts
 
     def run():
+      # A queued adapter install ran before this call (one worker, in
+      # order); one that failed fails its group here, before any prefill.
+      for r in group:
+        if r.req.adapter_install is not None:
+          r.req.adapter_install.result()
+          r.req.adapter_install = None
       # The draft's prefill rides the same executor call, queued behind the
       # target's before the first tokens are read back.
       firsts = prefill()

@@ -15,6 +15,12 @@ class PromptTooLongError(ValueError):
   """Prompt exceeds the serving context window; the API answers 400."""
 
 
+class ImageInputError(ValueError):
+  """A request's images cannot be turned into the model's input: Pillow is
+  missing, an image does not decode, or the prompt's ``<image>``
+  placeholders and the images disagree. The API answers 400."""
+
+
 class ServerOverloadedError(RuntimeError):
   """Request admission queue is full (or the page pool cannot hold the
   prompt); the API answers 429."""

@@ -51,9 +51,12 @@ class _Request:
   # Multi-LoRA serving: the named adapter this request selected (None: the
   # base model) and the device slot it holds pinned while admitted
   # (inference/adapters.py). The name survives a preemption, so a resumed
-  # row re-pins its adapter at its next admission.
+  # row re-pins its adapter at its next admission. ``adapter_install`` is
+  # the slot's install when admission queued it for the device thread (a
+  # Future, read by the prefill dispatch: a failed install fails the row).
   adapter: str | None = None
   adapter_slot: int = 0
+  adapter_install: object = None
 
 
 class AdmissionControl:

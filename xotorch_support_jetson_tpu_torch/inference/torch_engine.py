@@ -28,6 +28,22 @@ both the head and the tail). Its sessions take ``ShardPrograms``
 node a hidden state in the model's dtype; only the tail returns logits.
 Speculation, batching and scoring need the whole model on one node.
 
+llava (a checkpoint with a vision tower, models/vision.py): a prompt whose
+state carries images (``extras["images"]``, base64, set by the API) runs
+the host front end (``_image_inputs``: Pillow decode, the checkpoint's
+processor, which expands each ``<image>`` into its feature placeholders)
+and then the device half on the executor thread
+(``_infer_multimodal_sync``, also callable with ids and pixels through
+``infer_image_tokens``): the tower and projector eagerly (family
+``vision.encode``), llava-next's any-res packing, the merge into the
+prompt's embeddings, and the captured embeddings prefill
+(``prefill.embeds``; K1 in every layer on the card). The tower rides with
+the first shard and is kept apart from the decoder's parameters
+(``_vision_params``), so every text path, the batched server included,
+runs the decoder alone. An image session decodes like a text one, but
+never speculates: it has no prompt ids for a draft or an n-gram index, as
+in the reference.
+
 It runs on ``cuda`` unless the caller asks for the CPU (``device="cpu"`` or
 ``XOT_TPU_PLATFORM=cpu``); with no card visible it raises.
 
@@ -81,7 +97,7 @@ import torch
 from ..models.decoder import ShardPrograms, SoloPrograms, fused_decode, fused_generate, init_kv_cache, kv_quant_mode
 from ..utils.helpers import DEBUG, resolve_device
 from ..utils.metrics import FRACTION_BUCKETS, metrics
-from .engine import InferenceEngine, PromptTooLongError
+from .engine import ImageInputError, InferenceEngine, PromptTooLongError
 from .ngram import NgramIndex, ngram_enabled, ngram_knobs
 from .paging import ewma_update, spec_adapt_gamma
 from .shard import Shard
@@ -93,6 +109,12 @@ PREFILL_BUCKET = 128
 
 def _round_up(n: int, multiple: int) -> int:
   return ((n + multiple - 1) // multiple) * multiple
+
+
+def _split_vision(params):
+  """(decoder params, llava's ``vision`` / ``projector`` groups or None)."""
+  vision = {k: params[k] for k in ("vision", "projector") if k in params}
+  return {k: v for k, v in params.items() if k not in vision}, vision or None
 
 
 def _tokenizer_fingerprint(d: Path) -> dict[str, str] | None:
@@ -220,6 +242,9 @@ class TorchShardedInferenceEngine(InferenceEngine):
     # model load resets both.
     self.adapter_registry = None
     self._session_adapters: dict[str, str] = {}
+    # llava: the tower and projector of the loaded first shard, apart from
+    # the decoder's params (None: a text model, or not the first shard).
+    self._vision_params = None
 
   def split_key(self) -> int:
     """A fresh seed for one batched dispatch's sampling generator
@@ -274,7 +299,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
 
       params = quantize_params(params, self.quant)
       cfg = replace(cfg, quant_compute=self.quant_compute)
-    self.params = params
+    self.params, self._vision_params = _split_vision(params)
     self.cfg = cfg
     self.shard = shard
     self._effective_shard = eff
@@ -321,7 +346,8 @@ class TorchShardedInferenceEngine(InferenceEngine):
     from .tokenizers import resolve_tokenizer
 
     repo = registry.get_repo(shard.model_id, type(self).__name__) or shard.model_id
-    self.tokenizer = await resolve_tokenizer(repo, model_dir)
+    # A vision model resolves its processor (the image front end needs it).
+    self.tokenizer = await resolve_tokenizer(repo, model_dir, prefer_processor=self.cfg is not None and self.cfg.vision is not None)
 
   def load_test_model(self, shard: Shard, cfg, params, tokenizer=None) -> None:
     """Directly inject a model (tests)."""
@@ -331,7 +357,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
     self.shard = shard
     self._effective_shard = shard
     self.cfg = cfg
-    self.params = params
+    self.params, self._vision_params = _split_vision(params)
     self.tokenizer = tokenizer
     self._maybe_build_draft(calibrate=False)  # tests exercise the spec path deterministically
     self._clear_sessions()
@@ -505,6 +531,137 @@ class TorchShardedInferenceEngine(InferenceEngine):
     await self.ensure_shard(shard)
     return await asyncio.get_running_loop().run_in_executor(self.executor, self._infer_tensor_sync, request_id, input_data, inference_state)
 
+  # ---------------------------------------------------------------- images
+
+  async def infer_prompt(
+    self,
+    request_id: str,
+    shard: Shard,
+    prompt: str,
+    inference_state: InferenceState | None = None,
+  ) -> tuple[np.ndarray, InferenceState]:
+    """The base encode → ``infer_tensor``, or, when the state carries
+    images and this node holds a vision model's first shard, the image
+    path: the host front end off the executor, then the device half on it.
+    The images leave the state here (the hops after the head carry hidden
+    states only)."""
+    images = inference_state.extras.pop("images", None) if inference_state is not None else None
+    await self.ensure_shard(shard)
+    if images and self.cfg.vision is not None and self._effective_shard.is_first_layer:
+      tokens, pixel_values, image_sizes = await asyncio.to_thread(self._image_inputs, prompt, images)
+      return await asyncio.get_running_loop().run_in_executor(
+        self.executor, self._infer_multimodal_sync, request_id, tokens, pixel_values, image_sizes, inference_state
+      )
+    return await super().infer_prompt(request_id, shard, prompt, inference_state)
+
+  async def infer_image_tokens(self, request_id: str, shard: Shard, input_ids, pixel_values, image_sizes=None, inference_state: InferenceState | None = None):
+    """The image path's device half from the processor's outputs:
+    ``input_ids`` [B, S] (each image's placeholders already expanded),
+    ``pixel_values`` [n, 3, H, W] (llava) or [n, tiles, 3, H, W] with
+    ``image_sizes`` [n, 2] (llava-next any-res). Returns what
+    ``infer_prompt`` returns."""
+    await self.ensure_shard(shard)
+    if self.cfg.vision is None or not self._effective_shard.is_first_layer:
+      raise ValueError("image inputs need a vision model's first shard")
+    return await asyncio.get_running_loop().run_in_executor(
+      self.executor, self._infer_multimodal_sync, request_id, np.asarray(input_ids, dtype=np.int32), np.asarray(pixel_values, dtype=np.float32),
+      None if image_sizes is None else np.asarray(image_sizes, dtype=np.int64), inference_state,
+    )
+
+  def _image_inputs(self, prompt: str, images_b64: list[str]) -> tuple[np.ndarray, np.ndarray, np.ndarray | None]:
+    """The host front end: decode the base64 images with Pillow and run the
+    checkpoint's processor (``self.tokenizer``, an ``AutoProcessor`` for a
+    vision model: it expands each ``<image>`` into the image's feature
+    placeholders and normalizes the pixels to the tower's layout). Returns
+    (input_ids [1, S] int32, pixel_values f32, image_sizes [n, 2] or None).
+    Raises ``ImageInputError`` (the API's 400) without Pillow, on an image
+    that does not decode, and when the processor finds the placeholders
+    outnumber the images (the device half checks the counts again)."""
+    import base64
+    import binascii
+    import io
+
+    try:
+      from PIL import Image, UnidentifiedImageError
+    except ImportError:
+      raise ImageInputError("image input needs Pillow (the PIL package), which is not installed on this server; install Pillow or send text only") from None
+    try:
+      pil_images = [Image.open(io.BytesIO(base64.b64decode(b))).convert("RGB") for b in images_b64]
+    except (binascii.Error, ValueError, UnidentifiedImageError) as e:
+      raise ImageInputError(f"an image_url could not be decoded as a base64 image: {e}") from None
+    try:
+      out = self.tokenizer(text=prompt, images=pil_images, return_tensors="np")
+    except StopIteration:
+      # HF processors raise a bare StopIteration when the placeholders
+      # outnumber the images: an actionable client error instead.
+      raise ImageInputError(
+        f"prompt has more <image> placeholders than attached images ({len(pil_images)}); "
+        "the API inserts one per image_url part: don't also write <image> in the text"
+      ) from None
+    sizes = out.get("image_sizes")
+    return (np.asarray(out["input_ids"], dtype=np.int32), np.asarray(out["pixel_values"], dtype=np.float32), None if sizes is None else np.asarray(sizes, dtype=np.int64))
+
+  def image_features(self, pixel_values: np.ndarray, image_sizes: np.ndarray | None = None) -> torch.Tensor:
+    """The images' features [1, n, D] in the model's dtype, in prompt
+    order: the tower and projector over each image (one batch of all
+    images; for llava-next one batch of each image's own tiles, packed with
+    its grid, unpadding and newlines). Eager, one ``vision.encode``
+    dispatch in the program ledger."""
+    from ..models.vision import anyres_grid_shape, encode_images, pack_anyres_features
+    from ..utils.programs import ledger
+
+    vcfg, vp = self.cfg.vision, self._vision_params
+    if vp is None:
+      raise RuntimeError("the loaded shard holds no vision tower")
+    dev = self.device
+
+    def run():
+      if pixel_values.ndim == 5:
+        packed = []
+        for i in range(pixel_values.shape[0]):
+          osize = (int(image_sizes[i][0]), int(image_sizes[i][1]))
+          gh, gw = anyres_grid_shape(osize, vcfg.grid_pinpoints, vcfg.image_size)
+          tiles = torch.from_numpy(np.ascontiguousarray(pixel_values[i, : 1 + gh * gw])).to(dev)
+          packed.append(pack_anyres_features(encode_images(vp["vision"], vp["projector"], vcfg, tiles), osize, vcfg, vp["projector"]["image_newline"]))
+        return torch.cat(packed, dim=0)[None]
+      return encode_images(vp["vision"], vp["projector"], vcfg, torch.from_numpy(np.ascontiguousarray(pixel_values)).to(dev))
+
+    sig = {"vision": vp, "pixel_values": pixel_values, "image_sizes": None if image_sizes is None else tuple(tuple(int(v) for v in s) for s in image_sizes)}
+    return ledger.dispatch("vision.encode", sig, ("image_sizes",), run)
+
+  def _infer_multimodal_sync(self, request_id, tokens: np.ndarray, pixel_values: np.ndarray, image_sizes, state):
+    """The device half: the images' features merged into the embeddings of
+    ``tokens`` (padded to the prompt's bucket) at the image placeholder
+    positions, then the captured embeddings prefill. The session records
+    the prompt's ids afterwards (``state.tokens``), as the reference does.
+    Placeholders that do not match the features one for one are refused
+    (``ImageInputError``) before any session exists."""
+    from ..models.vision import merge_image_embeddings
+
+    state = state or InferenceState()
+    B, S = tokens.shape
+    feats = self.image_features(pixel_values, image_sizes)
+    n_slots, n_feats = int((tokens == self.cfg.image_token_id).sum()), feats.shape[0] * feats.shape[1]
+    if n_slots != n_feats:
+      # The reference merges whatever it gets (placeholders past the last
+      # feature repeat it; features past the last placeholder are dropped):
+      # the port refuses instead of serving a prompt that lost its images.
+      n_img = pixel_values.shape[0]
+      raise ImageInputError(
+        f"prompt has {'more' if n_slots > n_feats else 'fewer'} <image> placeholders than attached images ({n_img}): "
+        f"{n_slots} placeholder tokens for {n_feats} image features; the API inserts one per image_url part: don't also write <image> in the text"
+      )
+    pad_to = min(_round_up(S, PREFILL_BUCKET), min(self.max_seq_len, self.cfg.max_seq_len))
+    tok_pad = np.zeros((B, pad_to), dtype=np.int32)
+    tok_pad[:, :S] = tokens[:, :pad_to]
+    tok_dev = torch.from_numpy(tok_pad).to(self.device)
+    embeds = self.params["embed"][tok_dev].to(self.cfg.dtype)
+    merged = merge_image_embeddings(embeds, tok_dev, feats, self.cfg.image_token_id)
+    state.prompt_len = S
+    out, state = self._infer_tensor_sync(request_id, merged, state, embeds=True)
+    state.tokens = tokens
+    return out, state
+
   def _take_programs(self, B: int, max_seq: int) -> tuple[SoloPrograms | ShardPrograms, tuple]:
     """A dense cache with its captured programs from the pool (a fresh one
     when the pool has none free under this key), and the key it returns
@@ -568,11 +725,13 @@ class TorchShardedInferenceEngine(InferenceEngine):
     self._cache_pool.clear()
     self._graph_pool = None
 
-  def _infer_tensor_sync(self, request_id, input_data, state):
+  def _infer_tensor_sync(self, request_id, input_data, state, embeds: bool = False):
     """One hop of this shard: a prompt's prefill when the session is new,
     else one position. The input is token ids [B, S] (numpy, on the head)
     or the hidden state the shard before sent (a torch tensor in the
-    model's dtype, padded to the head's bucket in the prefill). The tail
+    model's dtype, padded to the head's bucket in the prefill); with
+    ``embeds``, the head's prompt embeddings [B, S_pad, D] (llava's merged
+    image and text embeddings, a prefill only). The tail
     returns f32 logits [B, V] (numpy), any other shard its hidden state as a
     torch tensor on the host in the model's dtype. A ``replay_epoch`` in the
     state other than the session's drops the session first (the request is
@@ -584,7 +743,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
     x = np.asarray(input_data) if is_tokens else input_data
     if is_tokens and not (x.ndim == 2 and np.issubdtype(x.dtype, np.integer)):
       raise ValueError(f"a shard's input is token ids [B, S] or a hidden-state tensor; got an array of {x.dtype} {x.shape}")
-    if is_tokens != shard.is_first_layer:
+    if (is_tokens or embeds) != shard.is_first_layer or (embeds and is_tokens):
       raise ValueError(f"shard {shard.start_layer}-{shard.end_layer} takes {'token ids' if shard.is_first_layer else 'a hidden state'}")
     B = x.shape[0]
     session = self.sessions.get(request_id)
@@ -608,9 +767,14 @@ class TorchShardedInferenceEngine(InferenceEngine):
         x_in[:, : x.shape[1]] = x
       else:
         x_in = x  # hidden states arrive already padded
-      out = session.programs.prefill(x_in, prompt_len, **self._session_adapter_kw(session))  # one captured program per bucket
+      if embeds:
+        out = session.programs.prefill_embeds(x_in, prompt_len, **self._session_adapter_kw(session))
+      else:
+        out = session.programs.prefill(x_in, prompt_len, **self._session_adapter_kw(session))  # one captured program per bucket
       session.curr_pos = session.prompt_len = prompt_len
     else:
+      if embeds:
+        raise RuntimeError(f"request {request_id} already has a session: embeddings enter a prefill only")
       if session.curr_pos >= session.max_seq:
         raise RuntimeError(f"KV cache exhausted at {session.max_seq} positions for request {request_id}")
       if is_tokens:
@@ -1061,12 +1225,30 @@ class TorchShardedInferenceEngine(InferenceEngine):
     self._drop_batched_server()
     return self.adapter_registry
 
-  def _install_adapter_slot(self, slot: int, arrays: dict | None) -> None:
+  def _install_adapter_slot(self, slot: int, arrays: dict | None):
     """The registry's install hook: write one adapter's (rank-padded)
     factors into slot ``slot`` of the stacked leaves, IN PLACE (``None``
     zeroes the slot). The leaves keep their addresses, so captured graphs
-    read the new factors at their next replay; the copies queue on the
-    current stream behind the work already dispatched."""
+    read the new factors at their next replay. All device work runs on the
+    executor thread: called from a running event loop (the batched
+    server's admission), the write is queued there instead, ahead of every
+    dispatch submitted after it (one worker runs them in order), and its
+    Future is returned (its result: the write's seconds); called on the
+    executor (a solo session) or with no loop (tests, the loader), it runs
+    here and returns None."""
+    try:
+      asyncio.get_running_loop()
+    except RuntimeError:
+      self._write_adapter_slot(slot, arrays)
+      return None
+    return self.executor.submit(self._timed_adapter_write, slot, arrays)
+
+  def _timed_adapter_write(self, slot: int, arrays: dict | None) -> float:
+    t0 = time.perf_counter()
+    self._write_adapter_slot(slot, arrays)
+    return time.perf_counter() - t0
+
+  def _write_adapter_slot(self, slot: int, arrays: dict | None) -> None:
     for stack, layers in self.params.items():
       per = (arrays or {}).get(stack, {})
       for name, leaf in layers.items() if stack in ("layers", "moe_layers") else ():

@@ -1,16 +1,17 @@
 """Model configuration for the decoder families (llama, qwen2/qwen3,
 mistral, phi3, gemma2, the mixture-of-experts mixtral, qwen2-moe and
-qwen3-moe, and deepseek-v2/v3 with multi-head latent attention) and the HF
-``config.json`` → internal mapping.
+qwen3-moe, deepseek-v2/v3 with multi-head latent attention, and llava's
+vision-language checkpoints) and the HF ``config.json`` → internal mapping.
 
 Counterpart of the reference's ``models/config.py``: llama3 / yarn /
 longrope rope scaling, explicit ``head_dim``, qkv bias, qk_norm, tied
 embeddings, gemma2's variations (pre+post norms, GeGLU, softcaps, the
 ``query_pre_attn_scalar`` scale, the sliding window on even layers, the
 sqrt(dim) embed scale), the MoE key space (routed experts, shared
-experts, the routing mode; ops/moe.py) and MLA's latent ranks and head
-dims. ``dtype`` is a torch dtype. Configurations the port does not run yet
-(vision towers) raise ``NotImplementedError`` at load.
+experts, the routing mode; ops/moe.py), MLA's latent ranks and head
+dims, and llava's nested ``text_config`` with its tower's config
+(models/vision.py ``VisionConfig``) and image placeholder id. ``dtype`` is
+a torch dtype.
 """
 
 from __future__ import annotations
@@ -121,6 +122,11 @@ class ModelConfig:
   qk_nope_head_dim: int = 0
   qk_rope_head_dim: int = 0
   v_head_dim: int = 0
+  # --- vision (llava): the CLIP tower's and projector's config
+  # (models/vision.py VisionConfig) and the placeholder id the processor
+  # expands once per image feature.
+  vision: Any = None
+  image_token_id: int = -1
 
   def __post_init__(self):
     if self.head_dim == 0:
@@ -185,19 +191,6 @@ def _family(hf: dict) -> str:
     if key in model_type or key in arch:
       return family
   return "llama"
-
-
-def _refuse_unported(hf: dict, family: str) -> None:
-  """The port's decoder runs none of these yet: refuse at load with the
-  reason instead of serving wrong logits."""
-  reasons = []
-  if "text_config" in hf or hf.get("vision_config"):
-    reasons.append("vision-language checkpoints (llava towers)")
-  if reasons:
-    raise NotImplementedError(
-      f"the PyTorch port does not run {', '.join(reasons)} yet (model family {family!r}); "
-      "serve this checkpoint with the JAX package"
-    )
 
 
 def _rope_scaling(hf: dict):
@@ -293,9 +286,22 @@ def _moe_fields(hf: dict, family: str) -> dict[str, Any]:
 
 
 def config_from_hf(hf: dict, dtype=None) -> ModelConfig:
-  """Map an HF ``config.json`` dict to ModelConfig."""
+  """Map an HF ``config.json`` dict to ModelConfig. A vision-language
+  checkpoint (llava, llava-next) nests its decoder's config under
+  ``text_config``: the decoder runs on it, and the tower's config rides
+  along (``vision``), as the reference parses it."""
+  vision_cfg = None
+  image_token_id = -1
+  if isinstance(hf.get("text_config"), dict):
+    top = hf
+    hf = dict(hf["text_config"])
+    hf.setdefault("vocab_size", top.get("vocab_size", hf.get("vocab_size")))
+    image_token_id = int(top.get("image_token_index", -1))
+    if isinstance(top.get("vision_config"), dict):
+      from .vision import vision_config_from_hf
+
+      vision_cfg = vision_config_from_hf(top["vision_config"], int(hf["hidden_size"]), top)
   family = _family(hf)
-  _refuse_unported(hf, family)
   eos = hf.get("eos_token_id", [])
   if isinstance(eos, int):
     eos = [eos]
@@ -341,6 +347,8 @@ def config_from_hf(hf: dict, dtype=None) -> ModelConfig:
     family=family,
     dtype=dtype or _DTYPES.get(torch_dtype, torch.bfloat16),
     eos_token_ids=tuple(int(e) for e in eos),
+    vision=vision_cfg,
+    image_token_id=image_token_id,
     **_moe_fields(hf, family),
     **mla,
     **gemma,

@@ -13,7 +13,9 @@ latent projections (``wq`` or ``wq_a`` / ``q_a_norm`` / ``wq_b``,
 multi-LoRA slots a serving engine adds (``{wq,wv}_alora_{a,b}`` [L,
 n_slots, ...], inference/adapters.py) come across in ``cfg.dtype``, never
 quantized, so a test builds the port's adapter state from the reference
-engine's. The input is plain numpy
+engine's. A llava tree's ``vision`` (its nested ``layers`` stack) and
+``projector`` groups come across leaf for leaf in ``cfg.dtype``; weight
+quantization leaves them alone in both packages. The input is plain numpy
 (bf16 arrives as an ``ml_dtypes`` array and is reinterpreted bit for bit),
 so this module never imports JAX.
 """
@@ -42,6 +44,7 @@ _STACK_KEYS = {
   "moe_layers": {*_ATTN_KEYS, "wq", "wk", "wv", "wo", "w_router", "router_bias", "w_shared_expert_gate", *_QUANT_MOE_KEYS, *(f"{k}_scale" for k in _QUANT_MOE_KEYS)},
 }
 _TOP_KEYS = {"embed", "final_norm", "lm_head", "lm_head_scale"}
+_VISION_GROUPS = ("vision", "projector")
 
 
 def _leaf(key: str, arr, cfg: ModelConfig, device) -> torch.Tensor:
@@ -65,7 +68,7 @@ def _tensor(arr, dtype, device) -> torch.Tensor:
 
 
 def params_from_jax(np_params: dict, cfg: ModelConfig, shard: Shard, device=None) -> Params:
-  unknown = set(np_params) - _TOP_KEYS - set(_STACK_KEYS)
+  unknown = set(np_params) - _TOP_KEYS - set(_STACK_KEYS) - set(_VISION_GROUPS)
   for name, keys in _STACK_KEYS.items():
     unknown |= {f"{name}/{k}" for k in set(np_params.get(name, {})) - keys}
   if unknown:
@@ -73,5 +76,12 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, shard: Shard, device=None
   params: Params = {name: {k: _leaf(k, v, cfg, device) for k, v in np_params[name].items()} for name in _STACK_KEYS if name in np_params}
   for key in _TOP_KEYS & set(np_params):
     params[key] = _leaf(key, np_params[key], cfg, device)
+
+  def tree(group: dict) -> dict:
+    return {k: tree(v) if isinstance(v, dict) else _tensor(v, cfg.dtype, device) for k, v in group.items()}
+
+  for name in _VISION_GROUPS:
+    if name in np_params:
+      params[name] = tree(np_params[name])
   check_shard_params(params, cfg, shard)
   return params

@@ -1,7 +1,9 @@
 """The decoder: llama 3.x, qwen-2.5/3, mistral, phi-family, gemma2, the
 mixture-of-experts mixtral, qwen2-moe and qwen3-moe checkpoints, and
 deepseek-v2/v3 with multi-head latent attention (MLA). Counterpart of the
-reference's ``models/decoder.py`` (all but the training LoRA leaves and the vision tower). An
+reference's ``models/decoder.py`` (all but the training LoRA leaves; llava's
+vision tower is models/vision.py, and its merged embeddings enter the
+first shard's prefill through ``prefill_embeds``). An
 MLA layer caches only its kv latent and rope channel and attends through
 weight absorption (``ops/attention.py mla_absorbed_attention``); its
 cache-less forward runs the naive per-head K/V through ``gqa_attention``,
@@ -746,6 +748,10 @@ class SoloPrograms:
 
   - ``prefill`` — one prompt padded to its ``PREFILL_BUCKET`` bucket, from
     position 0 (family ``decode.shard_forward``): one graph per bucket;
+  - ``prefill_embeds`` — the same prefill entered with embeddings instead
+    of token ids (llava: the prompt's embeddings with the image features
+    merged in, models/vision.py), family ``prefill.embeds``: one graph per
+    bucket, the embeddings copied into its input buffer;
   - ``forward`` — one token's logits at a position (``decode.shard_forward``);
   - ``decode`` / ``generate`` (``fused_decode`` / ``fused_generate`` with
     ``programs=``): one graph per sampling variant (greedy, or sampled at one
@@ -803,7 +809,7 @@ class SoloPrograms:
     self.hist = torch.zeros((B, S), dtype=torch.int32, device=dev)  # hist[b, p]: the token sampled at position p
     self.offsets = torch.arange(S, dtype=torch.int64, device=dev)
     self.logits = torch.zeros((B, 1, cfg.vocab_size), dtype=torch.float32, device=dev)
-    self._buckets: dict[int, tuple] = {}
+    self._buckets: dict = {}  # by bucket width (token ids) or ("embeds", width)
     self._eos: dict[tuple, torch.Tensor] = {}
     self._graphs: dict[tuple, Graph] = {}
     self._spec: dict[tuple, dict] = {}  # speculation's buffers, by graph key
@@ -863,6 +869,34 @@ class SoloPrograms:
     tokens.copy_(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)))
     head_pos.fill_(int(prompt_len) - 1)
     self._graph(("prefill", S, hook), "decode.shard_forward", body).run(self.device)
+    return self.logits[:, 0, :].clone()
+
+  def prefill_embeds(self, embeds: torch.Tensor, prompt_len: int, adapter_ids=None) -> torch.Tensor:
+    """``prefill`` from embeddings [B, S, D] (model dtype, a bucket's
+    width, from position 0) instead of token ids: logits [B, V] of position
+    ``prompt_len - 1``; the cache is written in place."""
+    sig = {**self._sig(embeds.shape[:2], "prompt_len", adapter_ids), "x": _Like(self.cfg.dtype, embeds.shape, self.device)}
+    return ledger.dispatch("prefill.embeds", sig, ("cfg", "shard"), lambda: self._prefill_embeds(embeds, prompt_len, adapter_ids))
+
+  def _prefill_embeds(self, embeds, prompt_len, adapter_ids=None):
+    B, S = embeds.shape[:2]
+    bufs = self._buckets.get(("embeds", S))
+    if bufs is None:
+      bufs = self._buckets[("embeds", S)] = (
+        torch.zeros((B, S, self.cfg.dim), dtype=self.cfg.dtype, device=self.device),
+        torch.zeros((B,), dtype=torch.int64, device=self.device),
+        torch.arange(S, dtype=torch.int32, device=self.device).expand(B, S),
+      )
+    inp, head_pos, positions = bufs
+    hook = self._adapter(adapter_ids)
+
+    def body():
+      logits, _ = shard_forward(self.params, self.cfg, self.shard, inp, positions, self.cache, head_pos=head_pos, adapter_ids=self.aid if hook else None)
+      self.logits.copy_(logits)
+
+    inp.copy_(embeds)
+    head_pos.fill_(int(prompt_len) - 1)
+    self._graph(("prefill_embeds", S, hook), "prefill.embeds", body).run(self.device)
     return self.logits[:, 0, :].clone()
 
   def forward(self, x: np.ndarray, pos: int, adapter_ids=None) -> torch.Tensor:
@@ -1011,6 +1045,9 @@ class ShardPrograms:
 
   - ``prefill`` — one prompt padded to its bucket, from position 0
     (family ``ring.prefill``): one graph per bucket width;
+  - ``prefill_embeds`` — the head's prefill entered with embeddings [B, S,
+    D] instead of token ids (llava's merged image and text embeddings;
+    family ``prefill.embeds``): one graph per bucket width;
   - ``forward`` — one position per row (family ``ring.step``): one graph.
 
   The head (layer 0) is entered with token ids, every other shard with the
@@ -1035,7 +1072,7 @@ class ShardPrograms:
     self.head_pos = torch.zeros((B,), dtype=torch.int64, device=dev)
     self.step_in = self._input((B, 1))
     self.step_out = torch.zeros((B, 1, cfg.vocab_size if shard.is_last_layer else cfg.dim), dtype=torch.float32 if shard.is_last_layer else cfg.dtype, device=dev)
-    self._buckets: dict[int, tuple] = {}
+    self._buckets: dict = {}  # by bucket width (token ids) or ("embeds", width)
     self._graphs: dict[tuple, Graph] = {}
 
   def _input(self, shape: tuple) -> torch.Tensor:
@@ -1087,6 +1124,33 @@ class ShardPrograms:
     self.head_pos.fill_(int(prompt_len) - 1)
     self._graph(("prefill", S), "ring.prefill", body).run(self.device)
     return out[:, 0, :].clone() if last else out.clone()
+
+  def prefill_embeds(self, embeds: torch.Tensor, prompt_len: int) -> torch.Tensor:
+    """The head's ``prefill`` from embeddings [B, S, D] (model dtype, a
+    bucket's width); returns its hidden state [B, S, D] for the next node."""
+    if not self.shard.is_first_layer:
+      raise ValueError("only the head shard takes embeddings")
+    sig = {**self._sig((self.B, embeds.shape[1]), "prompt_len"), "x": _Like(self.cfg.dtype, embeds.shape, self.device)}
+    return ledger.dispatch("prefill.embeds", sig, ("cfg", "shard"), lambda: self._prefill_embeds(embeds, prompt_len))
+
+  def _prefill_embeds(self, embeds, prompt_len: int) -> torch.Tensor:
+    S = embeds.shape[1]
+    bufs = self._buckets.get(("embeds", S))
+    if bufs is None:
+      bufs = self._buckets[("embeds", S)] = (
+        torch.zeros((self.B, S, self.cfg.dim), dtype=self.cfg.dtype, device=self.device),
+        torch.arange(S, dtype=torch.int32, device=self.device).expand(self.B, S),
+        torch.zeros((self.B, S, self.cfg.dim), dtype=self.cfg.dtype, device=self.device),
+      )
+    inp, positions, out = bufs
+
+    def body():
+      y, _ = shard_forward(self.params, self.cfg, self.shard, inp, positions, self.cache)
+      out.copy_(y)
+
+    inp.copy_(embeds)
+    self._graph(("prefill_embeds", S), "prefill.embeds", body).run(self.device)
+    return out.clone()
 
   def forward(self, x, pos: int) -> torch.Tensor:
     """``x``: one token per row [B, 1] on the head, a hidden state [B, 1, D]

@@ -15,7 +15,12 @@ expert and gate, and each expert's projections written straight into the
 stacked ``[L, E, D, F]`` / ``[L, E, F, D]`` leaves (no second copy of the
 experts at any time). A deepseek-v2/v3 checkpoint's MLA projections load
 as ``wq`` (or ``wq_a`` / ``q_a_norm`` / ``wq_b`` with a ``q_lora_rank``),
-``wkv_a``, ``kv_a_norm`` and ``wkv_b``.
+``wkv_a``, ``kv_a_norm`` and ``wkv_b``. A llava checkpoint prefixes its
+decoder with ``language_model.`` (stripped here); its CLIP tower
+(``vision_tower.vision_model.*``), its projector
+(``multi_modal_projector.*``) and llava-next's ``image_newline`` load as
+the ``vision`` and ``projector`` groups (models/vision.py), on the first
+shard only: the node that embeds the prompt embeds the images.
 """
 
 from __future__ import annotations
@@ -88,6 +93,53 @@ _LAYER_MAP: dict[str, tuple[str, bool]] = {
 _EXPERT_RE = re.compile(r"^(?:block_sparse_moe|mlp)\.experts\.(\d+)\.(w1|w2|w3|gate_proj|up_proj|down_proj)\.weight$")
 _EXPERT_KEY = {"w1": "w_experts_gate", "gate_proj": "w_experts_gate", "w3": "w_experts_up", "up_proj": "w_experts_up", "w2": "w_experts_down", "down_proj": "w_experts_down"}
 
+# llava's CLIP tower: per-layer suffix → (our key, transpose?), and the
+# tower's and the projector's other tensors by name.
+_VISION_LAYER_MAP = {
+  "layer_norm1.weight": ("ln1_scale", False),
+  "layer_norm1.bias": ("ln1_bias", False),
+  "self_attn.q_proj.weight": ("wq", True),
+  "self_attn.q_proj.bias": ("bq", False),
+  "self_attn.k_proj.weight": ("wk", True),
+  "self_attn.k_proj.bias": ("bk", False),
+  "self_attn.v_proj.weight": ("wv", True),
+  "self_attn.v_proj.bias": ("bv", False),
+  "self_attn.out_proj.weight": ("wo", True),
+  "self_attn.out_proj.bias": ("bo", False),
+  "layer_norm2.weight": ("ln2_scale", False),
+  "layer_norm2.bias": ("ln2_bias", False),
+  "mlp.fc1.weight": ("fc1", True),
+  "mlp.fc1.bias": ("bfc1", False),
+  "mlp.fc2.weight": ("fc2", True),
+  "mlp.fc2.bias": ("bfc2", False),
+}
+_VISION_TOP_MAP = {
+  "vision_tower.vision_model.embeddings.class_embedding": "class_embed",
+  "vision_tower.vision_model.embeddings.patch_embedding.weight": "patch_embed",
+  "vision_tower.vision_model.embeddings.position_embedding.weight": "pos_embed",
+  "vision_tower.vision_model.pre_layrnorm.weight": "pre_ln_scale",  # HF's spelling, as stored
+  "vision_tower.vision_model.pre_layrnorm.bias": "pre_ln_bias",
+}
+_PROJECTOR_MAP = {
+  "multi_modal_projector.linear_1.weight": ("w1", True),
+  "multi_modal_projector.linear_1.bias": ("b1", False),
+  "multi_modal_projector.linear_2.weight": ("w2", True),
+  "multi_modal_projector.linear_2.bias": ("b2", False),
+  "image_newline": ("image_newline", False),  # llava-next's row terminator
+}
+_VISION_LAYER_RE = re.compile(r"^vision_tower\.vision_model\.encoder\.layers\.(\d+)\.(.+)$")
+_VISION_PREFIXES = ("vision_tower.", "multi_modal_projector.")
+
+
+def _normalize_name(name: str) -> str:
+  """llava prefixes its decoder with ``language_model.``: strip it so the
+  decoder's maps apply."""
+  return name[len("language_model.") :] if name.startswith("language_model.") else name
+
+
+def _is_vision(raw_name: str) -> bool:
+  return raw_name.startswith(_VISION_PREFIXES) or raw_name == "image_newline"
+
 
 # ------------------------------------------------------------ safetensors codec
 
@@ -149,7 +201,8 @@ def _weight_files_for_shard(model_dir: Path, shard: Shard) -> list[Path]:
   with open(index_path) as f:
     weight_map: dict[str, str] = json.load(f)["weight_map"]
   needed: set[str] = set()
-  for name, fname in weight_map.items():
+  for raw_name, fname in weight_map.items():
+    name = _normalize_name(raw_name)
     m = _LAYER_RE.match(name)
     if m:
       if shard.start_layer <= int(m.group(1)) <= shard.end_layer:
@@ -157,6 +210,8 @@ def _weight_files_for_shard(model_dir: Path, shard: Shard) -> list[Path]:
     elif name.startswith("model.embed_tokens") and (shard.is_first_layer or shard.is_last_layer):
       needed.add(fname)
     elif (name.startswith("model.norm") or name.startswith("lm_head")) and shard.is_last_layer:
+      needed.add(fname)
+    elif _is_vision(raw_name) and shard.is_first_layer:
       needed.add(fname)
   return [model_dir / f for f in sorted(needed)]
 
@@ -173,6 +228,10 @@ def load_shard_weights(model_dir: str | Path, cfg: ModelConfig, shard: Shard, de
   moe_start = groups["moe_layers"][0] if groups["moe_layers"] else 0
   experts: dict[str, torch.Tensor] = {}  # key → [Lm, E, in, out], filled in place
   seen: dict[str, set] = {}
+  vision_layers: dict[str, dict[int, torch.Tensor]] = {}
+  vision_top: dict[str, torch.Tensor] = {}
+  projector: dict[str, torch.Tensor] = {}
+  with_vision = shard.is_first_layer and cfg.vision is not None
 
   def put(t: torch.Tensor, transpose: bool, key: str = "") -> torch.Tensor:
     t = t.to(device=device, dtype=torch.float32 if key == "router_bias" else cfg.dtype)
@@ -189,8 +248,12 @@ def load_shard_weights(model_dir: str | Path, cfg: ModelConfig, shard: Shard, de
     gain stays f32 (a bf16 1 + w loses every |w| < 2^-8)."""
     return t.to(device=device, dtype=torch.float32) + 1.0
 
-  def wanted(name: str) -> bool:
-    """Read from disk only what the shard keeps (a ring node's range)."""
+  def wanted(raw_name: str) -> bool:
+    """Read from disk only what the shard keeps (a ring node's range; the
+    tower and projector on the first shard of a llava model)."""
+    if _is_vision(raw_name):
+      return with_vision
+    name = _normalize_name(raw_name)
     m = _LAYER_RE.match(name)
     if m:
       return shard.start_layer <= int(m.group(1)) <= shard.end_layer
@@ -200,7 +263,21 @@ def load_shard_weights(model_dir: str | Path, cfg: ModelConfig, shard: Shard, de
 
   for file in _weight_files_for_shard(model_dir, shard):
     header, _ = read_safetensors_header(file)
-    for name, t in iter_safetensors(file, names={n for n in header if n != "__metadata__" and wanted(n)}):
+    for raw_name, t in iter_safetensors(file, names={n for n in header if n != "__metadata__" and wanted(n)}):
+      if _is_vision(raw_name):
+        vm = _VISION_LAYER_RE.match(raw_name)
+        if vm and vm.group(2) in _VISION_LAYER_MAP:
+          key, transpose = _VISION_LAYER_MAP[vm.group(2)]
+          vision_layers.setdefault(key, {})[int(vm.group(1))] = put(t, transpose)
+        elif raw_name in _VISION_TOP_MAP:
+          vision_top[_VISION_TOP_MAP[raw_name]] = put(t, False)
+        elif raw_name in _PROJECTOR_MAP:
+          key, transpose = _PROJECTOR_MAP[raw_name]
+          projector[key] = put(t, transpose)
+        elif DEBUG >= 3:
+          print(f"[loader] skipping unmapped tensor {raw_name}")
+        continue
+      name = _normalize_name(raw_name)
       m = _LAYER_RE.match(name)
       if m:
         idx, suffix = int(m.group(1)), m.group(2)
@@ -248,6 +325,13 @@ def load_shard_weights(model_dir: str | Path, cfg: ModelConfig, shard: Shard, de
     params["moe_layers"].update(experts)
   if shard.is_first_layer:
     params["embed"] = top["embed"]
+    if vision_layers:
+      L = cfg.vision.n_layers
+      for key, by_idx in vision_layers.items():
+        if sorted(by_idx) != list(range(L)):
+          raise ValueError(f"vision/{key}: missing layers (have {sorted(by_idx)})")
+      params["vision"] = {**vision_top, "layers": {key: torch.stack([by_idx.pop(i) for i in range(L)]) for key, by_idx in vision_layers.items()}}
+      params["projector"] = projector
   if shard.is_last_layer:
     params["final_norm"] = top["final_norm"]
     if "lm_head" in top:

@@ -26,8 +26,9 @@ import torch
 # Weight leaves eligible for quantization (last two dims [in, out]; expert
 # leaves carry an extra [E] axis), by parameter group, plus the top-level
 # lm_head — the reference's table. Norm gains, biases, routers and the
-# embedding table stay in the model dtype. ``quantize_params`` refuses any
-# other parameter group (the port loads no vision tower).
+# embedding table stay in the model dtype, and so do llava's ``vision`` and
+# ``projector`` groups (the reference quantizes neither).
+# ``quantize_params`` refuses any other parameter group.
 _MLA_LEAVES = ("wq_a", "wq_b", "wkv_a", "wkv_b")
 QUANT_STACK_LEAVES = {
   "layers": ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", *_MLA_LEAVES),
@@ -37,7 +38,7 @@ QUANT_STACK_LEAVES = {
   ),
 }
 QUANT_TOP_LEAVES = ("lm_head",)
-_KNOWN_GROUPS = {*QUANT_STACK_LEAVES, "embed", "final_norm", "lm_head", "lm_head_scale"}
+_KNOWN_GROUPS = {*QUANT_STACK_LEAVES, "embed", "final_norm", "lm_head", "lm_head_scale", "vision", "projector"}
 
 
 def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -11,7 +11,8 @@ that merged the same view).
   here → ``_fast_decode_loop`` (one device loop for a blocking request,
   pipelined chunks for a streaming one). With ``XOT_TPU_BATCHED=1`` every
   prompt goes to the engine's continuous-batching server instead
-  (``_batched_serve``).
+  (``_batched_serve``), except one with images (llava), which takes the
+  solo path, as in the reference.
 - **Ring**: a node that does not own layer 0 forwards the prompt to the one
   that does (``forward_prompt``, one retry over a refreshed topology). The
   head prefills its layers and forwards the hidden state
@@ -340,9 +341,16 @@ class Node:
           except Exception:  # noqa: BLE001
             pass
       return None
-    if os.getenv("XOT_TPU_BATCHED", "0") == "1" and shard.is_last_layer and getattr(self.inference_engine, "supports_batched", lambda: False)():
+    if (
+      os.getenv("XOT_TPU_BATCHED", "0") == "1"
+      and shard.is_last_layer
+      and getattr(self.inference_engine, "supports_batched", lambda: False)()
+      and not (inference_state is not None and inference_state.extras.get("images"))
+    ):
       # Continuous batching (inference/batch_scheduler.py): concurrent
-      # requests share fused decode chunks over the paged pool.
+      # requests share fused decode chunks over the paged pool. A request
+      # with images takes the solo path (the tower and the embeddings
+      # prefill), as in the reference; text requests to the same model batch.
       return await self._batched_serve(base_shard, shard, prompt, request_id)
     self.outstanding_requests[request_id] = "processing"
     try:

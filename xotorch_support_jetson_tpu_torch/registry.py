@@ -1,8 +1,8 @@
 """Model registry: model id → layer count, family, HF repo — the dense,
-gemma2, qwen3-moe and deepseek (MLA + MoE) cards of the reference's
-``registry.py``, keyed by the port engine's class name, and the dummy
-engine's card. llava and diffusion cards wait for the slices that port
-those model families.
+gemma2, qwen3-moe, deepseek (MLA + MoE) and llava (vision) cards of the
+reference's ``registry.py``, keyed by the port engine's class name, and the
+dummy engine's card. The diffusion cards wait for the slice that ports
+that model family.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ class ModelCard:
   model_id: str
   layers: int
   pretty: str
-  family: str  # "llama" | "qwen2" | "qwen3" | "qwen3-moe" | "deepseek-moe" | "mistral" | "phi3" | "gemma2" | "dummy"
+  family: str  # "llama" | "qwen2" | "qwen3" | "qwen3-moe" | "deepseek-moe" | "mistral" | "phi3" | "gemma2" | "llava" | "dummy"
   repo: dict[str, str] = field(default_factory=dict)
 
   def repo_for(self, engine_classname: str) -> str | None:
@@ -44,6 +44,9 @@ _CARDS: list[ModelCard] = [
   _card("deepseek-r1-distill-qwen-1.5b", 28, "DeepSeek R1 Distill Qwen 1.5B", "qwen2", "unsloth/DeepSeek-R1-Distill-Qwen-1.5B"),
   _card("deepseek-r1-distill-qwen-7b", 28, "DeepSeek R1 Distill Qwen 7B", "qwen2", "unsloth/DeepSeek-R1-Distill-Qwen-7B"),
   _card("deepseek-r1-distill-llama-8b", 32, "DeepSeek R1 Distill Llama 8B", "llama", "unsloth/DeepSeek-R1-Distill-Llama-8B"),
+  _card("llava-1.5-7b-hf", 32, "LLaVa 1.5 7B (Vision Model)", "llava", "llava-hf/llava-1.5-7b-hf"),
+  _card("llava-1.6-vicuna-7b", 32, "LLaVa 1.6 Vicuna 7B (Vision Model)", "llava", "llava-hf/llava-v1.6-vicuna-7b-hf"),
+  _card("llava-1.6-mistral-7b", 32, "LLaVa 1.6 Mistral 7B (Vision Model)", "llava", "llava-hf/llava-v1.6-mistral-7b-hf"),
   _card("qwen-2.5-0.5b", 24, "Qwen 2.5 0.5B", "qwen2", "unsloth/Qwen2.5-0.5B-Instruct"),
   _card("qwen-2.5-1.5b", 28, "Qwen 2.5 1.5B", "qwen2", "unsloth/Qwen2.5-1.5B-Instruct"),
   _card("qwen-2.5-3b", 36, "Qwen 2.5 3B", "qwen2", "unsloth/Qwen2.5-3B-Instruct"),

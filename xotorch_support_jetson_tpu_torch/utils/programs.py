@@ -22,7 +22,10 @@ schema and the same signature rule:
   eager and is the dispatch's real work) and replayed at every later run.
   The captured solo programs (models/decoder.py ``SoloPrograms``) are made
   of them — each prefill bucket, decode step, speculative round and n-gram
-  chunk is one replay — and
+  chunk is one replay, and so is each bucket of the prefill entered with
+  embeddings (llava's merged image and text embeddings, family
+  ``prefill.embeds``, the tower itself running eagerly as
+  ``vision.encode``) — and
   so are the batched server's (``BatchedPrograms``): each admission
   prefill and each plain, mixed or speculative chunk, all its steps or
   rounds, is one replay. A run can reseed the graph's generators first
