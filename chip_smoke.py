@@ -474,6 +474,27 @@ Phases (any failure exits non-zero and prints no result):
    in bf16). Phase 3 holds K1–K4 at llava-1.5-7b's shapes.
    ``scripts/llava_phase.py`` runs it at all 32 layers and adds one
    llava-1.6-vicuna-7b any-res request.
+11. diffusion — after the llava checkpoint is removed, a seeded random bf16
+   checkpoint at stabilityai/stable-diffusion-2-1-base's published shapes
+   (``sd21_base_config``: OpenCLIP-H's text tower, the 320 / 640 / 1280 /
+   1280 UNet, the 128 … 512 VAE, 512 px), drawn on the card and written in
+   the diffusers layout by the port's exporter (~2.6 GB, no tokenizer: the
+   crc32 fallback tokenizes; removed after the phase), loaded by the daemon
+   through the port's loader, then over HTTP: a 512 × 512, 20-step DDIM
+   request at guidance 7.5 on ``/v1/image/generations`` (progress 0, 5,
+   10, 15, 20 of 20; the PNG fetched from its URL decodes to 512 × 512
+   RGB), the same request again (identical pixels), ``n=2`` ``b64_json``
+   on ``/v1/images/generations`` (two different images), img2img from an
+   off-grid 500 × 380 PNG at strength 0.5 (512 × 384, 10 steps), two Euler
+   candidates through the engine's pipeline (neither route takes a
+   sampler, in either package), and a chat request refused with the
+   engine's 501; K1–K4 launch 0 times. Then CLIP, one UNet call (t = 500,
+   the guidance batch of 2, 64 × 64) and one VAE decode in bf16 against
+   the same weights in plain f32 within 5e-2 relative L2; a denoise
+   step's, the UNet's, CLIP's and the decode's wall against the profiler's
+   device time and their launches (the step also by CUDA events, which
+   span its host enqueue), the phase's peak memory.
+   ``scripts/diffusion_phase.py`` runs it alone.
 
 The last two lines are the card as ``nvidia-smi`` reports it and
 ``{"ok": true, "device": {...}}``; the line before them is the kernels' JSON
@@ -3503,8 +3524,8 @@ def _gemma_cfg_problem(cfg) -> str:
 
 
 def _leaves(params):
-  for v in params.values():
-    yield from (_leaves(v) if isinstance(v, dict) else [v])
+  for v in params.values() if isinstance(params, dict) else params:
+    yield from (_leaves(v) if isinstance(v, (dict, list)) else [v])
 
 
 async def _daemon_down(node, server, engine):
@@ -7477,6 +7498,259 @@ async def _llava_next(torch, tmain, args, port, smi, layers: int) -> dict:
     await _daemon_down(node, server, engine)
 
 
+# -------------------------------------------------------------- 11. diffusion
+
+DIFFUSION_MODEL = "stable-diffusion-2-1-base"
+DIFFUSION_STEPS = 20
+DIFFUSION_CHECK_TOL = 5e-2  # relative L2: CLIP, one UNet call and one VAE decode in bf16 against plain f32 (PERF.md §2)
+DIFFUSION_PROMPT = "a photograph of an astronaut riding a horse on the moon"
+DIFFUSION_IMG2IMG_SIZE = (500, 380)  # (width, height) of the init PNG: off the 64 px grid both ways
+
+
+def sd21_base_config():
+  """stabilityai/stable-diffusion-2-1-base's published shapes (its
+  text_encoder, unet, vae and scheduler config files): OpenCLIP-H's text
+  tower (1024 wide, 23 layers, 16 heads, FFN 4096, gelu, 77 positions), a
+  UNet of channels 320 / 640 / 1280 / 1280 with 5 / 10 / 20 / 20 heads and
+  1024-wide cross-attention, a VAE of 128 / 256 / 512 / 512, 64 × 64
+  latents (512 px), DDIM with steps_offset 1."""
+  from xotorch_support_jetson_tpu_torch.models import diffusion as d
+
+  return d.DiffusionConfig(
+    clip=d.ClipTextConfig(vocab_size=49408, hidden_size=1024, intermediate_size=4096, n_layers=23, n_heads=16, max_positions=77, act="gelu"),
+    unet=d.UNetConfig(block_out_channels=(320, 640, 1280, 1280), layers_per_block=2, cross_attention_dim=1024, attn_heads=(5, 10, 20, 20)),
+    vae=d.VaeConfig(block_out_channels=(128, 256, 512, 512), layers_per_block=2),
+    sample_size=64, steps_offset=1,
+  )
+
+
+def write_diffusion_checkpoint(torch, path: Path, seed: int = SEED + 22) -> float:
+  """A seeded random bf16 SD-2.1-base checkpoint in the diffusers layout
+  (no tokenizer: the pipeline's crc32 fallback tokenizes), drawn on the
+  card and written by the port's exporter; the seconds it took."""
+  from xotorch_support_jetson_tpu_torch.models import diffusion_loader as dl
+
+  t0 = time.perf_counter()
+  params = dl.init_diffusion_params(torch.Generator(device="cuda").manual_seed(seed), sd21_base_config(), dtype=torch.bfloat16, device="cuda")
+  dl.export_diffusers_checkpoint(path, sd21_base_config(), params)
+  del params
+  gc.collect()
+  torch.cuda.empty_cache()
+  return time.perf_counter() - t0
+
+
+def _png_data_url(width: int, height: int, seed: int) -> str:
+  """A seeded RGB image (a smooth gradient under noise) as a PNG data URL."""
+  import base64
+  import io
+
+  from PIL import Image
+
+  rng = np.random.default_rng(seed)
+  yy, xx = np.mgrid[0:height, 0:width]
+  arr = np.stack([xx * 255 // width, yy * 255 // height, (xx + yy) * 127 // (width + height)], axis=-1) + rng.integers(0, 40, (height, width, 3))
+  buf = io.BytesIO()
+  Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(buf, format="PNG")
+  return "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
+
+
+def _decode_png(raw: bytes) -> np.ndarray:
+  import io
+
+  from PIL import Image
+
+  img = Image.open(io.BytesIO(raw))
+  if img.mode != "RGB":
+    raise SystemExit(f"chip_smoke: [diffusion] a PNG in mode {img.mode}, not RGB")
+  return np.asarray(img)
+
+
+def _image_request(port: int, path: str, body: dict) -> dict:
+  """One image request: its status, wall seconds, progress steps and the
+  decoded images (the streaming route's URLs fetched, or the b64 PNGs)."""
+  import base64
+
+  t0 = time.perf_counter()
+  status, raw = _http(port, "POST", path, body, timeout=900)
+  wall = time.perf_counter() - t0
+  if status != 200:
+    raise SystemExit(f"chip_smoke: [diffusion] {path}: HTTP {status}: {raw[:400]}")
+  if path == "/v1/images/generations":
+    data = json.loads(raw)["data"]
+    return dict(wall_s=wall, steps=[], images=[_decode_png(base64.b64decode(e["b64_json"])) for e in data])
+  lines = [json.loads(line) for line in raw.split("\n") if line.strip()]
+  errors = [line["error"] for line in lines if "error" in line]
+  if errors:
+    raise SystemExit(f"chip_smoke: [diffusion] {path}: {errors}")
+  final = [line for line in lines if "images" in line]
+  images = []
+  for entry in final[0]["images"]:
+    url = entry["url"]
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{url[url.index('/images/'):]}", timeout=120) as resp:
+      images.append(_decode_png(resp.read()))
+  return dict(wall_s=wall, steps=[line["step"] for line in lines if "progress" in line], total=[line["total_steps"] for line in lines if "progress" in line][-1:], images=images)
+
+
+def diffusion_component_checks(torch, pipe, smi: str) -> dict:
+  """CLIP, one UNet call (t = 500, the guidance batch of 2, 64 × 64
+  latents) and one VAE decode of the loaded bf16 pipeline against the same
+  weights in plain f32 (TF32 off), each on the same inputs: relative L2
+  within DIFFUSION_CHECK_TOL. Then where the time goes: a denoise step's,
+  the UNet's, CLIP's and the VAE decode's wall (host clock, synchronized)
+  against the profiler's device time, and their launches. The step is also
+  timed with CUDA events; the 2 ms spin ahead of each call does not cover
+  the host's enqueue of its ~1,800 eager launches, so that figure spans the
+  host's work too and is printed as such, not as device time."""
+  from xotorch_support_jetson_tpu_torch.inference.diffusion_pipeline import _cast
+  from xotorch_support_jetson_tpu_torch.models import diffusion as d
+
+  cfg = pipe.cfg
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+  tokens = torch.from_numpy(np.concatenate([pipe._tokenize(""), pipe._tokenize(DIFFUSION_PROMPT)])).long().cuda()
+  x = torch.randn((2, cfg.unet.in_channels, cfg.sample_size, cfg.sample_size), generator=gen, device="cuda")
+  t = torch.full((2,), 500, dtype=torch.int32, device="cuda")
+  z = torch.randn((1, cfg.vae.latent_channels, cfg.sample_size, cfg.sample_size), generator=gen, device="cuda")
+  with torch.no_grad():
+    got = {"clip": d.clip_text_encode(pipe.params["clip"], cfg.clip, tokens)}
+    f32 = _cast(pipe.params, torch.float32, pipe.device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False  # a true f32 reference
+    try:
+      want = {"clip": d.clip_text_encode(f32["clip"], cfg.clip, tokens)}
+      want["unet"] = d.unet_apply(f32["unet"], cfg.unet, x, t, want["clip"])
+      want["vae_decode"] = d.vae_decode(f32["vae"], cfg.vae, z)
+    finally:
+      torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del f32
+    ctx = want["clip"].to(torch.bfloat16)  # each component on the same inputs
+    got["unet"] = d.unet_apply(pipe.params["unet"], cfg.unet, x.to(torch.bfloat16), t, ctx)
+    got["vae_decode"] = d.vae_decode(pipe.params["vae"], cfg.vae, z.to(torch.bfloat16))
+    errs = {k: _rel_err(got[k], want[k]) for k in want}
+    for k, e in errs.items():
+      log(f"[diffusion] {k} bf16 against plain f32: relative L2 {e:.3e} (shape {tuple(got[k].shape)}; limit {DIFFUSION_CHECK_TOL})")
+      if not (math.isfinite(e) and e <= DIFFUSION_CHECK_TOL) or not torch.isfinite(got[k].float()).all():
+        raise SystemExit(f"chip_smoke: [diffusion] {k} in bf16 is {e:.3e} from plain f32 (limit {DIFFUSION_CHECK_TOL})")
+    del want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ts, a_ts, a_prevs = pipe._schedule(DIFFUSION_STEPS)
+    a_ts_d, a_prevs_d = torch.from_numpy(a_ts).cuda(), torch.from_numpy(a_prevs).cuda()
+    ctx_pair = pipe.encode_prompt(DIFFUSION_PROMPT)
+    lat = x[:1].to(torch.bfloat16)
+
+    def step():
+      return d.sample_chunk(pipe.params["unet"], cfg, lat, ctx_pair, ts[:1], a_ts_d[:1], a_prevs_d[:1], 7.5)
+
+    def unet():
+      return d.unet_apply(pipe.params["unet"], cfg.unet, x.to(torch.bfloat16), t, ctx_pair)
+
+    prof_step = _profile(torch, "diffusion denoise step (eager, CFG batch 2, 64x64 latents)", step, reps=5)
+    step_events_ms = _cuda_ms(torch, step, iters=5, warmup=1)
+    prof_unet = _profile(torch, "diffusion unet call", unet, reps=3)
+    prof_clip = _profile(torch, "diffusion CLIP (the prompt pair)", lambda: d.clip_text_encode(pipe.params["clip"], cfg.clip, tokens), reps=10)
+    prof_vae = _profile(torch, "diffusion VAE decode (512 px)", lambda: d.vae_decode(pipe.params["vae"], cfg.vae, z.to(torch.bfloat16)), reps=3)
+  parts = "; ".join(f"{name}: wall {p['wall_ms']:.3f} ms, device {p['device_ms']:.3f} ms, {p['launches']:.0f} launches" for name, p in (("a denoise step", prof_step), ("the UNet", prof_unet), ("CLIP (the prompt pair)", prof_clip), ("VAE decode (512 px)", prof_vae)))
+  log(f"[diffusion] {parts} (wall: host clock, synchronized; device: the profiler's); a denoise step by CUDA events {step_events_ms:.3f} ms (host-bound: it spans the enqueue) | {smi}")
+  return dict(errors=errs, step=prof_step, step_events_ms=step_events_ms, unet=prof_unet, clip=prof_clip, vae_decode=prof_vae)
+
+
+def phase_diffusion(torch, ckpt: Path, smi: str) -> dict:
+  """stable-diffusion-2-1-base at full width through the daemon (module
+  docstring, phase 11): the checkpoint loaded by the port's loader, the
+  image routes over HTTP, the component checks; K1-K4 never launch."""
+  from xotorch_support_jetson_tpu_torch import main as tmain
+
+  home = ROOT / "build" / "smoke_sd_home"
+  saved = os.environ.get("XOT_TPU_HOME")
+  os.environ["XOT_TPU_HOME"] = str(home)  # the saved PNGs land under the checkout
+  args, port = _daemon_args(tmain, ckpt, model=DIFFUSION_MODEL)
+  torch.cuda.reset_peak_memory_stats()
+  try:
+    out = asyncio.run(_diffusion_serve(torch, tmain, args, port, smi))
+  finally:
+    if saved is None:
+      os.environ.pop("XOT_TPU_HOME", None)
+    else:
+      os.environ["XOT_TPU_HOME"] = saved
+    shutil.rmtree(home, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+  out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+  log(f"[diffusion] peak device memory allocated over the phase {out['peak_allocated_bytes'] / 1e9:.2f} GB | {smi}")
+  return out
+
+
+async def _diffusion_serve(torch, tmain, args, port, smi) -> dict:
+  from xotorch_support_jetson_tpu_torch.inference.diffusion_pipeline import DiffusionPipeline
+  from xotorch_support_jetson_tpu_torch.inference.shard import Shard
+
+  node, api, engine, _ = tmain.build_components(args)
+  if engine.device.type != "cuda":
+    raise SystemExit("chip_smoke: [diffusion] the engine did not choose the card")
+  await node.start()
+  server = await api.run(host="127.0.0.1", port=port)
+  out: dict = {}
+  try:
+    _reset_launches()
+    t0 = time.perf_counter()
+    await engine.ensure_shard(Shard(DIFFUSION_MODEL, 0, 30, 31))
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    pipe = engine.diffusion
+    if not isinstance(pipe, DiffusionPipeline) or pipe.dtype != torch.bfloat16 or pipe.device.type != "cuda" or engine.params is not None:
+      raise SystemExit(f"chip_smoke: [diffusion] the engine did not load a bf16 pipeline on the card: {pipe}")
+    if pipe.cfg != sd21_base_config():
+      raise SystemExit(f"chip_smoke: [diffusion] the loaded config is not SD-2.1-base's: {pipe.cfg}")
+    weights = sum(t.numel() * t.element_size() for t in _leaves(pipe.params))
+    log(f"[diffusion] {DIFFUSION_MODEL} daemon up on 127.0.0.1:{port}; {weights / 1e9:.2f} GB of bf16 weights loaded to the card by the port's loader in {out['load_s']:.1f} s")
+
+    body = {"model": DIFFUSION_MODEL, "prompt": DIFFUSION_PROMPT, "size": [512, 512], "steps": DIFFUSION_STEPS, "guidance": 7.5, "seed": 1}
+    reqs = {}
+    reqs["txt2img"] = await asyncio.to_thread(_image_request, port, "/v1/image/generations", body)
+    reqs["txt2img_again"] = await asyncio.to_thread(_image_request, port, "/v1/image/generations", body)
+    reqs["openai_n2_b64"] = await asyncio.to_thread(_image_request, port, "/v1/images/generations", {"model": DIFFUSION_MODEL, "prompt": DIFFUSION_PROMPT, "n": 2, "size": "512x512", "steps": DIFFUSION_STEPS, "seed": 2, "response_format": "b64_json"})
+    init = _png_data_url(*DIFFUSION_IMG2IMG_SIZE, seed=SEED + 24)
+    reqs["img2img"] = await asyncio.to_thread(_image_request, port, "/v1/image/generations", {**body, "size": None, "image_url": init, "strength": 0.5, "seed": 3})
+    t0 = time.perf_counter()
+    euler = await asyncio.get_running_loop().run_in_executor(engine.executor, lambda: pipe.generate(DIFFUSION_PROMPT, steps=DIFFUSION_STEPS, seed=4, n=2, method="euler"))
+    reqs["euler_n2_engine"] = dict(wall_s=time.perf_counter() - t0, steps=[], images=list(euler))
+    chat_status, chat_raw = await asyncio.to_thread(_http, port, "POST", "/v1/chat/completions", {"model": DIFFUSION_MODEL, "messages": [{"role": "user", "content": "hello"}]})
+    out["launches"] = _kernel_launches()
+
+    # gates
+    if reqs["txt2img"]["steps"] != list(range(0, DIFFUSION_STEPS + 1, 5)) or reqs["txt2img"]["total"] != [DIFFUSION_STEPS]:
+      raise SystemExit(f"chip_smoke: [diffusion] progress steps {reqs['txt2img']['steps']} of {reqs['txt2img']['total']}")
+    shapes = {k: [im.shape for im in r["images"]] for k, r in reqs.items()}
+    want_shapes = {"txt2img": [(512, 512, 3)], "txt2img_again": [(512, 512, 3)], "openai_n2_b64": [(512, 512, 3)] * 2, "img2img": [(384, 512, 3)], "euler_n2_engine": [(512, 512, 3)] * 2}
+    if shapes != want_shapes:
+      raise SystemExit(f"chip_smoke: [diffusion] image shapes {shapes}, expected {want_shapes}")
+    if reqs["img2img"]["steps"][-1] != DIFFUSION_STEPS // 2:
+      raise SystemExit(f"chip_smoke: [diffusion] img2img at strength 0.5 ran {reqs['img2img']['steps']}")
+    if not np.array_equal(reqs["txt2img"]["images"][0], reqs["txt2img_again"]["images"][0]):
+      raise SystemExit("chip_smoke: [diffusion] the same request twice gave different pixels")
+    for k in ("openai_n2_b64", "euler_n2_engine"):
+      a, b = reqs[k]["images"]
+      if np.array_equal(a, b):
+        raise SystemExit(f"chip_smoke: [diffusion] {k}: the two candidates are identical")
+    if chat_status != 501 or "image-generation model" not in chat_raw:
+      raise SystemExit(f"chip_smoke: [diffusion] a chat request to the SD model answered {chat_status}: {chat_raw[:300]}")
+    if any(out["launches"].values()):
+      raise SystemExit(f"chip_smoke: [diffusion] K1-K4 launched on the diffusion path: {out['launches']}")
+    for k, r in reqs.items():
+      spread = [float(np.std(im)) for im in r["images"]]
+      log(f"[diffusion] {k}: {len(r['images'])} image(s) {shapes[k][0]}, wall {r['wall_s']:.3f} s, progress {r['steps']}, pixel std {[round(s, 2) for s in spread]}")
+    log(f"[diffusion] the same request twice: identical pixels; the candidates of each n=2 request differ; a chat request: HTTP {chat_status} ({json.loads(chat_raw)['detail'][:80]}); K1-K4 launches over the requests {out['launches']}")
+    out["requests"] = {k: dict(wall_s=r["wall_s"], steps=r["steps"], shapes=shapes[k]) for k, r in reqs.items()}
+    out["chat_status"] = chat_status
+    out["checks"] = diffusion_component_checks(torch, pipe, smi)
+    if any(_kernel_launches().values()):
+      raise SystemExit(f"chip_smoke: [diffusion] K1-K4 launched in the component checks: {_kernel_launches()}")
+  finally:
+    await _daemon_down(node, server, engine)
+  return out
+
+
 def main() -> int:
   try:
     import torch
@@ -7502,7 +7776,7 @@ def main() -> int:
   smi = phase_device(torch)
   build_s = timed("build", phase_build)
   kern = timed("kernels", phase_kernels, torch)
-  ckpt, draft_dir, gemma_dir, moe_dir, mla_dir, llava_dir = (ROOT / "build" / name for name in ("smoke_ckpt", "smoke_draft", "smoke_gemma2", "smoke_moe", "smoke_mla", "smoke_llava"))
+  ckpt, draft_dir, gemma_dir, moe_dir, mla_dir, llava_dir, sd_dir = (ROOT / "build" / name for name in ("smoke_ckpt", "smoke_draft", "smoke_gemma2", "smoke_moe", "smoke_mla", "smoke_llava", "smoke_sd"))
   try:
     write_s = write_checkpoint(torch, ckpt)
     log(f"[serving] wrote a random bf16 llama-3.2-1b checkpoint ({sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9:.2f} GB) in {write_s:.1f} s")
@@ -7529,6 +7803,11 @@ def main() -> int:
     log(f"[llava] wrote a random bf16 llava-1.5-7b checkpoint ({sum(f.stat().st_size for f in llava_dir.iterdir()) / 1e9:.2f} GB, full width, the whole tower and {LLAVA_LAYERS} of the decoder's 32 layers) in {write_s:.1f} s")
     llava = timed("llava", phase_llava, torch, llava_dir, smi)
     shutil.rmtree(llava_dir, ignore_errors=True)
+    write_s = timed("diffusion checkpoint", write_diffusion_checkpoint, torch, sd_dir)
+    log(f"[diffusion] wrote a random bf16 {DIFFUSION_MODEL} checkpoint ({sum(f.stat().st_size for f in sd_dir.rglob('*') if f.is_file()) / 1e9:.2f} GB, full width, the diffusers layout, no tokenizer) in {write_s:.1f} s")
+    diffusion = timed("diffusion", phase_diffusion, torch, sd_dir, smi)
+    diffusion["write_s"] = write_s
+    shutil.rmtree(sd_dir, ignore_errors=True)
     write_s = timed("moe checkpoint", write_moe_checkpoint, torch, moe_dir)
     log(f"[moe] wrote a random bf16 Qwen3-30B-A3B checkpoint ({sum(f.stat().st_size for f in moe_dir.iterdir()) / 1e9:.2f} GB, full width, {MOE_LAYERS} of 48 layers) in {write_s:.1f} s")
     moe_res = timed("moe", phase_moe, torch, moe_dir, smi)
@@ -7547,6 +7826,7 @@ def main() -> int:
     shutil.rmtree(moe_dir, ignore_errors=True)
     shutil.rmtree(mla_dir, ignore_errors=True)
     shutil.rmtree(llava_dir, ignore_errors=True)
+    shutil.rmtree(sd_dir, ignore_errors=True)
   # Launches per kernel on each main path (the tiered multi-turn pass with
   # the tier on is "batched_tiered": K1, K3): the solo bf16 daemon run (K1,
   # K2), the solo quantized runs (K1; K4 under int4 weights), the solo
@@ -7573,7 +7853,8 @@ def main() -> int:
   # (paged: K1, K3; dense: K1, K2; int4 weights: K4 with K1, K3). "llava"
   # is the llava phase on bf16 weights: its counted image and text requests
   # (K1, K2) and its batched text wave (K1, K3); "llava_int4" the same two
-  # requests on int4 weights (K1, K2, K4).
+  # requests on int4 weights (K1, K2, K4). "diffusion" is the
+  # stable-diffusion phase's requests, where no kernel may launch.
   bp = batched["passes"]
   paths = {
     "solo": [serving["launches"]], "solo_long_prompt": [serving["long"]["launches"]], "solo_quant": [q["launches"] for q in quant.values()],
@@ -7590,6 +7871,7 @@ def main() -> int:
     "batched_dense": [layouts["bf16_dense"]["launches"]], "batched_draft": [layouts["bf16_draft"]["launches"]], "batched_dense_draft": [layouts["bf16_dense_draft"]["launches"]],
     "fetch": [fetch["launches"]], "lora": [lora["solo"]["launches"], *(p["launches"] for p in lora["passes"].values())],
     "llava": [llava["bf16"]["launches"], llava["bf16"]["launches_text"], llava["bf16"]["batched"]["launches"]], "llava_int4": [llava["int4"]["launches"], llava["int4"]["launches_text"]],
+    "diffusion": [diffusion["launches"]],
   }
   by_path = {name: {path: sum(x.get(name, 0) for x in runs) for path, runs in paths.items()} for name in ("flash_prefill", "flash_decode", "paged_decode", "int4_matmul")}
   for name in ("flash_prefill", "paged_decode"):
@@ -7634,7 +7916,7 @@ def main() -> int:
      "moe_rows": [{k: r[k] for k in ("weight", "T", "d_in", "d_out", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["int4_matmul_moe"]],
      "gemma2_rows": [{k: r[k] for k in ("weight", "T", "d_in", "d_out", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in kern["int4_matmul_gemma2"]]},
   ]}
-  record = dict(card=smi, phase_s=phase_s, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, layouts=layouts, fetch=fetch, processes=processes, ring=ring, lora=lora, llava=llava, moe=moe_res, mla=mla_res, gemma2=gemma, summary=kernels_line)
+  record = dict(card=smi, phase_s=phase_s, build_s=build_s, kernels=kern, serving=serving, quant=quant, spec=spec, graphs=graphs, batched=batched, batched_int4_weights=batched_int4, tiered=tiered, layouts=layouts, fetch=fetch, processes=processes, ring=ring, lora=lora, llava=llava, diffusion=diffusion, moe=moe_res, mla=mla_res, gemma2=gemma, summary=kernels_line)
   out = ROOT / "chiprun_out"
   out.mkdir(exist_ok=True)
   (out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=float))

@@ -48,6 +48,10 @@ from xotorch_support_jetson_tpu_torch.models import decoder as tdec
 from xotorch_support_jetson_tpu_torch.utils import programs as tprograms
 from xotorch_support_jetson_tpu_torch.utils.helpers import find_available_port
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=2e-4, atol=2e-4)
 MAX_TOKENS = 12

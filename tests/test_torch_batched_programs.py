@@ -48,6 +48,10 @@ from xotorch_support_jetson_tpu_torch.models import decoder as tdec
 from xotorch_support_jetson_tpu_torch.ops import paged
 from xotorch_support_jetson_tpu_torch.utils.programs import ledger
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 PS = 8
 FAMILIES = ("prefill.pages_many_sampled", "decode.paged_batch", "decode.mixed_paged_batch", "spec.paged_batch")

@@ -18,6 +18,10 @@ from xotorch_support_jetson_tpu_torch.inference import paging as tpaging
 from xotorch_support_jetson_tpu_torch.models import config as tconfig, decoder as tdec
 from xotorch_support_jetson_tpu_torch.ops import kernels, paged as tpaged
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 BATCHES = (1, 2, 4, 5, 16, 17, 48, 49, 96)
 CONTEXTS = (1, 1024, 4096, 4097, 8192, 8193, 65536)
 QUANTS = ("", "int8", "int4")

@@ -17,6 +17,10 @@ from xotorch_support_jetson_tpu_torch.inference.shard import Shard
 from xotorch_support_jetson_tpu_torch.models import config as tconfig, decoder as tdec
 from xotorch_support_jetson_tpu_torch.models.convert import params_from_jax
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 FAMILIES = {
   "llama": dict(rope_theta=500000.0, vocab_size=256),

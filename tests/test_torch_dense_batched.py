@@ -32,6 +32,10 @@ from xotorch_support_jetson_tpu_torch.models.convert import params_from_jax
 from xotorch_support_jetson_tpu_torch.utils.metrics import metrics
 from xotorch_support_jetson_tpu_torch.utils.programs import ledger
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 FAMILIES = ["llama", "gemma2", "qwen3-moe", "deepseek-v2-lite"]
 # Every batched feature at a fixed setting on both sides: no QoS, no tier,

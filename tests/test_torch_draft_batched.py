@@ -29,6 +29,10 @@ from xotorch_support_jetson_tpu_torch.models.quantize import quantize_params as 
 from xotorch_support_jetson_tpu_torch.ops import paged as tpaged
 from xotorch_support_jetson_tpu_torch.utils.metrics import metrics as tmetrics
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 PS = 8
 KNOBS = {"XOT_TPU_QOS": "0", "XOT_TPU_KV_TIER": "0", "XOT_TPU_MIXED_TICK": "0", "XOT_TPU_SLO": "0", "XOT_TPU_PAGE_SIZE": str(PS), "XOT_TPU_SPEC_BATCH": "auto"}

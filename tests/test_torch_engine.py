@@ -19,6 +19,10 @@ from xotorch_support_jetson_tpu_torch.inference.engine import PromptTooLongError
 from xotorch_support_jetson_tpu_torch.inference.shard import Shard
 from xotorch_support_jetson_tpu_torch.inference.torch_engine import TorchShardedInferenceEngine
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 PROMPT = "hello world how are you today the quick brown fox "
 
 

@@ -18,6 +18,10 @@ from xotorch_support_jetson_tpu.ops.attention import gqa_attention as jax_gqa
 from xotorch_support_jetson_tpu_torch.models.quantize import quantize_kv
 from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 

@@ -15,6 +15,10 @@ from xotorch_support_jetson_tpu.ops import pallas_attention as jpa
 from xotorch_support_jetson_tpu_torch.ops import flash_attention as fa
 from xotorch_support_jetson_tpu_torch.ops.kernels import PREFILL_ROWS, SMEM_LIMIT, prefill_item, prefill_plan
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 H100_SMS = 132
 # (B, Sq, Hq, Hkv, hd): llama-3.2-1b's solo bucket and long prompts, the

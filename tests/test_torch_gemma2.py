@@ -43,6 +43,10 @@ from xotorch_support_jetson_tpu_torch.models.convert import params_from_jax
 from xotorch_support_jetson_tpu_torch.models.quantize import quantize_params as tquant
 from xotorch_support_jetson_tpu_torch.ops import paged
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 PS = 8  # page size: the prompts below cross a page boundary
 WINDOW = 4

@@ -61,6 +61,10 @@ from xotorch_support_jetson_tpu_torch.utils.helpers import AsyncCallbackSystem
 from xotorch_support_jetson_tpu_torch.utils.helpers import find_available_port
 from xotorch_support_jetson_tpu_torch.utils.metrics import metrics as tmetrics
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 PACKAGES = {"jax": (jtier, jqos, jmetrics, JaxBatchedServer), "port": (ttier, tqos, tmetrics, BatchedServer)}
 TIER_COUNTERS = ("kv_tier_spilled_pages_total", "kv_tier_restored_pages_total", "kv_tier_host_evictions_total", "qos_preemptions_total")
 

@@ -46,6 +46,10 @@ from xotorch_support_jetson_tpu_torch.ops import paged
 from xotorch_support_jetson_tpu_torch.utils.metrics import metrics as tm
 from xotorch_support_jetson_tpu_torch.utils.programs import ledger
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 TC = tconfig.tiny_test_config(n_layers=2, max_seq_len=256, tied_embedding=True)
 TS = Shard("m", 0, 1, 2)

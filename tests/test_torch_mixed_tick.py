@@ -41,6 +41,10 @@ from xotorch_support_jetson_tpu_torch.models import config as tconfig, decoder a
 from xotorch_support_jetson_tpu_torch.models.convert import params_from_jax
 from xotorch_support_jetson_tpu_torch.ops import paged
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 PS = 8
 QUANTS = ["", "int8", "int4"]

@@ -56,6 +56,10 @@ from xotorch_support_jetson_tpu_torch.ops import moe as tmoe, paged
 from xotorch_support_jetson_tpu_torch.parallel import hbm_planner as tplanner
 from xotorch_support_jetson_tpu_torch.utils.helpers import find_available_port
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 LAYERS = 3
 PS = 8  # page size: the prompts below cross a page boundary

@@ -32,6 +32,10 @@ from xotorch_support_jetson_tpu_torch.topology.device_capabilities import Device
 from xotorch_support_jetson_tpu_torch.topology.topology import Topology
 from xotorch_support_jetson_tpu_torch.utils.helpers import find_available_port
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 CAPS = DeviceCapabilities(model="test", chip="cpu", memory=2048, flops=DeviceFlops(1, 2, 4))
 
 

@@ -17,6 +17,10 @@ from xotorch_support_jetson_tpu_torch.models import config as tconfig
 from xotorch_support_jetson_tpu_torch.models.quantize import dequantize_kv, quantize_kv
 from xotorch_support_jetson_tpu_torch.ops import attention as tattn, norm as tnorm, rope as trope, sampling as tsampling
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 RNG = np.random.default_rng(0)
 

@@ -26,6 +26,10 @@ from xotorch_support_jetson_tpu_torch.models.quantize import quantize_kv_int4, u
 from xotorch_support_jetson_tpu_torch.ops import paged
 from xotorch_support_jetson_tpu_torch.ops.sampling import sample_logits_per_row
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 PS = 8
 

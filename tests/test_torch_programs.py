@@ -43,6 +43,10 @@ from xotorch_support_jetson_tpu_torch.inference.shard import Shard
 from xotorch_support_jetson_tpu_torch.utils.metrics import metrics as tm
 from xotorch_support_jetson_tpu_torch.utils.programs import ProgramLedger, describe_signature, ledger, tracked
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 

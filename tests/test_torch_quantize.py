@@ -23,6 +23,10 @@ from xotorch_support_jetson_tpu_torch.models.convert import params_from_jax
 from xotorch_support_jetson_tpu_torch.models.loader import check_shard_params
 from xotorch_support_jetson_tpu_torch.ops import int4_matmul as k4
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 MODES = {"int8": ("int8", "w8a16"), "w8a8": ("int8", "w8a8"), "int4": ("int4", "w8a16")}
 

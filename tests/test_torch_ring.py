@@ -43,6 +43,10 @@ from xotorch_support_jetson_tpu_torch.topology.device_capabilities import Device
 from xotorch_support_jetson_tpu_torch.utils.helpers import find_available_port
 from xotorch_support_jetson_tpu_torch.utils.programs import ledger
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 MODEL = "llama-3.2-1b"  # the registry card the tiny checkpoint stands in for
 N_LAYERS = 4
 PROMPT = "hello world how are you today the quick brown fox "

@@ -39,6 +39,10 @@ from xotorch_support_jetson_tpu_torch.inference.torch_engine import TorchSharded
 from xotorch_support_jetson_tpu_torch.models import decoder as tdec
 from xotorch_support_jetson_tpu_torch.utils.programs import ledger
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 FAMILIES = ("spec.chunk", "spec.generate", "spec.batch", "decode.fused", "decode.fused_generate")
 SECOND = np.array([[7, 12, 29, 41, 3, 88, 7, 12, 29]], dtype=np.int32)
 

@@ -55,6 +55,10 @@ from xotorch_support_jetson_tpu_torch.models.quantize import quantize_params as 
 from xotorch_support_jetson_tpu_torch.utils.helpers import find_available_port
 from xotorch_support_jetson_tpu_torch.utils.metrics import metrics as tmetrics
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 MAX_SEQ = 128
 SPEC_KNOBS = ("XOT_TPU_SPEC_DECODE", "XOT_TPU_SPEC_DRAFT", "XOT_TPU_SPEC_GAMMA", "XOT_TPU_SPEC_REPROBE", "XOT_TPU_SPEC_NGRAM_N", "XOT_TPU_SPEC_NGRAM_MAX", "XOT_TPU_SPEC_AUTOCAL", "XOT_TPU_QUANT", "XOT_TPU_KV_QUANT")

@@ -32,6 +32,10 @@ from xotorch_support_jetson_tpu_torch.models.convert import params_from_jax
 from xotorch_support_jetson_tpu_torch.models.quantize import quantize_params as tquant
 from xotorch_support_jetson_tpu_torch.utils import synthetic as tsyn
 
+# The suite runs in several worker processes on the CPU: one intra-op
+# thread each keeps torch's thread pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 PROMPT = np.array([[5, 9, 2, 71, 33, 5, 9, 2]], dtype=np.int32)
 TOL = {"f32": 2e-4, "bf16": 2e-2, "int8": 2e-4, "int4": 2e-4}
 

@@ -8,8 +8,12 @@ program ledger), ``POST /v1/warmup`` (build the expected programs before
 traffic), ``/v1/adapters`` (the multi-LoRA registry), the model-management routes (``/initial_models``, the
 ``/modelpool`` SSE stream, ``POST /download``, ``/v1/download/progress``,
 ``DELETE /models/{model_name}``), ``POST /quit``, the ring's merged
-topology (``GET /topology`` and ``/v1/topology``), and the web chat
-(``GET /`` and the static files of ``tinychat/``).
+topology (``GET /topology`` and ``/v1/topology``), the web chat
+(``GET /`` and the static files of ``tinychat/``), and image generation
+on a stable-diffusion model: ``POST /v1/image/generations`` (JSON lines of
+progress, then the saved PNGs' URLs), ``POST /v1/images/generations`` (the
+OpenAI Images shape, ``url`` or ``b64_json``) and ``GET /images/<name>``
+(the saved PNGs, under ``XOT_TPU_HOME/images``).
 
 Counterpart of those routes of the reference's ``api/chatgpt_api.py``, with
 the same request and response shapes: a chat request may carry a QoS
@@ -25,6 +29,12 @@ the prompt and its base64 payload rides to the engine in the request's
 state (``remap_messages``); on a text model image parts are dropped. An
 image the server cannot take (no Pillow, an undecodable image, more
 placeholders than images) is a 400.
+An image request answers 400 for a model outside the stable-diffusion
+family or a bad field, 501 when the engine (or the server: PNGs need
+Pillow) cannot generate images, 408 when the generation outlives its time
+limit, and a client that disconnects stops the denoise at the next chunk;
+a text request to a stable-diffusion model is refused with the engine's
+501. Any request whose body is not read within 30 s is a 408.
 A ring whose partition map cannot hold the model answers 507
 ``insufficient_resources`` before anything loads. On a ring node,
 ``logprobs`` (they need the whole model on one node) and ``?scope=cluster``
@@ -40,12 +50,16 @@ the serving path depends on no web framework.
 from __future__ import annotations
 
 import asyncio
+import base64
 import hashlib
+import importlib.util
+import io
 import json
 import math
 import mimetypes
 import os
 import signal
+import threading
 import time
 import uuid
 from pathlib import Path
@@ -58,11 +72,12 @@ from ..inference.state import InferenceState
 from ..inference.qos import PRIORITY_CLASSES
 from ..orchestration import slo
 from ..parallel.hbm_planner import RingBudgetError
-from ..utils.helpers import DEBUG
+from ..utils.helpers import DEBUG, xot_home
 from ..utils.metrics import metrics
 
 _REASONS = {200: "OK", 204: "No Content", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed", 408: "Request Timeout", 413: "Payload Too Large", 429: "Too Many Requests", 500: "Internal Server Error", 501: "Not Implemented", 507: "Insufficient Storage"}
 MAX_BODY_BYTES = 16 << 20
+BODY_READ_TIMEOUT_S = 30.0  # a request body's read (the reference bounds the image routes' at 30 s)
 STATIC_DIR = Path(__file__).resolve().parent.parent / "tinychat"
 
 
@@ -303,6 +318,7 @@ class _Request:
     self.method, self.path, self.headers, self.body = method, path, headers, body
     self.query = query or {}  # the query string's parameters, last value of each
     self.match = ""  # the path parameter of a prefix route (DELETE /models/{model_name})
+    self.reader: asyncio.StreamReader | None = None  # the connection's read side (a client gone reads EOF)
 
   def json(self):
     """The body as JSON; ValueError when it is not JSON."""
@@ -352,8 +368,9 @@ async def _read_request(reader: asyncio.StreamReader) -> _Request | None:
   n = int(headers.get("content-length", "0") or 0)
   if n > MAX_BODY_BYTES:
     raise ValueError("request body too large")
-  body = await reader.readexactly(n) if n else b""
   path, _, qs = parts[1].partition("?")
+  # A body that does not arrive in time raises asyncio.TimeoutError: a 408.
+  body = await asyncio.wait_for(reader.readexactly(n), BODY_READ_TIMEOUT_S) if n else b""
   return _Request(parts[0].upper(), path, headers, body, {k: v[-1] for k, v in parse_qs(qs).items()})
 
 
@@ -403,6 +420,70 @@ async def _file_response(path: Path | None) -> _Response:
     return json_response({"error": "not found"}, 404)
   data = await asyncio.to_thread(path.read_bytes)
   return _Response(None, data=data, content_type=mimetypes.guess_type(path.name)[0] or "application/octet-stream")
+
+
+def _check_image_fields(n: int, steps: int, size: tuple[int, ...] | None) -> None:
+  """An image request's ranges, as the reference checks them (ValueError)."""
+  if not 1 <= n <= 4:
+    raise ValueError("n must be in [1, 4]")
+  if size is not None:
+    if len(size) != 2:
+      raise ValueError("size must be [height, width]")
+    if not all(8 <= v <= 2048 for v in size):
+      raise ValueError("size dims must be in [8, 2048]")
+  if not 1 <= steps <= 1000:
+    raise ValueError("steps must be in [1, 1000]")
+
+
+def _decode_image_b64(image_url: str):
+  """A data URL or raw base64 → a uint8 RGB array, capped at 2048 px on its
+  long side and its dims floored to a multiple of 8 (the pipeline snaps it
+  onto the model's own grid)."""
+  import numpy as np
+  from PIL import Image
+
+  payload = image_url.split(",", 1)[1] if image_url.startswith("data:") else image_url
+  img = Image.open(io.BytesIO(base64.b64decode(payload))).convert("RGB")
+  w, h = img.size
+  if max(w, h) > 2048:  # one request must not exhaust the worker's memory
+    scale = 2048 / max(w, h)
+    w, h = max(int(w * scale), 8), max(int(h * scale), 8)
+  w8, h8 = max(w // 8 * 8, 8), max(h // 8 * 8, 8)
+  if (w8, h8) != img.size:
+    img = img.resize((w8, h8))
+  return np.asarray(img, dtype=np.uint8)
+
+
+def _png_bytes(image) -> list[bytes]:
+  """uint8 [H, W, 3] or [n, H, W, 3] → one PNG file's bytes per image."""
+  from PIL import Image
+
+  out = []
+  for arr in image if image.ndim == 4 else image[None]:
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    out.append(buf.getvalue())
+  return out
+
+
+async def _client_gone(reader: asyncio.StreamReader | None) -> None:
+  """Returns when the client closes its end of the connection (EOF, or a
+  reset, on its read side); never without a reader."""
+  if reader is None:
+    await asyncio.Event().wait()
+  try:
+    while await reader.read(4096):
+      pass
+  except ConnectionError:
+    pass
+
+
+async def _stop_generation(gen: asyncio.Task, cancel_event: threading.Event) -> None:
+  """Stop an image generation: the denoise loop on the worker thread sees
+  the event before its next chunk; the task's outcome is retrieved."""
+  cancel_event.set()
+  gen.cancel()
+  await asyncio.gather(gen, return_exceptions=True)
 
 
 def _kernel_launch_lines() -> str:
@@ -456,10 +537,12 @@ class ChatGPTAPI:
       ("GET", "/v1/download/progress"): self.handle_get_download_progress,
       ("POST", "/download"): self.handle_post_download,
       ("POST", "/quit"): self.handle_quit,
+      ("POST", "/v1/image/generations"): self.handle_image_generations,
+      ("POST", "/v1/images/generations"): self.handle_openai_image_generations,
       ("GET", "/"): self.handle_root,
     }
     # Routes with one path parameter (the rest of the path, one segment).
-    self.prefix_routes = {("DELETE", "/models/"): self.handle_delete_model}
+    self.prefix_routes = {("DELETE", "/models/"): self.handle_delete_model, ("GET", "/images/"): self.handle_image_file}
 
   # ------------------------------------------------------------- server
 
@@ -488,12 +571,16 @@ class ChatGPTAPI:
         request = await _read_request(reader)
       except (asyncio.IncompleteReadError, asyncio.LimitOverrunError, ValueError, UnicodeDecodeError):
         request = None
+      except asyncio.TimeoutError:
+        await _send_json(writer, json_response({"error": "request body read timed out"}, 408))
+        return
       if request is None:
         await _send_json(writer, json_response({"error": "malformed request"}, 400))
         return
       if request.method == "OPTIONS":
         await _write_head(writer, 204, {"Content-Length": "0", "Connection": "close", **_CORS})
         return
+      request.reader = reader
       handler = self._route(request)
       if handler is None:
         known = any(path == request.path for _, path in self.routes)
@@ -595,6 +682,203 @@ class ChatGPTAPI:
       return json_response({"status": f"Model {model_name} deleted"})
     return json_response({"detail": f"Model {model_name} not found"}, 404)
 
+  # ------------------------------------------------------------- images
+
+  @property
+  def images_dir(self) -> Path:
+    return xot_home() / "images"
+
+  def _image_request_prologue(self, request, allow_default_model: bool = False):
+    """The checks both image routes share → (data, shard, None), or (None,
+    None, the refusal). ``allow_default_model`` (the OpenAI route, where
+    ``model`` is optional) takes the first stable-diffusion card."""
+    try:
+      data = request.json()
+      if not isinstance(data, dict):
+        raise ValueError("invalid JSON body")
+    except ValueError:
+      return None, None, json_response({"error": "invalid JSON body"}, 400)
+    model = data.get("model") or ""
+    if not model and allow_default_model:
+      model = next((m for m in registry.model_cards if registry.get_family(m) == "stable-diffusion"), "")
+      data = {**data, "model": model}
+    if not isinstance(model, str) or registry.get_family(model) != "stable-diffusion":
+      return None, None, json_response({"error": f"Unsupported model for image generation: {model}"}, 400)
+    if not getattr(self.node.inference_engine, "can_generate_images", False):
+      return None, None, json_response({"detail": "image generation models are not supported by this engine"}, 501)
+    shard = registry.build_base_shard(model, self.inference_engine_classname)
+    if shard is None:
+      return None, None, json_response({"error": f"Unsupported model: {model} with engine {self.inference_engine_classname}"}, 400)
+    if importlib.util.find_spec("PIL") is None:
+      return None, None, json_response({"detail": "image generation needs Pillow (the PIL package) to encode PNGs; it is not installed"}, 501)
+    return data, shard, None
+
+  async def handle_image_generations(self, request, writer):
+    """POST /v1/image/generations: JSON lines of progress (``{"progress",
+    "step", "total_steps"}``, at 0 and after every denoise chunk), then
+    ``{"images": [{"url", "content_type"}]}``. Fields: ``model``,
+    ``prompt``, ``image_url`` (img2img, a data URL or base64), and
+    ``negative_prompt``, ``steps``, ``guidance``, ``seed``, ``size``
+    ([height, width]), ``strength``, ``n`` (1-4)."""
+    data, shard, err = self._image_request_prologue(request)
+    if err is not None:
+      return err
+    init_image = None
+    if image_url := data.get("image_url") or "":
+      try:
+        init_image = await asyncio.to_thread(_decode_image_b64, str(image_url))
+      except Exception as e:  # noqa: BLE001 — whatever the payload does to the decoder is a bad image_url
+        return json_response({"error": f"invalid image_url: {e}"}, 400)
+    # Every numeric field is coerced before the 200 goes out: a bad one is
+    # a clean 400, not a truncated stream.
+    try:
+      gen_kwargs = dict(
+        negative=str(data.get("negative_prompt", "")),
+        steps=int(data.get("steps", 30)),
+        guidance=float(data.get("guidance", 7.5)),
+        seed=int(data.get("seed", 0)),
+        size=tuple(int(v) for v in data["size"]) if data.get("size") else None,
+        strength=float(data.get("strength", 0.8)),
+        n=int(data.get("n", 1)),
+      )
+      _check_image_fields(gen_kwargs["n"], gen_kwargs["steps"], gen_kwargs["size"])
+    except (TypeError, ValueError) as e:
+      return json_response({"error": f"invalid parameters: {e}"}, 400)
+
+    request_id = str(uuid.uuid4())
+    await _write_head(writer, 200, {"Content-Type": "application/octet-stream", "Cache-Control": "no-cache", "Connection": "close", **_CORS})
+    progress_q: asyncio.Queue = asyncio.Queue()
+    cancel_event = threading.Event()  # polled by the denoise loop between chunks
+    gen = asyncio.create_task(self.node.process_image_prompt(
+      shard, str(data.get("prompt", "")), request_id, init_image=init_image,
+      progress_cb=lambda done, total: progress_q.put_nowait((done, total)), cancel_event=cancel_event, **gen_kwargs,
+    ))
+    gone = asyncio.create_task(_client_gone(request.reader))
+    get_q = None
+
+    async def line(payload: dict) -> None:
+      writer.write(json.dumps(payload).encode() + b"\n")
+      await writer.drain()
+
+    try:
+      while True:
+        get_q = asyncio.create_task(progress_q.get())
+        finished, _ = await asyncio.wait({gen, get_q, gone}, return_when=asyncio.FIRST_COMPLETED, timeout=self.response_timeout)
+        if get_q in finished:
+          done, total = get_q.result()
+          pct = int(100 * done / max(total, 1))
+          bar = "-" * max(pct // 2 - 1, 0) + ">" + " " * (50 - max(pct // 2, 1))
+          await line({"progress": f"Progress: [{bar}] {pct}% ({done}/{total})", "step": done, "total_steps": total})
+          continue
+        if gen in finished:
+          break
+        if gone in finished:
+          raise ConnectionResetError("the client closed the connection")
+        await _stop_generation(gen, cancel_event)
+        await line({"error": "image generation timed out"})
+        return None
+      image = gen.result()  # uint8 [H, W, 3], or [n, H, W, 3]
+      urls = await self._save_images(request, request_id, image)
+      await line({"images": [{"url": u, "content_type": "image/png"} for u in urls]})
+    except asyncio.CancelledError:
+      await _stop_generation(gen, cancel_event)
+      raise
+    except Exception as e:  # noqa: BLE001 — the response is committed: a failure (or a client gone) is reported in-band
+      await _stop_generation(gen, cancel_event)
+      if DEBUG >= 2:
+        import traceback
+
+        traceback.print_exception(e)
+      try:
+        await line({"error": str(e)})
+      except (ConnectionError, RuntimeError):
+        pass  # the client is gone
+    finally:
+      for task in (get_q, gone):
+        if task is not None and not task.done():
+          task.cancel()
+    return None
+
+  async def handle_openai_image_generations(self, request, writer):
+    """POST /v1/images/generations, the OpenAI Images shape: a blocking
+    ``{"created", "data": [{"url"} | {"b64_json"}]}``. Fields: ``prompt``,
+    ``n`` (1-4), ``size`` ("WxH"), ``response_format`` ("url" or
+    ``b64_json``), ``model`` (default: the first stable-diffusion card),
+    ``steps``, ``seed``, ``negative_prompt``."""
+    data, shard, err = self._image_request_prologue(request, allow_default_model=True)
+    if err is not None:
+      return err
+    try:
+      n = int(data.get("n", 1))
+      size = None
+      if data.get("size"):
+        w, h = (int(v) for v in str(data["size"]).lower().split("x"))
+        size = (h, w)
+      steps = int(data.get("steps", 30))
+      _check_image_fields(n, steps, size)
+      seed = int(data.get("seed", 0))
+      negative = str(data.get("negative_prompt", ""))
+      response_format = str(data.get("response_format", "url"))
+      if response_format not in ("url", "b64_json"):
+        raise ValueError("response_format must be 'url' or 'b64_json'")
+    except (TypeError, ValueError) as e:
+      return json_response({"error": f"invalid parameters: {e}"}, 400)
+
+    request_id = str(uuid.uuid4())
+    cancel_event = threading.Event()
+    gen = asyncio.create_task(self.node.process_image_prompt(
+      shard, str(data.get("prompt", "")), request_id, negative=negative, steps=steps, seed=seed, size=size, n=n, cancel_event=cancel_event,
+    ))
+    gone = asyncio.create_task(_client_gone(request.reader))
+    try:
+      # ten times the response timeout, as the reference's image wait
+      finished, _ = await asyncio.wait({gen, gone}, return_when=asyncio.FIRST_COMPLETED, timeout=self.response_timeout * 10)
+      if gen not in finished:
+        await _stop_generation(gen, cancel_event)
+        return None if gone in finished else json_response({"error": "image generation timed out"}, 408)
+      image = gen.result()
+    except asyncio.CancelledError:
+      await _stop_generation(gen, cancel_event)
+      raise
+    except NotImplementedError as e:
+      return json_response({"error": str(e)}, 501)
+    except Exception as e:  # noqa: BLE001 — the API boundary reports every failure with its status
+      if DEBUG >= 2:
+        import traceback
+
+        traceback.print_exception(e)
+      return json_response({"error": str(e)}, 500)
+    finally:
+      if not gone.done():
+        gone.cancel()
+
+    if response_format == "b64_json":
+      entries = [{"b64_json": base64.b64encode(png).decode()} for png in await asyncio.to_thread(_png_bytes, image)]
+    else:
+      entries = [{"url": u} for u in await self._save_images(request, request_id, image)]
+    return json_response({"created": int(time.time()), "data": entries})
+
+  async def _save_images(self, request, request_id: str, image) -> list[str]:
+    """uint8 [H, W, 3] or [n, H, W, 3] → PNGs under ``images_dir``, their
+    absolute URLs (``GET /images/<name>``)."""
+    pngs = await asyncio.to_thread(_png_bytes, image)
+    names = [f"{request_id}.png"] if len(pngs) == 1 else [f"{request_id}-{i}.png" for i in range(len(pngs))]
+    folder = self.images_dir
+    await asyncio.to_thread(folder.mkdir, parents=True, exist_ok=True)
+    for name, png in zip(names, pngs):
+      await asyncio.to_thread((folder / name).write_bytes, png)
+    host = request.headers.get("host") or "127.0.0.1"
+    return [f"http://{host}/images/{name}" for name in names]
+
+  async def handle_image_file(self, request, writer):
+    """GET /images/<name>: a saved PNG (a path that leaves the folder is a
+    404)."""
+    root = self.images_dir.resolve()
+    target = (root / request.match).resolve()
+    if not (target.is_relative_to(root) and target.is_file()):
+      return json_response({"error": "not found"}, 404)
+    return await _file_response(target)
+
   async def handle_post_chat_token_encode(self, request, writer):
     """POST /v1/chat/token/encode — the chat template's prompt and its ids."""
     try:
@@ -610,7 +894,10 @@ class ChatGPTAPI:
     shard = registry.build_base_shard(model, self.inference_engine_classname)
     if shard is None:
       return json_response({"error": f"Unsupported model: {model}"}, 400)
-    tokenizer = await self._tokenizer_for(shard)
+    try:
+      tokenizer = await self._tokenizer_for(shard)
+    except NotImplementedError as e:
+      return self._error_response(e)
     prompt = build_prompt(tokenizer, messages, data.get("tools"))
     tokens = tokenizer.encode(prompt)
     return json_response({"length": len(prompt), "num_tokens": len(tokens), "encoded_tokens": [int(t) for t in tokens], "encoded_prompt": prompt})
@@ -766,6 +1053,8 @@ class ChatGPTAPI:
     if check is not None:
       check(shard)  # a ring that cannot hold the model loads nothing
     await engine.ensure_shard(self.node.get_current_shard(shard))
+    if getattr(engine, "diffusion", None) is not None:
+      raise NotImplementedError(f"{shard.model_id} is an image-generation model; use /v1/image/generations")
     return engine.tokenizer
 
   async def _next_tokens(self, request_id: str, gen_task: asyncio.Task):
@@ -806,7 +1095,8 @@ class ChatGPTAPI:
     long a prompt, an unknown adapter or an image the server cannot take, a structured 429 for an overload
     refusal (a full queue or page pool, a rate limit, a deadline shed,
     every adapter slot pinned), 507 for a ring that cannot hold the model,
-    else 500."""
+    501 for what the engine cannot serve (text on an image model), else
+    500."""
     if isinstance(e, asyncio.TimeoutError):
       return json_response({"detail": "Response generation timed out"}, 408)
     if isinstance(e, PromptTooLongError):
@@ -819,6 +1109,8 @@ class ChatGPTAPI:
       return overloaded_response(e)
     if isinstance(e, RingBudgetError):
       return json_response({"error": {"message": str(e), "type": "insufficient_resources"}}, 507)
+    if isinstance(e, NotImplementedError):
+      return json_response({"detail": str(e)}, 501)
     if DEBUG >= 1:
       import traceback
 

@@ -9,8 +9,9 @@ for good, so a model deleted through ``DELETE /models/{name}`` would still
 resolve). The hub downloader first resolves what is on disk
 (``LocalShardDownloader``): ``XOT_TPU_MODEL_DIR``, or else the model's own
 directory under ``get_models_dir()`` (``XOT_TPU_HOME/downloads/<owner>--<repo>``)
-when it holds ``config.json`` and every safetensors file the shard needs —
-a model seeded there (``seed_models``) or fetched earlier — its files
+when it holds ``config.json`` and every safetensors file the shard needs
+(a diffusers checkpoint: ``model_index.json`` and its three component
+weights) — a model seeded there (``seed_models``) or fetched earlier — its files
 reported complete on ``on_progress``. Otherwise it fetches the shard's
 files from the hub API at ``HF_ENDPOINT`` (``HFShardDownloader``: the
 listing, ranged resume from ``.partial`` files, parallel fetches, the
@@ -35,7 +36,7 @@ from typing import Callable
 
 from ..inference.shard import Shard
 from ..utils.helpers import DEBUG, AsyncCallbackSystem, env_flag, xot_home
-from .hf_utils import extract_weight_map, filter_repo_objects, get_allow_patterns, get_auth_headers, get_hf_endpoint
+from .hf_utils import DIFFUSERS_WEIGHTS, extract_weight_map, filter_repo_objects, get_allow_patterns, get_auth_headers, get_hf_endpoint
 from .progress import RepoFileProgressEvent, RepoProgressEvent
 
 
@@ -155,8 +156,13 @@ def _local_complete(model_dir: Path, shard: Shard) -> bool:
   """Whether ``model_dir`` holds the shard's checkpoint whole: config.json,
   no ``.partial`` file left by an interrupted fetch, and every safetensors
   file the shard needs (those its weight map names, or any one without a
-  map)."""
-  if not (model_dir / "config.json").is_file() or any(model_dir.rglob("*.partial")):
+  map). A diffusers checkpoint has ``model_index.json`` and its three
+  component weights instead."""
+  if any(model_dir.rglob("*.partial")):
+    return False
+  if (model_dir / "model_index.json").is_file():
+    return all((model_dir / p).is_file() for p in DIFFUSERS_WEIGHTS)
+  if not (model_dir / "config.json").is_file():
     return False
   index = model_dir / "model.safetensors.index.json"
   weight_map = extract_weight_map(index.read_text()) if index.is_file() else None

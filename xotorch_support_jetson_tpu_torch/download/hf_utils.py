@@ -58,13 +58,28 @@ DEFAULT_ALLOW_PATTERNS = [
 ]
 
 
+DIFFUSERS_WEIGHTS = (
+  "text_encoder/model.safetensors",
+  "unet/diffusion_pytorch_model.safetensors",
+  "vae/diffusion_pytorch_model.safetensors",
+)
+
+
 def get_allow_patterns(weight_map: dict[str, str] | None, shard: Shard) -> list[str]:
   """The repo files this shard needs: with a weight map, only the
   safetensors files holding its layer range (plus embed / norm / lm_head
   when it holds the first or last layer); without one, every safetensors
-  file (single-file repos). The port serves no diffusers layout yet."""
+  file (single-file repos), or for a stable-diffusion card the three
+  component files of the diffusers layout."""
   patterns = list(DEFAULT_ALLOW_PATTERNS)
   if not weight_map:
+    from .. import registry
+
+    if registry.get_family(shard.model_id) == "stable-diffusion":
+      # only the weights the loader reads (models/diffusion_loader.py): a
+      # bare "*.safetensors" would also take the repo's multi-GB root
+      # checkpoints and every .fp16 copy
+      return patterns + list(DIFFUSERS_WEIGHTS)
     return patterns + ["*.safetensors"]
   needed: set[str] = set()
   for name, filename in weight_map.items():

@@ -29,6 +29,10 @@ class ServerOverloadedError(RuntimeError):
 class InferenceEngine(ABC):
   """A model-executing backend bound to one shard at a time."""
 
+  # Whether ``generate_image`` serves stable-diffusion checkpoints (the
+  # image routes answer 501 otherwise).
+  can_generate_images = False
+
   @abstractmethod
   async def encode(self, shard: Shard, prompt: str) -> np.ndarray:
     ...

@@ -44,6 +44,13 @@ runs the decoder alone. An image session decodes like a text one, but
 never speculates: it has no prompt ids for a draft or an n-gram index, as
 in the reference.
 
+Stable diffusion: a diffusers checkpoint (``model_index.json`` at its root)
+loads as a DiffusionPipeline (inference/diffusion_pipeline.py) in bf16, the
+whole model on this node, after every piece of a text model's device state
+is freed; ``generate_image`` runs it on the executor thread with progress
+marshalled back to the loop and a cancel event polled between chunks. Text
+inference on it is refused (``encode``), as in the reference.
+
 It runs on ``cuda`` unless the caller asks for the CPU (``device="cpu"`` or
 ``XOT_TPU_PLATFORM=cpu``); with no card visible it raises.
 
@@ -181,6 +188,8 @@ class _Session:
 
 
 class TorchShardedInferenceEngine(InferenceEngine):
+  can_generate_images = True
+
   def __init__(self, shard_downloader=None, max_seq_len: int | None = None, seed: int = 0, device=None, tokenizer=None, quant: str | None = None, spec_decode: str | None = None):
     self.quant = (quant if quant is not None else os.getenv("XOT_TPU_QUANT", "")) or None
     if self.quant not in (None, "int8", "int4"):
@@ -245,6 +254,9 @@ class TorchShardedInferenceEngine(InferenceEngine):
     # llava: the tower and projector of the loaded first shard, apart from
     # the decoder's params (None: a text model, or not the first shard).
     self._vision_params = None
+    # The DiffusionPipeline of a loaded stable-diffusion checkpoint (None: a
+    # text model is loaded, or nothing).
+    self.diffusion = None
 
   def split_key(self) -> int:
     """A fresh seed for one batched dispatch's sampling generator
@@ -280,6 +292,12 @@ class TorchShardedInferenceEngine(InferenceEngine):
     from ..models.config import load_model_config
     from ..models.loader import load_shard_weights
 
+    # A diffusers checkpoint (model_index.json at its root) takes the
+    # image-generation path.
+    if (Path(model_dir) / "model_index.json").exists():
+      self._load_diffusion_sync(shard, model_dir)
+      return
+    self.diffusion = None
     cfg = load_model_config(model_dir)
     cfg = replace(cfg, max_seq_len=self._serving_cap(cfg))
     eff = shard
@@ -339,6 +357,8 @@ class TorchShardedInferenceEngine(InferenceEngine):
         print(f"[torch_engine] skipping adapter {path.name}: {e}")
 
   async def _load_tokenizer(self, shard: Shard, model_dir) -> None:
+    if self.diffusion is not None:  # its CLIP tokenizer came with the checkpoint
+      return
     if self._fixed_tokenizer is not None:
       self.tokenizer = self._fixed_tokenizer
       return
@@ -352,6 +372,7 @@ class TorchShardedInferenceEngine(InferenceEngine):
   def load_test_model(self, shard: Shard, cfg, params, tokenizer=None) -> None:
     """Directly inject a model (tests)."""
     self._refuse_partial_spec(shard)
+    self.diffusion = None
     self._drop_batched_server()
     self.adapter_registry = None
     self.shard = shard
@@ -363,6 +384,93 @@ class TorchShardedInferenceEngine(InferenceEngine):
     self._clear_sessions()
     self.generator.manual_seed(self._seed)
     self._key_gen.manual_seed(self._seed)
+
+  # ------------------------------------------------------- image generation
+
+  def _drop_text_model(self) -> None:
+    """Free every piece of a text model's device state: its params, draft
+    and vision tower, the pooled caches and sessions, the batched server,
+    the adapter registry."""
+    self._drop_batched_server()
+    self.adapter_registry = None
+    self._session_adapters.clear()
+    self.params = self._draft_params = self._vision_params = None
+    self._draft_cfg = self._draft_shard = None
+    self.cfg = None
+    self._clear_sessions()
+
+  def _load_diffusion_sync(self, shard: Shard, model_dir) -> None:
+    """Load a diffusers checkpoint as a DiffusionPipeline in bf16 on the
+    engine's device, the whole model on this node (a ring node serves it
+    alone, as in the reference). ``XOT_TPU_QUANT`` leaves it unquantized."""
+    from ..models.diffusion_loader import diffusion_config_from_dir, load_diffusion_params
+    from .diffusion_pipeline import DiffusionPipeline
+
+    model_dir = Path(model_dir)
+    self._drop_text_model()
+    self.diffusion = None
+    cfg = diffusion_config_from_dir(model_dir)
+    params = load_diffusion_params(model_dir, cfg, dtype=torch.bfloat16, device=self.device)
+    tokenizer = None
+    if (model_dir / "tokenizer").exists():
+      from transformers import AutoTokenizer
+
+      tokenizer = AutoTokenizer.from_pretrained(str(model_dir / "tokenizer"))
+    self.diffusion = DiffusionPipeline(cfg, params, tokenizer, dtype=torch.bfloat16, device=self.device)
+    self.tokenizer = tokenizer
+    self.shard = shard
+    self._effective_shard = shard
+    self._model_dir = model_dir
+    if DEBUG >= 1:
+      print(f"[torch_engine] loaded diffusion pipeline {shard.model_id} from {model_dir} on {self.device}")
+
+  def load_test_diffusion(self, shard: Shard, cfg, params, tokenizer=None) -> None:
+    """Directly inject a diffusion model (tests), in f32."""
+    from .diffusion_pipeline import DiffusionPipeline
+
+    self._drop_text_model()
+    self.diffusion = DiffusionPipeline(cfg, params, tokenizer, dtype=torch.float32, device=self.device)
+    self.tokenizer = tokenizer
+    self.shard = shard
+    self._effective_shard = shard
+
+  async def generate_image(
+    self,
+    shard: Shard,
+    prompt: str,
+    negative: str = "",
+    steps: int = 30,
+    guidance: float = 7.5,
+    seed: int = 0,
+    size: tuple[int, int] | None = None,
+    init_image: np.ndarray | None = None,
+    strength: float = 0.8,
+    progress_cb=None,
+    cancel_event=None,
+    n: int = 1,
+  ) -> np.ndarray:
+    """Text-to-image (or img2img) on the loaded pipeline, on the executor
+    thread like all device work; ``progress_cb`` is called on the event
+    loop. ``cancel_event`` (a threading.Event) stops the denoise between
+    chunks: cancelling the awaiting task cannot stop the worker thread."""
+    await self.ensure_shard(shard)
+    # A snapshot: a text model loading on the worker thread may drop
+    # self.diffusion before this request's turn comes.
+    pipeline = self.diffusion
+    if pipeline is None:
+      raise NotImplementedError(f"{shard.model_id} is not an image-generation model")
+    loop = asyncio.get_running_loop()
+    cb = None
+    if progress_cb is not None:
+      def cb(done, total):  # noqa: E306 — the worker thread's report, marshalled to the loop
+        loop.call_soon_threadsafe(progress_cb, done, total)
+    return await loop.run_in_executor(
+      self.executor,
+      lambda: pipeline.generate(
+        prompt, negative=negative, steps=steps, guidance=guidance, seed=seed, size=size, init_image=init_image,
+        strength=strength, progress_cb=cb, should_cancel=cancel_event.is_set if cancel_event is not None else None, n=n,
+      ),
+    )
 
   def _refuse_partial_spec(self, shard: Shard) -> None:
     """Solo speculation (``XOT_TPU_SPEC_DECODE``) needs the whole model on
@@ -502,6 +610,8 @@ class TorchShardedInferenceEngine(InferenceEngine):
 
   async def encode(self, shard: Shard, prompt: str) -> np.ndarray:
     await self.ensure_shard(shard)
+    if self.diffusion is not None:
+      raise NotImplementedError(f"{shard.model_id} is an image-generation model; use /v1/image/generations")
     return np.asarray(self.tokenizer.encode(prompt), dtype=np.int32)
 
   async def decode(self, shard: Shard, tokens: np.ndarray) -> str:

@@ -15,7 +15,9 @@ n_slots, ...], inference/adapters.py) come across in ``cfg.dtype``, never
 quantized, so a test builds the port's adapter state from the reference
 engine's. A llava tree's ``vision`` (its nested ``layers`` stack) and
 ``projector`` groups come across leaf for leaf in ``cfg.dtype``; weight
-quantization leaves them alone in both packages. The input is plain numpy
+quantization leaves them alone in both packages.
+``diffusion_params_from_jax`` carries a stable-diffusion tree across
+(models/diffusion.py's layouts). The input is plain numpy
 (bf16 arrives as an ``ml_dtypes`` array and is reinterpreted bit for bit),
 so this module never imports JAX.
 """
@@ -85,3 +87,32 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, shard: Shard, device=None
       params[name] = tree(np_params[name])
   check_shard_params(params, cfg, shard)
   return params
+
+
+def diffusion_params_from_jax(np_params: dict, cfg, device=None, dtype=torch.float32) -> dict:
+  """The reference's stable-diffusion tree (``clip``, ``unet``, ``vae``) →
+  the port's (models/diffusion.py): HWIO convolutions become OIHW, ``[in,
+  out]`` linears ``[out, in]`` (the stacked CLIP layers' ``[L, in, out]``
+  become ``[L, out, in]``); vectors, norm gains and the CLIP embeddings
+  keep their shape. ``cfg`` is the model's DiffusionConfig (the leaves
+  carry their own shapes; it is checked against the token embedding)."""
+
+  def leaf(arr, clip: bool) -> torch.Tensor:
+    t = _tensor(arr, dtype, device)
+    if t.ndim == 4:
+      return t.permute(3, 2, 0, 1).contiguous()
+    if (t.ndim == 2 and not clip) or t.ndim == 3:
+      return t.transpose(-1, -2).contiguous()
+    return t
+
+  def tree(node, clip: bool):
+    if isinstance(node, dict):
+      return {k: tree(v, clip) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+      return [tree(v, clip) for v in node]
+    return leaf(node, clip)
+
+  clip = {k: (tree(v, clip=True) if k == "layers" else _tensor(v, dtype, device)) for k, v in np_params["clip"].items()}
+  if tuple(clip["tok_emb"].shape) != (cfg.clip.vocab_size, cfg.clip.hidden_size):
+    raise ValueError(f"token embedding {tuple(clip['tok_emb'].shape)} does not match the config's {(cfg.clip.vocab_size, cfg.clip.hidden_size)}")
+  return {"clip": clip, "unet": tree(np_params["unet"], clip=False), "vae": tree(np_params["vae"], clip=False)}

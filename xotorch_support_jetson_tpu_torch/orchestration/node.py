@@ -37,6 +37,7 @@ the partition map against each member's reported memory
 (``_ring_budget_problems``; the API answers 507). While the node runs, a
 background task keeps the SLO engine's windows fresh off the event loop.
 ``score_tokens`` serves the API's ``logprobs`` (whole model only),
+``process_image_prompt`` the image routes (the whole model on this node),
 ``graceful_drain`` the shutdown's wait. Not ported (each refused):
 fault injection (``XOT_TPU_CHAOS``), disaggregation
 (``XOT_TPU_DISAGG``), the cluster pulls over the opaque-status channel.
@@ -62,6 +63,7 @@ from ..topology.device_capabilities import UNKNOWN_DEVICE_CAPABILITIES, device_c
 from ..topology.partitioning import PartitioningStrategy, RingMemoryWeightedPartitioningStrategy, map_partitions_to_shards
 from ..topology.topology import Topology
 from ..utils.helpers import DEBUG, AsyncCallbackSystem
+from ..utils.metrics import metrics
 from .slo import slo_enabled, slo_engine
 
 SLO_POLL_S = 1.0  # how often the node offers the SLO engine a tick (it self-gates to XOT_TPU_SLO_TICK_S)
@@ -310,6 +312,34 @@ class Node:
         self.spawn(self.broadcast_opaque_status(request_id, json.dumps({
           "type": "node_status", "node_id": self.id, "status": "end_process_prompt", "request_id": request_id, "elapsed_time_ns": time.perf_counter_ns() - t0,
         })))
+
+  async def process_image_prompt(
+    self,
+    base_shard: Shard,
+    prompt: str,
+    request_id: str | None = None,
+    *,
+    negative: str = "",
+    steps: int = 30,
+    guidance: float = 7.5,
+    seed: int = 0,
+    size: tuple[int, int] | None = None,
+    init_image=None,
+    strength: float = 0.8,
+    progress_cb=None,
+    cancel_event=None,
+    n: int = 1,
+  ):
+    """Image generation (the stable-diffusion family) → uint8 [H, W, 3]
+    ([n, H, W, 3] when n > 1). The whole model runs on this node's engine,
+    also on a ring node: the request never goes round the ring, and its
+    progress comes from the denoise loop's chunk boundaries."""
+    full = Shard(base_shard.model_id, 0, base_shard.n_layers - 1, base_shard.n_layers)
+    metrics.inc("requests_total")
+    return await self.inference_engine.generate_image(
+      full, prompt, negative=negative, steps=steps, guidance=guidance, seed=seed, size=size,
+      init_image=init_image, strength=strength, progress_cb=progress_cb, cancel_event=cancel_event, n=n,
+    )
 
   async def _process_prompt(self, base_shard: Shard, prompt: str, request_id: str, inference_state: InferenceState | None, wire_concrete: bool):
     shard = base_shard if wire_concrete else self.get_current_shard(base_shard)

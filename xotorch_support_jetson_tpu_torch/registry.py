@@ -1,8 +1,9 @@
 """Model registry: model id → layer count, family, HF repo — the dense,
-gemma2, qwen3-moe, deepseek (MLA + MoE) and llava (vision) cards of the
-reference's ``registry.py``, keyed by the port engine's class name, and the
-dummy engine's card. The diffusion cards wait for the slice that ports
-that model family.
+gemma2, qwen3-moe, deepseek (MLA + MoE), llava (vision) and
+stable-diffusion cards of the reference's ``registry.py``, keyed by the
+port engine's class name, and the dummy engine's card. A stable-diffusion
+card's layer count is the reference's and unused: a diffusion model is
+served whole on one node (inference/torch_engine.py).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ class ModelCard:
   model_id: str
   layers: int
   pretty: str
-  family: str  # "llama" | "qwen2" | "qwen3" | "qwen3-moe" | "deepseek-moe" | "mistral" | "phi3" | "gemma2" | "llava" | "dummy"
+  family: str  # "llama" | "qwen2" | "qwen3" | "qwen3-moe" | "deepseek-moe" | "mistral" | "phi3" | "gemma2" | "llava" | "stable-diffusion" | "dummy"
   repo: dict[str, str] = field(default_factory=dict)
 
   def repo_for(self, engine_classname: str) -> str | None:
@@ -60,6 +61,11 @@ _CARDS: list[ModelCard] = [
   _card("phi-4-mini-instruct", 32, "Phi-4 Mini Instruct", "phi3", "microsoft/Phi-4-mini-instruct"),
   _card("gemma2-9b", 42, "Gemma2 9B", "gemma2", "google/gemma-2-9b-it"),
   _card("gemma2-27b", 46, "Gemma2 27B", "gemma2", "google/gemma-2-27b-it"),
+  # SD 2.1-base (OpenCLIP-H text encoder), SD 1.5 (quick_gelu CLIP, 8-head
+  # UNet levels, conv proj_in) and the 768 px v-prediction SD 2.1
+  _card("stable-diffusion-2-1-base", 31, "Stable Diffusion 2.1", "stable-diffusion", "stabilityai/stable-diffusion-2-1-base"),
+  _card("stable-diffusion-1-5", 31, "Stable Diffusion 1.5", "stable-diffusion", "stable-diffusion-v1-5/stable-diffusion-v1-5"),
+  _card("stable-diffusion-2-1", 31, "Stable Diffusion 2.1 (768, v-pred)", "stable-diffusion", "stabilityai/stable-diffusion-2-1"),
 ]
 
 model_cards: dict[str, ModelCard] = {c.model_id: c for c in _CARDS}
